@@ -1,0 +1,569 @@
+#!/usr/bin/env python3
+"""Chip smoke run of the PyTorch/CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py
+
+Needs one NVIDIA card (Hopper, ``sm_90a``) and ``nvcc``; exits non-zero
+without a card, or when run without the rest of the repository.  Phases,
+one line each (any failure exits non-zero and prints no ``ok`` line):
+
+1. device: name, count, power limit, torch and CUDA versions;
+2. build: the three attention kernels from ``src/repro_torch/kernels/csrc``;
+3. kernels: each kernel against its plain PyTorch version at every
+   shape the main path gives it in bf16 (per element, two bf16 ulps of
+   the plain value plus 1e-5), at the main geometry (MHA, head_dim 96)
+   in float32 and at smoke shapes in float32 with GQA group 2 (1e-5),
+   with kernel, plain and library times from CUDA events (L2 flushed
+   before each timed launch);
+4. engine: ``ServeSession`` on full-width, full-depth phi3-mini-3.8b in
+   bf16 with random weights from a seed, 8 requests of mixed prompt
+   lengths, 32 new tokens each; every request must complete with finite
+   logits, through the flash and paged-decode kernels;
+5. generate: a left-padded batch of 4 on the same weights, through the
+   contiguous decode kernel; then a short engine drain under
+   ``torch.profiler`` (device busy share, device time by kernel group);
+6. exact tokens: on phi3-mini-3.8b-smoke in float32, the engine's and
+   ``generate``'s tokens through the kernels must equal those of the
+   plain PyTorch path.
+
+The line before the last is the kernels' JSON summary, the last line
+``{"ok": true, "device": {...}}``.
+"""
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12                         # H100 SXM data sheet
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per dtype
+# Kernel-vs-plain tolerance per element.  bf16: both sides accumulate in
+# float32 and round once to bf16, so they may differ by the rounding of
+# that last step; two bf16 ulps of |plain| (2**(floor(log2|x|) - 7))
+# plus a float32-level floor for outputs near zero.  float32: absolute.
+TOL = {"bfloat16": "2 ulp(|plain|) + 1e-5", "float32": 1e-5}
+BF16_ULPS, BF16_FLOOR = 2, 1e-5
+PHI3 = "phi3-mini-3.8b"
+NEW_TOKENS = 32
+ENGINE_PROMPTS = [200, 17, 300, 150, 45, 260, 130, 77]
+GENERATE_PROMPTS = [40, 100, 250, 300]
+
+
+def fail(msg):
+    """Stop the run: message on stderr, exit code 1, no result line."""
+    raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def phase(tag, /, **fields):
+    """Print one phase line."""
+    print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
+          flush=True)
+
+
+def nvidia_smi_line():
+    """``name, power.limit`` as nvidia-smi reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+class Timer:
+    """Median device time in ms of one call, from CUDA events.
+
+    Before each timed call the 50 MB L2 cache is flushed (a decode step
+    finds the KV cache cold: 32 layers of it do not fit in L2) and the
+    stream is kept busy with a ~0.5 ms spin, so the host has enqueued
+    the call before the start event fires: the events measure the
+    device time of everything the call launches, not the host's Python
+    around it."""
+
+    SPIN_CYCLES = 1_000_000
+
+    def __init__(self, torch, device):
+        """Allocate the flush buffer on ``device``."""
+        self.torch = torch
+        self.flush = torch.empty(64 * 2 ** 20, dtype=torch.int32,
+                                 device=device)
+
+    def __call__(self, fn, iters=25, warmup=3):
+        """Median ms of ``fn()`` over ``iters`` calls."""
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        pairs = []
+        for _ in range(iters):
+            self.flush.zero_()
+            torch.cuda._sleep(self.SPIN_CYCLES)
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            pairs.append((s, e))
+        torch.cuda.synchronize()
+        ms = sorted(s.elapsed_time(e) for s, e in pairs)
+        return ms[len(ms) // 2]
+
+
+# Mangled-name patterns of the instantiations the bf16 main path runs
+# (head_dim 96, MHA): flash with 24 dims a thread, decode with group 1
+# and 3 dims a lane.
+MAIN_PATH_INSTANCES = {
+    "flash_attention": r"flash_fwd_kernelI13__nv_bfloat16Li24E",
+    "paged_decode_attention":
+        r"decode_kernelI13__nv_bfloat16Li1ELi3ENS_7PagedKV",
+    "decode_attention": r"decode_kernelI13__nv_bfloat16Li1ELi3ENS_8ContigKV",
+}
+
+
+def ptxas_stats(log, pattern):
+    """Registers, spill stores and shared memory ptxas reported for the
+    entry function matching ``pattern``."""
+    m = re.search(r"Compiling entry function '[^']*" + pattern
+                  + r"[^']*'.*?Used (\d+) registers", log, re.DOTALL)
+    if not m:
+        return {"registers": "not found"}
+    tail = log[m.start():m.end() + 200]
+    spill = re.search(r"(\d+) bytes spill stores", tail)
+    smem = re.search(r"(\d+) bytes smem", tail)
+    return {"registers": int(m.group(1)),
+            "spill_store_bytes": int(spill.group(1)) if spill else 0,
+            "smem_bytes": int(smem.group(1)) if smem else 0}
+
+
+def tolerance_share(torch, got, want):
+    """(max abs error, worst error as a share of the element's
+    tolerance ``TOL``); the check passes when the share is <= 1."""
+    diff = (got.float() - want.float()).abs()
+    if want.dtype == torch.bfloat16:
+        mag = want.float().abs().clamp_min(2.0 ** -126)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        allowed = BF16_ULPS * ulp + BF16_FLOOR
+    else:
+        allowed = torch.full_like(diff, TOL["float32"])
+    return diff.max().item(), (diff / allowed).max().item()
+
+
+def bound(n_bytes, n_ops, dtype):
+    """Least time (ms) for the work, and what bounds it."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / PEAK_OPS[dtype]
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
+
+def kernel_checks(torch, dev, timer):
+    """Phase 3: each kernel against its plain version; returns the
+    per-kernel summary entries (launches filled in later)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     paged_decode_attention)
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_ref, paged_decode_attention_ref)
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.models import bucket_length
+
+    gen = torch.Generator(device=dev).manual_seed(1234)
+
+    def rn(shape, dtype):
+        """Seeded normal tensor on the card."""
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    worst = {}          # kernel -> max abs error of its bf16 checks
+
+    def check(name, got, want, shape):
+        """Hold ``got`` against ``want`` at the dtype's tolerance, print
+        one check line, fail on any element outside it."""
+        dtype = str(want.dtype).replace("torch.", "")
+        e, share = tolerance_share(torch, got, want)
+        phase("check", kernel=name, dtype=dtype, shape=shape,
+              max_abs_err=f"{e:.3g}", tol=repr(TOL[dtype]),
+              worst_share_of_tol=f"{share:.3g}", ok=share <= 1.0)
+        if share > 1.0:
+            fail(f"{name} {dtype} {shape} disagrees with its plain "
+                 f"version: max abs err {e}, {share:.3g}x the tolerance "
+                 f"{TOL[dtype]}")
+        if dtype == "bfloat16":
+            worst[name] = max(worst.get(name, 0.0), e)
+
+    summary = {}
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    # ---- flash prefill: each engine admission is a batch-1 left-padded
+    # prefill at its prompt's bucket; generate prefills [4, 512] with
+    # the four prompts' starts.  bf16 at those shapes, float32 at the
+    # main geometry (MHA, D 96) and at smoke shapes with GQA group 2.
+    def flash_case(dtype, b, hq, hkv, s, d, starts=None, **kw):
+        """Check flash against its plain version on fresh inputs."""
+        q = rn((b, hq, s, d), dtype)
+        k, v = rn((b, hkv, s, d), dtype), rn((b, hkv, s, d), dtype)
+        if starts is not None:
+            kw["starts"] = torch.as_tensor(starts, device=dev)
+        check("flash_attention", flash_attention(q, k, v, **kw),
+              flash_attention_ref(q, k, v, **kw),
+              f"[{b},{hq},{s},{d}]/{hkv}kv " + " ".join(
+                  f"{n}={x.tolist() if torch.is_tensor(x) else x}"
+                  for n, x in kw.items()))
+
+    for p in sorted(set(ENGINE_PROMPTS)):
+        s = bucket_length(p)
+        flash_case(bf16, 1, 32, 32, s, 96, starts=[s - p])
+    gstarts = [512 - n for n in GENERATE_PROMPTS]
+    flash_case(bf16, 4, 32, 32, 512, 96, starts=gstarts)
+    flash_case(f32, 1, 32, 32, 512, 96, starts=[212])
+    flash_case(f32, 4, 32, 32, 512, 96, starts=gstarts)
+    for s in (24, 64):
+        flash_case(f32, 2, 4, 2, s, 16, starts=[0, s // 3])
+        flash_case(f32, 2, 4, 2, s, 16, window=9)
+    # timed at the largest engine prefill: [1, 32, 512, 96], 300 real
+    s, real = 512, 300
+    q = rn((1, 32, s, 96), bf16)
+    k, v = rn((1, 32, s, 96), bf16), rn((1, 32, s, 96), bf16)
+    st = torch.tensor([s - real], device=dev)
+    mask = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+    mask = mask & (torch.arange(s, device=dev)[None, :] >= s - real)
+    # what the data needs: Q/K/V rows from the start, every O row
+    n_bytes = (3 * real + s) * 32 * 96 * 2 + 4
+    n_ops = 4 * 96 * 32 * real * (real + 1) // 2
+    b_ms, b_by = bound(n_bytes, n_ops, "bfloat16")
+    summary["flash_attention"] = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:155",
+        launches=0, max_abs_err=worst["flash_attention"],
+        ms=timer(lambda: flash_attention(q, k, v, starts=st)),
+        plain_ms=timer(lambda: flash_attention_ref(q, k, v, starts=st)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=timer(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask)),
+        shape="q,k,v [1,32,512,96] bf16, causal, starts=[212]")
+
+    # ---- paged decode: the engine's pool geometry (bs 16, 34 blocks a
+    # row, 1 + rows * 34 blocks) at its row counts 1, 2 and 4, mixed
+    # depths, shuffled tables.
+    bs, mb = 16, 34
+
+    def paged_inputs(dtype, hq, hkv, d, pos_list):
+        """q, pools, shuffled tables and positions, one row per pos."""
+        rows = len(pos_list)
+        nb = 1 + rows * mb
+        qd = rn((rows, hq, 1, d), dtype)
+        kp, vp = rn((nb, hkv, bs, d), dtype), rn((nb, hkv, bs, d), dtype)
+        perm = torch.randperm(nb - 1, generator=torch.Generator()
+                              .manual_seed(7)) + 1
+        tables = perm.reshape(rows, mb).to(torch.int32).to(dev)
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+        return qd, kp, vp, tables, pos
+
+    def paged_case(dtype, hq, hkv, d, pos_list):
+        """Check paged decode against its plain version; returns the
+        inputs."""
+        args = paged_inputs(dtype, hq, hkv, d, pos_list)
+        check("paged_decode_attention", paged_decode_attention(*args),
+              paged_decode_attention_ref(*args),
+              f"[{len(pos_list)},{hq},1,{d}]/{hkv}kv pos={pos_list}")
+        return args
+
+    pos_list = [17, 100, 300, 511]
+    for pl in ([300], [17, 511]):
+        paged_case(bf16, 32, 32, 96, pl)
+    pargs = paged_case(bf16, 32, 32, 96, pos_list)
+    paged_case(f32, 32, 32, 96, pos_list)
+    paged_case(f32, 4, 2, 16, [0, 15, 16, 200])
+    ctx = sum(p + 1 for p in pos_list)
+    n_bytes = (2 * 4 * 32 * 96 * 2 + ctx * 32 * 96 * 2 * 2
+               + 4 * mb * 4 + 4 * 4)
+    b_ms, b_by = bound(n_bytes, 4 * 96 * 32 * ctx, "bfloat16")
+    summary["paged_decode_attention"] = dict(
+        name="paged_decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention/kernel.py:178",
+        launches=0, max_abs_err=worst["paged_decode_attention"],
+        ms=timer(lambda: paged_decode_attention(*pargs)),
+        plain_ms=timer(lambda: paged_decode_attention_ref(*pargs)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape="q [4,32,1,96], pools [137,32,16,96] bf16, "
+              "pos=[17,100,300,511]")
+
+    # ---- contiguous decode: generate's cache [4, 32, 544, 96] at its
+    # first decode step (pos 512) with the left-pad starts.
+    s = 512 + NEW_TOKENS
+    starts = [512 - n for n in GENERATE_PROMPTS]
+    qd = rn((4, 32, 1, 96), bf16)
+    kc, vc = rn((4, 32, s, 96), bf16), rn((4, 32, s, 96), bf16)
+    st = torch.tensor(starts, device=dev)
+    for p in (512, 530, s - 1):
+        check("decode_attention", decode_attention(qd, kc, vc, p, starts=st),
+              decode_attention_ref(qd, kc, vc, p, starts=st),
+              f"[4,32,1,96] k/v [4,32,{s},96] pos={p} starts={starts}")
+    q32, k32, v32 = (t.float() for t in (qd, kc, vc))
+    check("decode_attention", decode_attention(q32, k32, v32, 512,
+                                               starts=st),
+          decode_attention_ref(q32, k32, v32, 512, starts=st),
+          f"[4,32,1,96] k/v [4,32,{s},96] pos=512 starts={starts}")
+    qf = rn((3, 4, 1, 16), f32)
+    kf, vf = rn((3, 2, 40, 16), f32), rn((3, 2, 40, 16), f32)
+    posf = torch.tensor([5, 20, 39], device=dev)
+    stf = torch.tensor([0, 11, 30], device=dev)
+    check("decode_attention", decode_attention(qf, kf, vf, posf, starts=stf),
+          decode_attention_ref(qf, kf, vf, posf, starts=stf),
+          "[3,4,1,16]/2kv k/v [3,2,40,16] pos=[5,20,39] starts=[0,11,30]")
+    p = 512
+    ctx = sum(p - a + 1 for a in starts)
+    kpos = torch.arange(s, device=dev)[None, :]
+    dmask = ((kpos <= p) & (kpos >= st[:, None]))[:, None, None, :]
+    n_bytes = 2 * 4 * 32 * 96 * 2 + ctx * 32 * 96 * 2 * 2 + 4 * 4 * 2
+    b_ms, b_by = bound(n_bytes, 4 * 96 * 32 * ctx, "bfloat16")
+    summary["decode_attention"] = dict(
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention/kernel.py:69",
+        launches=0, max_abs_err=worst["decode_attention"],
+        ms=timer(lambda: decode_attention(qd, kc, vc, p, starts=st)),
+        plain_ms=timer(lambda: decode_attention_ref(qd, kc, vc, p,
+                                                    starts=st)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=timer(lambda: F.scaled_dot_product_attention(
+            qd, kc, vc, attn_mask=dmask)),
+        shape="q [4,32,1,96], k/v [4,32,544,96] bf16, pos 512, "
+              "starts=[472,412,262,212]")
+    for e in summary.values():
+        phase("time", kernel=e["name"], ms=f"{e['ms']:.4f}",
+              plain_ms=f"{e['plain_ms']:.4f}",
+              bound_ms=f"{e['bound_ms']:.4f}", bound_by=e["bound_by"],
+              library_ms=("null" if e["library_ms"] is None
+                          else f"{e['library_ms']:.4f}"))
+    return summary
+
+
+def profile_engine(torch, model, params, prompts):
+    """One short engine drain (4 requests, 16 new tokens) under
+    ``torch.profiler``: the device's busy share of the wall time and
+    the kernels that take the device time (launches here are not
+    counted as the main path's: the counts were read before)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import ServeSession
+
+    session = ServeSession(model, params, backend="cuda", batch_sizes=(4,))
+    for i, p in enumerate(prompts):
+        session.submit(p, 16, request_id=f"p{i}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        session.drain()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+
+    def dev_us(e):
+        """Self device time of one averaged event, in us."""
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    total = sum(dev_us(e) for e in kern)
+    if not kern:
+        phase("profile", device_events=0,
+              note="the profiler recorded no device time")
+        return
+    groups = {"attention": 0.0, "gemm": 0.0, "other": 0.0}
+    for e in kern:
+        n = e.key.lower()
+        if "flash_fwd_kernel" in n or "decode_kernel" in n:
+            groups["attention"] += dev_us(e)
+        elif any(t in n for t in ("gemm", "gemv", "nvjet", "cutlass")):
+            groups["gemm"] += dev_us(e)
+        else:
+            groups["other"] += dev_us(e)
+    st = session.stats
+    phase("profile", window="4_requests_x_16_tokens",
+          wall_ms=f"{wall_us / 1e3:.1f}",
+          device_ms=f"{total / 1e3:.1f}",
+          device_busy_share=f"{total / wall_us:.3f}",
+          steps=st.steps, admissions=st.inflight_admissions,
+          kernels_launched=sum(e.count for e in kern),
+          **{f"{g}_ms": f"{t / 1e3:.2f}" for g, t in groups.items()})
+    for e in sorted(kern, key=dev_us, reverse=True)[:8]:
+        phase("profile_top", kernel=repr(e.key[:70]), calls=e.count,
+              device_ms=f"{dev_us(e) / 1e3:.3f}",
+              share=f"{dev_us(e) / total:.3f}")
+
+
+def prompts_of(lengths, vocab, seed):
+    """Random prompts of the given lengths (numpy, from ``seed``)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, vocab, n).astype(np.int32) for n in lengths]
+
+
+def engine_run(torch, model, params, prompts, backend, **kw):
+    """Serve ``prompts`` through a fresh ServeSession; returns
+    (results by id, session)."""
+    from repro_torch.serving import ServeSession
+    session = ServeSession(model, params, backend=backend,
+                           batch_sizes=(1, 2, 4), **kw)
+    for i, p in enumerate(prompts):
+        session.submit(p, NEW_TOKENS, request_id=f"r{i}")
+    res = {r.request_id: r for r in session.drain()}
+    torch.cuda.synchronize()
+    return res, session
+
+
+def main():
+    """Run every phase on the card; exit non-zero on the first failure."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this run needs a card")
+    sys.path.insert(0, str(REPO / "src"))
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = nvidia_smi_line()
+    phase("device", kind=repr(name), count=count, smi=repr(smi),
+          torch=torch.__version__, cuda=torch.version.cuda)
+    t0 = time.perf_counter()
+    _build.load()
+    phase("build", seconds=f"{time.perf_counter() - t0:.1f}",
+          sources=len(_build.sources()))
+    for kernel, pattern in MAIN_PATH_INSTANCES.items():
+        phase("ptxas", kernel=kernel, **ptxas_stats(_build.build_log,
+                                                     pattern))
+    dev = torch.device("cuda")
+    summary = run(torch, dev, Timer(torch, dev), smi, PHI3)
+    print(json.dumps({"kernels": list(summary.values())}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": name,
+                                             "count": count}}))
+
+
+def run(torch, dev, timer, smi, arch):
+    """Phases 3-6 on ``dev`` with model ``arch``; returns the kernels'
+    summary entries."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import (build_model, left_pad_prompts,
+                                    prompt_starts)
+    from repro_torch.runtime import generate
+
+    summary = kernel_checks(torch, dev, timer)
+
+    # ---- engine on full phi3-mini-3.8b, bf16, random weights
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    phase("init", arch=cfg.name, params=n_params,
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    prompts = prompts_of(ENGINE_PROMPTS, cfg.vocab_size, seed=1)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, session = engine_run(torch, model, params, prompts, "cuda")
+    wall = time.perf_counter() - t0
+    engine_counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    bad = [r for r in res.values()
+           if r.state != "COMPLETED" or len(r.tokens) != NEW_TOKENS]
+    if len(res) != len(prompts) or bad:
+        fail(f"engine: {len(res)} results, not completed: "
+             f"{[(r.request_id, r.state, r.reason) for r in bad]}")
+    for k in ("flash_attention", "paged_decode_attention"):
+        if engine_counts[k] < 1:
+            fail(f"engine ran no {k} kernel: {engine_counts}")
+    st = session.stats.to_dict()
+    phase("engine", arch=cfg.name, card=repr(smi),
+          requests=st["requests"], steps=st["steps"],
+          activations=st["batches"], ttft_p50_s=f"{st['ttft_p50_s']:.4f}",
+          ttft_p95_s=f"{st['ttft_p95_s']:.4f}",
+          decode_tok_s=f"{st['decode_tok_s']:.1f}",
+          prefill_s=f"{st['prefill_s']:.3f}",
+          decode_s=f"{st['decode_s']:.3f}", wall_s=f"{wall:.2f}",
+          e2e_tok_s=f"{st['tokens_generated'] / wall:.1f}",
+          peak_mem_gib=f"{peak:.2f}", launches=json.dumps(engine_counts))
+
+    # ---- generate: left-padded batch of 4, contiguous decode
+    gp = prompts_of(GENERATE_PROMPTS, cfg.vocab_size, seed=2)
+    toks = left_pad_prompts(gp, 512)
+    starts = prompt_starts(gp, 512)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, gstats = generate(model, params, {"tokens": toks},
+                           max_new_tokens=NEW_TOKENS, backend="cuda",
+                           seq_starts=starts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gen_counts = kernels.launch_counts()
+    if out.shape != (4, NEW_TOKENS) or out.min() < 0 \
+            or out.max() >= cfg.vocab_size:
+        fail(f"generate: bad tokens {out.shape} {out.min()}..{out.max()}")
+    if gen_counts["decode_attention"] < 1 or \
+            gen_counts["flash_attention"] < 1:
+        fail(f"generate ran no decode/flash kernel: {gen_counts}")
+    phase("generate", batch=4, prompt_len=512, new_tokens=NEW_TOKENS,
+          prefill_s=f"{gstats.prefill_s:.3f}",
+          decode_tok_s=f"{gstats.decode_tok_s:.1f}", wall_s=f"{wall:.2f}",
+          e2e_tok_s=f"{gstats.tokens_generated / wall:.1f}",
+          card=repr(smi), launches=json.dumps(gen_counts))
+    for k, e in summary.items():
+        e["launches"] = engine_counts[k] + gen_counts[k]
+    profile_engine(torch, model, params, prompts[:4])
+    phase("launches_per_engine_step",
+          paged_decode_attention=engine_counts["paged_decode_attention"]
+          / max(st["steps"], 1),
+          flash_attention_per_admission=engine_counts["flash_attention"]
+          / max(st["inflight_admissions"], 1))
+    del params, session, res
+    torch.cuda.empty_cache()
+
+    # ---- exact tokens on the smoke config, float32: kernels vs plain
+    scfg = get_config(PHI3 + "-smoke")
+    smodel = build_model(scfg)
+    sparams = smodel.init(seed=0, device=dev)
+    sprompts = prompts_of([5, 7, 3, 6, 12, 9], scfg.vocab_size, seed=3)
+    streams = {}
+    for backend in ("cuda", "plain"):
+        r, _ = engine_run(torch, smodel, sparams, sprompts, backend,
+                          kv_block_size=4)
+        streams[backend] = {k: v.tokens.tolist() for k, v in r.items()}
+    if streams["cuda"] != streams["plain"]:
+        fail("smoke engine tokens through the kernels differ from the "
+             "plain path")
+    stoks = left_pad_prompts(sprompts[:4], 8)
+    sst = prompt_starts(sprompts[:4], 8)
+    g = {b: generate(smodel, sparams, {"tokens": stoks},
+                     max_new_tokens=12, backend=b, seq_starts=sst)[0]
+         for b in ("cuda", "plain")}
+    if not (g["cuda"] == g["plain"]).all():
+        fail("smoke generate tokens through the kernels differ from the "
+             "plain path")
+    phase("exact_tokens", arch=scfg.name, dtype="float32",
+          engine_requests=len(sprompts), generate_rows=4, equal=True)
+    return summary
+
+
+def _leaves(tree):
+    """Tensors of a nested parameter dict."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,9 @@
+"""Single-query decode attention (contiguous and paged): CUDA kernel
+wrappers and their plain versions."""
+from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                      paged_decode_attention)
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_ref, paged_decode_attention_ref)
+
+__all__ = ["decode_attention", "paged_decode_attention",
+           "decode_attention_ref", "paged_decode_attention_ref"]

@@ -1,0 +1,72 @@
+"""Wrapper of the CUDA flash-attention kernel (prefill).
+
+Replaces ``src/repro/kernels/flash_attention/kernel.py``
+(``flash_attention_pallas``).  On an H100 the kernel is bound by bytes
+at the engine's prefill lengths (S <= 512): it reads Q, K and V once and
+writes O once, and its causal operation count stays far below the
+card's ridge.  Its design (``csrc/flash_attention.cu``): one block per
+(batch x query head, 64-row query tile), K/V tiles staged in shared
+memory, f32 online softmax in registers, only the KV tiles the mask can
+reach are visited, GQA by indexing the KV head.
+
+For a CPU tensor the wrapper runs :func:`flash_attention_ref`; for a
+CUDA tensor it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._checks import (KERNEL_DTYPES, check_same,
+                                         int32_vector, on_cpu, q_scale,
+                                         require)
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+MAX_HEAD_DIM = 128
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    starts: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """q [B,HQ,S,D]; k/v [B,HKV,S,D] -> [B,HQ,S,D] (see
+    :func:`flash_attention_ref` for the exact function).
+
+    ``starts`` ([B] int, optional) masks keys below each row's first
+    real token; ``window`` keeps keys with ``kp > qp - window``."""
+    if on_cpu(q):
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   starts=starts)
+    require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4,
+            "flash_attention: q, k, v must be [B,H,S,D]")
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    require(k.shape == (b, hkv, s, d) and v.shape == k.shape,
+            f"flash_attention: k/v shape {tuple(k.shape)} does not match "
+            f"q {tuple(q.shape)}")
+    require(hq % hkv == 0, "flash_attention: HQ must be a multiple of HKV")
+    require(1 <= d <= MAX_HEAD_DIM,
+            f"flash_attention: head_dim {d} not in [1, {MAX_HEAD_DIM}]")
+    require(q.dtype in KERNEL_DTYPES,
+            f"flash_attention: dtype {q.dtype} not supported")
+    require(window is None or window > 0, "flash_attention: window <= 0")
+    check_same("flash_attention", [q, k, v], q.dtype)
+    st = (None if starts is None
+          else int32_vector(starts, b, q.device, "starts"))
+    out = torch.empty_like(q)
+    lib = _build.load()
+    rc = lib.flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if st is None else st.data_ptr(), b, hq, hkv, s, d,
+        int(bool(causal)), int(window or 0), q_scale(q),
+        int(q.dtype == torch.bfloat16), _build.stream_handle(q.device))
+    _build.check(rc, "flash_attention_fwd")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+__all__ = ["flash_attention", "MAX_HEAD_DIM"]

@@ -1,0 +1,6 @@
+"""Dense decoder model of the port (layers, attention, transformer)."""
+from repro_torch.models.model_zoo import (Model, build_model, bucket_length,
+                                          left_pad_prompts, prompt_starts)
+
+__all__ = ["Model", "build_model", "bucket_length", "left_pad_prompts",
+           "prompt_starts"]

@@ -1,0 +1,89 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+These tests need an NVIDIA card with ``nvcc`` (they build the kernels);
+they carry the ``gpu`` marker and skip elsewhere.  The file imports no
+JAX, so it also runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py -q
+
+Tolerances, per element: float32 atol 1e-5 (same arithmetic, other
+summation order); bf16 two bf16 ulps of the plain value plus 1e-5 (both
+sides accumulate in float32 and round once to bf16).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import (decode_attention, flash_attention,  # noqa: E402
+                                 paged_decode_attention)
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention_ref, paged_decode_attention_ref)
+from repro_torch.kernels.flash_attention import flash_attention_ref  # noqa: E402
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, with TF32 off for the float32 comparisons; skips
+    without one (decided here, never at import)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _share_of_tol(got, want):
+    """Worst |got - want| as a share of each element's tolerance."""
+    diff = (got.float() - want.float()).abs()
+    if want.dtype == torch.bfloat16:
+        mag = want.float().abs().clamp_min(2.0 ** -126)
+        allowed = 2 * torch.exp2(torch.floor(torch.log2(mag)) - 7) + 1e-5
+    else:
+        allowed = torch.full_like(diff, 1e-5)
+    return (diff / allowed).max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 96])
+def test_cuda_kernels_match_plain_versions(cuda_device, dtype, d):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dt)
+
+    b, hq, hkv, s = 2, 4, 2, 200
+    q, k, v = rn(b, hq, s, d), rn(b, hkv, s, d), rn(b, hkv, s, d)
+    starts = torch.tensor([0, 37], device=cuda_device)
+    for kw in ({"starts": starts}, {"window": 50}, {}):
+        assert _share_of_tol(flash_attention(q, k, v, **kw),
+                             flash_attention_ref(q, k, v, **kw)) <= 1.0
+    qd = rn(b, hq, 1, d)
+    pos = torch.tensor([150, 199], device=cuda_device)
+    assert _share_of_tol(decode_attention(qd, k, v, pos, starts=starts),
+                         decode_attention_ref(qd, k, v, pos,
+                                              starts=starts)) <= 1.0
+    nb, bs, mb = 12, 16, 4
+    kp, vp = rn(nb, hkv, bs, d), rn(nb, hkv, bs, d)
+    perm = np.random.default_rng(d).permutation(np.arange(1, nb))
+    tables = np.zeros((b, mb), np.int32)
+    tables[0, :3] = perm[:3]
+    tables[1, :4] = perm[3:7]
+    tables = torch.from_numpy(tables).to(cuda_device)
+    pos = torch.tensor([40, 63], device=cuda_device)
+    assert _share_of_tol(paged_decode_attention(qd, kp, vp, tables, pos),
+                         paged_decode_attention_ref(qd, kp, vp, tables,
+                                                    pos)) <= 1.0
+
+
+@pytest.mark.gpu
+def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    q = torch.zeros(1, 2, 8, 16, device=cuda_device)
+    with pytest.raises(ValueError):
+        flash_attention(q, q.transpose(2, 3), q)          # wrong shape
+    with pytest.raises(ValueError):
+        flash_attention(q.half(), q.half(), q.half())     # dtype
+    with pytest.raises(ValueError):
+        flash_attention(q, q.cpu(), q)                     # device

@@ -1,0 +1,171 @@
+"""The port's three attention kernels against the JAX package's Pallas
+kernels (interpret mode, as the JAX tests run them on the CPU).
+
+On the CPU each wrapper runs its kernel's plain version, so these tests
+hold the plain versions to the Pallas functions, float32, atol 1e-5
+(both sum float32 products in a different order; 1e-5 is ~100 ulp at
+the O(1) outputs).  Rows whose queries have no valid key (pad rows of a
+left-padded batch) are garbage by construction in the Pallas kernel and
+are not compared.  The CUDA kernels themselves are held to
+the plain versions on the card by ``tests/test_torch_gpu.py``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.decode_attention.kernel import (  # noqa: E402
+    decode_attention_pallas, paged_decode_attention_pallas)
+from repro.kernels.flash_attention.kernel import (  # noqa: E402
+    flash_attention_pallas)
+from repro_torch.kernels import (decode_attention, flash_attention,  # noqa: E402
+                                 launch_counts, paged_decode_attention,
+                                 reset_launch_counts)
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention_ref, paged_decode_attention_ref)
+from repro_torch.kernels.flash_attention import flash_attention_ref  # noqa: E402
+
+ATOL = 1e-5
+
+
+def _rand(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+FLASH_CASES = [
+    # (B, HQ, HKV, S, D, window, with_starts)
+    (2, 4, 2, 64, 16, None, False),
+    (2, 4, 2, 64, 16, None, True),
+    (2, 4, 2, 64, 16, 24, False),
+    (1, 2, 2, 256, 96, None, True),
+    (2, 4, 2, 128, 96, 40, True),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,window,with_starts", FLASH_CASES)
+def test_flash_plain_matches_pallas(b, hq, hkv, s, d, window, with_starts):
+    rng = np.random.default_rng(s + d + hq)
+    q, k, v = _rand(rng, b, hq, s, d), _rand(rng, b, hkv, s, d), \
+        _rand(rng, b, hkv, s, d)
+    starts = (np.array([0, s // 3][:b], np.int32) if with_starts
+              else None)
+    ref = flash_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        window=window, starts=None if starts is None
+        else jnp.asarray(starts), interpret=True)
+    got = flash_attention_ref(_t(q), _t(k), _t(v), causal=True,
+                              window=window,
+                              starts=None if starts is None else _t(starts))
+    ref, got = np.asarray(ref), got.numpy()
+    for i in range(b):
+        lo = 0 if starts is None else int(starts[i])
+        np.testing.assert_allclose(got[i, :, lo:], ref[i, :, lo:],
+                                   rtol=0, atol=ATOL)
+
+
+def test_flash_plain_noncausal_matches_pallas():
+    rng = np.random.default_rng(3)
+    q, k, v = _rand(rng, 1, 4, 32, 16), _rand(rng, 1, 2, 32, 16), \
+        _rand(rng, 1, 2, 32, 16)
+    ref = flash_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), causal=False,
+                                 interpret=True)
+    got = flash_attention_ref(_t(q), _t(k), _t(v), causal=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("d", [16, 96])
+def test_decode_plain_matches_pallas(d):
+    rng = np.random.default_rng(d)
+    b, hq, hkv, s = 3, 4, 2, 64
+    q, k, v = _rand(rng, b, hq, 1, d), _rand(rng, b, hkv, s, d), \
+        _rand(rng, b, hkv, s, d)
+    pos = np.array([5, 40, 63], np.int32)
+    starts = np.array([0, 17, 33], np.int32)
+    ref = decode_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), jnp.asarray(pos),
+                                  starts=jnp.asarray(starts), block_kv=16,
+                                  interpret=True)
+    got = decode_attention_ref(_t(q), _t(k), _t(v), _t(pos),
+                               starts=_t(starts))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                               atol=ATOL)
+    # a scalar pos is broadcast to every row, as in the Pallas entry
+    ref_s = decode_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), 20, interpret=True)
+    got_s = decode_attention_ref(_t(q), _t(k), _t(v), 20)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(ref_s), rtol=0,
+                               atol=ATOL)
+
+
+def _paged_inputs(rng, d, hq=4, hkv=2, bs=4, nb=12, mb=5):
+    b = 3
+    q = _rand(rng, b, hq, 1, d)
+    kp, vp = _rand(rng, nb, hkv, bs, d), _rand(rng, nb, hkv, bs, d)
+    blocks = rng.permutation(np.arange(1, nb))
+    tables = np.zeros((b, mb), np.int32)
+    tables[0, :3] = blocks[:3]          # shuffled, non-contiguous blocks
+    tables[1, :5] = blocks[3:8]
+    # row 2 is idle: all-zero table and pos 0 -> the reserved sink block
+    pos = np.array([9, 17, 0], np.int32)
+    return q, kp, vp, tables, pos
+
+
+@pytest.mark.parametrize("d", [16, 96])
+def test_paged_decode_plain_matches_pallas(d):
+    rng = np.random.default_rng(100 + d)
+    q, kp, vp, tables, pos = _paged_inputs(rng, d)
+    ref = paged_decode_attention_pallas(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(tables), jnp.asarray(pos), interpret=True)
+    got = paged_decode_attention_ref(_t(q), _t(kp), _t(vp), _t(tables),
+                                     _t(pos))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                               atol=ATOL)
+
+
+def test_cpu_wrappers_run_plain_versions_without_counting():
+    """A CPU tensor reaches the plain version; nothing counts as a
+    kernel launch."""
+    rng = np.random.default_rng(0)
+    reset_launch_counts()
+    q, k, v = (_t(_rand(rng, 1, 4, 16, 16)), _t(_rand(rng, 1, 2, 16, 16)),
+               _t(_rand(rng, 1, 2, 16, 16)))
+    assert torch.equal(flash_attention(q, k, v),
+                       flash_attention_ref(q, k, v))
+    qd = q[:, :, :1].contiguous()
+    assert torch.equal(decode_attention(qd, k, v, 7),
+                       decode_attention_ref(qd, k, v, 7))
+    qp, kp, vp, tables, pos = map(_t, _paged_inputs(rng, 16))
+    assert torch.equal(paged_decode_attention(qp, kp, vp, tables, pos),
+                       paged_decode_attention_ref(qp, kp, vp, tables, pos))
+    assert launch_counts() == {"flash_attention": 0,
+                               "paged_decode_attention": 0,
+                               "decode_attention": 0}
+
+
+def test_bf16_q_scale_is_applied_in_q_dtype():
+    """The plain versions scale q in q's dtype, as the Pallas entries do
+    (``q * jnp.asarray(scale, q.dtype)``)."""
+    rng = np.random.default_rng(1)
+    q = _rand(rng, 1, 2, 8, 96)
+    k, v = _rand(rng, 1, 2, 8, 96), _rand(rng, 1, 2, 8, 96)
+    qb = jnp.asarray(q).astype(jnp.bfloat16)
+    kb, vb = (jnp.asarray(k).astype(jnp.bfloat16),
+              jnp.asarray(v).astype(jnp.bfloat16))
+    ref = flash_attention_pallas(qb, kb, vb, interpret=True)
+    tb = [torch.from_numpy(np.array(x.astype(jnp.float32))).to(
+        torch.bfloat16) for x in (qb, kb, vb)]
+    got = flash_attention_ref(*tb)
+    # bf16 outputs: one ulp at |x| < 4 is <= 2**-6
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               rtol=0, atol=2 ** -6)
