@@ -8,13 +8,16 @@ without a card, or when run without the rest of the repository.  Phases,
 one line each (any failure exits non-zero and prints no ``ok`` line):
 
 1. device: name, count, power limit, torch and CUDA versions;
-2. build: the three attention kernels from ``src/repro_torch/kernels/csrc``;
+2. build: the four kernels from ``src/repro_torch/kernels/csrc``, one
+   nvcc per source in parallel, and ptxas' registers, spills and shared
+   memory for each main-path instantiation;
 3. kernels: each kernel against its plain PyTorch version at every
-   shape the main path gives it in bf16 (per element, two bf16 ulps of
-   the plain value plus 1e-5), at the main geometry (MHA, head_dim 96)
-   in float32 and at smoke shapes in float32 with GQA group 2 (1e-5),
-   with kernel, plain and library times from CUDA events (L2 flushed
-   before each timed launch);
+   shape the main paths give it in bf16 (per element, two bf16 ulps of
+   the plain value plus 1e-5), at the main geometry in float32 (1e-5)
+   and at smoke shapes in float32 (1e-5): the three attention kernels
+   (MHA, head_dim 96; smoke GQA group 2) and the selective scan
+   (Di 8192, N 16; smoke Di 128, N 8), with kernel, plain and library
+   times from CUDA events (L2 flushed before each timed launch);
 4. engine: ``ServeSession`` on full-width, full-depth phi3-mini-3.8b in
    bf16 with random weights from a seed, 8 requests of mixed prompt
    lengths, 32 new tokens each; every request must complete with finite
@@ -22,9 +25,13 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
 5. generate: a left-padded batch of 4 on the same weights, through the
    contiguous decode kernel; then a short engine drain under
    ``torch.profiler`` (device busy share, device time by kernel group);
-6. exact tokens: on phi3-mini-3.8b-smoke in float32, the engine's and
-   ``generate``'s tokens through the kernels must equal those of the
-   plain PyTorch path.
+6. the same engine, ``generate`` and profile phases on full-width,
+   full-depth falcon-mamba-7b in bf16 (phi3's weights are freed first),
+   through the selective-scan kernel: 64 launches per admission and per
+   engine step;
+7. exact tokens: on phi3-mini-3.8b-smoke and falcon-mamba-7b-smoke in
+   float32, the engine's and ``generate``'s tokens through the kernels
+   must equal those of the plain PyTorch path.
 
 The line before the last is the kernels' JSON summary, the last line
 ``{"ok": true, "device": {...}}``.
@@ -39,6 +46,9 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                         # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per dtype
+# exp on the special-function units: 16 a clock per SM, 132 SMs at the
+# 1.98 GHz boost clock (the selective scan's exps bind it, not FMAs)
+PEAK_EXP_PER_S = 132 * 16 * 1.98e9
 # Kernel-vs-plain tolerance per element.  bf16: both sides accumulate in
 # float32 and round once to bf16, so they may differ by the rounding of
 # that last step; two bf16 ulps of |plain| (2**(floor(log2|x|) - 7))
@@ -46,6 +56,7 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per dtype
 TOL = {"bfloat16": "2 ulp(|plain|) + 1e-5", "float32": 1e-5}
 BF16_ULPS, BF16_FLOOR = 2, 1e-5
 PHI3 = "phi3-mini-3.8b"
+MAMBA = "falcon-mamba-7b"
 NEW_TOKENS = 32
 ENGINE_PROMPTS = [200, 17, 300, 150, 45, 260, 130, 77]
 GENERATE_PROMPTS = [40, 100, 250, 300]
@@ -77,11 +88,12 @@ class Timer:
     """Median device time in ms of one call, from CUDA events.
 
     Before each timed call the 50 MB L2 cache is flushed (a decode step
-    finds the KV cache cold: 32 layers of it do not fit in L2) and the
-    stream is kept busy with a ~0.5 ms spin, so the host has enqueued
-    the call before the start event fires: the events measure the
-    device time of everything the call launches, not the host's Python
-    around it."""
+    finds the KV cache cold: 32 layers of it do not fit in L2; pass
+    ``flush=False`` for a call whose inputs the kernels before it just
+    wrote) and the stream is kept busy with a ~0.5 ms spin, so the host
+    has enqueued the call before the start event fires: the events
+    measure the device time of everything the call launches, not the
+    host's Python around it."""
 
     SPIN_CYCLES = 1_000_000
 
@@ -91,7 +103,7 @@ class Timer:
         self.flush = torch.empty(64 * 2 ** 20, dtype=torch.int32,
                                  device=device)
 
-    def __call__(self, fn, iters=25, warmup=3):
+    def __call__(self, fn, iters=25, warmup=3, flush=True):
         """Median ms of ``fn()`` over ``iters`` calls."""
         torch = self.torch
         for _ in range(warmup):
@@ -99,7 +111,8 @@ class Timer:
         torch.cuda.synchronize()
         pairs = []
         for _ in range(iters):
-            self.flush.zero_()
+            if flush:
+                self.flush.zero_()
             torch.cuda._sleep(self.SPIN_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
@@ -120,6 +133,7 @@ MAIN_PATH_INSTANCES = {
     "paged_decode_attention":
         r"decode_kernelI13__nv_bfloat16Li1ELi3ENS_7PagedKV",
     "decode_attention": r"decode_kernelI13__nv_bfloat16Li1ELi3ENS_8ContigKV",
+    "ssm_scan": r"ssm_scan_kernelI13__nv_bfloat16Li16E",
 }
 
 
@@ -165,10 +179,11 @@ def kernel_checks(torch, dev, timer):
     per-kernel summary entries (launches filled in later)."""
     import torch.nn.functional as F
     from repro_torch.kernels import (decode_attention, flash_attention,
-                                     paged_decode_attention)
+                                     paged_decode_attention, ssm_scan)
     from repro_torch.kernels.decode_attention import (
         decode_attention_ref, paged_decode_attention_ref)
     from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.ssm_scan import DEFAULT_BLOCK_D, ssm_scan_ref
     from repro_torch.models import bucket_length
 
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -335,12 +350,112 @@ def kernel_checks(torch, dev, timer):
             qd, kc, vc, attn_mask=dmask)),
         shape="q [4,32,1,96], k/v [4,32,544,96] bf16, pos 512, "
               "starts=[472,412,262,212]")
+
+    # ---- selective scan: each engine admission scans its prompt's
+    # bucket at batch 1 (the pad prefix masked to x = 0 and b = 0, as the
+    # model masks it), each engine step scans one token of every row
+    # from its state (1, 2 or 4 rows), generate scans [4, 512] and then
+    # 4 rows.  bf16 y at those shapes (the state is float32: 1e-5), then
+    # float32 at the main geometry and at smoke shapes (Di 128, N 8).
+    def scan_inputs(dtype, bt, s, di, n, real=None, h0=False):
+        """x, dt, b, c, a, d, h0 as the model feeds the scan; ``real``
+        (one per row) leaves that many real steps after a zero pad."""
+        x = rn((bt, s, di), dtype)
+        dt = F.softplus(rn((bt, s, di), f32) * 0.5 - 1.0)
+        b, c = rn((bt, s, n), f32), rn((bt, s, n), f32)
+        for i, r in enumerate(real or []):
+            x[i, :s - r] = 0
+            b[i, :s - r] = 0
+        a = -torch.arange(1, n + 1, dtype=f32, device=dev).repeat(di, 1)
+        d = rn((di,), dtype)
+        # the engine's cache holds the state in the model dtype
+        hh = rn((bt, di, n), dtype).float() if h0 else None
+        return x, dt, b, c, a, d, hh
+
+    def scan_case(dtype, bt, s, di, n, real=None, h0=False,
+                  block_d=DEFAULT_BLOCK_D):
+        """Check y and the final state against the plain version;
+        returns the inputs."""
+        args = scan_inputs(dtype, bt, s, di, n, real, h0)
+        y, h = ssm_scan(*args, block_d=block_d)
+        y_ref, h_ref = ssm_scan_ref(*args)
+        shape = (f"[{bt},{s},{di}] N={n} h0={h0} block_d={block_d}"
+                 + (f" real={real}" if real else ""))
+        check("ssm_scan", y, y_ref, "y " + shape)
+        check("ssm_scan", h, h_ref, "state " + shape)
+        return args
+
+    di, n = 8192, 16
+    for p in sorted(set(ENGINE_PROMPTS)):
+        scan_case(bf16, 1, bucket_length(p), di, n, real=[p])
+    for rows in (1, 2, 4):
+        dargs = scan_case(bf16, rows, 1, di, n, h0=True)
+    scan_case(bf16, 4, 512, di, n, real=GENERATE_PROMPTS)
+    scan_case(f32, 1, 512, di, n, real=[300])
+    scan_case(f32, 4, 1, di, n, h0=True)
+    scan_case(f32, 2, 24, 128, 8, real=[24, 10], block_d=32)
+    scan_case(f32, 4, 1, 128, 8, h0=True, block_d=32)
+    scan_case(f32, 2, 37, 100, 8, block_d=64)      # ragged tile and block
+
+    def scan_bound(bt, s, di, n, x_bytes, real_steps, h0):
+        """(ms, by) for one scan: x and dt of the real steps read, y
+        written whole, a, d, b, c and the states; exps and float32
+        operations of the real steps (a pad step's state stays 0)."""
+        n_bytes = (real_steps * di * (x_bytes + 4) + bt * s * di * x_bytes
+                   + real_steps * n * 8 + di * n * 4 + di * x_bytes
+                   + bt * di * n * 4 * (2 if h0 else 1))
+        work = real_steps * di * n
+        t = {"bytes": n_bytes / HBM_BYTES_PER_S,
+             "exp": work / PEAK_EXP_PER_S,
+             "float32": 6 * work / PEAK_OPS["float32"]}
+        by = max(t, key=t.get)
+        return t[by] * 1e3, "bytes" if by == "bytes" else "operations"
+
+    # timed at the largest engine prefill: [1, 512, 8192], 300 real steps
+    sargs = scan_inputs(bf16, 1, 512, di, n, real=[300])
+    b_ms, b_by = scan_bound(1, 512, di, n, 2, 300, False)
+    d_ms, _ = scan_bound(4, 1, di, n, 2, 4, True)
+    summary["ssm_scan"] = dict(
+        name="ssm_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssm_scan.cu",
+        replaces="src/repro/kernels/ssm_scan/kernel.py:59",
+        launches=0, max_abs_err=worst["ssm_scan"],
+        ms=timer(lambda: ssm_scan(*sargs)),
+        # in the model, x and dt were just written by the kernels before
+        # the scan (25 MB, within the 50 MB L2)
+        ms_l2_warm=timer(lambda: ssm_scan(*sargs), flush=False),
+        plain_ms=timer(lambda: ssm_scan_ref(*sargs), iters=5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bound_peak=f"max(bytes / 3.35 TB/s, exps / {PEAK_EXP_PER_S:.3g} "
+                   f"a second on the SFUs, 6 float32 ops a state-step / "
+                   f"67 TFLOP/s)",
+        shape=f"x [1,512,8192] bf16, 300 real steps, N 16, block_d "
+              f"{DEFAULT_BLOCK_D}",
+        decode_shape="x [4,1,8192] bf16, h0 [4,8192,16], N 16",
+        decode_ms=timer(lambda: ssm_scan(*dargs)),
+        decode_plain_ms=timer(lambda: ssm_scan_ref(*dargs)),
+        decode_bound_ms=d_ms)
     for e in summary.values():
         phase("time", kernel=e["name"], ms=f"{e['ms']:.4f}",
               plain_ms=f"{e['plain_ms']:.4f}",
               bound_ms=f"{e['bound_ms']:.4f}", bound_by=e["bound_by"],
               library_ms=("null" if e["library_ms"] is None
                           else f"{e['library_ms']:.4f}"))
+    e = summary["ssm_scan"]
+    # block_d is the kernel's launch parameter: the same prefill and
+    # decode step at each
+    for tag, args in (("prefill", sargs), ("decode", dargs)):
+        by_bd = {}
+        for bd in (32, 64, 128, 256):
+            ms = timer(lambda: ssm_scan(*args, block_d=bd))
+            by_bd[f"block_d_{bd}_ms"] = f"{ms:.4f}"
+        phase("time_block_d", kernel=f"ssm_scan_{tag}", **by_bd)
+    phase("time_l2_warm", kernel="ssm_scan", shape=repr(e["shape"]),
+          ms=f"{e['ms_l2_warm']:.4f}")
+    phase("time", kernel="ssm_scan_decode", ms=f"{e['decode_ms']:.4f}",
+          plain_ms=f"{e['decode_plain_ms']:.4f}",
+          bound_ms=f"{e['decode_bound_ms']:.4f}", bound_by="bytes",
+          library_ms="null")
     return summary
 
 
@@ -375,17 +490,18 @@ def profile_engine(torch, model, params, prompts):
         phase("profile", device_events=0,
               note="the profiler recorded no device time")
         return
-    groups = {"attention": 0.0, "gemm": 0.0, "other": 0.0}
+    groups = {"port_kernels": 0.0, "gemm": 0.0, "other": 0.0}
     for e in kern:
         n = e.key.lower()
-        if "flash_fwd_kernel" in n or "decode_kernel" in n:
-            groups["attention"] += dev_us(e)
+        if any(t in n for t in ("flash_fwd_kernel", "decode_kernel",
+                                "ssm_scan_kernel")):
+            groups["port_kernels"] += dev_us(e)
         elif any(t in n for t in ("gemm", "gemv", "nvjet", "cutlass")):
             groups["gemm"] += dev_us(e)
         else:
             groups["other"] += dev_us(e)
     st = session.stats
-    phase("profile", window="4_requests_x_16_tokens",
+    phase("profile", arch=model.cfg.name, window="4_requests_x_16_tokens",
           wall_ms=f"{wall_us / 1e3:.1f}",
           device_ms=f"{total / 1e3:.1f}",
           device_busy_share=f"{total / wall_us:.3f}",
@@ -441,7 +557,10 @@ def main():
         phase("ptxas", kernel=kernel, **ptxas_stats(_build.build_log,
                                                      pattern))
     dev = torch.device("cuda")
-    summary = run(torch, dev, Timer(torch, dev), smi, PHI3)
+    t_run = time.perf_counter()
+    summary = run(torch, dev, Timer(torch, dev), smi)
+    phase("done", seconds=f"{time.perf_counter() - t0:.1f}",
+          phases_seconds=f"{time.perf_counter() - t_run:.1f}")
     print(json.dumps({"kernels": list(summary.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -449,18 +568,17 @@ def main():
                                              "count": count}}))
 
 
-def run(torch, dev, timer, smi, arch):
-    """Phases 3-6 on ``dev`` with model ``arch``; returns the kernels'
-    summary entries."""
+def serve_phases(torch, dev, smi, arch):
+    """Engine, generate and profile phases on full-size ``arch`` in its
+    own dtype with random weights from seed 0.  Each path's launch
+    counts are set to 0 just before it and read just after; returns
+    them with the engine's stats (the weights are freed on return)."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.models import (build_model, left_pad_prompts,
                                     prompt_starts)
     from repro_torch.runtime import generate
 
-    summary = kernel_checks(torch, dev, timer)
-
-    # ---- engine on full phi3-mini-3.8b, bf16, random weights
     cfg = get_config(arch)
     model = build_model(cfg)
     t0 = time.perf_counter()
@@ -468,6 +586,7 @@ def run(torch, dev, timer, smi, arch):
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     phase("init", arch=cfg.name, params=n_params,
+          gib=f"{torch.cuda.memory_allocated() / 2 ** 30:.2f}",
           seconds=f"{time.perf_counter() - t0:.1f}")
     prompts = prompts_of(ENGINE_PROMPTS, cfg.vocab_size, seed=1)
     torch.cuda.reset_peak_memory_stats()
@@ -480,14 +599,12 @@ def run(torch, dev, timer, smi, arch):
     bad = [r for r in res.values()
            if r.state != "COMPLETED" or len(r.tokens) != NEW_TOKENS]
     if len(res) != len(prompts) or bad:
-        fail(f"engine: {len(res)} results, not completed: "
+        fail(f"{arch} engine: {len(res)} results, not completed: "
              f"{[(r.request_id, r.state, r.reason) for r in bad]}")
-    for k in ("flash_attention", "paged_decode_attention"):
-        if engine_counts[k] < 1:
-            fail(f"engine ran no {k} kernel: {engine_counts}")
     st = session.stats.to_dict()
     phase("engine", arch=cfg.name, card=repr(smi),
           requests=st["requests"], steps=st["steps"],
+          admissions=st["inflight_admissions"],
           activations=st["batches"], ttft_p50_s=f"{st['ttft_p50_s']:.4f}",
           ttft_p95_s=f"{st['ttft_p95_s']:.4f}",
           decode_tok_s=f"{st['decode_tok_s']:.1f}",
@@ -495,11 +612,13 @@ def run(torch, dev, timer, smi, arch):
           decode_s=f"{st['decode_s']:.3f}", wall_s=f"{wall:.2f}",
           e2e_tok_s=f"{st['tokens_generated'] / wall:.1f}",
           peak_mem_gib=f"{peak:.2f}", launches=json.dumps(engine_counts))
+    del res, session
 
-    # ---- generate: left-padded batch of 4, contiguous decode
+    # ---- generate: left-padded batch of 4
     gp = prompts_of(GENERATE_PROMPTS, cfg.vocab_size, seed=2)
     toks = left_pad_prompts(gp, 512)
     starts = prompt_starts(gp, 512)
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     out, gstats = generate(model, params, {"tokens": toks},
@@ -510,49 +629,102 @@ def run(torch, dev, timer, smi, arch):
     gen_counts = kernels.launch_counts()
     if out.shape != (4, NEW_TOKENS) or out.min() < 0 \
             or out.max() >= cfg.vocab_size:
-        fail(f"generate: bad tokens {out.shape} {out.min()}..{out.max()}")
-    if gen_counts["decode_attention"] < 1 or \
-            gen_counts["flash_attention"] < 1:
-        fail(f"generate ran no decode/flash kernel: {gen_counts}")
-    phase("generate", batch=4, prompt_len=512, new_tokens=NEW_TOKENS,
-          prefill_s=f"{gstats.prefill_s:.3f}",
+        fail(f"{arch} generate: bad tokens {out.shape} "
+             f"{out.min()}..{out.max()}")
+    phase("generate", arch=cfg.name, batch=4, prompt_len=512,
+          new_tokens=NEW_TOKENS, prefill_s=f"{gstats.prefill_s:.3f}",
           decode_tok_s=f"{gstats.decode_tok_s:.1f}", wall_s=f"{wall:.2f}",
           e2e_tok_s=f"{gstats.tokens_generated / wall:.1f}",
+          peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}",
           card=repr(smi), launches=json.dumps(gen_counts))
-    for k, e in summary.items():
-        e["launches"] = engine_counts[k] + gen_counts[k]
     profile_engine(torch, model, params, prompts[:4])
-    phase("launches_per_engine_step",
-          paged_decode_attention=engine_counts["paged_decode_attention"]
-          / max(st["steps"], 1),
-          flash_attention_per_admission=engine_counts["flash_attention"]
-          / max(st["inflight_admissions"], 1))
-    del params, session, res
-    torch.cuda.empty_cache()
+    return {"engine": engine_counts, "generate": gen_counts, "stats": st}
 
-    # ---- exact tokens on the smoke config, float32: kernels vs plain
-    scfg = get_config(PHI3 + "-smoke")
+
+def exact_tokens(torch, dev, arch):
+    """Smoke config in float32: the engine's and generate's tokens
+    through the kernels must equal the plain PyTorch path's."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import (build_model, left_pad_prompts,
+                                    prompt_starts)
+    from repro_torch.runtime import generate
+
+    scfg = get_config(arch)
     smodel = build_model(scfg)
     sparams = smodel.init(seed=0, device=dev)
     sprompts = prompts_of([5, 7, 3, 6, 12, 9], scfg.vocab_size, seed=3)
     streams = {}
+    kernels.reset_launch_counts()
     for backend in ("cuda", "plain"):
         r, _ = engine_run(torch, smodel, sparams, sprompts, backend,
                           kv_block_size=4)
         streams[backend] = {k: v.tokens.tolist() for k, v in r.items()}
     if streams["cuda"] != streams["plain"]:
-        fail("smoke engine tokens through the kernels differ from the "
-             "plain path")
+        fail(f"{arch} engine tokens through the kernels differ from the "
+             f"plain path")
     stoks = left_pad_prompts(sprompts[:4], 8)
     sst = prompt_starts(sprompts[:4], 8)
     g = {b: generate(smodel, sparams, {"tokens": stoks},
                      max_new_tokens=12, backend=b, seq_starts=sst)[0]
          for b in ("cuda", "plain")}
     if not (g["cuda"] == g["plain"]).all():
-        fail("smoke generate tokens through the kernels differ from the "
-             "plain path")
+        fail(f"{arch} generate tokens through the kernels differ from the "
+             f"plain path")
+    used = {k: v for k, v in kernels.launch_counts().items() if v}
+    if not used:
+        fail(f"{arch}: the cuda backend launched no kernel")
     phase("exact_tokens", arch=scfg.name, dtype="float32",
-          engine_requests=len(sprompts), generate_rows=4, equal=True)
+          engine_requests=len(sprompts), generate_rows=4, equal=True,
+          kernels=json.dumps(used))
+
+
+def run(torch, dev, timer, smi):
+    """Phases 3-7 on ``dev``; returns the kernels' summary entries."""
+    from repro_torch.configs import get_config
+
+    summary = kernel_checks(torch, dev, timer)
+
+    # ---- phi3-mini-3.8b: flash prefill, paged and contiguous decode
+    phi3 = serve_phases(torch, dev, smi, PHI3)
+    ec, gc, st = phi3["engine"], phi3["generate"], phi3["stats"]
+    for k in ("flash_attention", "paged_decode_attention"):
+        if ec[k] < 1:
+            fail(f"{PHI3} engine ran no {k} kernel: {ec}")
+    if gc["decode_attention"] < 1 or gc["flash_attention"] < 1:
+        fail(f"{PHI3} generate ran no decode/flash kernel: {gc}")
+    for k in ("flash_attention", "paged_decode_attention",
+              "decode_attention"):
+        summary[k]["launches"] = ec[k] + gc[k]
+    phase("launches_per_engine_step", arch=PHI3,
+          paged_decode_attention=ec["paged_decode_attention"]
+          / max(st["steps"], 1),
+          flash_attention_per_admission=ec["flash_attention"]
+          / max(st["inflight_admissions"], 1))
+    torch.cuda.empty_cache()
+
+    # ---- falcon-mamba-7b: the selective scan at every layer of every
+    # admission, engine step and generate step
+    n_layers = get_config(MAMBA).n_layers
+    mamba = serve_phases(torch, dev, smi, MAMBA)
+    ec, gc, st = mamba["engine"], mamba["generate"], mamba["stats"]
+    want = n_layers * (st["inflight_admissions"] + st["steps"])
+    if ec["ssm_scan"] != want:
+        fail(f"{MAMBA} engine: {ec['ssm_scan']} ssm_scan launches, want "
+             f"{n_layers} x ({st['inflight_admissions']} admissions + "
+             f"{st['steps']} steps) = {want}")
+    if gc["ssm_scan"] != n_layers * NEW_TOKENS:
+        fail(f"{MAMBA} generate: {gc['ssm_scan']} ssm_scan launches, want "
+             f"{n_layers} x {NEW_TOKENS}")
+    summary["ssm_scan"]["launches"] = ec["ssm_scan"] + gc["ssm_scan"]
+    phase("launches_per_engine_step", arch=MAMBA,
+          ssm_scan=(ec["ssm_scan"] - n_layers * st["inflight_admissions"])
+          / max(st["steps"], 1), ssm_scan_per_admission=n_layers,
+          engine_total=ec["ssm_scan"], generate_total=gc["ssm_scan"])
+    torch.cuda.empty_cache()
+
+    for arch in (PHI3 + "-smoke", MAMBA + "-smoke"):
+        exact_tokens(torch, dev, arch)
     return summary
 
 

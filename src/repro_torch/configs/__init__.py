@@ -1,16 +1,18 @@
 """Architecture registry of the port: ``get_config(arch_id)``.
 
-Only the architectures whose family the port serves are registered;
-others arrive with their families.
+Only the architectures whose family the port serves (dense and ssm) are
+registered; others arrive with their families.
 """
 from __future__ import annotations
 
 from typing import Dict, List
 
 from repro_torch.configs.base import ModelConfig, reduce_for_smoke
+from repro_torch.configs.falcon_mamba_7b import CONFIG as _falcon_mamba
 from repro_torch.configs.phi3_mini_3_8b import CONFIG as _phi3
 
-REGISTRY: Dict[str, ModelConfig] = {c.name: c for c in [_phi3]}
+REGISTRY: Dict[str, ModelConfig] = {c.name: c for c in [_phi3,
+                                                        _falcon_mamba]}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -65,19 +65,41 @@ class ModelConfig:
         """Head width: ``head_dim`` or ``d_model // n_heads``."""
         return self.head_dim or self.d_model // self.n_heads
 
+    @property
+    def resolved_dt_rank(self) -> int:
+        """Mamba ``dt`` projection rank: ``dt_rank`` or ceil(d_model/16)."""
+        return self.dt_rank or -(-self.d_model // 16)
+
+    @property
+    def d_inner(self) -> int:
+        """Mamba inner width: ``ssm_expand * d_model``."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def attention_free(self) -> bool:
+        """True for the recurrent-only (ssm) family."""
+        return self.family == "ssm"
+
     def param_count(self) -> int:
-        """Parameter count of a dense decoder (embedding, layers, head)."""
-        if self.family != "dense":
+        """Parameter count (embedding, layers, head) of a dense or ssm
+        decoder; the families the port does not serve yet raise."""
+        if self.family not in ("dense", "ssm"):
             raise NotImplementedError(
-                f"param_count is ported for the dense family only, got "
-                f"{self.family!r}")
+                f"param_count is ported for the dense and ssm families "
+                f"only, got {self.family!r}")
         d, f, v = self.d_model, self.d_ff, self.vocab_size
-        hd = self.resolved_head_dim
-        attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
-            + self.n_heads * hd * d
-        mlp = (3 if self.mlp_type == "swiglu" else 2) * d * f
+        if self.family == "ssm":
+            di, st, dr = self.d_inner, self.ssm_state, self.resolved_dt_rank
+            per_layer = (d * 2 * di + di * self.ssm_conv
+                         + di * (dr + 2 * st) + dr * di + di * st + di
+                         + di * d)
+        else:
+            hd = self.resolved_head_dim
+            attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
+                + self.n_heads * hd * d
+            per_layer = attn + (3 if self.mlp_type == "swiglu" else 2) * d * f
         emb = v * d * (1 if self.tie_embeddings else 2)
-        return self.n_layers * (attn + mlp) + emb
+        return self.n_layers * per_layer + emb
 
 
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:

@@ -13,11 +13,13 @@ from typing import Dict
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   paged_decode_attention)
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssm_scan import ssm_scan
 
 WRAPPERS = {
     "flash_attention": flash_attention,
     "paged_decode_attention": paged_decode_attention,
     "decode_attention": decode_attention,
+    "ssm_scan": ssm_scan,
 }
 
 
@@ -33,4 +35,5 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["WRAPPERS", "launch_counts", "reset_launch_counts",
-           "flash_attention", "decode_attention", "paged_decode_attention"]
+           "flash_attention", "decode_attention", "paged_decode_attention",
+           "ssm_scan"]

@@ -49,6 +49,10 @@ SIGNATURES = {
     # is_bf16, stream
     "paged_decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _I, _I, _F, _I, _P],
+    # x, dt, b, c, a, d, h0, y, hout, Bt, S, Di, N, block_d, is_bf16,
+    # stream
+    "ssm_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                     _I, _I, _P],
 }
 
 _lock = threading.Lock()

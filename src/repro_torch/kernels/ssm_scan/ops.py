@@ -1,0 +1,92 @@
+"""Wrapper of the CUDA selective-scan kernel (``csrc/ssm_scan.cu``).
+
+``ssm_scan`` replaces ``ssm_scan_pallas``
+(``src/repro/kernels/ssm_scan/kernel.py``).  On an H100 the prefill scan
+is bound by its exps on the special-function units (67 M of them at
+[1, 512, 8192], N 16: ~16 us against ~10 us for its ~35 MB), and the
+S = 1 decode step by the float32 state it reads and writes.  The design
+(one thread per channel, the state in registers for the whole sequence,
+b and c staged in shared memory a tile of steps at a time) keeps every
+[Bt, S, Di, N] intermediate out of device memory, as the TPU kernel kept
+its state in VMEM; see the source for the grid and ``block_d``.
+
+For CPU tensors the wrapper runs the plain version in ``ref.py``; for
+CUDA tensors it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._checks import (KERNEL_DTYPES, check_same, on_cpu,
+                                         require)
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+
+# State sizes the kernel is instantiated for: falcon-mamba-7b (16) and
+# its smoke config (8).
+KERNEL_STATES = (8, 16)
+# Channels per block on the main path: Di = 8192 at batch 1 gives 128
+# blocks for the H100's 132 SMs; 32 to 256 measure within 8% of each
+# other (see csrc/ssm_scan.cu).
+DEFAULT_BLOCK_D = 64
+MAX_BLOCK_D = 1024
+
+
+def ssm_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
+             h0: Optional[torch.Tensor] = None, *,
+             block_d: int = DEFAULT_BLOCK_D
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [Bt,S,Di] (float32 or bf16); dt [Bt,S,Di], b/c [Bt,S,N], a
+    [Di,N] float32; d [Di] in x's dtype; h0 [Bt,Di,N] float32 or None
+    (zeros).  Returns (y [Bt,S,Di] in x's dtype, final state [Bt,Di,N]
+    float32).  ``block_d`` channels per block (a multiple of 32 up to
+    1024) is the kernel's launch parameter; the plain version has no
+    blocks."""
+    if on_cpu(x):
+        return ssm_scan_ref(x, dt, b, c, a, d, h0)
+    name = "ssm_scan"
+    require(x.dim() == 3, f"{name}: x must be [Bt,S,Di], got "
+            f"{tuple(x.shape)}")
+    bt, seq, di = x.shape
+    require(b.dim() == 3 and b.shape[:2] == (bt, seq),
+            f"{name}: b must be [Bt,S,N], got {tuple(b.shape)}")
+    n = b.shape[2]
+    require(n in KERNEL_STATES, f"{name}: state size {n} not in "
+            f"{KERNEL_STATES}")
+    require(seq >= 1, f"{name}: empty sequence")
+    require(block_d % 32 == 0 and 32 <= block_d <= MAX_BLOCK_D,
+            f"{name}: block_d {block_d} must be a multiple of 32 in "
+            f"[32, {MAX_BLOCK_D}]")
+    require(x.dtype in KERNEL_DTYPES, f"{name}: dtype {x.dtype} not "
+            f"supported")
+    require(dt.shape == x.shape, f"{name}: dt {tuple(dt.shape)} must be "
+            f"{tuple(x.shape)}")
+    require(c.shape == b.shape, f"{name}: c {tuple(c.shape)} must be "
+            f"{tuple(b.shape)}")
+    require(a.shape == (di, n), f"{name}: a must be [{di},{n}]")
+    require(d.shape == (di,), f"{name}: d must be [{di}]")
+    check_same(name, [x, d], x.dtype)
+    f32 = [dt, b, c, a] + ([] if h0 is None else [h0])
+    check_same(name, [x] + f32)
+    check_same(name, f32, torch.float32)
+    if h0 is not None:
+        require(h0.shape == (bt, di, n), f"{name}: h0 must be "
+                f"[{bt},{di},{n}], got {tuple(h0.shape)}")
+    y = torch.empty_like(x)
+    h_out = torch.empty((bt, di, n), dtype=torch.float32, device=x.device)
+    rc = _build.load().ssm_scan_fwd(
+        x.data_ptr(), dt.data_ptr(), b.data_ptr(), c.data_ptr(),
+        a.data_ptr(), d.data_ptr(), None if h0 is None else h0.data_ptr(),
+        y.data_ptr(), h_out.data_ptr(), bt, seq, di, n, block_d,
+        int(x.dtype == torch.bfloat16), _build.stream_handle(x.device))
+    _build.check(rc, "ssm_scan_fwd")
+    ssm_scan.launches += 1
+    return y, h_out
+
+
+ssm_scan.launches = 0
+
+__all__ = ["ssm_scan", "DEFAULT_BLOCK_D", "KERNEL_STATES"]

@@ -9,6 +9,14 @@ in-flight engine with ``--session``.
         --arch phi3-mini-3.8b-smoke --session --num-requests 6 \\
         --batch-sizes 1,2,4 [--device cpu]
 
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch falcon-mamba-7b-smoke --session --num-requests 6 \\
+        --batch-sizes 1,2,4 [--device cpu]
+
+Both families run in both modes: ``phi3-mini-3.8b[-smoke]`` (dense, the
+attention kernels) and ``falcon-mamba-7b[-smoke]`` (ssm, the
+selective-scan kernel; the paged-KV flags do not apply to it).
+
 Weights are random, drawn from ``--seed``.  The run is on the CUDA card
 unless ``--device cpu`` is given; without a card it fails.  Output lines
 follow the JAX CLI's format for the flags the port keeps.
@@ -37,9 +45,9 @@ def main(argv=None) -> None:
                     help="'cpu' runs the plain PyTorch path on the CPU; "
                          "default: the CUDA card")
     ap.add_argument("--backend", default="cuda", choices=("cuda", "plain"),
-                    help="'cuda' runs the hand-written attention kernels "
-                         "(their plain versions on the CPU); 'plain' the "
-                         "PyTorch reference path")
+                    help="'cuda' runs the hand-written kernels (their "
+                         "plain versions on the CPU); 'plain' the PyTorch "
+                         "reference path")
     ap.add_argument("--session", action="store_true",
                     help="serve through the in-flight engine "
                          "(ServeSession)")
@@ -48,9 +56,11 @@ def main(argv=None) -> None:
     ap.add_argument("--batch-sizes", default="1,2,4,8",
                     help="allowed engine row counts (--session)")
     ap.add_argument("--kv-block-size", type=int, default=16,
-                    help="token slots per paged-KV pool block (--session)")
+                    help="token slots per paged-KV pool block (--session, "
+                         "attention families)")
     ap.add_argument("--kv-blocks", type=int, default=None,
-                    help="paged-KV pool size in blocks (--session)")
+                    help="paged-KV pool size in blocks (--session, "
+                         "attention families)")
     args = ap.parse_args(argv)
 
     import numpy as np

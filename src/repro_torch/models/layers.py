@@ -60,6 +60,17 @@ class ParamInit:
         self._put(path, torch.zeros(tuple(shape), dtype=self.dtype,
                                     device=self.device))
 
+    def ones(self, path: str, shape: Sequence[int]) -> None:
+        """Parameters initialised to one (the Mamba skip gain ``D``)."""
+        self._put(path, torch.ones(tuple(shape), dtype=self.dtype,
+                                   device=self.device))
+
+    def const(self, path: str, value: torch.Tensor) -> None:
+        """A given value cast to the model dtype, as the JAX
+        initialiser's ``const`` does (a bf16 model stores ``A_log``
+        rounded to bf16)."""
+        self._put(path, value.to(device=self.device, dtype=self.dtype))
+
 
 def dtype_of(name: str) -> torch.dtype:
     """Torch dtype of a config's ``dtype`` string."""

@@ -21,7 +21,7 @@ from repro_torch.models import transformer
 
 @dataclasses.dataclass(frozen=True)
 class Model:
-    """One architecture's entry points (dense family)."""
+    """One architecture's entry points (dense and ssm families)."""
 
     cfg: ModelConfig
 
@@ -47,12 +47,13 @@ class Model:
                                        block_tables=block_tables)
 
     def init_cache(self, bsz: int, max_len: int, device: torch.device):
-        """Empty contiguous caches on ``device``."""
+        """Empty contiguous caches (ssm: zero recurrent states) on
+        ``device``."""
         return transformer.init_cache(self.cfg, bsz, max_len, device)
 
     def init_paged_cache(self, n_blocks: int, block_size: int,
                          device: torch.device):
-        """Empty block-paged pools on ``device``."""
+        """Empty block-paged pools on ``device`` (attention families)."""
         return transformer.init_paged_cache(self.cfg, n_blocks, block_size,
                                             device)
 

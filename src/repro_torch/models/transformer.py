@@ -1,11 +1,13 @@
-"""Dense decoder-only LM (port of ``repro.models.transformer``, dense
-family only; the other families raise ``NotImplementedError``).
+"""Decoder-only LM (port of ``repro.models.transformer``) for the dense
+and ssm (Mamba-1) families; the other families raise
+``NotImplementedError``.
 
-Entry points: ``forward`` (logits), ``prefill`` (logits plus the K/V
-caches), ``decode_step`` (one token against a contiguous cache, or
-against a block-paged pool with ``block_tables``).  Layer weights are
-stacked ``[L, ...]`` as in the JAX pytree and the layer loop is a Python
-loop over views, where JAX scans.
+Entry points: ``forward`` (logits), ``prefill`` (logits plus the decode
+caches: K/V for dense, the final SSM and conv states for ssm),
+``decode_step`` (one token against a contiguous cache or recurrent
+state, or, for dense, against a block-paged pool with ``block_tables``).
+Layer weights are stacked ``[L, ...]`` as in the JAX pytree and the
+layer loop is a Python loop over views, where JAX scans.
 """
 from __future__ import annotations
 
@@ -15,32 +17,40 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.layers import (ParamInit, Params, RopeTables,
                                        dtype_of, mlp, mlp_params, rmsnorm,
                                        rope_tables)
 
 
-def _dense_only(cfg: ModelConfig) -> None:
+SERVED_FAMILIES = ("dense", "ssm")
+
+
+def _check_family(cfg: ModelConfig) -> None:
     """Raise for a family the port does not serve yet."""
-    if cfg.family != "dense":
+    if cfg.family not in SERVED_FAMILIES:
         raise NotImplementedError(
-            f"repro_torch ports the dense family only so far, got "
-            f"{cfg.family!r}")
+            f"repro_torch serves the {' and '.join(SERVED_FAMILIES)} "
+            f"families so far, got {cfg.family!r}")
 
 
 def init_params(cfg: ModelConfig, seed: int, device: torch.device
                 ) -> Params:
     """Random parameters with the JAX tree's paths, shapes and std rule,
     drawn on ``device`` from a generator seeded with ``seed``."""
-    _dense_only(cfg)
+    _check_family(cfg)
     b = ParamInit(seed, dtype_of(cfg.dtype), device)
     d, hd, n = cfg.d_model, cfg.resolved_head_dim, cfg.n_layers
     b.normal("embed", [cfg.vocab_size, d], fan_in=d, scale=float(d) ** 0.5)
     b.zeros("layers/ln1", [n, d])
-    attn.attn_params(b, "layers/attn", n, d, cfg.n_heads, cfg.n_kv_heads,
-                     hd, cfg.qk_norm)
-    b.zeros("layers/ln2", [n, d])
-    mlp_params(b, "layers/mlp", n, d, cfg.d_ff, cfg.mlp_type)
+    if cfg.family == "ssm":
+        ssm.mamba_params(b, "layers/mamba", n, d, cfg.d_inner,
+                         cfg.ssm_state, cfg.ssm_conv, cfg.resolved_dt_rank)
+    else:
+        attn.attn_params(b, "layers/attn", n, d, cfg.n_heads,
+                         cfg.n_kv_heads, hd, cfg.qk_norm)
+        b.zeros("layers/ln2", [n, d])
+        mlp_params(b, "layers/mlp", n, d, cfg.d_ff, cfg.mlp_type)
     b.zeros("final_norm", [d])
     if not cfg.tie_embeddings:
         b.normal("lm_head", [d, cfg.vocab_size], fan_in=d)
@@ -69,6 +79,19 @@ def _attn_block(x: torch.Tensor, lp: Params, cfg: ModelConfig,
     return x + mlp(h, lp["mlp"], cfg.mlp_type), k, v
 
 
+def _mamba_block(x: torch.Tensor, lp: Params, cfg: ModelConfig, *,
+                 backend: str, cache: Optional[Dict[str, torch.Tensor]] = None,
+                 seq_valid: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One Mamba layer (pre-norm, residual); returns (x, new states)."""
+    h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    y, states = ssm.mamba_block(h, lp["mamba"], state=cfg.ssm_state,
+                                conv=cfg.ssm_conv,
+                                dt_rank=cfg.resolved_dt_rank, cache=cache,
+                                backend=backend, seq_valid=seq_valid)
+    return x + y, states
+
+
 def _head(params: Params, cfg: ModelConfig, x: torch.Tensor
           ) -> torch.Tensor:
     """Final norm and LM head; float32 logits from float32 operands, so a
@@ -87,15 +110,22 @@ def forward(params: Params, cfg: ModelConfig,
             seq_starts: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Teacher-forced logits [B, S, V] (float32) and, with
-    ``collect_kv``, the per-layer K/V stacked as ``[L,B,HKV,S,hd]``.
+    ``collect_kv``, the per-layer decode caches: for dense the K/V
+    stacked as ``[L,B,HKV,S,hd]`` (``extras["kv"]``), for ssm the final
+    states ``{"ssm": [L,B,Di,N], "conv": [L,B,K-1,Di]}``
+    (``extras["state"]``).
 
     ``seq_starts`` ([B] int) marks the first real token of each
     left-padded row: rope positions become ``arange(S) - starts`` and pad
-    keys are masked out of attention."""
-    _dense_only(cfg)
+    keys are masked out of attention (ssm: pads are masked out of the
+    recurrence, see :func:`repro_torch.models.ssm.mamba_block`)."""
+    _check_family(cfg)
     tokens = batch["tokens"]
     x = params["embed"][tokens.to(params["embed"].device).long()]
     bsz, seq, _ = x.shape
+    if cfg.family == "ssm":
+        return _ssm_forward(params, cfg, x, backend=backend,
+                            collect=collect_kv, seq_starts=seq_starts)
     if seq_starts is not None:
         st = torch.as_tensor(seq_starts, device=x.device).to(torch.int64)
         positions = torch.arange(seq, device=x.device)[None, :] - st[:, None]
@@ -116,21 +146,55 @@ def forward(params: Params, cfg: ModelConfig,
     return _head(params, cfg, x), extras
 
 
+def _ssm_forward(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
+                 backend: str, collect: bool,
+                 seq_starts: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """The Mamba layer stack of :func:`forward` on embedded ``x``."""
+    seq_valid = None
+    if seq_starts is not None:
+        st = torch.as_tensor(seq_starts, device=x.device).to(torch.int64)
+        seq_valid = (torch.arange(x.shape[1], device=x.device)[None, :]
+                     >= st[:, None])
+    ssms, convs = [], []
+    for i in range(cfg.n_layers):
+        x, states = _mamba_block(x, layer_params(params["layers"], i), cfg,
+                                 backend=backend, seq_valid=seq_valid)
+        if collect:
+            ssms.append(states["ssm"])
+            convs.append(states["conv"])
+    extras: Dict[str, Any] = {}
+    if collect:
+        extras["state"] = {"ssm": torch.stack(ssms),
+                           "conv": torch.stack(convs)}
+    return _head(params, cfg, x), extras
+
+
 def prefill(params: Params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor], *, backend: str = "plain",
             seq_starts: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Run the whole prompt: (logits [B,S,V], caches filled up to S)."""
+    """Run the whole prompt: (logits [B,S,V], caches filled up to S; for
+    ssm the recurrent states after the last token)."""
     logits, extras = forward(params, cfg, batch, backend=backend,
                              collect_kv=True, seq_starts=seq_starts)
-    return logits, {"layers": extras["kv"]}
+    return logits, {"layers": extras["state" if cfg.family == "ssm"
+                                     else "kv"]}
 
 
 def init_cache(cfg: ModelConfig, bsz: int, max_len: int,
                device: torch.device) -> Dict[str, Any]:
-    """Empty contiguous caches ``[L, B, HKV, max_len, hd]``."""
-    _dense_only(cfg)
+    """Empty contiguous caches ``[L, B, HKV, max_len, hd]``; for ssm the
+    zero states ``{"ssm": [L,B,Di,N], "conv": [L,B,K-1,Di]}`` in the
+    model dtype (``max_len`` unused: the state is O(1) per row)."""
+    _check_family(cfg)
     dt = dtype_of(cfg.dtype)
+    if cfg.family == "ssm":
+        per_row = ssm.mamba_cache_init(cfg.n_layers * bsz, cfg.d_inner,
+                                       cfg.ssm_state, cfg.ssm_conv, dt,
+                                       device)
+        return {"layers": {k: v.reshape(cfg.n_layers, bsz, *v.shape[1:])
+                           for k, v in per_row.items()}}
     shape = (cfg.n_layers, bsz, cfg.n_kv_heads, max_len,
              cfg.resolved_head_dim)
     return {"layers": {"k": torch.zeros(shape, dtype=dt, device=device),
@@ -141,8 +205,12 @@ def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
                      device: torch.device) -> Dict[str, Any]:
     """Empty block-paged pools ``[L, NB, HKV, bs, hd]``: ``n_blocks``
     shared blocks of ``block_size`` slots, addressed through per-row
-    block tables."""
-    _dense_only(cfg)
+    block tables.  Attention families only: a recurrent state is O(1)
+    per row and needs no paging (ssm raises ``ValueError``, as JAX)."""
+    _check_family(cfg)
+    if cfg.family != "dense":
+        raise ValueError(f"paged KV caches need an attention family, got "
+                         f"{cfg.family!r}")
     dt = dtype_of(cfg.dtype)
     shape = (cfg.n_layers, n_blocks, cfg.n_kv_heads, block_size,
              cfg.resolved_head_dim)
@@ -185,10 +253,32 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Any],
 
     The cache is updated in place (the JAX version returns a new one);
     the returned dict is the one passed in.  ``seq_starts`` continues a
-    masked :func:`prefill`'s left-pad masks on the contiguous layout."""
-    _dense_only(cfg)
+    masked :func:`prefill`'s left-pad masks on the contiguous layout.
+
+    For ssm, ``pos`` is unused and each layer's SSM and conv states are
+    advanced by one token; ``block_tables`` and ``seq_starts`` raise
+    ``ValueError`` as in JAX (a recurrent state carries no pad entries
+    and needs no paging)."""
+    _check_family(cfg)
     dev = params["embed"].device
     x = params["embed"][tokens.to(dev).long()]
+    if cfg.family == "ssm":
+        if block_tables is not None:
+            raise ValueError(f"block_tables needs an attention family, "
+                             f"got {cfg.family!r}")
+        if seq_starts is not None:
+            raise ValueError(
+                f"seq_starts in decode_step needs an attention family, "
+                f"got {cfg.family!r} (recurrent caches carry no pad "
+                f"entries)")
+        layers = cache["layers"]
+        for i in range(cfg.n_layers):
+            lc = {"ssm": layers["ssm"][i], "conv": layers["conv"][i]}
+            x, new = _mamba_block(x, layer_params(params["layers"], i),
+                                  cfg, backend=backend, cache=lc)
+            lc["ssm"].copy_(new["ssm"])
+            lc["conv"].copy_(new["conv"])
+        return _head(params, cfg, x), cache
     starts = (None if seq_starts is None else
               torch.as_tensor(seq_starts, device=dev).to(torch.int64))
     tables = slots = None

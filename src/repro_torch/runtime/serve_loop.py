@@ -6,7 +6,9 @@ A left-padded batch is prefilled with ``seq_starts`` masking (zeros when
 not given, as the JAX session always threads them), the caches are
 copied into a buffer of the full capacity, and each decode step runs one
 token per row through the contiguous decode kernel (``backend="cuda"``)
-with the same ``starts``.  There is no dispatch service, registry or
+with the same ``starts``.  An ssm model keeps the prefill's recurrent
+states as its cache (they have no length to grow) and decodes without
+``starts``: a masked prefill leaves no pad entry in a recurrent state.  There is no dispatch service, registry or
 executable cache in the port yet.
 """
 from __future__ import annotations
@@ -66,10 +68,13 @@ def generate(model, params, batch: Dict[str, object], *,
     t0 = time.perf_counter()
     logits, pcache = model.prefill(params, {"tokens": tokens},
                                    backend=backend, seq_starts=starts)
-    cache = model.init_cache(bsz, total, dev)
-    for name in ("k", "v"):
-        cache["layers"][name][..., :prompt_len, :].copy_(
-            pcache["layers"][name])
+    if model.cfg.attention_free:
+        cache, dec_starts = pcache, None
+    else:
+        cache, dec_starts = model.init_cache(bsz, total, dev), starts
+        for name in ("k", "v"):
+            cache["layers"][name][..., :prompt_len, :].copy_(
+                pcache["layers"][name])
     tok = torch.argmax(logits[:, -1], dim=-1)
     out = [tok]                 # stays on the device: one copy at the end
     _sync(dev)
@@ -80,7 +85,7 @@ def generate(model, params, batch: Dict[str, object], *,
     for i in range(max_new_tokens - 1):
         lg, cache = model.decode_step(params, cache, tok[:, None],
                                       prompt_len + i, backend=backend,
-                                      seq_starts=starts)
+                                      seq_starts=dec_starts)
         tok = torch.argmax(lg[:, -1], dim=-1)
         out.append(tok)
     _sync(dev)

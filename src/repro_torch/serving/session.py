@@ -1,10 +1,10 @@
-"""ServeSession: the in-flight serving engine for dense greedy traffic
-(port of ``repro.serving.session``).
+"""ServeSession: the in-flight serving engine for greedy traffic of the
+dense and ssm families (port of ``repro.serving.session``).
 
 Requests are submitted to a queue and served by :meth:`ServeSession.drain`
-through a step loop over a fixed set of engine rows backed by a
-block-paged KV pool (:mod:`repro_torch.serving.paged_kv`).  At every step
-boundary the engine
+through a step loop over a fixed set of engine rows.  For the dense
+family the rows are backed by a block-paged KV pool
+(:mod:`repro_torch.serving.paged_kv`); at every step boundary the engine
 
 1. retires finished rows and frees their KV blocks,
 2. compacts the pool when its fragmentation passes 1/2,
@@ -13,6 +13,13 @@ boundary the engine
    a batch-1 left-padded masked prefill (flash attention), whose prompt
    K/V is scattered into the row's pool blocks, and
 4. runs one paged ``decode_step`` over all rows (paged decode attention).
+
+For the ssm family a row's state is O(1): there is no allocator, block
+table or compaction.  The pool is ``init_cache(rows, cap)``; admission
+runs the same batch-1 masked prefill (the selective-scan kernel) and
+writes the row's final SSM and conv states into row ``r`` of every
+layer, in place; each boundary runs one recurrent ``decode_step`` over
+all rows.
 
 Every request ends in a terminal :class:`RequestState`.  A request whose
 footprint can never fit the pool is REJECTED; a row whose logits are
@@ -36,6 +43,7 @@ import torch
 from repro_torch.models.attention import BACKENDS
 from repro_torch.models.model_zoo import (Model, bucket_length,
                                           left_pad_prompts)
+from repro_torch.models.transformer import SERVED_FAMILIES
 from repro_torch.runtime.serve_loop import ServeStats
 from repro_torch.serving.bucketing import (Bucket, candidate_buckets,
                                            pick_bucket)
@@ -51,7 +59,8 @@ class RequestState:
     """Terminal request states.
 
     * ``COMPLETED`` — full decode budget delivered.
-    * ``REJECTED`` — the request's KV footprint exceeds the whole pool.
+    * ``REJECTED`` — the request's KV footprint exceeds the whole pool
+      (attention families).
     * ``FAILED`` — non-finite logits retired the row (partial tokens).
     """
 
@@ -164,7 +173,7 @@ class ServeSession:
     ``"plain"``.  ``batch_sizes`` are the allowed engine row counts,
     ``kv_block_size`` the token slots per pool block and ``kv_blocks``
     the pool size (None sizes it so every row reaches its full
-    capacity).  Prompts are left-padded with token 0 to power-of-two
+    capacity); both apply to attention families only.  Prompts are left-padded with token 0 to power-of-two
     buckets.  The session runs where ``params`` live.
     """
 
@@ -172,9 +181,10 @@ class ServeSession:
                  batch_sizes: Sequence[int] = (1, 2, 4, 8),
                  kv_block_size: int = 16, kv_blocks: Optional[int] = None):
         """Validate the knobs and start with an empty queue."""
-        if model.cfg.family != "dense":
+        if model.cfg.family not in SERVED_FAMILIES:
             raise NotImplementedError(
-                f"the port's engine serves the dense family only, got "
+                f"the port's engine serves the "
+                f"{' and '.join(SERVED_FAMILIES)} families, got "
                 f"{model.cfg.family!r}")
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}")
@@ -249,10 +259,12 @@ class ServeSession:
         """One engine activation: a fixed (rows, block-table) geometry
         that serves requests at step granularity until the queue and all
         rows are empty, or the head request needs a wider table (it then
-        waits for the next activation)."""
+        waits for the next activation).  A recurrent (ssm) activation
+        has rows only: no allocator, block table or compaction."""
         model, params, dev = self.model, self.params, self.device
         cfg = model.cfg
         backend = self.backend
+        attn_family = cfg.family == "dense"
 
         head = self._queue[0]
         s_pad = self._prompt_bucket(head)
@@ -265,14 +277,17 @@ class ServeSession:
                   for r in self._queue)
         cap = max(cap, picked.total_len)
         bs = self.kv_block_size
-        max_blocks = blocks_needed(cap, bs)
-        cap = max_blocks * bs           # gather extent == table reach
-        n_blocks = (1 + rows_n * max_blocks if self.kv_blocks is None
-                    else self.kv_blocks)
-        alloc = BlockAllocator(n_blocks, bs)
-        pool = model.init_paged_cache(n_blocks, bs, dev)
-        pool_k, pool_v = pool["layers"]["k"], pool["layers"]["v"]
-        tables_np = np.zeros((rows_n, max_blocks), np.int32)
+        if attn_family:
+            max_blocks = blocks_needed(cap, bs)
+            cap = max_blocks * bs       # gather extent == table reach
+            n_blocks = (1 + rows_n * max_blocks if self.kv_blocks is None
+                        else self.kv_blocks)
+            alloc = BlockAllocator(n_blocks, bs)
+            pool = model.init_paged_cache(n_blocks, bs, dev)
+            tables_np = np.zeros((rows_n, max_blocks), np.int32)
+        else:
+            alloc = tables_np = None
+            pool = model.init_cache(rows_n, cap, dev)
         engine_bucket = Bucket(rows_n, s_pad, cap)
         act_stats = ServeStats(prefill_s=0.0, decode_s=0.0,
                                tokens_generated=0, backend=backend)
@@ -308,7 +323,7 @@ class ServeSession:
             if state == RequestState.FAILED:
                 self.stats.failed += 1
             self.stats.queue_s.append(row_wait[r])
-            if row_blocks[r]:
+            if attn_family and row_blocks[r]:
                 alloc.free(row_blocks[r])
                 tables_np[r, :] = 0
             row_req[r] = None
@@ -336,15 +351,17 @@ class ServeSession:
             pool_t.index_copy_(1, idx, blocked)
 
         def admit(req: Request, r: int) -> bool:
-            """Prefill req into row r and scatter its K/V; False (request
-            FAILED, row still free) on non-finite prefill logits."""
+            """Prefill req into row r and scatter its K/V (or write its
+            recurrent state); False (request FAILED, row still free) on
+            non-finite prefill logits."""
             length = len(req.tokens)
             p_len = self._prompt_bucket(req)
             row_wait[r] = self._clock() - req.submitted_at
-            nb = blocks_needed(length + req.max_new_tokens - 1, bs)
-            row_blocks[r] = alloc.alloc(nb)
-            tables_np[r, :] = 0
-            tables_np[r, :nb] = row_blocks[r]
+            if attn_family:
+                nb = blocks_needed(length + req.max_new_tokens - 1, bs)
+                row_blocks[r] = alloc.alloc(nb)
+                tables_np[r, :] = 0
+                tables_np[r, :nb] = row_blocks[r]
             toks = torch.as_tensor(
                 left_pad_prompts([req.tokens], p_len),
                 device=dev)
@@ -365,9 +382,10 @@ class ServeSession:
                 self.stats.poisoned_rows += 1
                 log.warning("admission of %s failed: non-finite prefill "
                             "logits", req.request_id)
-                alloc.free(row_blocks[r])
-                row_blocks[r] = []
-                tables_np[r, :] = 0
+                if attn_family:
+                    alloc.free(row_blocks[r])
+                    row_blocks[r] = []
+                    tables_np[r, :] = 0
                 results.append(RequestResult(
                     request_id=req.request_id,
                     tokens=np.zeros((0,), np.int32), bucket=engine_bucket,
@@ -377,8 +395,15 @@ class ServeSession:
                 self.stats.requests += 1
                 self.stats.failed += 1
                 return False
-            place(pool_k, pcache["layers"]["k"], r, length, p_len)
-            place(pool_v, pcache["layers"]["v"], r, length, p_len)
+            if attn_family:
+                for name in ("k", "v"):
+                    place(pool["layers"][name], pcache["layers"][name], r,
+                          length, p_len)
+            else:
+                # a recurrent state is O(1) per row: write row r of
+                # every layer, in place
+                for name, t in pool["layers"].items():
+                    t[:, r].copy_(pcache["layers"][name][:, 0])
             row_req[r] = req
             row_out[r] = [first]
             row_remaining[r] = req.max_new_tokens - 1
@@ -393,14 +418,15 @@ class ServeSession:
             for r in range(rows_n):
                 if row_req[r] is not None and row_remaining[r] <= 0:
                     retire(r)
-            if alloc.num_live and alloc.fragmentation() > 0.5:
+            if (attn_family and alloc.num_live
+                    and alloc.fragmentation() > 0.5):
                 live = [row_blocks[r] for r in range(rows_n)
                         if row_blocks[r]]
                 perm, moved = alloc.compact_tables(tables_np, live)
                 if moved:
                     gather = torch.as_tensor(perm, dtype=torch.int64,
                                              device=dev)
-                    for p in (pool_k, pool_v):
+                    for p in pool["layers"].values():
                         p.copy_(p.index_select(1, gather))
                     self.stats.compactions += 1
             while self._queue:
@@ -408,18 +434,19 @@ class ServeSession:
                 if not free_rows:
                     break
                 nxt = self._queue[0]
-                needed = len(nxt.tokens) + nxt.max_new_tokens - 1
-                nb = blocks_needed(needed, bs)
-                if nb > alloc.n_blocks - 1:
-                    self._queue.pop(0)
-                    self._reject(nxt, f"needs {nb} KV blocks but the pool "
-                                 f"holds {alloc.n_blocks - 1}; raise "
-                                 f"kv_blocks", results)
-                    continue
-                if needed > max_blocks * bs:
-                    break       # wider table: next activation
-                if not alloc.can_fit(needed):
-                    break       # backpressure: wait for retirements
+                if attn_family:
+                    needed = len(nxt.tokens) + nxt.max_new_tokens - 1
+                    nb = blocks_needed(needed, bs)
+                    if nb > alloc.n_blocks - 1:
+                        self._queue.pop(0)
+                        self._reject(nxt, f"needs {nb} KV blocks but the "
+                                     f"pool holds {alloc.n_blocks - 1}; "
+                                     f"raise kv_blocks", results)
+                        continue
+                    if needed > max_blocks * bs:
+                        break   # wider table: next activation
+                    if not alloc.can_fit(needed):
+                        break   # backpressure: wait for retirements
                 admit(self._queue.pop(0), free_rows[0])
             active = [r for r in range(rows_n) if row_req[r] is not None]
             if not active:
@@ -427,10 +454,15 @@ class ServeSession:
             if not any(row_remaining[r] > 0 for r in active):
                 continue        # budget-1 admissions retire at loop top
             t_step = time.perf_counter()
-            lg, _ = model.decode_step(
-                params, pool, torch.as_tensor(tok_np, device=dev)[:, None],
-                torch.as_tensor(pos_np, device=dev), backend=backend,
-                block_tables=torch.as_tensor(tables_np, device=dev))
+            toks = torch.as_tensor(tok_np, device=dev)[:, None]
+            if attn_family:
+                lg, _ = model.decode_step(
+                    params, pool, toks, torch.as_tensor(pos_np, device=dev),
+                    backend=backend,
+                    block_tables=torch.as_tensor(tables_np, device=dev))
+            else:
+                lg, _ = model.decode_step(params, pool, toks, 0,
+                                          backend=backend)
             last = lg[:, -1]
             new_tok = torch.argmax(last, dim=-1).cpu().numpy()
             finite = torch.isfinite(last).all(dim=-1).cpu().numpy()
@@ -462,7 +494,8 @@ class ServeSession:
                                     for r in range(rows_n)
                                     if row_req[r] is not None],
                          "pending": len(self._queue),
-                         "free_blocks": alloc.num_free})
+                         "free_blocks": (alloc.num_free if attn_family
+                                         else None)})
         self.stats.batches += 1
         entry["batches"] += 1
         return results

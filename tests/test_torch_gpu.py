@@ -16,10 +16,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (decode_attention, flash_attention,  # noqa: E402
-                                 paged_decode_attention)
+                                 paged_decode_attention, ssm_scan)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_ref, paged_decode_attention_ref)
 from repro_torch.kernels.flash_attention import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.ssm_scan import ssm_scan_ref  # noqa: E402
 
 
 @pytest.fixture
@@ -87,3 +88,33 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         flash_attention(q.half(), q.half(), q.half())     # dtype
     with pytest.raises(ValueError):
         flash_attention(q, q.cpu(), q)                     # device
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,di,block_d", [(16, 8192, 64), (8, 128, 32),
+                                          (8, 100, 64)])
+def test_cuda_ssm_scan_matches_plain_version(cuda_device, dtype, n, di,
+                                             block_d):
+    """Prefill (no h0, 37 steps: a ragged last tile) and an S=1 decode
+    step from a state; y to the dtype's tolerance, the float32 state to
+    1e-5."""
+    dt_ = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(n + di)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device)
+
+    a = -torch.arange(1, n + 1, device=cuda_device,
+                      dtype=torch.float32).repeat(di, 1)
+    d = rn(di).to(dt_)
+    for bt, s, with_h0 in ((2, 37, False), (4, 1, True)):
+        x = rn(bt, s, di).to(dt_)
+        dt = torch.nn.functional.softplus(rn(bt, s, di) * 0.5 - 1.0)
+        b, c = rn(bt, s, n), rn(bt, s, n)
+        h0 = rn(bt, di, n) if with_h0 else None
+        y, h = ssm_scan(x, dt, b, c, a, d, h0, block_d=block_d)
+        y_ref, h_ref = ssm_scan_ref(x, dt, b, c, a, d, h0)
+        torch.cuda.synchronize()
+        assert _share_of_tol(y, y_ref) <= 1.0
+        assert (h - h_ref).abs().max().item() <= 1e-5

@@ -23,10 +23,11 @@ from repro.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention_pallas)
 from repro_torch.kernels import (decode_attention, flash_attention,  # noqa: E402
                                  launch_counts, paged_decode_attention,
-                                 reset_launch_counts)
+                                 reset_launch_counts, ssm_scan)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_ref, paged_decode_attention_ref)
 from repro_torch.kernels.flash_attention import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.ssm_scan import ssm_scan_ref  # noqa: E402
 
 ATOL = 1e-5
 
@@ -147,9 +148,15 @@ def test_cpu_wrappers_run_plain_versions_without_counting():
     qp, kp, vp, tables, pos = map(_t, _paged_inputs(rng, 16))
     assert torch.equal(paged_decode_attention(qp, kp, vp, tables, pos),
                        paged_decode_attention_ref(qp, kp, vp, tables, pos))
+    x, dt = _t(_rand(rng, 2, 5, 16)), _t(_rand(rng, 2, 5, 16)).abs()
+    bc, a = _t(_rand(rng, 2, 5, 8)), -_t(_rand(rng, 16, 8)).abs()
+    d = _t(_rand(rng, 16))
+    for got, want in zip(ssm_scan(x, dt, bc, bc, a, d),
+                         ssm_scan_ref(x, dt, bc, bc, a, d)):
+        assert torch.equal(got, want)
     assert launch_counts() == {"flash_attention": 0,
                                "paged_decode_attention": 0,
-                               "decode_attention": 0}
+                               "decode_attention": 0, "ssm_scan": 0}
 
 
 def test_bf16_q_scale_is_applied_in_q_dtype():

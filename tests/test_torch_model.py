@@ -195,8 +195,13 @@ def test_greedy_tokens_identical_to_jax(models):
     assert np.array_equal(np.stack(out_t), np.stack(out_j))
 
 
-def test_non_dense_families_raise():
+@pytest.mark.parametrize("family", ["moe", "hybrid"])
+def test_non_dense_families_raise(family):
+    """Families the port does not serve yet raise (dense and ssm are
+    served; ssm is tested in test_torch_ssm.py)."""
     import dataclasses
-    cfg = dataclasses.replace(get_config(ARCH), family="ssm")
+    cfg = dataclasses.replace(get_config(ARCH), family=family)
     with pytest.raises(NotImplementedError):
         build_model(cfg).init(seed=0, device="cpu")
+    with pytest.raises(NotImplementedError):
+        cfg.param_count()

@@ -18,7 +18,8 @@ from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.device import device_identity, resolve_device  # noqa: E402
 from repro_torch.kernels import (decode_attention, flash_attention,  # noqa: E402
-                                 launch_counts, paged_decode_attention)
+                                 launch_counts, paged_decode_attention,
+                                 ssm_scan)
 from repro_torch.models import build_model  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
@@ -50,7 +51,8 @@ def test_port_files_found():
     assert sorted(p.name for p in (REPO / "src/repro_torch/kernels/csrc")
                   .glob("*.cu")) == ["decode_attention.cu", "errors.cu",
                                      "flash_attention.cu",
-                                     "paged_decode_attention.cu"]
+                                     "paged_decode_attention.cu",
+                                     "ssm_scan.cu"]
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -88,6 +90,11 @@ def test_wrappers_never_fall_back_for_non_cpu_tensors():
         paged_decode_attention(qd, pool, pool, tables,
                                torch.zeros(1, dtype=torch.int32,
                                            device="meta"))
+    x = torch.zeros(1, 4, 32, device="meta")
+    bc = torch.zeros(1, 4, 16, device="meta")
+    with pytest.raises(ValueError):
+        ssm_scan(x, x, bc, bc, torch.zeros(32, 16, device="meta"),
+                 torch.zeros(32, device="meta"))
     assert launch_counts() == before
 
 
