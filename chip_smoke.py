@@ -8,7 +8,7 @@ without a card, or when run without the rest of the repository.  Phases,
 one line each (any failure exits non-zero and prints no ``ok`` line):
 
 1. device: name, count, power limit, torch and CUDA versions;
-2. build: the four kernels from ``src/repro_torch/kernels/csrc``, one
+2. build: the seven kernels from ``src/repro_torch/kernels/csrc``, one
    nvcc per source in parallel, and ptxas' registers, spills and shared
    memory for each main-path instantiation;
 3. kernels: each kernel against its plain PyTorch version at every
@@ -31,7 +31,20 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
    engine step;
 7. exact tokens: on phi3-mini-3.8b-smoke and falcon-mamba-7b-smoke in
    float32, the engine's and ``generate``'s tokens through the kernels
-   must equal those of the plain PyTorch path.
+   must equal those of the plain PyTorch path;
+8. the thesis path (run after phase 3): conv2d, matmul and the
+   block-sparse conv at the widths of thesis Table 4.1 (batch 1 and 32),
+   the GEMM form of its 1x1 layers, phi3-mini's QKV projection and the
+   Fig 6.2 layer at block densities 0-1, each against its plain version
+   in bf16 and float32 (``[check]``; exact launch counts per call), then
+   ``[time]`` lines (kernel, plain, bound, library: ``F.conv2d``,
+   ``torch.matmul``), the dense-vs-sparse ``[crossover]``, the 24 grid
+   orders of initial-conf (``[orders]``), and the main path: every
+   shape through its ``*_dispatched`` entry point until the dispatch
+   service commits (``[dispatch]``: candidates with predicted and
+   measured medians, calls until commit, the committed schedule and the
+   card's registry key it was written back under), with the launches
+   the probed schedules make counted exactly.
 
 The line before the last is the kernels' JSON summary, the last line
 ``{"ok": true, "device": {...}}``.
@@ -134,6 +147,10 @@ MAIN_PATH_INSTANCES = {
         r"decode_kernelI13__nv_bfloat16Li1ELi3ENS_7PagedKV",
     "decode_attention": r"decode_kernelI13__nv_bfloat16Li1ELi3ENS_8ContigKV",
     "ssm_scan": r"ssm_scan_kernelI13__nv_bfloat16Li16E",
+    # the thesis kernels' bf16 instances with the most registers
+    "conv2d": r"conv2d_cu[^']*conv_tile_kernelI13__nv_bfloat16Li16E",
+    "sparse_conv2d": r"sparse_conv_cu[^']*conv_tile_kernelI13__nv_bfloat16Li16E",
+    "matmul": r"matmul_kernelI13__nv_bfloat16Li8ELi8E",
 }
 
 
@@ -152,12 +169,17 @@ def ptxas_stats(log, pattern):
             "smem_bytes": int(smem.group(1)) if smem else 0}
 
 
-def tolerance_share(torch, got, want):
+def tolerance_share(torch, got, want, peak=None):
     """(max abs error, worst error as a share of the element's
-    tolerance ``TOL``); the check passes when the share is <= 1."""
+    tolerance ``TOL``); the check passes when the share is <= 1.  With
+    ``peak`` (a read-modify-write schedule of the thesis kernels) the bf16
+    ulps are those of the largest magnitude the element takes at any
+    rounding point: a float32 sum in another order may round the other
+    way at an intermediate point, and that step stays in the result."""
     diff = (got.float() - want.float()).abs()
     if want.dtype == torch.bfloat16:
-        mag = want.float().abs().clamp_min(2.0 ** -126)
+        mag = (want.float().abs() if peak is None else peak
+               ).clamp_min(2.0 ** -126)
         ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
         allowed = BF16_ULPS * ulp + BF16_FLOOR
     else:
@@ -459,6 +481,501 @@ def kernel_checks(torch, dev, timer):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# The thesis path: conv2d, matmul and the block-sparse conv, ranked by the
+# H100 cost model and committed by the port's dispatch service
+# ---------------------------------------------------------------------------
+
+THESIS_BATCHES = (1, 32)
+# phi3-mini's QKV projection at the engine's largest prefill bucket
+QKV = (512, 9216, 3072)                  # m, n, k
+SPARSE_DENSITIES = (0.0, 0.25, 0.5, 1.0)
+DISPATCH_DENSITIES = (0.25, 1.0)
+SPARSE_ZERO_BLOCK = {"oc": 16, "ic": 16}  # granularity the weights are zeroed at
+
+
+def thesis_data(torch, dev):
+    """Table 4.1 images [32, IC, H+KH-1, W+KW-1] and weights [OC, IC, KH,
+    KW] from numpy seed 0 (weights scaled by 1/sqrt(IC KH KW), as a
+    layer's init scales them, so outputs are O(1)); the QKV operands;
+    the block-sparse layers' images.  Float32 on the card."""
+    import numpy as np
+    from repro_torch.configs.squeezenet_layers import TABLE_4_1
+    from repro_torch.core.loopnest import ConvLayer
+    rng = np.random.default_rng(0)
+
+    def rn(shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                * np.float32(scale)).to(dev)
+
+    conv = {}
+    for name, l in TABLE_4_1.items():
+        img = rn((max(THESIS_BATCHES), l.ic, l.h + l.kh - 1, l.w + l.kw - 1))
+        wgt = rn((l.oc, l.ic, l.kh, l.kw), (l.ic * l.kh * l.kw) ** -0.5)
+        conv[name] = (l, img, wgt)
+    m, n, k = QKV
+    qkv = (rn((m, k)), rn((k, n), k ** -0.5))
+    sparse = {"fig6.2-128x128-25x25": ConvLayer(128, 128, 25, 25, 3, 3),
+              "fire9-conv3x3-2": TABLE_4_1["fire9-conv3x3-2"]}
+    simg = {name: rn((max(THESIS_BATCHES), l.ic, l.h + l.kh - 1,
+                      l.w + l.kw - 1)) for name, l in sparse.items()}
+    sw = {}
+    for name, l in sparse.items():
+        for d in SPARSE_DENSITIES:
+            # zeroed as benchmarks/bench_sparsity.py zeroes them: a block
+            # is dropped where a uniform draw is >= the density
+            w = rng.standard_normal((l.oc, l.ic, l.kh, l.kw),
+                                    dtype=np.float32) / np.float32(
+                (l.ic * l.kh * l.kw) ** 0.5)
+            boc, bic = SPARSE_ZERO_BLOCK["oc"], SPARSE_ZERO_BLOCK["ic"]
+            drop = rng.random((l.oc // boc, l.ic // bic)) >= d
+            for o, i in zip(*np.nonzero(drop)):
+                w[o * boc:(o + 1) * boc, i * bic:(i + 1) * bic] = 0.0
+            sw[(name, d)] = torch.from_numpy(w).to(dev)
+    return {"conv": conv, "qkv": qkv, "sparse": sparse, "simg": simg,
+            "sw": sw}
+
+
+def gemm_shapes(data):
+    """(label, a, b): the GEMM form of the four 1x1 Table 4.1 layers at
+    batch 1 (a = weights [oc, ic], b = image [ic, h w]) and phi3-mini's
+    QKV projection."""
+    out = []
+    for name, (l, img, wgt) in data["conv"].items():
+        if l.kh == 1:
+            out.append((name, wgt[:, :, 0, 0].contiguous(),
+                        img[0].reshape(l.ic, -1).contiguous()))
+    out.append(("phi3-qkv", *data["qkv"]))
+    return out
+
+
+def conv_bound(l, n, dtype, density=1.0):
+    """(ms, by): image and output once, the nonzero weights once; 2 MACs
+    of the nonzero blocks (tensor-core peak in bf16, CUDA-core in f32)."""
+    eb = 2 if dtype == "bfloat16" else 4
+    n_bytes = (n * l.ic * (l.h + l.kh - 1) * (l.w + l.kw - 1)
+               + l.oc * l.ic * l.kh * l.kw * density
+               + n * l.oc * l.h * l.w) * eb
+    return bound(n_bytes, 2 * n * l.macs * density, dtype)
+
+
+def thesis_checks(torch, dev, timer, data):
+    """Each thesis kernel against its plain version at every shape of the
+    path, in bf16 and float32: conv2d at the tuner's rank-0 schedule and
+    one read-modify-write order (ic outermost) for every Table 4.1 layer
+    at batch 1 and 32; matmul at rank-0, an RMW order and resident RHS
+    on and off for the GEMM shapes; the block-sparse conv at densities
+    0 to 1.  Launch counts exact per call.  Then the [time] lines, the
+    [orders] sweep and the measured dense-vs-sparse crossover; returns
+    the kernels' summary entries (launches filled in later)."""
+    import torch.nn.functional as F
+    from repro_torch.core import sparsity, tuner
+    from repro_torch.kernels import _geometry as geo
+    from repro_torch.kernels import conv2d, matmul, sparse_conv2d
+    from repro_torch.kernels.conv2d import conv2d_plain, uses_scratch
+    from repro_torch.kernels.matmul import matmul_plain
+    from repro_torch.kernels.matmul import uses_scratch as mm_scratch
+    from repro_torch.kernels.sparse_conv import (analyze_weights,
+                                                 sparse_conv_plain)
+
+    worst = {}
+
+    def check(name, got, want, shape, peak=None, launched=None, want_n=None):
+        """One [check] line; fail outside the tolerance or on a launch
+        count other than the schedule's."""
+        dtype = str(want.dtype).replace("torch.", "")
+        e, share = tolerance_share(torch, got, want, peak)
+        fields = dict(kernel=name, dtype=dtype, shape=repr(shape),
+                      max_abs_err=f"{e:.3g}", tol=repr(TOL[dtype]),
+                      worst_share_of_tol=f"{share:.3g}")
+        if peak is not None and dtype == "bfloat16":
+            fields["share_of_final_value_tol"] = \
+                f"{tolerance_share(torch, got, want)[1]:.3g}"
+        if launched is not None:
+            fields["launches"] = launched
+        phase("check", **fields, ok=share <= 1.0)
+        if share > 1.0:
+            fail(f"{name} {dtype} {shape} disagrees with its plain version: "
+                 f"max abs err {e}, {share:.3g}x the tolerance")
+        if launched is not None and launched != want_n:
+            fail(f"{name} {shape}: {launched} launches, want {want_n}")
+        worst[name] = max(worst.get(name, 0.0), e)
+
+    def counted(fn, wrapper):
+        """fn() and the launches its wrapper counted."""
+        before = wrapper.launches
+        out = fn()
+        torch.cuda.synchronize()
+        return out, wrapper.launches - before
+
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    # ---- conv2d
+    for name, (l, img32, wgt32) in data["conv"].items():
+        for dname, dt in dtypes.items():
+            eb = 2 if dname == "bfloat16" else 4
+            rank0 = tuner.tune_conv(l, elem_bytes=eb, top_k=1)[0][0]
+            blk = rank0.block_dict()
+            if blk["ic"] == l.ic:    # give the RMW order >= 2 passes
+                blk = dict(blk, ic=max(
+                    d for d in range(1, l.ic) if l.ic % d == 0
+                    and geo.conv_tile(blk["oc"], d, blk["y"], blk["x"], l.kh,
+                                      l.kw, eb).error is None))
+            scheds = [(rank0.grid_order, rank0.block_dict(), "rank0"),
+                      (("ic", "oc", "y", "x"), blk, "rmw")]
+            for n in THESIS_BATCHES:
+                img, wgt = img32[:n].to(dt), wgt32.to(dt)
+                for order, block, tag in scheds:
+                    got, k = counted(lambda: conv2d(
+                        img, wgt, block=block, grid_order=order), conv2d)
+                    want, peak = conv2d_plain(img, wgt, block=block,
+                                              grid_order=order,
+                                              with_peak=True)
+                    check("conv2d", got, want,
+                          f"{name} N={n} {tag} {''.join(a[0] for a in order)}"
+                          f" {block}", peak, k,
+                          1 if uses_scratch(order) else l.ic // block["ic"])
+    # ---- matmul
+    for label, a32, b32 in gemm_shapes(data):
+        m, k_ = a32.shape
+        n = b32.shape[1]
+        for dname, dt in dtypes.items():
+            eb = 2 if dname == "bfloat16" else 4
+            a, b = a32.to(dt), b32.to(dt)
+            r0 = tuner.tune_matmul(m, n, k_, elem_bytes=eb, top_k=1)[0][0]
+            blk = r0.block_dict()
+            if blk["k"] == k_:
+                blk = dict(blk, k=max(d for d in range(1, k_)
+                                      if k_ % d == 0 and d <= 64))
+            cases = [(r0.grid_order, r0.block_dict(), r0.resident_rhs,
+                      "rank0"), (("k", "m", "n"), blk, False, "rmw")]
+            for res in (False, True):
+                cases.append((("m", "n", "k"), r0.block_dict(), res,
+                              f"resident={res}"))
+            for order, block, res, tag in cases:
+                tile = geo.matmul_tile(block["m"], block["n"], block["k"],
+                                       k_, eb, res)
+                shape = (f"{label} [{m},{k_}]x[{k_},{n}] {tag} "
+                         f"{''.join(order)} {block}")
+                if tile.error is not None:
+                    try:
+                        matmul(a, b, block=block, grid_order=order,
+                               resident_rhs=res)
+                    except ValueError as e:
+                        phase("check", kernel="matmul", dtype=dname,
+                              shape=repr(shape), raises=repr(str(e)),
+                              ok=True)
+                        continue
+                    fail(f"matmul {shape}: accepted a tile the kernel "
+                         f"cannot take ({tile.error})")
+                got, launched = counted(lambda: matmul(
+                    a, b, block=block, grid_order=order, resident_rhs=res),
+                    matmul)
+                want, peak = matmul_plain(a, b, block=block,
+                                          grid_order=order, resident_rhs=res,
+                                          with_peak=True)
+                check("matmul", got, want, shape, peak, launched,
+                      1 if mm_scratch(order, res) else k_ // block["k"])
+    # ---- block-sparse conv
+    for name, l in data["sparse"].items():
+        for d in SPARSE_DENSITIES:
+            for dname, dt in dtypes.items():
+                eb = 2 if dname == "bfloat16" else 4
+                s0 = tuner.tune_sparse_conv(l, d, elem_bytes=eb,
+                                            top_k=1)[0][0]
+                block = s0.block_dict()
+                wgt = data["sw"][(name, d)].to(dt)
+                sp = analyze_weights(wgt, block)
+                for n in THESIS_BATCHES:
+                    img = data["simg"][name][:n].to(dt)
+                    got, k = counted(lambda: sparse_conv2d(
+                        img, wgt, block=block, sparsity=sp), sparse_conv2d)
+                    check("sparse_conv2d", got,
+                          sparse_conv_plain(img, wgt, sp.idx, sp.counts,
+                                            block),
+                          f"{name} N={n} density={d} block_density="
+                          f"{sp.density:.3f} {block}", None, k, 1)
+
+    # ---- [time]: every Table 4.1 layer at batch 32 and 1, bf16, rank-0
+    summary = {}
+    conv_ms = {}
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    bound_share = {"bytes": 0.0, "operations": 0.0}
+    for n in THESIS_BATCHES:
+        for name, (l, img32, wgt32) in data["conv"].items():
+            img, wgt = img32[:n].to(torch.bfloat16), wgt32.to(torch.bfloat16)
+            s = tuner.tune_conv(l, elem_bytes=2, top_k=1)[0][0]
+            blk, order = s.block_dict(), s.grid_order
+            t = dict(ms=timer(lambda: conv2d(img, wgt, block=blk,
+                                             grid_order=order)),
+                     plain_ms=timer(lambda: conv2d_plain(
+                         img, wgt, block=blk, grid_order=order), iters=9),
+                     library_ms=timer(lambda: F.conv2d(img, wgt)))
+            t["bound_ms"], by = conv_bound(l, n, "bfloat16")
+            conv_ms[(name, n)] = t["ms"]
+            phase("time", kernel="conv2d", layer=name, batch=n,
+                  dtype="bfloat16", schedule=repr(f"{''.join(a[0] for a in order)} {blk}"),
+                  **{k: f"{v:.4f}" for k, v in t.items()}, bound_by=by)
+            if n == max(THESIS_BATCHES):
+                for k in tot:
+                    tot[k] += t[k]
+                bound_share[by] += t["bound_ms"]
+    summary["conv2d"] = dict(
+        name="conv2d", route="cuda",
+        source="src/repro_torch/kernels/csrc/conv2d.cu",
+        replaces="src/repro/kernels/conv2d/kernel.py:96", launches=0,
+        max_abs_err=worst["conv2d"], ms=tot["ms"], plain_ms=tot["plain_ms"],
+        bound_ms=tot["bound_ms"],
+        bound_by=max(bound_share, key=bound_share.get),
+        library_ms=tot["library_ms"],
+        shape="sum over the 8 Table 4.1 layers at batch 32, bf16, each at "
+              "the tuner's rank-0 schedule; library F.conv2d (cuDNN)")
+    for label, a32, b32 in gemm_shapes(data):
+        m, k_ = a32.shape
+        n = b32.shape[1]
+        a, b = a32.to(torch.bfloat16), b32.to(torch.bfloat16)
+        s = tuner.tune_matmul(m, n, k_, elem_bytes=2, top_k=1)[0][0]
+        b_ms, b_by = bound((m * k_ + k_ * n + m * n) * 2, 2 * m * n * k_,
+                           "bfloat16")
+        t = dict(ms=timer(lambda: s.run(a, b)),
+                 plain_ms=timer(lambda: matmul_plain(
+                     a, b, block=s.block_dict(), grid_order=s.grid_order,
+                     resident_rhs=s.resident_rhs)),
+                 library_ms=timer(lambda: torch.matmul(a, b)))
+        phase("time", kernel="matmul", shape=label, mnk=f"{m}x{n}x{k_}",
+              dtype="bfloat16", schedule=repr(reg_dict(s)),
+              **{k: f"{v:.4f}" for k, v in t.items()},
+              bound_ms=f"{b_ms:.4f}", bound_by=b_by)
+        if label == "phi3-qkv":
+            summary["matmul"] = dict(
+                name="matmul", route="cuda",
+                source="src/repro_torch/kernels/csrc/matmul.cu",
+                replaces="src/repro/kernels/matmul/kernel.py:78", launches=0,
+                max_abs_err=worst["matmul"], **t, bound_ms=b_ms,
+                bound_by=b_by,
+                shape=f"phi3-mini QKV [{m},{k_}]x[{k_},{n}] bf16, rank-0 "
+                      f"{reg_dict(s)}; library torch.matmul (cuBLAS)")
+    sparse_ms = {}
+    for name, l in data["sparse"].items():
+        for d in SPARSE_DENSITIES:
+            s = tuner.tune_sparse_conv(l, d, elem_bytes=2, top_k=1)[0][0]
+            block = s.block_dict()
+            img = data["simg"][name].to(torch.bfloat16)
+            wgt = data["sw"][(name, d)].to(torch.bfloat16)
+            sp = analyze_weights(wgt, block)
+            b_ms, b_by = conv_bound(l, img.shape[0], "bfloat16", sp.density)
+            t = dict(ms=timer(lambda: sparse_conv2d(img, wgt, block=block,
+                                                     sparsity=sp)),
+                     plain_ms=timer(lambda: sparse_conv_plain(
+                         img, wgt, sp.idx, sp.counts, block), iters=9),
+                     library_ms=timer(lambda: F.conv2d(img, wgt)))
+            sparse_ms[(name, d)] = (t["ms"], sp.density)
+            phase("time", kernel="sparse_conv2d", layer=name,
+                  batch=img.shape[0], dtype="bfloat16", density=d,
+                  block_density=f"{sp.density:.3f}", block=repr(block),
+                  **{k: f"{v:.4f}" for k, v in t.items()},
+                  bound_ms=f"{b_ms:.4f}", bound_by=b_by)
+            if name.startswith("fig6.2") and d == 0.25:
+                summary["sparse_conv2d"] = dict(
+                    name="sparse_conv2d", route="cuda",
+                    source="src/repro_torch/kernels/csrc/sparse_conv.cu",
+                    replaces="src/repro/kernels/sparse_conv/kernel.py:77",
+                    launches=0, max_abs_err=worst["sparse_conv2d"], **t,
+                    bound_ms=b_ms, bound_by=b_by,
+                    shape=f"thesis Fig 6.2 layer (128x128, 25x25, 3x3) at "
+                          f"batch 32, bf16, block density {sp.density:.3f}, "
+                          f"block {block}; library F.conv2d on the zeroed "
+                          f"weights")
+        # the dense conv of the same layer, rank-0, for the crossover
+        img = data["simg"][name].to(torch.bfloat16)
+        wgt = data["sw"][(name, 1.0)].to(torch.bfloat16)
+        s = tuner.tune_conv(l, elem_bytes=2, top_k=1)[0][0]
+        dense_ms = timer(lambda: s.run(img, wgt))
+        # (block density, ms) of the sparse kernel; where it crosses the
+        # dense kernel's time, linearly between the measured densities
+        pts = sorted((v[1], v[0]) for k, v in sparse_ms.items()
+                     if k[0] == name)
+        measured = None
+        for (d0, t0), (d1, t1) in zip(pts, pts[1:]):
+            if d1 > d0 and t1 != t0 and (t0 - dense_ms) * (t1 - dense_ms) <= 0:
+                measured = d0 + (dense_ms - t0) * (d1 - d0) / (t1 - t0)
+                break
+        predicted = sparsity.crossover_density(
+            l, tuner.tune_sparse_conv(l, 0.5, top_k=1)[0][0].block_dict())
+        phase("crossover", layer=name, batch=img.shape[0],
+              dense_rank0_ms=f"{dense_ms:.4f}",
+              sparse_ms=repr({f"{v[1]:.3f}": round(v[0], 4)
+                              for k, v in sparse_ms.items()
+                              if k[0] == name}),
+              predicted_density=f"{predicted:.3f}",
+              measured_density=("none: sparse never crosses dense"
+                                if measured is None else f"{measured:.3f}"))
+
+    # ---- [orders]: all 24 grid orders of initial-conf at batch 32, bf16,
+    # rank-0 blocks (thesis Fig 4.3 on the card)
+    import itertools
+    l, img32, wgt32 = data["conv"]["initial-conf"]
+    img, wgt = img32.to(torch.bfloat16), wgt32.to(torch.bfloat16)
+    blk = tuner.tune_conv(l, elem_bytes=2, top_k=1)[0][0].block_dict()
+    by_order = {}
+    for order in itertools.permutations(("oc", "ic", "y", "x")):
+        by_order["".join(a[0] if a != "oc" else "o" for a in order)] = \
+            timer(lambda: conv2d(img, wgt, block=blk, grid_order=order))
+    best, worst_o = min(by_order.values()), max(by_order.values())
+    phase("orders", layer="initial-conf", batch=32, dtype="bfloat16",
+          block=repr(blk), n_ic=l.ic // blk["ic"],
+          worst_over_best=f"{worst_o / best:.3f}",
+          best=min(by_order, key=by_order.get),
+          worst=max(by_order, key=by_order.get),
+          ms=json.dumps({k: round(v, 4) for k, v in by_order.items()}))
+    return summary
+
+
+def reg_dict(sched):
+    """A schedule as its registry dict."""
+    from repro_torch.core.registry import schedule_to_dict
+    return schedule_to_dict(sched)
+
+
+def thesis_dispatch(torch, dev, timer, data):
+    """The thesis path's main path: every (layer, batch) through
+    ``conv2d_dispatched`` in bf16 until its slot commits, each batch size
+    with its own service and in-memory registry (the dispatch key has no
+    batch); the GEMM shapes through ``matmul_dispatched``; the sparse
+    layers at densities 0.25 and 1.0 through ``sparse_conv2d_dispatched``.
+    Launch counts are set to 0 just before and read just after, and must
+    equal what the probed schedules launch.  Returns the counts."""
+    from repro_torch import kernels
+    from repro_torch.core import registry as reg
+    from repro_torch.kernels.conv2d import conv2d_dispatched, uses_scratch
+    from repro_torch.kernels.matmul import matmul_dispatched
+    from repro_torch.kernels.matmul import uses_scratch as mm_scratch
+    from repro_torch.kernels.sparse_conv import sparse_conv2d_dispatched
+    from repro_torch.runtime.dispatch import DispatchService
+
+    bf16 = torch.bfloat16
+    calls = []           # (service, kind, problem, calls until commit)
+
+    def drive(svc, kind, problem, call, label):
+        """Call until the slot commits (at most 40 calls)."""
+        n = 0
+        while svc.committed(kind, problem, 2) is None:
+            call()
+            n += 1
+            if n > 40:
+                fail(f"dispatch {label}: no commit after 40 calls")
+        calls.append((svc, kind, problem, n, label))
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    services = []
+    for nb in THESIS_BATCHES:
+        svc = DispatchService(reg.TuningRegistry(None), device=dev)
+        services.append(svc)
+        for name, (l, img32, wgt32) in data["conv"].items():
+            img, wgt = img32[:nb].to(bf16), wgt32.to(bf16)
+            problem = {"oc": l.oc, "ic": l.ic, "h": l.h, "w": l.w,
+                       "kh": l.kh, "kw": l.kw}
+            drive(svc, "conv2d", problem,
+                  lambda: conv2d_dispatched(img, wgt, service=svc),
+                  f"conv2d {name} N={nb}")
+    svc = DispatchService(reg.TuningRegistry(None), device=dev)
+    services.append(svc)
+    for label, a32, b32 in gemm_shapes(data):
+        a, b = a32.to(bf16), b32.to(bf16)
+        problem = {"m": a.shape[0], "n": b.shape[1], "k": a.shape[1]}
+        drive(svc, "matmul", problem,
+              lambda: matmul_dispatched(a, b, service=svc),
+              f"matmul {label}")
+    for nb in THESIS_BATCHES:
+        svc = DispatchService(reg.TuningRegistry(None), device=dev)
+        services.append(svc)
+        for name, l in data["sparse"].items():
+            img = data["simg"][name][:nb].to(bf16)
+            for d in DISPATCH_DENSITIES:
+                wgt = data["sw"][(name, d)].to(bf16)
+                dens = float((wgt != 0).float().mean())
+                problem = {"oc": l.oc, "ic": l.ic, "h": l.h, "w": l.w,
+                           "kh": l.kh, "kw": l.kw,
+                           "density_16": reg.quantize_density(dens)}
+                drive(svc, "sparse_conv", problem,
+                      lambda: sparse_conv2d_dispatched(img, wgt,
+                                                       service=svc),
+                      f"sparse_conv {name} N={nb} density={d}")
+    counts = kernels.launch_counts()
+    wall = time.perf_counter() - t0
+
+    card = reg.machine_key(services[0].spec, dev)
+    cpu = reg.machine_key(services[0].spec, "cpu")
+    want = {"conv2d": 0, "matmul": 0, "sparse_conv2d": 0}
+    for svc, kind, problem, n, label in calls:
+        key = svc.registry_key(kind, problem, 2)
+        entry = svc.report()[key.canonical()]
+        cands = svc.candidates(kind, problem, 2)
+        for i, cnt in entry["samples"].items():
+            c = cands[i]
+            if kind == "conv2d":
+                per = 1 if uses_scratch(c.grid_order) else \
+                    problem["ic"] // c.block_dict()["ic"]
+                want["conv2d"] += cnt * per
+            elif kind == "matmul":
+                per = 1 if mm_scratch(c.grid_order, c.resident_rhs) else \
+                    problem["k"] // c.block_dict()["k"]
+                want["matmul"] += cnt * per
+            else:
+                want["sparse_conv2d"] += cnt
+        rec = svc.registry.get(key)
+        written = (rec is not None and rec.measured is not None
+                   and key.machine == card != cpu)
+        if not written:
+            fail(f"dispatch {label}: no measurement written back under "
+                 f"the card's key {card}")
+        med = entry["measured_median_s"]
+        phase("dispatch", slot=repr(label), calls_until_commit=n,
+              committed=repr(entry["committed"]),
+              committed_is_rank0=entry["committed_rank"] == 0,
+              candidates=json.dumps([
+                  {"schedule": entry["candidates"][i],
+                   "predicted_us": round(entry["predicted_s"][i] * 1e6, 3),
+                   "measured_median_us": (None if med[i] is None
+                                          else round(med[i] * 1e6, 3))}
+                  for i in range(len(cands))]),
+              written_back_under=card)
+    for k, v in want.items():
+        if counts[k] != v:
+            fail(f"dispatch phase: {counts[k]} {k} launches, the probed "
+                 f"schedules launch {v}")
+        if counts[k] < 1:
+            fail(f"dispatch phase launched no {k} kernel")
+    others = {k: v for k, v in counts.items() if k not in want and v}
+    if others:
+        fail(f"dispatch phase launched other kernels: {others}")
+    phase("thesis_path", slots=len(calls), seconds=f"{wall:.1f}",
+          commits=sum(s.commits for s in services),
+          launches=json.dumps({k: counts[k] for k in want}),
+          launches_expected=json.dumps(want),
+          card_key=card, cpu_key=cpu)
+    # after the counts were read: device time of the committed schedule
+    # against the cost model's rank-0, batch-32 conv slots and the GEMMs
+    for svc, kind, problem, n, label in calls:
+        if kind == "sparse_conv" or (kind == "conv2d" and "N=32" not in label):
+            continue
+        cands = svc.candidates(kind, problem, 2)
+        committed = svc.committed(kind, problem, 2)
+        if kind == "conv2d":
+            name = label.split()[1]
+            _, img32, wgt32 = data["conv"][name]
+            args = (img32.to(bf16), wgt32.to(bf16))
+        else:
+            lab = label.split()[1]
+            _, a32, b32 = next(g for g in gemm_shapes(data) if g[0] == lab)
+            args = (a32.to(bf16), b32.to(bf16))
+        r0 = timer(lambda: cands[0].run(*args))
+        cm_ = timer(lambda: committed.run(*args))
+        phase("dispatch_gain", slot=repr(label), rank0_ms=f"{r0:.4f}",
+              committed_ms=f"{cm_:.4f}", rank0_over_committed=f"{r0 / cm_:.3f}")
+    return {k: counts[k] for k in want}
+
+
 def profile_engine(torch, model, params, prompts):
     """One short engine drain (4 requests, 16 new tokens) under
     ``torch.profiler``: the device's busy share of the wall time and
@@ -684,6 +1201,16 @@ def run(torch, dev, timer, smi):
     from repro_torch.configs import get_config
 
     summary = kernel_checks(torch, dev, timer)
+
+    # ---- the thesis path: checks and times first (they build and warm
+    # every kernel), then the dispatched main path with its counts
+    data = thesis_data(torch, dev)
+    summary.update(thesis_checks(torch, dev, timer, data))
+    thesis = thesis_dispatch(torch, dev, timer, data)
+    for k, v in thesis.items():
+        summary[k]["launches"] = v
+    del data
+    torch.cuda.empty_cache()
 
     # ---- phi3-mini-3.8b: flash prefill, paged and contiguous decode
     phi3 = serve_phases(torch, dev, smi, PHI3)

@@ -1,0 +1,232 @@
+"""Offline schedule search for the thesis kernels on the H100.
+
+The tuner enumerates the schedule space of each kernel (grid order x
+block shapes, plus the resident RHS for matmul), scores the whole
+enumeration with one batch call of the H100 cost model and ranks it.
+The block candidates are the port's own, sized for a Hopper block
+rather than the TPU's MXU: channels around 16-128, pixels around 4-16
+or the full extent, matmul tiles around 32-128 and k chunks around
+16-64 or the whole k.  Only schedules the CUDA kernels accept
+(``kernels/_geometry.py``) are ever returned, so a ranked schedule
+never raises on the card.
+
+``cached_tune_*`` put the ranking behind the port's tuning registry: a
+warm hit performs zero cost-model evaluations.
+"""
+from __future__ import annotations
+
+import itertools
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from repro_torch.core import cost_model as cm
+from repro_torch.core import registry as reg
+from repro_torch.core.loopnest import ConvLayer
+from repro_torch.core.schedule import (ConvSchedule, MatmulSchedule,
+                                       SparseConvSchedule)
+from repro_torch.kernels import _geometry as geo
+
+CONV_CHANNEL_TARGETS = (16, 32, 64, 128)
+CONV_PIXEL_TARGETS = (4, 8, 16)
+MATMUL_TILE_TARGETS = (32, 64, 128)
+MATMUL_K_TARGETS = (16, 32, 64)
+
+
+def _divisors(n: int, cap: int = 1 << 30) -> List[int]:
+    """All divisors of ``n`` up to ``cap``."""
+    return [d for d in range(1, min(n, cap) + 1) if n % d == 0]
+
+
+def _block_candidates(dim: int, targets: Sequence[int]) -> List[int]:
+    """Divisors of ``dim`` closest below each target."""
+    divs = _divisors(dim)
+    return sorted({max(d for d in divs if d <= t) for t in targets if t >= 1})
+
+
+def conv_blocks(layer: ConvLayer, elem_bytes: int) -> List[Dict[str, int]]:
+    """The conv block candidates the kernel accepts for ``layer``."""
+    oc_c = _block_candidates(layer.oc, CONV_CHANNEL_TARGETS)
+    ic_c = _block_candidates(layer.ic, CONV_CHANNEL_TARGETS)
+    y_c = _block_candidates(layer.h, CONV_PIXEL_TARGETS + (layer.h,))
+    x_c = _block_candidates(layer.w, CONV_PIXEL_TARGETS + (layer.w,))
+    blocks = [{"oc": o, "ic": i, "y": y, "x": x}
+              for o, i, y, x in itertools.product(oc_c, ic_c, y_c, x_c)]
+    return [b for b in blocks
+            if geo.conv_tile(b["oc"], b["ic"], b["y"], b["x"], layer.kh,
+                             layer.kw, elem_bytes).error is None]
+
+
+def _top(times: np.ndarray, feasible: np.ndarray, top_k: int) -> List[int]:
+    """Flat indices of the ``top_k`` cheapest feasible candidates (a
+    stable sort, so ties keep enumeration order)."""
+    flat = np.where(feasible.reshape(-1), times.reshape(-1), np.inf)
+    order = np.argsort(flat, kind="stable")
+    return [int(i) for i in order[:top_k] if np.isfinite(flat[i])]
+
+
+def tune_conv(layer: ConvLayer, spec: cm.H100Spec = cm.H100Spec(),
+              elem_bytes: int = 2, top_k: int = 5,
+              ) -> List[Tuple[ConvSchedule, cm.KernelCost]]:
+    """Rank (grid order x block shape) conv schedules by the H100 model
+    with one ``conv_schedule_cost_batch`` call."""
+    orders = list(itertools.permutations(("oc", "ic", "y", "x")))
+    blocks = conv_blocks(layer, elem_bytes)
+    batch = cm.conv_schedule_cost_batch(layer, orders, blocks, spec,
+                                        elem_bytes)
+    n_b = len(blocks)
+    return [(ConvSchedule.make(orders[i // n_b], blocks[i % n_b]),
+             batch.cost((i // n_b, i % n_b)))
+            for i in _top(batch.time_s, batch.feasible, top_k)]
+
+
+def matmul_blocks(m: int, n: int, k: int) -> List[Tuple[int, int, int]]:
+    """The matmul (bm, bn, bk) candidates (feasibility also depends on
+    the resident switch, so it is applied on the scores)."""
+    m_c = _block_candidates(m, MATMUL_TILE_TARGETS)
+    n_c = _block_candidates(n, MATMUL_TILE_TARGETS)
+    k_c = _block_candidates(k, MATMUL_K_TARGETS + (k,))
+    return list(itertools.product(m_c, n_c, k_c))
+
+
+def tune_matmul(m: int, n: int, k: int, spec: cm.H100Spec = cm.H100Spec(),
+                elem_bytes: int = 2, top_k: int = 5,
+                ) -> List[Tuple[MatmulSchedule, cm.KernelCost]]:
+    """Rank matmul schedules: 6 grid orders x blocks x resident RHS, with
+    one ``matmul_schedule_cost_batch`` call."""
+    orders = list(itertools.permutations(("m", "n", "k")))
+    blocks = matmul_blocks(m, n, k)
+    batch = cm.matmul_schedule_cost_batch(m, n, k, blocks, orders, spec,
+                                          elem_bytes)
+    n_b = len(blocks)
+    out: List[Tuple[MatmulSchedule, cm.KernelCost]] = []
+    for i in _top(batch.time_s, batch.feasible, top_k):
+        o, rem = divmod(i, n_b * 2)
+        b, resident = divmod(rem, 2)
+        bm, bn, bk = blocks[b]
+        sched = MatmulSchedule.make(orders[o], {"m": bm, "n": bn, "k": bk},
+                                    bool(resident))
+        out.append((sched, batch.cost((o, b, resident))))
+    return out
+
+
+def sparse_blocks(layer: ConvLayer, elem_bytes: int) -> List[Dict[str, int]]:
+    """The (oc, ic) skip-block candidates the sparse kernel accepts."""
+    oc_c = _block_candidates(layer.oc, CONV_CHANNEL_TARGETS)
+    ic_c = _block_candidates(layer.ic, CONV_CHANNEL_TARGETS)
+    by, bx = geo.sparse_tile(layer.h, layer.w)
+    return [{"oc": o, "ic": i} for o, i in itertools.product(oc_c, ic_c)
+            if geo.conv_tile(o, i, by, bx, layer.kh, layer.kw,
+                             elem_bytes).error is None]
+
+
+def tune_sparse_conv(layer: ConvLayer, density: float = 1.0,
+                     spec: cm.H100Spec = cm.H100Spec(),
+                     elem_bytes: int = 2, top_k: int = 5,
+                     ) -> List[Tuple[SparseConvSchedule, cm.KernelCost]]:
+    """Rank (oc, ic) skip blocks for the block-sparse conv kernel at a
+    given block density."""
+    blocks = sparse_blocks(layer, elem_bytes)
+    batch = cm.sparse_conv_schedule_cost_batch(layer, blocks, density, 1,
+                                               spec, elem_bytes)
+    return [(SparseConvSchedule.make(blocks[i]), batch.cost(i))
+            for i in _top(batch.time_s, batch.feasible, top_k)]
+
+
+def _ranked_to_value(ranked) -> Dict:
+    """Registry value for a ranked (schedule, cost) list."""
+    return {"schedules": [reg.schedule_to_dict(s) for s, _ in ranked],
+            "costs": [reg.cost_to_dict(c) for _, c in ranked],
+            "tier": "roofline"}
+
+
+def _has_ranked(value: Dict, top_k: int) -> bool:
+    """A record answers a top_k request when it holds that many ranked
+    pairs, or the whole (smaller) enumeration; a record made only by an
+    online write-back holds no costs and must re-tune."""
+    n = min(len(value.get("schedules", ())), len(value.get("costs", ())))
+    if value.get("complete") and n > 0:
+        return True
+    return n >= top_k
+
+
+def _value_to_ranked(value: Dict, top_k: Optional[int] = None):
+    """Rebuild the ranked (schedule, cost) list from a registry value."""
+    pairs = zip(value["schedules"][:top_k], value["costs"][:top_k])
+    return [(reg.schedule_from_dict(s), reg.cost_from_dict(c))
+            for s, c in pairs]
+
+
+def _cached_ranked(key: reg.RegistryKey, tune: Callable[[int], List],
+                   top_k: int, registry: Optional[reg.TuningRegistry],
+                   refresh: bool) -> List:
+    """Return the stored ranking on a warm hit (zero cost-model
+    evaluations); otherwise run ``tune`` once and persist it, keeping
+    any measurement already attached to the key."""
+    registry = registry if registry is not None else \
+        reg.TuningRegistry.default()
+    prev = registry.get(key)
+    rec = None if refresh else prev
+    if rec is not None and _has_ranked(rec.value, top_k):
+        return _value_to_ranked(rec.value, top_k)
+    want = max(top_k, 5)
+    ranked = tune(want)
+    if not ranked:
+        raise ValueError(f"no schedule of {key.kind} {key.problem_dict()} "
+                         f"fits the kernel")
+    value = _ranked_to_value(ranked)
+    if len(ranked) < want:
+        value["complete"] = True      # the whole feasible enumeration
+    registry.put(reg.TuningRecord(key=key, value=value,
+                                  measured=prev.measured if prev else None,
+                                  source="offline"))
+    return ranked[:top_k]
+
+
+def cached_tune_conv(layer: ConvLayer, spec: cm.H100Spec = cm.H100Spec(),
+                     elem_bytes: int = 2, top_k: int = 5,
+                     registry: Optional[reg.TuningRegistry] = None,
+                     refresh: bool = False, machine: Optional[str] = None,
+                     ) -> List[Tuple[ConvSchedule, cm.KernelCost]]:
+    """:func:`tune_conv` behind the registry; ``machine`` overrides the
+    key's machine part (the dispatch service passes spec + runtime)."""
+    return _cached_ranked(
+        reg.conv_schedule_key(layer, machine or spec, elem_bytes),
+        lambda k: tune_conv(layer, spec, elem_bytes, top_k=k),
+        top_k, registry, refresh)
+
+
+def cached_tune_matmul(m: int, n: int, k: int,
+                       spec: cm.H100Spec = cm.H100Spec(),
+                       elem_bytes: int = 2, top_k: int = 5,
+                       registry: Optional[reg.TuningRegistry] = None,
+                       refresh: bool = False, machine: Optional[str] = None,
+                       ) -> List[Tuple[MatmulSchedule, cm.KernelCost]]:
+    """:func:`tune_matmul` behind the registry."""
+    return _cached_ranked(
+        reg.matmul_schedule_key(m, n, k, machine or spec, elem_bytes),
+        lambda kk: tune_matmul(m, n, k, spec, elem_bytes, top_k=kk),
+        top_k, registry, refresh)
+
+
+def cached_tune_sparse_conv(
+        layer: ConvLayer, density: float = 1.0,
+        spec: cm.H100Spec = cm.H100Spec(), elem_bytes: int = 2,
+        top_k: int = 5, registry: Optional[reg.TuningRegistry] = None,
+        refresh: bool = False, machine: Optional[str] = None,
+        ) -> List[Tuple[SparseConvSchedule, cm.KernelCost]]:
+    """:func:`tune_sparse_conv` behind the registry (density quantised to
+    the registry's 1/16 grid, so the key space stays finite)."""
+    density_q = reg.quantize_density(density) / 16.0
+    return _cached_ranked(
+        reg.sparse_conv_schedule_key(layer, density, machine or spec,
+                                     elem_bytes),
+        lambda k: tune_sparse_conv(layer, density_q, spec, elem_bytes,
+                                   top_k=k),
+        top_k, registry, refresh)
+
+
+__all__ = ["tune_conv", "tune_matmul", "tune_sparse_conv",
+           "cached_tune_conv", "cached_tune_matmul",
+           "cached_tune_sparse_conv", "conv_blocks", "matmul_blocks",
+           "sparse_blocks"]

@@ -10,9 +10,12 @@ from __future__ import annotations
 
 from typing import Dict
 
+from repro_torch.kernels.conv2d import conv2d
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   paged_decode_attention)
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.matmul import matmul
+from repro_torch.kernels.sparse_conv import sparse_conv2d
 from repro_torch.kernels.ssm_scan import ssm_scan
 
 WRAPPERS = {
@@ -20,6 +23,9 @@ WRAPPERS = {
     "paged_decode_attention": paged_decode_attention,
     "decode_attention": decode_attention,
     "ssm_scan": ssm_scan,
+    "matmul": matmul,
+    "conv2d": conv2d,
+    "sparse_conv2d": sparse_conv2d,
 }
 
 
@@ -36,4 +42,4 @@ def reset_launch_counts() -> None:
 
 __all__ = ["WRAPPERS", "launch_counts", "reset_launch_counts",
            "flash_attention", "decode_attention", "paged_decode_attention",
-           "ssm_scan"]
+           "ssm_scan", "matmul", "conv2d", "sparse_conv2d"]

@@ -53,6 +53,16 @@ SIGNATURES = {
     # stream
     "ssm_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                      _I, _I, _P],
+    # img, wgt, out, N, IC, H2, W2, OC, KH, KW, boc, bic, by, bx, groups,
+    # per_thread, ord0, ord1, ord2, ic_begin, ic_count, accumulate,
+    # is_bf16, stream
+    "conv2d_fwd": [_P, _P, _P] + [_I] * 20 + [_P],
+    # img, wgt, idx, counts, out, N, IC, H2, W2, OC, KH, KW, boc, bic,
+    # max_nnz, by, bx, groups, per_thread, is_bf16, stream
+    "sparse_conv2d_fwd": [_P, _P, _P, _P, _P] + [_I] * 15 + [_P],
+    # a, b, c, M, N, K, bm, bn, bk, mi, mj, m_outer, k_begin, k_count,
+    # accumulate, resident, is_bf16, stream
+    "matmul_fwd": [_P, _P, _P] + [_I] * 14 + [_P],
 }
 
 _lock = threading.Lock()

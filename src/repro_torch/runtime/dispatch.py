@@ -1,0 +1,370 @@
+"""The port's online dispatch runtime: tune -> select -> observe per shape.
+
+A :class:`DispatchService` keys every call by ``(kernel kind, canonical
+problem, machine)``.  On first sight of a key it resolves the top-K
+schedules through the tuner behind the port's registry (a warm registry
+answers with zero cost-model evaluations, a cold one pays one batch
+sweep) and registers them with an
+:class:`~repro_torch.core.adaptive.AdaptiveSelector`.  Each later call
+takes the proposed schedule, is timed, and feeds the selector, which
+commits the argmin once steady and writes the measured winner back to
+the registry.
+
+The port's own table of kernel families holds the thesis kernels::
+
+    kind          problem                       schedule
+    conv2d        oc,ic,h,w,kh,kw               ConvSchedule
+    matmul        m,n,k                         MatmulSchedule
+    sparse_conv   oc,ic,h,w,kh,kw,density_16    SparseConvSchedule
+
+The machine part of every slot's key is the service's :class:`H100Spec`
+*and* the runtime fingerprint of its torch device, so a timing taken on
+the CPU is never filed where the card reads, nor the reverse.  The
+service always has an H100 spec (there is no TPU default), and it runs
+on the card unless it is given ``device="cpu"``.  Its lifecycle
+counters are plain integers on the service.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+
+from repro_torch.core import cost_model as cm
+from repro_torch.core import registry as reg
+from repro_torch.core import tuner
+from repro_torch.core.adaptive import AdaptiveSelector, warm_median
+from repro_torch.core.loopnest import ConvLayer
+from repro_torch.device import DeviceLike, resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelFamily:
+    """One dispatchable kernel kind: how to key it and how to tune it."""
+    kind: str
+    dims: tuple                       # required problem-dict fields
+    key_fn: Callable[..., reg.RegistryKey]
+    tune_fn: Callable[..., List]      # -> [(schedule, KernelCost), ...]
+
+    def key(self, problem: Dict[str, Any], machine: str, elem_bytes: int
+            ) -> reg.RegistryKey:
+        """Registry key for ``problem`` under the machine fingerprint."""
+        return self.key_fn(problem, machine, elem_bytes)
+
+    def tune(self, problem: Dict[str, Any], spec: cm.H100Spec,
+             machine: str, elem_bytes: int, top_k: int,
+             registry: reg.TuningRegistry) -> List:
+        """Ranked ``[(schedule, KernelCost), ...]`` via the cached tuner,
+        stored under the same key as :meth:`key`."""
+        return self.tune_fn(problem, spec, machine, elem_bytes, top_k,
+                            registry)
+
+
+def _conv_layer(p: Dict[str, Any]) -> ConvLayer:
+    """The tuner's ConvLayer for a conv-family problem dict."""
+    return ConvLayer(p["oc"], p["ic"], p["h"], p["w"], p["kh"], p["kw"])
+
+
+FAMILIES: Dict[str, KernelFamily] = {
+    "conv2d": KernelFamily(
+        "conv2d", ("oc", "ic", "h", "w", "kh", "kw"),
+        lambda p, m, eb: reg.conv_schedule_key(_conv_layer(p), m, eb),
+        lambda p, spec, m, eb, k, r: tuner.cached_tune_conv(
+            _conv_layer(p), spec, eb, top_k=k, registry=r, machine=m)),
+    "matmul": KernelFamily(
+        "matmul", ("m", "n", "k"),
+        lambda p, m, eb: reg.matmul_schedule_key(p["m"], p["n"], p["k"], m,
+                                                 eb),
+        lambda p, spec, m, eb, k, r: tuner.cached_tune_matmul(
+            p["m"], p["n"], p["k"], spec, eb, top_k=k, registry=r,
+            machine=m)),
+    "sparse_conv": KernelFamily(
+        "sparse_conv", ("oc", "ic", "h", "w", "kh", "kw", "density_16"),
+        lambda p, m, eb: reg.sparse_conv_schedule_key(
+            _conv_layer(p), p["density_16"] / 16.0, m, eb),
+        lambda p, spec, m, eb, k, r: tuner.cached_tune_sparse_conv(
+            _conv_layer(p), p["density_16"] / 16.0, spec, eb, top_k=k,
+            registry=r, machine=m)),
+}
+
+
+def canonical_problem(kind: str, **dims: Any) -> Dict[str, Any]:
+    """Validate and canonicalise a problem dict for ``kind`` (missing
+    dims raise; extra dims are kept)."""
+    fam = FAMILIES.get(kind)
+    if fam is None:
+        raise KeyError(f"unknown kernel kind {kind!r}; known: "
+                       f"{sorted(FAMILIES)}")
+    missing = [d for d in fam.dims if d not in dims]
+    if missing:
+        raise KeyError(f"{kind} problem missing dims {missing}")
+    return {k: (bool(v) if isinstance(v, bool) else int(v))
+            for k, v in dims.items()}
+
+
+@dataclasses.dataclass
+class _Resolved:
+    """Per-(kind, shape, machine) dispatch state."""
+    kind: str
+    problem: Dict[str, Any]
+    registry_key: reg.RegistryKey
+    candidates: List[Any]
+    predicted: List[float]            # cost-model time_s per candidate
+    observations: int = 0
+    tier: str = "roofline"
+
+
+class DispatchService:
+    """Tune -> select -> observe scheduler for the thesis kernels.
+
+    ``registry=None`` uses the port's default registry; pass
+    ``TuningRegistry(None)`` for an in-memory one.  ``device`` is where
+    the dispatched calls run and are timed (the card by default; raises
+    without one unless ``device="cpu"``).  Typical call site (what the
+    ``*_dispatched`` wrappers do)::
+
+        with svc.measure("matmul", dict(m=m, n=n, k=k), device=a.device) \\
+                as sched:
+            out = matmul_scheduled(a, b, schedule=sched)
+            torch.cuda.synchronize()
+    """
+
+    def __init__(self, registry: Optional[reg.TuningRegistry] = None,
+                 spec: Optional[cm.H100Spec] = None,
+                 device: DeviceLike = None, top_k: int = 3,
+                 probes_per_candidate: int = 3,
+                 steadiness_threshold: float = 0.2,
+                 max_extra_probes: int = 2):
+        """Bind a registry, the H100 spec and the device; configure the
+        selector."""
+        self.registry = (registry if registry is not None
+                         else reg.TuningRegistry.default())
+        self.spec = spec if spec is not None else cm.H100Spec()
+        self.device = resolve_device(device)
+        self.machine = reg.machine_key(self.spec, self.device)
+        self.top_k = top_k
+        self.selector: AdaptiveSelector = AdaptiveSelector(
+            probes_per_candidate=probes_per_candidate,
+            steadiness_threshold=steadiness_threshold,
+            max_extra_probes=max_extra_probes, registry=self.registry)
+        # lifecycle counters
+        self.resolves = 0
+        self.proposals = 0
+        self.observations = 0
+        self.commits = 0
+        self._committed_seen: set = set()
+        self._slots: Dict[str, _Resolved] = {}
+        self._key_cache: Dict[tuple, str] = {}
+        self._lock = threading.Lock()
+
+    def resolve(self, kind: str, problem: Dict[str, Any],
+                elem_bytes: int = 2) -> str:
+        """Ensure a slot exists for (kind, shape) on this machine and
+        return its key; the first resolution consults the registry or
+        runs one batch sweep, later ones are a dict probe."""
+        ckey = (kind, tuple(sorted(problem.items())), elem_bytes)
+        with self._lock:
+            cached = self._key_cache.get(ckey)
+            if cached is not None:
+                return cached
+        problem = canonical_problem(kind, **problem)
+        fam = FAMILIES[kind]
+        rkey = fam.key(problem, self.machine, elem_bytes)
+        skey = rkey.canonical()
+        with self._lock:
+            if skey in self._slots:
+                self._key_cache[ckey] = skey
+                return skey
+        ranked = fam.tune(problem, self.spec, self.machine, elem_bytes,
+                          self.top_k, self.registry)
+        rec = self.registry.get(rkey)
+        tier = ((rec.value.get("tier") if rec is not None else None)
+                or reg.kind_tier(rkey.kind))
+        with self._lock:
+            if skey not in self._slots:
+                self.resolves += 1
+                self.selector.register_ranked(skey, ranked,
+                                              registry_key=rkey)
+                self._slots[skey] = _Resolved(
+                    kind=kind, problem=problem, registry_key=rkey, candidates=[s for s, _ in ranked],
+                    predicted=[float(c.time_s) for _, c in ranked],
+                    tier=tier)
+            self._key_cache[ckey] = skey
+        return skey
+
+    def propose(self, kind: str, problem: Dict[str, Any],
+                elem_bytes: int = 2) -> Any:
+        """Schedule to use for this call (resolving if needed)."""
+        skey = self.resolve(kind, problem, elem_bytes)
+        with self._lock:
+            self.proposals += 1
+            return self.selector.propose(skey)
+
+    def _after_observe(self, skey: str) -> None:
+        """Count the observation and a slot's first commit (under the
+        service lock)."""
+        self.observations += 1
+        self._slots[skey].observations += 1
+        if (skey not in self._committed_seen
+                and self.selector.committed(skey) is not None):
+            self._committed_seen.add(skey)
+            self.commits += 1
+
+    def observe(self, kind: str, problem: Dict[str, Any], dt: float,
+                elem_bytes: int = 2) -> None:
+        """Feed one measured duration (seconds) for the schedule last
+        proposed for this shape (sequential propose/observe protocol)."""
+        skey = self.resolve(kind, problem, elem_bytes)
+        with self._lock:
+            self.selector.observe(skey, dt)
+            self._after_observe(skey)
+
+    @contextlib.contextmanager
+    def measure(self, kind: str, problem: Dict[str, Any],
+                elem_bytes: int = 2, device: DeviceLike = None):
+        """Propose, time the body on the host clock, observe.  The body
+        must finish its device work (synchronise) before it ends.  A
+        ``device`` other than the service's raises: its time would be
+        filed under another machine's key."""
+        if device is not None and \
+                torch.device(device).type != self.device.type:
+            raise ValueError(f"dispatch service times calls on "
+                             f"{self.device}, got a call on {device}")
+        skey = self.resolve(kind, problem, elem_bytes)
+        with self._lock:
+            self.proposals += 1
+            idx, sched = self.selector.propose_with_index(skey)
+        t0 = time.perf_counter()
+        yield sched
+        dt = time.perf_counter() - t0
+        with self._lock:
+            self.selector.observe_at(skey, idx, dt)
+            self._after_observe(skey)
+
+    def committed(self, kind: str, problem: Dict[str, Any],
+                  elem_bytes: int = 2) -> Optional[Any]:
+        """The committed schedule for a shape, or None while probing."""
+        return self.selector.committed(self.resolve(kind, problem,
+                                                    elem_bytes))
+
+    def committed_or_best(self, kind: str, problem: Dict[str, Any],
+                          elem_bytes: int = 2) -> Any:
+        """This process' committed winner, else the registry's persisted
+        measured winner (an earlier process on this machine), else the
+        offline rank-0 candidate; never None."""
+        skey = self.resolve(kind, problem, elem_bytes)
+        committed = self.selector.committed(skey)
+        if committed is not None:
+            return committed
+        slot = self._slots[skey]
+        rec = self.registry.get(slot.registry_key)
+        if rec is not None and rec.measured:
+            try:
+                return reg.schedule_from_dict(rec.measured["best"])
+            except (KeyError, ValueError, TypeError):
+                pass
+        return slot.candidates[0]
+
+    def _measured_for_slot(self, skey: str) -> Optional[float]:
+        """This process' observed median, else the registry's persisted
+        measurement, else None."""
+        m = self.selector.measured_median(skey)
+        if m is not None:
+            return m
+        rec = self.registry.get(self._slots[skey].registry_key)
+        if rec is not None and isinstance(rec.measured, dict):
+            t = rec.measured.get("time_s")
+            if isinstance(t, (int, float)):
+                return float(t)
+        return None
+
+    def measured_time(self, kind: str, problem: Dict[str, Any],
+                      elem_bytes: int = 2) -> Optional[float]:
+        """Measured call time (seconds) for a shape, or None."""
+        return self._measured_for_slot(self.resolve(kind, problem,
+                                                    elem_bytes))
+
+    def candidates(self, kind: str, problem: Dict[str, Any],
+                   elem_bytes: int = 2) -> List[Any]:
+        """Top-K candidate schedules for a shape (offline rank order)."""
+        return list(self._slots[self.resolve(kind, problem,
+                                             elem_bytes)].candidates)
+
+    def predicted(self, kind: str, problem: Dict[str, Any],
+                  elem_bytes: int = 2) -> List[float]:
+        """Cost-model time_s per candidate (same order as
+        :meth:`candidates`)."""
+        return list(self._slots[self.resolve(kind, problem,
+                                             elem_bytes)].predicted)
+
+    def registry_key(self, kind: str, problem: Dict[str, Any],
+                     elem_bytes: int = 2) -> reg.RegistryKey:
+        """The registry key a shape's measurement is written back under."""
+        return self._slots[self.resolve(kind, problem,
+                                        elem_bytes)].registry_key
+
+    def report(self) -> Dict[str, Dict[str, Any]]:
+        """Per-shape state: candidates, predicted and measured medians,
+        observations, committed winner."""
+        out: Dict[str, Dict[str, Any]] = {}
+        samples_all = self.selector.report()
+        for skey, slot in self._slots.items():
+            committed = self.selector.committed(skey)
+            samples = samples_all.get(skey, {}).get("samples", {})
+            entry = {
+                "kind": slot.kind, "problem": dict(slot.problem),
+                "machine": slot.registry_key.machine, "tier": slot.tier,
+                "n_candidates": len(slot.candidates),
+                "candidates": [reg.schedule_to_dict(c)
+                               for c in slot.candidates],
+                "predicted_s": list(slot.predicted),
+                "measured_median_s": [warm_median(v) if v else None
+                                      for _, v in sorted(samples.items())],
+                "observations": slot.observations,
+                "committed": (reg.schedule_to_dict(committed)
+                              if committed is not None else None),
+                "committed_rank": (slot.candidates.index(committed)
+                                   if committed is not None else None),
+                "samples": {i: len(v) for i, v in samples.items()},
+            }
+            out[skey] = entry
+        return out
+
+
+_SERVICE: Optional[DispatchService] = None
+_SERVICE_INSTALLED = False
+_SERVICE_LOCK = threading.Lock()
+
+
+def get_dispatch_service() -> DispatchService:
+    """The process-wide service: an installed one as it is, otherwise a
+    default-registry service on the card, created lazily and recreated
+    when ``REPRO_TORCH_TUNE_REGISTRY`` is repointed."""
+    global _SERVICE
+    with _SERVICE_LOCK:
+        if _SERVICE_INSTALLED:
+            return _SERVICE
+        path = reg.TuningRegistry.default_path()
+        if _SERVICE is None or _SERVICE.registry.path != path:
+            _SERVICE = DispatchService(reg.TuningRegistry.default())
+        return _SERVICE
+
+
+def set_dispatch_service(service: Optional[DispatchService]
+                         ) -> Optional[DispatchService]:
+    """Install (or with None, clear back to the lazy default) the
+    process-wide service; returns the previous one."""
+    global _SERVICE, _SERVICE_INSTALLED
+    with _SERVICE_LOCK:
+        prev, _SERVICE = _SERVICE, service
+        _SERVICE_INSTALLED = service is not None
+        return prev
+
+
+__all__ = ["DispatchService", "KernelFamily", "FAMILIES",
+           "canonical_problem", "get_dispatch_service",
+           "set_dispatch_service"]

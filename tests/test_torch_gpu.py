@@ -8,7 +8,11 @@ JAX, so it also runs on a machine that has only PyTorch:
 
 Tolerances, per element: float32 atol 1e-5 (same arithmetic, other
 summation order); bf16 two bf16 ulps of the plain value plus 1e-5 (both
-sides accumulate in float32 and round once to bf16).
+sides accumulate in float32 and round once to bf16).  For a
+read-modify-write schedule of the thesis kernels the bf16 ulps are those
+of the largest magnitude the element takes at any rounding point (a
+float32 sum in another order may round the other way at an intermediate
+point, and that step stays in the result).
 """
 import numpy as np
 import pytest
@@ -21,6 +25,11 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_ref, paged_decode_attention_ref)
 from repro_torch.kernels.flash_attention import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan_ref  # noqa: E402
+from repro_torch.kernels import conv2d, matmul, sparse_conv2d  # noqa: E402
+from repro_torch.kernels.conv2d import conv2d_plain  # noqa: E402
+from repro_torch.kernels.matmul import matmul_plain  # noqa: E402
+from repro_torch.kernels.sparse_conv import (analyze_weights,  # noqa: E402
+                                             sparse_conv_plain)
 
 
 @pytest.fixture
@@ -34,11 +43,12 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _share_of_tol(got, want):
+def _share_of_tol(got, want, peak=None):
     """Worst |got - want| as a share of each element's tolerance."""
     diff = (got.float() - want.float()).abs()
     if want.dtype == torch.bfloat16:
-        mag = want.float().abs().clamp_min(2.0 ** -126)
+        mag = (want.float().abs() if peak is None else peak
+               ).clamp_min(2.0 ** -126)
         allowed = 2 * torch.exp2(torch.floor(torch.log2(mag)) - 7) + 1e-5
     else:
         allowed = torch.full_like(diff, 1e-5)
@@ -118,3 +128,57 @@ def test_cuda_ssm_scan_matches_plain_version(cuda_device, dtype, n, di,
         torch.cuda.synchronize()
         assert _share_of_tol(y, y_ref) <= 1.0
         assert (h - h_ref).abs().max().item() <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_thesis_kernels_match_plain_versions(cuda_device, dtype):
+    """conv2d (scratch and read-modify-write orders, a 1x1 and a 3x3
+    layer), matmul (six orders x resident RHS) and the block-sparse conv
+    (densities 0 to 1) against their plain versions, with exact launch
+    counts."""
+    dt_ = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=cuda_device)
+                * scale).to(dt_)
+
+    for (n, ic, h, oc, k), block in (
+            ((2, 32, 13, 64, 3), {"oc": 16, "ic": 16, "y": 13, "x": 13}),
+            ((3, 64, 27, 48, 1), {"oc": 16, "ic": 16, "y": 3, "x": 9})):
+        img = rn(n, ic, h + k - 1, h + k - 1)
+        wgt = rn(oc, ic, k, k, scale=(ic * k * k) ** -0.5)
+        for order in (("oc", "y", "x", "ic"), ("ic", "oc", "y", "x"),
+                      ("y", "ic", "x", "oc")):
+            before = conv2d.launches
+            got = conv2d(img, wgt, block=block, grid_order=order)
+            want, peak = conv2d_plain(img, wgt, block=block,
+                                      grid_order=order, with_peak=True)
+            torch.cuda.synchronize()
+            assert conv2d.launches - before == (
+                1 if order[-1] == "ic" else ic // block["ic"])
+            assert _share_of_tol(got, want, peak) <= 1.0
+    a, b = rn(96, 256), rn(256, 80, scale=1 / 16)
+    block = {"m": 32, "n": 16, "k": 32}
+    for order in __import__("itertools").permutations(("m", "n", "k")):
+        for resident in (False, True):
+            got = matmul(a, b, block=block, grid_order=order,
+                         resident_rhs=resident)
+            want, peak = matmul_plain(a, b, block=block, grid_order=order,
+                                      resident_rhs=resident, with_peak=True)
+            torch.cuda.synchronize()
+            assert _share_of_tol(got, want, peak) <= 1.0
+    img = rn(2, 32, 27, 27)
+    for density in (0.0, 0.25, 0.5, 1.0):
+        w = rn(64, 32, 3, 3, scale=1 / 17)
+        keep = torch.rand(4, 2, generator=torch.Generator().manual_seed(
+            int(density * 8))) < density
+        mask = keep.repeat_interleave(16, 0).repeat_interleave(16, 1)
+        w = w * mask.to(device=cuda_device, dtype=dt_)[:, :, None, None]
+        block = {"oc": 16, "ic": 16}
+        sp = analyze_weights(w, block)
+        got = sparse_conv2d(img, w, block=block, sparsity=sp)
+        want = sparse_conv_plain(img, w, sp.idx, sp.counts, block)
+        torch.cuda.synchronize()
+        assert _share_of_tol(got, want) <= 1.0

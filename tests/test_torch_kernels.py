@@ -21,9 +21,12 @@ from repro.kernels.decode_attention.kernel import (  # noqa: E402
     decode_attention_pallas, paged_decode_attention_pallas)
 from repro.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention_pallas)
-from repro_torch.kernels import (decode_attention, flash_attention,  # noqa: E402
-                                 launch_counts, paged_decode_attention,
-                                 reset_launch_counts, ssm_scan)
+from repro_torch.kernels import (conv2d, decode_attention,  # noqa: E402
+                                 flash_attention, launch_counts, matmul,
+                                 paged_decode_attention, reset_launch_counts,
+                                 sparse_conv2d, ssm_scan)
+from repro_torch.kernels.conv2d import conv2d_ref  # noqa: E402
+from repro_torch.kernels.matmul import matmul_ref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_ref, paged_decode_attention_ref)
 from repro_torch.kernels.flash_attention import flash_attention_ref  # noqa: E402
@@ -154,9 +157,16 @@ def test_cpu_wrappers_run_plain_versions_without_counting():
     for got, want in zip(ssm_scan(x, dt, bc, bc, a, d),
                          ssm_scan_ref(x, dt, bc, bc, a, d)):
         assert torch.equal(got, want)
+    img, wgt = _t(_rand(rng, 1, 4, 6, 6)), _t(_rand(rng, 4, 4, 3, 3))
+    assert torch.equal(conv2d(img, wgt), conv2d_ref(img, wgt))
+    assert torch.equal(sparse_conv2d(img, wgt, block={"oc": 2, "ic": 2}),
+                       conv2d_ref(img, wgt))
+    am, bm = _t(_rand(rng, 8, 16)), _t(_rand(rng, 16, 4))
+    assert torch.equal(matmul(am, bm), matmul_ref(am, bm))
     assert launch_counts() == {"flash_attention": 0,
                                "paged_decode_attention": 0,
-                               "decode_attention": 0, "ssm_scan": 0}
+                               "decode_attention": 0, "ssm_scan": 0,
+                               "matmul": 0, "conv2d": 0, "sparse_conv2d": 0}
 
 
 def test_bf16_q_scale_is_applied_in_q_dtype():

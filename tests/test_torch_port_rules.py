@@ -17,8 +17,9 @@ import jax  # noqa: E402,F401  (the suite runs beside the JAX reference)
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.device import device_identity, resolve_device  # noqa: E402
-from repro_torch.kernels import (decode_attention, flash_attention,  # noqa: E402
-                                 launch_counts, paged_decode_attention,
+from repro_torch.kernels import (conv2d, decode_attention,  # noqa: E402
+                                 flash_attention, launch_counts, matmul,
+                                 paged_decode_attention, sparse_conv2d,
                                  ssm_scan)
 from repro_torch.models import build_model  # noqa: E402
 
@@ -49,10 +50,11 @@ def test_port_files_found():
     assert len(PORT_FILES) >= 20
     assert (REPO / "chip_smoke.py").exists()
     assert sorted(p.name for p in (REPO / "src/repro_torch/kernels/csrc")
-                  .glob("*.cu")) == ["decode_attention.cu", "errors.cu",
-                                     "flash_attention.cu",
+                  .glob("*.cu")) == ["conv2d.cu", "decode_attention.cu",
+                                     "errors.cu", "flash_attention.cu",
+                                     "matmul.cu",
                                      "paged_decode_attention.cu",
-                                     "ssm_scan.cu"]
+                                     "sparse_conv.cu", "ssm_scan.cu"]
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -95,6 +97,15 @@ def test_wrappers_never_fall_back_for_non_cpu_tensors():
     with pytest.raises(ValueError):
         ssm_scan(x, x, bc, bc, torch.zeros(32, 16, device="meta"),
                  torch.zeros(32, device="meta"))
+    img = torch.zeros(1, 8, 10, 10, device="meta")
+    wgt = torch.zeros(8, 8, 3, 3, device="meta")
+    with pytest.raises(ValueError):
+        conv2d(img, wgt)
+    with pytest.raises(ValueError):
+        sparse_conv2d(img, wgt, block={"oc": 4, "ic": 4})
+    with pytest.raises(ValueError):
+        matmul(torch.zeros(16, 8, device="meta"),
+               torch.zeros(8, 16, device="meta"))
     assert launch_counts() == before
 
 
