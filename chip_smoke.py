@@ -10,7 +10,10 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
 1. device: name, count, power limit, torch and CUDA versions;
 2. build: the seven kernels from ``src/repro_torch/kernels/csrc``, one
    nvcc per source in parallel, and ptxas' registers, spills and shared
-   memory for each main-path instantiation;
+   memory for each main-path instantiation; ``[sass]``: the tensor-core
+   instructions (HGMMA for wgmma, HMMA for mma.sync) in ``cuobjdump
+   -sass`` of the bf16 matmul and conv2d entry functions (none may be
+   0) and of the float32 bodies (which stay on the CUDA cores);
 3. kernels: each kernel against its plain PyTorch version at every
    shape the main paths give it in bf16 (per element, two bf16 ulps of
    the plain value plus 1e-5), at the main geometry in float32 (1e-5)
@@ -36,10 +39,15 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
    block-sparse conv at the widths of thesis Table 4.1 (batch 1 and 32),
    the GEMM form of its 1x1 layers, phi3-mini's QKV projection and the
    Fig 6.2 layer at block densities 0-1, each against its plain version
-   in bf16 and float32 (``[check]``; exact launch counts per call), then
+   in bf16 and float32 (``[check]``; exact launch counts per call; the
+   bf16 matmul's lines name the staging route of A and B), the blocks
+   the tensor-core layouts pad (phi3's QKV at 128 x 128 and 128 x 256
+   tiles, a 1x1 GEMM form with bn 13, conv-final with 40 output channels
+   on 13 x 13 pixels, fire3 with 8 input channels read-modify-write), then
    ``[time]`` lines (kernel, plain, bound, library: ``F.conv2d``,
    ``torch.matmul``), the dense-vs-sparse ``[crossover]``, the 24 grid
-   orders of initial-conf (``[orders]``), and the main path: every
+   orders of initial-conf and the 6 of phi3's QKV GEMM (``[orders]``),
+   and the main path: every
    shape through its ``*_dispatched`` entry point until the dispatch
    service commits (``[dispatch]``: candidates with predicted and
    measured medians, calls until commit, the committed schedule and the
@@ -147,11 +155,53 @@ MAIN_PATH_INSTANCES = {
         r"decode_kernelI13__nv_bfloat16Li1ELi3ENS_7PagedKV",
     "decode_attention": r"decode_kernelI13__nv_bfloat16Li1ELi3ENS_8ContigKV",
     "ssm_scan": r"ssm_scan_kernelI13__nv_bfloat16Li16E",
-    # the thesis kernels' bf16 instances with the most registers
-    "conv2d": r"conv2d_cu[^']*conv_tile_kernelI13__nv_bfloat16Li16E",
+    # the thesis kernels' bf16 bodies: the conv's implicit GEMM, the
+    # matmul's wgmma at two warpgroups and the widest wgmma (QKV's tile),
+    # the sparse conv's tile kernel with the most registers
+    "conv2d": r"conv_mma_kernel",
     "sparse_conv2d": r"sparse_conv_cu[^']*conv_tile_kernelI13__nv_bfloat16Li16E",
-    "matmul": r"matmul_kernelI13__nv_bfloat16Li8ELi8E",
+    "matmul": r"matmul_mma_kernelILi2ELi256E",
 }
+# Entry functions whose SASS must (bf16) or must not (float32) hold
+# tensor-core instructions, by name pattern.
+SASS_BODIES = {
+    "matmul_bf16": (r"matmul_mma_kernel", "HGMMA"),
+    "conv2d_bf16": (r"conv_mma_kernel", "HMMA"),
+    "matmul_float32": (r"matmul_kernelIfLi", None),
+    "conv2d_float32": (r"conv2d_cu.*conv_tile_kernelIfLi", None),
+}
+
+
+def sass_counts(lib_path):
+    """Per body of SASS_BODIES: entry functions, and the HGMMA, HMMA and
+    FFMA instructions in their ``cuobjdump -sass``."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(lib_path)],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump -sass: {out.stderr.strip()[:500]}")
+    funcs = {}
+    name = None
+    for line in out.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = {"HGMMA": 0, "HMMA": 0, "FFMA": 0}
+        elif name is not None:
+            for op in ("HGMMA", "HMMA", "FFMA"):
+                if re.search(r"\b" + op + r"\b", line):
+                    funcs[name][op] += 1
+    res = {}
+    for body, (pattern, _) in SASS_BODIES.items():
+        hit = [c for f, c in funcs.items() if re.search(pattern, f)]
+        res[body] = {"functions": len(hit),
+                     **{op: sum(c[op] for c in hit)
+                        for op in ("HGMMA", "HMMA", "FFMA")},
+                     "min_per_function": {
+                         op: min((c[op] for c in hit), default=0)
+                         for op in ("HGMMA", "HMMA")}}
+    return res
 
 
 def ptxas_stats(log, pattern):
@@ -573,7 +623,7 @@ def thesis_checks(torch, dev, timer, data):
     from repro_torch.kernels import _geometry as geo
     from repro_torch.kernels import conv2d, matmul, sparse_conv2d
     from repro_torch.kernels.conv2d import conv2d_plain, uses_scratch
-    from repro_torch.kernels.matmul import matmul_plain
+    from repro_torch.kernels.matmul import matmul_plain, staging_route
     from repro_torch.kernels.matmul import uses_scratch as mm_scratch
     from repro_torch.kernels.sparse_conv import (analyze_weights,
                                                  sparse_conv_plain)
@@ -613,16 +663,17 @@ def thesis_checks(torch, dev, timer, data):
     for name, (l, img32, wgt32) in data["conv"].items():
         for dname, dt in dtypes.items():
             eb = 2 if dname == "bfloat16" else 4
-            rank0 = tuner.tune_conv(l, elem_bytes=eb, top_k=1)[0][0]
-            blk = rank0.block_dict()
-            if blk["ic"] == l.ic:    # give the RMW order >= 2 passes
-                blk = dict(blk, ic=max(
-                    d for d in range(1, l.ic) if l.ic % d == 0
-                    and geo.conv_tile(blk["oc"], d, blk["y"], blk["x"], l.kh,
-                                      l.kw, eb).error is None))
-            scheds = [(rank0.grid_order, rank0.block_dict(), "rank0"),
-                      (("ic", "oc", "y", "x"), blk, "rmw")]
             for n in THESIS_BATCHES:
+                rank0 = tuner.tune_conv(l, elem_bytes=eb, top_k=1,
+                                        batch=n)[0][0]
+                blk = rank0.block_dict()
+                if blk["ic"] == l.ic:    # give the RMW order >= 2 passes
+                    blk = dict(blk, ic=max(
+                        d for d in range(1, l.ic) if l.ic % d == 0
+                        and geo.conv_layout(blk["oc"], d, blk["y"], blk["x"],
+                                            l.kh, l.kw, eb).error is None))
+                scheds = [(rank0.grid_order, rank0.block_dict(), "rank0"),
+                          (("ic", "oc", "y", "x"), blk, "rmw")]
                 img, wgt = img32[:n].to(dt), wgt32.to(dt)
                 for order, block, tag in scheds:
                     got, k = counted(lambda: conv2d(
@@ -652,8 +703,8 @@ def thesis_checks(torch, dev, timer, data):
                 cases.append((("m", "n", "k"), r0.block_dict(), res,
                               f"resident={res}"))
             for order, block, res, tag in cases:
-                tile = geo.matmul_tile(block["m"], block["n"], block["k"],
-                                       k_, eb, res)
+                tile = geo.matmul_layout(block["m"], block["n"], block["k"],
+                                         k_, eb, res)
                 shape = (f"{label} [{m},{k_}]x[{k_},{n}] {tag} "
                          f"{''.join(order)} {block}")
                 if tile.error is not None:
@@ -673,8 +724,58 @@ def thesis_checks(torch, dev, timer, data):
                 want, peak = matmul_plain(a, b, block=block,
                                           grid_order=order, resident_rhs=res,
                                           with_peak=True)
+                if dname == "bfloat16":
+                    ra, rb = staging_route(a, b)
+                    shape += f" staging A:{ra} B:{rb}"
                 check("matmul", got, want, shape, peak, launched,
                       1 if mm_scratch(order, res) else k_ // block["k"])
+    # ---- bf16 edges the tensor-core layouts pad
+    bf16 = torch.bfloat16
+    gemms = {g[0]: g for g in gemm_shapes(data)}
+    for label, block, order in (
+            ("phi3-qkv", {"m": 128, "n": 128, "k": 64}, ("m", "n", "k")),
+            ("phi3-qkv", {"m": 128, "n": 256, "k": 64}, ("n", "m", "k")),
+            ("conv-final", {"m": 125, "n": 13, "k": 64}, ("m", "n", "k")),
+            ("conv-final", {"m": 125, "n": 13, "k": 128}, ("k", "m", "n"))):
+        _, a32, b32 = gemms[label]
+        a, b = a32.to(bf16), b32.to(bf16)
+        m, k_ = a.shape
+        got, launched = counted(lambda: matmul(a, b, block=block,
+                                               grid_order=order), matmul)
+        want, peak = matmul_plain(a, b, block=block, grid_order=order,
+                                  with_peak=True)
+        tile = geo.matmul_mma_tile(block["m"], block["n"], block["k"], k_,
+                                   False)
+        ra, rb = staging_route(a, b)
+        check("matmul", got, want,
+              f"edge {label} [{m},{k_}]x[{k_},{b.shape[1]}] "
+              f"{''.join(order)} {block} padded to {tile.bm_pad}x"
+              f"{tile.bn_pad}, ks {tile.ks}, {tile.stages} stages, staging "
+              f"A:{ra} B:{rb}", peak, launched,
+              1 if mm_scratch(order, False) else k_ // block["k"])
+    for name, block, order in (
+            ("conv-final", {"oc": 40, "ic": 64, "y": 13, "x": 13},
+             ("oc", "y", "x", "ic")),
+            ("conv-final", {"oc": 40, "ic": 64, "y": 13, "x": 13},
+             ("ic", "oc", "y", "x")),
+            ("fire3-conv3x3-2", {"oc": 64, "ic": 8, "y": 5, "x": 11},
+             ("ic", "oc", "y", "x"))):
+        l, img32, wgt32 = data["conv"][name]
+        tile = geo.conv_mma_tile(block["oc"], block["ic"], block["y"],
+                                 block["x"], l.kh, l.kw)
+        for n in THESIS_BATCHES:
+            img, wgt = img32[:n].to(bf16), wgt32.to(bf16)
+            got, k = counted(lambda: conv2d(img, wgt, block=block,
+                                            grid_order=order), conv2d)
+            want, peak = conv2d_plain(img, wgt, block=block,
+                                      grid_order=order, with_peak=True)
+            check("conv2d", got, want,
+                  f"edge {name} N={n} {''.join(a[0] for a in order)} {block}"
+                  f" padded to {tile.p16} pixels x {tile.boc16} oc x "
+                  f"{tile.bic_pad} ic, {tile.warps} warps x {tile.rounds} "
+                  f"rounds", peak, k,
+                  1 if uses_scratch(order) else l.ic // block["ic"])
+
     # ---- block-sparse conv
     for name, l in data["sparse"].items():
         for d in SPARSE_DENSITIES:
@@ -703,7 +804,7 @@ def thesis_checks(torch, dev, timer, data):
     for n in THESIS_BATCHES:
         for name, (l, img32, wgt32) in data["conv"].items():
             img, wgt = img32[:n].to(torch.bfloat16), wgt32.to(torch.bfloat16)
-            s = tuner.tune_conv(l, elem_bytes=2, top_k=1)[0][0]
+            s = tuner.tune_conv(l, elem_bytes=2, top_k=1, batch=n)[0][0]
             blk, order = s.block_dict(), s.grid_order
             t = dict(ms=timer(lambda: conv2d(img, wgt, block=blk,
                                              grid_order=order)),
@@ -728,7 +829,8 @@ def thesis_checks(torch, dev, timer, data):
         bound_by=max(bound_share, key=bound_share.get),
         library_ms=tot["library_ms"],
         shape="sum over the 8 Table 4.1 layers at batch 32, bf16, each at "
-              "the tuner's rank-0 schedule; library F.conv2d (cuDNN)")
+              "the tuner's rank-0 schedule for batch 32; library F.conv2d "
+              "(cuDNN)")
     for label, a32, b32 in gemm_shapes(data):
         m, k_ = a32.shape
         n = b32.shape[1]
@@ -788,7 +890,8 @@ def thesis_checks(torch, dev, timer, data):
         # the dense conv of the same layer, rank-0, for the crossover
         img = data["simg"][name].to(torch.bfloat16)
         wgt = data["sw"][(name, 1.0)].to(torch.bfloat16)
-        s = tuner.tune_conv(l, elem_bytes=2, top_k=1)[0][0]
+        s = tuner.tune_conv(l, elem_bytes=2, top_k=1,
+                            batch=img.shape[0])[0][0]
         dense_ms = timer(lambda: s.run(img, wgt))
         # (block density, ms) of the sparse kernel; where it crosses the
         # dense kernel's time, linearly between the measured densities
@@ -800,7 +903,8 @@ def thesis_checks(torch, dev, timer, data):
                 measured = d0 + (dense_ms - t0) * (d1 - d0) / (t1 - t0)
                 break
         predicted = sparsity.crossover_density(
-            l, tuner.tune_sparse_conv(l, 0.5, top_k=1)[0][0].block_dict())
+            l, tuner.tune_sparse_conv(l, 0.5, top_k=1)[0][0].block_dict(),
+            batch=img.shape[0])
         phase("crossover", layer=name, batch=img.shape[0],
               dense_rank0_ms=f"{dense_ms:.4f}",
               sparse_ms=repr({f"{v[1]:.3f}": round(v[0], 4)
@@ -815,7 +919,8 @@ def thesis_checks(torch, dev, timer, data):
     import itertools
     l, img32, wgt32 = data["conv"]["initial-conf"]
     img, wgt = img32.to(torch.bfloat16), wgt32.to(torch.bfloat16)
-    blk = tuner.tune_conv(l, elem_bytes=2, top_k=1)[0][0].block_dict()
+    blk = tuner.tune_conv(l, elem_bytes=2, top_k=1,
+                          batch=32)[0][0].block_dict()
     by_order = {}
     for order in itertools.permutations(("oc", "ic", "y", "x")):
         by_order["".join(a[0] if a != "oc" else "o" for a in order)] = \
@@ -827,6 +932,20 @@ def thesis_checks(torch, dev, timer, data):
           best=min(by_order, key=by_order.get),
           worst=max(by_order, key=by_order.get),
           ms=json.dumps({k: round(v, 4) for k, v in by_order.items()}))
+    # the six grid orders of phi3's QKV GEMM at its rank-0 block: B
+    # (56 MB) exceeds the 50 MB L2, so which tiles run together matters
+    a, b = (x.to(torch.bfloat16) for x in data["qkv"])
+    r0 = tuner.tune_matmul(*QKV, elem_bytes=2, top_k=1)[0][0]
+    blk = r0.block_dict()
+    mm_orders = {"".join(o): timer(lambda: matmul(a, b, block=blk,
+                                                  grid_order=o))
+                 for o in itertools.permutations(("m", "n", "k"))}
+    phase("orders", kernel="matmul", shape="phi3-qkv", dtype="bfloat16",
+          block=repr(blk), n_k=QKV[2] // blk["k"],
+          worst_over_best=f"{max(mm_orders.values()) / min(mm_orders.values()):.3f}",
+          best=min(mm_orders, key=mm_orders.get),
+          worst=max(mm_orders, key=mm_orders.get),
+          ms=json.dumps({k: round(v, 4) for k, v in mm_orders.items()}))
     return summary
 
 
@@ -838,9 +957,9 @@ def reg_dict(sched):
 
 def thesis_dispatch(torch, dev, timer, data):
     """The thesis path's main path: every (layer, batch) through
-    ``conv2d_dispatched`` in bf16 until its slot commits, each batch size
-    with its own service and in-memory registry (the dispatch key has no
-    batch); the GEMM shapes through ``matmul_dispatched``; the sparse
+    ``conv2d_dispatched`` in bf16 until its slot commits (the conv slot's
+    problem holds the batch), each batch size with its own service and
+    in-memory registry; the GEMM shapes through ``matmul_dispatched``; the sparse
     layers at densities 0.25 and 1.0 through ``sparse_conv2d_dispatched``.
     Launch counts are set to 0 just before and read just after, and must
     equal what the probed schedules launch.  Returns the counts."""
@@ -874,7 +993,7 @@ def thesis_dispatch(torch, dev, timer, data):
         for name, (l, img32, wgt32) in data["conv"].items():
             img, wgt = img32[:nb].to(bf16), wgt32.to(bf16)
             problem = {"oc": l.oc, "ic": l.ic, "h": l.h, "w": l.w,
-                       "kh": l.kh, "kw": l.kw}
+                       "kh": l.kh, "kw": l.kw, "n": nb}
             drive(svc, "conv2d", problem,
                   lambda: conv2d_dispatched(img, wgt, service=svc),
                   f"conv2d {name} N={nb}")
@@ -1073,6 +1192,18 @@ def main():
     for kernel, pattern in MAIN_PATH_INSTANCES.items():
         phase("ptxas", kernel=kernel, **ptxas_stats(_build.build_log,
                                                      pattern))
+    for body, c in sass_counts(_build.lib_path).items():
+        phase("sass", body=body, functions=c["functions"],
+              hgmma=c["HGMMA"], hmma=c["HMMA"], ffma=c["FFMA"],
+              min_per_function=json.dumps(c["min_per_function"]))
+        op = SASS_BODIES[body][1]
+        if c["functions"] < 1:
+            fail(f"[sass] no entry function of {body} in the library")
+        if op is not None and c["min_per_function"][op] < 1:
+            fail(f"[sass] an entry function of {body} has no {op}: the "
+                 f"tensor cores do not carry it")
+        if op is None and c["HGMMA"] + c["HMMA"]:
+            fail(f"[sass] the {body} body holds tensor-core instructions")
     dev = torch.device("cuda")
     t_run = time.perf_counter()
     summary = run(torch, dev, Timer(torch, dev), smi)

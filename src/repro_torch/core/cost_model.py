@@ -8,18 +8,41 @@ equal the JAX package's for the same (layer, order, block).  What does
 is the port's own:
 
 - :class:`H100Spec` replaces ``TPUSpec``: 3.35 TB/s, 132 SMs, 227 KB of
-  shared memory a block in place of the VMEM budget, and the compute
-  rate of the unit the port's kernels run on (fp32 FMA on the CUDA
-  cores, 67 TFLOP/s; the 989 TFLOP/s bf16 tensor-core peak is not what
-  these kernels use).
-- Compute is an issue-rate model of the port's kernels
-  (``kernels/_geometry.py`` gives their thread layout): an SM issues 4
-  warp FMAs and 1 shared-memory wavefront a clock, so a conv tap costs a
-  warp max(J / 4, 1 + the wavefronts of its J weights) cycles and a
-  matmul k step max(MI MJ / 4, MI + MJ); staging costs
-  ``stage_instr`` instructions an element; and each staged step waits
-  ``step_latency_s`` for its loads and barriers, hidden by the other
-  blocks resident on the SM.  Threads run in warps of 32 lanes.
+  shared memory a block in place of the VMEM budget, the fp32 FMA rate
+  of the CUDA cores (67 TFLOP/s) and the bf16 tensor-core peak (989
+  TFLOP/s).
+- Compute follows the body the dtype runs (in ``kernels/_geometry.py``
+  ``tensor_cores`` picks the body and the layouts describe it):
+  - bf16 conv2d and matmul run on the tensor cores.  A schedule is
+    timed as its padded MMA work (pixels, oc and ic padded to 16 for the
+    conv's mma.sync; rows to 64 a warpgroup, columns to the wgmma width
+    and k to the stage depth for the matmul's wgmma) at the tensor-core
+    peak or at the shared-memory rate its fragment reads need, whichever
+    is slower, plus its staging: the conv's halo and weight units
+    (``UNIT_CYCLES`` issue cycles each, ``STEP_CYCLES`` a channel block)
+    and the matmul's register-route
+    operands (a warp instruction per 32 elements loaded and stored, and
+    one round trip per 8 loads of each producer thread, which nothing
+    hides),
+    TMA stages at the L2-to-SM rate.  A ring stage's round trip
+    (``RING_LATENCY_S``) is hidden over the matmul's stages - 1 chunks
+    in flight; a conv step's (``LOAD_LATENCY_S``) by its register
+    prefetch of ``CONV_MMA_UNITS`` units a thread, while the units past
+    those, and every first stage, wait for it.  Launches run in whole
+    waves of SMs x resident blocks plus a tail; blocks resident together
+    share an SM's throughput and overlap their latency.  The four
+    constants are fitted to ``launch/calibrate_thesis.py``'s timings.
+  - float32, and the block-sparse conv in both dtypes, run on the CUDA
+    cores: an issue-rate model.  An SM issues 4 warp FMAs and 1
+    shared-memory wavefront a clock, so a conv tap costs a warp max(J /
+    4, 1 + the wavefronts of its J weights) cycles and a matmul k step
+    max(MI MJ / 4, MI + MJ); staging costs ``stage_instr`` instructions
+    an element; and each staged step waits ``step_latency_s`` for its
+    loads and barriers, hidden by the other blocks resident on the SM.
+    The block-sparse body is timed as the longer of that and its
+    blocks' sequential work (``SPARSE_CHANNEL_S`` an input channel of a
+    step, in waves), plus a fixed ``SPARSE_CALL_S`` a call: both fitted to its calibration
+    lines, where the issue-rate model alone was 6-10x optimistic.
 - A block runs on one SM, so a launch with fewer tiles than SMs leaves
   SMs idle: compute time is divided by min(1, tiles / SMs).
 - Each launch costs ``launch_s``, and every read-modify-write pass is a
@@ -33,14 +56,13 @@ is the port's own:
   shared memory at each grid step, and a read-modify-write pass also
   reads and writes its output tile (``staged_bytes``).  The memory term
   is the larger of dram_bytes over 3.35 TB/s and staged_bytes over
-  ``l2_bw``; ``hbm_bytes`` keeps the JAX count for comparison.  So the
-  order changes the predicted time only through the read-modify-write
-  passes, as the port's kernels behave.
+  ``l2_bw``; ``hbm_bytes`` keeps the JAX count for comparison.
 - A schedule the kernel refuses (shared memory, threads, channels a
   thread) keeps the feasibility penalty of +1e3 s, so it ranks last.
 
-Its version string is its own (``h100-1``): no TPU constant and no
-TPU-measured record is reused.
+Its version string is its own (``h100-2``; ``h100-1`` timed every body
+on the CUDA cores): no TPU constant and no TPU-measured record is
+reused.
 """
 from __future__ import annotations
 
@@ -55,7 +77,7 @@ from repro_torch.kernels import _geometry as geo
 
 # Bump whenever a change below alters predicted costs: the registry keys
 # cached rankings on it, so stale predictions self-invalidate.
-COST_MODEL_VERSION = "h100-1"
+COST_MODEL_VERSION = "h100-2"
 
 # Cost-model queries in this process, one per candidate scored: a warm
 # registry hit performs zero (asserted in tests/test_torch_thesis.py).
@@ -65,6 +87,27 @@ EVAL_COUNTS: Dict[str, int] = {"conv_schedule_cost": 0,
                                "sparse_conv_schedule_cost_batch": 0}
 
 INFEASIBLE_S = 1e3
+
+# Constants of the bodies' timing, fitted to ``launch/calibrate_thesis.py``
+# timings on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md; ``--score``
+# reports the fit).  The tensor-core bodies (conv lines of two
+# calibration runs, matmul lines):
+UNIT_CYCLES = 6.0         # SM issue cycles to stage one conv unit (8
+#                           channels: 8 gathered 2-byte loads, a 16-byte
+#                           store)
+STEP_CYCLES = 500.0       # a conv step's fixed cycles (its barrier, the
+#                           MMA pipeline's refill)
+LOAD_LATENCY_S = 1.0e-6   # round trip of a conv staging step (loads and
+#                           the barrier after them); also a matmul
+#                           register fill's round trip
+RING_LATENCY_S = 1.5e-6   # round trip of a matmul ring stage (TMA or
+#                           register fill, mbarrier, release)
+# The block-sparse body (its 120 sparse_conv lines, least squares):
+SPARSE_CALL_S = 6.306e-5  # a call's fixed time (the block index's two
+#                           host-to-device copies, the launch's host side)
+SPARSE_CHANNEL_S = 2.371e-6  # one input channel of one staged step of a
+#                           block (its taps run channel by channel)
+SPARSE_REGS = 64          # registers a thread of the sparse body (ptxas)
 
 
 def total_evals() -> int:
@@ -77,6 +120,9 @@ class H100Spec:
     """One NVIDIA H100 SXM (data sheet), as the port's kernels use it."""
     compute_unit: str = "fp32 FMA on the CUDA cores"
     peak_flops: float = 67e12         # of compute_unit, FLOP/s
+    tc_peak_flops: float = 989e12     # bf16 tensor cores, dense, FLOP/s
+    smem_read_bytes: int = 128        # shared memory an SM reads a clock
+    regs_per_sm: int = 65536
     hbm_bw: float = 3.35e12           # bytes/s
     sms: int = 132
     smem_bytes: int = geo.SMEM_BYTES  # shared memory a block can use
@@ -242,9 +288,146 @@ def _conv_terms(layer: ConvLayer, by, bx, boc, bic, elem_bytes: int,
     return _step_seconds(cycles, staged, threads, smem, spec), smem, ok
 
 
+def _clock_hz(spec: H100Spec) -> float:
+    """SM clock implied by the CUDA-core peak: SMs x fma_issue warps x 32
+    lanes x 2 FLOP a clock."""
+    return spec.peak_flops / (spec.sms * spec.fma_issue * spec.lane_pad * 2)
+
+
+def _wave_seconds(tiles, occ, thr_s, lat_s, spec: H100Spec):
+    """Time of a launch of ``tiles`` blocks, ``occ`` resident on an SM:
+    full waves of SMs x occ blocks, then a tail wave; blocks resident
+    together share the SM's throughput and overlap their latency; fewer
+    tiles than SMs leave SMs idle."""
+    slots = spec.sms * occ
+    full = np.floor(tiles / slots)
+    tail = tiles - full * slots
+    per_full = np.maximum(occ * thr_s, lat_s)
+    per_tail = np.where(tail > 0, np.maximum(np.ceil(tail / spec.sms)
+                                             * thr_s, lat_s), 0.0)
+    return full * per_full + per_tail
+
+
+def _resident_blocks(threads, smem, regs, spec: H100Spec) -> np.ndarray:
+    """Blocks resident on an SM (threads, shared memory, registers)."""
+    return np.maximum(1, np.minimum.reduce([
+        np.full_like(threads, spec.blocks_per_sm),
+        spec.threads_per_sm // threads,
+        spec.smem_per_sm // np.maximum(smem, 1),
+        spec.regs_per_sm // (threads * regs)]))
+
+
+def _conv_mma_seconds(layer: ConvLayer, by, bx, boc, bic, spec: H100Spec,
+                      batch: int = 1):
+    """Per block: (seconds of the scratch launch, seconds of all the
+    read-modify-write launches, smem bytes, feasible) of the bf16
+    implicit GEMM (``_geometry.conv_mma_tile``) over ``batch`` images."""
+    tiles = [geo.conv_mma_tile(int(o), int(i), int(y), int(x), layer.kh,
+                               layer.kw)
+             for o, i, y, x in zip(boc, bic, by, bx)]
+    p16 = np.array([t.p16 for t in tiles], dtype=np.float64)
+    boc16 = np.array([t.boc16 for t in tiles], dtype=np.float64)
+    bic_pad = np.array([t.bic_pad for t in tiles], dtype=np.float64)
+    threads = np.array([t.threads for t in tiles], dtype=np.int64)
+    rounds = np.array([t.rounds for t in tiles], dtype=np.float64)
+    units = np.array([t.units for t in tiles], dtype=np.float64)
+    smem = np.array([t.smem for t in tiles], dtype=np.int64)
+    ok = np.array([t.error is None for t in tiles])
+    clk = _clock_hz(spec)
+    taps = layer.kh * layer.kw
+    # one channel block, every round: the padded MMAs at the tensor-core
+    # peak or at the rate their ldmatrix reads need (16 FLOP a byte for
+    # a 32 x 32 warp tile), and the staging units' issue cycles
+    flop = p16 * boc16 * bic_pad * taps * 2
+    tc_clk = spec.tc_peak_flops / spec.sms / clk
+    # ldmatrix bytes: each warp tile (32 x 32) loads its 16-row A and
+    # 16-channel B fragments (512 bytes each) a tap and 16 channels
+    wt_m, wt_n = np.ceil(p16 / 32), np.ceil(boc16 / 32)
+    frag = 512 * (p16 / 16 * wt_n + boc16 / 16 * wt_m) * taps * bic_pad / 16
+    mma_cyc = np.maximum(flop / tc_clk, frag / spec.smem_read_bytes)
+    # zeroing both stages once a block (16-byte stores, a warp a clock)
+    zero_cyc = smem / 16 / spec.lane_pad
+    thr_s = (mma_cyc + rounds * (units * UNIT_CYCLES
+                                 + STEP_CYCLES)) / clk   # a channel block
+    # latency a round-step: the prefetched loads, then one round trip
+    # per unit a thread stages past CONV_MMA_UNITS
+    rest = np.ceil(np.maximum(0.0, units - geo.CONV_MMA_UNITS * threads)
+                   / threads)
+    step_lat = LOAD_LATENCY_S * (1 + rest)
+    first_lat = LOAD_LATENCY_S * np.ceil(units / threads)
+    occ = _resident_blocks(threads, smem, 128, spec)
+    out_tiles = batch * (-(-layer.oc // boc)) * (-(-layer.h // by)) \
+        * (-(-layer.w // bx))
+    n_ic = -(-layer.ic // bic)
+    zero_s = zero_cyc / clk
+    # rounds x n_ic steps; the first stage is staged before any MMA
+    scratch = _wave_seconds(out_tiles, occ, n_ic * thr_s + zero_s,
+                            first_lat + (rounds * n_ic - 1) * step_lat, spec)
+    # one launch a channel block, each with its own first stage, and an
+    # epilogue that reads the output tile
+    rmw = n_ic * _wave_seconds(out_tiles, occ, thr_s + zero_s,
+                               first_lat + (rounds - 1) * step_lat
+                               + LOAD_LATENCY_S, spec)
+    return scratch, rmw, smem, ok
+
+
+def _matmul_mma_seconds(m: int, n: int, k: int, bm: int, bn: int, bk: int,
+                        resident: bool, spec: H100Spec):
+    """(seconds of the scratch launch, of all the read-modify-write
+    launches, smem bytes, feasible) of the bf16 wgmma body for one
+    block (``_geometry.matmul_mma_tile``)."""
+    t = geo.matmul_mma_tile(bm, bn, bk, k, resident)
+    if t.error is not None:
+        return 0.0, 0.0, float(t.smem), False
+    clk = _clock_hz(spec)
+    wg = t.bm_pad // 64
+    a_tma, b_tma = geo.matmul_mma_route(k, n)
+    tiles = (m // bm) * (n // bn)
+    # one ring chunk: the padded wgmma work against its operand reads
+    # from shared memory, the producer's register-route loads and stores
+    # (a warp instruction per 32 elements each), TMA bytes at the L2-to-SM
+    # rate
+    flop = t.bm_pad * t.bn_pad * t.ks * 2
+    smem_rd = (t.ks // 16) * wg * (64 * 16 * 2 + 16 * t.bn_pad * 2)
+    a_el, b_el = t.bm_pad * t.ks, 0 if resident else t.bn_pad * t.ks
+    regs_el = (0 if a_tma else a_el) + (0 if b_tma else b_el)
+    tma_bytes = 2 * ((a_el if a_tma else 0) + (b_el if b_tma else 0))
+    l2_clk = spec.l2_bw / spec.sms / clk
+    chunk_cyc = max(flop / (spec.tc_peak_flops / spec.sms / clk),
+                    smem_rd / spec.smem_read_bytes,
+                    regs_el / 16, tma_bytes / l2_clk)
+    # the ring hides a stage's round trip over stages - 1 chunks, but a
+    # register fill is the producer's own sequence of round trips (128
+    # threads, 8 loads in flight each), which no other stage hides
+    fill_trips = -(-regs_el // (128 * 8))
+    chunk_lat = max(RING_LATENCY_S / max(1, t.stages - 1),
+                    fill_trips * LOAD_LATENCY_S)
+    panel_s = 0.0
+    if resident:
+        panel_el = t.bn_pad * -(-k // 64) * 64
+        panel_s = (RING_LATENCY_S + 2 * panel_el / l2_clk / clk
+                   if b_tma else -(-panel_el // (128 * 8))
+                   * LOAD_LATENCY_S + panel_el / 16 / clk)
+    # registers a thread, from ptxas: 60 at BN 16, 72-80 at 64, 95 at
+    # 128, 157-159 at 256
+    regs = 56 + 0.4 * t.bn_pad
+    occ = _resident_blocks(np.array([t.threads]), np.array([t.smem]), regs,
+                           spec)[0]
+
+    def launch(count: int) -> float:
+        chunks = -(-count // t.ks)
+        thr = chunks * chunk_cyc / clk + panel_s
+        lat = RING_LATENCY_S + chunks * chunk_lat + panel_s
+        return float(_wave_seconds(tiles, occ, thr, lat, spec))
+
+    return launch(k), (k // bk) * launch(bk), float(t.smem), True
+
+
 def _conv_batch(layer: ConvLayer, orders, blocks, spec: H100Spec,
-                elem_bytes: int) -> BatchKernelCost:
-    """The conv scorer (uncounted; see the public entry points)."""
+                elem_bytes: int, batch: int = 1) -> BatchKernelCost:
+    """The conv scorer (uncounted; see the public entry points).  Time,
+    device and staged bytes are those of ``batch`` images; hbm_bytes and
+    grid_steps stay the JAX model's per-image counts."""
     n_o, n_b = len(orders), len(blocks)
     for order in orders:
         if sorted(order) != ["ic", "oc", "x", "y"]:
@@ -274,18 +457,26 @@ def _conv_batch(layer: ConvLayer, orders, blocks, spec: H100Spec,
                          (2 * out_visits - out_distinct)
                          * out_blk * elem_bytes)
 
-    step_s, smem, ok = _conv_terms(layer, by, bx, boc, bic, elem_bytes,
-                                   spec)
-    util = np.minimum(1.0, out_distinct / spec.sms)
-    compute_s = step_s * grid_steps / (spec.sms * util)
     scratch = _scratch_orders(orders, "ic", ("oc", "y", "x"))
+    if geo.tensor_cores(elem_bytes):
+        t_scr, t_rmw, smem, ok = _conv_mma_seconds(layer, by, bx, boc, bic,
+                                                   spec, batch)
+        compute_s = np.where(scratch[:, None], t_scr[None, :],
+                             t_rmw[None, :])                    # [O, B]
+    else:                     # the CUDA-core tile kernel
+        step_s, smem, ok = _conv_terms(layer, by, bx, boc, bic, elem_bytes,
+                                       spec)
+        util = np.minimum(1.0, batch * out_distinct / spec.sms)
+        compute_s = step_s * batch * grid_steps / (spec.sms * util)
     # staged per grid step: the weight and image tiles, plus the output
     # tile read and written by every read-modify-write pass
     staged = grid_steps * (wgt_blk + img_blk) * elem_bytes \
         + np.where(scratch[:, None], 0, 2 * grid_steps * out_blk
                    * elem_bytes)                               # [O, B]
-    dram = float(sum(layer.array_bytes().values())) / layer.elem_bytes \
-        * elem_bytes
+    arrays = layer.array_bytes()
+    dram = (batch * (arrays["img"] + arrays["out"]) + arrays["wgt"]) \
+        / layer.elem_bytes * elem_bytes
+    staged = staged * batch
     memory_s = np.maximum(dram / spec.hbm_bw, staged / spec.l2_bw)
     launches = np.where(scratch[:, None], 1, trips["ic"][None, :])
     overhead_s = (spec.launch_s * launches
@@ -296,30 +487,32 @@ def _conv_batch(layer: ConvLayer, orders, blocks, spec: H100Spec,
         flops=bc(np.float64(2.0 * layer.macs)), hbm_bytes=hbm,
         dram_bytes=bc(np.float64(dram)), staged_bytes=staged * 1.0,
         smem_peak=bc(smem.astype(np.float64)), grid_steps=bc(grid_steps),
-        launches=launches, compute_s=bc(compute_s), memory_s=memory_s,
-        overhead_s=overhead_s)
+        launches=launches, compute_s=bc(compute_s) * 1.0,
+        memory_s=memory_s, overhead_s=overhead_s)
 
 
 def conv_schedule_cost_batch(layer: ConvLayer,
                              orders: Sequence[Sequence[str]],
                              blocks: Sequence[Dict[str, int]],
                              spec: H100Spec = H100Spec(),
-                             elem_bytes: int = 2) -> BatchKernelCost:
+                             elem_bytes: int = 2,
+                             batch: int = 1) -> BatchKernelCost:
     """Score the full ``orders`` x ``blocks`` conv-schedule grid at once
-    ([n_orders, n_blocks] arrays); one evaluation counted per
-    candidate."""
+    ([n_orders, n_blocks] arrays) for ``batch`` images (the tuner ranks
+    for the caller's batch, which the registry key holds); one
+    evaluation counted per candidate."""
     EVAL_COUNTS["conv_schedule_cost_batch"] += len(orders) * len(blocks)
-    return _conv_batch(layer, orders, blocks, spec, elem_bytes)
+    return _conv_batch(layer, orders, blocks, spec, elem_bytes, batch)
 
 
 def conv_schedule_cost(layer: ConvLayer, grid_order: Sequence[str],
                        block: Dict[str, int], spec: H100Spec = H100Spec(),
-                       elem_bytes: int = 2) -> KernelCost:
-    """Cost of one (grid order, block) conv schedule (the scalar form
-    the dense-vs-sparse policy calls)."""
+                       elem_bytes: int = 2, batch: int = 1) -> KernelCost:
+    """Cost of one (grid order, block) conv schedule for ``batch`` images
+    (the scalar form the dense-vs-sparse policy calls)."""
     EVAL_COUNTS["conv_schedule_cost"] += 1
     return _conv_batch(layer, [tuple(grid_order)], [block], spec,
-                       elem_bytes).cost((0, 0))
+                       elem_bytes, batch).cost((0, 0))
 
 
 def matmul_schedule_cost_batch(m: int, n: int, k: int,
@@ -357,32 +550,48 @@ def matmul_schedule_cost_batch(m: int, n: int, k: int,
                     hbm_a + np.float64(n * k * elem_bytes) + hbm_c],
                    axis=-1)
 
-    step_s = np.zeros((n_b, 2))
+    scratch = _scratch_orders(orders, "k", ("m", "n"))
     smem = np.zeros((n_b, 2))
     ok = np.zeros((n_b, 2), dtype=bool)
-    for i in range(n_b):
-        for r in (0, 1):
-            t = geo.matmul_tile(int(bm[i]), int(bn[i]), int(bk[i]), k,
-                                elem_bytes, bool(r))
-            smem[i, r] = t.smem
-            ok[i, r] = t.error is None and t.smem <= spec.smem_bytes
-            mi = t.mi or geo.MM_MICRO[-1]
-            mj = t.mj or geo.MM_MICRO[-1]
-            # a k step: MI x MJ FMAs against MI + MJ shared-memory loads
-            kstep = max(mi * mj / spec.fma_issue, (mi + mj) / spec.lds_issue)
-            cycles = -(-t.threads // spec.lane_pad) * int(bk[i]) * kstep
-            # staged a step: the A chunk, and the B chunk (the resident
-            # panel once per tile, spread over its k steps)
-            staged = int(bk[i]) * 16 * (mi + mj) if not r else \
-                int(bk[i]) * 16 * mi + k * 16 * mj / (k // int(bk[i]))
-            step_s[i, r] = _step_seconds(np.array([cycles]),
-                                         np.array([staged]),
-                                         np.array([t.threads]),
-                                         np.array([t.smem]), spec)[0]
-    util = np.minimum(1.0, c_distinct / spec.sms)
-    compute_s = step_s * grid_steps[:, None] / (spec.sms
-                                                * util[:, None])  # [B, 2]
-    scratch = _scratch_orders(orders, "k", ("m", "n"))
+    if geo.tensor_cores(elem_bytes):      # the wgmma body: [O, B, 2]
+        t_scr = np.zeros((n_b, 2))
+        t_rmw = np.zeros((n_b, 2))
+        for i in range(n_b):
+            for r in (0, 1):
+                t_scr[i, r], t_rmw[i, r], smem[i, r], ok[i, r] = \
+                    _matmul_mma_seconds(m, n, k, int(bm[i]), int(bn[i]),
+                                        int(bk[i]), bool(r), spec)
+        # a resident RHS sums every k block in one launch
+        compute_s = np.stack(
+            [np.where(scratch[:, None], t_scr[None, :, 0],
+                      t_rmw[None, :, 0]),
+             np.broadcast_to(t_scr[None, :, 1], (n_o, n_b))], axis=-1)
+    else:                     # the CUDA-core body
+        step_s = np.zeros((n_b, 2))
+        for i in range(n_b):
+            for r in (0, 1):
+                t = geo.matmul_tile(int(bm[i]), int(bn[i]), int(bk[i]), k,
+                                    elem_bytes, bool(r))
+                smem[i, r] = t.smem
+                ok[i, r] = t.error is None and t.smem <= spec.smem_bytes
+                mi = t.mi or geo.MM_MICRO[-1]
+                mj = t.mj or geo.MM_MICRO[-1]
+                # a k step: MI x MJ FMAs against MI + MJ shared-memory
+                # loads
+                kstep = max(mi * mj / spec.fma_issue,
+                            (mi + mj) / spec.lds_issue)
+                cycles = -(-t.threads // spec.lane_pad) * int(bk[i]) * kstep
+                # staged a step: the A chunk, and the B chunk (the
+                # resident panel once per tile, spread over its k steps)
+                staged = int(bk[i]) * 16 * (mi + mj) if not r else \
+                    int(bk[i]) * 16 * mi + k * 16 * mj / (k // int(bk[i]))
+                step_s[i, r] = _step_seconds(np.array([cycles]),
+                                             np.array([staged]),
+                                             np.array([t.threads]),
+                                             np.array([t.smem]), spec)[0]
+        util = np.minimum(1.0, c_distinct / spec.sms)
+        compute_s = step_s * grid_steps[:, None] / (spec.sms
+                                                    * util[:, None])  # [B, 2]
     # staged from L2: A and B chunks per grid step (the resident panel
     # once per output tile); RMW passes also read and write the C tile
     staged = np.stack([grid_steps * (blk["A"] + blk["B"]),
@@ -409,6 +618,28 @@ def matmul_schedule_cost_batch(m: int, n: int, k: int,
         overhead_s=overhead_s)
 
 
+def sparse_channel_waves(layer: ConvLayer,
+                         blocks: Sequence[Dict[str, int]], density: float,
+                         batch: int = 1, spec: H100Spec = H100Spec(),
+                         elem_bytes: int = 2) -> np.ndarray:
+    """Per skip block: the sparse body's sequential work, the input
+    channels of each block's expected nonzero steps times the waves its
+    (image, oc block, spatial tile) blocks run in (SMs x resident
+    blocks): the body's time tracks these, not its FLOPs."""
+    by, bx = geo.sparse_tile(layer.h, layer.w)
+    n_sp = -(-layer.h // by) * -(-layer.w // bx)
+    out = np.empty(len(blocks))
+    for j, blk in enumerate(blocks):
+        t = geo.conv_tile(blk["oc"], blk["ic"], by, bx, layer.kh, layer.kw,
+                          elem_bytes)
+        occ = _resident_blocks(np.array([t.threads]), np.array([t.smem]),
+                               SPARSE_REGS, spec)[0]
+        nnz = max(np.ceil(density * -(-layer.ic // blk["ic"])), 1.0)
+        tiles = batch * -(-layer.oc // blk["oc"]) * n_sp
+        out[j] = nnz * blk["ic"] * np.ceil(tiles / (spec.sms * occ))
+    return out
+
+
 def sparse_conv_schedule_cost_batch(
         layer: ConvLayer, blocks: Sequence[Dict[str, int]],
         density: float = 1.0, batch: int = 1,
@@ -418,7 +649,10 @@ def sparse_conv_schedule_cost_batch(
     block ``density`` ([n_blocks] arrays).  Steps and bytes are the JAX
     package's counts (expected nonzero steps scale with density; the
     image slab is counted per step); compute follows the kernel's
-    spatial tiling and thread layout."""
+    spatial tiling and thread layout: the issue-rate model, or the
+    blocks' sequential work (``sparse_channel_waves`` x
+    ``SPARSE_CHANNEL_S``), whichever is longer; a call costs ``SPARSE_CALL_S`` more than its
+    launch."""
     EVAL_COUNTS["sparse_conv_schedule_cost_batch"] += len(blocks)
     boc = np.array([blk["oc"] for blk in blocks], dtype=np.int64)
     bic = np.array([blk["ic"] for blk in blocks], dtype=np.int64)
@@ -437,14 +671,18 @@ def sparse_conv_schedule_cost_batch(
                                    np.full(len(blocks), bx), boc, bic,
                                    elem_bytes, spec)
     util = np.minimum(1.0, batch * n_oc * n_sp / spec.sms)
-    compute_s = steps * n_sp * step_s / (spec.sms * util)
+    compute_s = np.maximum(
+        steps * n_sp * step_s / (spec.sms * util),
+        SPARSE_CHANNEL_S * sparse_channel_waves(layer, blocks, density,
+                                                batch, spec, elem_bytes))
     staged = steps * n_sp * (boc * bic * layer.kh * layer.kw + bic
                              * (by + layer.kh - 1) * (bx + layer.kw - 1)) \
         * elem_bytes
     taps = layer.kh * layer.kw
     dram = (batch * layer.ic * h2 * w2 + n_oc * nnz * boc * bic * taps
             + batch * layer.oc * layer.h * layer.w) * elem_bytes
-    overhead_s = spec.launch_s + np.where(ok, 0.0, INFEASIBLE_S)
+    overhead_s = spec.launch_s + SPARSE_CALL_S + np.where(ok, 0.0,
+                                                          INFEASIBLE_S)
     return BatchKernelCost(
         flops=np.full(len(blocks), 2.0 * batch * layer.macs * density),
         hbm_bytes=hbm, dram_bytes=dram * 1.0, staged_bytes=staged * 1.0,
@@ -455,6 +693,9 @@ def sparse_conv_schedule_cost_batch(
 
 
 __all__ = ["COST_MODEL_VERSION", "EVAL_COUNTS", "H100Spec", "KernelCost",
+           "LOAD_LATENCY_S", "RING_LATENCY_S", "SPARSE_CALL_S",
+           "SPARSE_CHANNEL_S", "STEP_CYCLES", "UNIT_CYCLES",
            "BatchKernelCost", "conv_schedule_cost",
            "conv_schedule_cost_batch", "matmul_schedule_cost_batch",
-           "sparse_conv_schedule_cost_batch", "total_evals"]
+           "sparse_conv_schedule_cost_batch", "sparse_channel_waves",
+           "total_evals"]

@@ -314,18 +314,21 @@ def _machine(machine: Any) -> str:
     return machine if isinstance(machine, str) else fingerprint(machine)
 
 
-def conv_problem(layer: Any, elem_bytes: int = 2) -> Dict[str, Any]:
-    """Canonical problem dict of a ConvLayer shape."""
+def conv_problem(layer: Any, elem_bytes: int = 2, batch: int = 1
+                 ) -> Dict[str, Any]:
+    """Canonical problem dict of a ConvLayer shape at ``batch`` images."""
     return {"oc": layer.oc, "ic": layer.ic, "h": layer.h, "w": layer.w,
-            "kh": layer.kh, "kw": layer.kw, "elem_bytes": elem_bytes}
+            "kh": layer.kh, "kw": layer.kw, "n": batch,
+            "elem_bytes": elem_bytes}
 
 
-def conv_schedule_key(layer: Any, machine: Any, elem_bytes: int = 2
-                      ) -> RegistryKey:
-    """Key of a conv-schedule ranking; ``machine`` is a spec or a
-    fingerprint (:func:`machine_key`)."""
+def conv_schedule_key(layer: Any, machine: Any, elem_bytes: int = 2,
+                      batch: int = 1) -> RegistryKey:
+    """Key of a conv-schedule ranking at ``batch`` images; ``machine`` is
+    a spec or a fingerprint (:func:`machine_key`)."""
     from repro_torch.core.cost_model import COST_MODEL_VERSION
-    return RegistryKey.make("conv_schedule", conv_problem(layer, elem_bytes),
+    return RegistryKey.make("conv_schedule",
+                            conv_problem(layer, elem_bytes, batch),
                             _machine(machine), COST_MODEL_VERSION)
 
 

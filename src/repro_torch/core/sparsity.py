@@ -3,11 +3,16 @@ the H100 cost model.
 
 The thesis' finding: the sparse algorithm wins only below a density
 crossover, and dense regions concentrated on one core become
-stragglers.  The port's sparse kernel skips whole (oc, ic) blocks, so
-its expected time scales with block density and with the nonzero
-imbalance across output-channel blocks.  ``choose_algorithm`` makes the
-static pick from the cost model; ``crossover_density`` is the
-break-even point the thesis plots.
+stragglers.  The two sides run different kernels on the card: the
+dense conv (in bf16 an implicit GEMM on the tensor cores) and the
+block-sparse conv (the CUDA-core tile kernel over the nonzero (oc, ic)
+blocks).  So each side is timed by its own kernel's model: the dense
+side by ``conv_schedule_cost``, the sparse side by
+``sparse_conv_schedule_cost_batch`` at the block density (its nonzero
+steps scale with it), stretched by the nonzero imbalance across
+output-channel blocks.  ``choose_algorithm`` makes the static pick;
+``crossover_density`` is the break-even point the thesis plots (0 when
+the sparse kernel never wins, 1 when it always does).
 """
 from __future__ import annotations
 
@@ -29,37 +34,52 @@ class SparsityDecision:
     imbalance: float
 
 
-def sparse_time_estimate(dense: cm.KernelCost, density: float,
-                         imbalance: float,
-                         check_overhead: float = 0.05) -> float:
-    """Expected sparse-kernel time: compute and bytes scale with block
-    density, the per-block bookkeeping adds a small overhead, and
-    imbalance stretches the critical path."""
-    busy = max(dense.compute_s, dense.memory_s)
-    return busy * density * imbalance + dense.overhead_s * (1.0
-                                                            + check_overhead)
+def sparse_time_estimate(sparse: cm.KernelCost, imbalance: float) -> float:
+    """Expected sparse-kernel time from its own model at the block
+    density: imbalance stretches the critical path (the busiest
+    output-channel block), the launch does not stretch."""
+    busy = max(sparse.compute_s, sparse.memory_s)
+    return busy * imbalance + sparse.overhead_s
 
 
-def _dense_block(layer: ConvLayer, block: Dict[str, int]) -> Dict[str, int]:
-    """The dense schedule's blocks: the given (oc, ic) and the port's
-    default pixel blocks where none are given (the whole image, as the
-    JAX policy uses, does not fit a Hopper block)."""
+def _dense_block(layer: ConvLayer, block: Dict[str, int], grid_order,
+                 spec: cm.H100Spec, elem_bytes: int,
+                 batch: int = 1) -> Dict[str, int]:
+    """The dense schedule's blocks: the given (oc, ic) and, where no
+    pixel blocks are given, the dense kernel's cheapest pixel tile for
+    them among the tuner's candidates (the whole image, as the JAX
+    policy uses, does not fit a Hopper block), else the port's default
+    pixel blocks."""
+    from repro_torch.core.tuner import conv_blocks
     from repro_torch.kernels.conv2d.ops import default_block
+    if "y" in block and "x" in block:
+        return dict(block)
+    cands = [b for b in conv_blocks(layer, elem_bytes)
+             if (b["oc"], b["ic"]) == (block["oc"], block["ic"])]
+    if cands:
+        t = cm.conv_schedule_cost_batch(layer, [tuple(grid_order)], cands,
+                                        spec, elem_bytes, batch).time_s[0]
+        return cands[int(t.argmin())]
     dflt = default_block(layer.oc, layer.ic, layer.h, layer.w)
-    return {"oc": block["oc"], "ic": block["ic"],
-            "y": block.get("y", dflt["y"]), "x": block.get("x", dflt["x"])}
+    return {"oc": block["oc"], "ic": block["ic"], "y": dflt["y"],
+            "x": dflt["x"]}
 
 
 def choose_algorithm(layer: ConvLayer, block: Dict[str, int],
                      density: float, imbalance: float = 1.0,
                      spec: cm.H100Spec = cm.H100Spec(),
                      grid_order=("oc", "y", "x", "ic"),
-                     elem_bytes: int = 2) -> SparsityDecision:
-    """Pick dense vs block-sparse conv by predicted time at ``density``."""
-    dense = cm.conv_schedule_cost(layer, grid_order,
-                                  _dense_block(layer, block), spec,
-                                  elem_bytes)
-    sparse = sparse_time_estimate(dense, density, imbalance)
+                     elem_bytes: int = 2, batch: int = 1) -> SparsityDecision:
+    """Pick dense vs block-sparse conv by predicted time at ``density``
+    for ``batch`` images."""
+    dblock = _dense_block(layer, block, grid_order, spec, elem_bytes, batch)
+    dense = cm.conv_schedule_cost(layer, grid_order, dblock, spec,
+                                  elem_bytes, batch)
+    skip = {"oc": block["oc"], "ic": block["ic"]}
+    sparse = sparse_time_estimate(
+        cm.sparse_conv_schedule_cost_batch(layer, [skip], density, batch,
+                                           spec, elem_bytes).cost(0),
+        imbalance)
     algo = "sparse" if sparse < dense.time_s else "dense"
     return SparsityDecision(algorithm=algo, dense_time_s=dense.time_s,
                             sparse_time_s=sparse, density=density,
@@ -69,15 +89,25 @@ def choose_algorithm(layer: ConvLayer, block: Dict[str, int],
 def crossover_density(layer: ConvLayer, block: Dict[str, int],
                       imbalance: float = 1.0,
                       spec: cm.H100Spec = cm.H100Spec(),
-                      elem_bytes: int = 2, tol: float = 1e-3) -> float:
+                      elem_bytes: int = 2, tol: float = 1e-3,
+                      batch: int = 1) -> float:
     """Density at which sparse and dense predicted times cross
-    (bisection; the thesis' Fig 6.2 break-even point)."""
+    (bisection; the thesis' Fig 6.2 break-even point): 0.0 when the
+    sparse kernel is predicted slower even with no nonzero block, 1.0
+    when it is predicted faster even at full density."""
+    def sparse_wins(d):
+        return choose_algorithm(layer, block, d, imbalance, spec,
+                                elem_bytes=elem_bytes,
+                                batch=batch).algorithm == "sparse"
+
+    if not sparse_wins(0.0):
+        return 0.0
+    if sparse_wins(1.0):
+        return 1.0
     lo, hi = 0.0, 1.0
     while hi - lo > tol:
         mid = (lo + hi) / 2
-        d = choose_algorithm(layer, block, mid, imbalance, spec,
-                             elem_bytes=elem_bytes)
-        if d.algorithm == "sparse":
+        if sparse_wins(mid):
             lo = mid
         else:
             hi = mid

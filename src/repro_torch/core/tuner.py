@@ -4,11 +4,16 @@ The tuner enumerates the schedule space of each kernel (grid order x
 block shapes, plus the resident RHS for matmul), scores the whole
 enumeration with one batch call of the H100 cost model and ranks it.
 The block candidates are the port's own, sized for a Hopper block
-rather than the TPU's MXU: channels around 16-128, pixels around 4-16
-or the full extent, matmul tiles around 32-128 and k chunks around
-16-64 or the whole k.  Only schedules the CUDA kernels accept
-(``kernels/_geometry.py``) are ever returned, so a ranked schedule
-never raises on the card.
+rather than the TPU's MXU and for the body the dtype runs: float32
+(CUDA cores) channels around 16-128, pixels around 4-16 or the full
+extent, matmul tiles around 32-128 and k chunks around 16-64 or the
+whole k; bf16 (tensor cores) also channels up to 256, pixel tiles up to
+28 a side (64-256 pixels fill the MMA's 16-row steps with little
+padding), matmul rows of 64 or 128 (one or two warpgroups) and columns
+of 16-256 (the wgmma widths).  Blocks always divide their dimensions,
+and only schedules the CUDA kernels accept (``kernels/_geometry.py``,
+the layout of the dtype's body) are ever returned, so a ranked
+schedule never raises on the card.
 
 ``cached_tune_*`` put the ranking behind the port's tuning registry: a
 warm hit performs zero cost-model evaluations.
@@ -31,6 +36,11 @@ CONV_CHANNEL_TARGETS = (16, 32, 64, 128)
 CONV_PIXEL_TARGETS = (4, 8, 16)
 MATMUL_TILE_TARGETS = (32, 64, 128)
 MATMUL_K_TARGETS = (16, 32, 64)
+# bf16, the tensor-core bodies
+CONV_MMA_CHANNEL_TARGETS = (16, 32, 64, 128, 256)
+CONV_MMA_PIXEL_TARGETS = (4, 8, 16, 28)
+MATMUL_MMA_ROW_TARGETS = (64, 128)
+MATMUL_MMA_COL_TARGETS = (16, 32, 64, 128, 192, 256)
 
 
 def _divisors(n: int, cap: int = 1 << 30) -> List[int]:
@@ -45,16 +55,20 @@ def _block_candidates(dim: int, targets: Sequence[int]) -> List[int]:
 
 
 def conv_blocks(layer: ConvLayer, elem_bytes: int) -> List[Dict[str, int]]:
-    """The conv block candidates the kernel accepts for ``layer``."""
-    oc_c = _block_candidates(layer.oc, CONV_CHANNEL_TARGETS)
-    ic_c = _block_candidates(layer.ic, CONV_CHANNEL_TARGETS)
-    y_c = _block_candidates(layer.h, CONV_PIXEL_TARGETS + (layer.h,))
-    x_c = _block_candidates(layer.w, CONV_PIXEL_TARGETS + (layer.w,))
+    """The conv block candidates the dtype's kernel accepts for
+    ``layer``."""
+    mma = geo.tensor_cores(elem_bytes)
+    ch = CONV_MMA_CHANNEL_TARGETS if mma else CONV_CHANNEL_TARGETS
+    px = CONV_MMA_PIXEL_TARGETS if mma else CONV_PIXEL_TARGETS
+    oc_c = _block_candidates(layer.oc, ch)
+    ic_c = _block_candidates(layer.ic, ch)
+    y_c = _block_candidates(layer.h, px + (layer.h,))
+    x_c = _block_candidates(layer.w, px + (layer.w,))
     blocks = [{"oc": o, "ic": i, "y": y, "x": x}
               for o, i, y, x in itertools.product(oc_c, ic_c, y_c, x_c)]
     return [b for b in blocks
-            if geo.conv_tile(b["oc"], b["ic"], b["y"], b["x"], layer.kh,
-                             layer.kw, elem_bytes).error is None]
+            if geo.conv_layout(b["oc"], b["ic"], b["y"], b["x"], layer.kh,
+                               layer.kw, elem_bytes).error is None]
 
 
 def _top(times: np.ndarray, feasible: np.ndarray, top_k: int) -> List[int]:
@@ -66,25 +80,32 @@ def _top(times: np.ndarray, feasible: np.ndarray, top_k: int) -> List[int]:
 
 
 def tune_conv(layer: ConvLayer, spec: cm.H100Spec = cm.H100Spec(),
-              elem_bytes: int = 2, top_k: int = 5,
+              elem_bytes: int = 2, top_k: int = 5, batch: int = 1,
               ) -> List[Tuple[ConvSchedule, cm.KernelCost]]:
     """Rank (grid order x block shape) conv schedules by the H100 model
-    with one ``conv_schedule_cost_batch`` call."""
+    for ``batch`` images with one ``conv_schedule_cost_batch`` call (the
+    tensor-core body's best tile differs between one image and a
+    batch: few images want many small tiles, many want large ones)."""
     orders = list(itertools.permutations(("oc", "ic", "y", "x")))
     blocks = conv_blocks(layer, elem_bytes)
-    batch = cm.conv_schedule_cost_batch(layer, orders, blocks, spec,
-                                        elem_bytes)
+    scored = cm.conv_schedule_cost_batch(layer, orders, blocks, spec,
+                                         elem_bytes, batch)
     n_b = len(blocks)
     return [(ConvSchedule.make(orders[i // n_b], blocks[i % n_b]),
-             batch.cost((i // n_b, i % n_b)))
-            for i in _top(batch.time_s, batch.feasible, top_k)]
+             scored.cost((i // n_b, i % n_b)))
+            for i in _top(scored.time_s, scored.feasible, top_k)]
 
 
-def matmul_blocks(m: int, n: int, k: int) -> List[Tuple[int, int, int]]:
-    """The matmul (bm, bn, bk) candidates (feasibility also depends on
-    the resident switch, so it is applied on the scores)."""
-    m_c = _block_candidates(m, MATMUL_TILE_TARGETS)
-    n_c = _block_candidates(n, MATMUL_TILE_TARGETS)
+def matmul_blocks(m: int, n: int, k: int, elem_bytes: int = 2
+                  ) -> List[Tuple[int, int, int]]:
+    """The matmul (bm, bn, bk) candidates for the dtype's kernel
+    (feasibility also depends on the resident switch, so it is applied
+    on the scores)."""
+    mma = geo.tensor_cores(elem_bytes)
+    m_c = _block_candidates(m, MATMUL_MMA_ROW_TARGETS if mma
+                            else MATMUL_TILE_TARGETS)
+    n_c = _block_candidates(n, MATMUL_MMA_COL_TARGETS if mma
+                            else MATMUL_TILE_TARGETS)
     k_c = _block_candidates(k, MATMUL_K_TARGETS + (k,))
     return list(itertools.product(m_c, n_c, k_c))
 
@@ -95,7 +116,7 @@ def tune_matmul(m: int, n: int, k: int, spec: cm.H100Spec = cm.H100Spec(),
     """Rank matmul schedules: 6 grid orders x blocks x resident RHS, with
     one ``matmul_schedule_cost_batch`` call."""
     orders = list(itertools.permutations(("m", "n", "k")))
-    blocks = matmul_blocks(m, n, k)
+    blocks = matmul_blocks(m, n, k, elem_bytes)
     batch = cm.matmul_schedule_cost_batch(m, n, k, blocks, orders, spec,
                                           elem_bytes)
     n_b = len(blocks)
@@ -187,12 +208,14 @@ def cached_tune_conv(layer: ConvLayer, spec: cm.H100Spec = cm.H100Spec(),
                      elem_bytes: int = 2, top_k: int = 5,
                      registry: Optional[reg.TuningRegistry] = None,
                      refresh: bool = False, machine: Optional[str] = None,
+                     batch: int = 1,
                      ) -> List[Tuple[ConvSchedule, cm.KernelCost]]:
-    """:func:`tune_conv` behind the registry; ``machine`` overrides the
-    key's machine part (the dispatch service passes spec + runtime)."""
+    """:func:`tune_conv` behind the registry (the key holds the batch);
+    ``machine`` overrides the key's machine part (the dispatch service
+    passes spec + runtime)."""
     return _cached_ranked(
-        reg.conv_schedule_key(layer, machine or spec, elem_bytes),
-        lambda k: tune_conv(layer, spec, elem_bytes, top_k=k),
+        reg.conv_schedule_key(layer, machine or spec, elem_bytes, batch),
+        lambda k: tune_conv(layer, spec, elem_bytes, top_k=k, batch=batch),
         top_k, registry, refresh)
 
 

@@ -3,7 +3,10 @@
 Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
 together, for ``sm_90a`` with a plain C interface (no PyTorch headers:
 seconds per file instead of minutes), then linked into one shared
-library under ``build/kernels/`` at the repository root.  The library's
+library under ``build/kernels/`` at the repository root.  The link line
+names no CUDA driver library (libcuda): the TMA tensor maps of the bf16
+matmul get the driver API's ``cuTensorMapEncodeTiled`` through the CUDA
+runtime's entry-point query.  The library's
 name carries a hash of the sources, so an edited kernel is rebuilt and
 an unchanged one is reused.  The build happens at first use, never at
 import, and any compiler error raises with the compiler's output.
@@ -54,19 +57,26 @@ SIGNATURES = {
     "ssm_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                      _I, _I, _P],
     # img, wgt, out, N, IC, H2, W2, OC, KH, KW, boc, bic, by, bx, groups,
-    # per_thread, ord0, ord1, ord2, ic_begin, ic_count, accumulate,
-    # is_bf16, stream
-    "conv2d_fwd": [_P, _P, _P] + [_I] * 20 + [_P],
+    # per_thread, ord0, ord1, ord2, ic_begin, ic_count, accumulate, stream
+    # (float32)
+    "conv2d_fwd": [_P, _P, _P] + [_I] * 19 + [_P],
+    # img, wgt, out, N, IC, H2, W2, OC, KH, KW, boc, bic, by, bx, warps,
+    # ord0, ord1, ord2, ic_begin, ic_count, accumulate, stream (bf16)
+    "conv2d_mma_fwd": [_P, _P, _P] + [_I] * 18 + [_P],
     # img, wgt, idx, counts, out, N, IC, H2, W2, OC, KH, KW, boc, bic,
     # max_nnz, by, bx, groups, per_thread, is_bf16, stream
     "sparse_conv2d_fwd": [_P, _P, _P, _P, _P] + [_I] * 15 + [_P],
     # a, b, c, M, N, K, bm, bn, bk, mi, mj, m_outer, k_begin, k_count,
-    # accumulate, resident, is_bf16, stream
-    "matmul_fwd": [_P, _P, _P] + [_I] * 14 + [_P],
+    # accumulate, resident, stream (float32)
+    "matmul_fwd": [_P, _P, _P] + [_I] * 13 + [_P],
+    # a, b, c, M, N, K, bm, bn, bk, bn_pad, stages, m_outer, k_begin,
+    # k_count, accumulate, resident, a_tma, b_tma, stream (bf16)
+    "matmul_mma_fwd": [_P, _P, _P] + [_I] * 15 + [_P],
 }
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+lib_path: Optional[Path] = None   # the shared library in use
 build_seconds: Optional[float] = None
 build_log: str = ""     # nvcc/ptxas output of the library in use
 
@@ -152,7 +162,7 @@ def _log_path(lib: Path) -> Path:
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use (keyed by the sources'
     hash) and loaded once per process."""
-    global _lib, build_seconds, build_log
+    global _lib, build_seconds, build_log, lib_path
     with _lock:
         if _lib is not None:
             return _lib
@@ -165,6 +175,7 @@ def load() -> ctypes.CDLL:
             build_log = _compile(out)
         build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(out))
+        lib_path = out
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes

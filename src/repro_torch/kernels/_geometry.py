@@ -2,16 +2,20 @@
 
 One place answers "how does the CUDA kernel lay out this block, and does
 it fit?" for the direct conv, the block-sparse conv and the tiled
-matmul.  The wrappers use it to launch (and to raise on a block the
-kernel cannot take), the H100 cost model uses it for its padding and
-feasibility terms, and the tuner uses it to offer only blocks the kernel
-accepts, so a ranked schedule never raises on the card.  Pure Python:
-nothing here touches a device.
+matmul, per dtype: bf16 conv2d and matmul run on the tensor cores
+(``conv_mma_tile``, ``matmul_mma_tile``), float32 and the block-sparse
+conv on the CUDA cores (``conv_tile``, ``matmul_tile``);
+``tensor_cores`` is the one rule that picks by element size, and
+``conv_layout`` and ``matmul_layout`` follow it.  The wrappers use it
+to launch (and to raise on a block the kernel cannot take), the H100
+cost model uses it for its padding and feasibility terms, and the tuner
+uses it to offer only blocks the kernel accepts, so a ranked schedule
+never raises on the card.  Pure Python: nothing here touches a device.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 # A Hopper block: at most 1024 threads and 227 KB of (dynamic) shared
 # memory (232,448 bytes; above 48 KB after cudaFuncSetAttribute).
@@ -31,6 +35,25 @@ CONV_MAX_OC = 16
 MM_THREADS_X = 16
 MM_THREADS_Y = 16
 MM_MICRO = (2, 4, 8)
+
+# bf16 conv2d (implicit GEMM, mma.sync.m16n8k16): pixels pad to 16, oc
+# to 16 (ldmatrix.x4 loads two n8 fragments), ic to 16; a warp owns a
+# 32 x 32 (pixel x oc) tile, a block has at most 16 warps and covers a
+# larger tile in rounds.  Shared memory: two stages of the halo
+# [by+kh-1][bx+kw-1][ic_pad+8] and the weights [kh kw][oc_pad][ic_pad+8]
+# (bf16), and a 32 x 36 f32 epilogue tile a warp.
+CONV_MMA_MAX_WARPS = 16
+CONV_MMA_WARP_TILE = 32
+CONV_MMA_UNITS = 4          # staging units (8 channels) a thread prefetches
+CONV_MMA_EPI_BYTES = 32 * 36 * 4
+
+# bf16 matmul (wgmma): 64 rows a consumer warpgroup (one or two), the
+# wgmma width BN from MMA_BN, a stage depth of 16, 32 or 64 k elements,
+# 2-4 ring stages, a producer warpgroup.
+MMA_BN = (16, 32, 64, 96, 128, 192, 256)
+MMA_MAX_STAGES = 4
+MMA_MIN_STAGES = 2
+MMA_BARRIER_BYTES = (2 * MMA_MAX_STAGES + 1) * 8
 
 # Block-sparse conv: the spatial tile is the port's own choice (the
 # Pallas kernel kept the whole image in VMEM): up to 8 x 16 pixels,
@@ -133,5 +156,146 @@ def matmul_tile(bm: int, bn: int, bk: int, k: int, elem_bytes: int,
     return MatmulTile(mi, mj, MM_THREADS_X * MM_THREADS_Y, smem)
 
 
-__all__ = ["ConvTile", "MatmulTile", "conv_tile", "matmul_tile",
-           "sparse_tile", "MAX_THREADS", "SMEM_BYTES", "WARP"]
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvMmaTile:
+    """How the bf16 tensor-core conv lays out one (boc, bic, by, bx)
+    tile (``csrc/conv2d.cu``, conv_mma_kernel)."""
+    p16: int             # pixels padded to the MMA's M (16)
+    boc16: int           # output channels padded to 16
+    bic_pad: int         # input channels padded to the MMA's K (16)
+    warps: int           # warps of the block (each a 32 x 32 tile)
+    rounds: int          # passes over the tile's warp tiles
+    units: int           # staging units (8 channels) a channel block
+    smem: int            # bytes: two stages + the warps' epilogue tiles
+
+    @property
+    def threads(self) -> int:
+        return self.warps * WARP
+
+    @property
+    def error(self) -> Optional[str]:
+        """Why the kernel refuses this tile, or None when it fits."""
+        if self.smem > SMEM_BYTES:
+            return f"{self.smem} bytes of shared memory > {SMEM_BYTES}"
+        return None
+
+
+def conv_mma_tile(boc: int, bic: int, by: int, bx: int, kh: int,
+                  kw: int) -> ConvMmaTile:
+    """Layout of a bf16 conv tile on the tensor cores: pixels, oc and ic
+    padded to 16; ceil(p16 / 32) x ceil(boc16 / 32) warp tiles run by
+    up to 16 warps (in rounds past that); shared memory holds two stages
+    of the channels-last halo and the [taps][boc16][bic_pad] weights
+    (rows padded by 8 elements) and each warp's f32 epilogue tile."""
+    p16 = _round_up(by * bx, 16)
+    boc16 = _round_up(boc, 16)
+    bic_pad = _round_up(bic, 16)
+    cstr = bic_pad + 8
+    tiles = (-(-p16 // CONV_MMA_WARP_TILE)) * (-(-boc16 // CONV_MMA_WARP_TILE))
+    warps = min(CONV_MMA_MAX_WARPS, tiles)
+    halo = (by + kh - 1) * (bx + kw - 1) * cstr * 2
+    stage = halo + kh * kw * boc16 * cstr * 2
+    units = ((by + kh - 1) * (bx + kw - 1) + kh * kw * boc) * (-(-bic // 8))
+    return ConvMmaTile(p16, boc16, bic_pad, warps, -(-tiles // warps), units,
+                       2 * stage + warps * CONV_MMA_EPI_BYTES)
+
+
+def tensor_cores(elem_bytes: int) -> bool:
+    """Whether the dense conv and the matmul run their tensor-core bodies
+    for this element size: bf16 does, float32 keeps the CUDA-core bodies
+    (the tensor cores do only TF32 on float32, which would break the
+    port's 1e-5 float32 contract).  The block-sparse conv runs the
+    CUDA-core tile kernel in both dtypes."""
+    return elem_bytes == 2
+
+
+def conv_layout(boc: int, bic: int, by: int, bx: int, kh: int, kw: int,
+                elem_bytes: int):
+    """The dense conv's layout for its dtype: the tensor-core tile for
+    bf16, the CUDA-core tile for float32."""
+    if tensor_cores(elem_bytes):
+        return conv_mma_tile(boc, bic, by, bx, kh, kw)
+    return conv_tile(boc, bic, by, bx, kh, kw, elem_bytes)
+
+
+@dataclasses.dataclass(frozen=True)
+class MatmulMmaTile:
+    """How the bf16 wgmma matmul lays out one (bm, bn, bk) tile
+    (``csrc/matmul.cu``, matmul_mma_kernel)."""
+    bm_pad: int          # 64 a consumer warpgroup (0: bm too large)
+    bn_pad: int          # the wgmma width (0: bn too large)
+    ks: int              # ring stage depth in k: 16, 32 or 64
+    stages: int          # ring stages that fit, at most 4
+    smem: int            # bytes: ring (+ resident B panel) + barriers
+    resident: bool
+
+    @property
+    def threads(self) -> int:
+        """Consumer warpgroups plus the producer warpgroup."""
+        return 128 * (self.bm_pad // 64 + 1)
+
+    @property
+    def error(self) -> Optional[str]:
+        """Why the kernel refuses this tile, or None when it fits."""
+        if not self.bm_pad:
+            return "tile rows above 128 (two consumer warpgroups)"
+        if not self.bn_pad:
+            return f"tile columns above {MMA_BN[-1]} (the widest wgmma)"
+        if self.stages < MMA_MIN_STAGES:
+            what = "the resident B panel and " if self.resident else ""
+            return (f"{what}{MMA_MIN_STAGES} ring stages need more than "
+                    f"{SMEM_BYTES} bytes of shared memory")
+        return None
+
+
+def matmul_mma_tile(bm: int, bn: int, bk: int, k: int,
+                    resident_rhs: bool) -> MatmulMmaTile:
+    """Layout of a bf16 matmul tile: bm padded to 64 or 128 rows, bn to
+    the next wgmma width of MMA_BN, the stage depth ks from bk (16, 32,
+    64), as many ring stages of A [bm_pad, ks] and B [ks, bn_pad] (1024-
+    byte aligned) as fit up to 4; with ``resident_rhs`` the [k, bn_pad]
+    B panel (k rounded up to 64) sits beside a ring of A only."""
+    bm_pad = 64 if bm <= 64 else 128 if bm <= 128 else 0
+    bn_pad = next((w for w in MMA_BN if w >= bn), 0)
+    ks = 16 if bk <= 16 else 32 if bk <= 32 else 64
+    a_bytes = _round_up(max(bm_pad, 64) * ks * 2, 1024)
+    bn_any = bn_pad or MMA_BN[-1]
+    b_bytes = 0 if resident_rhs else _round_up(bn_any * ks * 2, 1024)
+    span = 128 if (bn_any * 2) % 128 == 0 else 64 if (bn_any * 2) % 64 == 0 \
+        else 32
+    panel_rows = _round_up(k, 64) if resident_rhs else 0
+    panel = _round_up(bn_any * panel_rows * 2, 1024)
+    free = SMEM_BYTES - 1024 - panel - MMA_BARRIER_BYTES
+    stages = min(MMA_MAX_STAGES, max(0, free // (a_bytes + b_bytes)))
+    if resident_rhs and panel_rows * span // 16 > 16383:
+        stages = 0        # the descriptor's 14-bit atom stride
+    smem = 1024 + stages * (a_bytes + b_bytes) + panel + MMA_BARRIER_BYTES
+    return MatmulMmaTile(bm_pad, bn_pad, ks, stages, smem, resident_rhs)
+
+
+def matmul_mma_route(k: int, n: int) -> Tuple[bool, bool]:
+    """(A by TMA, B by TMA): the shape rule of the bf16 matmul's staging.
+    TMA needs rows that are multiples of 16 bytes (k % 8 for A [m, k],
+    n % 8 for B [k, n]); other operands are loaded through the producer's
+    registers into the same swizzled stage."""
+    return k % 8 == 0, n % 8 == 0
+
+
+def matmul_layout(bm: int, bn: int, bk: int, k: int, elem_bytes: int,
+                  resident_rhs: bool):
+    """The matmul's layout for its dtype: the wgmma tile for bf16, the
+    CUDA-core tile for float32."""
+    if tensor_cores(elem_bytes):
+        return matmul_mma_tile(bm, bn, bk, k, resident_rhs)
+    return matmul_tile(bm, bn, bk, k, elem_bytes, resident_rhs)
+
+
+__all__ = ["ConvTile", "MatmulTile", "ConvMmaTile", "MatmulMmaTile",
+           "conv_tile", "matmul_tile", "conv_mma_tile", "matmul_mma_tile",
+           "conv_layout", "matmul_layout", "matmul_mma_route",
+           "tensor_cores",
+           "sparse_tile", "MMA_BN", "MAX_THREADS", "SMEM_BYTES", "WARP"]

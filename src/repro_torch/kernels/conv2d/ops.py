@@ -10,7 +10,9 @@ the port's :class:`~repro_torch.runtime.dispatch.DispatchService`.
 
 For CPU tensors the wrapper runs the plain version (``ref.conv2d_plain``,
 rounded where the kernel rounds); for CUDA tensors it launches the
-kernel or raises.  ``conv2d.launches`` counts kernel launches: one for a
+kernel or raises: bf16 runs the implicit GEMM on the tensor cores,
+float32 the CUDA-core tile kernel in IEEE fp32 (``_geometry.conv_layout``
+gives each one's layout).  ``conv2d.launches`` counts kernel launches: one for a
 scratch schedule (ic innermost), one per input-channel block for a
 read-modify-write schedule.
 """
@@ -24,7 +26,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import (KERNEL_DTYPES, check_same, on_cpu,
                                          require)
-from repro_torch.kernels._geometry import conv_tile
+from repro_torch.kernels._geometry import conv_layout, tensor_cores
 from repro_torch.kernels.conv2d.ref import (GRID_AXES, conv2d_plain,
                                             conv2d_ref, uses_scratch)
 
@@ -85,9 +87,10 @@ def conv2d(img: torch.Tensor, wgt: torch.Tensor, *,
     require(img.dtype in KERNEL_DTYPES, f"conv2d: dtype {img.dtype} not "
             f"supported")
     check_same("conv2d", [img, wgt], img.dtype)
-    tile = conv_tile(boc, bic, by, bx, kh, kw, img.element_size())
+    mma = tensor_cores(img.element_size())
+    tile = conv_layout(boc, bic, by, bx, kh, kw, img.element_size())
     require(tile.error is None, f"conv2d: block {block} with a {kh}x{kw} "
-            f"kernel does not fit the kernel: {tile.error}")
+            f"kernel does not fit the {img.dtype} kernel: {tile.error}")
     out = torch.empty((n, oc, h, w), dtype=img.dtype, device=img.device)
     if uses_scratch(order):
         passes = [(0, ic, 0)]
@@ -97,12 +100,17 @@ def conv2d(img: torch.Tensor, wgt: torch.Tensor, *,
     lib = _build.load()
     stream = _build.stream_handle(img.device)
     for c0, count, accumulate in passes:
-        rc = lib.conv2d_fwd(
-            img.data_ptr(), wgt.data_ptr(), out.data_ptr(), n, ic, h2, w2,
-            oc, kh, kw, boc, bic, by, bx, tile.groups, tile.per_thread,
-            *ords, c0, count, accumulate, int(img.dtype == torch.bfloat16),
-            stream)
-        _build.check(rc, "conv2d_fwd")
+        if mma:
+            rc = lib.conv2d_mma_fwd(
+                img.data_ptr(), wgt.data_ptr(), out.data_ptr(), n, ic, h2, w2,
+                oc, kh, kw, boc, bic, by, bx, tile.warps, *ords, c0, count,
+                accumulate, stream)
+        else:
+            rc = lib.conv2d_fwd(
+                img.data_ptr(), wgt.data_ptr(), out.data_ptr(), n, ic, h2, w2,
+                oc, kh, kw, boc, bic, by, bx, tile.groups, tile.per_thread,
+                *ords, c0, count, accumulate, stream)
+        _build.check(rc, "conv2d_mma_fwd" if mma else "conv2d_fwd")
         conv2d.launches += 1
     return out
 
@@ -118,19 +126,21 @@ def _tuned_schedule(shape_key: Tuple[int, ...], elem_bytes: int,
     ``REPRO_TORCH_TUNE_REGISTRY`` misses."""
     from repro_torch.core import tuner
     from repro_torch.core.loopnest import ConvLayer
-    oc, ic, h, w, kh, kw = shape_key
+    n, oc, ic, h, w, kh, kw = shape_key
     ranked = tuner.cached_tune_conv(ConvLayer(oc, ic, h, w, kh, kw),
-                                    elem_bytes=elem_bytes, top_k=1)
+                                    elem_bytes=elem_bytes, top_k=1,
+                                    batch=n)
     return ranked[0][0]
 
 
 def conv2d_tuned(img: torch.Tensor, wgt: torch.Tensor) -> torch.Tensor:
-    """``conv2d`` with the schedule the H100 cost model ranks first,
-    through the tuning registry: the first call on a new shape pays one
-    batch sweep and persists it; every later call reuses it."""
+    """``conv2d`` with the schedule the H100 cost model ranks first for
+    this batch, through the tuning registry: the first call on a new
+    shape pays one batch sweep and persists it; every later call reuses
+    it."""
     from repro_torch.core.registry import TuningRegistry
-    _, ic, _, _, oc, kh, kw, h, w = _shapes(img, wgt)
-    sched = _tuned_schedule((oc, ic, h, w, kh, kw), img.element_size(),
+    n, ic, _, _, oc, kh, kw, h, w = _shapes(img, wgt)
+    sched = _tuned_schedule((n, oc, ic, h, w, kh, kw), img.element_size(),
                             TuningRegistry.default_path())
     return conv2d(img, wgt, block=sched.block_dict(),
                   grid_order=sched.grid_order)
@@ -145,15 +155,17 @@ def conv2d_scheduled(img: torch.Tensor, wgt: torch.Tensor, *,
 
 def conv2d_dispatched(img: torch.Tensor, wgt: torch.Tensor, *,
                       service=None) -> torch.Tensor:
-    """``conv2d`` through the port's dispatch service: it proposes one of
+    """``conv2d`` through the port's dispatch service (the problem holds
+    the batch): it proposes one of
     the registry-backed top-K schedules, the call is timed (synchronised
     on the card, so the time is the kernel's and not the enqueue's), and
     the measurement feeds the online selector, which commits the argmin
     and writes it back to the registry once steady."""
     from repro_torch.runtime.dispatch import get_dispatch_service
-    _, ic, _, _, oc, kh, kw, h, w = _shapes(img, wgt)
+    n, ic, _, _, oc, kh, kw, h, w = _shapes(img, wgt)
     svc = service if service is not None else get_dispatch_service()
-    problem = {"oc": oc, "ic": ic, "h": h, "w": w, "kh": kh, "kw": kw}
+    problem = {"oc": oc, "ic": ic, "h": h, "w": w, "kh": kh, "kw": kw,
+               "n": n}
     with svc.measure("conv2d", problem, elem_bytes=img.element_size(),
                      device=img.device) as sched:
         out = conv2d(img, wgt, block=sched.block_dict(),

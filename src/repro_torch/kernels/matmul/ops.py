@@ -1,4 +1,4 @@
-"""Wrapper of the CUDA tiled-matmul kernel (``csrc/matmul.cu``).
+"""Wrapper of the CUDA tiled-matmul kernels (``csrc/matmul.cu``).
 
 ``matmul`` replaces ``matmul_pallas`` (``src/repro/kernels/matmul/
 kernel.py``) behind the JAX package's ops surface: ``matmul`` with an
@@ -8,7 +8,10 @@ through the port's registry) and ``matmul_dispatched`` (the port's
 dispatch service).
 
 For CPU tensors the wrapper runs the plain version (``ref.matmul_plain``);
-for CUDA tensors it launches the kernel or raises.  ``matmul.launches``
+for CUDA tensors it launches the kernel or raises: bf16 runs the wgmma
+body on the tensor cores (staging route per operand ``staging_route``),
+float32 the CUDA-core body in IEEE fp32 (``_geometry.matmul_layout``
+gives each one's layout).  ``matmul.launches``
 counts launches: one for k innermost or a resident RHS, one per k block
 for a read-modify-write schedule.
 """
@@ -22,7 +25,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import (KERNEL_DTYPES, check_same, on_cpu,
                                          require)
-from repro_torch.kernels._geometry import matmul_tile
+from repro_torch.kernels._geometry import (matmul_layout, matmul_mma_route,
+                                             tensor_cores)
 from repro_torch.kernels.matmul.ref import (GRID_AXES, matmul_plain,
                                             matmul_ref, uses_scratch)
 
@@ -71,9 +75,11 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     require(a.dtype in KERNEL_DTYPES, f"matmul: dtype {a.dtype} not "
             f"supported")
     check_same("matmul", [a, b], a.dtype)
-    tile = matmul_tile(bm, bn, bk, k, a.element_size(), resident_rhs)
+    mma = tensor_cores(a.element_size())
+    tile = matmul_layout(bm, bn, bk, k, a.element_size(), resident_rhs)
     require(tile.error is None, f"matmul: block {block} (resident_rhs="
-            f"{resident_rhs}) does not fit the kernel: {tile.error}")
+            f"{resident_rhs}) does not fit the {a.dtype} kernel: "
+            f"{tile.error}")
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if uses_scratch(order, resident_rhs):
         passes = [(0, k, 0)]
@@ -82,14 +88,33 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     m_outer = int(resident_rhs or order.index("m") < order.index("n"))
     lib = _build.load()
     stream = _build.stream_handle(a.device)
+    route = staging_route(a, b)
     for k0, count, accumulate in passes:
-        rc = lib.matmul_fwd(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, bm, bn, bk,
-            tile.mi, tile.mj, m_outer, k0, count, accumulate,
-            int(resident_rhs), int(a.dtype == torch.bfloat16), stream)
-        _build.check(rc, "matmul_fwd")
+        if mma:
+            rc = lib.matmul_mma_fwd(
+                a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, bm, bn,
+                bk, tile.bn_pad, tile.stages, m_outer, k0, count, accumulate,
+                int(resident_rhs), int(route[0] == "tma"),
+                int(route[1] == "tma"), stream)
+        else:
+            rc = lib.matmul_fwd(
+                a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, bm, bn,
+                bk, tile.mi, tile.mj, m_outer, k0, count, accumulate,
+                int(resident_rhs), stream)
+        _build.check(rc, "matmul_mma_fwd" if mma else "matmul_fwd")
         matmul.launches += 1
     return out
+
+
+def staging_route(a: torch.Tensor, b: torch.Tensor) -> Tuple[str, str]:
+    """How the bf16 kernel stages A and B: "tma" where the operand's rows
+    are 16-byte multiples and its base is 16-byte aligned, else "regs"
+    (loads through the producer's registers into the same swizzled
+    stage).  A shape rule, fixed per operand."""
+    k, n = a.shape[1], b.shape[1]
+    a_ok, b_ok = matmul_mma_route(k, n)
+    return ("tma" if a_ok and a.data_ptr() % 16 == 0 else "regs",
+            "tma" if b_ok and b.data_ptr() % 16 == 0 else "regs")
 
 
 matmul.launches = 0
@@ -140,5 +165,5 @@ def matmul_dispatched(a: torch.Tensor, b: torch.Tensor, *,
 
 
 __all__ = ["matmul", "matmul_tuned", "matmul_scheduled",
-           "matmul_dispatched", "matmul_ref", "matmul_plain",
+           "matmul_dispatched", "matmul_ref", "matmul_plain", "staging_route",
            "default_block", "GRID_AXES"]

@@ -13,7 +13,7 @@ the registry.
 The port's own table of kernel families holds the thesis kernels::
 
     kind          problem                       schedule
-    conv2d        oc,ic,h,w,kh,kw               ConvSchedule
+    conv2d        oc,ic,h,w,kh,kw[,n]           ConvSchedule
     matmul        m,n,k                         MatmulSchedule
     sparse_conv   oc,ic,h,w,kh,kw,density_16    SparseConvSchedule
 
@@ -70,11 +70,15 @@ def _conv_layer(p: Dict[str, Any]) -> ConvLayer:
 
 
 FAMILIES: Dict[str, KernelFamily] = {
+    # conv2d's problem may carry the batch "n" (default 1): the ranking
+    # of the tensor-core body depends on it
     "conv2d": KernelFamily(
         "conv2d", ("oc", "ic", "h", "w", "kh", "kw"),
-        lambda p, m, eb: reg.conv_schedule_key(_conv_layer(p), m, eb),
+        lambda p, m, eb: reg.conv_schedule_key(_conv_layer(p), m, eb,
+                                               p.get("n", 1)),
         lambda p, spec, m, eb, k, r: tuner.cached_tune_conv(
-            _conv_layer(p), spec, eb, top_k=k, registry=r, machine=m)),
+            _conv_layer(p), spec, eb, top_k=k, registry=r, machine=m,
+            batch=p.get("n", 1))),
     "matmul": KernelFamily(
         "matmul", ("m", "n", "k"),
         lambda p, m, eb: reg.matmul_schedule_key(p["m"], p["n"], p["k"], m,

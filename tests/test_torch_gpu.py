@@ -182,3 +182,121 @@ def test_cuda_thesis_kernels_match_plain_versions(cuda_device, dtype):
         want = sparse_conv_plain(img, w, sp.idx, sp.counts, block)
         torch.cuda.synchronize()
         assert _share_of_tol(got, want) <= 1.0
+
+
+# bf16 edges of the tensor-core bodies: tiles the MMA shape pads (bn 13,
+# 169 pixels, boc 40, bic 8, 1 x 13 and 11 x 11 pixel tiles, rounds of
+# warp tiles), both staging routes of the matmul (TMA where rows are
+# 16-byte multiples, registers otherwise), scratch, read-modify-write and
+# resident-RHS variants.
+MMA_MATMUL_CASES = [
+    # (m, n, k), block, grid order, resident, expected (A, B) route
+    ((512, 9216, 3072), {"m": 128, "n": 128, "k": 64}, "mnk", False,
+     ("tma", "tma")),
+    ((512, 9216, 3072), {"m": 128, "n": 256, "k": 64}, "nmk", False,
+     ("tma", "tma")),
+    ((512, 9216, 3072), {"m": 128, "n": 32, "k": 3072}, "mnk", True,
+     ("tma", "tma")),
+    ((512, 9216, 3072), {"m": 64, "n": 96, "k": 512}, "kmn", False,
+     ("tma", "tma")),
+    ((1000, 169, 512), {"m": 125, "n": 13, "k": 16}, "mnk", False,
+     ("tma", "regs")),
+    ((1000, 169, 512), {"m": 125, "n": 169, "k": 128}, "kmn", False,
+     ("tma", "regs")),
+    ((1000, 169, 512), {"m": 100, "n": 13, "k": 32}, "mnk", True,
+     ("tma", "regs")),
+    ((48, 729, 384), {"m": 48, "n": 243, "k": 48}, "mkn", False,
+     ("tma", "regs")),
+    ((64, 40, 36), {"m": 64, "n": 40, "k": 12}, "nkm", False,
+     ("regs", "tma")),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MMA_MATMUL_CASES,
+                         ids=[f"{c[0]}-{c[1]['m']}x{c[1]['n']}x{c[1]['k']}"
+                              f"-{c[2]}-res{int(c[3])}"
+                              for c in MMA_MATMUL_CASES])
+def test_cuda_bf16_matmul_mma_edges(cuda_device, case):
+    from repro_torch.kernels.matmul import staging_route, uses_scratch
+    (m, n, k), block, order, resident, route = case
+    g = torch.Generator(device=cuda_device).manual_seed(m + n + k)
+    a = torch.randn(m, k, generator=g, device=cuda_device).to(torch.bfloat16)
+    b = (torch.randn(k, n, generator=g, device=cuda_device)
+         * k ** -0.5).to(torch.bfloat16)
+    assert staging_route(a, b) == route
+    before = matmul.launches
+    got = matmul(a, b, block=block, grid_order=tuple(order),
+                 resident_rhs=resident)
+    torch.cuda.synchronize()
+    want, peak = matmul_plain(a, b, block=block, grid_order=tuple(order),
+                              resident_rhs=resident, with_peak=True)
+    assert matmul.launches - before == (
+        1 if uses_scratch(tuple(order), resident) else k // block["k"])
+    assert _share_of_tol(got, want, peak) <= 1.0
+
+
+MMA_CONV_CASES = [
+    # (n, ic, h, oc, k), block, grid order
+    ((2, 512, 13, 1000, 1), {"oc": 40, "ic": 64, "y": 13, "x": 13},
+     ("oc", "y", "x", "ic")),
+    ((2, 512, 13, 1000, 1), {"oc": 40, "ic": 64, "y": 13, "x": 13},
+     ("ic", "oc", "y", "x")),
+    ((2, 16, 55, 64, 3), {"oc": 64, "ic": 8, "y": 5, "x": 11},
+     ("ic", "y", "x", "oc")),
+    ((2, 512, 13, 1000, 1), {"oc": 125, "ic": 16, "y": 1, "x": 13},
+     ("oc", "y", "x", "ic")),
+    ((2, 32, 55, 128, 1), {"oc": 128, "ic": 32, "y": 11, "x": 11},
+     ("y", "x", "oc", "ic")),
+    ((2, 64, 13, 256, 3), {"oc": 128, "ic": 16, "y": 13, "x": 13},
+     ("oc", "x", "y", "ic")),
+    ((3, 32, 28, 256, 3), {"oc": 16, "ic": 32, "y": 7, "x": 14},
+     ("x", "ic", "oc", "y")),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MMA_CONV_CASES,
+                         ids=[f"oc{c[0][3]}-{c[1]['oc']}.{c[1]['ic']}."
+                              f"{c[1]['y']}x{c[1]['x']}-"
+                              + "".join(a[0] for a in c[2])
+                              for c in MMA_CONV_CASES])
+def test_cuda_bf16_conv2d_mma_edges(cuda_device, case):
+    from repro_torch.kernels.conv2d import uses_scratch
+    (n, ic, h, oc, k), block, order = case
+    g = torch.Generator(device=cuda_device).manual_seed(ic + oc + k)
+    img = torch.randn(n, ic, h + k - 1, h + k - 1, generator=g,
+                      device=cuda_device).to(torch.bfloat16)
+    wgt = (torch.randn(oc, ic, k, k, generator=g, device=cuda_device)
+           * (ic * k * k) ** -0.5).to(torch.bfloat16)
+    before = conv2d.launches
+    got = conv2d(img, wgt, block=block, grid_order=order)
+    torch.cuda.synchronize()
+    want, peak = conv2d_plain(img, wgt, block=block, grid_order=order,
+                              with_peak=True)
+    assert conv2d.launches - before == (
+        1 if uses_scratch(order) else ic // block["ic"])
+    assert _share_of_tol(got, want, peak) <= 1.0
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_mma_layouts_refuse_what_they_cannot_take(cuda_device):
+    """A block the tensor-core layout refuses raises before any launch:
+    matmul rows above two warpgroups, a resident panel with its ring
+    beyond 227 KB, a conv tile whose two stages exceed 227 KB."""
+    a = torch.zeros(512, 3072, dtype=torch.bfloat16, device=cuda_device)
+    b = torch.zeros(3072, 256, dtype=torch.bfloat16, device=cuda_device)
+    before = matmul.launches
+    with pytest.raises(ValueError, match="rows above 128"):
+        matmul(a, b, block={"m": 256, "n": 64, "k": 64})
+    with pytest.raises(ValueError, match="shared memory"):
+        matmul(a, b, block={"m": 128, "n": 64, "k": 64}, resident_rhs=True)
+    assert matmul.launches == before
+    img = torch.zeros(1, 64, 15, 15, dtype=torch.bfloat16,
+                      device=cuda_device)
+    wgt = torch.zeros(256, 64, 3, 3, dtype=torch.bfloat16,
+                      device=cuda_device)
+    before = conv2d.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        conv2d(img, wgt, block={"oc": 256, "ic": 64, "y": 13, "x": 13})
+    assert conv2d.launches == before

@@ -298,18 +298,22 @@ def test_reduction_outer_orders_never_cost_less(name):
 
 
 def test_dense_vs_sparse_policy():
-    """The crossover density lies in (0, 1]; below it the policy picks
-    the sparse kernel, above it the dense one."""
-    layer = ConvLayer(128, 128, 25, 25, 3, 3)
+    """At a layer whose predicted crossover lies inside (0, 1) (a
+    ResNet conv5 3x3 layer: 512 channels, 7 x 7), the policy picks the
+    sparse kernel below it and the dense one above it.  At the thesis'
+    Fig 6.2 layer the dense tensor-core conv wins at every density, as
+    on the card."""
+    layer = ConvLayer(512, 512, 7, 7, 3, 3)
     block = {"oc": 16, "ic": 16}
     x = sparsity.crossover_density(layer, block)
-    assert 0.0 < x <= 1.0
+    assert 0.0 < x < 1.0
     assert sparsity.choose_algorithm(layer, block, x / 2).algorithm == \
         "sparse"
-    if x < 0.99:
-        assert sparsity.choose_algorithm(layer, block,
-                                         min(1.0, x + 0.05)).algorithm == \
-            "dense"
+    assert sparsity.choose_algorithm(layer, block,
+                                     min(1.0, x + 0.05)).algorithm == \
+        "dense"
+    fig = ConvLayer(128, 128, 25, 25, 3, 3)
+    assert sparsity.crossover_density(fig, block) == 0.0
 
 
 # ------------------------------------------------------- tuner and registry
@@ -318,7 +322,9 @@ def test_dense_vs_sparse_policy():
 def test_every_ranked_schedule_fits_the_kernels(dtype_bytes):
     """Every schedule the tuners can return for the Table 4.1 layers and
     the matmul shapes is a valid permutation with dividing blocks that
-    the CUDA kernels accept."""
+    the CUDA kernel of its dtype accepts: the tensor-core layouts for
+    bf16 conv2d and matmul, the CUDA-core layouts for float32 and for
+    the block-sparse conv."""
     for layer in TABLE_4_1.values():
         ranked = tuner.tune_conv(layer, elem_bytes=dtype_bytes, top_k=10 ** 6)
         assert ranked
@@ -327,8 +333,12 @@ def test_every_ranked_schedule_fits_the_kernels(dtype_bytes):
             assert sorted(s.grid_order) == ["ic", "oc", "x", "y"]
             assert (layer.oc % b["oc"], layer.ic % b["ic"], layer.h % b["y"],
                     layer.w % b["x"]) == (0, 0, 0, 0)
-            assert geo.conv_tile(b["oc"], b["ic"], b["y"], b["x"], layer.kh,
-                                 layer.kw, dtype_bytes).error is None
+            tile = (geo.conv_mma_tile(b["oc"], b["ic"], b["y"], b["x"],
+                                      layer.kh, layer.kw)
+                    if dtype_bytes == 2 else
+                    geo.conv_tile(b["oc"], b["ic"], b["y"], b["x"], layer.kh,
+                                  layer.kw, dtype_bytes))
+            assert tile.error is None
             assert c.time_s < cm.INFEASIBLE_S
         for density in (0.0, 0.25, 0.5, 1.0):
             by, bx = geo.sparse_tile(layer.h, layer.w)
@@ -346,8 +356,12 @@ def test_every_ranked_schedule_fits_the_kernels(dtype_bytes):
             b = s.block_dict()
             assert sorted(s.grid_order) == ["k", "m", "n"]
             assert (m % b["m"], n % b["n"], k % b["k"]) == (0, 0, 0)
-            assert geo.matmul_tile(b["m"], b["n"], b["k"], k, dtype_bytes,
-                                   s.resident_rhs).error is None
+            tile = (geo.matmul_mma_tile(b["m"], b["n"], b["k"], k,
+                                        s.resident_rhs)
+                    if dtype_bytes == 2 else
+                    geo.matmul_tile(b["m"], b["n"], b["k"], k, dtype_bytes,
+                                    s.resident_rhs))
+            assert tile.error is None
 
 
 def test_warm_registry_performs_zero_cost_model_evals(tmp_path):
