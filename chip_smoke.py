@@ -12,15 +12,17 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
    nvcc per source in parallel, and ptxas' registers, spills and shared
    memory for each main-path instantiation; ``[sass]``: the tensor-core
    instructions (HGMMA for wgmma, HMMA for mma.sync) in ``cuobjdump
-   -sass`` of the bf16 matmul and conv2d entry functions (none may be
-   0) and of the float32 bodies (which stay on the CUDA cores);
+   -sass`` of the bf16 matmul, conv2d, block-sparse conv and flash
+   attention entry functions (none may be 0) and of their float32
+   bodies (which stay on the CUDA cores: none may hold one);
 3. kernels: each kernel against its plain PyTorch version at every
    shape the main paths give it in bf16 (per element, two bf16 ulps of
    the plain value plus 1e-5), at the main geometry in float32 (1e-5)
    and at smoke shapes in float32 (1e-5): the three attention kernels
    (MHA, head_dim 96; smoke GQA group 2) and the selective scan
    (Di 8192, N 16; smoke Di 128, N 8), with kernel, plain and library
-   times from CUDA events (L2 flushed before each timed launch);
+   times from CUDA events (L2 flushed before each timed launch), and
+   flash's time at every engine prompt bucket (``[time_bucket]``);
 4. engine: ``ServeSession`` on full-width, full-depth phi3-mini-3.8b in
    bf16 with random weights from a seed, 8 requests of mixed prompt
    lengths, 32 new tokens each; every request must complete with finite
@@ -147,28 +149,32 @@ class Timer:
 
 
 # Mangled-name patterns of the instantiations the bf16 main path runs
-# (head_dim 96, MHA): flash with 24 dims a thread, decode with group 1
-# and 3 dims a lane.
+# (head_dim 96, MHA): flash's tensor-core body at D 96, decode with group
+# 1 and 3 dims a lane.
 MAIN_PATH_INSTANCES = {
-    "flash_attention": r"flash_fwd_kernelI13__nv_bfloat16Li24E",
+    "flash_attention": r"flash_mma_kernelILi96E",
     "paged_decode_attention":
         r"decode_kernelI13__nv_bfloat16Li1ELi3ENS_7PagedKV",
     "decode_attention": r"decode_kernelI13__nv_bfloat16Li1ELi3ENS_8ContigKV",
     "ssm_scan": r"ssm_scan_kernelI13__nv_bfloat16Li16E",
-    # the thesis kernels' bf16 bodies: the conv's implicit GEMM, the
-    # matmul's wgmma at two warpgroups and the widest wgmma (QKV's tile),
-    # the sparse conv's tile kernel with the most registers
-    "conv2d": r"conv_mma_kernel",
-    "sparse_conv2d": r"sparse_conv_cu[^']*conv_tile_kernelI13__nv_bfloat16Li16E",
+    # the thesis kernels' bf16 bodies: the conv's implicit GEMM (dense,
+    # and over the nonzero blocks), the matmul's wgmma at two warpgroups
+    # and the widest wgmma (QKV's tile)
+    "conv2d": r"conv2d_cu[^']*conv_mma_kernelILb0E",
+    "sparse_conv2d": r"sparse_conv_cu[^']*conv_mma_kernelILb1E",
     "matmul": r"matmul_mma_kernelILi2ELi256E",
 }
 # Entry functions whose SASS must (bf16) or must not (float32) hold
 # tensor-core instructions, by name pattern.
 SASS_BODIES = {
     "matmul_bf16": (r"matmul_mma_kernel", "HGMMA"),
-    "conv2d_bf16": (r"conv_mma_kernel", "HMMA"),
+    "conv2d_bf16": (r"conv2d_cu.*conv_mma_kernel", "HMMA"),
+    "sparse_conv2d_bf16": (r"sparse_conv_cu.*conv_mma_kernel", "HMMA"),
+    "flash_attention_bf16": (r"flash_mma_kernel", "HMMA"),
     "matmul_float32": (r"matmul_kernelIfLi", None),
-    "conv2d_float32": (r"conv2d_cu.*conv_tile_kernelIfLi", None),
+    "conv2d_float32": (r"conv2d_cu.*conv_tile_kernelILi", None),
+    "sparse_conv2d_float32": (r"sparse_conv_cu.*conv_tile_kernelILi", None),
+    "flash_attention_float32": (r"flash_fwd_kernelILi", None),
 }
 
 
@@ -303,6 +309,24 @@ def kernel_checks(torch, dev, timer):
     for p in sorted(set(ENGINE_PROMPTS)):
         s = bucket_length(p)
         flash_case(bf16, 1, 32, 32, s, 96, starts=[s - p])
+    # the engine's admissions at each prompt bucket (the longest prompt
+    # of the bucket), kernel against SDPA
+    for s in sorted({bucket_length(p) for p in ENGINE_PROMPTS}):
+        real = max(p for p in ENGINE_PROMPTS if bucket_length(p) == s)
+        q = rn((1, 32, s, 96), bf16)
+        k, v = rn((1, 32, s, 96), bf16), rn((1, 32, s, 96), bf16)
+        st = torch.tensor([s - real], device=dev)
+        mask = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+        mask = mask & (torch.arange(s, device=dev)[None, :] >= s - real)
+        n_bytes = (3 * real + s) * 32 * 96 * 2 + 4
+        b_ms, _ = bound(n_bytes, 4 * 96 * 32 * real * (real + 1) // 2,
+                        "bfloat16")
+        ms = timer(lambda: flash_attention(q, k, v, starts=st))
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask))
+        phase("time_bucket", kernel="flash_attention",
+              shape=f"[1,32,{s},96]", real_tokens=real, ms=f"{ms:.4f}",
+              library_ms=f"{lib_ms:.4f}", bound_ms=f"{b_ms:.4f}")
     gstarts = [512 - n for n in GENERATE_PROMPTS]
     flash_case(bf16, 4, 32, 32, 512, 96, starts=gstarts)
     flash_case(f32, 1, 32, 32, 512, 96, starts=[212])
@@ -781,12 +805,12 @@ def thesis_checks(torch, dev, timer, data):
         for d in SPARSE_DENSITIES:
             for dname, dt in dtypes.items():
                 eb = 2 if dname == "bfloat16" else 4
-                s0 = tuner.tune_sparse_conv(l, d, elem_bytes=eb,
-                                            top_k=1)[0][0]
-                block = s0.block_dict()
                 wgt = data["sw"][(name, d)].to(dt)
-                sp = analyze_weights(wgt, block)
                 for n in THESIS_BATCHES:
+                    block = tuner.tune_sparse_conv(
+                        l, d, elem_bytes=eb, top_k=1,
+                        batch=n)[0][0].block_dict()
+                    sp = analyze_weights(wgt, block)
                     img = data["simg"][name][:n].to(dt)
                     got, k = counted(lambda: sparse_conv2d(
                         img, wgt, block=block, sparsity=sp), sparse_conv2d)
@@ -859,9 +883,10 @@ def thesis_checks(torch, dev, timer, data):
     sparse_ms = {}
     for name, l in data["sparse"].items():
         for d in SPARSE_DENSITIES:
-            s = tuner.tune_sparse_conv(l, d, elem_bytes=2, top_k=1)[0][0]
-            block = s.block_dict()
             img = data["simg"][name].to(torch.bfloat16)
+            s = tuner.tune_sparse_conv(l, d, elem_bytes=2, top_k=1,
+                                       batch=img.shape[0])[0][0]
+            block = s.block_dict()
             wgt = data["sw"][(name, d)].to(torch.bfloat16)
             sp = analyze_weights(wgt, block)
             b_ms, b_by = conv_bound(l, img.shape[0], "bfloat16", sp.density)
@@ -902,8 +927,15 @@ def thesis_checks(torch, dev, timer, data):
             if d1 > d0 and t1 != t0 and (t0 - dense_ms) * (t1 - dense_ms) <= 0:
                 measured = d0 + (dense_ms - t0) * (d1 - d0) / (t1 - t0)
                 break
+        if measured is None:
+            measured = ("none: sparse never crosses dense"
+                        if pts[0][1] > dense_ms else
+                        "none: sparse below dense at every density")
+        else:
+            measured = f"{measured:.3f}"
         predicted = sparsity.crossover_density(
-            l, tuner.tune_sparse_conv(l, 0.5, top_k=1)[0][0].block_dict(),
+            l, tuner.tune_sparse_conv(l, 0.5, top_k=1,
+                                      batch=img.shape[0])[0][0].block_dict(),
             batch=img.shape[0])
         phase("crossover", layer=name, batch=img.shape[0],
               dense_rank0_ms=f"{dense_ms:.4f}",
@@ -911,8 +943,7 @@ def thesis_checks(torch, dev, timer, data):
                               for k, v in sparse_ms.items()
                               if k[0] == name}),
               predicted_density=f"{predicted:.3f}",
-              measured_density=("none: sparse never crosses dense"
-                                if measured is None else f"{measured:.3f}"))
+              measured_density=measured)
 
     # ---- [orders]: all 24 grid orders of initial-conf at batch 32, bf16,
     # rank-0 blocks (thesis Fig 4.3 on the card)
@@ -1015,7 +1046,8 @@ def thesis_dispatch(torch, dev, timer, data):
                 dens = float((wgt != 0).float().mean())
                 problem = {"oc": l.oc, "ic": l.ic, "h": l.h, "w": l.w,
                            "kh": l.kh, "kw": l.kw,
-                           "density_16": reg.quantize_density(dens)}
+                           "density_16": reg.quantize_density(dens),
+                           "n": nb}
                 drive(svc, "sparse_conv", problem,
                       lambda: sparse_conv2d_dispatched(img, wgt,
                                                        service=svc),
@@ -1129,8 +1161,8 @@ def profile_engine(torch, model, params, prompts):
     groups = {"port_kernels": 0.0, "gemm": 0.0, "other": 0.0}
     for e in kern:
         n = e.key.lower()
-        if any(t in n for t in ("flash_fwd_kernel", "decode_kernel",
-                                "ssm_scan_kernel")):
+        if any(t in n for t in ("flash_mma_kernel", "flash_fwd_kernel",
+                                "decode_kernel", "ssm_scan_kernel")):
             groups["port_kernels"] += dev_us(e)
         elif any(t in n for t in ("gemm", "gemv", "nvjet", "cutlass")):
             groups["gemm"] += dev_us(e)

@@ -13,7 +13,8 @@ is the port's own:
   TFLOP/s).
 - Compute follows the body the dtype runs (in ``kernels/_geometry.py``
   ``tensor_cores`` picks the body and the layouts describe it):
-  - bf16 conv2d and matmul run on the tensor cores.  A schedule is
+  - bf16 conv2d, the block-sparse conv and matmul run on the tensor
+    cores.  A schedule is
     timed as its padded MMA work (pixels, oc and ic padded to 16 for the
     conv's mma.sync; rows to 64 a warpgroup, columns to the wgmma width
     and k to the stage depth for the matmul's wgmma) at the tensor-core
@@ -32,17 +33,24 @@ is the port's own:
     waves of SMs x resident blocks plus a tail; blocks resident together
     share an SM's throughput and overlap their latency.  The four
     constants are fitted to ``launch/calibrate_thesis.py``'s timings.
-  - float32, and the block-sparse conv in both dtypes, run on the CUDA
-    cores: an issue-rate model.  An SM issues 4 warp FMAs and 1
-    shared-memory wavefront a clock, so a conv tap costs a warp max(J /
-    4, 1 + the wavefronts of its J weights) cycles and a matmul k step
-    max(MI MJ / 4, MI + MJ); staging costs ``stage_instr`` instructions
-    an element; and each staged step waits ``step_latency_s`` for its
-    loads and barriers, hidden by the other blocks resident on the SM.
-    The block-sparse body is timed as the longer of that and its
-    blocks' sequential work (``SPARSE_CHANNEL_S`` an input channel of a
-    step, in waves), plus a fixed ``SPARSE_CALL_S`` a call: both fitted to its calibration
-    lines, where the issue-rate model alone was 6-10x optimistic.
+    The block-sparse conv runs the dense conv's body over the expected
+    nonzero channel blocks of each oc block (block density x ic blocks),
+    at the dense model's pixel tile for its skip block
+    (``sparsity.sparse_pixel_tile``), after one round trip for its index
+    row; a tile with none writes zeros.  A call costs ``SPARSE_CALL_S``
+    more than its launch, fitted to its calibration lines.
+  - float32 runs on the CUDA cores: an issue-rate model.  An SM issues
+    4 warp FMAs and 1 shared-memory wavefront a clock, so a conv tap
+    costs a warp max(J / 4, 1 + the wavefronts of its J weights) cycles
+    and a matmul k step max(MI MJ / 4, MI + MJ); staging costs
+    ``stage_instr`` instructions an element; and each staged step waits
+    ``step_latency_s`` for its loads and barriers, hidden by the other
+    blocks resident on the SM.  The float32 block-sparse body is timed
+    as the longer of that and its blocks' sequential work
+    (``SPARSE_CHANNEL_S`` an input channel of a step, in waves), plus
+    ``SPARSE_CALL_S`` a call: the channel constant was fitted to this
+    CUDA-core body's calibration lines when bf16 ran it too, where the
+    issue-rate model alone was 6-10x optimistic.
 - A block runs on one SM, so a launch with fewer tiles than SMs leaves
   SMs idle: compute time is divided by min(1, tiles / SMs).
 - Each launch costs ``launch_s``, and every read-modify-write pass is a
@@ -60,9 +68,9 @@ is the port's own:
 - A schedule the kernel refuses (shared memory, threads, channels a
   thread) keeps the feasibility penalty of +1e3 s, so it ranks last.
 
-Its version string is its own (``h100-2``; ``h100-1`` timed every body
-on the CUDA cores): no TPU constant and no TPU-measured record is
-reused.
+Its version string is its own (``h100-3``; ``h100-2`` timed the
+block-sparse conv on the CUDA cores in both dtypes, ``h100-1`` every
+body): no TPU constant and no TPU-measured record is reused.
 """
 from __future__ import annotations
 
@@ -77,7 +85,7 @@ from repro_torch.kernels import _geometry as geo
 
 # Bump whenever a change below alters predicted costs: the registry keys
 # cached rankings on it, so stale predictions self-invalidate.
-COST_MODEL_VERSION = "h100-2"
+COST_MODEL_VERSION = "h100-3"
 
 # Cost-model queries in this process, one per candidate scored: a warm
 # registry hit performs zero (asserted in tests/test_torch_thesis.py).
@@ -102,12 +110,15 @@ LOAD_LATENCY_S = 1.0e-6   # round trip of a conv staging step (loads and
 #                           register fill's round trip
 RING_LATENCY_S = 1.5e-6   # round trip of a matmul ring stage (TMA or
 #                           register fill, mbarrier, release)
-# The block-sparse body (its 120 sparse_conv lines, least squares):
-SPARSE_CALL_S = 6.306e-5  # a call's fixed time (the block index's two
-#                           host-to-device copies, the launch's host side)
-SPARSE_CHANNEL_S = 2.371e-6  # one input channel of one staged step of a
-#                           block (its taps run channel by channel)
-SPARSE_REGS = 64          # registers a thread of the sparse body (ptxas)
+# The block-sparse conv: a call's fixed time beyond its launch (both
+# bodies; least squares on the bf16 tensor-core body's 120 sparse_conv
+# lines)
+SPARSE_CALL_S = 1.005e-5
+# The float32 (CUDA-core) block-sparse body: one input channel of one
+# staged step of a block (its taps run channel by channel), fitted to
+# 120 lines of this body when it ran bf16 too; registers a thread (ptxas)
+SPARSE_CHANNEL_S = 2.371e-6
+SPARSE_REGS = 64
 
 
 def total_evals() -> int:
@@ -318,10 +329,13 @@ def _resident_blocks(threads, smem, regs, spec: H100Spec) -> np.ndarray:
 
 
 def _conv_mma_seconds(layer: ConvLayer, by, bx, boc, bic, spec: H100Spec,
-                      batch: int = 1):
+                      batch: int = 1, steps=None):
     """Per block: (seconds of the scratch launch, seconds of all the
     read-modify-write launches, smem bytes, feasible) of the bf16
-    implicit GEMM (``_geometry.conv_mma_tile``) over ``batch`` images."""
+    implicit GEMM (``_geometry.conv_mma_tile``) over ``batch`` images.
+    ``steps`` (per block) are the channel blocks a tile sums in the
+    scratch launch when they are not the dense range's ceil(ic / bic):
+    the block-sparse body's expected nonzero blocks of an oc block."""
     tiles = [geo.conv_mma_tile(int(o), int(i), int(y), int(x), layer.kh,
                                layer.kw)
              for o, i, y, x in zip(boc, bic, by, bx)]
@@ -360,9 +374,19 @@ def _conv_mma_seconds(layer: ConvLayer, by, bx, boc, bic, spec: H100Spec,
         * (-(-layer.w // bx))
     n_ic = -(-layer.ic // bic)
     zero_s = zero_cyc / clk
-    # rounds x n_ic steps; the first stage is staged before any MMA
-    scratch = _wave_seconds(out_tiles, occ, n_ic * thr_s + zero_s,
-                            first_lat + (rounds * n_ic - 1) * step_lat, spec)
+    if steps is None:
+        # rounds x n_ic steps; the first stage is staged before any MMA
+        scratch = _wave_seconds(out_tiles, occ, n_ic * thr_s + zero_s,
+                                first_lat + (rounds * n_ic - 1) * step_lat,
+                                spec)
+    else:
+        # the block-sparse body: its index row is one round trip before
+        # the first stage; a tile with no nonzero block writes zeros
+        busy = steps > 0
+        scratch = _wave_seconds(
+            out_tiles, occ, np.where(busy, steps * thr_s + zero_s, 0.0),
+            np.where(busy, LOAD_LATENCY_S + first_lat
+                     + (rounds * steps - 1) * step_lat, LOAD_LATENCY_S), spec)
     # one launch a channel block, each with its own first stage, and an
     # epilogue that reads the output tile
     rmw = n_ic * _wave_seconds(out_tiles, occ, thr_s + zero_s,
@@ -621,11 +645,11 @@ def matmul_schedule_cost_batch(m: int, n: int, k: int,
 def sparse_channel_waves(layer: ConvLayer,
                          blocks: Sequence[Dict[str, int]], density: float,
                          batch: int = 1, spec: H100Spec = H100Spec(),
-                         elem_bytes: int = 2) -> np.ndarray:
-    """Per skip block: the sparse body's sequential work, the input
-    channels of each block's expected nonzero steps times the waves its
-    (image, oc block, spatial tile) blocks run in (SMs x resident
-    blocks): the body's time tracks these, not its FLOPs."""
+                         elem_bytes: int = 4) -> np.ndarray:
+    """Per skip block: the float32 sparse body's sequential work, the
+    input channels of each block's expected nonzero steps times the waves
+    its (image, oc block, spatial tile) blocks run in (SMs x resident
+    blocks): the CUDA-core body's time tracks these, not its FLOPs."""
     by, bx = geo.sparse_tile(layer.h, layer.w)
     n_sp = -(-layer.h // by) * -(-layer.w // bx)
     out = np.empty(len(blocks))
@@ -640,19 +664,43 @@ def sparse_channel_waves(layer: ConvLayer,
     return out
 
 
+def _sparse_mma_terms(layer: ConvLayer, blocks, density: float,
+                      batch: int, spec: H100Spec):
+    """Per skip block of the bf16 sparse body: (seconds, smem bytes,
+    feasible, by, bx) -- the dense implicit GEMM's scratch launch at the
+    skip block's pixel tile over density x ic blocks a tile."""
+    from repro_torch.core.sparsity import sparse_pixel_tile
+    n_b = len(blocks)
+    boc = np.array([b["oc"] for b in blocks], dtype=np.int64)
+    bic = np.array([b["ic"] for b in blocks], dtype=np.int64)
+    by = np.ones(n_b, dtype=np.int64)
+    bx = np.ones(n_b, dtype=np.int64)
+    ok = np.zeros(n_b, dtype=bool)
+    for j, blk in enumerate(blocks):
+        pix = sparse_pixel_tile(layer, blk["oc"], blk["ic"], batch, spec)
+        if pix is not None:
+            (by[j], bx[j]), ok[j] = pix, True
+    n_ic = -(-layer.ic // bic)
+    t_scr, _, smem, ok_mma = _conv_mma_seconds(
+        layer, by, bx, boc, bic, spec, batch, steps=density * n_ic)
+    smem = smem + _round_up(4 * n_ic, 16)       # the index row
+    return t_scr, smem, ok & ok_mma, by, bx
+
+
 def sparse_conv_schedule_cost_batch(
         layer: ConvLayer, blocks: Sequence[Dict[str, int]],
         density: float = 1.0, batch: int = 1,
         spec: H100Spec = H100Spec(),
         elem_bytes: int = 2) -> BatchKernelCost:
     """Score (oc, ic) skip blocks for the block-sparse conv kernel at a
-    block ``density`` ([n_blocks] arrays).  Steps and bytes are the JAX
-    package's counts (expected nonzero steps scale with density; the
-    image slab is counted per step); compute follows the kernel's
-    spatial tiling and thread layout: the issue-rate model, or the
-    blocks' sequential work (``sparse_channel_waves`` x
-    ``SPARSE_CHANNEL_S``), whichever is longer; a call costs ``SPARSE_CALL_S`` more than its
-    launch."""
+    block ``density`` for ``batch`` images ([n_blocks] arrays).  Steps
+    and bytes are the JAX package's counts (expected nonzero steps scale
+    with density; the image slab is counted per step); compute follows
+    the dtype's body: bf16 the dense implicit GEMM over the expected
+    nonzero blocks at the dense model's pixel tile; float32 the issue-rate
+    model at the spatial tile, or the blocks' sequential work
+    (``sparse_channel_waves`` x ``SPARSE_CHANNEL_S``), whichever is
+    longer.  A call costs ``SPARSE_CALL_S`` more than its launch."""
     EVAL_COUNTS["sparse_conv_schedule_cost_batch"] += len(blocks)
     boc = np.array([blk["oc"] for blk in blocks], dtype=np.int64)
     bic = np.array([blk["ic"] for blk in blocks], dtype=np.int64)
@@ -665,16 +713,21 @@ def sparse_conv_schedule_cost_batch(
     hbm = (steps * bic * h2 * w2 * elem_bytes
            + steps * boc * bic * layer.kh * layer.kw * elem_bytes
            + batch * layer.oc * layer.h * layer.w * elem_bytes)
-    by, bx = geo.sparse_tile(layer.h, layer.w)
-    n_sp = -(-layer.h // by) * -(-layer.w // bx)
-    step_s, smem, ok = _conv_terms(layer, np.full(len(blocks), by),
-                                   np.full(len(blocks), bx), boc, bic,
-                                   elem_bytes, spec)
-    util = np.minimum(1.0, batch * n_oc * n_sp / spec.sms)
-    compute_s = np.maximum(
-        steps * n_sp * step_s / (spec.sms * util),
-        SPARSE_CHANNEL_S * sparse_channel_waves(layer, blocks, density,
-                                                batch, spec, elem_bytes))
+    if geo.tensor_cores(elem_bytes):
+        compute_s, smem, ok, by, bx = _sparse_mma_terms(layer, blocks,
+                                                        density, batch, spec)
+        n_sp = -(-layer.h // by) * -(-layer.w // bx)
+    else:
+        by, bx = geo.sparse_tile(layer.h, layer.w)
+        n_sp = -(-layer.h // by) * -(-layer.w // bx)
+        step_s, smem, ok = _conv_terms(layer, np.full(len(blocks), by),
+                                       np.full(len(blocks), bx), boc, bic,
+                                       elem_bytes, spec)
+        util = np.minimum(1.0, batch * n_oc * n_sp / spec.sms)
+        compute_s = np.maximum(
+            steps * n_sp * step_s / (spec.sms * util),
+            SPARSE_CHANNEL_S * sparse_channel_waves(layer, blocks, density,
+                                                    batch, spec, elem_bytes))
     staged = steps * n_sp * (boc * bic * layer.kh * layer.kw + bic
                              * (by + layer.kh - 1) * (bx + layer.kw - 1)) \
         * elem_bytes

@@ -348,10 +348,11 @@ def quantize_density(density: float, steps: int = 16) -> int:
 
 
 def sparse_conv_schedule_key(layer: Any, density: float, machine: Any,
-                             elem_bytes: int = 2) -> RegistryKey:
-    """Key of a block-sparse conv schedule ranking."""
+                             elem_bytes: int = 2,
+                             batch: int = 1) -> RegistryKey:
+    """Key of a block-sparse conv schedule ranking at ``batch`` images."""
     from repro_torch.core.cost_model import COST_MODEL_VERSION
-    problem = conv_problem(layer, elem_bytes)
+    problem = conv_problem(layer, elem_bytes, batch)
     problem["density_16"] = quantize_density(density)
     return RegistryKey.make("sparse_conv_schedule", problem,
                             _machine(machine), COST_MODEL_VERSION)

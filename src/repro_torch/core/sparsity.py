@@ -4,23 +4,25 @@ the H100 cost model.
 The thesis' finding: the sparse algorithm wins only below a density
 crossover, and dense regions concentrated on one core become
 stragglers.  The two sides run different kernels on the card: the
-dense conv (in bf16 an implicit GEMM on the tensor cores) and the
-block-sparse conv (the CUDA-core tile kernel over the nonzero (oc, ic)
-blocks).  So each side is timed by its own kernel's model: the dense
-side by ``conv_schedule_cost``, the sparse side by
-``sparse_conv_schedule_cost_batch`` at the block density (its nonzero
-steps scale with it), stretched by the nonzero imbalance across
-output-channel blocks.  ``choose_algorithm`` makes the static pick;
+dense conv and the block-sparse conv over the nonzero (oc, ic) blocks
+(in bf16 both the implicit GEMM on the tensor cores, the sparse one at
+the dense model's pixel tile for its skip block, ``sparse_pixel_tile``;
+in float32 both on the CUDA cores).  So each side is timed by its own
+kernel's model: the dense side by ``conv_schedule_cost``, the sparse
+side by ``sparse_conv_schedule_cost_batch`` at the block density (its
+nonzero steps scale with it), stretched by the nonzero imbalance
+across output-channel blocks.  ``choose_algorithm`` makes the static pick;
 ``crossover_density`` is the break-even point the thesis plots (0 when
 the sparse kernel never wins, 1 when it always does).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 from repro_torch.core import cost_model as cm
 from repro_torch.core.loopnest import ConvLayer
+from repro_torch.kernels import _geometry as geo
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +65,21 @@ def _dense_block(layer: ConvLayer, block: Dict[str, int], grid_order,
     dflt = default_block(layer.oc, layer.ic, layer.h, layer.w)
     return {"oc": block["oc"], "ic": block["ic"], "y": dflt["y"],
             "x": dflt["x"]}
+
+
+def sparse_pixel_tile(layer: ConvLayer, boc: int, bic: int, batch: int = 1,
+                      spec: cm.H100Spec = cm.H100Spec()
+                      ) -> Optional[Tuple[int, int]]:
+    """(by, bx) of the bf16 block-sparse body for skip block (boc, bic)
+    at ``batch`` images: the dense conv model's cheapest pixel tile for
+    that (oc, ic) (:func:`_dense_block`, which divides H and W, as the
+    tensor-core body needs), or None when no pixel tile of it fits the
+    sparse layout (the dense tile plus the oc block's index row)."""
+    blk = _dense_block(layer, {"oc": boc, "ic": bic}, ("oc", "y", "x", "ic"),
+                       spec, 2, batch)
+    tile = geo.sparse_layout(boc, bic, blk["y"], blk["x"], layer.kh,
+                             layer.kw, layer.ic // bic, 2)
+    return (blk["y"], blk["x"]) if tile.error is None else None
 
 
 def choose_algorithm(layer: ConvLayer, block: Dict[str, int],
@@ -115,4 +132,4 @@ def crossover_density(layer: ConvLayer, block: Dict[str, int],
 
 
 __all__ = ["SparsityDecision", "choose_algorithm", "crossover_density",
-           "sparse_time_estimate"]
+           "sparse_pixel_tile", "sparse_time_estimate"]

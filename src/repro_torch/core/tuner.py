@@ -132,9 +132,16 @@ def tune_matmul(m: int, n: int, k: int, spec: cm.H100Spec = cm.H100Spec(),
 
 
 def sparse_blocks(layer: ConvLayer, elem_bytes: int) -> List[Dict[str, int]]:
-    """The (oc, ic) skip-block candidates the sparse kernel accepts."""
+    """The (oc, ic) skip-block candidates the sparse kernel of the dtype
+    accepts: bf16 those with a pixel tile that fits the tensor-core
+    layout (``sparsity.sparse_pixel_tile``: whether one fits does not
+    depend on the batch), float32 those whose CUDA-core tile fits."""
+    from repro_torch.core.sparsity import sparse_pixel_tile
     oc_c = _block_candidates(layer.oc, CONV_CHANNEL_TARGETS)
     ic_c = _block_candidates(layer.ic, CONV_CHANNEL_TARGETS)
+    if geo.tensor_cores(elem_bytes):
+        return [{"oc": o, "ic": i} for o, i in itertools.product(oc_c, ic_c)
+                if sparse_pixel_tile(layer, o, i) is not None]
     by, bx = geo.sparse_tile(layer.h, layer.w)
     return [{"oc": o, "ic": i} for o, i in itertools.product(oc_c, ic_c)
             if geo.conv_tile(o, i, by, bx, layer.kh, layer.kw,
@@ -143,15 +150,16 @@ def sparse_blocks(layer: ConvLayer, elem_bytes: int) -> List[Dict[str, int]]:
 
 def tune_sparse_conv(layer: ConvLayer, density: float = 1.0,
                      spec: cm.H100Spec = cm.H100Spec(),
-                     elem_bytes: int = 2, top_k: int = 5,
+                     elem_bytes: int = 2, top_k: int = 5, batch: int = 1,
                      ) -> List[Tuple[SparseConvSchedule, cm.KernelCost]]:
     """Rank (oc, ic) skip blocks for the block-sparse conv kernel at a
-    given block density."""
+    given block density for ``batch`` images (the bf16 body's pixel tile,
+    and so its best skip block, depends on the batch)."""
     blocks = sparse_blocks(layer, elem_bytes)
-    batch = cm.sparse_conv_schedule_cost_batch(layer, blocks, density, 1,
-                                               spec, elem_bytes)
-    return [(SparseConvSchedule.make(blocks[i]), batch.cost(i))
-            for i in _top(batch.time_s, batch.feasible, top_k)]
+    scored = cm.sparse_conv_schedule_cost_batch(layer, blocks, density,
+                                                batch, spec, elem_bytes)
+    return [(SparseConvSchedule.make(blocks[i]), scored.cost(i))
+            for i in _top(scored.time_s, scored.feasible, top_k)]
 
 
 def _ranked_to_value(ranked) -> Dict:
@@ -237,15 +245,17 @@ def cached_tune_sparse_conv(
         spec: cm.H100Spec = cm.H100Spec(), elem_bytes: int = 2,
         top_k: int = 5, registry: Optional[reg.TuningRegistry] = None,
         refresh: bool = False, machine: Optional[str] = None,
+        batch: int = 1,
         ) -> List[Tuple[SparseConvSchedule, cm.KernelCost]]:
     """:func:`tune_sparse_conv` behind the registry (density quantised to
-    the registry's 1/16 grid, so the key space stays finite)."""
+    the registry's 1/16 grid, so the key space stays finite; the key
+    holds the batch)."""
     density_q = reg.quantize_density(density) / 16.0
     return _cached_ranked(
         reg.sparse_conv_schedule_key(layer, density, machine or spec,
-                                     elem_bytes),
+                                     elem_bytes, batch),
         lambda k: tune_sparse_conv(layer, density_q, spec, elem_bytes,
-                                   top_k=k),
+                                   top_k=k, batch=batch),
         top_k, registry, refresh)
 
 

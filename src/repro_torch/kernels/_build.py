@@ -42,7 +42,7 @@ _F = ctypes.c_float
 # C entry points: name -> argtypes (all return int = cudaError_t).
 SIGNATURES = {
     # q, k, v, o, starts, B, HQ, HKV, S, D, causal, window, scale,
-    # is_bf16, stream
+    # is_bf16 (the tensor-core body), stream
     "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _F, _I, _P],
     # q, k, v, o, pos, starts, B, HQ, HKV, S, D, scale, is_bf16, stream
@@ -64,8 +64,8 @@ SIGNATURES = {
     # ord0, ord1, ord2, ic_begin, ic_count, accumulate, stream (bf16)
     "conv2d_mma_fwd": [_P, _P, _P] + [_I] * 18 + [_P],
     # img, wgt, idx, counts, out, N, IC, H2, W2, OC, KH, KW, boc, bic,
-    # max_nnz, by, bx, groups, per_thread, is_bf16, stream
-    "sparse_conv2d_fwd": [_P, _P, _P, _P, _P] + [_I] * 15 + [_P],
+    # max_nnz, by, bx, groups, per_thread, warps, is_bf16, stream
+    "sparse_conv2d_fwd": [_P, _P, _P, _P, _P] + [_I] * 16 + [_P],
     # a, b, c, M, N, K, bm, bn, bk, mi, mj, m_outer, k_begin, k_count,
     # accumulate, resident, stream (float32)
     "matmul_fwd": [_P, _P, _P] + [_I] * 13 + [_P],

@@ -1,12 +1,13 @@
 """Launch geometry and limits of the thesis kernels on an H100.
 
 One place answers "how does the CUDA kernel lay out this block, and does
-it fit?" for the direct conv, the block-sparse conv and the tiled
-matmul, per dtype: bf16 conv2d and matmul run on the tensor cores
-(``conv_mma_tile``, ``matmul_mma_tile``), float32 and the block-sparse
-conv on the CUDA cores (``conv_tile``, ``matmul_tile``);
-``tensor_cores`` is the one rule that picks by element size, and
-``conv_layout`` and ``matmul_layout`` follow it.  The wrappers use it
+it fit?" for the direct conv, the block-sparse conv, the tiled matmul
+and flash attention, per dtype: bf16 runs on the tensor cores
+(``conv_mma_tile``, also the block-sparse conv's with its index row,
+``matmul_mma_tile``, ``flash_mma_tile``), float32 on the CUDA cores
+(``conv_tile``, ``matmul_tile``); ``tensor_cores`` is the one rule that
+picks by element size, and ``conv_layout``, ``sparse_layout`` and
+``matmul_layout`` follow it.  The wrappers use it
 to launch (and to raise on a block the kernel cannot take), the H100
 cost model uses it for its padding and feasibility terms, and the tuner
 uses it to offer only blocks the kernel accepts, so a ranked schedule
@@ -55,11 +56,19 @@ MMA_MAX_STAGES = 4
 MMA_MIN_STAGES = 2
 MMA_BARRIER_BYTES = (2 * MMA_MAX_STAGES + 1) * 8
 
-# Block-sparse conv: the spatial tile is the port's own choice (the
-# Pallas kernel kept the whole image in VMEM): up to 8 x 16 pixels,
-# ragged edges masked.
+# Block-sparse conv, float32: the spatial tile is the port's own choice
+# (the Pallas kernel kept the whole image in VMEM): up to 8 x 16 pixels,
+# ragged edges masked.  (bf16 takes the dense conv model's pixel tile:
+# core/sparsity.py, sparse_pixel_tile.)
 SPARSE_TILE_Y = 8
 SPARSE_TILE_X = 16
+
+# bf16 flash attention (mma.sync.m16n8k16): 4 warps, 64 query rows a
+# block, 64-key K/V tiles; D pads to 16 up to FLASH_MAX_D.
+FLASH_ROWS = 64
+FLASH_KEYS = 64
+FLASH_WARPS = 4
+FLASH_MAX_D = 128
 
 
 def _pow2_at_least(n: int, choices) -> Optional[int]:
@@ -107,8 +116,8 @@ def conv_tile(boc: int, bic: int, by: int, bx: int, kh: int, kw: int,
 
 
 def sparse_tile(h: int, w: int):
-    """(by, bx) spatial tile of the block-sparse kernel for an h x w
-    output (ragged edges are masked, so it need not divide)."""
+    """(by, bx) spatial tile of the float32 block-sparse kernel for an
+    h x w output (ragged edges are masked, so it need not divide)."""
     return min(h, SPARSE_TILE_Y), min(w, SPARSE_TILE_X)
 
 
@@ -205,11 +214,11 @@ def conv_mma_tile(boc: int, bic: int, by: int, bx: int, kh: int,
 
 
 def tensor_cores(elem_bytes: int) -> bool:
-    """Whether the dense conv and the matmul run their tensor-core bodies
-    for this element size: bf16 does, float32 keeps the CUDA-core bodies
-    (the tensor cores do only TF32 on float32, which would break the
-    port's 1e-5 float32 contract).  The block-sparse conv runs the
-    CUDA-core tile kernel in both dtypes."""
+    """Whether the kernels run their tensor-core bodies for this element
+    size: bf16 does (conv2d, the block-sparse conv, matmul and flash
+    attention), float32 keeps the CUDA-core bodies (the tensor cores do
+    only TF32 on float32, which would break the port's 1e-5 float32
+    contract)."""
     return elem_bytes == 2
 
 
@@ -220,6 +229,50 @@ def conv_layout(boc: int, bic: int, by: int, bx: int, kh: int, kw: int,
     if tensor_cores(elem_bytes):
         return conv_mma_tile(boc, bic, by, bx, kh, kw)
     return conv_tile(boc, bic, by, bx, kh, kw, elem_bytes)
+
+
+def sparse_layout(boc: int, bic: int, by: int, bx: int, kh: int, kw: int,
+                  n_ic: int, elem_bytes: int):
+    """The block-sparse conv's layout for its dtype: bf16 the dense
+    conv's tensor-core tile plus the oc block's index row (``n_ic`` ints,
+    16-byte aligned) in shared memory, float32 the CUDA-core tile."""
+    if tensor_cores(elem_bytes):
+        t = conv_mma_tile(boc, bic, by, bx, kh, kw)
+        return dataclasses.replace(t, smem=t.smem + _round_up(4 * n_ic, 16))
+    return conv_tile(boc, bic, by, bx, kh, kw, elem_bytes)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashMmaTile:
+    """How the bf16 flash attention lays out a head dim (``csrc/
+    flash_attention.cu``, flash_mma_kernel)."""
+    d: int
+    dp: int              # D padded to the MMA's k (16)
+    staging: str         # "cp.async" (16-byte rows) or "registers"
+    smem: int            # bytes: the Q/O tile and two K and V stages
+
+    @property
+    def threads(self) -> int:
+        return FLASH_WARPS * WARP
+
+    @property
+    def error(self) -> Optional[str]:
+        """Why the kernel refuses this head dim, or None when it fits."""
+        if not 1 <= self.d <= FLASH_MAX_D:
+            return f"head_dim {self.d} not in [1, {FLASH_MAX_D}]"
+        return None
+
+
+def flash_mma_tile(d: int) -> FlashMmaTile:
+    """Layout of the bf16 flash body for head dim ``d``: D padded to 16;
+    rows of 16-byte multiples (d % 8 == 0) staged by cp.async, others
+    through registers into the same [rows][dp + 8] tiles (the kernel also
+    takes the register route for bases that are not 16-byte aligned);
+    shared memory for the Q (later O) tile and two stages of K and V."""
+    dp = _round_up(max(d, 1), 16)
+    smem = 5 * FLASH_ROWS * (dp + 8) * 2
+    return FlashMmaTile(d, dp, "cp.async" if d % 8 == 0 else "registers",
+                        smem)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -295,7 +348,8 @@ def matmul_layout(bm: int, bn: int, bk: int, k: int, elem_bytes: int,
 
 
 __all__ = ["ConvTile", "MatmulTile", "ConvMmaTile", "MatmulMmaTile",
-           "conv_tile", "matmul_tile", "conv_mma_tile", "matmul_mma_tile",
-           "conv_layout", "matmul_layout", "matmul_mma_route",
+           "FlashMmaTile", "conv_tile", "matmul_tile", "conv_mma_tile",
+           "matmul_mma_tile", "flash_mma_tile", "conv_layout",
+           "sparse_layout", "matmul_layout", "matmul_mma_route",
            "tensor_cores",
            "sparse_tile", "MMA_BN", "MAX_THREADS", "SMEM_BYTES", "WARP"]

@@ -1,10 +1,11 @@
-// Direct-convolution tile kernel shared by the dense conv (conv2d.cu)
-// and the block-sparse conv (sparse_conv.cu).
+// Direct-convolution tile kernel on the CUDA cores, in IEEE fp32: the
+// float32 body of the dense conv (conv2d.cu) and of the block-sparse conv
+// (sparse_conv.cu).  (bf16 runs the tensor-core body of conv_mma.cuh.)
 //
 //   out[n, oc, y, x] = sum_{ic, ky, kx} wgt[oc, ic, ky, kx]
 //                                       * img[n, ic, y + ky, x + kx]
 // img [N, IC, H + KH - 1, W + KW - 1] (pre-padded), wgt [OC, IC, KH, KW],
-// out [N, OC, H, W] in img's type.
+// out [N, OC, H, W], all float32.
 //
 // A thread block owns one (n, oc block, y block, x block) output tile.
 // For each input-channel block it sums (the dense kernel: the blocks of
@@ -18,11 +19,10 @@
 // weights of one tap are contiguous and load as 16-byte vectors (the
 // same address across a warp: a broadcast), and one image value feeds J
 // FMAs.  Each channel block's contribution is summed into fresh
-// f32 registers and then added to the running f32 total, as the TPU
-// kernel adds each block's dot product into its f32 scratch.  The tile
-// is written once: rounded to the output type, or, for an RMW pass
-// (accumulate = 1), added in f32 to the value already in `out` and
-// rounded again, as _conv_kernel_rmw does.  Pixels outside H x W (the
+// registers and then added to the running total, as the TPU kernel adds
+// each block's dot product into its f32 scratch.  The tile is written
+// once, or, for an RMW pass (accumulate = 1), added to the value already
+// in `out`, as _conv_kernel_rmw does.  Pixels outside H x W (the
 // sparse kernel's ragged edge) are masked.
 #pragma once
 #include "common.cuh"
@@ -48,41 +48,29 @@ struct ConvArgs {
   int max_nnz;
 };
 
-// The J weights of one tap, contiguous in shared memory, as floats:
-// 16-byte vector loads where J fills them (4 floats, 8 bf16).
-template <typename T, int J>
-__device__ __forceinline__ void load_taps(const T* p, float* w) {
-  if constexpr (sizeof(T) == 4 && J % 4 == 0) {
+// The J weights of one tap, contiguous in shared memory: 16-byte vector
+// loads where J fills them (4 floats).
+template <int J>
+__device__ __forceinline__ void load_taps(const float* p, float* w) {
+  if constexpr (J % 4 == 0) {
 #pragma unroll
     for (int j = 0; j < J; j += 4) {
       const float4 v = *reinterpret_cast<const float4*>(p + j);
       w[j] = v.x; w[j + 1] = v.y; w[j + 2] = v.z; w[j + 3] = v.w;
     }
-  } else if constexpr (sizeof(T) == 2 && J % 8 == 0) {
-#pragma unroll
-    for (int j = 0; j < J; j += 8) {
-      const uint4 v = *reinterpret_cast<const uint4*>(p + j);
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float2 f = __bfloat1622float2(h[q]);
-        w[j + 2 * q] = f.x;
-        w[j + 2 * q + 1] = f.y;
-      }
-    }
   } else {
 #pragma unroll
-    for (int j = 0; j < J; ++j) w[j] = to_f(p[j]);
+    for (int j = 0; j < J; ++j) w[j] = p[j];
   }
 }
 
-template <typename T, int J>
+template <int J>
 __global__ void __launch_bounds__(1024) conv_tile_kernel(ConvArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* w_s = reinterpret_cast<T*>(smem_raw);
+  float* w_s = reinterpret_cast<float*>(smem_raw);
   const int taps = a.KH * a.KW;
   const int ocp = a.groups * J;                 // padded channels a row
-  T* i_s = w_s + ocp * a.bic * taps;
+  float* i_s = w_s + ocp * a.bic * taps;
   const int hh = a.by + a.KH - 1, ww = a.bx + a.KW - 1;
 
   // The block's output tile: batch outermost, then the output axes in
@@ -101,8 +89,8 @@ __global__ void __launch_bounds__(1024) conv_tile_kernel(ConvArgs a) {
   const int g = threadIdx.x / pixels, p = threadIdx.x % pixels;
   const int py = p / a.bx, px = p % a.bx;
 
-  const T* img = static_cast<const T*>(a.img);
-  const T* wgt = static_cast<const T*>(a.wgt);
+  const float* img = static_cast<const float*>(a.img);
+  const float* wgt = static_cast<const float*>(a.wgt);
   float total[J];
 #pragma unroll
   for (int j = 0; j < J; ++j) total[j] = 0.f;
@@ -130,19 +118,20 @@ __global__ void __launch_bounds__(1024) conv_tile_kernel(ConvArgs a) {
       w_s[r * ocp + o] =
           (o < a.boc && oc < a.OC)
               ? wgt[(static_cast<size_t>(oc) * a.IC + ic0) * taps + r]
-              : from_f<T>(0.f);
+              : 0.f;
       r += w_dr;
       o += w_do;
       if (r >= row) { r -= row; ++o; }
     }
     // image halo [bic, hh, ww], x fastest
-    const T* isrc = img + (static_cast<size_t>(n) * a.IC + ic0) * a.H2 * a.W2;
+    const float* isrc =
+        img + (static_cast<size_t>(n) * a.IC + ic0) * a.H2 * a.W2;
     for (int c = i_c0, r = i_r0, q = i_q0; c < a.bic;) {
       const int yy = y0 + r, xx = x0 + q;
       i_s[(c * hh + r) * ww + q] =
           (yy < a.H2 && xx < a.W2)
               ? isrc[(static_cast<size_t>(c) * a.H2 + yy) * a.W2 + xx]
-              : from_f<T>(0.f);
+              : 0.f;
       q += i_dq;
       r += i_dr;
       c += i_dc;
@@ -153,15 +142,16 @@ __global__ void __launch_bounds__(1024) conv_tile_kernel(ConvArgs a) {
     float part[J];
 #pragma unroll
     for (int j = 0; j < J; ++j) part[j] = 0.f;
-    const T* wcol = w_s + g * J;
+    const float* wcol = w_s + g * J;
     for (int c = 0; c < a.bic; ++c) {
       for (int ky = 0; ky < a.KH; ++ky) {
-        const T* irow = i_s + (c * hh + py + ky) * ww + px;
-        const T* wtap = wcol + static_cast<size_t>((c * a.KH + ky) * a.KW) * ocp;
+        const float* irow = i_s + (c * hh + py + ky) * ww + px;
+        const float* wtap =
+            wcol + static_cast<size_t>((c * a.KH + ky) * a.KW) * ocp;
         for (int kx = 0; kx < a.KW; ++kx) {
-          const float v = to_f(irow[kx]);
+          const float v = irow[kx];
           float w[J];
-          load_taps<T, J>(wtap + kx * ocp, w);
+          load_taps<J>(wtap + kx * ocp, w);
 #pragma unroll
           for (int j = 0; j < J; ++j) part[j] = fmaf(w[j], v, part[j]);
         }
@@ -173,40 +163,38 @@ __global__ void __launch_bounds__(1024) conv_tile_kernel(ConvArgs a) {
 
   const int y = y0 + py, x = x0 + px;
   if (y >= a.H || x >= a.W) return;
-  T* out = static_cast<T*>(a.out);
+  float* out = static_cast<float*>(a.out);
 #pragma unroll
   for (int j = 0; j < J; ++j) {
     const int o = g * J + j, oc = oc0 + o;
     if (o >= a.boc || oc >= a.OC) continue;
     const size_t off = ((static_cast<size_t>(n) * a.OC + oc) * a.H + y) * a.W + x;
-    const float v = a.accumulate ? to_f(out[off]) + total[j] : total[j];
-    out[off] = from_f<T>(v);
+    out[off] = a.accumulate ? out[off] + total[j] : total[j];
   }
 }
 
-template <typename T, int J>
+template <int J>
 cudaError_t conv_launch_j(const ConvArgs& a, int smem, cudaStream_t st) {
   // above 48 KB a block's dynamic shared memory must be opted into
   static const cudaError_t attr = cudaFuncSetAttribute(
-      conv_tile_kernel<T, J>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      conv_tile_kernel<J>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       232448);
   if (attr != cudaSuccess) return attr;
   const long long blocks = static_cast<long long>(a.N) * a.trips[0] *
                            a.trips[1] * a.trips[2];
   if (blocks < 1 || blocks > 2147483647LL) return cudaErrorInvalidValue;
-  conv_tile_kernel<T, J><<<static_cast<unsigned>(blocks),
+  conv_tile_kernel<J><<<static_cast<unsigned>(blocks),
                               a.groups * a.by * a.bx, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t conv_launch(const ConvArgs& a, int smem, cudaStream_t st) {
+inline cudaError_t conv_launch(const ConvArgs& a, int smem, cudaStream_t st) {
   switch (a.per_thread) {
-    case 1: return conv_launch_j<T, 1>(a, smem, st);
-    case 2: return conv_launch_j<T, 2>(a, smem, st);
-    case 4: return conv_launch_j<T, 4>(a, smem, st);
-    case 8: return conv_launch_j<T, 8>(a, smem, st);
-    case 16: return conv_launch_j<T, 16>(a, smem, st);
+    case 1: return conv_launch_j<1>(a, smem, st);
+    case 2: return conv_launch_j<2>(a, smem, st);
+    case 4: return conv_launch_j<4>(a, smem, st);
+    case 8: return conv_launch_j<8>(a, smem, st);
+    case 16: return conv_launch_j<16>(a, smem, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels, in
 // inline PTX: shared-memory addresses, mbarriers, TMA tile loads,
-// wgmma descriptors and instructions (matmul.cu), and ldmatrix +
-// mma.sync (conv2d.cu).  Plain C interface only, like common.cuh.
+// wgmma descriptors and instructions (matmul.cu), ldmatrix + mma.sync
+// (conv_mma.cuh, flash_attention.cu) and cp.async (flash_attention.cu).
+// Plain C interface only, like common.cuh.
 #pragma once
 #include <cuda.h>   // CUtensorMap (types only: nothing links against libcuda)
 #include <cuda_runtime.h>
@@ -289,13 +290,22 @@ template <> struct Wgmma<256> {
   }
 };
 
-// ---- mma.sync (conv2d.cu)
+// ---- mma.sync (conv_mma.cuh, flash_attention.cu)
 
 // Four 8 x 8 bf16 matrices from shared memory; lane l gives the address
 // of row l % 8 of matrix l / 8.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// The same four matrices transposed: of each, lane l receives elements
+// (row 2 (l % 4), column l / 4) and (row 2 (l % 4) + 1, column l / 4), so
+// a row-major [k][n] tile loads as mma.sync's B fragment.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
 }
 
@@ -308,6 +318,26 @@ __device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---- cp.async (Ampere's asynchronous global -> shared copy)
+
+// 16 bytes from global `src` to shared `dst`; the bytes past `src_bytes`
+// (0 or 16) are written as zeros, so a row past the end reads nothing.
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
+                                            int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 }  // namespace hw

@@ -7,7 +7,11 @@ writes O once, and its causal operation count stays far below the
 card's ridge.  Its design (``csrc/flash_attention.cu``): one block per
 (batch x query head, 64-row query tile), K/V tiles staged in shared
 memory, f32 online softmax in registers, only the KV tiles the mask can
-reach are visited, GQA by indexing the KV head.
+reach are visited, GQA by indexing the KV head.  The body follows the
+dtype (``_geometry.tensor_cores``): bf16 runs FlashAttention-2 on
+mma.sync with K/V double-buffered by cp.async and P V in f32 from a
+bf16 hi + lo split of p (layout ``_geometry.flash_mma_tile``); float32
+runs the CUDA-core body in IEEE fp32.
 
 For a CPU tensor the wrapper runs :func:`flash_attention_ref`; for a
 CUDA tensor it launches the kernel or raises.
@@ -22,9 +26,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._checks import (KERNEL_DTYPES, check_same,
                                          int32_vector, on_cpu, q_scale,
                                          require)
+from repro_torch.kernels._geometry import (FLASH_MAX_D, flash_mma_tile,
+                                           tensor_cores)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = FLASH_MAX_D
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -47,10 +53,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"flash_attention: k/v shape {tuple(k.shape)} does not match "
             f"q {tuple(q.shape)}")
     require(hq % hkv == 0, "flash_attention: HQ must be a multiple of HKV")
-    require(1 <= d <= MAX_HEAD_DIM,
-            f"flash_attention: head_dim {d} not in [1, {MAX_HEAD_DIM}]")
     require(q.dtype in KERNEL_DTYPES,
             f"flash_attention: dtype {q.dtype} not supported")
+    mma = tensor_cores(q.element_size())
+    # both bodies take the same head dims: the mma layout's rule
+    err = flash_mma_tile(d).error
+    require(err is None, f"flash_attention: {err}")
     require(window is None or window > 0, "flash_attention: window <= 0")
     check_same("flash_attention", [q, k, v], q.dtype)
     st = (None if starts is None
@@ -60,8 +68,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     rc = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if st is None else st.data_ptr(), b, hq, hkv, s, d,
-        int(bool(causal)), int(window or 0), q_scale(q),
-        int(q.dtype == torch.bfloat16), _build.stream_handle(q.device))
+        int(bool(causal)), int(window or 0), q_scale(q), int(mma),
+        _build.stream_handle(q.device))
     _build.check(rc, "flash_attention_fwd")
     flash_attention.launches += 1
     return out

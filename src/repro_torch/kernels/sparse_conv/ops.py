@@ -5,15 +5,22 @@ sparse_conv/kernel.py``).  The block structure is built on the host with
 numpy, as in the JAX package: :func:`build_block_index` compacts a
 [n_oc, n_ic] block-nonzero mask into (idx, counts), :func:`analyze_weights`
 builds it from the weights, and :class:`BlockSparsity` carries it with
-its density and imbalance (the thesis' straggler measure).
+its density and imbalance (the thesis' straggler measure) and its copy on
+each device, made at first use there: a call given the structure
+launches only the kernel.
 
 For CPU tensors the wrapper runs the plain version (``ref.
-sparse_conv_plain``); for CUDA tensors it launches the kernel or raises.
-``sparse_conv2d.launches`` counts launches, one per call.
+sparse_conv_plain``); for CUDA tensors it launches the kernel or raises:
+bf16 runs the dense conv's implicit GEMM on the tensor cores over each oc
+block's nonzero ic blocks, at the dense model's pixel tile for the skip
+block and batch (``core.sparsity.sparse_pixel_tile``); float32 the
+CUDA-core tile kernel (``_geometry.sparse_layout`` gives each one's
+layout).  ``sparse_conv2d.launches`` counts launches, one per call.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -22,7 +29,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import (KERNEL_DTYPES, check_same, on_cpu,
                                          require)
-from repro_torch.kernels._geometry import conv_tile, sparse_tile
+from repro_torch.kernels._geometry import (sparse_layout, sparse_tile,
+                                           tensor_cores)
 from repro_torch.kernels.sparse_conv.ref import (sparse_conv_plain,
                                                  sparse_conv_ref)
 
@@ -43,11 +51,28 @@ def build_block_index(mask: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 @dataclasses.dataclass(frozen=True)
 class BlockSparsity:
-    """Host-side compacted sparsity structure of a weight tensor."""
+    """Host-side compacted sparsity structure of a weight tensor (its
+    arrays are not changed after it is made: their device copies are
+    kept)."""
     idx: np.ndarray        # [n_oc_blocks, max_nnz]
     counts: np.ndarray     # [n_oc_blocks]
     block: Dict[str, int]
     n_ic_blocks: int
+    # device -> (idx, counts) int32 tensors there; not part of equality
+    _on_device: Dict = dataclasses.field(default_factory=dict,
+                                         compare=False, repr=False)
+
+    def device_index(self, device: torch.device
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(idx, counts) as int32 tensors on ``device``: copied there at
+        the first call on it, reused by every later one."""
+        hit = self._on_device.get(device)
+        if hit is None:
+            hit = tuple(torch.from_numpy(np.ascontiguousarray(a, np.int32)
+                                         ).to(device)
+                        for a in (self.idx, self.counts))
+            self._on_device[device] = hit
+        return hit
 
     @property
     def density(self) -> float:
@@ -84,6 +109,15 @@ def analyze_weights(wgt, block: Dict[str, int],
                          n_ic_blocks=ic // bic)
 
 
+@functools.lru_cache(maxsize=512)
+def _pixel_tile(layer, boc: int, bic: int, batch: int):
+    """The bf16 body's pixel tile (:func:`repro_torch.core.sparsity.
+    sparse_pixel_tile`), memoised per shape and batch so that a call
+    pays the dense model's ranking once."""
+    from repro_torch.core.sparsity import sparse_pixel_tile
+    return sparse_pixel_tile(layer, boc, bic, batch)
+
+
 def sparse_conv2d(img: torch.Tensor, wgt: torch.Tensor, *,
                   block: Dict[str, int],
                   sparsity: Optional[BlockSparsity] = None) -> torch.Tensor:
@@ -115,20 +149,27 @@ def sparse_conv2d(img: torch.Tensor, wgt: torch.Tensor, *,
     if cpu:
         return sparse_conv_plain(img, wgt, sparsity.idx, sparsity.counts,
                                  block)
-    by, bx = sparse_tile(h, w)
-    tile = conv_tile(boc, bic, by, bx, kh, kw, img.element_size())
+    mma = tensor_cores(img.element_size())
+    if mma:
+        from repro_torch.core.loopnest import ConvLayer
+        pix = _pixel_tile(ConvLayer(oc, ic, h, w, kh, kw), boc, bic, n)
+        require(pix is not None, f"sparse_conv2d: block {block} with a "
+                f"{kh}x{kw} kernel fits no pixel tile of the bf16 kernel")
+        by, bx = pix
+    else:
+        by, bx = sparse_tile(h, w)
+    tile = sparse_layout(boc, bic, by, bx, kh, kw, ic // bic,
+                         img.element_size())
     require(tile.error is None, f"sparse_conv2d: block {block} with a "
             f"{kh}x{kw} kernel does not fit the kernel: {tile.error}")
-    idx = torch.from_numpy(np.ascontiguousarray(sparsity.idx, np.int32)
-                           ).to(img.device)
-    counts = torch.from_numpy(np.ascontiguousarray(sparsity.counts,
-                                                   np.int32)).to(img.device)
+    idx, counts = sparsity.device_index(img.device)
     out = torch.empty((n, oc, h, w), dtype=img.dtype, device=img.device)
     rc = _build.load().sparse_conv2d_fwd(
         img.data_ptr(), wgt.data_ptr(), idx.data_ptr(), counts.data_ptr(),
         out.data_ptr(), n, ic, h2, w2, oc, kh, kw, boc, bic, idx.shape[1],
-        by, bx, tile.groups, tile.per_thread,
-        int(img.dtype == torch.bfloat16), _build.stream_handle(img.device))
+        by, bx, 0 if mma else tile.groups, 0 if mma else tile.per_thread,
+        tile.warps if mma else 0, int(mma),
+        _build.stream_handle(img.device))
     _build.check(rc, "sparse_conv2d_fwd")
     sparse_conv2d.launches += 1
     return out
@@ -152,11 +193,13 @@ def sparse_conv2d_dispatched(img: torch.Tensor, wgt: torch.Tensor, *,
                              service=None) -> torch.Tensor:
     """``sparse_conv2d`` through the port's dispatch service.  The key
     uses the weights' element-level density quantised to a 1/16 grid (an
-    upper bound on the block density at any granularity).  As in the
-    JAX package, the timed body rebuilds the block structure from the
+    upper bound on the block density at any granularity) and the batch
+    ``n`` (the bf16 body's pixel tile depends on it).  As in the JAX
+    package, the timed body rebuilds the block structure from the
     weights on the host, so the measured time includes pulling the
-    weights to the host; passing ``density`` saves only the pull that
-    computes it, outside the timed window."""
+    weights to the host and copying the index to the card; passing
+    ``density`` saves only the pull that computes it, outside the timed
+    window."""
     from repro_torch.core.registry import quantize_density
     from repro_torch.runtime.dispatch import get_dispatch_service
     n, ic, h2, w2 = img.shape
@@ -165,7 +208,8 @@ def sparse_conv2d_dispatched(img: torch.Tensor, wgt: torch.Tensor, *,
         density = float((np.abs(_host_weights(wgt)) > 0.0).mean())
     svc = service if service is not None else get_dispatch_service()
     problem = {"oc": oc, "ic": ic, "h": h2 - kh + 1, "w": w2 - kw + 1,
-               "kh": kh, "kw": kw, "density_16": quantize_density(density)}
+               "kh": kh, "kw": kw, "density_16": quantize_density(density),
+               "n": n}
     with svc.measure("sparse_conv", problem, elem_bytes=img.element_size(),
                      device=img.device) as sched:
         out = sparse_conv2d(img, wgt, block=sched.block_dict())

@@ -23,7 +23,9 @@ from numpy seed 0.
 line, the current constants' mean squared log error, mean log bias,
 mean rank correlation within each shape and the geometric-mean ratio
 of the model's pick to the fastest timed schedule of each shape; for
-the sparse lines also the least-squares ``SPARSE_CALL_S`` and
+the sparse lines also the least-squares ``SPARSE_CALL_S`` (bf16: the
+tensor-core body's model has no other sparse constant) or, for lines of
+the float32 body (``"dtype": "float32"``), ``SPARSE_CALL_S`` and
 ``SPARSE_CHANNEL_S``.
 """
 import argparse
@@ -66,7 +68,8 @@ def _predict_ms(rec) -> float:
     if rec["kind"] == "sparse_conv":
         return float(cm.sparse_conv_schedule_cost_batch(
             SPARSE_LAYERS[rec["layer"]], [rec["block"]],
-            rec["block_density"], rec["batch"]).time_s[0]) * 1e3
+            rec["block_density"], rec["batch"],
+            elem_bytes=_elem_bytes(rec)).time_s[0]) * 1e3
     m, n, k = rec["mnk"]
     b = rec["block"]
     return float(cm.matmul_schedule_cost_batch(
@@ -74,17 +77,30 @@ def _predict_ms(rec) -> float:
         [tuple(rec["order"])]).time_s[0, 0, 0]) * 1e3
 
 
+def _elem_bytes(rec) -> int:
+    """Element size of a calibration line (lines without a dtype are
+    bf16)."""
+    return 4 if rec.get("dtype") == "float32" else 2
+
+
 def sparse_fit(recs):
-    """(SPARSE_CALL_S, SPARSE_CHANNEL_S) by least squares on the sparse
-    lines: time = launch + call + channel x
-    ``cm.sparse_channel_waves``."""
+    """The sparse body's constants by least squares on its lines.  bf16
+    (the tensor-core body): ``{"SPARSE_CALL_S"}``, time = the model with
+    no call time + call.  float32 (the CUDA-core body):
+    ``{"SPARSE_CALL_S", "SPARSE_CHANNEL_S"}``, time = launch + call +
+    channel x ``cm.sparse_channel_waves``."""
+    meas = np.array([r["ms"] for r in recs]) * 1e-3
+    if all(_elem_bytes(r) == 2 for r in recs):
+        base = np.array([_predict_ms(r) for r in recs]) * 1e-3 \
+            - cm.SPARSE_CALL_S
+        return {"SPARSE_CALL_S": float(np.mean(meas - base))}
     x = np.array([cm.sparse_channel_waves(
         SPARSE_LAYERS[r["layer"]], [r["block"]], r["block_density"],
-        r["batch"])[0] for r in recs])
-    meas = np.array([r["ms"] for r in recs]) * 1e-3
+        r["batch"], elem_bytes=4)[0] for r in recs])
     (fixed, channel), *_ = np.linalg.lstsq(
         np.stack([np.ones(len(recs)), x], axis=1), meas, rcond=None)
-    return float(fixed - cm.H100Spec().launch_s), float(channel)
+    return {"SPARSE_CALL_S": float(fixed - cm.H100Spec().launch_s),
+            "SPARSE_CHANNEL_S": float(channel)}
 
 
 def fit_stats(recs):
@@ -124,10 +140,11 @@ def score(paths) -> None:
         print(f"[score] kind={kind} lines={len(rs)} "
               + fmt.format(*fit_stats(rs)))
         if kind == "sparse_conv":
-            call, channel = sparse_fit(rs)
-            print(f"[score] kind=sparse_conv least_squares "
-                  f"SPARSE_CALL_S={call:.4g} "
-                  f"SPARSE_CHANNEL_S={channel:.4g}")
+            for eb in (2, 4):
+                sub = [r for r in rs if _elem_bytes(r) == eb]
+                if sub:
+                    print("[score] kind=sparse_conv least_squares " + " ".join(
+                        f"{k}={v:.4g}" for k, v in sparse_fit(sub).items()))
 
 
 def _median_ms(fn, flush, iters=15):
@@ -265,7 +282,8 @@ def main(argv=None) -> None:
                                                       sparsity=sp), flush)
                             rec = {"kind": "sparse_conv", "layer": name,
                                    "batch": nb, "block": blk, "density": d,
-                                   "block_density": sp.density, "ms": ms}
+                                   "block_density": sp.density,
+                                   "dtype": "bfloat16", "ms": ms}
                             emit({**rec, "predicted_ms": _predict_ms(rec)})
                 del img
     print(f"[calibrate] lines={n} out={out} card={smi!r}")

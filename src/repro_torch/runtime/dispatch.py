@@ -86,13 +86,15 @@ FAMILIES: Dict[str, KernelFamily] = {
         lambda p, spec, m, eb, k, r: tuner.cached_tune_matmul(
             p["m"], p["n"], p["k"], spec, eb, top_k=k, registry=r,
             machine=m)),
+    # the sparse problem may carry the batch "n" too (default 1): the
+    # bf16 body's pixel tile depends on it
     "sparse_conv": KernelFamily(
         "sparse_conv", ("oc", "ic", "h", "w", "kh", "kw", "density_16"),
         lambda p, m, eb: reg.sparse_conv_schedule_key(
-            _conv_layer(p), p["density_16"] / 16.0, m, eb),
+            _conv_layer(p), p["density_16"] / 16.0, m, eb, p.get("n", 1)),
         lambda p, spec, m, eb, k, r: tuner.cached_tune_sparse_conv(
             _conv_layer(p), p["density_16"] / 16.0, spec, eb, top_k=k,
-            registry=r, machine=m)),
+            registry=r, machine=m, batch=p.get("n", 1))),
 }
 
 

@@ -300,3 +300,122 @@ def test_cuda_bf16_mma_layouts_refuse_what_they_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="shared memory"):
         conv2d(img, wgt, block={"oc": 256, "ic": 64, "y": 13, "x": 13})
     assert conv2d.launches == before
+
+
+# bf16 flash attention on the tensor cores (flash_mma_kernel): head dims
+# 16/96/128, 40 (pads to 48) and 20 (rows not 16-byte multiples: the
+# register route), lengths 1, 63, 65 and 512 around the 64-row and
+# 64-key tiles, GQA group 4, a window, and all-pad rows.
+FLASH_MMA_CASES = [
+    # (B, HQ, HKV, S, D, kwargs)
+    (1, 32, 32, 512, 96, {"starts": [212]}),
+    (4, 8, 8, 512, 96, {"starts": [472, 412, 262, 212]}),
+    (2, 8, 2, 65, 128, {"window": 9}),
+    (2, 4, 1, 63, 16, {"starts": [0, 21]}),
+    (3, 4, 4, 1, 16, {}),
+    (2, 4, 2, 100, 40, {"starts": [3, 99]}),
+    (1, 4, 2, 130, 20, {"causal": False}),
+    (2, 4, 4, 200, 128, {"starts": [200, 7]}),    # row 0 all pad: zeros
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_MMA_CASES,
+                         ids=[f"{c[0]}x{c[1]}/{c[2]}-s{c[3]}-d{c[4]}-"
+                              + "-".join(c[5]) for c in FLASH_MMA_CASES])
+def test_cuda_bf16_flash_mma_edges(cuda_device, case):
+    b, hq, hkv, s, d, kw = case
+    g = torch.Generator(device=cuda_device).manual_seed(s + d)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g,
+                           device=cuda_device).to(torch.bfloat16)
+
+    q, k, v = rn(b, hq, s, d), rn(b, hkv, s, d), rn(b, hkv, s, d)
+    kw = {n: torch.tensor(x, device=cuda_device) if n == "starts" else x
+          for n, x in kw.items()}
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches - before == 1
+    want = flash_attention_ref(q, k, v, **kw)
+    assert _share_of_tol(got, want) <= 1.0
+    for i, st in enumerate(kw.get("starts", torch.zeros(0)).tolist()):
+        assert (got[i, :, :st] == 0).all()
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_flash_mma_unaligned_base(cuda_device):
+    """Tensors whose first element is not 16-byte aligned (a contiguous
+    view at an odd offset) take the register route with D % 8 == 0."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    b, h, s, d = 1, 4, 70, 96
+    n = b * h * s * d
+
+    def view():
+        buf = torch.randn(n + 1, generator=g, device=cuda_device).to(
+            torch.bfloat16)
+        t = buf[1:].view(b, h, s, d)
+        assert t.is_contiguous() and t.data_ptr() % 16 != 0
+        return t
+
+    q, k, v = view(), view(), view()
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert _share_of_tol(got, flash_attention_ref(q, k, v)) <= 1.0
+
+
+# bf16 block-sparse conv on the tensor cores: count-0 oc blocks, the
+# blocks of test_cuda_bf16_conv2d_mma_edges that the MMA shape pads, and
+# density 1 equal to conv2d at the same blocks and pixel tile.
+SPARSE_MMA_CASES = [
+    # (n, ic, h, oc, k), skip block
+    ((2, 512, 13, 1000, 1), {"oc": 40, "ic": 64}),
+    ((2, 16, 55, 64, 3), {"oc": 64, "ic": 8}),
+    ((2, 512, 13, 1000, 1), {"oc": 125, "ic": 16}),
+    ((32, 128, 25, 128, 3), {"oc": 16, "ic": 16}),
+    ((2, 64, 13, 256, 3), {"oc": 32, "ic": 16}),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SPARSE_MMA_CASES,
+                         ids=[f"oc{c[0][3]}-ic{c[0][1]}-k{c[0][4]}-"
+                              f"{c[1]['oc']}.{c[1]['ic']}"
+                              for c in SPARSE_MMA_CASES])
+def test_cuda_bf16_sparse_conv_mma_edges(cuda_device, case):
+    from repro_torch.core.loopnest import ConvLayer
+    from repro_torch.core.sparsity import sparse_pixel_tile
+    (n, ic, h, oc, k), block = case
+    g = torch.Generator(device=cuda_device).manual_seed(ic + oc + k)
+    img = torch.randn(n, ic, h + k - 1, h + k - 1, generator=g,
+                      device=cuda_device).to(torch.bfloat16)
+    wgt = (torch.randn(oc, ic, k, k, generator=g, device=cuda_device)
+           * (ic * k * k) ** -0.5).to(torch.bfloat16)
+    n_oc, n_ic = oc // block["oc"], ic // block["ic"]
+    keep = np.random.default_rng(oc + ic).random((n_oc, n_ic)) < 0.4
+    if n_oc > 1:
+        keep[0] = False                          # a count-0 oc block
+        keep[-1] = True                          # a full one
+    mask = torch.from_numpy(np.repeat(np.repeat(keep, block["oc"], 0),
+                                      block["ic"], 1)).to(cuda_device)
+    sw = wgt * mask.to(torch.bfloat16)[:, :, None, None]
+    for w, dense in ((sw, False), (wgt, True)):
+        sp = analyze_weights(w, block)
+        before = sparse_conv2d.launches
+        got = sparse_conv2d(img, w, block=block, sparsity=sp)
+        again = sparse_conv2d(img, w, block=block, sparsity=sp)
+        torch.cuda.synchronize()
+        assert sparse_conv2d.launches - before == 2
+        assert torch.equal(got, again)
+        assert list(sp._on_device) == [img.device]   # one index copy
+        want = sparse_conv_plain(img, w, sp.idx, sp.counts, block)
+        assert _share_of_tol(got, want) <= 1.0
+        if not dense and not keep[0].any():
+            assert (got[:, :block["oc"]] == 0).all()
+        else:       # every block nonzero: the dense conv's very sums
+            by, bx = sparse_pixel_tile(ConvLayer(oc, ic, h, h, k, k),
+                                       block["oc"], block["ic"], n)
+            ref = conv2d(img, w, block={**block, "y": by, "x": bx},
+                         grid_order=("oc", "y", "x", "ic"))
+            assert torch.equal(got, ref)

@@ -204,8 +204,9 @@ def test_bf16_conv_charges_the_mma_padding(more, less, pad,
 def test_registry_record_of_h100_1_is_not_returned_under_h100_2(
         tmp_path, monkeypatch):
     """Rankings cached by the CUDA-core-only model (``h100-1``) miss
-    under ``h100-2``: the tuner ranks anew."""
-    assert cm.COST_MODEL_VERSION == "h100-2"
+    under the current model (``h100-3`` since the bf16 sparse conv moved
+    to the tensor cores): the tuner ranks anew."""
+    assert cm.COST_MODEL_VERSION == "h100-3"
     path = str(tmp_path / "t.jsonl")
     layer = TABLE_4_1["fire9-conv3x3-2"]
     monkeypatch.setattr(cm, "COST_MODEL_VERSION", "h100-1")
@@ -215,33 +216,113 @@ def test_registry_record_of_h100_1_is_not_returned_under_h100_2(
     fresh = reg.TuningRegistry(path)
     assert fresh.get(old_key) is not None
     new_key = reg.conv_schedule_key(layer, cm.H100Spec())
-    assert new_key.cost_model == "h100-2" and fresh.get(new_key) is None
+    assert new_key.cost_model == "h100-3" and fresh.get(new_key) is None
     before = cm.total_evals()
     tuner.cached_tune_conv(layer, registry=fresh)
     assert cm.total_evals() > before
 
 
-def test_sparse_side_does_not_follow_the_dense_model(monkeypatch):
-    """Moving the dense (tensor-core) model moves the dense time and
-    leaves the sparse estimate, which is the sparse kernel's own
-    (CUDA-core) model, where it was."""
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_sparse_side_does_not_follow_the_dense_model(monkeypatch, dtype):
+    """bf16: the sparse estimate follows the dense tensor-core model at
+    the nonzero blocks (both bodies are the implicit GEMM), so slowing
+    the tensor-core constants slows both sides, and at full density the
+    sparse side is the dense scratch launch at the sparse pixel tile plus
+    its index row's round trip and its call time.  float32: the sparse
+    estimate is the CUDA-core sparse body's own model: the tensor-core
+    constants move neither side, its channel constant moves only it."""
     layer = ConvLayer(128, 128, 25, 25, 3, 3)
     block = {"oc": 16, "ic": 16}
     spec = cm.H100Spec()
-    densities = (0.0, 0.25, 1.0)
-    before = [sparsity.choose_algorithm(layer, block, d, spec=spec)
-              for d in densities]
+    eb = 2 if dtype == "bfloat16" else 4
+    densities = (0.25, 1.0) if eb == 2 else (0.0, 0.25, 1.0)
+    before = [sparsity.choose_algorithm(layer, block, d, spec=spec,
+                                        elem_bytes=eb) for d in densities]
+    for density, a in zip(densities, before):
+        want = cm.sparse_conv_schedule_cost_batch(layer, [block], density,
+                                                  1, spec, eb).cost(0)
+        assert a.sparse_time_s == pytest.approx(
+            max(want.compute_s, want.memory_s) + want.overhead_s)
+    if eb == 2:
+        by, bx = sparsity.sparse_pixel_tile(layer, 16, 16)
+        arr = lambda v: np.array([v])  # noqa: E731
+        dense = cm._conv_mma_seconds(layer, arr(by), arr(bx), arr(16),
+                                     arr(16), spec)[0][0]
+        sparse = cm.sparse_conv_schedule_cost_batch(layer, [block], 1.0, 1,
+                                                    spec).cost(0)
+        # one tile wave: the index row adds its round trip to the latency
+        assert sparse.compute_s == pytest.approx(dense + cm.LOAD_LATENCY_S)
+        assert sparse.overhead_s == pytest.approx(spec.launch_s
+                                                  + cm.SPARSE_CALL_S)
     monkeypatch.setattr(cm, "LOAD_LATENCY_S", 4 * cm.LOAD_LATENCY_S)
     monkeypatch.setattr(cm, "UNIT_CYCLES", 4 * cm.UNIT_CYCLES)
     slow = dataclasses.replace(spec, tc_peak_flops=spec.tc_peak_flops / 4)
-    for density, a in zip(densities, before):
-        b = sparsity.choose_algorithm(layer, block, density, spec=slow)
-        assert b.dense_time_s > a.dense_time_s
-        assert b.sparse_time_s == a.sparse_time_s
-        want = cm.sparse_conv_schedule_cost_batch(layer, [block], density,
-                                                  1, spec).cost(0)
-        assert a.sparse_time_s == pytest.approx(
-            max(want.compute_s, want.memory_s) + want.overhead_s)
+    after = [sparsity.choose_algorithm(layer, block, d, spec=slow,
+                                       elem_bytes=eb) for d in densities]
+    for a, b in zip(before, after):
+        if eb == 2:
+            assert b.dense_time_s > a.dense_time_s
+            assert b.sparse_time_s > a.sparse_time_s
+        else:
+            assert b.dense_time_s == a.dense_time_s
+            assert b.sparse_time_s == a.sparse_time_s
+    if eb == 4:
+        monkeypatch.setattr(cm, "SPARSE_CHANNEL_S", 4 * cm.SPARSE_CHANNEL_S)
+        for d, a in zip(densities, before):
+            b = sparsity.choose_algorithm(layer, block, d, spec=spec,
+                                          elem_bytes=eb)
+            assert b.dense_time_s == a.dense_time_s
+            assert b.sparse_time_s > a.sparse_time_s
+
+
+SPARSE_LAYERS = {"fig6.2": ConvLayer(128, 128, 25, 25, 3, 3),
+                 **{n: l for n, l in TABLE_4_1.items() if l.kh == 3}}
+
+
+@pytest.mark.parametrize("batch", [1, 32])
+@pytest.mark.parametrize("name", list(SPARSE_LAYERS))
+def test_sparse_pixel_tile_divides_the_image(name, batch):
+    """bf16: for every skip block the tuner offers, the pixel tile is the
+    dense conv model's cheapest for that (oc, ic) at the batch, divides H
+    and W (the tensor-core body takes no ragged edge), and fits the
+    sparse layout with the oc block's index row."""
+    layer = SPARSE_LAYERS[name]
+    blocks = tuner.sparse_blocks(layer, 2)
+    assert blocks
+    for blk in blocks:
+        by, bx = sparsity.sparse_pixel_tile(layer, blk["oc"], blk["ic"], batch)
+        assert layer.h % by == 0 and layer.w % bx == 0
+        dense = sparsity._dense_block(layer, blk, ("oc", "y", "x", "ic"),
+                                      cm.H100Spec(), 2, batch)
+        assert (dense["y"], dense["x"]) == (by, bx)
+        n_ic = layer.ic // blk["ic"]
+        tile = geo.sparse_layout(blk["oc"], blk["ic"], by, bx, layer.kh,
+                                 layer.kw, n_ic, 2)
+        assert tile.error is None
+        assert tile.smem == geo.conv_mma_tile(
+            blk["oc"], blk["ic"], by, bx, layer.kh, layer.kw).smem \
+            + -(-4 * n_ic // 16) * 16
+
+
+def test_sparse_structure_keeps_its_device_index():
+    """The block index is copied to a device once per structure: a second
+    call on the same device gets the same tensors, another structure
+    (equal or not) its own, and the copies take no part in equality."""
+    from repro_torch.kernels.sparse_conv import analyze_weights
+    w = torch.from_numpy(_np((32, 32, 3, 3), 5))
+    w[:16, 16:] = 0
+    sp = analyze_weights(w, {"oc": 16, "ic": 16})
+    cpu = torch.device("cpu")
+    idx, counts = sp.device_index(cpu)
+    assert idx.dtype == counts.dtype == torch.int32
+    assert idx.tolist() == sp.idx.tolist()
+    assert counts.tolist() == sp.counts.tolist() == [1, 2]
+    again = sp.device_index(cpu)
+    assert again[0] is idx and again[1] is counts
+    twin = analyze_weights(w, {"oc": 16, "ic": 16})
+    assert twin.device_index(cpu)[0] is not idx
+    assert twin.block == sp.block and twin.density == sp.density
+    assert repr(twin) == repr(sp)
 
 
 def test_crossover_is_zero_when_sparse_never_wins_and_one_when_it_always_does(
@@ -255,33 +336,49 @@ def test_crossover_is_zero_when_sparse_never_wins_and_one_when_it_always_does(
     assert sparsity.crossover_density(layer, block, imbalance=1e6,
                                       spec=fast_dense) == 0.0
     monkeypatch.undo()
+    # the bf16 sparse side runs the dense body too, so only its
+    # imbalance (a straggler-free structure) can make it win everywhere
     monkeypatch.setattr(cm, "LOAD_LATENCY_S", 1e-3)
-    assert sparsity.crossover_density(layer, block, spec=spec) == 1.0
+    assert sparsity.crossover_density(layer, block, imbalance=1e-6,
+                                      spec=spec) == 1.0
 
 
-def _sparse_lines(ms_of):
+def _sparse_lines(ms_of, dtype="bfloat16"):
     """Calibration lines of the sparse body on the Fig 6.2 layer, timed
     ``ms_of(layer, block, density, batch)``."""
     layer = ConvLayer(128, 128, 25, 25, 3, 3)
     return [{"kind": "sparse_conv", "layer": "fig6.2-128x128-25x25",
              "batch": n, "block": blk, "density": d, "block_density": d,
-             "ms": ms_of(layer, blk, d, n)}
+             "dtype": dtype, "ms": ms_of(layer, blk, d, n)}
             for blk in ({"oc": 16, "ic": 16}, {"oc": 32, "ic": 16})
             for d in (0.0, 0.25, 0.5, 1.0) for n in (1, 32)]
 
 
-def test_sparse_fit_recovers_the_constants():
-    """The least-squares fit returns the constants that made the times."""
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_sparse_fit_recovers_the_constants(monkeypatch, dtype):
+    """The least-squares fit returns the constants that made the times:
+    bf16 the call time alone (the tensor-core body's model has no other
+    sparse constant), float32 the call time and the channel time."""
     calibrate = pytest.importorskip("repro_torch.launch.calibrate_thesis")
     launch = cm.H100Spec().launch_s
+    if dtype == "bfloat16":
+        def ms_of(layer, blk, d, n):
+            with monkeypatch.context() as m:
+                m.setattr(cm, "SPARSE_CALL_S", 8e-5)
+                return float(cm.sparse_conv_schedule_cost_batch(
+                    layer, [blk], d, n).time_s[0]) * 1e3
 
-    def ms_of(layer, blk, d, n):
-        work = cm.sparse_channel_waves(layer, [blk], d, n)[0]
-        return (launch + 8e-5 + 3e-6 * work) * 1e3
+        fit = calibrate.sparse_fit(_sparse_lines(ms_of))
+        assert fit.keys() == {"SPARSE_CALL_S"}
+    else:
+        def ms_of(layer, blk, d, n):
+            work = cm.sparse_channel_waves(layer, [blk], d, n,
+                                           elem_bytes=4)[0]
+            return (launch + 8e-5 + 3e-6 * work) * 1e3
 
-    call, channel = calibrate.sparse_fit(_sparse_lines(ms_of))
-    assert call == pytest.approx(8e-5, rel=1e-6)
-    assert channel == pytest.approx(3e-6, rel=1e-6)
+        fit = calibrate.sparse_fit(_sparse_lines(ms_of, dtype))
+        assert fit["SPARSE_CHANNEL_S"] == pytest.approx(3e-6, rel=1e-6)
+    assert fit["SPARSE_CALL_S"] == pytest.approx(8e-5, rel=1e-6)
 
 
 def test_score_reports_each_kind(tmp_path, capsys):

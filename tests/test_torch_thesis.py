@@ -301,8 +301,9 @@ def test_dense_vs_sparse_policy():
     """At a layer whose predicted crossover lies inside (0, 1) (a
     ResNet conv5 3x3 layer: 512 channels, 7 x 7), the policy picks the
     sparse kernel below it and the dense one above it.  At the thesis'
-    Fig 6.2 layer the dense tensor-core conv wins at every density, as
-    on the card."""
+    Fig 6.2 layer, with both sides on the tensor cores, the sparse
+    kernel wins below a crossover inside (0, 1) at batch 1 and 32, as
+    the thesis' Fig 6.2 finds."""
     layer = ConvLayer(512, 512, 7, 7, 3, 3)
     block = {"oc": 16, "ic": 16}
     x = sparsity.crossover_density(layer, block)
@@ -313,7 +314,9 @@ def test_dense_vs_sparse_policy():
                                      min(1.0, x + 0.05)).algorithm == \
         "dense"
     fig = ConvLayer(128, 128, 25, 25, 3, 3)
-    assert sparsity.crossover_density(fig, block) == 0.0
+    for batch in (1, 32):
+        assert 0.0 < sparsity.crossover_density(fig, block,
+                                                batch=batch) < 1.0
 
 
 # ------------------------------------------------------- tuner and registry
@@ -323,8 +326,8 @@ def test_every_ranked_schedule_fits_the_kernels(dtype_bytes):
     """Every schedule the tuners can return for the Table 4.1 layers and
     the matmul shapes is a valid permutation with dividing blocks that
     the CUDA kernel of its dtype accepts: the tensor-core layouts for
-    bf16 conv2d and matmul, the CUDA-core layouts for float32 and for
-    the block-sparse conv."""
+    bf16 (the block-sparse conv's at its pixel tile, which divides the
+    image), the CUDA-core layouts for float32."""
     for layer in TABLE_4_1.values():
         ranked = tuner.tune_conv(layer, elem_bytes=dtype_bytes, top_k=10 ** 6)
         assert ranked
@@ -346,8 +349,13 @@ def test_every_ranked_schedule_fits_the_kernels(dtype_bytes):
                                                elem_bytes=dtype_bytes,
                                                top_k=10 ** 6):
                 b = s.block_dict()
-                assert geo.conv_tile(b["oc"], b["ic"], by, bx, layer.kh,
-                                     layer.kw, dtype_bytes).error is None
+                if dtype_bytes == 2:
+                    by, bx = sparsity.sparse_pixel_tile(layer, b["oc"],
+                                                        b["ic"])
+                    assert layer.h % by == 0 and layer.w % bx == 0
+                assert geo.sparse_layout(
+                    b["oc"], b["ic"], by, bx, layer.kh, layer.kw,
+                    layer.ic // b["ic"], dtype_bytes).error is None
     for m, n, k in MATMUL_SHAPES:
         ranked = tuner.tune_matmul(m, n, k, elem_bytes=dtype_bytes,
                                    top_k=10 ** 6)
