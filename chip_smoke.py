@@ -19,10 +19,14 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
    shape the main paths give it in bf16 (per element, two bf16 ulps of
    the plain value plus 1e-5), at the main geometry in float32 (1e-5)
    and at smoke shapes in float32 (1e-5): the three attention kernels
-   (MHA, head_dim 96; smoke GQA group 2) and the selective scan
-   (Di 8192, N 16; smoke Di 128, N 8), with kernel, plain and library
-   times from CUDA events (L2 flushed before each timed launch), and
-   flash's time at every engine prompt bucket (``[time_bucket]``);
+   (MHA, head_dim 96; smoke GQA group 2; and in both dtypes head_dim
+   256 with 16 and 8 query heads on one KV head, group 5, windows inside
+   one decode split) and the selective scan (Di 8192, N 16; smoke Di
+   128, N 8), with kernel, plain and library times from CUDA events (L2
+   flushed before each timed launch), each decode kernel's split plan
+   beside its ``[time]``, ``[time_wide]`` for the head_dim 256
+   instances, and flash's time at every engine prompt bucket
+   (``[time_bucket]``);
 4. engine: ``ServeSession`` on full-width, full-depth phi3-mini-3.8b in
    bf16 with random weights from a seed, 8 requests of mixed prompt
    lengths, 32 new tokens each; every request must complete with finite
@@ -149,13 +153,14 @@ class Timer:
 
 
 # Mangled-name patterns of the instantiations the bf16 main path runs
-# (head_dim 96, MHA): flash's tensor-core body at D 96, decode with group
-# 1 and 3 dims a lane.
+# (head_dim 96, MHA): flash's tensor-core body at D 96, the split decode
+# body over the pool and over the contiguous cache.
 MAIN_PATH_INSTANCES = {
     "flash_attention": r"flash_mma_kernelILi96E",
     "paged_decode_attention":
-        r"decode_kernelI13__nv_bfloat16Li1ELi3ENS_7PagedKV",
-    "decode_attention": r"decode_kernelI13__nv_bfloat16Li1ELi3ENS_8ContigKV",
+        r"decode_split_kernelI13__nv_bfloat16NS_7PagedKV",
+    "decode_attention":
+        r"decode_split_kernelI13__nv_bfloat16NS_8ContigKV",
     "ssm_scan": r"ssm_scan_kernelI13__nv_bfloat16Li16E",
     # the thesis kernels' bf16 bodies: the conv's implicit GEMM (dense,
     # and over the nonzero blocks), the matmul's wgmma at two warpgroups
@@ -163,6 +168,16 @@ MAIN_PATH_INSTANCES = {
     "conv2d": r"conv2d_cu[^']*conv_mma_kernelILb0E",
     "sparse_conv2d": r"sparse_conv_cu[^']*conv_mma_kernelILb1E",
     "matmul": r"matmul_mma_kernelILi2ELi256E",
+}
+# The head_dim 256 instances (paligemma-3b, recurrentgemma-9b): flash's
+# bf16 body with Q re-read from shared memory, its float32 body at 64
+# dims a thread, the float32 split decode.
+WIDE_INSTANCES = {
+    "flash_attention_d256": r"flash_mma_kernelILi256E",
+    "flash_attention_d224": r"flash_mma_kernelILi224E",
+    "flash_attention_float32_d256": r"flash_fwd_kernelILi64E",
+    "decode_attention_float32": r"decode_split_kernelIfNS_8ContigKV",
+    "paged_decode_attention_float32": r"decode_split_kernelIfNS_7PagedKV",
 }
 # Entry functions whose SASS must (bf16) or must not (float32) hold
 # tensor-core instructions, by name pattern.
@@ -252,6 +267,80 @@ def bound(n_bytes, n_ops, dtype):
     return t_ops * 1e3, "operations"
 
 
+# (HQ, HKV, head_dim) beyond the main geometry: recurrentgemma-9b's 16
+# query heads on one KV head and paligemma-3b's 8 at head_dim 256, and
+# llama4-scout's group 5 at 128
+WIDE_HEADS = ((16, 1, 256), (8, 1, 256), (40, 8, 128))
+
+
+def plan_text(plan):
+    """One decode plan as its launch shape."""
+    return (f"splits={plan.splits} split_keys={plan.split_keys} "
+            f"tile_keys={plan.tile_keys} head_chunk={plan.head_chunk} "
+            f"chunks={plan.chunks} blocks={plan.blocks} smem={plan.smem}")
+
+
+def wide_times(torch, dev, timer, rn):
+    """``[time_wide]``: the three attention kernels at head_dim 256 with
+    16 query heads on one KV head, bf16, beside their bound and SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     paged_decode_attention)
+    from repro_torch.kernels._geometry import decode_plan
+    bf16, s, d, hq = torch.bfloat16, 544, 256, 16
+    starts = [512 - n for n in GENERATE_PROMPTS]
+    st = torch.tensor(starts, device=dev)
+    q = rn((4, hq, 1, d), bf16)
+    k, v = rn((4, 1, s, d), bf16), rn((4, 1, s, d), bf16)
+    kpos = torch.arange(s, device=dev)[None, :]
+    mask = ((kpos <= 512) & (kpos >= st[:, None]))[:, None, None, :]
+    ctx = sum(512 - a + 1 for a in starts)
+    b_ms, b_by = bound(2 * 4 * hq * d * 2 + ctx * d * 2 * 2 + 32,
+                       4 * d * hq * ctx, "bfloat16")
+    ms = timer(lambda: decode_attention(q, k, v, 512, starts=st))
+    lib_ms = timer(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True))
+    phase("time_wide", kernel="decode_attention",
+          shape=f"q [4,{hq},1,{d}], k/v [4,1,{s},{d}] bf16, pos 512",
+          ms=f"{ms:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+          library_ms=f"{lib_ms:.4f}",
+          plan=repr(plan_text(decode_plan(4, hq, 1, d, s, 0, 2))))
+    bs, mb = 16, 34
+    nb = 1 + 4 * mb
+    kp, vp = rn((nb, 1, bs, d), bf16), rn((nb, 1, bs, d), bf16)
+    perm = torch.randperm(nb - 1, generator=torch.Generator()
+                          .manual_seed(7)) + 1
+    tables = perm.reshape(4, mb).to(torch.int32).to(dev)
+    pos = torch.tensor([17, 100, 300, 511], dtype=torch.int32, device=dev)
+    ctx = sum(p + 1 for p in pos.tolist())
+    b_ms, b_by = bound(2 * 4 * hq * d * 2 + ctx * d * 2 * 2 + 4 * mb * 4,
+                       4 * d * hq * ctx, "bfloat16")
+    ms = timer(lambda: paged_decode_attention(q, kp, vp, tables, pos))
+    phase("time_wide", kernel="paged_decode_attention",
+          shape=f"q [4,{hq},1,{d}], pools [{nb},1,{bs},{d}] bf16, "
+                f"pos={pos.tolist()}",
+          ms=f"{ms:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+          library_ms="null",
+          plan=repr(plan_text(decode_plan(4, hq, 1, d, mb * bs, bs, 2))))
+    s, real = 512, 300
+    qf = rn((1, hq, s, d), bf16)
+    kf, vf = rn((1, 1, s, d), bf16), rn((1, 1, s, d), bf16)
+    stf = torch.tensor([s - real], device=dev)
+    fmask = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+    fmask = fmask & (torch.arange(s, device=dev)[None, :] >= s - real)
+    # Q, K and V rows from the start, every O row
+    b_ms, b_by = bound((real * (hq + 2) + s * hq) * d * 2 + 4,
+                       4 * d * hq * real * (real + 1) // 2, "bfloat16")
+    ms = timer(lambda: flash_attention(qf, kf, vf, starts=stf))
+    lib_ms = timer(lambda: F.scaled_dot_product_attention(
+        qf, kf, vf, attn_mask=fmask, enable_gqa=True))
+    phase("time_wide", kernel="flash_attention",
+          shape=f"q [1,{hq},{s},{d}], k/v [1,1,{s},{d}] bf16, starts "
+                f"[{s - real}]",
+          ms=f"{ms:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+          library_ms=f"{lib_ms:.4f}")
+
+
 def kernel_checks(torch, dev, timer):
     """Phase 3: each kernel against its plain version; returns the
     per-kernel summary entries (launches filled in later)."""
@@ -261,6 +350,7 @@ def kernel_checks(torch, dev, timer):
     from repro_torch.kernels.decode_attention import (
         decode_attention_ref, paged_decode_attention_ref)
     from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels._geometry import decode_plan
     from repro_torch.kernels.ssm_scan import DEFAULT_BLOCK_D, ssm_scan_ref
     from repro_torch.models import bucket_length
 
@@ -334,6 +424,11 @@ def kernel_checks(torch, dev, timer):
     for s in (24, 64):
         flash_case(f32, 2, 4, 2, s, 16, starts=[0, s // 3])
         flash_case(f32, 2, 4, 2, s, 16, window=9)
+    # head_dim 256 with 8 and 16 query heads on one KV head (paligemma-3b,
+    # recurrentgemma-9b)
+    for dtype in (bf16, f32):
+        for hq in (8, 16):
+            flash_case(dtype, 1, hq, 1, 512, 256, starts=[212])
     # timed at the largest engine prefill: [1, 32, 512, 96], 300 real
     s, real = 512, 300
     q = rn((1, 32, s, 96), bf16)
@@ -388,7 +483,14 @@ def kernel_checks(torch, dev, timer):
         paged_case(bf16, 32, 32, 96, pl)
     pargs = paged_case(bf16, 32, 32, 96, pos_list)
     paged_case(f32, 32, 32, 96, pos_list)
+    for pl in ([300], [17, 511]):
+        paged_case(f32, 32, 32, 96, pl)
     paged_case(f32, 4, 2, 16, [0, 15, 16, 200])
+    # head_dim 256 with 16 and 8 query heads on one KV head, and group 5
+    # (llama4-scout: 40 on 8, head_dim 128)
+    for dtype in (bf16, f32):
+        for hq, hkv, d in WIDE_HEADS:
+            paged_case(dtype, hq, hkv, d, [17, 300, 511, 0])
     ctx = sum(p + 1 for p in pos_list)
     n_bytes = (2 * 4 * 32 * 96 * 2 + ctx * 32 * 96 * 2 * 2
                + 4 * mb * 4 + 4 * 4)
@@ -402,7 +504,8 @@ def kernel_checks(torch, dev, timer):
         plain_ms=timer(lambda: paged_decode_attention_ref(*pargs)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape="q [4,32,1,96], pools [137,32,16,96] bf16, "
-              "pos=[17,100,300,511]")
+              "pos=[17,100,300,511]",
+        plan=plan_text(decode_plan(4, 32, 32, 96, mb * bs, bs, 2)))
 
     # ---- contiguous decode: generate's cache [4, 32, 544, 96] at its
     # first decode step (pos 512) with the left-pad starts.
@@ -420,6 +523,24 @@ def kernel_checks(torch, dev, timer):
                                                starts=st),
           decode_attention_ref(q32, k32, v32, 512, starts=st),
           f"[4,32,1,96] k/v [4,32,{s},96] pos=512 starts={starts}")
+    # each row's window inside one split of the plan (64 keys)
+    pos_in = torch.tensor([510, 300, 40, 543], device=dev)
+    st_in = torch.tensor([500, 260, 33, 530], device=dev)
+    for dtype in (bf16, f32):
+        q_, k_, v_ = (t.to(dtype) for t in (qd, kc, vc))
+        check("decode_attention",
+              decode_attention(q_, k_, v_, pos_in, starts=st_in),
+              decode_attention_ref(q_, k_, v_, pos_in, starts=st_in),
+              f"[4,32,1,96] k/v [4,32,{s},96] pos={pos_in.tolist()} "
+              f"starts={st_in.tolist()}")
+        for hq, hkv, d in WIDE_HEADS:
+            qw = rn((4, hq, 1, d), dtype)
+            kw_, vw = rn((4, hkv, s, d), dtype), rn((4, hkv, s, d), dtype)
+            check("decode_attention",
+                  decode_attention(qw, kw_, vw, 512, starts=st),
+                  decode_attention_ref(qw, kw_, vw, 512, starts=st),
+                  f"[4,{hq},1,{d}]/{hkv}kv k/v [4,{hkv},{s},{d}] pos=512 "
+                  f"starts={starts}")
     qf = rn((3, 4, 1, 16), f32)
     kf, vf = rn((3, 2, 40, 16), f32), rn((3, 2, 40, 16), f32)
     posf = torch.tensor([5, 20, 39], device=dev)
@@ -445,7 +566,9 @@ def kernel_checks(torch, dev, timer):
         library_ms=timer(lambda: F.scaled_dot_product_attention(
             qd, kc, vc, attn_mask=dmask)),
         shape="q [4,32,1,96], k/v [4,32,544,96] bf16, pos 512, "
-              "starts=[472,412,262,212]")
+              "starts=[472,412,262,212]",
+        plan=plan_text(decode_plan(4, 32, 32, 96, s, 0, 2)))
+    wide_times(torch, dev, timer, rn)
 
     # ---- selective scan: each engine admission scans its prompt's
     # bucket at batch 1 (the pad prefix masked to x = 0 and b = 0, as the
@@ -536,7 +659,8 @@ def kernel_checks(torch, dev, timer):
               plain_ms=f"{e['plain_ms']:.4f}",
               bound_ms=f"{e['bound_ms']:.4f}", bound_by=e["bound_by"],
               library_ms=("null" if e["library_ms"] is None
-                          else f"{e['library_ms']:.4f}"))
+                          else f"{e['library_ms']:.4f}"),
+              **({"plan": repr(e["plan"])} if "plan" in e else {}))
     e = summary["ssm_scan"]
     # block_d is the kernel's launch parameter: the same prefill and
     # decode step at each
@@ -1162,7 +1286,7 @@ def profile_engine(torch, model, params, prompts):
     for e in kern:
         n = e.key.lower()
         if any(t in n for t in ("flash_mma_kernel", "flash_fwd_kernel",
-                                "decode_kernel", "ssm_scan_kernel")):
+                                "decode_split_kernel", "ssm_scan_kernel")):
             groups["port_kernels"] += dev_us(e)
         elif any(t in n for t in ("gemm", "gemv", "nvjet", "cutlass")):
             groups["gemm"] += dev_us(e)
@@ -1221,7 +1345,8 @@ def main():
     _build.load()
     phase("build", seconds=f"{time.perf_counter() - t0:.1f}",
           sources=len(_build.sources()))
-    for kernel, pattern in MAIN_PATH_INSTANCES.items():
+    for kernel, pattern in {**MAIN_PATH_INSTANCES,
+                            **WIDE_INSTANCES}.items():
         phase("ptxas", kernel=kernel, **ptxas_stats(_build.build_log,
                                                      pattern))
     for body, c in sass_counts(_build.lib_path).items():

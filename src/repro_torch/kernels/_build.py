@@ -45,13 +45,14 @@ SIGNATURES = {
     # is_bf16 (the tensor-core body), stream
     "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _F, _I, _P],
-    # q, k, v, o, pos, starts, B, HQ, HKV, S, D, scale, is_bf16, stream
-    "decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _F, _I, _P],
-    # q, k_pool, v_pool, o, tables, pos, B, HQ, HKV, bs, MB, D, scale,
-    # is_bf16, stream
-    "paged_decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                   _I, _I, _I, _F, _I, _P],
+    # q, k, v, o, pos (int32), starts (int64, or null), workspace,
+    # tickets, B, HQ, HKV, S, D, split_keys, tile_keys, head_chunk, smem
+    # (the decode plan), scale, is_bf16, stream
+    "decode_attention_fwd": [_P] * 8 + [_I] * 9 + [_F, _I, _P],
+    # q, k_pool, v_pool, o, tables, pos, workspace, tickets, B, HQ, HKV,
+    # bs, MB, D, split_keys, tile_keys, head_chunk, smem, scale, is_bf16,
+    # stream
+    "paged_decode_attention_fwd": [_P] * 8 + [_I] * 10 + [_F, _I, _P],
     # x, dt, b, c, a, d, h0, y, hout, Bt, S, Di, N, block_d, is_bf16,
     # stream
     "ssm_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

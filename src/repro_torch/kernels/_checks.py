@@ -56,16 +56,16 @@ def scale_q(q: torch.Tensor) -> torch.Tensor:
     return q * torch.tensor(q_scale(q), dtype=q.dtype, device=q.device)
 
 
-def int32_vector(x, n: int, device: torch.device, name: str
-                 ) -> torch.Tensor:
+def int_vector(x, n: int, device: torch.device, name: str,
+               dtype: torch.dtype = torch.int32) -> torch.Tensor:
     """``x`` (an int, or a tensor of [n] or no dims) as a contiguous [n]
-    int32 tensor on ``device``.  An int is filled on the device, so no
-    host-to-device copy stalls the stream."""
+    integer tensor of ``dtype`` on ``device``.  An int is filled on the
+    device, so no host-to-device copy stalls the stream."""
     if isinstance(x, numbers.Integral):
-        return torch.full((n,), int(x), dtype=torch.int32, device=device)
+        return torch.full((n,), int(x), dtype=dtype, device=device)
     require(isinstance(x, torch.Tensor), f"{name} must be an int or a "
             f"tensor, got {type(x).__name__}")
-    t = x.to(device=device, dtype=torch.int32)
+    t = x.to(device=device, dtype=dtype)
     if t.dim() == 0:
         t = t.expand(n)
     require(t.shape == (n,), f"{name} must be a scalar or [{n}], got "

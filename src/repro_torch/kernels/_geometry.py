@@ -1,17 +1,18 @@
-"""Launch geometry and limits of the thesis kernels on an H100.
+"""Launch geometry and limits of the port's kernels on an H100.
 
 One place answers "how does the CUDA kernel lay out this block, and does
-it fit?" for the direct conv, the block-sparse conv, the tiled matmul
-and flash attention, per dtype: bf16 runs on the tensor cores
-(``conv_mma_tile``, also the block-sparse conv's with its index row,
-``matmul_mma_tile``, ``flash_mma_tile``), float32 on the CUDA cores
-(``conv_tile``, ``matmul_tile``); ``tensor_cores`` is the one rule that
-picks by element size, and ``conv_layout``, ``sparse_layout`` and
-``matmul_layout`` follow it.  The wrappers use it
-to launch (and to raise on a block the kernel cannot take), the H100
-cost model uses it for its padding and feasibility terms, and the tuner
-uses it to offer only blocks the kernel accepts, so a ranked schedule
-never raises on the card.  Pure Python: nothing here touches a device.
+it fit?" for the direct conv, the block-sparse conv, the tiled matmul,
+flash attention and the split decode (``decode_plan``), per dtype: bf16
+runs on the tensor cores (``conv_mma_tile``, also the block-sparse
+conv's with its index row, ``matmul_mma_tile``, ``flash_mma_tile``),
+float32 on the CUDA cores (``conv_tile``, ``matmul_tile``);
+``tensor_cores`` is the one rule that picks by element size, and
+``conv_layout``, ``sparse_layout`` and ``matmul_layout`` follow it. The
+wrappers use it to launch (and to raise on a block the kernel cannot
+take), the H100 cost model uses it for its padding and feasibility
+terms, and the tuner uses it to offer only blocks the kernel accepts, so
+a ranked schedule never raises on the card.  Pure Python: nothing here
+touches a device.
 """
 from __future__ import annotations
 
@@ -64,11 +65,28 @@ SPARSE_TILE_Y = 8
 SPARSE_TILE_X = 16
 
 # bf16 flash attention (mma.sync.m16n8k16): 4 warps, 64 query rows a
-# block, 64-key K/V tiles; D pads to 16 up to FLASH_MAX_D.
+# block, 64-key K/V tiles; D pads to 16 up to FLASH_Q_REGS_D (Q kept in
+# registers), to 32 above it up to FLASH_MAX_D (Q re-read from shared
+# memory for each KV tile).  The float32 body takes the same head dims.
 FLASH_ROWS = 64
 FLASH_KEYS = 64
 FLASH_WARPS = 4
-FLASH_MAX_D = 128
+FLASH_Q_REGS_D = 128
+FLASH_MAX_D = 256
+
+# Split decode (csrc/decode_common.cuh): 128-thread blocks, each one
+# (row, KV head, head chunk) x one split of the key range; K and V staged
+# a tile of keys at a time in rows of an odd number of 16-byte units.
+DEC_MAX_D = 256
+DEC_MAX_HEADS = 8             # query heads a block serves (head chunk)
+DEC_CHUNK_OUTPUTS = 512       # outputs (head x dim) a chunk aims at
+DEC_TILE_KEYS = 64            # at most, keys a staged tile holds
+DEC_TILE_BYTES = 48 * 1024    # at most, K and V of one tile
+DEC_MIN_SPLIT_KEYS = 32
+DEC_MAX_SPLITS = 256
+# about a full wave of blocks: 132 SMs x 8 resident 128-thread blocks
+DEC_TARGET_BLOCKS = 132 * 8
+DEC_STATS_BYTES = (3 * DEC_MAX_HEADS + 4) * 4   # m, l, alpha + flag
 
 
 def _pow2_at_least(n: int, choices) -> Optional[int]:
@@ -264,15 +282,140 @@ class FlashMmaTile:
 
 
 def flash_mma_tile(d: int) -> FlashMmaTile:
-    """Layout of the bf16 flash body for head dim ``d``: D padded to 16;
-    rows of 16-byte multiples (d % 8 == 0) staged by cp.async, others
-    through registers into the same [rows][dp + 8] tiles (the kernel also
-    takes the register route for bases that are not 16-byte aligned);
-    shared memory for the Q (later O) tile and two stages of K and V."""
-    dp = _round_up(max(d, 1), 16)
+    """Layout of the bf16 flash body for head dim ``d``: D padded to 16
+    (to 32 above FLASH_Q_REGS_D, where the kernel has one instance per 32
+    columns); rows of 16-byte multiples (d % 8 == 0) staged by cp.async,
+    others through registers into the same [rows][dp + 8] tiles (the
+    kernel also takes the register route for bases that are not 16-byte
+    aligned); shared memory for the Q (later O) tile and two stages of K
+    and V."""
+    dp = _round_up(max(d, 1), 16 if d <= FLASH_Q_REGS_D else 32)
     smem = 5 * FLASH_ROWS * (dp + 8) * 2
     return FlashMmaTile(d, dp, "cp.async" if d % 8 == 0 else "registers",
                         smem)
+
+
+def dec_units(d: int, elem_bytes: int) -> int:
+    """16-byte units of a staged K/V row of the split decode: the row
+    rounded up to 16 bytes, then to an odd count, so the eight rows a
+    quarter-warp reads with 16-byte loads fall on distinct banks."""
+    return (-(-d * elem_bytes // 16)) | 1
+
+
+def dec_smem(d: int, elem_bytes: int, tile_keys: int, head_chunk: int,
+             table_entries: int) -> int:
+    """Shared memory of a split-decode block (``dec_layout`` in
+    ``csrc/decode_common.cuh`` computes the same): K and V tiles, q of
+    the head chunk as f32, the tile's scores, the softmax state and the
+    split's block-table entries."""
+    units = dec_units(d, elem_bytes)
+    kv = tile_keys * units * 16
+    q = head_chunk * units * 16 // elem_bytes * 4
+    p = _round_up(head_chunk * tile_keys * 4, 16)
+    return (2 * kv + q + p + DEC_STATS_BYTES
+            + _round_up(4 * table_entries, 16))
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """How the split decode runs one call (``csrc/decode_common.cuh``,
+    decode_split_kernel): the grid is (B x HKV x chunks, splits); split
+    ``i`` owns keys ``[i * split_keys, (i + 1) * split_keys)`` and walks
+    them in tiles of ``tile_keys``.  Fixed by static shapes only: it never
+    sees ``pos`` or ``starts``."""
+    b: int
+    hq: int
+    hkv: int
+    d: int
+    limit: int           # keys a row can address: S, or MB x bs
+    block_size: int      # pool block (0: contiguous cache)
+    elem_bytes: int
+    head_chunk: int      # query heads a block serves
+    chunks: int          # head chunks of a KV group
+    tile_keys: int
+    split_keys: int
+    splits: int
+    smem: int
+
+    @property
+    def rows(self) -> int:
+        """(row, KV head, head chunk) triples: the grid's x."""
+        return self.b * self.hkv * self.chunks
+
+    @property
+    def blocks(self) -> int:
+        return self.rows * self.splits
+
+    @property
+    def tickets(self) -> int:
+        """Ticket counters the merge needs, one per grid row."""
+        return self.rows
+
+    @property
+    def workspace_floats(self) -> int:
+        """f32 partials (m, l and acc of each head) of every split; none
+        with one split (the block writes the output itself)."""
+        if self.splits == 1:
+            return 0
+        return self.blocks * self.head_chunk * (self.d + 2)
+
+    def split_range(self, i: int) -> Tuple[int, int]:
+        """Keys ``[lo, hi)`` that split ``i`` owns."""
+        return (i * self.split_keys,
+                min(self.limit, (i + 1) * self.split_keys))
+
+    @property
+    def error(self) -> Optional[str]:
+        """Why the kernel refuses this call, or None when it runs."""
+        if not 1 <= self.d <= DEC_MAX_D:
+            return f"head_dim {self.d} not in [1, {DEC_MAX_D}]"
+        if self.hkv < 1 or self.hq < 1 or self.hq % self.hkv:
+            return (f"HQ={self.hq} is not a multiple of HKV={self.hkv}")
+        if self.elem_bytes not in (2, 4):
+            return f"element size {self.elem_bytes} is not bf16 or float32"
+        if self.limit < 1 or self.b < 1:
+            return "no keys or no rows"
+        if self.splits > 65535:
+            return f"{self.splits} splits > 65535 (the grid's y)"
+        if self.smem > SMEM_BYTES:
+            return f"{self.smem} bytes of shared memory > {SMEM_BYTES}"
+        return None
+
+
+def decode_plan(b: int, hq: int, hkv: int, d: int, limit: int,
+                block_size: int, elem_bytes: int) -> DecodePlan:
+    """The split plan of a decode call from static shapes: ``limit`` is
+    the cache's S (contiguous, ``block_size`` 0) or MB x bs (paged).
+
+    - head chunk: a KV group's query heads in equal chunks of at most
+      DEC_MAX_HEADS heads and, where the group allows, at most
+      DEC_CHUNK_OUTPUTS outputs (4 a thread), so wide heads spread over
+      more blocks (each chunk re-reads its split's K/V, from L2);
+    - tile: up to DEC_TILE_KEYS keys whose K and V rows fit
+      DEC_TILE_BYTES, a multiple of 16;
+    - splits: enough for about DEC_TARGET_BLOCKS blocks, at least
+      DEC_MIN_SPLIT_KEYS keys each and at most DEC_MAX_SPLITS, the split
+      a multiple of 16 keys (contiguous) or of the pool block (paged, so
+      split boundaries fall on pool blocks)."""
+    group = hq // hkv if hkv >= 1 and hq % hkv == 0 else 1
+    per_chunk = max(1, min(DEC_MAX_HEADS, DEC_CHUNK_OUTPUTS // max(d, 1)))
+    chunks = -(-group // per_chunk)
+    head_chunk = -(-group // chunks)
+    units = dec_units(max(d, 1), elem_bytes)
+    tile = DEC_TILE_BYTES // (2 * units * 16) // 16 * 16
+    tile = max(16, min(DEC_TILE_KEYS, tile))
+    limit = max(limit, 1)
+    gran = block_size if block_size > 0 else 16
+    rows = max(b, 1) * max(hkv, 1) * chunks
+    want = max(1, -(-DEC_TARGET_BLOCKS // rows))
+    keys = max(-(-limit // want), DEC_MIN_SPLIT_KEYS,
+               -(-limit // DEC_MAX_SPLITS))
+    split_keys = min(_round_up(keys, gran), _round_up(limit, gran))
+    splits = -(-limit // split_keys)
+    table = split_keys // block_size if block_size > 0 else 0
+    smem = dec_smem(max(d, 1), elem_bytes, tile, head_chunk, table)
+    return DecodePlan(b, hq, hkv, d, limit, block_size, elem_bytes,
+                      head_chunk, chunks, tile, split_keys, splits, smem)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -348,8 +491,9 @@ def matmul_layout(bm: int, bn: int, bk: int, k: int, elem_bytes: int,
 
 
 __all__ = ["ConvTile", "MatmulTile", "ConvMmaTile", "MatmulMmaTile",
-           "FlashMmaTile", "conv_tile", "matmul_tile", "conv_mma_tile",
-           "matmul_mma_tile", "flash_mma_tile", "conv_layout",
-           "sparse_layout", "matmul_layout", "matmul_mma_route",
-           "tensor_cores",
-           "sparse_tile", "MMA_BN", "MAX_THREADS", "SMEM_BYTES", "WARP"]
+           "FlashMmaTile", "DecodePlan", "decode_plan", "conv_tile",
+           "matmul_tile", "conv_mma_tile", "matmul_mma_tile",
+           "flash_mma_tile", "conv_layout", "sparse_layout",
+           "matmul_layout", "matmul_mma_route", "tensor_cores",
+           "sparse_tile", "MMA_BN", "MAX_THREADS", "SMEM_BYTES",
+           "WARP"]

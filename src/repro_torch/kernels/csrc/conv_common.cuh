@@ -26,6 +26,7 @@
 // sparse kernel's ragged edge) are masked.
 #pragma once
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace rt {
 // Internal linkage: conv2d.cu and sparse_conv.cu each get their own
@@ -176,9 +177,8 @@ __global__ void __launch_bounds__(1024) conv_tile_kernel(ConvArgs a) {
 template <int J>
 cudaError_t conv_launch_j(const ConvArgs& a, int smem, cudaStream_t st) {
   // above 48 KB a block's dynamic shared memory must be opted into
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      conv_tile_kernel<J>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      232448);
+  const cudaError_t attr = hw::smem_opt_in(
+      reinterpret_cast<const void*>(conv_tile_kernel<J>), 232448);
   if (attr != cudaSuccess) return attr;
   const long long blocks = static_cast<long long>(a.N) * a.trips[0] *
                            a.trips[1] * a.trips[2];

@@ -430,9 +430,8 @@ inline long long conv_mma_layout(ConvMmaArgs& a, int warps, int extra) {
 template <bool Sparse>
 cudaError_t conv_mma_launch(const ConvMmaArgs& a, long long smem,
                             cudaStream_t stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      conv_mma_kernel<Sparse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      232448);
+  const cudaError_t attr = hw::smem_opt_in(
+      reinterpret_cast<const void*>(conv_mma_kernel<Sparse>), 232448);
   if (attr != cudaSuccess) return attr;
   const long long blocks = static_cast<long long>(a.N) * a.trips[0] *
                            a.trips[1] * a.trips[2];

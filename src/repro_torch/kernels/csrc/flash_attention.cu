@@ -10,14 +10,19 @@
 // Two bodies, chosen by dtype (kernels/_geometry.py, tensor_cores):
 //
 // bfloat16: flash_mma_kernel<DP>, FlashAttention-2 on mma.sync.m16n8k16
-//   (bf16 in, f32 accumulate), D padded to DP, a multiple of 16.
+//   (bf16 in, f32 accumulate), D padded to DP, a multiple of 16 (of 32
+//   above 128), up to 256.
 //   - Block: 4 warps and 64 query rows, 16 rows a warp.  The grid runs
 //     the query tiles with the most reachable keys first (the last ones,
 //     under the causal mask), which shortens the tail; a tile whose rows
 //     all lie below `starts` writes zeros and exits.
 //   - Q: loaded once, scaled by 1/sqrt(D) in bf16 as every Pallas entry
 //     does (rt::scaled_q), and kept in registers as A fragments (DP / 16
-//     k-steps).
+//     k-steps) up to DP 128.  Above it (DP 160, 192, 224, 256: D pads to
+//     32 there) the O accumulator alone is DP / 2 f32 a thread, so Q's
+//     fragments are re-read from its shared tile by ldmatrix for each KV
+//     tile instead (a warp reads only its own 16 rows, which the
+//     epilogue later overwrites with O).
 //   - K and V: 64-key tiles of bf16 in shared memory, rows padded by 8
 //     elements (an odd number of 16-byte units: ldmatrix's eight rows hit
 //     distinct banks), double-buffered with cp.async so tile t + 1 is in
@@ -52,11 +57,13 @@
 //   row, each owning a contiguous quarter of the head dimension in
 //   registers (q and the f32 accumulator).  The block walks only the
 //   32-key tiles that its causal / window / starts mask can reach, stages
-//   each K and V tile in shared memory as f32 (read with 16-byte vector
-//   loads), and keeps the online softmax statistics m and l in f32
-//   registers.  GQA reads the KV head h / group directly; no repeated K/V
-//   is ever written.  S need not be a multiple of a tile: keys and queries
-//   past S are masked in the kernel.
+//   each K and V tile in dynamic shared memory as f32 rows of 4 * DPT
+//   (64 KB at D 256, past the 48 KB static limit: opted into with
+//   cudaFuncSetAttribute), read with 16-byte vector loads, and keeps
+//   the online softmax statistics m and l in f32 registers.  GQA reads
+//   the KV head h / group directly; no repeated K/V is ever written.  S
+//   need not be a multiple of a tile: keys and queries past S are masked
+//   in the kernel.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -68,7 +75,7 @@ constexpr int BQ = 64;        // query rows per block
 constexpr int BKV = 32;       // keys per shared-memory tile
 constexpr int TPR = 4;        // threads per query row
 constexpr int THREADS = BQ * TPR;
-constexpr int DMAX = 128;
+constexpr int DMAX = 256;
 
 template <int DPT>
 __global__ void __launch_bounds__(THREADS)
@@ -76,8 +83,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  const int* __restrict__ starts, int HQ, int HKV, int S,
                  int D, int causal, int window, float scale) {
-  __shared__ __align__(16) float ks[BKV][DMAX];
-  __shared__ __align__(16) float vs[BKV][DMAX];
+  constexpr int W = TPR * DPT;     // a staged row, >= D
+  extern __shared__ __align__(16) float f32_smem[];
+  float (*ks)[W] = reinterpret_cast<float (*)[W]>(f32_smem);
+  float (*vs)[W] = reinterpret_cast<float (*)[W]>(f32_smem + BKV * W);
 
   const int bh = blockIdx.x;
   const int b = bh / HQ;
@@ -94,8 +103,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   // Columns past D stay zero for the whole kernel, so the vector loads
   // below need no guard on D.
-  for (int idx = tid; idx < BKV * DMAX; idx += THREADS) {
-    const int j = idx / DMAX, d = idx % DMAX;
+  for (int idx = tid; idx < BKV * W; idx += THREADS) {
+    const int j = idx / W, d = idx % W;
     if (d >= D) { ks[j][d] = 0.f; vs[j][d] = 0.f; }
   }
 
@@ -193,8 +202,12 @@ template <int DPT>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    const int* starts, int B, int HQ, int HKV, int S, int D,
                    int causal, int window, float scale, cudaStream_t stream) {
+  constexpr int smem = 2 * BKV * TPR * DPT * 4;
+  const cudaError_t attr = rt::hw::smem_opt_in(
+      reinterpret_cast<const void*>(flash_fwd_kernel<DPT>), smem);
+  if (attr != cudaSuccess) return attr;
   dim3 grid(B * HQ, (S + BQ - 1) / BQ);
-  flash_fwd_kernel<DPT><<<grid, THREADS, 0, stream>>>(
+  flash_fwd_kernel<DPT><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), starts, HQ, HKV,
       S, D, causal, window, scale);
@@ -214,7 +227,11 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
     return launch<16>(q, k, v, o, starts, B, HQ, HKV, S, D, causal, window, scale, stream);
   if (per <= 24)
     return launch<24>(q, k, v, o, starts, B, HQ, HKV, S, D, causal, window, scale, stream);
-  return launch<32>(q, k, v, o, starts, B, HQ, HKV, S, D, causal, window, scale, stream);
+  if (per <= 32)
+    return launch<32>(q, k, v, o, starts, B, HQ, HKV, S, D, causal, window, scale, stream);
+  if (per <= 48)
+    return launch<48>(q, k, v, o, starts, B, HQ, HKV, S, D, causal, window, scale, stream);
+  return launch<64>(q, k, v, o, starts, B, HQ, HKV, S, D, causal, window, scale, stream);
 }
 
 
@@ -261,6 +278,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_mma_kernel(const FlashArgs a) {
   constexpr int KD = DP / 16;      // k-steps of Q K^T, d pairs of P V
   constexpr int ND = DP / 8;       // n8 tiles of O
+  constexpr bool QS = DP > 128;    // Q's fragments re-read from shared
   constexpr int STR = DP + 8;      // row stride in elements
   constexpr int TILE = kRows * STR;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -358,12 +376,14 @@ flash_mma_kernel(const FlashArgs a) {
   hw::cp_async_commit();
   __syncthreads();                 // Q and the padded columns are in place
 
-  uint32_t qf[KD][4];
-  const uint32_t q_base = hw::smem_u32(qo_s);
+  // lane's ldmatrix address of Q's k-step kk
+  const uint32_t q_lane = hw::smem_u32(qo_s) +
+      ((warp * 16 + (lane & 15)) * STR + (lane >> 4) * 8) * 2;
+  uint32_t qf[QS ? 1 : KD][4];
+  if constexpr (!QS) {
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk)
-    hw::ldmatrix_x4(qf[kk], q_base + ((warp * 16 + (lane & 15)) * STR +
-                                      kk * 16 + (lane >> 4) * 8) * 2);
+    for (int kk = 0; kk < KD; ++kk) hw::ldmatrix_x4(qf[kk], q_lane + kk * 32);
+  }
 
   float o_acc[ND][4];
 #pragma unroll
@@ -405,16 +425,19 @@ flash_mma_kernel(const FlashArgs a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
+      for (int kk = 0; kk < KD; ++kk) {
+        const uint32_t* qa = qf[QS ? 0 : kk];
+        if constexpr (QS) hw::ldmatrix_x4(qf[0], q_lane + kk * 32);
 #pragma unroll
         for (int np = 0; np < 4; ++np) {
           uint32_t kf[4];
           hw::ldmatrix_x4(kf, kb + ((np * 16 + (lane >> 4) * 8 +
                                      (lane & 7)) * STR + kk * 16 +
                                     ((lane >> 3) & 1) * 8) * 2);
-          hw::mma_16816(s[2 * np], qf[kk], kf[0], kf[1]);
-          hw::mma_16816(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+          hw::mma_16816(s[2 * np], qa, kf[0], kf[1]);
+          hw::mma_16816(s[2 * np + 1], qa, kf[2], kf[3]);
         }
+      }
       if (!full) {
 #pragma unroll
         for (int j = 0; j < 8; ++j)
@@ -517,8 +540,8 @@ flash_mma_kernel(const FlashArgs a) {
 template <int DP>
 cudaError_t launch(const FlashArgs& a, cudaStream_t stream) {
   // above 48 KB a block's dynamic shared memory must be opted into
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_mma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const cudaError_t attr = hw::smem_opt_in(
+      reinterpret_cast<const void*>(flash_mma_kernel<DP>),
       smem_bytes(DP));
   if (attr != cudaSuccess) return attr;
   const long long blocks = static_cast<long long>(a.B) * a.HQ * a.n_qt;
@@ -549,6 +572,10 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
     case 6: return launch<96>(a, stream);
     case 7: return launch<112>(a, stream);
     case 8: return launch<128>(a, stream);
+    case 9: case 10: return launch<160>(a, stream);
+    case 11: case 12: return launch<192>(a, stream);
+    case 13: case 14: return launch<224>(a, stream);
+    case 15: case 16: return launch<256>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -9,8 +9,31 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <set>
+#include <tuple>
+
 namespace rt {
 namespace hw {
+
+// Opts kernel `fn` into `bytes` of dynamic shared memory on the current
+// device (a block must, above 48 KB).  The attribute belongs to the
+// device, so it is set once per (kernel, device, bytes), not once per
+// process.
+inline cudaError_t smem_opt_in(const void* fn, int bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  static std::mutex mu;
+  static std::set<std::tuple<const void*, int, int>> done;
+  const auto key = std::make_tuple(fn, dev, bytes);
+  std::lock_guard<std::mutex> lock(mu);
+  if (done.count(key)) return cudaSuccess;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) done.insert(key);
+  return err;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

@@ -170,9 +170,8 @@ __global__ void __launch_bounds__(kThreads) matmul_kernel(MatmulArgs p) {
 
 template <typename T, int MI, int MJ>
 cudaError_t mm_launch(const MatmulArgs& p, int smem, cudaStream_t st) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      matmul_kernel<T, MI, MJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      232448);
+  const cudaError_t attr = hw::smem_opt_in(
+      reinterpret_cast<const void*>(matmul_kernel<T, MI, MJ>), 232448);
   if (attr != cudaSuccess) return attr;
   matmul_kernel<T, MI, MJ><<<p.n_m * p.n_n, kThreads, smem, st>>>(p);
   return cudaGetLastError();
@@ -481,8 +480,8 @@ inline bool make_map(CUtensorMap* map, const void* base, int cols, int rows,
 template <int WG, int BN>
 cudaError_t mma_launch(const CUtensorMap& ma, const CUtensorMap& mb,
                        const MmaArgs& p, int smem, cudaStream_t st) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      matmul_mma_kernel<WG, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const cudaError_t attr = hw::smem_opt_in(
+      reinterpret_cast<const void*>(matmul_mma_kernel<WG, BN>),
       kSmemLimit);
   if (attr != cudaSuccess) return attr;
   matmul_mma_kernel<WG, BN><<<p.n_m * p.n_n, 128 * (WG + 1), smem, st>>>(

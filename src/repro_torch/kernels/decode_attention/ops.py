@@ -4,45 +4,81 @@
 ``paged_decode_attention`` replaces ``paged_decode_attention_pallas``
 (both in ``src/repro/kernels/decode_attention/kernel.py``).  On an H100
 both are bound by bytes: every step streams each row's valid K/V once at
-about one operation per byte.  Their design (``csrc/decode_common.cuh``):
-one block per (row, KV head) serving all the query heads of that group,
-eight warps splitting the valid keys in chunks of eight with all of a
-chunk's loads in flight together, f32 online softmax per warp, a shared-memory
-merge; keys outside the row's window, and for the paged kernel logical
-blocks past ``pos``, are never read.
+about one operation per byte.  Their design (``csrc/decode_common.cuh``)
+splits each row's keys across blocks (flash-decoding): the grid is
+(row x KV head x head chunk, splits), each block stages its split's
+valid keys by cp.async and keeps an f32 online softmax per query head,
+and the last block of a row to finish merges the f32 partials in the
+same launch.  The split plan is ``_geometry.decode_plan``, fixed by the
+static shapes alone (never by ``pos`` or ``starts``, which stay on the
+device).  Keys outside the row's window, and for the paged kernel
+logical blocks past ``pos``, are never read.
+
+The merge finds the last block through a ticket counter per grid row.
+The counters are zeroed once and kept per (device, stream) here, since
+two launches running at once on two streams would draw each other's
+tickets; each launch's last blocks leave them at zero again.
 
 For CPU tensors the wrappers run the plain versions in ``ref.py``; for
 CUDA tensors they launch the kernel or raise.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import (KERNEL_DTYPES, check_same,
-                                         int32_vector, on_cpu, q_scale,
+                                         int_vector, on_cpu, q_scale,
                                          require)
+from repro_torch.kernels._geometry import DEC_MAX_D, DecodePlan, decode_plan
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, paged_decode_attention_ref)
 
-MAX_HEAD_DIM = 128
-MAX_GROUP = 8
+MAX_HEAD_DIM = DEC_MAX_D
+
+# (device index, raw stream) -> zeroed int32 ticket counters
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _check_q(name: str, q: torch.Tensor, hkv: int) -> None:
-    """Shape, dtype and head checks shared by both decode wrappers."""
+    """Shape, dtype and head checks shared by both decode wrappers: any
+    group (HQ a multiple of HKV), 1 <= D <= 256, bf16 or float32."""
     require(q.dim() == 4 and q.shape[2] == 1,
             f"{name}: q must be [B,HQ,1,D], got {tuple(q.shape)}")
     hq, d = q.shape[1], q.shape[3]
-    require(hq % hkv == 0 and hq // hkv <= MAX_GROUP,
-            f"{name}: HQ={hq} must be a multiple of HKV={hkv} with at "
-            f"most {MAX_GROUP} query heads per KV head")
+    require(hkv >= 1 and hq % hkv == 0,
+            f"{name}: HQ={hq} must be a multiple of HKV={hkv}")
     require(1 <= d <= MAX_HEAD_DIM,
             f"{name}: head_dim {d} not in [1, {MAX_HEAD_DIM}]")
     require(q.dtype in KERNEL_DTYPES, f"{name}: dtype {q.dtype} not "
             f"supported")
+
+
+def _plan(name: str, q: torch.Tensor, hkv: int, limit: int,
+          block_size: int) -> DecodePlan:
+    """The call's split plan from its static shapes; raises on one the
+    kernel cannot run."""
+    b, hq, _, d = q.shape
+    plan = decode_plan(b, hq, hkv, d, limit, block_size, q.element_size())
+    require(plan.error is None, f"{name}: {plan.error}")
+    return plan
+
+
+def _scratch(plan: DecodePlan, device: torch.device):
+    """(partials workspace or None, ticket counters) for one launch: the
+    workspace from the caching allocator (no launch), the counters those
+    of the current stream, zeroed when first made or grown."""
+    ws = (torch.empty(plan.workspace_floats, dtype=torch.float32,
+                      device=device) if plan.workspace_floats else None)
+    key = (device.index, _build.stream_handle(device))
+    tickets = _TICKETS.get(key)
+    if tickets is None or tickets.numel() < plan.tickets:
+        tickets = torch.zeros(max(plan.tickets, 4096), dtype=torch.int32,
+                              device=device)
+        _TICKETS[key] = tickets
+    return ws, tickets
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -60,15 +96,20 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     require(k.shape == (b, hkv, s, d) and v.shape == k.shape,
             f"{name}: cache shape {tuple(k.shape)} does not match q")
     check_same(name, [q, k, v], q.dtype)
-    pos_t = int32_vector(pos, b, q.device, "pos")
+    plan = _plan(name, q, hkv, s, 0)
+    pos_t = int_vector(pos, b, q.device, "pos")
+    # int64, the model's own dtype: its starts pass without a conversion
     st = (None if starts is None
-          else int32_vector(starts, b, q.device, "starts"))
+          else int_vector(starts, b, q.device, "starts", torch.int64))
     out = torch.empty_like(q)
+    ws, tickets = _scratch(plan, q.device)
     rc = _build.load().decode_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         pos_t.data_ptr(), None if st is None else st.data_ptr(),
-        b, hq, hkv, s, d, q_scale(q), int(q.dtype == torch.bfloat16),
-        _build.stream_handle(q.device))
+        None if ws is None else ws.data_ptr(), tickets.data_ptr(),
+        b, hq, hkv, s, d, plan.split_keys,
+        plan.tile_keys, plan.head_chunk, plan.smem, q_scale(q),
+        int(q.dtype == torch.bfloat16), _build.stream_handle(q.device))
     _build.check(rc, "decode_attention_fwd")
     decode_attention.launches += 1
     return out
@@ -95,13 +136,18 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     require(tables.dim() == 2 and tables.shape[0] == b,
             f"{name}: tables must be [B,MB]")
     check_same(name, [q, k_pool, v_pool], q.dtype)
+    mb = tables.shape[1]
+    plan = _plan(name, q, hkv, mb * bs, bs)
     tb = tables.to(device=q.device, dtype=torch.int32).contiguous()
-    pos_t = int32_vector(pos, b, q.device, "pos")
+    pos_t = int_vector(pos, b, q.device, "pos")
     out = torch.empty_like(q)
+    ws, tickets = _scratch(plan, q.device)
     rc = _build.load().paged_decode_attention_fwd(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        out.data_ptr(), tb.data_ptr(), pos_t.data_ptr(), b, hq, hkv, bs,
-        tables.shape[1], d, q_scale(q), int(q.dtype == torch.bfloat16),
+        out.data_ptr(), tb.data_ptr(), pos_t.data_ptr(),
+        None if ws is None else ws.data_ptr(), tickets.data_ptr(), b, hq,
+        hkv, bs, mb, d, plan.split_keys, plan.tile_keys, plan.head_chunk,
+        plan.smem, q_scale(q), int(q.dtype == torch.bfloat16),
         _build.stream_handle(q.device))
     _build.check(rc, "paged_decode_attention_fwd")
     paged_decode_attention.launches += 1
@@ -111,4 +157,4 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 decode_attention.launches = 0
 paged_decode_attention.launches = 0
 
-__all__ = ["decode_attention", "paged_decode_attention"]
+__all__ = ["decode_attention", "paged_decode_attention", "MAX_HEAD_DIM"]

@@ -11,7 +11,8 @@ reach are visited, GQA by indexing the KV head.  The body follows the
 dtype (``_geometry.tensor_cores``): bf16 runs FlashAttention-2 on
 mma.sync with K/V double-buffered by cp.async and P V in f32 from a
 bf16 hi + lo split of p (layout ``_geometry.flash_mma_tile``); float32
-runs the CUDA-core body in IEEE fp32.
+runs the CUDA-core body in IEEE fp32.  Both take any GQA group and
+1 <= D <= 256 (``MAX_HEAD_DIM``).
 
 For a CPU tensor the wrapper runs :func:`flash_attention_ref`; for a
 CUDA tensor it launches the kernel or raises.
@@ -24,7 +25,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import (KERNEL_DTYPES, check_same,
-                                         int32_vector, on_cpu, q_scale,
+                                         int_vector, on_cpu, q_scale,
                                          require)
 from repro_torch.kernels._geometry import (FLASH_MAX_D, flash_mma_tile,
                                            tensor_cores)
@@ -62,7 +63,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     require(window is None or window > 0, "flash_attention: window <= 0")
     check_same("flash_attention", [q, k, v], q.dtype)
     st = (None if starts is None
-          else int32_vector(starts, b, q.device, "starts"))
+          else int_vector(starts, b, q.device, "starts"))
     out = torch.empty_like(q)
     lib = _build.load()
     rc = lib.flash_attention_fwd(

@@ -99,6 +99,8 @@ EMULATION_CASES = [
     (2, 4, 2, 100, 40, {"starts": [3, 99]}),       # D 40 pads to 48
     (1, 2, 1, 130, 20, {"causal": False}),         # D % 8 != 0
     (2, 2, 2, 64, 96, {"starts": [64, 10]}),       # an all-pad row
+    (1, 16, 1, 128, 256, {"starts": [40]}),        # D 256, group 16
+    (1, 5, 1, 70, 200, {"window": 30}),            # D 200 pads to 224
 ]
 
 
@@ -124,6 +126,7 @@ PALLAS_CASES = [
     (2, 4, 2, 37, 16, None, [0, 12]),
     (1, 4, 1, 100, 96, 9, None),
     (2, 2, 2, 65, 128, None, [5, 64]),
+    (1, 8, 1, 64, 256, None, [9]),
 ]
 
 
@@ -173,9 +176,12 @@ def test_rounding_p_once_breaks_the_contract():
     (16, 16, "cp.async"), (96, 96, "cp.async"), (128, 128, "cp.async"),
     (40, 48, "cp.async"), (1, 16, "registers"), (20, 32, "registers"),
     (100, 112, "registers"), (127, 128, "registers"),
+    (256, 256, "cp.async"), (129, 160, "registers"), (200, 224, "cp.async"),
+    (250, 256, "registers"),
 ])
 def test_flash_layout_pads_the_head_dim_to_the_mma_k(d, dp, staging):
-    """D pads to 16; rows of 16-byte multiples go by cp.async, others
+    """D pads to 16 (to 32 above 128, where Q's fragments are re-read
+    from shared memory); rows of 16-byte multiples go by cp.async, others
     through registers into the same tiles; shared memory holds the Q/O
     tile and two K and V stages of [64][dp + 8] bf16 (rows an odd
     number of 16-byte units)."""
@@ -186,9 +192,12 @@ def test_flash_layout_pads_the_head_dim_to_the_mma_k(d, dp, staging):
     assert t.threads == 128 and t.smem <= geo.SMEM_BYTES
 
 
-@pytest.mark.parametrize("d", [0, 129, 256])
+@pytest.mark.parametrize("d", [0, 257, 512])
 def test_flash_layout_refuses_head_dims_above_128(d):
-    assert MAX_HEAD_DIM == geo.FLASH_MAX_D == 128
+    """Head dims outside [1, FLASH_MAX_D] are refused.  The name is the
+    test's from when the limit was 128; it is 256 now, the widest of the
+    repository's configs (paligemma-3b, recurrentgemma-9b)."""
+    assert MAX_HEAD_DIM == geo.FLASH_MAX_D == 256
     assert "head_dim" in geo.flash_mma_tile(d).error
 
 

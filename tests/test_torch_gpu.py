@@ -24,6 +24,7 @@ from repro_torch.kernels import (decode_attention, flash_attention,  # noqa: E40
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_ref, paged_decode_attention_ref)
 from repro_torch.kernels.flash_attention import flash_attention_ref  # noqa: E402
+from repro_torch.kernels._geometry import decode_plan  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan_ref  # noqa: E402
 from repro_torch.kernels import conv2d, matmul, sparse_conv2d  # noqa: E402
 from repro_torch.kernels.conv2d import conv2d_plain  # noqa: E402
@@ -363,6 +364,169 @@ def test_cuda_bf16_flash_mma_unaligned_base(cuda_device):
     got = flash_attention(q, k, v)
     torch.cuda.synchronize()
     assert _share_of_tol(got, flash_attention_ref(q, k, v)) <= 1.0
+
+
+# The split decode (decode_split_kernel): D 256 with 16 query heads on
+# one KV head (two head chunks) and 8 on 1, group 5, the main geometry,
+# windows inside one split (the other splits empty), a row with no valid
+# key (zeros), D 20 (rows staged element by element); each called twice
+# in a row, which must give the very same result (the merging block
+# leaves its ticket at 0 for the next launch).
+DECODE_SPLIT_CASES = [
+    # (B, HQ, HKV, S, D, pos, starts)
+    (2, 16, 1, 512, 256, [511, 300], [0, 290]),
+    (2, 8, 1, 512, 256, [40, 511], [0, 500]),
+    (3, 5, 1, 200, 64, [199, 5, 100], [0, 0, 90]),
+    (4, 32, 32, 544, 96, [512] * 4, [472, 412, 262, 212]),
+    (2, 4, 2, 300, 20, [299, 10], [250, 20]),
+]
+
+
+def _twice(fn):
+    """Two calls in a row; the second must equal the first."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    return a
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", DECODE_SPLIT_CASES,
+                         ids=[f"{c[0]}x{c[1]}/{c[2]}-s{c[3]}-d{c[4]}"
+                              for c in DECODE_SPLIT_CASES])
+def test_cuda_split_decode_matches_plain(cuda_device, dtype, case):
+    b, hq, hkv, s, d, pos, starts = case
+    dt = getattr(torch, dtype)
+    plan = decode_plan(b, hq, hkv, d, s, 0, dt.itemsize)
+    assert plan.splits > 1 and plan.error is None
+    g = torch.Generator(device=cuda_device).manual_seed(s + d + hq)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dt)
+
+    q, k, v = rn(b, hq, 1, d), rn(b, hkv, s, d), rn(b, hkv, s, d)
+    pos_t = torch.tensor(pos, device=cuda_device)
+    st = torch.tensor(starts, device=cuda_device)
+    before = decode_attention.launches
+    got = _twice(lambda: decode_attention(q, k, v, pos_t, starts=st))
+    assert decode_attention.launches - before == 2
+    want = decode_attention_ref(q, k, v, pos_t, starts=st)
+    assert _share_of_tol(got, want) <= 1.0
+    for i in range(b):
+        if starts[i] > pos[i]:
+            assert (got[i] == 0).all()
+
+
+@pytest.mark.gpu
+def test_cuda_decode_takes_pos_and_starts_as_any_int(cuda_device):
+    """The kernel reads int32 pos and int64 starts; pos as an int, an
+    int32 or an int64 tensor and starts as an int32 or an int64 tensor
+    give the very same output."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device)
+               for shape in ((4, 8, 1, 64), (4, 2, 300, 64),
+                             (4, 2, 300, 64)))
+    outs = [decode_attention(q, k, v, p, starts=st)
+            for p in (250, torch.full((4,), 250, device=cuda_device,
+                                      dtype=torch.int32),
+                      torch.full((4,), 250, device=cuda_device))
+            for st in (torch.full((4,), 40, device=cuda_device,
+                                  dtype=torch.int32),
+                       torch.full((4,), 40, device=cuda_device))]
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+    want = decode_attention_ref(
+        q, k, v, 250, starts=torch.full((4,), 40, device=cuda_device))
+    assert _share_of_tol(outs[0], want) <= 1.0
+
+
+PAGED_SPLIT_CASES = [
+    # (HQ, HKV, D, bs, MB, pos)
+    (16, 1, 256, 16, 34, [511, 3]),
+    (8, 1, 256, 16, 34, [17, 300]),
+    (5, 1, 64, 4, 40, [159, 0]),
+    (32, 32, 96, 16, 34, [17, 100, 300, 511]),
+    (4, 2, 20, 16, 8, [127, -1]),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", PAGED_SPLIT_CASES,
+                         ids=[f"{c[0]}/{c[1]}-d{c[2]}-bs{c[3]}"
+                              for c in PAGED_SPLIT_CASES])
+def test_cuda_split_paged_decode_matches_plain(cuda_device, dtype, case):
+    hq, hkv, d, bs, mb, pos = case
+    dt = getattr(torch, dtype)
+    b = len(pos)
+    plan = decode_plan(b, hq, hkv, d, mb * bs, bs, dt.itemsize)
+    assert plan.splits > 1 and plan.split_keys % bs == 0
+    g = torch.Generator(device=cuda_device).manual_seed(d + bs + hq)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dt)
+
+    nb = 1 + b * mb
+    q, kp, vp = rn(b, hq, 1, d), rn(nb, hkv, bs, d), rn(nb, hkv, bs, d)
+    perm = np.random.default_rng(d).permutation(np.arange(1, nb))
+    tables = torch.from_numpy(perm.reshape(b, mb).astype(np.int32)).to(
+        cuda_device)
+    pos_t = torch.tensor(pos, device=cuda_device)
+    before = paged_decode_attention.launches
+    got = _twice(lambda: paged_decode_attention(q, kp, vp, tables, pos_t))
+    assert paged_decode_attention.launches - before == 2
+    want = paged_decode_attention_ref(q, kp, vp, tables, pos_t)
+    assert _share_of_tol(got, want) <= 1.0
+    for i, p in enumerate(pos):
+        if p < 0:
+            assert (got[i] == 0).all()
+
+
+@pytest.mark.gpu
+def test_cuda_decode_refuses_head_dims_above_256(cuda_device):
+    q = torch.zeros(1, 2, 1, 257, device=cuda_device)
+    k = torch.zeros(1, 1, 8, 257, device=cuda_device)
+    before = decode_attention.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        decode_attention(q, k, k, 3)
+    with pytest.raises(ValueError, match="multiple"):
+        decode_attention(q[:, :, :, :16], k[:, :, :, :16].expand(
+            1, 3, 8, 16).contiguous(), k[:, :, :, :16].expand(
+            1, 3, 8, 16).contiguous(), 3)
+    assert decode_attention.launches == before
+
+
+# flash at head_dim 256 (and 200: D pads to 224) with 8 and 16 query
+# heads on one KV head, in both bodies.
+FLASH_WIDE_CASES = [
+    # (B, HQ, HKV, S, D, kwargs)
+    (1, 8, 1, 512, 256, {"starts": [212]}),
+    (1, 16, 1, 512, 256, {"starts": [300]}),
+    (2, 5, 1, 100, 200, {"window": 40}),
+    (2, 16, 1, 70, 256, {"starts": [0, 69]}),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_WIDE_CASES,
+                         ids=[f"{c[0]}x{c[1]}/{c[2]}-s{c[3]}-d{c[4]}"
+                              for c in FLASH_WIDE_CASES])
+def test_cuda_flash_wide_heads_match_plain(cuda_device, dtype, case):
+    b, hq, hkv, s, d, kw = case
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(s + d + hq)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dt)
+
+    q, k, v = rn(b, hq, s, d), rn(b, hkv, s, d), rn(b, hkv, s, d)
+    kw = {n: torch.tensor(x, device=cuda_device) if n == "starts" else x
+          for n, x in kw.items()}
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _share_of_tol(got, flash_attention_ref(q, k, v, **kw)) <= 1.0
 
 
 # bf16 block-sparse conv on the tensor cores: count-0 oc blocks, the

@@ -50,6 +50,10 @@ FLASH_CASES = [
     (2, 4, 2, 64, 16, 24, False),
     (1, 2, 2, 256, 96, None, True),
     (2, 4, 2, 128, 96, 40, True),
+    # head_dim 256 with 8 and 16 query heads on one KV head; group 5
+    (1, 8, 1, 64, 256, None, True),
+    (2, 16, 1, 64, 256, 24, True),
+    (2, 5, 1, 64, 256, None, True),
 ]
 
 
@@ -86,10 +90,22 @@ def test_flash_plain_noncausal_matches_pallas():
                                atol=ATOL)
 
 
-@pytest.mark.parametrize("d", [16, 96])
-def test_decode_plain_matches_pallas(d):
-    rng = np.random.default_rng(d)
-    b, hq, hkv, s = 3, 4, 2, 64
+# (D, HQ, HKV): the original two, then head_dim 256 with group 8 (one KV
+# head) and 16, and group 5
+DECODE_CASES = [
+    pytest.param(16, 4, 2, id="16"),
+    pytest.param(96, 4, 2, id="96"),
+    pytest.param(256, 8, 1, id="256-g8"),
+    pytest.param(256, 16, 1, id="256-g16"),
+    pytest.param(256, 5, 1, id="256-g5"),
+]
+
+
+@pytest.mark.parametrize("d,hq,hkv", DECODE_CASES)
+def test_decode_plain_matches_pallas(d, hq, hkv):
+    # the original cases (4 heads) keep their seeds
+    rng = np.random.default_rng(d if hq == 4 else d + hq)
+    b, s = 3, 64
     q, k, v = _rand(rng, b, hq, 1, d), _rand(rng, b, hkv, s, d), \
         _rand(rng, b, hkv, s, d)
     pos = np.array([5, 40, 63], np.int32)
@@ -123,10 +139,10 @@ def _paged_inputs(rng, d, hq=4, hkv=2, bs=4, nb=12, mb=5):
     return q, kp, vp, tables, pos
 
 
-@pytest.mark.parametrize("d", [16, 96])
-def test_paged_decode_plain_matches_pallas(d):
-    rng = np.random.default_rng(100 + d)
-    q, kp, vp, tables, pos = _paged_inputs(rng, d)
+@pytest.mark.parametrize("d,hq,hkv", DECODE_CASES)
+def test_paged_decode_plain_matches_pallas(d, hq, hkv):
+    rng = np.random.default_rng(100 + d if hq == 4 else 100 + d + hq)
+    q, kp, vp, tables, pos = _paged_inputs(rng, d, hq=hq, hkv=hkv)
     ref = paged_decode_attention_pallas(
         jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
         jnp.asarray(tables), jnp.asarray(pos), interpret=True)
