@@ -24,7 +24,10 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
    one decode split) and the selective scan (Di 8192, N 16; smoke Di
    128, N 8), with kernel, plain and library times from CUDA events (L2
    flushed before each timed launch), each decode kernel's split plan
-   beside its ``[time]``, ``[time_wide]`` for the head_dim 256
+   and the scan's launch (states a lane, threads, warps an SM) beside
+   its ``[time]`` (the scan at the largest engine prefill, generate's
+   [4, 512] prefill and the decode step, each also at block_d 32-256 in
+   ``[time_block_d]``), ``[time_wide]`` for the head_dim 256
    instances, and flash's time at every engine prompt bucket
    (``[time_bucket]``);
 4. engine: ``ServeSession`` on full-width, full-depth phi3-mini-3.8b in
@@ -350,7 +353,7 @@ def kernel_checks(torch, dev, timer):
     from repro_torch.kernels.decode_attention import (
         decode_attention_ref, paged_decode_attention_ref)
     from repro_torch.kernels.flash_attention import flash_attention_ref
-    from repro_torch.kernels._geometry import decode_plan
+    from repro_torch.kernels._geometry import decode_plan, scan_layout
     from repro_torch.kernels.ssm_scan import DEFAULT_BLOCK_D, ssm_scan_ref
     from repro_torch.models import bucket_length
 
@@ -630,10 +633,24 @@ def kernel_checks(torch, dev, timer):
         by = max(t, key=t.get)
         return t[by] * 1e3, "bytes" if by == "bytes" else "operations"
 
+    def scan_plan(bt, block_d=DEFAULT_BLOCK_D):
+        """The scan's launch at [bt, ., 8192], N 16, bf16: states a
+        lane, threads a block, blocks, and the warps an SM holds when
+        the grid is spread over the 132 SMs."""
+        lay = scan_layout(block_d, n, 2)
+        blocks = bt * -(-di // block_d)
+        return (f"states_per_lane={lay.states_per_lane} "
+                f"lanes={lay.lanes} threads={lay.threads} blocks={blocks} "
+                f"warps_per_sm={blocks * lay.threads / 32 / 132:.2f} "
+                f"smem={lay.smem}")
+
     # timed at the largest engine prefill: [1, 512, 8192], 300 real steps
     sargs = scan_inputs(bf16, 1, 512, di, n, real=[300])
     b_ms, b_by = scan_bound(1, 512, di, n, 2, 300, False)
     d_ms, _ = scan_bound(4, 1, di, n, 2, 4, True)
+    # generate's prefill: [4, 512, 8192] with its four prompts
+    gargs = scan_inputs(bf16, 4, 512, di, n, real=GENERATE_PROMPTS)
+    g_ms, g_by = scan_bound(4, 512, di, n, 2, sum(GENERATE_PROMPTS), False)
     summary["ssm_scan"] = dict(
         name="ssm_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/ssm_scan.cu",
@@ -650,10 +667,16 @@ def kernel_checks(torch, dev, timer):
                    f"67 TFLOP/s)",
         shape=f"x [1,512,8192] bf16, 300 real steps, N 16, block_d "
               f"{DEFAULT_BLOCK_D}",
+        plan=scan_plan(1),
         decode_shape="x [4,1,8192] bf16, h0 [4,8192,16], N 16",
         decode_ms=timer(lambda: ssm_scan(*dargs)),
         decode_plain_ms=timer(lambda: ssm_scan_ref(*dargs)),
-        decode_bound_ms=d_ms)
+        decode_bound_ms=d_ms,
+        generate_shape=f"x [4,512,8192] bf16, real steps "
+                       f"{GENERATE_PROMPTS}, N 16",
+        generate_ms=timer(lambda: ssm_scan(*gargs)),
+        generate_plain_ms=timer(lambda: ssm_scan_ref(*gargs), iters=5),
+        generate_bound_ms=g_ms, generate_bound_by=g_by)
     for e in summary.values():
         phase("time", kernel=e["name"], ms=f"{e['ms']:.4f}",
               plain_ms=f"{e['plain_ms']:.4f}",
@@ -662,9 +685,10 @@ def kernel_checks(torch, dev, timer):
                           else f"{e['library_ms']:.4f}"),
               **({"plan": repr(e["plan"])} if "plan" in e else {}))
     e = summary["ssm_scan"]
-    # block_d is the kernel's launch parameter: the same prefill and
+    # block_d is the kernel's launch parameter: the two prefills and the
     # decode step at each
-    for tag, args in (("prefill", sargs), ("decode", dargs)):
+    for tag, args in (("prefill", sargs), ("generate", gargs),
+                      ("decode", dargs)):
         by_bd = {}
         for bd in (32, 64, 128, 256):
             ms = timer(lambda: ssm_scan(*args, block_d=bd))
@@ -672,10 +696,16 @@ def kernel_checks(torch, dev, timer):
         phase("time_block_d", kernel=f"ssm_scan_{tag}", **by_bd)
     phase("time_l2_warm", kernel="ssm_scan", shape=repr(e["shape"]),
           ms=f"{e['ms_l2_warm']:.4f}")
+    phase("time", kernel="ssm_scan_generate",
+          shape=repr(e["generate_shape"]), ms=f"{e['generate_ms']:.4f}",
+          plain_ms=f"{e['generate_plain_ms']:.4f}",
+          bound_ms=f"{e['generate_bound_ms']:.4f}",
+          bound_by=e["generate_bound_by"], library_ms="null",
+          plan=repr(scan_plan(4)))
     phase("time", kernel="ssm_scan_decode", ms=f"{e['decode_ms']:.4f}",
           plain_ms=f"{e['decode_plain_ms']:.4f}",
           bound_ms=f"{e['decode_bound_ms']:.4f}", bound_by="bytes",
-          library_ms="null")
+          library_ms="null", plan=repr(scan_plan(4)))
     return summary
 
 

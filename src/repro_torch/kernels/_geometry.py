@@ -2,10 +2,11 @@
 
 One place answers "how does the CUDA kernel lay out this block, and does
 it fit?" for the direct conv, the block-sparse conv, the tiled matmul,
-flash attention and the split decode (``decode_plan``), per dtype: bf16
-runs on the tensor cores (``conv_mma_tile``, also the block-sparse
-conv's with its index row, ``matmul_mma_tile``, ``flash_mma_tile``),
-float32 on the CUDA cores (``conv_tile``, ``matmul_tile``);
+flash attention, the split decode (``decode_plan``) and the selective
+scan (``scan_layout``), per dtype: bf16 runs on the tensor cores
+(``conv_mma_tile``, also the block-sparse conv's with its index row,
+``matmul_mma_tile``, ``flash_mma_tile``), float32 on the CUDA cores
+(``conv_tile``, ``matmul_tile``);
 ``tensor_cores`` is the one rule that picks by element size, and
 ``conv_layout``, ``sparse_layout`` and ``matmul_layout`` follow it. The
 wrappers use it to launch (and to raise on a block the kernel cannot
@@ -87,6 +88,14 @@ DEC_MAX_SPLITS = 256
 # about a full wave of blocks: 132 SMs x 8 resident 128-thread blocks
 DEC_TARGET_BLOCKS = 132 * 8
 DEC_STATS_BYTES = (3 * DEC_MAX_HEADS + 4) * 4   # m, l, alpha + flag
+
+# Selective scan (csrc/ssm_scan.cu, kP and kTile): a channel's N states
+# are split across N / SCAN_STATES_PER_LANE lanes of a warp; x, dt, b and
+# c are staged SCAN_TILE_STEPS steps at a time in two stages of shared
+# memory.
+SCAN_STATES = (8, 16)
+SCAN_STATES_PER_LANE = 4
+SCAN_TILE_STEPS = 32
 
 
 def _pow2_at_least(n: int, choices) -> Optional[int]:
@@ -490,10 +499,44 @@ def matmul_layout(bm: int, bn: int, bk: int, k: int, elem_bytes: int,
     return matmul_tile(bm, bn, bk, k, elem_bytes, resident_rhs)
 
 
-__all__ = ["ConvTile", "MatmulTile", "ConvMmaTile", "MatmulMmaTile",
-           "FlashMmaTile", "DecodePlan", "decode_plan", "conv_tile",
-           "matmul_tile", "conv_mma_tile", "matmul_mma_tile",
-           "flash_mma_tile", "conv_layout", "sparse_layout",
-           "matmul_layout", "matmul_mma_route", "tensor_cores",
-           "sparse_tile", "MMA_BN", "MAX_THREADS", "SMEM_BYTES",
-           "WARP"]
+@dataclasses.dataclass(frozen=True)
+class ScanLayout:
+    """How the selective scan lays out a block of channels
+    (``csrc/ssm_scan.cu``): ``lanes`` threads a channel, each holding
+    ``states_per_lane`` consecutive states; ``error`` says why the kernel
+    cannot take it (None when it can)."""
+    states_per_lane: int
+    lanes: int
+    threads: int
+    smem: int             # two stages of dt, b, c and x
+    error: Optional[str]
+
+
+def scan_layout(block_d: int, n: int, elem_bytes: int) -> ScanLayout:
+    """The scan's block for ``block_d`` channels of ``n`` states with x
+    of ``elem_bytes`` bytes (``scan_stage_bytes`` in the source computes
+    the same stage)."""
+    states_per_lane = SCAN_STATES_PER_LANE
+    lanes = max(n // states_per_lane, 1)
+    threads = block_d * lanes
+    stage = SCAN_TILE_STEPS * (block_d * (4 + elem_bytes) + 2 * n * 4)
+    error = None
+    if n not in SCAN_STATES:
+        error = f"state size {n} not in {SCAN_STATES}"
+    elif block_d < WARP or block_d % WARP:
+        error = f"block_d {block_d} must be a positive multiple of {WARP}"
+    elif threads > MAX_THREADS:
+        error = (f"block_d {block_d} x {lanes} lanes a channel = {threads} "
+                 f"threads > {MAX_THREADS}")
+    elif 2 * stage > SMEM_BYTES:
+        error = (f"block_d {block_d}: {2 * stage} bytes of shared memory > "
+                 f"{SMEM_BYTES}")
+    return ScanLayout(states_per_lane, lanes, threads, 2 * stage, error)
+
+
+__all__ = ["ScanLayout", "scan_layout", "ConvTile", "MatmulTile",
+           "ConvMmaTile", "MatmulMmaTile", "FlashMmaTile", "DecodePlan",
+           "decode_plan", "conv_tile", "matmul_tile", "conv_mma_tile",
+           "matmul_mma_tile", "flash_mma_tile", "conv_layout", "sparse_layout",
+           "matmul_layout", "matmul_mma_route", "tensor_cores", "sparse_tile",
+           "MMA_BN", "MAX_THREADS", "SMEM_BYTES", "WARP"]

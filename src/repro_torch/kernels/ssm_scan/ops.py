@@ -4,11 +4,13 @@
 (``src/repro/kernels/ssm_scan/kernel.py``).  On an H100 the prefill scan
 is bound by its exps on the special-function units (67 M of them at
 [1, 512, 8192], N 16: ~16 us against ~10 us for its ~35 MB), and the
-S = 1 decode step by the float32 state it reads and writes.  The design
-(one thread per channel, the state in registers for the whole sequence,
-b and c staged in shared memory a tile of steps at a time) keeps every
-[Bt, S, Di, N] intermediate out of device memory, as the TPU kernel kept
-its state in VMEM; see the source for the grid and ``block_d``.
+S = 1 decode step by the float32 state it reads and writes.  The kernel
+keeps every [Bt, S, Di, N] intermediate out of device memory, as the TPU
+kernel kept its state in VMEM: a block scans ``block_d`` channels over
+the whole sequence, each channel's N states split across N / 4 lanes of
+a warp with the state in registers, and x, dt, b and c staged in shared
+memory a tile of steps ahead, so no step waits on device memory
+(``_geometry.scan_layout`` gives the block; the source has the design).
 
 For CPU tensors the wrapper runs the plain version in ``ref.py``; for
 CUDA tensors it launches the kernel or raises.
@@ -20,18 +22,20 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._geometry import SCAN_STATES, scan_layout
 from repro_torch.kernels._checks import (KERNEL_DTYPES, check_same, on_cpu,
                                          require)
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
 # State sizes the kernel is instantiated for: falcon-mamba-7b (16) and
 # its smoke config (8).
-KERNEL_STATES = (8, 16)
-# Channels per block on the main path: Di = 8192 at batch 1 gives 128
-# blocks for the H100's 132 SMs; 32 to 256 measure within 8% of each
-# other (see csrc/ssm_scan.cu).
-DEFAULT_BLOCK_D = 64
-MAX_BLOCK_D = 1024
+KERNEL_STATES = SCAN_STATES
+# Channels a block on the main path: 32 (128 threads; Di = 8192 at
+# batch 1 gives 256 blocks, two an SM), measured fastest of chip_smoke's
+# sweep of 32-256 at both prefill shapes on an H100 (1-3% ahead of 64;
+# 128 and 256 leave SMs idle at batch 1) and level with it at the decode
+# step (PERF.md).
+DEFAULT_BLOCK_D = 32
 
 
 def ssm_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
@@ -42,9 +46,9 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     """x [Bt,S,Di] (float32 or bf16); dt [Bt,S,Di], b/c [Bt,S,N], a
     [Di,N] float32; d [Di] in x's dtype; h0 [Bt,Di,N] float32 or None
     (zeros).  Returns (y [Bt,S,Di] in x's dtype, final state [Bt,Di,N]
-    float32).  ``block_d`` channels per block (a multiple of 32 up to
-    1024) is the kernel's launch parameter; the plain version has no
-    blocks."""
+    float32).  ``block_d`` channels a block (a multiple of 32, with
+    ``block_d * N / 4`` threads at most 1024) is the kernel's launch
+    parameter; the plain version has no blocks."""
     if on_cpu(x):
         return ssm_scan_ref(x, dt, b, c, a, d, h0)
     name = "ssm_scan"
@@ -54,14 +58,11 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     require(b.dim() == 3 and b.shape[:2] == (bt, seq),
             f"{name}: b must be [Bt,S,N], got {tuple(b.shape)}")
     n = b.shape[2]
-    require(n in KERNEL_STATES, f"{name}: state size {n} not in "
-            f"{KERNEL_STATES}")
     require(seq >= 1, f"{name}: empty sequence")
-    require(block_d % 32 == 0 and 32 <= block_d <= MAX_BLOCK_D,
-            f"{name}: block_d {block_d} must be a multiple of 32 in "
-            f"[32, {MAX_BLOCK_D}]")
     require(x.dtype in KERNEL_DTYPES, f"{name}: dtype {x.dtype} not "
             f"supported")
+    layout = scan_layout(block_d, n, x.element_size())
+    require(layout.error is None, f"{name}: {layout.error}")
     require(dt.shape == x.shape, f"{name}: dt {tuple(dt.shape)} must be "
             f"{tuple(x.shape)}")
     require(c.shape == b.shape, f"{name}: c {tuple(c.shape)} must be "

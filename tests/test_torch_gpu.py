@@ -104,12 +104,17 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n,di,block_d", [(16, 8192, 64), (8, 128, 32),
-                                          (8, 100, 64)])
+                                          (8, 100, 64), (16, 8192, 32),
+                                          (16, 8192, 128), (16, 8192, 256),
+                                          (16, 100, 32)])
 def test_cuda_ssm_scan_matches_plain_version(cuda_device, dtype, n, di,
                                              block_d):
-    """Prefill (no h0, 37 steps: a ragged last tile) and an S=1 decode
-    step from a state; y to the dtype's tolerance, the float32 state to
-    1e-5."""
+    """Prefill without h0 (37 steps: a ragged last tile; 101 steps over
+    several tiles with a masked pad prefix on one row and a row masked
+    throughout, whose final state and y must be exactly 0) and the S=1
+    decode step from a state at 1, 2 and 4 rows, at the block_d values
+    chip_smoke.py sweeps; y to the dtype's tolerance, the float32 state
+    to 1e-5."""
     dt_ = getattr(torch, dtype)
     g = torch.Generator(device=cuda_device).manual_seed(n + di)
 
@@ -119,16 +124,25 @@ def test_cuda_ssm_scan_matches_plain_version(cuda_device, dtype, n, di,
     a = -torch.arange(1, n + 1, device=cuda_device,
                       dtype=torch.float32).repeat(di, 1)
     d = rn(di).to(dt_)
-    for bt, s, with_h0 in ((2, 37, False), (4, 1, True)):
+    cases = ((2, 37, False, ()), (3, 101, False, (40, 101, 0)),
+             (1, 1, True, ()), (2, 1, True, ()), (4, 1, True, ()))
+    for bt, s, with_h0, pads in cases:
         x = rn(bt, s, di).to(dt_)
         dt = torch.nn.functional.softplus(rn(bt, s, di) * 0.5 - 1.0)
         b, c = rn(bt, s, n), rn(bt, s, n)
+        for row, pad in enumerate(pads):
+            x[row, :pad] = 0
+            b[row, :pad] = 0
         h0 = rn(bt, di, n) if with_h0 else None
         y, h = ssm_scan(x, dt, b, c, a, d, h0, block_d=block_d)
         y_ref, h_ref = ssm_scan_ref(x, dt, b, c, a, d, h0)
         torch.cuda.synchronize()
         assert _share_of_tol(y, y_ref) <= 1.0
         assert (h - h_ref).abs().max().item() <= 1e-5
+        for row, pad in enumerate(pads):
+            assert torch.equal(y[row, :pad], torch.zeros_like(y[row, :pad]))
+            if pad == s:
+                assert torch.equal(h[row], torch.zeros_like(h[row]))
 
 
 @pytest.mark.gpu
