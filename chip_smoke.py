@@ -32,18 +32,31 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
    (``[time_bucket]``);
 4. engine: ``ServeSession`` on full-width, full-depth phi3-mini-3.8b in
    bf16 with random weights from a seed, 8 requests of mixed prompt
-   lengths, 32 new tokens each; every request must complete with finite
-   logits, through the flash and paged-decode kernels;
-5. generate: a left-padded batch of 4 on the same weights, through the
-   contiguous decode kernel; then a short engine drain under
-   ``torch.profiler`` (device busy share, device time by kernel group);
+   lengths, 32 new tokens each, drained twice through one session
+   (cold: every prefill and decode step is built; warm: none may be)
+   in each of two modes in this call: ``graphs`` (the default: each
+   step a captured CUDA graph, replayed) and ``eager``
+   (``capture=False``: the same steps, one launch per op); every
+   request must complete with finite logits, through the flash and
+   paged-decode kernels; in graphs mode every step that ran must be a
+   replay of a captured graph; tokens and launch counts of every run
+   must equal the graphs mode's cold run (``[engine]`` lines carry the
+   builds per role and bucket, capture seconds, cache hits/misses/
+   compiles, the graphs' pool memory, tok/s, TTFT and peak memory);
+5. generate: a left-padded batch of 4 on the same weights through
+   ``generate(session=)``, twice per mode, through the contiguous
+   decode kernel, held to the same rules; then a short engine drain
+   under ``torch.profiler`` in each mode, after a first drain built
+   its steps (device busy share of the window and of its decode
+   steps alone, device time by kernel group);
 6. the same engine, ``generate`` and profile phases on full-width,
    full-depth falcon-mamba-7b in bf16 (phi3's weights are freed first),
    through the selective-scan kernel: 64 launches per admission and per
    engine step;
 7. exact tokens: on phi3-mini-3.8b-smoke and falcon-mamba-7b-smoke in
-   float32, the engine's and ``generate``'s tokens through the kernels
-   must equal those of the plain PyTorch path;
+   float32, the engine's and ``generate``'s tokens through captured
+   graphs, through the kernels run eagerly and through the plain
+   PyTorch path must all be equal;
 8. the thesis path (run after phase 3): conv2d, matmul and the
    block-sparse conv at the widths of thesis Table 4.1 (batch 1 and 32),
    the GEMM form of its 1x1 layers, phi3-mini's QKV projection and the
@@ -66,6 +79,7 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
 The line before the last is the kernels' JSON summary, the last line
 ``{"ok": true, "device": {...}}``.
 """
+import gc
 import json
 import re
 import subprocess
@@ -74,6 +88,7 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12                         # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per dtype
 # exp on the special-function units: 16 a clock per SM, 132 SMs at the
@@ -90,6 +105,9 @@ MAMBA = "falcon-mamba-7b"
 NEW_TOKENS = 32
 ENGINE_PROMPTS = [200, 17, 300, 150, 45, 260, 130, 77]
 GENERATE_PROMPTS = [40, 100, 250, 300]
+# engine and generate run with captured CUDA graphs (the default) and
+# eagerly (capture=False), in this order, in every serve phase
+MODES = ("graphs", "eager")
 
 
 def fail(msg):
@@ -98,7 +116,8 @@ def fail(msg):
 
 
 def phase(tag, /, **fields):
-    """Print one phase line."""
+    """Print one phase line, ending in the seconds since the start."""
+    fields["at_s"] = f"{time.perf_counter() - T_START:.1f}"
     print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
 
@@ -1281,35 +1300,100 @@ def thesis_dispatch(torch, dev, timer, data):
     return {k: counts[k] for k in want}
 
 
-def profile_engine(torch, model, params, prompts):
+def free_card(torch):
+    """Drop what the last phase left and give the allocator's cache back,
+    so the next phase's peak memory is its own."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def step_report(session, mode, want, label):
+    """Check that every step of ``session`` ran as ``mode`` says (in
+    graphs mode each cached step holds a graph, none without) and that
+    its steps' replays per role equal ``want``; returns (builds as
+    ``role[bB,tL]``, captures, graph pool GiB, cache ``hits/misses/
+    compiles``)."""
+    cache = session.exec_cache
+    replays = {"prefill": 0, "decode": 0}
+    builds, captures = [], 0
+    for k in cache.compiled_log:
+        step = cache.peek(k)
+        if step is None:
+            fail(f"{label}: step {k} was evicted (cache capacity "
+                 f"{cache.capacity})")
+        if (step.graph is not None) != (mode == "graphs"):
+            fail(f"{label}: step {k} has graph={step.graph is not None} "
+                 f"in {mode} mode")
+        captures += step.graph is not None
+        replays[k.role] += step.replays
+        builds.append(f"{k.role}[b{k.batch},t{k.length}]")
+    if replays != want:
+        fail(f"{label}: steps replayed {replays}, want {want}")
+    pool = sum(cache.peek(k).pool_bytes for k in cache.compiled_log)
+    return (builds, captures, f"{pool / 2 ** 30:.3f}",
+            f"{cache.hits}/{cache.misses}/{cache.compiles}")
+
+
+def profile_engine(torch, model, params, prompts, mode):
     """One short engine drain (4 requests, 16 new tokens) under
-    ``torch.profiler``: the device's busy share of the wall time and
-    the kernels that take the device time (launches here are not
-    counted as the main path's: the counts were read before)."""
+    ``torch.profiler``, after a first drain of the same requests has
+    built (in graphs mode captured) every step outside the window: the
+    device's busy share of the wall time and the kernels that take the
+    device time (launches here are not counted as the main path's: the
+    counts were read before).  The four requests are admitted at the
+    first step boundary, so the trace from the end of decode step 1 to
+    the end of step 15 (``decode_window``, a ``record_function`` range
+    opened and closed by ``on_step``) holds decode steps only: the
+    kernels' device time inside it over its length is the decode
+    steps' busy share."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.serving import ServeSession
 
-    session = ServeSession(model, params, backend="cuda", batch_sizes=(4,))
-    for i, p in enumerate(prompts):
-        session.submit(p, 16, request_id=f"p{i}")
+    free_card(torch)
+    session = ServeSession(model, params, backend="cuda", batch_sizes=(4,),
+                           capture=mode == "graphs")
+    window = {}
+
+    def on_step(info):
+        """Open the decode window after step 1, close it after 15."""
+        if info["step"] == 1:
+            window["range"] = record_function("decode_window")
+            window["range"].__enter__()
+        elif info["step"] == 15:
+            window.pop("range").__exit__(None, None, None)
+
+    def serve(mark=False):
+        """Submit the four requests and drain them."""
+        for i, p in enumerate(prompts):
+            session.submit(p, 16, request_id=f"p{i}")
+        session.drain(on_step=on_step if mark else None)
+        torch.cuda.synchronize()
+
+    serve()
+    steps0 = session.stats.steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        session.drain()
-        torch.cuda.synchronize()
+        serve(mark=True)
         wall_us = (time.perf_counter() - t0) * 1e6
+    if window:
+        fail(f"{model.cfg.name} profile ({mode}): the drain ended before "
+             f"decode step 15")
 
     def dev_us(e):
         """Self device time of one averaged event, in us."""
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
+    # the range's own device-side annotation is no kernel
     kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+            if e.device_type == DeviceType.CUDA and dev_us(e) > 0
+            and e.key != "decode_window"]
     total = sum(dev_us(e) for e in kern)
     if not kern:
-        phase("profile", device_events=0,
+        phase("profile", arch=model.cfg.name, mode=mode, device_events=0,
               note="the profiler recorded no device time")
         return
     groups = {"port_kernels": 0.0, "gemm": 0.0, "other": 0.0}
@@ -1322,18 +1406,38 @@ def profile_engine(torch, model, params, prompts):
             groups["gemm"] += dev_us(e)
         else:
             groups["other"] += dev_us(e)
-    st = session.stats
-    phase("profile", arch=model.cfg.name, window="4_requests_x_16_tokens",
-          wall_ms=f"{wall_us / 1e3:.1f}",
+    steps = session.stats.steps - steps0
+    phase("profile", arch=model.cfg.name, mode=mode,
+          window="4_requests_x_16_tokens", wall_ms=f"{wall_us / 1e3:.1f}",
           device_ms=f"{total / 1e3:.1f}",
           device_busy_share=f"{total / wall_us:.3f}",
-          steps=st.steps, admissions=st.inflight_admissions,
-          kernels_launched=sum(e.count for e in kern),
+          **decode_window_busy(prof, DeviceType),
+          steps=steps, kernels_launched=sum(e.count for e in kern),
           **{f"{g}_ms": f"{t / 1e3:.2f}" for g, t in groups.items()})
     for e in sorted(kern, key=dev_us, reverse=True)[:8]:
-        phase("profile_top", kernel=repr(e.key[:70]), calls=e.count,
-              device_ms=f"{dev_us(e) / 1e3:.3f}",
+        phase("profile_top", mode=mode, kernel=repr(e.key[:70]),
+              calls=e.count, device_ms=f"{dev_us(e) / 1e3:.3f}",
               share=f"{dev_us(e) / total:.3f}")
+
+
+def decode_window_busy(prof, DeviceType):
+    """Fields of the trace's ``decode_window`` range: its length, the
+    device time of the kernels inside it (each clipped to the range;
+    the range's own device-side annotation, which spans them, is left
+    out) and their ratio, the decode steps' busy share (14 steps)."""
+    spans = [e.time_range for e in prof.events()
+             if e.name == "decode_window"
+             and e.device_type == DeviceType.CPU]
+    if len(spans) != 1:
+        return {"decode_window": f"{len(spans)}_ranges_in_the_trace"}
+    lo, hi = spans[0].start, spans[0].end
+    busy = sum(max(0.0, min(e.time_range.end, hi)
+                   - max(e.time_range.start, lo))
+               for e in prof.events() if e.device_type == DeviceType.CUDA
+               and e.name != "decode_window")
+    return {"decode_window_ms": f"{(hi - lo) / 1e3:.2f}",
+            "decode_window_device_ms": f"{busy / 1e3:.2f}",
+            "decode_window_busy_share": f"{busy / (hi - lo):.3f}"}
 
 
 def prompts_of(lengths, vocab, seed):
@@ -1343,12 +1447,12 @@ def prompts_of(lengths, vocab, seed):
     return [rng.integers(1, vocab, n).astype(np.int32) for n in lengths]
 
 
-def engine_run(torch, model, params, prompts, backend, **kw):
+def engine_run(torch, model, params, prompts, backend, capture, **kw):
     """Serve ``prompts`` through a fresh ServeSession; returns
     (results by id, session)."""
     from repro_torch.serving import ServeSession
     session = ServeSession(model, params, backend=backend,
-                           batch_sizes=(1, 2, 4), **kw)
+                           batch_sizes=(1, 2, 4), capture=capture, **kw)
     for i, p in enumerate(prompts):
         session.submit(p, NEW_TOKENS, request_id=f"r{i}")
     res = {r.request_id: r for r in session.drain()}
@@ -1403,16 +1507,162 @@ def main():
                                              "count": count}}))
 
 
+def engine_phase(torch, model, params, prompts, mode, smi):
+    """Serve ``prompts`` twice through one session in ``mode``: the first
+    (cold) drain builds every step, captured as CUDA graphs in graphs
+    mode, the second (warm) must build nothing.  Each drain's launch
+    counts are set to 0 just before it and read just after; one
+    ``[engine]`` line each.  Returns {drain: tokens, counts, stats}."""
+    from repro_torch import kernels
+    from repro_torch.serving import ServeSession, SessionStats
+
+    arch = model.cfg.name
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    session = ServeSession(model, params, backend="cuda",
+                           batch_sizes=(1, 2, 4), capture=mode == "graphs")
+    want = {"prefill": 0, "decode": 0}
+    out = {}
+    for drain in ("cold", "warm"):
+        session.stats = SessionStats()          # this drain's numbers
+        built = session.exec_cache.compiles
+        for i, p in enumerate(prompts):
+            session.submit(p, NEW_TOKENS, request_id=f"r{i}")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = {r.request_id: r for r in session.drain()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        bad = [r for r in res.values()
+               if r.state != "COMPLETED" or len(r.tokens) != NEW_TOKENS]
+        if len(res) != len(prompts) or bad:
+            fail(f"{arch} engine ({mode}, {drain}): {len(res)} results, "
+                 f"not completed: "
+                 f"{[(r.request_id, r.state, r.reason) for r in bad]}")
+        if drain == "warm" and session.exec_cache.compiles != built:
+            fail(f"{arch} engine ({mode}): the warm drain built "
+                 f"{session.exec_cache.compiles - built} steps")
+        st = session.stats.to_dict()
+        want["prefill"] += st["inflight_admissions"]
+        want["decode"] += st["steps"]
+        builds, captures, pool_gib, cache = step_report(
+            session, mode, want, f"{arch} engine ({mode}, {drain})")
+        step_ms = 1e3 * st["decode_s"] / max(st["steps"], 1)
+        phase("engine", arch=arch, mode=mode, drain=drain, card=repr(smi),
+              requests=st["requests"], steps=st["steps"],
+              admissions=st["inflight_admissions"],
+              activations=st["batches"],
+              ttft_p50_s=f"{st['ttft_p50_s']:.4f}",
+              ttft_p95_s=f"{st['ttft_p95_s']:.4f}",
+              decode_tok_s=f"{st['decode_tok_s']:.1f}",
+              prefill_s=f"{st['prefill_s']:.3f}",
+              decode_s=f"{st['decode_s']:.3f}",
+              step_ms=f"{step_ms:.2f}",
+              wall_s=f"{wall:.2f}",
+              e2e_tok_s=f"{st['tokens_generated'] / wall:.1f}",
+              captures=captures, builds=json.dumps(builds),
+              capture_s=f"{st['capture_s']:.2f}",
+              cache_hits_misses_compiles=cache, graph_pool_gib=pool_gib,
+              peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}",
+              peak_reserved_gib=f"{torch.cuda.max_memory_reserved() / 2 ** 30:.2f}",
+              launches=json.dumps(counts))
+        out[drain] = {"tokens": {k: v.tokens.tolist()
+                                 for k, v in res.items()},
+                      "counts": counts, "stats": st}
+    del session, res
+    return out
+
+
+def generate_phase(torch, model, params, mode, smi):
+    """A left-padded batch of 4 through ``generate(session=)`` twice in
+    ``mode`` (cold: builds both steps; warm: must build nothing); counts
+    set to 0 just before each call and read just after; one
+    ``[generate]`` line each.  Returns {call: tokens, counts}."""
+    from repro_torch import kernels
+    from repro_torch.models import left_pad_prompts, prompt_starts
+    from repro_torch.runtime import generate
+    from repro_torch.serving import ServeSession
+
+    cfg = model.cfg
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    session = ServeSession(model, params, backend="cuda",
+                           capture=mode == "graphs")
+    gp = prompts_of(GENERATE_PROMPTS, cfg.vocab_size, seed=2)
+    toks = left_pad_prompts(gp, 512)
+    starts = prompt_starts(gp, 512)
+    out = {}
+    for n, call in enumerate(("cold", "warm"), start=1):
+        built = session.exec_cache.compiles
+        capture_s = session.stats.capture_s
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        tokens, gstats = generate(model, params, {"tokens": toks},
+                                  max_new_tokens=NEW_TOKENS,
+                                  seq_starts=starts, session=session)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        if tokens.shape != (4, NEW_TOKENS) or tokens.min() < 0 \
+                or tokens.max() >= cfg.vocab_size:
+            fail(f"{cfg.name} generate ({mode}): bad tokens {tokens.shape} "
+                 f"{tokens.min()}..{tokens.max()}")
+        if call == "warm" and session.exec_cache.compiles != built:
+            fail(f"{cfg.name} generate ({mode}): the warm call built a step")
+        builds, captures, pool_gib, cache = step_report(
+            session, mode, {"prefill": n, "decode": n * (NEW_TOKENS - 1)},
+            f"{cfg.name} generate ({mode}, {call})")
+        phase("generate", arch=cfg.name, mode=mode, call=call, batch=4,
+              prompt_len=512, new_tokens=NEW_TOKENS, card=repr(smi),
+              prefill_s=f"{gstats.prefill_s:.3f}",
+              decode_tok_s=f"{gstats.decode_tok_s:.1f}",
+              step_ms=f"{1e3 * gstats.decode_s / (NEW_TOKENS - 1):.2f}",
+              wall_s=f"{wall:.2f}",
+              e2e_tok_s=f"{gstats.tokens_generated / wall:.1f}",
+              captures=captures, builds=json.dumps(builds),
+              capture_s=f"{session.stats.capture_s - capture_s:.2f}",
+              cache_hits_misses_compiles=cache, graph_pool_gib=pool_gib,
+              peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}",
+              peak_reserved_gib=f"{torch.cuda.max_memory_reserved() / 2 ** 30:.2f}",
+              launches=json.dumps(counts))
+        out[call] = {"tokens": tokens, "counts": counts}
+    del session
+    return out
+
+
+def same_runs(arch, what, runs):
+    """Fail unless every mode and drain of ``runs`` ({mode: {drain:
+    {"tokens", "counts"}}}) gave the tokens and the launch counts of the
+    graphs mode's cold run, request for request and path for path."""
+    import numpy as np
+    ref = runs["graphs"]["cold"]
+    for mode, by_drain in runs.items():
+        for drain, r in by_drain.items():
+            if isinstance(ref["tokens"], dict):
+                same = r["tokens"] == ref["tokens"]
+            else:
+                same = np.array_equal(r["tokens"], ref["tokens"])
+            if not same:
+                fail(f"{arch} {what}: {mode} {drain} tokens differ from "
+                     f"the graphs' cold run")
+            if r["counts"] != ref["counts"]:
+                fail(f"{arch} {what}: {mode} {drain} launches "
+                     f"{r['counts']} differ from the graphs' cold run "
+                     f"{ref['counts']}")
+    phase("same_tokens_and_launches", arch=arch, path=what,
+          runs=sum(len(v) for v in runs.values()), equal=True)
+
+
 def serve_phases(torch, dev, smi, arch):
     """Engine, generate and profile phases on full-size ``arch`` in its
-    own dtype with random weights from seed 0.  Each path's launch
-    counts are set to 0 just before it and read just after; returns
-    them with the engine's stats (the weights are freed on return)."""
-    from repro_torch import kernels
+    own dtype with random weights from seed 0, each in graphs mode
+    (captured steps, the default) and eager mode (``capture=False``) in
+    this call: tokens and launch counts must agree between them.
+    Returns the graphs mode's cold counts with its engine stats (the
+    weights are freed on return)."""
     from repro_torch.configs import get_config
-    from repro_torch.models import (build_model, left_pad_prompts,
-                                    prompt_starts)
-    from repro_torch.runtime import generate
+    from repro_torch.models import build_model
 
     cfg = get_config(arch)
     model = build_model(cfg)
@@ -1424,61 +1674,23 @@ def serve_phases(torch, dev, smi, arch):
           gib=f"{torch.cuda.memory_allocated() / 2 ** 30:.2f}",
           seconds=f"{time.perf_counter() - t0:.1f}")
     prompts = prompts_of(ENGINE_PROMPTS, cfg.vocab_size, seed=1)
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    res, session = engine_run(torch, model, params, prompts, "cuda")
-    wall = time.perf_counter() - t0
-    engine_counts = kernels.launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    bad = [r for r in res.values()
-           if r.state != "COMPLETED" or len(r.tokens) != NEW_TOKENS]
-    if len(res) != len(prompts) or bad:
-        fail(f"{arch} engine: {len(res)} results, not completed: "
-             f"{[(r.request_id, r.state, r.reason) for r in bad]}")
-    st = session.stats.to_dict()
-    phase("engine", arch=cfg.name, card=repr(smi),
-          requests=st["requests"], steps=st["steps"],
-          admissions=st["inflight_admissions"],
-          activations=st["batches"], ttft_p50_s=f"{st['ttft_p50_s']:.4f}",
-          ttft_p95_s=f"{st['ttft_p95_s']:.4f}",
-          decode_tok_s=f"{st['decode_tok_s']:.1f}",
-          prefill_s=f"{st['prefill_s']:.3f}",
-          decode_s=f"{st['decode_s']:.3f}", wall_s=f"{wall:.2f}",
-          e2e_tok_s=f"{st['tokens_generated'] / wall:.1f}",
-          peak_mem_gib=f"{peak:.2f}", launches=json.dumps(engine_counts))
-    del res, session
-
-    # ---- generate: left-padded batch of 4
-    gp = prompts_of(GENERATE_PROMPTS, cfg.vocab_size, seed=2)
-    toks = left_pad_prompts(gp, 512)
-    starts = prompt_starts(gp, 512)
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    out, gstats = generate(model, params, {"tokens": toks},
-                           max_new_tokens=NEW_TOKENS, backend="cuda",
-                           seq_starts=starts)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    gen_counts = kernels.launch_counts()
-    if out.shape != (4, NEW_TOKENS) or out.min() < 0 \
-            or out.max() >= cfg.vocab_size:
-        fail(f"{arch} generate: bad tokens {out.shape} "
-             f"{out.min()}..{out.max()}")
-    phase("generate", arch=cfg.name, batch=4, prompt_len=512,
-          new_tokens=NEW_TOKENS, prefill_s=f"{gstats.prefill_s:.3f}",
-          decode_tok_s=f"{gstats.decode_tok_s:.1f}", wall_s=f"{wall:.2f}",
-          e2e_tok_s=f"{gstats.tokens_generated / wall:.1f}",
-          peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}",
-          card=repr(smi), launches=json.dumps(gen_counts))
-    profile_engine(torch, model, params, prompts[:4])
-    return {"engine": engine_counts, "generate": gen_counts, "stats": st}
+    engine = {m: engine_phase(torch, model, params, prompts, m, smi)
+              for m in MODES}
+    same_runs(cfg.name, "engine", engine)
+    gen = {m: generate_phase(torch, model, params, m, smi) for m in MODES}
+    same_runs(cfg.name, "generate", gen)
+    for m in MODES:
+        profile_engine(torch, model, params, prompts[:4], m)
+    cold = engine["graphs"]["cold"]
+    return {"engine": cold["counts"],
+            "generate": gen["graphs"]["cold"]["counts"],
+            "stats": cold["stats"]}
 
 
 def exact_tokens(torch, dev, arch):
     """Smoke config in float32: the engine's and generate's tokens
-    through the kernels must equal the plain PyTorch path's."""
+    through captured graphs, through the kernels run eagerly and through
+    the plain PyTorch path must all be equal."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.models import (build_model, left_pad_prompts,
@@ -1489,29 +1701,36 @@ def exact_tokens(torch, dev, arch):
     smodel = build_model(scfg)
     sparams = smodel.init(seed=0, device=dev)
     sprompts = prompts_of([5, 7, 3, 6, 12, 9], scfg.vocab_size, seed=3)
-    streams = {}
-    kernels.reset_launch_counts()
-    for backend in ("cuda", "plain"):
-        r, _ = engine_run(torch, smodel, sparams, sprompts, backend,
-                          kv_block_size=4)
-        streams[backend] = {k: v.tokens.tolist() for k, v in r.items()}
-    if streams["cuda"] != streams["plain"]:
-        fail(f"{arch} engine tokens through the kernels differ from the "
-             f"plain path")
     stoks = left_pad_prompts(sprompts[:4], 8)
     sst = prompt_starts(sprompts[:4], 8)
-    g = {b: generate(smodel, sparams, {"tokens": stoks},
-                     max_new_tokens=12, backend=b, seq_starts=sst)[0]
-         for b in ("cuda", "plain")}
-    if not (g["cuda"] == g["plain"]).all():
-        fail(f"{arch} generate tokens through the kernels differ from the "
-             f"plain path")
+    paths = {"graphs": ("cuda", True), "eager": ("cuda", False),
+             "plain": ("plain", False)}
+    streams, g = {}, {}
+    kernels.reset_launch_counts()
+    for name, (backend, capture) in paths.items():
+        r, session = engine_run(torch, smodel, sparams, sprompts, backend,
+                                capture, kv_block_size=4)
+        streams[name] = {k: v.tokens.tolist() for k, v in r.items()}
+        graphs = [session.exec_cache.peek(k).graph is not None
+                  for k in session.exec_cache.compiled_log]
+        if graphs != [capture] * len(graphs) or not graphs:
+            fail(f"{arch} {name}: steps captured {graphs}")
+        g[name] = generate(smodel, sparams, {"tokens": stoks},
+                           max_new_tokens=12, backend=backend,
+                           seq_starts=sst, capture=capture)[0]
+    for name in paths:
+        if streams[name] != streams["plain"]:
+            fail(f"{arch} engine tokens through {name} differ from the "
+                 f"plain path")
+        if not (g[name] == g["plain"]).all():
+            fail(f"{arch} generate tokens through {name} differ from the "
+                 f"plain path")
     used = {k: v for k, v in kernels.launch_counts().items() if v}
     if not used:
         fail(f"{arch}: the cuda backend launched no kernel")
     phase("exact_tokens", arch=scfg.name, dtype="float32",
-          engine_requests=len(sprompts), generate_rows=4, equal=True,
-          kernels=json.dumps(used))
+          paths=json.dumps(list(paths)), engine_requests=len(sprompts),
+          generate_rows=4, equal=True, kernels=json.dumps(used))
 
 
 def run(torch, dev, timer, smi):
@@ -1528,45 +1747,45 @@ def run(torch, dev, timer, smi):
     for k, v in thesis.items():
         summary[k]["launches"] = v
     del data
-    torch.cuda.empty_cache()
+    free_card(torch)
 
     # ---- phi3-mini-3.8b: flash prefill, paged and contiguous decode
     phi3 = serve_phases(torch, dev, smi, PHI3)
-    ec, gc, st = phi3["engine"], phi3["generate"], phi3["stats"]
+    ec, gen, st = phi3["engine"], phi3["generate"], phi3["stats"]
     for k in ("flash_attention", "paged_decode_attention"):
         if ec[k] < 1:
             fail(f"{PHI3} engine ran no {k} kernel: {ec}")
-    if gc["decode_attention"] < 1 or gc["flash_attention"] < 1:
-        fail(f"{PHI3} generate ran no decode/flash kernel: {gc}")
+    if gen["decode_attention"] < 1 or gen["flash_attention"] < 1:
+        fail(f"{PHI3} generate ran no decode/flash kernel: {gen}")
     for k in ("flash_attention", "paged_decode_attention",
               "decode_attention"):
-        summary[k]["launches"] = ec[k] + gc[k]
+        summary[k]["launches"] = ec[k] + gen[k]
     phase("launches_per_engine_step", arch=PHI3,
           paged_decode_attention=ec["paged_decode_attention"]
           / max(st["steps"], 1),
           flash_attention_per_admission=ec["flash_attention"]
           / max(st["inflight_admissions"], 1))
-    torch.cuda.empty_cache()
+    free_card(torch)
 
     # ---- falcon-mamba-7b: the selective scan at every layer of every
     # admission, engine step and generate step
     n_layers = get_config(MAMBA).n_layers
     mamba = serve_phases(torch, dev, smi, MAMBA)
-    ec, gc, st = mamba["engine"], mamba["generate"], mamba["stats"]
+    ec, gen, st = mamba["engine"], mamba["generate"], mamba["stats"]
     want = n_layers * (st["inflight_admissions"] + st["steps"])
     if ec["ssm_scan"] != want:
         fail(f"{MAMBA} engine: {ec['ssm_scan']} ssm_scan launches, want "
              f"{n_layers} x ({st['inflight_admissions']} admissions + "
              f"{st['steps']} steps) = {want}")
-    if gc["ssm_scan"] != n_layers * NEW_TOKENS:
-        fail(f"{MAMBA} generate: {gc['ssm_scan']} ssm_scan launches, want "
+    if gen["ssm_scan"] != n_layers * NEW_TOKENS:
+        fail(f"{MAMBA} generate: {gen['ssm_scan']} ssm_scan launches, want "
              f"{n_layers} x {NEW_TOKENS}")
-    summary["ssm_scan"]["launches"] = ec["ssm_scan"] + gc["ssm_scan"]
+    summary["ssm_scan"]["launches"] = ec["ssm_scan"] + gen["ssm_scan"]
     phase("launches_per_engine_step", arch=MAMBA,
           ssm_scan=(ec["ssm_scan"] - n_layers * st["inflight_admissions"])
           / max(st["steps"], 1), ssm_scan_per_admission=n_layers,
-          engine_total=ec["ssm_scan"], generate_total=gc["ssm_scan"])
-    torch.cuda.empty_cache()
+          engine_total=ec["ssm_scan"], generate_total=gen["ssm_scan"])
+    free_card(torch)
 
     for arch in (PHI3 + "-smoke", MAMBA + "-smoke"):
         exact_tokens(torch, dev, arch)

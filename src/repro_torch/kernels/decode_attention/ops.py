@@ -17,14 +17,24 @@ logical blocks past ``pos``, are never read.
 The merge finds the last block through a ticket counter per grid row.
 The counters are zeroed once and kept per (device, stream) here, since
 two launches running at once on two streams would draw each other's
-tickets; each launch's last blocks leave them at zero again.
+tickets; each launch's last blocks leave them at zero again
+(``csrc/decode_common.cuh``), so a CUDA graph's replay needs no memset.
+A graph bakes in the counters' address.  They must exist before its
+capture: counters first made inside a capture would come from the
+graph's private memory pool and stay cached here for eager launches on
+that stream.  A :class:`~repro_torch.serving.captured.CapturedStep`
+warms up on the capture stream first, which makes them; a first use
+inside a capture raises.  Every graph shares one capture stream, so a
+later build may need more counters than its stream holds: the larger
+counters replace the old ones for new launches, and the old ones are
+kept, never freed, since a graph captured earlier still uses them.
 
 For CPU tensors the wrappers run the plain versions in ``ref.py``; for
 CUDA tensors they launch the kernel or raise.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -40,6 +50,8 @@ MAX_HEAD_DIM = DEC_MAX_D
 
 # (device index, raw stream) -> zeroed int32 ticket counters
 _TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+# counters that larger ones replaced: a graph may hold their address
+_RETIRED: List[torch.Tensor] = []
 
 
 def _check_q(name: str, q: torch.Tensor, hkv: int) -> None:
@@ -69,12 +81,19 @@ def _plan(name: str, q: torch.Tensor, hkv: int, limit: int,
 def _scratch(plan: DecodePlan, device: torch.device):
     """(partials workspace or None, ticket counters) for one launch: the
     workspace from the caching allocator (no launch), the counters those
-    of the current stream, zeroed when first made or grown."""
+    of the current stream, zeroed when first made or grown (never
+    inside a CUDA graph capture; the ones they replace are kept: see
+    the module's docstring)."""
     ws = (torch.empty(plan.workspace_floats, dtype=torch.float32,
                       device=device) if plan.workspace_floats else None)
     key = (device.index, _build.stream_handle(device))
     tickets = _TICKETS.get(key)
     if tickets is None or tickets.numel() < plan.tickets:
+        require(not torch.cuda.is_current_stream_capturing(),
+                "decode ticket counters must exist before a CUDA graph "
+                "capture: warm the step up on the capture stream first")
+        if tickets is not None:
+            _RETIRED.append(tickets)
         tickets = torch.zeros(max(plan.tickets, 4096), dtype=torch.int32,
                               device=device)
         _TICKETS[key] = tickets

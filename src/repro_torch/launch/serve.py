@@ -104,7 +104,11 @@ def main(argv=None) -> None:
                   f"compactions")
         print(f"\nsession: {summary['requests']} requests in "
               f"{summary['batches']} batches; "
-              f"{summary['decode_tok_s']:.0f} tok/s; queue p50/p95 "
+              f"{summary['decode_tok_s']:.0f} tok/s; cache hit rate "
+              f"{summary['cache_hit_rate']:.2f} "
+              f"({summary['cache']['compiles']} builds, "
+              f"{summary['cache']['evictions']} evictions, "
+              f"{summary['capture_s']:.2f}s building); queue p50/p95 "
               f"{summary['queue_p50_s']*1e3:.1f}/"
               f"{summary['queue_p95_s']*1e3:.1f}ms; ttft p50/p95 "
               f"{summary['ttft_p50_s']*1e3:.1f}/"

@@ -203,12 +203,16 @@ def attn_out(ctx: torch.Tensor, p: Params) -> torch.Tensor:
 
 
 def update_kv_cache(cache_k: torch.Tensor, cache_v: torch.Tensor,
-                    k: torch.Tensor, v: torch.Tensor, pos: int
+                    k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Write one step's k/v [B,HKV,1,hd] at slot ``pos``, in place where
-    the JAX version rebuilds the cache; returns the same tensors."""
-    cache_k.narrow(2, int(pos), 1).copy_(k)
-    cache_v.narrow(2, int(pos), 1).copy_(v)
+    """Write one step's k/v [B,HKV,1,hd] at slot ``pos`` (an int64
+    tensor of one element on the cache's device), in place where the
+    JAX version rebuilds the cache; returns the same tensors.  The slot
+    is an index op on the device, so the host reads no value and a
+    captured step writes where ``pos`` points at each replay."""
+    idx = pos.reshape(1)
+    cache_k.index_copy_(2, idx, k.to(cache_k.dtype))
+    cache_v.index_copy_(2, idx, v.to(cache_v.dtype))
     return cache_k, cache_v
 
 

@@ -11,6 +11,7 @@ layer loop is a Python loop over views, where JAX scans.
 """
 from __future__ import annotations
 
+import numbers
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -247,9 +248,11 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Any],
                 seq_starts: Optional[torch.Tensor] = None,
                 block_tables: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """One decode step: tokens [B, 1]; ``pos`` an int (shared write
-    position) or, with ``block_tables`` [B,MB], a per-row [B] tensor.
-    Returns (logits [B, 1, V] float32, cache).
+    """One decode step: tokens [B, 1]; ``pos`` the shared write position
+    (an int, or an integer tensor of one element, which the step reads
+    on the device only, as the JAX step takes a traced ``pos``) or,
+    with ``block_tables`` [B,MB], a per-row [B] tensor.  Returns (logits
+    [B, 1, V] float32, cache).
 
     The cache is updated in place (the JAX version returns a new one);
     the returned dict is the one passed in.  ``seq_starts`` continues a
@@ -288,10 +291,14 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Any],
         _, hkv, bs, _ = cache["layers"]["k"].shape[1:]
         slots = attn.paged_slots(tables, pos, hkv, bs)
         positions = pos[:, None]                           # [B, 1]
-    elif starts is not None:
-        positions = (int(pos) - starts)[:, None]           # [B, 1]
     else:
-        positions = torch.full((1,), int(pos), device=dev)
+        # one int64 element on the device: an int is filled there, a
+        # tensor is only viewed, so no host value of it is read
+        pos = (torch.full((), int(pos), dtype=torch.int64, device=dev)
+               if isinstance(pos, numbers.Integral) else
+               pos.to(device=dev, dtype=torch.int64).reshape(()))
+        positions = (pos.reshape(1) if starts is None
+                     else (pos - starts)[:, None])         # [1] or [B, 1]
     rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
     for i in range(cfg.n_layers):
         x = _decode_block(x, layer_params(params["layers"], i),

@@ -21,12 +21,27 @@ writes the row's final SSM and conv states into row ``r`` of every
 layer, in place; each boundary runs one recurrent ``decode_step`` over
 all rows.
 
+The prefill and decode steps come from the session's
+:class:`~repro_torch.serving.cache.ExecutableCache`, keyed as the JAX
+session keys them: one batch-1 prefill step per prompt bucket, shared
+by every activation and by ``generate(session=)``, and one decode step
+per engine geometry, whose entry owns the pool (a CUDA graph holds its
+addresses; it is zeroed at each activation's start, so a run equals
+one on a fresh pool).  An ssm decode key carries no detail, so it can
+equal ``generate``'s: both build it with the same
+:func:`~repro_torch.serving.captured.recurrent_decode_step`.  On a card each step is a captured CUDA graph
+(:class:`~repro_torch.serving.captured.CapturedStep`); ``capture=False``
+runs the same steps eagerly, and on the CPU they always run directly.
+A step's tokens, positions and block tables go in through pinned
+buffers, and its argmax and finiteness flags come out in one copy to
+the host a step.
+
 Every request ends in a terminal :class:`RequestState`.  A request whose
 footprint can never fit the pool is REJECTED; a row whose logits are
 not finite (checked at every step) is retired FAILED without touching
-the others.  Kernel failures are not caught: a CUDA error raises out of
-:meth:`drain` (the JAX session's degrade-to-reference path, dispatch,
-executable cache, telemetry, watchdog, recorder, deadlines and
+the others.  Kernel and capture failures are not caught: a CUDA error
+raises out of :meth:`drain` (the JAX session's degrade-to-reference
+path, dispatch, telemetry, watchdog, recorder, deadlines and
 cancellation are not ported yet).
 """
 from __future__ import annotations
@@ -44,9 +59,11 @@ from repro_torch.models.attention import BACKENDS
 from repro_torch.models.model_zoo import (Model, bucket_length,
                                           left_pad_prompts)
 from repro_torch.models.transformer import SERVED_FAMILIES
-from repro_torch.runtime.serve_loop import ServeStats
 from repro_torch.serving.bucketing import (Bucket, candidate_buckets,
                                            pick_bucket)
+from repro_torch.serving.cache import ExecKey, ExecutableCache
+from repro_torch.serving.captured import (CapturedStep, pick, prefill_step,
+                                          recurrent_decode_step)
 from repro_torch.serving.paged_kv import BlockAllocator, blocks_needed
 
 log = logging.getLogger("repro_torch.serving")
@@ -112,6 +129,9 @@ class SessionStats:
     ttft_s: List[float] = dataclasses.field(default_factory=list)
     per_bucket: Dict[Bucket, Dict[str, float]] = dataclasses.field(
         default_factory=dict)
+    cache: Dict[str, int] = dataclasses.field(default_factory=dict)
+    capture_s: float = 0.0          # building steps (warm-up + capture)
+    graph_pool_bytes: int = 0       # the built graphs' private pools
 
     @staticmethod
     def _pcts(xs: List[float]) -> Tuple[float, float]:
@@ -133,6 +153,8 @@ class SessionStats:
         """JSON-ready summary (what ``launch/serve`` prints)."""
         q50, q95 = self.queue_percentiles()
         t50, t95 = self.ttft_percentiles()
+        hits = self.cache.get("hits", 0)
+        lookups = hits + self.cache.get("misses", 0)
         return {
             "requests": self.requests,
             "batches": self.batches,
@@ -154,6 +176,10 @@ class SessionStats:
             "queue_p95_s": q95,
             "ttft_p50_s": t50,
             "ttft_p95_s": t95,
+            "cache": dict(self.cache),
+            "cache_hit_rate": hits / lookups if lookups else 0.0,
+            "capture_s": self.capture_s,
+            "graph_pool_bytes": self.graph_pool_bytes,
             "buckets": {
                 f"b{b.batch}xp{b.prompt_len}xt{b.total_len}": {
                     **{k: float(v) for k, v in e.items()},
@@ -173,13 +199,20 @@ class ServeSession:
     ``"plain"``.  ``batch_sizes`` are the allowed engine row counts,
     ``kv_block_size`` the token slots per pool block and ``kv_blocks``
     the pool size (None sizes it so every row reaches its full
-    capacity); both apply to attention families only.  Prompts are left-padded with token 0 to power-of-two
-    buckets.  The session runs where ``params`` live.
+    capacity); both apply to attention families only.  Prompts are
+    left-padded with token 0 to power-of-two buckets.  The session runs
+    where ``params`` live.
+
+    ``cache_capacity`` bounds the executable cache (LRU by entry).
+    ``capture`` False runs the cached steps eagerly on a card (one
+    launch per op, to time the eager path; the counterpart of the JAX
+    session's un-lowered jit step), never chosen by a failure.
     """
 
     def __init__(self, model: Model, params, *, backend: str = "cuda",
                  batch_sizes: Sequence[int] = (1, 2, 4, 8),
-                 kv_block_size: int = 16, kv_blocks: Optional[int] = None):
+                 kv_block_size: int = 16, kv_blocks: Optional[int] = None,
+                 cache_capacity: int = 16, capture: bool = True):
         """Validate the knobs and start with an empty queue."""
         if model.cfg.family not in SERVED_FAMILIES:
             raise NotImplementedError(
@@ -203,6 +236,8 @@ class ServeSession:
                 "kv_blocks must be >= 2 (block 0 is the reserved sink)")
         self.kv_block_size = int(kv_block_size)
         self.kv_blocks = None if kv_blocks is None else int(kv_blocks)
+        self.capture = bool(capture)
+        self.exec_cache = ExecutableCache(cache_capacity)
         self.stats = SessionStats()
         self._queue: List[Request] = []
         self._clock = time.perf_counter
@@ -254,6 +289,52 @@ class ServeSession:
             results.extend(self._drain_inflight(on_step))
         return results
 
+    # ------------------------------------------------------ execution
+    def _compile(self, key: ExecKey, builder) -> Tuple[Any, bool]:
+        """Step for ``key`` via the shared cache: ``(step, was_hit)``.
+        A build's warm-up and capture time and its graph's pool are
+        added to the stats."""
+        step, hit = self.exec_cache.get(key, builder)
+        if not hit:
+            self.stats.capture_s += step.build_s
+            self.stats.graph_pool_bytes += step.pool_bytes
+        self.stats.cache = self.exec_cache.stats()
+        return step, hit
+
+    def _decode_builder(self, pool: Dict[str, Any], rows: int,
+                        max_blocks: Optional[int]):
+        """Builder of the engine's decode step over ``pool``: the paged
+        step (tokens, per-row positions, block tables) for dense, the
+        recurrent step (:func:`recurrent_decode_step`, which
+        ``generate`` shares) for ssm; outputs :func:`pick` of the
+        logits.  The step owns ``pool``."""
+        model, params, dev = self.model, self.params, self.device
+        backend = self.backend
+        if max_blocks is None:
+            return lambda: recurrent_decode_step(
+                model, params, backend, rows, self.capture,
+                layers=pool["layers"])
+
+        def build() -> CapturedStep:
+            """Static inputs, the step function and its capture."""
+            inputs = {"tokens": torch.zeros((rows, 1), dtype=torch.int64,
+                                            device=dev),
+                      "pos": torch.zeros((rows,), dtype=torch.int64,
+                                         device=dev),
+                      "tables": torch.zeros((rows, max_blocks),
+                                            dtype=torch.int32, device=dev)}
+
+            def fn():
+                """One paged decode step over all rows."""
+                lg, _ = model.decode_step(
+                    params, pool, inputs["tokens"], inputs["pos"],
+                    backend=backend, block_tables=inputs["tables"])
+                return pick(lg[:, -1])
+
+            return CapturedStep(fn, dev, inputs=inputs,
+                                state=pool["layers"], capture=self.capture)
+        return build
+
     # ------------------------------------------- in-flight engine
     def _drain_inflight(self, on_step=None) -> List[RequestResult]:
         """One engine activation: a fixed (rows, block-table) geometry
@@ -261,6 +342,8 @@ class ServeSession:
         rows are empty, or the head request needs a wider table (it then
         waits for the next activation).  A recurrent (ssm) activation
         has rows only: no allocator, block table or compaction."""
+        # here, not at the top: the serve loop imports this package
+        from repro_torch.runtime.serve_loop import ServeStats
         model, params, dev = self.model, self.params, self.device
         cfg = model.cfg
         backend = self.backend
@@ -283,11 +366,26 @@ class ServeSession:
             n_blocks = (1 + rows_n * max_blocks if self.kv_blocks is None
                         else self.kv_blocks)
             alloc = BlockAllocator(n_blocks, bs)
-            pool = model.init_paged_cache(n_blocks, bs, dev)
             tables_np = np.zeros((rows_n, max_blocks), np.int32)
+            detail = ("paged", bs, max_blocks)
         else:
-            alloc = tables_np = None
+            alloc = tables_np = max_blocks = detail = None
+        decode_key = ExecKey(cfg.name, "decode", rows_n, cap, None,
+                             backend, detail)
+        # The pool belongs to the geometry's decode step, whose graph
+        # holds its addresses: a cached step's pool is reused, zeroed.
+        # The step itself is looked up at the first decode step, as the
+        # JAX engine compiles it there.
+        cached = self.exec_cache.peek(decode_key)
+        if cached is not None:
+            pool = {"layers": cached.state}
+            for t in pool["layers"].values():
+                t.zero_()
+        elif attn_family:
+            pool = model.init_paged_cache(n_blocks, bs, dev)
+        else:
             pool = model.init_cache(rows_n, cap, dev)
+        build_decode = self._decode_builder(pool, rows_n, max_blocks)
         engine_bucket = Bucket(rows_n, s_pad, cap)
         act_stats = ServeStats(prefill_s=0.0, decode_s=0.0,
                                tokens_generated=0, backend=backend)
@@ -362,19 +460,16 @@ class ServeSession:
                 row_blocks[r] = alloc.alloc(nb)
                 tables_np[r, :] = 0
                 tables_np[r, :nb] = row_blocks[r]
-            toks = torch.as_tensor(
-                left_pad_prompts([req.tokens], p_len),
-                device=dev)
-            starts = torch.tensor([p_len - length], dtype=torch.int64,
-                                  device=dev)
+            pf, _ = self._compile(
+                ExecKey(cfg.name, "prefill", 1, p_len, None, backend),
+                lambda: prefill_step(model, params, backend, 1, p_len,
+                                     self.capture))
             t0 = time.perf_counter()
-            logits, pcache = model.prefill(params, {"tokens": toks},
-                                           backend=backend,
-                                           seq_starts=starts)
-            last = logits[0, -1]
-            first_t = torch.argmax(last)
-            finite = bool(torch.isfinite(last).all())
-            first = int(first_t)         # synchronises with the card
+            pf.feed(tokens=left_pad_prompts([req.tokens], p_len),
+                    starts=np.asarray([p_len - length]))
+            picked, pcache = pf.replay()
+            # one copy to the host: it waits for the card
+            first, finite = picked[:, 0].cpu().tolist()
             dt = time.perf_counter() - t0
             act_stats.prefill_s += dt
             self.stats.prefill_s += dt
@@ -413,6 +508,7 @@ class ServeSession:
             self.stats.ttft_s.append(self._clock() - req.submitted_at)
             return True
 
+        step = None
         step_idx = 0
         while True:
             for r in range(rows_n):
@@ -453,19 +549,15 @@ class ServeSession:
                 break
             if not any(row_remaining[r] > 0 for r in active):
                 continue        # budget-1 admissions retire at loop top
+            if step is None:
+                step, _ = self._compile(decode_key, build_decode)
             t_step = time.perf_counter()
-            toks = torch.as_tensor(tok_np, device=dev)[:, None]
             if attn_family:
-                lg, _ = model.decode_step(
-                    params, pool, toks, torch.as_tensor(pos_np, device=dev),
-                    backend=backend,
-                    block_tables=torch.as_tensor(tables_np, device=dev))
+                step.feed(tokens=tok_np, pos=pos_np, tables=tables_np)
             else:
-                lg, _ = model.decode_step(params, pool, toks, 0,
-                                          backend=backend)
-            last = lg[:, -1]
-            new_tok = torch.argmax(last, dim=-1).cpu().numpy()
-            finite = torch.isfinite(last).all(dim=-1).cpu().numpy()
+                step.feed(tokens=tok_np)
+            # one copy to the host a step: it waits for the card
+            new_tok, finite = step.replay().cpu().numpy()
             dt = time.perf_counter() - t_step
             act_stats.decode_s += dt
             self.stats.decode_s += dt

@@ -308,3 +308,26 @@ def test_decode_timeline_finds_every_anchor():
     assert src.count("] = stamp_ns();") == len(ANCHORS) + 2
     for k in range(len(STAMPS)):
         assert f"* 8 + {k}] = stamp_ns();" in src, STAMPS[k]
+
+
+def test_grown_ticket_counters_keep_the_old_ones(monkeypatch):
+    """A stream's ticket counters grow when a plan needs more of them;
+    the counters they replace stay referenced (a graph captured earlier
+    holds their address), and a plan that fits reuses the current ones.
+    The card is stood in for by the CPU (one stream, no capture)."""
+    monkeypatch.setattr(dec_ops._build, "stream_handle", lambda dev: 0)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    monkeypatch.setattr(dec_ops, "_TICKETS", {})
+    monkeypatch.setattr(dec_ops, "_RETIRED", [])
+    cpu = torch.device("cpu")
+    small = geo.decode_plan(1, 32, 32, 64, 4096, 0, 2)
+    big = geo.decode_plan(160, 32, 32, 64, 64, 0, 2)
+    assert small.tickets <= 4096 < big.tickets
+    _, first = dec_ops._scratch(small, cpu)
+    assert first.numel() == 4096 and not first.any()
+    assert dec_ops._scratch(small, cpu)[1] is first
+    _, grown = dec_ops._scratch(big, cpu)
+    assert grown.numel() == big.tickets and not grown.any()
+    assert dec_ops._RETIRED == [first]
+    assert dec_ops._scratch(small, cpu)[1] is grown

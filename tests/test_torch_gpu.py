@@ -14,6 +14,12 @@ of the largest magnitude the element takes at any rounding point (a
 float32 sum in another order may round the other way at an intermediate
 point, and that step stays in the result).
 """
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -31,6 +37,14 @@ from repro_torch.kernels.conv2d import conv2d_plain  # noqa: E402
 from repro_torch.kernels.matmul import matmul_plain  # noqa: E402
 from repro_torch.kernels.sparse_conv import (analyze_weights,  # noqa: E402
                                              sparse_conv_plain)
+from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import (build_model, left_pad_prompts,  # noqa: E402
+                                prompt_starts)
+from repro_torch.runtime import generate  # noqa: E402
+from repro_torch.serving import ServeSession  # noqa: E402
+
+REPO = Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture
@@ -597,3 +611,188 @@ def test_cuda_bf16_sparse_conv_mma_edges(cuda_device, case):
             ref = conv2d(img, w, block={**block, "y": by, "x": bx},
                          grid_order=("oc", "y", "x", "ic"))
             assert torch.equal(got, ref)
+
+
+# ------------------------------------------- captured engine and generate
+
+SMOKE_ARCHS = ("phi3-mini-3.8b-smoke", "falcon-mamba-7b-smoke")
+
+
+def _smoke_serve(arch, dev, capture):
+    """The smoke config in float32 through a session and generate(session=);
+    (engine tokens, engine launches, generate tokens, generate launches,
+    session)."""
+    model = build_model(get_config(arch))
+    params = model.init(seed=0, device=dev)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 256, n).astype(np.int32)
+               for n in (5, 7, 3, 6, 12, 9)]
+    s = ServeSession(model, params, kv_block_size=4, batch_sizes=(1, 2, 4),
+                     capture=capture)
+    reset_launch_counts()
+    for i, p in enumerate(prompts):
+        s.submit(p, 8, request_id=f"r{i}")
+    eng = {r.request_id: r.tokens.tolist() for r in s.drain()}
+    eng_counts = launch_counts()
+    reset_launch_counts()
+    gen, _ = generate(model, params,
+                      {"tokens": left_pad_prompts(prompts[:4], 16)},
+                      max_new_tokens=10,
+                      seq_starts=prompt_starts(prompts[:4], 16), session=s)
+    gen_counts = launch_counts()
+    torch.cuda.synchronize()
+    for k in list(s.exec_cache.compiled_log):
+        again = s.exec_cache.peek(k)
+        assert (again.graph is not None) == capture, k
+    return eng, eng_counts, gen, gen_counts, s, prompts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", SMOKE_ARCHS)
+def test_cuda_graph_steps_equal_eager_steps(cuda_device, arch):
+    """Graphs and eager kernels give the same tokens and the same launch
+    counts; every step ran as a graph replay; a second drain of the same
+    stream captures nothing."""
+    g_eng, g_ec, g_gen, g_gc, gs, prompts = _smoke_serve(arch, cuda_device,
+                                                         True)
+    e_eng, e_ec, e_gen, e_gc, es, _ = _smoke_serve(arch, cuda_device, False)
+    assert g_eng == e_eng and np.array_equal(g_gen, e_gen)
+    assert g_ec == e_ec and g_gc == e_gc
+    assert sum(g_ec.values()) > 0 and sum(g_gc.values()) > 0
+    steps = {"prefill": 0, "decode": 0}
+    for k in gs.exec_cache.compiled_log:
+        steps[k.role] += gs.exec_cache.peek(k).replays
+    assert steps == {"prefill": gs.stats.inflight_admissions + 1,
+                     "decode": gs.stats.steps + 9}
+    assert gs.stats.graph_pool_bytes > 0 and es.stats.graph_pool_bytes == 0
+    built = gs.exec_cache.compiles
+    for i, p in enumerate(prompts):
+        gs.submit(p, 8, request_id=f"r{i}")
+    again = {r.request_id: r.tokens.tolist() for r in gs.drain()}
+    assert again == g_eng and gs.exec_cache.compiles == built
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", ["drain_first", "generate_first"])
+def test_cuda_engine_and_generate_share_the_ssm_decode_graph(cuda_device,
+                                                             order):
+    """An ssm engine of 4 rows (prompts of bucket 8, budget 8) and
+    generate of [4, 8] + 8 tokens share one decode key and graph; in
+    either order both give the tokens of eager fresh sessions."""
+    model = build_model(get_config("falcon-mamba-7b-smoke"))
+    params = model.init(seed=0, device=cuda_device)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, 256, n).astype(np.int32)
+               for n in (5, 8, 3, 7)]
+    batch = {"tokens": left_pad_prompts(prompts, 8)}
+    starts = prompt_starts(prompts, 8)
+
+    def drain(s):
+        for i, p in enumerate(prompts):
+            s.submit(p, 8, request_id=f"r{i}")
+        return {r.request_id: r.tokens.tolist() for r in s.drain()}
+
+    def gen(s):
+        return generate(model, params, batch, max_new_tokens=8,
+                        seq_starts=starts, session=s)[0]
+
+    want_d = drain(ServeSession(model, params, batch_sizes=(4,),
+                                capture=False))
+    want_g = gen(ServeSession(model, params, capture=False))
+    s = ServeSession(model, params, batch_sizes=(4,))
+    if order == "drain_first":
+        got_d, got_g = drain(s), gen(s)
+    else:
+        got_g, got_d = gen(s), drain(s)
+    assert got_d == want_d and np.array_equal(got_g, want_g)
+    decode = [k for k in s.exec_cache.compiled_log if k.role == "decode"]
+    assert [(k.batch, k.length, k.detail) for k in decode] == [(4, 16, None)]
+    assert s.exec_cache.peek(decode[0]).graph is not None
+
+
+@pytest.mark.gpu
+def test_cuda_decode_graph_keeps_its_ticket_counters(cuda_device):
+    """A decode graph captured before a larger plan grows the capture
+    stream's ticket counters still merges right when replayed after the
+    allocator has handed memory out again: the counters it holds are
+    kept, not freed."""
+    from repro_torch.serving.captured import CapturedStep
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(
+            torch.bfloat16)
+
+    q, k, v = rn(1, 32, 1, 64), rn(1, 32, 4096, 64), rn(1, 32, 4096, 64)
+    pos = torch.tensor([4000], device=cuda_device)
+    small = decode_plan(1, 32, 32, 64, 4096, 0, 2)
+    big = decode_plan(160, 32, 32, 64, 64, 0, 2)
+    assert small.splits > 1 and small.tickets <= 4096 < big.tickets
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    first = CapturedStep(lambda: decode_attention(q, k, v, pos), cuda_device)
+    retired = len(dec_ops._RETIRED)
+    q2, k2, v2 = rn(160, 32, 1, 64), rn(160, 32, 64, 64), rn(160, 32, 64, 64)
+    grown = CapturedStep(lambda: decode_attention(q2, k2, v2, 63),
+                         cuda_device)
+    assert len(dec_ops._RETIRED) == retired + 1
+    # freed blocks go back to their stream's pool: fill it with junk
+    with torch.cuda.stream(torch.cuda.graph.default_capture_stream):
+        junk = [torch.full((4096,), 7, dtype=torch.int32,
+                           device=cuda_device) for _ in range(256)]
+    torch.cuda.synchronize()
+    want = decode_attention_ref(q, k, v, pos)
+    for _ in range(2):
+        got = first.replay().clone()
+        torch.cuda.synchronize()
+        assert _share_of_tol(got, want) <= 1.0
+    assert _share_of_tol(grown.replay(),
+                         decode_attention_ref(q2, k2, v2, 63)) <= 1.0
+    del junk
+
+
+CAPTURE_FAILURE = """
+import os, sys
+import numpy as np
+from repro_torch.configs import get_config
+from repro_torch.models import Model, build_model
+from repro_torch.serving import ServeSession
+
+model = build_model(get_config("phi3-mini-3.8b-smoke"))
+params = model.init(seed=0)
+real, calls = Model.decode_step, []
+
+def reads_host(self, *a, **k):
+    calls.append(1)
+    lg, c = real(self, *a, **k)
+    if float(lg.abs().sum()) < 0:       # a host read of a device value
+        raise AssertionError
+    return lg, c
+
+Model.decode_step = reads_host
+s = ServeSession(model, params, batch_sizes=(1,))
+s.submit(np.arange(1, 6), 4)
+try:
+    s.drain()
+except RuntimeError:
+    print("raised", len(calls), s.stats.steps, s.exec_cache.compiles,
+          flush=True)
+    os._exit(0)
+print("ran", len(calls), flush=True)
+os._exit(1)
+"""
+
+
+@pytest.mark.gpu
+def test_cuda_capture_failure_raises_and_runs_nothing_eagerly(cuda_device):
+    """A decode step that reads a host value cannot be captured: drain
+    raises after the warm-up and the one capture attempt, with no step
+    run and no decode step cached.  In a child process: a failed
+    capture can leave the CUDA context unusable."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c",
+                          textwrap.dedent(CAPTURE_FAILURE)],
+                         capture_output=True, text=True, env=env,
+                         timeout=600)
+    assert out.returncode == 0, out.stdout + out.stderr
+    # warm-up + capture attempt; no step; only the prefill was built
+    assert out.stdout.split() == ["raised", "2", "0", "1"], out.stdout
