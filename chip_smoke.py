@@ -29,7 +29,11 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
    [4, 512] prefill and the decode step, each also at block_d 32-256 in
    ``[time_block_d]``), ``[time_wide]`` for the head_dim 256
    instances, and flash's time at every engine prompt bucket
-   (``[time_bucket]``);
+   (``[time_bucket]``, at 64 and at 128 query rows a block); then every
+   schedule the tuner offers at the main-path shapes (flash's row
+   blocks, both decode kernels' splits, the scan's block_d) against the
+   plain version, and ``[time_schedule]``: each candidate's kernel ms
+   beside the cost model's predicted ms;
 4. engine: ``ServeSession`` on full-width, full-depth phi3-mini-3.8b in
    bf16 with random weights from a seed, 8 requests of mixed prompt
    lengths, 32 new tokens each, drained twice through one session
@@ -48,15 +52,41 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
    decode kernel, held to the same rules; then a short engine drain
    under ``torch.profiler`` in each mode, after a first drain built
    its steps (device busy share of the window and of its decode
-   steps alone, device time by kernel group);
-6. the same engine, ``generate`` and profile phases on full-width,
+   steps alone, device time by kernel group); then ``[dispatch_serve]``:
+   the engine's 8 requests drained with graphs and a
+   ``DispatchService`` on a temporary registry file (batch size 4
+   only), gated: the decode slot commits, recaptures <= commits seen
+   and <= max_recompiles, the launch parameters every captured step
+   recorded are its bundle's (the decode step's the committed
+   schedule), a second drain builds nothing, and a fresh service over
+   the file makes no cost-model evaluation and starts its first decode
+   graph on the persisted winner; per slot the candidates, predicted
+   and host-measured medians, calls until commit, the committed
+   schedule and its ``[time_schedule]`` ms; tok/s and step ms beside
+   the graphs run without dispatch, whose tokens it is compared with
+   (reported, not gated: another split may round bf16 differently);
+   then the engine phase's batch sizes (1, 2, 4), where the
+   dispatch-aware bucket choice weighs its candidates: a session on
+   the warm service and one without dispatch drain cold then warm, and
+   the buckets each picked, steps, tok/s and token agreement are
+   reported;
+6. the same engine, ``generate``, profile and ``[dispatch_serve]``
+   phases on full-width,
    full-depth falcon-mamba-7b in bf16 (phi3's weights are freed first),
    through the selective-scan kernel: 64 launches per admission and per
    engine step;
 7. exact tokens: on phi3-mini-3.8b-smoke and falcon-mamba-7b-smoke in
    float32, the engine's and ``generate``'s tokens through captured
    graphs, through the kernels run eagerly and through the plain
-   PyTorch path must all be equal;
+   PyTorch path must all be equal; then with a dispatch service
+   scripted to commit a candidate other than rank-0 (one recapture,
+   whose graph must record the committed launch parameters), the
+   engine's and ``generate``'s tokens must equal those without dispatch
+   and the plain path's; and one session shared by both (the engine
+   pinned by ``max_recompiles=0`` while the service commits, then
+   ``generate(session=)`` at the engine's geometry, then a second
+   drain on the committed step) must give the plain path's tokens in
+   both drains;
 8. the thesis path (run after phase 3): conv2d, matmul and the
    block-sparse conv at the widths of thesis Table 4.1 (batch 1 and 32),
    the GEMM form of its 1x1 layers, phi3-mini's QKV projection and the
@@ -104,6 +134,7 @@ PHI3 = "phi3-mini-3.8b"
 MAMBA = "falcon-mamba-7b"
 NEW_TOKENS = 32
 ENGINE_PROMPTS = [200, 17, 300, 150, 45, 260, 130, 77]
+ENGINE_BATCH_SIZES = (1, 2, 4)
 GENERATE_PROMPTS = [40, 100, 250, 300]
 # engine and generate run with captured CUDA graphs (the default) and
 # eagerly (capture=False), in this order, in every serve phase
@@ -175,10 +206,12 @@ class Timer:
 
 
 # Mangled-name patterns of the instantiations the bf16 main path runs
-# (head_dim 96, MHA): flash's tensor-core body at D 96, the split decode
-# body over the pool and over the contiguous cache.
+# (head_dim 96, MHA): flash's tensor-core body at D 96 (64 and 128 query
+# rows a block), the split decode body over the pool and over the
+# contiguous cache.
 MAIN_PATH_INSTANCES = {
-    "flash_attention": r"flash_mma_kernelILi96E",
+    "flash_attention": r"flash_mma_kernelILi96ELi64E",
+    "flash_attention_rows128": r"flash_mma_kernelILi96ELi128E",
     "paged_decode_attention":
         r"decode_split_kernelI13__nv_bfloat16NS_7PagedKV",
     "decode_attention":
@@ -195,8 +228,9 @@ MAIN_PATH_INSTANCES = {
 # bf16 body with Q re-read from shared memory, its float32 body at 64
 # dims a thread, the float32 split decode.
 WIDE_INSTANCES = {
-    "flash_attention_d256": r"flash_mma_kernelILi256E",
-    "flash_attention_d224": r"flash_mma_kernelILi224E",
+    "flash_attention_d256": r"flash_mma_kernelILi256ELi64E",
+    "flash_attention_d256_rows128": r"flash_mma_kernelILi256ELi128E",
+    "flash_attention_d224": r"flash_mma_kernelILi224ELi64E",
     "flash_attention_float32_d256": r"flash_fwd_kernelILi64E",
     "decode_attention_float32": r"decode_split_kernelIfNS_8ContigKV",
     "paged_decode_attention_float32": r"decode_split_kernelIfNS_7PagedKV",
@@ -1452,7 +1486,8 @@ def engine_run(torch, model, params, prompts, backend, capture, **kw):
     (results by id, session)."""
     from repro_torch.serving import ServeSession
     session = ServeSession(model, params, backend=backend,
-                           batch_sizes=(1, 2, 4), capture=capture, **kw)
+                           batch_sizes=ENGINE_BATCH_SIZES, capture=capture,
+                           **kw)
     for i, p in enumerate(prompts):
         session.submit(p, NEW_TOKENS, request_id=f"r{i}")
     res = {r.request_id: r for r in session.drain()}
@@ -1520,7 +1555,8 @@ def engine_phase(torch, model, params, prompts, mode, smi):
     free_card(torch)
     torch.cuda.reset_peak_memory_stats()
     session = ServeSession(model, params, backend="cuda",
-                           batch_sizes=(1, 2, 4), capture=mode == "graphs")
+                           batch_sizes=ENGINE_BATCH_SIZES,
+                           capture=mode == "graphs")
     want = {"prefill": 0, "decode": 0}
     out = {}
     for drain in ("cold", "warm"):
@@ -1654,13 +1690,14 @@ def same_runs(arch, what, runs):
           runs=sum(len(v) for v in runs.values()), equal=True)
 
 
-def serve_phases(torch, dev, smi, arch):
+def serve_phases(torch, dev, smi, arch, sched_times):
     """Engine, generate and profile phases on full-size ``arch`` in its
     own dtype with random weights from seed 0, each in graphs mode
     (captured steps, the default) and eager mode (``capture=False``) in
-    this call: tokens and launch counts must agree between them.
-    Returns the graphs mode's cold counts with its engine stats (the
-    weights are freed on return)."""
+    this call: tokens and launch counts must agree between them; then
+    ``[dispatch_serve]`` on the same weights.  Returns the graphs mode's
+    cold counts with its engine stats (the weights are freed on
+    return)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
@@ -1679,6 +1716,9 @@ def serve_phases(torch, dev, smi, arch):
     same_runs(cfg.name, "engine", engine)
     gen = {m: generate_phase(torch, model, params, m, smi) for m in MODES}
     same_runs(cfg.name, "generate", gen)
+    # before the profiles: no profiler has run in the process yet when
+    # the dispatched steps are timed, as when the engine phase ran
+    dispatch_serve(torch, model, params, prompts, smi, sched_times)
     for m in MODES:
         profile_engine(torch, model, params, prompts[:4], m)
     cold = engine["graphs"]["cold"]
@@ -1738,6 +1778,7 @@ def run(torch, dev, timer, smi):
     from repro_torch.configs import get_config
 
     summary = kernel_checks(torch, dev, timer)
+    sched_times = schedule_checks(torch, dev, timer)
 
     # ---- the thesis path: checks and times first (they build and warm
     # every kernel), then the dispatched main path with its counts
@@ -1750,7 +1791,7 @@ def run(torch, dev, timer, smi):
     free_card(torch)
 
     # ---- phi3-mini-3.8b: flash prefill, paged and contiguous decode
-    phi3 = serve_phases(torch, dev, smi, PHI3)
+    phi3 = serve_phases(torch, dev, smi, PHI3, sched_times)
     ec, gen, st = phi3["engine"], phi3["generate"], phi3["stats"]
     for k in ("flash_attention", "paged_decode_attention"):
         if ec[k] < 1:
@@ -1770,7 +1811,7 @@ def run(torch, dev, timer, smi):
     # ---- falcon-mamba-7b: the selective scan at every layer of every
     # admission, engine step and generate step
     n_layers = get_config(MAMBA).n_layers
-    mamba = serve_phases(torch, dev, smi, MAMBA)
+    mamba = serve_phases(torch, dev, smi, MAMBA, sched_times)
     ec, gen, st = mamba["engine"], mamba["generate"], mamba["stats"]
     want = n_layers * (st["inflight_admissions"] + st["steps"])
     if ec["ssm_scan"] != want:
@@ -1789,7 +1830,556 @@ def run(torch, dev, timer, smi):
 
     for arch in (PHI3 + "-smoke", MAMBA + "-smoke"):
         exact_tokens(torch, dev, arch)
+        exact_tokens_dispatch(torch, dev, arch)
     return summary
+
+
+# ---------------------------------------------------------------------------
+# Schedules: the attention and scan dispatch families
+# ---------------------------------------------------------------------------
+
+def schedule_checks(torch, dev, timer):
+    """Phase 3, continued: each attention and scan kernel at every
+    schedule the tuner offers at the main-path shapes, against its plain
+    version at the existing tolerances; flash at 128 query rows a block
+    at every engine prompt bucket (``[time_bucket]``, beside 64) and at
+    head_dim 96 and 256; ``[time_schedule]``: each candidate's kernel ms
+    beside the cost model's predicted ms.  Returns {(kernel, schedule
+    json): ms} of the timed shapes."""
+    from repro_torch.core import cost_model as cm
+    from repro_torch.core import registry as reg
+    from repro_torch.core import tuner
+    from repro_torch.core.schedule import (DecodeAttentionSchedule,
+                                           FlashAttentionSchedule,
+                                           SSMScanSchedule)
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     paged_decode_attention, ssm_scan)
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_ref, paged_decode_attention_ref)
+    from repro_torch.kernels.decode_attention.ops import paged_split_keys
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.ssm_scan import ssm_scan_ref
+    from repro_torch.models import bucket_length
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def rn(shape, dtype):
+        """Seeded normal tensor on the card."""
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def check(name, sched, got, want, shape):
+        """One ``[check]`` line per schedule; fail outside tolerance."""
+        dtype = str(want.dtype).replace("torch.", "")
+        e, share = tolerance_share(torch, got, want)
+        phase("check", kernel=name, dtype=dtype, shape=shape,
+              schedule=json.dumps(reg.schedule_to_dict(sched)),
+              max_abs_err=f"{e:.3g}", tol=repr(TOL[dtype]),
+              worst_share_of_tol=f"{share:.3g}", ok=share <= 1.0)
+        if share > 1.0:
+            fail(f"{name} {dtype} {shape} at {sched} disagrees with its "
+                 f"plain version: {share:.3g}x the tolerance")
+
+    times = {}
+
+    def timed(name, shape, sched, fn, predicted_s):
+        """Time one candidate; one ``[time_schedule]`` line."""
+        ms = timer(fn)
+        key = json.dumps(reg.schedule_to_dict(sched))
+        times[name, key] = ms
+        phase("time_schedule", kernel=name, shape=repr(shape),
+              schedule=key, ms=f"{ms:.4f}",
+              predicted_ms=f"{predicted_s * 1e3:.4f}")
+
+    # ---- flash: the engine's batch-1 prefills at every prompt bucket,
+    # generate's [4, 512], and head_dim 256 (bf16, every row block); the
+    # float32 body's one tile at the main geometry
+    tiles = [FlashAttentionSchedule(*t)
+             for t in tuner.flash_attention_tiles(96, 2)]
+    for p in sorted(set(ENGINE_PROMPTS)):
+        s = bucket_length(p)
+        q = rn((1, 32, s, 96), bf16)
+        k, v = rn((1, 32, s, 96), bf16), rn((1, 32, s, 96), bf16)
+        st = torch.tensor([s - p], device=dev)
+        want = flash_attention_ref(q, k, v, starts=st)
+        for t in tiles:
+            check("flash_attention", t, t.run(q, k, v, starts=st), want,
+                  f"[1,32,{s},96] starts=[{s - p}]")
+    for s in sorted({bucket_length(p) for p in ENGINE_PROMPTS}):
+        real = max(p for p in ENGINE_PROMPTS if bucket_length(p) == s)
+        q = rn((1, 32, s, 96), bf16)
+        k, v = rn((1, 32, s, 96), bf16), rn((1, 32, s, 96), bf16)
+        st = torch.tensor([s - real], device=dev)
+        by_rows = {f"block_q_{t.block_q}_ms": f"{timer(lambda: t.run(q, k, v, starts=st)):.4f}"
+                   for t in tiles}
+        phase("time_bucket", kernel="flash_attention",
+              shape=f"[1,32,{s},96]", real_tokens=real, **by_rows)
+    gstarts = torch.tensor([512 - n for n in GENERATE_PROMPTS], device=dev)
+    for shape, st in (((4, 32, 32, 512, 96), gstarts),
+                      ((1, 16, 1, 512, 256), torch.tensor([212], device=dev))):
+        b, hq, hkv, s, d = shape
+        q = rn((b, hq, s, d), bf16)
+        k, v = rn((b, hkv, s, d), bf16), rn((b, hkv, s, d), bf16)
+        want = flash_attention_ref(q, k, v, starts=st)
+        for t in [FlashAttentionSchedule(*x)
+                  for x in tuner.flash_attention_tiles(d, 2)]:
+            check("flash_attention", t, t.run(q, k, v, starts=st), want,
+                  f"[{b},{hq},{s},{d}]/{hkv}kv starts={st.tolist()}")
+    for (rows, keys) in tuner.flash_attention_tiles(96, 4):
+        t = FlashAttentionSchedule(rows, keys)
+        q = rn((1, 32, 512, 96), f32)
+        k, v = rn((1, 32, 512, 96), f32), rn((1, 32, 512, 96), f32)
+        st = torch.tensor([212], device=dev)
+        check("flash_attention", t, t.run(q, k, v, starts=st),
+              flash_attention_ref(q, k, v, starts=st),
+              "[1,32,512,96] starts=[212]")
+    q = rn((1, 32, 512, 96), bf16)
+    k, v = rn((1, 32, 512, 96), bf16), rn((1, 32, 512, 96), bf16)
+    st = torch.tensor([212], device=dev)
+    pred = cm.flash_attention_schedule_cost_batch(
+        1, 32, 32, 512, 96, [(t.block_q, t.block_kv) for t in tiles])
+    for i, t in enumerate(tiles):
+        timed("flash_attention", "[1,32,512,96] starts=[212]", t,
+              lambda: t.run(q, k, v, starts=st), pred.time_s[i])
+
+    # ---- contiguous decode: generate's [4, 32, 544, 96] cache, every
+    # split offered (bf16 and float32)
+    s = 512 + NEW_TOKENS
+    starts = torch.tensor([512 - n for n in GENERATE_PROMPTS], device=dev)
+    for dtype in (bf16, f32):
+        qd = rn((4, 32, 1, 96), dtype)
+        kc, vc = rn((4, 32, s, 96), dtype), rn((4, 32, s, 96), dtype)
+        splits = tuner.decode_splits(4, 32, 32, s, 96, qd.element_size())
+        for p in (512, s - 1):
+            want = decode_attention_ref(qd, kc, vc, p, starts=starts)
+            for bkv in splits:
+                sc = DecodeAttentionSchedule(bkv)
+                check("decode_attention", sc,
+                      sc.run(qd, kc, vc, p, starts=starts), want,
+                      f"[4,32,1,96] k/v [4,32,{s},96] pos={p}")
+        if dtype == bf16:
+            pred = cm.decode_attention_schedule_cost_batch(4, 32, 32, s, 96,
+                                                           splits)
+            for i, bkv in enumerate(splits):
+                sc = DecodeAttentionSchedule(bkv)
+                timed("decode_attention", f"[4,32,1,96] k/v [4,32,{s},96] "
+                      f"pos=512", sc,
+                      lambda: sc.run(qd, kc, vc, 512, starts=starts),
+                      pred.time_s[i])
+
+    # ---- paged decode: the engine's pool geometry (bs 16, 34 blocks a
+    # row) at 1, 2 and 4 rows, every split offered (rounded to the pool
+    # block), timed at 4 rows
+    bs, mb = 16, 34
+    for pos_list in ([300], [17, 511], [17, 100, 300, 511]):
+        rows = len(pos_list)
+        nb = 1 + rows * mb
+        qd = rn((rows, 32, 1, 96), bf16)
+        kp, vp = rn((nb, 32, bs, 96), bf16), rn((nb, 32, bs, 96), bf16)
+        perm = torch.randperm(nb - 1, generator=torch.Generator()
+                              .manual_seed(7)) + 1
+        tables = perm.reshape(rows, mb).to(torch.int32).to(dev)
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+        want = paged_decode_attention_ref(qd, kp, vp, tables, pos)
+        splits = tuner.decode_splits(rows, 32, 32, mb * bs, 96, 2)
+        for bkv in splits:
+            check("paged_decode_attention", DecodeAttentionSchedule(bkv),
+                  paged_decode_attention(qd, kp, vp, tables, pos,
+                                         block_kv=bkv), want,
+                  f"[{rows},32,1,96] pools [{nb},32,{bs},96] "
+                  f"pos={pos_list} split_keys={paged_split_keys(bkv, bs)}")
+    pred = cm.decode_attention_schedule_cost_batch(4, 32, 32, mb * bs, 96,
+                                                   splits)
+    for i, bkv in enumerate(splits):
+        timed("paged_decode_attention",
+              f"[4,32,1,96] pools [137,32,16,96] pos={pos_list}",
+              DecodeAttentionSchedule(bkv),
+              lambda: paged_decode_attention(qd, kp, vp, tables, pos,
+                                             block_kv=bkv), pred.time_s[i])
+
+    # ---- the scan: every engine admission's bucket at batch 1,
+    # generate's [4, 512] and the decode step at 1, 2 and 4 rows, at
+    # every block_d offered; timed at [1, 512], [4, 512] and [4, 1]
+    di, n = 8192, 16
+    blocks = [SSMScanSchedule(bd) for bd in tuner.scan_blocks(n, 2)]
+
+    def scan_args(bt, s, real=None, h0=False):
+        """x, dt, b, c, a, d, h0 as the model feeds the scan."""
+        x = rn((bt, s, di), bf16)
+        dt = F.softplus(rn((bt, s, di), f32) * 0.5 - 1.0)
+        b, c = rn((bt, s, n), f32), rn((bt, s, n), f32)
+        for i, r in enumerate(real or []):
+            x[i, :s - r] = 0
+            b[i, :s - r] = 0
+        a = -torch.arange(1, n + 1, dtype=f32, device=dev).repeat(di, 1)
+        return (x, dt, b, c, a, rn((di,), bf16),
+                rn((bt, di, n), bf16).float() if h0 else None)
+
+    shapes = ([(1, bucket_length(p), [p], False)
+               for p in sorted(set(ENGINE_PROMPTS))]
+              + [(4, 512, GENERATE_PROMPTS, False)]
+              + [(rows, 1, None, True) for rows in (1, 2, 4)])
+    timed_args = {}
+    for bt, s, real, h0 in shapes:
+        args = scan_args(bt, s, real, h0)
+        y_ref, h_ref = ssm_scan_ref(*args)
+        label = f"[{bt},{s},{di}] N={n} h0={h0}"
+        for sc in blocks:
+            y, h = sc.run(*args)
+            check("ssm_scan", sc, y, y_ref, "y " + label)
+            check("ssm_scan", sc, h, h_ref, "state " + label)
+        timed_args[bt, s] = args
+    for name, (bt, s) in (("ssm_scan_prefill", (1, 512)),
+                          ("ssm_scan_generate", (4, 512)),
+                          ("ssm_scan_decode", (4, 1))):
+        args = timed_args[bt, s]
+        pred = cm.ssm_scan_schedule_cost_batch(bt, s, di, n,
+                                               [b.block_d for b in blocks])
+        for i, sc in enumerate(blocks):
+            timed(name, f"[{bt},{s},{di}] N={n}", sc,
+                  lambda: sc.run(*args), pred.time_s[i])
+    return times
+
+
+def _scripted_service(registry, device, target_index=1):
+    """A dispatch service whose observations are scripted until a slot
+    commits (the JAX package's ``_ScriptedService``): the candidate of
+    rank ``target_index`` fast, the others slow, so the commit lands on
+    it."""
+    from repro_torch.runtime.dispatch import DispatchService
+
+    class Scripted(DispatchService):
+        def observe(self, kind, problem, dt, elem_bytes=2):
+            slot = self.selector._slots[self.resolve(kind, problem,
+                                                     elem_bytes)]
+            if slot.committed is None:
+                dt = 1e-4 if slot.next_candidate == target_index else 5e-4
+            super().observe(kind, problem, dt, elem_bytes)
+
+    return Scripted(registry, device=device)
+
+
+def recorded_launches(step, kind, sched, label):
+    """Fail unless every launch of ``kind`` (flash, the paged decode or
+    the scan) the captured ``step`` recorded ran ``sched`` (its split
+    rounded to the pool block for the paged kernel) and at least one
+    did."""
+    from repro_torch.kernels.decode_attention.ops import paged_split_keys
+    noted = [p for p in step.launch_params if p["kind"] == kind]
+    if not noted:
+        fail(f"{label}: the captured step recorded no {kind} launch "
+             f"({step.launch_params})")
+    for p in noted:
+        if kind == "ssm_scan":
+            ok = p["block_d"] == sched.block_d
+        elif kind == "flash_attention":
+            ok = (p["block_q"], p["block_kv"]) == (sched.block_q,
+                                                   sched.block_kv)
+        else:
+            bs = step.state["k"].shape[3]
+            ok = (p["block_kv"] == sched.block_kv and p["split_keys"]
+                  == paged_split_keys(sched.block_kv, bs))
+        if not ok:
+            fail(f"{label}: the captured step launched {p}, its bundle "
+                 f"says {sched}")
+
+
+def check_steps_run_their_bundles(session, decode_kind, label):
+    """Every captured step of ``session`` recorded its key's schedules."""
+    kernel = {"flash_attention": "flash_attention",
+              "ssm_scan": "ssm_scan",
+              "decode_attention": "paged_decode_attention"}
+    for k in session.exec_cache.compiled_log:
+        step = session.exec_cache.peek(k)
+        kind = decode_kind if k.role == "decode" else (
+            "ssm_scan" if decode_kind == "ssm_scan" else "flash_attention")
+        recorded_launches(step, kernel[kind], k.schedules.get(kind),
+                          f"{label} {k.role}[b{k.batch},t{k.length}]")
+
+
+def dispatch_serve(torch, model, params, prompts, smi, sched_times):
+    """``[dispatch_serve]``: the engine's 8 requests with captured steps
+    and a DispatchService on a temporary registry file, drained twice
+    (cold, warm), then once more by a fresh service over the same file;
+    batch size 4 only (the rows the graphs run without dispatch used).
+    A session without dispatch drains the same requests before and
+    after the dispatched ones (cold, warm | dispatched | warm), so the
+    two step times are compared in turns in one call.  Then at the
+    engine phase's batch sizes a session without dispatch and one on
+    the fresh service drain cold then warm: the buckets the
+    dispatch-aware choice picks, reported.  See the module docstring
+    for the gates."""
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.core import cost_model as cm
+    from repro_torch.core import registry as reg
+    from repro_torch.runtime.dispatch import DispatchService
+    from repro_torch.runtime.serve_loop import serve_dispatch_problems
+    from repro_torch.serving import ServeSession, SessionStats
+
+    cfg = model.cfg
+    arch, dev = cfg.name, params["embed"].device
+    eb = params["embed"].element_size()
+    free_card(torch)
+    kind, prob = serve_dispatch_problems(cfg, 4, 0, 512 + NEW_TOKENS)[
+        "decode"]
+    pf_kind, pf_prob = serve_dispatch_problems(cfg, 1, 512, 0)["prefill"]
+    # the slots printed, and the [time_schedule] kernel of each: the
+    # engine's decode step and its prefill at the 512-token bucket
+    shown = {(kind, json.dumps(prob, sort_keys=True)):
+             {"decode_attention": "paged_decode_attention",
+              "ssm_scan": "ssm_scan_decode"}[kind],
+             (pf_kind, json.dumps(pf_prob, sort_keys=True)):
+             {"flash_attention": "flash_attention",
+              "ssm_scan": "ssm_scan_prefill"}[pf_kind]}
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        path = str(Path(tmp) / "dispatch.jsonl")
+        svc = DispatchService(reg.TuningRegistry(path), device=dev)
+        session = ServeSession(model, params, backend="cuda",
+                               batch_sizes=(4,), dispatch=svc)
+
+        def drain(sess, tag):
+            """Serve the 8 requests once; the drain's stats and tokens."""
+            sess.stats = SessionStats()
+            for i, p in enumerate(prompts):
+                sess.submit(p, NEW_TOKENS, request_id=f"r{i}")
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = {r.request_id: r for r in sess.drain()}
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            bad = [r.request_id for r in res.values()
+                   if r.state != "COMPLETED" or len(r.tokens) != NEW_TOKENS]
+            if len(res) != len(prompts) or bad:
+                fail(f"{arch} dispatch_serve {tag}: not completed: {bad}")
+            st = sess.stats.to_dict()
+            return st, {k: v.tokens.tolist() for k, v in res.items()}, \
+                wall, counts
+
+        plain_session = ServeSession(model, params, backend="cuda",
+                                     batch_sizes=(4,))
+        drain(plain_session, "no dispatch, cold")
+        st_a, tokens_a, _, _ = drain(plain_session, "no dispatch, warm")
+        st, tokens, wall, counts = drain(session, "cold")
+        committed = svc.committed(kind, prob, eb)
+        if committed is None:
+            fail(f"{arch} dispatch_serve: the decode slot {prob} did not "
+                 f"commit within the drain ({st['steps']} steps)")
+        if not st["recompiles"] <= st["commits_seen"] <= 1 \
+                or st["recompiles"] > session.max_recompiles:
+            fail(f"{arch} dispatch_serve: {st['recompiles']} recaptures for "
+                 f"{st['commits_seen']} commits (max_recompiles "
+                 f"{session.max_recompiles})")
+        check_steps_run_their_bundles(session, kind,
+                                      f"{arch} dispatch_serve")
+        final = [k for k in session.exec_cache.compiled_log
+                 if k.role == "decode" and k.schedules.get(kind) == committed]
+        if not final:
+            fail(f"{arch} dispatch_serve: no captured decode step runs the "
+                 f"committed {committed}")
+        built = session.exec_cache.compiles
+        st_w, tokens_w, wall_w, _ = drain(session, "warm")
+        st_b, _, _, _ = drain(plain_session, "no dispatch, warm again")
+        del plain_session
+        if session.exec_cache.compiles != built:
+            fail(f"{arch} dispatch_serve: the warm drain built "
+                 f"{session.exec_cache.compiles - built} steps")
+        rec = svc.registry.get(svc.registry_key(kind, prob, eb))
+        persisted = reg.schedule_from_dict(rec.measured["best"])
+        fresh = DispatchService(reg.TuningRegistry(path), device=dev)
+        fsession = ServeSession(model, params, backend="cuda",
+                                batch_sizes=(4,), dispatch=fresh)
+        evals = cm.total_evals()
+        st_f, tokens_f, _, _ = drain(fsession, "fresh")
+        if cm.total_evals() != evals:
+            fail(f"{arch} dispatch_serve: the fresh service made "
+                 f"{cm.total_evals() - evals} cost-model evaluations")
+        first = next(k for k in fsession.exec_cache.compiled_log
+                     if k.role == "decode")
+        if first.schedules.get(kind) != persisted:
+            fail(f"{arch} dispatch_serve: the fresh service's first decode "
+                 f"step runs {first.schedules.get(kind)}, the registry "
+                 f"persisted {persisted}")
+        check_steps_run_their_bundles(fsession, kind,
+                                      f"{arch} dispatch_serve fresh")
+        f_commit = fresh.committed(kind, prob, eb)
+        if f_commit == persisted and st_f["recompiles"]:
+            fail(f"{arch} dispatch_serve: the fresh service recommitted "
+                 f"the persisted winner and still recaptured")
+        report = svc.report()
+        # the engine phase's batch sizes, where the dispatch-aware
+        # bucket choice has candidates to weigh: a session on the warm
+        # service and one without dispatch, cold then warm each
+        multi = {}
+        for tag, msvc in (("no_dispatch", None), ("dispatch", fresh)):
+            msession = ServeSession(model, params, backend="cuda",
+                                    batch_sizes=ENGINE_BATCH_SIZES,
+                                    dispatch=msvc)
+            picks = []
+            for drain_tag in ("cold", "warm"):
+                st_m, tok_m, _, _ = drain(msession, f"{tag} b1,2,4 "
+                                                    f"{drain_tag}")
+                picks.append(sorted(st_m["buckets"]))
+            multi[tag] = (st_m, tok_m, picks)
+            del msession
+            free_card(torch)
+    for entry in report.values():
+        timed_kernel = shown.get((entry["kind"], json.dumps(
+            entry["problem"], sort_keys=True)))
+        if timed_kernel is None:
+            continue
+        c = entry["committed"]
+        phase("dispatch_serve", arch=arch, slot=repr(entry["problem"]),
+              kind=entry["kind"],
+              candidates=json.dumps(entry["candidates"]),
+              predicted_ms=json.dumps([round(x * 1e3, 4)
+                                       for x in entry["predicted_s"]]),
+              measured_median_ms=json.dumps(
+                  [None if x is None else round(x * 1e3, 4)
+                   for x in entry["measured_median_s"]]),
+              observations=entry["observations"],
+              calls_until_commit=(sum(entry["samples"].values())
+                                  if c else None),
+              committed=json.dumps(c), committed_rank=entry["committed_rank"],
+              time_schedule_ms=(sched_times.get((timed_kernel,
+                                                 json.dumps(c)))
+                                if c else None))
+    flat = [(r, i) for r in sorted(tokens_a) for i in range(NEW_TOKENS)]
+    same = [tokens[r][i] == tokens_a[r][i] for r, i in flat]
+    diverge = next(((r, i) for (r, i), ok in zip(flat, same) if not ok),
+                   None)
+
+    def step_ms(x):
+        """Mean decode step of a drain, ms."""
+        return f"{1e3 * x['decode_s'] / max(x['steps'], 1):.2f}"
+    phase("dispatch_serve", arch=arch, card=repr(smi),
+          committed=json.dumps(reg.schedule_to_dict(committed)),
+          recompiles=st["recompiles"], commits_seen=st["commits_seen"],
+          free_switches=st["free_switches"], builds_cold=built,
+          warm_builds=0, fresh_evals=0,
+          fresh_first_decode=json.dumps(reg.schedule_to_dict(persisted)),
+          fresh_committed=json.dumps(None if f_commit is None
+                                     else reg.schedule_to_dict(f_commit)),
+          fresh_recompiles=st_f["recompiles"],
+          decode_tok_s=f"{st_w['decode_tok_s']:.1f}",
+          step_ms=step_ms(st_w), cold_step_ms=step_ms(st),
+          no_dispatch_decode_tok_s=(f"{st_a['decode_tok_s']:.1f},"
+                                    f"{st_b['decode_tok_s']:.1f}"),
+          no_dispatch_step_ms=f"{step_ms(st_a)},{step_ms(st_b)}",
+          cold_decode_tok_s=f"{st['decode_tok_s']:.1f}",
+          wall_s=f"{wall:.2f}", warm_wall_s=f"{wall_w:.2f}",
+          token_agreement=f"{sum(same) / len(same):.4f}",
+          first_divergence=repr(diverge),
+          warm_tokens_equal_cold=tokens_w == tokens,
+          launches=json.dumps(counts))
+    (st_n, tok_n, picks_n), (st_d, tok_d, picks_d) = (multi["no_dispatch"],
+                                                      multi["dispatch"])
+    flat = [(r, i) for r in sorted(tok_n) for i in range(NEW_TOKENS)]
+    agree = sum(tok_d[r][i] == tok_n[r][i] for r, i in flat) / len(flat)
+    phase("dispatch_serve", arch=arch, card=repr(smi),
+          batch_sizes=json.dumps(ENGINE_BATCH_SIZES),
+          buckets_cold_warm=json.dumps(picks_d),
+          no_dispatch_buckets_cold_warm=json.dumps(picks_n),
+          steps=st_d["steps"], no_dispatch_steps=st_n["steps"],
+          decode_tok_s=f"{st_d['decode_tok_s']:.1f}",
+          no_dispatch_decode_tok_s=f"{st_n['decode_tok_s']:.1f}",
+          step_ms=step_ms(st_d), no_dispatch_step_ms=step_ms(st_n),
+          token_agreement=f"{agree:.4f}")
+
+
+def exact_tokens_dispatch(torch, dev, arch):
+    """Smoke config in float32 with a dispatch service scripted to
+    commit the rank-1 candidate of the decode slot: the engine's (6
+    requests of prompt bucket 64 at batch 2, 16 new tokens) and
+    ``generate``'s ([2, 112] + 16) tokens through captured graphs must
+    equal those without dispatch and the plain path's; each recaptures
+    its decode step once, and the new graph records the committed
+    launch parameters."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import registry as reg
+    from repro_torch.models import build_model
+    from repro_torch.runtime import generate
+    from repro_torch.runtime.serve_loop import serve_dispatch_problems
+    from repro_torch.serving import ServeSession
+
+    scfg = get_config(arch)
+    smodel = build_model(scfg)
+    sparams = smodel.init(seed=0, device=dev)
+    prompts = prompts_of([40, 37, 51, 44, 33, 60], scfg.vocab_size, seed=4)
+    gtoks = np.stack(prompts_of([112, 112], scfg.vocab_size, seed=5))
+    decode_kind = "ssm_scan" if scfg.attention_free else "decode_attention"
+    out = {}
+    for name, backend, scripted in (("graphs", "cuda", False),
+                                    ("plain", "plain", False),
+                                    ("graphs_dispatch", "cuda", True)):
+        # one service each for the engine and generate: an ssm engine of
+        # 2 rows and generate of 2 rows share their decode slot
+        svc, gsvc = ((_scripted_service(reg.TuningRegistry(None), dev),
+                      _scripted_service(reg.TuningRegistry(None), dev))
+                     if scripted else (None, None))
+        s = ServeSession(smodel, sparams, backend=backend, batch_sizes=(2,),
+                         dispatch=svc)
+        for i, p in enumerate(prompts):
+            s.submit(p, 16, request_id=f"r{i}")
+        eng = {r.request_id: r.tokens.tolist() for r in s.drain()}
+        gen, gstats = generate(smodel, sparams, {"tokens": gtoks},
+                               max_new_tokens=16, backend=backend,
+                               dispatch=gsvc)
+        torch.cuda.synchronize()
+        out[name] = (eng, gen)
+        if scripted:
+            if s.stats.recompiles != 1 or gstats.recompiles != 1:
+                fail(f"{arch} dispatch: recaptures engine "
+                     f"{s.stats.recompiles}, generate {gstats.recompiles}; "
+                     f"the scripted commit of rank 1 wants one each")
+            check_steps_run_their_bundles(s, decode_kind,
+                                          f"{arch} dispatch smoke")
+            kind, prob = serve_dispatch_problems(scfg, 2, 112, 128)["decode"]
+            committed = gsvc.committed(kind, prob, 4)
+            if committed is None or committed != gsvc.candidates(
+                    kind, prob, 4)[1] or gstats.schedules[kind] != \
+                    reg.schedule_to_dict(committed):
+                fail(f"{arch} dispatch: generate ran {gstats.schedules}, "
+                     f"committed {committed}")
+    for name in out:
+        if out[name][0] != out["plain"][0] or not np.array_equal(
+                out[name][1], out["plain"][1]):
+            fail(f"{arch} dispatch: {name} tokens differ from the plain "
+                 f"path's")
+    # one session for the engine and generate: the engine stays pinned
+    # on rank 0 (max_recompiles 0) while the service commits rank 1,
+    # generate then captures rank 1's step at the engine's geometry (2
+    # rows, 80 positions), and the next drain runs that graph: it must
+    # read the pool the drain writes the prompts into
+    svc = _scripted_service(reg.TuningRegistry(None), dev)
+    s = ServeSession(smodel, sparams, backend="cuda", batch_sizes=(2,),
+                     dispatch=svc, max_recompiles=0)
+    drains = []
+    for n in range(2):
+        for i, p in enumerate(prompts):
+            s.submit(p, 16, request_id=f"r{i}")
+        res = s.drain()
+        drains.append({r.request_id: r.tokens.tolist() for r in res})
+        if n == 0:
+            generate(smodel, sparams, {"tokens": gtoks[:, :64]},
+                     max_new_tokens=16, session=s)
+    torch.cuda.synchronize()
+    kind, prob = serve_dispatch_problems(scfg, 2, 64, 80)["decode"]
+    ran = res[-1].stats.schedules[kind]
+    if ran != reg.schedule_to_dict(svc.candidates(kind, prob, 4)[1]):
+        fail(f"{arch} dispatch: the drain after generate ran {ran}, not "
+             f"the committed rank 1")
+    if any(d != out["plain"][0] for d in drains):
+        fail(f"{arch} dispatch: a drain around generate(session=) gave "
+             f"other tokens than the plain path's")
+    phase("exact_tokens", arch=scfg.name, dtype="float32",
+          paths=json.dumps(list(out) + ["shared_session"]),
+          dispatch="scripted rank 1", engine_requests=len(prompts),
+          generate_rows=2, equal=True)
 
 
 def _leaves(tree):

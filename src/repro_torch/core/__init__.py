@@ -1,3 +1,4 @@
-"""The port's tuning layer for the thesis kernels: the conv layer
-description, the schedule space, the H100 cost model, the tuning
-registry, the tuner and the online selector."""
+"""The port's tuning layer for the thesis and serving kernels: the conv
+layer description, the schedule space (and the ScheduleBundle of a
+serving step), the H100 cost model, the tuning registry, the tuner and
+the online selector."""

@@ -1,4 +1,6 @@
-"""The H100 cost model of the thesis kernels (conv, matmul, sparse conv).
+"""The H100 cost model of the port's kernels: the thesis kernels (conv,
+matmul, sparse conv) and the serving kernels (flash attention, the split
+decode, the selective scan).
 
 It keeps the JAX package's structure (``repro.core.cost_model``, the
 TPU model) and changes its machine.  What does not depend on the
@@ -68,9 +70,33 @@ is the port's own:
 - A schedule the kernel refuses (shared memory, threads, channels a
   thread) keeps the feasibility penalty of +1e3 s, so it ranks last.
 
-Its version string is its own (``h100-3``; ``h100-2`` timed the
-block-sparse conv on the CUDA cores in both dtypes, ``h100-1`` every
-body): no TPU constant and no TPU-measured record is reused.
+The serving kernels are latency-bound at the engine's shapes, so their
+models count what a block waits on, not the TPU formulas of the JAX
+package (its ``flash_attention_schedule_cost_batch`` and kin), with
+compulsory bytes at 3.35 TB/s as the memory term:
+
+- flash attention: the key tiles each query tile can reach under the
+  causal mask; a block costs ``FLASH_BLOCK_S`` (Q in, O out) plus, for
+  its most loaded wave, ``FLASH_TILE_S`` a reachable tile (the cp.async
+  round trip and two barriers), plus the tiles' work (MMAs, exps on the
+  SFUs and staging from L2, at their peak rates, times
+  ``FLASH_WORK_EFF``) spread over the SMs in use;
+- the split decode: per wave of (row, split) blocks ``DEC_BLOCK_S`` plus
+  ``DEC_TILE_S`` a staged tile of its split, plus ``DEC_MERGE_S`` an L2
+  round trip of the merge (4 splits' partials each) when a row has more
+  than one split;
+- the selective scan: per wave ``SCAN_BLOCK_S`` plus ``SCAN_STEP_S`` a
+  step of the recurrence, plus ``SCAN_EXP_S`` an exp of the most loaded
+  SM (its resident blocks share its SFUs: the bound of PERF.md's row 4).
+
+Blocks resident on an SM come from threads and shared memory, as for the
+thesis bodies.  ``launch/calibrate_thesis.py --score`` fits each
+family's three constants by least squares on timed candidates.
+
+Its version string is its own (``h100-4`` adds the serving kernels;
+``h100-3`` timed the thesis kernels as now, ``h100-2`` the block-sparse
+conv on the CUDA cores in both dtypes, ``h100-1`` every body): no TPU
+constant and no TPU-measured record is reused.
 """
 from __future__ import annotations
 
@@ -85,14 +111,17 @@ from repro_torch.kernels import _geometry as geo
 
 # Bump whenever a change below alters predicted costs: the registry keys
 # cached rankings on it, so stale predictions self-invalidate.
-COST_MODEL_VERSION = "h100-3"
+COST_MODEL_VERSION = "h100-4"
 
 # Cost-model queries in this process, one per candidate scored: a warm
 # registry hit performs zero (asserted in tests/test_torch_thesis.py).
 EVAL_COUNTS: Dict[str, int] = {"conv_schedule_cost": 0,
                                "conv_schedule_cost_batch": 0,
                                "matmul_schedule_cost_batch": 0,
-                               "sparse_conv_schedule_cost_batch": 0}
+                               "sparse_conv_schedule_cost_batch": 0,
+                               "flash_attention_schedule_cost_batch": 0,
+                               "decode_attention_schedule_cost_batch": 0,
+                               "ssm_scan_schedule_cost_batch": 0}
 
 INFEASIBLE_S = 1e3
 
@@ -119,6 +148,28 @@ SPARSE_CALL_S = 1.005e-5
 # 120 lines of this body when it ran bf16 too; registers a thread (ptxas)
 SPARSE_CHANNEL_S = 2.371e-6
 SPARSE_REGS = 64
+# The serving kernels: least squares of ``calibrate_thesis --kinds
+# flash_attention decode_attention ssm_scan`` (67 lines: every offered
+# candidate at 6 flash, 6 decode and 6 scan shapes, bf16) on an NVIDIA
+# H100 80GB HBM3 at 700 W (PERF.md).  Flash: a block's Q load and
+# epilogue, a reachable key tile's round trip, and the multiple of the
+# peak rates' time its tile work takes.
+FLASH_BLOCK_S = 6.802e-6
+FLASH_TILE_S = 1.209e-6
+FLASH_WORK_EFF = 3.132
+# The split decode: a block's fixed latency (q, pos and starts, the
+# partial's publication), a staged tile, a merge batch of 4 splits.
+DEC_BLOCK_S = 4.694e-6
+DEC_TILE_S = 5.105e-6
+DEC_MERGE_S = 1.611e-6
+# The selective scan: a wave's fixed latency, a step of the recurrence,
+# an exp on the most loaded SM.
+SCAN_BLOCK_S = 5.564e-6
+SCAN_STEP_S = 1.718e-8
+SCAN_EXP_S = 5.988e-11
+# exps an SM's special-function units issue a clock (4 in each of its
+# quadrants), at the clock implied by the CUDA-core peak
+SFU_PER_CLOCK = 16
 
 
 def total_evals() -> int:
@@ -745,10 +796,173 @@ def sparse_conv_schedule_cost_batch(
         overhead_s=overhead_s)
 
 
+def _serving_cost(n: int, compute_s, dram, smem, ok,
+                  spec: H100Spec) -> BatchKernelCost:
+    """A serving kernel's [n] candidates: one launch each, compute from
+    its latency model, memory its compulsory bytes, infeasible ones
+    last."""
+    zeros = np.zeros(n)
+    dram = np.broadcast_to(np.float64(dram), (n,)) * 1.0
+    return BatchKernelCost(
+        flops=zeros, hbm_bytes=dram, dram_bytes=dram, staged_bytes=zeros,
+        smem_peak=np.asarray(smem, dtype=np.float64),
+        grid_steps=np.zeros(n, dtype=np.int64),
+        launches=np.ones(n, dtype=np.int64),
+        compute_s=np.asarray(compute_s, dtype=np.float64),
+        memory_s=dram / spec.hbm_bw,
+        overhead_s=spec.launch_s + np.where(ok, 0.0, INFEASIBLE_S))
+
+
+def flash_attention_features(b: int, hq: int, hkv: int, s: int, d: int,
+                             blocks: Sequence[Tuple[int, int]],
+                             causal: bool = True,
+                             spec: H100Spec = H100Spec(),
+                             elem_bytes: int = 2):
+    """Per (block_q, block_kv): (features [n, 3], smem, feasible), the
+    features multiplying (FLASH_BLOCK_S, FLASH_TILE_S, FLASH_WORK_EFF):
+    waves of blocks (blocks over SMs x resident blocks, at least 1); waves x the most key tiles a block reaches; the
+    tiles' work at peak rates (MMAs or FMAs, exps, L2 staging) spread
+    over the SMs in use."""
+    mma = geo.tensor_cores(elem_bytes)
+    clock = _clock_hz(spec)
+    feats = np.zeros((len(blocks), 3))
+    smem = np.zeros(len(blocks))
+    ok = np.zeros(len(blocks), dtype=bool)
+    for j, (bq, bkv) in enumerate(blocks):
+        ok[j] = geo.flash_tile_error(d, elem_bytes, bq, bkv) is None
+        n_qt = -(-s // bq)
+        reach = np.minimum(s, (np.arange(n_qt) + 1) * bq) if causal \
+            else np.full(n_qt, s)
+        tiles = -(-reach // bkv)                       # per query tile
+        if mma:
+            t = geo.flash_mma_tile(d, bq)
+            threads, smem[j], dp = t.threads, t.smem, t.dp
+            # Q K^T and P V with p split in two: 6 rows x keys x dp
+            mma_s = 6.0 * bq * bkv * dp / (spec.tc_peak_flops / spec.sms)
+        else:
+            threads, dp = 256, _round_up(d, 4)
+            smem[j] = 2 * bkv * dp * 4
+            mma_s = 4.0 * bq * bkv * dp / (spec.peak_flops / spec.sms)
+        exp_s = bq * bkv / (SFU_PER_CLOCK * clock)
+        stage_s = 2.0 * bkv * d * elem_bytes / (spec.l2_bw / spec.sms)
+        work = np.maximum(mma_s + exp_s, stage_s)      # a tile of a block
+        n_blocks = b * hq * n_qt
+        occ = _occupancy(np.array([threads]), np.array([smem[j]]),
+                         spec)[0]
+        waves = max(1.0, n_blocks / (spec.sms * occ))
+        feats[j] = (waves, waves * tiles.max(),
+                    b * hq * tiles.sum() * work
+                    / min(spec.sms, n_blocks))
+    return feats, smem, ok
+
+
+def flash_attention_schedule_cost_batch(
+        b: int, hq: int, hkv: int, s: int, d: int,
+        blocks: Sequence[Tuple[int, int]], causal: bool = True,
+        spec: H100Spec = H100Spec(), elem_bytes: int = 2
+        ) -> BatchKernelCost:
+    """Score (block_q, block_kv) tiles of the flash body of the dtype
+    ([n_blocks] arrays; see :func:`flash_attention_features`)."""
+    EVAL_COUNTS["flash_attention_schedule_cost_batch"] += len(blocks)
+    feats, smem, ok = flash_attention_features(b, hq, hkv, s, d, blocks,
+                                               causal, spec, elem_bytes)
+    compute_s = feats @ np.array([FLASH_BLOCK_S, FLASH_TILE_S,
+                                  FLASH_WORK_EFF])
+    dram = (2 * b * hq + 2 * b * hkv) * s * d * elem_bytes
+    return _serving_cost(len(blocks), compute_s, dram, smem, ok, spec)
+
+
+def decode_attention_features(b: int, hq: int, hkv: int, s: int, d: int,
+                              block_kvs: Sequence[int],
+                              spec: H100Spec = H100Spec(),
+                              elem_bytes: int = 2, block_size: int = 0):
+    """Per split (``block_kv`` keys a block; None: the plan's own):
+    (features [n, 3], smem, feasible, plans), the features multiplying
+    (DEC_BLOCK_S, DEC_TILE_S, DEC_MERGE_S): waves of (row, split)
+    blocks; waves x the staged tiles of a split; the merge's L2 round
+    trips (4 splits each) when a row has more than one split."""
+    feats = np.zeros((len(block_kvs), 3))
+    smem = np.zeros(len(block_kvs))
+    ok = np.zeros(len(block_kvs), dtype=bool)
+    plans = []
+    for j, bkv in enumerate(block_kvs):
+        plan = geo.decode_plan(b, hq, hkv, d, s, block_size, elem_bytes,
+                               bkv)
+        plans.append(plan)
+        ok[j] = plan.error is None
+        smem[j] = plan.smem
+        occ = _occupancy(np.array([128]), np.array([plan.smem]), spec)[0]
+        waves = max(1.0, plan.blocks / (spec.sms * occ))
+        tiles = -(-min(plan.split_keys, s) // plan.tile_keys)
+        merges = -(-plan.splits // 4) if plan.splits > 1 else 0
+        feats[j] = (waves, waves * tiles, merges)
+    return feats, smem, ok, plans
+
+
+def decode_attention_schedule_cost_batch(
+        b: int, hq: int, hkv: int, s: int, d: int,
+        block_kvs: Sequence[int], spec: H100Spec = H100Spec(),
+        elem_bytes: int = 2) -> BatchKernelCost:
+    """Score splits of the contiguous split decode over a cache of ``s``
+    keys ([n] arrays; see :func:`decode_attention_features`); the bytes
+    are every key's K and V (``pos`` is a device value: the model counts
+    the full cache), q and the output."""
+    EVAL_COUNTS["decode_attention_schedule_cost_batch"] += len(block_kvs)
+    feats, smem, ok, _ = decode_attention_features(b, hq, hkv, s, d,
+                                                   block_kvs, spec,
+                                                   elem_bytes)
+    compute_s = feats @ np.array([DEC_BLOCK_S, DEC_TILE_S, DEC_MERGE_S])
+    dram = (2 * b * hkv * s * d + 2 * b * hq * d) * elem_bytes
+    return _serving_cost(len(block_kvs), compute_s, dram, smem, ok, spec)
+
+
+def ssm_scan_features(bt: int, seq: int, di: int, n: int,
+                      block_ds: Sequence[int], spec: H100Spec = H100Spec(),
+                      elem_bytes: int = 2):
+    """Per ``block_d``: (features [n, 3], smem, feasible), the features
+    multiplying (SCAN_BLOCK_S, SCAN_STEP_S, SCAN_EXP_S): waves of
+    blocks; waves x the steps; the exps of the most loaded SM (its
+    blocks' seq x block_d x N, whose SFUs they share)."""
+    feats = np.zeros((len(block_ds), 3))
+    smem = np.zeros(len(block_ds))
+    ok = np.zeros(len(block_ds), dtype=bool)
+    for j, bd in enumerate(block_ds):
+        lay = geo.scan_layout(bd, n, elem_bytes)
+        ok[j] = lay.error is None
+        smem[j] = lay.smem
+        n_blocks = bt * -(-di // bd)
+        occ = _occupancy(np.array([lay.threads]), np.array([lay.smem]),
+                         spec)[0]
+        waves = max(1.0, n_blocks / (spec.sms * occ))
+        per_sm = -(-n_blocks // spec.sms)
+        feats[j] = (waves, waves * seq, per_sm * seq * bd * n)
+    return feats, smem, ok
+
+
+def ssm_scan_schedule_cost_batch(bt: int, seq: int, di: int, n: int,
+                                 block_ds: Sequence[int],
+                                 spec: H100Spec = H100Spec(),
+                                 elem_bytes: int = 2) -> BatchKernelCost:
+    """Score channel blocks of the selective scan ([n] arrays; see
+    :func:`ssm_scan_features`); the bytes are x and y in the model dtype,
+    dt, b and c in float32, and the float32 state read and written."""
+    EVAL_COUNTS["ssm_scan_schedule_cost_batch"] += len(block_ds)
+    feats, smem, ok = ssm_scan_features(bt, seq, di, n, block_ds, spec,
+                                        elem_bytes)
+    compute_s = feats @ np.array([SCAN_BLOCK_S, SCAN_STEP_S, SCAN_EXP_S])
+    dram = (bt * seq * di * (2 * elem_bytes + 4) + 2 * bt * seq * n * 4
+            + 2 * bt * di * n * 4)
+    return _serving_cost(len(block_ds), compute_s, dram, smem, ok, spec)
+
+
 __all__ = ["COST_MODEL_VERSION", "EVAL_COUNTS", "H100Spec", "KernelCost",
            "LOAD_LATENCY_S", "RING_LATENCY_S", "SPARSE_CALL_S",
            "SPARSE_CHANNEL_S", "STEP_CYCLES", "UNIT_CYCLES",
            "BatchKernelCost", "conv_schedule_cost",
            "conv_schedule_cost_batch", "matmul_schedule_cost_batch",
            "sparse_conv_schedule_cost_batch", "sparse_channel_waves",
+           "flash_attention_schedule_cost_batch",
+           "decode_attention_schedule_cost_batch",
+           "ssm_scan_schedule_cost_batch", "flash_attention_features",
+           "decode_attention_features", "ssm_scan_features",
            "total_evals"]

@@ -146,7 +146,8 @@ class TuningRecord:
 
 
 def schedule_to_dict(sched: Any) -> Dict[str, Any]:
-    """Serialise a thesis schedule to a typed JSON dict."""
+    """Serialise a schedule to a typed JSON dict (the JAX package's
+    form)."""
     from repro_torch.core import schedule as sch
     if isinstance(sched, sch.ConvSchedule):
         return {"type": "conv", "grid_order": list(sched.grid_order),
@@ -155,9 +156,16 @@ def schedule_to_dict(sched: Any) -> Dict[str, Any]:
         return {"type": "matmul", "grid_order": list(sched.grid_order),
                 "block": sched.block_dict(),
                 "resident_rhs": bool(sched.resident_rhs)}
+    if isinstance(sched, sch.FlashAttentionSchedule):
+        return {"type": "flash_attention", "block_q": int(sched.block_q),
+                "block_kv": int(sched.block_kv)}
+    if isinstance(sched, sch.DecodeAttentionSchedule):
+        return {"type": "decode_attention", "block_kv": int(sched.block_kv)}
+    if isinstance(sched, sch.SSMScanSchedule):
+        return {"type": "ssm_scan", "block_d": int(sched.block_d)}
     if isinstance(sched, sch.SparseConvSchedule):
         return {"type": "sparse_conv", "block": sched.block_dict()}
-    raise TypeError(f"not a thesis schedule: {sched!r}")
+    raise TypeError(f"not a schedule of the port: {sched!r}")
 
 
 def schedule_from_dict(d: Dict[str, Any]) -> Any:
@@ -168,6 +176,13 @@ def schedule_from_dict(d: Dict[str, Any]) -> Any:
     if d["type"] == "matmul":
         return sch.MatmulSchedule.make(d["grid_order"], d["block"],
                                        d.get("resident_rhs", False))
+    if d["type"] == "flash_attention":
+        return sch.FlashAttentionSchedule(int(d["block_q"]),
+                                          int(d["block_kv"]))
+    if d["type"] == "decode_attention":
+        return sch.DecodeAttentionSchedule(int(d["block_kv"]))
+    if d["type"] == "ssm_scan":
+        return sch.SSMScanSchedule(int(d["block_d"]))
     if d["type"] == "sparse_conv":
         return sch.SparseConvSchedule.make(d["block"])
     raise ValueError(f"cannot rebuild schedule of type {d['type']!r}")
@@ -190,6 +205,9 @@ KIND_TIERS: Dict[str, str] = {
     "conv_schedule": "roofline",
     "matmul_schedule": "roofline",
     "sparse_conv_schedule": "roofline",
+    "flash_attention_schedule": "roofline",
+    "decode_attention_schedule": "roofline",
+    "ssm_scan_schedule": "roofline",
 }
 
 
@@ -358,11 +376,46 @@ def sparse_conv_schedule_key(layer: Any, density: float, machine: Any,
                             _machine(machine), COST_MODEL_VERSION)
 
 
+def flash_attention_schedule_key(b: int, hq: int, hkv: int, s: int, d: int,
+                                 machine: Any, causal: bool = True,
+                                 elem_bytes: int = 2) -> RegistryKey:
+    """Key of a flash-attention schedule ranking (the JAX package's
+    problem fields)."""
+    from repro_torch.core.cost_model import COST_MODEL_VERSION
+    problem = {"b": b, "hq": hq, "hkv": hkv, "s": s, "d": d,
+               "causal": bool(causal), "elem_bytes": elem_bytes}
+    return RegistryKey.make("flash_attention_schedule", problem,
+                            _machine(machine), COST_MODEL_VERSION)
+
+
+def decode_attention_schedule_key(b: int, hq: int, hkv: int, s: int, d: int,
+                                  machine: Any, elem_bytes: int = 2
+                                  ) -> RegistryKey:
+    """Key of a decode-attention schedule ranking."""
+    from repro_torch.core.cost_model import COST_MODEL_VERSION
+    problem = {"b": b, "hq": hq, "hkv": hkv, "s": s, "d": d,
+               "elem_bytes": elem_bytes}
+    return RegistryKey.make("decode_attention_schedule", problem,
+                            _machine(machine), COST_MODEL_VERSION)
+
+
+def ssm_scan_schedule_key(bt: int, seq: int, di: int, n: int, machine: Any,
+                          elem_bytes: int = 2) -> RegistryKey:
+    """Key of a selective-scan schedule ranking."""
+    from repro_torch.core.cost_model import COST_MODEL_VERSION
+    problem = {"bt": bt, "seq": seq, "di": di, "n": n,
+               "elem_bytes": elem_bytes}
+    return RegistryKey.make("ssm_scan_schedule", problem, _machine(machine),
+                            COST_MODEL_VERSION)
+
+
 __all__ = [
     "SCHEMA_VERSION", "RegistryKey", "TuningRecord", "TuningRegistry",
     "canonical_json", "fingerprint", "runtime_fingerprint", "machine_key",
     "schedule_to_dict", "schedule_from_dict", "cost_to_dict",
     "cost_from_dict", "conv_problem", "conv_schedule_key",
     "matmul_schedule_key", "sparse_conv_schedule_key", "quantize_density",
+    "flash_attention_schedule_key", "decode_attention_schedule_key",
+    "ssm_scan_schedule_key",
     "KIND_TIERS", "kind_tier",
 ]

@@ -1,4 +1,4 @@
-"""Offline schedule search for the thesis kernels on the H100.
+"""Offline schedule search for the port's kernels on the H100.
 
 The tuner enumerates the schedule space of each kernel (grid order x
 block shapes, plus the resident RHS for matmul), scores the whole
@@ -15,6 +15,13 @@ and only schedules the CUDA kernels accept (``kernels/_geometry.py``,
 the layout of the dtype's body) are ever returned, so a ranked
 schedule never raises on the card.
 
+The serving kernels offer only what their bodies take (``_geometry``'s
+``error`` is None), by the problem's element size: flash bf16 64 or 128
+query rows at the 64-key tile, float32 its single 64 x 32 tile; the
+split decode ``block_kv`` (keys a block) in DECODE_SPLITS up
+to the cache length, plus the split ``decode_plan`` picks by itself; the
+scan ``block_d`` in SCAN_BLOCK_DS.
+
 ``cached_tune_*`` put the ranking behind the port's tuning registry: a
 warm hit performs zero cost-model evaluations.
 """
@@ -28,7 +35,9 @@ import numpy as np
 from repro_torch.core import cost_model as cm
 from repro_torch.core import registry as reg
 from repro_torch.core.loopnest import ConvLayer
-from repro_torch.core.schedule import (ConvSchedule, MatmulSchedule,
+from repro_torch.core.schedule import (ConvSchedule, DecodeAttentionSchedule,
+                                       FlashAttentionSchedule,
+                                       MatmulSchedule, SSMScanSchedule,
                                        SparseConvSchedule)
 from repro_torch.kernels import _geometry as geo
 
@@ -41,6 +50,9 @@ CONV_MMA_CHANNEL_TARGETS = (16, 32, 64, 128, 256)
 CONV_MMA_PIXEL_TARGETS = (4, 8, 16, 28)
 MATMUL_MMA_ROW_TARGETS = (64, 128)
 MATMUL_MMA_COL_TARGETS = (16, 32, 64, 128, 192, 256)
+# the serving kernels
+DECODE_SPLITS = (32, 64, 128, 256, 512)
+SCAN_BLOCK_DS = (32, 64, 128, 256)
 
 
 def _divisors(n: int, cap: int = 1 << 30) -> List[int]:
@@ -162,6 +174,83 @@ def tune_sparse_conv(layer: ConvLayer, density: float = 1.0,
             for i in _top(scored.time_s, scored.feasible, top_k)]
 
 
+def flash_attention_tiles(d: int, elem_bytes: int = 2
+                          ) -> List[Tuple[int, int]]:
+    """The (block_q, block_kv) tiles the flash body of the dtype takes at
+    head dim ``d``: bf16 every row choice at the key tile, float32 its
+    one tile."""
+    if geo.tensor_cores(elem_bytes):
+        tiles = [(r, geo.FLASH_KEYS) for r in geo.FLASH_ROW_CHOICES]
+    else:
+        tiles = [geo.FLASH_F32_TILE]
+    return [t for t in tiles
+            if geo.flash_tile_error(d, elem_bytes, *t) is None]
+
+
+def tune_flash_attention(b: int, hq: int, hkv: int, s: int, d: int,
+                         causal: bool = True,
+                         spec: cm.H100Spec = cm.H100Spec(),
+                         elem_bytes: int = 2, top_k: int = 5,
+                         ) -> List[Tuple[FlashAttentionSchedule,
+                                         cm.KernelCost]]:
+    """Rank the flash tiles with one
+    ``flash_attention_schedule_cost_batch`` call."""
+    tiles = flash_attention_tiles(d, elem_bytes)
+    scored = cm.flash_attention_schedule_cost_batch(
+        b, hq, hkv, s, d, tiles, causal, spec, elem_bytes)
+    return [(FlashAttentionSchedule(*tiles[i]), scored.cost(i))
+            for i in _top(scored.time_s, scored.feasible, top_k)]
+
+
+def decode_splits(b: int, hq: int, hkv: int, s: int, d: int,
+                  elem_bytes: int = 2) -> List[int]:
+    """The splits (``block_kv``) the contiguous split decode takes over a
+    cache of ``s`` keys: the plan's own first, then DECODE_SPLITS up to
+    ``s``, each once and only where ``decode_plan`` raises no error."""
+    own = geo.decode_plan(b, hq, hkv, d, s, 0, elem_bytes).split_keys
+    out: List[int] = []
+    for k in (own,) + tuple(x for x in DECODE_SPLITS if x <= s):
+        if k not in out and geo.decode_plan(b, hq, hkv, d, s, 0, elem_bytes,
+                                            k).error is None:
+            out.append(k)
+    return out
+
+
+def tune_decode_attention(b: int, hq: int, hkv: int, s: int, d: int,
+                          spec: cm.H100Spec = cm.H100Spec(),
+                          elem_bytes: int = 2, top_k: int = 5,
+                          ) -> List[Tuple[DecodeAttentionSchedule,
+                                          cm.KernelCost]]:
+    """Rank decode splits with one ``decode_attention_schedule_cost_batch``
+    call (ties keep the plan's own split first)."""
+    splits = decode_splits(b, hq, hkv, s, d, elem_bytes)
+    scored = cm.decode_attention_schedule_cost_batch(b, hq, hkv, s, d,
+                                                     splits, spec,
+                                                     elem_bytes)
+    return [(DecodeAttentionSchedule(splits[i]), scored.cost(i))
+            for i in _top(scored.time_s, scored.feasible, top_k)]
+
+
+def scan_blocks(n: int, elem_bytes: int = 2) -> List[int]:
+    """The ``block_d`` values of SCAN_BLOCK_DS the scan takes for state
+    size ``n``."""
+    return [bd for bd in SCAN_BLOCK_DS
+            if geo.scan_layout(bd, n, elem_bytes).error is None]
+
+
+def tune_ssm_scan(bt: int, seq: int, di: int, n: int,
+                  spec: cm.H100Spec = cm.H100Spec(),
+                  elem_bytes: int = 2, top_k: int = 5,
+                  ) -> List[Tuple[SSMScanSchedule, cm.KernelCost]]:
+    """Rank channel blocks with one ``ssm_scan_schedule_cost_batch``
+    call."""
+    blocks = scan_blocks(n, elem_bytes)
+    scored = cm.ssm_scan_schedule_cost_batch(bt, seq, di, n, blocks, spec,
+                                             elem_bytes)
+    return [(SSMScanSchedule(blocks[i]), scored.cost(i))
+            for i in _top(scored.time_s, scored.feasible, top_k)]
+
+
 def _ranked_to_value(ranked) -> Dict:
     """Registry value for a ranked (schedule, cost) list."""
     return {"schedules": [reg.schedule_to_dict(s) for s, _ in ranked],
@@ -259,7 +348,54 @@ def cached_tune_sparse_conv(
         top_k, registry, refresh)
 
 
+def cached_tune_flash_attention(
+        b: int, hq: int, hkv: int, s: int, d: int, causal: bool = True,
+        spec: cm.H100Spec = cm.H100Spec(), elem_bytes: int = 2,
+        top_k: int = 5, registry: Optional[reg.TuningRegistry] = None,
+        refresh: bool = False, machine: Optional[str] = None,
+        ) -> List[Tuple[FlashAttentionSchedule, cm.KernelCost]]:
+    """:func:`tune_flash_attention` behind the registry."""
+    return _cached_ranked(
+        reg.flash_attention_schedule_key(b, hq, hkv, s, d, machine or spec,
+                                         causal, elem_bytes),
+        lambda k: tune_flash_attention(b, hq, hkv, s, d, causal, spec,
+                                       elem_bytes, top_k=k),
+        top_k, registry, refresh)
+
+
+def cached_tune_decode_attention(
+        b: int, hq: int, hkv: int, s: int, d: int,
+        spec: cm.H100Spec = cm.H100Spec(), elem_bytes: int = 2,
+        top_k: int = 5, registry: Optional[reg.TuningRegistry] = None,
+        refresh: bool = False, machine: Optional[str] = None,
+        ) -> List[Tuple[DecodeAttentionSchedule, cm.KernelCost]]:
+    """:func:`tune_decode_attention` behind the registry."""
+    return _cached_ranked(
+        reg.decode_attention_schedule_key(b, hq, hkv, s, d, machine or spec,
+                                          elem_bytes),
+        lambda k: tune_decode_attention(b, hq, hkv, s, d, spec, elem_bytes,
+                                        top_k=k),
+        top_k, registry, refresh)
+
+
+def cached_tune_ssm_scan(
+        bt: int, seq: int, di: int, n: int,
+        spec: cm.H100Spec = cm.H100Spec(), elem_bytes: int = 2,
+        top_k: int = 5, registry: Optional[reg.TuningRegistry] = None,
+        refresh: bool = False, machine: Optional[str] = None,
+        ) -> List[Tuple[SSMScanSchedule, cm.KernelCost]]:
+    """:func:`tune_ssm_scan` behind the registry."""
+    return _cached_ranked(
+        reg.ssm_scan_schedule_key(bt, seq, di, n, machine or spec,
+                                  elem_bytes),
+        lambda k: tune_ssm_scan(bt, seq, di, n, spec, elem_bytes, top_k=k),
+        top_k, registry, refresh)
+
+
 __all__ = ["tune_conv", "tune_matmul", "tune_sparse_conv",
+           "tune_flash_attention", "tune_decode_attention", "tune_ssm_scan",
            "cached_tune_conv", "cached_tune_matmul",
-           "cached_tune_sparse_conv", "conv_blocks", "matmul_blocks",
-           "sparse_blocks"]
+           "cached_tune_sparse_conv", "cached_tune_flash_attention",
+           "cached_tune_decode_attention", "cached_tune_ssm_scan",
+           "conv_blocks", "matmul_blocks", "sparse_blocks",
+           "flash_attention_tiles", "decode_splits", "scan_blocks"]

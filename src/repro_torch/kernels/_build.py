@@ -42,9 +42,10 @@ _F = ctypes.c_float
 # C entry points: name -> argtypes (all return int = cudaError_t).
 SIGNATURES = {
     # q, k, v, o, starts, B, HQ, HKV, S, D, causal, window, scale,
-    # is_bf16 (the tensor-core body), stream
+    # is_bf16 (the tensor-core body), rows and keys of a block's tile,
+    # stream
     "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _F, _I, _P],
+                            _I, _F, _I, _I, _I, _P],
     # q, k, v, o, pos (int32), starts (int64, or null), workspace,
     # tickets, B, HQ, HKV, S, D, split_keys, tile_keys, head_chunk, smem
     # (the decode plan), scale, is_bf16, stream

@@ -65,15 +65,18 @@ MMA_BARRIER_BYTES = (2 * MMA_MAX_STAGES + 1) * 8
 SPARSE_TILE_Y = 8
 SPARSE_TILE_X = 16
 
-# bf16 flash attention (mma.sync.m16n8k16): 4 warps, 64 query rows a
-# block, 64-key K/V tiles; D pads to 16 up to FLASH_Q_REGS_D (Q kept in
-# registers), to 32 above it up to FLASH_MAX_D (Q re-read from shared
-# memory for each KV tile).  The float32 body takes the same head dims.
-FLASH_ROWS = 64
+# bf16 flash attention (mma.sync.m16n8k16): 16 query rows a warp, 64 or
+# 128 rows a block (4 or 8 warps; the block's rows are a template
+# parameter), 64-key K/V tiles; D pads to 16 up to FLASH_Q_REGS_D (Q kept
+# in registers), to 32 above it up to FLASH_MAX_D (Q re-read from shared
+# memory for each KV tile).  The float32 body takes the same head dims in
+# its single tile of FLASH_F32_TILE (query rows, keys).
+FLASH_ROWS = 64               # the default rows of a bf16 block
+FLASH_ROW_CHOICES = (64, 128)
 FLASH_KEYS = 64
-FLASH_WARPS = 4
 FLASH_Q_REGS_D = 128
 FLASH_MAX_D = 256
+FLASH_F32_TILE = (64, 32)
 
 # Split decode (csrc/decode_common.cuh): 128-thread blocks, each one
 # (row, KV head, head chunk) x one split of the key range; K and V staged
@@ -271,37 +274,67 @@ def sparse_layout(boc: int, bic: int, by: int, bx: int, kh: int, kw: int,
 
 @dataclasses.dataclass(frozen=True)
 class FlashMmaTile:
-    """How the bf16 flash attention lays out a head dim (``csrc/
-    flash_attention.cu``, flash_mma_kernel)."""
+    """How the bf16 flash attention lays out a head dim and a block of
+    query rows (``csrc/flash_attention.cu``, flash_mma_kernel<DP, ROWS>)."""
     d: int
     dp: int              # D padded to the MMA's k (16)
     staging: str         # "cp.async" (16-byte rows) or "registers"
     smem: int            # bytes: the Q/O tile and two K and V stages
+    rows: int = FLASH_ROWS
 
     @property
     def threads(self) -> int:
-        return FLASH_WARPS * WARP
+        """One warp per 16 query rows."""
+        return self.rows // 16 * WARP
 
     @property
     def error(self) -> Optional[str]:
-        """Why the kernel refuses this head dim, or None when it fits."""
+        """Why the kernel refuses this tile, or None when it fits."""
         if not 1 <= self.d <= FLASH_MAX_D:
             return f"head_dim {self.d} not in [1, {FLASH_MAX_D}]"
+        if self.rows not in FLASH_ROW_CHOICES:
+            return (f"block_q {self.rows} not in {FLASH_ROW_CHOICES} (the "
+                    f"bf16 body's rows)")
+        if self.smem > SMEM_BYTES:
+            return f"{self.smem} bytes of shared memory > {SMEM_BYTES}"
         return None
 
 
-def flash_mma_tile(d: int) -> FlashMmaTile:
-    """Layout of the bf16 flash body for head dim ``d``: D padded to 16
-    (to 32 above FLASH_Q_REGS_D, where the kernel has one instance per 32
-    columns); rows of 16-byte multiples (d % 8 == 0) staged by cp.async,
-    others through registers into the same [rows][dp + 8] tiles (the
-    kernel also takes the register route for bases that are not 16-byte
-    aligned); shared memory for the Q (later O) tile and two stages of K
-    and V."""
+def flash_mma_tile(d: int, rows: int = FLASH_ROWS) -> FlashMmaTile:
+    """Layout of the bf16 flash body for head dim ``d`` and ``rows``
+    query rows a block: D padded to 16 (to 32 above FLASH_Q_REGS_D, where
+    the kernel has one instance per 32 columns); rows of 16-byte
+    multiples (d % 8 == 0) staged by cp.async, others through registers
+    into the same tiles of row stride dp + 8 (the kernel also takes the
+    register route for bases that are not 16-byte aligned); shared
+    memory for the Q (later O) tile of ``rows`` rows and two stages of K
+    and V of FLASH_KEYS rows each."""
     dp = _round_up(max(d, 1), 16 if d <= FLASH_Q_REGS_D else 32)
-    smem = 5 * FLASH_ROWS * (dp + 8) * 2
+    smem = (rows + 4 * FLASH_KEYS) * (dp + 8) * 2
     return FlashMmaTile(d, dp, "cp.async" if d % 8 == 0 else "registers",
-                        smem)
+                        smem, rows)
+
+
+def flash_tile_error(d: int, elem_bytes: int, block_q: int,
+                     block_kv: int) -> Optional[str]:
+    """Why the flash body of the dtype refuses (block_q, block_kv) at
+    head dim ``d``, or None: bf16 takes FLASH_ROW_CHOICES rows at
+    FLASH_KEYS keys, float32 only its FLASH_F32_TILE."""
+    if tensor_cores(elem_bytes):
+        if block_kv != FLASH_KEYS:
+            return (f"block_kv {block_kv} is not the bf16 body's key tile "
+                    f"{FLASH_KEYS}")
+        return flash_mma_tile(d, block_q).error
+    if (block_q, block_kv) != FLASH_F32_TILE:
+        return (f"(block_q, block_kv) ({block_q}, {block_kv}) is not the "
+                f"float32 body's tile {FLASH_F32_TILE}")
+    return flash_mma_tile(d).error        # the same head dims
+
+
+def flash_default_tile(elem_bytes: int) -> Tuple[int, int]:
+    """(block_q, block_kv) the flash wrapper launches with no schedule."""
+    return ((FLASH_ROWS, FLASH_KEYS) if tensor_cores(elem_bytes)
+            else FLASH_F32_TILE)
 
 
 def dec_units(d: int, elem_bytes: int) -> int:
@@ -330,8 +363,9 @@ class DecodePlan:
     """How the split decode runs one call (``csrc/decode_common.cuh``,
     decode_split_kernel): the grid is (B x HKV x chunks, splits); split
     ``i`` owns keys ``[i * split_keys, (i + 1) * split_keys)`` and walks
-    them in tiles of ``tile_keys``.  Fixed by static shapes only: it never
-    sees ``pos`` or ``starts``."""
+    them in tiles of ``tile_keys``.  Fixed by static values only (the
+    shapes, and a schedule's split): it never sees ``pos`` or
+    ``starts``."""
     b: int
     hq: int
     hkv: int
@@ -384,17 +418,29 @@ class DecodePlan:
             return f"element size {self.elem_bytes} is not bf16 or float32"
         if self.limit < 1 or self.b < 1:
             return "no keys or no rows"
-        if self.splits > 65535:
-            return f"{self.splits} splits > 65535 (the grid's y)"
+        gran = self.block_size if self.block_size > 0 else 16
+        if self.split_keys < 1 or self.split_keys % gran:
+            what = ("the pool block" if self.block_size > 0
+                    else "16 keys")
+            return (f"split of {self.split_keys} keys is not a multiple of "
+                    f"{what} ({gran})")
+        if self.splits > DEC_MAX_SPLITS:
+            return f"{self.splits} splits > {DEC_MAX_SPLITS}"
         if self.smem > SMEM_BYTES:
             return f"{self.smem} bytes of shared memory > {SMEM_BYTES}"
         return None
 
 
 def decode_plan(b: int, hq: int, hkv: int, d: int, limit: int,
-                block_size: int, elem_bytes: int) -> DecodePlan:
+                block_size: int, elem_bytes: int,
+                split_keys: Optional[int] = None) -> DecodePlan:
     """The split plan of a decode call from static shapes: ``limit`` is
     the cache's S (contiguous, ``block_size`` 0) or MB x bs (paged).
+    ``split_keys`` (a :class:`DecodeAttentionSchedule`'s ``block_kv``)
+    replaces the split below and keeps the head chunk and the tile; the
+    plan's ``error`` says when the kernel refuses it (not a multiple of
+    16 keys, or of the pool block; more than DEC_MAX_SPLITS splits;
+    shared memory over SMEM_BYTES).
 
     - head chunk: a KV group's query heads in equal chunks of at most
       DEC_MAX_HEADS heads and, where the group allows, at most
@@ -417,11 +463,13 @@ def decode_plan(b: int, hq: int, hkv: int, d: int, limit: int,
     gran = block_size if block_size > 0 else 16
     rows = max(b, 1) * max(hkv, 1) * chunks
     want = max(1, -(-DEC_TARGET_BLOCKS // rows))
-    keys = max(-(-limit // want), DEC_MIN_SPLIT_KEYS,
-               -(-limit // DEC_MAX_SPLITS))
-    split_keys = min(_round_up(keys, gran), _round_up(limit, gran))
-    splits = -(-limit // split_keys)
-    table = split_keys // block_size if block_size > 0 else 0
+    if split_keys is None:
+        keys = max(-(-limit // want), DEC_MIN_SPLIT_KEYS,
+                   -(-limit // DEC_MAX_SPLITS))
+        split_keys = min(_round_up(keys, gran), _round_up(limit, gran))
+    split_keys = int(split_keys)
+    splits = -(-limit // max(split_keys, 1))
+    table = -(-split_keys // block_size) if block_size > 0 else 0
     smem = dec_smem(max(d, 1), elem_bytes, tile, head_chunk, table)
     return DecodePlan(b, hq, hkv, d, limit, block_size, elem_bytes,
                       head_chunk, chunks, tile, split_keys, splits, smem)
@@ -537,6 +585,7 @@ def scan_layout(block_d: int, n: int, elem_bytes: int) -> ScanLayout:
 __all__ = ["ScanLayout", "scan_layout", "ConvTile", "MatmulTile",
            "ConvMmaTile", "MatmulMmaTile", "FlashMmaTile", "DecodePlan",
            "decode_plan", "conv_tile", "matmul_tile", "conv_mma_tile",
-           "matmul_mma_tile", "flash_mma_tile", "conv_layout", "sparse_layout",
+           "matmul_mma_tile", "flash_mma_tile", "flash_tile_error",
+           "flash_default_tile", "conv_layout", "sparse_layout",
            "matmul_layout", "matmul_mma_route", "tensor_cores", "sparse_tile",
            "MMA_BN", "MAX_THREADS", "SMEM_BYTES", "WARP"]

@@ -9,10 +9,15 @@
 //   card's ~295 operations per byte, so moving Q/K/V/O once is the floor.
 // Two bodies, chosen by dtype (kernels/_geometry.py, tensor_cores):
 //
-// bfloat16: flash_mma_kernel<DP>, FlashAttention-2 on mma.sync.m16n8k16
+// bfloat16: flash_mma_kernel<DP, ROWS>, FlashAttention-2 on mma.sync.m16n8k16
 //   (bf16 in, f32 accumulate), D padded to DP, a multiple of 16 (of 32
 //   above 128), up to 256.
-//   - Block: 4 warps and 64 query rows, 16 rows a warp.  The grid runs
+//   - Block: 16 query rows a warp, ROWS = 64 (4 warps, the default) or
+//     128 (8 warps) a block, a template parameter the wrapper takes from
+//     a FlashAttentionSchedule's block_q; a warp's code is the same at
+//     both.  128 rows halve the blocks (and K/V staged per query row) at
+//     the cost of parallelism: 256 -> 128 blocks at a 512-token prefill
+//     of 32 heads, against 132 SMs.  The grid runs
 //     the query tiles with the most reachable keys first (the last ones,
 //     under the causal mask), which shortens the tail; a tile whose rows
 //     all lie below `starts` writes zeros and exits.
@@ -240,9 +245,11 @@ namespace fa {
 
 namespace hw = rt::hw;
 using bf16 = __nv_bfloat16;
-constexpr int kRows = 64;        // query rows a block, 16 a warp
 constexpr int kKeys = 64;        // keys a K/V tile
-constexpr int kThreads = 128;    // 4 warps
+// threads of a block of `rows` query rows: one warp per 16 rows
+__host__ __device__ constexpr int threads_of(int rows) {
+  return rows / 16 * 32;
+}
 
 struct FlashArgs {
   const bf16* q;
@@ -257,10 +264,11 @@ struct FlashArgs {
                                  // aligned bases (cp.async, 16-byte stores)
 };
 
-// Shared memory of a DP body: the Q (later O) tile and two stages of K
-// and V, each [64][DP + 8] bf16.
-__host__ __device__ constexpr int smem_bytes(int dp) {
-  return 5 * kRows * (dp + 8) * 2;
+// Shared memory of a (DP, rows) body: the Q (later O) tile [rows][DP + 8]
+// and two stages of K and V, each [64][DP + 8] bf16
+// (kernels/_geometry.py, flash_mma_tile, computes the same).
+__host__ __device__ constexpr int smem_bytes(int dp, int rows) {
+  return (rows + 4 * kKeys) * (dp + 8) * 2;
 }
 
 // (p0, p1) as bf16x2 hi and lo parts: p = hi + lo to ~2^-17.
@@ -273,35 +281,37 @@ __device__ __forceinline__ uint32_t split_pair(float p0, float p1,
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
+template <int DP, int ROWS>
+__global__ void __launch_bounds__(threads_of(ROWS))
 flash_mma_kernel(const FlashArgs a) {
   constexpr int KD = DP / 16;      // k-steps of Q K^T, d pairs of P V
   constexpr int ND = DP / 8;       // n8 tiles of O
   constexpr bool QS = DP > 128;    // Q's fragments re-read from shared
   constexpr int STR = DP + 8;      // row stride in elements
-  constexpr int TILE = kRows * STR;
+  constexpr int QTILE = ROWS * STR;
+  constexpr int TILE = kKeys * STR;
+  constexpr int kThreads = threads_of(ROWS);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qo_s = reinterpret_cast<bf16*>(smem_raw);     // Q, then O
-  bf16* kv_s = qo_s + TILE;                           // [stage][K, V]
+  bf16* kv_s = qo_s + QTILE;                          // [stage][K, V]
 
   const int bhs = a.B * a.HQ;
   const int qt = a.n_qt - 1 - static_cast<int>(blockIdx.x) / bhs;
   const int bh = static_cast<int>(blockIdx.x) % bhs;
   const int b = bh / a.HQ, h = bh % a.HQ;
   const int kvh = h / (a.HQ / a.HKV);
-  const int q0 = qt * kRows;
+  const int q0 = qt * ROWS;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int D = a.D, S = a.S;
   const int start = a.starts ? max(a.starts[b], 0) : 0;
-  const int rows = min(kRows, S - q0);
+  const int rows = min(ROWS, S - q0);
   unsigned short* o_g = reinterpret_cast<unsigned short*>(a.o) +
                         (static_cast<size_t>(bh) * S + q0) * D;
 
   // keys any row of the tile can reach: [lo, hi)
   int lo = start;
   if (a.window > 0) lo = max(lo, q0 - a.window + 1);
-  const int hi = a.causal ? min(S, q0 + kRows) : S;
+  const int hi = a.causal ? min(S, q0 + ROWS) : S;
   if (lo >= hi) {                  // no row has a valid key: zeros
     for (int i = tid; i < rows * D; i += kThreads) o_g[i] = 0;
     return;
@@ -309,7 +319,7 @@ flash_mma_kernel(const FlashArgs a) {
 
   // padded columns D .. DP-1 of every tile stay zero
   if (D < DP)
-    for (int i = tid; i < 5 * kRows * (DP - D); i += kThreads)
+    for (int i = tid; i < (ROWS + 4 * kKeys) * (DP - D); i += kThreads)
       qo_s[(i / (DP - D)) * STR + D + i % (DP - D)] = __float2bfloat16(0.f);
 
   // ---- Q, scaled in bf16, into shared memory and then registers
@@ -323,7 +333,7 @@ flash_mma_kernel(const FlashArgs a) {
   };
   if (a.vec) {
     const int cpr = D / 8;
-    for (int u = tid; u < kRows * cpr; u += kThreads) {
+    for (int u = tid; u < ROWS * cpr; u += kThreads) {
       const int r = u / cpr, c = u % cpr;
       uint4 x = make_uint4(0, 0, 0, 0);
       if (r < rows) {
@@ -335,7 +345,7 @@ flash_mma_kernel(const FlashArgs a) {
       *reinterpret_cast<uint4*>(q_s + r * STR + 8 * c) = x;
     }
   } else {
-    for (int i = tid; i < kRows * D; i += kThreads) {
+    for (int i = tid; i < ROWS * D; i += kThreads) {
       const int r = i / D, c = i % D;
       q_s[r * STR + c] = r < rows ? scaled(q_g[r * D + c])
                                   : __bfloat16_as_ushort(zero);
@@ -353,8 +363,8 @@ flash_mma_kernel(const FlashArgs a) {
                          st * 2 * TILE;
     if (a.vec) {
       const int cpr = D / 8;
-      for (int u = tid; u < 2 * kRows * cpr; u += kThreads) {
-        const int m = u / (kRows * cpr), r = (u / cpr) % kRows, c = u % cpr;
+      for (int u = tid; u < 2 * kKeys * cpr; u += kThreads) {
+        const int m = u / (kKeys * cpr), r = (u / cpr) % kKeys, c = u % cpr;
         const bool in = k0 + r < S;
         const unsigned short* src =
             (m ? v_g : k_g) + static_cast<size_t>(in ? k0 + r : 0) * D + 8 * c;
@@ -362,8 +372,8 @@ flash_mma_kernel(const FlashArgs a) {
                         in ? 16 : 0);
       }
     } else {
-      for (int i = tid; i < 2 * kRows * D; i += kThreads) {
-        const int m = i / (kRows * D), r = (i / D) % kRows, c = i % D;
+      for (int i = tid; i < 2 * kKeys * D; i += kThreads) {
+        const int m = i / (kKeys * D), r = (i / D) % kKeys, c = i % D;
         ks[m * TILE + r * STR + c] =
             k0 + r < S ? (m ? v_g : k_g)[static_cast<size_t>(k0 + r) * D + c]
                        : static_cast<unsigned short>(0);
@@ -537,45 +547,54 @@ flash_mma_kernel(const FlashArgs a) {
   }
 }
 
-template <int DP>
-cudaError_t launch(const FlashArgs& a, cudaStream_t stream) {
-  // above 48 KB a block's dynamic shared memory must be opted into
+template <int DP, int ROWS>
+cudaError_t launch(FlashArgs a, cudaStream_t stream) {
+  // above 48 KB a block's dynamic shared memory must be opted into, at
+  // this instance's own size
+  constexpr int smem = smem_bytes(DP, ROWS);
+  static_assert(smem <= 232448, "flash tile over 227 KB");
   const cudaError_t attr = hw::smem_opt_in(
-      reinterpret_cast<const void*>(flash_mma_kernel<DP>),
-      smem_bytes(DP));
+      reinterpret_cast<const void*>(flash_mma_kernel<DP, ROWS>), smem);
   if (attr != cudaSuccess) return attr;
+  a.n_qt = (a.S + ROWS - 1) / ROWS;
   const long long blocks = static_cast<long long>(a.B) * a.HQ * a.n_qt;
   if (blocks > 2147483647LL) return cudaErrorInvalidValue;
-  flash_mma_kernel<DP><<<static_cast<unsigned>(blocks), kThreads,
-                         smem_bytes(DP), stream>>>(a);
+  flash_mma_kernel<DP, ROWS><<<static_cast<unsigned>(blocks),
+                               threads_of(ROWS), smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_rows(const FlashArgs& a, int rows, cudaStream_t stream) {
+  if (rows == 64) return launch<DP, 64>(a, stream);
+  if (rows == 128) return launch<DP, 128>(a, stream);
+  return cudaErrorInvalidValue;
 }
 
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      const int* starts, int B, int HQ, int HKV, int S,
-                     int D, int causal, int window, float scale,
+                     int D, int causal, int window, float scale, int rows,
                      cudaStream_t stream) {
   FlashArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
               static_cast<const bf16*>(v), static_cast<bf16*>(o), starts,
-              B, HQ, HKV, S, D, causal, window, scale,
-              (S + kRows - 1) / kRows, 0};
+              B, HQ, HKV, S, D, causal, window, scale, 0, 0};
   const uintptr_t bases = reinterpret_cast<uintptr_t>(q) |
       reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
       reinterpret_cast<uintptr_t>(o);
   a.vec = D % 8 == 0 && bases % 16 == 0;
   switch ((D + 15) / 16) {
-    case 1: return launch<16>(a, stream);
-    case 2: return launch<32>(a, stream);
-    case 3: return launch<48>(a, stream);
-    case 4: return launch<64>(a, stream);
-    case 5: return launch<80>(a, stream);
-    case 6: return launch<96>(a, stream);
-    case 7: return launch<112>(a, stream);
-    case 8: return launch<128>(a, stream);
-    case 9: case 10: return launch<160>(a, stream);
-    case 11: case 12: return launch<192>(a, stream);
-    case 13: case 14: return launch<224>(a, stream);
-    case 15: case 16: return launch<256>(a, stream);
+    case 1: return launch_rows<16>(a, rows, stream);
+    case 2: return launch_rows<32>(a, rows, stream);
+    case 3: return launch_rows<48>(a, rows, stream);
+    case 4: return launch_rows<64>(a, rows, stream);
+    case 5: return launch_rows<80>(a, rows, stream);
+    case 6: return launch_rows<96>(a, rows, stream);
+    case 7: return launch_rows<112>(a, rows, stream);
+    case 8: return launch_rows<128>(a, rows, stream);
+    case 9: case 10: return launch_rows<160>(a, rows, stream);
+    case 11: case 12: return launch_rows<192>(a, rows, stream);
+    case 13: case 14: return launch_rows<224>(a, rows, stream);
+    case 15: case 16: return launch_rows<256>(a, rows, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -589,13 +608,17 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* starts, int B, int HQ,
                                    int HKV, int S, int D, int causal,
                                    int window, float scale, int is_bf16,
-                                   void* stream) {
+                                   int rows, int keys, void* stream) {
   if (D < 1 || D > DMAX || HKV < 1 || HQ % HKV != 0 || S < 1 || B < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the bodies' tiles (kernels/_geometry.py, flash_tile_error): bf16
+  // 64 or 128 rows at 64 keys, float32 its single BQ x BKV tile
+  if (is_bf16 ? keys != fa::kKeys : (rows != BQ || keys != BKV))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* sp = static_cast<const int*>(starts);
   cudaError_t err =
-      is_bf16 ? fa::dispatch(q, k, v, o, sp, B, HQ, HKV, S, D, causal, window, scale, st)
+      is_bf16 ? fa::dispatch(q, k, v, o, sp, B, HQ, HKV, S, D, causal, window, scale, rows, st)
               : dispatch(q, k, v, o, sp, B, HQ, HKV, S, D, causal, window, scale, st);
   return static_cast<int>(err);
 }

@@ -11,8 +11,14 @@ valid keys by cp.async and keeps an f32 online softmax per query head,
 and the last block of a row to finish merges the f32 partials in the
 same launch.  The split plan is ``_geometry.decode_plan``, fixed by the
 static shapes alone (never by ``pos`` or ``starts``, which stay on the
-device).  Keys outside the row's window, and for the paged kernel
-logical blocks past ``pos``, are never read.
+device); ``block_kv`` (a
+:class:`~repro_torch.core.schedule.DecodeAttentionSchedule`'s, through
+the ``*_scheduled`` and ``*_dispatched`` entries) sets the keys a split
+takes in its place: a multiple of 16 for the contiguous kernel, rounded
+up to the pool block for the paged one, so split boundaries fall on
+pool blocks.  A split the kernel refuses raises before any launch.
+Keys outside the row's window, and for the paged kernel logical blocks
+past ``pos``, are never read.
 
 The merge finds the last block through a ticket counter per grid row.
 The counters are zeroed once and kept per (device, stream) here, since
@@ -38,7 +44,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _launches
 from repro_torch.kernels._checks import (KERNEL_DTYPES, check_same,
                                          int_vector, on_cpu, q_scale,
                                          require)
@@ -69,13 +75,20 @@ def _check_q(name: str, q: torch.Tensor, hkv: int) -> None:
 
 
 def _plan(name: str, q: torch.Tensor, hkv: int, limit: int,
-          block_size: int) -> DecodePlan:
-    """The call's split plan from its static shapes; raises on one the
-    kernel cannot run."""
+          block_size: int, split_keys: Optional[int]) -> DecodePlan:
+    """The call's split plan from its static shapes (and the split, when
+    given); raises on one the kernel cannot run."""
     b, hq, _, d = q.shape
-    plan = decode_plan(b, hq, hkv, d, limit, block_size, q.element_size())
+    plan = decode_plan(b, hq, hkv, d, limit, block_size, q.element_size(),
+                       split_keys)
     require(plan.error is None, f"{name}: {plan.error}")
     return plan
+
+
+def paged_split_keys(block_kv: int, block_size: int) -> int:
+    """The paged kernel's split for a schedule's ``block_kv``: rounded up
+    to a whole number of pool blocks."""
+    return -(-int(block_kv) // block_size) * block_size
 
 
 def _scratch(plan: DecodePlan, device: torch.device):
@@ -101,10 +114,11 @@ def _scratch(plan: DecodePlan, device: torch.device):
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     pos, *, starts: Optional[torch.Tensor] = None
-                     ) -> torch.Tensor:
+                     pos, *, starts: Optional[torch.Tensor] = None,
+                     block_kv: Optional[int] = None) -> torch.Tensor:
     """q [B,HQ,1,D]; k/v [B,HKV,S,D]; ``pos`` scalar or [B]; ``starts``
-    optional [B].  Valid keys: ``starts[b] <= kp <= pos[b]``."""
+    optional [B].  Valid keys: ``starts[b] <= kp <= pos[b]``.
+    ``block_kv`` (None: the plan's own) is the keys a split takes."""
     if on_cpu(q):
         return decode_attention_ref(q, k, v, pos, starts=starts)
     name = "decode_attention"
@@ -115,7 +129,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     require(k.shape == (b, hkv, s, d) and v.shape == k.shape,
             f"{name}: cache shape {tuple(k.shape)} does not match q")
     check_same(name, [q, k, v], q.dtype)
-    plan = _plan(name, q, hkv, s, 0)
+    plan = _plan(name, q, hkv, s, 0, block_kv)
     pos_t = int_vector(pos, b, q.device, "pos")
     # int64, the model's own dtype: its starts pass without a conversion
     st = (None if starts is None
@@ -131,17 +145,22 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         int(q.dtype == torch.bfloat16), _build.stream_handle(q.device))
     _build.check(rc, "decode_attention_fwd")
     decode_attention.launches += 1
+    _launches.note(name, block_kv=block_kv, split_keys=plan.split_keys,
+                   splits=plan.splits)
     return out
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, tables: torch.Tensor,
-                           pos: torch.Tensor) -> torch.Tensor:
+                           pos: torch.Tensor, *,
+                           block_kv: Optional[int] = None) -> torch.Tensor:
     """q [B,HQ,1,D]; pools [NB,HKV,bs,D]; tables [B,MB] int; pos [B].
 
     Row ``b`` attends to its logical keys ``0..pos[b]``; logical key
     ``p`` lives in pool block ``tables[b, p // bs]`` at slot ``p % bs``.
-    Table entries past ``pos[b] // bs`` are never read."""
+    Table entries past ``pos[b] // bs`` are never read.  ``block_kv``
+    (None: the plan's own) is the keys a split takes, rounded up to the
+    pool block (:func:`paged_split_keys`)."""
     if on_cpu(q):
         return paged_decode_attention_ref(q, k_pool, v_pool, tables, pos)
     name = "paged_decode_attention"
@@ -156,7 +175,9 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
             f"{name}: tables must be [B,MB]")
     check_same(name, [q, k_pool, v_pool], q.dtype)
     mb = tables.shape[1]
-    plan = _plan(name, q, hkv, mb * bs, bs)
+    plan = _plan(name, q, hkv, mb * bs, bs,
+                 None if block_kv is None
+                 else paged_split_keys(block_kv, bs))
     tb = tables.to(device=q.device, dtype=torch.int32).contiguous()
     pos_t = int_vector(pos, b, q.device, "pos")
     out = torch.empty_like(q)
@@ -170,10 +191,64 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         _build.stream_handle(q.device))
     _build.check(rc, "paged_decode_attention_fwd")
     paged_decode_attention.launches += 1
+    _launches.note(name, block_kv=block_kv, split_keys=plan.split_keys,
+                   splits=plan.splits)
     return out
 
 
 decode_attention.launches = 0
 paged_decode_attention.launches = 0
 
-__all__ = ["decode_attention", "paged_decode_attention", "MAX_HEAD_DIM"]
+
+def decode_attention_scheduled(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, pos, *, schedule=None,
+                               starts: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """:func:`decode_attention` split as a
+    :class:`~repro_torch.core.schedule.DecodeAttentionSchedule` says
+    (None: the plan's own split)."""
+    return decode_attention(
+        q, k, v, pos, starts=starts,
+        block_kv=None if schedule is None else schedule.block_kv)
+
+
+def paged_decode_attention_scheduled(q: torch.Tensor, k_pool: torch.Tensor,
+                                     v_pool: torch.Tensor,
+                                     tables: torch.Tensor, pos: torch.Tensor,
+                                     *, schedule=None) -> torch.Tensor:
+    """:func:`paged_decode_attention` split as a
+    :class:`~repro_torch.core.schedule.DecodeAttentionSchedule` says
+    (rounded up to the pool block; None: the plan's own split).  The
+    reference's paged kernel takes no schedule; this one honours it."""
+    return paged_decode_attention(
+        q, k_pool, v_pool, tables, pos,
+        block_kv=None if schedule is None else schedule.block_kv)
+
+
+def decode_attention_dispatched(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, pos, *,
+                                starts: Optional[torch.Tensor] = None,
+                                service=None) -> torch.Tensor:
+    """:func:`decode_attention` through the port's dispatch service: the
+    split for this (B, HQ, HKV, S, D) cache comes from the
+    registry-backed top-K, and the call's time (synchronised on the
+    card) feeds the selector, which commits and writes back once
+    steady."""
+    from repro_torch.runtime.dispatch import get_dispatch_service
+    b, hq, _, d = q.shape
+    svc = service if service is not None else get_dispatch_service()
+    problem = {"b": b, "hq": hq, "hkv": k.shape[1], "s": k.shape[2],
+               "d": d}
+    with svc.measure("decode_attention", problem,
+                     elem_bytes=q.element_size(), device=q.device) as sched:
+        out = decode_attention_scheduled(q, k, v, pos, schedule=sched,
+                                         starts=starts)
+        if out.is_cuda:
+            torch.cuda.synchronize(out.device)
+    return out
+
+
+__all__ = ["decode_attention", "decode_attention_scheduled",
+           "decode_attention_dispatched", "paged_decode_attention",
+           "paged_decode_attention_scheduled", "paged_split_keys",
+           "MAX_HEAD_DIM"]

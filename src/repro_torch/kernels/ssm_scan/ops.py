@@ -12,8 +12,14 @@ a warp with the state in registers, and x, dt, b and c staged in shared
 memory a tile of steps ahead, so no step waits on device memory
 (``_geometry.scan_layout`` gives the block; the source has the design).
 
-For CPU tensors the wrapper runs the plain version in ``ref.py``; for
-CUDA tensors it launches the kernel or raises.
+``block_d``, the channels a block scans, is the launch parameter: a
+:class:`~repro_torch.core.schedule.SSMScanSchedule` sets it through
+:func:`ssm_scan_scheduled`, the port's dispatch service through
+:func:`ssm_scan_dispatched`.
+
+For CPU tensors the wrapper runs the plain version in ``ref.py`` (which
+has no blocks); for CUDA tensors it launches the kernel or raises, also
+on a ``block_d`` the kernel refuses.
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _launches
 from repro_torch.kernels._geometry import SCAN_STATES, scan_layout
 from repro_torch.kernels._checks import (KERNEL_DTYPES, check_same, on_cpu,
                                          require)
@@ -85,9 +91,44 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
         int(x.dtype == torch.bfloat16), _build.stream_handle(x.device))
     _build.check(rc, "ssm_scan_fwd")
     ssm_scan.launches += 1
+    _launches.note(name, block_d=block_d)
     return y, h_out
 
 
 ssm_scan.launches = 0
 
-__all__ = ["ssm_scan", "DEFAULT_BLOCK_D", "KERNEL_STATES"]
+
+def ssm_scan_scheduled(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                       c: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
+                       h0: Optional[torch.Tensor] = None, *, schedule=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ssm_scan` with an
+    :class:`~repro_torch.core.schedule.SSMScanSchedule`'s ``block_d``
+    (None: the default)."""
+    if schedule is None:
+        return ssm_scan(x, dt, b, c, a, d, h0)
+    return ssm_scan(x, dt, b, c, a, d, h0, block_d=schedule.block_d)
+
+
+def ssm_scan_dispatched(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                        c: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
+                        h0: Optional[torch.Tensor] = None, *, service=None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ssm_scan` through the port's dispatch service: ``block_d``
+    for this (Bt, S, Di, N) shape comes from the registry-backed top-K,
+    and the call's time (synchronised on the card) feeds the selector,
+    which commits and writes back once steady."""
+    from repro_torch.runtime.dispatch import get_dispatch_service
+    bt, seq, di = x.shape
+    svc = service if service is not None else get_dispatch_service()
+    problem = {"bt": bt, "seq": seq, "di": di, "n": b.shape[2]}
+    with svc.measure("ssm_scan", problem, elem_bytes=x.element_size(),
+                     device=x.device) as sched:
+        out = ssm_scan_scheduled(x, dt, b, c, a, d, h0, schedule=sched)
+        if x.is_cuda:
+            torch.cuda.synchronize(x.device)
+    return out
+
+
+__all__ = ["ssm_scan", "ssm_scan_scheduled", "ssm_scan_dispatched",
+           "DEFAULT_BLOCK_D", "KERNEL_STATES"]

@@ -1,6 +1,8 @@
-"""Time a spread of conv2d, matmul and block-sparse conv schedules on
-the card beside the cost model's predictions: the data the model's
-fitted constants come from (``core/cost_model.py``).
+"""Time a spread of conv2d, matmul and block-sparse conv schedules, and
+every flash-attention, split-decode and selective-scan schedule the
+tuner offers at the serving shapes, on the card beside the cost model's
+predictions: the data the model's fitted constants come from
+(``core/cost_model.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.calibrate_thesis \\
         [--out build/calibrate_thesis.jsonl] [--kinds conv2d matmul ...]
@@ -13,11 +15,14 @@ QKV projection, k innermost), it takes the cost model's best candidates
 and an even spread of the rest of the tuner's bf16 blocks; for the
 block-sparse conv, an even spread of the tuner's skip blocks on the
 thesis' Fig 6.2 layer and the 3x3 Table 4.1 layers at block densities
-0-1, batch 1 and 32.  It times each with CUDA events (median of 15
-launches, the 50 MB L2 flushed before each) and writes one JSON line
-per (schedule, batch): the measured and the predicted milliseconds,
-with the card's name and power limit.  Needs a CUDA card; random inputs
-from numpy seed 0.
+0-1, batch 1 and 32.  For the serving kernels (bf16): flash at phi3's
+prefill buckets, ``generate``'s [4, 512] and head_dim 256; the
+contiguous decode at 1 and 4 rows over caches of 544-2080 keys; the
+scan at the prefill, ``generate`` and decode shapes of falcon-mamba.
+It times each with CUDA events (median of 15 launches, the 50 MB L2
+flushed before each) and writes one JSON line per (schedule, batch):
+the measured and the predicted milliseconds, with the card's name and
+power limit.  Needs a CUDA card; random inputs from numpy seed 0.
 
 ``--score`` needs no card: it reads such lines and prints, per kind of
 line, the current constants' mean squared log error, mean log bias,
@@ -26,7 +31,9 @@ of the model's pick to the fastest timed schedule of each shape; for
 the sparse lines also the least-squares ``SPARSE_CALL_S`` (bf16: the
 tensor-core body's model has no other sparse constant) or, for lines of
 the float32 body (``"dtype": "float32"``), ``SPARSE_CALL_S`` and
-``SPARSE_CHANNEL_S``.
+``SPARSE_CHANNEL_S``; for the serving kernels the least-squares fit of
+each family's three constants (``FLASH_*``, ``DEC_*``, ``SCAN_*``) to
+its lines' times less the launch.
 """
 import argparse
 import json
@@ -45,7 +52,34 @@ from repro_torch.kernels.sparse_conv import analyze_weights
 
 CONV_ORDER = ("oc", "y", "x", "ic")
 QKV = (512, 9216, 3072)
-KINDS = ("conv2d", "matmul", "sparse_conv")
+KINDS = ("conv2d", "matmul", "sparse_conv", "flash_attention",
+         "decode_attention", "ssm_scan")
+# the serving kernels' shapes (bf16): flash (b, hq, hkv, s, d), the
+# contiguous decode (b, hq, hkv, s, d), the scan (bt, seq, di, n)
+FLASH_SHAPES = [(1, 32, 32, s, 96) for s in (64, 128, 256, 512)] + [
+    (4, 32, 32, 512, 96), (1, 16, 1, 512, 256)]
+DECODE_SHAPES = [(b, 32, 32, s, 96) for b in (1, 4)
+                 for s in (544, 1056, 2080)]
+SCAN_SHAPES = [(1, 64, 8192, 16), (1, 512, 8192, 16), (4, 512, 8192, 16),
+               (1, 1, 8192, 16), (4, 1, 8192, 16), (8, 1, 8192, 16)]
+# each serving family's fitted constants and the features they multiply
+SERVING = {
+    "flash_attention": (("FLASH_BLOCK_S", "FLASH_TILE_S", "FLASH_WORK_EFF"),
+                        lambda r: cm.flash_attention_features(
+                            *_dims(r), [tuple(r["block"])],
+                            elem_bytes=_elem_bytes(r))[0][0]),
+    "decode_attention": (("DEC_BLOCK_S", "DEC_TILE_S", "DEC_MERGE_S"),
+                         lambda r: cm.decode_attention_features(
+                             *_dims(r), [r["block"]],
+                             elem_bytes=_elem_bytes(r))[0][0]),
+    "ssm_scan": (("SCAN_BLOCK_S", "SCAN_STEP_S", "SCAN_EXP_S"),
+                 lambda r: cm.ssm_scan_features(
+                     *_dims(r), [r["block"]],
+                     elem_bytes=_elem_bytes(r))[0][0]),
+}
+DIMS = {"flash_attention": ("b", "hq", "hkv", "s", "d"),
+        "decode_attention": ("b", "hq", "hkv", "s", "d"),
+        "ssm_scan": ("bt", "seq", "di", "n")}
 PER_SHAPE = 12          # schedules timed a shape: the 4 best predicted and
 #                         an even spread of the rest
 
@@ -57,8 +91,24 @@ SPARSE_DENSITIES = (0.0, 0.25, 0.5, 1.0)
 SPARSE_PER_LAYER = 4    # skip blocks timed a layer, an even spread
 
 
+def _dims(rec):
+    """A serving line's problem dims, in the cost model's order."""
+    return [rec["problem"][k] for k in DIMS[rec["kind"]]]
+
+
 def _predict_ms(rec) -> float:
     """The model's ms for one calibration line."""
+    eb = _elem_bytes(rec)
+    if rec["kind"] == "flash_attention":
+        return float(cm.flash_attention_schedule_cost_batch(
+            *_dims(rec), [tuple(rec["block"])],
+            elem_bytes=eb).time_s[0]) * 1e3
+    if rec["kind"] == "decode_attention":
+        return float(cm.decode_attention_schedule_cost_batch(
+            *_dims(rec), [rec["block"]], elem_bytes=eb).time_s[0]) * 1e3
+    if rec["kind"] == "ssm_scan":
+        return float(cm.ssm_scan_schedule_cost_batch(
+            *_dims(rec), [rec["block"]], elem_bytes=eb).time_s[0]) * 1e3
     if rec["kind"] == "conv2d":
         order = tuple({"o": "oc", "i": "ic", "y": "y", "x": "x"}[c]
                       for c in rec["order"])
@@ -103,6 +153,17 @@ def sparse_fit(recs):
             "SPARSE_CHANNEL_S": float(channel)}
 
 
+def serving_fit(kind, recs):
+    """A serving family's three constants by least squares: each line's
+    time less the launch against its features (the model's compute term,
+    which bounds these kernels at the calibrated shapes)."""
+    names, features = SERVING[kind]
+    x = np.stack([features(r) for r in recs])
+    meas = np.array([r["ms"] for r in recs]) * 1e-3 - cm.H100Spec().launch_s
+    consts, *_ = np.linalg.lstsq(x, meas, rcond=None)
+    return dict(zip(names, (float(c) for c in consts)))
+
+
 def fit_stats(recs):
     """(mean squared log error, mean log bias, mean rank correlation and
     geometric-mean pick regret over the shapes) of the model on
@@ -133,7 +194,7 @@ def score(paths) -> None:
     """Print the model's fit to calibration lines, per kind of line."""
     recs = [json.loads(line) for p in paths for line in open(p)]
     fmt = "mse {:.4f} bias {:+.4f} rho {:.3f} regret {:.4f}"
-    for kind in ("conv2d", "matmul", "sparse_conv"):
+    for kind in KINDS:
         rs = [r for r in recs if r["kind"] == kind]
         if not rs:
             continue
@@ -145,6 +206,9 @@ def score(paths) -> None:
                 if sub:
                     print("[score] kind=sparse_conv least_squares " + " ".join(
                         f"{k}={v:.4g}" for k, v in sparse_fit(sub).items()))
+        if kind in SERVING:
+            print(f"[score] kind={kind} least_squares " + " ".join(
+                f"{k}={v:.4g}" for k, v in serving_fit(kind, rs).items()))
 
 
 def _median_ms(fn, flush, iters=15):
@@ -286,7 +350,56 @@ def main(argv=None) -> None:
                                    "dtype": "bfloat16", "ms": ms}
                             emit({**rec, "predicted_ms": _predict_ms(rec)})
                 del img
+        serving(args.kinds, rn, flush, emit)
     print(f"[calibrate] lines={n} out={out} card={smi!r}")
+
+
+def serving(kinds, rn, flush, emit) -> None:
+    """Time every schedule the tuner offers at the serving shapes."""
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     ssm_scan)
+    dev = flush.device
+    if "flash_attention" in kinds:
+        for b, hq, hkv, s, d in FLASH_SHAPES:
+            q = rn((b, hq, s, d))
+            k, v = rn((b, hkv, s, d)), rn((b, hkv, s, d))
+            for bq, bkv in tuner.flash_attention_tiles(d, 2):
+                rec = {"kind": "flash_attention",
+                       "shape": f"[{b},{hq},{s},{d}]/{hkv}kv",
+                       "problem": {"b": b, "hq": hq, "hkv": hkv, "s": s,
+                                   "d": d},
+                       "block": [bq, bkv], "dtype": "bfloat16",
+                       "ms": _median_ms(lambda: flash_attention(
+                           q, k, v, block_q=bq, block_kv=bkv), flush)}
+                emit({**rec, "predicted_ms": _predict_ms(rec)})
+    if "decode_attention" in kinds:
+        for b, hq, hkv, s, d in DECODE_SHAPES:
+            q = rn((b, hq, 1, d))
+            k, v = rn((b, hkv, s, d)), rn((b, hkv, s, d))
+            for bkv in tuner.decode_splits(b, hq, hkv, s, d, 2):
+                rec = {"kind": "decode_attention",
+                       "shape": f"[{b},{hq},1,{d}] cache {s}/{hkv}kv",
+                       "problem": {"b": b, "hq": hq, "hkv": hkv, "s": s,
+                                   "d": d},
+                       "block": bkv, "dtype": "bfloat16",
+                       "ms": _median_ms(lambda: decode_attention(
+                           q, k, v, s - 1, block_kv=bkv), flush)}
+                emit({**rec, "predicted_ms": _predict_ms(rec)})
+    if "ssm_scan" in kinds:
+        for bt, seq, di, n in SCAN_SHAPES:
+            x, d = rn((bt, seq, di)), rn((di,))
+            dt = torch.nn.functional.softplus(rn((bt, seq, di)).float())
+            b, c = rn((bt, seq, n)).float(), rn((bt, seq, n)).float()
+            a = -torch.arange(1, n + 1, dtype=torch.float32,
+                              device=dev).repeat(di, 1)
+            h0 = rn((bt, di, n)).float() if seq == 1 else None
+            for bd in tuner.scan_blocks(n, 2):
+                rec = {"kind": "ssm_scan", "shape": f"[{bt},{seq},{di}] N{n}",
+                       "problem": {"bt": bt, "seq": seq, "di": di, "n": n},
+                       "block": bd, "dtype": "bfloat16",
+                       "ms": _median_ms(lambda: ssm_scan(
+                           x, dt, b, c, a, d, h0, block_d=bd), flush)}
+                emit({**rec, "predicted_ms": _predict_ms(rec)})
 
 
 if __name__ == "__main__":

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.kernels import _build, flash_attention
 from repro_torch.kernels._checks import q_scale
+from repro_torch.kernels._geometry import FLASH_KEYS, FLASH_ROWS
 from repro_torch.kernels.flash_attention import flash_attention_ref
 from repro_torch.models import bucket_length
 
@@ -90,8 +91,9 @@ def main() -> None:
         out = torch.empty_like(q)
         _build.check(once(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           out.data_ptr(), st.data_ptr(), b,
-                          32, 32, s, 96, 1, 0, q_scale(q), 1,
-                          _build.stream_handle(dev)), "flash_once")
+                          32, 32, s, 96, 1, 0, q_scale(q), 1, FLASH_ROWS,
+                          FLASH_KEYS, _build.stream_handle(dev)),
+                      "flash_once")
         torch.cuda.synchronize()
         line = {"shape": [b, 32, s, 96], "starts": starts,
                 "split": share_of_tol(split, want),

@@ -4,7 +4,13 @@ Backends: ``"plain"`` is the PyTorch counterpart of the JAX package's
 ``"xla"`` path (q upcast to float32 before the ``1/sqrt(D)`` scale);
 ``"cuda"`` goes through the port's hand-written kernels, whose wrappers
 scale q in q's dtype as the Pallas entries do and run the kernels' plain
-versions for CPU tensors.  The JAX ``chunked`` and ``stub`` backends and
+versions for CPU tensors.  With ``"cuda"`` each kernel call takes the
+launch parameters of its ``schedule`` (a committed
+:class:`~repro_torch.core.schedule.FlashAttentionSchedule` or
+:class:`~repro_torch.core.schedule.DecodeAttentionSchedule`; None: the
+kernel's defaults); the plain path has no launch to set.  The paged
+decode kernel honours its schedule, where the JAX package's paged kernel
+takes none.  The JAX ``chunked`` and ``stub`` backends and
 ``cross_attention`` are not ported yet.
 """
 from __future__ import annotations
@@ -13,9 +19,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import (decode_attention as decode_kernel,
-                                 flash_attention,
-                                 paged_decode_attention as paged_kernel)
+from repro_torch.kernels.decode_attention import (
+    decode_attention_scheduled as decode_kernel,
+    paged_decode_attention_scheduled as paged_kernel)
+from repro_torch.kernels.flash_attention import flash_attention_scheduled
 from repro_torch.models.layers import (ParamInit, Params, RopeTables,
                                        apply_rope, dense, rmsnorm)
 
@@ -38,7 +45,8 @@ def _softmax_pv(scores: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               backend: str = "plain",
-              starts: Optional[torch.Tensor] = None) -> torch.Tensor:
+              starts: Optional[torch.Tensor] = None,
+              schedule=None) -> torch.Tensor:
     """Causal attention: q [B,HQ,S,D]; k/v [B,HKV,S,D] -> [B,HQ,S,D]
     (GQA aware).  The sliding-window variant comes with the hybrid
     family; the kernel already takes ``window``.
@@ -49,8 +57,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     caller discards (with ``"cuda"`` they are zeros)."""
     _check_backend(backend)
     if backend == "cuda":
-        return flash_attention(q.contiguous(), k.contiguous(),
-                               v.contiguous(), causal=True, starts=starts)
+        return flash_attention_scheduled(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+            starts=starts, schedule=schedule)
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     group = hq // hkv
@@ -71,8 +80,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos, *, backend: str = "plain",
-                     starts: Optional[torch.Tensor] = None
-                     ) -> torch.Tensor:
+                     starts: Optional[torch.Tensor] = None,
+                     schedule=None) -> torch.Tensor:
     """One-token attention against a contiguous cache.
 
     q [B,HQ,1,D]; caches [B,HKV,S,D]; ``pos`` (scalar or [B]) is the
@@ -81,7 +90,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     _check_backend(backend)
     if backend == "cuda":
         return decode_kernel(q.contiguous(), k_cache, v_cache, pos,
-                             starts=starts)
+                             starts=starts, schedule=schedule)
     b, hq, _, d = q.shape
     hkv, s = k_cache.shape[1], k_cache.shape[2]
     group = hq // hkv
@@ -136,17 +145,19 @@ def paged_update_kv(pool_k: torch.Tensor, pool_v: torch.Tensor,
 
 def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
                            pool_v: torch.Tensor, tables: torch.Tensor,
-                           pos: torch.Tensor, *, backend: str = "plain"
-                           ) -> torch.Tensor:
+                           pos: torch.Tensor, *, backend: str = "plain",
+                           schedule=None) -> torch.Tensor:
     """One-token attention against a block-paged pool.
 
     q [B,HQ,1,D]; pools [NB,HKV,bs,D]; tables [B,MB]; pos [B].  Row
     ``b`` attends to logical keys ``0..pos[b]`` through its table; the
     plain path gathers the table's blocks (reference semantics), the
-    ``"cuda"`` kernel reads them in place."""
+    ``"cuda"`` kernel reads them in place, split as ``schedule`` says
+    (its ``block_kv`` rounded up to the pool block)."""
     _check_backend(backend)
     if backend == "cuda":
-        return paged_kernel(q.contiguous(), pool_k, pool_v, tables, pos)
+        return paged_kernel(q.contiguous(), pool_k, pool_v, tables, pos,
+                            schedule=schedule)
     b, hq, _, d = q.shape
     _, hkv, bs, _ = pool_k.shape
     mb = tables.shape[1]

@@ -32,19 +32,22 @@ class Model:
                                        resolve_device(device))
 
     def prefill(self, params, batch, *, backend: str = "plain",
-                seq_starts=None):
-        """Logits plus filled caches; see :func:`transformer.prefill`."""
+                seq_starts=None, schedules=None):
+        """Logits plus filled caches; see :func:`transformer.prefill`
+        (``schedules``: a ScheduleBundle or None)."""
         return transformer.prefill(params, self.cfg, batch,
-                                   backend=backend, seq_starts=seq_starts)
+                                   backend=backend, seq_starts=seq_starts,
+                                   schedules=schedules)
 
     def decode_step(self, params, cache, tokens, pos, *,
                     backend: str = "plain", seq_starts=None,
-                    block_tables=None):
+                    block_tables=None, schedules=None):
         """One token per row; see :func:`transformer.decode_step`."""
         return transformer.decode_step(params, self.cfg, cache, tokens,
                                        pos, backend=backend,
                                        seq_starts=seq_starts,
-                                       block_tables=block_tables)
+                                       block_tables=block_tables,
+                                       schedules=schedules)
 
     def init_cache(self, bsz: int, max_len: int, device: torch.device):
         """Empty contiguous caches (ssm: zero recurrent states) on

@@ -7,8 +7,8 @@
   ``dt·B·x`` as [B,S,Di,N] tensors, runs :func:`linear_scan` and keeps
   ``y`` in float32;
 * ``"cuda"`` mirrors the Pallas branch: it calls the port's
-  :func:`~repro_torch.kernels.ssm_scan` wrapper (the CUDA kernel on the
-  card, its plain version on the CPU), which returns ``y`` rounded to
+  :func:`~repro_torch.kernels.ssm_scan.ssm_scan_scheduled` wrapper (the
+  CUDA kernel on the card, its plain version on the CPU), which returns ``y`` rounded to
   x's dtype, as the Pallas kernel writes it.
 
 So the two backends differ in bf16 by that rounding, by design.
@@ -21,7 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ssm_scan
+from repro_torch.kernels.ssm_scan import ssm_scan_scheduled
 from repro_torch.models.layers import ParamInit, Params, dense
 
 
@@ -92,11 +92,14 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 def mamba_block(x: torch.Tensor, p: Params, *, state: int, conv: int,
                 dt_rank: int, cache: Optional[Dict[str, torch.Tensor]] = None,
                 backend: str = "plain",
-                seq_valid: Optional[torch.Tensor] = None
+                seq_valid: Optional[torch.Tensor] = None,
+                schedule=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x [B,S,D] -> ([B,S,D], new cache).  With ``cache`` (decode, S=1)
     the SSM and conv states are carried: the result holds the new
-    states, the ``cache`` tensors are not modified.
+    states, the ``cache`` tensors are not modified.  ``schedule`` (an
+    :class:`~repro_torch.core.schedule.SSMScanSchedule`, ``"cuda"``
+    only) sets the scan kernel's ``block_d``.
 
     ``seq_valid`` ([B,S] bool) marks real tokens of left-padded rows.
     As in JAX it masks pads twice: the conv input, and the post-silu
@@ -139,8 +142,9 @@ def mamba_block(x: torch.Tensor, p: Params, *, state: int, conv: int,
         ssm_dtype = x.dtype
 
     if backend == "cuda":
-        y, h_last = ssm_scan(xc, dt, bmat.contiguous(), cmat.contiguous(),
-                             a, p["D"], h_prev)
+        y, h_last = ssm_scan_scheduled(xc, dt, bmat.contiguous(),
+                                       cmat.contiguous(), a, p["D"],
+                                       h_prev, schedule=schedule)
         y = y.float()
     else:
         da = torch.exp(dt[..., None] * a)                # [B,S,di,N]

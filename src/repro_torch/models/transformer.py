@@ -7,7 +7,12 @@ caches: K/V for dense, the final SSM and conv states for ssm),
 ``decode_step`` (one token against a contiguous cache or recurrent
 state, or, for dense, against a block-paged pool with ``block_tables``).
 Layer weights are stacked ``[L, ...]`` as in the JAX pytree and the
-layer loop is a Python loop over views, where JAX scans.
+layer loop is a Python loop over views, where JAX scans.  ``schedules``
+(a :class:`~repro_torch.core.schedule.ScheduleBundle`, or None) carries
+the committed launch parameters of the ``"cuda"`` kernels: its
+``flash_attention`` field reaches the prefill's flash kernel, its
+``decode_attention`` field both decode kernels, its ``ssm_scan`` field
+the scan in prefill and decode; a None field keeps a kernel's default.
 """
 from __future__ import annotations
 
@@ -66,7 +71,7 @@ def layer_params(stacked: Params, i: int) -> Params:
 
 def _attn_block(x: torch.Tensor, lp: Params, cfg: ModelConfig,
                 rope: RopeTables, *, backend: str,
-                starts: Optional[torch.Tensor]
+                starts: Optional[torch.Tensor], schedule=None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One prefill layer; returns (x, k, v)."""
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
@@ -74,7 +79,8 @@ def _attn_block(x: torch.Tensor, lp: Params, cfg: ModelConfig,
         h, lp["attn"], n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
         hd=cfg.resolved_head_dim, rope=rope, qk_norm=cfg.qk_norm,
         norm_eps=cfg.norm_eps)
-    ctx = attn.attention(q, k, v, backend=backend, starts=starts)
+    ctx = attn.attention(q, k, v, backend=backend, starts=starts,
+                         schedule=schedule)
     x = x + attn.attn_out(ctx, lp["attn"])
     h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
     return x + mlp(h, lp["mlp"], cfg.mlp_type), k, v
@@ -82,14 +88,15 @@ def _attn_block(x: torch.Tensor, lp: Params, cfg: ModelConfig,
 
 def _mamba_block(x: torch.Tensor, lp: Params, cfg: ModelConfig, *,
                  backend: str, cache: Optional[Dict[str, torch.Tensor]] = None,
-                 seq_valid: Optional[torch.Tensor] = None
+                 seq_valid: Optional[torch.Tensor] = None, schedule=None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One Mamba layer (pre-norm, residual); returns (x, new states)."""
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     y, states = ssm.mamba_block(h, lp["mamba"], state=cfg.ssm_state,
                                 conv=cfg.ssm_conv,
                                 dt_rank=cfg.resolved_dt_rank, cache=cache,
-                                backend=backend, seq_valid=seq_valid)
+                                backend=backend, seq_valid=seq_valid,
+                                schedule=schedule)
     return x + y, states
 
 
@@ -108,7 +115,7 @@ def _head(params: Params, cfg: ModelConfig, x: torch.Tensor
 def forward(params: Params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor], *, backend: str = "plain",
             collect_kv: bool = False,
-            seq_starts: Optional[torch.Tensor] = None
+            seq_starts: Optional[torch.Tensor] = None, schedules=None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Teacher-forced logits [B, S, V] (float32) and, with
     ``collect_kv``, the per-layer decode caches: for dense the K/V
@@ -126,7 +133,9 @@ def forward(params: Params, cfg: ModelConfig,
     bsz, seq, _ = x.shape
     if cfg.family == "ssm":
         return _ssm_forward(params, cfg, x, backend=backend,
-                            collect=collect_kv, seq_starts=seq_starts)
+                            collect=collect_kv, seq_starts=seq_starts,
+                            schedule=_field(schedules, "ssm_scan"))
+    fa_sched = _field(schedules, "flash_attention")
     if seq_starts is not None:
         st = torch.as_tensor(seq_starts, device=x.device).to(torch.int64)
         positions = torch.arange(seq, device=x.device)[None, :] - st[:, None]
@@ -137,7 +146,8 @@ def forward(params: Params, cfg: ModelConfig,
     ks, vs = [], []
     for i in range(cfg.n_layers):
         x, k, v = _attn_block(x, layer_params(params["layers"], i), cfg,
-                              rope, backend=backend, starts=st)
+                              rope, backend=backend, starts=st,
+                              schedule=fa_sched)
         if collect_kv:
             ks.append(k)
             vs.append(v)
@@ -147,9 +157,14 @@ def forward(params: Params, cfg: ModelConfig,
     return _head(params, cfg, x), extras
 
 
+def _field(schedules, kind: str):
+    """A bundle's schedule for ``kind`` (None without a bundle)."""
+    return None if schedules is None else schedules.get(kind)
+
+
 def _ssm_forward(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
                  backend: str, collect: bool,
-                 seq_starts: Optional[torch.Tensor]
+                 seq_starts: Optional[torch.Tensor], schedule=None
                  ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """The Mamba layer stack of :func:`forward` on embedded ``x``."""
     seq_valid = None
@@ -160,7 +175,8 @@ def _ssm_forward(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
     ssms, convs = [], []
     for i in range(cfg.n_layers):
         x, states = _mamba_block(x, layer_params(params["layers"], i), cfg,
-                                 backend=backend, seq_valid=seq_valid)
+                                 backend=backend, seq_valid=seq_valid,
+                                 schedule=schedule)
         if collect:
             ssms.append(states["ssm"])
             convs.append(states["conv"])
@@ -173,12 +189,13 @@ def _ssm_forward(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
 
 def prefill(params: Params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor], *, backend: str = "plain",
-            seq_starts: Optional[torch.Tensor] = None
+            seq_starts: Optional[torch.Tensor] = None, schedules=None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run the whole prompt: (logits [B,S,V], caches filled up to S; for
     ssm the recurrent states after the last token)."""
     logits, extras = forward(params, cfg, batch, backend=backend,
-                             collect_kv=True, seq_starts=seq_starts)
+                             collect_kv=True, seq_starts=seq_starts,
+                             schedules=schedules)
     return logits, {"layers": extras["state" if cfg.family == "ssm"
                                      else "kv"]}
 
@@ -223,7 +240,8 @@ def _decode_block(x: torch.Tensor, lp: Params, ck: torch.Tensor,
                   cv: torch.Tensor, cfg: ModelConfig, pos, rope: RopeTables,
                   *, backend: str, starts: Optional[torch.Tensor],
                   tables: Optional[torch.Tensor],
-                  slots: Optional[torch.Tensor]) -> torch.Tensor:
+                  slots: Optional[torch.Tensor], schedule=None
+                  ) -> torch.Tensor:
     """One decode layer; updates this layer's cache (or pool) in place."""
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = attn.qkv_project(
@@ -233,11 +251,12 @@ def _decode_block(x: torch.Tensor, lp: Params, ck: torch.Tensor,
     if tables is not None:
         attn.paged_update_kv(ck, cv, k, v, slots)
         ctx = attn.paged_decode_attention(q, ck, cv, tables, pos,
-                                          backend=backend)
+                                          backend=backend,
+                                          schedule=schedule)
     else:
         attn.update_kv_cache(ck, cv, k, v, pos)
         ctx = attn.decode_attention(q, ck, cv, pos, backend=backend,
-                                    starts=starts)
+                                    starts=starts, schedule=schedule)
     x = x + attn.attn_out(ctx, lp["attn"])
     h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
     return x + mlp(h, lp["mlp"], cfg.mlp_type)
@@ -246,7 +265,8 @@ def _decode_block(x: torch.Tensor, lp: Params, ck: torch.Tensor,
 def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Any],
                 tokens: torch.Tensor, pos, *, backend: str = "plain",
                 seq_starts: Optional[torch.Tensor] = None,
-                block_tables: Optional[torch.Tensor] = None
+                block_tables: Optional[torch.Tensor] = None,
+                schedules=None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step: tokens [B, 1]; ``pos`` the shared write position
     (an int, or an integer tensor of one element, which the step reads
@@ -278,7 +298,8 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Any],
         for i in range(cfg.n_layers):
             lc = {"ssm": layers["ssm"][i], "conv": layers["conv"][i]}
             x, new = _mamba_block(x, layer_params(params["layers"], i),
-                                  cfg, backend=backend, cache=lc)
+                                  cfg, backend=backend, cache=lc,
+                                  schedule=_field(schedules, "ssm_scan"))
             lc["ssm"].copy_(new["ssm"])
             lc["conv"].copy_(new["conv"])
         return _head(params, cfg, x), cache
@@ -304,7 +325,8 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Any],
         x = _decode_block(x, layer_params(params["layers"], i),
                           cache["layers"]["k"][i], cache["layers"]["v"][i],
                           cfg, pos, rope, backend=backend, starts=starts,
-                          tables=tables, slots=slots)
+                          tables=tables, slots=slots,
+                          schedule=_field(schedules, "decode_attention"))
     return _head(params, cfg, x), cache
 
 

@@ -10,12 +10,21 @@ takes the proposed schedule, is timed, and feeds the selector, which
 commits the argmin once steady and writes the measured winner back to
 the registry.
 
-The port's own table of kernel families holds the thesis kernels::
+The port's table holds the reference's six kernel families::
 
-    kind          problem                       schedule
-    conv2d        oc,ic,h,w,kh,kw[,n]           ConvSchedule
-    matmul        m,n,k                         MatmulSchedule
-    sparse_conv   oc,ic,h,w,kh,kw,density_16    SparseConvSchedule
+    kind               problem                       schedule
+    conv2d             oc,ic,h,w,kh,kw[,n]           ConvSchedule
+    matmul             m,n,k                         MatmulSchedule
+    flash_attention    b,hq,hkv,s,d[,causal]         FlashAttentionSchedule
+    decode_attention   b,hq,hkv,s,d                  DecodeAttentionSchedule
+    ssm_scan           bt,seq,di,n                   SSMScanSchedule
+    sparse_conv        oc,ic,h,w,kh,kw,density_16    SparseConvSchedule
+
+The serving loop (``runtime/serve_loop.generate``) and the engine
+(``serving/session.ServeSession``) feed it the attention and scan
+shapes they run, step by step, and :meth:`DispatchService.schedule_bundle`
+turns its answers into the :class:`~repro_torch.core.schedule.
+ScheduleBundle` a captured step is keyed by and launches with.
 
 The machine part of every slot's key is the service's :class:`H100Spec`
 *and* the runtime fingerprint of its torch device, so a timing taken on
@@ -86,6 +95,28 @@ FAMILIES: Dict[str, KernelFamily] = {
         lambda p, spec, m, eb, k, r: tuner.cached_tune_matmul(
             p["m"], p["n"], p["k"], spec, eb, top_k=k, registry=r,
             machine=m)),
+    "flash_attention": KernelFamily(
+        "flash_attention", ("b", "hq", "hkv", "s", "d"),
+        lambda p, m, eb: reg.flash_attention_schedule_key(
+            p["b"], p["hq"], p["hkv"], p["s"], p["d"], m,
+            p.get("causal", True), eb),
+        lambda p, spec, m, eb, k, r: tuner.cached_tune_flash_attention(
+            p["b"], p["hq"], p["hkv"], p["s"], p["d"], p.get("causal", True),
+            spec, eb, top_k=k, registry=r, machine=m)),
+    "decode_attention": KernelFamily(
+        "decode_attention", ("b", "hq", "hkv", "s", "d"),
+        lambda p, m, eb: reg.decode_attention_schedule_key(
+            p["b"], p["hq"], p["hkv"], p["s"], p["d"], m, eb),
+        lambda p, spec, m, eb, k, r: tuner.cached_tune_decode_attention(
+            p["b"], p["hq"], p["hkv"], p["s"], p["d"], spec, eb, top_k=k,
+            registry=r, machine=m)),
+    "ssm_scan": KernelFamily(
+        "ssm_scan", ("bt", "seq", "di", "n"),
+        lambda p, m, eb: reg.ssm_scan_schedule_key(
+            p["bt"], p["seq"], p["di"], p["n"], m, eb),
+        lambda p, spec, m, eb, k, r: tuner.cached_tune_ssm_scan(
+            p["bt"], p["seq"], p["di"], p["n"], spec, eb, top_k=k,
+            registry=r, machine=m)),
     # the sparse problem may carry the batch "n" too (default 1): the
     # bf16 body's pixel tile depends on it
     "sparse_conv": KernelFamily(
@@ -125,7 +156,7 @@ class _Resolved:
 
 
 class DispatchService:
-    """Tune -> select -> observe scheduler for the thesis kernels.
+    """Tune -> select -> observe scheduler for the port's kernels.
 
     ``registry=None`` uses the port's default registry; pass
     ``TuningRegistry(None)`` for an in-memory one.  ``device`` is where
@@ -274,6 +305,21 @@ class DispatchService:
             except (KeyError, ValueError, TypeError):
                 pass
         return slot.candidates[0]
+
+    def schedule_bundle(self, problems, elem_bytes: int = 2):
+        """A :class:`~repro_torch.core.schedule.ScheduleBundle` for
+        ``(kind, problem)`` pairs (e.g. the values of
+        ``serve_loop.serve_dispatch_problems``): each named field is the
+        :meth:`committed_or_best` schedule of its shape.  Frozen and
+        hashable, so a captured step is keyed by the schedules it
+        runs."""
+        from repro_torch.core.schedule import ScheduleBundle
+        fields = {}
+        for kind, problem in problems:
+            if kind in ScheduleBundle.__dataclass_fields__:
+                fields[kind] = self.committed_or_best(kind, problem,
+                                                      elem_bytes)
+        return ScheduleBundle(**fields)
 
     def _measured_for_slot(self, skey: str) -> Optional[float]:
         """This process' observed median, else the registry's persisted

@@ -1,13 +1,14 @@
 """Shape buckets of the serving engine (port of ``repro.serving.bucketing``).
 
-The JAX session scores buckets by the dispatch service's measured step
-times; the port has no dispatch service yet, so :func:`pick_bucket`
-keeps only the JAX rule for when no timing exists.
+With a dispatch service the engine scores buckets by its decode step
+times (measured, else predicted: ``ServeSession._bucket_step_time``);
+without one :func:`pick_bucket` takes the smallest batch that serves
+every pending request, as the JAX session does.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 from repro_torch.models.model_zoo import bucket_length
 
@@ -43,12 +44,28 @@ def candidate_buckets(budgets: Sequence[int], prompt_len: int,
     return out
 
 
-def pick_bucket(candidates: Sequence[Tuple[Bucket, int]]
+def pick_bucket(candidates: Sequence[Tuple[Bucket, int]],
+                step_time: Optional[
+                    Callable[[Bucket], Optional[float]]] = None,
                 ) -> Tuple[Bucket, int]:
-    """The smallest batch that serves every pending request, else the
-    largest batch (the JAX rule when no step timing exists)."""
+    """The bucket whose expected throughput is best (the JAX rule).
+
+    ``step_time(bucket)`` returns the expected decode-step seconds of a
+    bucket's shape, or None without a timing.  Scored candidates win by
+    ``n_real / step_time``, ties toward the smaller batch; with no
+    timing at all (or no ``step_time``), the smallest batch that serves
+    every pending request, else the largest batch."""
     if not candidates:
         raise ValueError("pick_bucket needs at least one candidate")
+    scored = []
+    for bucket, n_real in candidates:
+        t = step_time(bucket) if step_time is not None else None
+        if t is not None and t > 0.0:
+            scored.append((n_real / t, -bucket.batch, bucket, n_real))
+    if scored:
+        scored.sort(key=lambda x: (x[0], x[1]), reverse=True)
+        _, _, bucket, n_real = scored[0]
+        return bucket, n_real
     n_pending = max(n for _, n in candidates)
     fitting = [c for c in candidates if c[0].batch >= n_pending]
     if fitting:

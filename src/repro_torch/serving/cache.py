@@ -36,8 +36,10 @@ class ExecKey:
     other fields cannot express: the paged decode step keys on
     ``("paged", block_size, max_blocks)`` so it never collides with a
     contiguous-cache decode step of the same (batch, length).  It must
-    be hashable.  ``schedules`` stays None in the port until its
-    decode and scan wrappers take a schedule.
+    be hashable.  ``schedules`` is the
+    :class:`~repro_torch.core.schedule.ScheduleBundle` the step launches
+    with (None without a dispatch service, or with ``"plain"``): a
+    commit of another schedule is another key, so another capture.
     """
 
     arch: str
@@ -89,6 +91,19 @@ class ExecutableCache:
         counters (the engine reads a cached decode step's pool at the
         start of an activation, before its first step looks it up)."""
         return self._entries.get(key)
+
+    def peek_geometry(self, key: ExecKey) -> Optional[Any]:
+        """An entry whose key equals ``key`` in every field but
+        ``schedules``, or None, without touching LRU order or counters:
+        the engine finds its geometry's pool there, whichever bundle the
+        entry was built with (a recapture on a commit gives a geometry a
+        second entry over the same pool)."""
+        want = dataclasses.replace(key, schedules=None)
+        with self._lock:
+            for k, exe in self._entries.items():
+                if dataclasses.replace(k, schedules=None) == want:
+                    return exe
+        return None
 
     def get(self, key: ExecKey, builder: Callable[[], Any],
             ) -> Tuple[Any, bool]:

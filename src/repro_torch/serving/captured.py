@@ -21,7 +21,18 @@ On a card the build is:
 4. the wrappers' launch counts that the captured call added are kept
    (``launch_delta``) and the counts are set back to their values
    before the build: each replay adds the delta, so the counters stay
-   exact (one per kernel a step launches, none for the build).
+   exact (one per kernel a step launches, none for the build);
+5. the launch parameters the wrappers noted during the capture (kind,
+   block sizes, the decode split: ``kernels/_launches.py``) are kept as
+   ``launch_params``, so the card can show which schedule a graph runs.
+
+The step builders take the :class:`~repro_torch.core.schedule.
+ScheduleBundle` their key carries and pass it to the model.  A rebuild
+under another bundle in the middle of a run (the engine's and
+``generate``'s recapture on a dispatch commit) is built over the run's
+live state: the engine's pool, ``generate``'s cache; the warm-up leaves
+that state as it found it, and ``generate`` copies its running inputs
+(token, position, starts) into the new step.
 
 A capture error raises out of the build; nothing runs the step eagerly
 in its place.  Where the buffers live on the CPU (the tests), or the
@@ -33,12 +44,13 @@ choice, never a failure.
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import kernels
+from repro_torch.kernels import _launches
 
 
 def _set_counts(counts: Dict[str, int]) -> None:
@@ -71,6 +83,7 @@ class CapturedStep:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: Any = None
         self.launch_delta: Dict[str, int] = {}
+        self.launch_params: List[Dict[str, Any]] = []
         self.pool_bytes = 0             # the graph's private pool
         self.replays = 0
         self._staging: Dict[str, torch.Tensor] = {}
@@ -102,8 +115,10 @@ class CapturedStep:
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
-        with ctx:
-            outputs = self.fn()
+        with _launches.recording() as noted:
+            with ctx:
+                outputs = self.fn()
+        self.launch_params = noted
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         after = kernels.launch_counts()
         self.launch_delta = {k: after[k] - warm[k] for k in after
@@ -161,10 +176,11 @@ def pick(last: torch.Tensor) -> torch.Tensor:
 
 
 def prefill_step(model, params, backend: str, bsz: int, length: int,
-                 capture: bool) -> "CapturedStep":
+                 capture: bool, schedules=None) -> "CapturedStep":
     """The masked prefill of ``bsz`` left-padded rows of ``length``
     tokens, the step behind every prefill key (the engine's batch-1
-    admissions and ``generate``).  Inputs ``tokens`` [B, length] and
+    admissions and ``generate``), launching with ``schedules`` (a
+    ScheduleBundle or None).  Inputs ``tokens`` [B, length] and
     ``starts`` [B]; outputs (:func:`pick` of the last logits, the
     prefill's caches)."""
     dev = params["embed"].device
@@ -176,17 +192,21 @@ def prefill_step(model, params, backend: str, bsz: int, length: int,
         """Prefill the static tokens; last-token pick and caches."""
         logits, pcache = model.prefill(params, {"tokens": inputs["tokens"]},
                                        backend=backend,
-                                       seq_starts=inputs["starts"])
+                                       seq_starts=inputs["starts"],
+                                       schedules=schedules)
         return pick(logits[:, -1]), pcache
 
     return CapturedStep(fn, dev, inputs=inputs, capture=capture)
 
 
 def recurrent_decode_step(model, params, backend: str, bsz: int,
-                          capture: bool, layers=None) -> "CapturedStep":
+                          capture: bool, layers=None,
+                          schedules=None) -> "CapturedStep":
     """The ssm decode step of ``bsz`` rows, the step behind every ssm
-    decode key.  Input ``tokens`` [B, 1]; state ``layers`` (the
-    recurrent states, zero ones of its own when not given); output
+    decode key, launching with ``schedules``.  Input ``tokens`` [B, 1];
+    state ``layers`` (the recurrent states, zero ones of its own when
+    not given; a live run's when it is rebuilt under a new bundle);
+    output
     :func:`pick` of the logits, whose argmax it also writes back into
     ``tokens`` (``generate`` replays it with no feed; the engine feeds
     its tokens before every replay).
@@ -203,7 +223,8 @@ def recurrent_decode_step(model, params, backend: str, bsz: int,
 
     def fn():
         """One recurrent step over all rows; feeds its argmax back."""
-        lg, _ = model.decode_step(params, cache, tok, 0, backend=backend)
+        lg, _ = model.decode_step(params, cache, tok, 0, backend=backend,
+                                  schedules=schedules)
         picked = pick(lg[:, -1])
         tok.copy_(picked[0][:, None])
         return picked

@@ -25,11 +25,34 @@ The prefill and decode steps come from the session's
 :class:`~repro_torch.serving.cache.ExecutableCache`, keyed as the JAX
 session keys them: one batch-1 prefill step per prompt bucket, shared
 by every activation and by ``generate(session=)``, and one decode step
-per engine geometry, whose entry owns the pool (a CUDA graph holds its
-addresses; it is zeroed at each activation's start, so a run equals
-one on a fresh pool).  An ssm decode key carries no detail, so it can
-equal ``generate``'s: both build it with the same
-:func:`~repro_torch.serving.captured.recurrent_decode_step`.  On a card each step is a captured CUDA graph
+per engine geometry and bundle, whose entry owns the pool (a CUDA graph
+holds its addresses; it is zeroed at each activation's start, so a run
+equals one on a fresh pool).  Every decode step of one geometry holds
+the same pool, whichever bundle it was built with and whether the
+engine or ``generate`` built it: an activation finds the pool through
+any of them (``ExecutableCache.peek_geometry``), makes a new one only
+when none is cached, and raises if the step it runs holds another.
+
+With a :class:`~repro_torch.runtime.dispatch.DispatchService`
+(``dispatch=``) the engine picks each activation's rows by the
+service's decode step times (``_bucket_step_time``: measured, else
+predicted), observes every prefill and decode step under its kernel
+shape and, with ``backend="cuda"``, keys and launches its steps with a
+:class:`~repro_torch.core.schedule.ScheduleBundle`: one per prompt
+bucket for the prefills, one for the activation's decode step.  When
+the service commits a decode winner other than the running bundle's,
+the engine switches to the new key's step if it is cached
+(``free_switches``), else recaptures it once over the live pool
+(``recompiles``, at most ``max_recompiles`` an activation; its time is
+kept out of ``decode_s``), else keeps the step pinned; each such commit
+counts in ``commits_seen`` (``serve_loop.switch_on_commit``, the policy
+``generate`` runs too).  Every observation times the deployed step,
+not the candidate it is attributed to (the JAX engine's semantics).
+
+An ssm decode key carries no detail, so it can equal ``generate``'s
+(when their bundles are equal): both build it with the same
+:func:`~repro_torch.serving.captured.recurrent_decode_step`.  On a card
+each step is a captured CUDA graph
 (:class:`~repro_torch.serving.captured.CapturedStep`); ``capture=False``
 runs the same steps eagerly, and on the CPU they always run directly.
 A step's tokens, positions and block tables go in through pinned
@@ -41,8 +64,9 @@ footprint can never fit the pool is REJECTED; a row whose logits are
 not finite (checked at every step) is retired FAILED without touching
 the others.  Kernel and capture failures are not caught: a CUDA error
 raises out of :meth:`drain` (the JAX session's degrade-to-reference
-path, dispatch, telemetry, watchdog, recorder, deadlines and
-cancellation are not ported yet).
+path, telemetry, watchdog, recorder, the registry write-back of
+``serve_decode`` records, deadlines and cancellation are not ported
+yet).
 """
 from __future__ import annotations
 
@@ -132,6 +156,16 @@ class SessionStats:
     cache: Dict[str, int] = dataclasses.field(default_factory=dict)
     capture_s: float = 0.0          # building steps (warm-up + capture)
     graph_pool_bytes: int = 0       # the built graphs' private pools
+    recompiles: int = 0             # decode steps recaptured on a commit
+    free_switches: int = 0          # switches to an already cached step
+    commits_seen: int = 0           # commits of another decode winner
+
+    def add_commits(self, counts) -> None:
+        """Add one run's :class:`~repro_torch.runtime.serve_loop.
+        CommitCounts`."""
+        self.recompiles += counts.recompiles
+        self.free_switches += counts.free_switches
+        self.commits_seen += counts.commits_seen
 
     @staticmethod
     def _pcts(xs: List[float]) -> Tuple[float, float]:
@@ -180,6 +214,9 @@ class SessionStats:
             "cache_hit_rate": hits / lookups if lookups else 0.0,
             "capture_s": self.capture_s,
             "graph_pool_bytes": self.graph_pool_bytes,
+            "recompiles": self.recompiles,
+            "free_switches": self.free_switches,
+            "commits_seen": self.commits_seen,
             "buckets": {
                 f"b{b.batch}xp{b.prompt_len}xt{b.total_len}": {
                     **{k: float(v) for k, v in e.items()},
@@ -207,12 +244,17 @@ class ServeSession:
     ``capture`` False runs the cached steps eagerly on a card (one
     launch per op, to time the eager path; the counterpart of the JAX
     session's un-lowered jit step), never chosen by a failure.
+    ``dispatch`` (a :class:`~repro_torch.runtime.dispatch.
+    DispatchService`) feeds the adaptive runtime and, with ``"cuda"``,
+    selects the steps' schedules; ``max_recompiles`` bounds the decode
+    recaptures on a commit a run (an activation or a ``generate`` call).
     """
 
     def __init__(self, model: Model, params, *, backend: str = "cuda",
                  batch_sizes: Sequence[int] = (1, 2, 4, 8),
                  kv_block_size: int = 16, kv_blocks: Optional[int] = None,
-                 cache_capacity: int = 16, capture: bool = True):
+                 cache_capacity: int = 16, capture: bool = True,
+                 dispatch=None, max_recompiles: int = 1):
         """Validate the knobs and start with an empty queue."""
         if model.cfg.family not in SERVED_FAMILIES:
             raise NotImplementedError(
@@ -237,6 +279,11 @@ class ServeSession:
         self.kv_block_size = int(kv_block_size)
         self.kv_blocks = None if kv_blocks is None else int(kv_blocks)
         self.capture = bool(capture)
+        if max_recompiles < 0:
+            raise ValueError("max_recompiles must be >= 0")
+        self.dispatch = dispatch
+        self.max_recompiles = int(max_recompiles)
+        self._elem_bytes = params["embed"].element_size()
         self.exec_cache = ExecutableCache(cache_capacity)
         self.stats = SessionStats()
         self._queue: List[Request] = []
@@ -266,6 +313,25 @@ class ServeSession:
     def _prompt_bucket(self, request: Request) -> int:
         """Padded prompt length (the request's shape class)."""
         return bucket_length(len(request.tokens))
+
+    def _bucket_step_time(self, bucket: Bucket) -> Optional[float]:
+        """Expected decode-step seconds of a bucket's kernel shape: the
+        dispatch service's measured time when observed (here or by an
+        earlier process on this machine), else the cost model's best
+        prediction; None without a dispatch service."""
+        if self.dispatch is None:
+            return None
+        # here, not at the top: the serve loop imports this package
+        from repro_torch.runtime.serve_loop import serve_dispatch_problems
+        kind, problem = serve_dispatch_problems(
+            self.model.cfg, bucket.batch, bucket.prompt_len,
+            bucket.total_len)["decode"]
+        eb = self._elem_bytes
+        t = self.dispatch.measured_time(kind, problem, eb)
+        if t is None:
+            predicted = self.dispatch.predicted(kind, problem, eb)
+            t = min(predicted) if predicted else None
+        return t
 
     def _reject(self, req: Request, reason: str,
                 sink: List[RequestResult]) -> None:
@@ -302,18 +368,19 @@ class ServeSession:
         return step, hit
 
     def _decode_builder(self, pool: Dict[str, Any], rows: int,
-                        max_blocks: Optional[int]):
-        """Builder of the engine's decode step over ``pool``: the paged
-        step (tokens, per-row positions, block tables) for dense, the
-        recurrent step (:func:`recurrent_decode_step`, which
-        ``generate`` shares) for ssm; outputs :func:`pick` of the
-        logits.  The step owns ``pool``."""
+                        max_blocks: Optional[int], bundle=None):
+        """Builder of the engine's decode step over ``pool`` under
+        ``bundle``: the paged step (tokens, per-row positions, block
+        tables) for dense, the recurrent step
+        (:func:`recurrent_decode_step`, which ``generate`` shares) for
+        ssm; outputs :func:`pick` of the logits.  The step owns ``pool``
+        (with every other step of its geometry)."""
         model, params, dev = self.model, self.params, self.device
         backend = self.backend
         if max_blocks is None:
             return lambda: recurrent_decode_step(
                 model, params, backend, rows, self.capture,
-                layers=pool["layers"])
+                layers=pool["layers"], schedules=bundle)
 
         def build() -> CapturedStep:
             """Static inputs, the step function and its capture."""
@@ -328,7 +395,8 @@ class ServeSession:
                 """One paged decode step over all rows."""
                 lg, _ = model.decode_step(
                     params, pool, inputs["tokens"], inputs["pos"],
-                    backend=backend, block_tables=inputs["tables"])
+                    backend=backend, block_tables=inputs["tables"],
+                    schedules=bundle)
                 return pick(lg[:, -1])
 
             return CapturedStep(fn, dev, inputs=inputs,
@@ -343,10 +411,15 @@ class ServeSession:
         waits for the next activation).  A recurrent (ssm) activation
         has rows only: no allocator, block table or compaction."""
         # here, not at the top: the serve loop imports this package
-        from repro_torch.runtime.serve_loop import ServeStats
+        from repro_torch.runtime.serve_loop import (CommitCounts, ServeStats,
+                                                    resolve_bundle_report,
+                                                    serve_dispatch_problems,
+                                                    switch_on_commit)
         model, params, dev = self.model, self.params, self.device
         cfg = model.cfg
         backend = self.backend
+        dispatch, eb = self.dispatch, self._elem_bytes
+        scheduled = dispatch is not None and backend == "cuda"
         attn_family = cfg.family == "dense"
 
         head = self._queue[0]
@@ -354,7 +427,7 @@ class ServeSession:
         budgets = [r.max_new_tokens for r in self._queue
                    if self._prompt_bucket(r) == s_pad]
         cands = candidate_buckets(budgets, s_pad, self.batch_sizes)
-        picked, _ = pick_bucket(cands)
+        picked, _ = pick_bucket(cands, self._bucket_step_time)
         rows_n = picked.batch
         cap = max(self._prompt_bucket(r) + bucket_length(r.max_new_tokens)
                   for r in self._queue)
@@ -370,13 +443,26 @@ class ServeSession:
             detail = ("paged", bs, max_blocks)
         else:
             alloc = tables_np = max_blocks = detail = None
-        decode_key = ExecKey(cfg.name, "decode", rows_n, cap, None,
-                             backend, detail)
-        # The pool belongs to the geometry's decode step, whose graph
-        # holds its addresses: a cached step's pool is reused, zeroed.
-        # The step itself is looked up at the first decode step, as the
-        # JAX engine compiles it there.
-        cached = self.exec_cache.peek(decode_key)
+        dec = (serve_dispatch_problems(cfg, rows_n, s_pad, cap)["decode"]
+               if dispatch is not None else None)
+        cur_bundle = None
+        if dispatch is not None:
+            dispatch.resolve(*dec, eb)
+            if scheduled:
+                cur_bundle = dispatch.schedule_bundle([dec], eb)
+
+        def decode_key(bundle) -> ExecKey:
+            """Cache key of the engine's paged or recurrent step."""
+            return ExecKey(cfg.name, "decode", rows_n, cap, bundle,
+                           backend, detail)
+
+        # The pool belongs to the geometry's decode steps, whose graphs
+        # hold its addresses: every step of the geometry, whichever
+        # bundle it was built with (and ``generate``'s of an equal ssm
+        # geometry), holds the one pool, reused here, zeroed.  The step
+        # itself is looked up at the first decode step, as the JAX
+        # engine compiles it there.
+        cached = self.exec_cache.peek_geometry(decode_key(cur_bundle))
         if cached is not None:
             pool = {"layers": cached.state}
             for t in pool["layers"].values():
@@ -385,10 +471,30 @@ class ServeSession:
             pool = model.init_paged_cache(n_blocks, bs, dev)
         else:
             pool = model.init_cache(rows_n, cap, dev)
-        build_decode = self._decode_builder(pool, rows_n, max_blocks)
         engine_bucket = Bucket(rows_n, s_pad, cap)
         act_stats = ServeStats(prefill_s=0.0, decode_s=0.0,
                                tokens_generated=0, backend=backend)
+
+        pf_bundles: Dict[int, Any] = {}
+
+        def prefill_for(p_len: int) -> Tuple[CapturedStep, Any]:
+            """The cached batch-1 prefill step of a prompt bucket and its
+            dispatch problem (None without a service); the bucket's
+            bundle is resolved once an activation."""
+            prob, bundle = None, None
+            if dispatch is not None:
+                prob = serve_dispatch_problems(cfg, 1, p_len,
+                                               cap)["prefill"]
+                if p_len not in pf_bundles:
+                    dispatch.resolve(*prob, eb)
+                    pf_bundles[p_len] = (dispatch.schedule_bundle([prob], eb)
+                                         if scheduled else None)
+                bundle = pf_bundles[p_len]
+            step, _ = self._compile(
+                ExecKey(cfg.name, "prefill", 1, p_len, bundle, backend),
+                lambda: prefill_step(model, params, backend, 1, p_len,
+                                     self.capture, schedules=bundle))
+            return step, prob
 
         row_req: List[Optional[Request]] = [None] * rows_n
         row_blocks: List[List[int]] = [[] for _ in range(rows_n)]
@@ -460,10 +566,9 @@ class ServeSession:
                 row_blocks[r] = alloc.alloc(nb)
                 tables_np[r, :] = 0
                 tables_np[r, :nb] = row_blocks[r]
-            pf, _ = self._compile(
-                ExecKey(cfg.name, "prefill", 1, p_len, None, backend),
-                lambda: prefill_step(model, params, backend, 1, p_len,
-                                     self.capture))
+            pf, prob = prefill_for(p_len)
+            if prob is not None:
+                dispatch.propose(*prob, eb)
             t0 = time.perf_counter()
             pf.feed(tokens=left_pad_prompts([req.tokens], p_len),
                     starts=np.asarray([p_len - length]))
@@ -471,6 +576,8 @@ class ServeSession:
             # one copy to the host: it waits for the card
             first, finite = picked[:, 0].cpu().tolist()
             dt = time.perf_counter() - t0
+            if prob is not None:
+                dispatch.observe(*prob, dt, eb)
             act_stats.prefill_s += dt
             self.stats.prefill_s += dt
             if not finite:
@@ -510,6 +617,7 @@ class ServeSession:
 
         step = None
         step_idx = 0
+        counts = CommitCounts()
         while True:
             for r in range(rows_n):
                 if row_req[r] is not None and row_remaining[r] <= 0:
@@ -550,7 +658,17 @@ class ServeSession:
             if not any(row_remaining[r] > 0 for r in active):
                 continue        # budget-1 admissions retire at loop top
             if step is None:
-                step, _ = self._compile(decode_key, build_decode)
+                step, _ = self._compile(
+                    decode_key(cur_bundle),
+                    self._decode_builder(pool, rows_n, max_blocks,
+                                         cur_bundle))
+                if any(step.state[n] is not t
+                       for n, t in pool["layers"].items()):
+                    raise RuntimeError(
+                        f"the cached decode step {decode_key(cur_bundle)} "
+                        f"holds another state than its geometry's pool")
+            if dec is not None:
+                dispatch.propose(*dec, eb)
             t_step = time.perf_counter()
             if attn_family:
                 step.feed(tokens=tok_np, pos=pos_np, tables=tables_np)
@@ -562,6 +680,18 @@ class ServeSession:
             act_stats.decode_s += dt
             self.stats.decode_s += dt
             entry["decode_s"] += dt
+            if dec is not None:
+                dispatch.observe(*dec, dt, eb)
+            if scheduled:
+                step, cur_bundle = switch_on_commit(
+                    step, cur_bundle, dec[0], dispatch.committed(*dec, eb),
+                    key_of=decode_key,
+                    build_of=lambda b, state: self._decode_builder(
+                        {"layers": state}, rows_n, max_blocks, b),
+                    contains=self.exec_cache.contains,
+                    compile_=self._compile,
+                    max_recompiles=self.max_recompiles, counts=counts)
+                pool = {"layers": step.state}
             for r in active:
                 if not finite[r]:
                     self.stats.poisoned_rows += 1
@@ -588,6 +718,14 @@ class ServeSession:
                          "pending": len(self._queue),
                          "free_blocks": (alloc.num_free if attn_family
                                          else None)})
+        act_stats.recompiles = counts.recompiles
+        act_stats.recompile_s = counts.recompile_s
+        if cur_bundle is not None:
+            pf_b = next((b for b in pf_bundles.values() if b is not None),
+                        cur_bundle)
+            act_stats.schedules = dict(resolve_bundle_report(pf_b,
+                                                             cur_bundle))
+        self.stats.add_commits(counts)
         self.stats.batches += 1
         entry["batches"] += 1
         return results

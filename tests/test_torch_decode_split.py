@@ -85,14 +85,15 @@ def test_paged_splits_fall_on_pool_blocks(bs, rows):
 
 
 def test_the_plan_depends_on_no_runtime_value():
-    """The plan takes static shapes only: no pos, no starts, no tensor;
-    the wrappers compute it from shapes before touching either, so a
-    call needs no host sync and a captured launch is fixed."""
+    """The plan takes static values only: shapes and a schedule's split,
+    no pos, no starts, no tensor; the wrappers compute it from them
+    before touching either, so a call needs no host sync and a captured
+    launch is fixed."""
     params = list(inspect.signature(geo.decode_plan).parameters)
     assert params == ["b", "hq", "hkv", "d", "limit", "block_size",
-                      "elem_bytes"]
+                      "elem_bytes", "split_keys"]
     assert list(inspect.signature(dec_ops._plan).parameters) == [
-        "name", "q", "hkv", "limit", "block_size"]
+        "name", "q", "hkv", "limit", "block_size", "split_keys"]
     a = geo.decode_plan(4, 32, 32, 96, 544, 0, 2)
     assert a == geo.decode_plan(4, 32, 32, 96, 544, 0, 2)
     assert hash(a) == hash(geo.decode_plan(4, 32, 32, 96, 544, 0, 2))

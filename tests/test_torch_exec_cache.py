@@ -79,8 +79,7 @@ def _lru_eviction():
 
 def _distinguishes_schedules_and_backends():
     cache = ExecutableCache()
-    # the port's decode and scan wrappers take no schedule yet: any
-    # hashable stands for a committed bundle
+    # any hashable stands for a committed bundle here
     for sched in (None, ("decode_attention", 16), ("decode_attention", 32)):
         for backend in ("plain", "cuda"):
             _, hit = cache.get(ExecKey("arch", "decode", 2, 16, sched,

@@ -31,9 +31,11 @@ KEYS = geo.FLASH_KEYS
 
 
 def flash_mma_emulation(q, k, v, *, causal=True, window=None, starts=None,
-                        split=True):
+                        split=True, visited=None):
     """The bf16 body's arithmetic on the CPU (``split=False``: p rounded
-    to bf16 once, the design the kernel does not take)."""
+    to bf16 once, the design the kernel does not take).  ``visited``
+    ([B, S, tiles] bool, :func:`flash_tiles_visited`) keeps each row's
+    state through the tiles its block and warp do not run."""
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     g = hq // hkv
@@ -46,6 +48,7 @@ def flash_mma_emulation(q, k, v, *, causal=True, window=None, starts=None,
     l = torch.zeros((b, hkv, g, s, 1))
     o = torch.zeros((b, hkv, g, s, d))
     for k0 in range(0, s, KEYS):
+        state = (m, l, o)
         kpos = torch.arange(k0, min(k0 + KEYS, s))[None, :]
         sc = torch.einsum("bhgqd,bhkd->bhgqk", qs, kf[:, :, k0:k0 + KEYS])
         ok = torch.ones(s, kpos.shape[1], dtype=torch.bool)
@@ -66,8 +69,56 @@ def flash_mma_emulation(q, k, v, *, causal=True, window=None, starts=None,
         if split:
             lo = (p - hi).to(torch.bfloat16).float()
             o = o + torch.einsum("bhgqk,bhkd->bhgqd", lo, vt)
+        if visited is not None:
+            run = visited[:, None, None, :, k0 // KEYS, None]
+            m, l, o = (torch.where(run, new, old)
+                       for new, old in zip((m, l, o), state))
     o = o * torch.where(l > 0, 1 / l, torch.zeros_like(l))
     return o.reshape(b, hq, s, d).to(q.dtype)
+
+
+def flash_tiles_visited(b, s, *, rows, causal=True, window=None,
+                        starts=None):
+    """[B, S, tiles] bool: the key tiles the bf16 body's block structure
+    runs for each query row at ``rows`` query rows a block
+    (``flash_mma_kernel<DP, ROWS>``): a block visits the tiles of its
+    ``[lo, hi)`` range (lo from starts and the window, hi from its last
+    row under the causal mask; lo >= hi writes zeros), and each warp of
+    16 rows skips a tile none of its rows can see."""
+    n_t = -(-s // KEYS)
+    out = torch.zeros((b, s, n_t), dtype=torch.bool)
+    for bi in range(b):
+        start = 0 if starts is None else max(int(starts[bi]), 0)
+        for q0 in range(0, s, rows):
+            lo = start if window is None else max(start, q0 - window + 1)
+            hi = min(s, q0 + rows) if causal else s
+            if lo >= hi:
+                continue
+            for w0 in range(q0, min(s, q0 + rows), 16):
+                for t in range(lo // KEYS, -(-hi // KEYS)):
+                    k0 = t * KEYS
+                    if (causal and k0 > w0 + 15) or k0 + KEYS <= start or (
+                            window is not None
+                            and k0 + KEYS - 1 <= w0 - window):
+                        continue
+                    out[bi, w0:min(s, w0 + 16), t] = True
+    return out
+
+
+def flash_tiles_needed(b, s, *, causal=True, window=None, starts=None):
+    """[B, S, tiles] bool: the tiles holding a key each row may see."""
+    n_t = -(-s // KEYS)
+    qp = torch.arange(s)[:, None]
+    kp = torch.arange(n_t * KEYS)[None, :]
+    ok = (kp < s) & (qp >= 0)                     # [S, tiles x KEYS]
+    if causal:
+        ok = ok & (kp <= qp)
+    if window is not None:
+        ok = ok & (kp > qp - window)
+    st = (torch.zeros(b, dtype=torch.long) if starts is None
+          else starts.long().clamp_min(0))
+    ok = ok[None] & (kp[None] >= st[:, None, None])
+    return ok.reshape(b, s, n_t, KEYS).any(-1)
 
 
 def _share_of_tol(got, want):
@@ -118,6 +169,30 @@ def test_emulated_kernel_arithmetic_holds_to_the_plain_version(b, hq, hkv, s,
     if "starts" in kw:     # rows with no valid key are zeros in both
         for i, st in enumerate(kw["starts"].tolist()):
             assert (got[i, :, :st] == 0).all() and (want[i, :, :st] == 0).all()
+
+
+@pytest.mark.parametrize("rows", geo.FLASH_ROW_CHOICES)
+@pytest.mark.parametrize("b,hq,hkv,s,d,kw", EMULATION_CASES,
+                         ids=[f"{c[0]}x{c[1]}/{c[2]}-s{c[3]}-d{c[4]}-"
+                              + "-".join(c[5]) for c in EMULATION_CASES])
+def test_block_structure_at_each_row_count_drops_no_needed_tile(b, hq, hkv,
+                                                                s, d, kw,
+                                                                rows):
+    """At 64 and 128 query rows a block (4 and 8 warps), every tile
+    holding a key a row may see is run for that row, so the emulated
+    arithmetic over only the tiles the blocks and warps run equals the
+    emulation over every tile bit for bit (a tile a row cannot see adds
+    exactly nothing) and holds to the plain version: the body's rows
+    template changes which tiles run, never the output."""
+    kw = {n: torch.tensor(x) if n == "starts" else x for n, x in kw.items()}
+    mask = {n: kw[n] for n in ("causal", "window", "starts") if n in kw}
+    visited = flash_tiles_visited(b, s, rows=rows, **mask)
+    needed = flash_tiles_needed(b, s, **mask)
+    assert not (needed & ~visited).any()
+    q, k, v = _inputs(b, hq, hkv, s, d, seed=s + d + hq)
+    got = flash_mma_emulation(q, k, v, visited=visited, **kw)
+    assert torch.equal(got, flash_mma_emulation(q, k, v, **kw))
+    assert _share_of_tol(got, flash_attention_ref(q, k, v, **kw)) <= 1.0
 
 
 PALLAS_CASES = [

@@ -796,3 +796,159 @@ def test_cuda_capture_failure_raises_and_runs_nothing_eagerly(cuda_device):
     assert out.returncode == 0, out.stdout + out.stderr
     # warm-up + capture attempt; no step; only the prefill was built
     assert out.stdout.split() == ["raised", "2", "0", "1"], out.stdout
+
+
+# ----------------------------------------- schedules (dispatch families)
+
+FLASH_ROWS_CASES = [
+    # (B, HQ, HKV, S, D, kwargs)
+    (1, 32, 32, 512, 96, {"starts": [212]}),
+    (4, 32, 32, 512, 96, {"starts": [472, 412, 262, 212]}),
+    (1, 8, 1, 300, 96, {"window": 40}),
+    (1, 16, 1, 512, 256, {"starts": [300]}),
+    (2, 8, 1, 130, 256, {"starts": [0, 129]}),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_ROWS_CASES,
+                         ids=[f"{c[0]}x{c[1]}/{c[2]}-s{c[3]}-d{c[4]}"
+                              for c in FLASH_ROWS_CASES])
+def test_cuda_flash_block_q_128_matches_plain(cuda_device, dtype, case):
+    """bf16 at 128 query rows a block (8 warps) matches the plain
+    version, as at 64; the float32 body takes its one 64 x 32 tile, given
+    or not, and refuses 128 rows before any launch."""
+    from repro_torch.kernels._geometry import flash_default_tile
+    b, hq, hkv, s, d, kw = case
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(s + d + hq)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dt)
+
+    q, k, v = rn(b, hq, s, d), rn(b, hkv, s, d), rn(b, hkv, s, d)
+    kw = {n: torch.tensor(x, device=cuda_device) if n == "starts" else x
+          for n, x in kw.items()}
+    want = flash_attention_ref(q, k, v, **kw)
+    tiles = ([(64, 64), (128, 64)] if dt == torch.bfloat16
+             else [flash_default_tile(4)])
+    for rows, keys in tiles:
+        got = flash_attention(q, k, v, block_q=rows, block_kv=keys, **kw)
+        torch.cuda.synchronize()
+        assert _share_of_tol(got, want) <= 1.0, (rows, keys)
+    if dt == torch.float32:
+        before = flash_attention.launches
+        with pytest.raises(ValueError, match="float32"):
+            flash_attention(q, k, v, block_q=128, block_kv=64, **kw)
+        assert flash_attention.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", DECODE_SPLIT_CASES,
+                         ids=[f"{c[0]}x{c[1]}/{c[2]}-s{c[3]}-d{c[4]}"
+                              for c in DECODE_SPLIT_CASES])
+def test_cuda_decode_matches_plain_at_every_offered_block_kv(cuda_device,
+                                                             dtype, case):
+    """Both decode kernels at every split the tuner offers for the
+    shape (the paged one rounded to its pool block) match the plain
+    versions; a split the kernel refuses raises before any launch."""
+    from repro_torch.core.tuner import decode_splits
+    from repro_torch.kernels.decode_attention.ops import paged_split_keys
+    b, hq, hkv, s, d, pos, starts = case
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(s + d + hq + 1)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dt)
+
+    q, k, v = rn(b, hq, 1, d), rn(b, hkv, s, d), rn(b, hkv, s, d)
+    pos_t = torch.tensor(pos, device=cuda_device)
+    st = torch.tensor(starts, device=cuda_device)
+    want = decode_attention_ref(q, k, v, pos_t, starts=st)
+    bs = 16
+    mb = -(-s // bs)
+    pool_k, pool_v = rn(b * mb + 1, hkv, bs, d), rn(b * mb + 1, hkv, bs, d)
+    tables = (1 + torch.arange(b * mb, device=cuda_device)).reshape(b, mb)
+    want_p = paged_decode_attention_ref(q, pool_k, pool_v, tables, pos_t)
+    splits = decode_splits(b, hq, hkv, s, d, dt.itemsize)
+    assert len(splits) >= 2
+    for bkv in splits:
+        got = _twice(lambda: decode_attention(q, k, v, pos_t, starts=st,
+                                              block_kv=bkv))
+        assert _share_of_tol(got, want) <= 1.0, bkv
+        assert decode_plan(b, hq, hkv, d, mb * bs, bs, dt.itemsize,
+                           paged_split_keys(bkv, bs)).error is None
+        got_p = _twice(lambda: paged_decode_attention(
+            q, pool_k, pool_v, tables, pos_t, block_kv=bkv))
+        assert _share_of_tol(got_p, want_p) <= 1.0, bkv
+    before = decode_attention.launches
+    with pytest.raises(ValueError, match="multiple of 16"):
+        decode_attention(q, k, v, pos_t, starts=st, block_kv=40)
+    assert decode_attention.launches == before
+
+
+def _scripted_service(registry, device, target_index=1):
+    """A dispatch service whose observations are scripted until a slot
+    commits: the target candidate fast, the others slow."""
+    from repro_torch.runtime.dispatch import DispatchService
+
+    class Scripted(DispatchService):
+        def observe(self, kind, problem, dt, elem_bytes=2):
+            slot = self.selector._slots[self.resolve(kind, problem,
+                                                     elem_bytes)]
+            if slot.committed is None:
+                dt = 1e-4 if slot.next_candidate == target_index else 5e-4
+            super().observe(kind, problem, dt, elem_bytes)
+
+    return Scripted(registry, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", SMOKE_ARCHS)
+def test_cuda_commit_mid_activation_recaptures_over_the_live_pool(
+        cuda_device, arch):
+    """float32 smoke: a commit in the middle of an engine activation
+    recaptures the decode step once over the live pool; the tokens after
+    the switch equal a run without dispatch; the launch parameters the
+    new graph recorded are the committed schedule's."""
+    from repro_torch.core.registry import TuningRegistry
+    from repro_torch.kernels.decode_attention.ops import paged_split_keys
+    model = build_model(get_config(arch))
+    params = model.init(seed=0, device=cuda_device)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(1, 256, n).astype(np.int32)
+               for n in (40, 37, 51, 44, 33, 60)]
+
+    def drain(s):
+        for i, p in enumerate(prompts):
+            s.submit(p, 16, request_id=f"r{i}")
+        return {r.request_id: r.tokens.tolist() for r in s.drain()}
+
+    want = drain(ServeSession(model, params, batch_sizes=(2,)))
+    svc = _scripted_service(TuningRegistry(None), cuda_device)
+    s = ServeSession(model, params, batch_sizes=(2,), dispatch=svc)
+    assert drain(s) == want
+    assert s.stats.recompiles == 1 and s.stats.commits_seen == 1
+    decs = [(k, s.exec_cache.peek(k)) for k in s.exec_cache.compiled_log
+            if k.role == "decode"]
+    assert len(decs) == 2
+    (k0, old), (k1, new) = decs
+    assert all(old.state[n] is new.state[n] for n in old.state)
+    kind = "ssm_scan" if model.cfg.attention_free else "decode_attention"
+    committed = k1.schedules.get(kind)
+    assert committed != k0.schedules.get(kind) and new.graph is not None
+    if kind == "ssm_scan":
+        assert new.launch_params == [{"kind": "ssm_scan",
+                                      "block_d": committed.block_d}]
+    else:
+        bs = s.kv_block_size
+        assert new.launch_params == [{
+            "kind": "paged_decode_attention", "block_kv": committed.block_kv,
+            "split_keys": paged_split_keys(committed.block_kv, bs),
+            "splits": -(-k1.length // paged_split_keys(committed.block_kv,
+                                                       bs))}]
+    # a second drain builds nothing and runs the committed step
+    built = s.exec_cache.compiles
+    assert drain(s) == want and s.exec_cache.compiles == built
