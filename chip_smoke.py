@@ -49,7 +49,27 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
    compiles, the graphs' pool memory, tok/s, TTFT and peak memory);
 5. generate: a left-padded batch of 4 on the same weights through
    ``generate(session=)``, twice per mode, through the contiguous
-   decode kernel, held to the same rules; then a short engine drain
+   decode kernel, held to the same rules; then ``[faults]``: on fresh
+   sessions with graphs over the engine's 8 requests, ``nan@5.1`` (one
+   request FAILED with partial tokens, its row's device finite flag 0),
+   a cancel of a running request at step 3 and of a queued one, a
+   deadline blown mid-decode (a fake session clock), ``max_queue_s``
+   shedding the requests still queued, for phi3 ``alloc@31x3`` and
+   ``doublefree@31`` (31: the first boundary where a row frees),
+   ``slow@8`` (one straggler, admission held for two boundaries),
+   ``compile@0`` (one retry) and ``compile@0x3`` with two retries
+   (``drain`` must raise ``InjectedFault``); every untouched request
+   keeps the engine phase's tokens, a retired one a prefix of them,
+   and each scenario launches one kernel a layer per admission and per
+   step; ``[lifecycle_overhead]``: warm drains with and without
+   ``request_deadline_s=3600`` and an empty injector, in turns (step
+   ms, not gated); ``[batched]``: the 8 requests through
+   ``_drain_batched`` at batch sizes (1, 2, 4), greedy and sampled at
+   T=0.8, cold then warm (the warm drain builds nothing), each greedy
+   request equal to ``generate`` on its group, the pad rows of a group
+   smaller than its bucket finite, two sampled drains equal and a
+   generator seeded 1 other tokens; tok/s, TTFT and steps beside the
+   engine's warm drain; then a short engine drain
    under ``torch.profiler`` in each mode, after a first drain built
    its steps (device busy share of the window and of its decode
    steps alone, device time by kernel group); then ``[dispatch_serve]``:
@@ -86,7 +106,10 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
    pinned by ``max_recompiles=0`` while the service commits, then
    ``generate(session=)`` at the engine's geometry, then a second
    drain on the committed step) must give the plain path's tokens in
-   both drains;
+   both drains; and (``[exact_lifecycle]``) ``nan@3.1``, a cancel of a
+   running and a queued request, greedy and sampled ``_drain_batched``
+   must give equal states and tokens through graphs, eagerly and
+   through the plain path;
 8. the thesis path (run after phase 3): conv2d, matmul and the
    block-sparse conv at the widths of thesis Table 4.1 (batch 1 and 32),
    the GEMM form of its 1x1 layers, phi3-mini's QKV projection and the
@@ -109,6 +132,7 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
 The line before the last is the kernels' JSON summary, the last line
 ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import gc
 import json
 import re
@@ -1605,7 +1629,7 @@ def engine_phase(torch, model, params, prompts, mode, smi):
               launches=json.dumps(counts))
         out[drain] = {"tokens": {k: v.tokens.tolist()
                                  for k, v in res.items()},
-                      "counts": counts, "stats": st}
+                      "counts": counts, "stats": st, "wall": wall}
     del session, res
     return out
 
@@ -1716,6 +1740,19 @@ def serve_phases(torch, dev, smi, arch, sched_times):
     same_runs(cfg.name, "engine", engine)
     gen = {m: generate_phase(torch, model, params, m, smi) for m in MODES}
     same_runs(cfg.name, "generate", gen)
+    # the lifecycle and the bucketed path, on the engine's requests
+    cold, warm = engine["graphs"]["cold"], engine["graphs"]["warm"]
+    want = engine_launches(cfg, cold["stats"]["inflight_admissions"],
+                           cold["stats"]["steps"])
+    if {k: v for k, v in cold["counts"].items() if v} != want:
+        fail(f"{cfg.name} engine: launches {cold['counts']} are not one a "
+             f"layer per admission and per step ({want})")
+    faults_phase(torch, model, params, prompts, smi, cold["tokens"])
+    st = warm["stats"]
+    batched_phase(torch, model, params, prompts, smi, {
+        "steps": st["steps"], "decode_tok_s": st["decode_tok_s"],
+        "e2e_tok_s": f"{st['tokens_generated'] / warm['wall']:.1f}",
+        "ttft_p50_s": st["ttft_p50_s"], "ttft_p95_s": st["ttft_p95_s"]})
     # before the profiles: no profiler has run in the process yet when
     # the dispatched steps are timed, as when the engine phase ran
     dispatch_serve(torch, model, params, prompts, smi, sched_times)
@@ -1831,6 +1868,7 @@ def run(torch, dev, timer, smi):
     for arch in (PHI3 + "-smoke", MAMBA + "-smoke"):
         exact_tokens(torch, dev, arch)
         exact_tokens_dispatch(torch, dev, arch)
+        exact_lifecycle(torch, dev, arch)
     return summary
 
 
@@ -2380,6 +2418,647 @@ def exact_tokens_dispatch(torch, dev, arch):
           paths=json.dumps(list(out) + ["shared_session"]),
           dispatch="scripted rank 1", engine_requests=len(prompts),
           generate_rows=2, equal=True)
+
+
+# ---------------------------------------------------------------------------
+# The request lifecycle, fault injection and the bucketed path
+# ---------------------------------------------------------------------------
+
+def engine_launches(cfg, admissions, steps):
+    """The port kernels an engine run launches: one flash (or scan)
+    prefill a layer for each admission and one paged decode (or scan) a
+    layer for each step, as the engine phase's counts show."""
+    n = cfg.n_layers
+    if cfg.attention_free:
+        return {"ssm_scan": n * (admissions + steps)}
+    return {"flash_attention": n * admissions,
+            "paged_decode_attention": n * steps}
+
+
+def drive(torch, session, prompts, on_step=None, deadlines=None):
+    """Submit the engine phase's requests (``r0``...), drain once, then
+    once more to flush what finished outside it (a queued request's
+    cancellation).  Counts are set to 0 just before and read just
+    after.  Returns (results by id, launch counts)."""
+    from repro_torch import kernels
+    for i, p in enumerate(prompts):
+        session.submit(p, NEW_TOKENS, request_id=f"r{i}",
+                       deadline_s=(deadlines or {}).get(f"r{i}"))
+    kernels.reset_launch_counts()
+    res = session.drain(on_step=on_step)
+    res += session.drain()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    return {r.request_id: r for r in res}, counts
+
+
+def faults_phase(torch, model, params, prompts, smi, clean):
+    """``[faults]``: each scenario on a fresh session with graphs at the
+    engine phase's batch sizes, over its 8 requests; ``clean`` is the
+    engine phase's cold graphs tokens.  A request a scenario did not
+    touch must keep its clean tokens; a retired one's partial tokens
+    are a prefix of them; the port kernels launched must be the engine
+    phase's per admission and per step.  Then ``[lifecycle_overhead]``:
+    warm drains of a session without the lifecycle knobs and of one with
+    ``request_deadline_s=3600`` and an empty injector, in turns."""
+    from repro_torch.serving import (FaultInjector, InjectedFault,
+                                     ServeSession, SessionStats)
+
+    cfg = model.cfg
+    arch = cfg.name
+    rows = max(ENGINE_BATCH_SIZES)
+    last = NEW_TOKENS - 1           # the boundary the first rows retire at
+
+    def session(**kw):
+        return ServeSession(model, params, backend="cuda",
+                            batch_sizes=ENGINE_BATCH_SIZES, **kw)
+
+    def check(name, s, res, counts, touched, want_states):
+        """The scenario's common gates; one [faults] line."""
+        st = s.stats
+        if set(res) != set(clean):
+            fail(f"{arch} [faults] {name}: results for {sorted(res)}")
+        for rid, r in res.items():
+            want = want_states.get(rid, "COMPLETED")
+            if r.state != want:
+                fail(f"{arch} [faults] {name}: {rid} ended {r.state} "
+                     f"({r.reason}), want {want}")
+            toks = r.tokens.tolist()
+            if rid not in touched and toks != clean[rid]:
+                fail(f"{arch} [faults] {name}: untouched {rid}'s tokens "
+                     f"differ from the engine phase's")
+            if toks != clean[rid][:len(toks)]:
+                fail(f"{arch} [faults] {name}: {rid}'s tokens are no "
+                     f"prefix of its clean tokens")
+        want = engine_launches(cfg, st.inflight_admissions, st.steps)
+        if counts != want:
+            fail(f"{arch} [faults] {name}: launches {counts}, want {want} "
+                 f"for {st.inflight_admissions} admissions and {st.steps} "
+                 f"steps")
+        phase("faults", arch=arch, scenario=name, card=repr(smi),
+              states=json.dumps({k: r.state for k, r in sorted(res.items())
+                                 if r.state != "COMPLETED"}),
+              partial_tokens=json.dumps({k: len(res[k].tokens)
+                                         for k in sorted(touched)}),
+              steps=st.steps, admissions=st.inflight_admissions,
+              failed=st.failed, poisoned_rows=st.poisoned_rows,
+              cancelled=st.cancelled, timed_out=st.timed_out, shed=st.shed,
+              stragglers=st.stragglers, compile_retries=st.compile_retries,
+              events=json.dumps(sorted({e.kind for e in st.events})),
+              launches=json.dumps(counts))
+
+    # nan@5.1: the step's own finite flag reads 0 for row 1
+    free_card(torch)
+    s = session(faults=FaultInjector.from_strings(["nan@5.1"]))
+    flags = {}
+
+    def read_flags(info):
+        if s._step_count - 1 == 5:
+            dec = [s.exec_cache.peek(k) for k in s.exec_cache.compiled_log
+                   if k.role == "decode"][0]
+            flags["row1"] = int(dec.outputs[1][1].item())
+    res, counts = drive(torch, s, prompts, on_step=read_flags)
+    failed = [k for k, r in res.items() if r.state == "FAILED"]
+    if len(failed) != 1 or s.stats.poisoned_rows != 1 or flags != {
+            "row1": 0}:
+        fail(f"{arch} [faults] nan@5.1: failed {failed}, poisoned rows "
+             f"{s.stats.poisoned_rows}, device flag {flags}")
+    check("nan@5.1", s, res, counts, set(failed),
+          {failed[0]: "FAILED"})
+
+    # cancel one running request at step 3 and one queued request
+    free_card(torch)
+    s = session()
+    done = []
+
+    def cancel(info):
+        if info["step"] == 3 and not done:
+            done.extend([s.cancel("r0"), s.cancel(f"r{len(prompts) - 1}")])
+    res, counts = drive(torch, s, prompts, on_step=cancel)
+    queued = f"r{len(prompts) - 1}"
+    if done != [True, True] or len(res["r0"].tokens) == 0 \
+            or len(res[queued].tokens) != 0 or s.stats.cancelled != 2:
+        fail(f"{arch} [faults] cancel: {done}, r0 {len(res['r0'].tokens)} "
+             f"tokens, {queued} {len(res[queued].tokens)}")
+    check("cancel", s, res, counts, {"r0", queued},
+          {"r0": "CANCELLED", queued: "CANCELLED"})
+
+    # a deadline blown mid-decode, on a fake session clock
+    free_card(torch)
+    s = session()
+    fake = [0.0]
+    s._clock = lambda: fake[0]
+
+    def late(info):
+        if info["step"] == 3:
+            fake[0] = 1.0
+    res, counts = drive(torch, s, prompts, on_step=late,
+                        deadlines={"r2": 0.5})
+    if not 0 < len(res["r2"].tokens) < NEW_TOKENS or s.stats.timed_out != 1:
+        fail(f"{arch} [faults] deadline: r2 {res['r2'].state} with "
+             f"{len(res['r2'].tokens)} tokens")
+    check("deadline", s, res, counts, {"r2"}, {"r2": "TIMED_OUT"})
+
+    # max_queue_s: the requests still queued when the clock passes it
+    free_card(torch)
+    s = session(max_queue_s=1.0)
+    fake = [0.0]
+    s._clock = lambda: fake[0]
+    res, counts = drive(torch, s, prompts, on_step=lambda info: (
+        fake.__setitem__(0, 2.0) if info["step"] == 3 else None))
+    shed = {f"r{i}" for i in range(rows, len(prompts))}
+    if s.stats.shed != len(shed) or s.stats.timed_out != len(shed):
+        fail(f"{arch} [faults] shed: shed {s.stats.shed}, timed out "
+             f"{s.stats.timed_out}, want {len(shed)}")
+    check("max_queue_s", s, res, counts, shed,
+          {k: "TIMED_OUT" for k in shed})
+
+    if not cfg.attention_free:
+        # the allocator reports exhaustion at the boundaries where the
+        # first rows retire (the first free row is at step 31): the next
+        # four wait three boundaries, counted though no step runs
+        free_card(torch)
+        spec = f"alloc@{last}x3"
+        s = session(faults=FaultInjector.from_strings([spec]))
+        res, counts = drive(torch, s, prompts)
+        n = sum(e.kind == "alloc_exhausted" for e in s.stats.events)
+        if n != 3 or s._step_count != s.stats.steps + 3:
+            fail(f"{arch} [faults] {spec}: {n} alloc_exhausted events, "
+                 f"{s._step_count} boundaries for {s.stats.steps} steps")
+        check(spec, s, res, counts, set(), {})
+
+        # a double free of the rows that retire at that boundary
+        free_card(torch)
+        spec = f"doublefree@{last}"
+        s = session(faults=FaultInjector.from_strings([spec]))
+        res, counts = drive(torch, s, prompts)
+        n = sum(e.kind == "allocator" for e in s.stats.events)
+        if n != rows:
+            fail(f"{arch} [faults] {spec}: {n} allocator events, want one "
+                 f"for each of the {rows} rows retiring at step {last}")
+        check(spec, s, res, counts, set(), {})
+
+    # slow@8 (a simulated 10 s step): one straggler, admission held for
+    # the next two boundaries
+    free_card(torch)
+    hooks, holds = [], []
+    s = session(faults=FaultInjector.from_strings(["slow@8"]),
+                straggler_threshold=20.0,
+                on_straggler=lambda ev: hooks.append(ev) or 2)
+
+    def hold(info):
+        if 8 <= s._step_count - 1 <= 10:
+            holds.append(s._admission_hold)
+    res, counts = drive(torch, s, prompts, on_step=hold)
+    if s.stats.stragglers != 1 or len(hooks) != 1 or holds != [2, 1, 0]:
+        fail(f"{arch} [faults] slow@8: {s.stats.stragglers} stragglers, "
+             f"admission hold after steps 8-10 {holds}, want [2, 1, 0]")
+    check("slow@8", s, res, counts, set(), {})
+
+    # compile@0: the first build fails once and is retried
+    free_card(torch)
+    s = session(faults=FaultInjector.from_strings(["compile@0"]),
+                compile_retries=2)
+    res, counts = drive(torch, s, prompts)
+    if s.stats.compile_retries != 1:
+        fail(f"{arch} [faults] compile@0: {s.stats.compile_retries} "
+             f"retries")
+    check("compile@0", s, res, counts, set(), {})
+
+    # compile@0x3 with 2 retries: the build failure raises out of drain
+    free_card(torch)
+    s = session(faults=FaultInjector.from_strings(["compile@0x3"]),
+                compile_retries=2)
+    try:
+        drive(torch, s, prompts)
+    except InjectedFault as e:
+        raised = str(e)
+    else:
+        fail(f"{arch} [faults] compile@0x3: drain did not raise")
+    if s.stats.compile_retries != 2 or s.exec_cache.compiles != 0:
+        fail(f"{arch} [faults] compile@0x3: {s.stats.compile_retries} "
+             f"retries, {s.exec_cache.compiles} steps built")
+    phase("faults", arch=arch, scenario="compile@0x3", card=repr(smi),
+          raised=repr(raised), compile_retries=s.stats.compile_retries,
+          events=json.dumps([e.kind for e in s.stats.events]))
+    del s, res
+
+    # the host cost of the lifecycle checks: warm drains in turns
+    free_card(torch)
+    base = session()
+    life = session(request_deadline_s=3600.0, faults=FaultInjector([]))
+    ms = {"base": [], "lifecycle": []}
+    turns = [("base", base), ("lifecycle", life)] + [
+        (n, base if n == "base" else life)
+        for n in "lifecycle base base lifecycle lifecycle base base "
+                 "lifecycle".split()]
+    for name, sess in turns:
+        cold = sess.stats.steps == 0
+        sess.stats = SessionStats()
+        res, _ = drive(torch, sess, prompts)
+        if any(r.state != "COMPLETED" or r.tokens.tolist() != clean[k]
+               for k, r in res.items()):
+            fail(f"{arch} [lifecycle_overhead] {name}: other tokens")
+        if not cold:
+            ms[name].append(1e3 * sess.stats.decode_s / sess.stats.steps)
+    phase("lifecycle_overhead", arch=arch, card=repr(smi),
+          order=" ".join(n for n, _ in turns) + " (the first of each "
+                "cold, not timed)",
+          base_step_ms=json.dumps([round(x, 4) for x in ms["base"]]),
+          lifecycle_step_ms=json.dumps([round(x, 4)
+                                        for x in ms["lifecycle"]]),
+          ratio=f"{sum(ms['lifecycle']) / sum(ms['base']):.4f}")
+    del base, life
+
+
+def batched_phase(torch, model, params, prompts, smi, engine):
+    """``[batched]``: the engine phase's 8 requests through
+    ``_drain_batched`` with graphs at its batch sizes, cold then warm
+    (the warm drain may build nothing), each request's tokens equal to
+    ``generate`` on its group (the same bucket and starts, on a session
+    of its own); the pad rows of a group smaller than its bucket stay
+    finite; tok/s, TTFT and steps beside the in-flight engine's warm
+    drain (``engine``: its stats).  Then sampled at T=0.8: two drains
+    give equal tokens inside the vocabulary, and a group's generator
+    seeded 1 other tokens than the default seed 0.  Counts are set to 0
+    just before each drain and read just after.  Then the sampler is held
+    to the softmax (:func:`sampler_vs_softmax`) and every kernel call of
+    a greedy drain to its plain version (:func:`batched_vs_plain`)."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.runtime import generate
+    from repro_torch.serving import Request, ServeSession, SessionStats
+
+    cfg = model.cfg
+    arch, dev = cfg.name, params["embed"].device
+    path = (("ssm_scan",) if cfg.attention_free
+            else ("flash_attention", "decode_attention"))
+    free_card(torch)
+    out = {}
+    for temperature in (0.0, 0.8):
+        s = ServeSession(model, params, backend="cuda",
+                         batch_sizes=ENGINE_BATCH_SIZES,
+                         temperature=temperature)
+        mode = "sampled" if temperature else "greedy"
+        for drain in ("cold", "warm"):
+            s.stats = SessionStats()
+            built = s.exec_cache.compiles
+            for i, p in enumerate(prompts):
+                s.submit(p, NEW_TOKENS, request_id=f"r{i}")
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = s._drain_batched()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            toks = {r.request_id: r.tokens.tolist() for r in res}
+            bad = [r.request_id for r in res if r.state != "COMPLETED"
+                   or len(r.tokens) != NEW_TOKENS or r.tokens.min() < 0
+                   or r.tokens.max() >= cfg.vocab_size]
+            if len(res) != len(prompts) or bad:
+                fail(f"{arch} [batched] {mode} {drain}: bad results {bad}")
+            if drain == "warm" and s.exec_cache.compiles != built:
+                fail(f"{arch} [batched] {mode}: the warm drain built "
+                     f"{s.exec_cache.compiles - built} steps")
+            if any(counts.get(k, 0) < 1 for k in path):
+                fail(f"{arch} [batched] {mode}: the path launched {counts}")
+            st = s.stats.to_dict()
+            groups = {}
+            for r in res:
+                groups.setdefault(r.bucket, []).append(r.request_id)
+            steps = len(groups) * (NEW_TOKENS - 1)
+            phase("batched", arch=arch, mode=mode, drain=drain,
+                  card=repr(smi),
+                  groups=json.dumps({f"b{b.batch}xp{b.prompt_len}"
+                                     f"xt{b.total_len}": ids
+                                     for b, ids in groups.items()}),
+                  steps=steps, engine_steps=engine["steps"],
+                  decode_tok_s=f"{st['decode_tok_s']:.1f}",
+                  engine_decode_tok_s=f"{engine['decode_tok_s']:.1f}",
+                  e2e_tok_s=f"{st['tokens_generated'] / wall:.1f}",
+                  engine_e2e_tok_s=engine["e2e_tok_s"],
+                  ttft_p50_s=f"{st['ttft_p50_s']:.4f}",
+                  ttft_p95_s=f"{st['ttft_p95_s']:.4f}",
+                  engine_ttft_p50_s=f"{engine['ttft_p50_s']:.4f}",
+                  engine_ttft_p95_s=f"{engine['ttft_p95_s']:.4f}",
+                  step_ms=f"{1e3 * st['decode_s'] / steps:.3f}",
+                  wall_s=f"{wall:.2f}",
+                  cache_hits_misses_compiles=f"{s.exec_cache.hits}/"
+                  f"{s.exec_cache.misses}/{s.exec_cache.compiles}",
+                  launches=json.dumps(counts))
+            if drain == "warm" and toks != out.get((mode, "cold"), toks):
+                fail(f"{arch} [batched] {mode}: the warm drain's tokens "
+                     f"differ from the cold drain's")
+            out[mode, drain] = toks
+            out[mode, "step_ms"] = 1e3 * st["decode_s"] / steps
+        by_id = {f"r{i}": p for i, p in enumerate(prompts)}
+        for bucket, ids in groups.items():
+            toks_b, starts = s._form_batch(
+                [Request(by_id[rid], NEW_TOKENS, rid, 0.0) for rid in ids], bucket)
+            if bucket.total_len != bucket.prompt_len + NEW_TOKENS:
+                fail(f"{arch} [batched]: bucket {bucket} is wider than "
+                     f"generate's total")
+            if temperature == 0.0:
+                ref, _ = generate(model, params, toks_b,
+                                  max_new_tokens=NEW_TOKENS,
+                                  seq_starts=starts)
+                for i, rid in enumerate(ids):
+                    if ref[i].tolist() != out[mode, "warm"][rid]:
+                        fail(f"{arch} [batched]: {rid} differs from "
+                             f"generate on its group {bucket}")
+            if len(ids) < bucket.batch:
+                for k in s.exec_cache.compiled_log:
+                    if k.batch != bucket.batch or k.length not in (
+                            bucket.prompt_len, bucket.total_len):
+                        continue
+                    o = s.exec_cache.peek(k).outputs
+                    o = o[0] if k.role == "prefill" else o
+                    if o[1].tolist() != [1] * bucket.batch:
+                        fail(f"{arch} [batched] {mode}: {k} finite flags "
+                             f"{o[1].tolist()} with pad rows")
+                phase("batched_pad_rows", arch=arch, mode=mode,
+                      bucket=f"b{bucket.batch}xp{bucket.prompt_len}"
+                             f"xt{bucket.total_len}",
+                      real_rows=len(ids), finite=True)
+        if temperature:
+            bucket, ids = next(iter(groups.items()))
+            toks_b, starts = s._form_batch(
+                [Request(by_id[rid], NEW_TOKENS, rid, 0.0) for rid in ids], bucket)
+            seeded = {}
+            for seed in (0, 1):
+                g = torch.Generator(device=dev).manual_seed(seed)
+                seeded[seed], _ = generate(
+                    model, params, toks_b, max_new_tokens=NEW_TOKENS,
+                    seq_starts=starts, generator=g, session=s)
+            same0 = all(seeded[0][i].tolist() == out[mode, "warm"][rid]
+                        for i, rid in enumerate(ids))
+            if not same0 or np.array_equal(seeded[0], seeded[1]):
+                fail(f"{arch} [batched] sampled: seed 0 equal to the drain "
+                     f"{same0}, seed 1 equal to seed 0 "
+                     f"{np.array_equal(seeded[0], seeded[1])}")
+        del s
+        free_card(torch)
+    agree = np.mean([a == b for k in out[("greedy", "warm")]
+                     for a, b in zip(out["greedy", "warm"][k],
+                                     out["sampled", "warm"][k])])
+    phase("batched_sampled", arch=arch, card=repr(smi), temperature=0.8,
+          two_runs_equal=True, seed1_differs=True,
+          greedy_step_ms=f"{out['greedy', 'step_ms']:.3f}",
+          sampled_step_ms=f"{out['sampled', 'step_ms']:.3f}",
+          token_agreement_with_greedy=f"{agree:.4f}")
+    sampler_vs_softmax(torch, model, params, prompts, smi)
+    batched_vs_plain(torch, model, params, prompts, smi,
+                     out["greedy", "warm"])
+
+
+
+# [batched_vs_plain]: the 512 bucket's two requests (prompts 300 and 260)
+# take 20 and 12 new tokens, so their group decodes 20 steps in a cache of
+# 512 + 32 slots (the budget bucket of 20), wider than it fills
+CHECK_BUDGETS = [NEW_TOKENS, NEW_TOKENS, 20, NEW_TOKENS, NEW_TOKENS, 12,
+                 NEW_TOKENS, NEW_TOKENS]
+
+
+@contextlib.contextmanager
+def held_to_plain(torch):
+    """While open, every call the model makes to the flash, contiguous
+    decode and scan kernels runs the kernel, then its plain version on
+    the same inputs, and is held to it at phase 3's tolerance; yields
+    ``{(kernel, shape): [calls, max abs err, worst share of tol]}``
+    (scan: y and the final state)."""
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.ssm_scan import ssm_scan_ref
+    from repro_torch.models import attention, ssm
+
+    seen = {}
+
+    def hold(key, pairs):
+        """Fold one call's (got, want) pairs into ``seen[key]``."""
+        row = seen.setdefault(key, [0, 0.0, 0.0])
+        row[0] += 1
+        for got, want in pairs:
+            e, share = tolerance_share(torch, got, want)
+            row[1], row[2] = max(row[1], e), max(row[2], share)
+
+    def dims(t):
+        return ",".join(map(str, t.shape))
+
+    flash0, decode0, scan0 = (attention.flash_attention_scheduled,
+                              attention.decode_kernel,
+                              ssm.ssm_scan_scheduled)
+
+    def flash(q, k, v, *, schedule=None, causal=True, window=None,
+              starts=None):
+        out = flash0(q, k, v, schedule=schedule, causal=causal,
+                     window=window, starts=starts)
+        st = None if starts is None else starts.tolist()
+        hold(("flash_attention", f"q[{dims(q)}] kv[{dims(k)}] "
+              f"starts={st}"),
+             [(out, flash_attention_ref(q, k, v, causal=causal,
+                                        window=window, starts=starts))])
+        return out
+
+    def decode(q, k, v, pos, *, starts=None, schedule=None):
+        out = decode0(q, k, v, pos, starts=starts, schedule=schedule)
+        st = None if starts is None else torch.as_tensor(starts).tolist()
+        hold(("decode_attention", f"q[{dims(q)}] kv[{dims(k)}] "
+              f"starts={st}"),
+             [(out, decode_attention_ref(q, k, v, pos, starts=starts))])
+        return out
+
+    def scan(x, dt, b, c, a, d, h0=None, *, schedule=None):
+        y, h = scan0(x, dt, b, c, a, d, h0, schedule=schedule)
+        hold(("ssm_scan", f"x[{dims(x)}] h0={h0 is not None}"),
+             zip((y, h), ssm_scan_ref(x, dt, b, c, a, d, h0)))
+        return y, h
+
+    attention.flash_attention_scheduled = flash
+    attention.decode_kernel = decode
+    ssm.ssm_scan_scheduled = scan
+    try:
+        yield seen
+    finally:
+        attention.flash_attention_scheduled = flash0
+        attention.decode_kernel = decode0
+        ssm.ssm_scan_scheduled = scan0
+
+
+def batched_vs_plain(torch, model, params, prompts, smi, greedy):
+    """``[batched_vs_plain]``: the engine phase's requests through greedy
+    ``_drain_batched`` at (1, 2, 4) with ``CHECK_BUDGETS`` (one group
+    decodes in a widened cache), steps run eagerly so that every kernel
+    call of the drain, pad rows included, is held to its plain version
+    (:func:`held_to_plain`); each request's tokens must be the first of
+    its tokens in the graphs' greedy drain (``greedy``)."""
+    from repro_torch import kernels
+    from repro_torch.serving import ServeSession
+
+    cfg = model.cfg
+    arch = cfg.name
+    path = (("ssm_scan",) if cfg.attention_free
+            else ("flash_attention", "decode_attention"))
+    free_card(torch)
+    s = ServeSession(model, params, backend="cuda", capture=False,
+                     batch_sizes=ENGINE_BATCH_SIZES)
+    for i, p in enumerate(prompts):
+        s.submit(p, CHECK_BUDGETS[i], request_id=f"r{i}")
+    kernels.reset_launch_counts()
+    with held_to_plain(torch) as seen:
+        res = s._drain_batched()
+        torch.cuda.synchronize()
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    widened = [f"b{r.bucket.batch}xp{r.bucket.prompt_len}"
+               f"xt{r.bucket.total_len}" for r in res
+               if r.bucket.total_len > r.bucket.prompt_len
+               + max(CHECK_BUDGETS[int(q.request_id[1:])] for q in res
+                     if q.bucket == r.bucket)]
+    padded = sorted({f"b{r.bucket.batch}xp{r.bucket.prompt_len}"
+                     for r in res if sum(q.bucket == r.bucket
+                                         for q in res) < r.bucket.batch})
+    for (kernel, shape), (calls, e, share) in sorted(seen.items()):
+        phase("batched_vs_plain", arch=arch, card=repr(smi), kernel=kernel,
+              shape=repr(shape), calls=calls, max_abs_err=f"{e:.3g}",
+              tol=repr(TOL),
+              worst_share_of_tol=f"{share:.3g}", ok=share <= 1.0)
+    bad = {k: v for k, v in seen.items() if v[2] > 1.0}
+    if bad:
+        fail(f"{arch} [batched_vs_plain]: kernels disagree with their "
+             f"plain versions: {bad}")
+    checked = {}
+    for (kernel, _), (calls, _, _) in seen.items():
+        checked[kernel] = checked.get(kernel, 0) + calls
+    if any(checked.get(k, 0) < counts.get(k, 0) or counts.get(k, 0) < 1
+           for k in path):
+        fail(f"{arch} [batched_vs_plain]: checked calls {checked}, "
+             f"launches {counts}")
+    if not widened or not padded:
+        fail(f"{arch} [batched_vs_plain]: no widened group ({widened}) or "
+             f"no group smaller than its bucket ({padded})")
+    for r in res:
+        want = greedy[r.request_id][:CHECK_BUDGETS[int(r.request_id[1:])]]
+        if r.state != "COMPLETED" or r.tokens.tolist() != want:
+            fail(f"{arch} [batched_vs_plain]: {r.request_id} {r.state} "
+                 f"{r.tokens.tolist()} differs from the graphs' greedy "
+                 f"drain {want}")
+    phase("batched_vs_plain_summary", arch=arch, checked=json.dumps(checked),
+          launches=json.dumps(counts), widened=json.dumps(sorted(set(
+              widened))), padded=json.dumps(padded), tokens_equal=True)
+    del s
+    free_card(torch)
+
+
+def sampler_vs_softmax(torch, model, params, prompts, smi):
+    """``[sampler]``: 20,000 draws of the sampled steps' pick
+    (``captured.step_pick`` with noise from a generator seeded 0, as a
+    step is fed) on one row of logits from a full-width prefill of
+    ``prompts[0]``, standardised and scaled by 3 so that a few tokens
+    hold most of the mass at T=0.8.  Each token of probability >= 0.005
+    and the rest together must lie within 4 sigma of ``softmax(logits /
+    T)`` in float32; the same gate must refuse draws that ignore the
+    logits."""
+    from repro_torch.serving.captured import step_inputs, step_pick
+
+    dev, vocab, temp, n, chunk = params["embed"].device, \
+        model.cfg.vocab_size, 0.8, 20000, 2500
+    tokens = torch.as_tensor(prompts[0], device=dev)[None]
+    with torch.no_grad():
+        logits, _ = model.prefill(params, {"tokens": tokens},
+                                  backend="cuda")
+    z = logits[0, -1].float()
+    z = (z - z.mean()) / z.std() * 3.0
+    p = torch.softmax(z.double() / temp, dim=-1)
+    cats = torch.nonzero(p >= 0.005).flatten()
+    pc = torch.cat([p[cats], (1.0 - p[cats].sum())[None]])
+    sigma = torch.sqrt(pc * (1 - pc) / n)
+
+    def freqs(last):
+        """Category frequencies of ``n`` picks of ``last`` [V]."""
+        gen = torch.Generator(device=dev).manual_seed(0)
+        inputs = step_inputs(chunk, vocab, dev, sampled=True)
+        inputs["temperature"].fill_(temp)
+        hits = torch.zeros(vocab, dtype=torch.float64, device=dev)
+        for _ in range(n // chunk):
+            torch.rand(inputs["noise"].shape, generator=gen,
+                       out=inputs["noise"])
+            picked = step_pick(last.expand(chunk, -1), inputs)
+            if picked[1].min().item() != 1:
+                fail(f"{model.cfg.name} [sampler]: finite logits flagged")
+            hits += torch.bincount(picked[0], minlength=vocab).double()
+        f = hits / n
+        return torch.cat([f[cats], (1.0 - f[cats].sum())[None]])
+
+    got = freqs(z)
+    worst = ((got - pc).abs() / sigma).max().item()
+    flat = ((freqs(torch.zeros_like(z)) - pc).abs() / sigma).max().item()
+    phase("sampler", arch=model.cfg.name, card=repr(smi), temperature=temp,
+          draws=n, categories=len(pc), top_p=f"{pc[:-1].max().item():.4f}",
+          rest_p=f"{pc[-1].item():.4f}",
+          worst_sigmas=f"{worst:.3f}", logits_ignored_sigmas=f"{flat:.1f}",
+          ok=worst <= 4.0 < flat)
+    if worst > 4.0 or flat <= 4.0:
+        fail(f"{model.cfg.name} [sampler]: frequencies {worst:.3f} sigma "
+             f"from softmax(logits / T) (limit 4); draws that ignore the "
+             f"logits {flat:.1f} sigma (must exceed 4)")
+
+
+def exact_lifecycle(torch, dev, arch):
+    """Smoke config in float32, through captured graphs, the kernels run
+    eagerly and the plain path: the results of ``nan@3.1`` (row 1 fails,
+    the others survive), of a cancel of a running and a queued request
+    at step 2, of greedy ``_drain_batched`` and of sampled
+    ``_drain_batched`` (T=0.8: the same noise on every path) must be
+    equal on all three (states and tokens, request for request)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import FaultInjector, ServeSession
+
+    scfg = get_config(arch)
+    smodel = build_model(scfg)
+    sparams = smodel.init(seed=0, device=dev)
+    sprompts = prompts_of([5, 7, 3, 6, 12, 9], scfg.vocab_size, seed=3)
+    budgets = [8, 3, 8, 1, 5, 4]
+    paths = {"graphs": ("cuda", True), "eager": ("cuda", False),
+             "plain": ("plain", False)}
+    got = {}
+    for name, (backend, capture) in paths.items():
+        def session(**kw):
+            return ServeSession(smodel, sparams, backend=backend,
+                                capture=capture, kv_block_size=4,
+                                batch_sizes=ENGINE_BATCH_SIZES, **kw)
+
+        def serve(s, on_step=None, batched=False):
+            for i, p in enumerate(sprompts):
+                s.submit(p, budgets[i] if batched else 8,
+                         request_id=f"r{i}")
+            res = (s._drain_batched() if batched
+                   else s.drain(on_step=on_step) + s.drain())
+            return [(r.request_id, r.state, r.tokens.tolist()) for r in res]
+
+        runs = {"nan": serve(session(
+            faults=FaultInjector.from_strings(["nan@3.1"])))}
+        s = session()
+        runs["cancel"] = serve(s, on_step=lambda info: (
+            s.cancel("r0"), s.cancel("r5")) if info["step"] == 2 else None)
+        runs["batched"] = serve(session(), batched=True)
+        # sampled (T=0.8, each group's noise seeded 0 on the card)
+        runs["sampled"] = serve(session(temperature=0.8), batched=True)
+        torch.cuda.synchronize()
+        got[name] = runs
+    for name in paths:
+        if got[name] != got["plain"]:
+            fail(f"{arch} lifecycle: {name} results differ from the plain "
+                 f"path's: {got[name]} vs {got['plain']}")
+    states = {k: sorted(st for _, st, _ in v)
+              for k, v in got["plain"].items()}
+    if states["nan"].count("FAILED") != 1 \
+            or states["cancel"].count("CANCELLED") != 2:
+        fail(f"{arch} lifecycle: states {states}")
+    phase("exact_lifecycle", arch=scfg.name, dtype="float32",
+          paths=json.dumps(list(paths)),
+          scenarios=json.dumps(list(got["plain"])), equal=True,
+          states=json.dumps({k: {s: v.count(s) for s in set(v)}
+                             for k, v in states.items()}))
 
 
 def _leaves(tree):

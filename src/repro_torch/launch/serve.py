@@ -21,6 +21,20 @@ Both families run in both modes: ``phi3-mini-3.8b[-smoke]`` (dense, the
 attention kernels) and ``falcon-mamba-7b[-smoke]`` (ssm, the
 selective-scan kernel; the paged-KV flags do not apply to it).
 
+``--session`` takes the JAX CLI's request and fault flags:
+``--requests-file`` (JSON lines, ``{"prompt_len": N, "new_tokens": M}``
+or ``{"tokens": [...], "new_tokens": M}``), ``--temperature`` (above 0
+the session serves through the bucketed path, sampled),
+``--cache-capacity``, ``--max-recompiles``, ``--request-deadline-s``,
+``--max-queue-s`` and ``--inject-fault kind@step[xTIMES][.ROW]``
+(repeatable; kinds compile, nan, alloc, slow, doublefree).  Each request
+prints its terminal state and reason when it did not complete, and a
+``faults:`` line sums the session's events.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch phi3-mini-3.8b-smoke --session --inject-fault nan@1.0 \\
+        --request-deadline-s 30 [--device cpu]
+
 ``--dispatch`` runs the port's dispatch service (on ``--registry PATH``,
 else the port's default registry): it observes every prefill and decode
 step and, with ``--backend cuda``, its committed schedules key and
@@ -34,10 +48,24 @@ unless ``--device cpu`` is given; without a card it fails.  Output lines
 follow the JAX CLI's format for the flags the port keeps.
 """
 import argparse
+import json
 
 
-def _requests(n, prompt_len, new_tokens, vocab, rng):
-    """The JAX CLI's synthetic mixed-shape stream around the shape args."""
+def _requests(path, n, prompt_len, new_tokens, vocab, rng):
+    """The requests of ``path`` (JSON lines), else the JAX CLI's
+    synthetic mixed-shape stream around the shape args."""
+    if path:
+        reqs = []
+        with open(path, "r", encoding="utf-8") as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                d = json.loads(line)
+                toks = (d["tokens"] if "tokens" in d else
+                        rng.integers(0, vocab, int(d["prompt_len"])).tolist())
+                reqs.append((toks, int(d.get("new_tokens", new_tokens))))
+        return reqs
     lens = [max(2, prompt_len // 2), prompt_len,
             max(3, (3 * prompt_len) // 4), prompt_len * 2]
     return [(rng.integers(0, vocab, lens[i % len(lens)]).tolist(),
@@ -52,7 +80,12 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the random weights and prompts")
+                    help="seed of the random weights, prompts and "
+                         "sampling noise")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="above 0: sample each token from softmax(logits "
+                         "/ T) (with --session, through the bucketed "
+                         "path)")
     ap.add_argument("--device", default=None,
                     help="'cpu' runs the plain PyTorch path on the CPU; "
                          "default: the CUDA card")
@@ -63,22 +96,45 @@ def main(argv=None) -> None:
     ap.add_argument("--session", action="store_true",
                     help="serve through the in-flight engine "
                          "(ServeSession)")
+    ap.add_argument("--requests-file", default=None,
+                    help="JSON-lines request stream for --session (one "
+                         "{'prompt_len'|'tokens', 'new_tokens'} per "
+                         "line); default: a synthetic mixed stream")
     ap.add_argument("--num-requests", type=int, default=12,
                     help="size of the synthetic --session stream")
     ap.add_argument("--batch-sizes", default="1,2,4,8",
                     help="allowed engine row counts (--session)")
+    ap.add_argument("--cache-capacity", type=int, default=16,
+                    help="LRU bound on cached (captured) steps "
+                         "(--session)")
     ap.add_argument("--kv-block-size", type=int, default=16,
                     help="token slots per paged-KV pool block (--session, "
                          "attention families)")
     ap.add_argument("--kv-blocks", type=int, default=None,
                     help="paged-KV pool size in blocks (--session, "
                          "attention families)")
+    ap.add_argument("--request-deadline-s", type=float, default=None,
+                    help="per-request budget from submit; a blown one "
+                         "finishes TIMED_OUT with partial tokens "
+                         "(--session)")
+    ap.add_argument("--max-queue-s", type=float, default=None,
+                    help="load shedding: requests queued longer are shed "
+                         "(TIMED_OUT) before admission (--session)")
+    ap.add_argument("--inject-fault", action="append", default=None,
+                    metavar="KIND@STEP",
+                    help="deterministic fault injection, for tests "
+                         "(kind@step[xTIMES][.ROW]; kinds: compile, nan, "
+                         "alloc, slow, doublefree); repeatable (--session)")
+    ap.add_argument("--max-recompiles", type=int, default=1,
+                    help="decode recaptures a run may spend on dispatch "
+                         "commits")
     ap.add_argument("--dispatch", action="store_true",
                     help="observe every step through the port's dispatch "
                          "service; with --backend cuda its committed "
                          "schedules run in the captured steps")
     ap.add_argument("--registry", default=None, metavar="PATH",
-                    help="tuning registry of --dispatch (default: the "
+                    help="tuning registry: the serve_decode write-back, "
+                         "and --dispatch's (default for --dispatch: the "
                          "port's default registry)")
     args = ap.parse_args(argv)
 
@@ -96,12 +152,13 @@ def main(argv=None) -> None:
     rng = np.random.default_rng(args.seed)
     print(f"device: {device_identity(dev)}; arch {cfg.name}; "
           f"backend={args.backend}")
+    from repro_torch.core.registry import TuningRegistry
+    registry = TuningRegistry(args.registry) if args.registry else None
     dispatch = None
     if args.dispatch:
-        from repro_torch.core.registry import TuningRegistry
         from repro_torch.runtime.dispatch import DispatchService
         dispatch = DispatchService(
-            TuningRegistry(args.registry) if args.registry
+            registry if registry is not None
             else TuningRegistry.default(), device=dev)
 
     def report(schedules) -> None:
@@ -117,14 +174,22 @@ def main(argv=None) -> None:
                       f"{committed if committed else '(probing)'}")
 
     if args.session:
-        from repro_torch.serving import ServeSession
+        from repro_torch.obs.events import format_event_summary
+        from repro_torch.serving import FaultInjector, ServeSession
         session = ServeSession(
-            model, params, backend=args.backend,
+            model, params, backend=args.backend, registry=registry,
             batch_sizes=tuple(int(b) for b in args.batch_sizes.split(",")
                               if b.strip()),
+            temperature=args.temperature,
+            cache_capacity=args.cache_capacity,
             kv_block_size=args.kv_block_size, kv_blocks=args.kv_blocks,
-            dispatch=dispatch)
-        for toks, budget in _requests(args.num_requests, args.prompt_len,
+            dispatch=dispatch, max_recompiles=args.max_recompiles,
+            request_deadline_s=args.request_deadline_s,
+            max_queue_s=args.max_queue_s,
+            faults=(FaultInjector.from_strings(args.inject_fault)
+                    if args.inject_fault else None))
+        for toks, budget in _requests(args.requests_file,
+                                      args.num_requests, args.prompt_len,
                                       args.new_tokens, cfg.vocab_size,
                                       rng):
             session.submit(toks, max_new_tokens=budget)
@@ -158,6 +223,8 @@ def main(argv=None) -> None:
         for name, b in summary["buckets"].items():
             print(f"  bucket {name}: {b['tok_s']:.0f} tok/s over "
                   f"{int(b['batches'])} batches")
+        if session.stats.events:
+            print(format_event_summary(session.stats.events))
         # the last activation's steps (results come in completion order)
         last = next((r.stats for r in reversed(results)
                      if r.stats is not None), None)
@@ -166,9 +233,12 @@ def main(argv=None) -> None:
 
     tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32))
-    out, stats = generate(model, params, {"tokens": tokens},
-                          max_new_tokens=args.new_tokens,
-                          backend=args.backend, dispatch=dispatch)
+    out, stats = generate(
+        model, params, {"tokens": tokens}, max_new_tokens=args.new_tokens,
+        temperature=args.temperature,
+        generator=torch.Generator(device=dev).manual_seed(args.seed),
+        backend=args.backend, dispatch=dispatch, registry=registry,
+        max_recompiles=args.max_recompiles)
     print(f"generated {out.shape}; prefill {stats.prefill_s*1e3:.1f}ms; "
           f"decode {stats.decode_tok_s:.0f} tok/s; "
           f"backend={stats.backend} recompiles={stats.recompiles}")

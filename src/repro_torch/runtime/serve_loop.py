@@ -1,44 +1,30 @@
-"""Batched prefill plus greedy decode over a contiguous KV cache (port
-of ``repro.runtime.serve_loop.generate`` and the bucketed
-``ServeSession.run_batch`` body it runs).
+"""The serving loop of the port (port of ``repro.runtime.serve_loop``):
+``generate``, the kernel-shape problems a serving run feeds the
+dispatch service, and the commit policy the engine and the bucketed
+path share.
 
-A left-padded batch is prefilled with ``seq_starts`` masking (zeros when
-not given, as the JAX session always threads them), the caches are
-copied into a buffer of the full capacity, and each decode step runs one
-token per row through the contiguous decode kernel (``backend="cuda"``)
-with the same ``starts``.  An ssm model keeps the prefill's recurrent
-states as its cache (they have no length to grow) and decodes without
-``starts``: a masked prefill leaves no pad entry in a recurrent state.
+:func:`generate` is a thin client of
+:meth:`~repro_torch.serving.session.ServeSession.run_batch`, as the JAX
+``generate`` is: a left-padded batch is prefilled with ``seq_starts``
+masking (zeros when not given), the caches are copied into a buffer of
+the full capacity, and each decode step runs one token per row through
+the contiguous decode kernel (``backend="cuda"``) with the same
+``starts``; an ssm model keeps the prefill's recurrent states as its
+cache and decodes without ``starts``.  Both steps come from the
+session's :class:`~repro_torch.serving.cache.ExecutableCache` (the
+caller's ``session=``, else one of the call's own), keyed as the JAX
+session keys them, and are captured CUDA graphs on a card.
 
-Both steps come from an :class:`~repro_torch.serving.cache.ExecutableCache`
-keyed as the JAX session keys them (prefill ``(B, prompt_len)``, decode
-``(B, prompt_len + max_new_tokens)``): the session's cache with
-``session=``, else one of the call's own.  On a card each is a captured
-CUDA graph (:class:`~repro_torch.serving.captured.CapturedStep`).  The
-decode step owns its cache (and, for attention, a device ``pos``) and
-feeds its argmax back as the next token, so the decode loop is
-``max_new_tokens - 1`` replays, each followed by one device copy of its
-tokens into the output, and one copy to the host at the end.  An ssm
-model's decode step is the engine's (a recurrent key with an equal
-bundle carries no other detail, so the engine's and ``generate``'s keys
-can be equal).
-
-With a :class:`~repro_torch.runtime.dispatch.DispatchService` the loop
-feeds the port's adaptive runtime, as the JAX package's does: the
-prefill and every decode step are timed (synchronised) and observed
-under the model's kernel shapes (:func:`serve_dispatch_problems`).  With
-``backend="cuda"`` both steps are keyed by and launch with a
-:class:`~repro_torch.core.schedule.ScheduleBundle` resolved per role
-(committed winner > registry measurement > offline rank-0); when the
-service commits a winner other than the running bundle's, the decode
-step switches to the new key's step if it is cached, else is rebuilt
-(recaptured) once over the live cache, within ``max_recompiles``
-(:func:`switch_on_commit`, the engine's policy too).  Every decode step
-of a geometry is built over its one state, the engine's pool included
-when an ssm key is shared.
+With a :class:`~repro_torch.runtime.dispatch.DispatchService` the
+prefill and every decode step are observed under the model's kernel
+shapes (:func:`serve_dispatch_problems`); with ``backend="cuda"`` both
+steps are keyed by and launch with a
+:class:`~repro_torch.core.schedule.ScheduleBundle` resolved per role,
+and a commit of another decode winner goes through
+:func:`switch_on_commit`: the new key's step if it is cached, else one
+rebuild (recapture) over the live state within ``max_recompiles``.
 Every observation times the deployed step, not the candidate it is
-attributed to: a commit is a traffic-level signal.  With ``"plain"``
-the service still observes, and no bundle is built.
+attributed to: a commit is a traffic-level signal.
 """
 from __future__ import annotations
 
@@ -50,9 +36,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.serving.cache import ExecKey, ExecutableCache
-from repro_torch.serving.captured import (CapturedStep, pick, prefill_step,
-                                          recurrent_decode_step)
+from repro_torch.serving.captured import CapturedStep
 
 
 @dataclasses.dataclass
@@ -127,12 +111,6 @@ def resolve_bundle_report(prefill_bundle, decode_bundle
     return {**base, **report}
 
 
-def _sync(device: torch.device) -> None:
-    """Wait for the card (no-op on the CPU)."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def hand_over(old: CapturedStep, new: CapturedStep) -> None:
     """Carry a running step's state and inputs into the step that
     replaces it mid-run (after a commit): a step rebuilt over the live
@@ -189,70 +167,45 @@ def switch_on_commit(step: CapturedStep, bundle, kind: str, committed, *,
     return new, new_bundle
 
 
-def _decode_step(model, params, backend: str, bsz: int, total: int,
-                 capture: bool, schedules=None, cache=None) -> CapturedStep:
-    """``generate``'s contiguous decode step for an attention family,
-    over a cache of ``total`` positions (a new one, or a live run's
-    ``cache`` layers when it is rebuilt under a new bundle), launching
-    with ``schedules``.  Inputs ``tokens`` [B, 1], ``pos`` (one int64)
-    and ``starts`` [B]; state the cache's layers; output
-    :func:`~repro_torch.serving.captured.pick` of the logits, whose
-    argmax it writes back into ``tokens`` before it advances ``pos``."""
-    dev = params["embed"].device
-    cache = (model.init_cache(bsz, total, dev) if cache is None
-             else {"layers": cache})
-    inputs = {"tokens": torch.zeros((bsz, 1), dtype=torch.int64,
-                                    device=dev),
-              "pos": torch.zeros((), dtype=torch.int64, device=dev),
-              "starts": torch.zeros((bsz,), dtype=torch.int64, device=dev)}
-    tok, pos = inputs["tokens"], inputs["pos"]
-
-    def fn():
-        """One token per row; feeds it back and advances pos."""
-        lg, _ = model.decode_step(params, cache, tok, pos, backend=backend,
-                                  seq_starts=inputs["starts"],
-                                  schedules=schedules)
-        picked = pick(lg[:, -1])
-        tok.copy_(picked[0][:, None])
-        pos.add_(1)
-        return picked
-
-    return CapturedStep(fn, dev, inputs=inputs, state=cache["layers"],
-                        capture=capture)
-
-
 def generate(model, params, batch: Dict[str, object], *,
-             max_new_tokens: int, backend: Optional[str] = None,
-             seq_starts=None, session=None,
+             max_new_tokens: int, temperature: Optional[float] = None,
+             generator: Optional[torch.Generator] = None,
+             backend: Optional[str] = None, seq_starts=None, session=None,
              capture: Optional[bool] = None, dispatch=None,
-             max_recompiles: Optional[int] = None
+             max_recompiles: Optional[int] = None, registry=None
              ) -> Tuple[np.ndarray, ServeStats]:
-    """Greedy continuation of a left-padded batch.
+    """Greedy (or sampled) continuation of a left-padded batch.
 
     ``batch["tokens"]`` is [B, S] (numpy or a CPU tensor); ``seq_starts``
     ([B], optional) marks each row's first real token.  Runs where
     ``params`` live.  Returns (tokens [B, max_new_tokens] int32,
     :class:`ServeStats`).
 
+    ``temperature`` None defers to the session's (0.0, greedy, for the
+    call's own session); above 0 each token is drawn from
+    ``softmax(logits / T)`` on noise from ``generator`` (a
+    ``torch.Generator`` on the params' device, where the JAX package
+    takes ``rng``; None: one seeded 0 for the call).
+
     ``dispatch`` (a :class:`~repro_torch.runtime.dispatch.
     DispatchService`) observes the prefill and every decode step; with
     ``backend="cuda"`` the steps run its :class:`ScheduleBundle`, one
-    per role (ssm prefill and decode are both ``ssm_scan`` at other
-    shapes, so one merged bundle would let one shadow the other), and a
-    commit of another decode winner switches to the cached step of the
-    new bundle or rebuilds it once over the live cache, at most
-    ``max_recompiles`` times a call (default 1; 0 pins the step).
+    per role, and a commit of another decode winner switches to the
+    cached step of the new bundle or rebuilds it once over the live
+    cache, at most ``max_recompiles`` times a call (default 1; 0 pins
+    the step).  ``registry`` receives the ``serve_decode`` write-back.
 
-    ``session`` (a :class:`~repro_torch.serving.ServeSession`) shares its
-    executable cache, and with it its ``backend``, ``capture``,
-    ``dispatch`` and ``max_recompiles``: an argument of those names that
-    differs from the session's raises, as does another model or params
-    than the session's, since its cached steps were built against them;
-    its stats count the commits this call saw.  Without a session
-    ``backend`` defaults to ``"cuda"`` and ``capture`` to True;
-    ``capture=False`` runs the same steps without CUDA graphs."""
-    if max_new_tokens < 1:
-        raise ValueError("max_new_tokens must be >= 1")
+    ``session`` (a :class:`~repro_torch.serving.ServeSession`) runs the
+    call (:meth:`~repro_torch.serving.ServeSession.run_batch`) and
+    shares its executable cache, and with it its ``backend``,
+    ``capture``, ``dispatch``, ``max_recompiles`` and ``registry``: an
+    argument of those names that differs from the session's raises, as
+    does another model or params than the session's, since its cached
+    steps were built against them.  Without a session the call makes
+    its own, with ``backend`` ``"cuda"`` and ``capture`` True by
+    default (``capture=False`` runs the same steps without CUDA
+    graphs)."""
+    from repro_torch.serving.session import ServeSession
     if session is not None:
         if session.model is not model or session.params is not params:
             raise ValueError(
@@ -267,132 +220,20 @@ def generate(model, params, batch: Dict[str, object], *,
                 raise ValueError(
                     f"generate(session=) runs the session's {name} "
                     f"{its!r}, not {mine!r}")
-        if dispatch is not None and dispatch is not session.dispatch:
-            raise ValueError("generate(session=) runs the session's "
-                             "dispatch service, not another one")
-        backend, capture = session.backend, session.capture
-        dispatch, max_recompiles = session.dispatch, session.max_recompiles
-        exec_cache, compile_ = session.exec_cache, session._compile
+        for name, mine, its in (("dispatch", dispatch, session.dispatch),
+                                ("registry", registry, session.registry)):
+            if mine is not None and mine is not its:
+                raise ValueError(f"generate(session=) runs the session's "
+                                 f"{name}, not another one")
     else:
-        backend = "cuda" if backend is None else backend
-        capture = True if capture is None else capture
-        max_recompiles = 1 if max_recompiles is None else max_recompiles
-        exec_cache = ExecutableCache()
-        compile_ = exec_cache.get
-    dev = params["embed"].device
-    cfg = model.cfg
-    toks = np.asarray(batch["tokens"])
-    bsz, prompt_len = toks.shape
-    starts = (np.zeros((bsz,), np.int64) if seq_starts is None
-              else np.asarray(seq_starts).reshape(bsz))
-    total = prompt_len + max_new_tokens
-    arch = cfg.name
-    recurrent = cfg.attention_free
-    eb = params["embed"].element_size()
-    scheduled = dispatch is not None and backend == "cuda"
-
-    problems = (serve_dispatch_problems(cfg, bsz, prompt_len, total)
-                if dispatch is not None else {})
-    prefill_bundle = decode_bundle = None
-    if dispatch is not None:
-        # resolve both shapes before the timed steps: a warm registry
-        # answers with zero cost-model evaluations, a cold one pays one
-        # batch sweep here
-        for kind, problem in problems.values():
-            dispatch.resolve(kind, problem, eb)
-        if scheduled:
-            prefill_bundle = dispatch.schedule_bundle(
-                [problems["prefill"]], eb)
-            decode_bundle = dispatch.schedule_bundle([problems["decode"]],
-                                                     eb)
-
-    def decode_key(bundle) -> ExecKey:
-        """Cache key of this batch shape's decode step."""
-        return ExecKey(arch, "decode", bsz, total, bundle, backend)
-
-    def build_decode(bundle, state=None):
-        """Builder of the decode step under ``bundle`` over ``state``
-        (a running step's, when it replaces it), else over the state of
-        a cached step of its geometry (the engine's too, for an ssm
-        model), else a new one: a geometry's steps hold one state."""
-        def build():
-            """The step, over the geometry's state."""
-            live = state
-            if live is None:
-                entry = exec_cache.peek_geometry(decode_key(bundle))
-                live = None if entry is None else entry.state
-            if recurrent:
-                return recurrent_decode_step(model, params, backend, bsz,
-                                             capture, layers=live,
-                                             schedules=bundle)
-            return _decode_step(model, params, backend, bsz, total, capture,
-                                schedules=bundle, cache=live)
-        return build
-
-    pf, _ = compile_(ExecKey(arch, "prefill", bsz, prompt_len,
-                             prefill_bundle, backend),
-                     lambda: prefill_step(model, params, backend, bsz,
-                                          prompt_len, capture,
-                                          schedules=prefill_bundle))
-    dec, _ = compile_(decode_key(decode_bundle), build_decode(decode_bundle))
-
-    if dispatch is not None:
-        dispatch.propose(*problems["prefill"], eb)
-    t0 = time.perf_counter()
-    pf.feed(tokens=toks, starts=starts)
-    picked, pcache = pf.replay()
-    if dispatch is not None:
-        _sync(dev)
-        dispatch.observe(*problems["prefill"], time.perf_counter() - t0,
-                         eb)
-    state, ins = dec.state, dec.inputs
-    for name, t in pcache["layers"].items():
-        if recurrent:
-            state[name].copy_(t)
-        else:
-            state[name].zero_()
-            state[name][..., :prompt_len, :].copy_(t)
-    ins["tokens"].copy_(picked[0][:, None])
-    if not recurrent:
-        ins["pos"].fill_(prompt_len)
-        ins["starts"].copy_(pf.inputs["starts"])
-    out = torch.empty((bsz, max_new_tokens), dtype=torch.int64, device=dev)
-    out[:, 0].copy_(picked[0])
-    _sync(dev)
-    prefill_s = time.perf_counter() - t0
-
-    counts = CommitCounts()
-    t1 = time.perf_counter()
-    for i in range(1, max_new_tokens):
-        if dispatch is None:
-            out[:, i].copy_(dec.replay()[0])
-            continue
-        kind, problem = problems["decode"]
-        t_step = time.perf_counter()
-        dispatch.propose(kind, problem, eb)
-        out[:, i].copy_(dec.replay()[0])
-        _sync(dev)
-        dispatch.observe(kind, problem, time.perf_counter() - t_step, eb)
-        if scheduled:
-            dec, decode_bundle = switch_on_commit(
-                dec, decode_bundle, kind,
-                dispatch.committed(kind, problem, eb), key_of=decode_key,
-                build_of=build_decode, contains=exec_cache.contains,
-                compile_=compile_, max_recompiles=max_recompiles,
-                counts=counts)
-    _sync(dev)
-    decode_s = time.perf_counter() - t1 - counts.recompile_s
-    report = (dict(resolve_bundle_report(prefill_bundle, decode_bundle))
-              if prefill_bundle is not None else None)
-    stats = ServeStats(prefill_s=prefill_s, decode_s=decode_s,
-                       tokens_generated=bsz * max_new_tokens,
-                       backend=backend,
-                       decode_tokens=bsz * (max_new_tokens - 1),
-                       recompiles=counts.recompiles,
-                       recompile_s=counts.recompile_s, schedules=report)
-    if session is not None:
-        session.stats.add_commits(counts)
-    return out.cpu().numpy().astype(np.int32), stats
+        session = ServeSession(
+            model, params, backend="cuda" if backend is None else backend,
+            capture=True if capture is None else capture,
+            dispatch=dispatch, registry=registry,
+            max_recompiles=1 if max_recompiles is None else max_recompiles)
+    return session.run_batch(batch, max_new_tokens=max_new_tokens,
+                             temperature=temperature, generator=generator,
+                             seq_starts=seq_starts)
 
 
 __all__ = ["ServeStats", "generate", "serve_dispatch_problems",

@@ -35,7 +35,9 @@ that state as it found it, and ``generate`` copies its running inputs
 (token, position, starts) into the new step.
 
 A capture error raises out of the build; nothing runs the step eagerly
-in its place.  Where the buffers live on the CPU (the tests), or the
+in its place (the session retries a failed build ``compile_retries``
+times, each with a new graph on a new capture stream, and then
+raises).  Where the buffers live on the CPU (the tests), or the
 caller passed ``capture=False`` (to time the eager path on a card), the
 same step function runs directly into the same static buffers at every
 :meth:`replay`.  The device of the buffers, or the caller, makes that
@@ -43,6 +45,7 @@ choice, never a failure.
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -94,9 +97,31 @@ class CapturedStep:
         self.build_s = time.perf_counter() - t0
 
     def _capture(self) -> None:
-        """Warm up on the capture stream, restore the state, capture."""
-        dev = self.device
+        """Warm up on the capture stream, restore the state, capture.
+        The wrappers' counts end as they were before the build, whether
+        it succeeds or raises; a build that raises drops the shared
+        capture stream, which a capture that failed partway may leave
+        invalidated, so the next build (the session's retry) captures
+        into a new graph on a new stream."""
         before = kernels.launch_counts()
+        # no automatic collection while the step is built: a collection
+        # that frees another step's graph (dead cyclic garbage) during the
+        # capture invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            self._warm_up_and_capture()
+        except BaseException:
+            torch.cuda.graph.default_capture_stream = None
+            raise
+        finally:
+            if collecting:
+                gc.enable()
+            _set_counts(before)
+
+    def _warm_up_and_capture(self) -> None:
+        """The build's steps 1-5 (module docstring)."""
+        dev = self.device
         state = list(self.state.values())
         saved = [t.clone() for t in state]
         graph = torch.cuda.CUDAGraph()
@@ -123,7 +148,6 @@ class CapturedStep:
         after = kernels.launch_counts()
         self.launch_delta = {k: after[k] - warm[k] for k in after
                              if after[k] != warm[k]}
-        _set_counts(before)
         self.graph = graph
         self.outputs = outputs
 
@@ -167,6 +191,12 @@ class CapturedStep:
         return self.outputs
 
 
+# The ExecKey detail of a sampled step: it samples inside the step,
+# where the JAX session samples outside its jitted step, so the two are
+# other steps than the greedy ones, whose keys stay the JAX session's.
+SAMPLED = ("sampled",)
+
+
 def pick(last: torch.Tensor) -> torch.Tensor:
     """[2, B] int64 of the last logits [B, V]: each row's argmax and
     whether all its logits are finite (1) or not (0), so the host reads
@@ -175,18 +205,64 @@ def pick(last: torch.Tensor) -> torch.Tensor:
                         torch.isfinite(last).all(dim=-1).long()])
 
 
+def sample_pick(last: torch.Tensor, noise: torch.Tensor,
+                temperature: torch.Tensor) -> torch.Tensor:
+    """:func:`pick` with each row's token drawn from ``softmax(last / T)``
+    by the Gumbel-max rule (the rule of ``jax.random.categorical``):
+    argmax of ``last / T - log(-log(u))`` for uniform ``noise`` u [B, V]
+    in [0, 1), drawn outside the step; ``temperature`` is a 0-d
+    tensor."""
+    gumbel = -torch.log(-torch.log(noise))
+    return torch.stack([torch.argmax(last / temperature + gumbel, dim=-1),
+                        torch.isfinite(last).all(dim=-1).long()])
+
+
+def step_inputs(bsz: int, vocab: int, dev: torch.device, *,
+                sampled: bool = False, poison: bool = False
+                ) -> Dict[str, torch.Tensor]:
+    """The static inputs a step's pick reads besides its own: ``noise``
+    [B, V] and ``temperature`` for a sampled step, ``poison`` [B] (bool:
+    the rows whose logits the fault injector sets to NaN) for a step of
+    a session with an injector."""
+    inputs = {}
+    if sampled:
+        inputs["noise"] = torch.zeros((bsz, vocab), dtype=torch.float32,
+                                      device=dev)
+        inputs["temperature"] = torch.ones((), dtype=torch.float32,
+                                           device=dev)
+    if poison:
+        inputs["poison"] = torch.zeros((bsz,), dtype=torch.bool,
+                                       device=dev)
+    return inputs
+
+
+def step_pick(last: torch.Tensor, inputs: Dict[str, torch.Tensor]
+              ) -> torch.Tensor:
+    """The pick of a step with the :func:`step_inputs` ``inputs``: the
+    poisoned rows' logits set to NaN first, so the step's own finite
+    flag reports them; then :func:`sample_pick` or :func:`pick`."""
+    if "poison" in inputs:
+        last = last.masked_fill(inputs["poison"][:, None], float("nan"))
+    if "noise" in inputs:
+        return sample_pick(last, inputs["noise"], inputs["temperature"])
+    return pick(last)
+
+
 def prefill_step(model, params, backend: str, bsz: int, length: int,
-                 capture: bool, schedules=None) -> "CapturedStep":
+                 capture: bool, schedules=None,
+                 sampled: bool = False) -> "CapturedStep":
     """The masked prefill of ``bsz`` left-padded rows of ``length``
     tokens, the step behind every prefill key (the engine's batch-1
-    admissions and ``generate``), launching with ``schedules`` (a
+    admissions and ``run_batch``), launching with ``schedules`` (a
     ScheduleBundle or None).  Inputs ``tokens`` [B, length] and
-    ``starts`` [B]; outputs (:func:`pick` of the last logits, the
-    prefill's caches)."""
+    ``starts`` [B] (and a sampled step's :func:`step_inputs`); outputs
+    (:func:`step_pick` of the last logits, the prefill's caches)."""
     dev = params["embed"].device
     inputs = {"tokens": torch.zeros((bsz, length), dtype=torch.int64,
                                     device=dev),
-              "starts": torch.zeros((bsz,), dtype=torch.int64, device=dev)}
+              "starts": torch.zeros((bsz,), dtype=torch.int64, device=dev),
+              **step_inputs(bsz, model.cfg.vocab_size, dev,
+                            sampled=sampled)}
 
     def fn():
         """Prefill the static tokens; last-token pick and caches."""
@@ -194,43 +270,85 @@ def prefill_step(model, params, backend: str, bsz: int, length: int,
                                        backend=backend,
                                        seq_starts=inputs["starts"],
                                        schedules=schedules)
-        return pick(logits[:, -1]), pcache
+        return step_pick(logits[:, -1], inputs), pcache
 
     return CapturedStep(fn, dev, inputs=inputs, capture=capture)
 
 
 def recurrent_decode_step(model, params, backend: str, bsz: int,
-                          capture: bool, layers=None,
-                          schedules=None) -> "CapturedStep":
+                          capture: bool, layers=None, schedules=None,
+                          sampled: bool = False,
+                          poison: bool = False) -> "CapturedStep":
     """The ssm decode step of ``bsz`` rows, the step behind every ssm
-    decode key, launching with ``schedules``.  Input ``tokens`` [B, 1];
-    state ``layers`` (the recurrent states, zero ones of its own when
-    not given; a live run's when it is rebuilt under a new bundle);
-    output
-    :func:`pick` of the logits, whose argmax it also writes back into
-    ``tokens`` (``generate`` replays it with no feed; the engine feeds
-    its tokens before every replay).
+    decode key, launching with ``schedules``.  Input ``tokens`` [B, 1]
+    (and the :func:`step_inputs` of a sampled step or a session with an
+    injector); state ``layers`` (the recurrent states, zero ones of its
+    own when not given; a live run's when it is rebuilt under a new
+    bundle); output :func:`step_pick` of the logits, whose token it also
+    writes back into ``tokens`` (``run_batch`` replays it with no feed;
+    the engine feeds its tokens before every replay).
 
-    The engine's key (rows, cap) and ``generate``'s (B, total) are equal
-    whenever rows == B and cap == total, since a recurrent decode key
-    carries no detail (in JAX both entries are the same jitted step).
-    One builder for both keeps the entries of a key interchangeable."""
+    The engine's greedy key (rows, cap) and ``run_batch``'s (B, total)
+    are equal whenever rows == B and cap == total, since a greedy
+    recurrent decode key carries no detail (in JAX both entries are the
+    same jitted step).  One builder for both keeps the entries of a key
+    interchangeable."""
     dev = params["embed"].device
     if layers is None:
         layers = model.init_cache(bsz, 1, dev)["layers"]
     cache = {"layers": layers}
     tok = torch.zeros((bsz, 1), dtype=torch.int64, device=dev)
+    inputs = {"tokens": tok, **step_inputs(bsz, model.cfg.vocab_size, dev,
+                                           sampled=sampled, poison=poison)}
 
     def fn():
-        """One recurrent step over all rows; feeds its argmax back."""
+        """One recurrent step over all rows; feeds its token back."""
         lg, _ = model.decode_step(params, cache, tok, 0, backend=backend,
                                   schedules=schedules)
-        picked = pick(lg[:, -1])
+        picked = step_pick(lg[:, -1], inputs)
         tok.copy_(picked[0][:, None])
         return picked
 
-    return CapturedStep(fn, dev, inputs={"tokens": tok}, state=layers,
+    return CapturedStep(fn, dev, inputs=inputs, state=layers,
                         capture=capture)
 
 
-__all__ = ["CapturedStep", "pick", "prefill_step", "recurrent_decode_step"]
+def contiguous_decode_step(model, params, backend: str, bsz: int,
+                           total: int, capture: bool, schedules=None,
+                           cache=None, sampled: bool = False
+                           ) -> "CapturedStep":
+    """``run_batch``'s contiguous decode step for an attention family,
+    over a cache of ``total`` positions (a new one, or a live run's
+    ``cache`` layers when it is rebuilt under a new bundle), launching
+    with ``schedules``.  Inputs ``tokens`` [B, 1], ``pos`` (one int64)
+    and ``starts`` [B] (and a sampled step's :func:`step_inputs`); state
+    the cache's layers; output :func:`step_pick` of the logits, whose
+    token it writes back into ``tokens`` before it advances ``pos``."""
+    dev = params["embed"].device
+    cache = (model.init_cache(bsz, total, dev) if cache is None
+             else {"layers": cache})
+    inputs = {"tokens": torch.zeros((bsz, 1), dtype=torch.int64,
+                                    device=dev),
+              "pos": torch.zeros((), dtype=torch.int64, device=dev),
+              "starts": torch.zeros((bsz,), dtype=torch.int64, device=dev),
+              **step_inputs(bsz, model.cfg.vocab_size, dev,
+                            sampled=sampled)}
+    tok, pos = inputs["tokens"], inputs["pos"]
+
+    def fn():
+        """One token per row; feeds it back and advances pos."""
+        lg, _ = model.decode_step(params, cache, tok, pos, backend=backend,
+                                  seq_starts=inputs["starts"],
+                                  schedules=schedules)
+        picked = step_pick(lg[:, -1], inputs)
+        tok.copy_(picked[0][:, None])
+        pos.add_(1)
+        return picked
+
+    return CapturedStep(fn, dev, inputs=inputs, state=cache["layers"],
+                        capture=capture)
+
+
+__all__ = ["CapturedStep", "SAMPLED", "pick", "sample_pick", "step_inputs",
+           "step_pick", "prefill_step", "recurrent_decode_step",
+           "contiguous_decode_step"]

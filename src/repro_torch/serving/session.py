@@ -1,18 +1,23 @@
-"""ServeSession: the in-flight serving engine for greedy traffic of the
-dense and ssm families (port of ``repro.serving.session``).
+"""ServeSession: the serving engine of the dense and ssm families (port
+of ``repro.serving.session``).
 
-Requests are submitted to a queue and served by :meth:`ServeSession.drain`
-through a step loop over a fixed set of engine rows.  For the dense
-family the rows are backed by a block-paged KV pool
+Requests are submitted to a queue and served by :meth:`ServeSession.drain`.
+Greedy traffic runs the **in-flight engine** (:meth:`_drain_inflight`): a
+step loop over a fixed set of engine rows.  For the dense family the
+rows are backed by a block-paged KV pool
 (:mod:`repro_torch.serving.paged_kv`); at every step boundary the engine
 
-1. retires finished rows and frees their KV blocks,
+1. retires finished rows (and rows a client cancelled or whose deadline
+   passed, with their partial tokens) and frees their KV blocks,
 2. compacts the pool when its fragmentation passes 1/2,
-3. admits queued requests in FIFO order while a row is free and the
-   allocator fits the request's whole ``prompt + budget - 1`` footprint:
-   a batch-1 left-padded masked prefill (flash attention), whose prompt
-   K/V is scattered into the row's pool blocks, and
-4. runs one paged ``decode_step`` over all rows (paged decode attention).
+3. sweeps the queue (cancellations, blown deadlines, ``max_queue_s``
+   shedding) and admits queued requests in FIFO order while a row is
+   free and the allocator fits the request's whole ``prompt + budget -
+   1`` footprint: a batch-1 left-padded masked prefill (flash
+   attention), whose prompt K/V is scattered into the row's pool
+   blocks, and
+4. runs one paged ``decode_step`` over all rows (paged decode
+   attention).
 
 For the ssm family a row's state is O(1): there is no allocator, block
 table or compaction.  The pool is ``init_cache(rows, cap)``; admission
@@ -21,15 +26,27 @@ writes the row's final SSM and conv states into row ``r`` of every
 layer, in place; each boundary runs one recurrent ``decode_step`` over
 all rows.
 
+Sampled traffic (``temperature > 0``) runs the **bucketed path**
+(:meth:`_drain_batched`): the head of the queue's prompt bucket picks a
+(batch, padded-length) bucket, the group is left-padded to it (pad rows
+fully masked) and served to completion by :meth:`run_batch`, the body
+of ``runtime.serve_loop.generate``: a batched masked prefill, then one
+contiguous decode step a token (the contiguous decode kernel, or the
+scan).  A sampled step draws each row's token from ``softmax(logits /
+T)`` by the Gumbel-max rule, on uniform noise drawn outside the step
+from the caller's ``torch.Generator`` (else one seeded 0 a call, as the
+JAX package takes ``jax.random.key(0)``); its key carries the detail
+:data:`~repro_torch.serving.captured.SAMPLED`.
+
 The prefill and decode steps come from the session's
 :class:`~repro_torch.serving.cache.ExecutableCache`, keyed as the JAX
 session keys them: one batch-1 prefill step per prompt bucket, shared
-by every activation and by ``generate(session=)``, and one decode step
-per engine geometry and bundle, whose entry owns the pool (a CUDA graph
+by every activation and by ``run_batch``, and one decode step per
+engine geometry and bundle, whose entry owns the pool (a CUDA graph
 holds its addresses; it is zeroed at each activation's start, so a run
 equals one on a fresh pool).  Every decode step of one geometry holds
 the same pool, whichever bundle it was built with and whether the
-engine or ``generate`` built it: an activation finds the pool through
+engine or ``run_batch`` built it: an activation finds the pool through
 any of them (``ExecutableCache.peek_geometry``), makes a new one only
 when none is cached, and raises if the step it runs holds another.
 
@@ -43,30 +60,41 @@ bucket for the prefills, one for the activation's decode step.  When
 the service commits a decode winner other than the running bundle's,
 the engine switches to the new key's step if it is cached
 (``free_switches``), else recaptures it once over the live pool
-(``recompiles``, at most ``max_recompiles`` an activation; its time is
-kept out of ``decode_s``), else keeps the step pinned; each such commit
-counts in ``commits_seen`` (``serve_loop.switch_on_commit``, the policy
-``generate`` runs too).  Every observation times the deployed step,
-not the candidate it is attributed to (the JAX engine's semantics).
+(``recompiles``, at most ``max_recompiles`` a run; its time is kept out
+of ``decode_s``), else keeps the step pinned; each such commit counts
+in ``commits_seen`` (``serve_loop.switch_on_commit``).  Every
+observation times the deployed step, not the candidate it is
+attributed to (the JAX engine's semantics).  With ``registry=`` every
+activation and every ``run_batch`` call writes a ``serve_decode``
+measurement back under ``runtime_fingerprint(device)``.
 
-An ssm decode key carries no detail, so it can equal ``generate``'s
-(when their bundles are equal): both build it with the same
-:func:`~repro_torch.serving.captured.recurrent_decode_step`.  On a card
-each step is a captured CUDA graph
+On a card each step is a captured CUDA graph
 (:class:`~repro_torch.serving.captured.CapturedStep`); ``capture=False``
 runs the same steps eagerly, and on the CPU they always run directly.
 A step's tokens, positions and block tables go in through pinned
-buffers, and its argmax and finiteness flags come out in one copy to
-the host a step.
+buffers, and its token and finiteness flags come out in one copy to the
+host a step.
 
-Every request ends in a terminal :class:`RequestState`.  A request whose
-footprint can never fit the pool is REJECTED; a row whose logits are
-not finite (checked at every step) is retired FAILED without touching
-the others.  Kernel and capture failures are not caught: a CUDA error
-raises out of :meth:`drain` (the JAX session's degrade-to-reference
-path, telemetry, watchdog, recorder, the registry write-back of
-``serve_decode`` records, deadlines and cancellation are not ported
-yet).
+Every request ends in a terminal :class:`RequestState` with a reason
+(the operator contract of the JAX package's ``docs/SERVING.md``
+§Failure semantics, as far as it is ported):
+
+* REJECTED — the KV footprint can never fit the pool;
+* TIMED_OUT — ``deadline_s`` blown (queued, or mid-decode with partial
+  tokens), or shed by ``max_queue_s`` while queued;
+* CANCELLED — :meth:`ServeSession.cancel` (partial tokens if decoding);
+* FAILED — the row's logits were not finite (the step's device flag),
+  partial tokens.
+
+A :class:`~repro_torch.runtime.ft.StragglerMonitor` watches the step
+times (``on_straggler`` may hold admission for some boundaries), and a
+:class:`~repro_torch.serving.faults.FaultInjector` (``faults=``) fires
+each fault deterministically.  What the port does not catch: a build
+(warm-up and capture) is retried ``compile_retries`` times and then
+raises out of :meth:`drain` (the JAX session degrades the bucket to its
+reference backend), and a prefill or step that raises propagates (the
+JAX engine fails the rows in flight).  The JAX session's telemetry,
+watchdog and flight recorder are not ported yet.
 """
 from __future__ import annotations
 
@@ -79,34 +107,46 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import registry as reg
 from repro_torch.models.attention import BACKENDS
 from repro_torch.models.model_zoo import (Model, bucket_length,
-                                          left_pad_prompts)
+                                          left_pad_prompts, prompt_starts)
 from repro_torch.models.transformer import SERVED_FAMILIES
+from repro_torch.obs.events import Event
+from repro_torch.runtime.ft import StragglerMonitor
 from repro_torch.serving.bucketing import (Bucket, candidate_buckets,
                                            pick_bucket)
 from repro_torch.serving.cache import ExecKey, ExecutableCache
-from repro_torch.serving.captured import (CapturedStep, pick, prefill_step,
-                                          recurrent_decode_step)
+from repro_torch.serving.captured import (SAMPLED, CapturedStep,
+                                          contiguous_decode_step,
+                                          prefill_step,
+                                          recurrent_decode_step,
+                                          step_inputs, step_pick)
 from repro_torch.serving.paged_kv import BlockAllocator, blocks_needed
 
 log = logging.getLogger("repro_torch.serving")
 
 _REQUEST_IDS = itertools.count()
+# the bucket of a result that never reached an engine row
 _NULL_BUCKET = Bucket(0, 0, 0)
 
 
 class RequestState:
-    """Terminal request states.
+    """The terminal states of a request.
 
     * ``COMPLETED`` — full decode budget delivered.
-    * ``REJECTED`` — the request's KV footprint exceeds the whole pool
-      (attention families).
+    * ``REJECTED`` — the request's KV footprint exceeds the whole pool.
+    * ``TIMED_OUT`` — ``deadline_s`` blown (queued or mid-decode, with
+      partial tokens) or shed by ``max_queue_s`` while queued.
+    * ``CANCELLED`` — :meth:`ServeSession.cancel` (partial tokens when
+      the request was already decoding).
     * ``FAILED`` — non-finite logits retired the row (partial tokens).
     """
 
     COMPLETED = "COMPLETED"
     REJECTED = "REJECTED"
+    TIMED_OUT = "TIMED_OUT"
+    CANCELLED = "CANCELLED"
     FAILED = "FAILED"
 
 
@@ -118,11 +158,16 @@ class Request:
     max_new_tokens: int
     request_id: str
     submitted_at: float             # session clock at submission
+    deadline_s: Optional[float] = None  # submit -> last token budget
 
 
 @dataclasses.dataclass
 class RequestResult:
-    """Per-request outcome returned by :meth:`ServeSession.drain`."""
+    """Per-request outcome returned by :meth:`ServeSession.drain`.
+
+    ``state`` is a terminal :class:`RequestState`; for anything but
+    ``COMPLETED`` the ``tokens`` may be partial or empty (never
+    admitted) and ``reason`` says why."""
 
     request_id: str
     tokens: np.ndarray              # [<= max_new_tokens] int32
@@ -138,7 +183,7 @@ class SessionStats:
     """What the engine did, over the session's life."""
 
     requests: int = 0
-    batches: int = 0                # engine activations
+    batches: int = 0                # engine activations + run_batch calls
     tokens_generated: int = 0       # every delivered token
     decode_tokens: int = 0          # tokens made by decode steps only
     prefill_s: float = 0.0
@@ -146,9 +191,16 @@ class SessionStats:
     steps: int = 0                  # engine decode steps
     inflight_admissions: int = 0    # requests admitted at step boundaries
     compactions: int = 0            # pool defragmentation passes
-    rejected: int = 0
-    failed: int = 0
-    poisoned_rows: int = 0          # rows retired on non-finite logits
+    compile_retries: int = 0        # failed builds that were retried
+    rejected: int = 0               # never-fits requests (REJECTED)
+    timed_out: int = 0              # deadline / queue-budget expiries
+    shed: int = 0                   # subset of timed_out: max_queue_s
+    cancelled: int = 0              # client cancellations
+    failed: int = 0                 # rows retired on non-finite logits
+    poisoned_rows: int = 0          # rows whose device finite flag was 0
+    stragglers: int = 0             # slow-step events from the monitor
+    # structured operational events (repro_torch.obs.events.Event)
+    events: List[Event] = dataclasses.field(default_factory=list)
     queue_s: List[float] = dataclasses.field(default_factory=list)
     ttft_s: List[float] = dataclasses.field(default_factory=list)
     per_bucket: Dict[Bucket, Dict[str, float]] = dataclasses.field(
@@ -203,9 +255,15 @@ class SessionStats:
             "steps": self.steps,
             "inflight_admissions": self.inflight_admissions,
             "compactions": self.compactions,
+            "compile_retries": self.compile_retries,
             "rejected": self.rejected,
+            "timed_out": self.timed_out,
+            "shed": self.shed,
+            "cancelled": self.cancelled,
             "failed": self.failed,
             "poisoned_rows": self.poisoned_rows,
+            "stragglers": self.stragglers,
+            "events": [e.as_dict() for e in self.events],
             "queue_p50_s": q50,
             "queue_p95_s": q95,
             "ttft_p50_s": t50,
@@ -233,12 +291,15 @@ class ServeSession:
 
     ``backend`` is ``"cuda"`` (the hand-written kernels; their wrappers
     run the plain versions when the parameters live on the CPU) or
-    ``"plain"``.  ``batch_sizes`` are the allowed engine row counts,
-    ``kv_block_size`` the token slots per pool block and ``kv_blocks``
-    the pool size (None sizes it so every row reaches its full
-    capacity); both apply to attention families only.  Prompts are
-    left-padded with token 0 to power-of-two buckets.  The session runs
-    where ``params`` live.
+    ``"plain"``.  ``batch_sizes`` are the allowed row counts,
+    ``bucket_lengths`` the padded prompt lengths (default: powers of
+    two; prompts are left-padded with token 0), and ``temperature``
+    the session's sampling temperature (0: greedy, the in-flight
+    engine; above 0: the bucketed path).  ``kv_block_size``
+    is the token slots per pool block and ``kv_blocks`` the pool size
+    (None sizes it so every row reaches its full capacity); both apply
+    to attention families only.  The session runs where ``params``
+    live.
 
     ``cache_capacity`` bounds the executable cache (LRU by entry).
     ``capture`` False runs the cached steps eagerly on a card (one
@@ -247,14 +308,37 @@ class ServeSession:
     ``dispatch`` (a :class:`~repro_torch.runtime.dispatch.
     DispatchService`) feeds the adaptive runtime and, with ``"cuda"``,
     selects the steps' schedules; ``max_recompiles`` bounds the decode
-    recaptures on a commit a run (an activation or a ``generate`` call).
+    recaptures on a commit a run (an activation or a ``run_batch``
+    call).  ``registry`` (a :class:`~repro_torch.core.registry.
+    TuningRegistry`) receives the ``serve_decode`` write-back.
+
+    Fault tolerance: ``request_deadline_s`` (default submit → last
+    token budget; ``submit(deadline_s=)`` overrides it), ``max_queue_s``
+    (load shedding), ``compile_retries`` / ``compile_backoff_s`` (a
+    failed build is retried under capped exponential backoff, then
+    raises; 0 by default, where the JAX session retries twice, so that
+    a build that fails raises at its first attempt, as the port's
+    sessions did before retries existed), ``straggler_threshold`` +
+    ``on_straggler`` (slow-step hook; returning an int N holds
+    admission for N step boundaries), and
+    ``faults`` (a :class:`~repro_torch.serving.faults.FaultInjector`,
+    for tests; its steps take a poison-mask input, which a session
+    without one does not build).
     """
 
     def __init__(self, model: Model, params, *, backend: str = "cuda",
+                 registry: Optional[reg.TuningRegistry] = None,
                  batch_sizes: Sequence[int] = (1, 2, 4, 8),
+                 bucket_lengths: Optional[Sequence[int]] = None,
+                 temperature: float = 0.0,
                  kv_block_size: int = 16, kv_blocks: Optional[int] = None,
                  cache_capacity: int = 16, capture: bool = True,
-                 dispatch=None, max_recompiles: int = 1):
+                 dispatch=None, max_recompiles: int = 1,
+                 request_deadline_s: Optional[float] = None,
+                 max_queue_s: Optional[float] = None,
+                 compile_retries: int = 0, compile_backoff_s: float = 0.01,
+                 straggler_threshold: float = 3.0,
+                 on_straggler=None, faults=None):
         """Validate the knobs and start with an empty queue."""
         if model.cfg.family not in SERVED_FAMILIES:
             raise NotImplementedError(
@@ -267,10 +351,15 @@ class ServeSession:
         self.params = params
         self.device = params["embed"].device
         self.backend = backend
+        self.registry = registry
         self.batch_sizes = tuple(sorted(set(int(b) for b in batch_sizes)))
         if not self.batch_sizes or self.batch_sizes[0] < 1:
             raise ValueError(
                 f"batch_sizes must be positive ints, got {batch_sizes!r}")
+        self.bucket_lengths = (tuple(sorted(set(int(b)
+                                                for b in bucket_lengths)))
+                               if bucket_lengths else None)
+        self.temperature = float(temperature)
         if kv_block_size < 1:
             raise ValueError("kv_block_size must be >= 1")
         if kv_blocks is not None and kv_blocks < 2:
@@ -281,38 +370,172 @@ class ServeSession:
         self.capture = bool(capture)
         if max_recompiles < 0:
             raise ValueError("max_recompiles must be >= 0")
+        if compile_retries < 0:
+            raise ValueError("compile_retries must be >= 0")
         self.dispatch = dispatch
         self.max_recompiles = int(max_recompiles)
+        self.request_deadline_s = request_deadline_s
+        self.max_queue_s = max_queue_s
+        self.compile_retries = int(compile_retries)
+        self.compile_backoff_s = float(compile_backoff_s)
+        self.on_straggler = on_straggler
+        self._faults = faults
         self._elem_bytes = params["embed"].element_size()
         self.exec_cache = ExecutableCache(cache_capacity)
         self.stats = SessionStats()
         self._queue: List[Request] = []
+        self._done: List[RequestResult] = []    # finished outside drain
+        self._cancelled: set = set()            # ids flagged for cancel
+        self._running: set = set()              # ids currently on a row
+        self._admission_hold = 0                # boundaries to skip admit
+        self._step_count = 0                    # session-global step index
+        # deadlines and shedding read this clock (tests swap in a fake
+        # one); step timings always use the real perf counter
         self._clock = time.perf_counter
+        # no hook on the monitor: a bound method of the session would
+        # make the session (and its graphs) cyclic garbage, which the
+        # collector may free in the middle of another step's capture
+        self._straggler = StragglerMonitor(threshold=straggler_threshold)
+
+    # ------------------------------------------------------- events
+    def _event(self, kind: str, step: Optional[int] = None,
+               request_id: Optional[str] = None, **data: Any) -> None:
+        """Record one structured :class:`~repro_torch.obs.events.Event`."""
+        self.stats.events.append(Event(kind=kind, step=step,
+                                       request_id=request_id,
+                                       ts=self._clock(), data=data))
 
     # ------------------------------------------------------ admission
     def submit(self, tokens, max_new_tokens: int,
-               request_id: Optional[str] = None) -> str:
-        """Queue one request (a 1-D prompt); returns its id."""
+               request_id: Optional[str] = None,
+               deadline_s: Optional[float] = None) -> str:
+        """Queue one request (a 1-D prompt); returns its id.
+
+        ``deadline_s`` (submit → last token, seconds) overrides the
+        session's ``request_deadline_s``; a blown deadline finishes the
+        request TIMED_OUT (partial tokens if it is decoding).  A prompt
+        that no bucket can hold is refused here, not in :meth:`drain`,
+        where it would wedge the queue."""
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         prompt = np.asarray(tokens, dtype=np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("prompt must contain at least one token")
+        if (self.bucket_lengths
+                and prompt.size > max(self.bucket_lengths)):
+            raise ValueError(
+                f"prompt of length {prompt.size} exceeds the largest "
+                f"bucket {max(self.bucket_lengths)}")
         rid = (request_id if request_id is not None
                else f"req-{next(_REQUEST_IDS)}")
-        self._queue.append(Request(tokens=prompt,
-                                   max_new_tokens=int(max_new_tokens),
-                                   request_id=rid,
-                                   submitted_at=self._clock()))
+        self._queue.append(Request(
+            tokens=prompt, max_new_tokens=int(max_new_tokens),
+            request_id=rid, submitted_at=self._clock(),
+            deadline_s=(deadline_s if deadline_s is not None
+                        else self.request_deadline_s)))
         return rid
 
     def pending(self) -> int:
         """Requests queued but not yet admitted."""
         return len(self._queue)
 
+    def cancel(self, request_id: str) -> bool:
+        """Cancel a request.  Queued: finished CANCELLED at once (empty
+        tokens; the result comes with the next :meth:`drain`).  On an
+        engine row: retired CANCELLED with its partial tokens at the
+        next step boundary.  Unknown ids return False."""
+        for i, req in enumerate(self._queue):
+            if req.request_id == request_id:
+                del self._queue[i]
+                self._finish_unadmitted(req, RequestState.CANCELLED,
+                                        "cancelled while queued",
+                                        self._done)
+                return True
+        if request_id in self._running:
+            self._cancelled.add(request_id)
+            return True
+        return False
+
+    # -------------------------------------- terminal-state accounting
+    def _count_terminal(self, state: str) -> None:
+        """Bump the per-terminal-state session counters."""
+        if state == RequestState.REJECTED:
+            self.stats.rejected += 1
+        elif state == RequestState.TIMED_OUT:
+            self.stats.timed_out += 1
+        elif state == RequestState.CANCELLED:
+            self.stats.cancelled += 1
+        elif state == RequestState.FAILED:
+            self.stats.failed += 1
+
+    def _finish_unadmitted(self, req: Request, state: str, reason: str,
+                           sink: List[RequestResult]) -> None:
+        """Terminal result for a request that never reached a row."""
+        log.warning("request %s finished %s without admission: %s",
+                    req.request_id, state, reason)
+        sink.append(RequestResult(
+            request_id=req.request_id, tokens=np.zeros((0,), np.int32),
+            bucket=_NULL_BUCKET, queue_s=self._clock() - req.submitted_at,
+            stats=None, state=state, reason=reason))
+        self.stats.requests += 1
+        self._count_terminal(state)
+
+    def _sweep_queue(self, sink: List[RequestResult]) -> None:
+        """Queue-level terminal outcomes, applied at every admission
+        boundary: cancellations, blown deadlines and ``max_queue_s``
+        shedding (both TIMED_OUT; sheds also count in ``stats.shed``)."""
+        if not self._queue:
+            return
+        now = self._clock()
+        kept: List[Request] = []
+        for req in self._queue:
+            wait = now - req.submitted_at
+            if req.request_id in self._cancelled:
+                self._cancelled.discard(req.request_id)
+                self._finish_unadmitted(req, RequestState.CANCELLED,
+                                        "cancelled while queued", sink)
+            elif req.deadline_s is not None and wait > req.deadline_s:
+                self._finish_unadmitted(
+                    req, RequestState.TIMED_OUT,
+                    f"deadline_s={req.deadline_s:g} blown after "
+                    f"{wait:.3f}s in queue", sink)
+            elif self.max_queue_s is not None and wait > self.max_queue_s:
+                self.stats.shed += 1
+                self._finish_unadmitted(
+                    req, RequestState.TIMED_OUT,
+                    f"shed: queued {wait:.3f}s > "
+                    f"max_queue_s={self.max_queue_s:g}", sink)
+            else:
+                kept.append(req)
+        self._queue = kept
+
+    def _flush_done(self) -> List[RequestResult]:
+        """Results finished outside drain (queued cancellations)."""
+        out, self._done = self._done, []
+        return out
+
+    def _record_step(self, dt: float) -> None:
+        """Report one decode step's time, plus the slowdown the injector
+        adds at this step, to the straggler monitor, and advance the
+        session's step count.  A straggler is ledgered, and admission is
+        held for the number of boundaries ``on_straggler`` returns."""
+        extra = (self._faults.slow_extra_s(self._step_count)
+                 if self._faults is not None else 0.0)
+        event = self._straggler.record(self._step_count, dt + extra)
+        self._step_count += 1
+        if event is None:
+            return
+        self.stats.stragglers += 1
+        self.stats.events.append(event)
+        if self.on_straggler is not None:
+            hold = self.on_straggler(event)
+            if isinstance(hold, int) and hold > 0:
+                self._admission_hold = max(self._admission_hold, hold)
+
+    # ------------------------------------------------------ batching
     def _prompt_bucket(self, request: Request) -> int:
         """Padded prompt length (the request's shape class)."""
-        return bucket_length(len(request.tokens))
+        return bucket_length(len(request.tokens), self.bucket_lengths)
 
     def _bucket_step_time(self, bucket: Bucket) -> Optional[float]:
         """Expected decode-step seconds of a bucket's kernel shape: the
@@ -333,54 +556,156 @@ class ServeSession:
             t = min(predicted) if predicted else None
         return t
 
-    def _reject(self, req: Request, reason: str,
-                sink: List[RequestResult]) -> None:
-        """Terminal REJECTED result for a request that never fits."""
-        log.warning("request %s rejected: %s", req.request_id, reason)
-        sink.append(RequestResult(
-            request_id=req.request_id, tokens=np.zeros((0,), np.int32),
-            bucket=_NULL_BUCKET, queue_s=self._clock() - req.submitted_at,
-            stats=None, state=RequestState.REJECTED, reason=reason))
-        self.stats.requests += 1
-        self.stats.rejected += 1
+    def _next_group(self) -> Tuple[List[Request], Bucket]:
+        """The head of the queue's shape class and its best bucket (the
+        new-token budget is bucketed too, so groups of other budgets
+        share the decode step: only the capacity ``total_len`` is a
+        dimension of it)."""
+        s_pad = self._prompt_bucket(self._queue[0])
+        same = [r for r in self._queue if self._prompt_bucket(r) == s_pad]
+        cands = candidate_buckets([r.max_new_tokens for r in same], s_pad,
+                                  self.batch_sizes)
+        bucket, n_real = pick_bucket(cands, self._bucket_step_time)
+        take = same[:n_real]
+        taken = {id(r) for r in take}
+        self._queue = [r for r in self._queue if id(r) not in taken]
+        return take, bucket
+
+    def _form_batch(self, group: List[Request], bucket: Bucket
+                    ) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
+        """The group left-padded to the bucket (token 0), with rows of
+        pad tokens up to the bucket's batch, and each row's start: a pad
+        row's is ``prompt_len``, so every position of it is masked."""
+        tokens = left_pad_prompts([r.tokens for r in group],
+                                  bucket.prompt_len)
+        starts = np.full((bucket.batch,), bucket.prompt_len, np.int32)
+        starts[:len(group)] = prompt_starts([r.tokens for r in group],
+                                            bucket.prompt_len)
+        if bucket.batch > len(group):
+            pad_rows = np.zeros((bucket.batch - len(group),
+                                 bucket.prompt_len), np.int32)
+            tokens = np.concatenate([tokens, pad_rows], axis=0)
+        return {"tokens": tokens}, starts
 
     def drain(self, on_step=None) -> List[RequestResult]:
         """Serve every queued request; results in completion order.
 
-        ``on_step(info)`` is called after every decode step with
-        ``{"step", "active", "pending", "free_blocks"}``; it may submit
-        more requests, which are admitted at the next step boundary."""
+        Greedy traffic runs the in-flight engine
+        (:meth:`_drain_inflight`); sampled traffic (the session's
+        ``temperature > 0``) the bucketed path (:meth:`_drain_batched`),
+        which serves whole groups at a time.
+
+        ``on_step(info)`` (engine only) is called after every decode
+        step with ``{"step", "active", "pending", "free_blocks"}``; it
+        may submit or cancel requests, which take effect at the next
+        step boundary."""
+        results = self._flush_done()
+        if self.temperature <= 0.0:
+            while self._queue:
+                results.extend(self._drain_inflight(on_step))
+            return results
+        return results + self._drain_batched()
+
+    def _drain_batched(self) -> List[RequestResult]:
+        """Admission-granularity serving: form a group, run it to
+        completion through :meth:`run_batch`, repeat.  Queue-level
+        outcomes only (a group runs whole, as in the JAX session)."""
         results: List[RequestResult] = []
         while self._queue:
-            results.extend(self._drain_inflight(on_step))
+            self._sweep_queue(results)
+            if not self._queue:
+                break
+            group, bucket = self._next_group()
+            now = self._clock()
+            waits = [now - r.submitted_at for r in group]
+            batch, starts = self._form_batch(group, bucket)
+            out, stats = self.run_batch(
+                batch, max_new_tokens=max(r.max_new_tokens for r in group),
+                total_len=bucket.total_len,
+                real_tokens=sum(r.max_new_tokens for r in group),
+                seq_starts=starts)
+            for i, r in enumerate(group):
+                results.append(RequestResult(
+                    request_id=r.request_id,
+                    tokens=out[i, :r.max_new_tokens], bucket=bucket,
+                    queue_s=waits[i], stats=stats))
+            self.stats.requests += len(group)
+            self.stats.queue_s.extend(waits)
+            # the group's first tokens exist once its prefill finishes
+            self.stats.ttft_s.extend(w + stats.prefill_s for w in waits)
         return results
 
     # ------------------------------------------------------ execution
+    def _build(self, key: ExecKey, builder) -> CapturedStep:
+        """``builder()`` with ``compile_retries`` retries under capped
+        exponential backoff (the JAX session's ``_aot_compile``); an
+        injected ``compile`` fault fires at the start of an attempt.
+        After the last failed attempt the error is raised: nothing
+        takes the step's place."""
+        what = (f"{key.role}[b{key.batch},"
+                f"{'p' if key.role == 'prefill' else 't'}{key.length}]")
+        delay = self.compile_backoff_s
+        attempt = 0
+        while True:
+            try:
+                if self._faults is not None:
+                    self._faults.compile_fault(what)
+                return builder()
+            except Exception as e:
+                log.warning("build of %s failed (attempt %d/%d): %s", what,
+                            attempt + 1, 1 + self.compile_retries, e)
+                if attempt == self.compile_retries:
+                    self._event("compile_failure", what=what,
+                                error=repr(e))
+                    raise
+            self.stats.compile_retries += 1
+            attempt += 1
+            time.sleep(min(delay, 0.5))
+            delay *= 2
+
     def _compile(self, key: ExecKey, builder) -> Tuple[Any, bool]:
         """Step for ``key`` via the shared cache: ``(step, was_hit)``.
         A build's warm-up and capture time and its graph's pool are
         added to the stats."""
-        step, hit = self.exec_cache.get(key, builder)
+        step, hit = self.exec_cache.get(key,
+                                        lambda: self._build(key, builder))
         if not hit:
             self.stats.capture_s += step.build_s
             self.stats.graph_pool_bytes += step.pool_bytes
         self.stats.cache = self.exec_cache.stats()
         return step, hit
 
+    def _write_back(self, bsz: int, prompt_len: int, new_tokens: int,
+                    stats) -> None:
+        """The ``serve_decode`` measurement of one run (an activation or
+        a ``run_batch`` call), under the card's runtime fingerprint."""
+        cfg = self.model.cfg
+        key = reg.RegistryKey.make(
+            "serve_decode", {"arch": cfg.name, "batch": int(bsz),
+                             "prompt_len": int(prompt_len),
+                             "new_tokens": int(new_tokens)},
+            reg.runtime_fingerprint(self.device), "measured")
+        self.registry.record_measurement(
+            key, {"type": "serve_decode", "arch": cfg.name,
+                  "decode_tok_s": stats.decode_tok_s},
+            stats.decode_s / max(new_tokens, 1))
+
     def _decode_builder(self, pool: Dict[str, Any], rows: int,
                         max_blocks: Optional[int], bundle=None):
         """Builder of the engine's decode step over ``pool`` under
         ``bundle``: the paged step (tokens, per-row positions, block
         tables) for dense, the recurrent step
-        (:func:`recurrent_decode_step`, which ``generate`` shares) for
-        ssm; outputs :func:`pick` of the logits.  The step owns ``pool``
-        (with every other step of its geometry)."""
+        (:func:`recurrent_decode_step`, which ``run_batch`` shares) for
+        ssm; outputs :func:`step_pick` of the logits.  With an injector
+        the step takes a poison mask.  The step owns ``pool`` (with
+        every other step of its geometry)."""
         model, params, dev = self.model, self.params, self.device
         backend = self.backend
+        poison = self._faults is not None
         if max_blocks is None:
             return lambda: recurrent_decode_step(
                 model, params, backend, rows, self.capture,
-                layers=pool["layers"], schedules=bundle)
+                layers=pool["layers"], schedules=bundle, poison=poison)
 
         def build() -> CapturedStep:
             """Static inputs, the step function and its capture."""
@@ -389,7 +714,9 @@ class ServeSession:
                       "pos": torch.zeros((rows,), dtype=torch.int64,
                                          device=dev),
                       "tables": torch.zeros((rows, max_blocks),
-                                            dtype=torch.int32, device=dev)}
+                                            dtype=torch.int32, device=dev),
+                      **step_inputs(rows, model.cfg.vocab_size, dev,
+                                    poison=poison)}
 
             def fn():
                 """One paged decode step over all rows."""
@@ -397,7 +724,7 @@ class ServeSession:
                     params, pool, inputs["tokens"], inputs["pos"],
                     backend=backend, block_tables=inputs["tables"],
                     schedules=bundle)
-                return pick(lg[:, -1])
+                return step_pick(lg[:, -1], inputs)
 
             return CapturedStep(fn, dev, inputs=inputs,
                                 state=pool["layers"], capture=self.capture)
@@ -421,6 +748,7 @@ class ServeSession:
         dispatch, eb = self.dispatch, self._elem_bytes
         scheduled = dispatch is not None and backend == "cuda"
         attn_family = cfg.family == "dense"
+        faults = self._faults
 
         head = self._queue[0]
         s_pad = self._prompt_bucket(head)
@@ -458,7 +786,7 @@ class ServeSession:
 
         # The pool belongs to the geometry's decode steps, whose graphs
         # hold its addresses: every step of the geometry, whichever
-        # bundle it was built with (and ``generate``'s of an equal ssm
+        # bundle it was built with (and ``run_batch``'s of an equal ssm
         # geometry), holds the one pool, reused here, zeroed.  The step
         # itself is looked up at the first decode step, as the JAX
         # engine compiles it there.
@@ -501,6 +829,8 @@ class ServeSession:
         row_remaining = [0] * rows_n
         row_out: List[List[int]] = [[] for _ in range(rows_n)]
         row_wait = [0.0] * rows_n
+        # the terminal state a row retires with when not COMPLETED (poison
+        # rows, deadlines, cancellations): set before retire() reads it
         row_fate: Dict[int, Tuple[str, Optional[str]]] = {}
         pos_np = np.zeros((rows_n,), np.int32)
         tok_np = np.zeros((rows_n,), np.int32)
@@ -509,9 +839,26 @@ class ServeSession:
             engine_bucket, {"batches": 0, "tokens": 0, "decode_tokens": 0,
                             "decode_s": 0.0})
 
+        def free_row_blocks(r: int, rid: str) -> None:
+            """Release row r's pool blocks; an allocator invariant
+            violation (a double free) is recorded as an ``allocator``
+            event: the row is retiring anyway and the rest of the pool
+            stays live."""
+            try:
+                alloc.free(row_blocks[r])
+                if faults is not None and faults.double_free(
+                        self._step_count):
+                    alloc.free(row_blocks[r])
+            except ValueError as e:
+                log.warning("allocator error retiring %s: %s", rid, e)
+                self._event("allocator", step=self._step_count,
+                            request_id=rid, error=str(e))
+            tables_np[r, :] = 0
+
         def retire(r: int) -> None:
             """Finish row r (COMPLETED unless row_fate says otherwise),
-            free its blocks and emit its result."""
+            free its blocks and emit its result with the tokens it
+            delivered."""
             req = row_req[r]
             state, reason = row_fate.pop(r, (RequestState.COMPLETED, None))
             results.append(RequestResult(
@@ -524,17 +871,35 @@ class ServeSession:
             self.stats.tokens_generated += delivered
             entry["tokens"] += delivered
             self.stats.requests += 1
-            if state == RequestState.FAILED:
-                self.stats.failed += 1
+            self._count_terminal(state)
             self.stats.queue_s.append(row_wait[r])
+            self._running.discard(req.request_id)
+            self._cancelled.discard(req.request_id)
             if attn_family and row_blocks[r]:
-                alloc.free(row_blocks[r])
-                tables_np[r, :] = 0
+                free_row_blocks(r, req.request_id)
             row_req[r] = None
             row_blocks[r] = []
             row_out[r] = []
             pos_np[r] = 0
             tok_np[r] = 0
+
+        def fail_admission(req: Request, r: int, reason: str) -> None:
+            """Contain a prefill's non-finite logits to the one request:
+            free its blocks, emit a FAILED result, leave the row idle."""
+            log.warning("admission of %s failed: %s", req.request_id,
+                        reason)
+            self._event("admission_failure", step=self._step_count,
+                        request_id=req.request_id, error=reason)
+            if attn_family and row_blocks[r]:
+                free_row_blocks(r, req.request_id)
+                row_blocks[r] = []
+            results.append(RequestResult(
+                request_id=req.request_id,
+                tokens=np.zeros((0,), np.int32), bucket=engine_bucket,
+                queue_s=row_wait[r], stats=act_stats,
+                state=RequestState.FAILED, reason=reason))
+            self.stats.requests += 1
+            self._count_terminal(RequestState.FAILED)
 
         def place(pool_t: torch.Tensor, pre: torch.Tensor, r: int,
                   length: int, p_len: int) -> None:
@@ -582,20 +947,7 @@ class ServeSession:
             self.stats.prefill_s += dt
             if not finite:
                 self.stats.poisoned_rows += 1
-                log.warning("admission of %s failed: non-finite prefill "
-                            "logits", req.request_id)
-                if attn_family:
-                    alloc.free(row_blocks[r])
-                    row_blocks[r] = []
-                    tables_np[r, :] = 0
-                results.append(RequestResult(
-                    request_id=req.request_id,
-                    tokens=np.zeros((0,), np.int32), bucket=engine_bucket,
-                    queue_s=row_wait[r], stats=act_stats,
-                    state=RequestState.FAILED,
-                    reason="non-finite prefill logits"))
-                self.stats.requests += 1
-                self.stats.failed += 1
+                fail_admission(req, r, "non-finite prefill logits")
                 return False
             if attn_family:
                 for name in ("k", "v"):
@@ -611,6 +963,7 @@ class ServeSession:
             row_remaining[r] = req.max_new_tokens - 1
             pos_np[r] = length
             tok_np[r] = first
+            self._running.add(req.request_id)
             self.stats.inflight_admissions += 1
             self.stats.ttft_s.append(self._clock() - req.submitted_at)
             return True
@@ -619,8 +972,24 @@ class ServeSession:
         step_idx = 0
         counts = CommitCounts()
         while True:
+            inj_blocked = False
+            now = self._clock()
             for r in range(rows_n):
-                if row_req[r] is not None and row_remaining[r] <= 0:
+                req = row_req[r]
+                if req is None:
+                    continue
+                if row_remaining[r] <= 0:
+                    retire(r)
+                elif req.request_id in self._cancelled:
+                    row_fate[r] = (RequestState.CANCELLED,
+                                   "cancelled mid-decode")
+                    retire(r)
+                elif (req.deadline_s is not None
+                        and now - req.submitted_at > req.deadline_s):
+                    row_fate[r] = (
+                        RequestState.TIMED_OUT,
+                        f"deadline_s={req.deadline_s:g} blown mid-decode "
+                        f"after {len(row_out[r])} tokens")
                     retire(r)
             if (attn_family and alloc.num_live
                     and alloc.fragmentation() > 0.5):
@@ -633,27 +1002,48 @@ class ServeSession:
                     for p in pool["layers"].values():
                         p.copy_(p.index_select(1, gather))
                     self.stats.compactions += 1
-            while self._queue:
-                free_rows = [r for r in range(rows_n) if row_req[r] is None]
-                if not free_rows:
-                    break
-                nxt = self._queue[0]
-                if attn_family:
-                    needed = len(nxt.tokens) + nxt.max_new_tokens - 1
-                    nb = blocks_needed(needed, bs)
-                    if nb > alloc.n_blocks - 1:
-                        self._queue.pop(0)
-                        self._reject(nxt, f"needs {nb} KV blocks but the "
-                                     f"pool holds {alloc.n_blocks - 1}; "
-                                     f"raise kv_blocks", results)
-                        continue
-                    if needed > max_blocks * bs:
-                        break   # wider table: next activation
-                    if not alloc.can_fit(needed):
-                        break   # backpressure: wait for retirements
-                admit(self._queue.pop(0), free_rows[0])
+            self._sweep_queue(results)
+            if self._admission_hold > 0:
+                # a straggler hook asked to shrink admission: skip this
+                # boundary, serve only the rows already in flight
+                self._admission_hold -= 1
+            else:
+                while self._queue:
+                    free_rows = [r for r in range(rows_n)
+                                 if row_req[r] is None]
+                    if not free_rows:
+                        break
+                    nxt = self._queue[0]
+                    if attn_family:
+                        needed = len(nxt.tokens) + nxt.max_new_tokens - 1
+                        nb = blocks_needed(needed, bs)
+                        if nb > alloc.n_blocks - 1:
+                            self._queue.pop(0)
+                            self._finish_unadmitted(
+                                nxt, RequestState.REJECTED,
+                                f"needs {nb} KV blocks but the pool holds "
+                                f"{alloc.n_blocks - 1}; raise kv_blocks",
+                                results)
+                            continue
+                        if needed > max_blocks * bs:
+                            break   # wider table: next activation
+                        if faults is not None and faults.alloc_blocked(
+                                self._step_count):
+                            self._event("alloc_exhausted",
+                                        step=self._step_count)
+                            inj_blocked = True
+                            break   # injected exhaustion: backpressure
+                        if not alloc.can_fit(needed):
+                            break   # backpressure: wait for retirements
+                    if not admit(self._queue.pop(0), free_rows[0]):
+                        continue    # admission fault: row still free
             active = [r for r in range(rows_n) if row_req[r] is not None]
             if not active:
+                if inj_blocked and self._queue:
+                    # injected exhaustion with nothing in flight: count the
+                    # stalled boundary so the fault's window expires
+                    self._step_count += 1
+                    continue
                 break
             if not any(row_remaining[r] > 0 for r in active):
                 continue        # budget-1 admissions retire at loop top
@@ -669,11 +1059,19 @@ class ServeSession:
                         f"holds another state than its geometry's pool")
             if dec is not None:
                 dispatch.propose(*dec, eb)
-            t_step = time.perf_counter()
+            feed = {"tokens": tok_np}
             if attn_family:
-                step.feed(tokens=tok_np, pos=pos_np, tables=tables_np)
-            else:
-                step.feed(tokens=tok_np)
+                feed.update(pos=pos_np, tables=tables_np)
+            if faults is not None:
+                # the rows the injector poisons get NaN logits on the
+                # device, before the step's finite-flag reduction
+                poison = np.zeros((rows_n,), bool)
+                for rr in faults.nan_rows(self._step_count):
+                    if 0 <= rr < rows_n:
+                        poison[rr] = True
+                feed["poison"] = poison
+            t_step = time.perf_counter()
+            step.feed(**feed)
             # one copy to the host a step: it waits for the card
             new_tok, finite = step.replay().cpu().numpy()
             dt = time.perf_counter() - t_step
@@ -694,9 +1092,14 @@ class ServeSession:
                 pool = {"layers": step.state}
             for r in active:
                 if not finite[r]:
+                    # poison row: only this row retires, at the next
+                    # boundary; its batchmates' tokens are untouched
                     self.stats.poisoned_rows += 1
-                    row_fate[r] = (RequestState.FAILED,
-                                   f"non-finite logits at step {step_idx}")
+                    self._event("poison_row", step=self._step_count,
+                                request_id=row_req[r].request_id)
+                    row_fate[r] = (
+                        RequestState.FAILED,
+                        f"non-finite logits at step {self._step_count}")
                     row_remaining[r] = 0
                     continue
                 if row_remaining[r] > 0:
@@ -710,6 +1113,7 @@ class ServeSession:
                     entry["decode_tokens"] += 1
             self.stats.steps += 1
             step_idx += 1
+            self._record_step(dt)
             if on_step is not None:
                 on_step({"step": step_idx,
                          "active": [row_req[r].request_id
@@ -718,6 +1122,10 @@ class ServeSession:
                          "pending": len(self._queue),
                          "free_blocks": (alloc.num_free if attn_family
                                          else None)})
+        if faults is not None and step is not None:
+            # a poisoned last step leaves its mask in the step's input;
+            # run_batch may replay an ssm step of this geometry unfed
+            step.feed(poison=np.zeros((rows_n,), bool))
         act_stats.recompiles = counts.recompiles
         act_stats.recompile_s = counts.recompile_s
         if cur_bundle is not None:
@@ -728,7 +1136,234 @@ class ServeSession:
         self.stats.add_commits(counts)
         self.stats.batches += 1
         entry["batches"] += 1
+        if self.registry is not None and step_idx:
+            self._write_back(rows_n, s_pad, step_idx, act_stats)
         return results
+
+    # ---------------------------------------------- the bucketed path
+    def run_batch(self, batch: Dict[str, Any], *, max_new_tokens: int,
+                  temperature: Optional[float] = None,
+                  generator: Optional[torch.Generator] = None,
+                  total_len: Optional[int] = None,
+                  real_tokens: Optional[int] = None,
+                  seq_starts=None) -> Tuple[np.ndarray, Any]:
+        """Greedy (or sampled) continuation of one left-padded batch,
+        with its prefill and decode steps behind the executable cache
+        (the body of ``serve_loop.generate``).
+
+        ``batch["tokens"]`` is [B, S] (numpy or a CPU tensor);
+        ``seq_starts`` ([B], optional) marks each row's first real token
+        (zeros when not given, as the JAX session always threads them);
+        a row whose start is S holds no prompt token: every position of
+        it is masked, and it is a pad row.  ``total_len`` widens the
+        cache beyond ``S + max_new_tokens`` so that groups of other
+        budgets share the decode step.  ``real_tokens`` is the number of
+        tokens delivered to requests (``_drain_batched`` passes its
+        group's budgets): the session counts goodput, the returned
+        :class:`~repro_torch.runtime.serve_loop.ServeStats` the step's
+        ``B * max_new_tokens``.
+
+        ``temperature`` (None: the session's) above 0 samples each token
+        from ``softmax(logits / T)`` (Gumbel-max) on noise drawn from
+        ``generator`` (a ``torch.Generator`` on the params' device; None:
+        one seeded 0 for this call), through the steps keyed with the
+        detail :data:`~repro_torch.serving.captured.SAMPLED`.
+
+        A prefill and the cache copy are followed by ``max_new_tokens -
+        1`` decode steps, each synchronised and timed (the dispatch
+        service and the straggler monitor read it; the session's step
+        count, which the fault injector indexes, spans activations and
+        calls).  Returns (tokens [B, max_new_tokens] int32,
+        ServeStats)."""
+        # here, not at the top: the serve loop imports this package
+        from repro_torch.runtime.serve_loop import (CommitCounts, ServeStats,
+                                                    resolve_bundle_report,
+                                                    serve_dispatch_problems,
+                                                    switch_on_commit)
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        model, params, dev = self.model, self.params, self.device
+        cfg = model.cfg
+        backend, dispatch, eb = self.backend, self.dispatch, self._elem_bytes
+        scheduled = dispatch is not None and backend == "cuda"
+        temperature = (self.temperature if temperature is None
+                       else float(temperature))
+        sampled = temperature > 0.0
+        detail = SAMPLED if sampled else None
+        toks = np.asarray(batch["tokens"])
+        bsz, prompt_len = toks.shape
+        starts = (np.zeros((bsz,), np.int64) if seq_starts is None
+                  else np.asarray(seq_starts).reshape(bsz))
+        total = prompt_len + max_new_tokens
+        if total_len is not None:
+            if total_len < total:
+                raise ValueError(
+                    f"total_len {total_len} < prompt+new {total}")
+            total = int(total_len)
+        arch = cfg.name
+        recurrent = cfg.attention_free
+
+        problems = (serve_dispatch_problems(cfg, bsz, prompt_len, total)
+                    if dispatch is not None else {})
+        prefill_bundle = decode_bundle = None
+        if dispatch is not None:
+            # resolve both shapes before the timed steps: a warm registry
+            # answers with zero cost-model evaluations, a cold one pays
+            # one batch sweep here
+            for kind, problem in problems.values():
+                dispatch.resolve(kind, problem, eb)
+            if scheduled:
+                # one bundle per role: ssm prefill and decode are both
+                # ssm_scan at other shapes
+                prefill_bundle = dispatch.schedule_bundle(
+                    [problems["prefill"]], eb)
+                decode_bundle = dispatch.schedule_bundle(
+                    [problems["decode"]], eb)
+
+        def decode_key(bundle) -> ExecKey:
+            """Cache key of this batch shape's decode step."""
+            return ExecKey(arch, "decode", bsz, total, bundle, backend,
+                           detail)
+
+        def build_decode(bundle, state=None):
+            """Builder of the decode step under ``bundle`` over ``state``
+            (a running step's, when it replaces it), else over the state
+            of a cached step of its geometry (the engine's too, for a
+            greedy ssm step), else a new one: a geometry's steps hold
+            one state."""
+            def build():
+                """The step, over the geometry's state."""
+                live = state
+                if live is None:
+                    cached = self.exec_cache.peek_geometry(
+                        decode_key(bundle))
+                    live = None if cached is None else cached.state
+                if recurrent:
+                    return recurrent_decode_step(
+                        model, params, backend, bsz, self.capture,
+                        layers=live, schedules=bundle, sampled=sampled,
+                        poison=self._faults is not None and not sampled)
+                return contiguous_decode_step(
+                    model, params, backend, bsz, total, self.capture,
+                    schedules=bundle, cache=live, sampled=sampled)
+            return build
+
+        pf, _ = self._compile(
+            ExecKey(arch, "prefill", bsz, prompt_len, prefill_bundle,
+                    backend, detail),
+            lambda: prefill_step(model, params, backend, bsz, prompt_len,
+                                 self.capture, schedules=prefill_bundle,
+                                 sampled=sampled))
+        dec = None
+        if max_new_tokens > 1:
+            dec, _ = self._compile(decode_key(decode_bundle),
+                                   build_decode(decode_bundle))
+        if sampled:
+            gen = (generator if generator is not None
+                   else torch.Generator(device=dev).manual_seed(0))
+            for s in (pf, dec):
+                if s is not None:
+                    s.inputs["temperature"].fill_(temperature)
+
+        def draw(s: CapturedStep) -> None:
+            """A sampled step's uniform noise, outside its graph."""
+            if sampled:
+                noise = s.inputs["noise"]
+                torch.rand(noise.shape, generator=gen, out=noise)
+
+        if dispatch is not None:
+            dispatch.propose(*problems["prefill"], eb)
+        t0 = time.perf_counter()
+        draw(pf)
+        pf.feed(tokens=toks, starts=starts)
+        picked, pcache = pf.replay()
+        if dispatch is not None:
+            _sync(dev)
+            dispatch.observe(*problems["prefill"], time.perf_counter() - t0,
+                             eb)
+        out = torch.empty((bsz, max_new_tokens), dtype=torch.int64,
+                          device=dev)
+        out[:, 0].copy_(picked[0])
+        if dec is not None:
+            state, ins = dec.state, dec.inputs
+            for name, t in pcache["layers"].items():
+                if recurrent:
+                    state[name].copy_(t)
+                else:
+                    state[name].zero_()
+                    state[name][..., :prompt_len, :].copy_(t)
+            ins["tokens"].copy_(picked[0][:, None])
+            if not recurrent:
+                ins["pos"].fill_(prompt_len)
+                ins["starts"].copy_(pf.inputs["starts"])
+        _sync(dev)
+        prefill_s = time.perf_counter() - t0
+
+        counts = CommitCounts()
+        t1 = time.perf_counter()
+        for i in range(1, max_new_tokens):
+            t_step = time.perf_counter()
+            if dispatch is not None:
+                kind, problem = problems["decode"]
+                dispatch.propose(kind, problem, eb)
+            draw(dec)
+            out[:, i].copy_(dec.replay()[0])
+            _sync(dev)
+            dt = time.perf_counter() - t_step
+            self._record_step(dt)
+            if dispatch is not None:
+                dispatch.observe(kind, problem, dt, eb)
+                if scheduled:
+                    dec, decode_bundle = switch_on_commit(
+                        dec, decode_bundle, kind,
+                        dispatch.committed(kind, problem, eb),
+                        key_of=decode_key, build_of=build_decode,
+                        contains=self.exec_cache.contains,
+                        compile_=self._compile,
+                        max_recompiles=self.max_recompiles, counts=counts)
+        _sync(dev)
+        decode_s = time.perf_counter() - t1 - counts.recompile_s
+        report = (dict(resolve_bundle_report(prefill_bundle, decode_bundle))
+                  if prefill_bundle is not None else None)
+        stats = ServeStats(prefill_s=prefill_s, decode_s=decode_s,
+                           tokens_generated=bsz * max_new_tokens,
+                           backend=backend,
+                           decode_tokens=bsz * (max_new_tokens - 1),
+                           recompiles=counts.recompiles,
+                           recompile_s=counts.recompile_s, schedules=report)
+        if self.registry is not None:
+            self._write_back(bsz, prompt_len, max_new_tokens, stats)
+
+        # the session counts goodput: delivered tokens, not pad rows
+        if real_tokens is None:
+            delivered, decode_delivered = (stats.tokens_generated,
+                                           stats.decode_tokens)
+        else:
+            real_rows = int((starts < prompt_len).sum())
+            delivered = int(real_tokens)
+            decode_delivered = delivered - real_rows
+        self.stats.batches += 1
+        self.stats.prefill_s += prefill_s
+        self.stats.decode_s += decode_s
+        self.stats.tokens_generated += delivered
+        self.stats.decode_tokens += decode_delivered
+        self.stats.add_commits(counts)
+        entry = self.stats.per_bucket.setdefault(
+            Bucket(bsz, prompt_len, total),
+            {"batches": 0, "tokens": 0, "decode_tokens": 0,
+             "decode_s": 0.0})
+        entry["batches"] += 1
+        entry["tokens"] += delivered
+        entry["decode_tokens"] += decode_delivered
+        entry["decode_s"] += decode_s
+        self.stats.cache = self.exec_cache.stats()
+        return out.cpu().numpy().astype(np.int32), stats
+
+
+def _sync(device: torch.device) -> None:
+    """Wait for the card (no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 __all__ = ["Request", "RequestResult", "RequestState", "SessionStats",
