@@ -89,9 +89,29 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
    dispatch-aware bucket choice weighs its candidates: a session on
    the warm service and one without dispatch drain cold then warm, and
    the buckets each picked, steps, tok/s and token agreement are
-   reported;
-6. the same engine, ``generate``, profile and ``[dispatch_serve]``
-   phases on full-width,
+   reported; then ``[telemetry_overhead]``: warm drains of the 8
+   requests in turns on one session, telemetry off / on / on / off at
+   batch sizes (1, 2, 4), then on a session with a ``DispatchService``
+   at batch size 4 the watchdog and flight recorder unbound / bound /
+   bound / unbound over telemetry; every
+   drain's decode-step and boundary medians printed, the smaller of
+   the two pairs' on / off ratios gated at <= 1.05, the healthy drains
+   gated at 0 drifts, 0 SLO pages, 0 postmortems and equal tokens,
+   and two more drains with ``perf_counter`` around the watchdog's and
+   the recorder's taps (bound, then unbound), each tap's µs per step
+   and median and largest call, and the collector's passes, printed;
+   ``[trace_artifacts]``: one drain's trace, Prometheus text and
+   lifecycle JSON, accepted by ``tools/check_trace.py`` in a
+   subprocess (span and event counts printed); ``[watchdog_drift]``: a
+   dispatched engine at batch size 4 drains once clean (the step the
+   decode slot commits at, ``c``), then on a fresh service with
+   ``slow@(c+8)x4``, a watchdog (ratio 3, patience 2) and a recorder:
+   the drift alarm within patience steps of the fault, the reopen, the
+   re-commit and ``postmortem-drift.json`` naming the slot and both
+   schedules are gated, the recaptures and the token agreement with
+   the clean run printed;
+6. the same engine, ``generate``, profile, ``[dispatch_serve]`` and
+   observability phases on full-width,
    full-depth falcon-mamba-7b in bf16 (phi3's weights are freed first),
    through the selective-scan kernel: 64 launches per admission and per
    engine step;
@@ -109,7 +129,9 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
    both drains; and (``[exact_lifecycle]``) ``nan@3.1``, a cancel of a
    running and a queued request, greedy and sampled ``_drain_batched``
    must give equal states and tokens through graphs, eagerly and
-   through the plain path;
+   through the plain path; and (``[watchdog_drift]``) the drift loop of
+   phase 5 on 6 requests of 24 new tokens at batch size 2, with every
+   gate of phase 5, must give the plain path's tokens;
 8. the thesis path (run after phase 3): conv2d, matmul and the
    block-sparse conv at the widths of thesis Table 4.1 (batch 1 and 32),
    the GEMM form of its 1x1 layers, phi3-mini's QKV projection and the
@@ -1756,6 +1778,9 @@ def serve_phases(torch, dev, smi, arch, sched_times):
     # before the profiles: no profiler has run in the process yet when
     # the dispatched steps are timed, as when the engine phase ran
     dispatch_serve(torch, model, params, prompts, smi, sched_times)
+    # before the profiles too: observability's taps in turns, the drift
+    telemetry_overhead(torch, model, params, prompts, smi, cold["tokens"])
+    watchdog_drift(torch, model, params, prompts, smi)
     for m in MODES:
         profile_engine(torch, model, params, prompts[:4], m)
     cold = engine["graphs"]["cold"]
@@ -1869,6 +1894,7 @@ def run(torch, dev, timer, smi):
         exact_tokens(torch, dev, arch)
         exact_tokens_dispatch(torch, dev, arch)
         exact_lifecycle(torch, dev, arch)
+        exact_watchdog_drift(torch, dev, arch)
     return summary
 
 
@@ -3059,6 +3085,490 @@ def exact_lifecycle(torch, dev, arch):
           scenarios=json.dumps(list(got["plain"])), equal=True,
           states=json.dumps({k: {s: v.count(s) for s in set(v)}
                              for k, v in states.items()}))
+
+
+# ---------------------------------------------------------------------------
+# Observability: telemetry, the performance watchdog, the flight recorder
+# ---------------------------------------------------------------------------
+
+def timed_drain(torch, session, prompts, label, new_tokens=NEW_TOKENS):
+    """Serve ``prompts`` (ids ``r0``...) through ``session`` once.
+    Returns (tokens by id, each decode step's seconds, each boundary's
+    seconds): a step is the growth of ``stats.decode_s`` between two
+    ``on_step`` calls (the timed replay and its copy to the host), a
+    boundary the host's wall time between them (the whole loop: retire,
+    admit, the step and every tap after it)."""
+    steps, bounds = [], []
+    last = {"decode_s": session.stats.decode_s, "t": None}
+
+    def on_step(info):
+        """One step's and one boundary's time."""
+        now = time.perf_counter()
+        steps.append(session.stats.decode_s - last["decode_s"])
+        last["decode_s"] = session.stats.decode_s
+        if last["t"] is not None:
+            bounds.append(now - last["t"])
+        last["t"] = now
+
+    for i, p in enumerate(prompts):
+        session.submit(p, new_tokens, request_id=f"r{i}")
+    res = {r.request_id: r for r in session.drain(on_step=on_step)}
+    torch.cuda.synchronize()
+    bad = [r.request_id for r in res.values()
+           if r.state != "COMPLETED" or len(r.tokens) != new_tokens]
+    if len(res) != len(prompts) or bad:
+        fail(f"{label}: not completed: {bad}")
+    return {k: v.tokens.tolist() for k, v in res.items()}, steps, bounds
+
+
+def median_ms(xs):
+    """Median of seconds, in ms."""
+    import statistics
+    return 1e3 * statistics.median(xs)
+
+
+def in_turns(torch, session, modes, order, prompts, label, want=None):
+    """Warm drains of ``session`` (already drained once, cold) in
+    ``order``, each after ``modes[name]()`` switched it to that mode;
+    every drain's tokens must equal ``want`` (default: the first
+    drain's).  Returns ({name: {"step": [median ms a drain],
+    "boundary": [...]}}, the tokens)."""
+    out = {n: {"step": [], "boundary": []} for n in modes}
+    for name in order:
+        modes[name]()
+        tokens, steps, bounds = timed_drain(torch, session, prompts,
+                                            f"{label} {name}")
+        want = tokens if want is None else want
+        if tokens != want:
+            fail(f"{label} {name}: other tokens than the run it is held to")
+        out[name]["step"].append(median_ms(steps))
+        out[name]["boundary"].append(median_ms(bounds))
+    return out, want
+
+
+def min_ratio(ms, on, off, key):
+    """The smaller of the pairs' on / off ratios (noise only inflates
+    one: the cost of a tap is never negative)."""
+    return min(a / b for a, b in zip(ms[on][key], ms[off][key]))
+
+
+def tap_times(torch, session, svc, wd, rec, prompts, label, want):
+    """The watchdog's and the recorder's host time, timed at the taps:
+    one more warm drain with both bound and ``perf_counter`` around each
+    of their methods the session calls (and around the service's
+    ``baseline_time``, which ``observe_slot`` calls, and ``resolve``,
+    which the engine calls once more for ``observe_slot``'s slot); then
+    one with both unbound, for the resolves the step makes anyway.  Not
+    part of the ratios: the wrappers cost a call each.  Both drains'
+    tokens must equal ``want``.  Returns the phase fields: for each
+    method, µs per decode step, calls, and the median and largest call
+    in µs; and the collector's passes and ms in each drain (a pass
+    inside a tap lands in that tap's largest call)."""
+    taps = {wd: ("observe_slot", "note_step", "tick", "note_ttft",
+                 "note_queue", "note_terminal"),
+            rec: ("record_span", "record_metric", "note_allocator"),
+            svc: ("baseline_time", "resolve")}
+    calls = {}
+    collector = {"n": 0, "s": 0.0, "t0": 0.0}
+
+    def timed(obj, name):
+        """Shadow ``obj.name`` with a wrapper that logs each call's
+        seconds."""
+        fn = getattr(obj, name)
+
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                calls.setdefault(name, []).append(time.perf_counter() - t0)
+        setattr(obj, name, wrapped)
+
+    def on_gc(stage, info):
+        """The collector's passes and time."""
+        if stage == "start":
+            collector["t0"] = time.perf_counter()
+        else:
+            collector["n"] += 1
+            collector["s"] += time.perf_counter() - collector["t0"]
+
+    for obj, names in taps.items():
+        for name in names:
+            timed(obj, name)
+    gc.callbacks.append(on_gc)
+    out = {}
+    try:
+        for on in (True, False):
+            side = "on" if on else "off"
+            session._watchdog, session._recorder = (wd, rec) if on else (
+                None, None)
+            calls.clear()
+            collector.update(n=0, s=0.0)
+            tokens, steps, _ = timed_drain(torch, session, prompts,
+                                           f"{label} taps timed")
+            if tokens != want:
+                fail(f"{label} taps timed: other tokens than the turns'")
+            out["taps_" + side] = json.dumps({
+                k: {"us_per_step": round(1e6 * sum(v) / len(steps), 3),
+                    "calls": len(v),
+                    "median_us": round(1e6 * sorted(v)[len(v) // 2], 3),
+                    "max_us": round(1e6 * max(v), 3)}
+                for k, v in sorted(calls.items())})
+            out["taps_steps_" + side] = len(steps)
+            out["gc_passes_" + side] = collector["n"]
+            out["gc_ms_" + side] = round(1e3 * collector["s"], 3)
+    finally:
+        gc.callbacks.remove(on_gc)
+        for obj, names in taps.items():
+            for name in names:
+                delattr(obj, name)
+        session._watchdog, session._recorder = wd, rec
+    return out
+
+
+def telemetry_overhead(torch, model, params, prompts, smi, clean):
+    """``[telemetry_overhead]``: the engine phase's 8 requests, warm, in
+    turns off / on / on / off on one session with graphs (drained once
+    cold first, not timed), so that both sides replay the same graphs
+    over the same pool.  First telemetry (spans, lifecycle, histograms,
+    gauges: a fresh bundle swapped in for each on turn, the shared
+    disabled one for each off turn; batch sizes (1, 2, 4), no
+    dispatch; tokens equal to the engine phase's).  Then the watchdog
+    (SLOs ``ttft_p95<=10``, ``queue_p95<=10``, ``error_rate<=0.5``, the
+    decode slot's drift watch) and the flight recorder, unbound for the
+    off turns, over telemetry, on a session with a ``DispatchService``
+    at batch size 4 (as ``[dispatch_serve]``: the service's bucket
+    choice would move falcon-mamba to other rows); its committed
+    schedule runs in every timed drain.  Gated: the smaller ratio of
+    the two pairs' median decode step and median boundary <= 1.05;
+    the healthy drains fire no drift, page no SLO and dump nothing.
+    ``[trace_artifacts]``: the last telemetry turn's trace, Prometheus
+    text and lifecycle JSON, which ``tools/check_trace.py`` (a
+    subprocess; it imports neither package) must accept."""
+    import tempfile
+    from repro_torch.core import registry as reg
+    from repro_torch.obs import (NULL_TELEMETRY, FlightRecorder,
+                                 MetricsRegistry, PerformanceWatchdog,
+                                 Telemetry)
+    from repro_torch.runtime.dispatch import DispatchService
+    from repro_torch.serving import ServeSession
+
+    arch = model.cfg.name
+    free_card(torch)
+    label = f"{arch} [telemetry_overhead]"
+    sess = ServeSession(model, params, backend="cuda",
+                        batch_sizes=ENGINE_BATCH_SIZES)
+    if timed_drain(torch, sess, prompts, f"{label} cold")[0] != clean:
+        fail(f"{label} cold: other tokens than the engine phase's")
+
+    last = {}
+
+    def telemetry_on():
+        """A fresh bundle for this drain (the last is the artifacts')."""
+        sess.telemetry = last["bundle"] = Telemetry(
+            metrics=MetricsRegistry())
+        sess._register_instruments()
+
+    def telemetry_off():
+        sess.telemetry = NULL_TELEMETRY
+
+    tel_ms, _ = in_turns(torch, sess, {"off": telemetry_off,
+                                       "telemetry": telemetry_on},
+                         ["off", "telemetry", "telemetry", "off"],
+                         prompts, label, clean)
+
+    # [trace_artifacts]: the last telemetry drain's bundle
+    tel = last["bundle"]
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        trace, prom, life = (Path(tmp) / "trace.json",
+                             Path(tmp) / "metrics.prom",
+                             Path(tmp) / "lifecycle.json")
+        tel.tracer.write(str(trace))
+        tel.metrics.write_prometheus(str(prom))
+        life.write_text(json.dumps(tel.lifecycle.as_dicts()))
+        checked = subprocess.run(
+            [sys.executable, str(REPO / "tools" / "check_trace.py"),
+             "--trace", str(trace), "--metrics", str(prom),
+             "--lifecycle", str(life),
+             "--require", "serve_ttft_seconds",
+             "--require", "serve_decode_step_seconds",
+             "--require", "serve_requests_completed_total",
+             "--require", "serve_exec_cache_hits_total"],
+            capture_output=True, text=True, timeout=120)
+        sizes = {p.name: p.stat().st_size for p in (trace, prom, life)}
+    if checked.returncode != 0:
+        fail(f"{arch} [trace_artifacts]: check_trace.py refused the "
+             f"artifacts: {checked.stdout.strip()} {checked.stderr.strip()}")
+    events = tel.tracer.to_chrome()["traceEvents"]
+    names = {}
+    for e in events:
+        if e["ph"] == "X":
+            names[e["name"]] = names.get(e["name"], 0) + 1
+    recs = tel.lifecycle.as_dicts()
+    if len(recs) != len(prompts) or any(
+            r["state"] != "COMPLETED" or not r["ttft_s"] for r in recs):
+        fail(f"{arch} [trace_artifacts]: lifecycle records {recs}")
+    phase("trace_artifacts", arch=arch, card=repr(smi),
+          check_trace=repr(checked.stdout.strip()),
+          trace_events=len(events),
+          spans=sum(names.values()), span_counts=json.dumps(names),
+          instants=sum(e["ph"] == "i" for e in events),
+          request_tracks=sum(e["ph"] == "b" for e in events),
+          lifecycle_records=len(recs),
+          metric_families=len(tel.metrics.names()),
+          ttft_count=tel.metrics.histogram("serve.ttft_seconds").count,
+          decode_step_count=tel.metrics.histogram(
+              "serve.decode_step_seconds").count,
+          bytes=json.dumps(sizes))
+    del sess
+    free_card(torch)
+
+    # the watchdog and the recorder over telemetry, on a dispatched
+    # session: bound at construction, unbound for the off turns
+    svc = DispatchService(reg.TuningRegistry(None), device=params[
+        "embed"].device, metrics=MetricsRegistry())
+    wd = PerformanceWatchdog(("ttft_p95<=10", "queue_p95<=10",
+                              "error_rate<=0.5"))
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        rec = FlightRecorder(out_dir=str(Path(tmp) / "postmortems"))
+        sess = ServeSession(
+            model, params, backend="cuda", batch_sizes=(4,), dispatch=svc,
+            telemetry=Telemetry(metrics=MetricsRegistry()), watchdog=wd,
+            recorder=rec)
+        timed_drain(torch, sess, prompts, f"{label} dispatched cold")
+
+        def watchdog(on):
+            """Bind or unbind the watchdog and the recorder."""
+            def switch():
+                sess._watchdog, sess._recorder = (wd, rec) if on else (
+                    None, None)
+            return switch
+
+        steps0 = sess.stats.steps
+        wd_ms, wd_tokens = in_turns(torch, sess, {"telemetry": watchdog(False),
+                                          "watchdog": watchdog(True)},
+                            ["telemetry", "watchdog", "watchdog",
+                             "telemetry"], prompts, label)
+        steps = sess.stats.steps - steps0
+        taps = tap_times(torch, sess, svc, wd, rec, prompts, label,
+                         wd_tokens)
+        report = wd.report()
+        pages = sum(int(v["pages"]) for v in report["slo"].values())
+        events = [e.kind for e in sess.stats.events]
+        dumps = dict(rec.dumps)
+    if report["drifts"] or pages or dumps or events:
+        fail(f"{label}: a healthy drain drifted {report['drifts']}, paged "
+             f"{pages}, dumped {dumps}, events {events}")
+    if not report["slots"] or not svc.is_committed(next(iter(
+            report["slots"]))):
+        fail(f"{label}: the watchdog watched no committed slot "
+             f"({report['slots']})")
+    ratios = {"telemetry_step": min_ratio(tel_ms, "telemetry", "off",
+                                          "step"),
+              "telemetry_boundary": min_ratio(tel_ms, "telemetry", "off",
+                                              "boundary"),
+              "watchdog_step": min_ratio(wd_ms, "watchdog", "telemetry",
+                                         "step"),
+              "watchdog_boundary": min_ratio(wd_ms, "watchdog", "telemetry",
+                                             "boundary")}
+
+    def ms(x):
+        """Medians in ms, as a JSON list."""
+        return json.dumps([round(v, 4) for v in x])
+    phase("telemetry_overhead", arch=arch, card=repr(smi),
+          order="off telemetry telemetry off | telemetry watchdog watchdog "
+                "telemetry (one session each, drained cold first, not "
+                "timed)",
+          off_step_ms=ms(tel_ms["off"]["step"]),
+          telemetry_step_ms=ms(tel_ms["telemetry"]["step"]),
+          off_boundary_ms=ms(tel_ms["off"]["boundary"]),
+          telemetry_boundary_ms=ms(tel_ms["telemetry"]["boundary"]),
+          wd_control_step_ms=ms(wd_ms["telemetry"]["step"]),
+          watchdog_step_ms=ms(wd_ms["watchdog"]["step"]),
+          wd_control_boundary_ms=ms(wd_ms["telemetry"]["boundary"]),
+          watchdog_boundary_ms=ms(wd_ms["watchdog"]["boundary"]),
+          **{f"min_ratio_{k}": f"{v:.4f}" for k, v in ratios.items()},
+          **taps,
+          drifts=report["drifts"], slo_pages=pages, dumps=len(dumps),
+          slots_watched=len(report["slots"]), timed_steps=steps,
+          tokens_equal=True)
+    worst = max(ratios.values())
+    if worst > 1.05:
+        fail(f"{label}: min on/off ratio {worst:.4f} > 1.05 ({ratios})")
+    del sess, svc, wd, rec
+    free_card(torch)
+
+
+def drift_loop(torch, model, params, prompts, new_tokens, batch, label):
+    """``tests/test_watchdog.py``'s loop on the card: a dispatched engine
+    (graphs, a ``DispatchService`` on an in-memory registry and a private
+    metrics registry, ``max_recompiles=3``) drains ``prompts`` once
+    without a fault, which gives the step at which the decode slot
+    commits (``c``), then on a fresh service with ``slow@S x4``, S = c +
+    8 (past the two rounds of extra probes a later commit may take), a
+    watchdog (ratio 3, patience 2) and a flight recorder.  Gated: the
+    slot commits before S, the drift alarm fires within patience steps
+    of S, reopens the slot, which commits again by the drain's end, and
+    ``postmortem-drift.json`` names the slot, its old schedule and the
+    new one.  Returns the fields of its phase line and both runs'
+    tokens."""
+    import tempfile
+    from repro_torch.core import registry as reg
+    from repro_torch.obs import (FlightRecorder, MetricsRegistry,
+                                 PerformanceWatchdog, Telemetry)
+    from repro_torch.runtime.dispatch import DispatchService
+    from repro_torch.serving import FaultInjector, ServeSession
+
+    dev = params["embed"].device
+    kind = "ssm_scan" if model.cfg.attention_free else "decode_attention"
+
+    def decode_slot(svc):
+        """The engine's decode slot: of its kind, one token a row (the
+        scan), its rows, observed."""
+        for key, e in svc.measured_table().items():
+            p = e["problem"]
+            if (e["kind"] == kind and e["observations"]
+                    and p.get("b", p.get("bt")) == batch
+                    and p.get("seq", 1) == 1):
+                return key, p
+        return None, None
+
+    def run(spec=None, out_dir=None):
+        svc = DispatchService(reg.TuningRegistry(None), device=dev,
+                              metrics=MetricsRegistry())
+        wd = rec = None
+        if spec is not None:
+            wd = PerformanceWatchdog(ratio=3.0, patience=2)
+            rec = FlightRecorder(out_dir=out_dir)
+        s = ServeSession(
+            model, params, backend="cuda", batch_sizes=(batch,),
+            dispatch=svc, max_recompiles=3, straggler_threshold=1e9,
+            faults=(FaultInjector.from_strings([spec])
+                    if spec is not None else None),
+            telemetry=Telemetry(metrics=MetricsRegistry()), watchdog=wd,
+            recorder=rec)
+        trail = []          # (step, committed) whenever it changes
+        found = {}
+
+        def on_step(info):
+            """Note the decode slot's commit state after each step."""
+            if not found:
+                key, prob = decode_slot(svc)
+                if key is None:
+                    return
+                found.update(slot=key, problem=prob)
+            c = svc.is_committed(found["slot"])
+            if not trail or trail[-1][1] != c:
+                trail.append((s._step_count - 1, c))
+
+        for i, p in enumerate(prompts):
+            s.submit(p, new_tokens, request_id=f"r{i}")
+        res = {r.request_id: r for r in s.drain(on_step=on_step)}
+        torch.cuda.synchronize()
+        bad = [r.request_id for r in res.values()
+               if r.state != "COMPLETED" or len(r.tokens) != new_tokens]
+        if len(res) != len(prompts) or bad or not found:
+            fail(f"{label}: not completed: {bad}, decode slot {found}")
+        return (svc, found["slot"], found["problem"], wd, rec, s, trail,
+                {k: v.tokens.tolist() for k, v in res.items()})
+
+    _, _, prob, _, _, s0, trail0, clean = run()
+    commits0 = [st for st, c in trail0 if c]
+    if not commits0:
+        fail(f"{label}: the decode slot {prob} did not commit in "
+             f"{s0.stats.steps} steps")
+    start = commits0[0] + 8
+    spec = f"slow@{start}x4"
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        svc, slot, prob, wd, rec, s, trail, tokens = run(spec, tmp)
+        path = Path(tmp) / "postmortem-drift.json"
+        bundle = json.loads(path.read_text()) if path.exists() else None
+    drifts = [e for e in s.stats.events if e.kind == "drift"]
+    commits = [st for st, c in trail if c]
+    if not commits or commits[0] >= start:
+        fail(f"{label}: the decode slot committed at {commits[:1]}, not "
+             f"before the fault at step {start} (trail {trail})")
+    if not drifts or not start <= drifts[0].step <= start + wd.patience:
+        fail(f"{label}: drift events at "
+             f"{[e.step for e in drifts]}, want one in "
+             f"[{start}, {start + wd.patience}] ({wd.report()})")
+    ev = drifts[0]
+    reopened = [st for st, c in trail if not c and st >= ev.step]
+    if not ev.data["reopened"] or not reopened \
+            or svc.metrics.counter("dispatch.reopens_total").value < 1:
+        fail(f"{label}: the drift alarm did not reopen the slot "
+             f"({ev.as_dict()}, trail {trail})")
+    recommits = [st for st, c in trail if c and st > reopened[0]]
+    new = svc.committed_schedule(slot)
+    if not recommits or new is None:
+        fail(f"{label}: the reopened slot did not commit again "
+             f"(trail {trail})")
+    old = ev.data["old_schedule"]
+    bev = None if bundle is None else next(
+        (e for e in bundle["timeline"] if e.get("kind") == "drift"), None)
+    if (bev is None or bev["slot"] != slot or bev["old_schedule"] != old
+            or old is None
+            or bundle["schedules"][slot]["committed"] != new):
+        fail(f"{label}: postmortem-drift.json does not name the slot, "
+             f"the old schedule {old} and the new {new}: {bundle}")
+    flat = [(r, i) for r in sorted(clean) for i in range(new_tokens)]
+    agree = sum(tokens[r][i] == clean[r][i] for r, i in flat) / len(flat)
+    st = s.stats
+    fields = dict(
+        slot=repr(prob), kind=kind, fault=spec, commit_step=commits[0],
+        clean_commit_step=commits0[0], drift_step=ev.step,
+        drift_ratio=f"{ev.data['ratio']:.1f}",
+        baseline_ms=f"{1e3 * ev.data['baseline_s']:.4f}",
+        reopen_step=reopened[0], recommit_step=recommits[0],
+        old_schedule=json.dumps(old), new_schedule=json.dumps(new),
+        recaptures=st.recompiles, free_switches=st.free_switches,
+        commits_seen=st.commits_seen,
+        commits_total=int(svc.metrics.counter(
+            "dispatch.commits_total").value),
+        drifts=len(drifts), dumps=json.dumps(dict(rec.dumps)),
+        events=json.dumps([e.kind for e in st.events]),
+        steps=st.steps, token_agreement_with_clean=f"{agree:.4f}")
+    return fields, tokens, clean
+
+
+def watchdog_drift(torch, model, params, prompts, smi):
+    """``[watchdog_drift]``: :func:`drift_loop` on the full-size model at
+    batch size 4 over the engine phase's 8 requests; the tokens of the
+    faulted run beside the clean run's are reported, not gated (another
+    schedule sums bf16 in another order)."""
+    free_card(torch)
+    fields, _, _ = drift_loop(torch, model, params, prompts, NEW_TOKENS, 4,
+                              f"{model.cfg.name} [watchdog_drift]")
+    phase("watchdog_drift", arch=model.cfg.name, card=repr(smi), **fields)
+    free_card(torch)
+
+
+def exact_watchdog_drift(torch, dev, arch):
+    """Smoke config in float32: :func:`drift_loop` (6 requests, 24 new
+    tokens, batch size 2) must give the plain path's tokens, with the
+    drift, the reopen and the re-commit on the way."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeSession
+
+    scfg = get_config(arch)
+    smodel = build_model(scfg)
+    sparams = smodel.init(seed=0, device=dev)
+    prompts = prompts_of([40, 37, 51, 44, 33, 60], scfg.vocab_size, seed=6)
+    fields, tokens, clean = drift_loop(torch, smodel, sparams, prompts, 24, 2,
+                                       f"{arch} [watchdog_drift]")
+    plain = ServeSession(smodel, sparams, backend="plain", batch_sizes=(2,))
+    for i, p in enumerate(prompts):
+        plain.submit(p, 24, request_id=f"r{i}")
+    want = {r.request_id: r.tokens.tolist() for r in plain.drain()}
+    if tokens != want or clean != want:
+        fail(f"{arch} [watchdog_drift]: tokens differ from the plain "
+             f"path's")
+    phase("watchdog_drift", arch=scfg.name, dtype="float32",
+          equal_to_plain=True, **fields)
 
 
 def _leaves(tree):

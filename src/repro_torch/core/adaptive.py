@@ -67,6 +67,11 @@ class _Slot(Generic[S]):
     committed: Optional[S] = None
     next_candidate: int = 0
     registry_key: Optional[reg.RegistryKey] = None
+    # the winner's median at the commit, the one source of a committed
+    # slot's median (its samples stop there): a drift watch reads it
+    # every step, and recomputing it cost 80-250 us a call between
+    # steps on an H100 machine's host (PERF.md section 5)
+    committed_median: Optional[float] = None
 
 
 class AdaptiveSelector(Generic[S]):
@@ -148,6 +153,7 @@ class AdaptiveSelector(Generic[S]):
     def _commit(self, slot: _Slot, index: int, median_s: float) -> None:
         """Freeze the winner and write the measurement to the registry."""
         slot.committed = slot.candidates[index]
+        slot.committed_median = median_s
         if self.registry is not None and slot.registry_key is not None:
             self.registry.record_measurement(
                 slot.registry_key, reg.schedule_to_dict(slot.committed),
@@ -165,6 +171,7 @@ class AdaptiveSelector(Generic[S]):
         if slot is None or slot.committed is None:
             return False
         slot.committed = None
+        slot.committed_median = None
         slot.samples = {i: [] for i in range(len(slot.candidates))}
         slot.next_candidate = 0
         return True
@@ -176,9 +183,7 @@ class AdaptiveSelector(Generic[S]):
         if slot is None:
             return None
         if slot.committed is not None:
-            idx = slot.candidates.index(slot.committed)
-            if slot.samples.get(idx):
-                return warm_median(slot.samples[idx])
+            return slot.committed_median
         medians = [warm_median(v) for v in slot.samples.values() if v]
         return min(medians) if medians else None
 

@@ -23,11 +23,15 @@ to the cache length, plus the split ``decode_plan`` picks by itself; the
 scan ``block_d`` in SCAN_BLOCK_DS.
 
 ``cached_tune_*`` put the ranking behind the port's tuning registry: a
-warm hit performs zero cost-model evaluations.
+warm hit performs zero cost-model evaluations.  Each lookup counts on
+the process metrics registry (``tune.warm_hits_total``,
+``tune.sweeps_total``, ``tune.sweep_wall_s_total``,
+``tune.cost_model_evals_total``, the JAX package's names).
 """
 from __future__ import annotations
 
 import itertools
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,6 +44,7 @@ from repro_torch.core.schedule import (ConvSchedule, DecodeAttentionSchedule,
                                        MatmulSchedule, SSMScanSchedule,
                                        SparseConvSchedule)
 from repro_torch.kernels import _geometry as geo
+from repro_torch.obs.metrics import get_metrics_registry
 
 CONV_CHANNEL_TARGETS = (16, 32, 64, 128)
 CONV_PIXEL_TARGETS = (4, 8, 16)
@@ -251,6 +256,12 @@ def tune_ssm_scan(bt: int, seq: int, di: int, n: int,
             for i in _top(scored.time_s, scored.feasible, top_k)]
 
 
+def _tune_counter(name: str):
+    """A counter of the offline tuner on the process metrics registry."""
+    return get_metrics_registry().counter(
+        name, help="offline-tuner sweep accounting")
+
+
 def _ranked_to_value(ranked) -> Dict:
     """Registry value for a ranked (schedule, cost) list."""
     return {"schedules": [reg.schedule_to_dict(s) for s, _ in ranked],
@@ -286,9 +297,16 @@ def _cached_ranked(key: reg.RegistryKey, tune: Callable[[int], List],
     prev = registry.get(key)
     rec = None if refresh else prev
     if rec is not None and _has_ranked(rec.value, top_k):
+        _tune_counter("tune.warm_hits_total").inc()
         return _value_to_ranked(rec.value, top_k)
     want = max(top_k, 5)
+    evals0 = cm.total_evals()
+    t0 = time.perf_counter()
     ranked = tune(want)
+    _tune_counter("tune.sweeps_total").inc()
+    _tune_counter("tune.sweep_wall_s_total").inc(time.perf_counter() - t0)
+    _tune_counter("tune.cost_model_evals_total").inc(
+        cm.total_evals() - evals0)
     if not ranked:
         raise ValueError(f"no schedule of {key.kind} {key.problem_dict()} "
                          f"fits the kernel")

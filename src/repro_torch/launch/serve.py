@@ -35,6 +35,24 @@ prints its terminal state and reason when it did not complete, and a
         --arch phi3-mini-3.8b-smoke --session --inject-fault nan@1.0 \\
         --request-deadline-s 30 [--device cpu]
 
+Observability (the JAX CLI's flags): ``--trace-out PATH`` writes a
+Chrome trace-event / Perfetto JSON of the run (engine spans, one async
+track per request), ``--metrics-out PATH`` the metrics in Prometheus
+text; with ``--session``, ``--watchdog`` turns on drift detection over
+the dispatch slots and ``--slo SPEC`` (repeatable, implies
+``--watchdog``; ``ttft_p95<=S``, ``queue_p95<=S``, ``tok_s>=R``,
+``error_rate<=F``) burn-rate SLOs, which print a ``watchdog:`` line, and
+``--postmortem-dir DIR`` a flight recorder that dumps
+``postmortem-<reason>.json`` bundles there on faults, SLO pages and
+drift alarms (a ``postmortems:`` line names them).  Both artifacts pass
+``tools/check_trace.py``:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch phi3-mini-3.8b-smoke --session --dispatch \\
+        --registry /tmp/x/t.jsonl --trace-out /tmp/x/trace.json \\
+        --metrics-out /tmp/x/metrics.prom --slo 'ttft_p95<=10' \\
+        --postmortem-dir /tmp/x/pm [--device cpu]
+
 ``--dispatch`` runs the port's dispatch service (on ``--registry PATH``,
 else the port's default registry): it observes every prefill and decode
 step and, with ``--backend cuda``, its committed schedules key and
@@ -136,6 +154,28 @@ def main(argv=None) -> None:
                     help="tuning registry: the serve_decode write-back, "
                          "and --dispatch's (default for --dispatch: the "
                          "port's default registry)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome trace-event / Perfetto JSON of "
+                         "the run (engine spans + per-request tracks) "
+                         "to PATH")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the metrics registry in Prometheus text "
+                         "exposition format to PATH")
+    ap.add_argument("--watchdog", action="store_true",
+                    help="enable the performance watchdog: online drift "
+                         "detection over the dispatch slots (sustained "
+                         "breaches reopen the slot for re-tuning) plus "
+                         "SLO burn tracking (--session)")
+    ap.add_argument("--slo", action="append", default=None,
+                    metavar="SPEC",
+                    help="declarative SLO, repeatable (implies "
+                         "--watchdog): ttft_p95<=S, queue_p95<=S, "
+                         "tok_s>=R, error_rate<=F (--session)")
+    ap.add_argument("--postmortem-dir", default=None, metavar="DIR",
+                    help="enable the flight recorder: faults, SLO "
+                         "pages, and drift alarms dump a deterministic "
+                         "postmortem-<reason>.json bundle into DIR "
+                         "(--session)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -154,12 +194,30 @@ def main(argv=None) -> None:
           f"backend={args.backend}")
     from repro_torch.core.registry import TuningRegistry
     registry = TuningRegistry(args.registry) if args.registry else None
+    telemetry = None
+    if args.trace_out or args.metrics_out:
+        from repro_torch.obs import Telemetry
+        telemetry = Telemetry()
     dispatch = None
     if args.dispatch:
         from repro_torch.runtime.dispatch import DispatchService
         dispatch = DispatchService(
             registry if registry is not None
-            else TuningRegistry.default(), device=dev)
+            else TuningRegistry.default(), device=dev,
+            **({"metrics": telemetry.metrics, "tracer": telemetry.tracer}
+               if telemetry is not None else {}))
+
+    def write_telemetry() -> None:
+        """The trace and the metrics, where the flags asked."""
+        if telemetry is None:
+            return
+        if args.trace_out:
+            telemetry.tracer.write(args.trace_out)
+            print(f"trace written to {args.trace_out} "
+                  f"(load in Perfetto or chrome://tracing)")
+        if args.metrics_out:
+            telemetry.metrics.write_prometheus(args.metrics_out)
+            print(f"metrics written to {args.metrics_out}")
 
     def report(schedules) -> None:
         """The last steps' schedules and the service's slots."""
@@ -176,6 +234,14 @@ def main(argv=None) -> None:
     if args.session:
         from repro_torch.obs.events import format_event_summary
         from repro_torch.serving import FaultInjector, ServeSession
+        watchdog = None
+        if args.watchdog or args.slo:
+            from repro_torch.obs import PerformanceWatchdog
+            watchdog = PerformanceWatchdog(args.slo or ())
+        recorder = None
+        if args.postmortem_dir:
+            from repro_torch.obs import FlightRecorder
+            recorder = FlightRecorder(out_dir=args.postmortem_dir)
         session = ServeSession(
             model, params, backend=args.backend, registry=registry,
             batch_sizes=tuple(int(b) for b in args.batch_sizes.split(",")
@@ -187,7 +253,8 @@ def main(argv=None) -> None:
             request_deadline_s=args.request_deadline_s,
             max_queue_s=args.max_queue_s,
             faults=(FaultInjector.from_strings(args.inject_fault)
-                    if args.inject_fault else None))
+                    if args.inject_fault else None),
+            telemetry=telemetry, watchdog=watchdog, recorder=recorder)
         for toks, budget in _requests(args.requests_file,
                                       args.num_requests, args.prompt_len,
                                       args.new_tokens, cfg.vocab_size,
@@ -229,6 +296,23 @@ def main(argv=None) -> None:
         last = next((r.stats for r in reversed(results)
                      if r.stats is not None), None)
         report(None if last is None else last.schedules)
+        if watchdog is not None:
+            wrep = watchdog.report()
+            pages = sum(int(s["pages"]) for s in wrep["slo"].values())
+            line = (f"watchdog: drift={wrep['drifts']} "
+                    f"reopens={wrep['reopens']}/{wrep['retune_budget']} "
+                    f"slo_pages={pages}")
+            for name, s in sorted(wrep["slo"].items()):
+                line += (f" | {s['spec']}: burn "
+                         f"{s['burn_short']:.2f}/{s['burn_long']:.2f}"
+                         f"{' PAGED' if s['paged'] else ''}")
+            print(line)
+        if recorder is not None and recorder.dumps:
+            print("postmortems: " + ", ".join(
+                f"{reason} x{n}"
+                for reason, n in sorted(recorder.dumps.items()))
+                + f" (in {recorder.out_dir}/)")
+        write_telemetry()
         return
 
     tokens = torch.from_numpy(rng.integers(
@@ -243,6 +327,7 @@ def main(argv=None) -> None:
           f"decode {stats.decode_tok_s:.0f} tok/s; "
           f"backend={stats.backend} recompiles={stats.recompiles}")
     report(stats.schedules)
+    write_telemetry()
 
 
 if __name__ == "__main__":

@@ -31,7 +31,18 @@ The machine part of every slot's key is the service's :class:`H100Spec`
 the CPU is never filed where the card reads, nor the reverse.  The
 service always has an H100 spec (there is no TPU default), and it runs
 on the card unless it is given ``device="cpu"``.  Its lifecycle
-counters are plain integers on the service.
+counters are the ``dispatch.{resolves,proposals,observations,commits,
+reopens}_total`` counters of a :class:`~repro_torch.obs.metrics.
+MetricsRegistry` (the process registry unless it is given one, so that
+services share them), and ``svc.resolves`` and the like read the
+service's own share of them; a ``tracer`` gets a
+``dispatch.resolve`` span per cold resolution and ``dispatch.commit``
+and ``dispatch.reopen`` instants.  The performance watchdog
+(:mod:`repro_torch.obs.watchdog`) reads :meth:`DispatchService.
+is_committed`, :meth:`~DispatchService.baseline_time` and
+:meth:`~DispatchService.committed_schedule`, subscribes through
+``on_observe`` and flips a drifted slot back to exploration with
+:meth:`~DispatchService.reopen`.
 """
 from __future__ import annotations
 
@@ -49,6 +60,8 @@ from repro_torch.core import tuner
 from repro_torch.core.adaptive import AdaptiveSelector, warm_median
 from repro_torch.core.loopnest import ConvLayer
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.obs.metrics import MetricsRegistry, get_metrics_registry
+from repro_torch.obs.trace import NullTracer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,9 +188,14 @@ class DispatchService:
                  device: DeviceLike = None, top_k: int = 3,
                  probes_per_candidate: int = 3,
                  steadiness_threshold: float = 0.2,
-                 max_extra_probes: int = 2):
+                 max_extra_probes: int = 2,
+                 metrics: Optional[MetricsRegistry] = None,
+                 tracer: Optional[Any] = None):
         """Bind a registry, the H100 spec and the device; configure the
-        selector."""
+        selector.  ``metrics`` (default: the process metrics registry)
+        receives the ``dispatch.*`` counters; ``tracer`` (default: a
+        :class:`~repro_torch.obs.trace.NullTracer`) the spans and
+        instants."""
         self.registry = (registry if registry is not None
                          else reg.TuningRegistry.default())
         self.spec = spec if spec is not None else cm.H100Spec()
@@ -188,15 +206,51 @@ class DispatchService:
             probes_per_candidate=probes_per_candidate,
             steadiness_threshold=steadiness_threshold,
             max_extra_probes=max_extra_probes, registry=self.registry)
-        # lifecycle counters
-        self.resolves = 0
-        self.proposals = 0
-        self.observations = 0
-        self.commits = 0
+        self.metrics = (metrics if metrics is not None
+                        else get_metrics_registry())
+        self.tracer = tracer if tracer is not None else NullTracer()
+        hlp = "adaptive-dispatch lifecycle accounting"
+        self._counters = {
+            name: self.metrics.counter(f"dispatch.{name}_total", help=hlp)
+            for name in ("resolves", "proposals", "observations",
+                         "commits", "reopens")}
+        self._own = dict.fromkeys(self._counters, 0)
+        # called as (slot key, kind, dt) after every observation, outside
+        # the service lock: the watchdog subscribes here and may call
+        # back into the service (reopen)
+        self.on_observe: Optional[Callable[[str, str, float], None]] = None
         self._committed_seen: set = set()
         self._slots: Dict[str, _Resolved] = {}
         self._key_cache: Dict[tuple, str] = {}
         self._lock = threading.Lock()
+
+    def _count(self, name: str) -> None:
+        """One more ``dispatch.<name>_total``, and in this service's
+        own share of it."""
+        self._counters[name].inc()
+        self._own[name] += 1
+
+    # this service's share of the lifecycle counters, read-only
+    @property
+    def resolves(self) -> int:
+        """Slots resolved (``dispatch.resolves_total``)."""
+        return self._own["resolves"]
+
+    @property
+    def proposals(self) -> int:
+        """Schedules proposed (``dispatch.proposals_total``)."""
+        return self._own["proposals"]
+
+    @property
+    def observations(self) -> int:
+        """Times observed (``dispatch.observations_total``)."""
+        return self._own["observations"]
+
+    @property
+    def commits(self) -> int:
+        """Commits, each re-commit after a reopen counted again
+        (``dispatch.commits_total``)."""
+        return self._own["commits"]
 
     def resolve(self, kind: str, problem: Dict[str, Any],
                 elem_bytes: int = 2) -> str:
@@ -216,14 +270,16 @@ class DispatchService:
             if skey in self._slots:
                 self._key_cache[ckey] = skey
                 return skey
-        ranked = fam.tune(problem, self.spec, self.machine, elem_bytes,
-                          self.top_k, self.registry)
+        with (self.tracer.span("dispatch.resolve", kind=kind)
+              if self.tracer.enabled else contextlib.nullcontext()):
+            ranked = fam.tune(problem, self.spec, self.machine, elem_bytes,
+                              self.top_k, self.registry)
         rec = self.registry.get(rkey)
         tier = ((rec.value.get("tier") if rec is not None else None)
                 or reg.kind_tier(rkey.kind))
         with self._lock:
             if skey not in self._slots:
-                self.resolves += 1
+                self._count("resolves")
                 self.selector.register_ranked(skey, ranked,
                                               registry_key=rkey)
                 self._slots[skey] = _Resolved(
@@ -238,18 +294,23 @@ class DispatchService:
         """Schedule to use for this call (resolving if needed)."""
         skey = self.resolve(kind, problem, elem_bytes)
         with self._lock:
-            self.proposals += 1
+            self._count("proposals")
             return self.selector.propose(skey)
 
     def _after_observe(self, skey: str) -> None:
-        """Count the observation and a slot's first commit (under the
-        service lock)."""
-        self.observations += 1
-        self._slots[skey].observations += 1
+        """Count the observation; on the slot's None → committed
+        transition count the commit and emit a ``dispatch.commit``
+        instant (under the service lock)."""
+        self._count("observations")
+        slot = self._slots[skey]
+        slot.observations += 1
         if (skey not in self._committed_seen
                 and self.selector.committed(skey) is not None):
             self._committed_seen.add(skey)
-            self.commits += 1
+            self._count("commits")
+            if self.tracer.enabled:
+                self.tracer.instant("dispatch.commit", kind=slot.kind,
+                                    observations=slot.observations)
 
     def observe(self, kind: str, problem: Dict[str, Any], dt: float,
                 elem_bytes: int = 2) -> None:
@@ -259,6 +320,8 @@ class DispatchService:
         with self._lock:
             self.selector.observe(skey, dt)
             self._after_observe(skey)
+        if self.on_observe is not None:
+            self.on_observe(skey, kind, dt)
 
     @contextlib.contextmanager
     def measure(self, kind: str, problem: Dict[str, Any],
@@ -273,7 +336,7 @@ class DispatchService:
                              f"{self.device}, got a call on {device}")
         skey = self.resolve(kind, problem, elem_bytes)
         with self._lock:
-            self.proposals += 1
+            self._count("proposals")
             idx, sched = self.selector.propose_with_index(skey)
         t0 = time.perf_counter()
         yield sched
@@ -281,6 +344,8 @@ class DispatchService:
         with self._lock:
             self.selector.observe_at(skey, idx, dt)
             self._after_observe(skey)
+        if self.on_observe is not None:
+            self.on_observe(skey, kind, dt)
 
     def committed(self, kind: str, problem: Dict[str, Any],
                   elem_bytes: int = 2) -> Optional[Any]:
@@ -305,6 +370,56 @@ class DispatchService:
             except (KeyError, ValueError, TypeError):
                 pass
         return slot.candidates[0]
+
+    # -- the drift surface (obs/watchdog.py) --------------------------
+    def is_committed(self, slot: str) -> bool:
+        """Whether a resolved slot (by key) has a committed winner."""
+        return self.selector.committed(slot) is not None
+
+    def committed_schedule(self, slot: str) -> Optional[Dict[str, Any]]:
+        """A slot's committed schedule as a registry dict (None while
+        probing, and for unknown slots)."""
+        committed = self.selector.committed(slot)
+        return (reg.schedule_to_dict(committed)
+                if committed is not None else None)
+
+    def baseline_time(self, slot: str) -> Optional[float]:
+        """The committed schedule's expected time (seconds), which a
+        drift detector compares live times with: the median measured at
+        the commit, else the registry's persisted ``time_s``, else the
+        cost model's prediction for the committed candidate.  None while
+        the slot probes."""
+        committed = self.selector.committed(slot)
+        if committed is None:
+            return None
+        m = self._measured_for_slot(slot)
+        if m is not None:
+            return m
+        s = self._slots.get(slot)
+        if s is None:
+            return None
+        if committed in s.candidates:
+            return float(s.predicted[s.candidates.index(committed)])
+        return float(min(s.predicted)) if s.predicted else None
+
+    def reopen(self, slot: str) -> bool:
+        """Flip a committed slot (by key) back to exploration: the
+        selector drops its winner and every sample, the next proposals
+        probe the candidates from scratch, and the re-commit (possibly
+        another winner) counts in ``dispatch.commits_total`` and emits
+        its ``dispatch.commit`` instant like the first.  False for an
+        unknown or uncommitted slot."""
+        with self._lock:
+            if slot not in self._slots:
+                return False
+            if not self.selector.reopen(slot):
+                return False
+            self._committed_seen.discard(slot)
+            self._count("reopens")
+            if self.tracer.enabled:
+                self.tracer.instant("dispatch.reopen",
+                                    kind=self._slots[slot].kind)
+        return True
 
     def schedule_bundle(self, problems, elem_bytes: int = 2):
         """A :class:`~repro_torch.core.schedule.ScheduleBundle` for
@@ -339,6 +454,22 @@ class DispatchService:
         """Measured call time (seconds) for a shape, or None."""
         return self._measured_for_slot(self.resolve(kind, problem,
                                                     elem_bytes))
+
+    def measured_table(self) -> Dict[str, Dict[str, Any]]:
+        """Per-shape measured times: ``{slot key: {kind, problem,
+        measured_s, predicted_best_s, observations}}`` over every slot
+        resolved (``measured_s`` None while unmeasured)."""
+        out: Dict[str, Dict[str, Any]] = {}
+        for skey, slot in self._slots.items():
+            out[skey] = {
+                "kind": slot.kind,
+                "problem": dict(slot.problem),
+                "measured_s": self._measured_for_slot(skey),
+                "predicted_best_s": (min(slot.predicted)
+                                     if slot.predicted else None),
+                "observations": slot.observations,
+            }
+        return out
 
     def candidates(self, kind: str, problem: Dict[str, Any],
                    elem_bytes: int = 2) -> List[Any]:

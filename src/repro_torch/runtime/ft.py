@@ -8,13 +8,12 @@ monitor takes ``on_straggler``: the caller reads the event
 :meth:`StragglerMonitor.record` returns (a hook bound to the session
 would make the session cyclic garbage, freed by the collector at any
 time, possibly in the middle of a CUDA graph capture).  The JAX module's
-``run_with_restart`` belongs with training and its ``export_metrics``
-with the telemetry registry; neither is ported yet.
+``run_with_restart`` belongs with training and is not ported yet.
 """
 from __future__ import annotations
 
 import logging
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 from repro_torch.obs.events import Event
 
@@ -58,6 +57,19 @@ class StragglerMonitor:
             return event
         self.ewma = (1 - self.alpha) * self.ewma + self.alpha * duration
         return None
+
+    def summary(self) -> Dict[str, float]:
+        """JSON-ready snapshot: steps seen, current EWMA, event count."""
+        return {"steps": float(self._n),
+                "ewma_s": float(self.ewma or 0.0),
+                "events": float(len(self.events))}
+
+    def export_metrics(self, registry, prefix: str = "serve.straggler.",
+                       ) -> None:
+        """Publish :meth:`summary` as gauges on a
+        :class:`~repro_torch.obs.metrics.MetricsRegistry`."""
+        registry.set_gauges(self.summary(), prefix=prefix,
+                            help="straggler-monitor snapshot")
 
 
 __all__ = ["StragglerMonitor"]

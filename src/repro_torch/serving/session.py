@@ -93,11 +93,27 @@ each fault deterministically.  What the port does not catch: a build
 (warm-up and capture) is retried ``compile_retries`` times and then
 raises out of :meth:`drain` (the JAX session degrades the bucket to its
 reference backend), and a prefill or step that raises propagates (the
-JAX engine fails the rows in flight).  The JAX session's telemetry,
-watchdog and flight recorder are not ported yet.
+JAX engine fails the rows in flight).
+
+Observability (:mod:`repro_torch.obs`, the JAX session's taps at the
+same points): ``telemetry`` (a :class:`~repro_torch.obs.telemetry.
+Telemetry`) receives the ``serve.*`` counters, gauges and histograms,
+the spans ``serve.step``, ``serve.admit``, ``serve.prefill``,
+``serve.decode_step``, ``serve.compact``, ``serve.activation``,
+``serve.decode`` and ``serve.aot_compile`` (here a build: warm-up and
+capture) and one lifecycle record and async track per request; a
+``watchdog`` (:class:`~repro_torch.obs.watchdog.PerformanceWatchdog`)
+judges the decode slot's step times, fault-injected slowdowns included,
+and the SLO samples, and may reopen a drifted slot; a ``recorder``
+(:class:`~repro_torch.obs.recorder.FlightRecorder`) taps the event
+ledger and the step spans and dumps ``postmortem-<reason>.json`` on
+every event of ``POSTMORTEM_KINDS``.  Every tap runs on the host after
+the step's one copy to the host; none enters a captured graph.  With
+all three off the engine runs the same instruction stream on the card.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import logging
@@ -113,6 +129,8 @@ from repro_torch.models.model_zoo import (Model, bucket_length,
                                           left_pad_prompts, prompt_starts)
 from repro_torch.models.transformer import SERVED_FAMILIES
 from repro_torch.obs.events import Event
+from repro_torch.obs.recorder import POSTMORTEM_KINDS
+from repro_torch.obs.telemetry import NULL_TELEMETRY
 from repro_torch.runtime.ft import StragglerMonitor
 from repro_torch.serving.bucketing import (Bucket, candidate_buckets,
                                            pick_bucket)
@@ -129,6 +147,8 @@ log = logging.getLogger("repro_torch.serving")
 _REQUEST_IDS = itertools.count()
 # the bucket of a result that never reached an engine row
 _NULL_BUCKET = Bucket(0, 0, 0)
+# the span of every site while telemetry is off (one shared no-op)
+_NULL_SPAN = contextlib.nullcontext()
 
 
 class RequestState:
@@ -324,6 +344,19 @@ class ServeSession:
     ``faults`` (a :class:`~repro_torch.serving.faults.FaultInjector`,
     for tests; its steps take a poison-mask input, which a session
     without one does not build).
+
+    ``telemetry`` (default: the disabled ``NULL_TELEMETRY``), and
+    ``watchdog`` and ``recorder`` (default: the telemetry bundle's, else
+    None), as the module docstring says.  The session binds the
+    watchdog's dispatch, clock and metrics but no ``on_event`` (the JAX
+    session binds its ``_record_event``): it records the events
+    ``observe_slot`` and ``tick`` return where the JAX session's sink
+    would, so that no bound method of the session makes it cyclic
+    garbage and a watchdog used by several sessions reports each its
+    own events.  The drift watch is not shared: ``bind`` keeps the first
+    dispatch service it is given, so a watchdog judges only the slots of
+    the first session it was bound to, and a later session's slots go
+    unwatched (as in the JAX package).
     """
 
     def __init__(self, model: Model, params, *, backend: str = "cuda",
@@ -338,7 +371,8 @@ class ServeSession:
                  max_queue_s: Optional[float] = None,
                  compile_retries: int = 0, compile_backoff_s: float = 0.01,
                  straggler_threshold: float = 3.0,
-                 on_straggler=None, faults=None):
+                 on_straggler=None, faults=None, telemetry=None,
+                 watchdog=None, recorder=None):
         """Validate the knobs and start with an empty queue."""
         if model.cfg.family not in SERVED_FAMILIES:
             raise NotImplementedError(
@@ -396,14 +430,123 @@ class ServeSession:
         # make the session (and its graphs) cyclic garbage, which the
         # collector may free in the middle of another step's capture
         self._straggler = StragglerMonitor(threshold=straggler_threshold)
+        # every telemetry site guards on telemetry.enabled, every
+        # watchdog and recorder tap on `is not None`
+        self.telemetry = (telemetry if telemetry is not None
+                          else NULL_TELEMETRY)
+        self._watchdog = (watchdog if watchdog is not None
+                          else self.telemetry.watchdog)
+        self._recorder = (recorder if recorder is not None
+                          else self.telemetry.recorder)
+        if self._watchdog is not None:
+            self._watchdog.bind(
+                dispatch=dispatch, clock=self._clock,
+                metrics=(self.telemetry.metrics
+                         if self.telemetry.enabled else None))
+        if self._recorder is not None:
+            self._recorder.bind(clock=self._clock)
+        if self.telemetry.enabled:
+            self._register_instruments()
+
+    # ------------------------------------------------------ telemetry
+    def _register_instruments(self) -> None:
+        """Create the session's metric families (zero-valued), so that
+        the exports hold them before any traffic or fault."""
+        m = self.telemetry.metrics
+        m.counter("serve.requests_submitted_total",
+                  help="requests submitted to the session")
+        m.counter("serve.inflight_admissions_total",
+                  help="requests admitted at engine step boundaries")
+        m.counter("serve.events_total",
+                  help="structured operational events (faults, "
+                       "degradations, stragglers)")
+        m.counter("serve.exec_cache_hits_total",
+                  help="executable-cache hits")
+        m.counter("serve.exec_cache_misses_total",
+                  help="executable-cache misses")
+        # the JAX session's AOT fallback: the port never falls back, so
+        # the family stays 0
+        m.counter("serve.aot_fallbacks_total",
+                  help="AOT lowerings that fell back to the jit fn")
+        m.counter("serve.compile_retries_total",
+                  help="failed AOT attempts that were retried")
+        m.histogram("serve.ttft_seconds",
+                    help="submit -> first token latency, seconds")
+        m.histogram("serve.decode_step_seconds",
+                    help="engine decode step wall time, seconds")
+        m.gauge("serve.kv_blocks_live", help="paged-KV blocks in use")
+        m.gauge("serve.kv_blocks_free", help="paged-KV blocks free")
+        m.gauge("serve.kv_fragmentation",
+                help="paged-KV pool fragmentation [0,1]")
+
+    def _span(self, name: str, **args):
+        """The tracer's span while telemetry is on, else the shared
+        no-op context manager."""
+        tel = self.telemetry
+        if tel.enabled:
+            return tel.tracer.span(name, **args)
+        return _NULL_SPAN
 
     # ------------------------------------------------------- events
     def _event(self, kind: str, step: Optional[int] = None,
                request_id: Optional[str] = None, **data: Any) -> None:
         """Record one structured :class:`~repro_torch.obs.events.Event`."""
-        self.stats.events.append(Event(kind=kind, step=step,
-                                       request_id=request_id,
-                                       ts=self._clock(), data=data))
+        self._record_event(Event(kind=kind, step=step,
+                                 request_id=request_id,
+                                 ts=self._clock(), data=data))
+
+    def _record_event(self, ev: Event) -> None:
+        """Append an event to the ledger and mirror it into telemetry
+        (per-kind counters and a trace instant); with a flight recorder,
+        tap it into its ring and dump a postmortem for a kind of
+        ``POSTMORTEM_KINDS``."""
+        self.stats.events.append(ev)
+        tel = self.telemetry
+        if tel.enabled:
+            tel.metrics.counter("serve.events_total").inc()
+            tel.metrics.counter(f"serve.events.{ev.kind}_total").inc()
+            tel.tracer.instant(f"event:{ev.kind}", step=ev.step,
+                               request_id=ev.request_id)
+        rec = self._recorder
+        if rec is not None:
+            rec.record_event(ev)
+            if ev.kind in POSTMORTEM_KINDS:
+                self.dump_postmortem(ev.kind)
+
+    def _record_events(self, events) -> None:
+        """Record the events the watchdog returned (a drift alarm, SLO
+        pages), at the point the JAX session's sink records them."""
+        if events is None:
+            return
+        for ev in (events if isinstance(events, list) else [events]):
+            self._record_event(ev)
+
+    def dump_postmortem(self, reason: str) -> Optional[str]:
+        """Write ``postmortem-<reason>.json`` through the flight
+        recorder (None without one): its recent timeline and allocator
+        state, the dispatch service's report (the schedules and their
+        registry provenance), the watchdog's report and the lifecycle of
+        every request the timeline names.  Called when an event of
+        ``POSTMORTEM_KINDS`` is recorded, and again at the end of the
+        activation that dumped it, so that the file also shows what
+        recovery did (a re-tuned commit)."""
+        rec = self._recorder
+        if rec is None:
+            return None
+        context: Dict[str, Any] = {}
+        if self.dispatch is not None:
+            context["schedules"] = self.dispatch.report()
+        if self._watchdog is not None:
+            context["watchdog"] = self._watchdog.report()
+        tel = self.telemetry
+        if tel.enabled:
+            lifecycles = {}
+            for rid in rec.request_ids():
+                r = tel.lifecycle.records.get(rid)
+                if r is not None:
+                    lifecycles[rid] = r.as_dict()
+            context["request_lifecycles"] = lifecycles
+        return rec.dump(reason, context)
 
     # ------------------------------------------------------ admission
     def submit(self, tokens, max_new_tokens: int,
@@ -428,11 +571,17 @@ class ServeSession:
                 f"bucket {max(self.bucket_lengths)}")
         rid = (request_id if request_id is not None
                else f"req-{next(_REQUEST_IDS)}")
+        submitted_at = self._clock()
         self._queue.append(Request(
             tokens=prompt, max_new_tokens=int(max_new_tokens),
-            request_id=rid, submitted_at=self._clock(),
+            request_id=rid, submitted_at=submitted_at,
             deadline_s=(deadline_s if deadline_s is not None
                         else self.request_deadline_s)))
+        tel = self.telemetry
+        if tel.enabled:
+            tel.metrics.counter("serve.requests_submitted_total").inc()
+            tel.lifecycle.submitted(rid, submitted_at)
+            tel.tracer.async_begin("request", rid, request_id=rid)
         return rid
 
     def pending(self) -> int:
@@ -467,18 +616,31 @@ class ServeSession:
             self.stats.cancelled += 1
         elif state == RequestState.FAILED:
             self.stats.failed += 1
+        tel = self.telemetry
+        if tel.enabled:
+            tel.metrics.counter(
+                f"serve.requests_{state.lower()}_total").inc()
 
     def _finish_unadmitted(self, req: Request, state: str, reason: str,
                            sink: List[RequestResult]) -> None:
         """Terminal result for a request that never reached a row."""
         log.warning("request %s finished %s without admission: %s",
                     req.request_id, state, reason)
+        queue_s = self._clock() - req.submitted_at
         sink.append(RequestResult(
             request_id=req.request_id, tokens=np.zeros((0,), np.int32),
-            bucket=_NULL_BUCKET, queue_s=self._clock() - req.submitted_at,
+            bucket=_NULL_BUCKET, queue_s=queue_s,
             stats=None, state=state, reason=reason))
         self.stats.requests += 1
         self._count_terminal(state)
+        if self._watchdog is not None:
+            self._watchdog.note_queue(queue_s)
+            self._watchdog.note_terminal(state == RequestState.COMPLETED)
+        tel = self.telemetry
+        if tel.enabled:
+            tel.lifecycle.terminal(req.request_id, self._clock(),
+                                   state, reason)
+            tel.tracer.async_end("request", req.request_id, state=state)
 
     def _sweep_queue(self, sink: List[RequestResult]) -> None:
         """Queue-level terminal outcomes, applied at every admission
@@ -514,23 +676,40 @@ class ServeSession:
         out, self._done = self._done, []
         return out
 
-    def _record_step(self, dt: float) -> None:
-        """Report one decode step's time, plus the slowdown the injector
-        adds at this step, to the straggler monitor, and advance the
-        session's step count.  A straggler is ledgered, and admission is
-        held for the number of boundaries ``on_straggler`` returns."""
-        extra = (self._faults.slow_extra_s(self._step_count)
-                 if self._faults is not None else 0.0)
-        event = self._straggler.record(self._step_count, dt + extra)
+    def _slow_extra(self) -> float:
+        """The slowdown the injector adds to this step, read once a step
+        (each read logs a ``slow`` firing): the straggler monitor and the
+        watchdog judge ``dt + extra``, the dispatch service ``dt``."""
+        return (self._faults.slow_extra_s(self._step_count)
+                if self._faults is not None else 0.0)
+
+    def _record_step(self, dt: float, extra: float, tokens: int,
+                     slot=None) -> None:
+        """Report one decode step's time plus ``extra`` to the straggler
+        monitor, then (``slot``: ``(key, kind)``, the bucketed path) to
+        the watchdog's drift watch, then its tokens and time to the
+        watchdog's SLOs and the step's span to the flight recorder, and
+        advance the session's step count.  A straggler is recorded and
+        admission held for the boundaries ``on_straggler`` returns."""
+        step, late = self._step_count, dt + extra
+        event = self._straggler.record(step, late)
+        if event is not None:
+            self.stats.stragglers += 1
+            self._record_event(event)
+            if self.on_straggler is not None:
+                hold = self.on_straggler(event)
+                if isinstance(hold, int) and hold > 0:
+                    self._admission_hold = max(self._admission_hold, hold)
+        wd = self._watchdog
+        if wd is not None:
+            if slot is not None:
+                self._record_events(wd.observe_slot(*slot, late, step=step))
+            wd.note_step(tokens=tokens, dt=late)
+            self._record_events(wd.tick(step))
+        if self._recorder is not None:
+            self._recorder.record_span("serve.decode_step", step=step,
+                                       dur_s=late)
         self._step_count += 1
-        if event is None:
-            return
-        self.stats.stragglers += 1
-        self.stats.events.append(event)
-        if self.on_straggler is not None:
-            hold = self.on_straggler(event)
-            if isinstance(hold, int) and hold > 0:
-                self._admission_hold = max(self._admission_hold, hold)
 
     # ------------------------------------------------------ batching
     def _prompt_bucket(self, request: Request) -> int:
@@ -611,6 +790,7 @@ class ServeSession:
         completion through :meth:`run_batch`, repeat.  Queue-level
         outcomes only (a group runs whole, as in the JAX session)."""
         results: List[RequestResult] = []
+        tel = self.telemetry
         while self._queue:
             self._sweep_queue(results)
             if not self._queue:
@@ -632,7 +812,19 @@ class ServeSession:
             self.stats.requests += len(group)
             self.stats.queue_s.extend(waits)
             # the group's first tokens exist once its prefill finishes
-            self.stats.ttft_s.extend(w + stats.prefill_s for w in waits)
+            ttfts = [w + stats.prefill_s for w in waits]
+            self.stats.ttft_s.extend(ttfts)
+            if tel.enabled:
+                t_done = self._clock()
+                for r, w, tt in zip(group, waits, ttfts):
+                    tel.metrics.histogram("serve.ttft_seconds").observe(tt)
+                    tel.lifecycle.admitted(r.request_id, r.submitted_at + w)
+                    tel.lifecycle.token(r.request_id, r.submitted_at + tt,
+                                        n=r.max_new_tokens)
+                    tel.lifecycle.terminal(r.request_id, t_done,
+                                           RequestState.COMPLETED, None)
+                    tel.tracer.async_end("request", r.request_id,
+                                         state=RequestState.COMPLETED)
         return results
 
     # ------------------------------------------------------ execution
@@ -646,22 +838,27 @@ class ServeSession:
                 f"{'p' if key.role == 'prefill' else 't'}{key.length}]")
         delay = self.compile_backoff_s
         attempt = 0
-        while True:
-            try:
-                if self._faults is not None:
-                    self._faults.compile_fault(what)
-                return builder()
-            except Exception as e:
-                log.warning("build of %s failed (attempt %d/%d): %s", what,
-                            attempt + 1, 1 + self.compile_retries, e)
-                if attempt == self.compile_retries:
-                    self._event("compile_failure", what=what,
-                                error=repr(e))
-                    raise
-            self.stats.compile_retries += 1
-            attempt += 1
-            time.sleep(min(delay, 0.5))
-            delay *= 2
+        tel = self.telemetry
+        with self._span("serve.aot_compile", what=what):
+            while True:
+                try:
+                    if self._faults is not None:
+                        self._faults.compile_fault(what)
+                    return builder()
+                except Exception as e:
+                    log.warning("build of %s failed (attempt %d/%d): %s",
+                                what, attempt + 1, 1 + self.compile_retries,
+                                e)
+                    if attempt == self.compile_retries:
+                        self._event("compile_failure", what=what,
+                                    error=repr(e))
+                        raise
+                self.stats.compile_retries += 1
+                if tel.enabled:
+                    tel.metrics.counter("serve.compile_retries_total").inc()
+                attempt += 1
+                time.sleep(min(delay, 0.5))
+                delay *= 2
 
     def _compile(self, key: ExecKey, builder) -> Tuple[Any, bool]:
         """Step for ``key`` via the shared cache: ``(step, was_hit)``.
@@ -673,6 +870,11 @@ class ServeSession:
             self.stats.capture_s += step.build_s
             self.stats.graph_pool_bytes += step.pool_bytes
         self.stats.cache = self.exec_cache.stats()
+        tel = self.telemetry
+        if tel.enabled:
+            tel.metrics.counter(
+                "serve.exec_cache_hits_total" if hit
+                else "serve.exec_cache_misses_total").inc()
         return step, hit
 
     def _write_back(self, bsz: int, prompt_len: int, new_tokens: int,
@@ -749,6 +951,12 @@ class ServeSession:
         scheduled = dispatch is not None and backend == "cuda"
         attn_family = cfg.family == "dense"
         faults = self._faults
+        tel = self.telemetry
+        t_act0 = tel.clock() if tel.enabled else 0.0
+        # the postmortems dumped before this activation: a reason dumped
+        # during it is dumped again at its end
+        dumps0 = (dict(self._recorder.dumps)
+                  if self._recorder is not None else {})
 
         head = self._queue[0]
         s_pad = self._prompt_bucket(head)
@@ -873,6 +1081,15 @@ class ServeSession:
             self.stats.requests += 1
             self._count_terminal(state)
             self.stats.queue_s.append(row_wait[r])
+            if self._watchdog is not None:
+                self._watchdog.note_queue(row_wait[r])
+                self._watchdog.note_terminal(
+                    state == RequestState.COMPLETED)
+            if tel.enabled:
+                tel.lifecycle.terminal(req.request_id, self._clock(),
+                                       state, reason)
+                tel.tracer.async_end("request", req.request_id,
+                                     state=state)
             self._running.discard(req.request_id)
             self._cancelled.discard(req.request_id)
             if attn_family and row_blocks[r]:
@@ -900,6 +1117,13 @@ class ServeSession:
                 state=RequestState.FAILED, reason=reason))
             self.stats.requests += 1
             self._count_terminal(RequestState.FAILED)
+            if self._watchdog is not None:
+                self._watchdog.note_terminal(False)
+            if tel.enabled:
+                tel.lifecycle.terminal(req.request_id, self._clock(),
+                                       RequestState.FAILED, reason)
+                tel.tracer.async_end("request", req.request_id,
+                                     state=RequestState.FAILED)
 
         def place(pool_t: torch.Tensor, pre: torch.Tensor, r: int,
                   length: int, p_len: int) -> None:
@@ -926,6 +1150,7 @@ class ServeSession:
             length = len(req.tokens)
             p_len = self._prompt_bucket(req)
             row_wait[r] = self._clock() - req.submitted_at
+            t_adm0 = tel.clock() if tel.enabled else 0.0
             if attn_family:
                 nb = blocks_needed(length + req.max_new_tokens - 1, bs)
                 row_blocks[r] = alloc.alloc(nb)
@@ -934,6 +1159,7 @@ class ServeSession:
             pf, prob = prefill_for(p_len)
             if prob is not None:
                 dispatch.propose(*prob, eb)
+            t_pf0 = tel.clock() if tel.enabled else 0.0
             t0 = time.perf_counter()
             pf.feed(tokens=left_pad_prompts([req.tokens], p_len),
                     starts=np.asarray([p_len - length]))
@@ -941,6 +1167,10 @@ class ServeSession:
             # one copy to the host: it waits for the card
             first, finite = picked[:, 0].cpu().tolist()
             dt = time.perf_counter() - t0
+            if tel.enabled:
+                tel.tracer.complete("serve.prefill", t_pf0, tel.clock(),
+                                    request_id=req.request_id,
+                                    prompt_len=int(p_len))
             if prob is not None:
                 dispatch.observe(*prob, dt, eb)
             act_stats.prefill_s += dt
@@ -965,163 +1195,217 @@ class ServeSession:
             tok_np[r] = first
             self._running.add(req.request_id)
             self.stats.inflight_admissions += 1
-            self.stats.ttft_s.append(self._clock() - req.submitted_at)
+            # the batch-1 prefill made the first token here
+            now = self._clock()
+            self.stats.ttft_s.append(now - req.submitted_at)
+            if self._watchdog is not None:
+                self._watchdog.note_ttft(now - req.submitted_at)
+            if tel.enabled:
+                tel.metrics.counter("serve.inflight_admissions_total").inc()
+                tel.metrics.histogram("serve.ttft_seconds").observe(
+                    now - req.submitted_at)
+                tel.lifecycle.admitted(req.request_id,
+                                       req.submitted_at + row_wait[r])
+                tel.lifecycle.token(req.request_id, now)
+                tel.tracer.complete("serve.admit", t_adm0, tel.clock(),
+                                    request_id=req.request_id)
             return True
 
         step = None
         step_idx = 0
         counts = CommitCounts()
         while True:
-            inj_blocked = False
-            now = self._clock()
-            for r in range(rows_n):
-                req = row_req[r]
-                if req is None:
-                    continue
-                if row_remaining[r] <= 0:
-                    retire(r)
-                elif req.request_id in self._cancelled:
-                    row_fate[r] = (RequestState.CANCELLED,
-                                   "cancelled mid-decode")
-                    retire(r)
-                elif (req.deadline_s is not None
-                        and now - req.submitted_at > req.deadline_s):
-                    row_fate[r] = (
-                        RequestState.TIMED_OUT,
-                        f"deadline_s={req.deadline_s:g} blown mid-decode "
-                        f"after {len(row_out[r])} tokens")
-                    retire(r)
-            if (attn_family and alloc.num_live
-                    and alloc.fragmentation() > 0.5):
-                live = [row_blocks[r] for r in range(rows_n)
-                        if row_blocks[r]]
-                perm, moved = alloc.compact_tables(tables_np, live)
-                if moved:
-                    gather = torch.as_tensor(perm, dtype=torch.int64,
-                                             device=dev)
-                    for p in pool["layers"].values():
-                        p.copy_(p.index_select(1, gather))
-                    self.stats.compactions += 1
-            self._sweep_queue(results)
-            if self._admission_hold > 0:
-                # a straggler hook asked to shrink admission: skip this
-                # boundary, serve only the rows already in flight
-                self._admission_hold -= 1
-            else:
-                while self._queue:
-                    free_rows = [r for r in range(rows_n)
-                                 if row_req[r] is None]
-                    if not free_rows:
-                        break
-                    nxt = self._queue[0]
+            with self._span("serve.step", step=self._step_count):
+                inj_blocked = False
+                now = self._clock()
+                for r in range(rows_n):
+                    req = row_req[r]
+                    if req is None:
+                        continue
+                    if row_remaining[r] <= 0:
+                        retire(r)
+                    elif req.request_id in self._cancelled:
+                        row_fate[r] = (RequestState.CANCELLED,
+                                       "cancelled mid-decode")
+                        retire(r)
+                    elif (req.deadline_s is not None
+                            and now - req.submitted_at > req.deadline_s):
+                        row_fate[r] = (
+                            RequestState.TIMED_OUT,
+                            f"deadline_s={req.deadline_s:g} blown "
+                            f"mid-decode after {len(row_out[r])} tokens")
+                        retire(r)
+                if (attn_family and alloc.num_live
+                        and alloc.fragmentation() > 0.5):
+                    with self._span("serve.compact", step=self._step_count):
+                        live = [row_blocks[r] for r in range(rows_n)
+                                if row_blocks[r]]
+                        perm, moved = alloc.compact_tables(tables_np, live)
+                        if moved:
+                            gather = torch.as_tensor(
+                                perm, dtype=torch.int64, device=dev)
+                            for p in pool["layers"].values():
+                                p.copy_(p.index_select(1, gather))
+                            self.stats.compactions += 1
+                self._sweep_queue(results)
+                if self._admission_hold > 0:
+                    # a straggler hook asked to shrink admission: skip this
+                    # boundary, serve only the rows already in flight
+                    self._admission_hold -= 1
+                else:
+                    while self._queue:
+                        free_rows = [r for r in range(rows_n)
+                                     if row_req[r] is None]
+                        if not free_rows:
+                            break
+                        nxt = self._queue[0]
+                        if attn_family:
+                            needed = (len(nxt.tokens) + nxt.max_new_tokens
+                                      - 1)
+                            nb = blocks_needed(needed, bs)
+                            if nb > alloc.n_blocks - 1:
+                                self._queue.pop(0)
+                                self._finish_unadmitted(
+                                    nxt, RequestState.REJECTED,
+                                    f"needs {nb} KV blocks but the pool "
+                                    f"holds {alloc.n_blocks - 1}; raise "
+                                    f"kv_blocks", results)
+                                continue
+                            if needed > max_blocks * bs:
+                                break   # wider table: next activation
+                            if faults is not None and faults.alloc_blocked(
+                                    self._step_count):
+                                self._event("alloc_exhausted",
+                                            step=self._step_count)
+                                inj_blocked = True
+                                break   # injected exhaustion
+                            if not alloc.can_fit(needed):
+                                break   # backpressure: wait for retirements
+                        if not admit(self._queue.pop(0), free_rows[0]):
+                            continue    # admission fault: row still free
+                active = [r for r in range(rows_n) if row_req[r] is not None]
+                if not active:
+                    if inj_blocked and self._queue:
+                        # injected exhaustion with nothing in flight: count
+                        # the stalled boundary so the fault's window expires
+                        self._step_count += 1
+                        continue
+                    break
+                if not any(row_remaining[r] > 0 for r in active):
+                    continue        # budget-1 admissions retire at loop top
+                if step is None:
+                    step, _ = self._compile(
+                        decode_key(cur_bundle),
+                        self._decode_builder(pool, rows_n, max_blocks,
+                                             cur_bundle))
+                    if any(step.state[n] is not t
+                           for n, t in pool["layers"].items()):
+                        raise RuntimeError(
+                            f"the cached decode step "
+                            f"{decode_key(cur_bundle)} holds another state "
+                            f"than its geometry's pool")
+                if dec is not None:
+                    dispatch.propose(*dec, eb)
+                feed = {"tokens": tok_np}
+                if attn_family:
+                    feed.update(pos=pos_np, tables=tables_np)
+                if faults is not None:
+                    # the rows the injector poisons get NaN logits on the
+                    # device, before the step's finite-flag reduction
+                    poison = np.zeros((rows_n,), bool)
+                    for rr in faults.nan_rows(self._step_count):
+                        if 0 <= rr < rows_n:
+                            poison[rr] = True
+                    feed["poison"] = poison
+                t_dec0 = tel.clock() if tel.enabled else 0.0
+                t_step = time.perf_counter()
+                step.feed(**feed)
+                # one copy to the host a step: it waits for the card; every
+                # tap below runs after it, on the host
+                new_tok, finite = step.replay().cpu().numpy()
+                dt = time.perf_counter() - t_step
+                extra = self._slow_extra()
+                act_stats.decode_s += dt
+                self.stats.decode_s += dt
+                entry["decode_s"] += dt
+                if tel.enabled:
+                    tel.tracer.complete("serve.decode_step", t_dec0,
+                                        tel.clock(), step=self._step_count,
+                                        rows=len(active))
+                    tel.metrics.histogram(
+                        "serve.decode_step_seconds").observe(dt)
+                if dec is not None:
+                    dispatch.observe(*dec, dt, eb)
+                    if self._watchdog is not None:
+                        # the watchdog judges what the step cost with the
+                        # injected slowdown; the service's medians keep dt
+                        self._record_events(self._watchdog.observe_slot(
+                            dispatch.resolve(*dec, eb), dec[0], dt + extra,
+                            step=self._step_count))
+                if scheduled:
+                    step, cur_bundle = switch_on_commit(
+                        step, cur_bundle, dec[0],
+                        dispatch.committed(*dec, eb), key_of=decode_key,
+                        build_of=lambda b, state: self._decode_builder(
+                            {"layers": state}, rows_n, max_blocks, b),
+                        contains=self.exec_cache.contains,
+                        compile_=self._compile,
+                        max_recompiles=self.max_recompiles, counts=counts)
+                    pool = {"layers": step.state}
+                t_tok = self._clock() if tel.enabled else 0.0
+                for r in active:
+                    if not finite[r]:
+                        # poison row: only this row retires, at the next
+                        # boundary; its batchmates' tokens are untouched
+                        self.stats.poisoned_rows += 1
+                        self._event("poison_row", step=self._step_count,
+                                    request_id=row_req[r].request_id)
+                        row_fate[r] = (
+                            RequestState.FAILED,
+                            f"non-finite logits at step {self._step_count}")
+                        row_remaining[r] = 0
+                        continue
+                    if row_remaining[r] > 0:
+                        t = int(new_tok[r])
+                        row_out[r].append(t)
+                        tok_np[r] = t
+                        pos_np[r] += 1
+                        row_remaining[r] -= 1
+                        act_stats.decode_tokens += 1
+                        self.stats.decode_tokens += 1
+                        entry["decode_tokens"] += 1
+                        if tel.enabled:
+                            rid = row_req[r].request_id
+                            tel.lifecycle.token(rid, t_tok)
+                            tel.lifecycle.decode_step(rid)
+                self.stats.steps += 1
+                step_idx += 1
+                self._record_step(dt, extra, len(active))
+                rec = self._recorder
+                if rec is not None:
+                    rec.record_metric("serve.tokens_generated_total",
+                                      self.stats.tokens_generated)
                     if attn_family:
-                        needed = len(nxt.tokens) + nxt.max_new_tokens - 1
-                        nb = blocks_needed(needed, bs)
-                        if nb > alloc.n_blocks - 1:
-                            self._queue.pop(0)
-                            self._finish_unadmitted(
-                                nxt, RequestState.REJECTED,
-                                f"needs {nb} KV blocks but the pool holds "
-                                f"{alloc.n_blocks - 1}; raise kv_blocks",
-                                results)
-                            continue
-                        if needed > max_blocks * bs:
-                            break   # wider table: next activation
-                        if faults is not None and faults.alloc_blocked(
-                                self._step_count):
-                            self._event("alloc_exhausted",
-                                        step=self._step_count)
-                            inj_blocked = True
-                            break   # injected exhaustion: backpressure
-                        if not alloc.can_fit(needed):
-                            break   # backpressure: wait for retirements
-                    if not admit(self._queue.pop(0), free_rows[0]):
-                        continue    # admission fault: row still free
-            active = [r for r in range(rows_n) if row_req[r] is not None]
-            if not active:
-                if inj_blocked and self._queue:
-                    # injected exhaustion with nothing in flight: count the
-                    # stalled boundary so the fault's window expires
-                    self._step_count += 1
-                    continue
-                break
-            if not any(row_remaining[r] > 0 for r in active):
-                continue        # budget-1 admissions retire at loop top
-            if step is None:
-                step, _ = self._compile(
-                    decode_key(cur_bundle),
-                    self._decode_builder(pool, rows_n, max_blocks,
-                                         cur_bundle))
-                if any(step.state[n] is not t
-                       for n, t in pool["layers"].items()):
-                    raise RuntimeError(
-                        f"the cached decode step {decode_key(cur_bundle)} "
-                        f"holds another state than its geometry's pool")
-            if dec is not None:
-                dispatch.propose(*dec, eb)
-            feed = {"tokens": tok_np}
-            if attn_family:
-                feed.update(pos=pos_np, tables=tables_np)
-            if faults is not None:
-                # the rows the injector poisons get NaN logits on the
-                # device, before the step's finite-flag reduction
-                poison = np.zeros((rows_n,), bool)
-                for rr in faults.nan_rows(self._step_count):
-                    if 0 <= rr < rows_n:
-                        poison[rr] = True
-                feed["poison"] = poison
-            t_step = time.perf_counter()
-            step.feed(**feed)
-            # one copy to the host a step: it waits for the card
-            new_tok, finite = step.replay().cpu().numpy()
-            dt = time.perf_counter() - t_step
-            act_stats.decode_s += dt
-            self.stats.decode_s += dt
-            entry["decode_s"] += dt
-            if dec is not None:
-                dispatch.observe(*dec, dt, eb)
-            if scheduled:
-                step, cur_bundle = switch_on_commit(
-                    step, cur_bundle, dec[0], dispatch.committed(*dec, eb),
-                    key_of=decode_key,
-                    build_of=lambda b, state: self._decode_builder(
-                        {"layers": state}, rows_n, max_blocks, b),
-                    contains=self.exec_cache.contains,
-                    compile_=self._compile,
-                    max_recompiles=self.max_recompiles, counts=counts)
-                pool = {"layers": step.state}
-            for r in active:
-                if not finite[r]:
-                    # poison row: only this row retires, at the next
-                    # boundary; its batchmates' tokens are untouched
-                    self.stats.poisoned_rows += 1
-                    self._event("poison_row", step=self._step_count,
-                                request_id=row_req[r].request_id)
-                    row_fate[r] = (
-                        RequestState.FAILED,
-                        f"non-finite logits at step {self._step_count}")
-                    row_remaining[r] = 0
-                    continue
-                if row_remaining[r] > 0:
-                    t = int(new_tok[r])
-                    row_out[r].append(t)
-                    tok_np[r] = t
-                    pos_np[r] += 1
-                    row_remaining[r] -= 1
-                    act_stats.decode_tokens += 1
-                    self.stats.decode_tokens += 1
-                    entry["decode_tokens"] += 1
-            self.stats.steps += 1
-            step_idx += 1
-            self._record_step(dt)
-            if on_step is not None:
-                on_step({"step": step_idx,
-                         "active": [row_req[r].request_id
-                                    for r in range(rows_n)
-                                    if row_req[r] is not None],
-                         "pending": len(self._queue),
-                         "free_blocks": (alloc.num_free if attn_family
-                                         else None)})
+                        rec.note_allocator({
+                            "blocks_total": alloc.n_blocks,
+                            "blocks_live": alloc.num_live,
+                            "blocks_free": alloc.num_free,
+                            "fragmentation": alloc.fragmentation()})
+                if tel.enabled and attn_family:
+                    tel.metrics.gauge("serve.kv_blocks_live").set(
+                        alloc.num_live)
+                    tel.metrics.gauge("serve.kv_blocks_free").set(
+                        alloc.num_free)
+                    tel.metrics.gauge("serve.kv_fragmentation").set(
+                        alloc.fragmentation())
+                if on_step is not None:
+                    on_step({"step": step_idx,
+                             "active": [row_req[r].request_id
+                                        for r in range(rows_n)
+                                        if row_req[r] is not None],
+                             "pending": len(self._queue),
+                             "free_blocks": (alloc.num_free if attn_family
+                                             else None)})
         if faults is not None and step is not None:
             # a poisoned last step leaves its mask in the step's input;
             # run_batch may replay an ssm step of this geometry unfed
@@ -1136,8 +1420,21 @@ class ServeSession:
         self.stats.add_commits(counts)
         self.stats.batches += 1
         entry["batches"] += 1
+        self.stats.cache = self.exec_cache.stats()
+        if tel.enabled:
+            tel.metrics.set_gauges(dict(self.stats.cache),
+                                   prefix="serve.exec_cache.",
+                                   help="executable-cache snapshot")
+            self._straggler.export_metrics(tel.metrics)
+            tel.tracer.complete("serve.activation", t_act0, tel.clock(),
+                                rows=int(rows_n), prompt_bucket=int(s_pad),
+                                steps=int(step_idx))
         if self.registry is not None and step_idx:
             self._write_back(rows_n, s_pad, step_idx, act_stats)
+        if self._recorder is not None:
+            for reason, n in sorted(self._recorder.dumps.items()):
+                if n > dumps0.get(reason, 0):
+                    self.dump_postmortem(reason)
         return results
 
     # ---------------------------------------------- the bucketed path
@@ -1273,6 +1570,8 @@ class ServeSession:
 
         if dispatch is not None:
             dispatch.propose(*problems["prefill"], eb)
+        tel = self.telemetry
+        t_pf0 = tel.clock() if tel.enabled else 0.0
         t0 = time.perf_counter()
         draw(pf)
         pf.feed(tokens=toks, starts=starts)
@@ -1298,8 +1597,13 @@ class ServeSession:
                 ins["starts"].copy_(pf.inputs["starts"])
         _sync(dev)
         prefill_s = time.perf_counter() - t0
+        if tel.enabled:
+            tel.tracer.complete("serve.prefill", t_pf0, tel.clock(),
+                                batch=int(bsz), prompt_len=int(prompt_len))
 
         counts = CommitCounts()
+        watched = self._watchdog is not None and dispatch is not None
+        t_dec0 = tel.clock() if tel.enabled else 0.0
         t1 = time.perf_counter()
         for i in range(1, max_new_tokens):
             t_step = time.perf_counter()
@@ -1310,7 +1614,10 @@ class ServeSession:
             out[:, i].copy_(dec.replay()[0])
             _sync(dev)
             dt = time.perf_counter() - t_step
-            self._record_step(dt)
+            self._record_step(
+                dt, self._slow_extra(), bsz,
+                slot=((dispatch.resolve(kind, problem, eb), kind)
+                      if watched else None))
             if dispatch is not None:
                 dispatch.observe(kind, problem, dt, eb)
                 if scheduled:
@@ -1323,6 +1630,10 @@ class ServeSession:
                         max_recompiles=self.max_recompiles, counts=counts)
         _sync(dev)
         decode_s = time.perf_counter() - t1 - counts.recompile_s
+        if tel.enabled:
+            tel.tracer.complete("serve.decode", t_dec0, tel.clock(),
+                                batch=int(bsz),
+                                steps=int(max_new_tokens - 1))
         report = (dict(resolve_bundle_report(prefill_bundle, decode_bundle))
                   if prefill_bundle is not None else None)
         stats = ServeStats(prefill_s=prefill_s, decode_s=decode_s,
