@@ -81,12 +81,12 @@ class ModelConfig:
         return self.family == "ssm"
 
     def param_count(self) -> int:
-        """Parameter count (embedding, layers, head) of a dense or ssm
-        decoder; the families the port does not serve yet raise."""
-        if self.family not in ("dense", "ssm"):
+        """Parameter count (embedding, layers, head) of a dense, moe or
+        ssm decoder; the families the port does not serve yet raise."""
+        if self.family not in ("dense", "moe", "ssm"):
             raise NotImplementedError(
-                f"param_count is ported for the dense and ssm families "
-                f"only, got {self.family!r}")
+                f"param_count is ported for the dense, moe and ssm "
+                f"families only, got {self.family!r}")
         d, f, v = self.d_model, self.d_ff, self.vocab_size
         if self.family == "ssm":
             di, st, dr = self.d_inner, self.ssm_state, self.resolved_dt_rank
@@ -98,6 +98,11 @@ class ModelConfig:
             attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
                 + self.n_heads * hd * d
             per_layer = attn + (3 if self.mlp_type == "swiglu" else 2) * d * f
+            if self.n_experts:
+                ef = self.moe_d_ff or f
+                routed = self.n_experts * 3 * d * ef
+                shared = self.n_shared_experts * 3 * d * ef
+                per_layer = attn + routed + shared + d * self.n_experts
         emb = v * d * (1 if self.tie_embeddings else 2)
         return self.n_layers * per_layer + emb
 

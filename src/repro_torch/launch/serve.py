@@ -17,19 +17,32 @@ in-flight engine with ``--session``.
         --arch phi3-mini-3.8b-smoke --session --dispatch \\
         --registry /tmp/x/t.jsonl [--device cpu]
 
-Both families run in both modes: ``phi3-mini-3.8b[-smoke]`` (dense, the
-attention kernels) and ``falcon-mamba-7b[-smoke]`` (ssm, the
-selective-scan kernel; the paged-KV flags do not apply to it).
+Every registered architecture runs in both modes (``-smoke`` for the
+small float32 copy): the dense ``phi3-mini-3.8b``, ``qwen3-32b``,
+``minitron-4b`` and ``nemotron-4-15b`` and the moe ``qwen2-moe-a2.7b``
+and ``llama4-scout-17b-a16e`` (the attention kernels), and the ssm
+``falcon-mamba-7b`` (the selective-scan kernel; the paged-KV flags do
+not apply to it).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch qwen2-moe-a2.7b-smoke --session [--device cpu]
 
 ``--session`` takes the JAX CLI's request and fault flags:
 ``--requests-file`` (JSON lines, ``{"prompt_len": N, "new_tokens": M}``
 or ``{"tokens": [...], "new_tokens": M}``), ``--temperature`` (above 0
 the session serves through the bucketed path, sampled),
 ``--cache-capacity``, ``--max-recompiles``, ``--request-deadline-s``,
-``--max-queue-s`` and ``--inject-fault kind@step[xTIMES][.ROW]``
-(repeatable; kinds compile, nan, alloc, slow, doublefree).  Each request
-prints its terminal state and reason when it did not complete, and a
-``faults:`` line sums the session's events.
+``--max-queue-s``, ``--fallback-backend {eager,none}`` (after a build's
+last failed attempt, ``eager`` degrades the bucket to its uncaptured
+step; ``none``, the default, raises; the JAX CLI's default degrades) and
+``--inject-fault kind@step[xTIMES][.ROW]`` (repeatable; kinds compile,
+nan, alloc, slow, doublefree).  Each request prints its terminal state
+and reason when it did not complete, and a ``faults:`` line sums the
+session's events and names the degraded buckets.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch phi3-mini-3.8b-smoke --session --fallback-backend eager \\
+        --inject-fault compile@0x99 [--device cpu]
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch phi3-mini-3.8b-smoke --session --inject-fault nan@1.0 \\
@@ -138,6 +151,11 @@ def main(argv=None) -> None:
     ap.add_argument("--max-queue-s", type=float, default=None,
                     help="load shedding: requests queued longer are shed "
                          "(TIMED_OUT) before admission (--session)")
+    ap.add_argument("--fallback-backend", default="none",
+                    choices=("eager", "none"),
+                    help="after a build's retries are exhausted, 'eager' "
+                         "degrades that bucket to its uncaptured step; "
+                         "'none' raises (--session)")
     ap.add_argument("--inject-fault", action="append", default=None,
                     metavar="KIND@STEP",
                     help="deterministic fault injection, for tests "
@@ -252,6 +270,7 @@ def main(argv=None) -> None:
             dispatch=dispatch, max_recompiles=args.max_recompiles,
             request_deadline_s=args.request_deadline_s,
             max_queue_s=args.max_queue_s,
+            fallback_backend=args.fallback_backend,
             faults=(FaultInjector.from_strings(args.inject_fault)
                     if args.inject_fault else None),
             telemetry=telemetry, watchdog=watchdog, recorder=recorder)
@@ -290,8 +309,11 @@ def main(argv=None) -> None:
         for name, b in summary["buckets"].items():
             print(f"  bucket {name}: {b['tok_s']:.0f} tok/s over "
                   f"{int(b['batches'])} batches")
-        if session.stats.events:
-            print(format_event_summary(session.stats.events))
+        events = session.stats.events
+        if events:
+            print(format_event_summary(
+                events, degraded=[e.what for e in events
+                                  if e.kind == "degraded"]))
         # the last activation's steps (results come in completion order)
         last = next((r.stats for r in reversed(results)
                      if r.stats is not None), None)

@@ -1,4 +1,5 @@
-"""Decoder models of the port (layers, attention, Mamba, transformer)."""
+"""Decoder models of the port (layers, attention, MoE, Mamba,
+transformer)."""
 from repro_torch.models.model_zoo import (Model, build_model, bucket_length,
                                           left_pad_prompts, prompt_starts)
 

@@ -78,6 +78,26 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, hq, s, d).to(q.dtype)
 
 
+def mean_rows_before_start(ctx: torch.Tensor, v: torch.Tensor,
+                           starts: torch.Tensor) -> torch.Tensor:
+    """ctx [B,HQ,S,D] with every query row before its row's start (one
+    with no valid key) replaced by the mean of its KV head's ``v``
+    [B,HKV,S,D] over all S keys: what a softmax over scores that are
+    all masked gives, the JAX xla/reference attention's value there and
+    the plain path's.  The cuda kernels give zeros there, as the JAX
+    Pallas flash kernel does.  A caller whose pad positions reach other
+    tokens (a moe layer routes them, and they take expert capacity)
+    restores the xla/reference value with it, so that a moe prefill on
+    the card gives the plain path's tokens."""
+    b, hq, s, d = ctx.shape
+    group = hq // v.shape[1]
+    mean = v.float().mean(dim=2).to(ctx.dtype)
+    mean = mean.repeat_interleave(group, dim=1)[:, :, None, :]
+    st = torch.as_tensor(starts, device=ctx.device).to(torch.int64)
+    before = torch.arange(s, device=ctx.device)[None, :] < st[:, None]
+    return torch.where(before[:, None, :, None], mean, ctx)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos, *, backend: str = "plain",
                      starts: Optional[torch.Tensor] = None,
@@ -227,7 +247,8 @@ def update_kv_cache(cache_k: torch.Tensor, cache_v: torch.Tensor,
     return cache_k, cache_v
 
 
-__all__ = ["BACKENDS", "attention", "decode_attention", "paged_slots",
+__all__ = ["BACKENDS", "attention", "mean_rows_before_start",
+           "decode_attention", "paged_slots",
            "paged_update_kv",
            "paged_decode_attention", "attn_params", "qkv_project",
            "attn_out", "update_kv_cache"]

@@ -16,6 +16,13 @@ import torch.nn.functional as F
 
 Params = Dict[str, Any]
 
+# The most elements :meth:`ParamInit.normal` draws as one float32
+# tensor: 2**32, the largest tensor of phi3-mini-3.8b and falcon-mamba-7b
+# (falcon-mamba's ``in_proj``, [64, 4096, 16384]), so their weights stay
+# as they were; qwen3-32b's MLP matrices (8.39e9 each) are drawn a layer
+# at a time, so the model initialises on one 80 GB card.
+WHOLE_DRAW_LIMIT = 2 ** 32
+
 
 class ParamInit:
     """Creates parameters under ``/``-separated paths with the JAX
@@ -48,12 +55,26 @@ class ParamInit:
 
     def normal(self, path: str, shape: Sequence[int],
                fan_in: Optional[int] = None, scale: float = 1.0) -> None:
-        """Normal weights with std ``scale / sqrt(fan_in)``."""
+        """Normal weights with std ``scale / sqrt(fan_in)``.  A tensor of
+        more than :data:`WHOLE_DRAW_LIMIT` elements is drawn one slice of
+        its leading (layer) axis at a time into its ``dtype`` result, so
+        its float32 draw never exists whole; a smaller one is drawn
+        whole, as before, so its values do not change."""
         std = scale / math.sqrt(fan_in if fan_in else shape[-2]
                                 if len(shape) >= 2 else shape[-1])
-        v = torch.randn(tuple(shape), generator=self.gen,
-                        device=self.device, dtype=torch.float32)
-        self._put(path, v.mul_(std).to(self.dtype))
+        shape = tuple(shape)
+        if math.prod(shape) <= WHOLE_DRAW_LIMIT:
+            v = torch.randn(shape, generator=self.gen, device=self.device,
+                            dtype=torch.float32)
+            self._put(path, v.mul_(std).to(self.dtype))
+            return
+        out = torch.empty(shape, dtype=self.dtype, device=self.device)
+        for i in range(shape[0]):
+            v = torch.randn(shape[1:], generator=self.gen,
+                            device=self.device, dtype=torch.float32)
+            out[i].copy_(v.mul_(std))
+            del v
+        self._put(path, out)
 
     def zeros(self, path: str, shape: Sequence[int]) -> None:
         """Zero-initialised parameters (norm gains are ``1 + w``)."""
@@ -95,27 +116,40 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w)
 
 
-def _swiglu_only(kind: str) -> None:
-    """Raise for an MLP flavour the port does not have yet."""
-    if kind != "swiglu":
-        raise NotImplementedError(
-            f"the port has the swiglu MLP only so far, got {kind!r}")
+MLP_KINDS = ("swiglu", "relu2", "gelu")
+
+
+def _check_kind(kind: str) -> None:
+    """Raise for an MLP flavour that is not one of :data:`MLP_KINDS`."""
+    if kind not in MLP_KINDS:
+        raise ValueError(f"mlp kind must be one of {MLP_KINDS}, got "
+                         f"{kind!r}")
 
 
 def mlp(x: torch.Tensor, p: Params, kind: str) -> torch.Tensor:
-    """The SwiGLU feed-forward block, float32 gate, x's dtype in and out."""
-    _swiglu_only(kind)
-    gate = F.silu(dense(x, p["w1"]).float())
-    up = dense(x, p["w3"]).float()
-    return dense((gate * up).to(x.dtype), p["w2"])
+    """The feed-forward block, x's dtype in and out, the activation in
+    float32: ``swiglu`` (silu gate times up), ``relu2`` (squared ReLU,
+    the nemotron family) or ``gelu`` (the tanh approximation, which is
+    ``jax.nn.gelu``'s default)."""
+    _check_kind(kind)
+    h = dense(x, p["w1"]).float()
+    if kind == "swiglu":
+        h = F.silu(h) * dense(x, p["w3"]).float()
+    elif kind == "relu2":
+        h = torch.relu(h) ** 2
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return dense(h.to(x.dtype), p["w2"])
 
 
 def mlp_params(b: ParamInit, prefix: str, n_layers: int, d: int, f: int,
                kind: str) -> None:
-    """Stacked SwiGLU weights under ``prefix`` (same paths as JAX)."""
-    _swiglu_only(kind)
+    """Stacked MLP weights under ``prefix`` (same paths as JAX): ``w1``
+    and ``w2``, and ``w3`` for swiglu only."""
+    _check_kind(kind)
     b.normal(f"{prefix}/w1", [n_layers, d, f], fan_in=d)
-    b.normal(f"{prefix}/w3", [n_layers, d, f], fan_in=d)
+    if kind == "swiglu":
+        b.normal(f"{prefix}/w3", [n_layers, d, f], fan_in=d)
     b.normal(f"{prefix}/w2", [n_layers, f, d], fan_in=f)
 
 
@@ -156,6 +190,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
                                      theta))
 
 
-__all__ = ["Params", "ParamInit", "RopeTables", "dtype_of", "rmsnorm",
+__all__ = ["Params", "ParamInit", "WHOLE_DRAW_LIMIT", "MLP_KINDS",
+           "RopeTables", "dtype_of", "rmsnorm",
            "dense", "mlp", "mlp_params", "rope", "rope_tables",
            "apply_rope"]

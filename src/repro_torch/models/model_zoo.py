@@ -21,7 +21,7 @@ from repro_torch.models import transformer
 
 @dataclasses.dataclass(frozen=True)
 class Model:
-    """One architecture's entry points (dense and ssm families)."""
+    """One architecture's entry points (dense, moe and ssm families)."""
 
     cfg: ModelConfig
 

@@ -1,6 +1,7 @@
-"""Decoder-only LM (port of ``repro.models.transformer``) for the dense
-and ssm (Mamba-1) families; the other families raise
-``NotImplementedError``.
+"""Decoder-only LM (port of ``repro.models.transformer``) for the dense,
+moe and ssm (Mamba-1) families; the other families raise
+``NotImplementedError``.  A moe layer is a dense one whose MLP is the
+routed expert FFN (:mod:`repro_torch.models.moe`).
 
 Entry points: ``forward`` (logits), ``prefill`` (logits plus the decode
 caches: K/V for dense, the final SSM and conv states for ssm),
@@ -23,20 +24,25 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.layers import (ParamInit, Params, RopeTables,
                                        dtype_of, mlp, mlp_params, rmsnorm,
                                        rope_tables)
 
 
-SERVED_FAMILIES = ("dense", "ssm")
+SERVED_FAMILIES = ("dense", "moe", "ssm")
+# the families whose layers attend (a KV cache, paged or contiguous)
+ATTENTION_FAMILIES = ("dense", "moe")
+# the vocabulary columns a bf16 head upcasts to float32 at a time
+HEAD_CHUNK = 16384
 
 
 def _check_family(cfg: ModelConfig) -> None:
     """Raise for a family the port does not serve yet."""
     if cfg.family not in SERVED_FAMILIES:
         raise NotImplementedError(
-            f"repro_torch serves the {' and '.join(SERVED_FAMILIES)} "
+            f"repro_torch serves the {', '.join(SERVED_FAMILIES)} "
             f"families so far, got {cfg.family!r}")
 
 
@@ -56,7 +62,12 @@ def init_params(cfg: ModelConfig, seed: int, device: torch.device
         attn.attn_params(b, "layers/attn", n, d, cfg.n_heads,
                          cfg.n_kv_heads, hd, cfg.qk_norm)
         b.zeros("layers/ln2", [n, d])
-        mlp_params(b, "layers/mlp", n, d, cfg.d_ff, cfg.mlp_type)
+        if cfg.n_experts:
+            moe_mod.moe_params(b, "layers/moe", n, d, cfg.n_experts,
+                               cfg.moe_d_ff, cfg.n_shared_experts,
+                               cfg.moe_d_ff)
+        else:
+            mlp_params(b, "layers/mlp", n, d, cfg.d_ff, cfg.mlp_type)
     b.zeros("final_norm", [d])
     if not cfg.tie_embeddings:
         b.normal("lm_head", [d, cfg.vocab_size], fan_in=d)
@@ -69,11 +80,23 @@ def layer_params(stacked: Params, i: int) -> Params:
             for k, v in stacked.items()}
 
 
+def _ffn(h: torch.Tensor, lp: Params, cfg: ModelConfig
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A layer's feed-forward half: the routed experts of a moe layer
+    (with its aux loss), else the MLP (aux None)."""
+    if cfg.n_experts:
+        return moe_mod.moe_ffn(h, lp["moe"], n_experts=cfg.n_experts,
+                               top_k=cfg.experts_per_token,
+                               capacity_factor=cfg.capacity_factor)
+    return mlp(h, lp["mlp"], cfg.mlp_type), None
+
+
 def _attn_block(x: torch.Tensor, lp: Params, cfg: ModelConfig,
                 rope: RopeTables, *, backend: str,
                 starts: Optional[torch.Tensor], schedule=None
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One prefill layer; returns (x, k, v)."""
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           Optional[torch.Tensor]]:
+    """One prefill layer; returns (x, k, v, the moe aux loss or None)."""
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = attn.qkv_project(
         h, lp["attn"], n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
@@ -81,9 +104,15 @@ def _attn_block(x: torch.Tensor, lp: Params, cfg: ModelConfig,
         norm_eps=cfg.norm_eps)
     ctx = attn.attention(q, k, v, backend=backend, starts=starts,
                          schedule=schedule)
+    if cfg.n_experts and starts is not None and backend == "cuda":
+        # pad positions are routed and take expert capacity: they need
+        # the xla/reference attention output, where the kernel gives
+        # zeros (as JAX's Pallas flash kernel does)
+        ctx = attn.mean_rows_before_start(ctx, v, starts)
     x = x + attn.attn_out(ctx, lp["attn"])
     h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp(h, lp["mlp"], cfg.mlp_type), k, v
+    y, aux = _ffn(h, lp, cfg)
+    return x + y, k, v, aux
 
 
 def _mamba_block(x: torch.Tensor, lp: Params, cfg: ModelConfig, *,
@@ -104,12 +133,19 @@ def _head(params: Params, cfg: ModelConfig, x: torch.Tensor
           ) -> torch.Tensor:
     """Final norm and LM head; float32 logits from float32 operands, so a
     bf16 model's logits are not rounded to bf16 (as the JAX head's
-    ``preferred_element_type=float32`` does not round them)."""
+    ``preferred_element_type=float32`` does not round them).  A bf16
+    head is upcast :data:`HEAD_CHUNK` vocabulary columns at a time, so
+    a step (and each captured graph's pool) holds one float32 slice of
+    it, not the whole head (3.1 GB for qwen3-32b)."""
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].t()
-    return torch.matmul(x.float(), head.float())
+    xf = x.float()
+    if head.dtype == torch.float32:
+        return torch.matmul(xf, head)
+    return torch.cat([torch.matmul(xf, head[:, c:c + HEAD_CHUNK].float())
+                      for c in range(0, head.shape[1], HEAD_CHUNK)], dim=-1)
 
 
 def forward(params: Params, cfg: ModelConfig,
@@ -118,10 +154,11 @@ def forward(params: Params, cfg: ModelConfig,
             seq_starts: Optional[torch.Tensor] = None, schedules=None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Teacher-forced logits [B, S, V] (float32) and, with
-    ``collect_kv``, the per-layer decode caches: for dense the K/V
-    stacked as ``[L,B,HKV,S,hd]`` (``extras["kv"]``), for ssm the final
-    states ``{"ssm": [L,B,Di,N], "conv": [L,B,K-1,Di]}``
-    (``extras["state"]``).
+    ``collect_kv``, the per-layer decode caches: for dense and moe the
+    K/V stacked as ``[L,B,HKV,S,hd]`` (``extras["kv"]``), for ssm the
+    final states ``{"ssm": [L,B,Di,N], "conv": [L,B,K-1,Di]}``
+    (``extras["state"]``).  A moe model also returns the layers' mean
+    load-balancing loss (``extras["aux"]``, as the JAX forward does).
 
     ``seq_starts`` ([B] int) marks the first real token of each
     left-padded row: rope positions become ``arange(S) - starts`` and pad
@@ -143,15 +180,19 @@ def forward(params: Params, cfg: ModelConfig,
         st = None
         positions = torch.arange(seq, device=x.device)
     rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
-    ks, vs = [], []
+    ks, vs, auxes = [], [], []
     for i in range(cfg.n_layers):
-        x, k, v = _attn_block(x, layer_params(params["layers"], i), cfg,
-                              rope, backend=backend, starts=st,
-                              schedule=fa_sched)
+        x, k, v, aux = _attn_block(x, layer_params(params["layers"], i),
+                                   cfg, rope, backend=backend, starts=st,
+                                   schedule=fa_sched)
         if collect_kv:
             ks.append(k)
             vs.append(v)
+        if aux is not None:
+            auxes.append(aux)
     extras: Dict[str, Any] = {}
+    if auxes:
+        extras["aux"] = torch.stack(auxes).mean()
     if collect_kv:
         extras["kv"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
     return _head(params, cfg, x), extras
@@ -226,7 +267,7 @@ def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
     block tables.  Attention families only: a recurrent state is O(1)
     per row and needs no paging (ssm raises ``ValueError``, as JAX)."""
     _check_family(cfg)
-    if cfg.family != "dense":
+    if cfg.family not in ATTENTION_FAMILIES:
         raise ValueError(f"paged KV caches need an attention family, got "
                          f"{cfg.family!r}")
     dt = dtype_of(cfg.dtype)
@@ -259,7 +300,7 @@ def _decode_block(x: torch.Tensor, lp: Params, ck: torch.Tensor,
                                     starts=starts, schedule=schedule)
     x = x + attn.attn_out(ctx, lp["attn"])
     h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp(h, lp["mlp"], cfg.mlp_type)
+    return x + _ffn(h, lp, cfg)[0]
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Any],
@@ -330,5 +371,6 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Any],
     return _head(params, cfg, x), cache
 
 
-__all__ = ["init_params", "layer_params", "forward", "prefill",
+__all__ = ["SERVED_FAMILIES", "ATTENTION_FAMILIES", "init_params",
+           "layer_params", "forward", "prefill",
            "init_cache", "init_paged_cache", "decode_step"]

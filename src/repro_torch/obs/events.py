@@ -9,9 +9,9 @@ compare equal.
 
 ``kind`` is an open vocabulary; the port's emitters use:
 
-* engine faults — ``compile_failure``, ``poison_row``,
+* engine faults — ``compile_failure``, ``degraded``, ``poison_row``,
   ``alloc_exhausted``, ``allocator``, ``admission_failure``,
-  ``straggler``
+  ``step_exception``, ``straggler``
 * injected faults (``FaultInjector``) — ``compile``, ``nan``,
   ``alloc``, ``slow``, ``doublefree``
 
@@ -71,12 +71,17 @@ def summarize_events(events: Iterable[Event]) -> Dict[str, int]:
     return dict(sorted(counts.items()))
 
 
-def format_event_summary(events: List[Event]) -> str:
+def format_event_summary(events: List[Event],
+                         degraded: Iterable[Any] = ()) -> str:
     """The CLI fault summary line, derived from the log: e.g.
-    ``"faults: none"`` or ``"faults: nan=1 poison_row=1"`` (the JAX
-    package's line, which also names degraded buckets: the port
-    degrades none)."""
+    ``"faults: none"`` or ``"faults: compile_failure=2 degraded=1 |
+    degraded buckets: prefill[b1,p8]"`` (the JAX package's line)."""
     counts = summarize_events(events)
     body = (" ".join(f"{k}={n}" for k, n in counts.items())
             if counts else "none")
-    return f"faults: {body}"
+    line = f"faults: {body}"
+    degraded = list(degraded)
+    if degraded:
+        line += " | degraded buckets: " + ", ".join(str(d)
+                                                     for d in degraded)
+    return line

@@ -33,9 +33,8 @@ __all__ = ["FlightRecorder", "POSTMORTEM_KINDS"]
 
 # Event kinds that should trigger a postmortem dump when they reach a
 # session's event ledger: every engine fault of the failure contract,
-# plus the watchdog's drift alarms and SLO pages.  The port's session
-# emits no ``degraded`` or ``step_exception`` yet (a build or step
-# that raises propagates); the set stays the JAX package's.
+# plus the watchdog's drift alarms and SLO pages (the JAX package's
+# set).
 POSTMORTEM_KINDS = frozenset({
     "compile_failure", "degraded", "poison_row", "alloc_exhausted",
     "allocator", "admission_failure", "step_exception", "straggler",

@@ -143,7 +143,8 @@ def switch_on_commit(step: CapturedStep, bundle, kind: str, committed, *,
     decode winner other than ``bundle``'s: switch to the new key's step
     if it is cached (free), else build it once within ``max_recompiles``
     a run, else keep ``step`` pinned for the rest of the run.  A build
-    is ``build_of(new_bundle, step.state)``, over the live state, so
+    is ``build_of(new_bundle, step.state)`` (a ``make(backend,
+    capture)`` for the session's ``compile_``), over the live state, so
     every decode step of a geometry holds one state.  Returns the step
     and bundle to run on, the old step's state and inputs handed over."""
     if counts.blocked or committed is None or committed == bundle.get(kind):

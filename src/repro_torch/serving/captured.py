@@ -34,14 +34,15 @@ live state: the engine's pool, ``generate``'s cache; the warm-up leaves
 that state as it found it, and ``generate`` copies its running inputs
 (token, position, starts) into the new step.
 
-A capture error raises out of the build; nothing runs the step eagerly
-in its place (the session retries a failed build ``compile_retries``
-times, each with a new graph on a new capture stream, and then
-raises).  Where the buffers live on the CPU (the tests), or the
-caller passed ``capture=False`` (to time the eager path on a card), the
-same step function runs directly into the same static buffers at every
-:meth:`replay`.  The device of the buffers, or the caller, makes that
-choice, never a failure.
+A capture error raises out of the build; nothing here runs the step
+eagerly in its place (the session retries a failed build
+``compile_retries`` times, each with a new graph on a new capture
+stream, and then raises, or with ``fallback_backend="eager"`` builds
+the same step uncaptured, which then runs eagerly at every replay).
+Where the buffers live on the CPU (the tests), or the caller passed
+``capture=False`` (to time the eager path on a card), the same step
+function runs directly into the same static buffers at every
+:meth:`replay`.
 """
 from __future__ import annotations
 

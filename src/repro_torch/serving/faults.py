@@ -12,7 +12,8 @@ reproducible points:
   attempt (``step`` indexes build attempts, counted across the session;
   a build is one step's warm-up and capture on a card).  ``times >= 1 +
   compile_retries`` makes the failure persistent, and the port then
-  raises out of ``drain`` (the JAX session degrades the bucket).
+  raises out of ``drain``, or with ``fallback_backend="eager"`` degrades
+  the bucket (the JAX session's default degrades it).
 * ``nan`` — write NaN into row ``row``'s decode logits at engine step
   ``step``, on the device, through the step's poison-mask input, before
   the step's finite-flag reduction.

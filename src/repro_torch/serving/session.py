@@ -1,10 +1,10 @@
-"""ServeSession: the serving engine of the dense and ssm families (port
-of ``repro.serving.session``).
+"""ServeSession: the serving engine of the dense, moe and ssm families
+(port of ``repro.serving.session``).
 
 Requests are submitted to a queue and served by :meth:`ServeSession.drain`.
 Greedy traffic runs the **in-flight engine** (:meth:`_drain_inflight`): a
-step loop over a fixed set of engine rows.  For the dense family the
-rows are backed by a block-paged KV pool
+step loop over a fixed set of engine rows.  For the attention families
+(dense and moe) the rows are backed by a block-paged KV pool
 (:mod:`repro_torch.serving.paged_kv`); at every step boundary the engine
 
 1. retires finished rows (and rows a client cancelled or whose deadline
@@ -84,16 +84,33 @@ Every request ends in a terminal :class:`RequestState` with a reason
   tokens), or shed by ``max_queue_s`` while queued;
 * CANCELLED — :meth:`ServeSession.cancel` (partial tokens if decoding);
 * FAILED — the row's logits were not finite (the step's device flag),
-  partial tokens.
+  partial tokens; or its prefill raised (that admission only); or the
+  decode step it was in raised (every row in flight, partial tokens;
+  the queue is kept and served on).
+
+A step that raises is contained only while the card stays usable: the
+session synchronises the device after catching it, and an error that
+sticks to the CUDA context (an illegal address, a device-side assert)
+raises the step's error, chained, and contains nothing.  ``run_batch``
+catches nothing, as in the JAX package.
+
+A build (warm-up and capture) is retried ``compile_retries`` times.
+Then it counts a fallback (``stats.fallbacks``,
+``serve.aot_fallbacks_total``) and a ``compile_failure`` event, and
+``fallback_backend`` decides: ``"none"`` (the default) raises out of
+:meth:`drain`; ``"eager"`` degrades the bucket: its step is built again
+on the session's backend, uncaptured, under the same key (``degraded``
+event and warning, ``stats.degraded``, ``degraded_buckets``), over the
+same pool or state, with retries; if that build fails too (a second
+fallback and ``compile_failure``), the same uncaptured step runs all
+the same, the counterpart of the JAX session's un-lowered jit step.  A
+degraded step launches the same kernels, one launch per op instead of
+a graph replay.
 
 A :class:`~repro_torch.runtime.ft.StragglerMonitor` watches the step
 times (``on_straggler`` may hold admission for some boundaries), and a
 :class:`~repro_torch.serving.faults.FaultInjector` (``faults=``) fires
-each fault deterministically.  What the port does not catch: a build
-(warm-up and capture) is retried ``compile_retries`` times and then
-raises out of :meth:`drain` (the JAX session degrades the bucket to its
-reference backend), and a prefill or step that raises propagates (the
-JAX engine fails the rows in flight).
+each fault deterministically.
 
 Observability (:mod:`repro_torch.obs`, the JAX session's taps at the
 same points): ``telemetry`` (a :class:`~repro_torch.obs.telemetry.
@@ -127,7 +144,8 @@ from repro_torch.core import registry as reg
 from repro_torch.models.attention import BACKENDS
 from repro_torch.models.model_zoo import (Model, bucket_length,
                                           left_pad_prompts, prompt_starts)
-from repro_torch.models.transformer import SERVED_FAMILIES
+from repro_torch.models.transformer import (ATTENTION_FAMILIES,
+                                            SERVED_FAMILIES)
 from repro_torch.obs.events import Event
 from repro_torch.obs.recorder import POSTMORTEM_KINDS
 from repro_torch.obs.telemetry import NULL_TELEMETRY
@@ -149,6 +167,8 @@ _REQUEST_IDS = itertools.count()
 _NULL_BUCKET = Bucket(0, 0, 0)
 # the span of every site while telemetry is off (one shared no-op)
 _NULL_SPAN = contextlib.nullcontext()
+# what a build that failed every attempt falls back to
+FALLBACK_BACKENDS = ("eager", "none")
 
 
 class RequestState:
@@ -160,7 +180,8 @@ class RequestState:
       partial tokens) or shed by ``max_queue_s`` while queued.
     * ``CANCELLED`` — :meth:`ServeSession.cancel` (partial tokens when
       the request was already decoding).
-    * ``FAILED`` — non-finite logits retired the row (partial tokens).
+    * ``FAILED`` — non-finite logits retired the row (partial tokens),
+      or its prefill or decode step raised.
     """
 
     COMPLETED = "COMPLETED"
@@ -211,12 +232,15 @@ class SessionStats:
     steps: int = 0                  # engine decode steps
     inflight_admissions: int = 0    # requests admitted at step boundaries
     compactions: int = 0            # pool defragmentation passes
+    fallbacks: int = 0              # builds that failed every attempt
     compile_retries: int = 0        # failed builds that were retried
+    degraded: bool = False          # a bucket fell back to eager
+    degraded_buckets: int = 0       # buckets running uncaptured
     rejected: int = 0               # never-fits requests (REJECTED)
     timed_out: int = 0              # deadline / queue-budget expiries
     shed: int = 0                   # subset of timed_out: max_queue_s
     cancelled: int = 0              # client cancellations
-    failed: int = 0                 # rows retired on non-finite logits
+    failed: int = 0                 # rows failed (non-finite, raised)
     poisoned_rows: int = 0          # rows whose device finite flag was 0
     stragglers: int = 0             # slow-step events from the monitor
     # structured operational events (repro_torch.obs.events.Event)
@@ -275,7 +299,10 @@ class SessionStats:
             "steps": self.steps,
             "inflight_admissions": self.inflight_admissions,
             "compactions": self.compactions,
+            "fallbacks": self.fallbacks,
             "compile_retries": self.compile_retries,
+            "degraded": self.degraded,
+            "degraded_buckets": self.degraded_buckets,
             "rejected": self.rejected,
             "timed_out": self.timed_out,
             "shed": self.shed,
@@ -324,7 +351,8 @@ class ServeSession:
     ``cache_capacity`` bounds the executable cache (LRU by entry).
     ``capture`` False runs the cached steps eagerly on a card (one
     launch per op, to time the eager path; the counterpart of the JAX
-    session's un-lowered jit step), never chosen by a failure.
+    session's un-lowered jit step); a failure runs a step uncaptured
+    only as a degraded bucket, with ``fallback_backend="eager"``.
     ``dispatch`` (a :class:`~repro_torch.runtime.dispatch.
     DispatchService`) feeds the adaptive runtime and, with ``"cuda"``,
     selects the steps' schedules; ``max_recompiles`` bounds the decode
@@ -335,10 +363,13 @@ class ServeSession:
     Fault tolerance: ``request_deadline_s`` (default submit → last
     token budget; ``submit(deadline_s=)`` overrides it), ``max_queue_s``
     (load shedding), ``compile_retries`` / ``compile_backoff_s`` (a
-    failed build is retried under capped exponential backoff, then
-    raises; 0 by default, where the JAX session retries twice, so that
-    a build that fails raises at its first attempt, as the port's
-    sessions did before retries existed), ``straggler_threshold`` +
+    failed build is retried under capped exponential backoff; 0 by
+    default, where the JAX session retries twice, so that a build that
+    fails gives up at its first attempt, as the port's sessions did
+    before retries existed), ``fallback_backend`` (``"none"``, the
+    default, raises after the last attempt; ``"eager"`` degrades the
+    bucket, as the module docstring says; the JAX default is
+    ``"reference"``, degrading), ``straggler_threshold`` +
     ``on_straggler`` (slow-step hook; returning an int N holds
     admission for N step boundaries), and
     ``faults`` (a :class:`~repro_torch.serving.faults.FaultInjector`,
@@ -370,6 +401,7 @@ class ServeSession:
                  request_deadline_s: Optional[float] = None,
                  max_queue_s: Optional[float] = None,
                  compile_retries: int = 0, compile_backoff_s: float = 0.01,
+                 fallback_backend: str = "none",
                  straggler_threshold: float = 3.0,
                  on_straggler=None, faults=None, telemetry=None,
                  watchdog=None, recorder=None):
@@ -377,7 +409,7 @@ class ServeSession:
         if model.cfg.family not in SERVED_FAMILIES:
             raise NotImplementedError(
                 f"the port's engine serves the "
-                f"{' and '.join(SERVED_FAMILIES)} families, got "
+                f"{', '.join(SERVED_FAMILIES)} families, got "
                 f"{model.cfg.family!r}")
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}")
@@ -406,12 +438,17 @@ class ServeSession:
             raise ValueError("max_recompiles must be >= 0")
         if compile_retries < 0:
             raise ValueError("compile_retries must be >= 0")
+        if fallback_backend not in FALLBACK_BACKENDS:
+            raise ValueError(
+                f"fallback_backend must be 'eager' or 'none', got "
+                f"{fallback_backend!r}")
         self.dispatch = dispatch
         self.max_recompiles = int(max_recompiles)
         self.request_deadline_s = request_deadline_s
         self.max_queue_s = max_queue_s
         self.compile_retries = int(compile_retries)
         self.compile_backoff_s = float(compile_backoff_s)
+        self.fallback_backend = fallback_backend
         self.on_straggler = on_straggler
         self._faults = faults
         self._elem_bytes = params["embed"].element_size()
@@ -464,8 +501,6 @@ class ServeSession:
                   help="executable-cache hits")
         m.counter("serve.exec_cache_misses_total",
                   help="executable-cache misses")
-        # the JAX session's AOT fallback: the port never falls back, so
-        # the family stays 0
         m.counter("serve.aot_fallbacks_total",
                   help="AOT lowerings that fell back to the jit fn")
         m.counter("serve.compile_retries_total",
@@ -828,44 +863,83 @@ class ServeSession:
         return results
 
     # ------------------------------------------------------ execution
-    def _build(self, key: ExecKey, builder) -> CapturedStep:
-        """``builder()`` with ``compile_retries`` retries under capped
-        exponential backoff (the JAX session's ``_aot_compile``); an
-        injected ``compile`` fault fires at the start of an attempt.
-        After the last failed attempt the error is raised: nothing
-        takes the step's place."""
-        what = (f"{key.role}[b{key.batch},"
-                f"{'p' if key.role == 'prefill' else 't'}{key.length}]")
+    def _attempts(self, what: str, build) -> Tuple[Optional[CapturedStep],
+                                                   Optional[Exception]]:
+        """``build()`` with ``compile_retries`` retries under capped
+        exponential backoff, in one ``serve.aot_compile`` span (the JAX
+        session's ``_aot_compile``); an injected ``compile`` fault fires
+        at the start of an attempt.  ``(step, None)``, or ``(None, the
+        last error)`` once every attempt failed."""
         delay = self.compile_backoff_s
-        attempt = 0
+        last: Optional[Exception] = None
         tel = self.telemetry
         with self._span("serve.aot_compile", what=what):
-            while True:
+            for attempt in range(1 + self.compile_retries):
                 try:
                     if self._faults is not None:
                         self._faults.compile_fault(what)
-                    return builder()
+                    return build(), None
                 except Exception as e:
+                    last = e
                     log.warning("build of %s failed (attempt %d/%d): %s",
                                 what, attempt + 1, 1 + self.compile_retries,
                                 e)
-                    if attempt == self.compile_retries:
-                        self._event("compile_failure", what=what,
-                                    error=repr(e))
-                        raise
-                self.stats.compile_retries += 1
-                if tel.enabled:
-                    tel.metrics.counter("serve.compile_retries_total").inc()
-                attempt += 1
-                time.sleep(min(delay, 0.5))
-                delay *= 2
+                    if attempt < self.compile_retries:
+                        self.stats.compile_retries += 1
+                        if tel.enabled:
+                            tel.metrics.counter(
+                                "serve.compile_retries_total").inc()
+                        time.sleep(min(delay, 0.5))
+                        delay *= 2
+        return None, last
 
-    def _compile(self, key: ExecKey, builder) -> Tuple[Any, bool]:
-        """Step for ``key`` via the shared cache: ``(step, was_hit)``.
-        A build's warm-up and capture time and its graph's pool are
-        added to the stats."""
-        step, hit = self.exec_cache.get(key,
-                                        lambda: self._build(key, builder))
+    def _fallback(self, what: str, err: Exception) -> None:
+        """Count a build that failed every attempt."""
+        self.stats.fallbacks += 1
+        tel = self.telemetry
+        if tel.enabled:
+            tel.metrics.counter("serve.aot_fallbacks_total").inc()
+        self._event("compile_failure", what=what, error=repr(err))
+
+    def _build(self, key: ExecKey, make) -> CapturedStep:
+        """The step of ``key``: ``make(backend, capture)`` on the
+        session's backend, with retries (:meth:`_attempts`).  After the
+        last failed attempt ``"none"`` raises the error; ``"eager"``
+        degrades the bucket to ``make(backend, False)`` under the same
+        key, with retries, and if that fails too, runs the same
+        uncaptured step (JAX ``_build_step``: the reference rebuild,
+        then the un-lowered jit step; the port's kernels launch either
+        way).  A session on the plain backend does not degrade: it goes
+        straight to the uncaptured step, as a JAX reference bucket does
+        to its jit step."""
+        what = (f"{key.role}[b{key.batch},"
+                f"{'p' if key.role == 'prefill' else 't'}{key.length}]")
+        step, err = self._attempts(
+            what, lambda: make(self.backend, self.capture))
+        if step is not None:
+            return step
+        self._fallback(what, err)
+        if self.fallback_backend == "none":
+            raise err
+        if self.backend != "plain":
+            log.warning("degrading %s: its step runs uncaptured", what)
+            self.stats.degraded = True
+            self.stats.degraded_buckets += 1
+            self._event("degraded", what=what)
+            what += " [degraded]"
+            step, err = self._attempts(
+                what, lambda: make(self.backend, False))
+            if step is not None:
+                return step
+            self._fallback(what, err)
+        log.warning("running %s uncaptured", what)
+        return make(self.backend, False)
+
+    def _compile(self, key: ExecKey, make) -> Tuple[Any, bool]:
+        """Step for ``key`` via the shared cache: ``(step, was_hit)``;
+        a miss builds it (:meth:`_build`).  A build's warm-up and
+        capture time and its graph's pool are added to the stats."""
+        step, hit = self.exec_cache.get(key, lambda: self._build(key, make))
         if not hit:
             self.stats.capture_s += step.build_s
             self.stats.graph_pool_bytes += step.pool_bytes
@@ -876,6 +950,17 @@ class ServeSession:
                 "serve.exec_cache_hits_total" if hit
                 else "serve.exec_cache_misses_total").inc()
         return step, hit
+
+    def _contain(self, err: Exception) -> None:
+        """After a step raised ``err``: synchronise the card.  An error
+        that sticks to the CUDA context (an illegal address, a
+        device-side assert) raises ``err`` again, chained to it, so that
+        nothing is contained on an unusable card."""
+        if self.device.type == "cuda":
+            try:
+                torch.cuda.synchronize(self.device)
+            except Exception as sticky:
+                raise err from sticky
 
     def _write_back(self, bsz: int, prompt_len: int, new_tokens: int,
                     stats) -> None:
@@ -894,22 +979,22 @@ class ServeSession:
 
     def _decode_builder(self, pool: Dict[str, Any], rows: int,
                         max_blocks: Optional[int], bundle=None):
-        """Builder of the engine's decode step over ``pool`` under
-        ``bundle``: the paged step (tokens, per-row positions, block
-        tables) for dense, the recurrent step
-        (:func:`recurrent_decode_step`, which ``run_batch`` shares) for
-        ssm; outputs :func:`step_pick` of the logits.  With an injector
-        the step takes a poison mask.  The step owns ``pool`` (with
-        every other step of its geometry)."""
+        """``make(backend, capture)`` of the engine's decode step over
+        ``pool`` under ``bundle``: the paged step (tokens, per-row
+        positions, block tables) for the attention families, the
+        recurrent step (:func:`recurrent_decode_step`, which
+        ``run_batch`` shares) for ssm; outputs :func:`step_pick` of the
+        logits.  With an injector the step takes a poison mask.  The
+        step owns ``pool`` (with every other step of its geometry,
+        degraded ones too)."""
         model, params, dev = self.model, self.params, self.device
-        backend = self.backend
         poison = self._faults is not None
         if max_blocks is None:
-            return lambda: recurrent_decode_step(
-                model, params, backend, rows, self.capture,
+            return lambda backend, capture: recurrent_decode_step(
+                model, params, backend, rows, capture,
                 layers=pool["layers"], schedules=bundle, poison=poison)
 
-        def build() -> CapturedStep:
+        def make(backend: str, capture: bool) -> CapturedStep:
             """Static inputs, the step function and its capture."""
             inputs = {"tokens": torch.zeros((rows, 1), dtype=torch.int64,
                                             device=dev),
@@ -929,8 +1014,8 @@ class ServeSession:
                 return step_pick(lg[:, -1], inputs)
 
             return CapturedStep(fn, dev, inputs=inputs,
-                                state=pool["layers"], capture=self.capture)
-        return build
+                                state=pool["layers"], capture=capture)
+        return make
 
     # ------------------------------------------- in-flight engine
     def _drain_inflight(self, on_step=None) -> List[RequestResult]:
@@ -949,7 +1034,7 @@ class ServeSession:
         backend = self.backend
         dispatch, eb = self.dispatch, self._elem_bytes
         scheduled = dispatch is not None and backend == "cuda"
-        attn_family = cfg.family == "dense"
+        attn_family = cfg.family in ATTENTION_FAMILIES
         faults = self._faults
         tel = self.telemetry
         t_act0 = tel.clock() if tel.enabled else 0.0
@@ -1028,8 +1113,8 @@ class ServeSession:
                 bundle = pf_bundles[p_len]
             step, _ = self._compile(
                 ExecKey(cfg.name, "prefill", 1, p_len, bundle, backend),
-                lambda: prefill_step(model, params, backend, 1, p_len,
-                                     self.capture, schedules=bundle))
+                lambda be, capture: prefill_step(model, params, be, 1, p_len,
+                                                 capture, schedules=bundle))
             return step, prob
 
         row_req: List[Optional[Request]] = [None] * rows_n
@@ -1163,9 +1248,15 @@ class ServeSession:
             t0 = time.perf_counter()
             pf.feed(tokens=left_pad_prompts([req.tokens], p_len),
                     starts=np.asarray([p_len - length]))
-            picked, pcache = pf.replay()
-            # one copy to the host: it waits for the card
-            first, finite = picked[:, 0].cpu().tolist()
+            try:
+                picked, pcache = pf.replay()
+                # one copy to the host: it waits for the card
+                first, finite = picked[:, 0].cpu().tolist()
+            except Exception as e:
+                # a prefill that raises fails this request only
+                self._contain(e)
+                fail_admission(req, r, f"prefill raised: {e}")
+                return False
             dt = time.perf_counter() - t0
             if tel.enabled:
                 tel.tracer.complete("serve.prefill", t_pf0, tel.clock(),
@@ -1320,9 +1411,25 @@ class ServeSession:
                 t_dec0 = tel.clock() if tel.enabled else 0.0
                 t_step = time.perf_counter()
                 step.feed(**feed)
-                # one copy to the host a step: it waits for the card; every
-                # tap below runs after it, on the host
-                new_tok, finite = step.replay().cpu().numpy()
+                try:
+                    # one copy to the host a step: it waits for the card;
+                    # every tap below runs after it, on the host
+                    new_tok, finite = step.replay().cpu().numpy()
+                except Exception as e:
+                    # not one row's fault: fail the rows in flight (their
+                    # blocks freed, partial tokens delivered), keep the
+                    # queue; a row admitted later starts from its own
+                    # prefill's state
+                    self._contain(e)
+                    log.warning("decode step raised: %s", e)
+                    self._event("step_exception", step=self._step_count,
+                                error=str(e))
+                    for r in active:
+                        row_fate[r] = (RequestState.FAILED,
+                                       f"decode step raised: {e}")
+                        retire(r)
+                    self._step_count += 1
+                    continue
                 dt = time.perf_counter() - t_step
                 extra = self._slow_extra()
                 act_stats.decode_s += dt
@@ -1523,12 +1630,12 @@ class ServeSession:
                            detail)
 
         def build_decode(bundle, state=None):
-            """Builder of the decode step under ``bundle`` over ``state``
-            (a running step's, when it replaces it), else over the state
-            of a cached step of its geometry (the engine's too, for a
-            greedy ssm step), else a new one: a geometry's steps hold
-            one state."""
-            def build():
+            """``make(backend, capture)`` of the decode step under
+            ``bundle`` over ``state`` (a running step's, when it replaces
+            it), else over the state of a cached step of its geometry
+            (the engine's too, for a greedy ssm step), else a new one: a
+            geometry's steps, degraded ones too, hold one state."""
+            def make(be: str, capture: bool) -> CapturedStep:
                 """The step, over the geometry's state."""
                 live = state
                 if live is None:
@@ -1537,20 +1644,20 @@ class ServeSession:
                     live = None if cached is None else cached.state
                 if recurrent:
                     return recurrent_decode_step(
-                        model, params, backend, bsz, self.capture,
+                        model, params, be, bsz, capture,
                         layers=live, schedules=bundle, sampled=sampled,
                         poison=self._faults is not None and not sampled)
                 return contiguous_decode_step(
-                    model, params, backend, bsz, total, self.capture,
+                    model, params, be, bsz, total, capture,
                     schedules=bundle, cache=live, sampled=sampled)
-            return build
+            return make
 
         pf, _ = self._compile(
             ExecKey(arch, "prefill", bsz, prompt_len, prefill_bundle,
                     backend, detail),
-            lambda: prefill_step(model, params, backend, bsz, prompt_len,
-                                 self.capture, schedules=prefill_bundle,
-                                 sampled=sampled))
+            lambda be, capture: prefill_step(
+                model, params, be, bsz, prompt_len, capture,
+                schedules=prefill_bundle, sampled=sampled))
         dec = None
         if max_new_tokens > 1:
             dec, _ = self._compile(decode_key(decode_bundle),

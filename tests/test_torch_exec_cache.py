@@ -386,3 +386,78 @@ def test_generate_with_a_session_refuses_other_backend_or_capture(models):
                           backend="plain", capture=False)
     assert out.shape == (1, 2) and stats.backend == "plain"
     assert {k.backend for k in s.exec_cache.compiled_log} == {"plain"}
+
+
+# ------------------------------ the rest of the dense family and moe: the
+# engine's and run_batch's drains against the JAX session (greedy tokens,
+# order and keys); a moe step routes pad positions and idle rows too
+
+MINITRON, QWEN2_MOE = "minitron-4b-smoke", "qwen2-moe-a2.7b-smoke"
+# qwen2-moe's smoke config at capacity factor 0.5, so that prefills and
+# decode steps drop slots and the pad positions' routing shows
+DROPPING = QWEN2_MOE + "@0.5"
+NEW_STREAMS = {(arch, name): SCENARIOS[name]
+               for arch in (MINITRON, QWEN2_MOE, DROPPING)
+               for name in ("mixed_depths", "compaction")}
+
+
+def _moe_models(arch):
+    import dataclasses
+    name, factor = arch.split("@")
+    jcfg = dataclasses.replace(jax_get_config(name),
+                               capacity_factor=float(factor))
+    jm = jax_build_model(jcfg)
+    jp, _ = jm.init(jax.random.key(0))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    tcfg = dataclasses.replace(get_config(name), capacity_factor=float(factor))
+    return jm, jp, build_model(tcfg), tp
+
+
+@pytest.fixture(scope="module")
+def new_models():
+    return {arch: (_moe_models(arch) if "@" in arch else _models(arch))
+            for arch in (MINITRON, QWEN2_MOE, DROPPING)}
+
+
+@pytest.fixture(scope="module")
+def jax_new_runs(new_models):
+    out = {}
+    for (arch, name), (lens, budgets, kw, late) in NEW_STREAMS.items():
+        jm, jp, _, _ = new_models[arch]
+        s = JaxSession(jm, jp, backend="reference", **kw)
+        tokens, order, _ = _serve(s, _prompts(lens), budgets, late)
+        prompts = _prompts([3, 8, 6])
+        ref, _ = jax_generate(
+            jm, jp, {"tokens": jnp.asarray(left_pad_prompts(prompts, 8))},
+            max_new_tokens=6, seq_starts=prompt_starts(prompts, 8),
+            session=s)
+        out[arch, name] = (tokens, order, np.asarray(ref),
+                           _key_view(s.exec_cache))
+    return out
+
+
+@pytest.mark.parametrize("backend", ["cuda", "plain"])
+@pytest.mark.parametrize("stream", sorted(NEW_STREAMS),
+                         ids=lambda s: f"{s[0].split('-')[0]}-{s[1]}")
+def test_new_arch_drains_build_the_jax_keys_and_tokens(new_models,
+                                                       jax_new_runs, stream,
+                                                       backend):
+    arch, _ = stream
+    lens, budgets, kw, late = NEW_STREAMS[stream]
+    from repro_torch.models.moe import drop_tally
+    _, _, tm, tp = new_models[arch]
+    s = ServeSession(tm, tp, backend=backend, **kw)
+    prompts = _prompts([3, 8, 6])
+    with drop_tally("cpu") as dropped:
+        tokens, order, states = _serve(s, _prompts(lens), budgets, late)
+        out, _ = generate(tm, tp, {"tokens": left_pad_prompts(prompts, 8)},
+                          max_new_tokens=6,
+                          seq_starts=prompt_starts(prompts, 8), session=s)
+    assert (int(dropped) > 0) == (arch == DROPPING)
+    j_tokens, j_order, j_out, j_keys = jax_new_runs[stream]
+    assert tokens == j_tokens and order == j_order
+    assert set(states) == {"COMPLETED"}
+    assert np.array_equal(out, j_out)
+    assert _key_view(s.exec_cache) == j_keys
+    assert {k.role for k in s.exec_cache.compiled_log} == {"prefill",
+                                                          "decode"}

@@ -15,10 +15,16 @@ times a smoke step on any CPU, while the host's own jitter stays under
 it.
 
 Where the two packages differ by design, the port's behaviour is
-asserted instead: a persistent build failure raises out of ``drain``
-(the JAX session degrades the bucket), and a NaN is written into the
-row's logits through the step's poison-mask input (the JAX engine sets
-it on the logits it holds).
+asserted instead: with the port's default ``fallback_backend="none"`` a
+persistent build failure raises out of ``drain`` (the JAX session keeps
+its un-lowered jit step), and a NaN is written into the row's logits
+through the step's poison-mask input (the JAX engine sets it on the
+logits it holds).
+
+The degradation scenarios (``fallback_backend="eager"`` against the JAX
+``"reference"`` with ``backend="pallas"``) and the containment of a
+prefill or decode step that raises (the step callable wrapped in the
+test, on both packages) are replayed the same way.
 """
 import dataclasses
 import json
@@ -502,3 +508,348 @@ def test_a_session_is_freed_without_the_collector(models, arch):
     finally:
         if collecting:
             gc.enable()
+
+
+# ----------------------------------------------- degrading a bucket (the
+# tests/test_faults.py degradation scenarios on both packages).  The JAX
+# session runs backend="pallas" with fallback_backend="reference", the
+# port "cuda" with "eager" (a degraded bucket runs its cuda step
+# uncaptured); on the CPU every step runs uncaptured and the cuda
+# wrappers run their plain versions, so the build fault alone decides
+# the path.
+
+DEGRADE_COUNTERS = ("fallbacks", "degraded", "degraded_buckets",
+                    "compile_retries", "requests", "steps", "failed",
+                    "tokens_generated")
+DEGRADES = {
+    # test_persistent_compile_failure_degrades_pallas_bucket: every
+    # attempt fails, so each bucket's uncaptured build fails too and the
+    # same uncaptured step runs
+    "persistent": (("compile@0x99",), dict(compile_retries=2)),
+    # the card's [degrade] case: only the first build's first attempt
+    # fails, so only that bucket degrades (its uncaptured build works)
+    "first_bucket": (("compile@0x1",), dict(compile_retries=0)),
+}
+
+
+def _degrade_run(session):
+    for i, p in enumerate(_prompts([5, 7, 3])):
+        session.submit(p, [4, 6, 5][i], request_id=f"r{i}")
+    return [(r.request_id, r.state, r.tokens.tolist(), r.reason)
+            for r in session.drain()]
+
+
+@pytest.fixture(scope="module")
+def jax_degrades(models):
+    jm, jp, _, _ = models[PHI3]
+    out = {}
+    for name, (faults, kw) in DEGRADES.items():
+        fi = jfaults.FaultInjector.from_strings(faults)
+        s = JaxSession(jm, jp, backend="pallas", kv_block_size=4,
+                       faults=fi, fallback_backend="reference",
+                       compile_backoff_s=0.0,
+                       straggler_threshold=THRESHOLD, **kw)
+        out[name] = (_degrade_run(s), s, fi)
+    clean = JaxSession(jm, jp, backend="pallas", kv_block_size=4)
+    out["clean"] = _degrade_run(clean)
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(DEGRADES))
+def test_degraded_bucket_matches_the_jax_session(models, jax_degrades,
+                                                 name):
+    _, _, tm, tp = models[PHI3]
+    faults, kw = DEGRADES[name]
+    fi = FaultInjector.from_strings(faults)
+    s = ServeSession(tm, tp, kv_block_size=4, faults=fi,
+                     fallback_backend="eager", compile_backoff_s=0.0,
+                     straggler_threshold=THRESHOLD, **kw)
+    built, build = [], s._build
+
+    def spy(key, make):
+        def noted(backend, capture):
+            built.append((key.role, backend, capture))
+            return make(backend, capture)
+        return build(key, noted)
+    s._build = spy
+    run = _degrade_run(s)
+    j_run, js, j_fi = jax_degrades[name]
+    assert run == j_run
+    # tokens survive the degradation (reference == pallas)
+    assert run == jax_degrades["clean"]
+    # every step is built on the session's backend: a degraded bucket
+    # runs the port's kernels uncaptured, never the plain backend
+    assert {be for _, be, _ in built} == {"cuda"}
+    for k in DEGRADE_COUNTERS:
+        assert getattr(s.stats, k) == getattr(js.stats, k), k
+    assert _events(s.stats.events) == _events(js.stats.events)
+    assert _events(fi.fired) == _events(j_fi.fired)
+    assert s.stats.degraded and s.stats.to_dict()["degraded"] is True
+    kinds = [e.kind for e in s.stats.events]
+    if name == "persistent":
+        # two buckets, each: failure, degraded, its eager build's failure
+        assert kinds == ["compile_failure", "degraded",
+                         "compile_failure"] * 2
+        assert s.stats.degraded_buckets == 2 and s.stats.fallbacks == 4
+        assert [e.what for e in s.stats.events][:3] == [
+            "prefill[b1,p8]", "prefill[b1,p8]",
+            "prefill[b1,p8] [degraded]"]
+        # the attempts fail before building: only the last resorts build
+        assert built == [("prefill", "cuda", False),
+                         ("decode", "cuda", False)]
+    else:
+        assert kinds == ["compile_failure", "degraded"]
+        assert s.stats.degraded_buckets == 1 == s.stats.fallbacks
+        # the first bucket's uncaptured build, then the others' captures
+        assert built[0] == ("prefill", "cuda", False)
+        assert all(cap for _, _, cap in built[1:]) and len(built) > 1
+
+
+def test_fallback_none_raises_where_jax_keeps_the_jit_step(models,
+                                                           jax_degrades):
+    """The recorded difference: with ``"none"`` (the port's default) a
+    bucket that fails every attempt raises out of ``drain`` after its
+    fallback is counted; the JAX session serves it with the un-lowered
+    jit step.  Up to the raise both count the same."""
+    jm, jp, tm, tp = models[PHI3]
+    js = JaxSession(jm, jp, backend="pallas", kv_block_size=4,
+                    compile_backoff_s=0.0, fallback_backend="none",
+                    straggler_threshold=THRESHOLD,
+                    faults=jfaults.FaultInjector.from_strings(
+                        ["compile@0x99"]))
+    j_run = _degrade_run(js)
+    assert j_run == jax_degrades["clean"]
+    assert js.stats.fallbacks >= 1 and not js.stats.degraded
+    s = ServeSession(tm, tp, kv_block_size=4, compile_retries=2,
+                     compile_backoff_s=0.0, straggler_threshold=THRESHOLD,
+                     faults=FaultInjector.from_strings(["compile@0x99"]))
+    assert s.fallback_backend == "none"
+    with pytest.raises(InjectedFault, match="attempt 2"):
+        _degrade_run(s)
+    assert s.stats.fallbacks == 1 and s.stats.compile_retries == 2
+    assert not s.stats.degraded and s.stats.degraded_buckets == 0
+    assert _events(s.stats.events) == _events(js.stats.events)[:1]
+
+
+def test_fallback_backend_validated(models):
+    jm, jp, tm, tp = models[PHI3]
+    for make, good in ((ServeSession, ("eager", "none")),
+                       (JaxSession, ("reference", "none"))):
+        m, p = (tm, tp) if make is ServeSession else (jm, jp)
+        with pytest.raises(ValueError, match="fallback_backend"):
+            make(m, p, fallback_backend="tpu")
+        for name in good:
+            assert make(m, p, fallback_backend=name).fallback_backend == name
+    for name in ("reference", "plain"):
+        with pytest.raises(ValueError, match="fallback_backend"):
+            ServeSession(tm, tp, fallback_backend=name)
+
+
+@pytest.mark.parametrize("arch", [PHI3, MAMBA])
+def test_plain_session_falls_back_uncaptured_like_a_jax_reference_bucket(
+        models, arch):
+    """A plain session does not degrade: a build that fails every
+    attempt runs the plain step uncaptured (a fallback, no
+    degradation), as a JAX ``"reference"`` bucket runs its jit step."""
+    jm, jp, tm, tp = models[arch]
+    js = JaxSession(jm, jp, backend="reference", kv_block_size=4,
+                    compile_retries=1, compile_backoff_s=0.0,
+                    straggler_threshold=THRESHOLD,
+                    faults=jfaults.FaultInjector.from_strings(
+                        ["compile@0x99"]))
+    s = ServeSession(tm, tp, backend="plain", kv_block_size=4,
+                     compile_retries=1, compile_backoff_s=0.0,
+                     fallback_backend="eager", straggler_threshold=THRESHOLD,
+                     faults=FaultInjector.from_strings(["compile@0x99"]))
+    assert _degrade_run(s) == _degrade_run(js)
+    for k in DEGRADE_COUNTERS:
+        assert getattr(s.stats, k) == getattr(js.stats, k), k
+    assert s.stats.fallbacks == 2 and not s.stats.degraded
+    assert _events(s.stats.events) == _events(js.stats.events)
+
+
+@pytest.mark.parametrize("arch", [PHI3, MAMBA])
+def test_degraded_run_batch_and_its_telemetry(models, arch, tmp_path):
+    """``generate(session=)`` on a session whose every build fails
+    serves the clean tokens through uncaptured steps; the degraded decode
+    step holds the geometry's one state; ``serve.aot_fallbacks_total``
+    counts the fallbacks and a recorder dumps the postmortems."""
+    from repro_torch.obs import FlightRecorder, MetricsRegistry, Telemetry
+    _, _, tm, tp = models[arch]
+    batch = {"tokens": np.asarray(_prompts([8, 8]))}
+    want, _ = generate(tm, tp, batch, max_new_tokens=4)
+    tel = Telemetry(metrics=MetricsRegistry(),
+                    recorder=FlightRecorder(out_dir=str(tmp_path)))
+    s = ServeSession(tm, tp, fallback_backend="eager", telemetry=tel,
+                     straggler_threshold=THRESHOLD,
+                     faults=FaultInjector.from_strings(["compile@0x99"]))
+    got, _ = generate(tm, tp, batch, max_new_tokens=4, session=s)
+    assert np.array_equal(got, want)
+    assert s.stats.fallbacks == 4 and s.stats.degraded_buckets == 2
+    assert tel.metrics.counter("serve.aot_fallbacks_total").value == 4
+    assert set(tel.recorder.dumps) == {"compile_failure", "degraded"}
+    assert (tmp_path / "postmortem-degraded.json").exists()
+    dec = [s.exec_cache.peek(k) for k in s.exec_cache.compiled_log
+           if k.role == "decode"]
+    assert len(dec) == 1 and dec[0].graph is None
+    # a second call hits the degraded steps: nothing more is built
+    got2, _ = generate(tm, tp, batch, max_new_tokens=4, session=s)
+    assert np.array_equal(got2, want) and s.stats.fallbacks == 4
+
+
+# ------------------------------------------------ containing a raise: the
+# step callable raises once (after it ran, so a port step has written its
+# state), wrapped in the test, on both packages
+
+
+class _RaiseOnce:
+    """Wraps what a session's executable cache returns for ``role`` so
+    that its ``n``-th call (over all such steps) raises after running."""
+
+    def __init__(self, role, n):
+        self.role, self.n, self.calls = role, n, 0
+
+    def hit(self):
+        self.calls += 1
+        if self.calls == self.n:
+            raise RuntimeError(f"injected {self.role} failure")
+
+    def install(self, session, port):
+        cache = session.exec_cache
+        get = cache.get
+
+        def wrapped_get(key, builder):
+            value, hit = get(key, builder)
+            if key.role != self.role:
+                return value, hit
+            if port:
+                if not getattr(value, "_wrapped", False):
+                    replay = value.replay
+
+                    def raising_replay():
+                        out = replay()
+                        self.hit()
+                        return out
+                    value.replay = raising_replay
+                    value._wrapped = True
+                return value, hit
+
+            def raising_fn(*a, **kw):
+                out = value(*a, **kw)
+                self.hit()
+                return out
+            return raising_fn, hit
+
+        cache.get = wrapped_get
+
+
+CONTAIN = [(arch, role) for arch in (PHI3, MAMBA)
+           for role in ("prefill", "decode")]
+CONTAIN_LENS, CONTAIN_BUDGETS = [5, 7, 3, 6, 4], [6, 5, 6, 4, 6]
+
+
+def _contain_run(session):
+    for i, p in enumerate(_prompts(CONTAIN_LENS)):
+        session.submit(p, CONTAIN_BUDGETS[i], request_id=f"r{i}")
+    return [(r.request_id, r.state, r.tokens.tolist(), r.reason)
+            for r in session.drain()]
+
+
+@pytest.fixture(scope="module")
+def jax_contained(models):
+    out = {}
+    for arch in (PHI3, MAMBA):
+        jm, jp, _, _ = models[arch]
+        kw = dict(batch_sizes=(2,), kv_block_size=4,
+                  straggler_threshold=THRESHOLD)
+        out[arch, None] = _contain_run(JaxSession(jm, jp, **kw))
+        for role in ("prefill", "decode"):
+            s = JaxSession(jm, jp, **kw)
+            _RaiseOnce(role, 3 if role == "decode" else 2).install(s, False)
+            out[arch, role] = (_contain_run(s), s)
+    return out
+
+
+@pytest.mark.parametrize("arch,role", CONTAIN,
+                         ids=[f"{a.split('-')[0]}-{r}" for a, r in CONTAIN])
+def test_contained_raise_matches_the_jax_session(models, jax_contained,
+                                                 arch, role, tmp_path):
+    """A prefill that raises fails its admission only; a decode step
+    that raises fails the rows in flight (partial tokens), keeps the
+    queue, and every request admitted later gets the clean run's
+    tokens, though the port's step had already written its state."""
+    from repro_torch.obs import FlightRecorder, MetricsRegistry, Telemetry
+    _, _, tm, tp = models[arch]
+    tel = Telemetry(metrics=MetricsRegistry(),
+                    recorder=FlightRecorder(out_dir=str(tmp_path)))
+    s = ServeSession(tm, tp, batch_sizes=(2,), kv_block_size=4,
+                     straggler_threshold=THRESHOLD, telemetry=tel)
+    _RaiseOnce(role, 3 if role == "decode" else 2).install(s, True)
+    run = _contain_run(s)
+    j_run, js = jax_contained[arch, role]
+    assert run == j_run
+    for k in COUNTERS:
+        assert getattr(s.stats, k) == getattr(js.stats, k), k
+    assert _events(s.stats.events) == _events(js.stats.events)
+    clean = {rid: toks for rid, _, toks, _ in jax_contained[arch, None]}
+    failed = [(rid, toks, why) for rid, st, toks, why in run
+              if st == RequestState.FAILED]
+    if role == "prefill":
+        assert [(rid, why) for rid, _, why in failed] == [
+            ("r1", "prefill raised: injected prefill failure")]
+        assert [e.kind for e in s.stats.events] == ["admission_failure"]
+        assert tel.recorder.dumps == {"admission_failure": 2}
+    else:
+        assert len(failed) == 2 and s.stats.failed == 2
+        for rid, toks, why in failed:
+            assert why == "decode step raised: injected decode failure"
+            assert toks == clean[rid][:len(toks)] and len(toks) == 3
+        ev, = s.stats.events
+        assert ev.kind == "step_exception" and ev.step == 2
+        assert ev.error == "injected decode failure"
+        # dumped at the event and again at the activation's end
+        assert tel.recorder.dumps == {"step_exception": 2}
+    for rid, st, toks, _ in run:
+        if st != RequestState.FAILED:
+            assert st == RequestState.COMPLETED and toks == clean[rid]
+    assert not s._running and s.pending() == 0
+
+
+def test_run_batch_propagates_a_raise(models):
+    """``run_batch`` catches nothing, as in the JAX package."""
+    _, _, tm, tp = models[PHI3]
+    s = ServeSession(tm, tp)
+    _RaiseOnce("decode", 1).install(s, True)
+    with pytest.raises(RuntimeError, match="injected decode failure"):
+        generate(tm, tp, {"tokens": np.ones((2, 8), np.int32)},
+                 max_new_tokens=3, session=s)
+
+
+def test_launch_serve_fallback_backend_and_moe(capsys):
+    """``--fallback-backend eager`` reaches the session (every bucket
+    degrades under ``compile@0x99`` and the summary names them), the
+    default ``none`` raises, and a moe architecture serves."""
+    from repro_torch.launch import serve as serve_cli
+
+    base = ["--arch", "phi3-mini-3.8b-smoke", "--device", "cpu",
+            "--session", "--num-requests", "2", "--batch-sizes", "1,2",
+            "--inject-fault", "compile@0x99"]
+    serve_cli.main(base + ["--fallback-backend", "eager"])
+    out = capsys.readouterr().out
+    assert "session: 2 requests" in out
+    line = next(x for x in out.splitlines() if x.startswith("faults:"))
+    counts, buckets = line.split(" | ")
+    # the CLI has no straggler threshold: host jitter on the CPU may add
+    # a straggler event beside the build faults asserted here
+    assert (re.sub(r" straggler=\d+", "", counts)
+            == "faults: compile_failure=6 degraded=3")
+    assert buckets == ("degraded buckets: prefill[b1,p8], decode[b1,t48], "
+                       "prefill[b1,p16]")
+    with pytest.raises(InjectedFault):
+        serve_cli.main(base)
+    serve_cli.main(["--arch", "qwen2-moe-a2.7b-smoke", "--device", "cpu",
+                    "--session", "--num-requests", "4",
+                    "--batch-sizes", "1,2"])
+    out = capsys.readouterr().out
+    assert "arch qwen2-moe-a2.7b-smoke" in out
+    assert "session: 4 requests" in out and "FAILED" not in out
