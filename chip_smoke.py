@@ -183,7 +183,36 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
    service commits (``[dispatch]``: candidates with predicted and
    measured medians, calls until commit, the committed schedule and the
    card's registry key it was written back under), with the launches
-   the probed schedules make counted exactly.
+   the probed schedules make counted exactly;
+9. the thesis' design-space tools (after phase 8): ``[loki]``
+   ``launch/tune_conv`` (the 720-permutation Loki sweeps of Table 4.1,
+   static candidates, top pair, sampling bounds, both permutohedron
+   searches) on a temporary registry, cold then warm (the warm sweeps
+   must make 0 cost-model evaluations, and both runs print the same
+   sections), and ``python -m repro_torch.tune ecm --config
+   squeezenet_layers`` in a child process (its exact consultation
+   rate); host seconds on the card's machine, no device work;
+   ``[quickstart]``: ``launch/quickstart`` on the card (Loki sweep, the
+   H100 model's top two float32 conv schedules, each run through the
+   hand-written conv2d body and held to its plain version at 1e-5,
+   micro-profiled with CUDA events, the committed index): the conv
+   launch count must rise;
+10. ``[tune_cli]`` (after phase 6): the measured records the card wrote
+   (phase 8's dispatch services and both ``[dispatch_serve]`` engines,
+   their slots and ``serve_decode``, each on a temporary registry file)
+   and phase 9's Loki and ECM records, merged into one file ``P``;
+   ``python -m repro_torch.tune --registry P`` in child processes runs
+   ``stats``, ``serve-report``, ``doctor --ratio 3``, ``export``,
+   ``merge`` into an empty file and then ``invalidate --kind
+   conv_sweep``: every command must exit 0, ``serve-report`` must find
+   every measured record written back, the merged file must hold the
+   source's records and ``invalidate`` must drop exactly the sweeps;
+   one line per kind with its measured records and, for the thesis
+   kinds (conv, matmul, sparse conv), those ``doctor`` flags outside
+   [1/3, 3] (an observation, not a gate) and the median
+   measured/predicted ratio; the serving kinds' lines say "not
+   comparable" (their median is a host-timed step of every layer, the
+   prediction one kernel call).
 
 The line before the last is the kernels' JSON summary, the last line
 ``{"ok": true, "device": {...}}``.
@@ -195,8 +224,10 @@ import logging
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1301,11 +1332,18 @@ def reg_dict(sched):
     return schedule_to_dict(sched)
 
 
-def thesis_dispatch(torch, dev, timer, data):
+def card_registry(records, name):
+    """The registry file ``<name>.jsonl`` in ``records``, which
+    ``[tune_cli]`` reads after the phases that measure."""
+    from repro_torch.core import registry as reg
+    return reg.TuningRegistry(str(records / f"{name}.jsonl"))
+
+
+def thesis_dispatch(torch, dev, timer, data, records):
     """The thesis path's main path: every (layer, batch) through
     ``conv2d_dispatched`` in bf16 until its slot commits (the conv slot's
     problem holds the batch), each batch size with its own service and
-    in-memory registry; the GEMM shapes through ``matmul_dispatched``; the sparse
+    registry (a file in ``records``); the GEMM shapes through ``matmul_dispatched``; the sparse
     layers at densities 0.25 and 1.0 through ``sparse_conv2d_dispatched``.
     Launch counts are set to 0 just before and read just after, and must
     equal what the probed schedules launch.  Returns the counts."""
@@ -1334,7 +1372,8 @@ def thesis_dispatch(torch, dev, timer, data):
     t0 = time.perf_counter()
     services = []
     for nb in THESIS_BATCHES:
-        svc = DispatchService(reg.TuningRegistry(None), device=dev)
+        svc = DispatchService(card_registry(records, f"thesis_conv_n{nb}"),
+                              device=dev)
         services.append(svc)
         for name, (l, img32, wgt32) in data["conv"].items():
             img, wgt = img32[:nb].to(bf16), wgt32.to(bf16)
@@ -1343,7 +1382,8 @@ def thesis_dispatch(torch, dev, timer, data):
             drive(svc, "conv2d", problem,
                   lambda: conv2d_dispatched(img, wgt, service=svc),
                   f"conv2d {name} N={nb}")
-    svc = DispatchService(reg.TuningRegistry(None), device=dev)
+    svc = DispatchService(card_registry(records, "thesis_matmul"),
+                          device=dev)
     services.append(svc)
     for label, a32, b32 in gemm_shapes(data):
         a, b = a32.to(bf16), b32.to(bf16)
@@ -1352,7 +1392,8 @@ def thesis_dispatch(torch, dev, timer, data):
               lambda: matmul_dispatched(a, b, service=svc),
               f"matmul {label}")
     for nb in THESIS_BATCHES:
-        svc = DispatchService(reg.TuningRegistry(None), device=dev)
+        svc = DispatchService(card_registry(records, f"thesis_sparse_n{nb}"),
+                              device=dev)
         services.append(svc)
         for name, l in data["sparse"].items():
             img = data["simg"][name][:nb].to(bf16)
@@ -1440,6 +1481,237 @@ def thesis_dispatch(torch, dev, timer, data):
         phase("dispatch_gain", slot=repr(label), rank0_ms=f"{r0:.4f}",
               committed_ms=f"{cm_:.4f}", rank0_over_committed=f"{r0 / cm_:.3f}")
     return {k: counts[k] for k in want}
+
+
+# ---------------------------------------------------------------------------
+# The thesis' design-space tools, the quickstart and the tune CLI
+# ---------------------------------------------------------------------------
+
+def tune_cli(records, *argv):
+    """Start ``python -m repro_torch.tune`` in a child process."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    return subprocess.Popen([sys.executable, "-m", "repro_torch.tune",
+                             *argv], cwd=records, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def finish(proc, what, timeout=300):
+    """Wait for a child started by :func:`tune_cli`; its stdout, or fail
+    with its stderr when it exits with another code than 0."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"[tune_cli] {what}: no exit within {timeout} s")
+    if proc.returncode != 0:
+        fail(f"[tune_cli] {what} exited {proc.returncode}: {err[-2000:]}")
+    return out
+
+
+def loki_phase(smi, records):
+    """``[loki]``: ``launch/tune_conv`` cold then warm on a registry file
+    in ``records``, and the three-tier ``ecm`` sweep of Table 4.1 in a
+    child process over the same file.  Host work only: the seconds are
+    the card machine's host clock."""
+    import io
+    from repro_torch.core.registry import TuningRegistry
+    from repro_torch.launch import tune_conv
+
+    path = records / "loki.jsonl"
+    runs = {}
+    for tag in ("cold", "warm"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = tune_conv.main(TuningRegistry(str(path)))
+        runs[tag] = (res, buf.getvalue().splitlines())
+    (cold, cold_lines), (warm, warm_lines) = runs["cold"], runs["warm"]
+    if warm["sweep_evals"] != 0:
+        fail(f"[loki] the warm sweeps made {warm['sweep_evals']} cost-model "
+             f"evaluations")
+    if cold["sweep_evals"] != 8 * 720 or warm_lines[1:] != cold_lines[1:] \
+            or len(cold_lines) != 22:
+        fail(f"[loki] tune_conv: {cold['sweep_evals']} cold evaluations, "
+             f"warm output equal: {warm_lines[1:] == cold_lines[1:]}")
+    t0 = time.perf_counter()
+    out = finish(tune_cli(records, "--registry", str(path), "ecm",
+                          "--config", "squeezenet_layers"), "ecm")
+    ecm_s = time.perf_counter() - t0
+    m = re.search(r"scored in ([0-9.]+)s; exact consultation rate "
+                  r"([0-9.]+)% \(([0-9]+) traces / ([0-9]+) candidates\)",
+                  out)
+    if m is None or out.count(" tier=") != 8:
+        fail(f"[loki] ecm printed no summary for 8 layers: {out[-500:]}")
+    pair = next(line for line in cold_lines
+                if " + " in line).strip()
+    phase("loki", clock="host (no device work)",
+          tune_conv_cold_s=f"{cold['seconds']:.3f}",
+          tune_conv_warm_s=f"{warm['seconds']:.3f}",
+          sweeps_cold_ms=f"{cold['sweep_s'] * 1e3:.1f}",
+          sweeps_warm_ms=f"{warm['sweep_s'] * 1e3:.1f}",
+          sweep_evals_cold=cold["sweep_evals"], sweep_evals_warm=0,
+          search_evals=warm["evals"], top_pair=repr(pair),
+          ecm_scored_s=m.group(1), ecm_child_s=f"{ecm_s:.2f}",
+          ecm_consultation_rate=f"{m.group(2)}%",
+          ecm_traces=m.group(3), ecm_candidates=m.group(4),
+          card=repr(smi))
+
+
+def quickstart_phase(dev, timer, smi):
+    """``[quickstart]``: ``launch/quickstart`` on the card; the conv
+    kernel must run (its launch count rises) and both schedules hold to
+    the plain version at the float32 contract.  After the counts are
+    read, both schedules are timed again by :class:`Timer` (L2 kept: the
+    quickstart's calls find their inputs there), beside its CUDA-event
+    medians."""
+    import io
+    from repro_torch.kernels import conv2d
+    from repro_torch.launch import quickstart
+
+    before = conv2d.launches
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = quickstart.run(dev)
+    wall = time.perf_counter() - t0
+    if conv2d.launches <= before or res["launches"] < 1:
+        fail(f"[quickstart] the conv2d kernel did not run "
+             f"({res['launches']} launches)")
+    if len(res["max_abs_err"]) != 2 or \
+            not max(res["max_abs_err"]) <= quickstart.TOL:
+        fail(f"[quickstart] schedules vs plain: {res['max_abs_err']}")
+    img, wgt = quickstart.inputs(dev)
+    timer_ms = [timer(lambda: s.run(img, wgt), flush=False)
+                for s in res["schedules"]]
+    phase("quickstart", rank0=json.dumps(reg_dict(res["schedules"][0])),
+          rank1=json.dumps(reg_dict(res["schedules"][1])),
+          predicted_us=json.dumps([round(t * 1e6, 3)
+                                   for t in res["predicted_s"]]),
+          max_abs_err=json.dumps(res["max_abs_err"]), tol=quickstart.TOL,
+          cuda_event_median_us=json.dumps([round(t * 1e6, 3)
+                                           for t in res["medians_s"]]),
+          committed_index=res["best_index"], launches=res["launches"],
+          timer_ms=json.dumps([round(t, 4) for t in timer_ms]),
+          seconds=f"{wall:.2f}", card=repr(smi))
+
+
+def doctor_rows(out):
+    """(kind, batch, measured, ratio, verdict) of each row of
+    ``doctor``'s output: the batch is a conv problem's ``n`` ("-" read
+    as None)."""
+    rows = []
+    for line in out.splitlines()[1:]:
+        cols = line.split()
+        if not cols or line.startswith("--"):
+            continue
+        n = (re.search(r"(?:^|,)n=(\d+)", cols[1])
+             if cols[0] in ("conv_schedule", "sparse_conv_schedule")
+             else None)
+        meas, ratio = (None if c == "-" else float(c) for c in cols[3:5])
+        rows.append((cols[0], n and int(n.group(1)), meas, ratio, cols[5]))
+    return rows
+
+
+# The kinds whose measured median and prediction both time one kernel
+# call: the thesis dispatch's slots.  A serving slot's median is a
+# host-timed step of every layer, so its ratio is no audit of the model.
+THESIS_KINDS = ("conv_schedule", "matmul_schedule", "sparse_conv_schedule")
+
+
+def tune_cli_phase(smi, records):
+    """``[tune_cli]``: the card's registry files merged into ``P``, then
+    ``python -m repro_torch.tune --registry P`` in child processes (the
+    read-only commands side by side, ``invalidate`` last).  See the
+    module docstring for the gates."""
+    import statistics
+    from repro_torch.core import registry as reg
+
+    sources = sorted(records.glob("*.jsonl"))
+    path = records / "P.jsonl"
+    merged = reg.TuningRegistry(str(path))
+    for f in sources:
+        merged.merge(reg.TuningRegistry(str(f)), persist=False)
+    merged.compact()
+    kinds = ("conv_schedule", "matmul_schedule", "flash_attention_schedule",
+             "decode_attention_schedule", "ssm_scan_schedule",
+             "sparse_conv_schedule", "serve_decode")
+    written = len({rec.key.canonical() for f in sources
+                   for rec in reg.TuningRegistry(str(f)).records()
+                   if rec.key.kind in kinds and rec.measured is not None})
+    n_sweeps = sum(rec.key.kind == "conv_sweep" for rec in merged.records())
+    if not written or not n_sweeps:
+        fail(f"[tune_cli] no measured records ({written}) or no sweeps "
+             f"({n_sweeps}) in {[f.name for f in sources]}")
+    empty = records / "merged_into_empty.jsonl"
+    exported = records / "export.json"
+    base = ("--registry", str(path))
+    t0 = time.perf_counter()
+    procs = {"stats": tune_cli(records, *base, "stats"),
+             "serve-report": tune_cli(records, *base, "serve-report"),
+             "doctor": tune_cli(records, *base, "doctor", "--ratio", "3"),
+             "export": tune_cli(records, *base, "export", "--out",
+                                str(exported)),
+             "merge": tune_cli(records, "--registry", str(empty), "merge",
+                               str(path))}
+    outs = {k: finish(p, k) for k, p in procs.items()}
+    outs["invalidate"] = finish(tune_cli(records, *base, "invalidate",
+                                         "--kind", "conv_sweep"),
+                                "invalidate")
+    wall = time.perf_counter() - t0
+    stats = json.loads(outs["stats"])
+    if stats["records"] != len(merged):
+        fail(f"[tune_cli] stats counts {stats['records']} records, the "
+             f"file holds {len(merged)}")
+    m = re.search(r"-- (\d+) serving-path records, (\d+) with run-time",
+                  outs["serve-report"])
+    if m is None or int(m.group(2)) < written:
+        fail(f"[tune_cli] serve-report found {m and m.group(2)} measured "
+             f"records, the phases wrote back {written}")
+    if [r.to_dict() for r in reg.TuningRegistry(str(empty)).records()] != \
+            [r.to_dict() for r in merged.records()]:
+        fail("[tune_cli] the merged file's records differ from the "
+             "source's")
+    if len(json.loads(exported.read_text())) != len(merged):
+        fail("[tune_cli] export wrote another number of records")
+    if f"invalidated {n_sweeps} records" not in outs["invalidate"] or any(
+            k.kind == "conv_sweep" for k in reg.TuningRegistry(
+                str(path)).keys()):
+        fail(f"[tune_cli] invalidate: {outs['invalidate'].strip()}")
+    drows = doctor_rows(outs["doctor"])
+    thesis = [v for kind, _, meas, _, v in drows
+              if kind in THESIS_KINDS and meas is not None]
+    phase("tune_cli", commands=json.dumps(sorted(outs)), exit_codes="all 0",
+          records=len(merged), by_kind=json.dumps(stats["by_kind"]),
+          by_tier=json.dumps(stats["by_tier"]), written_back=written,
+          serve_report_measured=int(m.group(2)),
+          doctor_summary=repr(outs["doctor"].splitlines()[-1].split(
+              " (")[0]), thesis_drifted=repr(
+              f"{thesis.count('DRIFT')} of {len(thesis)} measured"),
+          merged_equal=True, invalidated_sweeps=n_sweeps,
+          children_s=f"{wall:.2f}", card=repr(smi))
+    by_kind = {}
+    for kind, n, meas, ratio, verdict in drows:
+        by_kind.setdefault((kind, n), []).append((meas, ratio, verdict))
+    for (kind, n), rows in sorted(by_kind.items(),
+                                  key=lambda kv: (kv[0][0], kv[0][1] or 0)):
+        measured = sum(meas is not None for meas, _, _ in rows)
+        if kind not in THESIS_KINDS:
+            phase("tune_cli", kind=kind, batch=n, records=len(rows),
+                  measured=measured, audit=repr(
+                      "no prediction" if kind == "serve_decode" else
+                      "not comparable: a host-timed step of every layer "
+                      "against one kernel call's prediction"),
+                  card=repr(smi))
+            continue
+        ratios = [r for _, r, _ in rows if r is not None]
+        phase("tune_cli", kind=kind, batch=n, records=len(rows),
+              measured=measured,
+              drifted=sum(v == "DRIFT" for _, _, v in rows),
+              median_ratio=(f"{statistics.median(ratios):.3f}"
+                            if ratios else None),
+              min_ratio=f"{min(ratios):.3f}" if ratios else None,
+              max_ratio=f"{max(ratios):.3f}" if ratios else None,
+              band="[0.333, 3]", card=repr(smi))
 
 
 def free_card(torch):
@@ -1641,7 +1913,10 @@ def main():
     dev = torch.device("cuda")
     logging.getLogger("repro_torch.serving").addHandler(DEGRADE_WATCH)
     t_run = time.perf_counter()
-    summary = run(torch, dev, Timer(torch, dev), smi)
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="card_records_",
+                                     dir=REPO / "build") as records:
+        summary = run(torch, dev, Timer(torch, dev), smi, Path(records))
     phase("done", seconds=f"{time.perf_counter() - t0:.1f}",
           phases_seconds=f"{time.perf_counter() - t_run:.1f}")
     print(json.dumps({"kernels": list(summary.values())}))
@@ -1809,7 +2084,7 @@ def same_runs(arch, what, runs):
           runs=sum(len(v) for v in runs.values()), equal=True)
 
 
-def serve_phases(torch, dev, smi, arch, sched_times):
+def serve_phases(torch, dev, smi, arch, sched_times, records):
     """Engine, generate and profile phases on full-size ``arch`` in its
     own dtype with random weights from seed 0, each in graphs mode
     (captured steps, the default) and eager mode (``capture=False``) in
@@ -1850,7 +2125,7 @@ def serve_phases(torch, dev, smi, arch, sched_times):
         "ttft_p50_s": st["ttft_p50_s"], "ttft_p95_s": st["ttft_p95_s"]})
     # before the profiles: no profiler has run in the process yet when
     # the dispatched steps are timed, as when the engine phase ran
-    dispatch_serve(torch, model, params, prompts, smi, sched_times)
+    dispatch_serve(torch, model, params, prompts, smi, sched_times, records)
     # before the profiles too: observability's taps in turns, the drift
     telemetry_overhead(torch, model, params, prompts, smi, cold["tokens"])
     watchdog_drift(torch, model, params, prompts, smi)
@@ -1908,8 +2183,9 @@ def exact_tokens(torch, dev, arch):
           generate_rows=4, equal=True, kernels=json.dumps(used))
 
 
-def run(torch, dev, timer, smi):
-    """Phases 3-7 on ``dev``; returns the kernels' summary entries."""
+def run(torch, dev, timer, smi, records):
+    """Phases 3-10 on ``dev``; returns the kernels' summary entries.
+    ``records`` is the directory of the card's registry files."""
     from repro_torch.configs import get_config
 
     summary = kernel_checks(torch, dev, timer)
@@ -1919,14 +2195,17 @@ def run(torch, dev, timer, smi):
     # every kernel), then the dispatched main path with its counts
     data = thesis_data(torch, dev)
     summary.update(thesis_checks(torch, dev, timer, data))
-    thesis = thesis_dispatch(torch, dev, timer, data)
+    thesis = thesis_dispatch(torch, dev, timer, data, records)
     for k, v in thesis.items():
         summary[k]["launches"] = v
     del data
     free_card(torch)
+    # ---- the thesis' design-space tools and the quickstart
+    loki_phase(smi, records)
+    quickstart_phase(dev, timer, smi)
 
     # ---- phi3-mini-3.8b: flash prefill, paged and contiguous decode
-    phi3 = serve_phases(torch, dev, smi, PHI3, sched_times)
+    phi3 = serve_phases(torch, dev, smi, PHI3, sched_times, records)
     ec, gen, st = phi3["engine"], phi3["generate"], phi3["stats"]
     for k in ("flash_attention", "paged_decode_attention"):
         if ec[k] < 1:
@@ -1946,7 +2225,7 @@ def run(torch, dev, timer, smi):
     # ---- falcon-mamba-7b: the selective scan at every layer of every
     # admission, engine step and generate step
     n_layers = get_config(MAMBA).n_layers
-    mamba = serve_phases(torch, dev, smi, MAMBA, sched_times)
+    mamba = serve_phases(torch, dev, smi, MAMBA, sched_times, records)
     ec, gen, st = mamba["engine"], mamba["generate"], mamba["stats"]
     want = n_layers * (st["inflight_admissions"] + st["steps"])
     if ec["ssm_scan"] != want:
@@ -1962,6 +2241,7 @@ def run(torch, dev, timer, smi):
           / max(st["steps"], 1), ssm_scan_per_admission=n_layers,
           engine_total=ec["ssm_scan"], generate_total=gen["ssm_scan"])
     free_card(torch)
+    tune_cli_phase(smi, records)
 
     # ---- the rest of the dense family (GQA groups 3, 6, 8; squared-ReLU
     # MLPs; qk-norm) and moe, at full size: the same two kernels
@@ -2245,7 +2525,8 @@ def check_steps_run_their_bundles(session, decode_kind, label):
                           f"{label} {k.role}[b{k.batch},t{k.length}]")
 
 
-def dispatch_serve(torch, model, params, prompts, smi, sched_times):
+def dispatch_serve(torch, model, params, prompts, smi, sched_times,
+                   records):
     """``[dispatch_serve]``: the engine's 8 requests with captured steps
     and a DispatchService on a temporary registry file, drained twice
     (cold, warm), then once more by a fresh service over the same file;
@@ -2255,8 +2536,10 @@ def dispatch_serve(torch, model, params, prompts, smi, sched_times):
     two step times are compared in turns in one call.  Then at the
     engine phase's batch sizes a session without dispatch and one on
     the fresh service drain cold then warm: the buckets the
-    dispatch-aware choice picks, reported.  See the module docstring
-    for the gates."""
+    dispatch-aware choice picks, reported.  The dispatched sessions
+    also write ``serve_decode`` back; the registry file is copied to
+    ``records`` for ``[tune_cli]``.  See the module docstring for the
+    gates."""
     import tempfile
     from repro_torch import kernels
     from repro_torch.core import cost_model as cm
@@ -2285,7 +2568,8 @@ def dispatch_serve(torch, model, params, prompts, smi, sched_times):
         path = str(Path(tmp) / "dispatch.jsonl")
         svc = DispatchService(reg.TuningRegistry(path), device=dev)
         session = ServeSession(model, params, backend="cuda",
-                               batch_sizes=(4,), dispatch=svc)
+                               batch_sizes=(4,), dispatch=svc,
+                               registry=svc.registry)
 
         def drain(sess, tag):
             """Serve the 8 requests once; the drain's stats and tokens."""
@@ -2338,7 +2622,8 @@ def dispatch_serve(torch, model, params, prompts, smi, sched_times):
         persisted = reg.schedule_from_dict(rec.measured["best"])
         fresh = DispatchService(reg.TuningRegistry(path), device=dev)
         fsession = ServeSession(model, params, backend="cuda",
-                                batch_sizes=(4,), dispatch=fresh)
+                                batch_sizes=(4,), dispatch=fresh,
+                                registry=fresh.registry)
         evals = cm.total_evals()
         st_f, tokens_f, _, _ = drain(fsession, "fresh")
         if cm.total_evals() != evals:
@@ -2373,6 +2658,7 @@ def dispatch_serve(torch, model, params, prompts, smi, sched_times):
             multi[tag] = (st_m, tok_m, picks)
             del msession
             free_card(torch)
+        shutil.copyfile(path, records / f"serve_{arch}.jsonl")
     for entry in report.values():
         timed_kernel = shown.get((entry["kind"], json.dumps(
             entry["problem"], sort_keys=True)))

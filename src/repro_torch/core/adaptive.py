@@ -30,21 +30,27 @@ def steadiness(samples: Sequence[float]) -> float:
     return float(a.std(ddof=1) / a.mean())
 
 
+def host_time(call: Callable[[], None]) -> float:
+    """Seconds one ``call`` takes on the host clock (the call must finish
+    its device work before returning)."""
+    t0 = time.perf_counter()
+    call()
+    return time.perf_counter() - t0
+
+
 def microprofile(candidates: Sequence[S], run: Callable[[S], None],
-                 repeats: int = 3, warmup: int = 1) -> Dict:
-    """Time each candidate on the host clock (median of ``repeats`` after
-    ``warmup``; ``run`` must finish its device work before returning)
-    and return the winner with the measurements."""
+                 repeats: int = 3, warmup: int = 1,
+                 timer: Callable[[Callable[[], None]], float] = host_time,
+                 ) -> Dict:
+    """Time each candidate (median of ``repeats`` after ``warmup``) and
+    return the winner with the measurements.  ``timer(call)`` gives one
+    call's seconds: the host clock by default, CUDA events where the
+    caller times the card."""
     timings: List[List[float]] = []
     for cand in candidates:
         for _ in range(warmup):
             run(cand)
-        ts = []
-        for _ in range(repeats):
-            t0 = time.perf_counter()
-            run(cand)
-            ts.append(time.perf_counter() - t0)
-        timings.append(ts)
+        timings.append([timer(lambda: run(cand)) for _ in range(repeats)])
     medians = [float(np.median(t)) for t in timings]
     best = int(np.argmin(medians))
     return {"best": candidates[best], "best_index": best,

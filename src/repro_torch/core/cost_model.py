@@ -1,6 +1,10 @@
 """The H100 cost model of the port's kernels: the thesis kernels (conv,
 matmul, sparse conv) and the serving kernels (flash attention, the split
-decode, the selective scan).
+decode, the selective scan); and, beside it, the thesis' Loki machine
+model (``CacheLevel``, ``MachineModel``, ``HIERARCHIES``, ``simulate``,
+``sweep_permutations``, ``simulate_batch``), defined in
+:mod:`repro_torch.core.loki` and re-exported here, as the JAX package
+keeps both machines in one module.  Both count into :data:`EVAL_COUNTS`.
 
 It keeps the JAX package's structure (``repro.core.cost_model``, the
 TPU model) and changes its machine.  What does not depend on the
@@ -106,6 +110,10 @@ from typing import Dict, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.core.loki import (  # noqa: F401  (the Loki model)
+    EVAL_COUNTS, HIERARCHIES, LOKI_MODEL_VERSION, BatchSimResult,
+    CacheLevel, CacheSimResult, MachineModel, simulate, simulate_batch,
+    sweep_permutations)
 from repro_torch.core.loopnest import ConvLayer
 from repro_torch.kernels import _geometry as geo
 
@@ -115,13 +123,15 @@ COST_MODEL_VERSION = "h100-4"
 
 # Cost-model queries in this process, one per candidate scored: a warm
 # registry hit performs zero (asserted in tests/test_torch_thesis.py).
-EVAL_COUNTS: Dict[str, int] = {"conv_schedule_cost": 0,
-                               "conv_schedule_cost_batch": 0,
-                               "matmul_schedule_cost_batch": 0,
-                               "sparse_conv_schedule_cost_batch": 0,
-                               "flash_attention_schedule_cost_batch": 0,
-                               "decode_attention_schedule_cost_batch": 0,
-                               "ssm_scan_schedule_cost_batch": 0}
+# The dict is the Loki model's (its sweeps, ECM batches and traces count
+# there too), so total_evals sums both machines.
+EVAL_COUNTS.update({"conv_schedule_cost": 0,
+                    "conv_schedule_cost_batch": 0,
+                    "matmul_schedule_cost_batch": 0,
+                    "sparse_conv_schedule_cost_batch": 0,
+                    "flash_attention_schedule_cost_batch": 0,
+                    "decode_attention_schedule_cost_batch": 0,
+                    "ssm_scan_schedule_cost_batch": 0})
 
 INFEASIBLE_S = 1e3
 
@@ -170,6 +180,12 @@ SCAN_EXP_S = 5.988e-11
 # exps an SM's special-function units issue a clock (4 in each of its
 # quadrants), at the clock implied by the CUDA-core peak
 SFU_PER_CLOCK = 16
+
+
+def reset_eval_counts() -> None:
+    """Zero every counter in :data:`EVAL_COUNTS` (test and bench setup)."""
+    for k in EVAL_COUNTS:
+        EVAL_COUNTS[k] = 0
 
 
 def total_evals() -> int:
@@ -956,6 +972,9 @@ def ssm_scan_schedule_cost_batch(bt: int, seq: int, di: int, n: int,
 
 
 __all__ = ["COST_MODEL_VERSION", "EVAL_COUNTS", "H100Spec", "KernelCost",
+           "LOKI_MODEL_VERSION", "CacheLevel", "MachineModel", "HIERARCHIES",
+           "CacheSimResult", "simulate", "sweep_permutations",
+           "BatchSimResult", "simulate_batch", "reset_eval_counts",
            "LOAD_LATENCY_S", "RING_LATENCY_S", "SPARSE_CALL_S",
            "SPARSE_CHANNEL_S", "STEP_CYCLES", "UNIT_CYCLES",
            "BatchKernelCost", "conv_schedule_cost",

@@ -11,8 +11,18 @@ write per key wins.  The port's registry is its own file
 (``~/.cache/repro_torch/tuning.jsonl``, or ``REPRO_TORCH_TUNE_REGISTRY``),
 so tools of the JAX package never read H100 records.
 
+Every rewrite of the file (:meth:`TuningRegistry.compact`, and through
+it ``invalidate``) and every append happens under the registry's lock, so
+a thread's append never lands in a file another thread is replacing.
+:meth:`TuningRegistry.merge` is the fleet-sync union (``python -m
+repro_torch.tune merge``/``sync``), with the JAX package's conflict rule
+(:func:`prefer_record`) and its machine last-seen sidecar.
+
 Machine keys: an offline ranking is a prediction of the H100 cost model
-and is keyed by the spec's fingerprint.  The dispatch service keys its
+and is keyed by the spec's fingerprint; a Loki sweep (``conv_sweep``) or
+an ECM record by the ``MachineModel``'s, under the Loki model's own
+version strings, so those keys equal the JAX package's letter for
+letter.  The dispatch service keys its
 slots, and so its measured write-back, by the spec *and*
 :func:`runtime_fingerprint` of the torch device that ran the calls, so a
 time taken on the CPU is never stored under a key the card reads, nor
@@ -26,8 +36,9 @@ import hashlib
 import json
 import logging
 import os
+import tempfile
 import threading
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 log = logging.getLogger("repro_torch.registry")
 
@@ -52,10 +63,18 @@ def _fingerprint_dataclass(obj: Any) -> str:
 
 def fingerprint(obj: Any) -> str:
     """Stable 12-hex digest of a dataclass / dict / tuple describing a
-    machine (``H100Spec``, a runtime description, ...)."""
+    machine (``H100Spec``, ``MachineModel``, a runtime description, ...).
+    Hashable (frozen) dataclasses are memoised per process."""
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        return _fingerprint_dataclass(obj)
-    return hashlib.sha256(canonical_json(obj).encode()).hexdigest()[:12]
+        try:
+            return _fingerprint_dataclass(obj)
+        except TypeError:
+            # unhashable (mutable) dataclass: compute without the cache
+            payload = {"__class__": type(obj).__name__,
+                       **dataclasses.asdict(obj)}
+    else:
+        payload = obj
+    return hashlib.sha256(canonical_json(payload).encode()).hexdigest()[:12]
 
 
 def runtime_fingerprint(device) -> str:
@@ -199,15 +218,22 @@ def cost_from_dict(d: Dict[str, Any]) -> Any:
     return KernelCost(**d)
 
 
-# Which cost-model tier produced each record kind.  The port has the
-# roofline-style analytic tier only.
+# Which cost-model tier produced each record kind: the roofline-style
+# analytic models, the ECM layer-condition tier, or the exact
+# trace-driven simulator.  A record may override it with an explicit
+# ``value["tier"]`` (an ``ecm_sweep`` winner an exact consultation
+# decided).
 KIND_TIERS: Dict[str, str] = {
+    "conv_sweep": "roofline",
     "conv_schedule": "roofline",
     "matmul_schedule": "roofline",
     "sparse_conv_schedule": "roofline",
     "flash_attention_schedule": "roofline",
     "decode_attention_schedule": "roofline",
     "ssm_scan_schedule": "roofline",
+    "ecm_sweep": "ecm",
+    "ecm_correction": "ecm",
+    "exact_sweep": "exact",
 }
 
 
@@ -220,7 +246,8 @@ class TuningRegistry:
     """Versioned on-disk store of tuning results (JSON-lines).
 
     ``path=None`` keeps the registry in memory only (tests, one-shot
-    runs).  Every ``put`` with a path appends one line.
+    runs).  Every ``put`` with a path appends one line; :meth:`compact`
+    canonicalises the file.
     """
 
     def __init__(self, path: Optional[str] = None, autoload: bool = True):
@@ -299,16 +326,48 @@ class TuningRegistry:
         finally:
             os.close(fd)
 
+    def compact(self) -> None:
+        """Rewrite the log as one canonical line per key, sorted by key,
+        so the file's bytes depend only on the record set.  Atomic (a
+        temporary file, then a rename), under the lock every append
+        takes."""
+        if not self.path:
+            return
+        with self._lock:
+            items = sorted(self._records.items())
+            dirname = os.path.dirname(os.path.abspath(self.path)) or "."
+            os.makedirs(dirname, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(dir=dirname, suffix=".tmp")
+            try:
+                with os.fdopen(fd, "w", encoding="utf-8") as f:
+                    for _, rec in items:
+                        f.write(canonical_json(rec.to_dict()) + "\n")
+                os.replace(tmp, self.path)
+            except BaseException:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+                raise
+
+    def export_json(self, path: str) -> int:
+        """Dump the current state as one pretty JSON array."""
+        with self._lock:
+            recs = [rec.to_dict() for _, rec in sorted(self._records.items())]
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(recs, f, indent=2, sort_keys=True)
+            f.write("\n")
+        return len(recs)
+
     def get(self, key: RegistryKey) -> Optional[TuningRecord]:
         """The record stored under ``key``, or None."""
         return self._records.get(key.canonical())
 
     def put(self, record: TuningRecord, persist: bool = True) -> None:
-        """Store (and by default append-persist) one record."""
+        """Store (and by default append-persist) one record; the append
+        happens under the lock, so it never races a :meth:`compact`."""
         with self._lock:
             self._records[record.key.canonical()] = record
-        if persist:
-            self._append_line(record)
+            if persist:
+                self._append_line(record)
 
     def record_measurement(self, key: RegistryKey, best: Dict[str, Any],
                            time_s: float,
@@ -323,8 +382,141 @@ class TuningRegistry:
         self.put(rec, persist=persist)
         return rec
 
+    def invalidate(self, kind: Optional[str] = None,
+                   machine: Optional[str] = None,
+                   cost_model: Optional[str] = None,
+                   persist: bool = True) -> int:
+        """Drop records matching all given filters (None = wildcard);
+        with no filter, every record.  Persisting compacts the file."""
+        with self._lock:
+            doomed = [ck for ck, rec in self._records.items()
+                      if (kind is None or rec.key.kind == kind)
+                      and (machine is None or rec.key.machine == machine)
+                      and (cost_model is None
+                           or rec.key.cost_model == cost_model)]
+            for ck in doomed:
+                del self._records[ck]
+        if doomed and persist:
+            self.compact()
+        return len(doomed)
+
+    def merge(self, other: "TuningRegistry",
+              persist: bool = True) -> Dict[str, int]:
+        """Content-addressed union with ``other`` (fleet sync).
+
+        Identical records dedupe; a key conflict goes to
+        :func:`prefer_record`, a total order, so ``a.merge(b)`` and
+        ``b.merge(a)`` converge on the same record set."""
+        stats = {"added": 0, "replaced": 0, "kept": 0, "identical": 0}
+        for rec in other.records():
+            mine = self.get(rec.key)
+            if mine is None:
+                self.put(rec, persist=persist)
+                stats["added"] += 1
+            elif canonical_json(mine.to_dict()) == \
+                    canonical_json(rec.to_dict()):
+                stats["identical"] += 1
+            elif prefer_record(mine, rec) is mine:
+                stats["kept"] += 1
+            else:
+                self.put(rec, persist=persist)
+                stats["replaced"] += 1
+        return stats
+
+    def _sorted_items(self) -> List[Tuple[str, TuningRecord]]:
+        """(canonical key, record) pairs in canonical key order, read
+        under the lock."""
+        with self._lock:
+            return sorted(self._records.items())
+
+    def machines(self) -> List[str]:
+        """Distinct machine fingerprints present in the record set."""
+        return sorted({rec.key.machine for _, rec in self._sorted_items()})
+
+    def keys(self) -> List[RegistryKey]:
+        """All keys, sorted canonically."""
+        return [rec.key for _, rec in self._sorted_items()]
+
+    def records(self) -> Iterator[TuningRecord]:
+        """All records in canonical key order."""
+        for _, rec in self._sorted_items():
+            yield rec
+
+    def __len__(self) -> int:
+        """Number of distinct keys held."""
+        return len(self._records)
+
+    def __contains__(self, key: RegistryKey) -> bool:
+        """Whether ``key`` has a stored record."""
+        return key.canonical() in self._records
+
+    def stats(self) -> Dict[str, Any]:
+        """Summary counts: total, per kind, per cost-model tier (an
+        explicit ``value["tier"]`` wins over the kind's default), and how
+        many records carry run-time measurements."""
+        by_kind: Dict[str, int] = {}
+        by_tier: Dict[str, int] = {}
+        measured = 0
+        for _, rec in self._sorted_items():
+            by_kind[rec.key.kind] = by_kind.get(rec.key.kind, 0) + 1
+            tier = rec.value.get("tier") or kind_tier(rec.key.kind)
+            by_tier[tier] = by_tier.get(tier, 0) + 1
+            measured += rec.measured is not None
+        return {"records": len(self._records), "by_kind": by_kind,
+                "by_tier": by_tier, "measured": measured,
+                "path": self.path,
+                "malformed_lines": self.malformed_lines}
+
 
 _DEFAULT_REGISTRY: Optional[TuningRegistry] = None
+
+
+def prefer_record(a: TuningRecord, b: TuningRecord) -> TuningRecord:
+    """Deterministic, order-independent conflict rule for merges: a
+    measured record beats an unmeasured one, more ranked schedules beat
+    fewer, and canonical bytes break the remaining ties."""
+    def rank(rec: TuningRecord):
+        """Sort key of the conflict rule (higher wins)."""
+        return (rec.measured is not None,
+                len(rec.value.get("schedules", ())),
+                len(rec.value.get("costs", ())))
+    ra, rb = rank(a), rank(b)
+    if ra != rb:
+        return a if ra > rb else b
+    ca, cb = canonical_json(a.to_dict()), canonical_json(b.to_dict())
+    return a if ca <= cb else b
+
+
+# Machine last-seen sidecar (fleet eviction): records carry no wall-clock
+# time, so ``<registry>.machines.json`` maps a machine fingerprint to the
+# ISO date it was last seen in a merge; ``tune merge --evict-days N``
+# drops records of machines not seen for N days.
+
+def machine_seen_path(registry_path: str) -> str:
+    """Path of the last-seen sidecar next to a registry file."""
+    return registry_path + ".machines.json"
+
+
+def load_machine_seen(registry_path: str) -> Dict[str, str]:
+    """Read the sidecar: machine fingerprint -> last-seen ISO date."""
+    path = machine_seen_path(registry_path)
+    if not os.path.exists(path):
+        return {}
+    try:
+        with open(path, "r", encoding="utf-8") as f:
+            d = json.load(f)
+        return {str(k): str(v) for k, v in d.items()}
+    except (ValueError, OSError):
+        return {}
+
+
+def save_machine_seen(registry_path: str, seen: Dict[str, str]) -> None:
+    """Write the sidecar (sorted, pretty) next to the registry."""
+    path = machine_seen_path(registry_path)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(dict(sorted(seen.items())), f, indent=2, sort_keys=True)
+        f.write("\n")
 
 
 def _machine(machine: Any) -> str:
@@ -338,6 +530,50 @@ def conv_problem(layer: Any, elem_bytes: int = 2, batch: int = 1
     return {"oc": layer.oc, "ic": layer.ic, "h": layer.h, "w": layer.w,
             "kh": layer.kh, "kw": layer.kw, "n": batch,
             "elem_bytes": elem_bytes}
+
+
+def conv_layer_from_problem(problem: Dict[str, Any]) -> Any:
+    """Rebuild the ConvLayer a :func:`conv_problem` dict describes."""
+    from repro_torch.core.loopnest import ConvLayer
+    return ConvLayer(problem["oc"], problem["ic"], problem["h"],
+                     problem["w"], problem["kh"], problem["kw"])
+
+
+def loki_problem(layer: Any) -> Dict[str, Any]:
+    """Problem dict of a layer of the Loki model's records: the JAX
+    package's ``conv_problem`` at the layer's element size (no batch)."""
+    problem = conv_problem(layer, layer.elem_bytes)
+    del problem["n"]
+    return problem
+
+
+def conv_sweep_key(layer: Any, machine: Any, threads: int = 1,
+                   ) -> RegistryKey:
+    """Key of a tier-1 720-permutation Loki sweep signature, under the
+    Loki model's version (equal to the JAX package's key)."""
+    from repro_torch.core.loki import LOKI_MODEL_VERSION
+    problem = {**loki_problem(layer), "threads": threads}
+    return RegistryKey.make("conv_sweep", problem,
+                            _machine(machine), LOKI_MODEL_VERSION)
+
+
+def ecm_sweep_key(layer: Any, machine: Any, threads: int = 1,
+                  ) -> RegistryKey:
+    """Key of a tier-2 ECM sweep winner, under
+    :data:`repro_torch.core.ecm.ECM_MODEL_VERSION`."""
+    from repro_torch.core.ecm import ECM_MODEL_VERSION
+    problem = {**loki_problem(layer), "threads": threads}
+    return RegistryKey.make("ecm_sweep", problem,
+                            _machine(machine), ECM_MODEL_VERSION)
+
+
+def ecm_correction_key(machine: Any) -> RegistryKey:
+    """Key of a machine's learned ECM correction: the "problem" is the
+    correction's functional form, so a refit overwrites in place."""
+    from repro_torch.core.ecm import ECM_MODEL_VERSION, N_FEATURES
+    problem = {"features": N_FEATURES, "form": "log-linear"}
+    return RegistryKey.make("ecm_correction", problem, _machine(machine),
+                            ECM_MODEL_VERSION)
 
 
 def conv_schedule_key(layer: Any, machine: Any, elem_bytes: int = 2,
@@ -417,5 +653,8 @@ __all__ = [
     "matmul_schedule_key", "sparse_conv_schedule_key", "quantize_density",
     "flash_attention_schedule_key", "decode_attention_schedule_key",
     "ssm_scan_schedule_key",
-    "KIND_TIERS", "kind_tier",
+    "KIND_TIERS", "kind_tier", "prefer_record", "conv_layer_from_problem",
+    "loki_problem",
+    "conv_sweep_key", "ecm_sweep_key", "ecm_correction_key",
+    "machine_seen_path", "load_machine_seen", "save_machine_seen",
 ]

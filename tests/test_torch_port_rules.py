@@ -76,6 +76,20 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     assert params["embed"].device.type == "cpu"
 
 
+def test_quickstart_raises_without_a_card(monkeypatch):
+    """The quickstart runs the conv kernel on the card; with no card it
+    raises before any work, unless asked for the CPU."""
+    from repro_torch.launch import quickstart
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    before = launch_counts()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        quickstart.main([])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        quickstart.run("cuda")
+    assert quickstart.main(["--device", "cpu"])["device"] == "cpu"
+    assert launch_counts() == before
+
+
 def test_wrappers_never_fall_back_for_non_cpu_tensors():
     """A tensor that is not on the CPU reaches the kernel path or
     raises; it never silently runs the plain version."""
