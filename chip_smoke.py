@@ -166,6 +166,32 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
    out-of-bounds index on the card (a device-side assert) must see
    ``drain`` raise the step's error and exit non-zero, the session
    recording no ``step_exception``;
+7b. the hybrid, vlm and audio families (after phase 7a), served as in
+   JAX through the bucketed path only: ``[hybrid]`` recurrentgemma-9b
+   (12 groups of RG-LRU, RG-LRU, local attention and two RG-LRU
+   layers; 16 query heads on one KV head, head_dim 256), ``[vlm]``
+   paligemma-3b (256 image tokens before the text) and ``[audio]``
+   whisper-large-v3 (32 encoder layers over 1500 frames, 32 decoder
+   layers with cross-attention), each at full width and depth in bf16
+   with random weights from seed 0 and ``image_embeds`` / ``frames``
+   from a generator seeded 2: the 8 engine requests, greedy, 32 new
+   tokens, one cold drain with graphs at batch sizes (1, 2, 4), its
+   launches gated at one flash launch a prefill per attention layer
+   (12, 18, and 64: whisper's 32 encoder layers run the non-causal
+   body) and one contiguous decode launch a step per self-attention
+   layer (12, 18, 32); recurrentgemma also serves one request of 2,100
+   tokens (``[hybrid_long]``: bucket 4096, the prefill's flash windowed
+   at 2048, every decode step in the wrapped rolling buffer);
+   ``[family_profile]``: the widest captured decode step replayed 10
+   times under ``torch.profiler`` (device ms a step by kernel group,
+   busy share, top kernels); then ``[family_vs_plain]``: the same requests eagerly, every kernel call
+   held to its plain version, tokens equal to the graphs drain's; and
+   exact tokens (graphs, eager, plain) of ``drain`` and ``generate``
+   with extras on the three float32 smoke configs, whose prompts pass
+   their local window of 16.  Phase 3 holds the three families' new
+   kernel shapes (``[time_family]``): the windowed flash at
+   [1, 16, 4096, 256], the non-causal flash at [4, 20, 1500, 64] and
+   the contiguous decode over a wrapped buffer of 2048 slots;
 8. the thesis path (run after phase 3): conv2d, matmul and the
    block-sparse conv at the widths of thesis Table 4.1 (batch 1 and 32),
    the GEMM form of its 1x1 layers, phi3-mini's QKV projection and the
@@ -876,6 +902,7 @@ def kernel_checks(torch, dev, timer):
               library_ms=("null" if e["library_ms"] is None
                           else f"{e['library_ms']:.4f}"),
               **({"plan": repr(e["plan"])} if "plan" in e else {}))
+    family_kernel_cases(torch, dev, timer, rn, check, summary)
     e = summary["ssm_scan"]
     # block_d is the kernel's launch parameter: the two prefills and the
     # decode step at each
@@ -899,6 +926,101 @@ def kernel_checks(torch, dev, timer):
           bound_ms=f"{e['decode_bound_ms']:.4f}", bound_by="bytes",
           library_ms="null", plan=repr(scan_plan(4)))
     return summary
+
+
+def family_kernel_cases(torch, dev, timer, rn, check, summary):
+    """Phase 3, the hybrid, vlm and audio families' shapes (bf16): the
+    windowed flash prefill of recurrentgemma-9b's long bucket (16 query
+    heads on one KV head, head_dim 256, causal, window 2048), the
+    non-causal flash of whisper-large-v3's encoder ([4, 20, 1500, 64])
+    and the contiguous decode over recurrentgemma's wrapped rolling
+    buffer (2048 slots, pos past it).  Each is held to its plain version
+    (the decode also to the model's windowed plain path), timed with
+    CUDA events beside its bound and SDPA on the same inputs, printed as
+    ``[time_family]`` and added to its kernel's summary entry
+    (``family_shapes``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.models import attention as model_attention
+
+    bf16 = torch.bfloat16
+
+    def record(kernel, shape, ms, plain_ms, n_bytes, n_ops, lib_ms, err):
+        """One ``[time_family]`` line and its summary record."""
+        b_ms, b_by = bound(n_bytes, n_ops, "bfloat16")
+        row = dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=lib_ms, max_abs_err=err)
+        summary[kernel].setdefault("family_shapes", []).append(row)
+        phase("time_family", kernel=kernel, shape=repr(shape),
+              ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+              bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+              library_ms=f"{lib_ms:.4f}", max_abs_err=f"{err:.3g}")
+
+    def err_of(got, want):
+        """Max abs error of ``got`` against ``want``."""
+        return (got.float() - want.float()).abs().max().item()
+
+    # recurrentgemma-9b: the 2,100-token prompt's bucket of 4096 with the
+    # local window of 2048
+    s, d, hq, win = 4096, 256, 16, 2048
+    q = rn((1, hq, s, d), bf16)
+    k, v = rn((1, 1, s, d), bf16), rn((1, 1, s, d), bf16)
+    got = flash_attention(q, k, v, causal=True, window=win)
+    want = flash_attention_ref(q, k, v, causal=True, window=win)
+    shape = f"q [1,{hq},{s},{d}], k/v [1,1,{s},{d}] bf16, causal, window {win}"
+    check("flash_attention", got, want, shape)
+    qpos = torch.arange(s, device=dev)[:, None]
+    kpos = torch.arange(s, device=dev)[None, :]
+    mask = (kpos <= qpos) & (kpos > qpos - win)
+    pairs = int(mask.sum().item())          # (query, key) pairs computed
+    record("flash_attention", shape,
+           timer(lambda: flash_attention(q, k, v, causal=True, window=win)),
+           timer(lambda: flash_attention_ref(q, k, v, causal=True,
+                                             window=win), iters=5),
+           (2 * hq + 2) * s * d * 2, 4 * d * hq * pairs,
+           timer(lambda: F.scaled_dot_product_attention(
+               q, k, v, attn_mask=mask, enable_gqa=True)),
+           err_of(got, want))
+    del q, k, v, got, want, mask
+    # whisper-large-v3's encoder: 1500 frames, 20 heads of 64, no mask
+    b, hq, s, d = 4, 20, 1500, 64
+    q = rn((b, hq, s, d), bf16)
+    k, v = rn((b, hq, s, d), bf16), rn((b, hq, s, d), bf16)
+    got = flash_attention(q, k, v, causal=False)
+    want = flash_attention_ref(q, k, v, causal=False)
+    shape = f"q,k,v [{b},{hq},{s},{d}] bf16, non-causal"
+    check("flash_attention", got, want, shape)
+    record("flash_attention", shape,
+           timer(lambda: flash_attention(q, k, v, causal=False)),
+           timer(lambda: flash_attention_ref(q, k, v, causal=False),
+                 iters=5),
+           4 * b * hq * s * d * 2, 4 * d * b * hq * s * s,
+           timer(lambda: F.scaled_dot_product_attention(q, k, v)),
+           err_of(got, want))
+    del q, k, v, got, want
+    # recurrentgemma-9b's decode over its wrapped rolling buffer: every
+    # slot valid at each of these positions
+    b, hq, s, d = 4, 16, 2048, 256
+    pos = torch.tensor([2048, 2500, 3000, 4127], device=dev)
+    q = rn((b, hq, 1, d), bf16)
+    k, v = rn((b, 1, s, d), bf16), rn((b, 1, s, d), bf16)
+    got = decode_attention(q, k, v, pos)
+    want = decode_attention_ref(q, k, v, pos)
+    shape = (f"q [{b},{hq},1,{d}], rolling k/v [{b},1,{s},{d}] bf16, "
+             f"pos {pos.tolist()}")
+    check("decode_attention", got, want, shape)
+    check("decode_attention", got, model_attention.decode_attention(
+        q, k, v, pos, window=s, backend="plain"), shape + " (model, window)")
+    record("decode_attention", shape,
+           timer(lambda: decode_attention(q, k, v, pos)),
+           timer(lambda: decode_attention_ref(q, k, v, pos)),
+           2 * b * hq * d * 2 + 2 * b * s * d * 2 + b * 8,
+           4 * d * hq * b * s,
+           timer(lambda: F.scaled_dot_product_attention(
+               q, k, v, enable_gqa=True)),
+           err_of(got, want))
 
 
 # ---------------------------------------------------------------------------
@@ -2258,6 +2380,14 @@ def run(torch, dev, timer, smi, records):
     for arch in DENSE_FAMILY + (MOE, "llama4-scout-17b-a16e"):
         exact_tokens(torch, dev, arch + "-smoke")
     sticky_error_phase(torch, smi)
+
+    # ---- the hybrid, vlm and audio families at full size, through the
+    # bucketed path (the engine serves dense, moe and ssm only, as in JAX)
+    for arch in FAMILY_ARCHS:
+        for k, v in family_phase_new(torch, dev, smi, arch).items():
+            summary[k]["launches"] += v
+    for arch in FAMILY_ARCHS:
+        exact_tokens_bucketed(torch, dev, arch + "-smoke")
     return summary
 
 
@@ -4340,6 +4470,319 @@ def exact_watchdog_drift(torch, dev, arch):
              f"path's")
     phase("watchdog_drift", arch=scfg.name, dtype="float32",
           equal_to_plain=True, **fields)
+
+
+# ---------------------------------------------------------------------------
+# The hybrid, vlm and audio families: the bucketed path only, as in JAX
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("recurrentgemma-9b", "paligemma-3b", "whisper-large-v3")
+# recurrentgemma's long request: bucketed to 4096, past its window of
+# 2048, so the prefill runs the windowed flash kernel and every decode
+# step writes and reads the wrapped rolling buffer
+LONG_PROMPT = 2100
+EXTRAS_SEED = 2
+
+
+def family_launches(cfg):
+    """(flash launches a prefill, contiguous decode launches a decode
+    step) of ``cfg``: one a layer that attends; audio's encoder adds one
+    non-causal launch a layer to its prefill."""
+    from repro_torch.models.transformer import hybrid_counts
+    if cfg.family == "hybrid":
+        n_groups, tail = hybrid_counts(cfg)
+        n = n_groups * cfg.block_pattern.count("attn") + tail.count("attn")
+        return n, n
+    if cfg.family == "audio":
+        return cfg.encoder_layers + cfg.n_layers, cfg.n_layers
+    return cfg.n_layers, cfg.n_layers
+
+
+def family_extras(model, n):
+    """``n`` requests' modality extras (float32 numpy rows of the
+    family's ``image_embeds`` or ``frames``) from a torch generator
+    seeded ``EXTRAS_SEED``; None each for a family without one."""
+    import torch
+    specs = model.modality_specs(1)
+    gen = torch.Generator().manual_seed(EXTRAS_SEED)
+    return [{name: torch.randn(shape[1:], generator=gen).numpy()
+             for name, (shape, _) in specs.items()} or None
+            for _ in range(n)]
+
+
+def family_drain(torch, model, params, prompts, extras, capture, label,
+                 new_tokens=NEW_TOKENS):
+    """One greedy drain of ``prompts`` (with ``extras``) on a fresh
+    session at ``ENGINE_BATCH_SIZES``: ``drain`` serves these families
+    through ``_drain_batched``.  The launch counts are set to 0 just
+    before and read just after.  Returns (tokens by id, session, wall
+    seconds, launches, peak reserved bytes)."""
+    from repro_torch import kernels
+    from repro_torch.serving import ServeSession
+    s = ServeSession(model, params, backend="cuda", capture=capture,
+                     batch_sizes=ENGINE_BATCH_SIZES)
+    for i, (p, e) in enumerate(zip(prompts, extras)):
+        s.submit(p, new_tokens, request_id=f"r{i}", extras=e)
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = {r.request_id: r for r in s.drain()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    bad = [k for k, r in res.items()
+           if r.state != "COMPLETED" or len(r.tokens) != new_tokens]
+    if len(res) != len(prompts) or bad:
+        fail(f"{label}: not completed: {bad}")
+    if s.stats.steps or s.stats.inflight_admissions:
+        fail(f"{label}: the in-flight engine ran ({s.stats.steps} steps)")
+    return ({k: r.tokens.tolist() for k, r in res.items()}, s, wall, counts,
+            torch.cuda.max_memory_reserved())
+
+
+def family_gate(cfg, session, counts, label, new_tokens=NEW_TOKENS):
+    """The launches of a drain: exactly the family's flash launches a
+    prefill (one prefill a batch) and contiguous decode launches a decode
+    step (``new_tokens - 1`` a batch), and no other kernel."""
+    fpp, dps = family_launches(cfg)
+    batches = session.stats.batches
+    want = {"flash_attention": fpp * batches,
+            "decode_attention": dps * batches * (new_tokens - 1)}
+    if counts != want:
+        fail(f"{label}: launches {counts}, want {want} ({fpp} flash a "
+             f"prefill, {dps} decode a step, {batches} batches)")
+    return batches * (new_tokens - 1)
+
+
+def family_vs_plain(torch, model, params, prompts, extras, smi, want):
+    """``[family_vs_plain]``: the same requests as the graphs drain,
+    eagerly, every flash and contiguous decode call held to its plain
+    version (:func:`held_to_plain`); every token equal to the graphs
+    drain's (``want``)."""
+    cfg = model.cfg
+    with held_to_plain(torch) as seen:
+        toks, s, _, counts, _ = family_drain(
+            torch, model, params, prompts, extras, False,
+            f"{cfg.name} [family_vs_plain]")
+    family_gate(cfg, s, counts, f"{cfg.name} [family_vs_plain]")
+    for (kernel, shape), (calls, e, share) in sorted(seen.items()):
+        phase("family_vs_plain", arch=cfg.name, card=repr(smi),
+              kernel=kernel, shape=repr(shape), calls=calls,
+              max_abs_err=f"{e:.3g}", tol=repr(TOL),
+              worst_share_of_tol=f"{share:.3g}", ok=share <= 1.0)
+    bad = {k: v for k, v in seen.items() if v[2] > 1.0}
+    if bad:
+        fail(f"{cfg.name} [family_vs_plain]: kernels disagree with their "
+             f"plain versions: {bad}")
+    checked = {}
+    for (kernel, _), (calls, _, _) in seen.items():
+        checked[kernel] = checked.get(kernel, 0) + calls
+    if checked != counts:
+        fail(f"{cfg.name} [family_vs_plain]: checked calls {checked}, "
+             f"launches {counts}")
+    if toks != want:
+        fail(f"{cfg.name} [family_vs_plain]: eager tokens differ from the "
+             f"graphs drain's")
+    phase("family_vs_plain_summary", arch=cfg.name,
+          checked=json.dumps(checked), tokens_equal=True)
+    del s
+    free_card(torch)
+
+
+def family_profile(torch, session, cfg, smi, steps=10):
+    """``[family_profile]``: the drain's widest captured decode step
+    replayed ``steps`` times under ``torch.profiler`` from its first
+    decode position (its cache holds the drain's last group, so every
+    position stays inside it): device ms a step by kernel group (the
+    port's kernels, cuBLAS, the rest), the busy share of the replays'
+    wall time, and the top kernels (``[family_profile_top]``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    key = max((k for k in session.exec_cache.compiled_log
+               if k.role == "decode"), key=lambda k: k.batch)
+    step = session.exec_cache.peek(key)
+    pos0 = key.length - NEW_TOKENS
+    step.inputs["pos"].fill_(pos0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step.replay()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+
+    def dev_us(e):
+        """Self device time of one averaged event, in us."""
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    if not kern:
+        phase("family_profile", arch=cfg.name, device_events=0,
+              note="the profiler recorded no device time")
+        return
+    total = sum(dev_us(e) for e in kern)
+    groups = {"port_kernels": 0.0, "gemm": 0.0, "other": 0.0}
+    for e in kern:
+        n = e.key.lower()
+        if any(t in n for t in ("flash_mma_kernel", "flash_fwd_kernel",
+                                "decode_split_kernel")):
+            groups["port_kernels"] += dev_us(e)
+        elif any(t in n for t in ("gemm", "gemv", "nvjet", "cutlass")):
+            groups["gemm"] += dev_us(e)
+        else:
+            groups["other"] += dev_us(e)
+    phase("family_profile", arch=cfg.name, card=repr(smi),
+          step=f"decode[b{key.batch},t{key.length}]", replays=steps,
+          wall_ms_a_step=f"{wall_us / steps / 1e3:.3f}",
+          device_ms_a_step=f"{total / steps / 1e3:.3f}",
+          busy_share=f"{total / wall_us:.3f}",
+          kernels_a_step=sum(e.count for e in kern) // steps,
+          **{f"{g}_ms_a_step": f"{t / steps / 1e3:.3f}"
+             for g, t in groups.items()})
+    for e in sorted(kern, key=dev_us, reverse=True)[:6]:
+        phase("family_profile_top", arch=cfg.name, kernel=repr(e.key[:70]),
+              calls_a_step=e.count // steps,
+              device_ms_a_step=f"{dev_us(e) / steps / 1e3:.3f}",
+              share=f"{dev_us(e) / total:.3f}")
+
+
+def family_phase_new(torch, dev, smi, arch):
+    """``[hybrid]`` / ``[vlm]`` / ``[audio]``: full-size ``arch`` in bf16
+    with random weights from seed 0 and extras from seed 2; one cold
+    greedy drain of the 8 engine requests through ``_drain_batched``
+    with graphs (launches gated: :func:`family_gate`); recurrentgemma
+    also serves one request of ``LONG_PROMPT`` tokens (``[hybrid_long]``:
+    the windowed prefill, decode in the wrapped buffer); then
+    :func:`family_vs_plain` on the same requests.  The profile
+    (:func:`family_profile`) runs after the launches were read.  Returns
+    the graphs drains' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, bucket_length
+
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    free_card(torch)
+    params = model.init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    gib = torch.cuda.memory_allocated() / 2 ** 30
+    init_s = time.perf_counter() - t0
+    prompts = prompts_of(ENGINE_PROMPTS, cfg.vocab_size, seed=1)
+    extras = family_extras(model, len(prompts) + 1)
+    toks, s, wall, counts, reserved = family_drain(
+        torch, model, params, prompts, extras, True, f"{arch} cold")
+    steps = family_gate(cfg, s, counts, f"{arch} cold")
+    st = s.stats.to_dict()
+    fpp, dps = family_launches(cfg)
+    phase(cfg.family, arch=arch, card=repr(smi), params=n_params,
+          weights_gib=f"{gib:.2f}", init_s=f"{init_s:.1f}", drain="cold",
+          mode="graphs", path="_drain_batched", batches=st["batches"],
+          steps=steps, step_ms=f"{1e3 * s.stats.decode_s / steps:.2f}",
+          decode_tok_s=f"{st['decode_tok_s']:.1f}",
+          e2e_tok_s=f"{st['tokens_generated'] / wall:.1f}",
+          ttft_p50_s=f"{st['ttft_p50_s']:.4f}",
+          ttft_p95_s=f"{st['ttft_p95_s']:.4f}",
+          peak_reserved_gib=f"{reserved / 2 ** 30:.2f}",
+          launches=json.dumps(counts), flash_per_prefill=fpp,
+          decode_per_step=dps, buckets=json.dumps(sorted(st["buckets"])),
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    total = dict(counts)
+    family_profile(torch, s, cfg, smi)
+    del s
+    check_prompts, check_extras = prompts, extras[:len(prompts)]
+    want = {**toks}
+    if cfg.family == "hybrid":
+        (long_p,) = prompts_of([LONG_PROMPT], cfg.vocab_size, seed=4)
+        ltoks, ls, lwall, lcounts, lres = family_drain(
+            torch, model, params, [long_p], [extras[-1]], True,
+            f"{arch} long")
+        lsteps = family_gate(cfg, ls, lcounts, f"{arch} long")
+        (bucket,) = ls.stats.per_bucket
+        win = min(cfg.local_window, bucket.total_len)
+        if bucket.prompt_len != bucket_length(LONG_PROMPT) or (
+                bucket.prompt_len <= cfg.local_window):
+            fail(f"{arch} long: bucket {bucket} is not past the window")
+        phase("hybrid_long", arch=arch, card=repr(smi), prompt=LONG_PROMPT,
+              bucket=bucket.prompt_len, total=bucket.total_len,
+              local_window=cfg.local_window, rolling_slots=win,
+              decode_pos=f"{bucket.prompt_len}..."
+                         f"{bucket.prompt_len + NEW_TOKENS - 2}",
+              prefill_s=f"{ls.stats.prefill_s:.4f}",
+              step_ms=f"{1e3 * ls.stats.decode_s / lsteps:.2f}",
+              peak_reserved_gib=f"{lres / 2 ** 30:.2f}",
+              launches=json.dumps(lcounts), seconds=f"{lwall:.1f}")
+        for k, v in lcounts.items():
+            total[k] = total.get(k, 0) + v
+        check_prompts = prompts + [long_p]
+        check_extras = extras
+        want[f"r{len(prompts)}"] = ltoks["r0"]
+        del ls
+    family_vs_plain(torch, model, params, check_prompts, check_extras, smi,
+                    want)
+    del params, model
+    free_card(torch)
+    return total
+
+
+def exact_tokens_bucketed(torch, dev, arch):
+    """Smoke config in float32, the bucketed path: ``drain`` (which
+    serves these families through ``_drain_batched``) and ``generate``
+    with extras, through captured graphs, through the kernels run
+    eagerly and through the plain PyTorch path, must give equal tokens.
+    The prompts pass the smoke config's ``local_window`` of 16 and the
+    decode wraps its rolling buffer."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, left_pad_prompts
+    from repro_torch.runtime import generate
+    from repro_torch.serving import ServeSession
+
+    scfg = get_config(arch)
+    smodel = build_model(scfg)
+    sparams = smodel.init(seed=0, device=dev)
+    sprompts = prompts_of([5, 20, 3, 17, 12, 9], scfg.vocab_size, seed=3)
+    sextras = family_extras(smodel, len(sprompts))
+    stoks = left_pad_prompts(sprompts[:4], 24)
+    gbatch = {"tokens": stoks}
+    for name in smodel.modality_specs(4):
+        gbatch[name] = np.stack([e[name] for e in sextras[:4]])
+    paths = {"graphs": ("cuda", True), "eager": ("cuda", False),
+             "plain": ("plain", False)}
+    streams, g = {}, {}
+    kernels.reset_launch_counts()
+    for name, (backend, capture) in paths.items():
+        s = ServeSession(smodel, sparams, backend=backend, capture=capture,
+                         batch_sizes=ENGINE_BATCH_SIZES)
+        for i, (p, e) in enumerate(zip(sprompts, sextras)):
+            s.submit(p, 12, request_id=f"r{i}", extras=e)
+        streams[name] = {r.request_id: (r.state, r.tokens.tolist())
+                         for r in s.drain()}
+        graphs = [s.exec_cache.peek(k).graph is not None
+                  for k in s.exec_cache.compiled_log]
+        if graphs != [capture] * len(graphs) or not graphs:
+            fail(f"{arch} {name}: steps captured {graphs}")
+        g[name] = generate(smodel, sparams, gbatch, max_new_tokens=12,
+                           backend=backend, capture=capture)[0]
+    for name in paths:
+        if streams[name] != streams["plain"]:
+            fail(f"{arch} drain tokens through {name} differ from the "
+                 f"plain path")
+        if not (g[name] == g["plain"]).all():
+            fail(f"{arch} generate tokens through {name} differ from the "
+                 f"plain path")
+    used = {k: v for k, v in kernels.launch_counts().items() if v}
+    if set(used) != {"flash_attention", "decode_attention"}:
+        fail(f"{arch}: the cuda backend launched {used}")
+    phase("exact_tokens", arch=scfg.name, dtype="float32",
+          path="_drain_batched", paths=json.dumps(list(paths)),
+          drain_requests=len(sprompts), generate_rows=4, equal=True,
+          kernels=json.dumps(used))
 
 
 def _leaves(tree):

@@ -80,31 +80,39 @@ class ModelConfig:
         """True for the recurrent-only (ssm) family."""
         return self.family == "ssm"
 
+    @property
+    def resolved_lru_width(self) -> int:
+        """RG-LRU width: ``lru_width`` or ``d_model``."""
+        return self.lru_width or self.d_model
+
     def param_count(self) -> int:
-        """Parameter count (embedding, layers, head) of a dense, moe or
-        ssm decoder; the families the port does not serve yet raise."""
-        if self.family not in ("dense", "moe", "ssm"):
-            raise NotImplementedError(
-                f"param_count is ported for the dense, moe and ssm "
-                f"families only, got {self.family!r}")
+        """Approximate parameter count (embedding, layers, head), the
+        JAX package's formula for every family: a hybrid layer counts as
+        an attention layer, an encoder-decoder adds its encoder stack
+        and the decoder's cross-attention."""
         d, f, v = self.d_model, self.d_ff, self.vocab_size
+        hd = self.resolved_head_dim
+        attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
+            + self.n_heads * hd * d
+        per_layer = attn + (3 if self.mlp_type == "swiglu" else 2) * d * f
+        if self.n_experts:
+            ef = self.moe_d_ff or f
+            routed = self.n_experts * 3 * d * ef
+            shared = self.n_shared_experts * 3 * d * ef
+            per_layer = attn + routed + shared + d * self.n_experts
         if self.family == "ssm":
             di, st, dr = self.d_inner, self.ssm_state, self.resolved_dt_rank
             per_layer = (d * 2 * di + di * self.ssm_conv
                          + di * (dr + 2 * st) + dr * di + di * st + di
                          + di * d)
-        else:
-            hd = self.resolved_head_dim
-            attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
-                + self.n_heads * hd * d
-            per_layer = attn + (3 if self.mlp_type == "swiglu" else 2) * d * f
-            if self.n_experts:
-                ef = self.moe_d_ff or f
-                routed = self.n_experts * 3 * d * ef
-                shared = self.n_shared_experts * 3 * d * ef
-                per_layer = attn + routed + shared + d * self.n_experts
         emb = v * d * (1 if self.tie_embeddings else 2)
-        return self.n_layers * per_layer + emb
+        total = self.n_layers * per_layer + emb
+        if self.encoder_layers:
+            total += self.encoder_layers * per_layer
+            total += self.n_layers * (2 * d * hd * self.n_kv_heads
+                                      + d * hd * self.n_heads
+                                      + self.n_heads * hd * d)
+        return total
 
 
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:

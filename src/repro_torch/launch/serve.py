@@ -22,10 +22,19 @@ small float32 copy): the dense ``phi3-mini-3.8b``, ``qwen3-32b``,
 ``minitron-4b`` and ``nemotron-4-15b`` and the moe ``qwen2-moe-a2.7b``
 and ``llama4-scout-17b-a16e`` (the attention kernels), and the ssm
 ``falcon-mamba-7b`` (the selective-scan kernel; the paged-KV flags do
-not apply to it).
+not apply to it), the hybrid ``recurrentgemma-9b`` (RG-LRU and local
+attention), the vlm ``paligemma-3b`` and the audio ``whisper-large-v3``
+(encoder-decoder).  The last three are served, as in JAX, through the
+bucketed path only (``--session`` serves them greedy there too, and the
+paged-KV flags do not apply); without ``--session`` the batch carries
+random ``image_embeds`` (vlm) or ``frames`` (audio) from a generator
+seeded ``--seed`` + 2, in place of the stub frontends' outputs.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch qwen2-moe-a2.7b-smoke --session [--device cpu]
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch whisper-large-v3-smoke --batch 2 --prompt-len 8 [--device cpu]
 
 ``--session`` takes the JAX CLI's request and fault flags:
 ``--requests-file`` (JSON lines, ``{"prompt_len": N, "new_tokens": M}``
@@ -339,8 +348,14 @@ def main(argv=None) -> None:
 
     tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32))
+    batch = {"tokens": tokens}
+    # the stub frontends' outputs: random frames (audio) or patch
+    # embeddings (vlm), float32 from a generator seeded --seed + 2
+    extras_gen = torch.Generator().manual_seed(args.seed + 2)
+    for name, (shape, _) in model.modality_specs(args.batch).items():
+        batch[name] = torch.randn(shape, generator=extras_gen)
     out, stats = generate(
-        model, params, {"tokens": tokens}, max_new_tokens=args.new_tokens,
+        model, params, batch, max_new_tokens=args.new_tokens,
         temperature=args.temperature,
         generator=torch.Generator(device=dev).manual_seed(args.seed),
         backend=args.backend, dispatch=dispatch, registry=registry,

@@ -10,8 +10,9 @@ launch parameters of its ``schedule`` (a committed
 :class:`~repro_torch.core.schedule.DecodeAttentionSchedule`; None: the
 kernel's defaults); the plain path has no launch to set.  The paged
 decode kernel honours its schedule, where the JAX package's paged kernel
-takes none.  The JAX ``chunked`` and ``stub`` backends and
-``cross_attention`` are not ported yet.
+takes none.  ``cross_attention`` is the JAX ``"xla"`` path on both
+backends, as in JAX (no Pallas kernel attends over the encoder memory).
+The JAX ``chunked`` and ``stub`` backends are not ported yet.
 """
 from __future__ import annotations
 
@@ -44,38 +45,50 @@ def _softmax_pv(scores: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
               backend: str = "plain",
               starts: Optional[torch.Tensor] = None,
               schedule=None) -> torch.Tensor:
-    """Causal attention: q [B,HQ,S,D]; k/v [B,HKV,S,D] -> [B,HQ,S,D]
-    (GQA aware).  The sliding-window variant comes with the hybrid
-    family; the kernel already takes ``window``.
+    """q [B,HQ,S,D]; k/v [B,HKV,S_kv,D] -> [B,HQ,S,D] (GQA aware).
 
-    ``starts`` ([B] int, optional) is each left-padded row's first real
-    token: keys below it are masked for every query.  Queries inside the
-    pad prefix are fully masked and their outputs are garbage that the
-    caller discards (with ``"cuda"`` they are zeros)."""
+    ``causal`` keeps keys ``kp <= qp``; ``window`` (local attention)
+    keys ``kp > qp - window``.  ``starts`` ([B] int, optional) is each
+    left-padded row's first real token: keys below it are masked for
+    every query.  Queries inside the pad prefix are fully masked and
+    their outputs are garbage that the caller discards (with ``"cuda"``
+    they are zeros)."""
     _check_backend(backend)
     if backend == "cuda":
         return flash_attention_scheduled(
-            q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
-            starts=starts, schedule=schedule)
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+            window=window, starts=starts, schedule=schedule)
     b, hq, s, d = q.shape
-    hkv = k.shape[1]
+    hkv, s_kv = k.shape[1], k.shape[2]
     group = hq // hkv
     qg = q.reshape(b, hkv, group, s, d).float()
     scale = 1.0 / (d ** 0.5)
     scores = torch.matmul(qg * scale, k.float()[:, :, None]
-                          .transpose(-1, -2))             # [B,HKV,G,S,S]
+                          .transpose(-1, -2))             # [B,HKV,G,S,Skv]
     qpos = torch.arange(s, device=q.device)[:, None]
-    kpos = torch.arange(s, device=q.device)[None, :]
-    scores = scores.masked_fill(kpos > qpos, NEG)
+    kpos = torch.arange(s_kv, device=q.device)[None, :]
+    if causal:
+        scores = scores.masked_fill(kpos > qpos, NEG)
+    if window is not None:
+        scores = scores.masked_fill(kpos <= qpos - window, NEG)
     if starts is not None:
         st = torch.as_tensor(starts, device=q.device).to(torch.int64)
         key_ok = kpos >= st[:, None]                      # [B, S]
         scores = scores.masked_fill(~key_ok[:, None, None, None, :], NEG)
     out = _softmax_pv(scores, v[:, :, None])
     return out.reshape(b, hq, s, d).to(q.dtype)
+
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                    ) -> torch.Tensor:
+    """Unmasked attention over a fixed memory (the whisper decoder over
+    the encoder's K/V [B,HKV,S_enc,D]): the plain path on every backend,
+    as JAX runs its ``"xla"`` path here."""
+    return attention(q, k, v, causal=False, backend="plain")
 
 
 def mean_rows_before_start(ctx: torch.Tensor, v: torch.Tensor,
@@ -99,14 +112,19 @@ def mean_rows_before_start(ctx: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, pos, *, backend: str = "plain",
+                     v_cache: torch.Tensor, pos, *,
+                     window: Optional[int] = None, backend: str = "plain",
                      starts: Optional[torch.Tensor] = None,
                      schedule=None) -> torch.Tensor:
     """One-token attention against a contiguous cache.
 
     q [B,HQ,1,D]; caches [B,HKV,S,D]; ``pos`` (scalar or [B]) is the
     current position, entries past it are invalid; ``starts`` ([B],
-    optional) masks each row's left-pad prefix."""
+    optional) masks each row's left-pad prefix.  With ``window`` the
+    cache is a rolling buffer of S slots (slot ``p % S`` holds position
+    p) and the valid slots are ``kpos <= min(pos, S-1)``: every slot
+    once the buffer has wrapped.  The kernel's ``kpos <= pos`` is the
+    same rule, so ``"cuda"`` takes no window (as the Pallas kernel)."""
     _check_backend(backend)
     if backend == "cuda":
         return decode_kernel(q.contiguous(), k_cache, v_cache, pos,
@@ -120,6 +138,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     kpos = torch.arange(s, device=q.device)[None, :]
     pos_b = torch.as_tensor(pos, device=q.device).to(torch.int64)
     pos_b = pos_b.expand(b) if pos_b.dim() == 0 else pos_b
+    if window is not None:
+        pos_b = pos_b.clamp_max(s - 1)
     valid = kpos <= pos_b[:, None]
     if starts is not None:
         st = torch.as_tensor(starts, device=q.device).to(torch.int64)
@@ -210,11 +230,13 @@ def attn_params(b: ParamInit, prefix: str, n_layers: int, d: int,
 
 
 def qkv_project(x: torch.Tensor, p: Params, *, n_heads: int, n_kv: int,
-                hd: int, rope: RopeTables, qk_norm: bool,
-                norm_eps: float = 1e-6
+                hd: int, rope: Optional[RopeTables], qk_norm: bool,
+                use_rope: bool = True, norm_eps: float = 1e-6
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x [B,S,D] -> q [B,HQ,S,hd], k/v [B,HKV,S,hd] (contiguous); ``rope``
-    holds the step's :func:`~repro_torch.models.layers.rope_tables`."""
+    holds the step's :func:`~repro_torch.models.layers.rope_tables`
+    (unused, and may be None, with ``use_rope=False``: the whisper
+    encoder has no rotary positions)."""
     b_, s, _ = x.shape
     q = dense(x, p["wq"]).reshape(b_, s, n_heads, hd).transpose(1, 2)
     k = dense(x, p["wk"]).reshape(b_, s, n_kv, hd).transpose(1, 2)
@@ -222,8 +244,9 @@ def qkv_project(x: torch.Tensor, p: Params, *, n_heads: int, n_kv: int,
     if qk_norm:
         q = rmsnorm(q, p["q_norm"], norm_eps)
         k = rmsnorm(k, p["k_norm"], norm_eps)
-    q = apply_rope(q, rope)
-    k = apply_rope(k, rope)
+    if use_rope:
+        q = apply_rope(q, rope)
+        k = apply_rope(k, rope)
     return q.contiguous(), k.contiguous(), v.contiguous()
 
 
@@ -234,20 +257,25 @@ def attn_out(ctx: torch.Tensor, p: Params) -> torch.Tensor:
 
 
 def update_kv_cache(cache_k: torch.Tensor, cache_v: torch.Tensor,
-                    k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor
+                    k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
+                    window: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Write one step's k/v [B,HKV,1,hd] at slot ``pos`` (an int64
-    tensor of one element on the cache's device), in place where the
-    JAX version rebuilds the cache; returns the same tensors.  The slot
-    is an index op on the device, so the host reads no value and a
-    captured step writes where ``pos`` points at each replay."""
+    tensor of one element on the cache's device; with ``window``, slot
+    ``pos % S`` of a rolling buffer of S slots), in place where the JAX
+    version rebuilds the cache; returns the same tensors.  The slot is
+    an index op on the device, so the host reads no value and a captured
+    step writes where ``pos`` points at each replay."""
     idx = pos.reshape(1)
+    if window is not None:
+        idx = torch.remainder(idx, cache_k.shape[2])
     cache_k.index_copy_(2, idx, k.to(cache_k.dtype))
     cache_v.index_copy_(2, idx, v.to(cache_v.dtype))
     return cache_k, cache_v
 
 
-__all__ = ["BACKENDS", "attention", "mean_rows_before_start",
+__all__ = ["BACKENDS", "attention", "cross_attention",
+           "mean_rows_before_start",
            "decode_attention", "paged_slots",
            "paged_update_kv",
            "paged_decode_attention", "attn_params", "qkv_project",

@@ -190,7 +190,20 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
                                      theta))
 
 
+def sinusoidal_positions(seq: int, d: int,
+                         device: Optional[torch.device] = None
+                         ) -> torch.Tensor:
+    """[seq, d] float32 sinusoidal position table (sines of the first
+    ``d/2`` angles, then their cosines), the encoder's positions."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    # a Python base: no host-to-device copy, so a captured step may
+    # build the table
+    ang = pos / (10000.0 ** (2 * dim / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 __all__ = ["Params", "ParamInit", "WHOLE_DRAW_LIMIT", "MLP_KINDS",
            "RopeTables", "dtype_of", "rmsnorm",
            "dense", "mlp", "mlp_params", "rope", "rope_tables",
-           "apply_rope"]
+           "apply_rope", "sinusoidal_positions"]

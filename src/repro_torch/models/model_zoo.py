@@ -2,7 +2,8 @@
 ``repro.models.model_zoo``).
 
 ``build_model(cfg)`` returns a :class:`Model` whose methods are the
-functional entry points of :mod:`repro_torch.models.transformer`.
+functional entry points of :mod:`repro_torch.models.transformer`, or of
+:mod:`repro_torch.models.encdec` for the audio family.
 ``Model.init`` places the weights on the CUDA card unless it is given
 ``device="cpu"``; the other entry points run where the parameters are.
 """
@@ -16,25 +17,55 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
+from repro_torch.models.layers import dtype_of
+
+
+def _no_audio_masks(seq_starts=None, block_tables=None) -> None:
+    """The audio family takes neither left-pad masks nor block tables."""
+    if seq_starts is not None or block_tables is not None:
+        raise ValueError("seq_starts/block_tables are not supported for "
+                         "family 'audio'")
 
 
 @dataclasses.dataclass(frozen=True)
 class Model:
-    """One architecture's entry points (dense, moe and ssm families)."""
+    """One architecture's entry points (every family of the JAX
+    package)."""
 
     cfg: ModelConfig
+
+    @property
+    def audio(self) -> bool:
+        """True for the encoder-decoder (audio) family."""
+        return self.cfg.family == "audio"
 
     def init(self, seed: int = 0, device: DeviceLike = None) -> Dict[str, Any]:
         """Random parameters from ``seed`` on ``device`` (CUDA by default;
         raises without a card unless ``device="cpu"``)."""
-        return transformer.init_params(self.cfg, seed,
-                                       resolve_device(device))
+        init = encdec.init_params if self.audio else transformer.init_params
+        return init(self.cfg, seed, resolve_device(device))
+
+    def forward(self, params, batch, *, backend: str = "plain",
+                seq_starts=None, schedules=None):
+        """Teacher-forced logits and extras; see
+        :func:`transformer.forward` (audio: :func:`encdec.forward`)."""
+        if self.audio:
+            _no_audio_masks(seq_starts)
+            return encdec.forward(params, self.cfg, batch, backend=backend)
+        return transformer.forward(params, self.cfg, batch,
+                                   backend=backend, seq_starts=seq_starts,
+                                   schedules=schedules)
 
     def prefill(self, params, batch, *, backend: str = "plain",
                 seq_starts=None, schedules=None):
         """Logits plus filled caches; see :func:`transformer.prefill`
-        (``schedules``: a ScheduleBundle or None)."""
+        (``schedules``: a ScheduleBundle or None).  The audio prefill
+        (:func:`encdec.prefill`) takes no schedules, as in JAX: its
+        kernels launch at their defaults."""
+        if self.audio:
+            _no_audio_masks(seq_starts)
+            return encdec.prefill(params, self.cfg, batch, backend=backend)
         return transformer.prefill(params, self.cfg, batch,
                                    backend=backend, seq_starts=seq_starts,
                                    schedules=schedules)
@@ -42,7 +73,12 @@ class Model:
     def decode_step(self, params, cache, tokens, pos, *,
                     backend: str = "plain", seq_starts=None,
                     block_tables=None, schedules=None):
-        """One token per row; see :func:`transformer.decode_step`."""
+        """One token per row; see :func:`transformer.decode_step` (audio:
+        :func:`encdec.decode_step`)."""
+        if self.audio:
+            _no_audio_masks(seq_starts, block_tables)
+            return encdec.decode_step(params, self.cfg, cache, tokens, pos,
+                                      backend=backend, schedules=schedules)
         return transformer.decode_step(params, self.cfg, cache, tokens,
                                        pos, backend=backend,
                                        seq_starts=seq_starts,
@@ -50,9 +86,46 @@ class Model:
                                        schedules=schedules)
 
     def init_cache(self, bsz: int, max_len: int, device: torch.device):
-        """Empty contiguous caches (ssm: zero recurrent states) on
+        """Empty contiguous caches (ssm: zero recurrent states; hybrid:
+        rolling K/V and RG-LRU states; audio: self and cross K/V) on
         ``device``."""
+        if self.audio:
+            return encdec.init_cache(self.cfg, bsz, max_len, device)
         return transformer.init_cache(self.cfg, bsz, max_len, device)
+
+    def modality_specs(self, bsz: int
+                       ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        """``{name: (shape, dtype)}`` of the batch fields besides
+        ``tokens`` that a prefill of ``bsz`` rows takes, in the model's
+        dtype: ``image_embeds`` [B, N_img, D] (vlm), ``frames`` [B,
+        S_enc, D] (audio); none for the other families."""
+        cfg = self.cfg
+        dt = dtype_of(cfg.dtype)
+        if cfg.family == "vlm":
+            return {"image_embeds": ((bsz, cfg.num_image_tokens,
+                                      cfg.d_model), dt)}
+        if cfg.family == "audio":
+            return {"frames": ((bsz, cfg.encoder_seq, cfg.d_model), dt)}
+        return {}
+
+    def input_specs(self, bsz: int, seq_len: int, kind: str = "prefill"
+                    ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        """``{name: (shape, dtype)}`` of a step's batch (JAX
+        ``input_specs``): a decode step's ``tokens`` [B, 1] and ``pos``;
+        a prefill's or training step's :meth:`modality_specs` and
+        ``tokens`` (a vlm batch's ``seq_len`` counts its image tokens,
+        the text is the rest), with ``labels`` [B, seq_len] for
+        ``kind="train"``."""
+        i32 = torch.int32
+        if kind == "decode":
+            return {"tokens": ((bsz, 1), i32), "pos": ((), i32)}
+        specs = self.modality_specs(bsz)
+        s_text = seq_len - (self.cfg.num_image_tokens
+                            if self.cfg.family == "vlm" else 0)
+        specs["tokens"] = ((bsz, s_text), i32)
+        if kind == "train":
+            specs["labels"] = ((bsz, seq_len), i32)
+        return specs
 
     def init_paged_cache(self, n_blocks: int, block_size: int,
                          device: torch.device):

@@ -1,5 +1,5 @@
-"""Mamba-1 selective SSM block (port of the Mamba part of
-``repro.models.ssm``; the RG-LRU block arrives with the hybrid family).
+"""Recurrent blocks (port of ``repro.models.ssm``): the Mamba-1
+selective SSM and the RG-LRU of recurrentgemma.
 
 ``mamba_block`` has two backends, as the JAX block has two branches:
 
@@ -12,6 +12,10 @@
   x's dtype, as the Pallas kernel writes it.
 
 So the two backends differ in bf16 by that rounding, by design.
+
+``rglru_block`` has one path on both backends, as in JAX, where no
+Pallas kernel computes it: its recurrence runs through
+:func:`associative_scan`, a log-depth scan in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -41,6 +45,28 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, dim: int = 1,
         h = a_t[t] * h + b_t[t]
         hs.append(h)
     return torch.stack(hs, dim=dim)
+
+
+def associative_scan(a: torch.Tensor, b: torch.Tensor, dim: int = 1
+                     ) -> torch.Tensor:
+    """``h_t = a_t h_{t-1} + b_t`` along ``dim`` (h_{-1} = 0), every
+    ``h_t`` returned, in ``ceil(log2 S)`` doubling passes over copies of
+    ``a`` and ``b``: pass k folds the pair k steps back into each step,
+    ``b_t += a_t b_{t-k}; a_t *= a_{t-k}``, the combine of JAX's
+    ``linear_scan`` (``(a1 a2, a2 b1 + b2)``).  The float32 sums are
+    taken in another tree than XLA's associative scan."""
+    a_t = a.movedim(dim, 1).clone()
+    b_t = b.movedim(dim, 1).clone()
+    s = a_t.shape[1]
+    k = 1
+    while k < s:
+        fold = a_t[:, k:] * b_t[:, :-k]
+        if 2 * k < s:
+            a_t[:, k:] = a_t[:, k:] * a_t[:, :-k]
+        b_t[:, k:] += fold
+        del fold
+        k *= 2
+    return b_t.movedim(1, dim)
 
 
 def mamba_params(b: ParamInit, prefix: str, n_layers: int, d: int,
@@ -159,6 +185,76 @@ def mamba_block(x: torch.Tensor, p: Params, *, state: int, conv: int,
     return dense(y.to(x.dtype), p["out_proj"]), new_cache
 
 
+# the RG-LRU's gate constant c: a = exp(-c softplus(lam) r)
+RGLRU_C = 8.0
+
+
+def rglru_params(b: ParamInit, prefix: str, n_layers: int, d: int,
+                 width: int, conv: int = 4) -> None:
+    """Stacked RG-LRU weights under ``prefix`` (same paths, shapes and
+    std rule as the JAX tree)."""
+    b.normal(f"{prefix}/in_x", [n_layers, d, width], fan_in=d)
+    b.normal(f"{prefix}/in_gate", [n_layers, d, width], fan_in=d)
+    b.normal(f"{prefix}/conv_w", [n_layers, width, conv], fan_in=conv)
+    b.zeros(f"{prefix}/conv_b", [n_layers, width])
+    b.normal(f"{prefix}/w_r", [n_layers, width, width], fan_in=width)
+    b.zeros(f"{prefix}/b_r", [n_layers, width])
+    b.normal(f"{prefix}/w_i", [n_layers, width, width], fan_in=width)
+    b.zeros(f"{prefix}/b_i", [n_layers, width])
+    b.const(f"{prefix}/lam", torch.full((n_layers, width), 0.7))
+    b.normal(f"{prefix}/out", [n_layers, width, d], fan_in=width)
+
+
+def rglru_block(x: torch.Tensor, p: Params, *,
+                cache: Optional[Dict[str, torch.Tensor]] = None,
+                seq_valid: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The recurrentgemma recurrent sub-layer, x [B,S,D] -> ([B,S,D],
+    new cache ``{"h": [B,W], "conv": [B,K-1,W]}``).  With ``cache``
+    (decode, S=1) ``h`` and the conv state are carried: the result holds
+    the new ones, the ``cache`` tensors are not modified.  ``h`` is kept
+    in the model's dtype between steps, as in JAX.
+
+    ``seq_valid`` ([B,S] bool) zeroes the conv input and output at
+    left-pad positions, as in JAX (the serving path passes none: the
+    hybrid family is served unpadded)."""
+    gate = F.gelu(dense(x, p["in_gate"]).float(), approximate="tanh")
+    xb = dense(x, p["in_x"])
+    if seq_valid is not None:
+        xb = torch.where(seq_valid[..., None], xb, torch.zeros_like(xb))
+    conv_state = cache["conv"] if cache is not None else None
+    xc = _causal_conv1d(xb, p["conv_w"], p["conv_b"], conv_state)
+    if seq_valid is not None:
+        xc = torch.where(seq_valid[..., None], xc, torch.zeros_like(xc))
+    r = torch.sigmoid(dense(xc, p["w_r"]).float() + p["b_r"].float())
+    i = torch.sigmoid(dense(xc, p["w_i"]).float() + p["b_i"].float())
+    a = torch.exp(-RGLRU_C * softplus(p["lam"].float()) * r)
+    b_term = (torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-9))
+              * (i * xc.float()))
+    if cache is None:
+        h = associative_scan(a, b_term, dim=1)
+        k = p["conv_w"].shape[-1]
+        new_cache = {"h": h[:, -1].to(x.dtype),
+                     "conv": xb[:, -(k - 1):, :].clone(
+                         memory_format=torch.contiguous_format)}
+    else:
+        h = a[:, 0] * cache["h"].float() + b_term[:, 0]
+        new_cache = {"h": h.to(cache["h"].dtype),
+                     "conv": torch.cat([conv_state[:, 1:],
+                                        xb.to(conv_state.dtype)], dim=1)}
+        h = h[:, None]
+    y = (h * gate).to(x.dtype)
+    return dense(y, p["out"]), new_cache
+
+
+def rglru_cache_init(bsz: int, width: int, conv: int, dtype: torch.dtype,
+                     device: torch.device) -> Dict[str, torch.Tensor]:
+    """Zero RG-LRU state [B,W] and conv state [B,K-1,W]."""
+    return {"h": torch.zeros((bsz, width), dtype=dtype, device=device),
+            "conv": torch.zeros((bsz, conv - 1, width), dtype=dtype,
+                                device=device)}
+
+
 def mamba_cache_init(bsz: int, d_inner: int, state: int, conv: int,
                      dtype: torch.dtype, device: torch.device
                      ) -> Dict[str, torch.Tensor]:
@@ -169,5 +265,6 @@ def mamba_cache_init(bsz: int, d_inner: int, state: int, conv: int,
                                 device=device)}
 
 
-__all__ = ["linear_scan", "mamba_params", "mamba_block",
-           "mamba_cache_init", "softplus"]
+__all__ = ["linear_scan", "associative_scan", "mamba_params",
+           "mamba_block", "mamba_cache_init", "softplus", "RGLRU_C",
+           "rglru_params", "rglru_block", "rglru_cache_init"]

@@ -1,12 +1,20 @@
 """Decoder-only LM (port of ``repro.models.transformer``) for the dense,
-moe and ssm (Mamba-1) families; the other families raise
-``NotImplementedError``.  A moe layer is a dense one whose MLP is the
-routed expert FFN (:mod:`repro_torch.models.moe`).
+moe, ssm (Mamba-1), hybrid (recurrentgemma) and vlm (paligemma)
+families; the audio family is :mod:`repro_torch.models.encdec`.  A moe
+layer is a dense one whose MLP is the routed expert FFN
+(:mod:`repro_torch.models.moe`).  A vlm model is a dense decoder whose
+input is the image's patch embeddings followed by the text tokens.  A
+hybrid model repeats ``block_pattern`` (rglru, rglru, attn) in stacked
+``groups`` and runs the remainder of ``n_layers`` as an explicit
+``tail``; its attention is local (a ``local_window`` once the sequence
+is longer) and its decode cache a rolling buffer of ``min(local_window,
+capacity)`` slots.
 
 Entry points: ``forward`` (logits), ``prefill`` (logits plus the decode
-caches: K/V for dense, the final SSM and conv states for ssm),
-``decode_step`` (one token against a contiguous cache or recurrent
-state, or, for dense, against a block-paged pool with ``block_tables``).
+caches: K/V for dense and vlm, the final SSM and conv states for ssm,
+both for hybrid, its K/V in rolling-slot order), ``decode_step`` (one
+token against a contiguous cache or recurrent state, or, for dense,
+against a block-paged pool with ``block_tables``).
 Layer weights are stacked ``[L, ...]`` as in the JAX pytree and the
 layer loop is a Python loop over views, where JAX scans.  ``schedules``
 (a :class:`~repro_torch.core.schedule.ScheduleBundle`, or None) carries
@@ -31,19 +39,56 @@ from repro_torch.models.layers import (ParamInit, Params, RopeTables,
                                        rope_tables)
 
 
-SERVED_FAMILIES = ("dense", "moe", "ssm")
-# the families whose layers attend (a KV cache, paged or contiguous)
+SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+# the families this module runs (audio is models/encdec.py)
+DECODER_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+# the families whose layers attend over a paged or left-padded cache
 ATTENTION_FAMILIES = ("dense", "moe")
+# the families whose prefill takes ``seq_starts`` (left padding)
+MASKED_FAMILIES = ("dense", "moe", "ssm")
 # the vocabulary columns a bf16 head upcasts to float32 at a time
 HEAD_CHUNK = 16384
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    """Raise for a family the port does not serve yet."""
-    if cfg.family not in SERVED_FAMILIES:
+    """Raise for a family this module does not run."""
+    if cfg.family not in DECODER_FAMILIES:
         raise NotImplementedError(
-            f"repro_torch serves the {', '.join(SERVED_FAMILIES)} "
-            f"families so far, got {cfg.family!r}")
+            f"repro_torch.models.transformer runs the "
+            f"{', '.join(DECODER_FAMILIES)} families, got {cfg.family!r}")
+
+
+def _attn_layer_params(b: ParamInit, prefix: str, cfg: ModelConfig,
+                       n: int) -> None:
+    """``n`` stacked attention layers (norms, attention, MLP or moe)."""
+    d = cfg.d_model
+    b.zeros(f"{prefix}/ln1", [n, d])
+    attn.attn_params(b, f"{prefix}/attn", n, d, cfg.n_heads,
+                     cfg.n_kv_heads, cfg.resolved_head_dim, cfg.qk_norm)
+    b.zeros(f"{prefix}/ln2", [n, d])
+    if cfg.n_experts:
+        moe_mod.moe_params(b, f"{prefix}/moe", n, d, cfg.n_experts,
+                           cfg.moe_d_ff, cfg.n_shared_experts, cfg.moe_d_ff)
+    else:
+        mlp_params(b, f"{prefix}/mlp", n, d, cfg.d_ff, cfg.mlp_type)
+
+
+def _rglru_layer_params(b: ParamInit, prefix: str, cfg: ModelConfig,
+                        n: int) -> None:
+    """``n`` stacked RG-LRU layers (norms, RG-LRU, MLP)."""
+    d = cfg.d_model
+    b.zeros(f"{prefix}/ln1", [n, d])
+    ssm.rglru_params(b, f"{prefix}/rglru", n, d, cfg.resolved_lru_width,
+                     cfg.ssm_conv)
+    b.zeros(f"{prefix}/ln2", [n, d])
+    mlp_params(b, f"{prefix}/mlp", n, d, cfg.d_ff, cfg.mlp_type)
+
+
+def hybrid_counts(cfg: ModelConfig) -> Tuple[int, Tuple[str, ...]]:
+    """A hybrid model's number of full ``block_pattern`` groups and the
+    kinds of its tail layers (the rest of ``n_layers``)."""
+    pat = cfg.block_pattern
+    return cfg.n_layers // len(pat), pat[:cfg.n_layers % len(pat)]
 
 
 def init_params(cfg: ModelConfig, seed: int, device: torch.device
@@ -52,22 +97,22 @@ def init_params(cfg: ModelConfig, seed: int, device: torch.device
     drawn on ``device`` from a generator seeded with ``seed``."""
     _check_family(cfg)
     b = ParamInit(seed, dtype_of(cfg.dtype), device)
-    d, hd, n = cfg.d_model, cfg.resolved_head_dim, cfg.n_layers
+    d, n = cfg.d_model, cfg.n_layers
     b.normal("embed", [cfg.vocab_size, d], fan_in=d, scale=float(d) ** 0.5)
-    b.zeros("layers/ln1", [n, d])
     if cfg.family == "ssm":
+        b.zeros("layers/ln1", [n, d])
         ssm.mamba_params(b, "layers/mamba", n, d, cfg.d_inner,
                          cfg.ssm_state, cfg.ssm_conv, cfg.resolved_dt_rank)
+    elif cfg.family == "hybrid":
+        n_groups, tail = hybrid_counts(cfg)
+        for where, kinds, count in (("groups", cfg.block_pattern, n_groups),
+                                    ("tail", tail, 1)):
+            for i, kind in enumerate(kinds):
+                layer = (_rglru_layer_params if kind == "rglru"
+                         else _attn_layer_params)
+                layer(b, f"{where}/b{i}", cfg, count)
     else:
-        attn.attn_params(b, "layers/attn", n, d, cfg.n_heads,
-                         cfg.n_kv_heads, hd, cfg.qk_norm)
-        b.zeros("layers/ln2", [n, d])
-        if cfg.n_experts:
-            moe_mod.moe_params(b, "layers/moe", n, d, cfg.n_experts,
-                               cfg.moe_d_ff, cfg.n_shared_experts,
-                               cfg.moe_d_ff)
-        else:
-            mlp_params(b, "layers/mlp", n, d, cfg.d_ff, cfg.mlp_type)
+        _attn_layer_params(b, "layers", cfg, n)
     b.zeros("final_norm", [d])
     if not cfg.tie_embeddings:
         b.normal("lm_head", [d, cfg.vocab_size], fan_in=d)
@@ -93,17 +138,19 @@ def _ffn(h: torch.Tensor, lp: Params, cfg: ModelConfig
 
 def _attn_block(x: torch.Tensor, lp: Params, cfg: ModelConfig,
                 rope: RopeTables, *, backend: str,
-                starts: Optional[torch.Tensor], schedule=None
+                starts: Optional[torch.Tensor], schedule=None,
+                window: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                            Optional[torch.Tensor]]:
-    """One prefill layer; returns (x, k, v, the moe aux loss or None)."""
+    """One prefill layer (causal; local with ``window``); returns (x, k,
+    v, the moe aux loss or None)."""
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = attn.qkv_project(
         h, lp["attn"], n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
         hd=cfg.resolved_head_dim, rope=rope, qk_norm=cfg.qk_norm,
         norm_eps=cfg.norm_eps)
-    ctx = attn.attention(q, k, v, backend=backend, starts=starts,
-                         schedule=schedule)
+    ctx = attn.attention(q, k, v, causal=True, window=window,
+                         backend=backend, starts=starts, schedule=schedule)
     if cfg.n_experts and starts is not None and backend == "cuda":
         # pad positions are routed and take expert capacity: they need
         # the xla/reference attention output, where the kernel gives
@@ -127,6 +174,95 @@ def _mamba_block(x: torch.Tensor, lp: Params, cfg: ModelConfig, *,
                                 backend=backend, seq_valid=seq_valid,
                                 schedule=schedule)
     return x + y, states
+
+
+def _rglru_layer(x: torch.Tensor, lp: Params, cfg: ModelConfig, *,
+                 cache: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One RG-LRU layer (pre-norm RG-LRU, then pre-norm MLP, both
+    residual); returns (x, the RG-LRU's new states)."""
+    h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    y, states = ssm.rglru_block(h, lp["rglru"], cache=cache)
+    x = x + y
+    h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    return x + mlp(h, lp["mlp"], cfg.mlp_type), states
+
+
+def _hybrid_layers(params: Params, cfg: ModelConfig):
+    """``(where, block, index, kind, layer params)`` of every layer of a
+    hybrid model in order: each group's pattern, then the tail (tail
+    weights are stacked ``[1, ...]``, as in JAX)."""
+    n_groups, tail = hybrid_counts(cfg)
+    for g in range(n_groups):
+        gp = layer_params(params["groups"], g)
+        for i, kind in enumerate(cfg.block_pattern):
+            yield "groups", f"b{i}", g, kind, gp[f"b{i}"]
+    for i, kind in enumerate(tail):
+        yield ("tail", f"b{i}", None, kind,
+               layer_params(params["tail"][f"b{i}"], 0))
+
+
+def _window_cache(k: torch.Tensor, seq: int, win: int) -> torch.Tensor:
+    """Last ``win`` entries of a [..., S, hd] K/V tensor, rotated so the
+    entry of absolute position p sits at rolling slot p % win."""
+    if seq <= win:
+        return k
+    return torch.roll(k[..., seq - win:, :], shifts=(seq - win) % win,
+                      dims=-2)
+
+
+def _hybrid_forward(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
+                    backend: str, collect: bool, schedule=None
+                    ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+    """The hybrid layer stack on embedded ``x``; with ``collect`` also
+    its decode caches (the RG-LRU states, and each attention layer's
+    last ``min(local_window, S)`` K/V in rolling-slot order), stacked
+    per group block as in JAX's tree."""
+    seq = x.shape[1]
+    window = cfg.local_window if seq > cfg.local_window else None
+    win = min(cfg.local_window, seq)
+    rope = rope_tables(torch.arange(seq, device=x.device),
+                       cfg.resolved_head_dim, cfg.rope_theta)
+    got: Dict[Tuple[str, str], list] = {}
+    for where, blk, _, kind, lp in _hybrid_layers(params, cfg):
+        if kind == "rglru":
+            x, st = _rglru_layer(x, lp, cfg)
+        else:
+            x, k, v, _ = _attn_block(x, lp, cfg, rope, backend=backend,
+                                     starts=None, schedule=schedule,
+                                     window=window)
+            st = {"k": _window_cache(k, seq, win),
+                  "v": _window_cache(v, seq, win)} if collect else None
+        if collect:
+            got.setdefault((where, blk), []).append(st)
+    if not collect:
+        return x, None
+    cache: Dict[str, Any] = {"groups": {}, "tail": {}}
+    for (where, blk), sts in got.items():
+        cache[where][blk] = ({n: torch.stack([st[n] for st in sts])
+                              for n in sts[0]} if where == "groups"
+                             else sts[0])
+    return x, cache
+
+
+def embed_inputs(params: Params, cfg: ModelConfig,
+                 batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Token embeddings [B, S, D]; a vlm model's image embeddings
+    ``batch["image_embeds"]`` [B, N_img, D] go in front of them, cast to
+    the model's dtype."""
+    emb = params["embed"]
+    x = emb[batch["tokens"].to(emb.device).long()]
+    if cfg.family == "vlm":
+        img = batch["image_embeds"].to(device=emb.device, dtype=x.dtype)
+        x = torch.cat([img, x], dim=1)
+    return x
+
+
+def _check_starts(cfg: ModelConfig, seq_starts) -> None:
+    """``seq_starts`` is for the families served left-padded only."""
+    if seq_starts is not None and cfg.family not in MASKED_FAMILIES:
+        raise ValueError(
+            f"seq_starts is not supported for family {cfg.family!r}")
 
 
 def _head(params: Params, cfg: ModelConfig, x: torch.Tensor
@@ -163,16 +299,23 @@ def forward(params: Params, cfg: ModelConfig,
     ``seq_starts`` ([B] int) marks the first real token of each
     left-padded row: rope positions become ``arange(S) - starts`` and pad
     keys are masked out of attention (ssm: pads are masked out of the
-    recurrence, see :func:`repro_torch.models.ssm.mamba_block`)."""
+    recurrence, see :func:`repro_torch.models.ssm.mamba_block`; dense,
+    moe and ssm only, as in JAX).  A hybrid model collects its caches
+    as ``extras["cache"]`` (see :func:`prefill`)."""
     _check_family(cfg)
-    tokens = batch["tokens"]
-    x = params["embed"][tokens.to(params["embed"].device).long()]
+    _check_starts(cfg, seq_starts)
+    x = embed_inputs(params, cfg, batch)
     bsz, seq, _ = x.shape
     if cfg.family == "ssm":
         return _ssm_forward(params, cfg, x, backend=backend,
                             collect=collect_kv, seq_starts=seq_starts,
                             schedule=_field(schedules, "ssm_scan"))
     fa_sched = _field(schedules, "flash_attention")
+    if cfg.family == "hybrid":
+        x, cache = _hybrid_forward(params, cfg, x, backend=backend,
+                                   collect=collect_kv, schedule=fa_sched)
+        return _head(params, cfg, x), ({"cache": cache} if collect_kv
+                                       else {})
     if seq_starts is not None:
         st = torch.as_tensor(seq_starts, device=x.device).to(torch.int64)
         positions = torch.arange(seq, device=x.device)[None, :] - st[:, None]
@@ -233,10 +376,15 @@ def prefill(params: Params, cfg: ModelConfig,
             seq_starts: Optional[torch.Tensor] = None, schedules=None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run the whole prompt: (logits [B,S,V], caches filled up to S; for
-    ssm the recurrent states after the last token)."""
+    ssm the recurrent states after the last token; for hybrid
+    ``{"groups", "tail"}`` with the RG-LRU states and the windowed K/V
+    in rolling-slot order).  A vlm prompt is its image tokens and then
+    its text: S counts both."""
     logits, extras = forward(params, cfg, batch, backend=backend,
                              collect_kv=True, seq_starts=seq_starts,
                              schedules=schedules)
+    if cfg.family == "hybrid":
+        return logits, extras["cache"]
     return logits, {"layers": extras["state" if cfg.family == "ssm"
                                      else "kv"]}
 
@@ -245,9 +393,33 @@ def init_cache(cfg: ModelConfig, bsz: int, max_len: int,
                device: torch.device) -> Dict[str, Any]:
     """Empty contiguous caches ``[L, B, HKV, max_len, hd]``; for ssm the
     zero states ``{"ssm": [L,B,Di,N], "conv": [L,B,K-1,Di]}`` in the
-    model dtype (``max_len`` unused: the state is O(1) per row)."""
+    model dtype (``max_len`` unused: the state is O(1) per row); for
+    hybrid JAX's ``{"groups": {"b<i>": ...}, "tail": ...}`` tree, each
+    RG-LRU block's ``h`` [G,B,W] and ``conv`` [G,B,K-1,W] and each
+    attention block's rolling K/V [G,B,HKV,min(local_window, max_len),
+    hd] (tail blocks without the G axis)."""
     _check_family(cfg)
     dt = dtype_of(cfg.dtype)
+    if cfg.family == "hybrid":
+        n_groups, tail = hybrid_counts(cfg)
+        win = min(cfg.local_window, max_len)
+        hd, w = cfg.resolved_head_dim, cfg.resolved_lru_width
+
+        def block(kind: str, lead: Tuple[int, ...]) -> Dict[str, Any]:
+            """Zero caches of one block, ``lead`` dims in front."""
+            if kind == "rglru":
+                st = ssm.rglru_cache_init(bsz, w, cfg.ssm_conv, dt, device)
+            else:
+                shape = (bsz, cfg.n_kv_heads, win, hd)
+                st = {"k": torch.zeros(shape, dtype=dt, device=device),
+                      "v": torch.zeros(shape, dtype=dt, device=device)}
+            return {n: t.expand(*lead, *t.shape).contiguous()
+                    for n, t in st.items()}
+
+        return {"groups": {f"b{i}": block(kind, (n_groups,))
+                           for i, kind in enumerate(cfg.block_pattern)},
+                "tail": {f"b{i}": block(kind, ())
+                         for i, kind in enumerate(tail)}}
     if cfg.family == "ssm":
         per_row = ssm.mamba_cache_init(cfg.n_layers * bsz, cfg.d_inner,
                                        cfg.ssm_state, cfg.ssm_conv, dt,
@@ -281,9 +453,10 @@ def _decode_block(x: torch.Tensor, lp: Params, ck: torch.Tensor,
                   cv: torch.Tensor, cfg: ModelConfig, pos, rope: RopeTables,
                   *, backend: str, starts: Optional[torch.Tensor],
                   tables: Optional[torch.Tensor],
-                  slots: Optional[torch.Tensor], schedule=None
-                  ) -> torch.Tensor:
-    """One decode layer; updates this layer's cache (or pool) in place."""
+                  slots: Optional[torch.Tensor], schedule=None,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """One decode layer; updates this layer's cache (or pool) in place
+    (with ``window``, a rolling buffer of that many slots)."""
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = attn.qkv_project(
         h, lp["attn"], n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
@@ -295,9 +468,10 @@ def _decode_block(x: torch.Tensor, lp: Params, ck: torch.Tensor,
                                           backend=backend,
                                           schedule=schedule)
     else:
-        attn.update_kv_cache(ck, cv, k, v, pos)
-        ctx = attn.decode_attention(q, ck, cv, pos, backend=backend,
-                                    starts=starts, schedule=schedule)
+        attn.update_kv_cache(ck, cv, k, v, pos, window=window)
+        ctx = attn.decode_attention(q, ck, cv, pos, window=window,
+                                    backend=backend, starts=starts,
+                                    schedule=schedule)
     x = x + attn.attn_out(ctx, lp["attn"])
     h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
     return x + _ffn(h, lp, cfg)[0]
@@ -320,21 +494,23 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Any],
     masked :func:`prefill`'s left-pad masks on the contiguous layout.
 
     For ssm, ``pos`` is unused and each layer's SSM and conv states are
-    advanced by one token; ``block_tables`` and ``seq_starts`` raise
-    ``ValueError`` as in JAX (a recurrent state carries no pad entries
-    and needs no paging)."""
+    advanced by one token.  A hybrid step advances each RG-LRU state and
+    writes each attention block's rolling buffer at slot ``pos % W``.
+    ``block_tables`` and ``seq_starts`` raise ``ValueError`` outside the
+    dense and moe families, as in JAX (a recurrent state carries no pad
+    entries and needs no paging; vlm and hybrid are served unpadded)."""
     _check_family(cfg)
     dev = params["embed"].device
     x = params["embed"][tokens.to(dev).long()]
+    if block_tables is not None and cfg.family not in ATTENTION_FAMILIES:
+        raise ValueError(f"block_tables needs an attention family, "
+                         f"got {cfg.family!r}")
+    if seq_starts is not None and cfg.family not in ATTENTION_FAMILIES:
+        raise ValueError(
+            f"seq_starts in decode_step needs an attention family, "
+            f"got {cfg.family!r} (recurrent caches carry no pad "
+            f"entries)")
     if cfg.family == "ssm":
-        if block_tables is not None:
-            raise ValueError(f"block_tables needs an attention family, "
-                             f"got {cfg.family!r}")
-        if seq_starts is not None:
-            raise ValueError(
-                f"seq_starts in decode_step needs an attention family, "
-                f"got {cfg.family!r} (recurrent caches carry no pad "
-                f"entries)")
         layers = cache["layers"]
         for i in range(cfg.n_layers):
             lc = {"ssm": layers["ssm"][i], "conv": layers["conv"][i]}
@@ -362,6 +538,23 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Any],
         positions = (pos.reshape(1) if starts is None
                      else (pos - starts)[:, None])         # [1] or [B, 1]
     rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    if cfg.family == "hybrid":
+        win = cache_window(cfg, cache)
+        for where, blk, g, kind, lp in _hybrid_layers(params, cfg):
+            lc = cache[where][blk]
+            if g is not None:
+                lc = {n: t[g] for n, t in lc.items()}
+            if kind == "rglru":
+                x, new = _rglru_layer(x, lp, cfg, cache=lc)
+                lc["h"].copy_(new["h"])
+                lc["conv"].copy_(new["conv"])
+            else:
+                x = _decode_block(
+                    x, lp, lc["k"], lc["v"], cfg, pos, rope,
+                    backend=backend, starts=None, tables=None, slots=None,
+                    schedule=_field(schedules, "decode_attention"),
+                    window=win)
+        return _head(params, cfg, x), cache
     for i in range(cfg.n_layers):
         x = _decode_block(x, layer_params(params["layers"], i),
                           cache["layers"]["k"][i], cache["layers"]["v"][i],
@@ -371,6 +564,17 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Any],
     return _head(params, cfg, x), cache
 
 
-__all__ = ["SERVED_FAMILIES", "ATTENTION_FAMILIES", "init_params",
-           "layer_params", "forward", "prefill",
-           "init_cache", "init_paged_cache", "decode_step"]
+def cache_window(cfg: ModelConfig, cache: Dict[str, Any]) -> Optional[int]:
+    """Slots of a hybrid cache's rolling attention buffers (None when
+    the pattern has no attention block)."""
+    for i, kind in enumerate(cfg.block_pattern):
+        if kind == "attn":
+            return cache["groups"][f"b{i}"]["k"].shape[3]
+    return None
+
+
+__all__ = ["SERVED_FAMILIES", "DECODER_FAMILIES", "ATTENTION_FAMILIES",
+           "MASKED_FAMILIES", "init_params", "hybrid_counts",
+           "layer_params", "embed_inputs", "forward", "prefill",
+           "init_cache", "init_paged_cache", "decode_step",
+           "cache_window"]

@@ -177,9 +177,11 @@ def generate(model, params, batch: Dict[str, object], *,
              ) -> Tuple[np.ndarray, ServeStats]:
     """Greedy (or sampled) continuation of a left-padded batch.
 
-    ``batch["tokens"]`` is [B, S] (numpy or a CPU tensor); ``seq_starts``
-    ([B], optional) marks each row's first real token.  Runs where
-    ``params`` live.  Returns (tokens [B, max_new_tokens] int32,
+    ``batch["tokens"]`` is [B, S] (numpy or a CPU tensor), with the
+    family's modality fields beside it (``image_embeds`` for vlm,
+    ``frames`` for audio), which go to the prefill as they are;
+    ``seq_starts`` ([B], optional; dense, moe and ssm only) marks each
+    row's first real token.  Runs where ``params`` live.  Returns (tokens [B, max_new_tokens] int32,
     :class:`ServeStats`).
 
     ``temperature`` None defers to the session's (0.0, greedy, for the

@@ -55,6 +55,8 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels import _launches
+from repro_torch.models.transformer import (ATTENTION_FAMILIES,
+                                            MASKED_FAMILIES)
 
 
 def _set_counts(counts: Dict[str, int]) -> None:
@@ -249,28 +251,85 @@ def step_pick(last: torch.Tensor, inputs: Dict[str, torch.Tensor]
     return pick(last)
 
 
+def cache_state(cache: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The flat ``name -> tensor`` state a step owns for a cache tree:
+    the layer dict of a ``{"layers": ...}`` cache (dense, moe, ssm) as
+    it is, else every leaf under its ``/``-joined path (hybrid:
+    ``groups/b0/h``, ..., audio: ``self/k``, ``cross/v``, ...)."""
+    if set(cache) == {"layers"}:
+        return cache["layers"]
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node: Dict[str, Any], pre: str) -> None:
+        """Collect the leaves under ``pre``."""
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, f"{pre}{k}/")
+            else:
+                out[pre + k] = v
+
+    walk(cache, "")
+    return out
+
+
+def cache_tree(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The cache tree of a :func:`cache_state` (the same tensors)."""
+    if not any("/" in name for name in state):
+        return {"layers": state}
+    tree: Dict[str, Any] = {}
+    for name, t in state.items():
+        *path, leaf = name.split("/")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = t
+    return tree
+
+
+def fit_into(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Copy a prefill's cache leaf into the full-capacity ``dst`` (the
+    JAX session's ``fit``): whole when the shapes agree, else into the
+    leading ``src.shape`` corner of ``dst`` with the rest zeroed (a
+    prompt's K/V in a longer cache, a window shorter than the
+    capacity's)."""
+    if dst.shape == src.shape:
+        dst.copy_(src)
+        return
+    dst.zero_()
+    dst[tuple(slice(0, n) for n in src.shape)].copy_(src)
+
+
 def prefill_step(model, params, backend: str, bsz: int, length: int,
                  capture: bool, schedules=None,
                  sampled: bool = False) -> "CapturedStep":
-    """The masked prefill of ``bsz`` left-padded rows of ``length``
-    tokens, the step behind every prefill key (the engine's batch-1
-    admissions and ``run_batch``), launching with ``schedules`` (a
-    ScheduleBundle or None).  Inputs ``tokens`` [B, length] and
-    ``starts`` [B] (and a sampled step's :func:`step_inputs`); outputs
-    (:func:`step_pick` of the last logits, the prefill's caches)."""
+    """The prefill of ``bsz`` rows of ``length`` tokens, the step behind
+    every prefill key (the engine's batch-1 admissions and
+    ``run_batch``), launching with ``schedules`` (a ScheduleBundle or
+    None).  Inputs ``tokens`` [B, length], the modality fields of the
+    model's family (``image_embeds``, ``frames``: ``Model.
+    modality_specs``, in the model's dtype, fed like ``tokens``), for
+    the left-padded families (dense, moe, ssm) ``starts`` [B], and a
+    sampled step's :func:`step_inputs`; outputs (:func:`step_pick` of
+    the last logits, the prefill's caches)."""
     dev = params["embed"].device
+    masked = model.cfg.family in MASKED_FAMILIES
     inputs = {"tokens": torch.zeros((bsz, length), dtype=torch.int64,
-                                    device=dev),
-              "starts": torch.zeros((bsz,), dtype=torch.int64, device=dev),
-              **step_inputs(bsz, model.cfg.vocab_size, dev,
-                            sampled=sampled)}
+                                    device=dev)}
+    for name, (shape, dtype) in model.modality_specs(bsz).items():
+        inputs[name] = torch.zeros(shape, dtype=dtype, device=dev)
+    fields = list(inputs)
+    if masked:
+        inputs["starts"] = torch.zeros((bsz,), dtype=torch.int64,
+                                       device=dev)
+    inputs.update(step_inputs(bsz, model.cfg.vocab_size, dev,
+                              sampled=sampled))
 
     def fn():
-        """Prefill the static tokens; last-token pick and caches."""
-        logits, pcache = model.prefill(params, {"tokens": inputs["tokens"]},
-                                       backend=backend,
-                                       seq_starts=inputs["starts"],
-                                       schedules=schedules)
+        """Prefill the static batch; last-token pick and caches."""
+        logits, pcache = model.prefill(
+            params, {n: inputs[n] for n in fields}, backend=backend,
+            seq_starts=inputs["starts"] if masked else None,
+            schedules=schedules)
         return step_pick(logits[:, -1], inputs), pcache
 
     return CapturedStep(fn, dev, inputs=inputs, capture=capture)
@@ -316,40 +375,49 @@ def recurrent_decode_step(model, params, backend: str, bsz: int,
 
 def contiguous_decode_step(model, params, backend: str, bsz: int,
                            total: int, capture: bool, schedules=None,
-                           cache=None, sampled: bool = False
+                           state=None, sampled: bool = False
                            ) -> "CapturedStep":
-    """``run_batch``'s contiguous decode step for an attention family,
-    over a cache of ``total`` positions (a new one, or a live run's
-    ``cache`` layers when it is rebuilt under a new bundle), launching
-    with ``schedules``.  Inputs ``tokens`` [B, 1], ``pos`` (one int64)
-    and ``starts`` [B] (and a sampled step's :func:`step_inputs`); state
-    the cache's layers; output :func:`step_pick` of the logits, whose
-    token it writes back into ``tokens`` before it advances ``pos``."""
+    """``run_batch``'s decode step for a family with a contiguous cache
+    (dense, moe, hybrid, vlm, audio), over a cache of ``total``
+    positions (a new one, or a live run's ``state``, a
+    :func:`cache_state`, when it is rebuilt under a new bundle),
+    launching with ``schedules``.  Inputs ``tokens`` [B, 1], ``pos``
+    (one int64), for dense and moe ``starts`` [B] (the left-pad masks;
+    the other families are served unpadded), and a sampled step's
+    :func:`step_inputs`; state the cache's :func:`cache_state`; output
+    :func:`step_pick` of the logits, whose token it writes back into
+    ``tokens`` before it advances ``pos`` (a hybrid step writes its
+    rolling buffers at ``pos % W`` on the device)."""
     dev = params["embed"].device
-    cache = (model.init_cache(bsz, total, dev) if cache is None
-             else {"layers": cache})
+    cache = (model.init_cache(bsz, total, dev) if state is None
+             else cache_tree(state))
+    masked = model.cfg.family in ATTENTION_FAMILIES
     inputs = {"tokens": torch.zeros((bsz, 1), dtype=torch.int64,
                                     device=dev),
               "pos": torch.zeros((), dtype=torch.int64, device=dev),
-              "starts": torch.zeros((bsz,), dtype=torch.int64, device=dev),
               **step_inputs(bsz, model.cfg.vocab_size, dev,
                             sampled=sampled)}
+    if masked:
+        inputs["starts"] = torch.zeros((bsz,), dtype=torch.int64,
+                                       device=dev)
     tok, pos = inputs["tokens"], inputs["pos"]
 
     def fn():
         """One token per row; feeds it back and advances pos."""
-        lg, _ = model.decode_step(params, cache, tok, pos, backend=backend,
-                                  seq_starts=inputs["starts"],
-                                  schedules=schedules)
+        lg, _ = model.decode_step(
+            params, cache, tok, pos, backend=backend,
+            seq_starts=inputs["starts"] if masked else None,
+            schedules=schedules)
         picked = step_pick(lg[:, -1], inputs)
         tok.copy_(picked[0][:, None])
         pos.add_(1)
         return picked
 
-    return CapturedStep(fn, dev, inputs=inputs, state=cache["layers"],
+    return CapturedStep(fn, dev, inputs=inputs, state=cache_state(cache),
                         capture=capture)
 
 
 __all__ = ["CapturedStep", "SAMPLED", "pick", "sample_pick", "step_inputs",
-           "step_pick", "prefill_step", "recurrent_decode_step",
+           "step_pick", "cache_state", "cache_tree", "fit_into",
+           "prefill_step", "recurrent_decode_step",
            "contiguous_decode_step"]

@@ -1,5 +1,5 @@
-"""ServeSession: the serving engine of the dense, moe and ssm families
-(port of ``repro.serving.session``).
+"""ServeSession: the serving engine of every family of the port (port
+of ``repro.serving.session``).
 
 Requests are submitted to a queue and served by :meth:`ServeSession.drain`.
 Greedy traffic runs the **in-flight engine** (:meth:`_drain_inflight`): a
@@ -26,13 +26,18 @@ writes the row's final SSM and conv states into row ``r`` of every
 layer, in place; each boundary runs one recurrent ``decode_step`` over
 all rows.
 
-Sampled traffic (``temperature > 0``) runs the **bucketed path**
-(:meth:`_drain_batched`): the head of the queue's prompt bucket picks a
-(batch, padded-length) bucket, the group is left-padded to it (pad rows
-fully masked) and served to completion by :meth:`run_batch`, the body
-of ``runtime.serve_loop.generate``: a batched masked prefill, then one
+Sampled traffic (``temperature > 0``), and all traffic of the hybrid,
+vlm and audio families (the engine serves dense, moe and ssm, as in
+JAX), runs the **bucketed path** (:meth:`_drain_batched`): the head of
+the queue's prompt bucket picks a (batch, padded-length) bucket, the
+group is left-padded to it (pad rows fully masked; the hybrid, vlm and
+audio families are not masked, as in JAX, so a row's pad tokens are
+part of its prompt) and served to completion by :meth:`run_batch`, the
+body of ``runtime.serve_loop.generate``: a batched prefill, then one
 contiguous decode step a token (the contiguous decode kernel, or the
-scan).  A sampled step draws each row's token from ``softmax(logits /
+scan).  A request's ``extras`` (``image_embeds`` for vlm, ``frames``
+for audio) are stacked into its group's batch, zeros where a row has
+none.  A sampled step draws each row's token from ``softmax(logits /
 T)`` by the Gumbel-max rule, on uniform noise drawn outside the step
 from the caller's ``torch.Generator`` (else one seeded 0 a call, as the
 JAX package takes ``jax.random.key(0)``); its key carries the detail
@@ -145,6 +150,7 @@ from repro_torch.models.attention import BACKENDS
 from repro_torch.models.model_zoo import (Model, bucket_length,
                                           left_pad_prompts, prompt_starts)
 from repro_torch.models.transformer import (ATTENTION_FAMILIES,
+                                            MASKED_FAMILIES,
                                             SERVED_FAMILIES)
 from repro_torch.obs.events import Event
 from repro_torch.obs.recorder import POSTMORTEM_KINDS
@@ -154,8 +160,9 @@ from repro_torch.serving.bucketing import (Bucket, candidate_buckets,
                                            pick_bucket)
 from repro_torch.serving.cache import ExecKey, ExecutableCache
 from repro_torch.serving.captured import (SAMPLED, CapturedStep,
+                                          cache_state,
                                           contiguous_decode_step,
-                                          prefill_step,
+                                          fit_into, prefill_step,
                                           recurrent_decode_step,
                                           step_inputs, step_pick)
 from repro_torch.serving.paged_kv import BlockAllocator, blocks_needed
@@ -169,6 +176,9 @@ _NULL_BUCKET = Bucket(0, 0, 0)
 _NULL_SPAN = contextlib.nullcontext()
 # what a build that failed every attempt falls back to
 FALLBACK_BACKENDS = ("eager", "none")
+# the families the in-flight engine serves (the others, as in JAX, only
+# the bucketed path)
+ENGINE_FAMILIES = MASKED_FAMILIES
 
 
 class RequestState:
@@ -200,6 +210,7 @@ class Request:
     request_id: str
     submitted_at: float             # session clock at submission
     deadline_s: Optional[float] = None  # submit -> last token budget
+    extras: Optional[Dict[str, np.ndarray]] = None  # per-row modality data
 
 
 @dataclasses.dataclass
@@ -408,7 +419,7 @@ class ServeSession:
         """Validate the knobs and start with an empty queue."""
         if model.cfg.family not in SERVED_FAMILIES:
             raise NotImplementedError(
-                f"the port's engine serves the "
+                f"the port's session serves the "
                 f"{', '.join(SERVED_FAMILIES)} families, got "
                 f"{model.cfg.family!r}")
         if backend not in BACKENDS:
@@ -586,8 +597,13 @@ class ServeSession:
     # ------------------------------------------------------ admission
     def submit(self, tokens, max_new_tokens: int,
                request_id: Optional[str] = None,
-               deadline_s: Optional[float] = None) -> str:
+               deadline_s: Optional[float] = None,
+               extras: Optional[Dict[str, np.ndarray]] = None) -> str:
         """Queue one request (a 1-D prompt); returns its id.
+
+        ``extras`` holds the request's modality data, one row of the
+        batch field of the same name (``image_embeds`` [N_img, D] for
+        vlm, ``frames`` [S_enc, D] for audio); a missing field is zeros.
 
         ``deadline_s`` (submit → last token, seconds) overrides the
         session's ``request_deadline_s``; a blown deadline finishes the
@@ -611,7 +627,8 @@ class ServeSession:
             tokens=prompt, max_new_tokens=int(max_new_tokens),
             request_id=rid, submitted_at=submitted_at,
             deadline_s=(deadline_s if deadline_s is not None
-                        else self.request_deadline_s)))
+                        else self.request_deadline_s),
+            extras=extras))
         tel = self.telemetry
         if tel.enabled:
             tel.metrics.counter("serve.requests_submitted_total").inc()
@@ -760,9 +777,10 @@ class ServeSession:
             return None
         # here, not at the top: the serve loop imports this package
         from repro_torch.runtime.serve_loop import serve_dispatch_problems
+        # run_batch's shape: a vlm cache holds the image tokens too
         kind, problem = serve_dispatch_problems(
             self.model.cfg, bucket.batch, bucket.prompt_len,
-            bucket.total_len)["decode"]
+            bucket.total_len + self._image_tokens())["decode"]
         eb = self._elem_bytes
         t = self.dispatch.measured_time(kind, problem, eb)
         if t is None:
@@ -785,36 +803,56 @@ class ServeSession:
         self._queue = [r for r in self._queue if id(r) not in taken]
         return take, bucket
 
+    def _image_tokens(self) -> int:
+        """Positions a vlm prompt's image takes in front of its text."""
+        cfg = self.model.cfg
+        return cfg.num_image_tokens if cfg.family == "vlm" else 0
+
     def _form_batch(self, group: List[Request], bucket: Bucket
-                    ) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
+                    ) -> Tuple[Dict[str, np.ndarray], Optional[np.ndarray]]:
         """The group left-padded to the bucket (token 0), with rows of
-        pad tokens up to the bucket's batch, and each row's start: a pad
-        row's is ``prompt_len``, so every position of it is masked."""
+        pad tokens up to the bucket's batch; the modality fields of the
+        family stacked from the requests' ``extras`` (float32, zeros for
+        a row without one and for pad rows); and, for the masked
+        families, each row's start: a pad row's is ``prompt_len``, so
+        every position of it is masked (None for the others)."""
         tokens = left_pad_prompts([r.tokens for r in group],
                                   bucket.prompt_len)
-        starts = np.full((bucket.batch,), bucket.prompt_len, np.int32)
-        starts[:len(group)] = prompt_starts([r.tokens for r in group],
-                                            bucket.prompt_len)
         if bucket.batch > len(group):
             pad_rows = np.zeros((bucket.batch - len(group),
                                  bucket.prompt_len), np.int32)
             tokens = np.concatenate([tokens, pad_rows], axis=0)
-        return {"tokens": tokens}, starts
+        batch = {"tokens": tokens}
+        for name, (shape, _) in self.model.modality_specs(
+                bucket.batch).items():
+            rows = [np.asarray((r.extras or {}).get(name, np.zeros(
+                shape[1:], np.float32)), dtype=np.float32) for r in group]
+            rows += [np.zeros(shape[1:], np.float32)] * (bucket.batch
+                                                         - len(group))
+            batch[name] = np.stack(rows, axis=0)
+        if self.model.cfg.family not in MASKED_FAMILIES:
+            return batch, None
+        starts = np.full((bucket.batch,), bucket.prompt_len, np.int32)
+        starts[:len(group)] = prompt_starts([r.tokens for r in group],
+                                            bucket.prompt_len)
+        return batch, starts
 
     def drain(self, on_step=None) -> List[RequestResult]:
         """Serve every queued request; results in completion order.
 
-        Greedy traffic runs the in-flight engine
-        (:meth:`_drain_inflight`); sampled traffic (the session's
-        ``temperature > 0``) the bucketed path (:meth:`_drain_batched`),
-        which serves whole groups at a time.
+        Greedy traffic of the dense, moe and ssm families runs the
+        in-flight engine (:meth:`_drain_inflight`); sampled traffic (the
+        session's ``temperature > 0``) and the hybrid, vlm and audio
+        families the bucketed path (:meth:`_drain_batched`), which
+        serves whole groups at a time.
 
         ``on_step(info)`` (engine only) is called after every decode
         step with ``{"step", "active", "pending", "free_blocks"}``; it
         may submit or cancel requests, which take effect at the next
         step boundary."""
         results = self._flush_done()
-        if self.temperature <= 0.0:
+        if (self.model.cfg.family in ENGINE_FAMILIES
+                and self.temperature <= 0.0):
             while self._queue:
                 results.extend(self._drain_inflight(on_step))
             return results
@@ -838,6 +876,7 @@ class ServeSession:
                 batch, max_new_tokens=max(r.max_new_tokens for r in group),
                 total_len=bucket.total_len,
                 real_tokens=sum(r.max_new_tokens for r in group),
+                real_rows=len(group),
                 seq_starts=starts)
             for i, r in enumerate(group):
                 results.append(RequestResult(
@@ -1024,6 +1063,12 @@ class ServeSession:
         rows are empty, or the head request needs a wider table (it then
         waits for the next activation).  A recurrent (ssm) activation
         has rows only: no allocator, block table or compaction."""
+        if self.model.cfg.family not in ENGINE_FAMILIES:
+            raise ValueError(
+                f"the in-flight engine serves the "
+                f"{', '.join(ENGINE_FAMILIES)} families, got "
+                f"{self.model.cfg.family!r} (drain serves it through "
+                f"the bucketed path)")
         # here, not at the top: the serve loop imports this package
         from repro_torch.runtime.serve_loop import (CommitCounts, ServeStats,
                                                     resolve_bundle_report,
@@ -1550,22 +1595,28 @@ class ServeSession:
                   generator: Optional[torch.Generator] = None,
                   total_len: Optional[int] = None,
                   real_tokens: Optional[int] = None,
+                  real_rows: Optional[int] = None,
                   seq_starts=None) -> Tuple[np.ndarray, Any]:
         """Greedy (or sampled) continuation of one left-padded batch,
         with its prefill and decode steps behind the executable cache
         (the body of ``serve_loop.generate``).
 
-        ``batch["tokens"]`` is [B, S] (numpy or a CPU tensor);
-        ``seq_starts`` ([B], optional) marks each row's first real token
+        ``batch["tokens"]`` is [B, S] (numpy or a CPU tensor), with the
+        family's modality fields beside it (``image_embeds`` [B, N_img,
+        D] for vlm, ``frames`` [B, S_enc, D] for audio), fed into the
+        prefill step's buffers; ``seq_starts`` ([B], optional; dense,
+        moe and ssm only, as in JAX) marks each row's first real token
         (zeros when not given, as the JAX session always threads them);
         a row whose start is S holds no prompt token: every position of
         it is masked, and it is a pad row.  ``total_len`` widens the
         cache beyond ``S + max_new_tokens`` so that groups of other
-        budgets share the decode step.  ``real_tokens`` is the number of
-        tokens delivered to requests (``_drain_batched`` passes its
-        group's budgets): the session counts goodput, the returned
-        :class:`~repro_torch.runtime.serve_loop.ServeStats` the step's
-        ``B * max_new_tokens``.
+        budgets share the decode step; a vlm cache holds the image
+        tokens besides, and its first decode position is ``S + N_img``.
+        ``real_tokens`` is the number of tokens delivered to requests
+        (``_drain_batched`` passes its group's budgets, and with
+        ``real_rows`` its group's size): the session counts goodput, the
+        returned :class:`~repro_torch.runtime.serve_loop.ServeStats` the
+        step's ``B * max_new_tokens``.
 
         ``temperature`` (None: the session's) above 0 samples each token
         from ``softmax(logits / T)`` (Gumbel-max) on noise drawn from
@@ -1596,14 +1647,23 @@ class ServeSession:
         detail = SAMPLED if sampled else None
         toks = np.asarray(batch["tokens"])
         bsz, prompt_len = toks.shape
-        starts = (np.zeros((bsz,), np.int64) if seq_starts is None
-                  else np.asarray(seq_starts).reshape(bsz))
+        masked = cfg.family in MASKED_FAMILIES
+        if seq_starts is not None and not masked:
+            raise ValueError(
+                f"seq_starts is not supported for family {cfg.family!r}")
+        starts = None
+        if masked:
+            starts = (np.zeros((bsz,), np.int64) if seq_starts is None
+                      else np.asarray(seq_starts).reshape(bsz))
+        fields = {n: np.asarray(batch[n]) for n in model.modality_specs(bsz)}
         total = prompt_len + max_new_tokens
         if total_len is not None:
             if total_len < total:
                 raise ValueError(
                     f"total_len {total_len} < prompt+new {total}")
             total = int(total_len)
+        pos0 = prompt_len + self._image_tokens()
+        total += self._image_tokens()
         arch = cfg.name
         recurrent = cfg.attention_free
 
@@ -1649,7 +1709,7 @@ class ServeSession:
                         poison=self._faults is not None and not sampled)
                 return contiguous_decode_step(
                     model, params, be, bsz, total, capture,
-                    schedules=bundle, cache=live, sampled=sampled)
+                    schedules=bundle, state=live, sampled=sampled)
             return make
 
         pf, _ = self._compile(
@@ -1681,7 +1741,8 @@ class ServeSession:
         t_pf0 = tel.clock() if tel.enabled else 0.0
         t0 = time.perf_counter()
         draw(pf)
-        pf.feed(tokens=toks, starts=starts)
+        pf.feed(tokens=toks, **fields,
+                **({} if starts is None else {"starts": starts}))
         picked, pcache = pf.replay()
         if dispatch is not None:
             _sync(dev)
@@ -1691,16 +1752,16 @@ class ServeSession:
                           device=dev)
         out[:, 0].copy_(picked[0])
         if dec is not None:
+            # the prefill's caches into the full-capacity state, leaf by
+            # leaf by their shapes (a prompt's K/V, a rolling window, an
+            # encoder's cross K/V, a recurrent state)
             state, ins = dec.state, dec.inputs
-            for name, t in pcache["layers"].items():
-                if recurrent:
-                    state[name].copy_(t)
-                else:
-                    state[name].zero_()
-                    state[name][..., :prompt_len, :].copy_(t)
+            for name, t in cache_state(pcache).items():
+                fit_into(state[name], t)
             ins["tokens"].copy_(picked[0][:, None])
             if not recurrent:
-                ins["pos"].fill_(prompt_len)
+                ins["pos"].fill_(pos0)
+            if "starts" in ins:
                 ins["starts"].copy_(pf.inputs["starts"])
         _sync(dev)
         prefill_s = time.perf_counter() - t0
@@ -1757,7 +1818,9 @@ class ServeSession:
             delivered, decode_delivered = (stats.tokens_generated,
                                            stats.decode_tokens)
         else:
-            real_rows = int((starts < prompt_len).sum())
+            if real_rows is None:
+                real_rows = (bsz if starts is None
+                             else int((starts < prompt_len).sum()))
             delivered = int(real_tokens)
             decode_delivered = delivered - real_rows
         self.stats.batches += 1

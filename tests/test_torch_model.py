@@ -197,14 +197,20 @@ def test_greedy_tokens_identical_to_jax(models):
 
 @pytest.mark.parametrize("family", ["hybrid"])
 def test_non_dense_families_raise(family):
-    """Families the port does not serve yet raise (dense, moe and ssm
-    are served; ssm is tested in test_torch_ssm.py, moe below)."""
+    """Every family of the JAX package is served now (ssm in
+    test_torch_ssm.py, moe below, hybrid, vlm and audio in
+    test_torch_hybrid.py, test_torch_vlm.py and test_torch_encdec.py):
+    the family's smoke config builds and counts its parameters as JAX
+    does, and only a family that neither package has still raises."""
     import dataclasses
-    cfg = dataclasses.replace(get_config(ARCH), family=family)
+    arch = {"hybrid": "recurrentgemma-9b-smoke"}[family]
+    params = build_model(get_config(arch)).init(seed=0, device="cpu")
+    assert "groups" in params and "layers" not in params
+    assert (get_config(arch).param_count()
+            == jax_get_config(arch).param_count())
+    cfg = dataclasses.replace(get_config(ARCH), family="unknown")
     with pytest.raises(NotImplementedError):
         build_model(cfg).init(seed=0, device="cpu")
-    with pytest.raises(NotImplementedError):
-        cfg.param_count()
 
 
 # ------------------------------------------- the rest of the dense family,
