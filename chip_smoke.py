@@ -192,6 +192,39 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
    kernel shapes (``[time_family]``): the windowed flash at
    [1, 16, 4096, 256], the non-causal flash at [4, 20, 1500, 64] and
    the contiguous decode over a wrapped buffer of 2048 slots;
+7c. training (after phase 7b; the card freed first): ``[train]``
+   ``Trainer`` on full-width, full-depth phi3-mini-3.8b in bf16
+   (``backend="plain"``: neither package has a kernel backward), random
+   weights from seed 0, the port's ``DataPipeline`` (seed 0), batch 4 x
+   512 tokens, 8 steps, lr 3e-5 with 2 warmup steps, remat "full": each
+   step's loss and grad norm, the step ms (median of steps 2-7, host
+   clock, synchronised), tokens/s, TFLOP/s at 6 N tokens (remat's
+   recompute not counted), peak allocated and reserved GiB; gated:
+   every loss and grad norm finite, the last loss below the first,
+   every leaf moved (against a re-init from the seed); then
+   ``[train_eval]``: on the trained weights and step 0's batch, under
+   ``no_grad``, ``loss_fn(backend="cuda")`` against plain
+   (:data:`TRAIN_EVAL_RTOL`), gated at one flash launch a layer (32);
+   ``[train_refuses]``: with grad on, ``backend="cuda"`` raises
+   ``KernelGradError`` and no kernel launches; ``[train_profile]``: one
+   more step under ``torch.profiler`` (device ms by kernel group, busy
+   share, top kernels); ``[train_apply]``: one
+   ``adamw.apply`` on the full state (CUDA events, median of 3) beside
+   its byte bound; ``[train_exact]``: 4 steps of the float32 smoke
+   configs of minitron-4b, qwen2-moe-a2.7b, falcon-mamba-7b,
+   recurrentgemma-9b, paligemma-3b and whisper-large-v3 on the card and
+   on the CPU in this process, losses within :data:`TRAIN_EXACT_RTOL`;
+   ``[train_restart]``: ``launch/elastic_restart`` on the card (resumed
+   at step 10, shard layouts equal), then minitron-4b-smoke trained to
+   step 10 of 15 with checkpoints every 5 and resumed by a fresh
+   trainer: the restored tensors byte-equal to the ones saved, steps
+   10-14's losses equal to an uninterrupted 15-step run's; and
+   ``run_with_restart`` with a ``RuntimeError`` injected once after the
+   step-5 checkpoint: one restart, the run ends at step 10;
+   ``[train_lm]``: ``launch/train_lm`` (lm-100m, float32, 100 steps of
+   8 x 256 tokens, checkpoints at 50 and 100 in a temporary directory,
+   removed after): tokens/s, first and final loss; every training
+   phase prints its seconds;
 8. the thesis path (run after phase 3): conv2d, matmul and the
    block-sparse conv at the widths of thesis Table 4.1 (batch 1 and 32),
    the GEMM form of its 1x1 layers, phi3-mini's QKV projection and the
@@ -2388,6 +2421,11 @@ def run(torch, dev, timer, smi, records):
             summary[k]["launches"] += v
     for arch in FAMILY_ARCHS:
         exact_tokens_bucketed(torch, dev, arch + "-smoke")
+
+    # ---- training: full phi3 on the plain backend (no kernel has a
+    # backward), the forward-only loss through the flash kernel
+    summary["flash_attention"]["launches"] += train_phases(
+        torch, dev, timer, smi)
     return summary
 
 
@@ -4783,6 +4821,399 @@ def exact_tokens_bucketed(torch, dev, arch):
           path="_drain_batched", paths=json.dumps(list(paths)),
           drain_requests=len(sprompts), generate_rows=4, equal=True,
           kernels=json.dumps(used))
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 8
+# from random weights a sign-like first AdamW step moves every weight
+# by lr in the gradient's sign: at 3e-4 and 1e-4 the loss rose within 8
+# steps on an H100 (grad norm 7.3 -> 486 and 48), at 3e-5 it falls
+TRAIN_LR, TRAIN_WARMUP = 3e-5, 2
+# the flash kernel and the plain path round each layer's attention to
+# bf16 at different points; over 32 layers the mean loss of 2,044 tokens
+# moved by 4e-5 relative on an H100
+TRAIN_EVAL_RTOL = 1e-3
+TRAIN_EXACT_ARCHS = ("minitron-4b", "qwen2-moe-a2.7b", "falcon-mamba-7b",
+                     "recurrentgemma-9b", "paligemma-3b",
+                     "whisper-large-v3")
+# float32 (TF32 off): cuBLAS and the CPU sum products in other orders;
+# over 4 AdamW steps a noise-level gradient element may flip its first
+# update's sign (m / sqrt(v) ~ sign(g)), which moves the loss by ~1e-6
+TRAIN_EXACT_RTOL = 1e-4
+TRAIN_EXACT_STEPS = 4
+# bytes a parameter's AdamW update must move at least: read p (bf16),
+# g (bf16), m and v (float32), write p, m and v
+ADAMW_BYTES_PER_BF16_PARAM = 2 + 2 + 4 + 4 + 2 + 4 + 4
+
+
+def train_batch(cfg, step, rows=4, seq=32):
+    """Step ``step`` of the port's pipeline (seed 0) for ``cfg``, with the
+    modality stub from the pipeline's ``extra`` (vlm: its image tokens'
+    labels masked; audio: the frames)."""
+    import numpy as np
+    from repro_torch.data import DataConfig, global_batch
+    extra = {}
+    if cfg.family == "vlm":
+        extra["image_embeds"] = ((cfg.num_image_tokens, cfg.d_model),
+                                 np.float32)
+    if cfg.family == "audio":
+        extra["frames"] = ((cfg.encoder_seq, cfg.d_model), np.float32)
+    bt = global_batch(DataConfig(cfg.vocab_size, seq, rows, seed=0,
+                                 extra=extra), step)
+    if cfg.family == "vlm":
+        bt["labels"] = np.concatenate(
+            [np.full((rows, cfg.num_image_tokens), -1, np.int32),
+             bt["labels"]], axis=1)
+    return bt
+
+
+def train_phases(torch, dev, timer, smi):
+    """Phase 7c; returns the flash launches of ``[train_eval]``."""
+    free_card(torch)
+    flash = train_full(torch, dev, timer, smi)
+    free_card(torch)
+    train_exact(torch, dev, smi)
+    train_restart(torch, dev, smi)
+    free_card(torch)
+    train_lm_phase(torch, dev, smi)
+    free_card(torch)
+    return flash
+
+
+def train_full(torch, dev, timer, smi):
+    """``[train]``, ``[train_eval]``, ``[train_refuses]`` and
+    ``[train_apply]`` on full phi3-mini-3.8b; returns the flash launches
+    of ``[train_eval]``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, global_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import KernelGradError
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import TrainConfig, Trainer
+    from repro_torch.tree import flatten_with_paths, leaves
+
+    t0 = time.perf_counter()
+    cfg = get_config(PHI3)
+    model = build_model(cfg)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=0)
+    tcfg = TrainConfig(steps=TRAIN_STEPS, log_every=1,
+                       opt=adamw.AdamWConfig(lr=TRAIN_LR),
+                       warmup_steps=TRAIN_WARMUP, seed=0, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(model, tcfg, dcfg)
+    out = trainer.run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    reserved = torch.cuda.max_memory_reserved() / 2 ** 30
+    hist = out["history"]
+    params, opt_state = out["params"], out["opt_state"]
+    n_params = sum(t.numel() for t in leaves(params))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for h in hist:
+        phase("train_step", arch=PHI3, step=h["step"],
+              loss=f"{h['loss']:.6f}", grad_norm=f"{h['grad_norm']:.6f}",
+              lr=f"{h['lr']:.3e}", ms=f"{1e3 * h['dt']:.1f}")
+        if not (math.isfinite(h["loss"])
+                and math.isfinite(h["grad_norm"])):
+            fail(f"[train] step {h['step']}: loss {h['loss']} grad norm "
+                 f"{h['grad_norm']}")
+    if len(hist) != TRAIN_STEPS or not hist[-1]["loss"] < hist[0]["loss"]:
+        fail(f"[train] {len(hist)} steps, loss {hist[0]['loss']} -> "
+             f"{hist[-1]['loss']}: did not go down")
+    step_s = sorted(h["dt"] for h in hist[2:])[len(hist[2:]) // 2]
+    init = model.init(seed=0, device=dev)
+    still = [path for (path, a), b in zip(flatten_with_paths(params),
+                                          leaves(init))
+             if torch.equal(a.detach(), b)]
+    del init
+    if still:
+        fail(f"[train] leaves that did not move: {still}")
+    phase("train", arch=PHI3, card=repr(smi), dtype=cfg.dtype,
+          backend="plain", remat="full", params=n_params, batch=TRAIN_BATCH,
+          seq=TRAIN_SEQ, steps=len(hist), first_loss=f"{hist[0]['loss']:.6f}",
+          final_loss=f"{hist[-1]['loss']:.6f}",
+          first_step_ms=f"{1e3 * hist[0]['dt']:.1f}",
+          step_ms=f"{1e3 * step_s:.1f} (median of steps 2-7)",
+          tok_s=f"{tokens / step_s:.1f}",
+          tflop_s=f"{6 * n_params * tokens / step_s / 1e12:.2f} "
+                  f"(6 N tokens; remat's recompute not counted)",
+          peak_allocated_gib=f"{peak:.2f}",
+          peak_reserved_gib=f"{reserved:.2f}",
+          leaves_moved=len(leaves(params)),
+          stragglers=len(out["stragglers"]),
+          wall_s=f"{out['wall_time']:.1f}")
+    del out
+
+    # forward-only loss through the flash kernel, on the same weights
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in global_batch(dcfg, 0).items()}
+    with torch.no_grad():
+        plain, _ = model.loss_fn(params, batch)
+        reset_launch_counts()
+        cuda, _ = model.loss_fn(params, batch, backend="cuda")
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    rel = abs(float(cuda) - float(plain)) / abs(float(plain))
+    phase("train_eval", arch=PHI3, card=repr(smi),
+          loss_cuda=f"{float(cuda):.6f}",
+          loss_plain=f"{float(plain):.6f}", rel_diff=f"{rel:.3e}",
+          tol=f"rtol {TRAIN_EVAL_RTOL}", launches=json.dumps(counts))
+    if counts["flash_attention"] != cfg.n_layers:
+        fail(f"[train_eval] {counts['flash_attention']} flash launches, "
+             f"want {cfg.n_layers}")
+    if not rel <= TRAIN_EVAL_RTOL:
+        fail(f"[train_eval] cuda loss {float(cuda)} vs plain {float(plain)}")
+    flash = counts["flash_attention"]
+
+    reset_launch_counts()
+    try:
+        model.loss_fn(params, batch, backend="cuda")
+    except KernelGradError as e:
+        refused = type(e).__name__
+    else:
+        fail("[train_refuses] backend='cuda' under autograd did not raise")
+    torch.cuda.synchronize()
+    launched = sum(launch_counts().values())
+    phase("train_refuses", arch=PHI3, raised=refused, launches=launched)
+    if launched:
+        fail(f"[train_refuses] {launched} kernel launches before the "
+             f"refusal")
+    train_profile(torch, trainer, params, opt_state, batch, smi)
+
+    # one update alone: the trained weights stand in for the gradients
+    grads = {}
+    for path, p in flatten_with_paths(params):
+        node = grads
+        keys = path.split("/")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = p.detach().clone()
+    lr = torch.tensor(TRAIN_LR, dtype=torch.float32, device=dev)
+    ms = timer(lambda: adamw.apply(tcfg.opt, params, grads, opt_state, lr),
+               iters=3, warmup=1, flush=False)
+    n_bytes = n_params * ADAMW_BYTES_PER_BF16_PARAM
+    phase("train_apply", arch=PHI3, card=repr(smi), ms=f"{ms:.2f}",
+          bound_ms=f"{1e3 * n_bytes / HBM_BYTES_PER_S:.2f} (bytes: "
+                   f"{n_bytes / 1e9:.1f} GB)",
+          chunk=adamw.CHUNK, seconds=f"{time.perf_counter() - t0:.1f}")
+    del grads, params, opt_state, batch
+    return flash
+
+
+def train_profile(torch, trainer, params, opt_state, batch, smi):
+    """``[train_profile]``: one more train step under ``torch.profiler``:
+    wall and device ms, the busy share, device ms by kernel group (cuBLAS
+    GEMMs, elementwise, reductions, copies and indexing, the rest) and
+    the top kernels (``[train_profile_top]``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer._step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+
+    def dev_us(e):
+        """Self device time of one averaged event, in us."""
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    if not kern:
+        phase("train_profile", arch=PHI3, device_events=0,
+              note="the profiler recorded no device time")
+        return
+    total = sum(dev_us(e) for e in kern)
+    groups = {"gemm": 0.0, "elementwise": 0.0, "reduce": 0.0,
+              "copy_index": 0.0, "other": 0.0}
+    for e in kern:
+        n = e.key.lower()
+        if any(t in n for t in ("gemm", "gemv", "nvjet", "cutlass")):
+            g = "gemm"
+        elif "elementwise" in n or "vectorized" in n:
+            g = "elementwise"
+        elif "reduce" in n or "softmax" in n:
+            g = "reduce"
+        elif any(t in n for t in ("copy", "cat", "index", "scatter",
+                                  "gather", "stack")):
+            g = "copy_index"
+        else:
+            g = "other"
+        groups[g] += dev_us(e)
+    phase("train_profile", arch=PHI3, card=repr(smi),
+          wall_ms=f"{wall_us / 1e3:.1f}", device_ms=f"{total / 1e3:.1f}",
+          busy_share=f"{total / wall_us:.3f}",
+          kernels=sum(e.count for e in kern),
+          **{f"{g}_ms": f"{t / 1e3:.1f}" for g, t in groups.items()})
+    for e in sorted(kern, key=dev_us, reverse=True)[:8]:
+        phase("train_profile_top", arch=PHI3, kernel=repr(e.key[:70]),
+              calls=e.count, device_ms=f"{dev_us(e) / 1e3:.2f}",
+              share=f"{dev_us(e) / total:.3f}")
+
+
+def train_exact(torch, dev, smi):
+    """``[train_exact]``: 4 steps of each float32 smoke config on the card
+    and on the CPU from the same CPU-drawn weights."""
+    import functools
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import warmup_cosine
+    from repro_torch.runtime.train_loop import make_train_step
+    from repro_torch.tree import map_tree
+
+    for arch in TRAIN_EXACT_ARCHS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch + "-smoke")
+        model = build_model(cfg)
+        base = model.init(seed=0, device="cpu")
+        batches = [train_batch(cfg, i) for i in range(TRAIN_EXACT_STEPS)]
+
+        def losses(d):
+            """The 4 steps' losses on device ``d``."""
+            params = map_tree(lambda t: t.to(d, copy=True), base)
+            step = make_train_step(model, adamw.AdamWConfig(lr=1e-3),
+                                   functools.partial(
+                                       warmup_cosine, peak_lr=1e-3,
+                                       warmup_steps=1,
+                                       total_steps=TRAIN_EXACT_STEPS))
+            opt = adamw.init(params)
+            got = []
+            for b in batches:
+                params, opt, m = step(params, opt, {
+                    k: torch.from_numpy(v).to(d) for k, v in b.items()})
+                got.append(float(m["loss"]))
+            return got
+
+        card, cpu = losses(dev), losses(torch.device("cpu"))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+        phase("train_exact", arch=cfg.name, dtype=cfg.dtype,
+              card_losses=json.dumps([round(x, 6) for x in card]),
+              cpu_losses=json.dumps([round(x, 6) for x in cpu]),
+              max_rel_diff=f"{rel:.3e}", tol=f"rtol {TRAIN_EXACT_RTOL}",
+              seconds=f"{time.perf_counter() - t0:.1f}")
+        if not all(math.isfinite(x) for x in card) or \
+                not rel <= TRAIN_EXACT_RTOL:
+            fail(f"[train_exact] {cfg.name}: card {card} vs cpu {cpu}")
+
+
+def train_restart(torch, dev, smi):
+    """``[train_restart]``: the elastic-restart launcher on the card, a
+    resumed run against an uninterrupted one, and ``run_with_restart``
+    around an injected failure."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.launch import elastic_restart
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.ft import run_with_restart
+    from repro_torch.runtime.train_loop import TrainConfig, Trainer
+    from repro_torch.tree import flatten_with_paths
+
+    t0 = time.perf_counter()
+    res = elastic_restart.run(dev)
+    resumed_at = res["phase2"]["history"][0]["step"]
+    if resumed_at != 10 or not res["shards_equal"]:
+        fail(f"[train_restart] elastic_restart resumed at {resumed_at}")
+    cfg = get_config(elastic_restart.ARCH)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=8)
+
+    def trainer(d, steps=15):
+        """minitron-4b-smoke on the card, checkpoints every 5 in ``d``."""
+        return Trainer(build_model(cfg), TrainConfig(
+            steps=steps, ckpt_every=5, log_every=100, ckpt_dir=d,
+            opt=adamw.AdamWConfig(lr=1e-3), device=dev), dcfg)
+
+    with tempfile.TemporaryDirectory(prefix="train_restart_",
+                                     dir=REPO / "build") as d:
+        whole = trainer(None).run()
+        first = trainer(d).run(steps=10)
+        _, saved, _ = Checkpointer(d).restore_latest(
+            like={"params": first["params"], "opt": first["opt_state"]},
+            device=dev)
+        live = {"params": first["params"], "opt": first["opt_state"]}
+        unequal = [path for (path, a), (_, b) in zip(
+            flatten_with_paths(saved), flatten_with_paths(live))
+            if not torch.equal(a, b.detach())]
+        if unequal:
+            fail(f"[train_restart] restored leaves differ from the saved "
+                 f"ones: {unequal}")
+        resumed = trainer(d).run()
+    got = [h["loss"] for h in resumed["history"]]
+    want = [h["loss"] for h in whole["history"][10:]]
+    if [h["step"] for h in resumed["history"]] != list(range(10, 15)):
+        fail(f"[train_restart] resumed steps "
+             f"{[h['step'] for h in resumed['history']]}")
+    diff = max(abs(a - b) for a, b in zip(got, want))
+    if diff != 0.0:
+        fail(f"[train_restart] resumed losses {got} vs uninterrupted "
+             f"{want}")
+
+    fired = []
+    with tempfile.TemporaryDirectory(prefix="train_ft_",
+                                     dir=REPO / "build") as d:
+        def make_state():
+            """A fresh trainer whose step 7 raises once."""
+            t = trainer(d, steps=10)
+            step_fn = t._step_fn
+
+            def failing(params, opt_state, batch):
+                """The step, raising once at step 7."""
+                if int(opt_state.step) == 7 and not fired:
+                    fired.append(7)
+                    raise RuntimeError("injected failure at step 7")
+                return step_fn(params, opt_state, batch)
+
+            t._step_fn = failing
+            return {"trainer": t}
+
+        outs = []
+        restarts = run_with_restart(
+            make_state, lambda st: outs.append(st["trainer"].run()))
+    last = outs[-1]["history"]
+    if restarts != 1 or fired != [7] or last[-1]["step"] != 9 or \
+            last[0]["step"] != 5:
+        fail(f"[train_restart] run_with_restart: {restarts} restarts, "
+             f"steps {[h['step'] for h in last]}")
+    phase("train_restart", arch=cfg.name, card=repr(smi),
+          elastic_resumed_at=resumed_at, shards_equal=res["shards_equal"],
+          restored_equal_saved=True, resumed_steps="10-14",
+          max_loss_diff_vs_uninterrupted=diff,
+          run_with_restart=f"restarts={restarts} resumed_at=5 "
+                           f"final_step={last[-1]['step']}",
+          seconds=f"{time.perf_counter() - t0:.1f}")
+
+
+def train_lm_phase(torch, dev, smi):
+    """``[train_lm]``: ``launch/train_lm`` at lm-100m on the card."""
+    from repro_torch.launch import train_lm
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="train_lm_",
+                                     dir=REPO / "build") as d:
+        out = train_lm.main(["--steps", "100", "--device", str(dev),
+                             "--ckpt-dir", d])
+        ckpts = sorted(os.listdir(d))
+    hist = out["history"]
+    first, final = hist[0]["loss"], hist[-1]["loss"]
+    phase("train_lm", arch="lm-100m", card=repr(smi), dtype="float32",
+          steps=len(hist), seq=256, batch=8, tok_s=f"{out['tok_s']:.1f}",
+          first_loss=f"{first:.4f}", final_loss=f"{final:.4f}",
+          checkpoints=json.dumps(ckpts),
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    if len(hist) != 100 or not (math.isfinite(final) and final < first):
+        fail(f"[train_lm] {len(hist)} steps, loss {first} -> {final}")
+    if ckpts != ["step_00000050", "step_00000100"]:
+        fail(f"[train_lm] checkpoints {ckpts}")
 
 
 def _leaves(tree):

@@ -2,7 +2,8 @@
 
 A test builds ``repro``'s model, calls ``jax.tree.map(np.asarray,
 model.init(key)[0])`` and hands the result to :func:`params_from_numpy`,
-so both packages compute with the same weights.  This module takes numpy
+so both packages compute with the same weights; an optimizer state goes
+through :func:`opt_state_from_numpy`.  This module takes numpy
 only and imports no JAX.
 """
 from __future__ import annotations
@@ -43,4 +44,16 @@ def params_from_numpy(tree: Dict[str, Any], device: DeviceLike = None,
     return conv(tree)
 
 
-__all__ = ["params_from_numpy"]
+def opt_state_from_numpy(state: Any, device: DeviceLike = None):
+    """An optimizer state with numpy leaves (the JAX ``AdamWState``
+    through ``jax.tree.map(np.asarray, ...)``: ``step``, ``m``, ``v``) as
+    the port's :class:`~repro_torch.optim.adamw.AdamWState` on
+    ``device`` (CUDA by default)."""
+    from repro_torch.optim.adamw import AdamWState
+    dev = resolve_device(device)
+    return AdamWState(step=_to_tensor(state.step, dev, None),
+                      m=params_from_numpy(state.m, dev),
+                      v=params_from_numpy(state.v, dev))
+
+
+__all__ = ["params_from_numpy", "opt_state_from_numpy"]

@@ -32,8 +32,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (ParamInit, Params, RopeTables, dense,
                                        dtype_of, mlp, mlp_params, rmsnorm,
-                                       rope_tables, sinusoidal_positions)
-from repro_torch.models.transformer import _head, _field, layer_params
+                                       rope_tables, sinusoidal_positions,
+                                       softmax_xent)
+from repro_torch.models.transformer import (_head, _field,
+                                            check_kernels_without_grad,
+                                            check_remat, layer_params,
+                                            remat_call, unstack_layers)
 
 
 def _check(cfg: ModelConfig) -> None:
@@ -72,28 +76,35 @@ def init_params(cfg: ModelConfig, seed: int, device: torch.device
     return b.params
 
 
+def _encoder_layer(x: torch.Tensor, lp: Params, cfg: ModelConfig,
+                   backend: str) -> torch.Tensor:
+    """One bidirectional encoder layer (pre-norm attention and MLP, both
+    residual)."""
+    h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = attn.qkv_project(
+        h, lp["attn"], n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+        hd=cfg.resolved_head_dim, rope=None, qk_norm=False, use_rope=False)
+    ctx = attn.attention(q, k, v, causal=False, backend=backend)
+    x = x + attn.attn_out(ctx, lp["attn"])
+    h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    return x + mlp(h, lp["mlp"], cfg.mlp_type)
+
+
 def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor, *,
-           backend: str = "plain") -> torch.Tensor:
+           backend: str = "plain", remat: str = "full") -> torch.Tensor:
     """frames [B, S_enc, D] (the stub frontend's output) -> the encoder
     output [B, S_enc, D]: sinusoidal positions added in float32, then
-    the bidirectional layers and the encoder's final norm."""
+    the bidirectional layers (each under the ``remat`` policy when
+    autograd records it) and the encoder's final norm."""
     emb = params["embed"]
     frames = frames.to(device=emb.device, dtype=emb.dtype)
     pos = sinusoidal_positions(frames.shape[1], cfg.d_model, emb.device)
     x = (frames.float() + pos).to(frames.dtype)
-    hd = cfg.resolved_head_dim
     stacked = {k: v for k, v in params["encoder"].items()
                if k != "final_norm"}
-    for i in range(cfg.encoder_layers):
-        lp = layer_params(stacked, i)
-        h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = attn.qkv_project(
-            h, lp["attn"], n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=hd,
-            rope=None, qk_norm=False, use_rope=False)
-        ctx = attn.attention(q, k, v, causal=False, backend=backend)
-        x = x + attn.attn_out(ctx, lp["attn"])
-        h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = x + mlp(h, lp["mlp"], cfg.mlp_type)
+    for lp in unstack_layers(stacked):
+        x = remat_call(lambda h, p: _encoder_layer(h, p, cfg, backend),
+                       remat, x, lp)
     return rmsnorm(x, params["encoder"]["final_norm"], cfg.norm_eps)
 
 
@@ -147,23 +158,35 @@ def _decoder_body(x: torch.Tensor, lp: Params, cfg: ModelConfig,
 
 def forward(params: Params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor], *, backend: str = "plain",
-            collect_kv: bool = False
+            collect_kv: bool = False, remat: str = "full"
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Teacher-forced decoder logits [B, S_dec, V] (float32) of
     ``batch["tokens"]`` [B, S_dec] over ``batch["frames"]``; with
     ``collect_kv`` also ``extras["kv"]``: the decoder's self K/V
-    (``k``, ``v``) and cross K/V (``xk``, ``xv``), stacked per layer."""
+    (``k``, ``v``) and cross K/V (``xk``, ``xv``), stacked per layer.
+    Under autograd each layer (its cross K/V included) runs under the
+    ``remat`` policy, and ``backend="cuda"`` raises
+    :class:`~repro_torch.models.transformer.KernelGradError` before any
+    launch."""
     _check(cfg)
-    enc_out = encode(params, cfg, batch["frames"], backend=backend)
+    check_remat(remat)
+    check_kernels_without_grad(params, backend)
+    enc_out = encode(params, cfg, batch["frames"], backend=backend,
+                     remat=remat)
     emb = params["embed"]
     x = emb[batch["tokens"].to(emb.device).long()]
     rope = rope_tables(torch.arange(x.shape[1], device=x.device),
                        cfg.resolved_head_dim, cfg.rope_theta)
     ys: Dict[str, list] = {"k": [], "v": [], "xk": [], "xv": []}
-    for i in range(cfg.n_layers):
-        lp = layer_params(params["decoder"], i)
+
+    def layer(h, lp):
+        """One decoder layer with its cross K/V."""
         kv_x = _cross_kv(lp["cross"], cfg, enc_out)
-        x, kv = _decoder_body(x, lp, cfg, kv_x, rope, backend=backend)
+        h, kv = _decoder_body(h, lp, cfg, kv_x, rope, backend=backend)
+        return h, kv, kv_x
+
+    for lp in unstack_layers(params["decoder"]):
+        x, kv, kv_x = remat_call(layer, remat, x, lp)
         if collect_kv:
             for name, t in (("k", kv["k"]), ("v", kv["v"]),
                             ("xk", kv_x["k"]), ("xv", kv_x["v"])):
@@ -172,6 +195,18 @@ def forward(params: Params, cfg: ModelConfig,
     if collect_kv:
         extras["kv"] = {n: torch.stack(ts) for n, ts in ys.items()}
     return _head(params, cfg, x), extras
+
+
+def loss_fn(params: Params, cfg: ModelConfig,
+            batch: Dict[str, torch.Tensor], *, backend: str = "plain",
+            remat: str = "full"
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, metrics) of a teacher-forced batch (JAX ``encdec.loss_fn``):
+    the masked cross-entropy with z-loss of ``batch["labels"]``; metrics
+    ``xent``, ``tokens``, ``loss``."""
+    logits, _ = forward(params, cfg, batch, backend=backend, remat=remat)
+    loss, denom = softmax_xent(logits, batch["labels"])
+    return loss, {"xent": loss, "tokens": denom, "loss": loss}
 
 
 def init_cache(cfg: ModelConfig, bsz: int, max_len: int,
@@ -229,5 +264,5 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Any],
     return _head(params, cfg, x), cache
 
 
-__all__ = ["init_params", "encode", "forward", "init_cache", "prefill",
-           "decode_step"]
+__all__ = ["init_params", "encode", "forward", "loss_fn", "init_cache",
+           "prefill", "decode_step"]

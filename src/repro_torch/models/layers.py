@@ -203,7 +203,47 @@ def sinusoidal_positions(seq: int, d: int,
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
+# the tensors the "moe" remat policy keeps (JAX names them with
+# ``jax.ad_checkpoint.checkpoint_name`` in its moe layer)
+CHECKPOINT_NAMES = ("moe_in", "moe_out")
+
+
+def checkpoint_name(t: torch.Tensor, name: str) -> torch.Tensor:
+    """``t`` marked for the "moe" remat policy (``name`` one of
+    :data:`CHECKPOINT_NAMES`): an alias, the one op that policy keeps
+    (a view: no copy, no kernel)."""
+    if name not in CHECKPOINT_NAMES:
+        raise ValueError(f"no remat policy keeps {name!r}")
+    return torch.ops.aten.alias(t)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 z_loss: float = 1e-4
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean cross-entropy over the positions with ``labels >= 0``, plus
+    the z-loss ``z_loss * mean(lse ** 2)`` over the same positions
+    (logits [..., V], labels [...] int); returns (loss, the count of
+    those positions, at least 1), float32 scalars.
+
+    As the JAX layer, the label's log-probability is a one-hot
+    contraction with the float32 logits (under a vocabulary-sharded
+    head it partitions where a gather would not)."""
+    lf = logits.float()
+    labels = labels.to(lf.device)
+    lse = torch.logsumexp(lf, dim=-1)
+    onehot = F.one_hot(labels.clamp(min=0).long(),
+                       logits.shape[-1]).to(torch.float32)
+    ll = torch.einsum("...v,...v->...", lf, onehot)
+    nll = lse - ll
+    mask = (labels >= 0).to(torch.float32)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = (nll * mask).sum() / denom
+    zl = z_loss * ((lse ** 2) * mask).sum() / denom
+    return loss + zl, denom
+
+
 __all__ = ["Params", "ParamInit", "WHOLE_DRAW_LIMIT", "MLP_KINDS",
            "RopeTables", "dtype_of", "rmsnorm",
            "dense", "mlp", "mlp_params", "rope", "rope_tables",
-           "apply_rope", "sinusoidal_positions"]
+           "apply_rope", "sinusoidal_positions", "CHECKPOINT_NAMES",
+           "checkpoint_name", "softmax_xent"]

@@ -46,6 +46,18 @@ class Model:
         init = encdec.init_params if self.audio else transformer.init_params
         return init(self.cfg, seed, resolve_device(device))
 
+    def loss_fn(self, params, batch, *, backend: str = "plain",
+                remat: str = "full", schedules=None):
+        """(loss, metrics) of a teacher-forced batch; see
+        :func:`transformer.loss_fn` (audio: :func:`encdec.loss_fn`, which
+        takes no schedules, as in JAX).  Trains on ``"plain"``;
+        ``"cuda"`` only under ``torch.no_grad()``."""
+        if self.audio:
+            return encdec.loss_fn(params, self.cfg, batch, backend=backend,
+                                  remat=remat)
+        return transformer.loss_fn(params, self.cfg, batch, backend=backend,
+                                   remat=remat, schedules=schedules)
+
     def forward(self, params, batch, *, backend: str = "plain",
                 seq_starts=None, schedules=None):
         """Teacher-forced logits and extras; see

@@ -45,7 +45,8 @@ from typing import Dict, Iterator, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import ParamInit, Params, dense, mlp
+from repro_torch.models.layers import (ParamInit, Params, checkpoint_name,
+                                       dense, mlp)
 
 # one counter of dropped slots per device, never freed (a graph captured
 # while a drop_tally was open adds to it at every replay, also after the
@@ -162,12 +163,14 @@ def moe_ffn(x: torch.Tensor, p: Params, *, n_experts: int, top_k: int,
     buf_token.index_copy_(0, torch.where(keep, slot, n_experts * c),
                           src_token)
     x_pad = torch.cat([xt, xt.new_zeros((1, d))], dim=0)
-    expert_in = x_pad[buf_token[:-1]].reshape(n_experts, c, d)
+    expert_in = checkpoint_name(
+        x_pad[buf_token[:-1]].reshape(n_experts, c, d), "moe_in")
 
     h1 = torch.bmm(expert_in, p["w1"])
     h3 = torch.bmm(expert_in, p["w3"])
     h = (F.silu(h1.float()) * h3.float()).to(x.dtype)
-    y = torch.bmm(h, p["w2"]).reshape(n_experts * c, d)
+    y = checkpoint_name(torch.bmm(h, p["w2"]).reshape(n_experts * c, d),
+                        "moe_out")
 
     # each token's k contributions, summed from zero in sorted order
     w = torch.where(keep, src_gate, torch.zeros_like(src_gate))[:, None]

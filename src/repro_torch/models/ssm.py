@@ -50,20 +50,22 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, dim: int = 1,
 def associative_scan(a: torch.Tensor, b: torch.Tensor, dim: int = 1
                      ) -> torch.Tensor:
     """``h_t = a_t h_{t-1} + b_t`` along ``dim`` (h_{-1} = 0), every
-    ``h_t`` returned, in ``ceil(log2 S)`` doubling passes over copies of
-    ``a`` and ``b``: pass k folds the pair k steps back into each step,
-    ``b_t += a_t b_{t-k}; a_t *= a_{t-k}``, the combine of JAX's
-    ``linear_scan`` (``(a1 a2, a2 b1 + b2)``).  The float32 sums are
-    taken in another tree than XLA's associative scan."""
-    a_t = a.movedim(dim, 1).clone()
-    b_t = b.movedim(dim, 1).clone()
+    ``h_t`` returned, in ``ceil(log2 S)`` doubling passes: pass k folds
+    the pair k steps back into each step, ``b_t += a_t b_{t-k}; a_t *=
+    a_{t-k}``, the combine of JAX's ``linear_scan`` (``(a1 a2, a2 b1 +
+    b2)``).  The float32 sums are taken in another tree than XLA's
+    associative scan.  Each pass builds new tensors (the untouched head
+    and the folded tail), never writing a tensor autograd saved, so the
+    scan trains; the numbers are those of the in-place passes."""
+    a_t = a.movedim(dim, 1)
+    b_t = b.movedim(dim, 1)
     s = a_t.shape[1]
     k = 1
     while k < s:
         fold = a_t[:, k:] * b_t[:, :-k]
         if 2 * k < s:
-            a_t[:, k:] = a_t[:, k:] * a_t[:, :-k]
-        b_t[:, k:] += fold
+            a_t = torch.cat([a_t[:, :k], a_t[:, k:] * a_t[:, :-k]], dim=1)
+        b_t = torch.cat([b_t[:, :k], b_t[:, k:] + fold], dim=1)
         del fold
         k *= 2
     return b_t.movedim(1, dim)

@@ -26,9 +26,11 @@ the scan in prefill and decode; a None field keeps a kernel's default.
 from __future__ import annotations
 
 import numbers
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -36,7 +38,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.layers import (ParamInit, Params, RopeTables,
                                        dtype_of, mlp, mlp_params, rmsnorm,
-                                       rope_tables)
+                                       rope_tables, softmax_xent)
+from repro_torch.tree import leaves
 
 
 SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
@@ -48,6 +51,75 @@ ATTENTION_FAMILIES = ("dense", "moe")
 MASKED_FAMILIES = ("dense", "moe", "ssm")
 # the vocabulary columns a bf16 head upcasts to float32 at a time
 HEAD_CHUNK = 16384
+# what a layer keeps for the backward pass (JAX ``_remat``): "full"
+# recomputes the layer, "dots" keeps the outputs of its plain (2-D)
+# matrix products, "moe" the tensors named ``moe_in`` and ``moe_out``
+# (:func:`~repro_torch.models.layers.checkpoint_name`), "none" keeps
+# everything
+REMAT_POLICIES = ("full", "dots", "none", "moe")
+
+
+class KernelGradError(RuntimeError):
+    """``backend="cuda"`` under autograd: the hand-written kernels have
+    no backward (in either package), so a launch would cut the attention
+    or the scan out of the graph and give wrong gradients.  Raised before
+    any launch; train on ``backend="plain"``, and take a ``"cuda"`` loss
+    (or serve weights that require grad, a trainer's) under
+    ``torch.no_grad()``."""
+
+
+def check_kernels_without_grad(params: Params, backend: str) -> None:
+    """Raise :class:`KernelGradError` when ``backend`` is ``"cuda"``,
+    grad is enabled and a parameter requires it."""
+    if (backend == "cuda" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in leaves(params))):
+        raise KernelGradError(
+            "backend='cuda' cannot run under autograd: the hand-written "
+            "kernels have no backward; use backend='plain' to train, or "
+            "torch.no_grad() for a forward-only loss")
+
+
+_MM_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _keep_dots(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep 2-D matrix products (JAX's
+    ``dots_with_no_batch_dims_saveable``), recompute the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in _MM_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _keep_named(ctx, op, *args, **kwargs):
+    """The "moe" policy: keep the ``checkpoint_name`` aliases."""
+    return (CheckpointPolicy.MUST_SAVE if op == torch.ops.aten.alias.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_SELECTIVE = {"dots": _keep_dots, "moe": _keep_named}
+
+
+def check_remat(remat: str) -> None:
+    """Raise for a policy not in :data:`REMAT_POLICIES`."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat must be one of {REMAT_POLICIES}, got "
+                         f"{remat!r}")
+
+
+def remat_call(fn: Callable, remat: str, x: torch.Tensor, lp: Params):
+    """``fn(x, lp)`` under the remat policy: through
+    ``torch.utils.checkpoint`` (non-reentrant) when autograd records it
+    (grad enabled and ``x`` or a leaf of ``lp`` requires grad), directly
+    otherwise (serving, ``no_grad``, ``"none"``).  A policy changes what
+    the backward pass keeps, never a number."""
+    if remat == "none" or not torch.is_grad_enabled() or not (
+            x.requires_grad or any(t.requires_grad for t in leaves(lp))):
+        return fn(x, lp)
+    policy = _SELECTIVE.get(remat)
+    if policy is None:
+        return checkpoint(fn, x, lp, use_reentrant=False)
+    return checkpoint(
+        fn, x, lp, use_reentrant=False,
+        context_fn=lambda: create_selective_checkpoint_contexts(policy))
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -125,6 +197,18 @@ def layer_params(stacked: Params, i: int) -> Params:
             for k, v in stacked.items()}
 
 
+def unstack_layers(stacked: Params) -> List[Params]:
+    """Views of every layer of a stacked ``[L, ...]`` tree, one
+    ``unbind`` per leaf: under autograd its backward is one stack of the
+    layers' gradients, where selecting one layer (:func:`layer_params`)
+    makes a zero tensor of the whole stacked leaf in the backward pass,
+    for every layer."""
+    parts = {k: (unstack_layers(v) if isinstance(v, dict) else v.unbind(0))
+             for k, v in stacked.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+
+
 def _ffn(h: torch.Tensor, lp: Params, cfg: ModelConfig
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """A layer's feed-forward half: the routed experts of a moe layer
@@ -193,13 +277,13 @@ def _hybrid_layers(params: Params, cfg: ModelConfig):
     hybrid model in order: each group's pattern, then the tail (tail
     weights are stacked ``[1, ...]``, as in JAX)."""
     n_groups, tail = hybrid_counts(cfg)
-    for g in range(n_groups):
-        gp = layer_params(params["groups"], g)
-        for i, kind in enumerate(cfg.block_pattern):
-            yield "groups", f"b{i}", g, kind, gp[f"b{i}"]
+    if n_groups:
+        for g, gp in enumerate(unstack_layers(params["groups"])):
+            for i, kind in enumerate(cfg.block_pattern):
+                yield "groups", f"b{i}", g, kind, gp[f"b{i}"]
     for i, kind in enumerate(tail):
         yield ("tail", f"b{i}", None, kind,
-               layer_params(params["tail"][f"b{i}"], 0))
+               unstack_layers(params["tail"][f"b{i}"])[0])
 
 
 def _window_cache(k: torch.Tensor, seq: int, win: int) -> torch.Tensor:
@@ -212,7 +296,8 @@ def _window_cache(k: torch.Tensor, seq: int, win: int) -> torch.Tensor:
 
 
 def _hybrid_forward(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
-                    backend: str, collect: bool, schedule=None
+                    backend: str, collect: bool, schedule=None,
+                    remat: str = "full"
                     ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """The hybrid layer stack on embedded ``x``; with ``collect`` also
     its decode caches (the RG-LRU states, and each attention layer's
@@ -226,11 +311,13 @@ def _hybrid_forward(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
     got: Dict[Tuple[str, str], list] = {}
     for where, blk, _, kind, lp in _hybrid_layers(params, cfg):
         if kind == "rglru":
-            x, st = _rglru_layer(x, lp, cfg)
+            x, st = remat_call(
+                lambda h, p: _rglru_layer(h, p, cfg), remat, x, lp)
         else:
-            x, k, v, _ = _attn_block(x, lp, cfg, rope, backend=backend,
-                                     starts=None, schedule=schedule,
-                                     window=window)
+            x, k, v, _ = remat_call(
+                lambda h, p: _attn_block(h, p, cfg, rope, backend=backend,
+                                         starts=None, schedule=schedule,
+                                         window=window), remat, x, lp)
             st = {"k": _window_cache(k, seq, win),
                   "v": _window_cache(v, seq, win)} if collect else None
         if collect:
@@ -287,7 +374,8 @@ def _head(params: Params, cfg: ModelConfig, x: torch.Tensor
 def forward(params: Params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor], *, backend: str = "plain",
             collect_kv: bool = False,
-            seq_starts: Optional[torch.Tensor] = None, schedules=None
+            seq_starts: Optional[torch.Tensor] = None, schedules=None,
+            remat: str = "full"
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Teacher-forced logits [B, S, V] (float32) and, with
     ``collect_kv``, the per-layer decode caches: for dense and moe the
@@ -301,19 +389,27 @@ def forward(params: Params, cfg: ModelConfig,
     keys are masked out of attention (ssm: pads are masked out of the
     recurrence, see :func:`repro_torch.models.ssm.mamba_block`; dense,
     moe and ssm only, as in JAX).  A hybrid model collects its caches
-    as ``extras["cache"]`` (see :func:`prefill`)."""
+    as ``extras["cache"]`` (see :func:`prefill`).
+
+    Under autograd each layer runs under the ``remat`` policy
+    (:func:`remat_call`); ``backend="cuda"`` raises
+    :class:`KernelGradError` there, before any launch."""
     _check_family(cfg)
     _check_starts(cfg, seq_starts)
+    check_remat(remat)
+    check_kernels_without_grad(params, backend)
     x = embed_inputs(params, cfg, batch)
     bsz, seq, _ = x.shape
     if cfg.family == "ssm":
         return _ssm_forward(params, cfg, x, backend=backend,
                             collect=collect_kv, seq_starts=seq_starts,
-                            schedule=_field(schedules, "ssm_scan"))
+                            schedule=_field(schedules, "ssm_scan"),
+                            remat=remat)
     fa_sched = _field(schedules, "flash_attention")
     if cfg.family == "hybrid":
         x, cache = _hybrid_forward(params, cfg, x, backend=backend,
-                                   collect=collect_kv, schedule=fa_sched)
+                                   collect=collect_kv, schedule=fa_sched,
+                                   remat=remat)
         return _head(params, cfg, x), ({"cache": cache} if collect_kv
                                        else {})
     if seq_starts is not None:
@@ -324,10 +420,11 @@ def forward(params: Params, cfg: ModelConfig,
         positions = torch.arange(seq, device=x.device)
     rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
     ks, vs, auxes = [], [], []
-    for i in range(cfg.n_layers):
-        x, k, v, aux = _attn_block(x, layer_params(params["layers"], i),
-                                   cfg, rope, backend=backend, starts=st,
-                                   schedule=fa_sched)
+    for lp in unstack_layers(params["layers"]):
+        x, k, v, aux = remat_call(
+            lambda h, p: _attn_block(h, p, cfg, rope, backend=backend,
+                                     starts=st, schedule=fa_sched),
+            remat, x, lp)
         if collect_kv:
             ks.append(k)
             vs.append(v)
@@ -348,7 +445,8 @@ def _field(schedules, kind: str):
 
 def _ssm_forward(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
                  backend: str, collect: bool,
-                 seq_starts: Optional[torch.Tensor], schedule=None
+                 seq_starts: Optional[torch.Tensor], schedule=None,
+                 remat: str = "full"
                  ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """The Mamba layer stack of :func:`forward` on embedded ``x``."""
     seq_valid = None
@@ -357,10 +455,11 @@ def _ssm_forward(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
         seq_valid = (torch.arange(x.shape[1], device=x.device)[None, :]
                      >= st[:, None])
     ssms, convs = [], []
-    for i in range(cfg.n_layers):
-        x, states = _mamba_block(x, layer_params(params["layers"], i), cfg,
-                                 backend=backend, seq_valid=seq_valid,
-                                 schedule=schedule)
+    for lp in unstack_layers(params["layers"]):
+        x, states = remat_call(
+            lambda h, p: _mamba_block(h, p, cfg, backend=backend,
+                                      seq_valid=seq_valid,
+                                      schedule=schedule), remat, x, lp)
         if collect:
             ssms.append(states["ssm"])
             convs.append(states["conv"])
@@ -387,6 +486,30 @@ def prefill(params: Params, cfg: ModelConfig,
         return logits, extras["cache"]
     return logits, {"layers": extras["state" if cfg.family == "ssm"
                                      else "kv"]}
+
+
+def loss_fn(params: Params, cfg: ModelConfig,
+            batch: Dict[str, torch.Tensor], *, backend: str = "plain",
+            remat: str = "full", schedules=None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, metrics) of a teacher-forced batch (JAX ``loss_fn``): the
+    masked cross-entropy with z-loss of ``batch["labels"]`` (a vlm
+    batch's labels cover its image tokens too), plus ``0.01 x`` the
+    layers' mean moe aux loss for the dense, moe and vlm families (0
+    without experts, as in JAX).  Metrics: ``xent``, ``tokens``,
+    ``moe_aux`` (those families), ``loss``."""
+    logits, extras = forward(params, cfg, batch, backend=backend,
+                             remat=remat, schedules=schedules)
+    loss, denom = softmax_xent(logits, batch["labels"])
+    metrics = {"xent": loss, "tokens": denom}
+    if cfg.family in ("dense", "moe", "vlm"):
+        aux = extras.get("aux")
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+        loss = loss + 0.01 * aux
+        metrics["moe_aux"] = aux
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def init_cache(cfg: ModelConfig, bsz: int, max_len: int,
@@ -574,7 +697,10 @@ def cache_window(cfg: ModelConfig, cache: Dict[str, Any]) -> Optional[int]:
 
 
 __all__ = ["SERVED_FAMILIES", "DECODER_FAMILIES", "ATTENTION_FAMILIES",
-           "MASKED_FAMILIES", "init_params", "hybrid_counts",
-           "layer_params", "embed_inputs", "forward", "prefill",
+           "MASKED_FAMILIES", "REMAT_POLICIES", "KernelGradError",
+           "check_kernels_without_grad", "remat_call",
+           "init_params", "hybrid_counts", "layer_params",
+           "unstack_layers", "embed_inputs", "forward", "loss_fn",
+           "prefill",
            "init_cache", "init_paged_cache", "decode_step",
            "cache_window"]

@@ -1,19 +1,21 @@
-"""Straggler detection for the serving engine (port of the
-``StragglerMonitor`` of ``repro.runtime.ft``).
+"""Fault tolerance: straggler detection and restartable execution (port
+of ``repro.runtime.ft``).
 
-The monitor keeps an EWMA of step time and flags outliers; its caller
-decides what to do about one (the session counts it and may hold
-admission for a few step boundaries).  It takes no hook, where the JAX
-monitor takes ``on_straggler``: the caller reads the event
+:class:`StragglerMonitor` keeps an EWMA of step time and flags outliers
+for the serving engine and the train loop; its caller decides what to do
+about one (the session counts it and may hold admission for a few step
+boundaries).  It takes no hook, where the JAX monitor takes
+``on_straggler``: the caller reads the event
 :meth:`StragglerMonitor.record` returns (a hook bound to the session
 would make the session cyclic garbage, freed by the collector at any
-time, possibly in the middle of a CUDA graph capture).  The JAX module's
-``run_with_restart`` belongs with training and is not ported yet.
+time, possibly in the middle of a CUDA graph capture).
+:func:`run_with_restart` is the launcher's retry loop around a training
+run that restores from its latest checkpoint.
 """
 from __future__ import annotations
 
 import logging
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 from repro_torch.obs.events import Event
 
@@ -72,4 +74,26 @@ class StragglerMonitor:
                             help="straggler-monitor snapshot")
 
 
-__all__ = ["StragglerMonitor"]
+def run_with_restart(make_state: Callable[[], Dict],
+                     run: Callable[[Dict], None],
+                     max_restarts: int = 3,
+                     retriable: tuple = (RuntimeError,)) -> int:
+    """Launcher-level retry loop: (re)build the state (which restores
+    from the latest checkpoint) and run it; on a ``retriable`` failure,
+    rebuild and go on, up to ``max_restarts`` times (then the failure
+    propagates).  Returns the number of restarts used."""
+    restarts = 0
+    while True:
+        state = make_state()
+        try:
+            run(state)
+            return restarts
+        except retriable as e:  # noqa: PERF203
+            restarts += 1
+            log.warning("run failed (%s); restart %d/%d", e, restarts,
+                        max_restarts)
+            if restarts > max_restarts:
+                raise
+
+
+__all__ = ["StragglerMonitor", "run_with_restart"]

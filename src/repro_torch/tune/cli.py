@@ -4,8 +4,8 @@ The JAX package's ``repro.tune`` commands over the port's registry
 (``$REPRO_TORCH_TUNE_REGISTRY``): ``warm`` fills it with Loki sweeps and
 H100 conv schedules, ``ecm`` runs the three-tier sweep, ``serve-report``
 and ``doctor`` read the measured-against-predicted ratio of every
-schedule record the port's dispatch service and ``serve_decode``
-write-back leave, ``merge``/``sync`` are the fleet union.  Only ``sync``
+schedule record the port's dispatch service and the ``serve_decode``
+and ``train_step`` write-backs leave, ``merge``/``sync`` are the fleet union.  Only ``sync``
 touches a device (the runtime fingerprint it stamps): on the card unless
 ``--device cpu``."""
 from __future__ import annotations
@@ -327,7 +327,7 @@ def cmd_serve_report(args) -> int:
                       "flash_attention_schedule",
                       "decode_attention_schedule", "ssm_scan_schedule",
                       "sparse_conv_schedule")
-    runtime_kinds = ("serve_decode",)
+    runtime_kinds = ("serve_decode", "train_step")
     rows = measured = 0
     print(f"{'kind':26s} {'problem':44s} {'predicted':>11s} "
           f"{'measured':>11s} {'ratio':>7s} src")
@@ -395,7 +395,7 @@ def cmd_doctor(args) -> int:
                       "flash_attention_schedule",
                       "decode_attention_schedule", "ssm_scan_schedule",
                       "sparse_conv_schedule")
-    runtime_kinds = ("serve_decode",)
+    runtime_kinds = ("serve_decode", "train_step")
     lo, hi = 1.0 / args.ratio, args.ratio
     rows = drifted = unmeasured = 0
     print(f"{'kind':26s} {'problem':44s} {'predicted':>11s} "

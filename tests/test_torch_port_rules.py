@@ -156,3 +156,50 @@ def test_cli_runs_on_cpu_when_asked(mode):
         assert "session: 4 requests" in out.stdout
     else:
         assert "generated (2, 4)" in out.stdout
+
+
+def test_training_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    """The trainer, the checkpoint restore and the training launchers
+    run on the card by default: with no card they raise before any work,
+    unless asked for the CPU."""
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.data import DataConfig
+    from repro_torch.launch import elastic_restart, train, train_lm
+    from repro_torch.runtime.train_loop import TrainConfig, Trainer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("phi3-mini-3.8b-smoke")
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=8, global_batch=2)
+    before = launch_counts()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(build_model(cfg), TrainConfig(steps=1), dcfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", cfg.name, "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_lm.main(["--small", "--ckpt-dir", str(tmp_path / "lm")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        elastic_restart.main([])
+    save(str(tmp_path / "ck"), {"x": torch.ones(2)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        restore(str(tmp_path / "ck"))
+    assert not (tmp_path / "lm").exists()
+    out = Trainer(build_model(cfg), TrainConfig(steps=1, device="cpu"),
+                  dcfg).run()
+    assert out["params"]["embed"].device.type == "cpu"
+    assert launch_counts() == before
+
+
+def test_training_launchers_run_on_cpu_when_asked(tmp_path, capsys):
+    """``launch/train_lm --small`` and ``launch/elastic_restart`` (the
+    counterparts of the JAX package's examples) on the CPU."""
+    from repro_torch.launch import elastic_restart, train_lm
+    out = train_lm.main(["--small", "--device", "cpu", "--ckpt-dir",
+                         str(tmp_path / "lm")])
+    text = capsys.readouterr().out
+    assert "arch=lm-100m params~" in text and "tok/s" in text
+    assert len(out["history"]) == 20 and out["tok_s"] > 0
+    # checkpoints every 50 steps, as the JAX example: none in 20
+    assert os.listdir(tmp_path / "lm") == []
+    res = elastic_restart.run("cpu")
+    assert res["phase2"]["history"][0]["step"] == 10
+    assert len(res["phase2"]["history"]) == 5 and res["shards_equal"]
+    assert "resumed at step 10 (expected 10)" in capsys.readouterr().out

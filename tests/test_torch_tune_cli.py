@@ -261,15 +261,23 @@ def test_serve_report_and_doctor_on_port_records(tmp_path, capsys):
 @pytest.mark.parametrize("command", ["serve-report", "doctor"])
 def test_report_rows_without_costs_equal_jax(tmp_path, capsys, command):
     """Rows whose record holds no predicted cost read the same in both
-    packages (the JAX package lists ``train_step`` too, the port does
-    not run training)."""
+    packages, the trainer's ``train_step`` measurement among them."""
     recs = port_records()
-    path = write(tmp_path / "r.jsonl", [recs["serve"], recs["only"]])
+    train = reg.TuningRecord(
+        reg.RegistryKey.make("train_step",
+                             {"arch": "phi3-mini-3.8b", "global_batch": 4,
+                              "seq_len": 512, "backend": "plain"},
+                             reg.runtime_fingerprint("cpu"), "measured"),
+        {"schedules": [{"type": "train_step", "arch": "phi3-mini-3.8b"}]},
+        {"best": {"type": "train_step", "arch": "phi3-mini-3.8b"},
+         "time_s": 0.3}, "adaptive")
+    path = write(tmp_path / "r.jsonl", [recs["serve"], recs["only"], train])
     _, out = run(cli.main, ["--registry", str(path), command], capsys)
     _, jout = run(jcli.main, ["--registry", str(path), command], capsys)
     assert out == jout
+    assert "train_step" in rows(out)
     assert [r[-1] for rs in rows(out).values() for r in rs] == \
-        (["unmeasured"] * 2 if command == "doctor" else ["adaptive"] * 2)
+        (["unmeasured"] * 3 if command == "doctor" else ["adaptive"] * 3)
 
 
 def test_doctor_reads_a_metrics_snapshot(tmp_path, capsys):
