@@ -225,6 +225,26 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
    8 x 256 tokens, checkpoints at 50 and 100 in a temporary directory,
    removed after): tokens/s, first and final loss; every training
    phase prints its seconds;
+7d. after the training phases: ``[chunked]`` the ``Trainer`` on full
+   phi3-mini-3.8b (bf16, ``[train]``'s optimizer and seed, 5 steps)
+   with ``backend="chunked"`` beside ``"plain"`` at ``[train]``'s 4 x
+   512 and at train_4k's 4096 tokens x 1: step ms (median of steps
+   2-4), peak allocated GiB, losses within :data:`CHUNKED_RTOL` of
+   plain's (a run out of memory is printed, not shrunk);
+   ``[roofline]`` the analytic terms of every config at the four
+   ``SHAPES`` on the H100's peaks (989e12 FLOP/s, 3.35e12 B/s; skipped
+   cells named); ``[mesh]`` a one-process NCCL group (``HashStore``)
+   and a (1, 1) ``(data, model)`` mesh: the meshed ``Trainer`` takes
+   ``[train]``'s 8 steps with DTensor parameters and moments (losses
+   within :data:`MESH_RTOL` of ``[train]``'s, step ms beside
+   ``[train]``'s), ``allreduce_compressed`` over the group against
+   ``compress_tree``'s round trip (:data:`ALLREDUCE_ATOL`), and
+   ``[mesh_family]`` six float32 smoke configs (every family) meshed
+   against unmeshed; the group is destroyed after;
+   ``[launch_serving]`` ``launch/serve_lm`` on full phi3-mini-3.8b
+   (batch 4, prompt 16, 24 new tokens), ``serve_session`` and
+   ``serve_adaptive`` at their smoke defaults, each to its summary
+   line;
 8. the thesis path (run after phase 3): conv2d, matmul and the
    block-sparse conv at the widths of thesis Table 4.1 (batch 1 and 32),
    the GEMM form of its 1x1 layers, phi3-mini's QKV projection and the
@@ -2426,6 +2446,10 @@ def run(torch, dev, timer, smi, records):
     # backward), the forward-only loss through the flash kernel
     summary["flash_attention"]["launches"] += train_phases(
         torch, dev, timer, smi)
+
+    # ---- the chunked attention backend, the analytic roofline, a
+    # meshed trainer on one card and the serving launchers
+    slice_phases(torch, dev, smi)
     return summary
 
 
@@ -4847,6 +4871,8 @@ TRAIN_EXACT_STEPS = 4
 # bytes a parameter's AdamW update must move at least: read p (bf16),
 # g (bf16), m and v (float32), write p, m and v
 ADAMW_BYTES_PER_BF16_PARAM = 2 + 2 + 4 + 4 + 2 + 4 + 4
+# [train]'s losses and median step seconds, for [mesh] to hold to
+TRAIN_CELL = {}
 
 
 def train_batch(cfg, step, rows=4, seq=32):
@@ -4926,6 +4952,7 @@ def train_full(torch, dev, timer, smi):
         fail(f"[train] {len(hist)} steps, loss {hist[0]['loss']} -> "
              f"{hist[-1]['loss']}: did not go down")
     step_s = sorted(h["dt"] for h in hist[2:])[len(hist[2:]) // 2]
+    TRAIN_CELL.update(losses=[h["loss"] for h in hist], step_s=step_s)
     init = model.init(seed=0, device=dev)
     still = [path for (path, a), b in zip(flatten_with_paths(params),
                                           leaves(init))
@@ -5214,6 +5241,314 @@ def train_lm_phase(torch, dev, smi):
         fail(f"[train_lm] {len(hist)} steps, loss {first} -> {final}")
     if ckpts != ["step_00000050", "step_00000100"]:
         fail(f"[train_lm] checkpoints {ckpts}")
+
+
+# ---------------------------------------------------------------------------
+# The chunked backend, the roofline, a meshed trainer, serving launchers
+# ---------------------------------------------------------------------------
+
+# (batch, seq): [train]'s cell, and train_4k's sequence at batch 1
+CHUNKED_SHAPES = ((TRAIN_BATCH, TRAIN_SEQ), (1, 4096))
+CHUNKED_STEPS = 5
+# chunked rounds each probability block to bf16 for P V (as JAX's
+# attention_chunked); the plain path keeps float32 probabilities
+CHUNKED_RTOL = 1e-2
+# a one-card mesh holds the same values as the unmeshed run; the CPU
+# test's tolerance for a meshed run against an unmeshed one (RUN_RTOL)
+MESH_RTOL = 1e-4
+# the compressed all-reduce over a group of one is the quantise /
+# dequantise round trip, to float32 rounding
+ALLREDUCE_ATOL = 1e-6
+MESH_FAMILY_ARCHS = ("minitron-4b", "qwen2-moe-a2.7b", "falcon-mamba-7b",
+                     "recurrentgemma-9b", "paligemma-3b",
+                     "whisper-large-v3")
+SERVE_LM_ARGS = ["--arch", PHI3, "--batch", "4", "--prompt-len", "16",
+                 "--new-tokens", "24"]
+
+
+def slice_phases(torch, dev, smi):
+    """``[chunked]``, ``[roofline]``, ``[mesh]`` and
+    ``[launch_serving]``, the card freed between them."""
+    free_card(torch)
+    chunked_phase(torch, dev, smi)
+    free_card(torch)
+    roofline_phase(smi)
+    mesh_phase(torch, dev, smi)
+    free_card(torch)
+    launch_serving_phase(torch, dev, smi)
+    free_card(torch)
+
+
+def _train_run(torch, dev, backend, batch, seq, steps, mesh=None):
+    """``Trainer`` on full phi3-mini-3.8b (the ``[train]`` cell's
+    optimizer, schedule and seed): (losses, median step seconds of steps
+    2 on, peak allocated GiB, the run's output)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import TrainConfig, Trainer
+
+    cfg = get_config(PHI3)
+    torch.cuda.reset_peak_memory_stats()
+    out = Trainer(build_model(cfg), TrainConfig(
+        steps=steps, log_every=100, opt=adamw.AdamWConfig(lr=TRAIN_LR),
+        warmup_steps=TRAIN_WARMUP, seed=0, device=dev, backend=backend),
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                   global_batch=batch, seed=0), mesh=mesh).run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    hist = out["history"]
+    step_s = sorted(h["dt"] for h in hist[2:])[len(hist[2:]) // 2]
+    return [h["loss"] for h in hist], step_s, peak, out
+
+
+def chunked_phase(torch, dev, smi):
+    """``[chunked]``: the trainer on full phi3 with ``backend="chunked"``
+    beside ``"plain"`` at the ``[train]`` cell and at 4096 x 1: step ms,
+    peak GiB, the largest loss difference.  A run out of memory is
+    printed as the finding; chunked must run and agree with plain
+    within :data:`CHUNKED_RTOL` wherever plain ran."""
+    for batch, seq in CHUNKED_SHAPES:
+        t0 = time.perf_counter()
+        got = {}
+        for backend in ("plain", "chunked"):
+            free_card(torch)
+            try:
+                losses, step_s, peak, out = _train_run(
+                    torch, dev, backend, batch, seq, CHUNKED_STEPS)
+                del out
+                got[backend] = (losses, step_s, peak)
+            except torch.OutOfMemoryError as e:
+                got[backend] = None
+                phase("chunked_oom", arch=PHI3, backend=backend,
+                      batch=batch, seq=seq, error=repr(str(e)[:160]))
+            free_card(torch)
+        if got["chunked"] is None:
+            fail(f"[chunked] backend='chunked' ran out of memory at "
+                 f"{batch} x {seq}")
+        fields = {}
+        for backend, res in got.items():
+            if res is None:
+                fields[f"{backend}_step_ms"] = "out of memory"
+                continue
+            losses, step_s, peak = res
+            if not all(math.isfinite(x) for x in losses):
+                fail(f"[chunked] {backend} losses {losses}")
+            fields[f"{backend}_step_ms"] = f"{1e3 * step_s:.1f}"
+            fields[f"{backend}_peak_gib"] = f"{peak:.2f}"
+            fields[f"{backend}_losses"] = json.dumps(
+                [round(x, 6) for x in losses])
+        diff = None
+        if got["plain"] is not None:
+            diff = max(abs(a - b) / abs(b) for a, b in
+                       zip(got["chunked"][0], got["plain"][0]))
+        phase("chunked", arch=PHI3, card=repr(smi), dtype="bfloat16",
+              batch=batch, seq=seq, steps=CHUNKED_STEPS,
+              step_ms_of="median of steps 2-4",
+              max_loss_rel_diff="plain out of memory" if diff is None
+              else f"{diff:.3e}", tol=f"rtol {CHUNKED_RTOL}", **fields,
+              seconds=f"{time.perf_counter() - t0:.1f}")
+        if diff is not None and not diff <= CHUNKED_RTOL:
+            fail(f"[chunked] {batch} x {seq}: chunked vs plain losses "
+                 f"differ by {diff}")
+
+
+def roofline_phase(smi):
+    """``[roofline]``: the analytic terms of every config at the four
+    ``SHAPES`` on the H100's peaks (arithmetic, the same on any
+    machine); the skipped cells named with their reason."""
+    from repro_torch.configs import REGISTRY, SHAPES, shape_applicable
+    from repro_torch.launch import roofline
+
+    if (roofline.PEAK_FLOPS, roofline.HBM_BW) != (989e12, 3.35e12):
+        fail(f"[roofline] peaks {roofline.PEAK_FLOPS} "
+             f"{roofline.HBM_BW} are not the H100's")
+    for arch in sorted(REGISTRY):
+        cfg = REGISTRY[arch]
+        for shape in SHAPES.values():
+            ok, why = shape_applicable(cfg, shape)
+            if not ok:
+                phase("roofline", arch=arch, shape=shape.name,
+                      skipped=repr(why))
+                continue
+            mf = roofline.model_flops(cfg, shape)
+            fc = roofline.flash_attention_cost(cfg, shape)
+            phase("roofline", arch=arch, shape=shape.name, card=repr(smi),
+                  active_params=roofline.active_params(cfg),
+                  model_flops=f"{mf:.4e}",
+                  model_flops_s=f"{mf / roofline.PEAK_FLOPS:.4e}",
+                  flash_flops=f"{fc['flops']:.4e}",
+                  flash_bytes=f"{fc['bytes']:.4e}",
+                  flash_compute_s=f"{fc['flops'] / roofline.PEAK_FLOPS:.4e}",
+                  flash_memory_s=f"{fc['bytes'] / roofline.HBM_BW:.4e}")
+
+
+def mesh_phase(torch, dev, smi):
+    """``[mesh]``: a one-process NCCL group (``HashStore``) and a
+    ``(1, 1)`` ``(data, model)`` mesh on the card; the meshed trainer
+    takes ``[train]``'s steps (its losses within :data:`MESH_RTOL` of
+    ``[train]``'s, every leaf a DTensor), and ``allreduce_compressed``
+    over the group equals ``compress_tree``'s round trip; then
+    ``[mesh_family]``: six float32 smoke configs (every family) 3 steps
+    meshed against unmeshed, within :data:`MESH_RTOL`; the group is
+    destroyed after."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.mesh import close_group, init_group, make_mesh
+    from repro_torch.optim import grad_compress
+    from repro_torch.tree import leaves
+
+    t0 = time.perf_counter()
+    init_group("nccl", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        losses, step_s, peak, out = _train_run(
+            torch, dev, "plain", TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS,
+            mesh=mesh)
+        plain_leaves = [p for p in leaves(out["params"])
+                        if not isinstance(p, DTensor)]
+        del out
+        free_card(torch)
+        want = TRAIN_CELL["losses"]
+        diff = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        grads = {"a": torch.randn(3072, 8192, generator=gen, device=dev,
+                                  dtype=torch.bfloat16),
+                 "b": torch.randn(32064, generator=gen, device=dev)}
+        err = {k: 1e-3 * torch.randn(v.shape, generator=gen, device=dev)
+               for k, v in grads.items()}
+        mean, new_err = grad_compress.allreduce_compressed(grads, err)
+        q, s, want_err = grad_compress.compress_tree(grads, err)
+        round_trip = grad_compress.decompress_tree(q, s)
+        ar = max(float((mean[k] - round_trip[k]).abs().max())
+                 for k in grads)
+        ae = max(float((new_err[k] - want_err[k]).abs().max())
+                 for k in grads)
+        del grads, err, mean, new_err, q, s, want_err, round_trip
+        free_card(torch)
+        families = {arch: mesh_family_losses(torch, dev, arch, mesh)
+                    for arch in MESH_FAMILY_ARCHS}
+    finally:
+        close_group()
+    phase("mesh", arch=PHI3, card=repr(smi), mesh="(1, 1) data x model",
+          backend="nccl", store="HashStore", world=1, batch=TRAIN_BATCH,
+          seq=TRAIN_SEQ, steps=len(losses),
+          losses=json.dumps([round(x, 6) for x in losses]),
+          train_losses=json.dumps([round(x, 6) for x in want]),
+          max_loss_rel_diff=f"{diff:.3e}", tol=f"rtol {MESH_RTOL}",
+          step_ms=f"{1e3 * step_s:.1f} (median of steps 2-7)",
+          train_step_ms=f"{1e3 * TRAIN_CELL['step_s']:.1f}",
+          peak_allocated_gib=f"{peak:.2f}",
+          allreduce_vs_round_trip=f"{ar:.3e}",
+          error_vs_round_trip=f"{ae:.3e}", atol=ALLREDUCE_ATOL,
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    for arch, (got, want) in families.items():
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        phase("mesh_family", arch=arch + "-smoke", dtype="float32",
+              mesh="(1, 1)", steps=len(got),
+              losses=json.dumps([round(x, 6) for x in got]),
+              unmeshed=json.dumps([round(x, 6) for x in want]),
+              max_loss_rel_diff=f"{rel:.3e}", tol=f"rtol {MESH_RTOL}")
+        if not rel <= MESH_RTOL:
+            fail(f"[mesh_family] {arch}-smoke meshed {got} vs {want}")
+    if plain_leaves:
+        fail(f"[mesh] {len(plain_leaves)} parameter leaves are not "
+             f"DTensors")
+    if not diff <= MESH_RTOL:
+        fail(f"[mesh] meshed losses {losses} vs [train]'s {want}")
+    if not (ar <= ALLREDUCE_ATOL and ae <= ALLREDUCE_ATOL):
+        fail(f"[mesh] allreduce_compressed vs the round trip: mean {ar}, "
+             f"error {ae}")
+
+
+def mesh_family_losses(torch, dev, arch, mesh):
+    """3 steps of ``arch``'s float32 smoke config (the ``[train_exact]``
+    batches, lr 1e-3) unmeshed and on ``mesh``: (meshed losses,
+    unmeshed losses).  Every family's DTensor path, the explicitly
+    redistributed layers (moe, RG-LRU, attention, the embedding)
+    included."""
+    import functools
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import identity_shard
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import constant
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime.train_loop import make_train_step
+    from repro_torch.tree import leaves
+
+    cfg = get_config(arch + "-smoke")
+    model = build_model(cfg)
+    rules = shd.ShardingRules()
+    batches = [train_batch(cfg, i) for i in range(3)]
+
+    def losses(on):
+        """The 3 losses, on ``mesh`` when ``on``."""
+        params = model.init(seed=0, device=dev)
+        shard_fn = identity_shard
+        if on:
+            params = shd.distribute_tree(params, shd.tree_specs(
+                model.axes_tree(), params, mesh, rules), mesh)
+            shard_fn = shd.make_activation_shard_fn(mesh, rules)
+        for p in leaves(params):
+            p.requires_grad_(True)
+        step = make_train_step(model, adamw.AdamWConfig(lr=1e-3),
+                               functools.partial(constant, peak_lr=1e-3),
+                               shard_fn=shard_fn)
+        opt = adamw.init(params)
+        out = []
+        for b in batches:
+            b = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+            if on:
+                specs = shd.batch_specs(b, mesh, rules)
+                b = {k: shd.distribute(v, specs[k], mesh)
+                     for k, v in b.items()}
+            params, opt, m = step(params, opt, b)
+            out.append(float(m["loss"]))
+        return out
+
+    return losses(True), losses(False)
+
+
+def launch_serving_phase(torch, dev, smi):
+    """``[launch_serving]``: ``launch/serve_lm`` on full phi3-mini-3.8b
+    (batch 4, prompt 16, 24 new tokens), ``launch/serve_session`` and
+    ``launch/serve_adaptive`` at their defaults (smoke configs), on the
+    card; each must return and print its summary line."""
+    import io
+    from repro_torch.launch import serve_adaptive, serve_lm, serve_session
+
+    runs = {"serve_lm": (serve_lm, SERVE_LM_ARGS, "generated (4, 24)"),
+            "serve_session": (serve_session, [], "requests / "),
+            "serve_adaptive": (serve_adaptive, [], "repeat call:")}
+    for name, (mod, argv, marker) in runs.items():
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = mod.main(argv)
+        text = buf.getvalue()
+        fields = {}
+        if name == "serve_lm":
+            toks, stats = res
+            fields = {"tokens": repr(toks.shape),
+                      "decode_tok_s": f"{stats.decode_tok_s:.1f}",
+                      "prefill_ms": f"{1e3 * stats.prefill_s:.1f}"}
+        elif name == "serve_session":
+            fields = {"requests": json.dumps(
+                [r["stats"]["requests"] for r in res]),
+                "decode_tok_s": json.dumps(
+                    [round(r["stats"]["decode_tok_s"], 1) for r in res])}
+        else:
+            fields = {"cache": json.dumps(res["cache"]),
+                      "report_kinds": json.dumps(sorted(
+                          e["kind"] for e in res["report"].values()))}
+        lines = [l for l in text.splitlines() if marker in l]
+        phase("launch_serving", launcher=name, card=repr(smi),
+              args=repr(" ".join(argv)), summary=repr(lines[:2]),
+              **fields, seconds=f"{time.perf_counter() - t0:.1f}")
+        if not lines:
+            fail(f"[launch_serving] {name} printed no {marker!r} line")
+        free_card(torch)
 
 
 def _leaves(tree):

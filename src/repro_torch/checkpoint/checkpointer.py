@@ -22,6 +22,16 @@ The async mode copies the leaves to the host in the caller's thread
 (the caller may update the tensors in place right after) and writes
 them in a background thread; ``wait()`` joins it before the next save
 or at shutdown.
+
+Mesh-elastic (JAX's gathered save): a DTensor leaf is gathered
+(``full_tensor()``, a collective every rank of its mesh joins) before it
+is written, so a meshed checkpoint is byte for byte the unsharded one of
+the same values, and only rank 0 writes it (the others wait for it in
+``wait()``, or at the end of :func:`save`).  :func:`restore` with a
+``like`` tree of DTensors places each leaf as its ``like`` leaf is
+placed, on whatever mesh the run restarts with: a tree saved on a
+(2, 2) mesh restores onto (4, 1) when ``like`` was placed there by the
+rules.
 """
 from __future__ import annotations
 
@@ -44,6 +54,8 @@ def _host(leaf: Any) -> Tuple[str, np.ndarray]:
     """(dtype name, a host copy of the leaf's bytes) of a tensor or
     array leaf; bfloat16 as its int16 bits."""
     if isinstance(leaf, torch.Tensor):
+        if _is_dtensor(leaf):
+            leaf = leaf.detach().full_tensor()
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return BF16, t.view(torch.int16).numpy()
@@ -54,9 +66,34 @@ def _host(leaf: Any) -> Tuple[str, np.ndarray]:
     return str(arr.dtype), arr
 
 
+def _is_dtensor(t: Any) -> bool:
+    """True for a DTensor."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
 def _snapshot(tree: Any) -> List[Tuple[str, str, np.ndarray]]:
-    """``(path, dtype name, host copy)`` of every leaf, taken now."""
+    """``(path, dtype name, host copy)`` of every leaf, taken now
+    (DTensor leaves gathered)."""
     return [(path, *_host(leaf)) for path, leaf in flatten_with_paths(tree)]
+
+
+def _meshed(tree: Any) -> bool:
+    """True when a leaf is a DTensor: the ranks share one write."""
+    return any(_is_dtensor(leaf) for _, leaf in flatten_with_paths(tree))
+
+
+def _writer() -> bool:
+    """True on the rank that writes a meshed checkpoint (rank 0)."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    """Wait for every rank of the default group (none: return)."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.barrier()
 
 
 def _write(path: str, flat: List[Tuple[str, str, np.ndarray]],
@@ -85,8 +122,14 @@ def _write(path: str, flat: List[Tuple[str, str, np.ndarray]],
 
 def save(path: str, tree: Any, extra: Optional[Dict] = None) -> None:
     """Synchronous atomic save of a tree of tensors or arrays (and
-    JSON-able ``extra`` metadata)."""
-    _write(path, _snapshot(tree), extra)
+    JSON-able ``extra`` metadata).  A tree with DTensor leaves is saved
+    gathered by rank 0, and every rank returns once it is written."""
+    meshed = _meshed(tree)
+    flat = _snapshot(tree)
+    if not meshed or _writer():
+        _write(path, flat, extra)
+    if meshed:
+        _barrier()
 
 
 def _tensor(raw: np.ndarray, entry: Dict[str, Any],
@@ -104,8 +147,9 @@ def restore(path: str, like: Optional[Any] = None,
     """(tree, extra) of a checkpoint, its leaves tensors on ``device``
     (the card unless ``device="cpu"``).  With ``like`` (a tree of
     tensors, arrays or anything with a ``shape``) the result has its
-    structure, each leaf checked against its shape; otherwise it is a
-    nested dict keyed by the stored paths."""
+    structure, each leaf checked against its shape, and a leaf whose
+    ``like`` is a DTensor placed as that one (on its mesh and device);
+    otherwise it is a nested dict keyed by the stored paths."""
     dev = resolve_device(device)
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -135,6 +179,10 @@ def restore(path: str, like: Optional[Any] = None,
         if tuple(t.shape) != want:
             raise ValueError(f"shape mismatch for {key}: "
                              f"{tuple(t.shape)} vs {want}")
+        if _is_dtensor(leaf):
+            from torch.distributed.tensor import distribute_tensor
+            return distribute_tensor(t.to(leaf.device), leaf.device_mesh,
+                                     leaf.placements)
         return t
 
     return map_with_paths(pick, like), manifest["extra"]
@@ -150,6 +198,7 @@ class Checkpointer:
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
+        self._shared = False      # the pending save was a meshed one
 
     def _step_dir(self, step: int) -> str:
         """The directory of ``step``."""
@@ -175,9 +224,16 @@ class Checkpointer:
              blocking: bool = True) -> None:
         """Save ``tree`` as ``step``: the host copy is taken here, in the
         caller's thread; with ``blocking=False`` the write runs in a
-        background thread (joined by the next save or :meth:`wait`)."""
+        background thread (joined by the next save or :meth:`wait`).  A
+        meshed tree is gathered on every rank and written by rank 0;
+        every rank calls this and :meth:`wait` alike."""
         self.wait()
+        self._shared = _meshed(tree)
         flat = _snapshot(tree)
+        if self._shared and not _writer():
+            if blocking:
+                self.wait()
+            return
 
         def _do():
             """Write, then drop steps beyond ``keep``."""
@@ -186,6 +242,7 @@ class Checkpointer:
 
         if blocking:
             _do()
+            self.wait()
         else:
             self._thread = threading.Thread(target=_do, daemon=True)
             self._thread.start()
@@ -202,10 +259,14 @@ class Checkpointer:
         return step, tree, extra
 
     def wait(self) -> None:
-        """Join the pending async write, if any."""
+        """Join the pending async write, if any; after a meshed save,
+        every rank waits here until rank 0 has written it."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._shared:
+            self._shared = False
+            _barrier()
 
     def _gc(self) -> None:
         """Remove all but the newest ``keep`` steps."""

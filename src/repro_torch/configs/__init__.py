@@ -7,7 +7,8 @@ from __future__ import annotations
 
 from typing import Dict, List
 
-from repro_torch.configs.base import ModelConfig, reduce_for_smoke
+from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig,
+                                      reduce_for_smoke, shape_applicable)
 from repro_torch.configs.falcon_mamba_7b import CONFIG as _falcon_mamba
 from repro_torch.configs.llama4_scout_17b_a16e import CONFIG as _llama4
 from repro_torch.configs.minitron_4b import CONFIG as _minitron
@@ -39,5 +40,6 @@ def list_archs() -> List[str]:
     return sorted(REGISTRY)
 
 
-__all__ = ["ModelConfig", "REGISTRY", "get_config", "list_archs",
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "REGISTRY",
+           "get_config", "list_archs", "shape_applicable",
            "reduce_for_smoke"]

@@ -1,12 +1,13 @@
-"""Model configuration: the port's own copy of ``repro.configs.base``.
-
-Only :class:`ModelConfig` and :func:`reduce_for_smoke` are copied; the
-shape cells of the dry-run tooling are not part of the serving path.
+"""Model configuration: the port's own copy of ``repro.configs.base``:
+:class:`ModelConfig`, :func:`reduce_for_smoke`, and the shape cells
+(:class:`ShapeConfig`, :data:`SHAPES`, :func:`shape_applicable`) that
+the analytic roofline (:mod:`repro_torch.launch.roofline`) and
+``Model.input_specs`` take.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +86,12 @@ class ModelConfig:
         """RG-LRU width: ``lru_width`` or ``d_model``."""
         return self.lru_width or self.d_model
 
+    @property
+    def subquadratic(self) -> bool:
+        """Eligible for long_500k: an SSM state or a bounded attention
+        window."""
+        return self.family in ("ssm", "hybrid")
+
     def param_count(self) -> int:
         """Approximate parameter count (embedding, layers, head), the
         JAX package's formula for every family: a hybrid layer counts as
@@ -113,6 +120,38 @@ class ModelConfig:
                                       + d * hd * self.n_heads
                                       + self.n_heads * hd * d)
         return total
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One (sequence, global batch) cell of a step kind."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        """True for a decode cell."""
+        return self.kind == "decode"
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(model: ModelConfig, shape: ShapeConfig
+                     ) -> Tuple[bool, str]:
+    """Whether an (arch x shape) cell runs, and the reason when it does
+    not (long_500k needs a sub-quadratic architecture)."""
+    if shape.name == "long_500k" and not model.subquadratic:
+        return False, ("full-attention arch: 500k dense-KV decode excluded "
+                       "per shape table (needs sub-quadratic attention)")
+    return True, ""
 
 
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
@@ -148,4 +187,5 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
     )
 
 
-__all__ = ["ModelConfig", "reduce_for_smoke"]
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "shape_applicable",
+           "reduce_for_smoke"]

@@ -12,7 +12,21 @@ kernel's defaults); the plain path has no launch to set.  The paged
 decode kernel honours its schedule, where the JAX package's paged kernel
 takes none.  ``cross_attention`` is the JAX ``"xla"`` path on both
 backends, as in JAX (no Pallas kernel attends over the encoder memory).
-The JAX ``chunked`` and ``stub`` backends are not ported yet.
+
+Two more backends reach :func:`attention` only, as in JAX: ``"chunked"``
+(:func:`attention_chunked`, an online softmax over KV chunks in plain
+torch loops, no kernel in either package) and ``"stub"`` (the
+roofline's calibration stand-in: the right shape and dtype, almost no
+work, never a model).  Every other layer, the decode attentions
+included, takes its plain path under these names, as the JAX layers take
+their ``"xla"`` path for any backend but ``"pallas"``.
+
+On a mesh (q, k, v DTensors) :func:`attention` runs on each rank's
+local shards: attention is independent per row and head, and DTensor
+has no strategy for the grouped product's flattening of a sharded head
+dimension.  So q, k and v are first redistributed explicitly to one
+placement that shards at most rows and heads (:func:`_local_placements`),
+and the result is a DTensor of that placement.
 """
 from __future__ import annotations
 
@@ -27,7 +41,7 @@ from repro_torch.kernels.flash_attention import flash_attention_scheduled
 from repro_torch.models.layers import (ParamInit, Params, RopeTables,
                                        apply_rope, dense, rmsnorm)
 
-BACKENDS = ("plain", "cuda")
+BACKENDS = ("plain", "cuda", "chunked", "stub")
 NEG = -1e30
 
 
@@ -44,6 +58,34 @@ def _softmax_pv(scores: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.matmul(probs, v.float())
 
 
+def _local_placements(q, k, v, starts) -> list:
+    """One placement for q, k and v under which attention is local: each
+    mesh dimension keeps q's ``Shard(0)`` (rows; not with ``starts``,
+    which index rows globally) or a ``Shard(1)`` (heads) that q, k and v
+    share; every other mesh dimension is replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for pq, pk, pv in zip(q.placements, k.placements, v.placements):
+        if pq == Shard(0) and starts is None:
+            out.append(Shard(0))
+        elif pq == pk == pv == Shard(1):
+            out.append(Shard(1))
+        else:
+            out.append(Replicate())
+    return out
+
+
+def _attention_local(q, k, v, **kw):
+    """:func:`attention` of DTensors q, k, v on their local shards (see
+    the module docstring)."""
+    from torch.distributed.tensor import DTensor
+    mesh = q.device_mesh
+    place = _local_placements(q, k, v, kw.get("starts"))
+    ql, kl, vl = (t.redistribute(mesh, place).to_local() for t in (q, k, v))
+    return DTensor.from_local(attention(ql, kl, vl, **kw), mesh, place,
+                              run_check=False)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               backend: str = "plain",
@@ -56,12 +98,25 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     left-padded row's first real token: keys below it are masked for
     every query.  Queries inside the pad prefix are fully masked and
     their outputs are garbage that the caller discards (with ``"cuda"``
-    they are zeros)."""
+    they are zeros).  DTensor inputs run on their local shards."""
     _check_backend(backend)
+    from torch.distributed.tensor import DTensor
+    if isinstance(q, DTensor):
+        return _attention_local(q, k, v, causal=causal, window=window,
+                                backend=backend, starts=starts,
+                                schedule=schedule)
     if backend == "cuda":
         return flash_attention_scheduled(
             q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
             window=window, starts=starts, schedule=schedule)
+    if backend == "chunked":
+        if starts is not None:
+            raise NotImplementedError(
+                "attention_chunked does not support per-row starts")
+        return attention_chunked(q, k, v, causal=causal, window=window)
+    if backend == "stub":
+        return (v.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+                + q * torch.zeros((), dtype=q.dtype, device=q.device))
     b, hq, s, d = q.shape
     hkv, s_kv = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -81,6 +136,61 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         scores = scores.masked_fill(~key_ok[:, None, None, None, :], NEG)
     out = _softmax_pv(scores, v[:, :, None])
     return out.reshape(b, hq, s, d).to(q.dtype)
+
+
+def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      *, causal: bool = True, window: Optional[int] = None,
+                      chunk_q: int = 512, chunk_kv: int = 1024
+                      ) -> torch.Tensor:
+    """Flash-style attention in plain torch (JAX ``attention_chunked``):
+    a loop over query chunks and, inside, over KV chunks carrying the
+    running ``(m, l, acc)`` statistics, so the largest intermediate is
+    one [CQ, CKV] score block per head, never [S, S].  ``chunk_q`` and
+    ``chunk_kv`` are halved until they divide S.  Scores and statistics
+    are float32; the probability block is rounded to bfloat16 for the
+    P V product (accumulated in float32, v in its own dtype), as JAX
+    does.  q [B,HQ,S,D], k/v
+    [B,HKV,S,D] -> [B,HQ,S,D] in q's dtype."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    group = hq // hkv
+    cq, ckv = min(chunk_q, s), min(chunk_kv, s)
+    while s % cq:
+        cq //= 2
+    while s % ckv:
+        ckv //= 2
+    scale = 1.0 / (d ** 0.5)
+    qg = q.reshape(b, hkv, group, s, d)
+    outs = []
+    for q0 in range(0, s, cq):
+        qc = qg[:, :, :, q0:q0 + cq].float() * scale
+        m = torch.full((b, hkv, group, cq, 1), NEG, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, hkv, group, cq, d), dtype=torch.float32,
+                          device=q.device)
+        qpos = torch.arange(q0, q0 + cq, device=q.device)[:, None]
+        for k0 in range(0, s, ckv):
+            kc = k[:, :, None, k0:k0 + ckv].float()
+            sblk = torch.matmul(qc, kc.transpose(-1, -2))
+            kpos = torch.arange(k0, k0 + ckv, device=q.device)[None, :]
+            ok = torch.ones((cq, ckv), dtype=torch.bool, device=q.device)
+            if causal:
+                ok &= kpos <= qpos
+            if window is not None:
+                ok &= kpos > qpos - window
+            sblk = torch.where(ok, sblk, torch.full_like(sblk, NEG))
+            m_new = torch.maximum(m, sblk.amax(dim=-1, keepdim=True))
+            p = torch.exp(sblk - m_new)
+            alpha = torch.exp(m - m_new)
+            l = alpha * l + p.sum(dim=-1, keepdim=True)
+            pv = torch.matmul(p.to(torch.bfloat16).float(),
+                              v[:, :, None, k0:k0 + ckv].float())
+            acc = acc * alpha + pv
+            m = m_new
+        l = torch.where(l == 0.0, torch.ones_like(l), l)
+        outs.append((acc / l).to(q.dtype))
+    return torch.cat(outs, dim=3).reshape(b, hq, s, d)
 
 
 def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -218,15 +328,41 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
 
 def attn_params(b: ParamInit, prefix: str, n_layers: int, d: int,
                 n_heads: int, n_kv: int, hd: int, qk_norm: bool) -> None:
-    """Stacked attention weights under ``prefix`` (same paths as JAX)."""
-    b.normal(f"{prefix}/wq", [n_layers, d, n_heads * hd], fan_in=d)
-    b.normal(f"{prefix}/wk", [n_layers, d, n_kv * hd], fan_in=d)
-    b.normal(f"{prefix}/wv", [n_layers, d, n_kv * hd], fan_in=d)
+    """Stacked attention weights under ``prefix`` (same paths and
+    logical axes as JAX)."""
+    b.normal(f"{prefix}/wq", [n_layers, d, n_heads * hd],
+             ("layers", "embed", "heads"), fan_in=d)
+    b.normal(f"{prefix}/wk", [n_layers, d, n_kv * hd],
+             ("layers", "embed", "kv_heads"), fan_in=d)
+    b.normal(f"{prefix}/wv", [n_layers, d, n_kv * hd],
+             ("layers", "embed", "kv_heads"), fan_in=d)
     b.normal(f"{prefix}/wo", [n_layers, n_heads * hd, d],
-             fan_in=n_heads * hd)
+             ("layers", "heads", "embed"), fan_in=n_heads * hd)
     if qk_norm:
-        b.zeros(f"{prefix}/q_norm", [n_layers, hd])
-        b.zeros(f"{prefix}/k_norm", [n_layers, hd])
+        b.zeros(f"{prefix}/q_norm", [n_layers, hd], ("layers", None))
+        b.zeros(f"{prefix}/k_norm", [n_layers, hd], ("layers", None))
+
+
+def heads_divide(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``t`` [..., n * hd], a DTensor whose last dimension is split over
+    more shards than ``n`` heads divide (the rules shard ``n * hd``
+    whenever it divides, e.g. 8 KV heads of 128 on 16 devices), with
+    that dimension replicated: the split into heads needs whole heads on
+    each shard.  Other tensors pass."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(t, DTensor):
+        return t
+    last = t.ndim - 1
+    dims = [i for i, pl in enumerate(t.placements)
+            if pl.is_shard() and pl.dim in (last, -1)]
+    ways = 1
+    for i in dims:
+        ways *= t.device_mesh.size(i)
+    if n % ways == 0:
+        return t
+    place = [Replicate() if i in dims else pl
+             for i, pl in enumerate(t.placements)]
+    return t.redistribute(t.device_mesh, place)
 
 
 def qkv_project(x: torch.Tensor, p: Params, *, n_heads: int, n_kv: int,
@@ -236,11 +372,16 @@ def qkv_project(x: torch.Tensor, p: Params, *, n_heads: int, n_kv: int,
     """x [B,S,D] -> q [B,HQ,S,hd], k/v [B,HKV,S,hd] (contiguous); ``rope``
     holds the step's :func:`~repro_torch.models.layers.rope_tables`
     (unused, and may be None, with ``use_rope=False``: the whisper
-    encoder has no rotary positions)."""
+    encoder has no rotary positions).  On a mesh a projection split
+    over more shards than its heads divide is replicated over them
+    before the split into heads (:func:`heads_divide`)."""
     b_, s, _ = x.shape
-    q = dense(x, p["wq"]).reshape(b_, s, n_heads, hd).transpose(1, 2)
-    k = dense(x, p["wk"]).reshape(b_, s, n_kv, hd).transpose(1, 2)
-    v = dense(x, p["wv"]).reshape(b_, s, n_kv, hd).transpose(1, 2)
+    q = heads_divide(dense(x, p["wq"]), n_heads).reshape(
+        b_, s, n_heads, hd).transpose(1, 2)
+    k = heads_divide(dense(x, p["wk"]), n_kv).reshape(
+        b_, s, n_kv, hd).transpose(1, 2)
+    v = heads_divide(dense(x, p["wv"]), n_kv).reshape(
+        b_, s, n_kv, hd).transpose(1, 2)
     if qk_norm:
         q = rmsnorm(q, p["q_norm"], norm_eps)
         k = rmsnorm(k, p["k_norm"], norm_eps)
@@ -274,7 +415,8 @@ def update_kv_cache(cache_k: torch.Tensor, cache_v: torch.Tensor,
     return cache_k, cache_v
 
 
-__all__ = ["BACKENDS", "attention", "cross_attention",
+__all__ = ["BACKENDS", "attention", "attention_chunked", "cross_attention",
+           "heads_divide",
            "mean_rows_before_start",
            "decode_attention", "paged_slots",
            "paged_update_kv",

@@ -24,16 +24,17 @@ same either way.)
 from __future__ import annotations
 
 import numbers
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (ParamInit, Params, RopeTables, dense,
-                                       dtype_of, mlp, mlp_params, rmsnorm,
-                                       rope_tables, sinusoidal_positions,
-                                       softmax_xent)
+                                       dtype_of, embed_lookup,
+                                       identity_shard, mlp,
+                                       mlp_params, rmsnorm, rope_tables,
+                                       sinusoidal_positions, softmax_xent)
 from repro_torch.models.transformer import (_head, _field,
                                             check_kernels_without_grad,
                                             check_remat, layer_params,
@@ -47,51 +48,55 @@ def _check(cfg: ModelConfig) -> None:
                          f"{cfg.family!r}")
 
 
-def init_params(cfg: ModelConfig, seed: int, device: torch.device
-                ) -> Params:
+def init_params(cfg: ModelConfig, seed: int, device: torch.device, *,
+                with_axes: bool = False):
     """Random parameters with the JAX tree's paths, shapes and std rule
     (``embed``, the ``encoder`` and ``decoder`` stacks, ``final_norm``
-    and an untied ``lm_head``), drawn on ``device`` from ``seed``."""
+    and an untied ``lm_head``), drawn on ``device`` from ``seed``; with
+    ``with_axes``, (params, the logical-axes tree)."""
     _check(cfg)
     b = ParamInit(seed, dtype_of(cfg.dtype), device)
     d, hd = cfg.d_model, cfg.resolved_head_dim
     ne, nd = cfg.encoder_layers, cfg.n_layers
-    b.normal("embed", [cfg.vocab_size, d], fan_in=d, scale=float(d) ** 0.5)
-    b.zeros("encoder/ln1", [ne, d])
+    b.normal("embed", [cfg.vocab_size, d], ("vocab", "embed"), fan_in=d,
+             scale=float(d) ** 0.5)
+    b.zeros("encoder/ln1", [ne, d], ("layers", "embed"))
     attn.attn_params(b, "encoder/attn", ne, d, cfg.n_heads, cfg.n_kv_heads,
                      hd, False)
-    b.zeros("encoder/ln2", [ne, d])
+    b.zeros("encoder/ln2", [ne, d], ("layers", "embed"))
     mlp_params(b, "encoder/mlp", ne, d, cfg.d_ff, cfg.mlp_type)
-    b.zeros("encoder/final_norm", [d])
-    b.zeros("decoder/ln1", [nd, d])
+    b.zeros("encoder/final_norm", [d], ("embed",))
+    b.zeros("decoder/ln1", [nd, d], ("layers", "embed"))
     attn.attn_params(b, "decoder/self", nd, d, cfg.n_heads, cfg.n_kv_heads,
                      hd, False)
-    b.zeros("decoder/lnx", [nd, d])
+    b.zeros("decoder/lnx", [nd, d], ("layers", "embed"))
     attn.attn_params(b, "decoder/cross", nd, d, cfg.n_heads,
                      cfg.n_kv_heads, hd, False)
-    b.zeros("decoder/ln2", [nd, d])
+    b.zeros("decoder/ln2", [nd, d], ("layers", "embed"))
     mlp_params(b, "decoder/mlp", nd, d, cfg.d_ff, cfg.mlp_type)
-    b.zeros("final_norm", [d])
-    b.normal("lm_head", [d, cfg.vocab_size], fan_in=d)
-    return b.params
+    b.zeros("final_norm", [d], ("embed",))
+    b.normal("lm_head", [d, cfg.vocab_size], ("embed", "vocab"), fan_in=d)
+    return (b.params, b.axes) if with_axes else b.params
 
 
 def _encoder_layer(x: torch.Tensor, lp: Params, cfg: ModelConfig,
-                   backend: str) -> torch.Tensor:
+                   backend: str, shard_fn: Callable = identity_shard
+                   ) -> torch.Tensor:
     """One bidirectional encoder layer (pre-norm attention and MLP, both
-    residual)."""
+    residual, each placed by ``shard_fn``)."""
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = attn.qkv_project(
         h, lp["attn"], n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
         hd=cfg.resolved_head_dim, rope=None, qk_norm=False, use_rope=False)
     ctx = attn.attention(q, k, v, causal=False, backend=backend)
-    x = x + attn.attn_out(ctx, lp["attn"])
+    x = shard_fn(x + attn.attn_out(ctx, lp["attn"]))
     h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp(h, lp["mlp"], cfg.mlp_type)
+    return shard_fn(x + mlp(h, lp["mlp"], cfg.mlp_type))
 
 
 def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor, *,
-           backend: str = "plain", remat: str = "full") -> torch.Tensor:
+           backend: str = "plain", remat: str = "full",
+           shard_fn: Callable = identity_shard) -> torch.Tensor:
     """frames [B, S_enc, D] (the stub frontend's output) -> the encoder
     output [B, S_enc, D]: sinusoidal positions added in float32, then
     the bidirectional layers (each under the ``remat`` policy when
@@ -99,12 +104,12 @@ def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor, *,
     emb = params["embed"]
     frames = frames.to(device=emb.device, dtype=emb.dtype)
     pos = sinusoidal_positions(frames.shape[1], cfg.d_model, emb.device)
-    x = (frames.float() + pos).to(frames.dtype)
+    x = shard_fn((frames.float() + pos).to(frames.dtype))
     stacked = {k: v for k, v in params["encoder"].items()
                if k != "final_norm"}
     for lp in unstack_layers(stacked):
-        x = remat_call(lambda h, p: _encoder_layer(h, p, cfg, backend),
-                       remat, x, lp)
+        x = remat_call(lambda h, p: _encoder_layer(h, p, cfg, backend,
+                                                   shard_fn), remat, x, lp)
     return rmsnorm(x, params["encoder"]["final_norm"], cfg.norm_eps)
 
 
@@ -114,9 +119,11 @@ def _cross_kv(lp_cross: Params, cfg: ModelConfig, enc_out: torch.Tensor
     [B, HKV, S_enc, hd] each."""
     hd = cfg.resolved_head_dim
     bsz, s, _ = enc_out.shape
-    k = dense(enc_out, lp_cross["wk"]).reshape(
+    k = attn.heads_divide(dense(enc_out, lp_cross["wk"]),
+                          cfg.n_kv_heads).reshape(
         bsz, s, cfg.n_kv_heads, hd).transpose(1, 2)
-    v = dense(enc_out, lp_cross["wv"]).reshape(
+    v = attn.heads_divide(dense(enc_out, lp_cross["wv"]),
+                          cfg.n_kv_heads).reshape(
         bsz, s, cfg.n_kv_heads, hd).transpose(1, 2)
     return {"k": k.contiguous(), "v": v.contiguous()}
 
@@ -125,7 +132,8 @@ def _decoder_body(x: torch.Tensor, lp: Params, cfg: ModelConfig,
                   enc_kv: Dict[str, torch.Tensor], rope: RopeTables, *,
                   backend: str,
                   self_cache: Optional[Dict[str, torch.Tensor]] = None,
-                  pos: Optional[torch.Tensor] = None, schedule=None
+                  pos: Optional[torch.Tensor] = None, schedule=None,
+                  shard_fn: Callable = identity_shard
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decoder layer: causal self-attention (over the prompt, or one
     token against ``self_cache``, updated in place at ``pos``), the
@@ -145,20 +153,22 @@ def _decoder_body(x: torch.Tensor, lp: Params, cfg: ModelConfig,
         ctx = attn.decode_attention(q, ck, cv, pos, backend=backend,
                                     schedule=schedule)
         kv = {"k": ck, "v": cv}
-    x = x + attn.attn_out(ctx, lp["self"])
+    x = shard_fn(x + attn.attn_out(ctx, lp["self"]))
     h = rmsnorm(x, lp["lnx"], cfg.norm_eps)
     bsz, s, _ = h.shape
-    qx = dense(h, lp["cross"]["wq"]).reshape(
+    qx = attn.heads_divide(dense(h, lp["cross"]["wq"]),
+                           cfg.n_heads).reshape(
         bsz, s, cfg.n_heads, hd).transpose(1, 2)
     ctx = attn.cross_attention(qx, enc_kv["k"], enc_kv["v"])
-    x = x + attn.attn_out(ctx, lp["cross"])
+    x = shard_fn(x + attn.attn_out(ctx, lp["cross"]))
     h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp(h, lp["mlp"], cfg.mlp_type), kv
+    return shard_fn(x + mlp(h, lp["mlp"], cfg.mlp_type)), kv
 
 
 def forward(params: Params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor], *, backend: str = "plain",
-            collect_kv: bool = False, remat: str = "full"
+            collect_kv: bool = False, remat: str = "full",
+            shard_fn: Callable = identity_shard
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Teacher-forced decoder logits [B, S_dec, V] (float32) of
     ``batch["tokens"]`` [B, S_dec] over ``batch["frames"]``; with
@@ -172,9 +182,9 @@ def forward(params: Params, cfg: ModelConfig,
     check_remat(remat)
     check_kernels_without_grad(params, backend)
     enc_out = encode(params, cfg, batch["frames"], backend=backend,
-                     remat=remat)
+                     remat=remat, shard_fn=shard_fn)
     emb = params["embed"]
-    x = emb[batch["tokens"].to(emb.device).long()]
+    x = shard_fn(embed_lookup(emb, batch["tokens"]))
     rope = rope_tables(torch.arange(x.shape[1], device=x.device),
                        cfg.resolved_head_dim, cfg.rope_theta)
     ys: Dict[str, list] = {"k": [], "v": [], "xk": [], "xv": []}
@@ -182,7 +192,8 @@ def forward(params: Params, cfg: ModelConfig,
     def layer(h, lp):
         """One decoder layer with its cross K/V."""
         kv_x = _cross_kv(lp["cross"], cfg, enc_out)
-        h, kv = _decoder_body(h, lp, cfg, kv_x, rope, backend=backend)
+        h, kv = _decoder_body(h, lp, cfg, kv_x, rope, backend=backend,
+                              shard_fn=shard_fn)
         return h, kv, kv_x
 
     for lp in unstack_layers(params["decoder"]):
@@ -199,12 +210,13 @@ def forward(params: Params, cfg: ModelConfig,
 
 def loss_fn(params: Params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor], *, backend: str = "plain",
-            remat: str = "full"
+            remat: str = "full", shard_fn: Callable = identity_shard
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, metrics) of a teacher-forced batch (JAX ``encdec.loss_fn``):
     the masked cross-entropy with z-loss of ``batch["labels"]``; metrics
     ``xent``, ``tokens``, ``loss``."""
-    logits, _ = forward(params, cfg, batch, backend=backend, remat=remat)
+    logits, _ = forward(params, cfg, batch, backend=backend, remat=remat,
+                        shard_fn=shard_fn)
     loss, denom = softmax_xent(logits, batch["labels"])
     return loss, {"xent": loss, "tokens": denom, "loss": loss}
 
@@ -227,12 +239,13 @@ def init_cache(cfg: ModelConfig, bsz: int, max_len: int,
 
 
 def prefill(params: Params, cfg: ModelConfig,
-            batch: Dict[str, torch.Tensor], *, backend: str = "plain"
+            batch: Dict[str, torch.Tensor], *, backend: str = "plain",
+            shard_fn: Callable = identity_shard
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Encode the frames and run the whole prompt: (logits [B,S,V],
     ``{"self": the prompt's K/V, "cross": the encoder's K/V}``)."""
     logits, extras = forward(params, cfg, batch, backend=backend,
-                             collect_kv=True)
+                             collect_kv=True, shard_fn=shard_fn)
     kv = extras["kv"]
     return logits, {"self": {"k": kv["k"], "v": kv["v"]},
                     "cross": {"k": kv["xk"], "v": kv["xv"]}}
@@ -240,7 +253,8 @@ def prefill(params: Params, cfg: ModelConfig,
 
 def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Any],
                 tokens: torch.Tensor, pos, *, backend: str = "plain",
-                schedules=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                schedules=None, shard_fn: Callable = identity_shard
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode token per row against the ``self`` and ``cross``
     caches (the encoder already ran): tokens [B, 1]; ``pos`` an int or a
     one-element integer tensor, read on the device only.  Writes the
@@ -248,7 +262,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Any],
     float32, the same cache)."""
     _check(cfg)
     dev = params["embed"].device
-    x = params["embed"][tokens.to(dev).long()]
+    x = embed_lookup(params["embed"], tokens)
     pos = (torch.full((), int(pos), dtype=torch.int64, device=dev)
            if isinstance(pos, numbers.Integral) else
            pos.to(device=dev, dtype=torch.int64).reshape(()))
@@ -260,7 +274,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Any],
         xc = {n: t[i] for n, t in cache["cross"].items()}
         x, _ = _decoder_body(x, layer_params(params["decoder"], i), cfg,
                              xc, rope, backend=backend, self_cache=sc,
-                             pos=pos, schedule=sched)
+                             pos=pos, schedule=sched, shard_fn=shard_fn)
     return _head(params, cfg, x), cache
 
 

@@ -9,12 +9,14 @@ time and both packages compute with the same weights.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 Params = Dict[str, Any]
+# one logical axis name (or None) per dimension of a parameter
+Axes = Tuple[Optional[str], ...]
 
 # The most elements :meth:`ParamInit.normal` draws as one float32
 # tensor: 2**32, the largest tensor of phi3-mini-3.8b and falcon-mamba-7b
@@ -27,34 +29,66 @@ WHOLE_DRAW_LIMIT = 2 ** 32
 class ParamInit:
     """Creates parameters under ``/``-separated paths with the JAX
     package's init std rule: ``scale / sqrt(fan_in)``, where ``fan_in``
-    defaults to ``shape[-2]`` (or ``shape[-1]`` for vectors).
+    defaults to ``shape[-2]`` (or ``shape[-1]`` for vectors), and beside
+    each one its tuple of logical axis names (``"embed"``, ``"heads"``,
+    ``None``, ... one a dimension) in the parallel tree ``axes``, as the
+    JAX ``ParamBuilder`` does; :mod:`repro_torch.runtime.sharding` maps
+    them to mesh axes.
 
     Each tensor is drawn on ``device`` from one seeded
     ``torch.Generator`` and cast to ``dtype`` on its own, so a
     full-size model never needs a float32 copy of all its weights.  The
     numbers differ from ``jax.random``'s: tests that need the JAX
     weights load them through :func:`repro_torch.bridge.params_from_numpy`.
+
+    On ``torch.device("meta")`` nothing is drawn (a generator has no meta
+    device): every parameter is a storage-less meta tensor of its shape
+    and dtype, which is how ``Model.abstract_params`` and
+    ``Model.axes_tree`` build their trees without touching what a real
+    init draws.
     """
 
     def __init__(self, seed: int, dtype: torch.dtype,
                  device: torch.device):
-        """Seed one generator on ``device``; tensors come out as ``dtype``."""
-        self.gen = torch.Generator(device=device)
-        self.gen.manual_seed(int(seed))
+        """Seed one generator on ``device`` (none on the meta device);
+        tensors come out as ``dtype``."""
+        self.meta = torch.device(device).type == "meta"
+        self.gen = None
+        if not self.meta:
+            self.gen = torch.Generator(device=device)
+            self.gen.manual_seed(int(seed))
         self.dtype = dtype
         self.device = device
         self.params: Params = {}
+        self.axes: Params = {}
 
-    def _put(self, path: str, value: torch.Tensor) -> None:
-        """Store ``value`` at ``path`` in the nested dict."""
+    @staticmethod
+    def _set(tree: Params, path: str, value: Any) -> None:
+        """Store ``value`` at ``path`` in the nested dict ``tree``."""
         keys = path.split("/")
-        node = self.params
+        node = tree
         for k in keys[:-1]:
             node = node.setdefault(k, {})
         node[keys[-1]] = value
 
+    def _put(self, path: str, value: torch.Tensor,
+             axes: Optional[Axes]) -> None:
+        """Store ``value`` and its axes (all ``None`` when not given)."""
+        if axes is None:
+            axes = (None,) * value.dim()
+        if len(axes) != value.dim():
+            raise ValueError(f"{path}: axes {axes} for shape "
+                             f"{tuple(value.shape)}")
+        self._set(self.params, path, value)
+        self._set(self.axes, path, tuple(axes))
+
+    def _empty(self, shape: Sequence[int]) -> torch.Tensor:
+        """A storage-less tensor on the meta device."""
+        return torch.empty(tuple(shape), dtype=self.dtype, device="meta")
+
     def normal(self, path: str, shape: Sequence[int],
-               fan_in: Optional[int] = None, scale: float = 1.0) -> None:
+               axes: Optional[Axes] = None, fan_in: Optional[int] = None,
+               scale: float = 1.0) -> None:
         """Normal weights with std ``scale / sqrt(fan_in)``.  A tensor of
         more than :data:`WHOLE_DRAW_LIMIT` elements is drawn one slice of
         its leading (layer) axis at a time into its ``dtype`` result, so
@@ -63,10 +97,13 @@ class ParamInit:
         std = scale / math.sqrt(fan_in if fan_in else shape[-2]
                                 if len(shape) >= 2 else shape[-1])
         shape = tuple(shape)
+        if self.meta:
+            self._put(path, self._empty(shape), axes)
+            return
         if math.prod(shape) <= WHOLE_DRAW_LIMIT:
             v = torch.randn(shape, generator=self.gen, device=self.device,
                             dtype=torch.float32)
-            self._put(path, v.mul_(std).to(self.dtype))
+            self._put(path, v.mul_(std).to(self.dtype), axes)
             return
         out = torch.empty(shape, dtype=self.dtype, device=self.device)
         for i in range(shape[0]):
@@ -74,23 +111,96 @@ class ParamInit:
                             device=self.device, dtype=torch.float32)
             out[i].copy_(v.mul_(std))
             del v
-        self._put(path, out)
+        self._put(path, out, axes)
 
-    def zeros(self, path: str, shape: Sequence[int]) -> None:
+    def zeros(self, path: str, shape: Sequence[int],
+              axes: Optional[Axes] = None) -> None:
         """Zero-initialised parameters (norm gains are ``1 + w``)."""
         self._put(path, torch.zeros(tuple(shape), dtype=self.dtype,
-                                    device=self.device))
+                                    device=self.device), axes)
 
-    def ones(self, path: str, shape: Sequence[int]) -> None:
+    def ones(self, path: str, shape: Sequence[int],
+             axes: Optional[Axes] = None) -> None:
         """Parameters initialised to one (the Mamba skip gain ``D``)."""
         self._put(path, torch.ones(tuple(shape), dtype=self.dtype,
-                                   device=self.device))
+                                   device=self.device), axes)
 
-    def const(self, path: str, value: torch.Tensor) -> None:
+    def const(self, path: str, value: torch.Tensor,
+              axes: Optional[Axes] = None) -> None:
         """A given value cast to the model dtype, as the JAX
         initialiser's ``const`` does (a bf16 model stores ``A_log``
         rounded to bf16)."""
-        self._put(path, value.to(device=self.device, dtype=self.dtype))
+        self._put(path, value.to(device=self.device, dtype=self.dtype),
+                  axes)
+
+
+def embed_lookup(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows ``tokens`` of the embedding table ``emb`` [V, D]: the
+    token's row.  On a mesh (``emb`` a DTensor) the gather and its
+    backward (an indexed accumulate) have no dependable DTensor sharding
+    strategy, so they are redistributed explicitly: the table and the
+    tokens are gathered whole on every rank, every rank looks up every
+    row on plain tensors, and the result is placed with the tokens'
+    rows (the backward sums the ranks' gradients into the table's
+    placements)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(emb, DTensor):
+        return emb[tokens.to(emb.device).long()]
+    mesh = emb.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    tok = tokens.full_tensor() if isinstance(tokens, DTensor) else tokens
+    table = emb.redistribute(mesh, rep).to_local()
+    out = DTensor.from_local(table[tok.to(table.device).long()], mesh, rep,
+                             run_check=False)
+    if isinstance(tokens, DTensor):
+        out = out.redistribute(mesh, [pl if pl == Shard(0) else Replicate()
+                                      for pl in tokens.placements])
+    return out
+
+
+def on_replicated(fn: Callable, x: torch.Tensor, p: Params, **kw) -> Any:
+    """``fn(x, p, **kw)`` -> (out, *rest) for a DTensor ``x``, run on
+    plain tensors: ``x``, the weights ``p`` and the tensors of ``kw``
+    (and of their dicts) gathered replicated on every rank, ``fn`` run
+    there (the same on every rank, so their gradients are replicated
+    too), each tensor of the result made a replicated DTensor again and
+    ``out`` redistributed to ``x``'s placements (the backward sums the
+    ranks' output gradients).  The explicit redistribution of a layer
+    whose ops have no dependable DTensor sharding strategy."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = x.device_mesh
+    rep = [Replicate()] * mesh.ndim
+
+    def local(t):
+        """A DTensor (or a dict of them) replicated, as plain tensors."""
+        if isinstance(t, dict):
+            return {k: local(v) for k, v in t.items()}
+        if isinstance(t, DTensor):
+            return t.redistribute(mesh, rep).to_local()
+        return t
+
+    def wrap(t):
+        """A plain tensor (or a dict of them) as replicated DTensors."""
+        if isinstance(t, dict):
+            return {k: wrap(v) for k, v in t.items()}
+        if isinstance(t, torch.Tensor):
+            return DTensor.from_local(t, mesh, rep, run_check=False)
+        return t
+
+    out, *rest = fn(local(x), local(p),
+                    **{k: local(v) for k, v in kw.items()})
+    return (wrap(out).redistribute(mesh, x.placements),
+            *(wrap(r) for r in rest))
+
+
+def identity_shard(x: torch.Tensor, where: str = "boundary"
+                   ) -> torch.Tensor:
+    """The default ``shard_fn`` of the models: ``x`` unchanged.  A meshed
+    caller passes :func:`repro_torch.runtime.sharding.
+    make_activation_shard_fn`'s function instead; the models call it
+    where the JAX models call theirs (``where``: ``"boundary"``, the
+    residual stream; ``"experts"``, a moe layer's [E, C, D] buffers)."""
+    return x
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -147,10 +257,12 @@ def mlp_params(b: ParamInit, prefix: str, n_layers: int, d: int, f: int,
     """Stacked MLP weights under ``prefix`` (same paths as JAX): ``w1``
     and ``w2``, and ``w3`` for swiglu only."""
     _check_kind(kind)
-    b.normal(f"{prefix}/w1", [n_layers, d, f], fan_in=d)
+    ax = ("layers", "embed", "ffn")
+    b.normal(f"{prefix}/w1", [n_layers, d, f], ax, fan_in=d)
     if kind == "swiglu":
-        b.normal(f"{prefix}/w3", [n_layers, d, f], fan_in=d)
-    b.normal(f"{prefix}/w2", [n_layers, f, d], fan_in=f)
+        b.normal(f"{prefix}/w3", [n_layers, d, f], ax, fan_in=d)
+    b.normal(f"{prefix}/w2", [n_layers, f, d], ("layers", "ffn", "embed"),
+             fan_in=f)
 
 
 RopeTables = Tuple[torch.Tensor, torch.Tensor]
@@ -242,7 +354,9 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     return loss + zl, denom
 
 
-__all__ = ["Params", "ParamInit", "WHOLE_DRAW_LIMIT", "MLP_KINDS",
+__all__ = ["Params", "Axes", "ParamInit", "identity_shard", "embed_lookup",
+           "on_replicated",
+           "WHOLE_DRAW_LIMIT", "MLP_KINDS",
            "RopeTables", "dtype_of", "rmsnorm",
            "dense", "mlp", "mlp_params", "rope", "rope_tables",
            "apply_rope", "sinusoidal_positions", "CHECKPOINT_NAMES",

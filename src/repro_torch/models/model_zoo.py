@@ -6,19 +6,26 @@ functional entry points of :mod:`repro_torch.models.transformer`, or of
 :mod:`repro_torch.models.encdec` for the audio family.
 ``Model.init`` places the weights on the CUDA card unless it is given
 ``device="cpu"``; the other entry points run where the parameters are.
+``Model.axes_tree`` and ``Model.abstract_params`` build the logical-axes
+tree and the parameters' shapes and dtypes on the meta device (nothing
+drawn, no storage), the inputs of :mod:`repro_torch.runtime.sharding`.
+Every entry point takes ``shard_fn`` (default: the identity), passed to
+the model where the JAX package passes its own.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import encdec, transformer
-from repro_torch.models.layers import dtype_of
+from repro_torch.models.layers import dtype_of, identity_shard
+
+META = torch.device("meta")
 
 
 def _no_audio_masks(seq_starts=None, block_tables=None) -> None:
@@ -43,59 +50,82 @@ class Model:
     def init(self, seed: int = 0, device: DeviceLike = None) -> Dict[str, Any]:
         """Random parameters from ``seed`` on ``device`` (CUDA by default;
         raises without a card unless ``device="cpu"``)."""
-        init = encdec.init_params if self.audio else transformer.init_params
-        return init(self.cfg, seed, resolve_device(device))
+        return self._init_fn()(self.cfg, seed, resolve_device(device))
+
+    def _init_fn(self):
+        """The family's ``init_params``."""
+        return encdec.init_params if self.audio else transformer.init_params
+
+    def axes_tree(self) -> Dict[str, Any]:
+        """The logical-axes tree: beside every parameter path, a tuple of
+        one axis name (or None) a dimension, JAX's ``Model.axes_tree``.
+        Built on the meta device: nothing is drawn."""
+        return self._init_fn()(self.cfg, 0, META, with_axes=True)[1]
+
+    def abstract_params(self) -> Dict[str, Any]:
+        """The parameter tree as meta tensors: shapes and dtypes, no
+        storage (JAX's ``ShapeDtypeStruct`` tree)."""
+        return self._init_fn()(self.cfg, 0, META)
 
     def loss_fn(self, params, batch, *, backend: str = "plain",
-                remat: str = "full", schedules=None):
+                remat: str = "full", schedules=None,
+                shard_fn: Callable = identity_shard):
         """(loss, metrics) of a teacher-forced batch; see
         :func:`transformer.loss_fn` (audio: :func:`encdec.loss_fn`, which
-        takes no schedules, as in JAX).  Trains on ``"plain"``;
-        ``"cuda"`` only under ``torch.no_grad()``."""
+        takes no schedules, as in JAX).  Trains on ``"plain"`` (or
+        ``"chunked"``); ``"cuda"`` only under ``torch.no_grad()``."""
         if self.audio:
             return encdec.loss_fn(params, self.cfg, batch, backend=backend,
-                                  remat=remat)
+                                  remat=remat, shard_fn=shard_fn)
         return transformer.loss_fn(params, self.cfg, batch, backend=backend,
-                                   remat=remat, schedules=schedules)
+                                   remat=remat, schedules=schedules,
+                                   shard_fn=shard_fn)
 
     def forward(self, params, batch, *, backend: str = "plain",
-                seq_starts=None, schedules=None):
+                seq_starts=None, schedules=None,
+                shard_fn: Callable = identity_shard):
         """Teacher-forced logits and extras; see
         :func:`transformer.forward` (audio: :func:`encdec.forward`)."""
         if self.audio:
             _no_audio_masks(seq_starts)
-            return encdec.forward(params, self.cfg, batch, backend=backend)
+            return encdec.forward(params, self.cfg, batch, backend=backend,
+                                  shard_fn=shard_fn)
         return transformer.forward(params, self.cfg, batch,
                                    backend=backend, seq_starts=seq_starts,
-                                   schedules=schedules)
+                                   schedules=schedules, shard_fn=shard_fn)
 
     def prefill(self, params, batch, *, backend: str = "plain",
-                seq_starts=None, schedules=None):
+                seq_starts=None, schedules=None,
+                shard_fn: Callable = identity_shard):
         """Logits plus filled caches; see :func:`transformer.prefill`
         (``schedules``: a ScheduleBundle or None).  The audio prefill
         (:func:`encdec.prefill`) takes no schedules, as in JAX: its
         kernels launch at their defaults."""
         if self.audio:
             _no_audio_masks(seq_starts)
-            return encdec.prefill(params, self.cfg, batch, backend=backend)
+            return encdec.prefill(params, self.cfg, batch, backend=backend,
+                                  shard_fn=shard_fn)
         return transformer.prefill(params, self.cfg, batch,
                                    backend=backend, seq_starts=seq_starts,
-                                   schedules=schedules)
+                                   schedules=schedules, shard_fn=shard_fn)
 
     def decode_step(self, params, cache, tokens, pos, *,
                     backend: str = "plain", seq_starts=None,
-                    block_tables=None, schedules=None):
+                    block_tables=None, schedules=None,
+                    shard_fn: Callable = identity_shard):
         """One token per row; see :func:`transformer.decode_step` (audio:
         :func:`encdec.decode_step`)."""
         if self.audio:
             _no_audio_masks(seq_starts, block_tables)
             return encdec.decode_step(params, self.cfg, cache, tokens, pos,
-                                      backend=backend, schedules=schedules)
+                                      backend=backend, schedules=schedules,
+                                      shard_fn=shard_fn)
         return transformer.decode_step(params, self.cfg, cache, tokens,
                                        pos, backend=backend,
                                        seq_starts=seq_starts,
                                        block_tables=block_tables,
-                                       schedules=schedules)
+                                       schedules=schedules,
+                                       shard_fn=shard_fn)
 
     def init_cache(self, bsz: int, max_len: int, device: torch.device):
         """Empty contiguous caches (ssm: zero recurrent states; hybrid:
@@ -120,14 +150,18 @@ class Model:
             return {"frames": ((bsz, cfg.encoder_seq, cfg.d_model), dt)}
         return {}
 
-    def input_specs(self, bsz: int, seq_len: int, kind: str = "prefill"
+    def input_specs(self, bsz: Union[int, ShapeConfig],
+                    seq_len: Optional[int] = None, kind: str = "prefill"
                     ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
         """``{name: (shape, dtype)}`` of a step's batch (JAX
         ``input_specs``): a decode step's ``tokens`` [B, 1] and ``pos``;
         a prefill's or training step's :meth:`modality_specs` and
         ``tokens`` (a vlm batch's ``seq_len`` counts its image tokens,
         the text is the rest), with ``labels`` [B, seq_len] for
-        ``kind="train"``."""
+        ``kind="train"``.  ``bsz`` may be a :class:`ShapeConfig`, whose
+        global batch, sequence and kind are taken, as JAX's takes one."""
+        if isinstance(bsz, ShapeConfig):
+            bsz, seq_len, kind = bsz.global_batch, bsz.seq_len, bsz.kind
         i32 = torch.int32
         if kind == "decode":
             return {"tokens": ((bsz, 1), i32), "pos": ((), i32)}
@@ -138,6 +172,11 @@ class Model:
         if kind == "train":
             specs["labels"] = ((bsz, seq_len), i32)
         return specs
+
+    def cache_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
+        """The decode cache tree of a shape cell as meta tensors (JAX
+        ``Model.cache_specs``): no storage."""
+        return self.init_cache(shape.global_batch, shape.seq_len, META)
 
     def init_paged_cache(self, n_blocks: int, block_size: int,
                          device: torch.device):

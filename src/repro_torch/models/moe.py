@@ -40,13 +40,14 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import (ParamInit, Params, checkpoint_name,
-                                       dense, mlp)
+                                       dense, identity_shard, mlp,
+                                       on_replicated)
 
 # one counter of dropped slots per device, never freed (a graph captured
 # while a drop_tally was open adds to it at every replay, also after the
@@ -60,16 +61,21 @@ def moe_params(b: ParamInit, prefix: str, n_layers: int, d: int,
                shared_ff: int) -> None:
     """Stacked router, expert and shared-expert weights under ``prefix``
     (the JAX paths and shapes)."""
-    b.normal(f"{prefix}/router", [n_layers, d, n_experts], fan_in=d)
-    b.normal(f"{prefix}/w1", [n_layers, n_experts, d, moe_ff], fan_in=d)
-    b.normal(f"{prefix}/w3", [n_layers, n_experts, d, moe_ff], fan_in=d)
+    b.normal(f"{prefix}/router", [n_layers, d, n_experts],
+             ("layers", "embed", None), fan_in=d)
+    ax = ("layers", "experts", "embed", "ffn")
+    b.normal(f"{prefix}/w1", [n_layers, n_experts, d, moe_ff], ax, fan_in=d)
+    b.normal(f"{prefix}/w3", [n_layers, n_experts, d, moe_ff], ax, fan_in=d)
     b.normal(f"{prefix}/w2", [n_layers, n_experts, moe_ff, d],
-             fan_in=moe_ff)
+             ("layers", "experts", "ffn", "embed"), fan_in=moe_ff)
     if n_shared:
         f = shared_ff * n_shared if shared_ff else 0
-        b.normal(f"{prefix}/shared_w1", [n_layers, d, f], fan_in=d)
-        b.normal(f"{prefix}/shared_w3", [n_layers, d, f], fan_in=d)
-        b.normal(f"{prefix}/shared_w2", [n_layers, f, d], fan_in=f)
+        b.normal(f"{prefix}/shared_w1", [n_layers, d, f],
+                 ("layers", "embed", "ffn"), fan_in=d)
+        b.normal(f"{prefix}/shared_w3", [n_layers, d, f],
+                 ("layers", "embed", "ffn"), fan_in=d)
+        b.normal(f"{prefix}/shared_w2", [n_layers, f, d],
+                 ("layers", "ffn", "embed"), fan_in=f)
 
 
 def capacity(n_tokens: int, n_experts: int, k: int, factor: float) -> int:
@@ -123,10 +129,23 @@ def drop_tally(device) -> Iterator[torch.Tensor]:
 
 
 def moe_ffn(x: torch.Tensor, p: Params, *, n_experts: int, top_k: int,
-            capacity_factor: float = 1.25
+            capacity_factor: float = 1.25,
+            shard_fn: Callable = identity_shard
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, D] -> (out [B, S, D] in x's dtype, the float32
-    load-balancing aux loss, Switch-style)."""
+    load-balancing aux loss, Switch-style).  ``shard_fn(t, "experts")``
+    places the [E, C, D] expert buffers (in and out), as in JAX.
+
+    On a mesh (``x`` a DTensor) the routing's sorts and searches have no
+    DTensor sharding strategy, so the layer is redistributed explicitly
+    here: its input and weights are gathered (replicated) on every rank,
+    every rank runs the layer on plain tensors, and the output goes back
+    to ``x``'s placements (:func:`~repro_torch.models.layers.
+    on_replicated`)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        return on_replicated(moe_ffn, x, p, n_experts=n_experts,
+                             top_k=top_k, capacity_factor=capacity_factor)
     bsz, seq, d = x.shape
     t = bsz * seq
     dev = x.device
@@ -163,14 +182,15 @@ def moe_ffn(x: torch.Tensor, p: Params, *, n_experts: int, top_k: int,
     buf_token.index_copy_(0, torch.where(keep, slot, n_experts * c),
                           src_token)
     x_pad = torch.cat([xt, xt.new_zeros((1, d))], dim=0)
-    expert_in = checkpoint_name(
-        x_pad[buf_token[:-1]].reshape(n_experts, c, d), "moe_in")
+    expert_in = checkpoint_name(shard_fn(
+        x_pad[buf_token[:-1]].reshape(n_experts, c, d), "experts"),
+        "moe_in")
 
     h1 = torch.bmm(expert_in, p["w1"])
     h3 = torch.bmm(expert_in, p["w3"])
     h = (F.silu(h1.float()) * h3.float()).to(x.dtype)
-    y = checkpoint_name(torch.bmm(h, p["w2"]).reshape(n_experts * c, d),
-                        "moe_out")
+    y = checkpoint_name(shard_fn(torch.bmm(h, p["w2"]), "experts"),
+                        "moe_out").reshape(n_experts * c, d)
 
     # each token's k contributions, summed from zero in sorted order
     w = torch.where(keep, src_gate, torch.zeros_like(src_gate))[:, None]

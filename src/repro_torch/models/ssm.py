@@ -12,6 +12,9 @@ selective SSM and the RG-LRU of recurrentgemma.
   x's dtype, as the Pallas kernel writes it.
 
 So the two backends differ in bf16 by that rounding, by design.
+Attention's ``"chunked"`` and ``"stub"`` backends take the plain branch
+here, as the JAX block takes its XLA branch for any backend but
+``"pallas"``.
 
 ``rglru_block`` has one path on both backends, as in JAX, where no
 Pallas kernel computes it: its recurrence runs through
@@ -26,7 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssm_scan import ssm_scan_scheduled
-from repro_torch.models.layers import ParamInit, Params, dense
+from repro_torch.models.attention import BACKENDS
+from repro_torch.models.layers import ParamInit, Params, dense, on_replicated
 
 
 def linear_scan(a: torch.Tensor, b: torch.Tensor, dim: int = 1,
@@ -75,21 +79,25 @@ def mamba_params(b: ParamInit, prefix: str, n_layers: int, d: int,
                  d_inner: int, state: int, conv: int, dt_rank: int) -> None:
     """Stacked Mamba-1 weights under ``prefix`` (same paths, shapes and
     std rule as the JAX tree)."""
-    b.normal(f"{prefix}/in_proj", [n_layers, d, 2 * d_inner], fan_in=d)
-    b.normal(f"{prefix}/conv_w", [n_layers, d_inner, conv], fan_in=conv)
-    b.zeros(f"{prefix}/conv_b", [n_layers, d_inner])
+    b.normal(f"{prefix}/in_proj", [n_layers, d, 2 * d_inner],
+             ("layers", "embed", "inner"), fan_in=d)
+    b.normal(f"{prefix}/conv_w", [n_layers, d_inner, conv],
+             ("layers", "inner", None), fan_in=conv)
+    b.zeros(f"{prefix}/conv_b", [n_layers, d_inner], ("layers", "inner"))
     b.normal(f"{prefix}/x_proj", [n_layers, d_inner, dt_rank + 2 * state],
-             fan_in=d_inner)
+             ("layers", "inner", None), fan_in=d_inner)
     b.normal(f"{prefix}/dt_proj", [n_layers, dt_rank, d_inner],
-             fan_in=dt_rank)
-    b.zeros(f"{prefix}/dt_bias", [n_layers, d_inner])
+             ("layers", None, "inner"), fan_in=dt_rank)
+    b.zeros(f"{prefix}/dt_bias", [n_layers, d_inner], ("layers", "inner"))
     # log(1..N) in float32 on the host (numpy, as the JAX init's XLA
     # computes it on a CPU), so the card and the CPU get the same values
     a_init = torch.from_numpy(np.log(np.arange(1, state + 1,
                                                dtype=np.float32)))
-    b.const(f"{prefix}/A_log", a_init.expand(n_layers, d_inner, state))
-    b.ones(f"{prefix}/D", [n_layers, d_inner])
-    b.normal(f"{prefix}/out_proj", [n_layers, d_inner, d], fan_in=d_inner)
+    b.const(f"{prefix}/A_log", a_init.expand(n_layers, d_inner, state),
+            ("layers", "inner", None))
+    b.ones(f"{prefix}/D", [n_layers, d_inner], ("layers", "inner"))
+    b.normal(f"{prefix}/out_proj", [n_layers, d_inner, d],
+             ("layers", "inner", "embed"), fan_in=d_inner)
 
 
 def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -134,8 +142,8 @@ def mamba_block(x: torch.Tensor, p: Params, *, state: int, conv: int,
     conv output (the conv bias would otherwise feed the scan before the
     first real token), so a pad step leaves the state exactly 0.  The
     new conv state holds the last K-1 masked conv *inputs*."""
-    if backend not in ("plain", "cuda"):
-        raise ValueError(f"backend must be 'plain' or 'cuda', got "
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got "
                          f"{backend!r}")
     xz = dense(x, p["in_proj"])
     d_inner = xz.shape[-1] // 2
@@ -195,16 +203,23 @@ def rglru_params(b: ParamInit, prefix: str, n_layers: int, d: int,
                  width: int, conv: int = 4) -> None:
     """Stacked RG-LRU weights under ``prefix`` (same paths, shapes and
     std rule as the JAX tree)."""
-    b.normal(f"{prefix}/in_x", [n_layers, d, width], fan_in=d)
-    b.normal(f"{prefix}/in_gate", [n_layers, d, width], fan_in=d)
-    b.normal(f"{prefix}/conv_w", [n_layers, width, conv], fan_in=conv)
-    b.zeros(f"{prefix}/conv_b", [n_layers, width])
-    b.normal(f"{prefix}/w_r", [n_layers, width, width], fan_in=width)
-    b.zeros(f"{prefix}/b_r", [n_layers, width])
-    b.normal(f"{prefix}/w_i", [n_layers, width, width], fan_in=width)
-    b.zeros(f"{prefix}/b_i", [n_layers, width])
-    b.const(f"{prefix}/lam", torch.full((n_layers, width), 0.7))
-    b.normal(f"{prefix}/out", [n_layers, width, d], fan_in=width)
+    b.normal(f"{prefix}/in_x", [n_layers, d, width],
+             ("layers", "embed", "inner"), fan_in=d)
+    b.normal(f"{prefix}/in_gate", [n_layers, d, width],
+             ("layers", "embed", "inner"), fan_in=d)
+    b.normal(f"{prefix}/conv_w", [n_layers, width, conv],
+             ("layers", "inner", None), fan_in=conv)
+    b.zeros(f"{prefix}/conv_b", [n_layers, width], ("layers", "inner"))
+    b.normal(f"{prefix}/w_r", [n_layers, width, width],
+             ("layers", "inner", "inner2"), fan_in=width)
+    b.zeros(f"{prefix}/b_r", [n_layers, width], ("layers", "inner"))
+    b.normal(f"{prefix}/w_i", [n_layers, width, width],
+             ("layers", "inner", "inner2"), fan_in=width)
+    b.zeros(f"{prefix}/b_i", [n_layers, width], ("layers", "inner"))
+    b.const(f"{prefix}/lam", torch.full((n_layers, width), 0.7),
+            ("layers", "inner"))
+    b.normal(f"{prefix}/out", [n_layers, width, d],
+             ("layers", "inner", "embed"), fan_in=width)
 
 
 def rglru_block(x: torch.Tensor, p: Params, *,
@@ -219,7 +234,17 @@ def rglru_block(x: torch.Tensor, p: Params, *,
 
     ``seq_valid`` ([B,S] bool) zeroes the conv input and output at
     left-pad positions, as in JAX (the serving path passes none: the
-    hybrid family is served unpadded)."""
+    hybrid family is served unpadded).
+
+    On a mesh (``x`` a DTensor) the block is redistributed explicitly
+    and runs replicated on plain tensors
+    (:func:`~repro_torch.models.layers.on_replicated`): run on DTensors,
+    its backward failed DTensor's sharding propagation on torch 2.11 (a
+    view of a [B, S, W] gradient)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        return on_replicated(rglru_block, x, p, cache=cache,
+                             seq_valid=seq_valid)
     gate = F.gelu(dense(x, p["in_gate"]).float(), approximate="tanh")
     xb = dense(x, p["in_x"])
     if seq_valid is not None:

@@ -37,8 +37,10 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.layers import (ParamInit, Params, RopeTables,
-                                       dtype_of, mlp, mlp_params, rmsnorm,
-                                       rope_tables, softmax_xent)
+                                       dtype_of, embed_lookup,
+                                       identity_shard, mlp,
+                                       mlp_params, rmsnorm, rope_tables,
+                                       softmax_xent)
 from repro_torch.tree import leaves
 
 
@@ -134,10 +136,10 @@ def _attn_layer_params(b: ParamInit, prefix: str, cfg: ModelConfig,
                        n: int) -> None:
     """``n`` stacked attention layers (norms, attention, MLP or moe)."""
     d = cfg.d_model
-    b.zeros(f"{prefix}/ln1", [n, d])
+    b.zeros(f"{prefix}/ln1", [n, d], ("layers", "embed"))
     attn.attn_params(b, f"{prefix}/attn", n, d, cfg.n_heads,
                      cfg.n_kv_heads, cfg.resolved_head_dim, cfg.qk_norm)
-    b.zeros(f"{prefix}/ln2", [n, d])
+    b.zeros(f"{prefix}/ln2", [n, d], ("layers", "embed"))
     if cfg.n_experts:
         moe_mod.moe_params(b, f"{prefix}/moe", n, d, cfg.n_experts,
                            cfg.moe_d_ff, cfg.n_shared_experts, cfg.moe_d_ff)
@@ -149,10 +151,10 @@ def _rglru_layer_params(b: ParamInit, prefix: str, cfg: ModelConfig,
                         n: int) -> None:
     """``n`` stacked RG-LRU layers (norms, RG-LRU, MLP)."""
     d = cfg.d_model
-    b.zeros(f"{prefix}/ln1", [n, d])
+    b.zeros(f"{prefix}/ln1", [n, d], ("layers", "embed"))
     ssm.rglru_params(b, f"{prefix}/rglru", n, d, cfg.resolved_lru_width,
                      cfg.ssm_conv)
-    b.zeros(f"{prefix}/ln2", [n, d])
+    b.zeros(f"{prefix}/ln2", [n, d], ("layers", "embed"))
     mlp_params(b, f"{prefix}/mlp", n, d, cfg.d_ff, cfg.mlp_type)
 
 
@@ -163,16 +165,19 @@ def hybrid_counts(cfg: ModelConfig) -> Tuple[int, Tuple[str, ...]]:
     return cfg.n_layers // len(pat), pat[:cfg.n_layers % len(pat)]
 
 
-def init_params(cfg: ModelConfig, seed: int, device: torch.device
-                ) -> Params:
+def init_params(cfg: ModelConfig, seed: int, device: torch.device, *,
+                with_axes: bool = False):
     """Random parameters with the JAX tree's paths, shapes and std rule,
-    drawn on ``device`` from a generator seeded with ``seed``."""
+    drawn on ``device`` from a generator seeded with ``seed``; with
+    ``with_axes``, (params, the logical-axes tree), as JAX's init
+    returns.  On the meta device nothing is drawn."""
     _check_family(cfg)
     b = ParamInit(seed, dtype_of(cfg.dtype), device)
     d, n = cfg.d_model, cfg.n_layers
-    b.normal("embed", [cfg.vocab_size, d], fan_in=d, scale=float(d) ** 0.5)
+    b.normal("embed", [cfg.vocab_size, d], ("vocab", "embed"), fan_in=d,
+             scale=float(d) ** 0.5)
     if cfg.family == "ssm":
-        b.zeros("layers/ln1", [n, d])
+        b.zeros("layers/ln1", [n, d], ("layers", "embed"))
         ssm.mamba_params(b, "layers/mamba", n, d, cfg.d_inner,
                          cfg.ssm_state, cfg.ssm_conv, cfg.resolved_dt_rank)
     elif cfg.family == "hybrid":
@@ -185,10 +190,11 @@ def init_params(cfg: ModelConfig, seed: int, device: torch.device
                 layer(b, f"{where}/b{i}", cfg, count)
     else:
         _attn_layer_params(b, "layers", cfg, n)
-    b.zeros("final_norm", [d])
+    b.zeros("final_norm", [d], ("embed",))
     if not cfg.tie_embeddings:
-        b.normal("lm_head", [d, cfg.vocab_size], fan_in=d)
-    return b.params
+        b.normal("lm_head", [d, cfg.vocab_size], ("embed", "vocab"),
+                 fan_in=d)
+    return (b.params, b.axes) if with_axes else b.params
 
 
 def layer_params(stacked: Params, i: int) -> Params:
@@ -209,25 +215,29 @@ def unstack_layers(stacked: Params) -> List[Params]:
     return [{k: p[i] for k, p in parts.items()} for i in range(n)]
 
 
-def _ffn(h: torch.Tensor, lp: Params, cfg: ModelConfig
+def _ffn(h: torch.Tensor, lp: Params, cfg: ModelConfig,
+         shard_fn: Callable = identity_shard
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """A layer's feed-forward half: the routed experts of a moe layer
     (with its aux loss), else the MLP (aux None)."""
     if cfg.n_experts:
         return moe_mod.moe_ffn(h, lp["moe"], n_experts=cfg.n_experts,
                                top_k=cfg.experts_per_token,
-                               capacity_factor=cfg.capacity_factor)
+                               capacity_factor=cfg.capacity_factor,
+                               shard_fn=shard_fn)
     return mlp(h, lp["mlp"], cfg.mlp_type), None
 
 
 def _attn_block(x: torch.Tensor, lp: Params, cfg: ModelConfig,
                 rope: RopeTables, *, backend: str,
                 starts: Optional[torch.Tensor], schedule=None,
-                window: Optional[int] = None
+                window: Optional[int] = None,
+                shard_fn: Callable = identity_shard
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                            Optional[torch.Tensor]]:
     """One prefill layer (causal; local with ``window``); returns (x, k,
-    v, the moe aux loss or None)."""
+    v, the moe aux loss or None).  ``shard_fn`` places the residual
+    stream after each half, as JAX's ``_attn_body``."""
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = attn.qkv_project(
         h, lp["attn"], n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
@@ -240,15 +250,16 @@ def _attn_block(x: torch.Tensor, lp: Params, cfg: ModelConfig,
         # the xla/reference attention output, where the kernel gives
         # zeros (as JAX's Pallas flash kernel does)
         ctx = attn.mean_rows_before_start(ctx, v, starts)
-    x = x + attn.attn_out(ctx, lp["attn"])
+    x = shard_fn(x + attn.attn_out(ctx, lp["attn"]))
     h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    y, aux = _ffn(h, lp, cfg)
-    return x + y, k, v, aux
+    y, aux = _ffn(h, lp, cfg, shard_fn)
+    return shard_fn(x + y), k, v, aux
 
 
 def _mamba_block(x: torch.Tensor, lp: Params, cfg: ModelConfig, *,
                  backend: str, cache: Optional[Dict[str, torch.Tensor]] = None,
-                 seq_valid: Optional[torch.Tensor] = None, schedule=None
+                 seq_valid: Optional[torch.Tensor] = None, schedule=None,
+                 shard_fn: Callable = identity_shard
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One Mamba layer (pre-norm, residual); returns (x, new states)."""
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
@@ -257,19 +268,22 @@ def _mamba_block(x: torch.Tensor, lp: Params, cfg: ModelConfig, *,
                                 dt_rank=cfg.resolved_dt_rank, cache=cache,
                                 backend=backend, seq_valid=seq_valid,
                                 schedule=schedule)
-    return x + y, states
+    return shard_fn(x + y), states
 
 
 def _rglru_layer(x: torch.Tensor, lp: Params, cfg: ModelConfig, *,
-                 cache: Optional[Dict[str, torch.Tensor]] = None
+                 cache: Optional[Dict[str, torch.Tensor]] = None,
+                 shard_fn: Callable = identity_shard
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One RG-LRU layer (pre-norm RG-LRU, then pre-norm MLP, both
-    residual); returns (x, the RG-LRU's new states)."""
+    residual); returns (x, the RG-LRU's new states).  ``shard_fn``
+    places the residual after each half, as JAX's forward does (its
+    prefill only after the MLP: the identity makes them one)."""
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     y, states = ssm.rglru_block(h, lp["rglru"], cache=cache)
-    x = x + y
+    x = shard_fn(x + y)
     h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp(h, lp["mlp"], cfg.mlp_type), states
+    return shard_fn(x + mlp(h, lp["mlp"], cfg.mlp_type)), states
 
 
 def _hybrid_layers(params: Params, cfg: ModelConfig):
@@ -297,7 +311,7 @@ def _window_cache(k: torch.Tensor, seq: int, win: int) -> torch.Tensor:
 
 def _hybrid_forward(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
                     backend: str, collect: bool, schedule=None,
-                    remat: str = "full"
+                    remat: str = "full", shard_fn: Callable = identity_shard
                     ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """The hybrid layer stack on embedded ``x``; with ``collect`` also
     its decode caches (the RG-LRU states, and each attention layer's
@@ -312,12 +326,14 @@ def _hybrid_forward(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
     for where, blk, _, kind, lp in _hybrid_layers(params, cfg):
         if kind == "rglru":
             x, st = remat_call(
-                lambda h, p: _rglru_layer(h, p, cfg), remat, x, lp)
+                lambda h, p: _rglru_layer(h, p, cfg, shard_fn=shard_fn),
+                remat, x, lp)
         else:
             x, k, v, _ = remat_call(
                 lambda h, p: _attn_block(h, p, cfg, rope, backend=backend,
                                          starts=None, schedule=schedule,
-                                         window=window), remat, x, lp)
+                                         window=window, shard_fn=shard_fn),
+                remat, x, lp)
             st = {"k": _window_cache(k, seq, win),
                   "v": _window_cache(v, seq, win)} if collect else None
         if collect:
@@ -338,7 +354,7 @@ def embed_inputs(params: Params, cfg: ModelConfig,
     ``batch["image_embeds"]`` [B, N_img, D] go in front of them, cast to
     the model's dtype."""
     emb = params["embed"]
-    x = emb[batch["tokens"].to(emb.device).long()]
+    x = embed_lookup(emb, batch["tokens"])
     if cfg.family == "vlm":
         img = batch["image_embeds"].to(device=emb.device, dtype=x.dtype)
         x = torch.cat([img, x], dim=1)
@@ -375,7 +391,7 @@ def forward(params: Params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor], *, backend: str = "plain",
             collect_kv: bool = False,
             seq_starts: Optional[torch.Tensor] = None, schedules=None,
-            remat: str = "full"
+            remat: str = "full", shard_fn: Callable = identity_shard
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Teacher-forced logits [B, S, V] (float32) and, with
     ``collect_kv``, the per-layer decode caches: for dense and moe the
@@ -393,23 +409,28 @@ def forward(params: Params, cfg: ModelConfig,
 
     Under autograd each layer runs under the ``remat`` policy
     (:func:`remat_call`); ``backend="cuda"`` raises
-    :class:`KernelGradError` there, before any launch."""
+    :class:`KernelGradError` there, before any launch.
+
+    ``shard_fn`` (default: the identity) places activations where the
+    JAX forward places them: the embedded input, and the residual
+    stream after each half of every layer (a moe layer's expert
+    buffers with ``"experts"``)."""
     _check_family(cfg)
     _check_starts(cfg, seq_starts)
     check_remat(remat)
     check_kernels_without_grad(params, backend)
-    x = embed_inputs(params, cfg, batch)
+    x = shard_fn(embed_inputs(params, cfg, batch))
     bsz, seq, _ = x.shape
     if cfg.family == "ssm":
         return _ssm_forward(params, cfg, x, backend=backend,
                             collect=collect_kv, seq_starts=seq_starts,
                             schedule=_field(schedules, "ssm_scan"),
-                            remat=remat)
+                            remat=remat, shard_fn=shard_fn)
     fa_sched = _field(schedules, "flash_attention")
     if cfg.family == "hybrid":
         x, cache = _hybrid_forward(params, cfg, x, backend=backend,
                                    collect=collect_kv, schedule=fa_sched,
-                                   remat=remat)
+                                   remat=remat, shard_fn=shard_fn)
         return _head(params, cfg, x), ({"cache": cache} if collect_kv
                                        else {})
     if seq_starts is not None:
@@ -423,7 +444,8 @@ def forward(params: Params, cfg: ModelConfig,
     for lp in unstack_layers(params["layers"]):
         x, k, v, aux = remat_call(
             lambda h, p: _attn_block(h, p, cfg, rope, backend=backend,
-                                     starts=st, schedule=fa_sched),
+                                     starts=st, schedule=fa_sched,
+                                     shard_fn=shard_fn),
             remat, x, lp)
         if collect_kv:
             ks.append(k)
@@ -446,7 +468,7 @@ def _field(schedules, kind: str):
 def _ssm_forward(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
                  backend: str, collect: bool,
                  seq_starts: Optional[torch.Tensor], schedule=None,
-                 remat: str = "full"
+                 remat: str = "full", shard_fn: Callable = identity_shard
                  ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """The Mamba layer stack of :func:`forward` on embedded ``x``."""
     seq_valid = None
@@ -459,7 +481,8 @@ def _ssm_forward(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
         x, states = remat_call(
             lambda h, p: _mamba_block(h, p, cfg, backend=backend,
                                       seq_valid=seq_valid,
-                                      schedule=schedule), remat, x, lp)
+                                      schedule=schedule,
+                                      shard_fn=shard_fn), remat, x, lp)
         if collect:
             ssms.append(states["ssm"])
             convs.append(states["conv"])
@@ -472,16 +495,17 @@ def _ssm_forward(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
 
 def prefill(params: Params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor], *, backend: str = "plain",
-            seq_starts: Optional[torch.Tensor] = None, schedules=None
+            seq_starts: Optional[torch.Tensor] = None, schedules=None,
+            shard_fn: Callable = identity_shard
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run the whole prompt: (logits [B,S,V], caches filled up to S; for
     ssm the recurrent states after the last token; for hybrid
     ``{"groups", "tail"}`` with the RG-LRU states and the windowed K/V
     in rolling-slot order).  A vlm prompt is its image tokens and then
-    its text: S counts both."""
+    its text: S counts both.  ``shard_fn`` as in :func:`forward`."""
     logits, extras = forward(params, cfg, batch, backend=backend,
                              collect_kv=True, seq_starts=seq_starts,
-                             schedules=schedules)
+                             schedules=schedules, shard_fn=shard_fn)
     if cfg.family == "hybrid":
         return logits, extras["cache"]
     return logits, {"layers": extras["state" if cfg.family == "ssm"
@@ -490,7 +514,8 @@ def prefill(params: Params, cfg: ModelConfig,
 
 def loss_fn(params: Params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor], *, backend: str = "plain",
-            remat: str = "full", schedules=None
+            remat: str = "full", schedules=None,
+            shard_fn: Callable = identity_shard
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, metrics) of a teacher-forced batch (JAX ``loss_fn``): the
     masked cross-entropy with z-loss of ``batch["labels"]`` (a vlm
@@ -499,7 +524,8 @@ def loss_fn(params: Params, cfg: ModelConfig,
     without experts, as in JAX).  Metrics: ``xent``, ``tokens``,
     ``moe_aux`` (those families), ``loss``."""
     logits, extras = forward(params, cfg, batch, backend=backend,
-                             remat=remat, schedules=schedules)
+                             remat=remat, schedules=schedules,
+                             shard_fn=shard_fn)
     loss, denom = softmax_xent(logits, batch["labels"])
     metrics = {"xent": loss, "tokens": denom}
     if cfg.family in ("dense", "moe", "vlm"):
@@ -604,7 +630,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Any],
                 tokens: torch.Tensor, pos, *, backend: str = "plain",
                 seq_starts: Optional[torch.Tensor] = None,
                 block_tables: Optional[torch.Tensor] = None,
-                schedules=None
+                schedules=None, shard_fn: Callable = identity_shard
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step: tokens [B, 1]; ``pos`` the shared write position
     (an int, or an integer tensor of one element, which the step reads
@@ -621,10 +647,12 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Any],
     writes each attention block's rolling buffer at slot ``pos % W``.
     ``block_tables`` and ``seq_starts`` raise ``ValueError`` outside the
     dense and moe families, as in JAX (a recurrent state carries no pad
-    entries and needs no paging; vlm and hybrid are served unpadded)."""
+    entries and needs no paging; vlm and hybrid are served unpadded).
+    ``shard_fn`` places the embedded token, the one place JAX's decode
+    step calls it."""
     _check_family(cfg)
     dev = params["embed"].device
-    x = params["embed"][tokens.to(dev).long()]
+    x = shard_fn(embed_lookup(params["embed"], tokens))
     if block_tables is not None and cfg.family not in ATTENTION_FAMILIES:
         raise ValueError(f"block_tables needs an attention family, "
                          f"got {cfg.family!r}")

@@ -18,6 +18,12 @@ time (the arithmetic is elementwise, so the numbers do not change), so
 an update holds a few float32 temporaries of one chunk, never a float32
 copy of a whole leaf (phi3-mini-3.8b's ``layers/mlp/w1`` is 3.2 GB in
 float32).
+
+On a mesh the parameters, gradients and moments are DTensors of one
+placement a leaf (the trainer brings each gradient to its parameter's
+placements first): the update then runs on each rank's local shard, and
+the global norm sums the shards' squares over the mesh dimensions that
+shard the leaf.
 """
 from __future__ import annotations
 
@@ -52,13 +58,33 @@ class AdamWConfig:
 
 
 def init(params: Any) -> AdamWState:
-    """Zero moments beside each parameter (float32, on its device) and
-    step 0 on the device of the first leaf."""
-    zeros = map_tree(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                           device=p.device), params)
+    """Zero moments beside each parameter (float32, on its device and,
+    for a DTensor, with its placements) and step 0 on the device of the
+    first leaf."""
+    zeros = map_tree(lambda p: torch.zeros_like(
+        p, dtype=torch.float32, requires_grad=False), params)
     dev = leaves(params)[0].device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       m=zeros, v=map_tree(torch.clone, zeros))
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (the tensor itself under ``no_grad``, so
+    writing it writes the DTensor); a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _sum_over_shards(part: torch.Tensor, like: Any) -> torch.Tensor:
+    """``part``, a sum over ``like``'s local shard, summed over the mesh
+    dimensions that shard ``like`` (a plain tensor: ``part``)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    if not isinstance(like, DTensor):
+        return part
+    place = [Partial() if pl.is_shard() else Replicate()
+             for pl in like.placements]
+    return DTensor.from_local(part, like.device_mesh, place,
+                              run_check=False).full_tensor()
 
 
 def _chunks(t: torch.Tensor):
@@ -76,10 +102,11 @@ def global_norm(tree: Any) -> torch.Tensor:
     total = None
     for leaf in leaves(tree):
         sq = None
-        for c in _chunks(leaf.detach().contiguous()):
+        for c in _chunks(_local(leaf.detach()).contiguous()):
             cf = c.float()
             part = torch.sum(cf * cf)
             sq = part if sq is None else sq + part
+        sq = _sum_over_shards(sq, leaf)
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
@@ -96,7 +123,7 @@ def clip_by_global_norm(grads: Any, max_norm: float
                         / torch.clamp(norm, min=1e-9), max=1.0)
     with torch.no_grad():
         for g in leaves(grads):
-            g.mul_(scale.to(g.dtype))
+            _local(g).mul_(scale.to(g.dtype))
     return grads, norm
 
 
@@ -146,6 +173,7 @@ def apply(cfg: AdamWConfig, params: Any, grads: Any, state: AdamWState,
     with torch.no_grad():
         for p, g, m, v in zip(leaves(params), leaves(grads),
                               leaves(state.m), leaves(state.v)):
+            p, g, m, v = _local(p), _local(g), _local(m), _local(v)
             for pc, gc, mc, vc in zip(_chunks(p), _chunks(g.contiguous()),
                                       _chunks(m), _chunks(v)):
                 _update_chunk(cfg, pc, gc, mc, vc, bc1, bc2, lr)

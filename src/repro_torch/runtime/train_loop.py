@@ -15,14 +15,29 @@ any launch).  A trainer built with ``"cuda"`` still resolves its
 :class:`~repro_torch.core.schedule.ScheduleBundle`, as the JAX trainer
 built with ``"pallas"`` does.
 
+The attention backends ``"chunked"`` and ``"stub"`` pass through to
+``loss_fn`` as any backend does in JAX (``"chunked"`` trains; the stub
+is the roofline's calibration stand-in).
+
+A meshed trainer (``Trainer(..., mesh=)``, a ``DeviceMesh`` of
+:mod:`repro_torch.launch.mesh`) places the parameters and both AdamW
+moments as DTensors by :func:`~repro_torch.runtime.sharding.tree_specs`
+over ``Model.axes_tree()``, each batch by ``batch_specs``, and passes
+the activation ``shard_fn`` to ``loss_fn``.  The step counter stays a
+plain scalar, the same on every rank (replicated).  Plain tensors the
+model makes inside the step (rope tables, masks) join DTensors as
+replicated (``implicit_replication``); each gradient, which autograd
+may leave ``Partial``, is brought to its parameter's placements before
+:func:`~repro_torch.optim.adamw.apply`, whose in-place chunked update
+then acts on each rank's local shard.
+
 Where the port differs: the step runs eagerly (no captured graph) and
 updates the parameters and the optimizer state in place (see
-:func:`repro_torch.optim.adamw.apply`); the sharding hooks
-(``shard_fn``, ``grad_shard_fn``, ``mesh``) come with the port's
-sharding.
+:func:`repro_torch.optim.adamw.apply`).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import logging
@@ -40,9 +55,11 @@ from repro_torch.models.model_zoo import Model
 from repro_torch.models.transformer import KernelGradError
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import AdamWConfig, AdamWState
+from repro_torch.models.layers import identity_shard
 from repro_torch.optim.schedule import warmup_cosine
+from repro_torch.runtime import sharding as shd
 from repro_torch.runtime.ft import StragglerMonitor
-from repro_torch.tree import leaves, map_with_paths
+from repro_torch.tree import leaves, map_tree, map_with_paths
 
 log = logging.getLogger("repro_torch.train")
 
@@ -68,9 +85,41 @@ class TrainConfig:
     device: DeviceLike = None
 
 
+def _is_dtensor(t: Any) -> bool:
+    """True for a DTensor."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor metric gathered to a plain tensor (others as they are)."""
+    return t.full_tensor() if _is_dtensor(t) else t
+
+
+def _meshed(params: Params):
+    """``implicit_replication`` when the parameters are DTensors (plain
+    tensors made inside the step join them as replicated), else a
+    null context."""
+    if any(_is_dtensor(p) for p in leaves(params)):
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        return implicit_replication()
+    return contextlib.nullcontext()
+
+
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Gradient ``g`` with parameter ``p``'s placements (a reduce for a
+    ``Partial`` gradient); plain tensors pass."""
+    if _is_dtensor(p) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def make_train_step(model: Model, opt_cfg: AdamWConfig,
                     lr_fn: Callable, *, backend: str = "plain",
+                    shard_fn: Callable = identity_shard,
                     remat: str = "full", microbatches: int = 1,
+                    grad_shard_fn: Callable = lambda tree: tree,
                     schedules=None) -> Callable:
     """``(params, opt_state, batch) -> (params, opt_state, metrics)``.
 
@@ -83,7 +132,13 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
     ``microbatches`` in the parameters' dtype and the metrics are the
     microbatches' means.  ``schedules`` reaches ``loss_fn`` (a
     ``"cuda"`` loss raises under autograd before any launch).  Metrics:
-    the loss's, ``grad_norm`` and ``lr``, as device scalars."""
+    the loss's, ``grad_norm`` and ``lr``, as device scalars (gathered
+    from DTensors).
+
+    ``shard_fn`` is the activation placement passed to ``loss_fn``;
+    ``grad_shard_fn`` places the microbatch accumulator tree, as JAX's
+    constrains it.  With DTensor parameters each gradient is brought to
+    its parameter's placements (see the module docstring)."""
 
     def grad_of(params: Params, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[Dict[str, torch.Tensor], List[torch.Tensor]]:
@@ -92,11 +147,15 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
         for p in flat:
             if not p.requires_grad:
                 p.requires_grad_(True)
-        loss, metrics = model.loss_fn(params, batch, backend=backend,
-                                      remat=remat, schedules=schedules)
-        grads = torch.autograd.grad(loss, flat, allow_unused=True,
-                                    materialize_grads=True)
-        return {k: v.detach() for k, v in metrics.items()}, list(grads)
+        with _meshed(params):
+            loss, metrics = model.loss_fn(params, batch, backend=backend,
+                                          remat=remat, schedules=schedules,
+                                          shard_fn=shard_fn)
+            grads = torch.autograd.grad(loss, flat, allow_unused=True,
+                                        materialize_grads=True)
+            grads = [_placed_like(g, p) for g, p in zip(grads, flat)]
+        return ({k: _full(v.detach()) for k, v in metrics.items()},
+                list(grads))
 
     def train_step(params: Params, opt_state: AdamWState,
                    batch: Dict[str, torch.Tensor]):
@@ -104,8 +163,9 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
         if microbatches == 1:
             metrics, grads = grad_of(params, batch)
         else:
-            acc = [torch.zeros(p.shape, dtype=torch.float32,
-                               device=p.device) for p in leaves(params)]
+            acc = leaves(grad_shard_fn(map_tree(
+                lambda p: torch.zeros_like(p, dtype=torch.float32,
+                                           requires_grad=False), params)))
             ms: List[Dict[str, torch.Tensor]] = []
             for i in range(microbatches):
                 m, g = grad_of(params, shard_batch(batch, i, microbatches))
@@ -133,22 +193,35 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
 
 
 class Trainer:
-    """End-to-end trainer on one device: random init (or the latest
-    checkpoint), the data pipeline fast-forwarded to the restored step,
-    the eager step, async checkpoints, the straggler monitor, and with a
-    registry the dispatch service fed with step times and the
+    """End-to-end trainer, meshless or meshed: random init (or the
+    latest checkpoint), the data pipeline fast-forwarded to the restored
+    step, the eager step, async checkpoints, the straggler monitor, and
+    with a registry the dispatch service fed with step times and the
     ``train_step`` write-back."""
 
     def __init__(self, model: Model, cfg: TrainConfig,
-                 data_cfg: DataConfig):
+                 data_cfg: DataConfig, mesh=None,
+                 rules: Optional[shd.ShardingRules] = None):
         """Bind the model, the run's and the data's configs; open the
         checkpoint directory and the registry; with ``backend="cuda"``
         and a registry, resolve the kernels' schedules for the model's
-        prefill shape (as JAX does for ``"pallas"``)."""
+        prefill shape (as JAX does for ``"pallas"``).  With ``mesh`` (a
+        ``DeviceMesh`` of the default process group) every rank builds
+        the same trainer; ``cfg.device`` must be of the mesh's device
+        type (a card mesh trains on the rank's current card)."""
         self.model = model
         self.cfg = cfg
         self.data_cfg = data_cfg
+        self.mesh = mesh
+        self.rules = rules or shd.ShardingRules()
         self.device = resolve_device(cfg.device)
+        if mesh is not None:
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"a {mesh.device_type} mesh cannot train "
+                                 f"on device {self.device}")
+            if self.device.type == "cuda":
+                self.device = torch.device("cuda",
+                                           torch.cuda.current_device())
         self.monitor = StragglerMonitor()
         self.ckpt = (Checkpointer(cfg.ckpt_dir)
                      if cfg.ckpt_dir else None)
@@ -180,18 +253,40 @@ class Trainer:
         lr_fn = functools.partial(
             warmup_cosine, peak_lr=cfg.opt.lr,
             warmup_steps=cfg.warmup_steps, total_steps=cfg.steps)
+        shard_fn = identity_shard
+        if mesh is not None:
+            shard_fn = shd.make_activation_shard_fn(mesh, self.rules)
         self._step_fn = make_train_step(model, cfg.opt, lr_fn,
                                         backend=cfg.backend,
+                                        shard_fn=shard_fn,
                                         schedules=schedules)
 
     # -- state ---------------------------------------------------------
     def init_state(self) -> Tuple[Params, AdamWState]:
         """Random parameters from ``cfg.seed`` (requiring grad) and a
-        fresh optimizer state, on the trainer's device."""
+        fresh optimizer state, on the trainer's device; on a mesh both
+        as DTensors placed by the rules over ``Model.axes_tree()`` (every
+        rank draws the same values)."""
         params = self.model.init(self.cfg.seed, self.device)
+        if self.mesh is not None:
+            specs = shd.tree_specs(self.model.axes_tree(), params,
+                                   self.mesh, self.rules)
+            params = shd.distribute_tree(params, specs, self.mesh)
         for p in leaves(params):
             p.requires_grad_(True)
         return params, adamw.init(params)
+
+    def place_batch(self, batch: Dict[str, np.ndarray]
+                    ) -> Dict[str, torch.Tensor]:
+        """A pipeline batch on the trainer's device; on a mesh as
+        DTensors placed by ``batch_specs`` (rows over the batch rule)."""
+        out = {k: torch.from_numpy(v).to(self.device)
+               for k, v in batch.items()}
+        if self.mesh is None:
+            return out
+        specs = shd.batch_specs(out, self.mesh, self.rules)
+        return {k: shd.distribute(v, specs[k], self.mesh)
+                for k, v in out.items()}
 
     # -- run -----------------------------------------------------------
     def run(self, steps: Optional[int] = None) -> Dict[str, Any]:
@@ -224,8 +319,7 @@ class Trainer:
         t_total = time.time()
         try:
             for step in range(start_step, steps):
-                batch = {k: torch.from_numpy(v).to(self.device)
-                         for k, v in pipe.next().items()}
+                batch = self.place_batch(pipe.next())
                 if self.dispatch is not None:
                     self.dispatch.propose("matmul", self._gemm_problem)
                 t0 = time.time()

@@ -371,15 +371,15 @@ def _recorded_draws(monkeypatch, arch):
     sizes = []
 
     class Recorder(tlayers.ParamInit):
-        def normal(self, path, shape, fan_in=None, scale=1.0):
+        def normal(self, path, shape, axes=None, fan_in=None, scale=1.0):
             sizes.append(int(np.prod(shape)))
 
-        def zeros(self, path, shape):
+        def zeros(self, path, shape, axes=None):
             pass
 
         ones = zeros
 
-        def const(self, path, value):
+        def const(self, path, value, axes=None):
             pass
 
     monkeypatch.setattr(ttransformer, "ParamInit", Recorder)
