@@ -240,7 +240,18 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
    ``[train]``'s), ``allreduce_compressed`` over the group against
    ``compress_tree``'s round trip (:data:`ALLREDUCE_ATOL`), and
    ``[mesh_family]`` six float32 smoke configs (every family) meshed
-   against unmeshed; the group is destroyed after;
+   against unmeshed; the group is destroyed after; ``[dryrun]``
+   ``launch/dryrun`` on a fake process group (host work, no card):
+   full qwen3-32b x train_4k, qwen2-moe-a2.7b x prefill_32k and
+   falcon-mamba-7b x decode_32k on 16 x 16 with the two-point
+   calibration, qwen3-32b x train_4k on 2 x 16 x 16 (status, seconds,
+   GiB a device, flops, collective bytes by kind, dominant term, mfu;
+   gated: ok, finite terms, the calibration's extension equal to the
+   full count); ``[dryrun_vs_card]`` the ``[train]`` cell dry-run on a
+   (1, 1) fake mesh beside one real step on the card under the same
+   counter (flops equal exactly; the dry-run's bytes a device over
+   ``[train]``'s peak allocated within :data:`DRYRUN_MEMORY_RATIO`;
+   the roofline step ms beside ``[train]``'s);
    ``[launch_serving]`` ``launch/serve_lm`` on full phi3-mini-3.8b
    (batch 4, prompt 16, 24 new tokens), ``serve_session`` and
    ``serve_adaptive`` at their smoke defaults, each to its summary
@@ -4952,7 +4963,8 @@ def train_full(torch, dev, timer, smi):
         fail(f"[train] {len(hist)} steps, loss {hist[0]['loss']} -> "
              f"{hist[-1]['loss']}: did not go down")
     step_s = sorted(h["dt"] for h in hist[2:])[len(hist[2:]) // 2]
-    TRAIN_CELL.update(losses=[h["loss"] for h in hist], step_s=step_s)
+    TRAIN_CELL.update(losses=[h["loss"] for h in hist], step_s=step_s,
+                      peak_bytes=torch.cuda.max_memory_allocated())
     init = model.init(seed=0, device=dev)
     still = [path for (path, a), b in zip(flatten_with_paths(params),
                                           leaves(init))
@@ -5267,13 +5279,17 @@ SERVE_LM_ARGS = ["--arch", PHI3, "--batch", "4", "--prompt-len", "16",
 
 
 def slice_phases(torch, dev, smi):
-    """``[chunked]``, ``[roofline]``, ``[mesh]`` and
-    ``[launch_serving]``, the card freed between them."""
+    """``[chunked]``, ``[roofline]``, ``[mesh]``, ``[dryrun]``,
+    ``[dryrun_vs_card]`` and ``[launch_serving]``, the card freed
+    between them."""
     free_card(torch)
     chunked_phase(torch, dev, smi)
     free_card(torch)
     roofline_phase(smi)
     mesh_phase(torch, dev, smi)
+    free_card(torch)
+    dryrun_phase(smi)
+    dryrun_vs_card_phase(torch, dev, smi)
     free_card(torch)
     launch_serving_phase(torch, dev, smi)
     free_card(torch)
@@ -5459,6 +5475,135 @@ def mesh_phase(torch, dev, smi):
     if not (ar <= ALLREDUCE_ATOL and ae <= ALLREDUCE_ATOL):
         fail(f"[mesh] allreduce_compressed vs the round trip: mean {ar}, "
              f"error {ae}")
+
+
+# (arch, shape, multi_pod, calibrate): the dry-run cells run here at full
+# size on the production meshes (host work: fake tensors, no card)
+DRYRUN_CELLS = (("qwen3-32b", "train_4k", False, True),
+                ("qwen2-moe-a2.7b", "prefill_32k", False, True),
+                ("falcon-mamba-7b", "decode_32k", False, True),
+                ("qwen3-32b", "train_4k", True, False))
+# the dry-run's bytes a device over [train]'s max_memory_allocated
+DRYRUN_MEMORY_RATIO = (0.5, 2.0)
+
+
+def dryrun_phase(smi):
+    """``[dryrun]``: ``launch/dryrun.run_cell`` on the cells of
+    :data:`DRYRUN_CELLS` (full configs, the 16 x 16 and 2 x 16 x 16
+    fake meshes; the card's torch, whose DTensor differs from the CPU
+    tests'): status, seconds, bytes a device, flops, collective bytes by
+    kind, the roofline's dominant term and mfu.  Gated: status ok,
+    finite terms, and the calibration's extension equal to the full
+    count."""
+    from repro_torch.launch import dryrun
+
+    for arch, shape, multi_pod, calibrate in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, multi_pod=multi_pod,
+                              calibrate=calibrate)
+        secs = time.perf_counter() - t0
+        if rec["status"] != "ok":
+            fail(f"[dryrun] {arch} {shape} {rec['mesh']}: "
+                 f"{rec['status']} {rec.get('error')}")
+        full, roof = rec["full"], rec["roofline"]
+        phase("dryrun", arch=arch, shape=shape, mesh=rec["mesh"],
+              card=repr(smi), status=rec["status"], seconds=f"{secs:.1f}",
+              place_s=f"{full['lower_s']:.1f}",
+              run_s=f"{full['compile_s']:.1f}",
+              gib_per_device=f"{full['bytes_per_device'] / 2 ** 30:.2f}",
+              memory=json.dumps(full["memory"]),
+              flops_per_device=f"{full['flops_per_device']:.4e}",
+              bytes_accessed_per_device=(
+                  f"{full['bytes_per_device_accessed']:.4e}"),
+              collective_bytes=json.dumps(
+                  {k: f"{v:.4e}" for k, v in
+                   sorted(full["collectives_by_kind"].items())}),
+              collective_counts=json.dumps(full["collective_counts"]),
+              dominant=roof["dominant"],
+              terms_s=json.dumps({k: f"{roof[k]:.4e}" for k in (
+                  "compute_s", "memory_s", "collective_s")}),
+              mfu=f"{roof['mfu']:.4f}",
+              extrapolation=(("ok" if rec["extrapolation"]["ok"]
+                              else "FAILED") if calibrate
+                             else "not calibrated"))
+        terms = [roof[k] for k in ("compute_s", "memory_s",
+                                   "collective_s", "mfu")]
+        if not all(math.isfinite(t) for t in terms):
+            fail(f"[dryrun] {arch} {shape}: terms {terms}")
+        if calibrate and not rec["extrapolation"]["ok"]:
+            fail(f"[dryrun] {arch} {shape}: the calibration's extension "
+                 f"differs from the full count: {rec['extrapolation']}")
+
+
+def dryrun_vs_card_phase(torch, dev, smi):
+    """``[dryrun_vs_card]``: the ``[train]`` cell (full phi3-mini-3.8b,
+    4 x 512, remat "full", plain, bf16) dry-run on a (1, 1) fake mesh
+    beside one real step of the same cell on the card under the same
+    counter: flops equal exactly (the fake run dispatches the real run's
+    ops), the dry-run's bytes a device beside ``[train]``'s
+    max_memory_allocated (ratio gated within
+    :data:`DRYRUN_MEMORY_RATIO`) and its roofline step time beside
+    ``[train]``'s step ms."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves
+
+    t0 = time.perf_counter()
+    cfg = get_config(PHI3)
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    rec = dryrun.run_cell(PHI3, "train", mesh_shape=(1, 1), cfg=cfg,
+                          shape=shape, calibrate=False)
+    fake_s = time.perf_counter() - t0
+    if rec["status"] != "ok":
+        fail(f"[dryrun_vs_card] fake run: {rec.get('error')}")
+    full = rec["full"]
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    opt = adamw.init(params)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             train_batch(cfg, 0, rows=TRAIN_BATCH, seq=TRAIN_SEQ).items()}
+    step = dryrun.cell_train_step(model, remat="full")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    real = dryrun.count_step(step, (params, opt, batch))
+    torch.cuda.synchronize()
+    real_s = time.perf_counter() - t1
+    real_peak = torch.cuda.max_memory_allocated()
+    del params, opt, batch, step
+    train_peak = TRAIN_CELL["peak_bytes"]
+    ratio = full["bytes_per_device"] / train_peak
+    roof = rec["roofline"]
+    phase("dryrun_vs_card", arch=PHI3, card=repr(smi), dtype=cfg.dtype,
+          mesh="(1, 1) fake", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+          remat="full", fake_flops=f"{full['flops_per_device']:.0f}",
+          card_flops=f"{real['flops_per_device']:.0f}",
+          fake_bytes_accessed=f"{full['bytes_per_device_accessed']:.0f}",
+          card_bytes_accessed=f"{real['bytes_per_device_accessed']:.0f}",
+          fake_gib_per_device=f"{full['bytes_per_device'] / 2 ** 30:.2f}",
+          fake_memory=json.dumps(full["memory"]),
+          card_counted_gib=f"{real['bytes_per_device'] / 2 ** 30:.2f}",
+          card_step_peak_allocated_gib=f"{real_peak / 2 ** 30:.2f}",
+          train_peak_allocated_gib=f"{train_peak / 2 ** 30:.2f}",
+          fake_over_train_peak=f"{ratio:.4f}",
+          ratio_gate=json.dumps(DRYRUN_MEMORY_RATIO),
+          roofline_step_ms=f"{1e3 * roof['step_time_s']:.1f}",
+          roofline_dominant=roof["dominant"],
+          train_step_ms=f"{1e3 * TRAIN_CELL['step_s']:.1f}",
+          fake_s=f"{fake_s:.1f}", card_step_s=f"{real_s:.1f}",
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    if full["flops_per_device"] != real["flops_per_device"]:
+        fail(f"[dryrun_vs_card] fake flops {full['flops_per_device']} != "
+             f"the card step's {real['flops_per_device']}")
+    lo, hi = DRYRUN_MEMORY_RATIO
+    if not lo <= ratio <= hi:
+        fail(f"[dryrun_vs_card] bytes a device over [train]'s peak: "
+             f"{ratio}")
 
 
 def mesh_family_losses(torch, dev, arch, mesh):

@@ -216,6 +216,14 @@ class H100Spec:
     threads_per_sm: int = 2048
     blocks_per_sm: int = 32
     smem_per_sm: int = 233472
+    # links between cards, data-sheet values, not measured (the card
+    # machine has one H100): NVLink 4 is 18 links of 25 GB/s a direction
+    # each, 450 GB/s a direction a card, among the 8 cards of one HGX
+    # H100 node; a mesh past one node crosses one 400 Gb/s NDR
+    # InfiniBand NIC a card, 50 GB/s a direction
+    nvlink_bw: float = 450e9          # bytes/s a direction, a card
+    nvlink_domain: int = 8            # cards one NVLink domain joins
+    net_bw: float = 50e9              # bytes/s a direction, a card
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,6 +8,13 @@ many ranks as the mesh has devices; :func:`init_group` starts one
 without fixing a port: a ``HashStore`` for a world of one, a
 ``FileStore`` at a path the caller names otherwise (the processes of one
 group name the same file).
+
+:func:`init_fake_group` starts a group for analysis only: this process
+is rank 0 of a world of any size on torch's ``"fake"`` backend, whose
+collectives return at once and move nothing (the counterpart of the
+JAX dry-run's 512 XLA host placeholder devices).  A mesh over it places
+DTensors as the real mesh would, so a step run on it issues rank 0's
+local ops and collectives (:mod:`repro_torch.launch.dryrun`).
 """
 from __future__ import annotations
 
@@ -47,6 +54,19 @@ def init_group(backend: Optional[str] = None, *, rank: int = 0,
         timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
 
 
+def init_fake_group(world_size: int) -> None:
+    """Start a default group of ``world_size`` ranks in which this
+    process is rank 0 and no other rank exists: the ``"fake"`` backend
+    on a ``FakeStore`` (no file, no port).  Raises if a group already
+    runs; :func:`close_group` ends it."""
+    if dist.is_initialized():
+        raise RuntimeError("a default process group is already running")
+    # importing the module registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+
+
 def close_group() -> None:
     """Destroy the default process group, if one runs."""
     if dist.is_initialized():
@@ -82,5 +102,5 @@ def make_production_mesh(*, multi_pod: bool = False):
     return make_mesh(shape, axes)
 
 
-__all__ = ["GROUP_TIMEOUT_S", "init_group", "close_group", "make_mesh",
-           "make_production_mesh"]
+__all__ = ["GROUP_TIMEOUT_S", "init_group", "init_fake_group",
+           "close_group", "make_mesh", "make_production_mesh"]

@@ -1,4 +1,4 @@
-"""Roofline terms of a (arch x shape) cell, the analytic half (port of
+"""Roofline terms of an (arch x shape x mesh) cell (port of
 ``repro.launch.roofline``).
 
 The peaks are one NVIDIA H100 SXM's (:class:`~repro_torch.core.
@@ -6,20 +6,24 @@ cost_model.H100Spec`): 989e12 FLOP/s for bf16 on the tensor cores
 (dense) and 3.35e12 B/s of HBM3, in place of the JAX module's TPU v5e
 constants.  Per cell, in seconds:
 
-    compute = flops / (chips * 989e12)
-    memory  = bytes / (chips * 3.35e12)
+    compute    = flops / (chips * 989e12)
+    memory     = bytes / (chips * 3.35e12)
+    collective = collective bytes a card / link
+
+The link (:func:`link_bw`) is NVLink's 450e9 B/s a direction for a mesh
+of at most 8 cards (one NVLink domain, an HGX H100 node) and the
+network's 50e9 B/s (one 400 Gb/s NIC a card) for a mesh that spans
+nodes: the production 16 x 16 and 2 x 16 x 16 meshes take 50e9, as
+JAX's ICI term took 50e9.  Both are data-sheet values, not measured.
+The totals come from the dry-run (:mod:`repro_torch.launch.dryrun`):
+flops and bytes a device counted on rank 0's local ops, collective
+bytes from :mod:`repro_torch.launch.hlo_analysis`.
 
 ``MODEL_FLOPS`` uses the 6 N D (train) / 2 N D (inference) convention
 with N the active parameters (a moe model counts its top-k routed and
 shared experts only).  :func:`flash_attention_cost` is the attention
-kernel's exact analytic footprint, which the dry-run adds to a compile
+kernel's exact analytic footprint, which the dry-run adds to a step
 whose attention is the ``"stub"`` backend.
-
-Not here yet: ``make_terms`` and the collective term.  They take the
-dry-run's compiled flops, bytes and collective bytes (JAX's
-``cost_analysis`` and partitioned HLO), whose torch counterparts come
-with the port's dry-run tools; the collective term then reads the
-NVLink rate in place of the TPU's ICI.
 """
 from __future__ import annotations
 
@@ -31,6 +35,14 @@ from repro_torch.core.cost_model import H100Spec
 
 PEAK_FLOPS = H100Spec.tc_peak_flops   # bf16 FLOP/s per card (dense)
 HBM_BW = H100Spec.hbm_bw              # bytes/s per card
+
+
+def link_bw(chips: int) -> float:
+    """Bytes/s a card sends a direction on a mesh of ``chips`` cards:
+    NVLink within one domain, the network past it."""
+    if chips <= H100Spec.nvlink_domain:
+        return H100Spec.nvlink_bw
+    return H100Spec.net_bw
 
 
 @dataclasses.dataclass
@@ -113,6 +125,26 @@ def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
     return 2.0 * n * shape.global_batch
 
 
+def make_terms(*, arch: str, shape: ShapeConfig, mesh_name: str,
+               chips: int, hlo_flops_global: float,
+               hlo_bytes_global: float, coll_bytes_per_chip: float,
+               cfg: ModelConfig,
+               bytes_per_device: Optional[float] = None) -> RooflineTerms:
+    """The cell's :class:`RooflineTerms` from the dry-run's global flops
+    and bytes and its collective bytes a card (JAX's ``make_terms`` on
+    the H100's peaks and :func:`link_bw`)."""
+    return RooflineTerms(
+        arch=arch, shape=shape.name, mesh=mesh_name, chips=chips,
+        hlo_flops=hlo_flops_global, hlo_bytes=hlo_bytes_global,
+        collective_bytes=coll_bytes_per_chip,
+        model_flops=model_flops(cfg, shape),
+        compute_s=hlo_flops_global / (chips * PEAK_FLOPS),
+        memory_s=hlo_bytes_global / (chips * HBM_BW),
+        collective_s=coll_bytes_per_chip / link_bw(chips),
+        bytes_per_device=bytes_per_device,
+    )
+
+
 def extrapolate(f_a: float, f_b: float, l_a: int, l_b: int,
                 l_full: int) -> float:
     """Linear extension ``f(L) = base + L * slope`` from two points."""
@@ -181,4 +213,5 @@ def flash_attention_cost(cfg: ModelConfig, shape: ShapeConfig
 
 
 __all__ = ["PEAK_FLOPS", "HBM_BW", "RooflineTerms", "active_params",
-           "model_flops", "extrapolate", "flash_attention_cost"]
+           "model_flops", "link_bw", "make_terms", "extrapolate",
+           "flash_attention_cost"]

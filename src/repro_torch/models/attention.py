@@ -27,6 +27,17 @@ has no strategy for the grouped product's flattening of a sharded head
 dimension.  So q, k and v are first redistributed explicitly to one
 placement that shards at most rows and heads (:func:`_local_placements`),
 and the result is a DTensor of that placement.
+
+The decode attentions do the same against a sharded cache
+(:func:`_decode_local`, :func:`_paged_local`): each mesh dimension keeps
+the cache's split of rows (``Shard(0)``; the per-row ``pos`` and
+``starts`` are cut to the rank's rows) or of KV heads (``Shard(1)``),
+q is brought to it, and a cache split another way is gathered for the
+read.  The in-place cache writes (:func:`update_kv_cache`,
+:func:`paged_update_kv`) act on the cache's local shard, k and v brought
+to its placements first, so a write never moves the cache.  A paged
+pool may be split over its KV heads only (its first dimension is
+blocks, not rows); a contiguous cache over rows and KV heads only.
 """
 from __future__ import annotations
 
@@ -39,7 +50,8 @@ from repro_torch.kernels.decode_attention import (
     paged_decode_attention_scheduled as paged_kernel)
 from repro_torch.kernels.flash_attention import flash_attention_scheduled
 from repro_torch.models.layers import (ParamInit, Params, RopeTables,
-                                       apply_rope, dense, rmsnorm)
+                                       apply_rope, dense, placed_as,
+                                       rmsnorm)
 
 BACKENDS = ("plain", "cuda", "chunked", "stub")
 NEG = -1e30
@@ -234,8 +246,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     cache is a rolling buffer of S slots (slot ``p % S`` holds position
     p) and the valid slots are ``kpos <= min(pos, S-1)``: every slot
     once the buffer has wrapped.  The kernel's ``kpos <= pos`` is the
-    same rule, so ``"cuda"`` takes no window (as the Pallas kernel)."""
+    same rule, so ``"cuda"`` takes no window (as the Pallas kernel).
+    A DTensor cache runs on local shards (see the module docstring)."""
     _check_backend(backend)
+    from torch.distributed.tensor import DTensor
+    if isinstance(k_cache, DTensor):
+        return _decode_local(q, k_cache, v_cache, pos, window=window,
+                             backend=backend, starts=starts,
+                             schedule=schedule)
     if backend == "cuda":
         return decode_kernel(q.contiguous(), k_cache, v_cache, pos,
                              starts=starts, schedule=schedule)
@@ -258,6 +276,81 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgk,bhkd->bhgd", probs, v_cache.float())
     return out.reshape(b, hq, 1, d).to(q.dtype)
+
+
+def _cache_placements(cache, allowed: Tuple[int, ...]) -> list:
+    """Per mesh dimension, ``cache``'s ``Shard(d)`` for ``d`` in
+    ``allowed``, ``Replicate()`` otherwise."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [pl if any(pl == Shard(d) for d in allowed) else Replicate()
+            for pl in cache.placements]
+
+
+def _rows_local(t, mesh, place):
+    """A per-row tensor ``t`` [B] (plain, the same on every rank, or a
+    DTensor) cut to this rank's rows under ``place``'s ``Shard(0)``
+    dimensions; a scalar (plain or DTensor) as a plain tensor; None
+    passes."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if t is None:
+        return None
+    if not isinstance(t, DTensor):
+        t = torch.as_tensor(t)
+        if t.dim() == 0:
+            return t
+    if t.dim() == 0:
+        return t.full_tensor()
+    rows = [Shard(0) if pl == Shard(0) else Replicate() for pl in place]
+    return placed_as(t, mesh, rows).to_local()
+
+
+def _decode_local(q, k_cache, v_cache, pos, *, starts, **kw):
+    """:func:`decode_attention` against a DTensor cache, on local shards
+    (see the module docstring)."""
+    from torch.distributed.tensor import DTensor
+    mesh = k_cache.device_mesh
+    place = _cache_placements(k_cache, (0, 1))
+    ql, kl, vl = (placed_as(t, mesh, place).to_local()
+                  for t in (q, k_cache, v_cache))
+    out = decode_attention(ql, kl, vl, _rows_local(pos, mesh, place),
+                           starts=_rows_local(starts, mesh, place), **kw)
+    return DTensor.from_local(out, mesh, place, run_check=False)
+
+
+def _full(t):
+    """A DTensor gathered whole (others as they are)."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _pool_placements(pool) -> list:
+    """A paged pool's placements, which may split its KV heads only."""
+    place = _cache_placements(pool, (1,))
+    if list(pool.placements) != place:
+        raise ValueError(f"a paged pool may be sharded over its KV heads "
+                         f"(dim 1) only, got {tuple(pool.placements)}")
+    return place
+
+
+def _paged_local(q, pool_k, pool_v, tables, pos, **kw):
+    """:func:`paged_decode_attention` against DTensor pools, on local
+    shards: rows replicated, KV heads as the pool splits them."""
+    from torch.distributed.tensor import DTensor
+    mesh = pool_k.device_mesh
+    place = _pool_placements(pool_k)
+    out = paged_decode_attention(
+        placed_as(q, mesh, place).to_local(), pool_k.to_local(),
+        pool_v.to_local(), _full(tables), _full(pos), **kw)
+    return DTensor.from_local(out, mesh, place, run_check=False)
+
+
+def _local_heads(pool, hkv: int) -> torch.Tensor:
+    """The global indices of the KV heads in ``pool``'s local shard."""
+    from torch.distributed.tensor import Replicate, Shard
+    heads = torch.arange(hkv, device=pool.to_local().device)
+    place = [Shard(0) if pl == Shard(1) else Replicate()
+             for pl in _pool_placements(pool)]
+    return placed_as(heads, pool.device_mesh, place).to_local()
 
 
 def paged_slots(tables: torch.Tensor, pos: torch.Tensor, hkv: int,
@@ -283,7 +376,24 @@ def paged_update_kv(pool_k: torch.Tensor, pool_v: torch.Tensor,
     The JAX version rebuilds the pools (``.at[].set``); this one writes
     them in place with ``index_copy_`` and returns the same tensors.
     Idle rows point at the reserved block 0, so their writes land in the
-    sink."""
+    sink.  DTensor pools are written on their local shards: ``slots``
+    (global, from the pool's full shape) are renumbered for the local
+    KV heads."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(pool_k, DTensor):
+        mesh = pool_k.device_mesh
+        place = _pool_placements(pool_k)
+        hkv, bs = pool_k.shape[1], pool_k.shape[2]
+        heads = _local_heads(pool_k, hkv)
+        sl = _full(slots).reshape(-1, hkv)[:, heads]       # [B, HKV_l]
+        local = ((sl // (hkv * bs)) * heads.numel()
+                 + torch.arange(heads.numel(), device=sl.device)) * bs \
+            + sl % bs
+        paged_update_kv(pool_k.to_local(), pool_v.to_local(),
+                        placed_as(k, mesh, place).to_local(),
+                        placed_as(v, mesh, place).to_local(),
+                        local.reshape(-1))
+        return pool_k, pool_v
     nb, hkv, bs, d = pool_k.shape
     n = k.shape[0] * hkv
     pool_k.view(nb * hkv * bs, d).index_copy_(
@@ -303,8 +413,13 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
     ``b`` attends to logical keys ``0..pos[b]`` through its table; the
     plain path gathers the table's blocks (reference semantics), the
     ``"cuda"`` kernel reads them in place, split as ``schedule`` says
-    (its ``block_kv`` rounded up to the pool block)."""
+    (its ``block_kv`` rounded up to the pool block).  DTensor pools run
+    on local shards (see the module docstring)."""
     _check_backend(backend)
+    from torch.distributed.tensor import DTensor
+    if isinstance(pool_k, DTensor):
+        return _paged_local(q, pool_k, pool_v, tables, pos,
+                            backend=backend, schedule=schedule)
     if backend == "cuda":
         return paged_kernel(q.contiguous(), pool_k, pool_v, tables, pos,
                             schedule=schedule)
@@ -391,10 +506,29 @@ def qkv_project(x: torch.Tensor, p: Params, *, n_heads: int, n_kv: int,
     return q.contiguous(), k.contiguous(), v.contiguous()
 
 
+def merge_heads(ctx: torch.Tensor) -> torch.Tensor:
+    """ctx [B,H,S,hd] -> [B,S,H*hd].  A DTensor is merged on its local
+    shard (rows, heads or sequence split as ctx splits them): the
+    backward pass splits the merged gradient into heads again, which
+    DTensor refuses (torch 2.11) when its own choice of placement has
+    split the merged dimension across heads; the local merge's backward
+    brings the gradient to ctx's placements first."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(ctx, DTensor):
+        b_, h, s, hd = ctx.shape
+        return ctx.transpose(1, 2).reshape(b_, s, h * hd)
+    to = {0: 0, 1: 2, 2: 1}          # ctx's dim -> the merged one's
+    if any(pl.is_shard() and pl.dim not in to for pl in ctx.placements):
+        raise ValueError(f"head_dim of ctx is split: {ctx.placements}")
+    place = [Shard(to[pl.dim]) if pl.is_shard() else pl
+             for pl in ctx.placements]
+    return DTensor.from_local(merge_heads(ctx.to_local()), ctx.device_mesh,
+                              place, run_check=False)
+
+
 def attn_out(ctx: torch.Tensor, p: Params) -> torch.Tensor:
-    """ctx [B,H,S,hd] -> [B,S,D]."""
-    b_, h, s, hd = ctx.shape
-    return dense(ctx.transpose(1, 2).reshape(b_, s, h * hd), p["wo"])
+    """ctx [B,H,S,hd] -> [B,S,D] (:func:`merge_heads`, then ``wo``)."""
+    return dense(merge_heads(ctx), p["wo"])
 
 
 def update_kv_cache(cache_k: torch.Tensor, cache_v: torch.Tensor,
@@ -406,7 +540,22 @@ def update_kv_cache(cache_k: torch.Tensor, cache_v: torch.Tensor,
     ``pos % S`` of a rolling buffer of S slots), in place where the JAX
     version rebuilds the cache; returns the same tensors.  The slot is
     an index op on the device, so the host reads no value and a captured
-    step writes where ``pos`` points at each replay."""
+    step writes where ``pos`` points at each replay.  A DTensor cache is
+    written on its local shard (rows and KV heads; see the module
+    docstring)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(cache_k, DTensor):
+        mesh = cache_k.device_mesh
+        place = _cache_placements(cache_k, (0, 1))
+        if list(cache_k.placements) != place:
+            raise ValueError(f"a cache written in place may be sharded "
+                             f"over rows and KV heads only, got "
+                             f"{tuple(cache_k.placements)}")
+        update_kv_cache(cache_k.to_local(), cache_v.to_local(),
+                        placed_as(k, mesh, place).to_local(),
+                        placed_as(v, mesh, place).to_local(),
+                        _rows_local(pos, mesh, place), window=window)
+        return cache_k, cache_v
     idx = pos.reshape(1)
     if window is not None:
         idx = torch.remainder(idx, cache_k.shape[2])
@@ -421,4 +570,4 @@ __all__ = ["BACKENDS", "attention", "attention_chunked", "cross_attention",
            "decode_attention", "paged_slots",
            "paged_update_kv",
            "paged_decode_attention", "attn_params", "qkv_project",
-           "attn_out", "update_kv_cache"]
+           "merge_heads", "attn_out", "update_kv_cache"]

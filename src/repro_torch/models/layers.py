@@ -165,8 +165,10 @@ def on_replicated(fn: Callable, x: torch.Tensor, p: Params, **kw) -> Any:
     there (the same on every rank, so their gradients are replicated
     too), each tensor of the result made a replicated DTensor again and
     ``out`` redistributed to ``x``'s placements (the backward sums the
-    ranks' output gradients).  The explicit redistribution of a layer
-    whose ops have no dependable DTensor sharding strategy."""
+    ranks' output gradients; a ``Partial`` placement of ``x``, a decode
+    step's residual, becomes ``Replicate``).  The explicit
+    redistribution of a layer whose ops have no dependable DTensor
+    sharding strategy."""
     from torch.distributed.tensor import DTensor, Replicate
     mesh = x.device_mesh
     rep = [Replicate()] * mesh.ndim
@@ -189,8 +191,46 @@ def on_replicated(fn: Callable, x: torch.Tensor, p: Params, **kw) -> Any:
 
     out, *rest = fn(local(x), local(p),
                     **{k: local(v) for k, v in kw.items()})
-    return (wrap(out).redistribute(mesh, x.placements),
+    place = [Replicate() if pl.is_partial() else pl for pl in x.placements]
+    return (wrap(out).redistribute(mesh, place),
             *(wrap(r) for r in rest))
+
+
+def placed_as(t: torch.Tensor, mesh, place) -> torch.Tensor:
+    """``t`` as a DTensor of placements ``place`` on ``mesh``: a DTensor
+    redistributed, a plain tensor (the same value on every rank) taken
+    as replicated and cut to this rank's shard (no communication)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return t.redistribute(mesh, place)
+
+
+def reduced(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with each ``Partial`` placement of a DTensor summed to
+    ``Replicate`` (an all-reduce; DTensor would reduce it before the
+    next nonlinear op anyway, and on torch 2.11 picks no valid strategy
+    for some products of a partial operand); other tensors pass."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(t, DTensor) or not any(pl.is_partial()
+                                             for pl in t.placements):
+        return t
+    return t.redistribute(t.device_mesh, [
+        Replicate() if pl.is_partial() else pl for pl in t.placements])
+
+
+def copy_local_(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``dst.copy_(src)``; for a DTensor ``dst`` (a sharded cache
+    updated in place) on its local shard, ``src`` first brought to
+    ``dst``'s placements, so the write stays in ``dst``'s own storage
+    and no placement of ``dst`` changes."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(dst, DTensor):
+        return dst.copy_(src)
+    dst.to_local().copy_(
+        placed_as(src, dst.device_mesh, dst.placements).to_local())
+    return dst
 
 
 def identity_shard(x: torch.Tensor, where: str = "boundary"
@@ -339,12 +379,16 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
 
     As the JAX layer, the label's log-probability is a one-hot
     contraction with the float32 logits (under a vocabulary-sharded
-    head it partitions where a gather would not)."""
+    head it partitions where a gather would not).  The one-hot is an
+    explicit comparison with ``arange(V)``: ``F.one_hot`` scatters on
+    real tensors and compares on fake ones, and the dry-run's op count
+    of a fake step must equal a real step's."""
     lf = logits.float()
     labels = labels.to(lf.device)
     lse = torch.logsumexp(lf, dim=-1)
-    onehot = F.one_hot(labels.clamp(min=0).long(),
-                       logits.shape[-1]).to(torch.float32)
+    vocab = torch.arange(logits.shape[-1], device=lf.device)
+    onehot = (labels.clamp(min=0).long()[..., None]
+              == vocab).to(torch.float32)
     ll = torch.einsum("...v,...v->...", lf, onehot)
     nll = lse - ll
     mask = (labels >= 0).to(torch.float32)

@@ -10,7 +10,11 @@ functional entry points of :mod:`repro_torch.models.transformer`, or of
 tree and the parameters' shapes and dtypes on the meta device (nothing
 drawn, no storage), the inputs of :mod:`repro_torch.runtime.sharding`.
 Every entry point takes ``shard_fn`` (default: the identity), passed to
-the model where the JAX package passes its own.
+the model where the JAX package passes its own.  ``forward``,
+``prefill`` and ``decode_step`` of DTensor parameters (a mesh) run under
+``implicit_replication`` (:func:`~repro_torch.runtime.sharding.meshed`),
+as the train step does, so that the plain tensors a step makes (rope
+tables, masks, positions) join the DTensors as replicated.
 """
 from __future__ import annotations
 
@@ -26,6 +30,13 @@ from repro_torch.models import encdec, transformer
 from repro_torch.models.layers import dtype_of, identity_shard
 
 META = torch.device("meta")
+
+
+def _meshed(params):
+    """:func:`repro_torch.runtime.sharding.meshed` (imported at the call:
+    ``repro_torch.runtime`` imports this module)."""
+    from repro_torch.runtime.sharding import meshed
+    return meshed(params)
 
 
 def _no_audio_masks(seq_starts=None, block_tables=None) -> None:
@@ -86,13 +97,16 @@ class Model:
                 shard_fn: Callable = identity_shard):
         """Teacher-forced logits and extras; see
         :func:`transformer.forward` (audio: :func:`encdec.forward`)."""
-        if self.audio:
-            _no_audio_masks(seq_starts)
-            return encdec.forward(params, self.cfg, batch, backend=backend,
-                                  shard_fn=shard_fn)
-        return transformer.forward(params, self.cfg, batch,
-                                   backend=backend, seq_starts=seq_starts,
-                                   schedules=schedules, shard_fn=shard_fn)
+        with _meshed(params):
+            if self.audio:
+                _no_audio_masks(seq_starts)
+                return encdec.forward(params, self.cfg, batch,
+                                      backend=backend, shard_fn=shard_fn)
+            return transformer.forward(params, self.cfg, batch,
+                                       backend=backend,
+                                       seq_starts=seq_starts,
+                                       schedules=schedules,
+                                       shard_fn=shard_fn)
 
     def prefill(self, params, batch, *, backend: str = "plain",
                 seq_starts=None, schedules=None,
@@ -101,13 +115,16 @@ class Model:
         (``schedules``: a ScheduleBundle or None).  The audio prefill
         (:func:`encdec.prefill`) takes no schedules, as in JAX: its
         kernels launch at their defaults."""
-        if self.audio:
-            _no_audio_masks(seq_starts)
-            return encdec.prefill(params, self.cfg, batch, backend=backend,
-                                  shard_fn=shard_fn)
-        return transformer.prefill(params, self.cfg, batch,
-                                   backend=backend, seq_starts=seq_starts,
-                                   schedules=schedules, shard_fn=shard_fn)
+        with _meshed(params):
+            if self.audio:
+                _no_audio_masks(seq_starts)
+                return encdec.prefill(params, self.cfg, batch,
+                                      backend=backend, shard_fn=shard_fn)
+            return transformer.prefill(params, self.cfg, batch,
+                                       backend=backend,
+                                       seq_starts=seq_starts,
+                                       schedules=schedules,
+                                       shard_fn=shard_fn)
 
     def decode_step(self, params, cache, tokens, pos, *,
                     backend: str = "plain", seq_starts=None,
@@ -115,17 +132,19 @@ class Model:
                     shard_fn: Callable = identity_shard):
         """One token per row; see :func:`transformer.decode_step` (audio:
         :func:`encdec.decode_step`)."""
-        if self.audio:
-            _no_audio_masks(seq_starts, block_tables)
-            return encdec.decode_step(params, self.cfg, cache, tokens, pos,
-                                      backend=backend, schedules=schedules,
-                                      shard_fn=shard_fn)
-        return transformer.decode_step(params, self.cfg, cache, tokens,
-                                       pos, backend=backend,
-                                       seq_starts=seq_starts,
-                                       block_tables=block_tables,
-                                       schedules=schedules,
-                                       shard_fn=shard_fn)
+        with _meshed(params):
+            if self.audio:
+                _no_audio_masks(seq_starts, block_tables)
+                return encdec.decode_step(params, self.cfg, cache, tokens,
+                                          pos, backend=backend,
+                                          schedules=schedules,
+                                          shard_fn=shard_fn)
+            return transformer.decode_step(params, self.cfg, cache, tokens,
+                                           pos, backend=backend,
+                                           seq_starts=seq_starts,
+                                           block_tables=block_tables,
+                                           schedules=schedules,
+                                           shard_fn=shard_fn)
 
     def init_cache(self, bsz: int, max_len: int, device: torch.device):
         """Empty contiguous caches (ssm: zero recurrent states; hybrid:

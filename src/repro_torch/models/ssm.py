@@ -4,8 +4,8 @@ selective SSM and the RG-LRU of recurrentgemma.
 ``mamba_block`` has two backends, as the JAX block has two branches:
 
 * ``"plain"`` mirrors the XLA branch: it materialises ``exp(dt·A)`` and
-  ``dt·B·x`` as [B,S,Di,N] tensors, runs :func:`linear_scan` and keeps
-  ``y`` in float32;
+  ``dt·B·x`` as [B,S,Di,N] tensors, runs :func:`linear_scan` (JAX's
+  associative scan) and keeps ``y`` in float32;
 * ``"cuda"`` mirrors the Pallas branch: it calls the port's
   :func:`~repro_torch.kernels.ssm_scan.ssm_scan_scheduled` wrapper (the
   CUDA kernel on the card, its plain version on the CPU), which returns ``y`` rounded to
@@ -30,25 +30,48 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssm_scan import ssm_scan_scheduled
 from repro_torch.models.attention import BACKENDS
-from repro_torch.models.layers import ParamInit, Params, dense, on_replicated
+from repro_torch.models.layers import (ParamInit, Params, dense, on_replicated,
+                                       placed_as, reduced)
 
 
 def linear_scan(a: torch.Tensor, b: torch.Tensor, dim: int = 1,
                 h0: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``h_t = a_t h_{t-1} + b_t`` along ``dim``, every ``h_t`` returned.
+    """``h_t = a_t h_{t-1} + b_t`` along ``dim``, every ``h_t`` returned,
+    as the JAX version computes it: ``h0`` (the shape without ``dim``)
+    folded into the first step (``b_0' = a_0 h0 + b_0``), then the
+    associative scan (:func:`associative_scan`, ``ceil(log2 S)``
+    doubling passes with JAX's combine; the float32 sums are taken in
+    another tree than XLA's).  DTensors scan on their local shards (see
+    :func:`_linear_scan_local`)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(a, DTensor):
+        return _linear_scan_local(a, b, dim, h0)
+    if h0 is not None:
+        first = a.select(dim, 0) * h0 + b.select(dim, 0)
+        b = torch.cat([first.unsqueeze(dim),
+                       b.narrow(dim, 1, b.shape[dim] - 1)], dim=dim)
+    return associative_scan(a, b, dim)
 
-    ``h0`` (the shape without ``dim``) is folded into the first step as
-    the JAX version does (``b_0' = a_0 h0 + b_0``).  Torch has no
-    associative scan, so this is a sequential loop over ``dim``; the
-    recurrence is the same, the float32 sums are taken in another order
-    than XLA's scan tree."""
-    a_t, b_t = a.movedim(dim, 0), b.movedim(dim, 0)
-    h = b_t[0] if h0 is None else a_t[0] * h0 + b_t[0]
-    hs = [h]
-    for t in range(1, a_t.shape[0]):
-        h = a_t[t] * h + b_t[t]
-        hs.append(h)
-    return torch.stack(hs, dim=dim)
+
+def _linear_scan_local(a, b, dim: int, h0) -> torch.Tensor:
+    """:func:`linear_scan` of DTensors on each rank's local shards: the
+    recurrence is elementwise in every dimension but ``dim``, which is
+    gathered (a ``Partial`` summed) first, so its passes' slices and
+    concatenations never go through DTensor's sharding propagation."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh, nd = a.device_mesh, a.ndim
+    dim %= nd
+    place = [Replicate() if pl.is_partial()
+             or (pl.is_shard() and pl.dim % nd == dim) else pl
+             for pl in a.placements]
+    hl = None
+    if h0 is not None:
+        h_place = [Shard(pl.dim % nd - (pl.dim % nd > dim))
+                   if pl.is_shard() else pl for pl in place]
+        hl = placed_as(h0, mesh, h_place).to_local()
+    out = linear_scan(placed_as(a, mesh, place).to_local(),
+                      placed_as(b, mesh, place).to_local(), dim, hl)
+    return DTensor.from_local(out, mesh, place, run_check=False)
 
 
 def associative_scan(a: torch.Tensor, b: torch.Tensor, dim: int = 1
@@ -107,7 +130,10 @@ def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     float32 in tap order, adds the bias, then casts to x's dtype."""
     k = w.shape[-1]
     if state is None:
-        xp = F.pad(x, (0, 0, k - 1, 0))
+        # zeros before the sequence (a cat: DTensor's pad strategy fails
+        # on torch 2.11 for an inner width split over the model axis)
+        xp = torch.cat([x.new_zeros((x.shape[0], k - 1, x.shape[2])), x],
+                       dim=1)
     else:
         xp = torch.cat([state.to(x.dtype), x], dim=1)
     s = x.shape[1]
@@ -157,7 +183,7 @@ def mamba_block(x: torch.Tensor, p: Params, *, state: int, conv: int,
     if seq_valid is not None:
         xc = torch.where(seq_valid[..., None], xc, torch.zeros_like(xc))
 
-    xdbl = dense(xc, p["x_proj"]).float()               # [B,S,dr+2N]
+    xdbl = reduced(dense(xc, p["x_proj"])).float()      # [B,S,dr+2N]
     dt = xdbl[..., :dt_rank]
     bmat = xdbl[..., dt_rank:dt_rank + state]
     cmat = xdbl[..., dt_rank + state:]

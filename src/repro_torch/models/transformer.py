@@ -37,7 +37,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.layers import (ParamInit, Params, RopeTables,
-                                       dtype_of, embed_lookup,
+                                       copy_local_, dtype_of, embed_lookup,
                                        identity_shard, mlp,
                                        mlp_params, rmsnorm, rope_tables,
                                        softmax_xent)
@@ -305,8 +305,12 @@ def _window_cache(k: torch.Tensor, seq: int, win: int) -> torch.Tensor:
     entry of absolute position p sits at rolling slot p % win."""
     if seq <= win:
         return k
-    return torch.roll(k[..., seq - win:, :], shifts=(seq - win) % win,
-                      dims=-2)
+    last, r = k[..., seq - win:, :], (seq - win) % win
+    if r == 0:
+        return last
+    # torch.roll along -2, as two slices (DTensor has no roll strategy)
+    return torch.cat([last[..., win - r:, :], last[..., :win - r, :]],
+                     dim=-2)
 
 
 def _hybrid_forward(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
@@ -668,8 +672,8 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Any],
             x, new = _mamba_block(x, layer_params(params["layers"], i),
                                   cfg, backend=backend, cache=lc,
                                   schedule=_field(schedules, "ssm_scan"))
-            lc["ssm"].copy_(new["ssm"])
-            lc["conv"].copy_(new["conv"])
+            copy_local_(lc["ssm"], new["ssm"])
+            copy_local_(lc["conv"], new["conv"])
         return _head(params, cfg, x), cache
     starts = (None if seq_starts is None else
               torch.as_tensor(seq_starts, device=dev).to(torch.int64))
@@ -697,8 +701,8 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Any],
                 lc = {n: t[g] for n, t in lc.items()}
             if kind == "rglru":
                 x, new = _rglru_layer(x, lp, cfg, cache=lc)
-                lc["h"].copy_(new["h"])
-                lc["conv"].copy_(new["conv"])
+                copy_local_(lc["h"], new["h"])
+                copy_local_(lc["conv"], new["conv"])
             else:
                 x = _decode_block(
                     x, lp, lc["k"], lc["v"], cfg, pos, rope,

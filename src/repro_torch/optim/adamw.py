@@ -23,7 +23,11 @@ On a mesh the parameters, gradients and moments are DTensors of one
 placement a leaf (the trainer brings each gradient to its parameter's
 placements first): the update then runs on each rank's local shard, and
 the global norm sums the shards' squares over the mesh dimensions that
-shard the leaf.
+shard the leaf.  A parameter placed otherwise than its moments (ZeRO-1:
+parameters replicated over the data axes, moments sharded) is updated
+on the moments' shards: the parameter and its gradient are cut to them
+(no communication), and the updated shard is gathered back into the
+parameter.
 """
 from __future__ import annotations
 
@@ -73,6 +77,13 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     writing it writes the DTensor); a plain tensor as it is."""
     from torch.distributed.tensor import DTensor
     return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _placed_apart(p: Any, m: Any) -> bool:
+    """True for a DTensor parameter placed otherwise than its moment."""
+    from torch.distributed.tensor import DTensor
+    return (isinstance(p, DTensor)
+            and tuple(p.placements) != tuple(m.placements))
 
 
 def _sum_over_shards(part: torch.Tensor, like: Any) -> torch.Tensor:
@@ -173,10 +184,24 @@ def apply(cfg: AdamWConfig, params: Any, grads: Any, state: AdamWState,
     with torch.no_grad():
         for p, g, m, v in zip(leaves(params), leaves(grads),
                               leaves(state.m), leaves(state.v)):
-            p, g, m, v = _local(p), _local(g), _local(m), _local(v)
-            for pc, gc, mc, vc in zip(_chunks(p), _chunks(g.contiguous()),
-                                      _chunks(m), _chunks(v)):
+            on_moments = _placed_apart(p, m)
+            if on_moments:
+                whole = p
+                p, g = (t.redistribute(m.device_mesh, m.placements)
+                        for t in (p.detach(), g))
+            # a parameter updated in place must be its own storage; a
+            # shard cut for the moments is copied back whole below
+            pl = _local(p).contiguous() if on_moments else _local(p)
+            gl = _local(g).contiguous()
+            for pc, gc, mc, vc in zip(_chunks(pl), _chunks(gl),
+                                      _chunks(_local(m)), _chunks(_local(v))):
                 _update_chunk(cfg, pc, gc, mc, vc, bc1, bc2, lr)
+            if on_moments:
+                from torch.distributed.tensor import DTensor
+                shard = DTensor.from_local(pl, m.device_mesh, m.placements,
+                                           run_check=False)
+                _local(whole).copy_(_local(shard.redistribute(
+                    whole.device_mesh, whole.placements)))
     return (params, AdamWState(step=step, m=state.m, v=state.v),
             {"grad_norm": gnorm})
 

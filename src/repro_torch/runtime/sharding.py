@@ -35,6 +35,7 @@ A mesh is any object with ``mesh_dim_names`` and ``shape`` (a
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -239,6 +240,26 @@ def make_activation_shard_fn(mesh, rules: ShardingRules):
     return shard_fn
 
 
+def is_dtensor(t: Any) -> bool:
+    """True for a DTensor."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def meshed(tree: Any):
+    """``implicit_replication`` when a leaf of ``tree`` (a parameter
+    tree) is a DTensor, else a null context: plain tensors a meshed step
+    makes inside itself (rope tables, masks, positions) then join
+    DTensors as replicated.  The train step and the model's prefill,
+    forward and decode entry points run under it."""
+    from repro_torch.tree import leaves
+    if any(is_dtensor(p) for p in leaves(tree)):
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        return implicit_replication()
+    return contextlib.nullcontext()
+
+
 def mesh_contains(mesh, axis: str) -> bool:
     """True when ``mesh`` has an axis named ``axis``."""
     return axis in tuple(mesh.mesh_dim_names)
@@ -247,4 +268,5 @@ def mesh_contains(mesh, axis: str) -> bool:
 __all__ = ["DEFAULT_RULES", "ShardingRules", "Spec", "resolve_spec",
            "tree_specs", "batch_spec", "batch_specs", "cache_specs",
            "placements", "distribute", "distribute_tree",
-           "make_activation_shard_fn", "mesh_contains"]
+           "make_activation_shard_fn", "is_dtensor", "meshed",
+           "mesh_contains"]

@@ -37,7 +37,6 @@ updates the parameters and the optimizer state in place (see
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import functools
 import logging
@@ -85,32 +84,15 @@ class TrainConfig:
     device: DeviceLike = None
 
 
-def _is_dtensor(t: Any) -> bool:
-    """True for a DTensor."""
-    from torch.distributed.tensor import DTensor
-    return isinstance(t, DTensor)
-
-
 def _full(t: torch.Tensor) -> torch.Tensor:
     """A DTensor metric gathered to a plain tensor (others as they are)."""
-    return t.full_tensor() if _is_dtensor(t) else t
-
-
-def _meshed(params: Params):
-    """``implicit_replication`` when the parameters are DTensors (plain
-    tensors made inside the step join them as replicated), else a
-    null context."""
-    if any(_is_dtensor(p) for p in leaves(params)):
-        from torch.distributed.tensor.experimental import \
-            implicit_replication
-        return implicit_replication()
-    return contextlib.nullcontext()
+    return t.full_tensor() if shd.is_dtensor(t) else t
 
 
 def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """Gradient ``g`` with parameter ``p``'s placements (a reduce for a
     ``Partial`` gradient); plain tensors pass."""
-    if _is_dtensor(p) and tuple(g.placements) != tuple(p.placements):
+    if shd.is_dtensor(p) and tuple(g.placements) != tuple(p.placements):
         return g.redistribute(p.device_mesh, p.placements)
     return g
 
@@ -147,7 +129,7 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
         for p in flat:
             if not p.requires_grad:
                 p.requires_grad_(True)
-        with _meshed(params):
+        with shd.meshed(params):
             loss, metrics = model.loss_fn(params, batch, backend=backend,
                                           remat=remat, schedules=schedules,
                                           shard_fn=shard_fn)

@@ -464,3 +464,186 @@ def test_launch_train_devices_mesh():
     plain = _done(["--device", "cpu"])
     np.testing.assert_allclose(meshed, plain, rtol=0,
                                atol=LAUNCH_ATOL + 1e-9)
+
+
+SERVE_TOL = 1e-5
+SERVE_ARCHS = {"dense": "qwen3-32b-smoke", "moe": "qwen2-moe-a2.7b-smoke",
+               "ssm": "falcon-mamba-7b-smoke",
+               "hybrid": "recurrentgemma-9b-smoke",
+               "vlm": "paligemma-3b-smoke",
+               "audio": "whisper-large-v3-smoke"}
+
+TORCH_MESHED_SERVE = """
+from torch.distributed.tensor import DTensor
+from repro_torch.configs import get_config
+from repro_torch.models import build_model
+from repro_torch.runtime import sharding as shd
+from repro_torch.tree import flatten_with_paths
+
+cfg = get_config("%(arch)s")
+m = build_model(cfg)
+mesh = make_mesh((2, 2), ("data", "model"))
+rules = shd.ShardingRules()
+sf = shd.make_activation_shard_fn(mesh, rules)
+full = lambda t: t.full_tensor() if isinstance(t, DTensor) else t
+err = {}
+
+def note(name, got, want):
+    err[name] = max(err.get(name, 0.0),
+                    float((full(got) - want).abs().max()))
+
+def placed(tree, specs):
+    return shd.distribute_tree(tree, specs, mesh)
+
+params = m.init(0, "cpu")
+dp = placed(params, shd.tree_specs(m.axes_tree(), params, mesh, rules))
+g = torch.Generator().manual_seed(1)
+B, S = 2, 12
+batch = {k: torch.randn(s, generator=g, dtype=dt)
+         for k, (s, dt) in m.modality_specs(B).items()}
+batch["tokens"] = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                dtype=torch.int32)
+db = {k: shd.distribute(v, shd.batch_spec(v.shape, mesh, rules), mesh)
+      for k, v in batch.items()}
+steps = torch.randint(0, cfg.vocab_size, (3, B, 1), generator=g,
+                      dtype=torch.int32)
+
+def decode(kind, cache, cache_specs, **kw):
+    dc = placed(cache, cache_specs)
+    for t in range(steps.shape[0]):
+        tok = steps[t]
+        pos = kw.pop("pos_fn", None) or t
+        want, _ = m.decode_step(params, cache, tok, t + 4, **kw)
+        got, _ = m.decode_step(
+            dp, dc, shd.distribute(tok, shd.batch_spec(tok.shape, mesh,
+                                                       rules), mesh),
+            t + 4, shard_fn=sf, **kw)
+        note(kind, got, want)
+    for (path, a), (_, b) in zip(flatten_with_paths(dc),
+                                 flatten_with_paths(cache)):
+        note(kind + "_cache", a, b)
+    return dc
+
+with torch.no_grad():
+    want, wc = m.prefill(params, batch)
+    got, gc = m.prefill(dp, db, shard_fn=sf)
+    note("prefill", got, want)
+    for (path, a), (_, b) in zip(flatten_with_paths(gc),
+                                 flatten_with_paths(wc)):
+        note("prefill_cache", a, b)
+    cache = m.init_cache(B, 16, torch.device("cpu"))
+    dc = decode("decode", cache, shd.cache_specs(cache, mesh, rules))
+    if cfg.family == "dense":
+        kv = dc["layers"]["k"]
+        err["kv_heads_on_model"] = float(any(
+            pl.is_shard(2) for pl in kv.placements))
+        err["rows_on_data"] = float(any(
+            pl.is_shard(1) for pl in kv.placements))
+        cache = m.init_cache(B, 16, torch.device("cpu"))
+        decode("starts", cache, shd.cache_specs(cache, mesh, rules),
+               seq_starts=torch.tensor([0, 3]))
+        pool = m.init_paged_cache(8, 4, torch.device("cpu"))
+        tables = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 0]],
+                              dtype=torch.int32)
+        spec = (None, None, "model", None, None)
+        want_p = {"layers": {k: v.clone() for k, v in pool["layers"].items()}}
+        dpool = placed(pool, {"layers": {"k": spec, "v": spec}})
+        for t in range(steps.shape[0]):
+            pos = torch.tensor([t + 4, t + 9])
+            w, _ = m.decode_step(params, want_p, steps[t], pos,
+                                 block_tables=tables)
+            gt, _ = m.decode_step(dp, dpool, steps[t], pos,
+                                  block_tables=tables, shard_fn=sf)
+            note("paged", gt, w)
+        for (path, a), (_, b) in zip(flatten_with_paths(dpool),
+                                     flatten_with_paths(want_p)):
+            note("paged_cache", a, b)
+if RANK == 0:
+    json.dump(err, open(OUT + "/serve_err.json", "w"))
+"""
+
+
+@pytest.mark.parametrize("family", sorted(SERVE_ARCHS))
+def test_meshed_prefill_and_decode_match_unmeshed(family, tmp_path):
+    """4 gloo ranks on a (2, 2) ``(data, model)`` mesh, parameters,
+    batch and caches placed by the rules: the float32 smoke config's
+    meshed prefill logits and caches and three decode steps' logits
+    and written caches within 1e-5 of the unmeshed port's.  The dense
+    config (2 KV heads on the 2-way model axis) also decodes with
+    left-pad starts (rows split over data) and through a paged pool
+    split over its KV heads."""
+    run_ranks(TORCH_MESHED_SERVE % {"arch": SERVE_ARCHS[family]}, 4,
+              tmp_path)
+    err = json.loads((tmp_path / "serve_err.json").read_text())
+    want = {"prefill", "prefill_cache", "decode", "decode_cache"}
+    if family == "dense":
+        assert err.pop("kv_heads_on_model") == 1.0
+        assert err.pop("rows_on_data") == 1.0
+        want |= {"starts", "starts_cache", "paged", "paged_cache"}
+    assert set(err) == want
+    for name, e in err.items():
+        assert e <= SERVE_TOL, (name, e)
+
+
+TORCH_ZERO1_STEP = """
+import functools
+from torch.distributed.tensor import DTensor
+from repro_torch.configs import get_config
+from repro_torch.models import build_model
+from repro_torch.optim import adamw
+from repro_torch.optim.schedule import constant
+from repro_torch.runtime import sharding as shd
+from repro_torch.runtime.train_loop import make_train_step
+from repro_torch.tree import flatten_with_paths, map_tree
+
+m = build_model(get_config("%(arch)s"))
+mesh = make_mesh((2, 2), ("data", "model"))
+rules = shd.ShardingRules()
+axes = m.axes_tree()
+g = torch.Generator().manual_seed(3)
+batch = {k: torch.randint(0, 256, (4, 16), generator=g, dtype=torch.int32)
+         for k in ("tokens", "labels")}
+mk = lambda: make_train_step(m, adamw.AdamWConfig(lr=1e-3),
+                             functools.partial(constant, peak_lr=1e-3),
+                             shard_fn=shd.make_activation_shard_fn(mesh,
+                                                                   rules))
+want = m.init(0, "cpu")
+for p in flatten_with_paths(want):
+    p[1].requires_grad_(True)
+want, _, _ = mk()(want, adamw.init(want), batch)
+params = m.init(0, "cpu")
+moments = map_tree(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                   params)
+z1 = rules.with_overrides(embed=())
+dp = shd.distribute_tree(params, shd.tree_specs(axes, params, mesh, z1),
+                         mesh)
+for p in flatten_with_paths(dp):
+    p[1].requires_grad_(True)
+mspec = shd.tree_specs(axes, moments, mesh, rules)
+opt = adamw.AdamWState(step=torch.zeros((), dtype=torch.int32),
+                       m=shd.distribute_tree(moments, mspec, mesh),
+                       v=shd.distribute_tree(moments, mspec, mesh))
+apart = sum(tuple(a.placements) != tuple(b.placements) for (_, a), (_, b)
+            in zip(flatten_with_paths(dp), flatten_with_paths(opt.m)))
+b = {k: shd.distribute(v, shd.batch_spec(v.shape, mesh, rules), mesh)
+     for k, v in batch.items()}
+dp, opt, _ = mk()(dp, opt, b)
+err = max(float((a.full_tensor() - w).abs().max() / w.abs().max())
+          for (_, a), (_, w) in zip(flatten_with_paths(dp),
+                                    flatten_with_paths(want)))
+if RANK == 0:
+    json.dump({"err": err, "apart": apart},
+              open(OUT + "/zero1.json", "w"))
+"""
+
+
+def test_zero1_update_on_moment_shards(tmp_path):
+    """4 gloo ranks: parameters placed by ZeRO-1's rules (``embed``
+    replicated), moments by the default rules, so ``adamw.apply``
+    updates the moments' shards and gathers them back; one meshed step's
+    parameters within 1e-5 of each leaf's largest |value| of the
+    unmeshed step's."""
+    run_ranks(TORCH_ZERO1_STEP % {"arch": ARCH}, 4, tmp_path)
+    got = json.loads((tmp_path / "zero1.json").read_text())
+    assert got["apart"] > 0
+    assert got["err"] <= GRAD_TOL, got
