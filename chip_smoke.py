@@ -12,9 +12,9 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
    nvcc per source in parallel, and ptxas' registers, spills and shared
    memory for each main-path instantiation; ``[sass]``: the tensor-core
    instructions (HGMMA for wgmma, HMMA for mma.sync) in ``cuobjdump
-   -sass`` of the bf16 matmul, conv2d, block-sparse conv and flash
-   attention entry functions (none may be 0) and of their float32
-   bodies (which stay on the CUDA cores: none may hold one);
+   -sass`` of the bf16 matmul, conv2d, block-sparse conv and both flash
+   attention bodies and of the packed decode (none may be 0) and of the
+   float32 bodies (which stay on the CUDA cores: none may hold one);
 3. kernels: each kernel against its plain PyTorch version at every
    shape the main paths give it in bf16 (per element, two bf16 ulps of
    the plain value plus 1e-5), at the main geometry in float32 (1e-5)
@@ -29,7 +29,13 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
    [4, 512] prefill and the decode step, each also at block_d 32-256 in
    ``[time_block_d]``), ``[time_wide]`` for the head_dim 256
    instances, and flash's time at every engine prompt bucket
-   (``[time_bucket]``, at 64 and at 128 query rows a block); then every
+   (``[time_bucket]``, at 64 and at 128 query rows a block); the second
+   bf16 bodies (flash on wgmma + TMA, the packed decode) with the body
+   named at edge shapes (S past a tile multiple, group 5, window edges,
+   left-padded starts, a paged pool, groups past 16; ``[check]``) and
+   ``[time_body]``: both flash bodies at S 256-4096 (D 64 non-causal,
+   D 256 MQA causal) and both decode bodies at groups 1, 5, 8 and 16,
+   each line naming the body the static rule picks; then every
    schedule the tuner offers at the main-path shapes (flash's row
    blocks, both decode kernels' splits, the scan's block_d) against the
    plain version, and ``[time_schedule]``: each candidate's kernel ms
@@ -154,7 +160,8 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
    tensor passes 2**32 elements) and ``[moe]`` qwen2-moe-a2.7b, each
    the engine phase's 8 requests with graphs, one cold drain (moe: a
    warm one too), with one flash launch a layer per admission and one
-   paged decode launch a layer per step (moe: each bucket's capacity
+   paged decode launch a layer per step, on the packed body for the GQA
+   configs (moe: each bucket's capacity
    and each drain's dropped slots, the warm drain's being one drain's
    replays alone, and ``[moe_rounding]``: layer 0's FFN with its
    expert products rounded to bf16, the port's, against the same in
@@ -179,7 +186,10 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
    launches gated at one flash launch a prefill per attention layer
    (12, 18, and 64: whisper's 32 encoder layers run the non-causal
    body) and one contiguous decode launch a step per self-attention
-   layer (12, 18, 32); recurrentgemma also serves one request of 2,100
+   layer (12, 18, 32), and the second bodies' share of them: every
+   prefill the static rule puts on wgmma (whisper's encoder, paligemma's
+   768-token prefill, the long bucket) and every decode of a grouped
+   config on the packed body; recurrentgemma also serves one request of 2,100
    tokens (``[hybrid_long]``: bucket 4096, the prefill's flash windowed
    at 2048, every decode step in the wrapped rolling buffer);
    ``[family_profile]``: the widest captured decode step replayed 10
@@ -189,8 +199,9 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
    exact tokens (graphs, eager, plain) of ``drain`` and ``generate``
    with extras on the three float32 smoke configs, whose prompts pass
    their local window of 16.  Phase 3 holds the three families' new
-   kernel shapes (``[time_family]``): the windowed flash at
-   [1, 16, 4096, 256], the non-causal flash at [4, 20, 1500, 64] and
+   kernel shapes (``[time_family]``, on the bodies the rule picks, beside
+   the other body, PR 24's time, the bound and SDPA): the windowed flash
+   at [1, 16, 4096, 256], the non-causal flash at [4, 20, 1500, 64] and
    the contiguous decode over a wrapped buffer of 2048 slots;
 7c. training (after phase 7b; the card freed first): ``[train]``
    ``Trainer`` on full-width, full-depth phi3-mini-3.8b in bf16
@@ -463,6 +474,17 @@ WIDE_INSTANCES = {
     "flash_attention_float32_d256": r"flash_fwd_kernelILi64E",
     "decode_attention_float32": r"decode_split_kernelIfNS_8ContigKV",
     "paged_decode_attention_float32": r"decode_split_kernelIfNS_7PagedKV",
+    # the second bf16 bodies: flash on wgmma + TMA (whisper's D 64, the
+    # gemma families' D 256 at one and two consumer warpgroups) and the
+    # packed decode (recurrentgemma's contiguous cache, the dense GQA
+    # configs' pool at D 128)
+    "flash_attention_wgmma_d64": r"flash_wgmma_kernelILi64ELi1E",
+    "flash_attention_wgmma_d256": r"flash_wgmma_kernelILi256ELi1E",
+    "flash_attention_wgmma_d256_rows128": r"flash_wgmma_kernelILi256ELi2E",
+    "decode_attention_packed_d256":
+        r"decode_packed_kernelINS_8ContigKVI13__nv_bfloat16EELi256ELi1E",
+    "paged_decode_attention_packed_d128":
+        r"decode_packed_kernelINS_7PagedKVI13__nv_bfloat16EELi128ELi1E",
 }
 # Entry functions whose SASS must (bf16) or must not (float32) hold
 # tensor-core instructions, by name pattern.
@@ -471,6 +493,8 @@ SASS_BODIES = {
     "conv2d_bf16": (r"conv2d_cu.*conv_mma_kernel", "HMMA"),
     "sparse_conv2d_bf16": (r"sparse_conv_cu.*conv_mma_kernel", "HMMA"),
     "flash_attention_bf16": (r"flash_mma_kernel", "HMMA"),
+    "flash_attention_wgmma_bf16": (r"flash_wgmma_kernel", "HGMMA"),
+    "decode_packed_bf16": (r"decode_packed_kernel", "HMMA"),
     "matmul_float32": (r"matmul_kernelIfLi", None),
     "conv2d_float32": (r"conv2d_cu.*conv_tile_kernelILi", None),
     "sparse_conv2d_float32": (r"sparse_conv_cu.*conv_tile_kernelILi", None),
@@ -560,9 +584,10 @@ WIDE_HEADS = ((16, 1, 256), (8, 1, 256), (40, 8, 128))
 
 def plan_text(plan):
     """One decode plan as its launch shape."""
-    return (f"splits={plan.splits} split_keys={plan.split_keys} "
-            f"tile_keys={plan.tile_keys} head_chunk={plan.head_chunk} "
-            f"chunks={plan.chunks} blocks={plan.blocks} smem={plan.smem}")
+    return (f"body={plan.body} splits={plan.splits} "
+            f"split_keys={plan.split_keys} tile_keys={plan.tile_keys} "
+            f"head_chunk={plan.head_chunk} chunks={plan.chunks} "
+            f"cluster={plan.cluster} blocks={plan.blocks} smem={plan.smem}")
 
 
 def wide_times(torch, dev, timer, rn):
@@ -655,7 +680,7 @@ def kernel_checks(torch, dev, timer):
         phase("check", kernel=name, dtype=dtype, shape=shape,
               max_abs_err=f"{e:.3g}", tol=repr(TOL[dtype]),
               worst_share_of_tol=f"{share:.3g}", ok=share <= 1.0)
-        if share > 1.0:
+        if not share <= 1.0:          # NaN fails too
             fail(f"{name} {dtype} {shape} disagrees with its plain "
                  f"version: max abs err {e}, {share:.3g}x the tolerance "
                  f"{TOL[dtype]}")
@@ -967,6 +992,8 @@ def kernel_checks(torch, dev, timer):
                           else f"{e['library_ms']:.4f}"),
               **({"plan": repr(e["plan"])} if "plan" in e else {}))
     family_kernel_cases(torch, dev, timer, rn, check, summary)
+    body_checks(torch, dev, rn, check)
+    time_body(torch, dev, timer, rn)
     e = summary["ssm_scan"]
     # block_d is the kernel's launch parameter: the two prefills and the
     # decode step at each
@@ -992,46 +1019,77 @@ def kernel_checks(torch, dev, timer):
     return summary
 
 
+# The three family shapes' kernel ms before this round's second bodies
+# (``[time_family]``, PR 24 final, NVIDIA H100 80GB HBM3, 700.00 W): the
+# windowed and the non-causal flash on mma.sync, the rolling decode on
+# the chunked split body.
+PR24_FAMILY_MS = {"windowed": 1.2427, "non-causal": 0.4223,
+                  "rolling": 0.0636}
+
+
 def family_kernel_cases(torch, dev, timer, rn, check, summary):
     """Phase 3, the hybrid, vlm and audio families' shapes (bf16): the
     windowed flash prefill of recurrentgemma-9b's long bucket (16 query
     heads on one KV head, head_dim 256, causal, window 2048), the
     non-causal flash of whisper-large-v3's encoder ([4, 20, 1500, 64])
     and the contiguous decode over recurrentgemma's wrapped rolling
-    buffer (2048 slots, pos past it).  Each is held to its plain version
-    (the decode also to the model's windowed plain path), timed with
-    CUDA events beside its bound and SDPA on the same inputs, printed as
+    buffer (2048 slots, pos past it).  Each runs the body the static
+    rule picks (``_geometry.flash_body`` / ``decode_body``: wgmma and
+    packed at these shapes), is held to its plain version (the decode
+    also to the model's windowed plain path), and is timed with CUDA
+    events beside the other body on the same inputs, PR 24's time
+    (``PR24_FAMILY_MS``), its bound and SDPA; printed as
     ``[time_family]`` and added to its kernel's summary entry
-    (``family_shapes``)."""
+    (``family_shapes``) with this run's numbers only (PR 24's time stays
+    on the phase line)."""
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.kernels._geometry import decode_body, flash_body
     from repro_torch.kernels.decode_attention import decode_attention_ref
     from repro_torch.kernels.flash_attention import flash_attention_ref
     from repro_torch.models import attention as model_attention
 
     bf16 = torch.bfloat16
 
-    def record(kernel, shape, ms, plain_ms, n_bytes, n_ops, lib_ms, err):
+    def record(kernel, tag, shape, body, ms, other, other_ms, plain_ms,
+               n_bytes, n_ops, lib_ms, err):
         """One ``[time_family]`` line and its summary record."""
         b_ms, b_by = bound(n_bytes, n_ops, "bfloat16")
-        row = dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                   bound_by=b_by, library_ms=lib_ms, max_abs_err=err)
+        row = dict(shape=shape, body=body, ms=ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                   max_abs_err=err, **{f"{other}_ms": other_ms})
         summary[kernel].setdefault("family_shapes", []).append(row)
-        phase("time_family", kernel=kernel, shape=repr(shape),
-              ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-              bound_ms=f"{b_ms:.4f}", bound_by=b_by,
-              library_ms=f"{lib_ms:.4f}", max_abs_err=f"{err:.3g}")
+        phase("time_family", kernel=kernel, shape=repr(shape), body=body,
+              ms=f"{ms:.4f}", pr24_ms=f"{PR24_FAMILY_MS[tag]:.4f}",
+              **{f"{other}_ms": f"{other_ms:.4f}"},
+              plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}",
+              bound_by=b_by, library_ms=f"{lib_ms:.4f}",
+              max_abs_err=f"{err:.3g}")
 
     def err_of(got, want):
         """Max abs error of ``got`` against ``want``."""
         return (got.float() - want.float()).abs().max().item()
 
+    def rule_launch(counter, fn):
+        """Run ``fn`` once and check that it launched the body whose
+        counter is ``counter`` (the rule's choice); returns its output."""
+        before = counter()
+        out = fn()
+        if counter() != before + 1:
+            fail(f"[time_family] the rule's body did not launch: "
+                 f"{counter()} after {before}")
+        return out
+
+    wgmma = (lambda: flash_attention.wgmma_launches)
+    packed = (lambda: decode_attention.packed_launches)
     # recurrentgemma-9b: the 2,100-token prompt's bucket of 4096 with the
     # local window of 2048
     s, d, hq, win = 4096, 256, 16, 2048
     q = rn((1, hq, s, d), bf16)
     k, v = rn((1, 1, s, d), bf16), rn((1, 1, s, d), bf16)
-    got = flash_attention(q, k, v, causal=True, window=win)
+    body = flash_body(d, s, 2, window=win)
+    got = rule_launch(wgmma, lambda: flash_attention(q, k, v, causal=True,
+                                                     window=win))
     want = flash_attention_ref(q, k, v, causal=True, window=win)
     shape = f"q [1,{hq},{s},{d}], k/v [1,1,{s},{d}] bf16, causal, window {win}"
     check("flash_attention", got, want, shape)
@@ -1039,8 +1097,10 @@ def family_kernel_cases(torch, dev, timer, rn, check, summary):
     kpos = torch.arange(s, device=dev)[None, :]
     mask = (kpos <= qpos) & (kpos > qpos - win)
     pairs = int(mask.sum().item())          # (query, key) pairs computed
-    record("flash_attention", shape,
+    record("flash_attention", "windowed", shape, body,
            timer(lambda: flash_attention(q, k, v, causal=True, window=win)),
+           "mma", timer(lambda: flash_attention(q, k, v, causal=True,
+                                                window=win, body="mma")),
            timer(lambda: flash_attention_ref(q, k, v, causal=True,
                                              window=win), iters=5),
            (2 * hq + 2) * s * d * 2, 4 * d * hq * pairs,
@@ -1052,12 +1112,15 @@ def family_kernel_cases(torch, dev, timer, rn, check, summary):
     b, hq, s, d = 4, 20, 1500, 64
     q = rn((b, hq, s, d), bf16)
     k, v = rn((b, hq, s, d), bf16), rn((b, hq, s, d), bf16)
-    got = flash_attention(q, k, v, causal=False)
+    body = flash_body(d, s, 2, causal=False)
+    got = rule_launch(wgmma, lambda: flash_attention(q, k, v, causal=False))
     want = flash_attention_ref(q, k, v, causal=False)
     shape = f"q,k,v [{b},{hq},{s},{d}] bf16, non-causal"
     check("flash_attention", got, want, shape)
-    record("flash_attention", shape,
+    record("flash_attention", "non-causal", shape, body,
            timer(lambda: flash_attention(q, k, v, causal=False)),
+           "mma", timer(lambda: flash_attention(q, k, v, causal=False,
+                                                body="mma")),
            timer(lambda: flash_attention_ref(q, k, v, causal=False),
                  iters=5),
            4 * b * hq * s * d * 2, 4 * d * b * hq * s * s,
@@ -1070,21 +1133,169 @@ def family_kernel_cases(torch, dev, timer, rn, check, summary):
     pos = torch.tensor([2048, 2500, 3000, 4127], device=dev)
     q = rn((b, hq, 1, d), bf16)
     k, v = rn((b, 1, s, d), bf16), rn((b, 1, s, d), bf16)
-    got = decode_attention(q, k, v, pos)
+    body = decode_body(hq, 1, d, 2)
+    got = rule_launch(packed, lambda: decode_attention(q, k, v, pos))
     want = decode_attention_ref(q, k, v, pos)
     shape = (f"q [{b},{hq},1,{d}], rolling k/v [{b},1,{s},{d}] bf16, "
              f"pos {pos.tolist()}")
     check("decode_attention", got, want, shape)
     check("decode_attention", got, model_attention.decode_attention(
         q, k, v, pos, window=s, backend="plain"), shape + " (model, window)")
-    record("decode_attention", shape,
+    record("decode_attention", "rolling", shape, body,
            timer(lambda: decode_attention(q, k, v, pos)),
+           "chunked", timer(lambda: decode_attention(q, k, v, pos,
+                                                     body="chunked")),
            timer(lambda: decode_attention_ref(q, k, v, pos)),
            2 * b * hq * d * 2 + 2 * b * s * d * 2 + b * 8,
            4 * d * hq * b * s,
            timer(lambda: F.scaled_dot_product_attention(
                q, k, v, enable_gqa=True)),
            err_of(got, want))
+
+
+# The edge shapes the second bodies' tiling must get right, held to the
+# plain version with the body named: flash (B, HQ, HKV, S, D, rows,
+# mask) on wgmma, decode (B, HQ, HKV, S, D, pos, starts) packed, paged
+# packed (HQ, HKV, D) over the engine's pool.
+BODY_FLASH_CASES = [
+    (4, 20, 20, 1500, 64, 128, {"causal": False}),
+    (1, 16, 1, 1100, 256, 64, {"window": 700}),
+    (1, 16, 1, 1100, 256, 128, {"window": 700}),
+    (2, 10, 2, 777, 128, 128, {"starts": [0, 300]}),
+    (2, 8, 8, 600, 96, 64, {"starts": [37, 599]}),
+    (2, 4, 2, 700, 128, 64, {"window": 64, "starts": [5, 650]}),
+    (2, 8, 1, 768, 256, 64, {"starts": [0, 400]}),
+]
+BODY_DECODE_CASES = [
+    (4, 40, 8, 544, 128, [512, 300, 17, 543], [472, 0, 3, 500]),
+    (2, 64, 8, 1000, 128, [999, 40], [0, 33]),
+    (2, 8, 1, 600, 256, [599, 10], [590, 11]),
+    (3, 24, 1, 300, 64, [299, 100, 0], None),
+    (1, 64, 1, 400, 96, [399], [7]),
+]
+BODY_PAGED_HEADS = ((64, 8, 128), (8, 1, 256), (40, 8, 128), (24, 8, 128),
+                    (48, 8, 128))
+
+
+def body_checks(torch, dev, rn, check):
+    """Phase 3: the second bodies at ``BODY_*`` edge shapes against their
+    plain versions (``[check]``, body named on the line): S not a tile
+    multiple, group 5, window edges, left-padded starts, a paged pool,
+    groups past one 16-row tile, NaN in the cache outside the window."""
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     paged_decode_attention)
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_ref, paged_decode_attention_ref)
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+
+    bf16 = torch.bfloat16
+    for b, hq, hkv, s, d, rows, kw in BODY_FLASH_CASES:
+        q = rn((b, hq, s, d), bf16)
+        k, v = rn((b, hkv, s, d), bf16), rn((b, hkv, s, d), bf16)
+        kw = {n: torch.tensor(x, device=dev) if n == "starts" else x
+              for n, x in kw.items()}
+        check("flash_attention",
+              flash_attention(q, k, v, block_q=rows, body="wgmma", **kw),
+              flash_attention_ref(q, k, v, **kw),
+              f"[{b},{hq},{s},{d}]/{hkv}kv body=wgmma rows={rows} " + " ".join(
+                  f"{n}={x.tolist() if torch.is_tensor(x) else x}"
+                  for n, x in kw.items()))
+    for b, hq, hkv, s, d, pos, starts in BODY_DECODE_CASES:
+        q = rn((b, hq, 1, d), bf16)
+        k, v = rn((b, hkv, s, d), bf16), rn((b, hkv, s, d), bf16)
+        p = torch.tensor(pos, device=dev)
+        st = None if starts is None else torch.tensor(starts, device=dev)
+        check("decode_attention",
+              decode_attention(q, k, v, p, starts=st, body="packed"),
+              decode_attention_ref(q, k, v, p, starts=st),
+              f"[{b},{hq},1,{d}]/{hkv}kv k/v [{b},{hkv},{s},{d}] "
+              f"body=packed pos={pos} starts={starts}")
+    # NaN outside each row's window: before starts and past pos, where
+    # the packed body fetches a split's first tile before pos is known
+    b, hq, hkv, s, d = 4, 16, 1, 544, 256
+    pos, starts = [3, 70, 300, 543], [0, 0, 9, 200]
+    q = rn((b, hq, 1, d), bf16)
+    k, v = rn((b, hkv, s, d), bf16), rn((b, hkv, s, d), bf16)
+    p, st = torch.tensor(pos, device=dev), torch.tensor(starts, device=dev)
+    keys = torch.arange(s, device=dev)
+    outside = ((keys[None, :] > p[:, None])
+               | (keys[None, :] < st[:, None]))[:, None, :, None]
+    nan = torch.tensor(float("nan"), device=dev, dtype=bf16)
+    check("decode_attention",
+          decode_attention(q, k.where(~outside, nan), v.where(~outside, nan),
+                           p, starts=st, body="packed"),
+          decode_attention_ref(q, k.where(~outside, 0), v.where(~outside, 0),
+                               p, starts=st),
+          f"[{b},{hq},1,{d}]/{hkv}kv k/v [{b},{hkv},{s},{d}] body=packed "
+          f"pos={pos} starts={starts} NaN outside the window")
+    bs, mb, pos = 16, 34, [17, 300, 543, 0]
+    nb = 1 + len(pos) * mb
+    perm = torch.randperm(nb - 1, generator=torch.Generator()
+                          .manual_seed(7)) + 1
+    tables = perm.reshape(len(pos), mb).to(torch.int32).to(dev)
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    for hq, hkv, d in BODY_PAGED_HEADS:
+        q = rn((len(pos), hq, 1, d), bf16)
+        kp, vp = rn((nb, hkv, bs, d), bf16), rn((nb, hkv, bs, d), bf16)
+        check("paged_decode_attention",
+              paged_decode_attention(q, kp, vp, tables, p, body="packed"),
+              paged_decode_attention_ref(q, kp, vp, tables, p),
+              f"[{len(pos)},{hq},1,{d}]/{hkv}kv pools [{nb},{hkv},{bs},{d}] "
+              f"body=packed pos={pos}")
+
+
+# [time_body]: both bf16 flash bodies over these lengths at whisper's
+# heads (D 64, no mask), recurrentgemma's (D 256, MQA, causal) and
+# phi3's (D 96, causal), and both decode bodies at these (HQ, HKV, D)
+# groups over a full cache.
+BODY_SWEEP_S = (256, 512, 768, 1024, 1500, 4096)
+BODY_SWEEP_FLASH = ((4, 20, 20, 64, False), (1, 16, 1, 256, True),
+                    (1, 32, 32, 96, True))
+BODY_SWEEP_DECODE = ((32, 32, 96), (40, 8, 128), (64, 8, 128), (8, 1, 256),
+                     (16, 1, 256))
+BODY_SWEEP_DECODE_S = (544, 2048)
+
+
+def time_body(torch, dev, timer, rn):
+    """``[time_body]``: each bf16 flash body at ``BODY_SWEEP_S`` x
+    ``BODY_SWEEP_FLASH`` (64 query rows a block, the default) and each
+    decode body at ``BODY_SWEEP_DECODE`` x ``BODY_SWEEP_DECODE_S`` (4
+    rows, every key valid), CUDA events, L2 flushed; each line names the
+    body the rule picks and whether it is the faster one here.  They
+    check that the rule picks a new body only where it is the faster;
+    ``_geometry.FLASH_WGMMA_MIN_KEYS`` is not their crossing (the wgmma
+    body is faster at every swept length) but keeps the engine's prefills
+    of at most 512 tokens on the mma.sync body."""
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.kernels._geometry import decode_body, flash_body
+
+    bf16 = torch.bfloat16
+    for b, hq, hkv, d, causal in BODY_SWEEP_FLASH:
+        for s in BODY_SWEEP_S:
+            q = rn((b, hq, s, d), bf16)
+            k, v = rn((b, hkv, s, d), bf16), rn((b, hkv, s, d), bf16)
+            ms = {body: timer(lambda: flash_attention(
+                q, k, v, causal=causal, body=body))
+                for body in ("mma", "wgmma")}
+            rule = flash_body(d, s, 2, causal=causal)
+            phase("time_body", kernel="flash_attention",
+                  shape=f"[{b},{hq},{s},{d}]/{hkv}kv", causal=causal,
+                  mma_ms=f"{ms['mma']:.4f}", wgmma_ms=f"{ms['wgmma']:.4f}",
+                  rule=rule, rule_is_faster=ms[rule] <= min(ms.values()))
+            del q, k, v
+    for hq, hkv, d in BODY_SWEEP_DECODE:
+        for s in BODY_SWEEP_DECODE_S:
+            q = rn((4, hq, 1, d), bf16)
+            k, v = rn((4, hkv, s, d), bf16), rn((4, hkv, s, d), bf16)
+            ms = {body: timer(lambda: decode_attention(q, k, v, s - 1,
+                                                       body=body))
+                  for body in ("chunked", "packed")}
+            rule = decode_body(hq, hkv, d, 2)
+            phase("time_body", kernel="decode_attention",
+                  shape=f"q [4,{hq},1,{d}] k/v [4,{hkv},{s},{d}]",
+                  group=hq // hkv, chunked_ms=f"{ms['chunked']:.4f}",
+                  packed_ms=f"{ms['packed']:.4f}", rule=rule,
+                  rule_is_faster=ms[rule] <= min(ms.values()))
 
 
 # ---------------------------------------------------------------------------
@@ -1200,7 +1411,7 @@ def thesis_checks(torch, dev, timer, data):
         if launched is not None:
             fields["launches"] = launched
         phase("check", **fields, ok=share <= 1.0)
-        if share > 1.0:
+        if not share <= 1.0:          # NaN fails too
             fail(f"{name} {dtype} {shape} disagrees with its plain version: "
                  f"max abs err {e}, {share:.3g}x the tolerance")
         if launched is not None and launched != want_n:
@@ -2145,6 +2356,7 @@ def engine_phase(torch, model, params, prompts, mode, smi, tally=None,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = kernels.launch_counts()
+        bodies = {k: v for k, v in kernels.body_launch_counts().items() if v}
         dropped = None if tally is None else int(tally)
         bad = [r for r in res.values()
                if r.state != "COMPLETED" or len(r.tokens) != NEW_TOKENS]
@@ -2180,10 +2392,12 @@ def engine_phase(torch, model, params, prompts, mode, smi, tally=None,
               peak_reserved_gib=f"{torch.cuda.max_memory_reserved() / 2 ** 30:.2f}",
               degraded_buckets=st["degraded_buckets"],
               **({} if dropped is None else {"dropped_slots": dropped}),
-              launches=json.dumps(counts))
+              launches=json.dumps(counts),
+              body_launches=json.dumps(bodies))
         out[drain] = {"tokens": {k: v.tokens.tolist()
                                  for k, v in res.items()},
-                      "counts": counts, "stats": st, "wall": wall,
+                      "counts": counts, "bodies": bodies, "stats": st,
+                      "wall": wall,
                       "dropped": dropped,
                       "reserved": torch.cuda.max_memory_reserved()}
     del session, res
@@ -2194,7 +2408,7 @@ def generate_phase(torch, model, params, mode, smi):
     """A left-padded batch of 4 through ``generate(session=)`` twice in
     ``mode`` (cold: builds both steps; warm: must build nothing); counts
     set to 0 just before each call and read just after; one
-    ``[generate]`` line each.  Returns {call: tokens, counts}."""
+    ``[generate]`` line each.  Returns {call: tokens, counts, bodies}."""
     from repro_torch import kernels
     from repro_torch.models import left_pad_prompts, prompt_starts
     from repro_torch.runtime import generate
@@ -2220,6 +2434,7 @@ def generate_phase(torch, model, params, mode, smi):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = kernels.launch_counts()
+        bodies = {k: v for k, v in kernels.body_launch_counts().items() if v}
         if tokens.shape != (4, NEW_TOKENS) or tokens.min() < 0 \
                 or tokens.max() >= cfg.vocab_size:
             fail(f"{cfg.name} generate ({mode}): bad tokens {tokens.shape} "
@@ -2242,7 +2457,7 @@ def generate_phase(torch, model, params, mode, smi):
               peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}",
               peak_reserved_gib=f"{torch.cuda.max_memory_reserved() / 2 ** 30:.2f}",
               launches=json.dumps(counts))
-        out[call] = {"tokens": tokens, "counts": counts}
+        out[call] = {"tokens": tokens, "counts": counts, "bodies": bodies}
     del session
     return out
 
@@ -2276,8 +2491,8 @@ def serve_phases(torch, dev, smi, arch, sched_times, records):
     (captured steps, the default) and eager mode (``capture=False``) in
     this call: tokens and launch counts must agree between them; then
     ``[dispatch_serve]`` on the same weights.  Returns the graphs mode's
-    cold counts with its engine stats (the weights are freed on
-    return)."""
+    cold counts (and its second bodies' counts, engine and generate)
+    with its engine stats (the weights are freed on return)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
@@ -2320,6 +2535,9 @@ def serve_phases(torch, dev, smi, arch, sched_times, records):
     cold = engine["graphs"]["cold"]
     return {"engine": cold["counts"],
             "generate": gen["graphs"]["cold"]["counts"],
+            "bodies": {**cold["bodies"], **{
+                f"generate {k}": v
+                for k, v in gen["graphs"]["cold"]["bodies"].items()}},
             "stats": cold["stats"]}
 
 
@@ -2401,6 +2619,9 @@ def run(torch, dev, timer, smi, records):
     for k in ("flash_attention", "paged_decode_attention",
               "decode_attention"):
         summary[k]["launches"] = ec[k] + gen[k]
+    if phi3["bodies"]:
+        fail(f"{PHI3}'s main path ran a second body (its prefills are at "
+             f"most 512 tokens, its heads MHA): {phi3['bodies']}")
     phase("launches_per_engine_step", arch=PHI3,
           paged_decode_attention=ec["paged_decode_attention"]
           / max(st["steps"], 1),
@@ -2432,7 +2653,10 @@ def run(torch, dev, timer, smi, records):
     # ---- the rest of the dense family (GQA groups 3, 6, 8; squared-ReLU
     # MLPs; qk-norm) and moe, at full size: the same two kernels
     for arch in DENSE_FAMILY + (MOE,):
-        family_phase(torch, dev, smi, arch)
+        for counts, bodies in family_phase(torch, dev, smi, arch).values():
+            for k in ("flash_attention", "paged_decode_attention"):
+                summary[k]["launches"] += counts[k]
+            add_body_launches(summary, bodies)
 
     for arch in (PHI3 + "-smoke", MAMBA + "-smoke"):
         exact_tokens(torch, dev, arch)
@@ -2448,8 +2672,10 @@ def run(torch, dev, timer, smi, records):
     # ---- the hybrid, vlm and audio families at full size, through the
     # bucketed path (the engine serves dense, moe and ssm only, as in JAX)
     for arch in FAMILY_ARCHS:
-        for k, v in family_phase_new(torch, dev, smi, arch).items():
+        counts, bodies = family_phase_new(torch, dev, smi, arch)
+        for k, v in counts.items():
             summary[k]["launches"] += v
+        add_body_launches(summary, bodies)
     for arch in FAMILY_ARCHS:
         exact_tokens_bucketed(torch, dev, arch + "-smoke")
 
@@ -2507,7 +2733,7 @@ def schedule_checks(torch, dev, timer):
               schedule=json.dumps(reg.schedule_to_dict(sched)),
               max_abs_err=f"{e:.3g}", tol=repr(TOL[dtype]),
               worst_share_of_tol=f"{share:.3g}", ok=share <= 1.0)
-        if share > 1.0:
+        if not share <= 1.0:          # NaN fails too
             fail(f"{name} {dtype} {shape} at {sched} disagrees with its "
                  f"plain version: {share:.3g}x the tolerance")
 
@@ -3031,6 +3257,29 @@ def engine_launches(cfg, admissions, steps):
         return {"ssm_scan": n * (admissions + steps)}
     return {"flash_attention": n * admissions,
             "paged_decode_attention": n * steps}
+
+
+def add_body_launches(summary, bodies):
+    """Add ``bodies`` (``kernels.body_launch_counts()`` names, e.g.
+    ``flash_attention.wgmma``) to the kernels' summary entries
+    (``body_launches``, per body)."""
+    for name, n in bodies.items():
+        kernel, body = name.split(".")
+        per = summary[kernel].setdefault("body_launches", {})
+        per[body] = per.get(body, 0) + n
+
+
+def grouped_decode_gate(cfg, counts, bodies, kernel, label):
+    """A drain's decode launches all ran the packed body when ``cfg``'s KV
+    group holds more than one head (bf16, head dims of the packed set:
+    every grouped config of the repository), none when it is MHA."""
+    from repro_torch.kernels._geometry import decode_body
+    rule = decode_body(cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, 2)
+    want = counts.get(kernel, 0) if rule == "packed" else 0
+    got = bodies.get(f"{kernel}.packed", 0)
+    if got != want:
+        fail(f"{label}: {got} packed {kernel} launches, want {want} "
+             f"(group {cfg.n_heads // cfg.n_kv_heads}, rule {rule})")
 
 
 def drive(torch, session, prompts, on_step=None, deadlines=None):
@@ -3598,9 +3847,11 @@ def family_phase(torch, dev, smi, arch):
     """``[dense_family]`` / ``[moe]``: full-size ``arch`` in bf16 with
     random weights from seed 0, the engine phase's 8 requests in graphs
     mode (``NEW_DRAINS``, moe ``MOE_DRAINS``); flash launches n_layers
-    per admission and paged decode n_layers per step.  For moe, the
-    capacity of every bucket the drains used and the dropped slots of
-    each drain."""
+    per admission (all on mma.sync: the prefills are at most 512 tokens)
+    and paged decode n_layers per step (all on the packed body where the
+    KV group holds more than one head).  For moe, the capacity of every
+    bucket the drains used and the dropped slots of each drain.  Returns
+    each drain's (launches, body launches)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.models.moe import capacity, drop_tally
@@ -3628,6 +3879,12 @@ def family_phase(torch, dev, smi, arch):
         if {k: v for k, v in r["counts"].items() if v} != want:
             fail(f"{arch} [{tag}] {drain}: launches {r['counts']}, want "
                  f"{want}")
+        grouped_decode_gate(cfg, r["counts"], r["bodies"],
+                            "paged_decode_attention",
+                            f"{arch} [{tag}] {drain}")
+        if r["bodies"].get("flash_attention.wgmma"):
+            fail(f"{arch} [{tag}] {drain}: a prefill of at most 512 tokens "
+                 f"ran the wgmma flash body: {r['bodies']}")
     last = runs[drains[-1]]
     st = last["stats"]
     extra = {}
@@ -3667,8 +3924,10 @@ def family_phase(torch, dev, smi, arch):
           **extra, seconds=f"{time.perf_counter() - t0:.1f}")
     if cfg.n_experts:
         moe_rounding(torch, dev, params, cfg, smi)
+    launched = {d: (r["counts"], r["bodies"]) for d, r in runs.items()}
     del params, model, runs
     free_card(torch)
+    return launched
 
 
 def batched_phase(torch, model, params, prompts, smi, engine):
@@ -4571,6 +4830,33 @@ def family_launches(cfg):
     return cfg.n_layers, cfg.n_layers
 
 
+def family_wgmma_launches(cfg, session):
+    """The flash launches of a family drain that the static rule
+    (``_geometry.flash_body``, 64 query rows a block) puts on the wgmma
+    body: per batch of each bucket, the attention layers whose prefill
+    walks more than ``FLASH_WGMMA_MIN_KEYS`` keys a query tile (the vlm's
+    image tokens go in front of its text; audio's encoder attends over
+    its frames without a mask)."""
+    from repro_torch.kernels._geometry import flash_body
+    from repro_torch.models.transformer import hybrid_counts
+    d = cfg.resolved_head_dim
+    n = 0
+    for bucket, entry in session.stats.per_bucket.items():
+        s, per = bucket.prompt_len, cfg.n_layers
+        window = None
+        if cfg.family == "vlm":
+            s += cfg.num_image_tokens
+        if cfg.family == "hybrid":
+            per = family_launches(cfg)[0]
+            window = cfg.local_window
+        k = per * (flash_body(d, s, 2, causal=True, window=window) == "wgmma")
+        if cfg.family == "audio":
+            k += cfg.encoder_layers * (flash_body(
+                d, cfg.encoder_seq, 2, causal=False) == "wgmma")
+        n += k * entry["batches"]
+    return n
+
+
 def family_extras(model, n):
     """``n`` requests' modality extras (float32 numpy rows of the
     family's ``image_embeds`` or ``frames``) from a torch generator
@@ -4626,6 +4912,21 @@ def family_gate(cfg, session, counts, label, new_tokens=NEW_TOKENS):
         fail(f"{label}: launches {counts}, want {want} ({fpp} flash a "
              f"prefill, {dps} decode a step, {batches} batches)")
     return batches * (new_tokens - 1)
+
+
+def body_gate(cfg, session, counts, label):
+    """The second bodies' launches of a drain (read just after it):
+    exactly :func:`family_wgmma_launches` flash launches on wgmma, and
+    every decode launch on the packed body when the KV group holds more
+    than one head (none when it is MHA).  Returns them (non-zero)."""
+    from repro_torch import kernels
+    bodies = {k: v for k, v in kernels.body_launch_counts().items() if v}
+    want = family_wgmma_launches(cfg, session)
+    if bodies.get("flash_attention.wgmma", 0) != want:
+        fail(f"{label}: {bodies} launches of the second bodies, want "
+             f"{want} flash launches on wgmma")
+    grouped_decode_gate(cfg, counts, bodies, "decode_attention", label)
+    return bodies
 
 
 def family_vs_plain(torch, model, params, prompts, extras, smi, want):
@@ -4732,7 +5033,8 @@ def family_phase_new(torch, dev, smi, arch):
     the windowed prefill, decode in the wrapped buffer); then
     :func:`family_vs_plain` on the same requests.  The profile
     (:func:`family_profile`) runs after the launches were read.  Returns
-    the graphs drains' launches."""
+    the graphs drains' launches and their second bodies' launches
+    (:func:`body_gate`)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model, bucket_length
 
@@ -4750,6 +5052,7 @@ def family_phase_new(torch, dev, smi, arch):
     toks, s, wall, counts, reserved = family_drain(
         torch, model, params, prompts, extras, True, f"{arch} cold")
     steps = family_gate(cfg, s, counts, f"{arch} cold")
+    bodies = body_gate(cfg, s, counts, f"{arch} cold")
     st = s.stats.to_dict()
     fpp, dps = family_launches(cfg)
     phase(cfg.family, arch=arch, card=repr(smi), params=n_params,
@@ -4761,10 +5064,11 @@ def family_phase_new(torch, dev, smi, arch):
           ttft_p50_s=f"{st['ttft_p50_s']:.4f}",
           ttft_p95_s=f"{st['ttft_p95_s']:.4f}",
           peak_reserved_gib=f"{reserved / 2 ** 30:.2f}",
-          launches=json.dumps(counts), flash_per_prefill=fpp,
+          launches=json.dumps(counts), body_launches=json.dumps(bodies),
+          flash_per_prefill=fpp,
           decode_per_step=dps, buckets=json.dumps(sorted(st["buckets"])),
           seconds=f"{time.perf_counter() - t0:.1f}")
-    total = dict(counts)
+    total, total_bodies = dict(counts), dict(bodies)
     family_profile(torch, s, cfg, smi)
     del s
     check_prompts, check_extras = prompts, extras[:len(prompts)]
@@ -4775,6 +5079,7 @@ def family_phase_new(torch, dev, smi, arch):
             torch, model, params, [long_p], [extras[-1]], True,
             f"{arch} long")
         lsteps = family_gate(cfg, ls, lcounts, f"{arch} long")
+        lbodies = body_gate(cfg, ls, lcounts, f"{arch} long")
         (bucket,) = ls.stats.per_bucket
         win = min(cfg.local_window, bucket.total_len)
         if bucket.prompt_len != bucket_length(LONG_PROMPT) or (
@@ -4788,9 +5093,12 @@ def family_phase_new(torch, dev, smi, arch):
               prefill_s=f"{ls.stats.prefill_s:.4f}",
               step_ms=f"{1e3 * ls.stats.decode_s / lsteps:.2f}",
               peak_reserved_gib=f"{lres / 2 ** 30:.2f}",
-              launches=json.dumps(lcounts), seconds=f"{lwall:.1f}")
+              launches=json.dumps(lcounts),
+              body_launches=json.dumps(lbodies), seconds=f"{lwall:.1f}")
         for k, v in lcounts.items():
             total[k] = total.get(k, 0) + v
+        for k, v in lbodies.items():
+            total_bodies[k] = total_bodies.get(k, 0) + v
         check_prompts = prompts + [long_p]
         check_extras = extras
         want[f"r{len(prompts)}"] = ltoks["r0"]
@@ -4799,7 +5107,7 @@ def family_phase_new(torch, dev, smi, arch):
                     want)
     del params, model
     free_card(torch)
-    return total
+    return total, total_bodies
 
 
 def exact_tokens_bucketed(torch, dev, arch):

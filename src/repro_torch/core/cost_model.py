@@ -84,11 +84,21 @@ compulsory bytes at 3.35 TB/s as the memory term:
   its most loaded wave, ``FLASH_TILE_S`` a reachable tile (the cp.async
   round trip and two barriers), plus the tiles' work (MMAs, exps on the
   SFUs and staging from L2, at their peak rates, times
-  ``FLASH_WORK_EFF``) spread over the SMs in use;
+  ``FLASH_WORK_EFF``) spread over the SMs in use.  The body is the
+  static rule's (``_geometry.flash_body``, without the window: the
+  tuner's problem has none).  The wgmma body costs its tiles' work
+  alone, times ``FLASH_WGMMA_WORK_EFF`` (its producer's TMA ring hides a
+  tile's round trip), with its MMAs at ``FLASH_WGMMA_MMA_SHARE`` of the
+  mma.sync body's time; a tile whose registers exceed the launch bounds'
+  budget (``FlashWgmmaTile.spills``) runs its MMAs at the mma.sync rate
+  and its softmax and staging after them, as ptxas serializes them;
 - the split decode: per wave of (row, split) blocks ``DEC_BLOCK_S`` plus
   ``DEC_TILE_S`` a staged tile of its split, plus ``DEC_MERGE_S`` an L2
   round trip of the merge (4 splits' partials each) when a row has more
-  than one split;
+  than one split.  The packed body (``_geometry.decode_body``) has one
+  block a (row, KV head, split), so K and V are staged once a KV head,
+  and it combines in clusters: one round of distributed shared memory,
+  and one more through L2 for a row of more than one cluster;
 - the selective scan: per wave ``SCAN_BLOCK_S`` plus ``SCAN_STEP_S`` a
   step of the recurrence, plus ``SCAN_EXP_S`` an exp of the most loaded
   SM (its resident blocks share its SFUs: the bound of PERF.md's row 4).
@@ -97,7 +107,8 @@ Blocks resident on an SM come from threads and shared memory, as for the
 thesis bodies.  ``launch/calibrate_thesis.py --score`` fits each
 family's three constants by least squares on timed candidates.
 
-Its version string is its own (``h100-4`` adds the serving kernels;
+Its version string is its own (``h100-5`` adds the second bodies of
+flash attention and of the decode; ``h100-4`` the serving kernels;
 ``h100-3`` timed the thesis kernels as now, ``h100-2`` the block-sparse
 conv on the CUDA cores in both dtypes, ``h100-1`` every body): no TPU
 constant and no TPU-measured record is reused.
@@ -119,7 +130,7 @@ from repro_torch.kernels import _geometry as geo
 
 # Bump whenever a change below alters predicted costs: the registry keys
 # cached rankings on it, so stale predictions self-invalidate.
-COST_MODEL_VERSION = "h100-4"
+COST_MODEL_VERSION = "h100-5"
 
 # Cost-model queries in this process, one per candidate scored: a warm
 # registry hit performs zero (asserted in tests/test_torch_thesis.py).
@@ -167,6 +178,15 @@ SPARSE_REGS = 64
 FLASH_BLOCK_S = 6.802e-6
 FLASH_TILE_S = 1.209e-6
 FLASH_WORK_EFF = 3.132
+# The wgmma flash body's time for a tile's work as a share of the
+# mma.sync body's: the geometric mean of the two bodies' ratios at 4096
+# keys in chip_smoke.py's [time_body] (0.267 at D 256 causal, 0.427 at
+# D 64; NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+FLASH_WGMMA_MMA_SHARE = 0.34
+# The multiple of its tiles' work that the wgmma body takes: the least
+# squares of ``calibrate_thesis --score`` on its 6 lines (3 shapes past
+# 512 keys at 64 and 128 rows; NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+FLASH_WGMMA_WORK_EFF = 1.631
 # The split decode: a block's fixed latency (q, pos and starts, the
 # partial's publication), a staged tile, a merge batch of 4 splits.
 DEC_BLOCK_S = 4.694e-6
@@ -842,14 +862,21 @@ def flash_attention_features(b: int, hq: int, hkv: int, s: int, d: int,
                              causal: bool = True,
                              spec: H100Spec = H100Spec(),
                              elem_bytes: int = 2):
-    """Per (block_q, block_kv): (features [n, 3], smem, feasible), the
-    features multiplying (FLASH_BLOCK_S, FLASH_TILE_S, FLASH_WORK_EFF):
-    waves of blocks (blocks over SMs x resident blocks, at least 1); waves x the most key tiles a block reaches; the
+    """Per (block_q, block_kv): (features [n, 4], smem, feasible), the
+    features multiplying (FLASH_BLOCK_S, FLASH_TILE_S, FLASH_WORK_EFF,
+    FLASH_WGMMA_WORK_EFF): waves of blocks (blocks over SMs x resident
+    blocks, at least 1); waves x the most key tiles a block reaches; the
     tiles' work at peak rates (MMAs or FMAs, exps, L2 staging) spread
-    over the SMs in use."""
+    over the SMs in use.  The body is ``_geometry.flash_body``'s for the
+    tile's rows and no window (the problem has none, so a windowed call
+    whose tile walks at most FLASH_WGMMA_MIN_KEYS keys is scored on the
+    wgmma body the wrapper does not run).  A wgmma tile has the fourth
+    feature only: its tiles' work, its MMAs at ``FLASH_WGMMA_MMA_SHARE``
+    of the mma.sync body's time, or, where its registers spill, at the
+    mma.sync rate and in series with the softmax and the staging."""
     mma = geo.tensor_cores(elem_bytes)
     clock = _clock_hz(spec)
-    feats = np.zeros((len(blocks), 3))
+    feats = np.zeros((len(blocks), 4))
     smem = np.zeros(len(blocks))
     ok = np.zeros(len(blocks), dtype=bool)
     for j, (bq, bkv) in enumerate(blocks):
@@ -858,6 +885,20 @@ def flash_attention_features(b: int, hq: int, hkv: int, s: int, d: int,
         reach = np.minimum(s, (np.arange(n_qt) + 1) * bq) if causal \
             else np.full(n_qt, s)
         tiles = -(-reach // bkv)                       # per query tile
+        exp_s = bq * bkv / (SFU_PER_CLOCK * clock)
+        stage_s = 2.0 * bkv * d * elem_bytes / (spec.l2_bw / spec.sms)
+        n_blocks = b * hq * n_qt
+        if mma and geo.flash_body(d, s, elem_bytes, bq, causal) == "wgmma":
+            t = geo.flash_wgmma_tile(d, bq)
+            ok[j] = ok[j] and t.error is None
+            smem[j] = t.smem
+            # Q K^T and P V with p split in two: 6 rows x keys x d
+            mma_s = 6.0 * bq * bkv * d / (spec.tc_peak_flops / spec.sms)
+            work = (mma_s + exp_s + stage_s if t.spills else
+                    max(mma_s * FLASH_WGMMA_MMA_SHARE + exp_s, stage_s))
+            feats[j, 3] = (b * hq * tiles.sum() * work
+                           / min(spec.sms, n_blocks))
+            continue
         if mma:
             t = geo.flash_mma_tile(d, bq)
             threads, smem[j], dp = t.threads, t.smem, t.dp
@@ -867,16 +908,13 @@ def flash_attention_features(b: int, hq: int, hkv: int, s: int, d: int,
             threads, dp = 256, _round_up(d, 4)
             smem[j] = 2 * bkv * dp * 4
             mma_s = 4.0 * bq * bkv * dp / (spec.peak_flops / spec.sms)
-        exp_s = bq * bkv / (SFU_PER_CLOCK * clock)
-        stage_s = 2.0 * bkv * d * elem_bytes / (spec.l2_bw / spec.sms)
         work = np.maximum(mma_s + exp_s, stage_s)      # a tile of a block
-        n_blocks = b * hq * n_qt
         occ = _occupancy(np.array([threads]), np.array([smem[j]]),
                          spec)[0]
         waves = max(1.0, n_blocks / (spec.sms * occ))
-        feats[j] = (waves, waves * tiles.max(),
-                    b * hq * tiles.sum() * work
-                    / min(spec.sms, n_blocks))
+        feats[j, :3] = (waves, waves * tiles.max(),
+                        b * hq * tiles.sum() * work
+                        / min(spec.sms, n_blocks))
     return feats, smem, ok
 
 
@@ -891,7 +929,7 @@ def flash_attention_schedule_cost_batch(
     feats, smem, ok = flash_attention_features(b, hq, hkv, s, d, blocks,
                                                causal, spec, elem_bytes)
     compute_s = feats @ np.array([FLASH_BLOCK_S, FLASH_TILE_S,
-                                  FLASH_WORK_EFF])
+                                  FLASH_WORK_EFF, FLASH_WGMMA_WORK_EFF])
     dram = (2 * b * hq + 2 * b * hkv) * s * d * elem_bytes
     return _serving_cost(len(blocks), compute_s, dram, smem, ok, spec)
 
@@ -904,7 +942,11 @@ def decode_attention_features(b: int, hq: int, hkv: int, s: int, d: int,
     (features [n, 3], smem, feasible, plans), the features multiplying
     (DEC_BLOCK_S, DEC_TILE_S, DEC_MERGE_S): waves of (row, split)
     blocks; waves x the staged tiles of a split; the merge's L2 round
-    trips (4 splits each) when a row has more than one split."""
+    trips (4 splits each) when a row has more than one split.  The plan
+    names the body (``_geometry.decode_body``): a packed plan's blocks
+    are (row, KV head, split), one staging of K and V a KV head, and its
+    combine is a round in the cluster plus one through L2 for a row of
+    more than one cluster."""
     feats = np.zeros((len(block_kvs), 3))
     smem = np.zeros(len(block_kvs))
     ok = np.zeros(len(block_kvs), dtype=bool)
@@ -919,6 +961,8 @@ def decode_attention_features(b: int, hq: int, hkv: int, s: int, d: int,
         waves = max(1.0, plan.blocks / (spec.sms * occ))
         tiles = -(-min(plan.split_keys, s) // plan.tile_keys)
         merges = -(-plan.splits // 4) if plan.splits > 1 else 0
+        if plan.body == "packed":
+            merges = 1 + (plan.grid_splits > plan.cluster)
         feats[j] = (waves, waves * tiles, merges)
     return feats, smem, ok, plans
 

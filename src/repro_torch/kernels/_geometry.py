@@ -5,10 +5,15 @@ it fit?" for the direct conv, the block-sparse conv, the tiled matmul,
 flash attention, the split decode (``decode_plan``) and the selective
 scan (``scan_layout``), per dtype: bf16 runs on the tensor cores
 (``conv_mma_tile``, also the block-sparse conv's with its index row,
-``matmul_mma_tile``, ``flash_mma_tile``), float32 on the CUDA cores
-(``conv_tile``, ``matmul_tile``);
+``matmul_mma_tile``, ``flash_mma_tile``, ``flash_wgmma_tile``), float32
+on the CUDA cores (``conv_tile``, ``matmul_tile``);
 ``tensor_cores`` is the one rule that picks by element size, and
-``conv_layout``, ``sparse_layout`` and ``matmul_layout`` follow it. The
+``conv_layout``, ``sparse_layout`` and ``matmul_layout`` follow it.
+Two attention kernels have a second bf16 body, picked by a rule on
+static shapes (never ``pos`` or ``starts``, so a captured graph's
+launch is fixed): ``flash_body`` (mma.sync, or wgmma + TMA for query
+tiles that walk many keys) and ``decode_body`` (head chunks, or the
+whole KV group packed as the rows of tensor-core tiles). The
 wrappers use it to launch (and to raise on a block the kernel cannot
 take), the H100 cost model uses it for its padding and feasibility
 terms, and the tuner uses it to offer only blocks the kernel accepts, so
@@ -78,6 +83,27 @@ FLASH_Q_REGS_D = 128
 FLASH_MAX_D = 256
 FLASH_F32_TILE = (64, 32)
 
+# bf16 flash attention for long sequences (csrc/flash_wgmma.cu): wgmma +
+# TMA, one or two consumer warpgroups (64 or 128 query rows, the same
+# FLASH_ROW_CHOICES) and a producer warp; Q and a ring of two stages of
+# K and V (FLASH_KEYS keys each) in shared memory as [D / W][rows][W]
+# swizzled tiles, W = 64 elements (32 at D 96), 1024-byte aligned.
+FLASH_WGMMA_D = (64, 96, 128, 256)
+FLASH_WGMMA_STAGES = 2
+FLASH_WGMMA_BARRIER_BYTES = 256
+# A query tile that walks more keys than this takes the wgmma body.  The
+# threshold keeps the engine's prefills of at most 512 tokens on the
+# mma.sync body they were tuned on; it is not where the bodies cross:
+# chip_smoke.py's [time_body] sweep (PERF.md) has the wgmma body faster
+# at every swept length, 512 keys included (0.0196 against 0.0362 ms at
+# D 96, causal; NVIDIA H100 80GB HBM3, 700 W).
+FLASH_WGMMA_MIN_KEYS = 512
+# Registers a consumer thread of the wgmma body needs beside O (D / 2
+# f32), S (32) and P's bf16 hi and lo (16 each): ptxas fits D 64's 96 in
+# 128 with 40 to spare under three blocks an SM, and spills at D 256 with
+# two warpgroups, where 32 are left (chip_smoke.py's [ptxas] lines).
+FLASH_WGMMA_REG_SPARE = 33
+
 # Split decode (csrc/decode_common.cuh): 128-thread blocks, each one
 # (row, KV head, head chunk) x one split of the key range; K and V staged
 # a tile of keys at a time in rows of an odd number of 16-byte units.
@@ -91,6 +117,25 @@ DEC_MAX_SPLITS = 256
 # about a full wave of blocks: 132 SMs x 8 resident 128-thread blocks
 DEC_TARGET_BLOCKS = 132 * 8
 DEC_STATS_BYTES = (3 * DEC_MAX_HEADS + 4) * 4   # m, l, alpha + flag
+
+# The packed decode body (csrc/decode_common.cuh, decode_packed_kernel):
+# bf16 with a KV group of more than one query head at a head dim of
+# DEC_PACKED_D.  A block serves one (row, KV head, split) for all of the
+# group's heads, which are the rows of mma.sync tiles (16 a tile, zero
+# rows past the group; 1, 2 or 4 tiles), so K and V cross memory once a
+# KV head; 64-key tiles double-buffered.  The splits of a row run in
+# thread-block clusters of up to DEC_PACKED_CLUSTER, which combine their
+# partials through distributed shared memory, each block a slice of the
+# outputs; a row of more than one cluster combines the clusters'
+# partials through the workspace.
+DEC_PACKED_D = (64, 96, 128, 256)
+DEC_PACKED_TILES = (1, 2, 4)
+DEC_PACKED_TILE_KEYS = 64
+DEC_PACKED_CLUSTER = 8        # the portable cluster size
+# about one block an SM: one SM streams K/V at a small share of the
+# card's rate, so a row's keys spread over many; at head_dim 256 a
+# block's two K/V stages take 135 KB
+DEC_PACKED_TARGET_BLOCKS = 132
 
 # Selective scan (csrc/ssm_scan.cu, kP and kTile): a channel's N states
 # are split across N / SCAN_STATES_PER_LANE lanes of a warp; x, dt, b and
@@ -337,6 +382,89 @@ def flash_default_tile(elem_bytes: int) -> Tuple[int, int]:
             else FLASH_F32_TILE)
 
 
+@dataclasses.dataclass(frozen=True)
+class FlashWgmmaTile:
+    """How the long-sequence bf16 flash body lays out a head dim and a
+    block of query rows (``csrc/flash_wgmma.cu``,
+    flash_wgmma_kernel<DP, WG>)."""
+    d: int
+    rows: int
+    atom: int            # W: elements of a swizzle row (64, or 32)
+    smem: int            # bytes: alignment pad, Q, the ring, barriers
+
+    @property
+    def threads(self) -> int:
+        """A consumer warpgroup per 64 rows and one producer warp."""
+        return 128 * (self.rows // 64) + WARP
+
+    @property
+    def blocks_per_sm(self) -> int:
+        """Blocks an SM holds by the launch bounds' register budget
+        (``min_blocks`` in the source): one warpgroup 3 at D 64, 2 up to
+        D 128, 1 at D 256; two warpgroups 1."""
+        if self.rows > 64:
+            return 1
+        return 3 if self.d <= 64 else 2 if self.d <= 128 else 1
+
+    @property
+    def spills(self) -> bool:
+        """Whether a consumer thread's registers exceed its budget (65536
+        over the block's threads and blocks an SM, at most 255, in steps
+        of 8): ptxas then spills and serializes the body's wgmmas."""
+        budget = min(255, 65536 // (self.threads * self.blocks_per_sm)
+                     // 8 * 8)
+        return self.d // 2 + 64 + FLASH_WGMMA_REG_SPARE > budget
+
+    @property
+    def error(self) -> Optional[str]:
+        """Why the body refuses this tile, or None when it fits."""
+        if self.d not in FLASH_WGMMA_D:
+            return f"head_dim {self.d} not in {FLASH_WGMMA_D} (the wgmma body)"
+        if self.rows not in FLASH_ROW_CHOICES:
+            return (f"block_q {self.rows} not in {FLASH_ROW_CHOICES} (the "
+                    f"bf16 body's rows)")
+        if self.smem > SMEM_BYTES:
+            return f"{self.smem} bytes of shared memory > {SMEM_BYTES}"
+        return None
+
+
+def flash_wgmma_tile(d: int, rows: int = FLASH_ROWS) -> FlashWgmmaTile:
+    """Layout of the wgmma flash body (``smem_of`` in the source computes
+    the same): a 1024-byte alignment pad, the Q tile [rows][d], the
+    FLASH_WGMMA_STAGES stages of K and V ([FLASH_KEYS][d] each) and the
+    barriers."""
+    q = rows * d * 2
+    stage = 2 * FLASH_KEYS * d * 2
+    smem = (1024 + q + FLASH_WGMMA_STAGES * stage
+            + FLASH_WGMMA_BARRIER_BYTES)
+    return FlashWgmmaTile(d, rows, 64 if d % 64 == 0 else 32, smem)
+
+
+def flash_walk(s: int, causal: bool = True, window: Optional[int] = None,
+               rows: int = FLASH_ROWS) -> int:
+    """Keys the most loaded query tile of ``rows`` rows walks at length
+    ``s``: all of them without the causal mask, at most the window plus
+    the tile's rows with it."""
+    if causal and window:
+        return min(s, int(window) + rows - 1)
+    return s
+
+
+def flash_body(d: int, s: int, elem_bytes: int, rows: int = FLASH_ROWS,
+               causal: bool = True, window: Optional[int] = None) -> str:
+    """The flash body a call runs, from static shapes only: "float32"
+    (the CUDA-core body) for float32; for bf16 "wgmma" (``flash_wgmma.cu``)
+    where the head dim is one of FLASH_WGMMA_D and a query tile walks more
+    than FLASH_WGMMA_MIN_KEYS keys, else "mma" (``flash_mma_kernel``, the
+    engine's prefills of at most 512 tokens)."""
+    if not tensor_cores(elem_bytes):
+        return "float32"
+    if d in FLASH_WGMMA_D and \
+            flash_walk(s, causal, window, rows) > FLASH_WGMMA_MIN_KEYS:
+        return "wgmma"
+    return "mma"
+
+
 def dec_units(d: int, elem_bytes: int) -> int:
     """16-byte units of a staged K/V row of the split decode: the row
     rounded up to 16 bytes, then to an odd count, so the eight rows a
@@ -356,6 +484,47 @@ def dec_smem(d: int, elem_bytes: int, tile_keys: int, head_chunk: int,
     p = _round_up(head_chunk * tile_keys * 4, 16)
     return (2 * kv + q + p + DEC_STATS_BYTES
             + _round_up(4 * table_entries, 16))
+
+
+def _packed_tiles(group: int) -> int:
+    """16-row tiles the packed body gives a group: the first of
+    DEC_PACKED_TILES that holds it (the kernel's MT)."""
+    need = -(-group // 16)
+    return next((t for t in DEC_PACKED_TILES if t >= need), need)
+
+
+def dec_packed_stages(split_keys: int) -> int:
+    """K/V stages of a packed-decode block: one when a split holds at
+    most one tile (``dec_packed_stages`` in the source), else two."""
+    return 1 if split_keys <= DEC_PACKED_TILE_KEYS else 2
+
+
+def dec_packed_smem(d: int, tile_keys: int, m_tiles: int,
+                    table_entries: int, stages: int = 2) -> int:
+    """Shared memory of a packed-decode block (``dec_packed_layout`` in
+    ``csrc/decode_common.cuh`` computes the same): ``stages`` stages of K
+    and V tiles in rows of d + 8 bf16, q of the group's 16 x m_tiles
+    rows, p's bf16 hi and lo parts, the warps' row maxima and sums, a
+    flag and the split's block-table entries."""
+    row = (d + 8) * 2
+    rows = 16 * m_tiles
+    return (2 * stages * tile_keys * row + rows * row
+            + 2 * rows * (tile_keys + 8) * 2 + 4 * rows * 4 + 16
+            + _round_up(4 * table_entries, 16))
+
+
+def decode_body(hq: int, hkv: int, d: int, elem_bytes: int) -> str:
+    """The decode body a call runs, from static shapes only: "packed"
+    (the KV group's heads as tensor-core rows, K and V read once a KV
+    head) for bf16 with a group of 2 to 16 x DEC_PACKED_TILES[-1] heads at
+    a head dim of DEC_PACKED_D; "chunked" (head chunks of at most
+    DEC_MAX_HEADS on the CUDA cores) otherwise: float32, MHA, other head
+    dims."""
+    group = hq // hkv if hkv >= 1 and hq % hkv == 0 else 1
+    if (elem_bytes == 2 and d in DEC_PACKED_D
+            and 1 < group <= 16 * DEC_PACKED_TILES[-1]):
+        return "packed"
+    return "chunked"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -379,6 +548,28 @@ class DecodePlan:
     split_keys: int
     splits: int
     smem: int
+    body: str = "chunked"   # decode_body's choice, or the caller's
+
+    @property
+    def cluster(self) -> int:
+        """Splits (blocks) a thread-block cluster holds: the packed body's
+        as even as at most DEC_PACKED_CLUSTER allows (9 splits: two of
+        5), 1 for the chunked body."""
+        if self.body != "packed":
+            return 1
+        clusters = -(-self.splits // DEC_PACKED_CLUSTER)
+        return -(-self.splits // clusters)
+
+    @property
+    def grid_splits(self) -> int:
+        """The grid's y: the splits padded to whole clusters (the padding
+        blocks hold no key)."""
+        return -(-self.splits // self.cluster) * self.cluster
+
+    @property
+    def m_tiles(self) -> int:
+        """The packed body's 16-row tiles of the group (0 when chunked)."""
+        return _packed_tiles(self.head_chunk) if self.body == "packed" else 0
 
     @property
     def rows(self) -> int:
@@ -387,7 +578,7 @@ class DecodePlan:
 
     @property
     def blocks(self) -> int:
-        return self.rows * self.splits
+        return self.rows * self.grid_splits
 
     @property
     def tickets(self) -> int:
@@ -395,12 +586,27 @@ class DecodePlan:
         return self.rows
 
     @property
+    def part_floats(self) -> int:
+        """f32 of one split's partial: m, l and acc of each head
+        (packed: acc first, then m and l padded to 16 bytes, so the merge
+        reads acc as float4)."""
+        if self.body == "packed":
+            return (self.head_chunk * self.d
+                    + _round_up(2 * self.head_chunk, 4))
+        return self.head_chunk * (self.d + 2)
+
+    @property
     def workspace_floats(self) -> int:
-        """f32 partials (m, l and acc of each head) of every split; none
-        with one split (the block writes the output itself)."""
+        """f32 partials: the chunked body's of every split, the packed
+        body's of every cluster; none where one block (chunked) or one
+        cluster (packed) holds the row."""
+        if self.body == "packed":
+            clusters = self.grid_splits // self.cluster
+            return 0 if clusters == 1 else (self.rows * clusters
+                                            * self.part_floats)
         if self.splits == 1:
             return 0
-        return self.blocks * self.head_chunk * (self.d + 2)
+        return self.blocks * self.part_floats
 
     def split_range(self, i: int) -> Tuple[int, int]:
         """Keys ``[lo, hi)`` that split ``i`` owns."""
@@ -416,6 +622,14 @@ class DecodePlan:
             return (f"HQ={self.hq} is not a multiple of HKV={self.hkv}")
         if self.elem_bytes not in (2, 4):
             return f"element size {self.elem_bytes} is not bf16 or float32"
+        if self.body not in ("packed", "chunked"):
+            return f"decode body {self.body!r} is not packed or chunked"
+        if self.body == "packed" and (
+                self.elem_bytes != 2 or self.d not in DEC_PACKED_D
+                or self.head_chunk > 16 * DEC_PACKED_TILES[-1]):
+            return (f"the packed body takes bf16 at head_dim in "
+                    f"{DEC_PACKED_D} and groups up to "
+                    f"{16 * DEC_PACKED_TILES[-1]}")
         if self.limit < 1 or self.b < 1:
             return "no keys or no rows"
         gran = self.block_size if self.block_size > 0 else 16
@@ -424,8 +638,8 @@ class DecodePlan:
                     else "16 keys")
             return (f"split of {self.split_keys} keys is not a multiple of "
                     f"{what} ({gran})")
-        if self.splits > DEC_MAX_SPLITS:
-            return f"{self.splits} splits > {DEC_MAX_SPLITS}"
+        if self.grid_splits > DEC_MAX_SPLITS:
+            return f"{self.grid_splits} splits > {DEC_MAX_SPLITS}"
         if self.smem > SMEM_BYTES:
             return f"{self.smem} bytes of shared memory > {SMEM_BYTES}"
         return None
@@ -433,14 +647,18 @@ class DecodePlan:
 
 def decode_plan(b: int, hq: int, hkv: int, d: int, limit: int,
                 block_size: int, elem_bytes: int,
-                split_keys: Optional[int] = None) -> DecodePlan:
+                split_keys: Optional[int] = None,
+                body: Optional[str] = None) -> DecodePlan:
     """The split plan of a decode call from static shapes: ``limit`` is
     the cache's S (contiguous, ``block_size`` 0) or MB x bs (paged).
     ``split_keys`` (a :class:`DecodeAttentionSchedule`'s ``block_kv``)
-    replaces the split below and keeps the head chunk and the tile; the
+    replaces the split below and keeps the head chunk and the tile;
+    ``body`` (None: :func:`decode_body`'s choice) names the body.  The
     plan's ``error`` says when the kernel refuses it (not a multiple of
     16 keys, or of the pool block; more than DEC_MAX_SPLITS splits;
-    shared memory over SMEM_BYTES).
+    shared memory over SMEM_BYTES; a body that does not take the shape).
+
+    Chunked (``decode_split_kernel``):
 
     - head chunk: a KV group's query heads in equal chunks of at most
       DEC_MAX_HEADS heads and, where the group allows, at most
@@ -449,30 +667,49 @@ def decode_plan(b: int, hq: int, hkv: int, d: int, limit: int,
     - tile: up to DEC_TILE_KEYS keys whose K and V rows fit
       DEC_TILE_BYTES, a multiple of 16;
     - splits: enough for about DEC_TARGET_BLOCKS blocks, at least
-      DEC_MIN_SPLIT_KEYS keys each and at most DEC_MAX_SPLITS, the split
-      a multiple of 16 keys (contiguous) or of the pool block (paged, so
-      split boundaries fall on pool blocks)."""
+      DEC_MIN_SPLIT_KEYS keys each and at most DEC_MAX_SPLITS.
+
+    Packed (``decode_packed_kernel``): the head chunk is the whole group
+    (``chunks`` 1), the tile DEC_PACKED_TILE_KEYS keys, and the split
+    enough for about DEC_PACKED_TARGET_BLOCKS blocks but at least a tile:
+    the partials stay in shared memory, combined within a cluster of up
+    to DEC_PACKED_CLUSTER splits a slice a block, so more splits cost a
+    little combining and stream K and V from more SMs.
+
+    Either way the split is a multiple of 16 keys (contiguous) or of the
+    pool block (paged, so split boundaries fall on pool blocks)."""
     group = hq // hkv if hkv >= 1 and hq % hkv == 0 else 1
-    per_chunk = max(1, min(DEC_MAX_HEADS, DEC_CHUNK_OUTPUTS // max(d, 1)))
-    chunks = -(-group // per_chunk)
-    head_chunk = -(-group // chunks)
-    units = dec_units(max(d, 1), elem_bytes)
-    tile = DEC_TILE_BYTES // (2 * units * 16) // 16 * 16
-    tile = max(16, min(DEC_TILE_KEYS, tile))
+    body = decode_body(hq, hkv, d, elem_bytes) if body is None else body
     limit = max(limit, 1)
     gran = block_size if block_size > 0 else 16
+    if body == "packed":
+        chunks, head_chunk, tile = 1, group, DEC_PACKED_TILE_KEYS
+        target, least = DEC_PACKED_TARGET_BLOCKS, DEC_PACKED_TILE_KEYS
+    else:
+        per_chunk = max(1, min(DEC_MAX_HEADS,
+                               DEC_CHUNK_OUTPUTS // max(d, 1)))
+        chunks = -(-group // per_chunk)
+        head_chunk = -(-group // chunks)
+        units = dec_units(max(d, 1), elem_bytes)
+        tile = DEC_TILE_BYTES // (2 * units * 16) // 16 * 16
+        tile = max(16, min(DEC_TILE_KEYS, tile))
+        target, least = DEC_TARGET_BLOCKS, DEC_MIN_SPLIT_KEYS
     rows = max(b, 1) * max(hkv, 1) * chunks
-    want = max(1, -(-DEC_TARGET_BLOCKS // rows))
+    want = max(1, -(-target // rows))
     if split_keys is None:
-        keys = max(-(-limit // want), DEC_MIN_SPLIT_KEYS,
-                   -(-limit // DEC_MAX_SPLITS))
+        keys = max(-(-limit // want), least, -(-limit // DEC_MAX_SPLITS))
         split_keys = min(_round_up(keys, gran), _round_up(limit, gran))
     split_keys = int(split_keys)
     splits = -(-limit // max(split_keys, 1))
     table = -(-split_keys // block_size) if block_size > 0 else 0
-    smem = dec_smem(max(d, 1), elem_bytes, tile, head_chunk, table)
+    if body == "packed":
+        smem = dec_packed_smem(max(d, 1), tile, _packed_tiles(group), table,
+                               dec_packed_stages(split_keys))
+    else:
+        smem = dec_smem(max(d, 1), elem_bytes, tile, head_chunk, table)
     return DecodePlan(b, hq, hkv, d, limit, block_size, elem_bytes,
-                      head_chunk, chunks, tile, split_keys, splits, smem)
+                      head_chunk, chunks, tile, split_keys, splits, smem,
+                      body)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -583,8 +820,10 @@ def scan_layout(block_d: int, n: int, elem_bytes: int) -> ScanLayout:
 
 
 __all__ = ["ScanLayout", "scan_layout", "ConvTile", "MatmulTile",
-           "ConvMmaTile", "MatmulMmaTile", "FlashMmaTile", "DecodePlan",
-           "decode_plan", "conv_tile", "matmul_tile", "conv_mma_tile",
+           "ConvMmaTile", "MatmulMmaTile", "FlashMmaTile", "FlashWgmmaTile",
+           "DecodePlan", "decode_plan", "decode_body", "dec_packed_smem",
+           "dec_packed_stages",
+           "flash_wgmma_tile", "flash_walk", "flash_body", "conv_tile", "matmul_tile", "conv_mma_tile",
            "matmul_mma_tile", "flash_mma_tile", "flash_tile_error",
            "flash_default_tile", "conv_layout", "sparse_layout",
            "matmul_layout", "matmul_mma_route", "tensor_cores", "sparse_tile",

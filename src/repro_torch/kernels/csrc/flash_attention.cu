@@ -7,7 +7,8 @@
 //   D = 96) causal attention does about S/2 * 4 * D operations per query
 //   row against 8 * D bytes of Q, K, V and O per row, far below the
 //   card's ~295 operations per byte, so moving Q/K/V/O once is the floor.
-// Two bodies, chosen by dtype (kernels/_geometry.py, tensor_cores):
+// Two bodies here, chosen by dtype (kernels/_geometry.py, tensor_cores),
+// and a third for long bf16 sequences in flash_wgmma.cu:
 //
 // bfloat16: flash_mma_kernel<DP, ROWS>, FlashAttention-2 on mma.sync.m16n8k16
 //   (bf16 in, f32 accumulate), D padded to DP, a multiple of 16 (of 32
@@ -50,12 +51,16 @@
 //     ~2^-17, for twice the P V MMAs (small beside the staging here).
 //   - Epilogue: scaled by 1/l, rounded to bf16, stored through shared
 //     memory as 16-byte rows.
-//   Why mma.sync and not wgmma: the engine's prefills are <= 512 tokens,
-//   so a block sees at most 8 KV tiles and its time is latency and
-//   staging, not the MMA rate.  A wgmma/TMA design (one warpgroup's
-//   64-row tile per instruction, K and V by TMA into swizzled stages, a
-//   producer warp, softmax overlapped with the next tile's MMAs, as
-//   FlashAttention-3 does) would pay off on long prompts.
+//   Why mma.sync here and wgmma beside it: the engine's prefills are
+//   <= 512 tokens, so a block sees at most 8 KV tiles and its time is
+//   latency and staging, not the MMA rate; this body keeps them (the
+//   static rule, kernels/_geometry.py flash_body).  Past 512 keys a
+//   query tile (whisper's 1500-frame encoder, recurrentgemma's
+//   4096-token bucket, paligemma's 768-token prefill) the wgmma/TMA body
+//   of flash_wgmma.cu runs instead: one warpgroup's 64-row tile per
+//   instruction, K and V by TMA into swizzled stages, a producer warp,
+//   the softmax overlapped with the previous tile's P V, as
+//   FlashAttention-3 does.
 //
 // float32: flash_fwd_kernel, on the CUDA cores in IEEE fp32 (the tensor
 //   cores do only TF32 on float32): 256 threads, four threads per query
@@ -271,16 +276,6 @@ __host__ __device__ constexpr int smem_bytes(int dp, int rows) {
   return (rows + 4 * kKeys) * (dp + 8) * 2;
 }
 
-// (p0, p1) as bf16x2 hi and lo parts: p = hi + lo to ~2^-17.
-__device__ __forceinline__ uint32_t split_pair(float p0, float p1,
-                                               uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(p0 - hf.x, p1 - hf.y);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 template <int DP, int ROWS>
 __global__ void __launch_bounds__(threads_of(ROWS))
 flash_mma_kernel(const FlashArgs a) {
@@ -494,10 +489,10 @@ flash_mma_kernel(const FlashArgs a) {
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         uint32_t ph[4], pl[4];
-        ph[0] = split_pair(s[2 * kk][0], s[2 * kk][1], pl[0]);
-        ph[1] = split_pair(s[2 * kk][2], s[2 * kk][3], pl[1]);
-        ph[2] = split_pair(s[2 * kk + 1][0], s[2 * kk + 1][1], pl[2]);
-        ph[3] = split_pair(s[2 * kk + 1][2], s[2 * kk + 1][3], pl[3]);
+        ph[0] = hw::split_pair(s[2 * kk][0], s[2 * kk][1], pl[0]);
+        ph[1] = hw::split_pair(s[2 * kk][2], s[2 * kk][3], pl[1]);
+        ph[2] = hw::split_pair(s[2 * kk + 1][0], s[2 * kk + 1][1], pl[2]);
+        ph[3] = hw::split_pair(s[2 * kk + 1][2], s[2 * kk + 1][3], pl[3]);
 #pragma unroll
         for (int dp = 0; dp < KD; ++dp) {
           uint32_t vf[4];

@@ -424,57 +424,16 @@ matmul_mma_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-// cuTensorMapEncodeTiled of the CUDA driver API through the runtime's
-// entry-point query, so the library needs no -lcuda on its link line.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult q{};
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr,
-                                         12000, cudaEnableDefault,
-                                         &q) != cudaSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                cudaEnableDefault, &q) != cudaSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-#endif
-    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(ptr)
-                                            : static_cast<EncodeTiled>(nullptr);
-  }();
-  return fn;
-}
-
-inline CUtensorMapSwizzle tma_swizzle(int span) {
-  return span == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-         : span == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                      : CU_TENSOR_MAP_SWIZZLE_32B;
-}
-
 // A 2-D bf16 tensor map: `cols` x `rows` (row stride `ld` elements),
 // box `box_c` x `box_r`, swizzled by `span`; out-of-range boxes read 0.
 inline bool make_map(CUtensorMap* map, const void* base, int cols, int rows,
                      int ld, int box_c, int box_r, int span) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_c),
                              static_cast<cuuint32_t>(box_r)};
-  const cuuint32_t one[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-            dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            tma_swizzle(span), CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return hw::make_map_bf16(map, base, 2, dims, strides, box, span);
 }
 
 template <int WG, int BN>

@@ -11,13 +11,13 @@
 //   buffer.
 #include "decode_common.cuh"
 
-// ws, tickets, SK, TK, HC, smem: as decode_attention_fwd (SK a multiple
-// of bs).
+// ws, tickets, SK, TK, HC, smem, packed: as decode_attention_fwd (SK a
+// multiple of bs).
 extern "C" int paged_decode_attention_fwd(
     const void* q, const void* k_pool, const void* v_pool, void* o,
     const void* tables, const void* pos, void* ws, void* tickets, int B,
     int HQ, int HKV, int bs, int MB, int D, int SK, int TK, int HC,
-    int smem, float scale, int is_bf16, void* stream) {
+    int smem, int packed, float scale, int is_bf16, void* stream) {
   if (!rt::decode_args_ok(B, HQ, HKV, D) || bs < 1 || MB < 1 || SK < 1 ||
       SK % bs != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -41,7 +41,10 @@ extern "C" int paged_decode_attention_fwd(
     rt::PagedKV<T> kv{static_cast<const T*>(k_pool),
                       static_cast<const T*>(v_pool), tp, HKV, bs, MB};
     a.vec = rt::decode_vec<T>(D, k_pool, v_pool);
-    err = rt::decode_launch<T>(a, kv, B, SK, TK, HC, smem, st);
+    err = packed ? rt::decode_packed_launch(a, kv, B, SK, TK, HC, smem, st)
+                 : rt::decode_launch<T>(a, kv, B, SK, TK, HC, smem, st);
+  } else if (packed) {
+    err = cudaErrorInvalidValue;       // the packed body is bf16 only
   } else {
     rt::PagedKV<float> kv{static_cast<const float*>(k_pool),
                           static_cast<const float*>(v_pool), tp, HKV, bs, MB};

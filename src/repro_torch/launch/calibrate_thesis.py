@@ -16,8 +16,10 @@ and an even spread of the rest of the tuner's bf16 blocks; for the
 block-sparse conv, an even spread of the tuner's skip blocks on the
 thesis' Fig 6.2 layer and the 3x3 Table 4.1 layers at block densities
 0-1, batch 1 and 32.  For the serving kernels (bf16): flash at phi3's
-prefill buckets, ``generate``'s [4, 512] and head_dim 256; the
-contiguous decode at 1 and 4 rows over caches of 544-2080 keys; the
+prefill buckets, ``generate``'s [4, 512], head_dim 256 and three
+longer prefills that run the wgmma body; the contiguous decode at 1 and
+4 rows over caches of 544-2080 keys and at three grouped shapes that run
+the packed body; the
 scan at the prefill, ``generate`` and decode shapes of falcon-mamba.
 It times each with CUDA events (median of 15 launches, the 50 MB L2
 flushed before each) and writes one JSON line per (schedule, batch):
@@ -47,6 +49,7 @@ from repro_torch.configs.squeezenet_layers import TABLE_4_1
 from repro_torch.core import cost_model as cm
 from repro_torch.core import tuner
 from repro_torch.core.loopnest import ConvLayer
+from repro_torch.kernels import _geometry as geo
 from repro_torch.kernels import conv2d, matmul, sparse_conv2d
 from repro_torch.kernels.sparse_conv import analyze_weights
 
@@ -57,14 +60,19 @@ KINDS = ("conv2d", "matmul", "sparse_conv", "flash_attention",
 # the serving kernels' shapes (bf16): flash (b, hq, hkv, s, d), the
 # contiguous decode (b, hq, hkv, s, d), the scan (bt, seq, di, n)
 FLASH_SHAPES = [(1, 32, 32, s, 96) for s in (64, 128, 256, 512)] + [
-    (4, 32, 32, 512, 96), (1, 16, 1, 512, 256)]
+    (4, 32, 32, 512, 96), (1, 16, 1, 512, 256),
+    # past 512 keys a query tile: the wgmma body
+    (1, 16, 1, 1024, 256), (1, 16, 1, 2048, 256), (2, 20, 20, 1024, 64)]
 DECODE_SHAPES = [(b, 32, 32, s, 96) for b in (1, 4)
-                 for s in (544, 1056, 2080)]
+                 for s in (544, 1056, 2080)] + [
+    # grouped KV heads: the packed body
+    (4, 16, 1, 2048, 256), (4, 64, 8, 544, 128), (1, 40, 8, 2080, 128)]
 SCAN_SHAPES = [(1, 64, 8192, 16), (1, 512, 8192, 16), (4, 512, 8192, 16),
                (1, 1, 8192, 16), (4, 1, 8192, 16), (8, 1, 8192, 16)]
 # each serving family's fitted constants and the features they multiply
 SERVING = {
-    "flash_attention": (("FLASH_BLOCK_S", "FLASH_TILE_S", "FLASH_WORK_EFF"),
+    "flash_attention": (("FLASH_BLOCK_S", "FLASH_TILE_S", "FLASH_WORK_EFF",
+                         "FLASH_WGMMA_WORK_EFF"),
                         lambda r: cm.flash_attention_features(
                             *_dims(r), [tuple(r["block"])],
                             elem_bytes=_elem_bytes(r))[0][0]),
@@ -190,6 +198,28 @@ def fit_stats(recs):
             float(np.mean(rho)), float(np.exp(np.mean(np.log(regret)))))
 
 
+def _flash_body(rec) -> str:
+    """The body a flash line's schedule ran (``_geometry.flash_body``)."""
+    p = rec["problem"]
+    return geo.flash_body(p["d"], p["s"], _elem_bytes(rec), rec["block"][0])
+
+
+def body_stats(recs) -> str:
+    """Mean squared log error and mean log bias of the model on
+    ``recs``, and the shapes whose fastest timed schedule is the one the
+    model ranks first."""
+    pred = np.array([_predict_ms(r) for r in recs])
+    meas = np.array([r["ms"] for r in recs])
+    err = np.log(pred / meas)
+    groups = {}
+    for i, r in enumerate(recs):
+        groups.setdefault(r["shape"], []).append(i)
+    hits = sum(int(np.argmin(pred[idx]) == np.argmin(meas[idx]))
+               for idx in groups.values())
+    return (f"mse {np.mean(err ** 2):.4f} bias {np.mean(err):+.4f} "
+            f"picks_fastest {hits}/{len(groups)}")
+
+
 def score(paths) -> None:
     """Print the model's fit to calibration lines, per kind of line."""
     recs = [json.loads(line) for p in paths for line in open(p)]
@@ -206,6 +236,12 @@ def score(paths) -> None:
                 if sub:
                     print("[score] kind=sparse_conv least_squares " + " ".join(
                         f"{k}={v:.4g}" for k, v in sparse_fit(sub).items()))
+        if kind == "flash_attention":
+            for body in ("mma", "wgmma"):
+                sub = [r for r in rs if _flash_body(r) == body]
+                if sub:
+                    print(f"[score] kind=flash_attention body={body} "
+                          f"lines={len(sub)} " + body_stats(sub))
         if kind in SERVING:
             print(f"[score] kind={kind} least_squares " + " ".join(
                 f"{k}={v:.4g}" for k, v in serving_fit(kind, rs).items()))

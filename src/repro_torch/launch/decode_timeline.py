@@ -10,7 +10,14 @@ changed).  Phases of a block with keys: entry; ``loaded`` (pos, starts,
 q and the split's table entries read); ``k_staged`` (K in shared
 memory); ``scored``; ``v_staged`` (softmax done and V in); ``pv_done``;
 ``ticket`` (partial published, ticket drawn); ``end`` (output written by
-the merging block or by a row's only live split).  Prints, per shape,
+the merging block or by a row's only live split).  The packed body
+(``decode_packed_kernel``, recurrentgemma's rolling decode) has its own
+phases: entry; ``loaded`` (pos, starts, the group's q, the table; a
+contiguous cache's first tile is already in flight);
+``tiles`` (every tile's scores and P V done); ``reduced`` (l summed over
+the warps); ``level2`` (the row's last cluster, past its ticket);
+``end`` (the cluster's combine done, or the last cluster's).
+Prints, per shape,
 one JSON line: the blocks, the live ones, the span from the first block
 entry to the last stamp, and each stamp's median and maximum over the
 live blocks in us after the first entry (the L2 is flushed before the
@@ -52,6 +59,21 @@ ANCHORS = (
 DIRECT = ("        og[q_row * D + idx] = from_f<T>(l > 0.f ? acc[o] / l"
           " : 0.f);\n      }\n    }\n")
 MERGED = "    og[q_row * D + idx] = from_f<T>(x / l);\n  }\n}"
+# the packed body's phases, anchors (stamp before) and ends
+PACKED_STAMPS = ("entry", "loaded", "tiles", "reduced", "level2", "end")
+PACKED_ANCHORS = (
+    ("  // keys t0 .. t0 + nk - 1 into stage st;", 0),
+    ("  float o[MT][NC][4];", 1),
+    ("  // l of each row: the quad's, then the four warps'", 2),
+    ("  // ---- combine, level 1: the cluster's C splits (blocks) leave", 3),
+)
+# stamps after: the last cluster past its ticket, every block past the
+# cluster's combine, the last cluster's end
+PACKED_MERGING = "  if (!is_last) return;\n"
+PACKED_DIRECT = ("  hw::cluster_sync();                // the partials' reads "
+                 "are done\n")
+PACKED_MERGED = ("    dst[1] = __floats2bfloat162_rn(x.z * inv, x.w * inv);"
+                 "\n  }\n}")
 
 
 def instrumented_source() -> str:
@@ -77,7 +99,20 @@ def instrumented_source() -> str:
     src = src.replace(DIRECT, DIRECT + _stamp(7))
     if src.count(MERGED) != 1:
         raise SystemExit("decode_timeline: the merge's end not found once")
-    return src.replace(MERGED, MERGED[:-1] + _stamp(7) + "}")
+    src = src.replace(MERGED, MERGED[:-1] + _stamp(7) + "}")
+    for anchor, k in PACKED_ANCHORS:
+        if src.count(anchor) != 1:
+            raise SystemExit(f"decode_timeline: {anchor!r} not found once "
+                             f"in decode_common.cuh")
+        src = src.replace(anchor, _stamp(k) + anchor)
+    for text, k, where in ((PACKED_MERGING, 4, "the last cluster"),
+                           (PACKED_DIRECT, 5, "the cluster combine's end"),
+                           (PACKED_MERGED, 5, "the packed merge's end")):
+        if src.count(text) != 1:
+            raise SystemExit(f"decode_timeline: {where} not found once")
+        src = src.replace(text, text + _stamp(k) if text.endswith("\n")
+                          else text[:-1] + _stamp(k) + "}")
+    return src
 
 
 def build():
@@ -120,9 +155,9 @@ def build():
     return lib
 
 
-def timeline(read, plan, fn, flush):
+def timeline(read, plan, fn, flush, names=STAMPS):
     """Run ``fn`` once after an L2 flush; the summary of the stamps that
-    ``read`` copies out."""
+    ``read`` copies out, named ``names``."""
     n = plan.blocks * 8
     fn()                              # warm: the wrapper's scratch exists
     flush.zero_()
@@ -138,7 +173,7 @@ def timeline(read, plan, fn, flush):
     rel = np.where(t >= t0, (t - t0) / 1e3, np.nan)[live]
     out = {"blocks": plan.blocks, "live_blocks": int(live.sum()),
            "span_us": round(float(np.nanmax(rel)), 2)}
-    for k, name in enumerate(STAMPS):
+    for k, name in enumerate(names):
         col = rel[:, k]
         if np.isfinite(col).any():
             out[name] = {"median_us": round(float(np.nanmedian(col)), 2),
@@ -177,6 +212,15 @@ def main():
         "pos [17,100,300,511]"] = timeline(
         lib.read_stamps_paged, decode_plan(4, 32, 32, 96, mb * bs, bs, 2),
         lambda: paged_decode_attention(q, kp, vp, tables, pos), flush)
+    # the packed body: recurrentgemma's 16 heads of 256 on one KV head
+    # over its wrapped 2048-slot rolling buffer
+    s = 2048
+    qr, kr, vr = rn(4, 16, 1, 256), rn(4, 1, s, 256), rn(4, 1, s, 256)
+    pr = torch.tensor([2048, 2500, 3000, 4127], device=dev)
+    res["decode_attention (packed) q [4,16,1,256] rolling k/v "
+        "[4,1,2048,256] pos [2048,2500,3000,4127]"] = timeline(
+        lib.read_stamps, decode_plan(4, 16, 1, 256, s, 0, 2),
+        lambda: decode_attention(qr, kr, vr, pr), flush, PACKED_STAMPS)
     for shape, r in res.items():
         print(json.dumps({"shape": shape, **r}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -19,9 +19,10 @@ On a card the build is:
    warm-up (the warm-up is part of the build, not a step);
 3. the capture, into the graph's own private memory pool;
 4. the wrappers' launch counts that the captured call added are kept
-   (``launch_delta``) and the counts are set back to their values
-   before the build: each replay adds the delta, so the counters stay
-   exact (one per kernel a step launches, none for the build);
+   (``launch_delta``, and their second bodies' in ``body_delta``) and
+   the counts are set back to their values before the build: each
+   replay adds the deltas, so the counters stay exact (one per kernel a
+   step launches, none for the build);
 5. the launch parameters the wrappers noted during the capture (kind,
    block sizes, the decode split: ``kernels/_launches.py``) are kept as
    ``launch_params``, so the card can show which schedule a graph runs.
@@ -65,6 +66,14 @@ def _set_counts(counts: Dict[str, int]) -> None:
         kernels.WRAPPERS[name].launches = n
 
 
+def _add_body_counts(counts: Dict[str, int], base: bool = False) -> None:
+    """Add ``counts`` to the second bodies' launch counts (``base``: set
+    them to ``counts``)."""
+    for name, n in counts.items():
+        fn, attr = kernels.BODIES[name]
+        setattr(fn, attr, n if base else getattr(fn, attr) + n)
+
+
 class CapturedStep:
     """A step function bound to static buffers, captured on a card.
 
@@ -89,6 +98,7 @@ class CapturedStep:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: Any = None
         self.launch_delta: Dict[str, int] = {}
+        self.body_delta: Dict[str, int] = {}
         self.launch_params: List[Dict[str, Any]] = []
         self.pool_bytes = 0             # the graph's private pool
         self.replays = 0
@@ -107,6 +117,7 @@ class CapturedStep:
         invalidated, so the next build (the session's retry) captures
         into a new graph on a new stream."""
         before = kernels.launch_counts()
+        before_bodies = kernels.body_launch_counts()
         # no automatic collection while the step is built: a collection
         # that frees another step's graph (dead cyclic garbage) during the
         # capture invalidates the capture
@@ -121,6 +132,7 @@ class CapturedStep:
             if collecting:
                 gc.enable()
             _set_counts(before)
+            _add_body_counts(before_bodies, base=True)
 
     def _warm_up_and_capture(self) -> None:
         """The build's steps 1-5 (module docstring)."""
@@ -138,6 +150,7 @@ class CapturedStep:
             t.copy_(s)
         del saved
         warm = kernels.launch_counts()
+        warm_bodies = kernels.body_launch_counts()
         # ``torch.cuda.graph`` empties the allocator's cache on entry;
         # doing it first makes the reserved bytes' growth the pool's
         torch.cuda.synchronize(dev)
@@ -151,6 +164,9 @@ class CapturedStep:
         after = kernels.launch_counts()
         self.launch_delta = {k: after[k] - warm[k] for k in after
                              if after[k] != warm[k]}
+        after = kernels.body_launch_counts()
+        self.body_delta = {k: after[k] - warm_bodies[k] for k in after
+                           if after[k] != warm_bodies[k]}
         self.graph = graph
         self.outputs = outputs
 
@@ -190,6 +206,7 @@ class CapturedStep:
             self.graph.replay()
             for name, n in self.launch_delta.items():
                 kernels.WRAPPERS[name].launches += n
+            _add_body_counts(self.body_delta)
         self.replays += 1
         return self.outputs
 

@@ -12,8 +12,14 @@ the partials with exp(m_i - M) factors, MERGE splits at a time (a
 running M rescaled where it grows), and one division by the sum of l.
 The emulation is held to the plain versions at float32 1e-5, and the
 plain versions are held to the Pallas kernels by
-``tests/test_torch_kernels.py``.  The card runs the kernel itself in
-``tests/test_torch_gpu.py``.
+``tests/test_torch_kernels.py``.  The packed body (bf16, the KV group's
+heads as the rows of tensor-core tiles) is emulated the same way with
+its own arithmetic (64-key tiles from each split's first key, bf16
+scores' inputs exact in f32, p split into bf16 hi + lo parts) and held
+in bf16 to the plain versions and, through them, to the Pallas kernels
+in interpret mode, per element at two bf16 ulps + 1e-5.  The card runs
+the kernels themselves in ``tests/test_torch_gpu.py`` and
+``tests/test_torch_gpu_attention_bodies.py``.
 """
 import inspect
 
@@ -22,7 +28,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax.numpy as jnp  # noqa: E402
+
 from repro.configs import REGISTRY  # noqa: E402
+from repro.kernels.decode_attention.kernel import (  # noqa: E402
+    decode_attention_pallas, paged_decode_attention_pallas)
 from repro_torch.kernels import _geometry as geo  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_ref, paged_decode_attention_ref)
@@ -44,6 +54,12 @@ PLAN_SHAPES = [
     (64, 64, 8, 128, 32768, 16, 2),    # long context, many rows
     (2, 5, 1, 64, 160, 4, 4),
     (1, 1, 1, 1, 300, 100, 2),         # pool blocks wider than a tile
+    # the packed body's shapes: recurrentgemma's rolling buffer, the
+    # engine's pool at qwen3-32b's and paligemma-3b's heads
+    (4, 16, 1, 256, 2048, 0, 2),
+    (4, 64, 8, 128, 544, 16, 2),
+    (4, 8, 1, 256, 544, 16, 2),
+    (1, 8, 1, 256, 4096, 16, 2),
 ]
 
 
@@ -91,9 +107,11 @@ def test_the_plan_depends_on_no_runtime_value():
     launch is fixed."""
     params = list(inspect.signature(geo.decode_plan).parameters)
     assert params == ["b", "hq", "hkv", "d", "limit", "block_size",
-                      "elem_bytes", "split_keys"]
+                      "elem_bytes", "split_keys", "body"]
     assert list(inspect.signature(dec_ops._plan).parameters) == [
-        "name", "q", "hkv", "limit", "block_size", "split_keys"]
+        "name", "q", "hkv", "limit", "block_size", "split_keys", "body"]
+    assert list(inspect.signature(geo.decode_body).parameters) == [
+        "hq", "hkv", "d", "elem_bytes"]
     a = geo.decode_plan(4, 32, 32, 96, 544, 0, 2)
     assert a == geo.decode_plan(4, 32, 32, 96, 544, 0, 2)
     assert hash(a) == hash(geo.decode_plan(4, 32, 32, 96, 544, 0, 2))
@@ -115,8 +133,17 @@ def test_the_plan_and_the_wrappers_refuse(d, hq, hkv, msg):
 def test_head_dim_256_with_group_16_is_accepted():
     plan = geo.decode_plan(2, 16, 1, 256, 544, 16, 2)
     assert plan.error is None
-    # 16 heads of 256: chunks of 2 heads (512 outputs a block)
-    assert (plan.chunks, plan.head_chunk) == (8, 2)
+    # bf16: the packed body takes the 16 heads of 256 in one block, one
+    # 16-row tile; the chunked body (float32, or asked for) in chunks of
+    # 2 heads (512 outputs a block)
+    assert (plan.body, plan.chunks, plan.head_chunk, plan.m_tiles) == (
+        "packed", 1, 16, 1)
+    for chunked in (geo.decode_plan(2, 16, 1, 256, 544, 16, 4),
+                    geo.decode_plan(2, 16, 1, 256, 544, 16, 2,
+                                    body="chunked")):
+        assert chunked.error is None
+        assert (chunked.body, chunked.chunks, chunked.head_chunk) == (
+            "chunked", 8, 2)
     dec_ops._check_q("decode_attention", torch.zeros(2, 16, 1, 256), 1)
     with pytest.raises(ValueError, match="dtype"):
         dec_ops._check_q("decode_attention",
@@ -130,7 +157,11 @@ def test_every_head_dim_and_group_fits_shared_memory(eb, bs):
         for hq, hkv in ((1, 1), (5, 1), (8, 1), (16, 1), (40, 8), (64, 1)):
             plan = geo.decode_plan(2, hq, hkv, d, 4096, bs, eb)
             assert plan.error is None, (d, hq, hkv, plan.error)
-            assert plan.head_chunk <= geo.DEC_MAX_HEADS
+            if plan.body == "packed":      # the whole group in one block
+                assert (plan.chunks, plan.head_chunk) == (1, hq // hkv)
+                assert 16 * plan.m_tiles >= hq // hkv
+            else:
+                assert plan.head_chunk <= geo.DEC_MAX_HEADS
             assert plan.head_chunk * plan.chunks >= hq // hkv
             assert plan.smem <= geo.SMEM_BYTES
 
@@ -152,6 +183,75 @@ def test_every_registry_config_fits_the_three_attention_limits():
         dec_ops._check_q(name, torch.zeros(1, hq, 1, hd), hkv)
         seen += 1
     assert seen >= 8
+
+
+@pytest.mark.parametrize("bs", [0, 16])
+def test_packed_plan_serves_every_grouped_config_in_one_chunk(bs):
+    """Every registry config whose KV group holds more than one query
+    head decodes in bf16 on the packed body: one head chunk (K and V
+    read once a KV head), within shared memory, its splits in clusters
+    of at most DEC_PACKED_CLUSTER as even as that allows (the grid padded
+    to whole clusters by fewer than a cluster of empty blocks), and a
+    workspace only for rows of more than one cluster; MHA and float32
+    keep the chunked body."""
+    seen = 0
+    for name, cfg in REGISTRY.items():
+        if cfg.attention_free:
+            continue
+        hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+        for b in (1, 4):
+            for limit in (544, 4096, 32768):
+                plan = geo.decode_plan(b, hq, hkv, hd, limit, bs, 2)
+                assert plan.error is None, (name, plan.error)
+                if hq // hkv == 1:
+                    assert plan.body == "chunked", name
+                    continue
+                assert (plan.body, plan.chunks) == ("packed", 1), name
+                assert plan.head_chunk == hq // hkv
+                assert plan.smem <= geo.SMEM_BYTES
+                assert plan.split_keys >= geo.DEC_PACKED_TILE_KEYS or \
+                    plan.splits == 1
+                assert 1 <= plan.cluster <= geo.DEC_PACKED_CLUSTER
+                assert plan.grid_splits % plan.cluster == 0
+                assert 0 <= plan.grid_splits - plan.splits < plan.cluster
+                clusters = plan.grid_splits // plan.cluster
+                assert plan.cluster == -(-plan.splits // clusters)
+                assert plan.workspace_floats == (
+                    0 if clusters == 1
+                    else plan.rows * clusters * plan.part_floats)
+                assert plan.part_floats % 4 == 0      # float4 rows
+                seen += b == 1 and limit == 544
+        assert geo.decode_plan(4, hq, hkv, hd, 4096, bs, 4).body == "chunked"
+    assert seen >= 6
+
+
+@pytest.mark.parametrize("split", [None, 32, 64, 128, 256])
+def test_packed_splits_of_one_tile_take_one_stage(split):
+    """A packed split of at most one 64-key tile stages one K/V tile, not
+    two, so two blocks fit an SM at recurrentgemma's head_dim 256 and its
+    clusters can be placed; longer splits double-buffer."""
+    plan = geo.decode_plan(4, 16, 1, 256, 2048, 0, 2, split)
+    stages = geo.dec_packed_stages(plan.split_keys)
+    assert stages == (1 if plan.split_keys <= geo.DEC_PACKED_TILE_KEYS
+                      else 2)
+    assert plan.smem == geo.dec_packed_smem(256, plan.tile_keys, 1, 0,
+                                            stages)
+    blocks_per_sm = 233472 // (plan.smem + 1024)
+    assert blocks_per_sm == (2 if stages == 1 else 1)
+    # the block's combine partial (acc, m, l of the group) fits the
+    # stages it reuses
+    assert (16 * 256 + 2 * 16) * 4 <= 2 * stages * 64 * (256 + 8) * 2
+
+
+@pytest.mark.parametrize("d,hq,hkv,eb,msg", [
+    (80, 8, 1, 2, "packed"), (128, 8, 1, 4, "packed"),
+    (128, 128, 1, 2, "packed"),
+])
+def test_the_packed_body_is_refused_where_it_does_not_apply(d, hq, hkv, eb,
+                                                            msg):
+    assert geo.decode_body(hq, hkv, d, eb) == "chunked"
+    plan = geo.decode_plan(2, hq, hkv, d, 512, 0, eb, body="packed")
+    assert msg in plan.error
 
 
 # ---------------------------------------------------------------- emulation
@@ -219,6 +319,91 @@ def split_decode_emulation(plan, q, kg, vg, lo, hi):
     return out[:, :, None].to(q.dtype), read
 
 
+def packed_decode_emulation(plan, q, kg, vg, lo, hi):
+    """The packed body's arithmetic over ``plan``'s splits (bf16 q, k, v):
+    the group's scaled q rows against 64-key tiles from each split's
+    first valid key in f32 (the products of bf16 values are exact), an
+    online softmax per row, P V in f32 from p's bf16 hi + lo parts; then
+    the combine in two levels: the splits of each cluster (empty
+    partials for splits without a key), and, for a row of more than one
+    live cluster, the clusters' partials; one rounding to bf16.  Returns
+    the output and the keys each row read."""
+    b, hq, _, d = q.shape
+    hkv = kg.shape[1]
+    group = hq // hkv
+    qs = scale_q(q).float()[:, :, 0]
+    out = torch.zeros(b, hq, d)
+    read = [set() for _ in range(b)]
+    sk, tk, cl = plan.split_keys, plan.tile_keys, plan.cluster
+
+    def combine(parts):
+        big = torch.stack([p[0] for p in parts]).amax(0)
+        total = torch.zeros(group)
+        x = torch.zeros(group, d)
+        for m, l, acc in parts:
+            c = torch.exp(m - big)
+            total = total + l * c
+            x = x + acc * c[:, None]
+        return big, total, x
+
+    for r in range(b):
+        first, last = lo[r] // sk, hi[r] // sk
+        live = lo[r] <= hi[r]
+        for h in range(hkv):
+            heads = slice(h * group, (h + 1) * group)
+            parts = []
+            for sp in range(plan.grid_splits):
+                m = torch.full((group,), -1e30)
+                l = torch.zeros(group)
+                acc = torch.zeros(group, d)
+                if live and first <= sp <= last:
+                    klo = max(lo[r], sp * sk)
+                    khi = min(hi[r], sp * sk + sk - 1)
+                    for t0 in range(klo, khi + 1, tk):
+                        keys = range(t0, min(t0 + tk, khi + 1))
+                        read[r].update(keys)
+                        kk = kg[r, h, t0:keys[-1] + 1].float()
+                        vv = vg[r, h, t0:keys[-1] + 1].float()
+                        s = qs[r, heads] @ kk.T
+                        m_new = torch.maximum(m, s.amax(-1))
+                        alpha = torch.exp(m - m_new)
+                        p = torch.exp(s - m_new[:, None])
+                        l = l * alpha + p.sum(-1)
+                        p_hi = p.to(torch.bfloat16).float()
+                        p_lo = (p - p_hi).to(torch.bfloat16).float()
+                        acc = acc * alpha[:, None] + p_hi @ vv + p_lo @ vv
+                        m = m_new
+                parts.append((m, l, acc))
+            clusters = [combine(parts[c0:c0 + cl])
+                        for c0 in range(0, plan.grid_splits, cl)]
+            if not live:
+                continue                    # zeros
+            ours = clusters[first // cl:last // cl + 1]
+            if len(ours) == 1:
+                _, total, x = ours[0]
+            else:
+                _, total, x = combine(ours)
+            out[r, heads] = x / total[:, None]
+    return out[:, :, None].to(q.dtype), read
+
+
+def _share_of_tol(got, want):
+    """Worst |got - want| as a share of two bf16 ulps of |want| + 1e-5."""
+    diff = (got.float() - want.float()).abs()
+    mag = want.float().abs().clamp_min(2.0 ** -126)
+    allowed = 2 * torch.exp2(torch.floor(torch.log2(mag)) - 7) + 1e-5
+    return (diff / allowed).max().item()
+
+
+def _to_jax(x):
+    return jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+
+
+def _from_jax(x):
+    return torch.from_numpy(np.array(x.astype(jnp.float32))).to(
+        torch.bfloat16)
+
+
 def _rand(rng, *shape):
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
 
@@ -234,24 +419,52 @@ CONTIG_CASES = [
     (2, 16, 1, 300, 256, [299, 40], [250, 0], True),
     (2, 5, 1, 100, 64, [99, 70], [0, 65], True),
     (2, 8, 1, 96, 256, [95, 33], [70, 33], False),
+    # the packed body in bf16: recurrentgemma's heads over a wrapped
+    # window (every slot valid) and at a pos inside the first split; a
+    # group of 5 (llama4-scout) with starts past the first splits and a
+    # row with no valid key; a group of 24 (two 16-row tiles) whose
+    # windows lie in one split each
+    (2, 16, 1, 512, 256, [900, 40], [0, 0], True, "packed"),
+    (3, 10, 2, 320, 128, [319, 50, 7], [130, 60, 0], True, "packed"),
+    (2, 24, 1, 256, 64, [255, 100], [250, 70], False, "packed"),
 ]
 
 
 @pytest.mark.parametrize("case", CONTIG_CASES,
-                         ids=[f"{c[1]}/{c[2]}-d{c[4]}" for c in CONTIG_CASES])
+                         ids=[f"{c[1]}/{c[2]}-d{c[4]}" + (
+                             f"-{c[8]}" if len(c) > 8 else "")
+                             for c in CONTIG_CASES])
 def test_split_merge_emulation_matches_decode_ref(case):
-    b, hq, hkv, s, d, pos, starts, merges = case
+    b, hq, hkv, s, d, pos, starts, merges = case[:8]
+    packed = len(case) > 8
     rng = np.random.default_rng(s + d)
     q, k, v = _rand(rng, b, hq, 1, d), _rand(rng, b, hkv, s, d), \
         _rand(rng, b, hkv, s, d)
-    plan = geo.decode_plan(b, hq, hkv, d, s, 0, 4)
+    if packed:
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    plan = geo.decode_plan(b, hq, hkv, d, s, 0, 2 if packed else 4)
+    assert plan.body == ("packed" if packed else "chunked")
     assert plan.splits > 1
     lo = [max(x, 0) for x in starts]
     hi = [min(p, s - 1) for p in pos]
-    got, read = split_decode_emulation(plan, q, k, v, lo, hi)
+    emulate = packed_decode_emulation if packed else split_decode_emulation
+    got, read = emulate(plan, q, k, v, lo, hi)
     want = decode_attention_ref(q, k, v, torch.tensor(pos),
                                 starts=torch.tensor(starts))
-    torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+    if packed:
+        assert _share_of_tol(got, want) <= 1.0
+        # the plain version against the Pallas kernel (interpret), on the
+        # rows with a valid key (the TPU kernel's other rows are its own)
+        ref = _from_jax(decode_attention_pallas(
+            *(_to_jax(x) for x in (q, k, v)),
+            jnp.asarray(np.array(pos, np.int32)),
+            starts=jnp.asarray(np.array(starts, np.int32)), block_kv=64,
+            interpret=True))
+        for r in range(b):
+            if lo[r] <= hi[r]:
+                assert _share_of_tol(want[r], ref[r]) <= 1.0
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
     for r in range(b):
         assert read[r] == set(range(lo[r], hi[r] + 1))   # the window only
         if lo[r] > hi[r]:
@@ -267,30 +480,50 @@ PAGED_CASES = [
     (16, 1, 256, 16, 20, [319, 3]),
     (5, 1, 64, 4, 40, [159, -1]),
     (4, 2, 16, 16, 12, [17, 190]),
+    # the packed body in bf16: qwen3-32b's heads (group 8 on 8 KV heads,
+    # D 128) and paligemma-3b's (group 8 on one, D 256) over the engine's
+    # 16-slot pool blocks
+    (64, 8, 128, 16, 34, [17, 543, -1], "packed"),
+    (8, 1, 256, 16, 34, [300, 100], "packed"),
 ]
 
 
 @pytest.mark.parametrize("case", PAGED_CASES,
-                         ids=[f"{c[0]}/{c[1]}-d{c[2]}-bs{c[3]}"
-                              for c in PAGED_CASES])
+                         ids=[f"{c[0]}/{c[1]}-d{c[2]}-bs{c[3]}" + (
+                             f"-{c[6]}" if len(c) > 6 else "")
+                             for c in PAGED_CASES])
 def test_split_merge_emulation_matches_paged_ref(case):
-    hq, hkv, d, bs, mb, pos = case
+    hq, hkv, d, bs, mb, pos = case[:6]
+    packed = len(case) > 6
     b = len(pos)
     rng = np.random.default_rng(d + bs)
     nb = 1 + b * mb
     q = _rand(rng, b, hq, 1, d)
     kp, vp = _rand(rng, nb, hkv, bs, d), _rand(rng, nb, hkv, bs, d)
+    if packed:
+        q, kp, vp = (t.to(torch.bfloat16) for t in (q, kp, vp))
     tables = torch.from_numpy(
         rng.permutation(np.arange(1, nb)).reshape(b, mb).astype(np.int32))
-    plan = geo.decode_plan(b, hq, hkv, d, mb * bs, bs, 4)
+    plan = geo.decode_plan(b, hq, hkv, d, mb * bs, bs, 2 if packed else 4)
+    assert plan.body == ("packed" if packed else "chunked")
     assert plan.splits > 1 and plan.split_keys % bs == 0
     idx = tables.long()
     kg = kp[idx].permute(0, 2, 1, 3, 4).reshape(b, hkv, mb * bs, d)
     vg = vp[idx].permute(0, 2, 1, 3, 4).reshape(b, hkv, mb * bs, d)
     hi = [min(p, mb * bs - 1) for p in pos]
-    got, read = split_decode_emulation(plan, q, kg, vg, [0] * b, hi)
+    emulate = packed_decode_emulation if packed else split_decode_emulation
+    got, read = emulate(plan, q, kg, vg, [0] * b, hi)
     want = paged_decode_attention_ref(q, kp, vp, tables, torch.tensor(pos))
-    torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+    if packed:
+        assert _share_of_tol(got, want) <= 1.0
+        ref = _from_jax(paged_decode_attention_pallas(
+            *(_to_jax(x) for x in (q, kp, vp)), jnp.asarray(tables.numpy()),
+            jnp.asarray(np.array(pos, np.int32)), interpret=True))
+        for r in range(b):
+            if hi[r] >= 0:
+                assert _share_of_tol(want[r], ref[r]) <= 1.0
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
     for r in range(b):
         # pool blocks past pos are never touched
         assert all(kpos // bs <= max(hi[r], -1) // bs for kpos in read[r])
@@ -300,15 +533,21 @@ def test_split_merge_emulation_matches_paged_ref(case):
 
 def test_decode_timeline_finds_every_anchor():
     """``launch/decode_timeline.py`` splices its stamps into a copy of
-    ``decode_common.cuh`` at text anchors: each must be found once, so a
-    kernel edit that moves one fails here rather than on the card."""
-    from repro_torch.launch.decode_timeline import (ANCHORS, STAMPS,
-                                                    instrumented_source)
+    ``decode_common.cuh`` at text anchors, for the chunked and the packed
+    body: each must be found once, so a kernel edit that moves one fails
+    here rather than on the card."""
+    from repro_torch.launch.decode_timeline import (
+        ANCHORS, PACKED_ANCHORS, PACKED_STAMPS, STAMPS, instrumented_source)
     src = instrumented_source()
-    # every anchor, the direct write and the merge's end
-    assert src.count("] = stamp_ns();") == len(ANCHORS) + 2
+    # every anchor, the direct writes, the merges' ends and the packed
+    # merging split
+    assert src.count("] = stamp_ns();") == (len(ANCHORS) + 2
+                                           + len(PACKED_ANCHORS) + 3)
     for k in range(len(STAMPS)):
         assert f"* 8 + {k}] = stamp_ns();" in src, STAMPS[k]
+    packed = src[src.index("decode_packed_kernel(const DecArgs"):]
+    for k in range(len(PACKED_STAMPS)):
+        assert f"* 8 + {k}] = stamp_ns();" in packed, PACKED_STAMPS[k]
 
 
 def test_grown_ticket_counters_keep_the_old_ones(monkeypatch):

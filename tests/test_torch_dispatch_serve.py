@@ -290,7 +290,13 @@ def test_decode_plan_with_a_split_keeps_the_chunk_and_tile():
         assert (p.head_chunk, p.chunks, p.tile_keys) == (
             base.head_chunk, base.chunks, base.tile_keys)
         assert p.split_keys == k and p.splits == -(-544 // k)
+    # a group of 4 in bf16 runs the packed body, whose layout holds the
+    # split's table entries as the chunked body's does
     paged = geo.decode_plan(4, 32, 8, 128, 544, 16, 2, 64)
+    assert paged.body == "packed"
+    assert paged.smem == geo.dec_packed_smem(128, paged.tile_keys,
+                                             paged.m_tiles, 64 // 16, 1)
+    paged = geo.decode_plan(4, 32, 8, 128, 544, 16, 2, 64, body="chunked")
     assert paged.smem == geo.dec_smem(128, 2, paged.tile_keys,
                                       paged.head_chunk, 64 // 16)
 

@@ -11,6 +11,12 @@ two bf16 ulps of the plain value + 1e-5), and the plain version to
 ``flash_attention_pallas`` in interpret mode at the same contract, so
 the kernel's arithmetic is tied to the JAX kernel through the plain
 version.  The layout rule (``_geometry.flash_mma_tile``) is the wrapper's.
+The long-sequence body (``csrc/flash_wgmma.cu``) runs the same
+arithmetic over another tiling (64-key stages, a block's tiles skipped
+per 64-row warpgroup, rows past S zero-filled by TMA and not stored),
+emulated here over the tiles it visits; its layout
+(``_geometry.flash_wgmma_tile``) and the rule that picks it
+(``_geometry.flash_body``) are checked too.
 """
 import numpy as np
 import pytest
@@ -26,6 +32,7 @@ from repro_torch.kernels._checks import scale_q  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_ref)
 from repro_torch.kernels.flash_attention.ops import MAX_HEAD_DIM  # noqa: E402
+from repro_torch.models import bucket_length  # noqa: E402
 
 KEYS = geo.FLASH_KEYS
 
@@ -285,3 +292,193 @@ def test_flash_body_follows_the_dtype_rule():
     got = flash_attention(q, k, v)
     assert flash_attention.launches == before
     assert torch.equal(got, flash_attention_ref(q, k, v))
+
+
+# ---------------------------------------------------------------- wgmma body
+
+WG_ROWS = 64        # query rows of a consumer warpgroup
+
+
+def flash_wgmma_tiles_visited(b, s, *, rows, causal=True, window=None,
+                              starts=None):
+    """[B, S, tiles] bool: the key tiles the wgmma body runs for each
+    query row at ``rows`` rows a block (``flash_wgmma_kernel<DP, WG>``):
+    the producer stages the block's ``[lo, hi)`` range, and each 64-row
+    warpgroup runs the MMAs of a staged tile unless none of its rows can
+    see it (a warpgroup whose rows all lie past S runs none)."""
+    n_t = -(-s // KEYS)
+    out = torch.zeros((b, s, n_t), dtype=torch.bool)
+    for bi in range(b):
+        start = 0 if starts is None else max(int(starts[bi]), 0)
+        for q0 in range(0, s, rows):
+            lo = start if window is None else max(start, q0 - window + 1)
+            hi = min(s, q0 + rows) if causal else s
+            if lo >= hi:
+                continue
+            for g0 in range(q0, min(s, q0 + rows), WG_ROWS):
+                for t in range(lo // KEYS, -(-hi // KEYS)):
+                    k0 = t * KEYS
+                    if (causal and k0 > g0 + WG_ROWS - 1) or \
+                            k0 + KEYS <= start or (
+                                window is not None
+                                and k0 + KEYS - 1 <= g0 - window):
+                        continue
+                    out[bi, g0:min(s, g0 + WG_ROWS), t] = True
+    return out
+
+
+WGMMA_CASES = [
+    # (B, HQ, HKV, S, D, kwargs): S not a multiple of the tile, windows
+    # whose edges cut tiles, left padding, a group of 5, MQA
+    (2, 2, 2, 1500, 64, {"causal": False}),       # whisper's frames
+    (1, 4, 1, 300, 256, {"window": 100}),
+    (2, 5, 1, 200, 128, {"starts": [0, 77]}),
+    (2, 4, 4, 150, 96, {"window": 40, "starts": [3, 149]}),
+    (1, 2, 2, 65, 64, {}),
+]
+
+
+@pytest.mark.parametrize("rows", geo.FLASH_ROW_CHOICES)
+@pytest.mark.parametrize("b,hq,hkv,s,d,kw", WGMMA_CASES,
+                         ids=[f"{c[0]}x{c[1]}/{c[2]}-s{c[3]}-d{c[4]}-"
+                              + "-".join(c[5]) for c in WGMMA_CASES])
+def test_wgmma_tiling_emulation_holds_to_the_plain_version(b, hq, hkv, s, d,
+                                                           kw, rows):
+    """The wgmma body's tiling drops no tile a row needs, so its
+    arithmetic over only the tiles it visits equals the emulation over
+    every tile bit for bit and meets the bf16 contract against the plain
+    version; rows with no valid key are zeros."""
+    kw = {n: torch.tensor(x) if n == "starts" else x for n, x in kw.items()}
+    mask = {n: kw[n] for n in ("causal", "window", "starts") if n in kw}
+    visited = flash_wgmma_tiles_visited(b, s, rows=rows, **mask)
+    needed = flash_tiles_needed(b, s, **mask)
+    assert not (needed & ~visited).any()
+    q, k, v = _inputs(b, hq, hkv, s, d, seed=s + d + hq)
+    got = flash_mma_emulation(q, k, v, visited=visited, **kw)
+    assert torch.equal(got, flash_mma_emulation(q, k, v, **kw))
+    want = flash_attention_ref(q, k, v, **kw)
+    assert _share_of_tol(got, want) <= 1.0
+    if "starts" in kw:
+        for i, st in enumerate(kw["starts"].tolist()):
+            assert (got[i, :, :st] == 0).all()
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,window,starts,causal", [
+    (2, 2, 1, 150, 64, 40, [0, 70], True),
+    (1, 4, 4, 130, 96, None, None, False),
+    (1, 2, 1, 100, 256, None, [30], True),
+])
+def test_wgmma_emulation_holds_to_the_pallas_kernel(b, hq, hkv, s, d, window,
+                                                    starts, causal):
+    """Through the plain version, the wgmma body's emulated arithmetic
+    over its visited tiles (S past a tile multiple: the TMA's zero rows
+    are masked) agrees with ``flash_attention_pallas`` (interpret, one
+    block of S rows) on every row with a valid key."""
+    q, k, v = _inputs(b, hq, hkv, s, d, seed=11 * s + d)
+    st = None if starts is None else np.array(starts, np.int32)
+    ref = flash_attention_pallas(
+        *(jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+          for x in (q, k, v)), block_q=s, block_kv=s, causal=causal,
+        window=window, starts=None if st is None else jnp.asarray(st),
+        interpret=True)
+    ref = torch.from_numpy(np.array(ref.astype(jnp.float32))).to(
+        torch.bfloat16)
+    kw = {"causal": causal, "window": window,
+          "starts": None if st is None else torch.from_numpy(st)}
+    visited = flash_wgmma_tiles_visited(b, s, rows=128, **kw)
+    emu = flash_mma_emulation(q, k, v, visited=visited, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    for i in range(b):
+        lo = 0 if st is None else int(st[i])
+        assert _share_of_tol(want[i, :, lo:], ref[i, :, lo:]) <= 1.0
+        assert _share_of_tol(emu[i, :, lo:], want[i, :, lo:]) <= 1.0
+
+
+@pytest.mark.parametrize("rows", geo.FLASH_ROW_CHOICES)
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
+def test_wgmma_layout_fits_shared_memory(d, rows):
+    """Q [rows][d], two stages of K and V [64][d] and the barriers fit
+    227 KB behind a 1024-byte alignment pad, and at one warpgroup up to D
+    128 two blocks fit an SM's 228 KB (the source's launch bounds ask
+    for 2 or 3); rows of 128 bytes (64 elements) make one swizzle atom,
+    D 96 takes 64-byte atoms."""
+    t = geo.flash_wgmma_tile(d, rows)
+    assert t.error is None and geo.FLASH_WGMMA_STAGES == 2
+    assert t.smem == (1024 + rows * d * 2 + 2 * 4 * geo.FLASH_KEYS * d
+                      + geo.FLASH_WGMMA_BARRIER_BYTES)
+    assert t.smem <= geo.SMEM_BYTES
+    if rows == 64 and d <= 128:
+        assert 2 * (t.smem + 1024) <= 233472
+    if rows == 64 and d <= 64:
+        assert 3 * (t.smem + 1024) <= 233472
+    assert t.atom == (32 if d == 96 else 64) and d % t.atom == 0
+    assert t.threads == 128 * (rows // 64) + 32
+
+
+@pytest.mark.parametrize("rows", geo.FLASH_ROW_CHOICES)
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
+def test_wgmma_register_budget_and_the_model_charge_spills(d, rows):
+    """The register budget mirrors the source's launch bounds (3 blocks an
+    SM at D 64, 2 up to D 128, 1 at D 256 or two warpgroups), and only D
+    256 at two warpgroups overruns it (the instance ptxas spills).  The
+    cost model charges that tile its serialized work, so it ranks the
+    64-row tile first at a long D 256 prefill, as the card measured."""
+    from repro_torch.core import cost_model as cm
+    from repro_torch.core.tuner import tune_flash_attention
+    t = geo.flash_wgmma_tile(d, rows)
+    assert t.blocks_per_sm == (1 if rows == 128 else
+                               3 if d == 64 else 2 if d <= 128 else 1)
+    assert t.spills == (d == 256 and rows == 128)
+    feats, _, ok = cm.flash_attention_features(1, 16, 1, 2048, d,
+                                               [(rows, 64)])
+    assert ok[0] and np.all(feats[0, :3] == 0) and feats[0, 3] > 0
+    if d == 256:
+        ranked = tune_flash_attention(1, 16, 1, 2048, 256)
+        assert [s.block_q for s, _ in ranked] == [64, 128]
+
+
+@pytest.mark.parametrize("d", [16, 80, 200, 255])
+def test_wgmma_layout_refuses_other_head_dims(d):
+    assert "head_dim" in geo.flash_wgmma_tile(d).error
+    assert geo.flash_body(d, 4096, 2, causal=False) == "mma"
+
+
+# phi3-mini's engine prompts and generate's batch, and the three family
+# prefills: recurrentgemma-9b's 4096 bucket (window 2048, MQA, D 256),
+# whisper-large-v3's encoder (1500 frames, no mask) and paligemma-3b's
+# 512-token bucket behind its 256 image tokens (MQA, D 256)
+PHI3_PROMPTS = (200, 17, 300, 150, 45, 260, 130, 77, 40, 100, 250, 512)
+FAMILY_SHAPES = [(256, 4096, True, 2048), (64, 1500, False, None),
+                 (256, 768, True, None)]
+
+
+@pytest.mark.parametrize("rows", geo.FLASH_ROW_CHOICES)
+def test_flash_body_rule_keeps_phi3_on_mma_and_families_on_wgmma(rows):
+    """Static shapes decide the body: every phi3 prefill (buckets <= 512,
+    causal) stays on the mma.sync body at both row counts, the three
+    family prefills walk more than FLASH_WGMMA_MIN_KEYS keys a tile and
+    take the wgmma body, float32 keeps its CUDA-core body."""
+    for p in PHI3_PROMPTS:
+        s = bucket_length(p)
+        assert s <= 512
+        assert geo.flash_body(96, s, 2, rows) == "mma", s
+    for d, s, causal, window in FAMILY_SHAPES:
+        assert geo.flash_walk(s, causal, window, rows) > \
+            geo.FLASH_WGMMA_MIN_KEYS
+        assert geo.flash_body(d, s, 2, rows, causal, window) == "wgmma"
+        assert geo.flash_body(d, s, 4, rows, causal, window) == "float32"
+    assert geo.flash_walk(4096, True, 2048, rows) == 2048 + rows - 1
+    assert geo.flash_walk(4096, True, 64, rows) == 64 + rows - 1
+
+
+def test_flash_wrapper_takes_an_explicit_body_on_the_cpu():
+    """``body=`` names a bf16 body for the card's sweep; on the CPU the
+    plain version runs whichever body is named, and nothing is counted
+    as a launch (the card test refuses a body that cannot take a call)."""
+    q, k, v = _inputs(1, 2, 2, 70, 64, seed=4)
+    before = (flash_attention.launches, flash_attention.wgmma_launches)
+    for body in ("mma", "wgmma", None):
+        assert torch.equal(flash_attention(q, k, v, body=body),
+                           flash_attention_ref(q, k, v))
+    assert (flash_attention.launches,
+            flash_attention.wgmma_launches) == before

@@ -204,10 +204,11 @@ def test_bf16_conv_charges_the_mma_padding(more, less, pad,
 def test_registry_record_of_h100_1_is_not_returned_under_h100_2(
         tmp_path, monkeypatch):
     """Rankings cached by the CUDA-core-only model (``h100-1``) miss
-    under the current model (``h100-4`` since the serving kernels joined
-    it; ``h100-3`` when the bf16 sparse conv moved to the tensor cores):
-    the tuner ranks anew."""
-    assert cm.COST_MODEL_VERSION == "h100-4"
+    under the current model (``h100-5`` since flash attention and the
+    decode gained their second bodies; ``h100-4`` when the serving kernels
+    joined it; ``h100-3`` when the bf16 sparse conv moved to the tensor
+    cores): the tuner ranks anew."""
+    assert cm.COST_MODEL_VERSION == "h100-5"
     path = str(tmp_path / "t.jsonl")
     layer = TABLE_4_1["fire9-conv3x3-2"]
     monkeypatch.setattr(cm, "COST_MODEL_VERSION", "h100-1")
@@ -217,7 +218,7 @@ def test_registry_record_of_h100_1_is_not_returned_under_h100_2(
     fresh = reg.TuningRegistry(path)
     assert fresh.get(old_key) is not None
     new_key = reg.conv_schedule_key(layer, cm.H100Spec())
-    assert new_key.cost_model == "h100-4" and fresh.get(new_key) is None
+    assert new_key.cost_model == "h100-5" and fresh.get(new_key) is None
     before = cm.total_evals()
     tuner.cached_tune_conv(layer, registry=fresh)
     assert cm.total_evals() > before

@@ -52,7 +52,7 @@ def test_port_files_found():
     assert sorted(p.name for p in (REPO / "src/repro_torch/kernels/csrc")
                   .glob("*.cu")) == ["conv2d.cu", "decode_attention.cu",
                                      "errors.cu", "flash_attention.cu",
-                                     "matmul.cu",
+                                     "flash_wgmma.cu", "matmul.cu",
                                      "paged_decode_attention.cu",
                                      "sparse_conv.cu", "ssm_scan.cu"]
 
