@@ -458,10 +458,12 @@ MAIN_PATH_INSTANCES = {
         r"decode_split_kernelI13__nv_bfloat16NS_8ContigKV",
     "ssm_scan": r"ssm_scan_kernelI13__nv_bfloat16Li16E",
     # the thesis kernels' bf16 bodies: the conv's implicit GEMM (dense,
-    # and over the nonzero blocks), the matmul's wgmma at two warpgroups
-    # and the widest wgmma (QKV's tile)
-    "conv2d": r"conv2d_cu[^']*conv_mma_kernelILb0E",
-    "sparse_conv2d": r"sparse_conv_cu[^']*conv_mma_kernelILb1E",
+    # and over the nonzero blocks) at 32- and 48-pixel warp tiles, the
+    # matmul's wgmma at two warpgroups and the widest wgmma (QKV's tile)
+    "conv2d": r"conv2d_cu[^']*conv_mma_kernelILb0ELi2E",
+    "conv2d_mt3": r"conv2d_cu[^']*conv_mma_kernelILb0ELi3E",
+    "sparse_conv2d": r"sparse_conv_cu[^']*conv_mma_kernelILb1ELi2E",
+    "sparse_conv2d_mt3": r"sparse_conv_cu[^']*conv_mma_kernelILb1ELi3E",
     "matmul": r"matmul_mma_kernelILi2ELi256E",
 }
 # The head_dim 256 instances (paligemma-3b, recurrentgemma-9b): flash's
@@ -1438,7 +1440,8 @@ def thesis_checks(torch, dev, timer, data):
                     blk = dict(blk, ic=max(
                         d for d in range(1, l.ic) if l.ic % d == 0
                         and geo.conv_layout(blk["oc"], d, blk["y"], blk["x"],
-                                            l.kh, l.kw, eb).error is None))
+                                            l.kh, l.kw, eb, oc=l.oc, ic=l.ic,
+                                            h=l.h, w=l.w).error is None))
                 scheds = [(rank0.grid_order, rank0.block_dict(), "rank0"),
                           (("ic", "oc", "y", "x"), blk, "rmw")]
                 img, wgt = img32[:n].to(dt), wgt32.to(dt)
@@ -1528,9 +1531,10 @@ def thesis_checks(torch, dev, timer, data):
             ("fire3-conv3x3-2", {"oc": 64, "ic": 8, "y": 5, "x": 11},
              ("ic", "oc", "y", "x"))):
         l, img32, wgt32 = data["conv"][name]
-        tile = geo.conv_mma_tile(block["oc"], block["ic"], block["y"],
-                                 block["x"], l.kh, l.kw)
         for n in THESIS_BATCHES:
+            tile = geo.conv_mma_tile(
+                block["oc"], block["ic"], block["y"], block["x"], l.kh, l.kw,
+                oc=l.oc, ic=l.ic, h=l.h, w=l.w, batch=n, order=order)
             img, wgt = img32[:n].to(bf16), wgt32.to(bf16)
             got, k = counted(lambda: conv2d(img, wgt, block=block,
                                             grid_order=order), conv2d)
@@ -1540,7 +1544,8 @@ def thesis_checks(torch, dev, timer, data):
                   f"edge {name} N={n} {''.join(a[0] for a in order)} {block}"
                   f" padded to {tile.p16} pixels x {tile.boc16} oc x "
                   f"{tile.bic_pad} ic, {tile.warps} warps x {tile.rounds} "
-                  f"rounds", peak, k,
+                  f"rounds, walk {tile.walk}, {tile.stages} stages"
+                  f"{', late' if tile.late else ''}", peak, k,
                   1 if uses_scratch(order) else l.ic // block["ic"])
 
     # ---- block-sparse conv
@@ -1632,7 +1637,10 @@ def thesis_checks(torch, dev, timer, data):
             block = s.block_dict()
             wgt = data["sw"][(name, d)].to(torch.bfloat16)
             sp = analyze_weights(wgt, block)
-            b_ms, b_by = conv_bound(l, img.shape[0], "bfloat16", sp.density)
+            # the work the function needs: the weights' nonzero blocks at
+            # the granularity they were zeroed at, not the skip block's
+            work = analyze_weights(wgt, SPARSE_ZERO_BLOCK).density
+            b_ms, b_by = conv_bound(l, img.shape[0], "bfloat16", work)
             t = dict(ms=timer(lambda: sparse_conv2d(img, wgt, block=block,
                                                      sparsity=sp)),
                      plain_ms=timer(lambda: sparse_conv_plain(
@@ -1643,7 +1651,8 @@ def thesis_checks(torch, dev, timer, data):
                   batch=img.shape[0], dtype="bfloat16", density=d,
                   block_density=f"{sp.density:.3f}", block=repr(block),
                   **{k: f"{v:.4f}" for k, v in t.items()},
-                  bound_ms=f"{b_ms:.4f}", bound_by=b_by)
+                  bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+                  bound_density=f"{work:.3f}")
             if name.startswith("fig6.2") and d == 0.25:
                 summary["sparse_conv2d"] = dict(
                     name="sparse_conv2d", route="cuda",
@@ -1655,6 +1664,22 @@ def thesis_checks(torch, dev, timer, data):
                           f"batch 32, bf16, block density {sp.density:.3f}, "
                           f"block {block}; library F.conv2d on the zeroed "
                           f"weights")
+                # the rank-0 skip block beside every other the tuner
+                # offers: the fastest measured one, and where rank-0 is
+                cands = [c.block_dict() for c, _ in tuner.tune_sparse_conv(
+                    l, d, elem_bytes=2, top_k=10 ** 6, batch=img.shape[0])]
+                cms = {}
+                for blk in cands:
+                    csp = analyze_weights(wgt, blk)
+                    cms[repr(blk)] = timer(lambda: sparse_conv2d(
+                        img, wgt, block=blk, sparsity=csp))
+                best = min(cms, key=cms.get)
+                phase("time_sparse_blocks", layer=name, batch=img.shape[0],
+                      density=d, candidates=len(cands),
+                      rank0=repr(repr(block)), rank0_ms=f"{t['ms']:.4f}",
+                      fastest=repr(best), fastest_ms=f"{cms[best]:.4f}",
+                      rank0_place=sorted(cms.values()).index(
+                          cms[repr(block)]) + 1)
         # the dense conv of the same layer, rank-0, for the crossover
         img = data["simg"][name].to(torch.bfloat16)
         wgt = data["sw"][(name, 1.0)].to(torch.bfloat16)

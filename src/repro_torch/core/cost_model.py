@@ -25,20 +25,23 @@ is the port's own:
     conv's mma.sync; rows to 64 a warpgroup, columns to the wgmma width
     and k to the stage depth for the matmul's wgmma) at the tensor-core
     peak or at the shared-memory rate its fragment reads need, whichever
-    is slower, plus its staging: the conv's halo and weight units
-    (``UNIT_CYCLES`` issue cycles each, ``STEP_CYCLES`` a channel block)
-    and the matmul's register-route
+    is slower, plus its staging: the conv's cp.async units
+    (``CHUNK_CYCLES`` each) and channels-last units (``UNIT_CYCLES``)
+    of the operands a step streams, ``STEP_CYCLES`` a step and
+    ``EPI_CYCLES`` a 32-byte output sector, and the matmul's register-route
     operands (a warp instruction per 32 elements loaded and stored, and
     one round trip per 8 loads of each producer thread, which nothing
     hides),
     TMA stages at the L2-to-SM rate.  A ring stage's round trip
     (``RING_LATENCY_S``) is hidden over the matmul's stages - 1 chunks
-    in flight; a conv step's (``LOAD_LATENCY_S``) by its register
-    prefetch of ``CONV_MMA_UNITS`` units a thread, while the units past
-    those, and every first stage, wait for it.  Launches run in whole
+    in flight, a conv step's (``LOAD_LATENCY_S``) over its ring's stages
+    - 1 steps, and every first stage waits for it.  A conv block walks
+    the layout's tiles: the operand they share (the weights, or the halo
+    when oc is the last output axis) is staged once, in the walk's first
+    steps, and only the other streams.  Launches run in whole
     waves of SMs x resident blocks plus a tail; blocks resident together
-    share an SM's throughput and overlap their latency.  The four
-    constants are fitted to ``launch/calibrate_thesis.py``'s timings.
+    share an SM's throughput and overlap their latency.  The constants
+    are fitted to ``launch/calibrate_thesis.py``'s timings.
     The block-sparse conv runs the dense conv's body over the expected
     nonzero channel blocks of each oc block (block density x ic blocks),
     at the dense model's pixel tile for its skip block
@@ -107,17 +110,20 @@ Blocks resident on an SM come from threads and shared memory, as for the
 thesis bodies.  ``launch/calibrate_thesis.py --score`` fits each
 family's three constants by least squares on timed candidates.
 
-Its version string is its own (``h100-5`` adds the second bodies of
-flash attention and of the decode; ``h100-4`` the serving kernels;
-``h100-3`` timed the thesis kernels as now, ``h100-2`` the block-sparse
-conv on the CUDA cores in both dtypes, ``h100-1`` every body): no TPU
-constant and no TPU-measured record is reused.
+Its version string is its own (``h100-6`` times the redesigned bf16
+conv body: cp.async ring, walks with a resident operand; ``h100-5``
+adds the second bodies of flash attention and of the decode;
+``h100-4`` the serving kernels; ``h100-3`` timed the thesis kernels
+before that, ``h100-2`` the block-sparse conv on the CUDA cores in both
+dtypes, ``h100-1`` every body): no TPU constant and no TPU-measured
+record is reused.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -130,7 +136,7 @@ from repro_torch.kernels import _geometry as geo
 
 # Bump whenever a change below alters predicted costs: the registry keys
 # cached rankings on it, so stale predictions self-invalidate.
-COST_MODEL_VERSION = "h100-5"
+COST_MODEL_VERSION = "h100-6"
 
 # Cost-model queries in this process, one per candidate scored: a warm
 # registry hit performs zero (asserted in tests/test_torch_thesis.py).
@@ -148,21 +154,47 @@ INFEASIBLE_S = 1e3
 
 # Constants of the bodies' timing, fitted to ``launch/calibrate_thesis.py``
 # timings on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md; ``--score``
-# reports the fit).  The tensor-core bodies (conv lines of two
-# calibration runs, matmul lines):
-UNIT_CYCLES = 6.0         # SM issue cycles to stage one conv unit (8
-#                           channels: 8 gathered 2-byte loads, a 16-byte
-#                           store)
-STEP_CYCLES = 500.0       # a conv step's fixed cycles (its barrier, the
-#                           MMA pipeline's refill)
-LOAD_LATENCY_S = 1.0e-6   # round trip of a conv staging step (loads and
-#                           the barrier after them); also a matmul
-#                           register fill's round trip
+# reports the fit).  The bf16 conv body's five: the coordinate search of
+# ``--score`` on its 376 conv and sparse conv lines (a step's fixed cost
+# takes most of the time the channels-last units once charged):
+UNIT_CYCLES = 0.686       # SM cycles to write one channels-last unit (8
+#                           channels of a pixel or an oc row: eight
+#                           2-byte shared-memory reads, one 16-byte store)
+CHUNK_CYCLES = 2.139      # SM cycles to issue one 16-byte cp.async unit
+STEP_CYCLES = 4754.0      # a conv step's fixed cycles (its wait and
+#                           barrier, the MMA pipeline's refill)
+EPI_CYCLES = 15.4         # SM cycles an output sector of the epilogue
+#                           (32 bytes of a channel's run)
+LOAD_LATENCY_S = 3.466e-6  # round trip of a conv ring step's loads (hidden
+#                           over stages - 1 steps of work)
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvBodyConsts:
+    """The bf16 conv body's five constants as one value.  A spec whose
+    ``conv_body`` is None times the body with the module's constants
+    above (:meth:`fitted`, read at each call); ``calibrate_thesis``'s fit
+    passes its trial values in a spec of its own."""
+    unit_cycles: float
+    chunk_cycles: float
+    step_cycles: float
+    epi_cycles: float
+    load_latency_s: float
+
+    @classmethod
+    def fitted(cls) -> "ConvBodyConsts":
+        """The module's constants."""
+        return cls(UNIT_CYCLES, CHUNK_CYCLES, STEP_CYCLES, EPI_CYCLES,
+                   LOAD_LATENCY_S)
+
+
+# The matmul body's:
+FILL_LATENCY_S = 1.0e-6   # round trip of a matmul register fill
 RING_LATENCY_S = 1.5e-6   # round trip of a matmul ring stage (TMA or
 #                           register fill, mbarrier, release)
 # The block-sparse conv: a call's fixed time beyond its launch (both
 # bodies; least squares on the bf16 tensor-core body's 120 sparse_conv
-# lines)
+# lines before its redesign, kept for the float32 body)
 SPARSE_CALL_S = 1.005e-5
 # The float32 (CUDA-core) block-sparse body: one input channel of one
 # staged step of a block (its taps run channel by channel), fitted to
@@ -244,6 +276,8 @@ class H100Spec:
     nvlink_bw: float = 450e9          # bytes/s a direction, a card
     nvlink_domain: int = 8            # cards one NVLink domain joins
     net_bw: float = 50e9              # bytes/s a direction, a card
+    # the bf16 conv body's constants; None: the module's fitted ones
+    conv_body: Optional[ConvBodyConsts] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -423,71 +457,119 @@ def _resident_blocks(threads, smem, regs, spec: H100Spec) -> np.ndarray:
         spec.regs_per_sm // (threads * regs)]))
 
 
-def _conv_mma_seconds(layer: ConvLayer, by, bx, boc, bic, spec: H100Spec,
-                      batch: int = 1, steps=None):
-    """Per block: (seconds of the scratch launch, seconds of all the
-    read-modify-write launches, smem bytes, feasible) of the bf16
-    implicit GEMM (``_geometry.conv_mma_tile``) over ``batch`` images.
-    ``steps`` (per block) are the channel blocks a tile sums in the
-    scratch launch when they are not the dense range's ceil(ic / bic):
-    the block-sparse body's expected nonzero blocks of an oc block."""
-    tiles = [geo.conv_mma_tile(int(o), int(i), int(y), int(x), layer.kh,
-                               layer.kw)
-             for o, i, y, x in zip(boc, bic, by, bx)]
-    p16 = np.array([t.p16 for t in tiles], dtype=np.float64)
-    boc16 = np.array([t.boc16 for t in tiles], dtype=np.float64)
-    bic_pad = np.array([t.bic_pad for t in tiles], dtype=np.float64)
-    threads = np.array([t.threads for t in tiles], dtype=np.int64)
-    rounds = np.array([t.rounds for t in tiles], dtype=np.float64)
-    units = np.array([t.units for t in tiles], dtype=np.float64)
-    smem = np.array([t.smem for t in tiles], dtype=np.int64)
-    ok = np.array([t.error is None for t in tiles])
+def _conv_mma_launch_s(layer: ConvLayer, boc: int, bic: int, by: int,
+                       bx: int, batch: int, order: Tuple[str, ...],
+                       n_fixed: int, extra: int, nb: float, rmw: bool,
+                       spec: H100Spec) -> Tuple[float, int, bool]:
+    """(seconds, smem bytes, feasible) of one launch of the bf16 implicit
+    GEMM (``_geometry.conv_mma_tile``) whose tiles sum ``nb`` channel
+    blocks (the block-sparse body's expected nonzero count may be
+    fractional), with the output axes in ``order``, under the spec's
+    conv body constants; memoised together with them."""
+    return _conv_mma_launch_cached(
+        layer, boc, bic, by, bx, batch, order, n_fixed, extra, nb, rmw, spec,
+        spec.conv_body or ConvBodyConsts.fitted())
+
+
+@functools.lru_cache(maxsize=1 << 16)
+def _conv_mma_launch_cached(layer, boc, bic, by, bx, batch, order, n_fixed,
+                            extra, nb, rmw, spec, consts: ConvBodyConsts):
+    """:func:`_conv_mma_launch_s` for one value of the constants."""
+    unit_c, chunk_c, step_c = (consts.unit_cycles, consts.chunk_cycles,
+                               consts.step_cycles)
+    epi_c, load_s = consts.epi_cycles, consts.load_latency_s
+    t = geo.conv_mma_tile(boc, bic, by, bx, layer.kh, layer.kw, oc=layer.oc,
+                          ic=layer.ic, h=layer.h, w=layer.w, batch=batch,
+                          order=order, n_fixed=n_fixed, extra=extra)
+    if t.error is not None:
+        return 0.0, t.smem, False
     clk = _clock_hz(spec)
     taps = layer.kh * layer.kw
-    # one channel block, every round: the padded MMAs at the tensor-core
-    # peak or at the rate their ldmatrix reads need (16 FLOP a byte for
-    # a 32 x 32 warp tile), and the staging units' issue cycles
-    flop = p16 * boc16 * bic_pad * taps * 2
-    tc_clk = spec.tc_peak_flops / spec.sms / clk
-    # ldmatrix bytes: each warp tile (32 x 32) loads its 16-row A and
-    # 16-channel B fragments (512 bytes each) a tap and 16 channels
-    wt_m, wt_n = np.ceil(p16 / 32), np.ceil(boc16 / 32)
-    frag = 512 * (p16 / 16 * wt_n + boc16 / 16 * wt_m) * taps * bic_pad / 16
-    mma_cyc = np.maximum(flop / tc_clk, frag / spec.smem_read_bytes)
-    # zeroing both stages once a block (16-byte stores, a warp a clock)
-    zero_cyc = smem / 16 / spec.lane_pad
-    thr_s = (mma_cyc + rounds * (units * UNIT_CYCLES
-                                 + STEP_CYCLES)) / clk   # a channel block
-    # latency a round-step: the prefetched loads, then one round trip
-    # per unit a thread stages past CONV_MMA_UNITS
-    rest = np.ceil(np.maximum(0.0, units - geo.CONV_MMA_UNITS * threads)
-                   / threads)
-    step_lat = LOAD_LATENCY_S * (1 + rest)
-    first_lat = LOAD_LATENCY_S * np.ceil(units / threads)
-    occ = _resident_blocks(threads, smem, 128, spec)
-    out_tiles = batch * (-(-layer.oc // boc)) * (-(-layer.h // by)) \
-        * (-(-layer.w // bx))
-    n_ic = -(-layer.ic // bic)
-    zero_s = zero_cyc / clk
-    if steps is None:
-        # rounds x n_ic steps; the first stage is staged before any MMA
-        scratch = _wave_seconds(out_tiles, occ, n_ic * thr_s + zero_s,
-                                first_lat + (rounds * n_ic - 1) * step_lat,
-                                spec)
+    # one tile's channel block over all its rounds: the padded MMAs at
+    # the tensor-core peak or at the rate their ldmatrix reads need (each
+    # 16 m_tiles x 32 warp tile loads its 16-row A and 16-channel B
+    # fragments, 512 bytes each, a tap and 16 channels)
+    flop = t.p16 * t.boc16 * t.bic_pad * taps * 2
+    wt_m, wt_n = -(-t.p16 // (16 * t.m_tiles)), -(-t.boc16 // 32)
+    frag = 512 * (t.p16 / 16 * wt_n + t.boc16 / 16 * wt_m) * taps \
+        * t.bic_pad / 16
+    mma_cyc = max(flop / (spec.tc_peak_flops / spec.sms / clk),
+                  frag / spec.smem_read_bytes)
+    # a step's staging: cp.async units issued, channels-last units
+    # written, for each operand it streams
+    halo_cyc = t.halo_chunks * chunk_c + t.halo_units * unit_c
+    wgt_cyc = t.wgt_chunks * chunk_c + t.wgt_units * unit_c
+    if t.resident:
+        fixed_cyc, stream_cyc = ((halo_cyc, wgt_cyc) if t.fixed_halo
+                                 else (wgt_cyc, halo_cyc))
     else:
-        # the block-sparse body: its index row is one round trip before
-        # the first stage; a tile with no nonzero block writes zeros
-        busy = steps > 0
-        scratch = _wave_seconds(
-            out_tiles, occ, np.where(busy, steps * thr_s + zero_s, 0.0),
-            np.where(busy, LOAD_LATENCY_S + first_lat
-                     + (rounds * steps - 1) * step_lat, LOAD_LATENCY_S), spec)
-    # one launch a channel block, each with its own first stage, and an
-    # epilogue that reads the output tile
-    rmw = n_ic * _wave_seconds(out_tiles, occ, thr_s + zero_s,
-                               first_lat + (rounds - 1) * step_lat
-                               + LOAD_LATENCY_S, spec)
-    return scratch, rmw, smem, ok
+        fixed_cyc, stream_cyc = 0.0, halo_cyc + wgt_cyc
+    pre = nb if t.resident else 0.0
+    # the epilogue: the 32-byte sectors its stores (and a read-modify-
+    # write pass's reads) touch: a channel's tile is one run of by bx
+    # values when the tile spans the output's width, else a run of bx a
+    # row; a run starts anywhere in a sector
+    span = bx == layer.w
+    runs, run = boc * (1 if span else by), by * bx if span else bx
+    epi_cyc = runs * (2 * run + 31) / 32 * epi_c * (2 if rmw else 1)
+    walk = t.tiles / t.blocks        # tiles a block walks, on average
+    steps = pre + walk * t.rounds * nb
+    # a block zeroes its padding once: 16-byte stores, 128 bytes a clock
+    busy = (t.zero_units / 8 + pre * (fixed_cyc + step_c)
+            + walk * (nb * (mma_cyc + t.rounds * (stream_cyc + step_c))
+                      + epi_cyc))
+    thr_s = busy / clk
+    # latency: the first stage's round trip, then each step waits for its
+    # loads unless stages - 1 steps of work hid them; the sparse body's
+    # index row is one more round trip before the first stage, and a
+    # read-modify-write epilogue one a tile (it reads the output first)
+    step_s = busy / max(steps, 1.0) / clk
+    lat_s = (load_s * ((2 if extra else 1) + (walk if rmw else 0))
+             + steps * max(step_s, load_s / (t.stages - 1)))
+    # blocks an SM holds (threads, shared memory, 128 registers a
+    # thread), and the launch's waves (:func:`_wave_seconds`, in scalars)
+    occ = max(1, min(spec.blocks_per_sm, spec.threads_per_sm // t.threads,
+                     spec.smem_per_sm // max(t.smem, 1),
+                     spec.regs_per_sm // (t.threads * 128)))
+    if nb <= 0:                  # the sparse body's zero tiles
+        thr_s, lat_s = epi_cyc * walk / clk, load_s
+    full, tail = divmod(t.blocks, spec.sms * occ)
+    per_tail = max(-(-tail // spec.sms) * thr_s, lat_s) if tail else 0.0
+    return full * max(occ * thr_s, lat_s) + per_tail, t.smem, True
+
+
+def _conv_mma_seconds(layer: ConvLayer, by, bx, boc, bic, spec: H100Spec,
+                      batch: int = 1, steps=None,
+                      order: Tuple[str, ...] = ("oc", "y", "x")):
+    """Per block: (seconds of the scratch launch, seconds of all the
+    read-modify-write launches, smem bytes, feasible) of the bf16
+    implicit GEMM (``_geometry.conv_mma_tile``) over ``batch`` images
+    with the output axes in ``order``.  ``steps`` (per block): the
+    block-sparse body's expected nonzero channel blocks of an oc block;
+    its layout keeps every ic block's weights resident and the index row
+    (``_geometry.sparse_layout`` before the structure is known), it has
+    no read-modify-write launch, and its index row is one more round
+    trip."""
+    n = len(boc)
+    scr, rmw = np.zeros(n), np.zeros(n)
+    smem, ok = np.zeros(n, dtype=np.int64), np.zeros(n, dtype=bool)
+    order = tuple(order)
+    for j in range(n):
+        o, i, y, x = int(boc[j]), int(bic[j]), int(by[j]), int(bx[j])
+        n_ic = -(-layer.ic // i)
+        if steps is None:
+            scr[j], smem[j], ok[j] = _conv_mma_launch_s(
+                layer, o, i, y, x, batch, order, n_ic, 0, float(n_ic), False,
+                spec)
+            t1, _, ok1 = _conv_mma_launch_s(layer, o, i, y, x, batch, order,
+                                            n_ic, 0, 1.0, True, spec)
+            rmw[j] = n_ic * t1
+            ok[j] = ok[j] and ok1
+        else:
+            scr[j], smem[j], ok[j] = _conv_mma_launch_s(
+                layer, o, i, y, x, batch, ("oc", "y", "x"), n_ic,
+                _round_up(4 * n_ic, 16), float(steps[j]), False, spec)
+    return scr, rmw, smem, ok
 
 
 def _matmul_mma_seconds(m: int, n: int, k: int, bm: int, bn: int, bk: int,
@@ -520,13 +602,13 @@ def _matmul_mma_seconds(m: int, n: int, k: int, bm: int, bn: int, bk: int,
     # threads, 8 loads in flight each), which no other stage hides
     fill_trips = -(-regs_el // (128 * 8))
     chunk_lat = max(RING_LATENCY_S / max(1, t.stages - 1),
-                    fill_trips * LOAD_LATENCY_S)
+                    fill_trips * FILL_LATENCY_S)
     panel_s = 0.0
     if resident:
         panel_el = t.bn_pad * -(-k // 64) * 64
         panel_s = (RING_LATENCY_S + 2 * panel_el / l2_clk / clk
                    if b_tma else -(-panel_el // (128 * 8))
-                   * LOAD_LATENCY_S + panel_el / 16 / clk)
+                   * FILL_LATENCY_S + panel_el / 16 / clk)
     # registers a thread, from ptxas: 60 at BN 16, 72-80 at 64, 95 at
     # 128, 157-159 at 256
     regs = 56 + 0.4 * t.bn_pad
@@ -578,10 +660,18 @@ def _conv_batch(layer: ConvLayer, orders, blocks, spec: H100Spec,
 
     scratch = _scratch_orders(orders, "ic", ("oc", "y", "x"))
     if geo.tensor_cores(elem_bytes):
-        t_scr, t_rmw, smem, ok = _conv_mma_seconds(layer, by, bx, boc, bic,
-                                                   spec, batch)
-        compute_s = np.where(scratch[:, None], t_scr[None, :],
-                             t_rmw[None, :])                    # [O, B]
+        # the body's layout follows the output axes' order (which operand
+        # a block's walk shares)
+        compute_s = np.zeros((n_o, n_b))
+        by_out = {}
+        for o, order in enumerate(orders):
+            out = tuple(a for a in order if a != "ic")
+            if out not in by_out:
+                by_out[out] = _conv_mma_seconds(layer, by, bx, boc, bic,
+                                                spec, batch, order=out)
+            t_scr, t_rmw, smem, ok = by_out[out]
+            compute_s[o] = t_scr if scratch[o] else t_rmw
+        ok = np.logical_and.reduce([v[3] for v in by_out.values()])
     else:                     # the CUDA-core tile kernel
         step_s, smem, ok = _conv_terms(layer, by, bx, boc, bic, elem_bytes,
                                        spec)
@@ -778,7 +868,6 @@ def _sparse_mma_terms(layer: ConvLayer, blocks, density: float,
     n_ic = -(-layer.ic // bic)
     t_scr, _, smem, ok_mma = _conv_mma_seconds(
         layer, by, bx, boc, bic, spec, batch, steps=density * n_ic)
-    smem = smem + _round_up(4 * n_ic, 16)       # the index row
     return t_scr, smem, ok & ok_mma, by, bx
 
 
@@ -1027,8 +1116,9 @@ __all__ = ["COST_MODEL_VERSION", "EVAL_COUNTS", "H100Spec", "KernelCost",
            "LOKI_MODEL_VERSION", "CacheLevel", "MachineModel", "HIERARCHIES",
            "CacheSimResult", "simulate", "sweep_permutations",
            "BatchSimResult", "simulate_batch", "reset_eval_counts",
-           "LOAD_LATENCY_S", "RING_LATENCY_S", "SPARSE_CALL_S",
-           "SPARSE_CHANNEL_S", "STEP_CYCLES", "UNIT_CYCLES",
+           "LOAD_LATENCY_S", "FILL_LATENCY_S", "RING_LATENCY_S",
+           "SPARSE_CALL_S", "SPARSE_CHANNEL_S", "STEP_CYCLES", "UNIT_CYCLES",
+           "CHUNK_CYCLES", "EPI_CYCLES", "ConvBodyConsts",
            "BatchKernelCost", "conv_schedule_cost",
            "conv_schedule_cost_batch", "matmul_schedule_cost_batch",
            "sparse_conv_schedule_cost_batch", "sparse_channel_waves",

@@ -78,7 +78,8 @@ def sparse_pixel_tile(layer: ConvLayer, boc: int, bic: int, batch: int = 1,
     blk = _dense_block(layer, {"oc": boc, "ic": bic}, ("oc", "y", "x", "ic"),
                        spec, 2, batch)
     tile = geo.sparse_layout(boc, bic, blk["y"], blk["x"], layer.kh,
-                             layer.kw, layer.ic // bic, 2)
+                             layer.kw, layer.ic // bic, 2, oc=layer.oc,
+                             ic=layer.ic, h=layer.h, w=layer.w, batch=batch)
     return (blk["y"], blk["x"]) if tile.error is None else None
 
 

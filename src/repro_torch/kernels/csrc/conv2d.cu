@@ -14,9 +14,13 @@
 //   whole layer is < 0.5 us of work and a launch costs more.
 //
 // bfloat16: conv_mma_kernel<false> of conv_mma.cuh, an implicit GEMM on
-//   the tensor cores (mma.sync.m16n8k16): the halo staged channels-last
-//   and read by ldmatrix at each tap's shift, the next channel block's
-//   loads in flight during the MMAs (the header holds its design notes).
+//   the tensor cores (mma.sync.m16n8k16): the image halo and the weights
+//   come in by cp.async on the aligned cover of their contiguous runs,
+//   through a ring of 2-3 steps, and are rewritten channels-last in
+//   shared memory, where ldmatrix reads the halo at each tap's shift; a
+//   block walks several output tiles that share one operand (the oc
+//   block's weights, or a pixel tile's halo when oc is the schedule's
+//   last axis), which stays resident (the header holds its design notes).
 //   Block order and variant as the JAX kernel's: the output tiles are
 //   linearised into blockIdx in the schedule's order; with no output
 //   axis after ic one launch sums every channel block and rounds once
@@ -70,15 +74,16 @@ extern "C" int conv2d_fwd(const void* img, const void* wgt, void* out,
       rt::conv_launch(a, smem, static_cast<cudaStream_t>(stream)));
 }
 
-// bfloat16: the implicit GEMM.  `warps` is the wrapper's layout
-// (kernels/_geometry.py, conv_mma_tile); the rest is derived and checked
-// here.
+// bfloat16: the implicit GEMM.  `warps`, `walk`, `stages`, `late` and
+// `staged` are the wrapper's layout (kernels/_geometry.py,
+// conv_mma_tile); the rest is derived and checked here.
 extern "C" int conv2d_mma_fwd(const void* img, const void* wgt, void* out,
                               int N, int IC, int H2, int W2, int OC, int KH,
                               int KW, int boc, int bic, int by, int bx,
-                              int warps, int ord0, int ord1, int ord2,
-                              int ic_begin, int ic_count, int accumulate,
-                              void* stream) {
+                              int warps, int walk, int stages, int late,
+                              int staged, int ord0, int ord1, int ord2,
+                              int ic_begin,
+                              int ic_count, int accumulate, void* stream) {
   using namespace rt::cm;
   ConvMmaArgs a{};
   a.img = static_cast<const bf16*>(img);
@@ -99,7 +104,8 @@ extern "C" int conv2d_mma_fwd(const void* img, const void* wgt, void* out,
   a.ic_begin = ic_begin;
   a.ic_count = ic_count;
   a.accumulate = accumulate;
-  const long long smem = conv_mma_layout(a, warps, 0);
+  const long long smem =
+      conv_mma_layout(a, warps, walk, stages, late, staged, 0);
   if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
       conv_mma_launch<false>(a, smem, static_cast<cudaStream_t>(stream)));

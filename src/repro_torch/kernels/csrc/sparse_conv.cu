@@ -17,8 +17,11 @@
 //   block taken from the oc block's own index row: each block loads its
 //   count and index row into shared memory (the Pallas kernel prefetched
 //   them as scalars), so a skipped block costs neither a load nor an MMA,
-//   and the next nonzero block's loads are in flight during this one's
-//   MMAs.  The Pallas kernel kept the whole image of a block in VMEM; a
+//   and the next nonzero blocks' loads are in flight (cp.async, the same
+//   ring as the dense conv's) during this one's MMAs.  A block walks
+//   several pixel tiles of one oc block, its nonzero weight blocks
+//   loaded once and resident, so the index row, the padding's zeros and
+//   the weights are paid once a walk, not once a tile.  The Pallas kernel kept the whole image of a block in VMEM; a
 //   Hopper block has 227 KB, so the output is tiled spatially, with the
 //   dense conv model's cheapest pixel tile for the skip block's (oc, ic)
 //   at the caller's batch (core/sparsity.py, sparse_pixel_tile), which
@@ -32,16 +35,17 @@
 #include "conv_common.cuh"
 #include "conv_mma.cuh"
 
-// `groups` and `per_thread` are the float32 tile's layout, `warps` the
-// bf16 one's (kernels/_geometry.py: conv_tile, conv_mma_tile); the other
-// is ignored.
+// `groups` and `per_thread` are the float32 tile's layout, `warps`,
+// `walk`, `stages` and `late` the bf16 one's (kernels/_geometry.py: conv_tile,
+// conv_mma_tile); the other is ignored.
 extern "C" int sparse_conv2d_fwd(const void* img, const void* wgt,
                                  const void* idx, const void* counts,
                                  void* out, int N, int IC, int H2, int W2,
                                  int OC, int KH, int KW, int boc, int bic,
                                  int max_nnz, int by, int bx, int groups,
-                                 int per_thread, int warps, int is_bf16,
-                                 void* stream) {
+                                 int per_thread, int warps, int walk,
+                                 int stages, int late, int staged,
+                                 int is_bf16, void* stream) {
   if (max_nnz < 1 || idx == nullptr || counts == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -65,9 +69,10 @@ extern "C" int sparse_conv2d_fwd(const void* img, const void* wgt,
     a.max_nnz = max_nnz;
     if (bic < 1 || max_nnz > IC / bic)
       return static_cast<int>(cudaErrorInvalidValue);
-    // the index row sits after the epilogue tiles
-    const long long smem =
-        conv_mma_layout(a, warps, (max_nnz * 4 + 15) / 16 * 16);
+    // the index row sits after the ring
+    const long long smem = conv_mma_layout(a, warps, walk, stages, late,
+                                           staged,
+                                           (max_nnz * 4 + 15) / 16 * 16);
     if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(conv_mma_launch<true>(a, smem, st));
   }

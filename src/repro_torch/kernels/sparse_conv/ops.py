@@ -159,7 +159,8 @@ def sparse_conv2d(img: torch.Tensor, wgt: torch.Tensor, *,
     else:
         by, bx = sparse_tile(h, w)
     tile = sparse_layout(boc, bic, by, bx, kh, kw, ic // bic,
-                         img.element_size())
+                         img.element_size(), oc=oc, ic=ic, h=h, w=w,
+                         batch=n, max_nnz=sparsity.idx.shape[1])
     require(tile.error is None, f"sparse_conv2d: block {block} with a "
             f"{kh}x{kw} kernel does not fit the kernel: {tile.error}")
     idx, counts = sparsity.device_index(img.device)
@@ -168,7 +169,9 @@ def sparse_conv2d(img: torch.Tensor, wgt: torch.Tensor, *,
         img.data_ptr(), wgt.data_ptr(), idx.data_ptr(), counts.data_ptr(),
         out.data_ptr(), n, ic, h2, w2, oc, kh, kw, boc, bic, idx.shape[1],
         by, bx, 0 if mma else tile.groups, 0 if mma else tile.per_thread,
-        tile.warps if mma else 0, int(mma),
+        tile.warps if mma else 0, tile.walk if mma else 0,
+        tile.stages if mma else 0, int(mma and tile.late),
+        int(mma and tile.epi_staged), int(mma),
         _build.stream_handle(img.device))
     _build.check(rc, "sparse_conv2d_fwd")
     sparse_conv2d.launches += 1

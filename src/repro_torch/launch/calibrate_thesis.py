@@ -9,7 +9,9 @@ predictions: the data the model's fitted constants come from
     PYTHONPATH=src python -m repro_torch.launch.calibrate_thesis \\
         --score FILE.jsonl [FILE.jsonl ...]
 
-For each Table 4.1 layer (at batch 1 and 32, scratch order) and each
+For each Table 4.1 layer (at batch 1 and 32, the scratch order (oc, y,
+x, ic) and, for the four best predicted blocks, (y, x, oc, ic), whose
+walks keep the halo resident) and each
 GEMM shape of the thesis path (the 1x1 layers' GEMM forms and phi3-mini's
 QKV projection, k innermost), it takes the cost model's best candidates
 and an even spread of the rest of the tuner's bf16 blocks; for the
@@ -30,6 +32,8 @@ power limit.  Needs a CUDA card; random inputs from numpy seed 0.
 line, the current constants' mean squared log error, mean log bias,
 mean rank correlation within each shape and the geometric-mean ratio
 of the model's pick to the fastest timed schedule of each shape; for
+the bf16 conv and sparse conv lines together a coordinate search of the
+conv body's five constants (``CONV_CONSTS``) and its error; for
 the sparse lines also the least-squares ``SPARSE_CALL_S`` (bf16: the
 tensor-core body's model has no other sparse constant) or, for lines of
 the float32 body (``"dtype": "float32"``), ``SPARSE_CALL_S`` and
@@ -38,6 +42,7 @@ each family's three constants (``FLASH_*``, ``DEC_*``, ``SCAN_*``) to
 its lines' times less the launch.
 """
 import argparse
+import dataclasses
 import json
 import subprocess
 from pathlib import Path
@@ -54,6 +59,9 @@ from repro_torch.kernels import conv2d, matmul, sparse_conv2d
 from repro_torch.kernels.sparse_conv import analyze_weights
 
 CONV_ORDER = ("oc", "y", "x", "ic")
+# the order whose walks keep the halo resident (oc last), for the model's
+# best predicted blocks
+CONV_HALO_ORDER = ("y", "x", "oc", "ic")
 QKV = (512, 9216, 3072)
 KINDS = ("conv2d", "matmul", "sparse_conv", "flash_attention",
          "decode_attention", "ssm_scan")
@@ -104,8 +112,9 @@ def _dims(rec):
     return [rec["problem"][k] for k in DIMS[rec["kind"]]]
 
 
-def _predict_ms(rec) -> float:
-    """The model's ms for one calibration line."""
+def _predict_ms(rec, spec: cm.H100Spec = cm.H100Spec()) -> float:
+    """The model's ms for one calibration line (the conv lines under
+    ``spec``'s conv body constants)."""
     eb = _elem_bytes(rec)
     if rec["kind"] == "flash_attention":
         return float(cm.flash_attention_schedule_cost_batch(
@@ -121,12 +130,12 @@ def _predict_ms(rec) -> float:
         order = tuple({"o": "oc", "i": "ic", "y": "y", "x": "x"}[c]
                       for c in rec["order"])
         return float(cm.conv_schedule_cost_batch(
-            TABLE_4_1[rec["layer"]], [order], [rec["block"]],
+            TABLE_4_1[rec["layer"]], [order], [rec["block"]], spec,
             batch=rec["batch"]).time_s[0, 0]) * 1e3
     if rec["kind"] == "sparse_conv":
         return float(cm.sparse_conv_schedule_cost_batch(
             SPARSE_LAYERS[rec["layer"]], [rec["block"]],
-            rec["block_density"], rec["batch"],
+            rec["block_density"], rec["batch"], spec,
             elem_bytes=_elem_bytes(rec)).time_s[0]) * 1e3
     m, n, k = rec["mnk"]
     b = rec["block"]
@@ -159,6 +168,41 @@ def sparse_fit(recs):
         np.stack([np.ones(len(recs)), x], axis=1), meas, rcond=None)
     return {"SPARSE_CALL_S": float(fixed - cm.H100Spec().launch_s),
             "SPARSE_CHANNEL_S": float(channel)}
+
+
+# the bf16 conv body's constants (``core/cost_model.py``), fitted together
+# to the conv and sparse conv lines: the module's names, in the order of
+# ``cm.ConvBodyConsts``'s fields
+CONV_CONSTS = ("UNIT_CYCLES", "CHUNK_CYCLES", "STEP_CYCLES", "EPI_CYCLES",
+               "LOAD_LATENCY_S")
+CONV_FACTORS = (0.25, 0.5, 0.7, 0.85, 1.0, 1.2, 1.4, 2.0, 4.0)
+
+
+def conv_fit(recs, rounds: int = 3):
+    """The bf16 conv body's constants that minimise the mean squared log
+    error on ``recs`` (the model is not linear in them: a coordinate
+    search from the module's values, each constant scaled by
+    CONV_FACTORS in turn, ``rounds`` times), with that error.  Each trial
+    is a ``cm.ConvBodyConsts`` in a spec of its own; the module is not
+    changed."""
+    meas = np.log(np.array([r["ms"] for r in recs]))
+    fields = [f.name for f in dataclasses.fields(cm.ConvBodyConsts)]
+
+    def mse(consts: cm.ConvBodyConsts) -> float:
+        spec = dataclasses.replace(cm.H100Spec(), conv_body=consts)
+        pred = np.log(np.array([_predict_ms(r, spec) for r in recs]))
+        return float(np.mean((pred - meas) ** 2))
+
+    best = cm.ConvBodyConsts.fitted()
+    for _ in range(rounds):
+        for k in fields:
+            base = getattr(best, k)
+            trials = {f: mse(dataclasses.replace(best, **{k: base * f}))
+                      for f in CONV_FACTORS}
+            best = dataclasses.replace(
+                best, **{k: base * min(trials, key=trials.get)})
+    return ({name: float(getattr(best, k))
+             for name, k in zip(CONV_CONSTS, fields)}, mse(best))
 
 
 def serving_fit(kind, recs):
@@ -230,6 +274,13 @@ def score(paths) -> None:
             continue
         print(f"[score] kind={kind} lines={len(rs)} "
               + fmt.format(*fit_stats(rs)))
+        if kind == "conv2d":
+            conv = [r for r in recs if r["kind"] in ("conv2d", "sparse_conv")
+                    and _elem_bytes(r) == 2]
+            consts, err = conv_fit(conv)
+            print(f"[score] kind=conv2d+sparse_conv lines={len(conv)} "
+                  f"coordinate_fit mse {err:.4f} " + " ".join(
+                      f"{k}={v:.4g}" for k, v in consts.items()))
         if kind == "sparse_conv":
             for eb in (2, 4):
                 sub = [r for r in rs if _elem_bytes(r) == eb]
@@ -316,21 +367,25 @@ def main(argv=None) -> None:
                 wgt = rn((l.oc, l.ic, l.kh, l.kw),
                          (l.ic * l.kh * l.kw) ** -0.5)
                 blocks = tuner.conv_blocks(l, 2)
-                t1 = cm.conv_schedule_cost_batch(l, [CONV_ORDER],
-                                                 blocks).time_s[0]
-                for i in _spread(t1, 4, PER_SHAPE):
-                    blk = blocks[i]
-                    for nb in (1, 32):
-                        pred = cm.conv_schedule_cost_batch(
-                            l, [CONV_ORDER], [blk], batch=nb).time_s[0, 0]
-                        x = img[:nb]
+                for nb in (1, 32):
+                    t = cm.conv_schedule_cost_batch(
+                        l, [CONV_ORDER, CONV_HALO_ORDER], blocks,
+                        batch=nb).time_s
+                    picks = [(CONV_ORDER, i)
+                             for i in _spread(t[0], 4, PER_SHAPE)]
+                    picks += [(CONV_HALO_ORDER, i)
+                              for i in _spread(t[1], 4, 4)]
+                    x = img[:nb]
+                    for order, i in picks:
+                        blk = blocks[i]
                         ms = _median_ms(lambda: conv2d(x, wgt, block=blk,
-                                                       grid_order=CONV_ORDER),
+                                                       grid_order=order),
                                         flush)
                         emit({"kind": "conv2d", "layer": name, "batch": nb,
-                              "block": blk, "order": "".join(a[0] for a in
-                                                             CONV_ORDER),
-                              "ms": ms, "predicted_ms": pred * 1e3})
+                              "block": blk,
+                              "order": "".join(a[0] for a in order),
+                              "ms": ms, "predicted_ms": float(
+                                  t[int(order == CONV_HALO_ORDER), i]) * 1e3})
                 del img, wgt
         if "matmul" in args.kinds:
             gemms = [(name, (l.oc, l.h * l.w, l.ic))

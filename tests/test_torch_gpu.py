@@ -308,6 +308,81 @@ def test_cuda_bf16_conv2d_mma_edges(cuda_device, case):
     assert _share_of_tol(got, want, peak) <= 1.0
 
 
+# The conv body's edges: rows that are not 16-byte aligned (W + KW - 1
+# odd: the cp.async covers of unaligned runs), 1 x 1, 3 x 3, 5 x 5 and
+# 11 x 11 kernels, oc and ic that are not multiples of 16, ragged pixel
+# tiles (17 and 25 pixels pad to 32), batch 1 and 32, and each layout
+# the rule picks: a walk with the weights resident or with the halo
+# resident, a tile narrower than the image (a halo run a row), the single
+# slot of large kernels (late), the epilogue with and without its
+# staging, 32- and 48-pixel warp tiles, scratch and read-modify-write
+# orders.
+CONV_BODY_CASES = [
+    # (n, ic, h, w, oc, k), block, grid order, (walk > 1, fixed halo,
+    # late, epilogue staged, m16 tiles a warp)
+    ((32, 24, 25, 25, 40, 3), {"oc": 40, "ic": 8, "y": 5, "x": 5},
+     ("oc", "y", "x", "ic"), (True, False, False, True, 2)),
+    ((1, 24, 25, 25, 40, 3), {"oc": 40, "ic": 8, "y": 5, "x": 25},
+     ("oc", "y", "x", "ic"), (False, False, False, True, 2)),
+    ((32, 36, 13, 13, 320, 1), {"oc": 10, "ic": 12, "y": 13, "x": 13},
+     ("y", "x", "oc", "ic"), (True, True, False, True, 2)),
+    ((2, 20, 17, 19, 24, 5), {"oc": 24, "ic": 20, "y": 17, "x": 1},
+     ("oc", "x", "y", "ic"), (False, False, False, True, 2)),
+    ((2, 10, 10, 10, 10, 11), {"oc": 10, "ic": 10, "y": 10, "x": 10},
+     ("oc", "y", "x", "ic"), (False, False, True, True, 2)),
+    ((32, 16, 14, 14, 48, 11), {"oc": 16, "ic": 8, "y": 7, "x": 7},
+     ("oc", "y", "x", "ic"), (False, False, True, True, 2)),
+    ((32, 48, 13, 13, 64, 3), {"oc": 64, "ic": 16, "y": 13, "x": 13},
+     ("ic", "oc", "y", "x"), (False, False, False, True, 2)),
+    ((32, 32, 28, 28, 64, 3), {"oc": 16, "ic": 16, "y": 7, "x": 14},
+     ("ic", "oc", "y", "x"), (True, False, False, True, 2)),
+    ((3, 40, 15, 15, 48, 3), {"oc": 16, "ic": 8, "y": 5, "x": 15},
+     ("ic", "y", "x", "oc"), (False, True, False, True, 2)),
+    # no room for the epilogue's staging: the fragments' own pairs (a
+    # walk with the weights resident, one slot)
+    ((2, 15, 10, 10, 90, 11), {"oc": 15, "ic": 15, "y": 2, "x": 2},
+     ("oc", "y", "x", "ic"), (True, False, True, False, 2)),
+    # 48-pixel warp tiles (625 pixels in one round of 14 warps, or two
+    # of 16), read-modify-write and with the halo fixed
+    ((4, 48, 25, 25, 64, 3), {"oc": 32, "ic": 16, "y": 25, "x": 25},
+     ("ic", "oc", "y", "x"), (False, False, False, True, 3)),
+    ((2, 32, 25, 25, 40, 3), {"oc": 40, "ic": 16, "y": 25, "x": 25},
+     ("y", "x", "oc", "ic"), (False, True, False, True, 3)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CONV_BODY_CASES,
+                         ids=[f"n{c[0][0]}-ic{c[0][1]}-{c[0][2]}x{c[0][3]}-"
+                              f"oc{c[0][4]}-k{c[0][5]}-"
+                              + "".join(a[0] for a in c[2])
+                              for c in CONV_BODY_CASES])
+def test_cuda_bf16_conv_body_edges(cuda_device, case):
+    """The bf16 body against its plain version, with the layout the rule
+    picks for the case and the launch count of its order."""
+    from repro_torch.kernels._geometry import conv_mma_tile
+    from repro_torch.kernels.conv2d import uses_scratch
+    (n, ic, h, w, oc, k), block, order, layout = case
+    scratch = uses_scratch(order)
+    tile = conv_mma_tile(block["oc"], block["ic"], block["y"], block["x"],
+                         k, k, oc=oc, ic=ic, h=h, w=w, batch=n, order=order)
+    assert tile.error is None
+    assert (tile.walk > 1, tile.fixed_halo, tile.late, tile.epi_staged,
+            tile.m_tiles) == layout
+    g = torch.Generator(device=cuda_device).manual_seed(ic + oc + k + n)
+    img = torch.randn(n, ic, h + k - 1, w + k - 1, generator=g,
+                      device=cuda_device).to(torch.bfloat16)
+    wgt = (torch.randn(oc, ic, k, k, generator=g, device=cuda_device)
+           * (ic * k * k) ** -0.5).to(torch.bfloat16)
+    before = conv2d.launches
+    got = conv2d(img, wgt, block=block, grid_order=order)
+    torch.cuda.synchronize()
+    want, peak = conv2d_plain(img, wgt, block=block, grid_order=order,
+                              with_peak=True)
+    assert conv2d.launches - before == (1 if scratch else ic // block["ic"])
+    assert _share_of_tol(got, want, peak) <= 1.0
+
+
 @pytest.mark.gpu
 def test_cuda_bf16_mma_layouts_refuse_what_they_cannot_take(cuda_device):
     """A block the tensor-core layout refuses raises before any launch:
@@ -563,6 +638,8 @@ def test_cuda_flash_wide_heads_match_plain(cuda_device, dtype, case):
 SPARSE_MMA_CASES = [
     # (n, ic, h, oc, k), skip block
     ((2, 512, 13, 1000, 1), {"oc": 40, "ic": 64}),
+    ((32, 40, 13, 48, 1), {"oc": 16, "ic": 8}),
+    ((1, 24, 25, 40, 3), {"oc": 8, "ic": 8}),
     ((2, 16, 55, 64, 3), {"oc": 64, "ic": 8}),
     ((2, 512, 13, 1000, 1), {"oc": 125, "ic": 16}),
     ((32, 128, 25, 128, 3), {"oc": 16, "ic": 16}),

@@ -10,6 +10,7 @@ interpret mode, in bf16 (per element two bf16 ulps + 1e-5 of the
 largest magnitude at a rounding point) and float32 (1e-5).
 """
 import dataclasses
+import itertools
 import json
 
 import numpy as np
@@ -63,30 +64,104 @@ def _assert_close(got, want, peak=None):
 
 # ------------------------------------------------------------- geometry
 
-@pytest.mark.parametrize("block,kernel,want", [
-    # (boc, bic, by, bx), (kh, kw), (p16, boc16, bic_pad, warps, rounds)
-    ((40, 64, 13, 13), (1, 1), (176, 48, 64, 12, 1)),
-    ((125, 16, 1, 13), (1, 1), (16, 128, 16, 4, 1)),
-    ((200, 16, 1, 13), (1, 1), (16, 208, 16, 7, 1)),
-    ((64, 8, 5, 11), (3, 3), (64, 64, 16, 4, 1)),
-    ((128, 32, 11, 11), (1, 1), (128, 128, 32, 16, 1)),
-    ((128, 16, 13, 13), (3, 3), (176, 128, 16, 16, 2)),
-    ((13, 1, 1, 1), (1, 1), (16, 16, 16, 1, 1)),
+@pytest.mark.parametrize("block,kernel,problem,order,want", [
+    # (boc, bic, by, bx), (kh, kw), (oc, ic, h, w) at batch 32, output
+    # order -> (p16, boc16, bic_pad, warps, rounds, m16 tiles a warp),
+    # (walk, stages, late, fixed halo)
+    ((40, 64, 13, 13), (1, 1), (1000, 512, 13, 13), "oyx",
+     ((176, 48, 64, 12, 1, 2), (1, 3, False, False))),
+    ((125, 16, 1, 13), (1, 1), (1000, 512, 13, 13), "oyx",
+     ((16, 128, 16, 8, 1, 2), (1, 3, False, False))),
+    ((125, 16, 1, 13), (1, 1), (1000, 512, 13, 13), "yxo",
+     ((16, 128, 16, 8, 1, 2), (1, 3, False, True))),
+    ((200, 16, 1, 13), (1, 1), (1000, 512, 13, 13), "yxo",
+     ((16, 208, 16, 8, 1, 2), (1, 3, False, True))),
+    ((32, 32, 14, 28), (3, 3), (256, 32, 28, 28), "yxo",
+     ((400, 32, 32, 13, 1, 2), (4, 3, True, True))),
+    ((64, 8, 5, 11), (3, 3), (64, 16, 55, 55), "oyx",
+     ((64, 64, 16, 8, 1, 2), (7, 3, False, False))),
+    ((128, 32, 11, 11), (1, 1), (128, 32, 55, 55), "oyx",
+     ((128, 128, 32, 16, 1, 2), (7, 3, False, False))),
+    ((128, 16, 13, 13), (3, 3), (256, 64, 13, 13), "oyx",
+     ((176, 128, 16, 16, 1, 3), (1, 3, True, False))),
+    ((32, 16, 25, 25), (3, 3), (128, 128, 25, 25), "oyx",
+     ((640, 32, 16, 14, 1, 3), (1, 3, False, False))),
+    ((64, 16, 25, 25), (3, 3), (128, 128, 25, 25), "oyx",
+     ((640, 64, 16, 16, 2, 3), (1, 3, True, False))),
+    ((13, 1, 1, 1), (1, 1), (13, 1, 1, 1), "oyx",
+     ((16, 16, 16, 8, 1, 2), (1, 3, False, False))),
+    ((10, 10, 10, 10), (11, 11), (10, 10, 10, 10), "oyx",
+     ((112, 16, 16, 8, 1, 2), (1, 3, True, False))),
 ], ids=str)
-def test_conv_mma_layout_pads_to_the_mma_shape(block, kernel, want):
-    """Pixels, oc and ic pad to 16; 32 x 32 warp tiles, at most 16
-    warps, rounds past that; every such tile fits."""
-    t = geo.conv_mma_tile(*block, *kernel)
-    assert (t.p16, t.boc16, t.bic_pad, t.warps, t.rounds) == want
+def test_conv_mma_layout_pads_to_the_mma_shape(block, kernel, problem, order,
+                                               want):
+    """Pixels, oc and ic pad to 16; 32 x 32 warp tiles, or 48 x 32 where
+    that takes fewer rounds, 8 to 16 warps, rounds past 16; a walk keeps
+    the weights resident (oc before the pixel axes) or the halo (oc
+    last) where it takes fewer waves times tiles; an 11 x 11 kernel takes
+    the single-slot layout; every such tile fits, and the layout covers
+    the launch's tiles."""
+    oc, ic, h, w = problem
+    axes = {"o": "oc", "y": "y", "x": "x"}
+    t = geo.conv_mma_tile(*block, *kernel, oc=oc, ic=ic, h=h, w=w, batch=32,
+                          order=tuple(axes[a] for a in order))
+    assert (t.p16, t.boc16, t.bic_pad, t.warps, t.rounds,
+            t.m_tiles) == want[0]
+    assert (t.walk, t.stages, t.late, t.fixed_halo) == want[1]
     assert t.error is None and t.threads == 32 * t.warps
+    # each group's tiles in walks of `walk`, the last one ragged
+    assert t.blocks == t.tiles // t.group * -(-t.group // t.walk)
 
 
-@pytest.mark.parametrize("block,kernel", [
-    ((256, 64, 13, 13), (3, 3)),
-    ((40, 512, 13, 13), (1, 1)),
+@pytest.mark.parametrize("block,kernel,problem", [
+    ((256, 64, 13, 13), (3, 3), (256, 64, 13, 13)),
+    ((40, 512, 13, 13), (1, 1), (1000, 512, 13, 13)),
 ], ids=str)
-def test_conv_mma_layout_refuses_what_does_not_fit(block, kernel):
-    assert "shared memory" in geo.conv_mma_tile(*block, *kernel).error
+def test_conv_mma_layout_refuses_what_does_not_fit(block, kernel, problem):
+    oc, ic, h, w = problem
+    for batch in (1, 32):
+        t = geo.conv_mma_tile(*block, *kernel, oc=oc, ic=ic, h=h, w=w,
+                              batch=batch)
+        assert "shared memory" in t.error
+
+
+OFFERED_LAYERS = [(n, b) for n in TABLE_4_1 for b in (1, 32)]
+
+
+@pytest.mark.parametrize("name,batch", OFFERED_LAYERS, ids=str)
+def test_every_offered_bf16_block_fits_the_layout(name, batch):
+    """Every bf16 block the tuner offers for a Table 4.1 layer fits the
+    body's layout (227 KB) in every output order (the read-modify-write
+    launches take the scratch launch's)."""
+    layer = TABLE_4_1[name]
+    blocks = tuner.conv_blocks(layer, 2)
+    assert blocks
+    for b in blocks:
+        for order in itertools.permutations(("oc", "y", "x")):
+            t = geo.conv_mma_tile(
+                b["oc"], b["ic"], b["y"], b["x"], layer.kh, layer.kw,
+                oc=layer.oc, ic=layer.ic, h=layer.h, w=layer.w, batch=batch,
+                order=order)
+            assert t.error is None and t.smem <= geo.SMEM_BYTES
+
+
+@pytest.mark.parametrize("batch", [1, 32])
+@pytest.mark.parametrize("name", ["fig6.2", "fire9-conv3x3-2"])
+def test_every_offered_sparse_block_fits_the_layout(name, batch):
+    """Every bf16 skip block the tuner offers for the block-sparse layers
+    fits the body's layout at its pixel tile, with every ic block
+    resident and the index row (the most a structure can need)."""
+    layer = (ConvLayer(128, 128, 25, 25, 3, 3) if name == "fig6.2"
+             else TABLE_4_1[name])
+    blocks = tuner.sparse_blocks(layer, 2)
+    assert blocks
+    for b in blocks:
+        by, bx = sparsity.sparse_pixel_tile(layer, b["oc"], b["ic"], batch)
+        n_ic = layer.ic // b["ic"]
+        t = geo.sparse_layout(b["oc"], b["ic"], by, bx, layer.kh, layer.kw,
+                              n_ic, 2, oc=layer.oc, ic=layer.ic, h=layer.h,
+                              w=layer.w, batch=batch, max_nnz=n_ic)
+        assert t.error is None and t.smem <= geo.SMEM_BYTES
 
 
 @pytest.mark.parametrize("bm,bn,bk,k,resident,want", [
@@ -185,15 +260,16 @@ def test_every_bf16_conv_candidate_is_timed(name):
 ], ids=["pixels", "channels"])
 def test_bf16_conv_charges_the_mma_padding(more, less, pad,
                                           monkeypatch):
-    """With load latency, staging units and steps, memory and
-    shared-memory reads made free, conv-final's time is its padded MMA work plus each
-    block's zeroing of its stages (more blocks for the tile that pads
-    more): that tile costs at least the padding's ratio more, and the
-    zeroing adds under 10%."""
+    """With load latency, staging (cp.async and channels-last units,
+    steps, the epilogue), memory and shared-memory reads made free,
+    conv-final's time is its padded MMA work: the tile that pads more
+    costs at least the padding's ratio more, and at most 10% past it."""
     layer = TABLE_4_1["conv-final"]
     monkeypatch.setattr(cm, "LOAD_LATENCY_S", 1e-15)
     monkeypatch.setattr(cm, "UNIT_CYCLES", 0.0)
+    monkeypatch.setattr(cm, "CHUNK_CYCLES", 0.0)
     monkeypatch.setattr(cm, "STEP_CYCLES", 0.0)
+    monkeypatch.setattr(cm, "EPI_CYCLES", 0.0)
     free = dataclasses.replace(cm.H100Spec(), launch_s=0.0, l2_bw=1e30,
                                hbm_bw=1e30, smem_read_bytes=10 ** 9)
     t = cm.conv_schedule_cost_batch(layer, [("oc", "y", "x", "ic")],
@@ -204,11 +280,12 @@ def test_bf16_conv_charges_the_mma_padding(more, less, pad,
 def test_registry_record_of_h100_1_is_not_returned_under_h100_2(
         tmp_path, monkeypatch):
     """Rankings cached by the CUDA-core-only model (``h100-1``) miss
-    under the current model (``h100-5`` since flash attention and the
-    decode gained their second bodies; ``h100-4`` when the serving kernels
-    joined it; ``h100-3`` when the bf16 sparse conv moved to the tensor
-    cores): the tuner ranks anew."""
-    assert cm.COST_MODEL_VERSION == "h100-5"
+    under the current model (``h100-6`` since the bf16 conv body was
+    redesigned; ``h100-5`` when flash attention and the decode gained
+    their second bodies; ``h100-4`` when the serving kernels joined it;
+    ``h100-3`` when the bf16 sparse conv moved to the tensor cores): the
+    tuner ranks anew."""
+    assert cm.COST_MODEL_VERSION == "h100-6"
     path = str(tmp_path / "t.jsonl")
     layer = TABLE_4_1["fire9-conv3x3-2"]
     monkeypatch.setattr(cm, "COST_MODEL_VERSION", "h100-1")
@@ -218,10 +295,56 @@ def test_registry_record_of_h100_1_is_not_returned_under_h100_2(
     fresh = reg.TuningRegistry(path)
     assert fresh.get(old_key) is not None
     new_key = reg.conv_schedule_key(layer, cm.H100Spec())
-    assert new_key.cost_model == "h100-5" and fresh.get(new_key) is None
+    assert new_key.cost_model == "h100-6" and fresh.get(new_key) is None
     before = cm.total_evals()
     tuner.cached_tune_conv(layer, registry=fresh)
     assert cm.total_evals() > before
+
+
+def test_conv_timeline_marks_every_phase():
+    """``launch/conv_timeline.py`` builds the conv body with its phase
+    marks defined: every phase it names is marked in ``conv_mma.cuh``,
+    between one begin and one end, and each ``--without`` edit finds its
+    text, so a kernel edit that moves one fails here rather than on the
+    card."""
+    from repro_torch.launch.conv_timeline import (ABLATIONS, PHASES,
+                                                  instrumented_source)
+    src, phases = instrumented_source()
+    assert phases == PHASES
+    body = src[src.index("conv_mma_kernel(const ConvMmaArgs a) {"):
+               src.index("inline long long conv_mma_layout(")]
+    assert body.count("CM_T_BEGIN()") == 1 and body.count("CM_T_END()") == 1
+    for k in range(len(PHASES)):
+        assert f"CM_T_MARK({k})" in body, PHASES[k]
+    for without in ABLATIONS:        # each ablation's anchor is found once
+        assert instrumented_source(without)[0] != src
+
+
+@pytest.mark.parametrize("kind", ["conv", "sparse_conv"])
+def test_registry_record_of_h100_5_is_not_returned_under_h100_6(
+        tmp_path, monkeypatch, kind):
+    """Rankings cached before the bf16 conv body's redesign (``h100-5``:
+    the old body's staging and its blocks) miss under ``h100-6``, for the
+    dense and the block-sparse conv: the tuner ranks anew."""
+    path = str(tmp_path / "t.jsonl")
+    layer = TABLE_4_1["fire9-conv3x3-2"]
+
+    def tune(registry):
+        if kind == "conv":
+            return tuner.cached_tune_conv(layer, registry=registry, batch=32)
+        return tuner.cached_tune_sparse_conv(layer, 0.25, registry=registry,
+                                             batch=32)
+
+    monkeypatch.setattr(cm, "COST_MODEL_VERSION", "h100-5")
+    tune(reg.TuningRegistry(path))
+    assert len(reg.TuningRegistry(path)) == 1
+    monkeypatch.undo()
+    fresh = reg.TuningRegistry(path)
+    before = cm.total_evals()
+    tune(fresh)
+    assert cm.total_evals() > before
+    versions = {r.key.cost_model for r in fresh.records()}
+    assert versions == {"h100-5", "h100-6"}
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
@@ -298,12 +421,17 @@ def test_sparse_pixel_tile_divides_the_image(name, batch):
                                       cm.H100Spec(), 2, batch)
         assert (dense["y"], dense["x"]) == (by, bx)
         n_ic = layer.ic // blk["ic"]
+        problem = dict(oc=layer.oc, ic=layer.ic, h=layer.h, w=layer.w,
+                       batch=batch)
         tile = geo.sparse_layout(blk["oc"], blk["ic"], by, bx, layer.kh,
-                                 layer.kw, n_ic, 2)
+                                 layer.kw, n_ic, 2, **problem)
         assert tile.error is None
-        assert tile.smem == geo.conv_mma_tile(
-            blk["oc"], blk["ic"], by, bx, layer.kh, layer.kw).smem \
-            + -(-4 * n_ic // 16) * 16
+        # the dense tile in the order (oc, y, x), its resident weights
+        # every ic block, and the index row after the ring
+        assert tile == geo.conv_mma_tile(
+            blk["oc"], blk["ic"], by, bx, layer.kh, layer.kw, **problem,
+            order=("oc", "y", "x"), n_fixed=n_ic,
+            extra=-(-4 * n_ic // 16) * 16)
 
 
 def test_sparse_structure_keeps_its_device_index():
@@ -381,6 +509,42 @@ def test_sparse_fit_recovers_the_constants(monkeypatch, dtype):
         fit = calibrate.sparse_fit(_sparse_lines(ms_of, dtype))
         assert fit["SPARSE_CHANNEL_S"] == pytest.approx(3e-6, rel=1e-6)
     assert fit["SPARSE_CALL_S"] == pytest.approx(8e-5, rel=1e-6)
+
+
+def test_conv_fit_varies_a_spec_and_leaves_the_module(monkeypatch):
+    """The conv body's coordinate search passes its trial constants in a
+    spec of its own (``H100Spec.conv_body``): on lines timed with the
+    epilogue's constant doubled, the spec holding those constants times
+    them exactly, the search lowers the error its start (the module's
+    constants) has, and the module's constants, which a spec without
+    ``conv_body`` reads at each call, are the same after it."""
+    calibrate = pytest.importorskip("repro_torch.launch.calibrate_thesis")
+    fitted = cm.ConvBodyConsts.fitted()
+    true = dataclasses.replace(fitted, epi_cycles=2 * fitted.epi_cycles)
+    spec = dataclasses.replace(cm.H100Spec(), conv_body=true)
+    lines = []
+    for name in ("fire4-conv1x1-2", "fire9-conv3x3-2"):
+        layer = TABLE_4_1[name]
+        for blk in tuner.conv_blocks(layer, 2)[::7][:4]:
+            for n in (1, 32):
+                t = cm.conv_schedule_cost_batch(
+                    layer, [("oc", "y", "x", "ic")], [blk], spec,
+                    batch=n).time_s[0, 0]
+                lines.append({"kind": "conv2d", "layer": name, "batch": n,
+                              "block": blk, "order": "oyxi",
+                              "ms": t * 1e3})
+    assert [calibrate._predict_ms(r, spec) for r in lines] == \
+        pytest.approx([r["ms"] for r in lines])
+    meas = np.log([r["ms"] for r in lines])
+    start = float(np.mean((np.log([calibrate._predict_ms(r) for r in lines])
+                           - meas) ** 2))
+    consts, err = calibrate.conv_fit(lines, rounds=1)
+    assert consts.keys() == set(calibrate.CONV_CONSTS)
+    assert start > 0 and err < start / 2
+    assert cm.ConvBodyConsts.fitted() == fitted
+    # the module's constants are read at each call
+    monkeypatch.setattr(cm, "EPI_CYCLES", true.epi_cycles)
+    assert cm.ConvBodyConsts.fitted() == true
 
 
 def test_score_reports_each_kind(tmp_path, capsys):
