@@ -15,6 +15,8 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
    -sass`` of the bf16 matmul, conv2d, block-sparse conv and both flash
    attention bodies and of the packed decode (none may be 0) and of the
    float32 bodies (which stay on the CUDA cores: none may hold one);
+   ``[serialized_wgmma]``: ptxas may serialize no wgmma of the bf16
+   matmul body;
 3. kernels: each kernel against its plain PyTorch version at every
    shape the main paths give it in bf16 (per element, two bf16 ulps of
    the plain value plus 1e-5), at the main geometry in float32 (1e-5)
@@ -269,13 +271,16 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
    line;
 8. the thesis path (run after phase 3): conv2d, matmul and the
    block-sparse conv at the widths of thesis Table 4.1 (batch 1 and 32),
-   the GEMM form of its 1x1 layers, phi3-mini's QKV projection and the
-   Fig 6.2 layer at block densities 0-1, each against its plain version
-   in bf16 and float32 (``[check]``; exact launch counts per call; the
-   bf16 matmul's lines name the staging route of A and B), the blocks
-   the tensor-core layouts pad (phi3's QKV at 128 x 128 and 128 x 256
-   tiles, a 1x1 GEMM form with bn 13, conv-final with 40 output channels
-   on 13 x 13 pixels, fire3 with 8 input channels read-modify-write), then
+   the GEMM form of its 1x1 layers, phi3-mini's QKV, O and down
+   projections and the Fig 6.2 layer at block densities 0-1, each
+   against its plain version in bf16 and float32 (``[check]``; exact
+   launch counts per call; the bf16 matmul's lines name the staging
+   route of A and B), the blocks the tensor-core layouts pad (phi3's QKV
+   at 128 x 128 and 128 x 256 tiles, a 1x1 GEMM form with bn 13,
+   conv-final with 40 output channels on 13 x 13 pixels, fire3 with 8
+   input channels read-modify-write), the matmul's tail split (QKV and
+   down at their rank-0 blocks, m and n tiles fastest, two calls
+   bit-identical), then
    ``[time]`` lines (kernel, plain, bound, library: ``F.conv2d``,
    ``torch.matmul``), the dense-vs-sparse ``[crossover]``, the 24 grid
    orders of initial-conf and the 6 of phi3's QKV GEMM (``[orders]``),
@@ -459,12 +464,15 @@ MAIN_PATH_INSTANCES = {
     "ssm_scan": r"ssm_scan_kernelI13__nv_bfloat16Li16E",
     # the thesis kernels' bf16 bodies: the conv's implicit GEMM (dense,
     # and over the nonzero blocks) at 32- and 48-pixel warp tiles, the
-    # matmul's wgmma at two warpgroups and the widest wgmma (QKV's tile)
+    # matmul's persistent wgmma body at QKV's tile (two warpgroups, 192
+    # wide, the full flavour: its tail is split) and at O's (one
+    # warpgroup, the lean flavour)
     "conv2d": r"conv2d_cu[^']*conv_mma_kernelILb0ELi2E",
     "conv2d_mt3": r"conv2d_cu[^']*conv_mma_kernelILb0ELi3E",
     "sparse_conv2d": r"sparse_conv_cu[^']*conv_mma_kernelILb1ELi2E",
     "sparse_conv2d_mt3": r"sparse_conv_cu[^']*conv_mma_kernelILb1ELi3E",
-    "matmul": r"matmul_mma_kernelILi2ELi256E",
+    "matmul": r"matmul_mma_kernelILi2ELi192ELb1E",
+    "matmul_lean": r"matmul_mma_kernelILi1ELi192ELb0E",
 }
 # The head_dim 256 instances (paligemma-3b, recurrentgemma-9b): flash's
 # bf16 body with Q re-read from shared memory, its float32 body at 64
@@ -1308,6 +1316,9 @@ def time_body(torch, dev, timer, rn):
 THESIS_BATCHES = (1, 32)
 # phi3-mini's QKV projection at the engine's largest prefill bucket
 QKV = (512, 9216, 3072)                  # m, n, k
+# and its O and down projections there
+PHI3_PROJECTIONS = {"phi3-o": (512, 3072, 3072),
+                    "phi3-down": (512, 3072, 8192)}
 SPARSE_DENSITIES = (0.0, 0.25, 0.5, 1.0)
 DISPATCH_DENSITIES = (0.25, 1.0)
 SPARSE_ZERO_BLOCK = {"oc": 16, "ic": 16}  # granularity the weights are zeroed at
@@ -1317,7 +1328,8 @@ def thesis_data(torch, dev):
     """Table 4.1 images [32, IC, H+KH-1, W+KW-1] and weights [OC, IC, KH,
     KW] from numpy seed 0 (weights scaled by 1/sqrt(IC KH KW), as a
     layer's init scales them, so outputs are O(1)); the QKV operands;
-    the block-sparse layers' images.  Float32 on the card."""
+    the block-sparse layers' images; the O and down operands.  Float32
+    on the card."""
     import numpy as np
     from repro_torch.configs.squeezenet_layers import TABLE_4_1
     from repro_torch.core.loopnest import ConvLayer
@@ -1351,20 +1363,24 @@ def thesis_data(torch, dev):
             for o, i in zip(*np.nonzero(drop)):
                 w[o * boc:(o + 1) * boc, i * bic:(i + 1) * bic] = 0.0
             sw[(name, d)] = torch.from_numpy(w).to(dev)
+    # drawn last: the data above is what it was before they joined
+    proj = {label: (rn((m, k)), rn((k, n), k ** -0.5))
+            for label, (m, n, k) in PHI3_PROJECTIONS.items()}
     return {"conv": conv, "qkv": qkv, "sparse": sparse, "simg": simg,
-            "sw": sw}
+            "sw": sw, "proj": proj}
 
 
 def gemm_shapes(data):
-    """(label, a, b): the GEMM form of the four 1x1 Table 4.1 layers at
-    batch 1 (a = weights [oc, ic], b = image [ic, h w]) and phi3-mini's
-    QKV projection."""
+    """(label, a, b): the GEMM form of the 1x1 Table 4.1 layers at batch
+    1 (a = weights [oc, ic], b = image [ic, h w]) and phi3-mini's QKV, O
+    and down projections."""
     out = []
     for name, (l, img, wgt) in data["conv"].items():
         if l.kh == 1:
             out.append((name, wgt[:, :, 0, 0].contiguous(),
                         img[0].reshape(l.ic, -1).contiguous()))
     out.append(("phi3-qkv", *data["qkv"]))
+    out += [(label, *ab) for label, ab in data["proj"].items()]
     return out
 
 
@@ -1392,7 +1408,8 @@ def thesis_checks(torch, dev, timer, data):
     from repro_torch.kernels import _geometry as geo
     from repro_torch.kernels import conv2d, matmul, sparse_conv2d
     from repro_torch.kernels.conv2d import conv2d_plain, uses_scratch
-    from repro_torch.kernels.matmul import matmul_plain, staging_route
+    from repro_torch.kernels.matmul import (launch_plan, matmul_plain,
+                                            staging_route)
     from repro_torch.kernels.matmul import uses_scratch as mm_scratch
     from repro_torch.kernels.sparse_conv import (analyze_weights,
                                                  sparse_conv_plain)
@@ -1523,6 +1540,30 @@ def thesis_checks(torch, dev, timer, data):
               f"{tile.bn_pad}, ks {tile.ks}, {tile.stages} stages, staging "
               f"A:{ra} B:{rb}", peak, launched,
               1 if mm_scratch(order, False) else k_ // block["k"])
+    # the tail split at the GEMMs' rank-0 blocks, m and n tiles fastest:
+    # two calls bit-identical (its parts add in a fixed order)
+    for label in ("phi3-qkv", "phi3-down"):
+        _, a32, b32 = gemms[label]
+        a, b = a32.to(bf16), b32.to(bf16)
+        m, k_ = a.shape
+        n = b.shape[1]
+        block = tuner.tune_matmul(m, n, k_, elem_bytes=2,
+                                  top_k=1)[0][0].block_dict()
+        plan = launch_plan(a, m, n, k_, block["m"], block["n"], block["k"],
+                           k_, False)
+        for order in (("m", "n", "k"), ("n", "m", "k")):
+            got, launched = counted(lambda: matmul(
+                a, b, block=block, grid_order=order), matmul)
+            again = matmul(a, b, block=block, grid_order=order)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"matmul {label} {order}: two calls differ")
+            want, peak = matmul_plain(a, b, block=block, grid_order=order,
+                                      with_peak=True)
+            check("matmul", got, want,
+                  f"split {label} {''.join(order)} {block} grid "
+                  f"{plan.grid}, split {plan.tail_tiles}x{plan.splits}, "
+                  f"bit-identical", peak, launched, 1)
     for name, block, order in (
             ("conv-final", {"oc": 40, "ic": 64, "y": 13, "x": 13},
              ("oc", "y", "x", "ic")),
@@ -2320,6 +2361,16 @@ def main():
                             **WIDE_INSTANCES}.items():
         phase("ptxas", kernel=kernel, **ptxas_stats(_build.build_log,
                                                      pattern))
+    # ptxas serializes a body's wgmmas where it cannot keep them in
+    # flight (flash's D 256 at two warpgroups): the matmul body's
+    # must all stay asynchronous
+    serialized = re.findall(r"wgmma\.mma_async instructions are serialized"
+                            r"[^\n]*'([^']*matmul_mma_kernel[^']*)'",
+                            _build.build_log)
+    phase("serialized_wgmma", body="matmul_mma_kernel",
+          instances=len(serialized))
+    if serialized:
+        fail(f"ptxas serialized the wgmmas of {serialized[0]}")
     for body, c in sass_counts(_build.lib_path).items():
         phase("sass", body=body, functions=c["functions"],
               hgmma=c["HGMMA"], hmma=c["HMMA"], ffma=c["FFMA"],

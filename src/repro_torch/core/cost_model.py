@@ -28,20 +28,22 @@ is the port's own:
     is slower, plus its staging: the conv's cp.async units
     (``CHUNK_CYCLES`` each) and channels-last units (``UNIT_CYCLES``)
     of the operands a step streams, ``STEP_CYCLES`` a step and
-    ``EPI_CYCLES`` a 32-byte output sector, and the matmul's register-route
-    operands (a warp instruction per 32 elements loaded and stored, and
-    one round trip per 8 loads of each producer thread, which nothing
-    hides),
-    TMA stages at the L2-to-SM rate.  A ring stage's round trip
-    (``RING_LATENCY_S``) is hidden over the matmul's stages - 1 chunks
-    in flight, a conv step's (``LOAD_LATENCY_S``) over its ring's stages
-    - 1 steps, and every first stage waits for it.  A conv block walks
-    the layout's tiles: the operand they share (the weights, or the halo
+    ``EPI_CYCLES`` a 32-byte output sector.  A conv step's round trip
+    (``LOAD_LATENCY_S``) is hidden over its ring's stages - 1 steps,
+    and every first stage waits for it.  A conv block walks the
+    layout's tiles: the operand they share (the weights, or the halo
     when oc is the last output axis) is staged once, in the walk's first
-    steps, and only the other streams.  Launches run in whole
-    waves of SMs x resident blocks plus a tail; blocks resident together
-    share an SM's throughput and overlap their latency.  The constants
-    are fitted to ``launch/calibrate_thesis.py``'s timings.
+    steps, and only the other streams.  Launches run in whole waves of
+    SMs x resident blocks plus a tail; blocks resident together share
+    an SM's throughput and overlap their latency.  The persistent
+    matmul body (``_matmul_mma_seconds``) is timed as the walk of its
+    most loaded block under ``_geometry.matmul_plan``: a ring chunk
+    takes the longest of its wgmmas, its shared-memory reads and the
+    bytes its SM's ring receives, or a stage's round trip over the
+    stages its consumers do not hold, or the producer's register-route
+    fills; each tile adds its epilogue and each split part its partial
+    and ticket (``MatmulBodyConsts``).  The constants are fitted to
+    ``launch/calibrate_thesis.py``'s timings.
     The block-sparse conv runs the dense conv's body over the expected
     nonzero channel blocks of each oc block (block density x ic blocks),
     at the dense model's pixel tile for its skip block
@@ -110,8 +112,10 @@ Blocks resident on an SM come from threads and shared memory, as for the
 thesis bodies.  ``launch/calibrate_thesis.py --score`` fits each
 family's three constants by least squares on timed candidates.
 
-Its version string is its own (``h100-6`` times the redesigned bf16
-conv body: cp.async ring, walks with a resident operand; ``h100-5``
+Its version string is its own (``h100-7`` times the persistent bf16
+matmul body: its walk, tail split and epilogue; ``h100-6`` the
+redesigned bf16 conv body: cp.async ring, walks with a resident operand;
+``h100-5``
 adds the second bodies of flash attention and of the decode;
 ``h100-4`` the serving kernels; ``h100-3`` timed the thesis kernels
 before that, ``h100-2`` the block-sparse conv on the CUDA cores in both
@@ -136,7 +140,7 @@ from repro_torch.kernels import _geometry as geo
 
 # Bump whenever a change below alters predicted costs: the registry keys
 # cached rankings on it, so stale predictions self-invalidate.
-COST_MODEL_VERSION = "h100-6"
+COST_MODEL_VERSION = "h100-7"
 
 # Cost-model queries in this process, one per candidate scored: a warm
 # registry hit performs zero (asserted in tests/test_torch_thesis.py).
@@ -188,10 +192,21 @@ class ConvBodyConsts:
                    LOAD_LATENCY_S)
 
 
-# The matmul body's:
-FILL_LATENCY_S = 1.0e-6   # round trip of a matmul register fill
-RING_LATENCY_S = 1.5e-6   # round trip of a matmul ring stage (TMA or
-#                           register fill, mbarrier, release)
+# The persistent bf16 matmul body's seven (``MatmulBodyConsts``), from the
+# coordinate search of ``calibrate_thesis --score`` on its 128 matmul
+# lines (NVIDIA H100 80GB HBM3, 700 W; PERF.md):
+MM_MMA_EFF = 0.6854       # share of the tensor-core peak a ring chunk's
+#                           wgmmas reach
+MM_CHUNK_S = 2.399e-7     # a chunk's fixed cost to its consumers (the
+#                           wait, the fence, the issue, the release)
+MM_SM_IN_BW = 1.123e11    # bytes/s one SM's ring receives (TMA or the
+#                           producer's fills)
+MM_RING_LATENCY_S = 2.074e-6  # round trip of a ring stage, hidden over
+#                           the stages the consumers do not hold (stages
+#                           - 2)
+MM_TILE_S = 8.078e-7      # a tile's epilogue (its stores)
+MM_PART_S = 2.769e-6      # a split part's partial, fence and ticket
+MM_FILL_LATENCY_S = 1.714e-6  # round trip of a register-route fill batch
 # The block-sparse conv: a call's fixed time beyond its launch (both
 # bodies; least squares on the bf16 tensor-core body's 120 sparse_conv
 # lines before its redesign, kept for the float32 body)
@@ -276,8 +291,30 @@ class H100Spec:
     nvlink_bw: float = 450e9          # bytes/s a direction, a card
     nvlink_domain: int = 8            # cards one NVLink domain joins
     net_bw: float = 50e9              # bytes/s a direction, a card
-    # the bf16 conv body's constants; None: the module's fitted ones
+    # the bf16 conv and matmul bodies' constants; None: the module's
+    # fitted ones
     conv_body: Optional[ConvBodyConsts] = None
+    mm_body: Optional["MatmulBodyConsts"] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class MatmulBodyConsts:
+    """The persistent bf16 matmul body's seven constants as one value, as
+    ``ConvBodyConsts`` for the conv: a spec whose ``mm_body`` is None
+    times the body with the module's constants (:meth:`fitted`)."""
+    mma_eff: float
+    chunk_s: float
+    sm_in_bw: float
+    ring_latency_s: float
+    tile_s: float
+    part_s: float
+    fill_latency_s: float
+
+    @classmethod
+    def fitted(cls) -> "MatmulBodyConsts":
+        """The module's constants."""
+        return cls(MM_MMA_EFF, MM_CHUNK_S, MM_SM_IN_BW, MM_RING_LATENCY_S,
+                   MM_TILE_S, MM_PART_S, MM_FILL_LATENCY_S)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -575,53 +612,67 @@ def _conv_mma_seconds(layer: ConvLayer, by, bx, boc, bic, spec: H100Spec,
 def _matmul_mma_seconds(m: int, n: int, k: int, bm: int, bn: int, bk: int,
                         resident: bool, spec: H100Spec):
     """(seconds of the scratch launch, of all the read-modify-write
-    launches, smem bytes, feasible) of the bf16 wgmma body for one
-    block (``_geometry.matmul_mma_tile``)."""
+    launches, smem bytes, feasible) of the persistent bf16 wgmma body for
+    one block (``_geometry.matmul_mma_tile``), less the launches
+    themselves.  A ring chunk on an SM takes the
+    longest of its wgmmas (at ``mma_eff`` of the peak), its operand reads
+    from shared memory and the bytes its ring receives at ``sm_in_bw``
+    (blocks resident together share all three) plus ``chunk_s``, or a
+    stage's round trip
+    over the stages the consumers do not hold, and the producer's
+    register-route fills; a launch is the walk of its most loaded block
+    (``_geometry.matmul_plan`` at MMA_SMS): its whole tiles, an epilogue
+    each (``tile_s`` and the tile's bytes out), then its parts of split
+    tiles (``part_s`` and the partial's bytes each), and the last part's
+    read of every partial."""
     t = geo.matmul_mma_tile(bm, bn, bk, k, resident)
     if t.error is not None:
         return 0.0, 0.0, float(t.smem), False
+    c = spec.mm_body or MatmulBodyConsts.fitted()
     clk = _clock_hz(spec)
     wg = t.bm_pad // 64
     a_tma, b_tma = geo.matmul_mma_route(k, n)
-    tiles = (m // bm) * (n // bn)
-    # one ring chunk: the padded wgmma work against its operand reads
-    # from shared memory, the producer's register-route loads and stores
-    # (a warp instruction per 32 elements each), TMA bytes at the L2-to-SM
-    # rate
+    per_sm = geo.matmul_blocks_per_sm(t)
     flop = t.bm_pad * t.bn_pad * t.ks * 2
     smem_rd = (t.ks // 16) * wg * (64 * 16 * 2 + 16 * t.bn_pad * 2)
     a_el, b_el = t.bm_pad * t.ks, 0 if resident else t.bn_pad * t.ks
     regs_el = (0 if a_tma else a_el) + (0 if b_tma else b_el)
-    tma_bytes = 2 * ((a_el if a_tma else 0) + (b_el if b_tma else 0))
-    l2_clk = spec.l2_bw / spec.sms / clk
-    chunk_cyc = max(flop / (spec.tc_peak_flops / spec.sms / clk),
-                    smem_rd / spec.smem_read_bytes,
-                    regs_el / 16, tma_bytes / l2_clk)
-    # the ring hides a stage's round trip over stages - 1 chunks, but a
-    # register fill is the producer's own sequence of round trips (128
+    thr = per_sm * max(flop / (spec.tc_peak_flops / spec.sms) / c.mma_eff,
+                       smem_rd / spec.smem_read_bytes / clk,
+                       2 * (a_el + b_el) / c.sm_in_bw) + c.chunk_s
+    # a register fill is the producer's own sequence of round trips (128
     # threads, 8 loads in flight each), which no other stage hides
-    fill_trips = -(-regs_el // (128 * 8))
-    chunk_lat = max(RING_LATENCY_S / max(1, t.stages - 1),
-                    fill_trips * FILL_LATENCY_S)
+    fill = regs_el / 16 / clk + -(-regs_el // (128 * 8)) * c.fill_latency_s
+    chunk_s = max(thr, c.ring_latency_s / max(1, t.stages - 2), fill)
+    tile_bytes = bm * bn * 2
+    partial_s = per_sm * t.bm_pad * t.bn_pad * 4 / c.sm_in_bw
     panel_s = 0.0
     if resident:
         panel_el = t.bn_pad * -(-k // 64) * 64
-        panel_s = (RING_LATENCY_S + 2 * panel_el / l2_clk / clk
-                   if b_tma else -(-panel_el // (128 * 8))
-                   * FILL_LATENCY_S + panel_el / 16 / clk)
-    # registers a thread, from ptxas: 60 at BN 16, 72-80 at 64, 95 at
-    # 128, 157-159 at 256
-    regs = 56 + 0.4 * t.bn_pad
-    occ = _resident_blocks(np.array([t.threads]), np.array([t.smem]), regs,
-                           spec)[0]
+        panel_s = (c.ring_latency_s + 2 * panel_el / c.sm_in_bw if b_tma
+                   else -(-panel_el // (128 * 8)) * c.fill_latency_s
+                   + panel_el / 16 / clk)
 
-    def launch(count: int) -> float:
-        chunks = -(-count // t.ks)
-        thr = chunks * chunk_cyc / clk + panel_s
-        lat = RING_LATENCY_S + chunks * chunk_lat + panel_s
-        return float(_wave_seconds(tiles, occ, thr, lat, spec))
+    def launch(count: int, accumulate: bool) -> float:
+        p = geo.matmul_plan(m, n, k, bm, bn, bk, k_count=count,
+                            resident_rhs=resident)
+        if p.error is not None:
+            return INFEASIBLE_S
+        epi = c.tile_s + per_sm * tile_bytes * (2 if accumulate else 1) \
+            / c.sm_in_bw
+        whole = -(-p.full_tiles // p.grid)
+        s = c.ring_latency_s + whole * (p.chunks * chunk_s + epi)
+        if p.splits > 1:
+            parts = -(-(p.tail_tiles * p.splits) // p.grid)
+            part_chunks = -(-p.chunks // p.splits)
+            s += (parts * (part_chunks * chunk_s + c.part_s + partial_s)
+                  + p.splits * partial_s + epi)
+        if resident:      # a column's panel once, as the walk meets it
+            s += (-(-whole // (m // bm)) + 1) * panel_s
+        return s
 
-    return launch(k), (k // bk) * launch(bk), float(t.smem), True
+    return (launch(k, False), (k // bk) * launch(bk, True), float(t.smem),
+            True)
 
 
 def _conv_batch(layer: ConvLayer, orders, blocks, spec: H100Spec,
@@ -762,7 +813,8 @@ def matmul_schedule_cost_batch(m: int, n: int, k: int,
     scratch = _scratch_orders(orders, "k", ("m", "n"))
     smem = np.zeros((n_b, 2))
     ok = np.zeros((n_b, 2), dtype=bool)
-    if geo.tensor_cores(elem_bytes):      # the wgmma body: [O, B, 2]
+    mma = geo.tensor_cores(elem_bytes)
+    if mma:                   # the wgmma body: [O, B, 2]
         t_scr = np.zeros((n_b, 2))
         t_rmw = np.zeros((n_b, 2))
         for i in range(n_b):
@@ -818,13 +870,16 @@ def matmul_schedule_cost_batch(m: int, n: int, k: int,
                   + np.where(ok, 0.0, INFEASIBLE_S)[None, :, :])
     shape = (n_o, n_b, 2)
     bc = lambda a: np.broadcast_to(a, shape)  # noqa: E731
+    # the wgmma body's ring traffic from L2 is in its compute term (the
+    # bytes an SM's ring receives); the CUDA-core body's at the L2 rate
+    memory_s = (np.broadcast_to(dram / spec.hbm_bw, shape) if mma
+                else np.maximum(dram / spec.hbm_bw, staged / spec.l2_bw))
     return BatchKernelCost(
         flops=bc(np.float64(2.0 * m * n * k)), hbm_bytes=hbm,
         dram_bytes=bc(dram), staged_bytes=staged * 1.0,
         smem_peak=bc(smem), grid_steps=bc(grid_steps[:, None]),
         launches=launches, compute_s=bc(compute_s),
-        memory_s=np.maximum(dram / spec.hbm_bw, staged / spec.l2_bw),
-        overhead_s=overhead_s)
+        memory_s=memory_s, overhead_s=overhead_s)
 
 
 def sparse_channel_waves(layer: ConvLayer,
@@ -1116,7 +1171,7 @@ __all__ = ["COST_MODEL_VERSION", "EVAL_COUNTS", "H100Spec", "KernelCost",
            "LOKI_MODEL_VERSION", "CacheLevel", "MachineModel", "HIERARCHIES",
            "CacheSimResult", "simulate", "sweep_permutations",
            "BatchSimResult", "simulate_batch", "reset_eval_counts",
-           "LOAD_LATENCY_S", "FILL_LATENCY_S", "RING_LATENCY_S",
+           "LOAD_LATENCY_S", "MatmulBodyConsts",
            "SPARSE_CALL_S", "SPARSE_CHANNEL_S", "STEP_CYCLES", "UNIT_CYCLES",
            "CHUNK_CYCLES", "EPI_CYCLES", "ConvBodyConsts",
            "BatchKernelCost", "conv_schedule_cost",

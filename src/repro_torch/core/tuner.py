@@ -404,6 +404,12 @@ def tune_matmul(m: int, n: int, k: int, spec: cm.H100Spec = cm.H100Spec(),
     """Rank matmul schedules: 6 grid orders x blocks x resident RHS, with
     one ``matmul_schedule_cost_batch`` call."""
     orders = list(itertools.permutations(("m", "n", "k")))
+    if geo.tensor_cores(elem_bytes):
+        # among schedules the model times alike (it does not see the L2),
+        # m tiles fastest first: the tiles in flight then share B's
+        # panels, which n fastest re-reads from device memory once B
+        # outgrows the L2 (QKV 0.085 against 0.094 ms on the card)
+        orders.sort(key=lambda o: o.index("m") < o.index("n"))
     blocks = matmul_blocks(m, n, k, elem_bytes)
     batch = cm.matmul_schedule_cost_batch(m, n, k, blocks, orders, spec,
                                           elem_bytes)

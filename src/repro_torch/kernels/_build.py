@@ -76,9 +76,12 @@ SIGNATURES = {
     # a, b, c, M, N, K, bm, bn, bk, mi, mj, m_outer, k_begin, k_count,
     # accumulate, resident, stream (float32)
     "matmul_fwd": [_P, _P, _P] + [_I] * 13 + [_P],
-    # a, b, c, M, N, K, bm, bn, bk, bn_pad, stages, m_outer, k_begin,
-    # k_count, accumulate, resident, a_tma, b_tma, stream (bf16)
-    "matmul_mma_fwd": [_P, _P, _P] + [_I] * 15 + [_P],
+    # a, b, c, ws, tickets, M, N, K, bm, bn, bk, bn_pad, stages, m_outer,
+    # k_begin, k_count, accumulate, resident, a_tma, b_tma, grid,
+    # full_tiles, tail_tiles, splits, stream (bf16)
+    "matmul_mma_fwd": [_P] * 5 + [_I] * 19 + [_P],
+    # bm, bn_pad, smem, out (int): the bf16 body's resident blocks
+    "matmul_mma_resident": [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()

@@ -78,11 +78,23 @@ SMEM_RESERVED = 1024
 
 # bf16 matmul (wgmma): 64 rows a consumer warpgroup (one or two), the
 # wgmma width BN from MMA_BN, a stage depth of 16, 32 or 64 k elements,
-# 2-4 ring stages, a producer warpgroup.
+# 2-8 ring stages, a producer warpgroup; a persistent grid of the blocks
+# the card holds at once, each walking tiles, the last partial wave's
+# tiles split along k in up to MMA_MAX_SPLITS parts (``matmul_plan``).
 MMA_BN = (16, 32, 64, 96, 128, 192, 256)
-MMA_MAX_STAGES = 4
+MMA_MAX_STAGES = 8
 MMA_MIN_STAGES = 2
-MMA_BARRIER_BYTES = (2 * MMA_MAX_STAGES + 1) * 8
+MMA_BARRIER_BYTES = 256
+MMA_MAX_SPLITS = 4
+# k values one part of a unit sums on the tensor cores: their f32
+# accumulation over 8192 (512 wgmma k-steps into one accumulator) drifts
+# past 2 bf16 ulps of values near zero at phi3's down projection, as
+# cuBLAS's does (launch/matmul_timeline.py --precision), so a longer k
+# is split and its parts added in IEEE f32
+MMA_PART_K = 4096
+# an H100 SXM's SMs: the cost model's assumption (the wrapper asks the
+# card how many blocks it holds)
+MMA_SMS = 132
 
 # Block-sparse conv, float32: the spatial tile is the port's own choice
 # (the Pallas kernel kept the whole image in VMEM): up to 8 x 16 pixels,
@@ -877,11 +889,12 @@ def decode_plan(b: int, hq: int, hkv: int, d: int, limit: int,
 @dataclasses.dataclass(frozen=True)
 class MatmulMmaTile:
     """How the bf16 wgmma matmul lays out one (bm, bn, bk) tile
-    (``csrc/matmul.cu``, matmul_mma_kernel)."""
+    (``csrc/matmul.cu``, matmul_mma_kernel; ``mma_smem`` there computes
+    the same bytes)."""
     bm_pad: int          # 64 a consumer warpgroup (0: bm too large)
     bn_pad: int          # the wgmma width (0: bn too large)
     ks: int              # ring stage depth in k: 16, 32 or 64
-    stages: int          # ring stages that fit, at most 4
+    stages: int          # ring stages that fit, at most 8
     smem: int            # bytes: ring (+ resident B panel) + barriers
     resident: bool
 
@@ -909,8 +922,9 @@ def matmul_mma_tile(bm: int, bn: int, bk: int, k: int,
     """Layout of a bf16 matmul tile: bm padded to 64 or 128 rows, bn to
     the next wgmma width of MMA_BN, the stage depth ks from bk (16, 32,
     64), as many ring stages of A [bm_pad, ks] and B [ks, bn_pad] (1024-
-    byte aligned) as fit up to 4; with ``resident_rhs`` the [k, bn_pad]
-    B panel (k rounded up to 64) sits beside a ring of A only."""
+    byte aligned) as fit up to 8 (and no more than k's chunks, at least
+    2); with ``resident_rhs`` the [k, bn_pad] B panel (k rounded up to
+    64) sits beside a ring of A only."""
     bm_pad = 64 if bm <= 64 else 128 if bm <= 128 else 0
     bn_pad = next((w for w in MMA_BN if w >= bn), 0)
     ks = 16 if bk <= 16 else 32 if bk <= 32 else 64
@@ -922,11 +936,149 @@ def matmul_mma_tile(bm: int, bn: int, bk: int, k: int,
     panel_rows = _round_up(k, 64) if resident_rhs else 0
     panel = _round_up(bn_any * panel_rows * 2, 1024)
     free = SMEM_BYTES - 1024 - panel - MMA_BARRIER_BYTES
-    stages = min(MMA_MAX_STAGES, max(0, free // (a_bytes + b_bytes)))
+    stages = min(MMA_MAX_STAGES, max(0, free // (a_bytes + b_bytes)),
+                 max(MMA_MIN_STAGES, -(-k // ks)))   # no idle stage
     if resident_rhs and panel_rows * span // 16 > 16383:
         stages = 0        # the descriptor's 14-bit atom stride
     smem = 1024 + stages * (a_bytes + b_bytes) + panel + MMA_BARRIER_BYTES
     return MatmulMmaTile(bm_pad, bn_pad, ks, stages, smem, resident_rhs)
+
+
+@dataclasses.dataclass(frozen=True)
+class MatmulPlan:
+    """How one launch of the bf16 matmul covers its tiles
+    (``matmul_plan``).  The grid is ``grid`` blocks, each walking units
+    (every grid-th, or with a resident RHS a contiguous run); a unit is
+    a tile or a part of one: the first ``full_tiles`` tiles sum the
+    pass's whole k range, the last ``tail_tiles`` are split into
+    ``splits`` parts of its ``chunks`` k chunks each."""
+    grid: int
+    tiles: int
+    full_tiles: int
+    tail_tiles: int
+    splits: int
+    chunks: int
+    resident: bool
+    tile_floats: int      # f32 values of a tile's partial (BM x BN)
+    error: Optional[str] = None
+
+    @property
+    def units(self) -> int:
+        """Units of work the blocks walk."""
+        return self.full_tiles + self.tail_tiles * self.splits
+
+    @property
+    def tickets(self) -> int:
+        """Ticket counters of the split tiles, one a tile."""
+        return self.tail_tiles if self.splits > 1 else 0
+
+    @property
+    def workspace_floats(self) -> int:
+        """f32 partials of the split tiles: one a part."""
+        return self.tickets * self.splits * self.tile_floats
+
+    def split_range(self, i: int) -> Tuple[int, int]:
+        """The k chunks [c0, c1) of part ``i`` of a split tile."""
+        return (i * self.chunks // self.splits,
+                (i + 1) * self.chunks // self.splits)
+
+    def walk(self, b: int) -> range:
+        """The units block ``b`` walks, in order (``walk_of`` in the
+        source)."""
+        if self.resident:
+            q, rem = divmod(self.units, self.grid)
+            first = b * q + min(b, rem)
+            return range(first, first + q + (b < rem))
+        return range(b, self.units, self.grid)
+
+    def unit(self, u: int) -> Tuple[int, int, int, int]:
+        """(tile, first chunk, end chunk, part or -1) of unit ``u``
+        (``unit_at`` in the source)."""
+        if u < self.full_tiles:
+            return u, 0, self.chunks, -1
+        v = u - self.full_tiles
+        part = v % self.splits
+        return (self.full_tiles + v // self.splits,
+                *self.split_range(part), part)
+
+
+# registers a thread of the bf16 matmul body at one consumer warpgroup,
+# by wgmma width (ptxas, sm_90a; at 16 and 32 the launch bounds hold it
+# to three blocks an SM); two warpgroups launch at 168, which fills an SM
+MMA_WG1_REGS = {16: 80, 32: 80, 64: 142, 96: 160, 128: 172, 192: 204,
+                256: 236}
+
+
+def matmul_blocks_per_sm(tile: MatmulMmaTile) -> int:
+    """Blocks of this layout an SM holds: by shared memory, threads and
+    registers."""
+    regs = 168 if tile.bm_pad > 64 else MMA_WG1_REGS[tile.bn_pad]
+    return max(1, min(SM_SMEM_BYTES // (tile.smem + SMEM_RESERVED),
+                      2048 // tile.threads,
+                      int(65536 // (tile.threads * regs))))
+
+
+def matmul_plan(m: int, n: int, k: int, bm: int, bn: int, bk: int, *,
+                k_count: Optional[int] = None, resident_rhs: bool = False,
+                resident_blocks: Optional[int] = None) -> MatmulPlan:
+    """The launch plan of one pass of the bf16 matmul (``k_count`` k
+    values, the whole k by default): the grid the blocks that can be
+    resident at once, ``resident_blocks`` (the card's count from the
+    wrapper; MMA_SMS x the blocks an SM holds when None), never more
+    than there are units; and the tail split: when the tiles do not fill
+    the last wave, its tiles' k chunks are split over the blocks it
+    would leave idle, in up to MMA_MAX_SPLITS parts of at least one
+    chunk (none with a resident RHS, whose panel holds the whole k); a
+    pass of more than MMA_PART_K k values splits every tile into parts
+    of at most that.  ``error`` says why the kernel cannot take it."""
+    tile = matmul_mma_tile(bm, bn, bk, k, resident_rhs)
+    k_count = k if k_count is None else k_count
+    chunks = -(-k_count // max(tile.ks, 1))
+    tiles = (m // bm) * (n // bn)
+    floats = max(tile.bm_pad, 64) * (tile.bn_pad or MMA_BN[-1])
+
+    def refuse(why: str) -> MatmulPlan:
+        return MatmulPlan(0, tiles, 0, 0, 1, chunks, resident_rhs, floats,
+                          why)
+
+    if tile.error is not None:
+        return refuse(tile.error)
+    if m % bm or n % bn or k % bk or k_count % bk or k_count < bk:
+        return refuse(f"blocks {bm} x {bn} x {bk} must divide m={m} n={n} "
+                      f"k={k} and the pass's {k_count}")
+    rb = (MMA_SMS * matmul_blocks_per_sm(tile) if resident_blocks is None
+          else int(resident_blocks))
+    if rb < 1:
+        return refuse(f"no block of {tile.smem} bytes fits on the card")
+    need = -(-k_count // MMA_PART_K)
+    if need > 1 and resident_rhs:
+        return refuse(f"a resident RHS sums its k in one part: k_count "
+                      f"{k_count} > {MMA_PART_K}")
+    grid = min(rb, tiles)
+    full, tail, splits = tiles, 0, 1
+    waves, rem = divmod(tiles, grid)
+    if need > 1:
+        # every tile in parts of at most MMA_PART_K k values, more where
+        # that fills idle blocks
+        splits = min(chunks, max(need, min(rb // tiles, MMA_MAX_SPLITS)))
+        full, tail = 0, tiles
+        grid = min(rb, tiles * splits)
+    elif rem and not resident_rhs:
+        splits = min(grid // rem, chunks, MMA_MAX_SPLITS)
+        if splits >= 2:
+            full, tail = tiles - rem, rem
+        else:
+            splits = 1
+    elif not rem and waves == 1 and not resident_rhs and tiles < rb:
+        # fewer tiles than resident blocks: split every tile
+        splits = min(rb // tiles, chunks, MMA_MAX_SPLITS)
+        if splits >= 2:
+            full, tail = 0, tiles
+            grid = min(rb, tiles * splits)
+        else:
+            splits = 1
+    return MatmulPlan(grid, tiles, full, tail, splits, chunks, resident_rhs,
+                      floats)
 
 
 def matmul_mma_route(k: int, n: int) -> Tuple[bool, bool]:
@@ -986,7 +1138,9 @@ __all__ = ["ScanLayout", "scan_layout", "ConvTile", "MatmulTile",
            "DecodePlan", "decode_plan", "decode_body", "dec_packed_smem",
            "dec_packed_stages",
            "flash_wgmma_tile", "flash_walk", "flash_body", "conv_tile", "matmul_tile", "conv_mma_tile",
-           "matmul_mma_tile", "flash_mma_tile", "flash_tile_error",
+           "matmul_mma_tile", "MatmulPlan", "matmul_plan",
+           "matmul_blocks_per_sm",
+           "flash_mma_tile", "flash_tile_error",
            "flash_default_tile", "conv_layout", "sparse_layout",
            "matmul_layout", "matmul_mma_route", "tensor_cores", "sparse_tile",
            "MMA_BN", "MAX_THREADS", "SMEM_BYTES", "WARP"]

@@ -3,9 +3,9 @@
 // tensor maps they read (matmul.cu, flash_wgmma.cu), cluster barriers
 // and distributed shared memory (decode_common.cuh), wgmma descriptors
 // and instructions with A from shared memory or registers and B N-major
-// or K-major, ldmatrix + mma.sync (conv_mma.cuh, flash_attention.cu,
-// decode_common.cuh) and cp.async.  Plain C interface only, like
-// common.cuh.
+// or K-major, setmaxnreg (matmul.cu), ldmatrix + mma.sync (conv_mma.cuh,
+// flash_attention.cu, decode_common.cuh) and cp.async.  Plain C
+// interface only, like common.cuh.
 #pragma once
 #include <cuda.h>   // CUtensorMap (types only: nothing links against libcuda)
 #include <cuda_runtime.h>
@@ -95,6 +95,13 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// Brings a tensor map (a __grid_constant__ parameter) into the TMA
+// unit's descriptor cache before its first copy.
+__device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n"
+               :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
 // One 3-D box (coordinates innermost first): flash_wgmma.cu maps its
@@ -218,6 +225,18 @@ __device__ __forceinline__ int ld_cluster_s32(uint32_t addr) {
   return v;
 }
 
+// ---- register rebalancing between warpgroups (sm_90a): every thread
+// of the warpgroup runs it; the block's registers must cover the new
+// counts (registers given back by `dec` are what `inc` takes)
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
 // ---- wgmma
 
 // Swizzle span in bytes (32, 64 or 128) -> the descriptor's layout type.
@@ -255,14 +274,15 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // D[64, N] += A[64, 16] . B[16, N] in f32 from bf16, A K-major and B
-// N-major (transposed) in shared memory: one warpgroup, N / 2 f32
+// N-major (transposed) in shared memory (scale_d 0: D = A . B, the
+// accumulators' old values ignored): one warpgroup, N / 2 f32
 // accumulators a thread (d[4 j + e]: row 16 warp + lane / 4 + 8 (e / 2),
 // column 8 j + 2 (lane % 4) + e % 2).
 template <int N> struct Wgmma;
 
 template <> struct Wgmma<16> {
   static __device__ __forceinline__ void run(float* d, uint64_t da,
-                                             uint64_t db) {
+                                             uint64_t db, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
@@ -271,13 +291,13 @@ template <> struct Wgmma<16> {
         :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7])
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(scale_d));
   }
 };
 
 template <> struct Wgmma<32> {
   static __device__ __forceinline__ void run(float* d, uint64_t da,
-                                             uint64_t db) {
+                                             uint64_t db, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
@@ -287,13 +307,13 @@ template <> struct Wgmma<32> {
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(scale_d));
   }
 };
 
 template <> struct Wgmma<64> {
   static __device__ __forceinline__ void run(float* d, uint64_t da,
-                                             uint64_t db) {
+                                             uint64_t db, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -307,13 +327,13 @@ template <> struct Wgmma<64> {
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(scale_d));
   }
 };
 
 template <> struct Wgmma<96> {
   static __device__ __forceinline__ void run(float* d, uint64_t da,
-                                             uint64_t db) {
+                                             uint64_t db, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
@@ -330,13 +350,13 @@ template <> struct Wgmma<96> {
         "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
         "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
         "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(scale_d));
   }
 };
 
 template <> struct Wgmma<128> {
   static __device__ __forceinline__ void run(float* d, uint64_t da,
-                                             uint64_t db) {
+                                             uint64_t db, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -357,13 +377,13 @@ template <> struct Wgmma<128> {
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(scale_d));
   }
 };
 
 template <> struct Wgmma<192> {
   static __device__ __forceinline__ void run(float* d, uint64_t da,
-                                             uint64_t db) {
+                                             uint64_t db, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
@@ -391,13 +411,13 @@ template <> struct Wgmma<192> {
         "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
         "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
         "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(scale_d));
   }
 };
 
 template <> struct Wgmma<256> {
   static __device__ __forceinline__ void run(float* d, uint64_t da,
-                                             uint64_t db) {
+                                             uint64_t db, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
@@ -433,7 +453,7 @@ template <> struct Wgmma<256> {
         "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(scale_d));
   }
 };
 

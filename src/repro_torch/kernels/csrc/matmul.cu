@@ -12,38 +12,64 @@
 //   < 2.1 MB and is bound by bytes (< 0.7 us) and, in practice, by the
 //   launch.
 //
-// bfloat16: matmul_mma_kernel, on the tensor cores (wgmma).
-//   - A block computes a bm x bn output tile padded to BM x BN: BM = 64
-//     rows a consumer warpgroup (one or two of them), BN the wgmma width
-//     in {16, 32, 64, 96, 128, 192, 256} at or above bn.  Rows and
-//     columns past bm / bn are computed from the neighbouring data and
-//     masked on store; k past the pass's range is zero-filled.
-//   - A producer warpgroup (one thread of it when both operands go by
-//     TMA) fills a ring of 2-4 shared-memory stages of A
-//     [BM, ks] (K-major) and B [ks, BN] (N-major: B stays row-major in
-//     device memory and wgmma reads it transposed), each stage completed
-//     on an mbarrier and released by the consumers on another, so k
-//     chunk i + 1 loads while chunk i multiplies.  ks, the stage depth,
-//     is the schedule's k block rounded up to 16, 32 or 64 elements (a
-//     32, 64 or 128-byte swizzle row); a deeper k block spans stages.
-//   - Staging route, a shape rule per operand: an operand whose rows are
-//     16-byte multiples (k % 8 for A, n % 8 for B) is copied by TMA
-//     (cp.async.bulk.tensor, the tensor map's box swizzled as wgmma
-//     reads it, out-of-range elements zero-filled); the others (the 1x1
-//     GEMM forms' B, rows of 169, 729 or 3025 elements) are loaded
-//     through the producer's registers into the same swizzled layout.
-//   - The schedule changes what runs as before: the output tiles are
-//     linearised into blockIdx with m or n fastest; k innermost (or a
-//     resident RHS) sums every k block in one launch and rounds once,
-//     otherwise one launch per k block reads the output tile, adds in
-//     f32 and rounds back; a resident RHS loads the block's whole
-//     [k, BN] B panel into shared memory once (k 3072 allows bn <= 32)
-//     and streams only A through the ring.
-//   What it leaves out: persistent blocks walking several tiles (so one
-//   tile's epilogue overlaps the next one's loads), thread-block
-//   clusters with TMA multicast of the shared operand, split-K across
-//   the 2.2 waves that phi3's QKV makes of 128 x 128 tiles on 132 SMs,
-//   and a TMA store epilogue.
+// bfloat16: matmul_mma_kernel (matmul_mma.cuh), a persistent wgmma
+//   GEMM.  At QKV the body before it ran two waves of one tile a block
+//   (192 tiles on 132 SMs: the second a third full) with the MMAs at
+//   half of a block's time, its waits on loads a quarter to a third and
+//   its epilogue a fifth; this one walks the tiles and splits the tail.
+//   - Tile: a bm x bn output tile padded to BM x BN: BM = 64 rows a
+//     consumer warpgroup (one or two of them), BN the wgmma width in
+//     {16, 32, 64, 96, 128, 192, 256} at or above bn.  Rows and columns
+//     past bm / bn are computed from the neighbouring data and never
+//     stored; k past the pass's range is zero-filled.
+//   - Ring: a producer warpgroup (one thread of it when both operands go
+//     by TMA) fills 2-8 shared-memory stages of A [BM, ks] (K-major) and
+//     B [ks, BN] (N-major: wgmma reads row-major B transposed), each
+//     completed on a `full` mbarrier and released by the consumers on an
+//     `empty` one.  ks is the schedule's k block rounded up to 16, 32 or
+//     64 (a 32, 64 or 128-byte swizzle row).  An operand whose rows are
+//     16-byte multiples comes by TMA, the others (the 1x1 GEMM forms' B,
+//     rows of 169, 729 or 3025 elements) through the producer's
+//     registers into the same swizzled layout.
+//   - Persistent walk: the grid is the number of blocks that can be
+//     resident at once (the occupancy query, at launch); each walks
+//     units of the output in the schedule's order (m or n tiles
+//     fastest), so the tiles in flight together are neighbours.  The
+//     ring's stage and its barriers' parities carry on from tile to
+//     tile, so the producer loads the next tile while the consumers
+//     finish this one.  At two consumer warpgroups setmaxnreg moves
+//     registers from the producer to the consumers (a 128 x 256 tile
+//     holds 128 f32 accumulators a thread).
+//   - The tail: the planner (kernels/_geometry.py, matmul_plan) splits
+//     the k range of the last partial wave's tiles (or of every tile,
+//     when there are fewer than the blocks) over the blocks that wave
+//     would leave idle, and every tile of a k longer than 4096 (the
+//     tensor cores' f32 accumulation over 8192 drifts past 2 bf16 ulps
+//     near zero).  Each part writes its f32 partial to the wrapper's
+//     workspace and takes a ticket; the part that takes the last ticket
+//     adds the partials in split order (of two parts, the other's onto
+//     its own registers; of more, all from L2), rounds once and stores,
+//     and sets the ticket back to 0 for the next launch (a captured
+//     graph replays with no memset).  No block waits on another, so
+//     correctness does not rest on the blocks being resident together;
+//     the sum's order is fixed, so two calls are bit-identical.
+//   - Epilogue: straight from the fragments, as bf16 pairs where N and
+//     bn are even, else one element at a time; a read-modify-write pass
+//     reads its C tile first.  The producer already fills the ring for
+//     the next tile while the consumers store.
+//   - Schedule: k innermost (or a resident RHS) sums every k block in one
+//     launch and rounds once; otherwise one launch per k block reads the
+//     output tile, adds in f32 and rounds back.  A resident RHS keeps
+//     the [k, BN] B panel of one n column in shared memory (k 3072
+//     allows bn <= 32): each block walks a contiguous run of tiles, m
+//     fastest, and loads the panel once per column it meets, streaming
+//     only A through the ring (no tail split).
+//   - Two flavours of the template (matmul_mma.cuh): a launch with no
+//     split and no resident RHS runs the lean one (matmul_lean.cu),
+//     compiled without those paths.
+//   MM_T_BEGIN / MM_T_MARK(k) / MM_T_END mark a consumer's phases for
+//   launch/matmul_timeline.py (which defines them and builds a scratch
+//   copy); here they compile to nothing.
 //
 // float32: matmul_kernel, on the CUDA cores in IEEE fp32 (the tensor
 //   cores only take float32 as TF32, which would break the 1e-5 float32
@@ -58,8 +84,12 @@
 //   the TPU kernel adds each block's dot into its f32 scratch.  Block
 //   order, variant and resident RHS as above (the resident panel up to
 //   227 KB).
-#include "common.cuh"
-#include "hopper.cuh"
+#include <map>
+#include <mutex>
+#include <set>
+#include <tuple>
+
+#include "matmul_mma.cuh"
 
 namespace rt {
 
@@ -204,264 +234,93 @@ cudaError_t mm_dispatch(int mi, int mj, const MatmulArgs& p, int smem,
 namespace rt {
 namespace mm {
 
-using bf16 = __nv_bfloat16;
-constexpr int kMaxStages = 4;
-constexpr int kSmemLimit = 232448;
+// The instance of a launch: the full flavour where the plan takes a
+// split or a resident RHS, the lean one otherwise.
+inline MmaKernel mma_kernel(int wg, int bn_pad, bool full) {
+  if (!full) return mma_kernel_lean(wg, bn_pad);
+#define RT_MM_CASE(W, N) \
+  if (wg == W && bn_pad == N) return matmul_mma_kernel<W, N, true>;
+  RT_MM_CASE(1, 16) RT_MM_CASE(1, 32) RT_MM_CASE(1, 64) RT_MM_CASE(1, 96)
+  RT_MM_CASE(1, 128) RT_MM_CASE(1, 192) RT_MM_CASE(1, 256)
+  RT_MM_CASE(2, 16) RT_MM_CASE(2, 32) RT_MM_CASE(2, 64) RT_MM_CASE(2, 96)
+  RT_MM_CASE(2, 128) RT_MM_CASE(2, 192) RT_MM_CASE(2, 256)
+#undef RT_MM_CASE
+  return nullptr;
+}
 
-struct MmaArgs {
-  const bf16* a;
-  const bf16* b;
-  bf16* c;
-  int M, N, K;
-  int bm, bn;            // the schedule's tile (<= BM, BN)
-  int ks;                // stage depth in k: 16, 32 or 64
-  int stages;            // ring stages, 2..4
-  int n_m, n_n;          // output-tile trips
-  int m_outer;           // 1: n tiles fastest; 0: m tiles fastest
-  int k_begin, k_count;  // the k range this launch sums
-  int accumulate;        // 1: an RMW pass after the first
-  int resident;          // 1: the whole B panel stays in shared memory
-  int a_tma, b_tma;      // staging route per operand
-  int b_span;            // B's swizzle span in bytes: 32, 64 or 128
-  int panel_rows;        // resident: K rounded up to 64
-  int a_bytes, b_bytes, panel_bytes;   // one A stage, one B stage, panel
+// Opts the instance into `smem` bytes and checks that, at two consumer
+// warpgroups, it launches with the registers setmaxnreg moves (fewer
+// would leave the consumers' request unmet).
+inline cudaError_t mma_prepare(MmaKernel fn, int wg) {
+  const void* f = reinterpret_cast<const void*>(fn);
+  cudaError_t err = hw::smem_opt_in(f, kSmemLimit);
+  if (err != cudaSuccess || wg != 2) return err;
+  static std::mutex mu;
+  static std::set<const void*> checked;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (checked.count(f)) return cudaSuccess;
+  }
+  cudaFuncAttributes at{};
+  err = cudaFuncGetAttributes(&at, f);
+  if (err != cudaSuccess) return err;
+  if (at.numRegs < kLaunchRegs) return cudaErrorInvalidConfiguration;
+  std::lock_guard<std::mutex> lock(mu);
+  checked.insert(f);
+  return cudaSuccess;
+}
+
+// Blocks of this instance at `smem` bytes that can be resident on the
+// device at once (the SMs times the blocks an SM holds), cached per
+// (instance, device, smem).
+inline cudaError_t mma_resident(MmaKernel fn, int wg, int smem, int* out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, int>, int> seen;
+  const auto key = std::make_tuple(reinterpret_cast<const void*>(fn), dev,
+                                   smem);
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    const auto it = seen.find(key);
+    if (it != seen.end()) {
+      *out = it->second;
+      return cudaSuccess;
+    }
+  }
+  err = mma_prepare(fn, wg);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, fn, 128 * (wg + 1), static_cast<size_t>(smem));
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  *out = per_sm * sms;
+  std::lock_guard<std::mutex> lock(mu);
+  seen[key] = *out;
+  return cudaSuccess;
+}
+
+// The shared-memory layout of the launch, as kernels/_geometry.py's
+// matmul_mma_tile computes it.
+struct MmaSmem {
+  int a_bytes, b_bytes, panel_rows, panel_bytes, total;
 };
 
-__host__ __device__ inline int round1024(int x) { return (x + 1023) & ~1023; }
-
-// Producer fill of one swizzled tile through registers: ROWS x COLS
-// elements of src (row stride ld) starting at (r0, c0), zero outside
-// [0, r_end) x [0, c_end).  The tile is [COLS / W][rows][W], W = span /
-// 2 elements a row of an atom, the span the widest swizzle (128, 64 or
-// 32 bytes) that divides a row of COLS elements: for A one atom (W =
-// COLS = ks), for B the wgmma width's layout.  Consecutive threads take
-// consecutive columns (coalesced along the source's rows); COLS is a
-// compile-time constant, so no division runs per element, and the loop
-// is unrolled to keep loads in flight.
-template <int COLS>
-__device__ __forceinline__ void fill_tile(unsigned char* dst,
-                                          const bf16* __restrict__ src,
-                                          int ld, int r0, int c0, int rows,
-                                          int r_end, int c_end, int pt) {
-  constexpr int span = (COLS * 2) % 128 == 0 ? 128
-                       : (COLS * 2) % 64 == 0 ? 64 : 32;
-  constexpr int w = span / 2;
-  constexpr uint32_t mask = span / 16 - 1;
-  constexpr int kBatch = 8;                   // loads in flight a thread
-  const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
-  const int total = rows * COLS;
-  for (int e0 = pt; e0 < total; e0 += 128 * kBatch) {
-    unsigned short v[kBatch];
-    uint32_t off[kBatch];
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {        // element e: row e / COLS
-      const int e = e0 + 128 * i;
-      const int r = e / COLS, c = e - r * COLS;
-      const int gr = r0 + r, gc = c0 + c;
-      v[i] = (e < total && gr < r_end && gc < c_end)
-                 ? __ldg(s + static_cast<size_t>(gr) * ld + gc)
-                 : static_cast<unsigned short>(0);
-      const int atom = c / w;
-      off[i] = hw::swizzle(static_cast<uint32_t>(
-                               atom * rows * span + r * span + (c - atom * w) * 2),
-                           mask);
-    }
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i)
-      if (e0 + 128 * i < total)
-        *reinterpret_cast<unsigned short*>(dst + off[i]) = v[i];
-  }
-}
-
-// The A stage through registers: ks (16, 32 or 64) as a constant.
-__device__ __forceinline__ void fill_a(unsigned char* dst, const MmaArgs& p,
-                                       int m0, int k0, int rows, int pt) {
-  const int k_end = p.k_begin + p.k_count;
-  switch (p.ks) {
-    case 16: fill_tile<16>(dst, p.a, p.K, m0, k0, rows, p.M, k_end, pt); break;
-    case 32: fill_tile<32>(dst, p.a, p.K, m0, k0, rows, p.M, k_end, pt); break;
-    default: fill_tile<64>(dst, p.a, p.K, m0, k0, rows, p.M, k_end, pt); break;
-  }
-}
-
-template <int WG, int BN>
-__global__ void __launch_bounds__(128 * (WG + 1), 1)
-matmul_mma_kernel(const __grid_constant__ CUtensorMap map_a,
-                  const __grid_constant__ CUtensorMap map_b,
-                  const MmaArgs p) {
-  constexpr int BM = 64 * WG;
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  unsigned char* sm = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  unsigned char* a_s = sm;                                   // ring of A
-  unsigned char* b_s = a_s + p.stages * p.a_bytes;           // ring of B or panel
-  uint64_t* bars = reinterpret_cast<uint64_t*>(
-      b_s + (p.resident ? p.panel_bytes : p.stages * p.b_bytes));
-  uint64_t* full = bars;                    // [kMaxStages]
-  uint64_t* empty = bars + kMaxStages;      // [kMaxStages]
-  uint64_t* panel = bars + 2 * kMaxStages;
-
-  const int tid = threadIdx.x;
-  const int lin = blockIdx.x;
-  const int tm = p.m_outer ? lin / p.n_n : lin % p.n_m;
-  const int tn = p.m_outer ? lin % p.n_n : lin / p.n_m;
-  const int m0 = tm * p.bm, n0 = tn * p.bn;
-  const int k_end = p.k_begin + p.k_count;
-  const int n_chunks = (p.k_count + p.ks - 1) / p.ks;
-  const int a_span = p.ks * 2;              // A's rows are one swizzle span
-
-  // with every operand on TMA one producer thread drives the ring;
-  // otherwise the whole producer warpgroup loads and arrives
-  const bool regs = !p.a_tma || !p.b_tma;
-  const int producers = regs ? 128 : 1;
-  if (tid == 0) {
-    for (int s = 0; s < kMaxStages; ++s) {
-      hw::mbar_init(&full[s], producers);
-      hw::mbar_init(&empty[s], 4 * WG);     // one lane per consumer warp
-    }
-    hw::mbar_init(panel, producers);
-    hw::mbar_init_fence();
-  }
-  __syncthreads();
-
-  if (tid >= 128 * WG) {
-    // ---------------- producer warpgroup
-    const int pt = tid - 128 * WG;
-    if (pt >= producers) return;
-    const int bw = p.b_span / 2;            // B atom width in elements
-    if (p.resident) {
-      if (p.b_tma) {
-        if (pt == 0) {
-          hw::mbar_expect_tx(panel, BN * p.panel_rows * 2);
-          for (int j = 0; j < BN / bw; ++j)
-            for (int r = 0; r < p.panel_rows; r += 64)
-              hw::tma_load_2d(b_s + j * p.panel_rows * p.b_span + r * p.b_span,
-                              &map_b, panel, n0 + j * bw, r);
-        }
-      } else {
-        fill_tile<BN>(b_s, p.b, p.N, 0, n0, p.panel_rows, p.K, p.N, pt);
-        hw::fence_proxy_async();
-      }
-      hw::mbar_arrive(panel);
-    }
-    for (int c = 0; c < n_chunks; ++c) {
-      const int s = c % p.stages, round = c / p.stages;
-      if (round > 0) hw::mbar_wait(&empty[s], (round - 1) & 1);
-      const int k0 = p.k_begin + c * p.ks;
-      unsigned char* as = a_s + s * p.a_bytes;
-      unsigned char* bs = b_s + s * p.b_bytes;
-      const bool b_ring = !p.resident;
-      if (pt == 0) {
-        const uint32_t tx = (p.a_tma ? BM * p.ks * 2 : 0) +
-                            (b_ring && p.b_tma ? BN * p.ks * 2 : 0);
-        if (tx) hw::mbar_expect_tx(&full[s], tx);
-        if (p.a_tma) hw::tma_load_2d(as, &map_a, &full[s], k0, m0);
-        if (b_ring && p.b_tma)
-          for (int j = 0; j < BN / bw; ++j)
-            hw::tma_load_2d(bs + j * p.ks * p.b_span, &map_b, &full[s],
-                            n0 + j * bw, k0);
-      }
-      if (!p.a_tma) fill_a(as, p, m0, k0, BM, pt);
-      if (b_ring && !p.b_tma)
-        fill_tile<BN>(bs, p.b, p.N, k0, n0, p.ks, k_end, p.N, pt);
-      if (!p.a_tma || (b_ring && !p.b_tma)) hw::fence_proxy_async();
-      hw::mbar_arrive(&full[s]);
-    }
-    return;
-  }
-
-  // ---------------- consumer warpgroups: rows 64 g .. 64 g + 63
-  const int g = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
-  float acc[BN / 2];
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-  const uint32_t a_layout = hw::swizzle_layout(a_span);
-  const uint32_t b_layout = hw::swizzle_layout(p.b_span);
-  const int b_rows = p.resident ? p.panel_rows : p.ks;   // rows of a B atom
-  const uint32_t b_lbo = static_cast<uint32_t>(b_rows * p.b_span / 16);
-  const uint32_t b_sbo = static_cast<uint32_t>(p.b_span / 2);
-  const uint32_t a_sbo = static_cast<uint32_t>(a_span / 2);
-  if (p.resident) hw::mbar_wait(panel, 0);
-  for (int c = 0; c < n_chunks; ++c) {
-    const int s = c % p.stages;
-    hw::mbar_wait(&full[s], (c / p.stages) & 1);
-    const uint32_t a_addr =
-        hw::smem_u32(a_s + s * p.a_bytes) + g * 64 * a_span;
-    const uint32_t b_addr =
-        p.resident ? hw::smem_u32(b_s) + c * p.ks * p.b_span
-                   : hw::smem_u32(b_s + s * p.b_bytes);
-    hw::wgmma_fence();
-    for (int kk = 0; kk < p.ks / 16; ++kk) {
-      const uint64_t da = hw::make_desc(a_addr + kk * 32, 1, a_sbo, a_layout);
-      const uint64_t db = hw::make_desc(b_addr + kk * 16 * p.b_span, b_lbo,
-                                        b_sbo, b_layout);
-      hw::Wgmma<BN>::run(acc, da, db);
-    }
-    hw::wgmma_commit();
-    if (c > 0) {
-      hw::wgmma_wait<1>();   // chunk c - 1's products are done with its stage
-      if (lane == 0) hw::mbar_arrive(&empty[(c - 1) % p.stages]);
-    }
-  }
-  hw::wgmma_wait<0>();
-  if (n_chunks > 0 && lane == 0) hw::mbar_arrive(&empty[(n_chunks - 1) % p.stages]);
-
-  // epilogue: mask the padded rows and columns; an RMW pass adds in f32
-  unsigned short* C = reinterpret_cast<unsigned short*>(p.c);
-  const int r_base = g * 64 + warp * 16 + lane / 4;
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = r_base + 8 * (e / 2);
-      const int col = 8 * j + 2 * (lane % 4) + (e % 2);
-      if (r >= p.bm || col >= p.bn) continue;
-      const size_t off = static_cast<size_t>(m0 + r) * p.N + n0 + col;
-      float v = acc[4 * j + e];
-      if (p.accumulate) v += __bfloat162float(__ushort_as_bfloat16(C[off]));
-      C[off] = __bfloat16_as_ushort(__float2bfloat16(v));
-    }
-  }
-}
-
-// A 2-D bf16 tensor map: `cols` x `rows` (row stride `ld` elements),
-// box `box_c` x `box_r`, swizzled by `span`; out-of-range boxes read 0.
-inline bool make_map(CUtensorMap* map, const void* base, int cols, int rows,
-                     int ld, int box_c, int box_r, int span) {
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_c),
-                             static_cast<cuuint32_t>(box_r)};
-  return hw::make_map_bf16(map, base, 2, dims, strides, box, span);
-}
-
-template <int WG, int BN>
-cudaError_t mma_launch(const CUtensorMap& ma, const CUtensorMap& mb,
-                       const MmaArgs& p, int smem, cudaStream_t st) {
-  const cudaError_t attr = hw::smem_opt_in(
-      reinterpret_cast<const void*>(matmul_mma_kernel<WG, BN>),
-      kSmemLimit);
-  if (attr != cudaSuccess) return attr;
-  matmul_mma_kernel<WG, BN><<<p.n_m * p.n_n, 128 * (WG + 1), smem, st>>>(
-      ma, mb, p);
-  return cudaGetLastError();
-}
-
-template <int WG>
-cudaError_t mma_dispatch_bn(int bn_pad, const CUtensorMap& ma,
-                            const CUtensorMap& mb, const MmaArgs& p, int smem,
-                            cudaStream_t st) {
-  switch (bn_pad) {
-    case 16: return mma_launch<WG, 16>(ma, mb, p, smem, st);
-    case 32: return mma_launch<WG, 32>(ma, mb, p, smem, st);
-    case 64: return mma_launch<WG, 64>(ma, mb, p, smem, st);
-    case 96: return mma_launch<WG, 96>(ma, mb, p, smem, st);
-    case 128: return mma_launch<WG, 128>(ma, mb, p, smem, st);
-    case 192: return mma_launch<WG, 192>(ma, mb, p, smem, st);
-    case 256: return mma_launch<WG, 256>(ma, mb, p, smem, st);
-    default: return cudaErrorInvalidValue;
-  }
+inline MmaSmem mma_smem(int wg, int bn_pad, int ks, int stages, int K,
+                        int resident) {
+  MmaSmem s{};
+  s.a_bytes = round1024(64 * wg * ks * 2);
+  s.b_bytes = resident ? 0 : round1024(bn_pad * ks * 2);
+  s.panel_rows = resident ? (K + 63) / 64 * 64 : 0;
+  s.panel_bytes = resident ? round1024(bn_pad * s.panel_rows * 2) : 0;
+  const long long total =
+      1024LL + static_cast<long long>(stages) * (s.a_bytes + s.b_bytes) +
+      s.panel_bytes + kBarrierBytes;
+  s.total = total > kSmemLimit ? -1 : static_cast<int>(total);
+  return s;
 }
 
 }  // namespace mm
@@ -487,16 +346,34 @@ extern "C" int matmul_fwd(const void* a, const void* b, void* c, int M,
       mi, mj, p, static_cast<int>(smem), static_cast<cudaStream_t>(stream)));
 }
 
+
+// Resident blocks of the bf16 instance at `smem` bytes, into *out (the
+// planner's grid limit).
+extern "C" int matmul_mma_resident(int bm, int bn_pad, int smem, void* out) {
+  using namespace rt::mm;
+  const int wg = bm <= 64 ? 1 : 2;
+  // the full flavour's count: a launch of the lean one (no more
+  // registers) takes the same grid
+  const MmaKernel fn = mma_kernel(wg, bn_pad, true);
+  if (fn == nullptr || bm < 1 || bm > 128 || out == nullptr || smem < 1 ||
+      smem > kSmemLimit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(mma_resident(fn, wg, smem, static_cast<int*>(out)));
+}
+
 // The bf16 body.  bn_pad and stages are the wrapper's layout
 // (kernels/_geometry.py, matmul_mma_tile); a_tma / b_tma its staging
 // route, refused here unless the operand's rows and base are 16-byte
-// aligned.
-extern "C" int matmul_mma_fwd(const void* a, const void* b, void* c, int M,
-                              int N, int K, int bm, int bn, int bk,
-                              int bn_pad, int stages, int m_outer,
-                              int k_begin, int k_count, int accumulate,
-                              int resident, int a_tma, int b_tma,
-                              void* stream) {
+// aligned; grid .. splits its plan (matmul_plan), refused unless it
+// covers the tiles and fits the resident blocks; ws / tickets the tail's
+// partials and tickets (zeroed tickets, left zeroed).
+extern "C" int matmul_mma_fwd(const void* a, const void* b, void* c,
+                              void* ws, void* tickets, int M, int N, int K,
+                              int bm, int bn, int bk, int bn_pad, int stages,
+                              int m_outer, int k_begin, int k_count,
+                              int accumulate, int resident, int a_tma,
+                              int b_tma, int grid, int full_tiles,
+                              int tail_tiles, int splits, void* stream) {
   using namespace rt::mm;
   if (M < 1 || N < 1 || K < 1 || bm < 1 || bn < 1 || bk < 1 || M % bm ||
       N % bn || K % bk || bm > 128 || bn > bn_pad || bn_pad > 256 ||
@@ -511,37 +388,53 @@ extern "C" int matmul_mma_fwd(const void* a, const void* b, void* c, int M,
   const int ks = bk <= 16 ? 16 : bk <= 32 ? 32 : 64;
   const int b_span = (bn_pad * 2) % 128 == 0 ? 128
                      : (bn_pad * 2) % 64 == 0 ? 64 : 32;
+  const bool full = splits > 1 || resident;
+  const MmaKernel fn = mma_kernel(wg, bn_pad, full);
+  const MmaKernel planned = mma_kernel(wg, bn_pad, true);
+  const MmaSmem sm = mma_smem(wg, bn_pad, ks, stages, K, resident);
+  const long long tiles = static_cast<long long>(M / bm) * (N / bn);
+  // the resident panel's atom stride must fit the descriptor's 14 bits
+  if (fn == nullptr || sm.total < 0 || tiles > (1LL << 30) ||
+      (resident && sm.panel_rows * b_span / 16 > 16383))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_m = M / bm, n_n = N / bn;
+  const int chunks = (k_count + ks - 1) / ks;
+  const long long tail_parts = static_cast<long long>(tail_tiles) * splits;
+  if (grid < 1 || full_tiles < 0 || tail_tiles < 0 || splits < 1 ||
+      splits > chunks || full_tiles + tail_tiles != tiles ||
+      (splits == 1) != (tail_tiles == 0) || (resident && splits > 1) ||
+      (splits > 1 && (ws == nullptr || tickets == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int resident_blocks = 0;
+  cudaError_t err = mma_resident(planned, wg, sm.total, &resident_blocks);
+  if (err == cudaSuccess && !full) err = mma_prepare(fn, wg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (grid > resident_blocks) return static_cast<int>(cudaErrorInvalidValue);
   MmaArgs p{};
   p.a = static_cast<const bf16*>(a);
   p.b = static_cast<const bf16*>(b);
   p.c = static_cast<bf16*>(c);
+  p.ws = static_cast<float*>(ws);
+  p.tickets = static_cast<int*>(tickets);
   p.M = M; p.N = N; p.K = K; p.bm = bm; p.bn = bn; p.ks = ks;
-  p.stages = stages; p.n_m = M / bm; p.n_n = N / bn; p.m_outer = m_outer;
-  p.k_begin = k_begin; p.k_count = k_count; p.accumulate = accumulate;
-  p.resident = resident; p.a_tma = a_tma; p.b_tma = b_tma;
-  p.b_span = b_span;
-  p.panel_rows = resident ? (K + 63) / 64 * 64 : 0;
-  p.a_bytes = round1024(64 * wg * ks * 2);
-  p.b_bytes = resident ? 0 : round1024(bn_pad * ks * 2);
-  p.panel_bytes = resident ? round1024(bn_pad * p.panel_rows * 2) : 0;
-  const long long smem = 1024LL + static_cast<long long>(stages) *
-                         (p.a_bytes + p.b_bytes) + p.panel_bytes +
-                         (2 * kMaxStages + 1) * 8;
-  const long long tiles = static_cast<long long>(M / bm) * (N / bn);
-  // the resident panel's atom stride must fit the descriptor's 14 bits
-  if (smem > kSmemLimit || tiles > 2147483647LL ||
-      (resident && p.panel_rows * b_span / 16 > 16383))
-    return static_cast<int>(cudaErrorInvalidValue);
+  p.stages = stages; p.n_m = n_m; p.n_n = n_n;
+  p.m_outer = m_outer; p.k_begin = k_begin; p.k_end = k_begin + k_count;
+  p.chunks = chunks; p.accumulate = accumulate; p.resident = resident;
+  p.a_tma = a_tma; p.b_tma = b_tma;
+  p.pairs = N % 2 == 0 && bn % 2 == 0 &&
+            reinterpret_cast<uintptr_t>(c) % 4 == 0;
+  p.b_span = b_span; p.panel_rows = sm.panel_rows;
+  p.a_bytes = sm.a_bytes; p.b_bytes = sm.b_bytes;
+  p.panel_bytes = sm.panel_bytes;
+  p.full_tiles = full_tiles;
+  p.units = full_tiles + static_cast<int>(tail_parts); p.splits = splits;
   CUtensorMap ma{}, mb{};
   if (a_tma && !make_map(&ma, a, k_begin + k_count, M, K, ks, 64 * wg, 2 * ks))
     return static_cast<int>(cudaErrorInvalidValue);
   if (b_tma && !make_map(&mb, b, N, k_begin + k_count, N, b_span / 2,
                          resident ? 64 : ks, b_span))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int s = static_cast<int>(smem);
-  const cudaError_t err =
-      wg == 1 ? mma_dispatch_bn<1>(bn_pad, ma, mb, p, s, st)
-              : mma_dispatch_bn<2>(bn_pad, ma, mb, p, s, st);
-  return static_cast<int>(err);
+  fn<<<grid, 128 * (wg + 1), sm.total, static_cast<cudaStream_t>(stream)>>>(
+      ma, mb, p);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -8,25 +8,34 @@ through the port's registry) and ``matmul_dispatched`` (the port's
 dispatch service).
 
 For CPU tensors the wrapper runs the plain version (``ref.matmul_plain``);
-for CUDA tensors it launches the kernel or raises: bf16 runs the wgmma
-body on the tensor cores (staging route per operand ``staging_route``),
-float32 the CUDA-core body in IEEE fp32 (``_geometry.matmul_layout``
-gives each one's layout).  ``matmul.launches``
-counts launches: one for k innermost or a resident RHS, one per k block
-for a read-modify-write schedule.
+for CUDA tensors it launches the kernel or raises: bf16 runs the
+persistent wgmma body on the tensor cores (staging route per operand
+``staging_route``; its launch plan, grid and tail split,
+``_geometry.matmul_plan`` at the card's resident blocks), float32 the
+CUDA-core body in IEEE fp32 (``_geometry.matmul_layout`` gives each
+one's layout).  ``matmul.launches`` counts launches: one for k innermost
+or a resident RHS, one per k block for a read-modify-write schedule.
+
+The bf16 tail split finds the last part of a tile through a ticket
+counter a tile, kept per (device, stream) and zeroed once, as the decode
+kernels keep theirs: each launch leaves them at zero again, so a CUDA
+graph replays with no memset, and counters first made inside a capture
+raise (``_scratch``).  The f32 partials come from ``torch.empty``.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import (KERNEL_DTYPES, check_same, on_cpu,
                                          require)
-from repro_torch.kernels._geometry import (matmul_layout, matmul_mma_route,
-                                             tensor_cores)
+from repro_torch.kernels._geometry import (MatmulPlan, matmul_layout,
+                                           matmul_mma_route, matmul_mma_tile,
+                                           matmul_plan, tensor_cores)
 from repro_torch.kernels.matmul.ref import (GRID_AXES, matmul_plain,
                                             matmul_ref, uses_scratch)
 
@@ -85,17 +94,28 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
         passes = [(0, k, 0)]
     else:
         passes = [(k0, bk, int(k0 > 0)) for k0 in range(0, k, bk)]
-    m_outer = int(resident_rhs or order.index("m") < order.index("n"))
     lib = _build.load()
     stream = _build.stream_handle(a.device)
-    route = staging_route(a, b)
+    if mma:
+        # n tiles fastest when m comes first in the order; a resident RHS
+        # walks each column's m tiles
+        m_outer = int(not resident_rhs
+                      and order.index("m") < order.index("n"))
+        route = staging_route(a, b)
+    else:
+        m_outer = int(resident_rhs or order.index("m") < order.index("n"))
     for k0, count, accumulate in passes:
         if mma:
+            plan = launch_plan(a, m, n, k, bm, bn, bk, count, resident_rhs)
+            ws, tickets = _scratch(plan, a.device)
             rc = lib.matmul_mma_fwd(
-                a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, bm, bn,
-                bk, tile.bn_pad, tile.stages, m_outer, k0, count, accumulate,
-                int(resident_rhs), int(route[0] == "tma"),
-                int(route[1] == "tma"), stream)
+                a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                None if ws is None else ws.data_ptr(),
+                None if tickets is None else tickets.data_ptr(), m, n, k,
+                bm, bn, bk, tile.bn_pad, tile.stages, m_outer, k0, count,
+                accumulate, int(resident_rhs), int(route[0] == "tma"),
+                int(route[1] == "tma"), plan.grid, plan.full_tiles,
+                plan.tail_tiles, plan.splits, stream)
         else:
             rc = lib.matmul_fwd(
                 a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, bm, bn,
@@ -118,6 +138,68 @@ def staging_route(a: torch.Tensor, b: torch.Tensor) -> Tuple[str, str]:
 
 
 matmul.launches = 0
+
+# (device index, raw stream) -> zeroed int32 ticket counters
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+# counters that larger ones replaced: a graph may hold their address
+_RETIRED: List[torch.Tensor] = []
+# (library, device index, bm, bn_pad, smem) -> resident blocks
+_RESIDENT: Dict[Tuple[int, int, int, int, int], int] = {}
+
+
+def resident_blocks(device: torch.device, bm: int, bn_pad: int,
+                    smem: int) -> int:
+    """Blocks of the bf16 body at ``smem`` bytes that the card holds at
+    once (the occupancy query times the SMs), asked once per (library,
+    device, instance, bytes)."""
+    lib = _build.load()
+    key = (id(lib), device.index, bm if bm <= 64 else 128, bn_pad, smem)
+    if key not in _RESIDENT:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            _build.check(lib.matmul_mma_resident(
+                bm, bn_pad, smem, ctypes.addressof(out)),
+                "matmul_mma_resident")
+        _RESIDENT[key] = out.value
+    return _RESIDENT[key]
+
+
+def launch_plan(a: torch.Tensor, m: int, n: int, k: int, bm: int, bn: int,
+                bk: int, k_count: int, resident_rhs: bool) -> MatmulPlan:
+    """The bf16 launch's plan at the card's resident blocks; raises on
+    one the kernel cannot run."""
+    tile = matmul_mma_tile(bm, bn, bk, k, resident_rhs)
+    plan = matmul_plan(
+        m, n, k, bm, bn, bk, k_count=k_count, resident_rhs=resident_rhs,
+        resident_blocks=(resident_blocks(a.device, bm, tile.bn_pad,
+                                         tile.smem)
+                         if tile.error is None else None))
+    require(plan.error is None, f"matmul: {plan.error}")
+    return plan
+
+
+def _scratch(plan: MatmulPlan, device: torch.device):
+    """(partials workspace or None, ticket counters or None) for one
+    launch: the workspace from the caching allocator (no launch), the
+    counters those of the current stream, zeroed when first made or
+    grown (never inside a CUDA graph capture; the ones they replace are
+    kept, since a graph captured earlier may still use them)."""
+    if plan.splits == 1:
+        return None, None
+    ws = torch.empty(plan.workspace_floats, dtype=torch.float32,
+                     device=device)
+    key = (device.index, _build.stream_handle(device))
+    tickets = _TICKETS.get(key)
+    if tickets is None or tickets.numel() < plan.tickets:
+        require(not torch.cuda.is_current_stream_capturing(),
+                "matmul ticket counters must exist before a CUDA graph "
+                "capture: run the call once on the capture stream first")
+        if tickets is not None:
+            _RETIRED.append(tickets)
+        tickets = torch.zeros(max(plan.tickets, 1024), dtype=torch.int32,
+                              device=device)
+        _TICKETS[key] = tickets
+    return ws, tickets
 
 
 @functools.lru_cache(maxsize=512)
@@ -166,4 +248,5 @@ def matmul_dispatched(a: torch.Tensor, b: torch.Tensor, *,
 
 __all__ = ["matmul", "matmul_tuned", "matmul_scheduled",
            "matmul_dispatched", "matmul_ref", "matmul_plain", "staging_route",
+           "launch_plan", "resident_blocks",
            "default_block", "GRID_AXES"]

@@ -12,8 +12,9 @@ predictions: the data the model's fitted constants come from
 For each Table 4.1 layer (at batch 1 and 32, the scratch order (oc, y,
 x, ic) and, for the four best predicted blocks, (y, x, oc, ic), whose
 walks keep the halo resident) and each
-GEMM shape of the thesis path (the 1x1 layers' GEMM forms and phi3-mini's
-QKV projection, k innermost), it takes the cost model's best candidates
+GEMM shape of the thesis path (the 1x1 layers' GEMM forms, m tiles
+fastest, and phi3-mini's QKV, O and down projections, m or n tiles
+fastest; k innermost), it takes the cost model's best candidates
 and an even spread of the rest of the tuner's bf16 blocks; for the
 block-sparse conv, an even spread of the tuner's skip blocks on the
 thesis' Fig 6.2 layer and the 3x3 Table 4.1 layers at block densities
@@ -33,7 +34,8 @@ line, the current constants' mean squared log error, mean log bias,
 mean rank correlation within each shape and the geometric-mean ratio
 of the model's pick to the fastest timed schedule of each shape; for
 the bf16 conv and sparse conv lines together a coordinate search of the
-conv body's five constants (``CONV_CONSTS``) and its error; for
+conv body's five constants (``CONV_CONSTS``) and its error, for the
+bf16 matmul lines one of the matmul body's seven (``MM_CONSTS``); for
 the sparse lines also the least-squares ``SPARSE_CALL_S`` (bf16: the
 tensor-core body's model has no other sparse constant) or, for lines of
 the float32 body (``"dtype": "float32"``), ``SPARSE_CALL_S`` and
@@ -63,6 +65,9 @@ CONV_ORDER = ("oc", "y", "x", "ic")
 # best predicted blocks
 CONV_HALO_ORDER = ("y", "x", "oc", "ic")
 QKV = (512, 9216, 3072)
+# phi3-mini's projections at the 512-token bucket
+PHI3_GEMMS = {"phi3-qkv": QKV, "phi3-o": (512, 3072, 3072),
+              "phi3-down": (512, 3072, 8192)}
 KINDS = ("conv2d", "matmul", "sparse_conv", "flash_attention",
          "decode_attention", "ssm_scan")
 # the serving kernels' shapes (bf16): flash (b, hq, hkv, s, d), the
@@ -141,7 +146,7 @@ def _predict_ms(rec, spec: cm.H100Spec = cm.H100Spec()) -> float:
     b = rec["block"]
     return float(cm.matmul_schedule_cost_batch(
         m, n, k, [(b["m"], b["n"], b["k"])],
-        [tuple(rec["order"])]).time_s[0, 0, 0]) * 1e3
+        [tuple(rec["order"])], spec).time_s[0, 0, 0]) * 1e3
 
 
 def _elem_bytes(rec) -> int:
@@ -176,6 +181,9 @@ def sparse_fit(recs):
 CONV_CONSTS = ("UNIT_CYCLES", "CHUNK_CYCLES", "STEP_CYCLES", "EPI_CYCLES",
                "LOAD_LATENCY_S")
 CONV_FACTORS = (0.25, 0.5, 0.7, 0.85, 1.0, 1.2, 1.4, 2.0, 4.0)
+# the matmul body's constants, in MatmulBodyConsts' order
+MM_CONSTS = ("MM_MMA_EFF", "MM_CHUNK_S", "MM_SM_IN_BW", "MM_RING_LATENCY_S",
+             "MM_TILE_S", "MM_PART_S", "MM_FILL_LATENCY_S")
 
 
 def conv_fit(recs, rounds: int = 3):
@@ -203,6 +211,30 @@ def conv_fit(recs, rounds: int = 3):
                 best, **{k: base * min(trials, key=trials.get)})
     return ({name: float(getattr(best, k))
              for name, k in zip(CONV_CONSTS, fields)}, mse(best))
+
+
+def matmul_fit(recs, rounds: int = 3):
+    """The bf16 matmul body's constants that minimise the mean squared
+    log error on ``recs``: a coordinate search as ``conv_fit``'s, each
+    trial a ``cm.MatmulBodyConsts`` in a spec of its own."""
+    meas = np.log(np.array([r["ms"] for r in recs]))
+    fields = [f.name for f in dataclasses.fields(cm.MatmulBodyConsts)]
+
+    def mse(consts: cm.MatmulBodyConsts) -> float:
+        spec = dataclasses.replace(cm.H100Spec(), mm_body=consts)
+        pred = np.log(np.array([_predict_ms(r, spec) for r in recs]))
+        return float(np.mean((pred - meas) ** 2))
+
+    best = cm.MatmulBodyConsts.fitted()
+    for _ in range(rounds):
+        for k in fields:
+            base = getattr(best, k)
+            trials = {f: mse(dataclasses.replace(best, **{k: base * f}))
+                      for f in CONV_FACTORS}
+            best = dataclasses.replace(
+                best, **{k: base * min(trials, key=trials.get)})
+    return ({name: float(getattr(best, k))
+             for name, k in zip(MM_CONSTS, fields)}, mse(best))
 
 
 def serving_fit(kind, recs):
@@ -281,6 +313,12 @@ def score(paths) -> None:
             print(f"[score] kind=conv2d+sparse_conv lines={len(conv)} "
                   f"coordinate_fit mse {err:.4f} " + " ".join(
                       f"{k}={v:.4g}" for k, v in consts.items()))
+        if kind == "matmul":
+            mm = [r for r in rs if _elem_bytes(r) == 2]
+            consts, err = matmul_fit(mm)
+            print(f"[score] kind=matmul lines={len(mm)} coordinate_fit mse "
+                  f"{err:.4f} " + " ".join(f"{k}={v:.4g}"
+                                           for k, v in consts.items()))
         if kind == "sparse_conv":
             for eb in (2, 4):
                 sub = [r for r in rs if _elem_bytes(r) == eb]
@@ -390,12 +428,12 @@ def main(argv=None) -> None:
         if "matmul" in args.kinds:
             gemms = [(name, (l.oc, l.h * l.w, l.ic))
                      for name, l in TABLE_4_1.items() if l.kh == 1]
-            gemms.append(("phi3-qkv", QKV))
+            gemms += list(PHI3_GEMMS.items())
             for label, (m, n_, k) in gemms:
                 a, b = rn((m, k)), rn((k, n_), k ** -0.5)
                 blocks = tuner.matmul_blocks(m, n_, k, 2)
-                orders = [("m", "n", "k")] + ([("n", "m", "k")]
-                                              if label == "phi3-qkv" else [])
+                orders = [("n", "m", "k")] + ([("m", "n", "k")]
+                                              if label in PHI3_GEMMS else [])
                 batch = cm.matmul_schedule_cost_batch(m, n_, k, blocks, orders)
                 for o, order in enumerate(orders):
                     t = np.where(batch.feasible[o, :, 0],

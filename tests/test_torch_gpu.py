@@ -238,6 +238,29 @@ MMA_MATMUL_CASES = [
      ("tma", "regs")),
     ((64, 40, 36), {"m": 64, "n": 40, "k": 12}, "nkm", False,
      ("regs", "tma")),
+    # phi3-mini's O and down projections (down: every unit summed in two
+    # parts of k 4096), their tiles in the planner's tail split
+    ((512, 3072, 3072), {"m": 64, "n": 192, "k": 64}, "nmk", False,
+     ("tma", "tma")),
+    ((512, 3072, 3072), {"m": 128, "n": 192, "k": 64}, "mnk", False,
+     ("tma", "tma")),
+    ((512, 3072, 8192), {"m": 128, "n": 192, "k": 64}, "nmk", False,
+     ("tma", "tma")),
+    ((512, 3072, 8192), {"m": 64, "n": 128, "k": 64}, "mnk", False,
+     ("tma", "tma")),
+    ((512, 9216, 3072), {"m": 128, "n": 192, "k": 64}, "nmk", False,
+     ("tma", "tma")),
+    # the 1x1 Table 4.1 layers' GEMM forms at their rank-0 blocks
+    ((32, 3025, 128), {"m": 32, "n": 11, "k": 64}, "nmk", False,
+     ("tma", "regs")),
+    ((128, 3025, 32), {"m": 128, "n": 25, "k": 32}, "nmk", False,
+     ("tma", "regs")),
+    ((48, 729, 384), {"m": 48, "n": 9, "k": 64}, "nmk", False,
+     ("tma", "regs")),
+    ((64, 169, 512), {"m": 64, "n": 13, "k": 64}, "nmk", False,
+     ("tma", "regs")),
+    ((1000, 169, 512), {"m": 50, "n": 13, "k": 64}, "nmk", False,
+     ("tma", "regs")),
 ]
 
 
@@ -263,6 +286,63 @@ def test_cuda_bf16_matmul_mma_edges(cuda_device, case):
     assert matmul.launches - before == (
         1 if uses_scratch(tuple(order), resident) else k // block["k"])
     assert _share_of_tol(got, want, peak) <= 1.0
+    # the tail split adds its parts in a fixed order: bit-identical
+    again = matmul(a, b, block=block, grid_order=tuple(order),
+                   resident_rhs=resident)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+# Tail splits in either order: QKV's last partial wave, down's k 8192 in
+# parts, a grid of fewer tiles than blocks (384 x 1152: 36 tiles) and O
+# at 64 x 128 x 32; two calls bit-identical.
+SPLIT_CASES = [
+    ((512, 9216, 3072), {"m": 128, "n": 192, "k": 64}),
+    ((512, 3072, 8192), {"m": 128, "n": 192, "k": 64}),
+    ((384, 1152, 1024), {"m": 64, "n": 192, "k": 64}),
+    ((512, 3072, 3072), {"m": 64, "n": 128, "k": 32}),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", ["mnk", "nmk"])
+@pytest.mark.parametrize("case", SPLIT_CASES,
+                         ids=[f"{c[0]}-{c[1]['m']}x{c[1]['n']}x{c[1]['k']}"
+                              for c in SPLIT_CASES])
+def test_cuda_bf16_matmul_tail_split(cuda_device, case, order):
+    from repro_torch.kernels.matmul import launch_plan
+    (m, n, k), block = case
+    g = torch.Generator(device=cuda_device).manual_seed(m + n + k)
+    a = torch.randn(m, k, generator=g, device=cuda_device).to(torch.bfloat16)
+    b = (torch.randn(k, n, generator=g, device=cuda_device)
+         * k ** -0.5).to(torch.bfloat16)
+    plan = launch_plan(a, m, n, k, block["m"], block["n"], block["k"], k,
+                       False)
+    assert plan.splits > 1 and plan.grid <= plan.units
+    got = matmul(a, b, block=block, grid_order=tuple(order))
+    again = matmul(a, b, block=block, grid_order=tuple(order))
+    torch.cuda.synchronize()
+    want = matmul_plain(a, b, block=block, grid_order=tuple(order))
+    assert _share_of_tol(got, want) <= 1.0
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_matmul_refused_plan_raises(cuda_device, monkeypatch):
+    """A plan the kernel refuses (more blocks than the card holds at
+    once) raises; nothing falls back to another body or torch.matmul."""
+    import dataclasses
+    from repro_torch.kernels.matmul import ops
+    real = ops.launch_plan
+    monkeypatch.setattr(ops, "launch_plan", lambda *a: dataclasses.replace(
+        real(*a), grid=10 ** 6))
+    a = torch.randn(512, 3072, device=cuda_device).to(torch.bfloat16)
+    b = torch.randn(3072, 3072, device=cuda_device).to(torch.bfloat16)
+    before = matmul.launches
+    with pytest.raises(RuntimeError, match="matmul_mma_fwd"):
+        matmul(a, b, block={"m": 128, "n": 192, "k": 64},
+               grid_order=("n", "m", "k"))
+    assert matmul.launches == before
 
 
 MMA_CONV_CASES = [

@@ -166,14 +166,19 @@ def test_every_offered_sparse_block_fits_the_layout(name, batch):
 
 @pytest.mark.parametrize("bm,bn,bk,k,resident,want", [
     # -> (bm_pad, bn_pad, ks, stages)
-    (128, 128, 64, 3072, False, (128, 128, 64, 4)),
+    (128, 128, 64, 3072, False, (128, 128, 64, 7)),
+    # stages of 48 KB: four fit
     (128, 256, 64, 3072, False, (128, 256, 64, 4)),
-    (125, 13, 16, 512, False, (128, 16, 16, 4)),
-    (125, 169, 128, 512, False, (128, 192, 64, 4)),
-    (48, 243, 48, 384, False, (64, 256, 64, 4)),
-    (64, 96, 32, 3072, False, (64, 96, 32, 4)),
+    (125, 13, 16, 512, False, (128, 16, 16, 8)),
+    (125, 169, 128, 512, False, (128, 192, 64, 5)),
+    (48, 243, 48, 384, False, (64, 256, 64, 5)),
+    (64, 96, 32, 3072, False, (64, 96, 32, 8)),
+    # two stages of A beside the 192 KB panel
     (128, 32, 3072, 3072, True, (128, 32, 64, 2)),
-    (100, 13, 32, 512, True, (128, 16, 32, 4)),
+    (100, 13, 32, 512, True, (128, 16, 32, 8)),
+    (128, 192, 64, 3072, False, (128, 192, 64, 5)),
+    # k 36 is 3 chunks of 16: no fourth stage
+    (64, 40, 12, 36, False, (64, 64, 16, 3)),
 ], ids=str)
 def test_matmul_mma_layout_pads_to_the_wgmma_shape(bm, bn, bk, k,
                                                    resident, want):
@@ -181,6 +186,14 @@ def test_matmul_mma_layout_pads_to_the_wgmma_shape(bm, bn, bk, k,
     assert (t.bm_pad, t.bn_pad, t.ks, t.stages) == want
     assert t.error is None and t.smem <= geo.SMEM_BYTES
     assert t.threads == 128 * (t.bm_pad // 64 + 1)
+    # the source's mma_smem: 1024-byte aligned ring and panel, then the
+    # barriers
+    ring = t.stages * (-(-t.bm_pad * t.ks * 2 // 1024) * 1024
+                       + (0 if resident else
+                          -(-t.bn_pad * t.ks * 2 // 1024) * 1024))
+    panel = (-(-t.bn_pad * (-(-k // 64) * 64) * 2 // 1024) * 1024
+             if resident else 0)
+    assert t.smem == 1024 + ring + panel + geo.MMA_BARRIER_BYTES
 
 
 @pytest.mark.parametrize("bm,bn,bk,k,resident,match", [
@@ -203,6 +216,147 @@ def test_matmul_mma_layout_refuses_what_does_not_fit(bm, bn, bk, k,
 ], ids=str)
 def test_matmul_staging_route_is_a_shape_rule(k, n, want):
     assert geo.matmul_mma_route(k, n) == want
+
+
+# ------------------------------------------------ the bf16 launch plan
+
+QKV_O_DOWN = [(512, 9216, 3072), (512, 3072, 3072), (512, 3072, 8192)]
+
+
+def _chunks_of(plan):
+    """Every (tile, k chunk) the plan's walks sum, in walk order per
+    tile, and the blocks that walk nothing."""
+    seen = {}
+    idle = 0
+    for b in range(plan.grid):
+        units = list(plan.walk(b))
+        idle += not units
+        for u in units:
+            t, c0, c1, part = plan.unit(u)
+            seen.setdefault(t, []).append((part, list(range(c0, c1))))
+    return seen, idle
+
+
+# (m, n, k) x (bm, bn, bk) where the blocks divide the dims
+PLAN_CASES = [(mnk, blk) for mnk in QKV_O_DOWN + [(1000, 169, 512),
+                                                  (64, 3025, 128)]
+              for blk in [(128, 192, 64), (64, 192, 64), (128, 128, 32),
+                          (64, 13, 64), (125, 13, 16), (64, 25, 32)]
+              if all(d % b == 0 for d, b in zip(mnk, blk))]
+
+
+@pytest.mark.parametrize("mnk,block", PLAN_CASES, ids=str)
+@pytest.mark.parametrize("rmw", [False, True], ids=["scratch", "rmw"])
+@pytest.mark.parametrize("rb", [132, 66, 33, 7, 1])
+def test_matmul_plan_covers_each_chunk_once_in_order(mnk, block, rmw, rb):
+    """Every k chunk of every tile is summed exactly once, a split
+    tile's parts cover its chunks in order, the grid never exceeds the
+    resident blocks the caller passes in, and a split only fills blocks
+    the last wave leaves idle (its parts are one wave); for the whole k
+    and for a read-modify-write pass of one k block."""
+    m, n, k = mnk
+    bm, bn, bk = block
+    plan = geo.matmul_plan(m, n, k, bm, bn, bk,
+                           k_count=bk if rmw else None, resident_blocks=rb)
+    assert plan.error is None
+    assert plan.grid <= rb
+    assert plan.tiles == (m // bm) * (n // bn)
+    seen, _ = _chunks_of(plan)
+    assert sorted(seen) == list(range(plan.tiles))
+    for parts in seen.values():
+        parts.sort()
+        assert [c for _, cs in parts for c in cs] == list(range(plan.chunks))
+        assert [p for p, _ in parts] == (
+            [-1] if len(parts) == 1 else list(range(plan.splits)))
+    if rmw or k <= geo.MMA_PART_K:
+        assert plan.tail_tiles * plan.splits <= plan.grid
+    else:                 # every tile in parts of at most MMA_PART_K
+        assert plan.full_tiles == 0
+        assert max(c1 - c0 for c0, c1 in map(plan.split_range, range(
+            plan.splits))) * geo.matmul_mma_tile(
+                bm, bn, bk, k, False).ks <= geo.MMA_PART_K
+    if plan.splits > 1:
+        assert plan.full_tiles % plan.grid == 0
+        assert 2 <= plan.splits <= plan.chunks
+        assert plan.workspace_floats == (plan.tickets * plan.splits
+                                         * plan.tile_floats)
+
+
+@pytest.mark.parametrize("shape", ["qkv", "o", "down"])
+def test_matmul_plan_splits_the_qkv_tail_and_the_small_grids(shape):
+    """At 128 x 192 tiles on 132 resident blocks: QKV's 192 tiles are
+    one full wave and the other 60 split in two over 120 of the 132
+    blocks; O's 64 tiles fill 128 blocks in two parts each; down (k
+    8192, 64-row tiles) sums every tile in two parts of 4096, whatever
+    the idle blocks."""
+    m, n, k, bm, want = {
+        "qkv": (512, 9216, 3072, 128, (132, 132, 60, 2)),
+        "o": (512, 3072, 3072, 128, (128, 0, 64, 2)),
+        "down": (512, 3072, 8192, 64, (132, 0, 128, 2)),
+    }[shape]
+    plan = geo.matmul_plan(m, n, k, bm, 192, 64, resident_blocks=132)
+    assert (plan.grid, plan.full_tiles, plan.tail_tiles,
+            plan.splits) == want
+
+
+@pytest.mark.parametrize("rb", [132, 66, 33, 7, 1])
+def test_matmul_plan_resident_walks_contiguous_columns(rb):
+    """A resident RHS: no split, and each block's units a contiguous
+    run, m fastest, so it meets each column once; the runs cover every
+    tile once, however many blocks the card holds."""
+    plan = geo.matmul_plan(512, 9216, 3072, 128, 32, 3072,
+                           resident_rhs=True, resident_blocks=rb)
+    assert (plan.splits, plan.grid) == (1, rb)
+    n_m = 512 // 128
+    walked = []
+    for b in range(plan.grid):
+        cols = [u // n_m for u in plan.walk(b)]
+        assert cols == sorted(cols)
+        walked += list(plan.walk(b))
+    assert walked == list(range(plan.tiles))
+
+
+@pytest.mark.parametrize("args,kw,match", [
+    ((512, 9216, 3072, 256, 192, 64), {}, "rows above 128"),
+    ((512, 9216, 3072, 128, 300, 64), {}, "columns above 256"),
+    ((512, 9216, 3072, 128, 64, 3072), {"resident_rhs": True},
+     "shared memory"),
+    ((512, 9216, 3072, 128, 192, 64), {"k_count": 96}, "must divide"),
+    ((512, 9216, 3072, 128, 192, 64), {"resident_blocks": 0},
+     "fits on the card"),
+    ((512, 3072, 6144, 64, 16, 6144), {"resident_rhs": True},
+     "in one part"),
+], ids=["rows", "columns", "resident-smem", "k-count", "no-block",
+        "resident-long-k"])
+def test_matmul_plan_refuses_what_does_not_fit(args, kw, match):
+    assert match in geo.matmul_plan(*args, **kw).error
+
+
+@pytest.mark.parametrize("mnk", QKV_O_DOWN, ids=str)
+@pytest.mark.parametrize("rb", [132, 264, 1000])
+def test_matmul_plan_rmw_pass_is_never_split(mnk, rb):
+    """A read-modify-write pass sums one k block: its chunks (one) cannot
+    be split, whatever the idle blocks."""
+    m, n, k = mnk
+    plan = geo.matmul_plan(m, n, k, 128, 192, 64, k_count=64,
+                           resident_blocks=rb)
+    assert plan.chunks == 1 and plan.splits == 1
+    assert plan.grid == min(rb, plan.tiles)
+
+
+def test_matmul_timeline_marks_every_phase():
+    """``launch/matmul_timeline.py`` builds the matmul with its consumer
+    marks defined: every phase it names is marked in the bf16 body,
+    between one begin and one end."""
+    from repro_torch.launch.matmul_timeline import (PHASES,
+                                                    instrumented_source)
+    src, phases = instrumented_source()
+    assert phases == PHASES
+    body = src[src.index("matmul_mma_kernel(const __grid_constant__"):
+               src.index("inline bool make_map(")]
+    assert body.count("MM_T_BEGIN()") == 1 and body.count("MM_T_END()") == 1
+    for k in range(len(PHASES)):
+        assert f"MM_T_MARK({k})" in body, PHASES[k]
 
 
 def test_layouts_follow_the_dtype():
@@ -281,11 +435,12 @@ def test_registry_record_of_h100_1_is_not_returned_under_h100_2(
         tmp_path, monkeypatch):
     """Rankings cached by the CUDA-core-only model (``h100-1``) miss
     under the current model (``h100-6`` since the bf16 conv body was
-    redesigned; ``h100-5`` when flash attention and the decode gained
+    redesigned, ``h100-7`` since the bf16 matmul body was redesigned;
+    ``h100-5`` when flash attention and the decode gained
     their second bodies; ``h100-4`` when the serving kernels joined it;
     ``h100-3`` when the bf16 sparse conv moved to the tensor cores): the
     tuner ranks anew."""
-    assert cm.COST_MODEL_VERSION == "h100-6"
+    assert cm.COST_MODEL_VERSION == "h100-7"
     path = str(tmp_path / "t.jsonl")
     layer = TABLE_4_1["fire9-conv3x3-2"]
     monkeypatch.setattr(cm, "COST_MODEL_VERSION", "h100-1")
@@ -295,7 +450,7 @@ def test_registry_record_of_h100_1_is_not_returned_under_h100_2(
     fresh = reg.TuningRegistry(path)
     assert fresh.get(old_key) is not None
     new_key = reg.conv_schedule_key(layer, cm.H100Spec())
-    assert new_key.cost_model == "h100-6" and fresh.get(new_key) is None
+    assert new_key.cost_model == "h100-7" and fresh.get(new_key) is None
     before = cm.total_evals()
     tuner.cached_tune_conv(layer, registry=fresh)
     assert cm.total_evals() > before
@@ -324,8 +479,9 @@ def test_conv_timeline_marks_every_phase():
 def test_registry_record_of_h100_5_is_not_returned_under_h100_6(
         tmp_path, monkeypatch, kind):
     """Rankings cached before the bf16 conv body's redesign (``h100-5``:
-    the old body's staging and its blocks) miss under ``h100-6``, for the
-    dense and the block-sparse conv: the tuner ranks anew."""
+    the old body's staging and its blocks) miss under the current model
+    (``h100-6``, then ``h100-7``), for the dense and the block-sparse
+    conv: the tuner ranks anew."""
     path = str(tmp_path / "t.jsonl")
     layer = TABLE_4_1["fire9-conv3x3-2"]
 
@@ -344,7 +500,38 @@ def test_registry_record_of_h100_5_is_not_returned_under_h100_6(
     tune(fresh)
     assert cm.total_evals() > before
     versions = {r.key.cost_model for r in fresh.records()}
-    assert versions == {"h100-5", "h100-6"}
+    assert versions == {"h100-5", cm.COST_MODEL_VERSION}
+
+
+def test_matmul_record_of_h100_6_is_not_returned_under_h100_7(tmp_path,
+                                                               monkeypatch):
+    """A matmul ranking cached before the persistent bf16 body (``h100-6``:
+    one block a tile, no tail split) misses under ``h100-7``: the tuner
+    ranks anew, and both records stay in the registry."""
+    path = str(tmp_path / "t.jsonl")
+    m, n, k = QKV
+    monkeypatch.setattr(cm, "COST_MODEL_VERSION", "h100-6")
+    tuner.cached_tune_matmul(m, n, k, registry=reg.TuningRegistry(path))
+    monkeypatch.undo()
+    fresh = reg.TuningRegistry(path)
+    before = cm.total_evals()
+    tuner.cached_tune_matmul(m, n, k, registry=fresh)
+    assert cm.total_evals() > before
+    assert {r.key.cost_model for r in fresh.records()} == {"h100-6",
+                                                           "h100-7"}
+
+
+def test_qkv_rank0_takes_m_fastest():
+    """The tuner breaks the model's tie between m and n fastest toward m
+    (QKV's B outgrows the L2), and the plan of its rank-0 splits the
+    last wave."""
+    m, n, k = QKV
+    s, _ = tuner.tune_matmul(m, n, k, elem_bytes=2, top_k=1)[0]
+    assert tuple(s.grid_order) == ("n", "m", "k") and not s.resident_rhs
+    b = s.block_dict()
+    plan = geo.matmul_plan(m, n, k, b["m"], b["n"], b["k"],
+                           resident_blocks=132)
+    assert plan.error is None and plan.splits > 1
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])

@@ -53,6 +53,7 @@ def test_port_files_found():
                   .glob("*.cu")) == ["conv2d.cu", "decode_attention.cu",
                                      "errors.cu", "flash_attention.cu",
                                      "flash_wgmma.cu", "matmul.cu",
+                                     "matmul_lean.cu",
                                      "paged_decode_attention.cu",
                                      "sparse_conv.cu", "ssm_scan.cu"]
 
