@@ -13,7 +13,8 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
    memory for each main-path instantiation; ``[sass]``: the tensor-core
    instructions (HGMMA for wgmma, HMMA for mma.sync) in ``cuobjdump
    -sass`` of the bf16 matmul, conv2d, block-sparse conv and both flash
-   attention bodies and of the packed decode (none may be 0) and of the
+   attention bodies (wgmma at the models' head dims, mma.sync at the
+   others) and of the packed decode (none may be 0) and of the
    float32 bodies (which stay on the CUDA cores: none may hold one);
    ``[serialized_wgmma]``: ptxas may serialize no wgmma of the bf16
    matmul body;
@@ -31,13 +32,11 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
    [4, 512] prefill and the decode step, each also at block_d 32-256 in
    ``[time_block_d]``), ``[time_wide]`` for the head_dim 256
    instances, and flash's time at every engine prompt bucket
-   (``[time_bucket]``, at 64 and at 128 query rows a block); the second
-   bf16 bodies (flash on wgmma + TMA, the packed decode) with the body
-   named at edge shapes (S past a tile multiple, group 5, window edges,
-   left-padded starts, a paged pool, groups past 16; ``[check]``) and
-   ``[time_body]``: both flash bodies at S 256-4096 (D 64 non-causal,
-   D 256 MQA causal) and both decode bodies at groups 1, 5, 8 and 16,
-   each line naming the body the static rule picks; then every
+   (``[time_bucket]``, at 64 and at 128 query rows a block); the
+   attention kernels at edge shapes (S past a tile multiple and below
+   one tile, group 5, window edges, left-padded starts at and near S,
+   a paged pool, groups of one and past 16, NaN outside the window;
+   ``[check]``); then every
    schedule the tuner offers at the main-path shapes (flash's row
    blocks, both decode kernels' splits, the scan's block_d) against the
    plain version, and ``[time_schedule]``: each candidate's kernel ms
@@ -130,9 +129,12 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
    decode slot commits at, ``c``), then on a fresh service with
    ``slow@(c+8)x4``, a watchdog (ratio 3, patience 2) and a recorder:
    the drift alarm within patience steps of the fault, the reopen, the
-   re-commit and ``postmortem-drift.json`` naming the slot and both
-   schedules are gated, the recaptures and the token agreement with
-   the clean run printed;
+   re-commit held to the drain's end, no other drift (the watchdog
+   judges each step's graph time on the card, which host jitter does
+   not stretch) and ``postmortem-drift.json`` naming the slot and both
+   schedules are gated, the recaptures, the token agreement with the
+   clean run and the steps whose host time passed 3x the baseline
+   printed;
 6. the same engine, ``generate``, profile, ``[dispatch_serve]`` and
    observability phases on full-width,
    full-depth falcon-mamba-7b in bf16 (phi3's weights are freed first),
@@ -162,8 +164,7 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
    tensor passes 2**32 elements) and ``[moe]`` qwen2-moe-a2.7b, each
    the engine phase's 8 requests with graphs, one cold drain (moe: a
    warm one too), with one flash launch a layer per admission and one
-   paged decode launch a layer per step, on the packed body for the GQA
-   configs (moe: each bucket's capacity
+   paged decode launch a layer per step (moe: each bucket's capacity
    and each drain's dropped slots, the warm drain's being one drain's
    replays alone, and ``[moe_rounding]``: layer 0's FFN with its
    expert products rounded to bf16, the port's, against the same in
@@ -188,10 +189,7 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
    launches gated at one flash launch a prefill per attention layer
    (12, 18, and 64: whisper's 32 encoder layers run the non-causal
    body) and one contiguous decode launch a step per self-attention
-   layer (12, 18, 32), and the second bodies' share of them: every
-   prefill the static rule puts on wgmma (whisper's encoder, paligemma's
-   768-token prefill, the long bucket) and every decode of a grouped
-   config on the packed body; recurrentgemma also serves one request of 2,100
+   layer (12, 18, 32); recurrentgemma also serves one request of 2,100
    tokens (``[hybrid_long]``: bucket 4096, the prefill's flash windowed
    at 2048, every decode step in the wrapped rolling buffer);
    ``[family_profile]``: the widest captured decode step replayed 10
@@ -202,7 +200,8 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
    with extras on the three float32 smoke configs, whose prompts pass
    their local window of 16.  Phase 3 holds the three families' new
    kernel shapes (``[time_family]``, on the bodies the rule picks, beside
-   the other body, PR 24's time, the bound and SDPA): the windowed flash
+   their time on the earlier bodies, the bound and SDPA): the windowed
+   flash
    at [1, 16, 4096, 256], the non-causal flash at [4, 20, 1500, 64] and
    the contiguous decode over a wrapped buffer of 2048 slots;
 7c. training (after phase 7b; the card freed first): ``[train]``
@@ -451,12 +450,12 @@ class Timer:
 
 
 # Mangled-name patterns of the instantiations the bf16 main path runs
-# (head_dim 96, MHA): flash's tensor-core body at D 96 (64 and 128 query
-# rows a block), the split decode body over the pool and over the
-# contiguous cache.
+# (head_dim 96, MHA): flash's wgmma body at D 96 (one and two consumer
+# warpgroups: 64 and 128 query rows a block), the split decode body over
+# the pool and over the contiguous cache.
 MAIN_PATH_INSTANCES = {
-    "flash_attention": r"flash_mma_kernelILi96ELi64E",
-    "flash_attention_rows128": r"flash_mma_kernelILi96ELi128E",
+    "flash_attention": r"flash_wgmma_kernelILi96ELi1E",
+    "flash_attention_rows128": r"flash_wgmma_kernelILi96ELi2E",
     "paged_decode_attention":
         r"decode_split_kernelI13__nv_bfloat16NS_7PagedKV",
     "decode_attention":
@@ -474,20 +473,18 @@ MAIN_PATH_INSTANCES = {
     "matmul": r"matmul_mma_kernelILi2ELi192ELb1E",
     "matmul_lean": r"matmul_mma_kernelILi1ELi192ELb0E",
 }
-# The head_dim 256 instances (paligemma-3b, recurrentgemma-9b): flash's
-# bf16 body with Q re-read from shared memory, its float32 body at 64
-# dims a thread, the float32 split decode.
+# The other families' instances: flash's wgmma body at whisper's D 64
+# and the gemma families' D 256 (one and two consumer warpgroups), the
+# packed decode over recurrentgemma's contiguous cache and the dense GQA
+# configs' pool at D 128; the bodies kept for what the Hopper bodies do
+# not take: flash's mma.sync body at a head dim outside 64/96/128/256
+# (Q re-read from shared memory above 128), the float32 flash at 64
+# dims a thread and the float32 split decode.
 WIDE_INSTANCES = {
-    "flash_attention_d256": r"flash_mma_kernelILi256ELi64E",
-    "flash_attention_d256_rows128": r"flash_mma_kernelILi256ELi128E",
     "flash_attention_d224": r"flash_mma_kernelILi224ELi64E",
     "flash_attention_float32_d256": r"flash_fwd_kernelILi64E",
     "decode_attention_float32": r"decode_split_kernelIfNS_8ContigKV",
     "paged_decode_attention_float32": r"decode_split_kernelIfNS_7PagedKV",
-    # the second bf16 bodies: flash on wgmma + TMA (whisper's D 64, the
-    # gemma families' D 256 at one and two consumer warpgroups) and the
-    # packed decode (recurrentgemma's contiguous cache, the dense GQA
-    # configs' pool at D 128)
     "flash_attention_wgmma_d64": r"flash_wgmma_kernelILi64ELi1E",
     "flash_attention_wgmma_d256": r"flash_wgmma_kernelILi256ELi1E",
     "flash_attention_wgmma_d256_rows128": r"flash_wgmma_kernelILi256ELi2E",
@@ -498,7 +495,7 @@ WIDE_INSTANCES = {
 }
 # Entry functions whose SASS must (bf16) or must not (float32) hold
 # tensor-core instructions, by name pattern.
-SASS_BODIES = {
+SASS_CHECKS = {
     "matmul_bf16": (r"matmul_mma_kernel", "HGMMA"),
     "conv2d_bf16": (r"conv2d_cu.*conv_mma_kernel", "HMMA"),
     "sparse_conv2d_bf16": (r"sparse_conv_cu.*conv_mma_kernel", "HMMA"),
@@ -513,7 +510,7 @@ SASS_BODIES = {
 
 
 def sass_counts(lib_path):
-    """Per body of SASS_BODIES: entry functions, and the HGMMA, HMMA and
+    """Per body of SASS_CHECKS: entry functions, and the HGMMA, HMMA and
     FFMA instructions in their ``cuobjdump -sass``."""
     from repro_torch.kernels import _build
     tool = Path(_build.nvcc_path()).with_name("cuobjdump")
@@ -533,7 +530,7 @@ def sass_counts(lib_path):
                 if re.search(r"\b" + op + r"\b", line):
                     funcs[name][op] += 1
     res = {}
-    for body, (pattern, _) in SASS_BODIES.items():
+    for body, (pattern, _) in SASS_CHECKS.items():
         hit = [c for f, c in funcs.items() if re.search(pattern, f)]
         res[body] = {"functions": len(hit),
                      **{op: sum(c[op] for c in hit)
@@ -762,7 +759,7 @@ def kernel_checks(torch, dev, timer):
     b_ms, b_by = bound(n_bytes, n_ops, "bfloat16")
     summary["flash_attention"] = dict(
         name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        source="src/repro_torch/kernels/csrc/flash_wgmma.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:155",
         launches=0, max_abs_err=worst["flash_attention"],
         ms=timer(lambda: flash_attention(q, k, v, starts=st)),
@@ -1002,8 +999,7 @@ def kernel_checks(torch, dev, timer):
                           else f"{e['library_ms']:.4f}"),
               **({"plan": repr(e["plan"])} if "plan" in e else {}))
     family_kernel_cases(torch, dev, timer, rn, check, summary)
-    body_checks(torch, dev, rn, check)
-    time_body(torch, dev, timer, rn)
+    attention_edge_checks(torch, dev, rn, check)
     e = summary["ssm_scan"]
     # block_d is the kernel's launch parameter: the two prefills and the
     # decode step at each
@@ -1029,11 +1025,11 @@ def kernel_checks(torch, dev, timer):
     return summary
 
 
-# The three family shapes' kernel ms before this round's second bodies
-# (``[time_family]``, PR 24 final, NVIDIA H100 80GB HBM3, 700.00 W): the
-# windowed and the non-causal flash on mma.sync, the rolling decode on
-# the chunked split body.
-PR24_FAMILY_MS = {"windowed": 1.2427, "non-causal": 0.4223,
+# The three family shapes' kernel ms on the bodies they ran before the
+# wgmma flash and the packed decode (``[time_family]`` on an NVIDIA H100
+# 80GB HBM3, 700.00 W): the windowed and the non-causal flash on
+# mma.sync, the rolling decode on the chunked split body.
+EARLIER_FAMILY_MS = {"windowed": 1.2427, "non-causal": 0.4223,
                   "rolling": 0.0636}
 
 
@@ -1043,15 +1039,14 @@ def family_kernel_cases(torch, dev, timer, rn, check, summary):
     heads on one KV head, head_dim 256, causal, window 2048), the
     non-causal flash of whisper-large-v3's encoder ([4, 20, 1500, 64])
     and the contiguous decode over recurrentgemma's wrapped rolling
-    buffer (2048 slots, pos past it).  Each runs the body the static
-    rule picks (``_geometry.flash_body`` / ``decode_body``: wgmma and
-    packed at these shapes), is held to its plain version (the decode
-    also to the model's windowed plain path), and is timed with CUDA
-    events beside the other body on the same inputs, PR 24's time
-    (``PR24_FAMILY_MS``), its bound and SDPA; printed as
-    ``[time_family]`` and added to its kernel's summary entry
-    (``family_shapes``) with this run's numbers only (PR 24's time stays
-    on the phase line)."""
+    buffer (2048 slots, pos past it).  Each is held to its plain version
+    (the decode also to the model's windowed plain path) and timed with
+    CUDA events beside its earlier body's time (``EARLIER_FAMILY_MS``),
+    its bound and SDPA; printed as ``[time_family]`` with the body its
+    rule runs
+    (``_geometry.flash_body`` / ``decode_body``) and added to its
+    kernel's summary entry (``family_shapes``) with this run's numbers
+    only (the earlier time stays on the phase line)."""
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention, flash_attention
     from repro_torch.kernels._geometry import decode_body, flash_body
@@ -1061,17 +1056,16 @@ def family_kernel_cases(torch, dev, timer, rn, check, summary):
 
     bf16 = torch.bfloat16
 
-    def record(kernel, tag, shape, body, ms, other, other_ms, plain_ms,
-               n_bytes, n_ops, lib_ms, err):
+    def record(kernel, tag, shape, body, ms, plain_ms, n_bytes, n_ops,
+               lib_ms, err):
         """One ``[time_family]`` line and its summary record."""
         b_ms, b_by = bound(n_bytes, n_ops, "bfloat16")
         row = dict(shape=shape, body=body, ms=ms, plain_ms=plain_ms,
                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                   max_abs_err=err, **{f"{other}_ms": other_ms})
+                   max_abs_err=err)
         summary[kernel].setdefault("family_shapes", []).append(row)
         phase("time_family", kernel=kernel, shape=repr(shape), body=body,
-              ms=f"{ms:.4f}", pr24_ms=f"{PR24_FAMILY_MS[tag]:.4f}",
-              **{f"{other}_ms": f"{other_ms:.4f}"},
+              ms=f"{ms:.4f}", earlier_ms=f"{EARLIER_FAMILY_MS[tag]:.4f}",
               plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}",
               bound_by=b_by, library_ms=f"{lib_ms:.4f}",
               max_abs_err=f"{err:.3g}")
@@ -1080,26 +1074,12 @@ def family_kernel_cases(torch, dev, timer, rn, check, summary):
         """Max abs error of ``got`` against ``want``."""
         return (got.float() - want.float()).abs().max().item()
 
-    def rule_launch(counter, fn):
-        """Run ``fn`` once and check that it launched the body whose
-        counter is ``counter`` (the rule's choice); returns its output."""
-        before = counter()
-        out = fn()
-        if counter() != before + 1:
-            fail(f"[time_family] the rule's body did not launch: "
-                 f"{counter()} after {before}")
-        return out
-
-    wgmma = (lambda: flash_attention.wgmma_launches)
-    packed = (lambda: decode_attention.packed_launches)
     # recurrentgemma-9b: the 2,100-token prompt's bucket of 4096 with the
     # local window of 2048
     s, d, hq, win = 4096, 256, 16, 2048
     q = rn((1, hq, s, d), bf16)
     k, v = rn((1, 1, s, d), bf16), rn((1, 1, s, d), bf16)
-    body = flash_body(d, s, 2, window=win)
-    got = rule_launch(wgmma, lambda: flash_attention(q, k, v, causal=True,
-                                                     window=win))
+    got = flash_attention(q, k, v, causal=True, window=win)
     want = flash_attention_ref(q, k, v, causal=True, window=win)
     shape = f"q [1,{hq},{s},{d}], k/v [1,1,{s},{d}] bf16, causal, window {win}"
     check("flash_attention", got, want, shape)
@@ -1107,10 +1087,8 @@ def family_kernel_cases(torch, dev, timer, rn, check, summary):
     kpos = torch.arange(s, device=dev)[None, :]
     mask = (kpos <= qpos) & (kpos > qpos - win)
     pairs = int(mask.sum().item())          # (query, key) pairs computed
-    record("flash_attention", "windowed", shape, body,
+    record("flash_attention", "windowed", shape, flash_body(d, 2),
            timer(lambda: flash_attention(q, k, v, causal=True, window=win)),
-           "mma", timer(lambda: flash_attention(q, k, v, causal=True,
-                                                window=win, body="mma")),
            timer(lambda: flash_attention_ref(q, k, v, causal=True,
                                              window=win), iters=5),
            (2 * hq + 2) * s * d * 2, 4 * d * hq * pairs,
@@ -1122,15 +1100,12 @@ def family_kernel_cases(torch, dev, timer, rn, check, summary):
     b, hq, s, d = 4, 20, 1500, 64
     q = rn((b, hq, s, d), bf16)
     k, v = rn((b, hq, s, d), bf16), rn((b, hq, s, d), bf16)
-    body = flash_body(d, s, 2, causal=False)
-    got = rule_launch(wgmma, lambda: flash_attention(q, k, v, causal=False))
+    got = flash_attention(q, k, v, causal=False)
     want = flash_attention_ref(q, k, v, causal=False)
     shape = f"q,k,v [{b},{hq},{s},{d}] bf16, non-causal"
     check("flash_attention", got, want, shape)
-    record("flash_attention", "non-causal", shape, body,
+    record("flash_attention", "non-causal", shape, flash_body(d, 2),
            timer(lambda: flash_attention(q, k, v, causal=False)),
-           "mma", timer(lambda: flash_attention(q, k, v, causal=False,
-                                                body="mma")),
            timer(lambda: flash_attention_ref(q, k, v, causal=False),
                  iters=5),
            4 * b * hq * s * d * 2, 4 * d * b * hq * s * s,
@@ -1143,18 +1118,15 @@ def family_kernel_cases(torch, dev, timer, rn, check, summary):
     pos = torch.tensor([2048, 2500, 3000, 4127], device=dev)
     q = rn((b, hq, 1, d), bf16)
     k, v = rn((b, 1, s, d), bf16), rn((b, 1, s, d), bf16)
-    body = decode_body(hq, 1, d, 2)
-    got = rule_launch(packed, lambda: decode_attention(q, k, v, pos))
+    got = decode_attention(q, k, v, pos)
     want = decode_attention_ref(q, k, v, pos)
     shape = (f"q [{b},{hq},1,{d}], rolling k/v [{b},1,{s},{d}] bf16, "
              f"pos {pos.tolist()}")
     check("decode_attention", got, want, shape)
     check("decode_attention", got, model_attention.decode_attention(
         q, k, v, pos, window=s, backend="plain"), shape + " (model, window)")
-    record("decode_attention", "rolling", shape, body,
+    record("decode_attention", "rolling", shape, decode_body(hq, 1, d, 2),
            timer(lambda: decode_attention(q, k, v, pos)),
-           "chunked", timer(lambda: decode_attention(q, k, v, pos,
-                                                     body="chunked")),
            timer(lambda: decode_attention_ref(q, k, v, pos)),
            2 * b * hq * d * 2 + 2 * b * s * d * 2 + b * 8,
            4 * d * hq * b * s,
@@ -1163,11 +1135,15 @@ def family_kernel_cases(torch, dev, timer, rn, check, summary):
            err_of(got, want))
 
 
-# The edge shapes the second bodies' tiling must get right, held to the
-# plain version with the body named: flash (B, HQ, HKV, S, D, rows,
-# mask) on wgmma, decode (B, HQ, HKV, S, D, pos, starts) packed, paged
-# packed (HQ, HKV, D) over the engine's pool.
-BODY_FLASH_CASES = [
+# The edge shapes the attention bodies' tiling must get right, each call
+# held to its plain version: flash (B, HQ, HKV, S, D, rows, mask) on
+# wgmma, among them phi3's heads (32 of 96, MHA) below one 64-key tile,
+# with a query tile past S and starts at or near S; the contiguous
+# decode (B, HQ, HKV, S, D, pos, starts), packed for the groups of 2 and
+# more (with starts and without: the first tile fetched before pos) and
+# chunked for phi3's MHA; the paged decode's (HQ, HKV, D) over the
+# engine's pool.
+EDGE_FLASH_CASES = [
     (4, 20, 20, 1500, 64, 128, {"causal": False}),
     (1, 16, 1, 1100, 256, 64, {"window": 700}),
     (1, 16, 1, 1100, 256, 128, {"window": 700}),
@@ -1175,137 +1151,112 @@ BODY_FLASH_CASES = [
     (2, 8, 8, 600, 96, 64, {"starts": [37, 599]}),
     (2, 4, 2, 700, 128, 64, {"window": 64, "starts": [5, 650]}),
     (2, 8, 1, 768, 256, 64, {"starts": [0, 400]}),
+    (1, 32, 32, 8, 96, 64, {"starts": [3]}),
+    (1, 32, 32, 8, 96, 128, {}),
+    (2, 32, 32, 16, 96, 64, {"starts": [15, 16]}),
+    (2, 32, 32, 40, 96, 128, {"starts": [0, 39]}),
+    (1, 32, 32, 100, 96, 64, {}),
+    (2, 32, 32, 200, 96, 128, {"starts": [199, 130]}),
+    (1, 32, 32, 72, 96, 128, {"window": 9}),
+    # the mma.sync body, the bf16 body of head dims outside FLASH_WGMMA_D
+    # (D 80 keeps Q in registers, D 224 re-reads it from shared memory)
+    (2, 8, 8, 600, 80, 64, {"starts": [37, 599]}),
+    (2, 8, 8, 600, 80, 128, {"starts": [0, 600]}),
+    (1, 4, 4, 40, 80, 64, {}),
+    (2, 4, 4, 40, 80, 128, {"starts": [39, 40]}),
+    (1, 16, 2, 700, 224, 64, {"window": 100}),
+    (1, 16, 2, 700, 224, 128, {"window": 100, "starts": [650]}),
+    (2, 4, 4, 50, 224, 128, {"starts": [49, 50]}),
+    (1, 8, 1, 300, 224, 64, {"causal": False}),
 ]
-BODY_DECODE_CASES = [
+EDGE_DECODE_CASES = [
     (4, 40, 8, 544, 128, [512, 300, 17, 543], [472, 0, 3, 500]),
     (2, 64, 8, 1000, 128, [999, 40], [0, 33]),
     (2, 8, 1, 600, 256, [599, 10], [590, 11]),
     (3, 24, 1, 300, 64, [299, 100, 0], None),
     (1, 64, 1, 400, 96, [399], [7]),
+    (4, 32, 32, 544, 96, [17, 63, 64, 543], [0, 62, 1, 500]),
+    (2, 32, 32, 40, 96, [39, 0], [38, 0]),
+    (1, 32, 32, 1056, 96, [1055], None),
 ]
-BODY_PAGED_HEADS = ((64, 8, 128), (8, 1, 256), (40, 8, 128), (24, 8, 128),
-                    (48, 8, 128))
+EDGE_PAGED_HEADS = ((64, 8, 128), (8, 1, 256), (40, 8, 128), (24, 8, 128),
+                    (48, 8, 128), (32, 32, 96))
 
 
-def body_checks(torch, dev, rn, check):
-    """Phase 3: the second bodies at ``BODY_*`` edge shapes against their
-    plain versions (``[check]``, body named on the line): S not a tile
-    multiple, group 5, window edges, left-padded starts, a paged pool,
-    groups past one 16-row tile, NaN in the cache outside the window."""
+def attention_edge_checks(torch, dev, rn, check):
+    """Phase 3: the attention kernels at ``EDGE_*`` shapes against their
+    plain versions (``[check]``): S not a tile multiple and below one
+    tile, group 5, window edges, left-padded starts at and near S, a
+    paged pool, groups of one and past one 16-row tile, NaN in the cache
+    outside the window; flash on both of its bf16 bodies."""
     from repro_torch.kernels import (decode_attention, flash_attention,
                                      paged_decode_attention)
+    from repro_torch.kernels._geometry import flash_body
     from repro_torch.kernels.decode_attention import (
         decode_attention_ref, paged_decode_attention_ref)
     from repro_torch.kernels.flash_attention import flash_attention_ref
 
     bf16 = torch.bfloat16
-    for b, hq, hkv, s, d, rows, kw in BODY_FLASH_CASES:
+    bodies = {flash_body(c[4], 2) for c in EDGE_FLASH_CASES}
+    if bodies != {"wgmma", "mma"}:
+        fail(f"the flash edge cases reach the bodies {sorted(bodies)}, "
+             f"not both bf16 bodies")
+    for b, hq, hkv, s, d, rows, kw in EDGE_FLASH_CASES:
         q = rn((b, hq, s, d), bf16)
         k, v = rn((b, hkv, s, d), bf16), rn((b, hkv, s, d), bf16)
         kw = {n: torch.tensor(x, device=dev) if n == "starts" else x
               for n, x in kw.items()}
         check("flash_attention",
-              flash_attention(q, k, v, block_q=rows, body="wgmma", **kw),
+              flash_attention(q, k, v, block_q=rows, **kw),
               flash_attention_ref(q, k, v, **kw),
-              f"[{b},{hq},{s},{d}]/{hkv}kv body=wgmma rows={rows} " + " ".join(
+              f"[{b},{hq},{s},{d}]/{hkv}kv rows={rows} "
+              f"body={flash_body(d, 2)} " + " ".join(
                   f"{n}={x.tolist() if torch.is_tensor(x) else x}"
                   for n, x in kw.items()))
-    for b, hq, hkv, s, d, pos, starts in BODY_DECODE_CASES:
+    for b, hq, hkv, s, d, pos, starts in EDGE_DECODE_CASES:
         q = rn((b, hq, 1, d), bf16)
         k, v = rn((b, hkv, s, d), bf16), rn((b, hkv, s, d), bf16)
         p = torch.tensor(pos, device=dev)
         st = None if starts is None else torch.tensor(starts, device=dev)
         check("decode_attention",
-              decode_attention(q, k, v, p, starts=st, body="packed"),
+              decode_attention(q, k, v, p, starts=st),
               decode_attention_ref(q, k, v, p, starts=st),
               f"[{b},{hq},1,{d}]/{hkv}kv k/v [{b},{hkv},{s},{d}] "
-              f"body=packed pos={pos} starts={starts}")
+              f"pos={pos} starts={starts}")
     # NaN outside each row's window: before starts and past pos, where
     # the packed body fetches a split's first tile before pos is known
-    b, hq, hkv, s, d = 4, 16, 1, 544, 256
-    pos, starts = [3, 70, 300, 543], [0, 0, 9, 200]
-    q = rn((b, hq, 1, d), bf16)
-    k, v = rn((b, hkv, s, d), bf16), rn((b, hkv, s, d), bf16)
-    p, st = torch.tensor(pos, device=dev), torch.tensor(starts, device=dev)
-    keys = torch.arange(s, device=dev)
-    outside = ((keys[None, :] > p[:, None])
-               | (keys[None, :] < st[:, None]))[:, None, :, None]
-    nan = torch.tensor(float("nan"), device=dev, dtype=bf16)
-    check("decode_attention",
-          decode_attention(q, k.where(~outside, nan), v.where(~outside, nan),
-                           p, starts=st, body="packed"),
-          decode_attention_ref(q, k.where(~outside, 0), v.where(~outside, 0),
-                               p, starts=st),
-          f"[{b},{hq},1,{d}]/{hkv}kv k/v [{b},{hkv},{s},{d}] body=packed "
-          f"pos={pos} starts={starts} NaN outside the window")
+    for hq, hkv, d in ((16, 1, 256), (32, 32, 96)):
+        b, s = 4, 544
+        pos, starts = [3, 70, 300, 543], [0, 0, 9, 200]
+        q = rn((b, hq, 1, d), bf16)
+        k, v = rn((b, hkv, s, d), bf16), rn((b, hkv, s, d), bf16)
+        p = torch.tensor(pos, device=dev)
+        st = torch.tensor(starts, device=dev)
+        keys = torch.arange(s, device=dev)
+        outside = ((keys[None, :] > p[:, None])
+                   | (keys[None, :] < st[:, None]))[:, None, :, None]
+        nan = torch.tensor(float("nan"), device=dev, dtype=bf16)
+        check("decode_attention",
+              decode_attention(q, k.where(~outside, nan),
+                               v.where(~outside, nan), p, starts=st),
+              decode_attention_ref(q, k.where(~outside, 0),
+                                   v.where(~outside, 0), p, starts=st),
+              f"[{b},{hq},1,{d}]/{hkv}kv k/v [{b},{hkv},{s},{d}] "
+              f"pos={pos} starts={starts} NaN outside the window")
     bs, mb, pos = 16, 34, [17, 300, 543, 0]
     nb = 1 + len(pos) * mb
     perm = torch.randperm(nb - 1, generator=torch.Generator()
                           .manual_seed(7)) + 1
     tables = perm.reshape(len(pos), mb).to(torch.int32).to(dev)
     p = torch.tensor(pos, dtype=torch.int32, device=dev)
-    for hq, hkv, d in BODY_PAGED_HEADS:
+    for hq, hkv, d in EDGE_PAGED_HEADS:
         q = rn((len(pos), hq, 1, d), bf16)
         kp, vp = rn((nb, hkv, bs, d), bf16), rn((nb, hkv, bs, d), bf16)
         check("paged_decode_attention",
-              paged_decode_attention(q, kp, vp, tables, p, body="packed"),
+              paged_decode_attention(q, kp, vp, tables, p),
               paged_decode_attention_ref(q, kp, vp, tables, p),
               f"[{len(pos)},{hq},1,{d}]/{hkv}kv pools [{nb},{hkv},{bs},{d}] "
-              f"body=packed pos={pos}")
-
-
-# [time_body]: both bf16 flash bodies over these lengths at whisper's
-# heads (D 64, no mask), recurrentgemma's (D 256, MQA, causal) and
-# phi3's (D 96, causal), and both decode bodies at these (HQ, HKV, D)
-# groups over a full cache.
-BODY_SWEEP_S = (256, 512, 768, 1024, 1500, 4096)
-BODY_SWEEP_FLASH = ((4, 20, 20, 64, False), (1, 16, 1, 256, True),
-                    (1, 32, 32, 96, True))
-BODY_SWEEP_DECODE = ((32, 32, 96), (40, 8, 128), (64, 8, 128), (8, 1, 256),
-                     (16, 1, 256))
-BODY_SWEEP_DECODE_S = (544, 2048)
-
-
-def time_body(torch, dev, timer, rn):
-    """``[time_body]``: each bf16 flash body at ``BODY_SWEEP_S`` x
-    ``BODY_SWEEP_FLASH`` (64 query rows a block, the default) and each
-    decode body at ``BODY_SWEEP_DECODE`` x ``BODY_SWEEP_DECODE_S`` (4
-    rows, every key valid), CUDA events, L2 flushed; each line names the
-    body the rule picks and whether it is the faster one here.  They
-    check that the rule picks a new body only where it is the faster;
-    ``_geometry.FLASH_WGMMA_MIN_KEYS`` is not their crossing (the wgmma
-    body is faster at every swept length) but keeps the engine's prefills
-    of at most 512 tokens on the mma.sync body."""
-    from repro_torch.kernels import decode_attention, flash_attention
-    from repro_torch.kernels._geometry import decode_body, flash_body
-
-    bf16 = torch.bfloat16
-    for b, hq, hkv, d, causal in BODY_SWEEP_FLASH:
-        for s in BODY_SWEEP_S:
-            q = rn((b, hq, s, d), bf16)
-            k, v = rn((b, hkv, s, d), bf16), rn((b, hkv, s, d), bf16)
-            ms = {body: timer(lambda: flash_attention(
-                q, k, v, causal=causal, body=body))
-                for body in ("mma", "wgmma")}
-            rule = flash_body(d, s, 2, causal=causal)
-            phase("time_body", kernel="flash_attention",
-                  shape=f"[{b},{hq},{s},{d}]/{hkv}kv", causal=causal,
-                  mma_ms=f"{ms['mma']:.4f}", wgmma_ms=f"{ms['wgmma']:.4f}",
-                  rule=rule, rule_is_faster=ms[rule] <= min(ms.values()))
-            del q, k, v
-    for hq, hkv, d in BODY_SWEEP_DECODE:
-        for s in BODY_SWEEP_DECODE_S:
-            q = rn((4, hq, 1, d), bf16)
-            k, v = rn((4, hkv, s, d), bf16), rn((4, hkv, s, d), bf16)
-            ms = {body: timer(lambda: decode_attention(q, k, v, s - 1,
-                                                       body=body))
-                  for body in ("chunked", "packed")}
-            rule = decode_body(hq, hkv, d, 2)
-            phase("time_body", kernel="decode_attention",
-                  shape=f"q [4,{hq},1,{d}] k/v [4,{hkv},{s},{d}]",
-                  group=hq // hkv, chunked_ms=f"{ms['chunked']:.4f}",
-                  packed_ms=f"{ms['packed']:.4f}", rule=rule,
-                  rule_is_faster=ms[rule] <= min(ms.values()))
+              f"pos={pos}")
 
 
 # ---------------------------------------------------------------------------
@@ -2375,7 +2326,7 @@ def main():
         phase("sass", body=body, functions=c["functions"],
               hgmma=c["HGMMA"], hmma=c["HMMA"], ffma=c["FFMA"],
               min_per_function=json.dumps(c["min_per_function"]))
-        op = SASS_BODIES[body][1]
+        op = SASS_CHECKS[body][1]
         if c["functions"] < 1:
             fail(f"[sass] no entry function of {body} in the library")
         if op is not None and c["min_per_function"][op] < 1:
@@ -2432,7 +2383,6 @@ def engine_phase(torch, model, params, prompts, mode, smi, tally=None,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = kernels.launch_counts()
-        bodies = {k: v for k, v in kernels.body_launch_counts().items() if v}
         dropped = None if tally is None else int(tally)
         bad = [r for r in res.values()
                if r.state != "COMPLETED" or len(r.tokens) != NEW_TOKENS]
@@ -2468,11 +2418,10 @@ def engine_phase(torch, model, params, prompts, mode, smi, tally=None,
               peak_reserved_gib=f"{torch.cuda.max_memory_reserved() / 2 ** 30:.2f}",
               degraded_buckets=st["degraded_buckets"],
               **({} if dropped is None else {"dropped_slots": dropped}),
-              launches=json.dumps(counts),
-              body_launches=json.dumps(bodies))
+              launches=json.dumps(counts))
         out[drain] = {"tokens": {k: v.tokens.tolist()
                                  for k, v in res.items()},
-                      "counts": counts, "bodies": bodies, "stats": st,
+                      "counts": counts, "stats": st,
                       "wall": wall,
                       "dropped": dropped,
                       "reserved": torch.cuda.max_memory_reserved()}
@@ -2484,7 +2433,7 @@ def generate_phase(torch, model, params, mode, smi):
     """A left-padded batch of 4 through ``generate(session=)`` twice in
     ``mode`` (cold: builds both steps; warm: must build nothing); counts
     set to 0 just before each call and read just after; one
-    ``[generate]`` line each.  Returns {call: tokens, counts, bodies}."""
+    ``[generate]`` line each.  Returns {call: tokens, counts}."""
     from repro_torch import kernels
     from repro_torch.models import left_pad_prompts, prompt_starts
     from repro_torch.runtime import generate
@@ -2510,7 +2459,6 @@ def generate_phase(torch, model, params, mode, smi):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = kernels.launch_counts()
-        bodies = {k: v for k, v in kernels.body_launch_counts().items() if v}
         if tokens.shape != (4, NEW_TOKENS) or tokens.min() < 0 \
                 or tokens.max() >= cfg.vocab_size:
             fail(f"{cfg.name} generate ({mode}): bad tokens {tokens.shape} "
@@ -2533,7 +2481,7 @@ def generate_phase(torch, model, params, mode, smi):
               peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}",
               peak_reserved_gib=f"{torch.cuda.max_memory_reserved() / 2 ** 30:.2f}",
               launches=json.dumps(counts))
-        out[call] = {"tokens": tokens, "counts": counts, "bodies": bodies}
+        out[call] = {"tokens": tokens, "counts": counts}
     del session
     return out
 
@@ -2567,8 +2515,8 @@ def serve_phases(torch, dev, smi, arch, sched_times, records):
     (captured steps, the default) and eager mode (``capture=False``) in
     this call: tokens and launch counts must agree between them; then
     ``[dispatch_serve]`` on the same weights.  Returns the graphs mode's
-    cold counts (and its second bodies' counts, engine and generate)
-    with its engine stats (the weights are freed on return)."""
+    cold counts (engine and generate) with its engine stats (the weights
+    are freed on return)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
@@ -2611,9 +2559,6 @@ def serve_phases(torch, dev, smi, arch, sched_times, records):
     cold = engine["graphs"]["cold"]
     return {"engine": cold["counts"],
             "generate": gen["graphs"]["cold"]["counts"],
-            "bodies": {**cold["bodies"], **{
-                f"generate {k}": v
-                for k, v in gen["graphs"]["cold"]["bodies"].items()}},
             "stats": cold["stats"]}
 
 
@@ -2667,6 +2612,7 @@ def run(torch, dev, timer, smi, records):
     """Phases 3-10 on ``dev``; returns the kernels' summary entries.
     ``records`` is the directory of the card's registry files."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels._geometry import decode_body, flash_body
 
     summary = kernel_checks(torch, dev, timer)
     sched_times = schedule_checks(torch, dev, timer)
@@ -2695,9 +2641,21 @@ def run(torch, dev, timer, smi, records):
     for k in ("flash_attention", "paged_decode_attention",
               "decode_attention"):
         summary[k]["launches"] = ec[k] + gen[k]
-    if phi3["bodies"]:
-        fail(f"{PHI3}'s main path ran a second body (its prefills are at "
-             f"most 512 tokens, its heads MHA): {phi3['bodies']}")
+    # the bodies the rule gives phi3's head dim and group: flash's one
+    # bf16 body at the models' head dims; MHA keeps the chunked decode
+    # (the packed one has no group to share K and V over)
+    cfg = get_config(PHI3)
+    rules = {"flash_attention": flash_body(cfg.resolved_head_dim, 2),
+             **{k: decode_body(cfg.n_heads, cfg.n_kv_heads,
+                               cfg.resolved_head_dim, 2)
+                for k in ("paged_decode_attention", "decode_attention")}}
+    if rules != {"flash_attention": "wgmma",
+                 "paged_decode_attention": "chunked",
+                 "decode_attention": "chunked"}:
+        fail(f"{PHI3}'s main path runs other bodies than the rule's: "
+             f"{rules}")
+    for k, body in rules.items():
+        summary[k]["body"] = body
     phase("launches_per_engine_step", arch=PHI3,
           paged_decode_attention=ec["paged_decode_attention"]
           / max(st["steps"], 1),
@@ -2729,10 +2687,9 @@ def run(torch, dev, timer, smi, records):
     # ---- the rest of the dense family (GQA groups 3, 6, 8; squared-ReLU
     # MLPs; qk-norm) and moe, at full size: the same two kernels
     for arch in DENSE_FAMILY + (MOE,):
-        for counts, bodies in family_phase(torch, dev, smi, arch).values():
+        for counts in family_phase(torch, dev, smi, arch).values():
             for k in ("flash_attention", "paged_decode_attention"):
                 summary[k]["launches"] += counts[k]
-            add_body_launches(summary, bodies)
 
     for arch in (PHI3 + "-smoke", MAMBA + "-smoke"):
         exact_tokens(torch, dev, arch)
@@ -2748,10 +2705,9 @@ def run(torch, dev, timer, smi, records):
     # ---- the hybrid, vlm and audio families at full size, through the
     # bucketed path (the engine serves dense, moe and ssm only, as in JAX)
     for arch in FAMILY_ARCHS:
-        counts, bodies = family_phase_new(torch, dev, smi, arch)
+        counts = family_phase_new(torch, dev, smi, arch)
         for k, v in counts.items():
             summary[k]["launches"] += v
-        add_body_launches(summary, bodies)
     for arch in FAMILY_ARCHS:
         exact_tokens_bucketed(torch, dev, arch + "-smoke")
 
@@ -3335,29 +3291,6 @@ def engine_launches(cfg, admissions, steps):
             "paged_decode_attention": n * steps}
 
 
-def add_body_launches(summary, bodies):
-    """Add ``bodies`` (``kernels.body_launch_counts()`` names, e.g.
-    ``flash_attention.wgmma``) to the kernels' summary entries
-    (``body_launches``, per body)."""
-    for name, n in bodies.items():
-        kernel, body = name.split(".")
-        per = summary[kernel].setdefault("body_launches", {})
-        per[body] = per.get(body, 0) + n
-
-
-def grouped_decode_gate(cfg, counts, bodies, kernel, label):
-    """A drain's decode launches all ran the packed body when ``cfg``'s KV
-    group holds more than one head (bf16, head dims of the packed set:
-    every grouped config of the repository), none when it is MHA."""
-    from repro_torch.kernels._geometry import decode_body
-    rule = decode_body(cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, 2)
-    want = counts.get(kernel, 0) if rule == "packed" else 0
-    got = bodies.get(f"{kernel}.packed", 0)
-    if got != want:
-        fail(f"{label}: {got} packed {kernel} launches, want {want} "
-             f"(group {cfg.n_heads // cfg.n_kv_heads}, rule {rule})")
-
-
 def drive(torch, session, prompts, on_step=None, deadlines=None):
     """Submit the engine phase's requests (``r0``...), drain once, then
     once more to flush what finished outside it (a queued request's
@@ -3923,11 +3856,9 @@ def family_phase(torch, dev, smi, arch):
     """``[dense_family]`` / ``[moe]``: full-size ``arch`` in bf16 with
     random weights from seed 0, the engine phase's 8 requests in graphs
     mode (``NEW_DRAINS``, moe ``MOE_DRAINS``); flash launches n_layers
-    per admission (all on mma.sync: the prefills are at most 512 tokens)
-    and paged decode n_layers per step (all on the packed body where the
-    KV group holds more than one head).  For moe, the capacity of every
-    bucket the drains used and the dropped slots of each drain.  Returns
-    each drain's (launches, body launches)."""
+    per admission and paged decode n_layers per step.  For moe, the
+    capacity of every bucket the drains used and the dropped slots of
+    each drain.  Returns each drain's launches."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.models.moe import capacity, drop_tally
@@ -3955,12 +3886,6 @@ def family_phase(torch, dev, smi, arch):
         if {k: v for k, v in r["counts"].items() if v} != want:
             fail(f"{arch} [{tag}] {drain}: launches {r['counts']}, want "
                  f"{want}")
-        grouped_decode_gate(cfg, r["counts"], r["bodies"],
-                            "paged_decode_attention",
-                            f"{arch} [{tag}] {drain}")
-        if r["bodies"].get("flash_attention.wgmma"):
-            fail(f"{arch} [{tag}] {drain}: a prefill of at most 512 tokens "
-                 f"ran the wgmma flash body: {r['bodies']}")
     last = runs[drains[-1]]
     st = last["stats"]
     extra = {}
@@ -4000,7 +3925,7 @@ def family_phase(torch, dev, smi, arch):
           **extra, seconds=f"{time.perf_counter() - t0:.1f}")
     if cfg.n_experts:
         moe_rounding(torch, dev, params, cfg, smi)
-    launched = {d: (r["counts"], r["bodies"]) for d, r in runs.items()}
+    launched = {d: r["counts"] for d, r in runs.items()}
     del params, model, runs
     free_card(torch)
     return launched
@@ -4719,10 +4644,15 @@ def drift_loop(torch, model, params, prompts, new_tokens, batch, label):
     8 (past the two rounds of extra probes a later commit may take), a
     watchdog (ratio 3, patience 2) and a flight recorder.  Gated: the
     slot commits before S, the drift alarm fires within patience steps
-    of S, reopens the slot, which commits again by the drain's end, and
-    ``postmortem-drift.json`` names the slot, its old schedule and the
-    new one.  Returns the fields of its phase line and both runs'
-    tokens."""
+    of S, reopens the slot, which commits again, no other drift fires,
+    and ``postmortem-drift.json`` names the slot, its old schedule and
+    the schedule of the re-commit, which the slot still holds at the
+    drain's end.  The session's watchdog judges each decode step's graph
+    time on the card (CUDA events), so host jitter, which can triple a
+    smoke model's 0.34 ms host step, does not reach it; a later drift
+    fails the run with the host times of the steps before it (the
+    postmortem's decode-step spans).  Returns the fields of its phase
+    line and both runs' tokens."""
     import tempfile
     from repro_torch.core import registry as reg
     from repro_torch.obs import (FlightRecorder, MetricsRegistry,
@@ -4758,7 +4688,7 @@ def drift_loop(torch, model, params, prompts, new_tokens, batch, label):
                     if spec is not None else None),
             telemetry=Telemetry(metrics=MetricsRegistry()), watchdog=wd,
             recorder=rec)
-        trail = []          # (step, committed) whenever it changes
+        trail = []          # (step, committed, schedule) at each change
         found = {}
 
         def on_step(info):
@@ -4768,9 +4698,9 @@ def drift_loop(torch, model, params, prompts, new_tokens, batch, label):
                 if key is None:
                     return
                 found.update(slot=key, problem=prob)
-            c = svc.is_committed(found["slot"])
-            if not trail or trail[-1][1] != c:
-                trail.append((s._step_count - 1, c))
+            sched = svc.committed_schedule(found["slot"])
+            if not trail or trail[-1][2] != sched:
+                trail.append((s._step_count - 1, sched is not None, sched))
 
         for i, p in enumerate(prompts):
             s.submit(p, new_tokens, request_id=f"r{i}")
@@ -4784,7 +4714,7 @@ def drift_loop(torch, model, params, prompts, new_tokens, batch, label):
                 {k: v.tokens.tolist() for k, v in res.items()})
 
     _, _, prob, _, _, s0, trail0, clean = run()
-    commits0 = [st for st, c in trail0 if c]
+    commits0 = [st for st, c, _ in trail0 if c]
     if not commits0:
         fail(f"{label}: the decode slot {prob} did not commit in "
              f"{s0.stats.steps} steps")
@@ -4796,7 +4726,11 @@ def drift_loop(torch, model, params, prompts, new_tokens, batch, label):
         path = Path(tmp) / "postmortem-drift.json"
         bundle = json.loads(path.read_text()) if path.exists() else None
     drifts = [e for e in s.stats.events if e.kind == "drift"]
-    commits = [st for st, c in trail if c]
+    commits = [st for st, c, _ in trail if c]
+    # the host times of the steps the postmortem's ring still holds
+    host_ms = {} if bundle is None else {
+        e["step"]: round(1e3 * e["dur_s"], 4) for e in bundle["timeline"]
+        if e.get("name") == "serve.decode_step" and "dur_s" in e}
     if not commits or commits[0] >= start:
         fail(f"{label}: the decode slot committed at {commits[:1]}, not "
              f"before the fault at step {start} (trail {trail})")
@@ -4805,16 +4739,24 @@ def drift_loop(torch, model, params, prompts, new_tokens, batch, label):
              f"{[e.step for e in drifts]}, want one in "
              f"[{start}, {start + wd.patience}] ({wd.report()})")
     ev = drifts[0]
-    reopened = [st for st, c in trail if not c and st >= ev.step]
+    later = [dict(step=e.step, ratio=round(e.data["ratio"], 2),
+                  baseline_ms=round(1e3 * e.data["baseline_s"], 4),
+                  host_ms=[host_ms.get(i) for i in
+                           range(e.step - wd.patience - 1, e.step + 1)])
+             for e in drifts[1:]]
+    if later:
+        fail(f"{label}: drifts after the injected one: {later} (trail "
+             f"{trail})")
+    reopened = [st for st, c, _ in trail if not c and st >= ev.step]
     if not ev.data["reopened"] or not reopened \
             or svc.metrics.counter("dispatch.reopens_total").value < 1:
         fail(f"{label}: the drift alarm did not reopen the slot "
              f"({ev.as_dict()}, trail {trail})")
-    recommits = [st for st, c in trail if c and st > reopened[0]]
-    new = svc.committed_schedule(slot)
-    if not recommits or new is None:
-        fail(f"{label}: the reopened slot did not commit again "
-             f"(trail {trail})")
+    recommits = [(st, sc) for st, c, sc in trail if c and st > reopened[0]]
+    if not recommits or svc.committed_schedule(slot) != recommits[0][1]:
+        fail(f"{label}: the reopened slot did not commit again and hold "
+             f"that schedule to the drain's end (trail {trail})")
+    new = recommits[0][1]
     old = ev.data["old_schedule"]
     bev = None if bundle is None else next(
         (e for e in bundle["timeline"] if e.get("kind") == "drift"), None)
@@ -4831,7 +4773,7 @@ def drift_loop(torch, model, params, prompts, new_tokens, batch, label):
         clean_commit_step=commits0[0], drift_step=ev.step,
         drift_ratio=f"{ev.data['ratio']:.1f}",
         baseline_ms=f"{1e3 * ev.data['baseline_s']:.4f}",
-        reopen_step=reopened[0], recommit_step=recommits[0],
+        reopen_step=reopened[0], recommit_step=recommits[0][0],
         old_schedule=json.dumps(old), new_schedule=json.dumps(new),
         recaptures=st.recompiles, free_switches=st.free_switches,
         commits_seen=st.commits_seen,
@@ -4839,7 +4781,14 @@ def drift_loop(torch, model, params, prompts, new_tokens, batch, label):
             "dispatch.commits_total").value),
         drifts=len(drifts), dumps=json.dumps(dict(rec.dumps)),
         events=json.dumps([e.kind for e in st.events]),
-        steps=st.steps, token_agreement_with_clean=f"{agree:.4f}")
+        steps=st.steps, token_agreement_with_clean=f"{agree:.4f}",
+        host_step_ms_median=sorted(host_ms.values())[len(host_ms) // 2],
+        # steps outside the fault whose host time passed ratio x the
+        # baseline: what a watchdog on the host's clock would have judged
+        host_steps_over_ratio=json.dumps(
+            [(k, v) for k, v in sorted(host_ms.items())
+             if not start <= k < start + 4
+             and v > wd.ratio * 1e3 * ev.data["baseline_s"]]))
     return fields, tokens, clean
 
 
@@ -4906,33 +4855,6 @@ def family_launches(cfg):
     return cfg.n_layers, cfg.n_layers
 
 
-def family_wgmma_launches(cfg, session):
-    """The flash launches of a family drain that the static rule
-    (``_geometry.flash_body``, 64 query rows a block) puts on the wgmma
-    body: per batch of each bucket, the attention layers whose prefill
-    walks more than ``FLASH_WGMMA_MIN_KEYS`` keys a query tile (the vlm's
-    image tokens go in front of its text; audio's encoder attends over
-    its frames without a mask)."""
-    from repro_torch.kernels._geometry import flash_body
-    from repro_torch.models.transformer import hybrid_counts
-    d = cfg.resolved_head_dim
-    n = 0
-    for bucket, entry in session.stats.per_bucket.items():
-        s, per = bucket.prompt_len, cfg.n_layers
-        window = None
-        if cfg.family == "vlm":
-            s += cfg.num_image_tokens
-        if cfg.family == "hybrid":
-            per = family_launches(cfg)[0]
-            window = cfg.local_window
-        k = per * (flash_body(d, s, 2, causal=True, window=window) == "wgmma")
-        if cfg.family == "audio":
-            k += cfg.encoder_layers * (flash_body(
-                d, cfg.encoder_seq, 2, causal=False) == "wgmma")
-        n += k * entry["batches"]
-    return n
-
-
 def family_extras(model, n):
     """``n`` requests' modality extras (float32 numpy rows of the
     family's ``image_embeds`` or ``frames``) from a torch generator
@@ -4988,21 +4910,6 @@ def family_gate(cfg, session, counts, label, new_tokens=NEW_TOKENS):
         fail(f"{label}: launches {counts}, want {want} ({fpp} flash a "
              f"prefill, {dps} decode a step, {batches} batches)")
     return batches * (new_tokens - 1)
-
-
-def body_gate(cfg, session, counts, label):
-    """The second bodies' launches of a drain (read just after it):
-    exactly :func:`family_wgmma_launches` flash launches on wgmma, and
-    every decode launch on the packed body when the KV group holds more
-    than one head (none when it is MHA).  Returns them (non-zero)."""
-    from repro_torch import kernels
-    bodies = {k: v for k, v in kernels.body_launch_counts().items() if v}
-    want = family_wgmma_launches(cfg, session)
-    if bodies.get("flash_attention.wgmma", 0) != want:
-        fail(f"{label}: {bodies} launches of the second bodies, want "
-             f"{want} flash launches on wgmma")
-    grouped_decode_gate(cfg, counts, bodies, "decode_attention", label)
-    return bodies
 
 
 def family_vs_plain(torch, model, params, prompts, extras, smi, want):
@@ -5109,8 +5016,7 @@ def family_phase_new(torch, dev, smi, arch):
     the windowed prefill, decode in the wrapped buffer); then
     :func:`family_vs_plain` on the same requests.  The profile
     (:func:`family_profile`) runs after the launches were read.  Returns
-    the graphs drains' launches and their second bodies' launches
-    (:func:`body_gate`)."""
+    the graphs drains' launches."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model, bucket_length
 
@@ -5128,7 +5034,6 @@ def family_phase_new(torch, dev, smi, arch):
     toks, s, wall, counts, reserved = family_drain(
         torch, model, params, prompts, extras, True, f"{arch} cold")
     steps = family_gate(cfg, s, counts, f"{arch} cold")
-    bodies = body_gate(cfg, s, counts, f"{arch} cold")
     st = s.stats.to_dict()
     fpp, dps = family_launches(cfg)
     phase(cfg.family, arch=arch, card=repr(smi), params=n_params,
@@ -5140,11 +5045,10 @@ def family_phase_new(torch, dev, smi, arch):
           ttft_p50_s=f"{st['ttft_p50_s']:.4f}",
           ttft_p95_s=f"{st['ttft_p95_s']:.4f}",
           peak_reserved_gib=f"{reserved / 2 ** 30:.2f}",
-          launches=json.dumps(counts), body_launches=json.dumps(bodies),
-          flash_per_prefill=fpp,
+          launches=json.dumps(counts), flash_per_prefill=fpp,
           decode_per_step=dps, buckets=json.dumps(sorted(st["buckets"])),
           seconds=f"{time.perf_counter() - t0:.1f}")
-    total, total_bodies = dict(counts), dict(bodies)
+    total = dict(counts)
     family_profile(torch, s, cfg, smi)
     del s
     check_prompts, check_extras = prompts, extras[:len(prompts)]
@@ -5155,7 +5059,6 @@ def family_phase_new(torch, dev, smi, arch):
             torch, model, params, [long_p], [extras[-1]], True,
             f"{arch} long")
         lsteps = family_gate(cfg, ls, lcounts, f"{arch} long")
-        lbodies = body_gate(cfg, ls, lcounts, f"{arch} long")
         (bucket,) = ls.stats.per_bucket
         win = min(cfg.local_window, bucket.total_len)
         if bucket.prompt_len != bucket_length(LONG_PROMPT) or (
@@ -5169,12 +5072,9 @@ def family_phase_new(torch, dev, smi, arch):
               prefill_s=f"{ls.stats.prefill_s:.4f}",
               step_ms=f"{1e3 * ls.stats.decode_s / lsteps:.2f}",
               peak_reserved_gib=f"{lres / 2 ** 30:.2f}",
-              launches=json.dumps(lcounts),
-              body_launches=json.dumps(lbodies), seconds=f"{lwall:.1f}")
+              launches=json.dumps(lcounts), seconds=f"{lwall:.1f}")
         for k, v in lcounts.items():
             total[k] = total.get(k, 0) + v
-        for k, v in lbodies.items():
-            total_bodies[k] = total_bodies.get(k, 0) + v
         check_prompts = prompts + [long_p]
         check_extras = extras
         want[f"r{len(prompts)}"] = ltoks["r0"]
@@ -5183,7 +5083,7 @@ def family_phase_new(torch, dev, smi, arch):
                     want)
     del params, model
     free_card(torch)
-    return total, total_bodies
+    return total
 
 
 def exact_tokens_bucketed(torch, dev, arch):

@@ -90,13 +90,16 @@ compulsory bytes at 3.35 TB/s as the memory term:
   round trip and two barriers), plus the tiles' work (MMAs, exps on the
   SFUs and staging from L2, at their peak rates, times
   ``FLASH_WORK_EFF``) spread over the SMs in use.  The body is the
-  static rule's (``_geometry.flash_body``, without the window: the
-  tuner's problem has none).  The wgmma body costs its tiles' work
-  alone, times ``FLASH_WGMMA_WORK_EFF`` (its producer's TMA ring hides a
-  tile's round trip), with its MMAs at ``FLASH_WGMMA_MMA_SHARE`` of the
-  mma.sync body's time; a tile whose registers exceed the launch bounds'
-  budget (``FlashWgmmaTile.spills``) runs its MMAs at the mma.sync rate
-  and its softmax and staging after them, as ptxas serializes them;
+  one the wrapper runs (``_geometry.flash_body``: by dtype and head dim,
+  so a windowed call too).  The wgmma body, which every model's head
+  dim runs, has its own three: ``FLASH_WGMMA_BLOCK_S`` a block,
+  ``FLASH_WGMMA_TILE_S`` a reachable tile of its most loaded wave (its
+  producer's TMA ring hides most of a tile's round trip) and its tiles'
+  work times ``FLASH_WGMMA_WORK_EFF``, with its MMAs at
+  ``FLASH_WGMMA_MMA_SHARE`` of the mma.sync body's time; a tile whose
+  registers exceed the launch bounds' budget (``FlashWgmmaTile.spills``)
+  runs its MMAs at the mma.sync rate and its softmax and staging after
+  them, as ptxas serializes them;
 - the split decode: per wave of (row, split) blocks ``DEC_BLOCK_S`` plus
   ``DEC_TILE_S`` a staged tile of its split, plus ``DEC_MERGE_S`` an L2
   round trip of the merge (4 splits' partials each) when a row has more
@@ -110,10 +113,14 @@ compulsory bytes at 3.35 TB/s as the memory term:
 
 Blocks resident on an SM come from threads and shared memory, as for the
 thesis bodies.  ``launch/calibrate_thesis.py --score`` fits each
-family's three constants by least squares on timed candidates.
+family's constants on timed candidates, by least squares and by a
+coordinate search of the mean squared log error (the fit flash's wgmma
+terms and the decode's constants keep).
 
-Its version string is its own (``h100-7`` times the persistent bf16
-matmul body: its walk, tail split and epilogue; ``h100-6`` the
+Its version string is its own (``h100-8`` scores flash's one bf16 body
+at the models' head dims with its own block and tile terms, and refits
+the decode; ``h100-7`` times the persistent bf16 matmul body: its walk,
+tail split and epilogue; ``h100-6`` the
 redesigned bf16 conv body: cp.async ring, walks with a resident operand;
 ``h100-5``
 adds the second bodies of flash attention and of the decode;
@@ -140,7 +147,7 @@ from repro_torch.kernels import _geometry as geo
 
 # Bump whenever a change below alters predicted costs: the registry keys
 # cached rankings on it, so stale predictions self-invalidate.
-COST_MODEL_VERSION = "h100-7"
+COST_MODEL_VERSION = "h100-8"
 
 # Cost-model queries in this process, one per candidate scored: a warm
 # registry hit performs zero (asserted in tests/test_torch_thesis.py).
@@ -219,26 +226,41 @@ SPARSE_REGS = 64
 # The serving kernels: least squares of ``calibrate_thesis --kinds
 # flash_attention decode_attention ssm_scan`` (67 lines: every offered
 # candidate at 6 flash, 6 decode and 6 scan shapes, bf16) on an NVIDIA
-# H100 80GB HBM3 at 700 W (PERF.md).  Flash: a block's Q load and
-# epilogue, a reachable key tile's round trip, and the multiple of the
-# peak rates' time its tile work takes.
+# H100 80GB HBM3 at 700 W (PERF.md); flash's wgmma terms and the decode
+# refitted since, below.  Flash's mma.sync body (now only at head dims
+# outside FLASH_WGMMA_D, which no model has, so these stay as fitted
+# then): a block's Q load and epilogue, a reachable key tile's round
+# trip, and the multiple of the peak rates' time its tile work takes.
 FLASH_BLOCK_S = 6.802e-6
 FLASH_TILE_S = 1.209e-6
 FLASH_WORK_EFF = 3.132
 # The wgmma flash body's time for a tile's work as a share of the
 # mma.sync body's: the geometric mean of the two bodies' ratios at 4096
-# keys in chip_smoke.py's [time_body] (0.267 at D 256 causal, 0.427 at
+# keys in the sweep of both bodies that chip_smoke.py ran before flash
+# had one bf16 body at these head dims (0.267 at D 256 causal, 0.427 at
 # D 64; NVIDIA H100 80GB HBM3, 700 W; PERF.md).
 FLASH_WGMMA_MMA_SHARE = 0.34
 # The multiple of its tiles' work that the wgmma body takes: the least
 # squares of ``calibrate_thesis --score`` on its 6 lines (3 shapes past
 # 512 keys at 64 and 128 rows; NVIDIA H100 80GB HBM3, 700 W; PERF.md).
 FLASH_WGMMA_WORK_EFF = 1.631
+# A wgmma block's fixed latency (Q by TMA, the first K/V tiles, the
+# epilogue) and a reachable key tile's round trip, which the ring mostly
+# hides: the prefills of the engine's buckets hold few tiles a block.
+# ``calibrate_thesis --score``'s coordinate fit of the mean squared log
+# error on its 22 flash lines (11 shapes at 64 and 128 rows, phi3's
+# buckets 16-512 among them), FLASH_WGMMA_WORK_EFF kept; NVIDIA H100
+# 80GB HBM3, 700 W; PERF.md.
+FLASH_WGMMA_BLOCK_S = 5.782e-6
+FLASH_WGMMA_TILE_S = 1.4e-7
 # The split decode: a block's fixed latency (q, pos and starts, the
-# partial's publication), a staged tile, a merge batch of 4 splits.
-DEC_BLOCK_S = 4.694e-6
-DEC_TILE_S = 5.105e-6
-DEC_MERGE_S = 1.611e-6
+# partial's publication), a staged tile, a merge batch of 4 splits; the
+# coordinate fit of ``calibrate_thesis --score`` on its 47 decode lines
+# (chunked at MHA, packed at three grouped shapes; NVIDIA H100 80GB
+# HBM3, 700 W; PERF.md).
+DEC_BLOCK_S = 9.463e-6
+DEC_TILE_S = 2.582e-6
+DEC_MERGE_S = 1.917e-6
 # The selective scan: a wave's fixed latency, a step of the recurrence,
 # an exp on the most loaded SM.
 SCAN_BLOCK_S = 5.564e-6
@@ -1006,21 +1028,23 @@ def flash_attention_features(b: int, hq: int, hkv: int, s: int, d: int,
                              causal: bool = True,
                              spec: H100Spec = H100Spec(),
                              elem_bytes: int = 2):
-    """Per (block_q, block_kv): (features [n, 4], smem, feasible), the
+    """Per (block_q, block_kv): (features [n, 6], smem, feasible), the
     features multiplying (FLASH_BLOCK_S, FLASH_TILE_S, FLASH_WORK_EFF,
-    FLASH_WGMMA_WORK_EFF): waves of blocks (blocks over SMs x resident
-    blocks, at least 1); waves x the most key tiles a block reaches; the
-    tiles' work at peak rates (MMAs or FMAs, exps, L2 staging) spread
-    over the SMs in use.  The body is ``_geometry.flash_body``'s for the
-    tile's rows and no window (the problem has none, so a windowed call
-    whose tile walks at most FLASH_WGMMA_MIN_KEYS keys is scored on the
-    wgmma body the wrapper does not run).  A wgmma tile has the fourth
-    feature only: its tiles' work, its MMAs at ``FLASH_WGMMA_MMA_SHARE``
-    of the mma.sync body's time, or, where its registers spill, at the
-    mma.sync rate and in series with the softmax and the staging."""
+    FLASH_WGMMA_WORK_EFF, FLASH_WGMMA_BLOCK_S, FLASH_WGMMA_TILE_S).  The
+    body is ``_geometry.flash_body``'s, the one the wrapper runs at this
+    dtype and head dim, windowed or not.  The mma.sync and CUDA-core
+    bodies have the first three: waves of blocks (blocks over SMs x
+    resident blocks, at least 1); waves x the most key tiles a block
+    reaches; the tiles' work at peak rates (MMAs or FMAs, exps, L2
+    staging) spread over the SMs in use.  A wgmma tile has the last
+    three: its tiles' work, its MMAs at ``FLASH_WGMMA_MMA_SHARE`` of the
+    mma.sync body's time, or, where its registers spill, at the mma.sync
+    rate and in series with the softmax and the staging; its waves (at
+    ``FlashWgmmaTile.blocks_per_sm``) and waves x the most key tiles a
+    block reaches, which hold the engine's short prefills."""
     mma = geo.tensor_cores(elem_bytes)
     clock = _clock_hz(spec)
-    feats = np.zeros((len(blocks), 4))
+    feats = np.zeros((len(blocks), 6))
     smem = np.zeros(len(blocks))
     ok = np.zeros(len(blocks), dtype=bool)
     for j, (bq, bkv) in enumerate(blocks):
@@ -1032,7 +1056,7 @@ def flash_attention_features(b: int, hq: int, hkv: int, s: int, d: int,
         exp_s = bq * bkv / (SFU_PER_CLOCK * clock)
         stage_s = 2.0 * bkv * d * elem_bytes / (spec.l2_bw / spec.sms)
         n_blocks = b * hq * n_qt
-        if mma and geo.flash_body(d, s, elem_bytes, bq, causal) == "wgmma":
+        if geo.flash_body(d, elem_bytes) == "wgmma":
             t = geo.flash_wgmma_tile(d, bq)
             ok[j] = ok[j] and t.error is None
             smem[j] = t.smem
@@ -1040,8 +1064,10 @@ def flash_attention_features(b: int, hq: int, hkv: int, s: int, d: int,
             mma_s = 6.0 * bq * bkv * d / (spec.tc_peak_flops / spec.sms)
             work = (mma_s + exp_s + stage_s if t.spills else
                     max(mma_s * FLASH_WGMMA_MMA_SHARE + exp_s, stage_s))
-            feats[j, 3] = (b * hq * tiles.sum() * work
-                           / min(spec.sms, n_blocks))
+            waves = max(1.0, n_blocks / (spec.sms * t.blocks_per_sm))
+            feats[j, 3:] = (b * hq * tiles.sum() * work
+                            / min(spec.sms, n_blocks), waves,
+                            waves * tiles.max())
             continue
         if mma:
             t = geo.flash_mma_tile(d, bq)
@@ -1073,7 +1099,8 @@ def flash_attention_schedule_cost_batch(
     feats, smem, ok = flash_attention_features(b, hq, hkv, s, d, blocks,
                                                causal, spec, elem_bytes)
     compute_s = feats @ np.array([FLASH_BLOCK_S, FLASH_TILE_S,
-                                  FLASH_WORK_EFF, FLASH_WGMMA_WORK_EFF])
+                                  FLASH_WORK_EFF, FLASH_WGMMA_WORK_EFF,
+                                  FLASH_WGMMA_BLOCK_S, FLASH_WGMMA_TILE_S])
     dram = (2 * b * hq + 2 * b * hkv) * s * d * elem_bytes
     return _serving_cost(len(blocks), compute_s, dram, smem, ok, spec)
 

@@ -5,10 +5,6 @@ its plain PyTorch version (``ref.py``).  The wrapper runs the plain
 version only for CPU tensors; for a CUDA tensor it launches the kernel
 or raises.  Each wrapper counts its launches in a plain integer
 attribute, ``<wrapper>.launches``, which :func:`launch_counts` reads.
-The two attention kernels with a second bf16 body also count that
-body's launches (``flash_attention.wgmma_launches``,
-``*decode_attention.packed_launches``), which :func:`body_launch_counts`
-reads; both are part of the wrapper's total.
 """
 from __future__ import annotations
 
@@ -32,34 +28,18 @@ WRAPPERS = {
     "sparse_conv2d": sparse_conv2d,
 }
 
-# (wrapper, counter attribute) of each second body, by name
-BODIES = {
-    "flash_attention.wgmma": (flash_attention, "wgmma_launches"),
-    "decode_attention.packed": (decode_attention, "packed_launches"),
-    "paged_decode_attention.packed": (paged_decode_attention,
-                                      "packed_launches"),
-}
-
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
-def body_launch_counts() -> Dict[str, int]:
-    """Launches of the second bodies since the last reset."""
-    return {name: getattr(fn, attr) for name, (fn, attr) in BODIES.items()}
-
-
 def reset_launch_counts() -> None:
-    """Set every wrapper's launch count, and its bodies', to 0."""
+    """Set every wrapper's launch count to 0."""
     for fn in WRAPPERS.values():
         fn.launches = 0
-    for fn, attr in BODIES.values():
-        setattr(fn, attr, 0)
 
 
-__all__ = ["WRAPPERS", "BODIES", "launch_counts", "body_launch_counts",
-           "reset_launch_counts",
+__all__ = ["WRAPPERS", "launch_counts", "reset_launch_counts",
            "flash_attention", "decode_attention", "paged_decode_attention",
            "ssm_scan", "matmul", "conv2d", "sparse_conv2d"]

@@ -46,8 +46,8 @@ SIGNATURES = {
     # stream
     "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _F, _I, _I, _I, _P],
-    # the long-sequence bf16 body (wgmma + TMA): q, k, v, o, starts, B,
-    # HQ, HKV, S, D, causal, window, scale, rows, keys, stream
+    # the bf16 body at the models' head dims (wgmma + TMA): q, k, v, o,
+    # starts, B, HQ, HKV, S, D, causal, window, scale, rows, keys, stream
     "flash_attention_wgmma_fwd": [_P] * 5 + [_I] * 7 + [_F, _I, _I, _P],
     # q, k, v, o, pos (int32), starts (int64, or null), workspace,
     # tickets, B, HQ, HKV, S, D, split_keys, tile_keys, head_chunk, smem,

@@ -9,15 +9,16 @@ scan (``scan_layout``), per dtype: bf16 runs on the tensor cores
 on the CUDA cores (``conv_tile``, ``matmul_tile``);
 ``tensor_cores`` is the one rule that picks by element size, and
 ``conv_layout``, ``sparse_layout`` and ``matmul_layout`` follow it.
-Two attention kernels have a second bf16 body, picked by a rule on
-static shapes (never ``pos`` or ``starts``, so a captured graph's
-launch is fixed): ``flash_body`` (mma.sync, or wgmma + TMA for query
-tiles that walk many keys) and ``decode_body`` (head chunks, or the
-whole KV group packed as the rows of tensor-core tiles). The
-wrappers use it to launch (and to raise on a block the kernel cannot
-take), the H100 cost model uses it for its padding and feasibility
-terms, and the tuner uses it to offer only blocks the kernel accepts, so
-a ranked schedule never raises on the card.  Pure Python: nothing here
+The attention kernels pick their body by a rule on the dtype, the head
+dim and the KV group (never ``pos``, ``starts`` or the length, so a
+captured graph's launch is fixed): ``flash_body`` (one bf16 body at the
+models' head dims, wgmma + TMA; mma.sync at other head dims) and
+``decode_body`` (the whole KV group packed as the rows of tensor-core
+tiles; head chunks on the CUDA cores for MHA, float32 and the rest).
+The wrappers use it to launch (and to raise on a block the kernel
+cannot take), the H100 cost model uses it for its padding and
+feasibility terms, and the tuner uses it to offer only blocks the
+kernel accepts, so a ranked schedule never raises on the card.  Pure Python: nothing here
 touches a device.
 """
 from __future__ import annotations
@@ -103,12 +104,13 @@ MMA_SMS = 132
 SPARSE_TILE_Y = 8
 SPARSE_TILE_X = 16
 
-# bf16 flash attention (mma.sync.m16n8k16): 16 query rows a warp, 64 or
-# 128 rows a block (4 or 8 warps; the block's rows are a template
-# parameter), 64-key K/V tiles; D pads to 16 up to FLASH_Q_REGS_D (Q kept
-# in registers), to 32 above it up to FLASH_MAX_D (Q re-read from shared
-# memory for each KV tile).  The float32 body takes the same head dims in
-# its single tile of FLASH_F32_TILE (query rows, keys).
+# bf16 flash attention on mma.sync.m16n8k16 (the body of the head dims
+# outside FLASH_WGMMA_D): 16 query rows a warp, 64 or 128 rows a block
+# (4 or 8 warps; the block's rows are a template parameter), 64-key K/V
+# tiles; D pads to 16 up to FLASH_Q_REGS_D (Q kept in registers), to 32
+# above it up to FLASH_MAX_D (Q re-read from shared memory for each KV
+# tile).  The float32 body takes the same head dims in its single tile
+# of FLASH_F32_TILE (query rows, keys).
 FLASH_ROWS = 64               # the default rows of a bf16 block
 FLASH_ROW_CHOICES = (64, 128)
 FLASH_KEYS = 64
@@ -116,21 +118,15 @@ FLASH_Q_REGS_D = 128
 FLASH_MAX_D = 256
 FLASH_F32_TILE = (64, 32)
 
-# bf16 flash attention for long sequences (csrc/flash_wgmma.cu): wgmma +
-# TMA, one or two consumer warpgroups (64 or 128 query rows, the same
-# FLASH_ROW_CHOICES) and a producer warp; Q and a ring of two stages of
-# K and V (FLASH_KEYS keys each) in shared memory as [D / W][rows][W]
-# swizzled tiles, W = 64 elements (32 at D 96), 1024-byte aligned.
+# bf16 flash attention at the models' head dims, every length
+# (csrc/flash_wgmma.cu): wgmma + TMA, one or two consumer warpgroups (64
+# or 128 query rows, the same FLASH_ROW_CHOICES) and a producer warp; Q
+# and a ring of two stages of K and V (FLASH_KEYS keys each) in shared
+# memory as [D / W][rows][W] swizzled tiles, W = 64 elements (32 at D
+# 96), 1024-byte aligned.
 FLASH_WGMMA_D = (64, 96, 128, 256)
 FLASH_WGMMA_STAGES = 2
 FLASH_WGMMA_BARRIER_BYTES = 256
-# A query tile that walks more keys than this takes the wgmma body.  The
-# threshold keeps the engine's prefills of at most 512 tokens on the
-# mma.sync body they were tuned on; it is not where the bodies cross:
-# chip_smoke.py's [time_body] sweep (PERF.md) has the wgmma body faster
-# at every swept length, 512 keys included (0.0196 against 0.0362 ms at
-# D 96, causal; NVIDIA H100 80GB HBM3, 700 W).
-FLASH_WGMMA_MIN_KEYS = 512
 # Registers a consumer thread of the wgmma body needs beside O (D / 2
 # f32), S (32) and P's bf16 hi and lo (16 each): ptxas fits D 64's 96 in
 # 128 with 40 to spare under three blocks an SM, and spills at D 256 with
@@ -152,7 +148,7 @@ DEC_TARGET_BLOCKS = 132 * 8
 DEC_STATS_BYTES = (3 * DEC_MAX_HEADS + 4) * 4   # m, l, alpha + flag
 
 # The packed decode body (csrc/decode_common.cuh, decode_packed_kernel):
-# bf16 with a KV group of more than one query head at a head dim of
+# bf16 with a KV group of 2 to 64 query heads at a head dim of
 # DEC_PACKED_D.  A block serves one (row, KV head, split) for all of the
 # group's heads, which are the rows of mma.sync tiles (16 a tile, zero
 # rows past the group; 1, 2 or 4 tiles), so K and V cross memory once a
@@ -536,13 +532,16 @@ def flash_mma_tile(d: int, rows: int = FLASH_ROWS) -> FlashMmaTile:
 
 def flash_tile_error(d: int, elem_bytes: int, block_q: int,
                      block_kv: int) -> Optional[str]:
-    """Why the flash body of the dtype refuses (block_q, block_kv) at
-    head dim ``d``, or None: bf16 takes FLASH_ROW_CHOICES rows at
-    FLASH_KEYS keys, float32 only its FLASH_F32_TILE."""
+    """Why the flash body that runs at this dtype and head dim
+    (:func:`flash_body`) refuses (block_q, block_kv), or None: both bf16
+    bodies take FLASH_ROW_CHOICES rows at FLASH_KEYS keys, float32 only
+    its FLASH_F32_TILE."""
     if tensor_cores(elem_bytes):
         if block_kv != FLASH_KEYS:
             return (f"block_kv {block_kv} is not the bf16 body's key tile "
                     f"{FLASH_KEYS}")
+        if flash_body(d, elem_bytes) == "wgmma":
+            return flash_wgmma_tile(d, block_q).error
         return flash_mma_tile(d, block_q).error
     if (block_q, block_kv) != FLASH_F32_TILE:
         return (f"(block_q, block_kv) ({block_q}, {block_kv}) is not the "
@@ -558,7 +557,7 @@ def flash_default_tile(elem_bytes: int) -> Tuple[int, int]:
 
 @dataclasses.dataclass(frozen=True)
 class FlashWgmmaTile:
-    """How the long-sequence bf16 flash body lays out a head dim and a
+    """How the wgmma bf16 flash body lays out a head dim and a
     block of query rows (``csrc/flash_wgmma.cu``,
     flash_wgmma_kernel<DP, WG>)."""
     d: int
@@ -614,29 +613,15 @@ def flash_wgmma_tile(d: int, rows: int = FLASH_ROWS) -> FlashWgmmaTile:
     return FlashWgmmaTile(d, rows, 64 if d % 64 == 0 else 32, smem)
 
 
-def flash_walk(s: int, causal: bool = True, window: Optional[int] = None,
-               rows: int = FLASH_ROWS) -> int:
-    """Keys the most loaded query tile of ``rows`` rows walks at length
-    ``s``: all of them without the causal mask, at most the window plus
-    the tile's rows with it."""
-    if causal and window:
-        return min(s, int(window) + rows - 1)
-    return s
-
-
-def flash_body(d: int, s: int, elem_bytes: int, rows: int = FLASH_ROWS,
-               causal: bool = True, window: Optional[int] = None) -> str:
-    """The flash body a call runs, from static shapes only: "float32"
-    (the CUDA-core body) for float32; for bf16 "wgmma" (``flash_wgmma.cu``)
-    where the head dim is one of FLASH_WGMMA_D and a query tile walks more
-    than FLASH_WGMMA_MIN_KEYS keys, else "mma" (``flash_mma_kernel``, the
-    engine's prefills of at most 512 tokens)."""
+def flash_body(d: int, elem_bytes: int) -> str:
+    """The flash body a call runs, from its dtype and head dim only:
+    "float32" (the CUDA-core body) for float32; for bf16 "wgmma"
+    (``flash_wgmma.cu``, wgmma + TMA) at a head dim of FLASH_WGMMA_D,
+    whatever the length, else "mma" (``flash_mma_kernel``, mma.sync),
+    the one bf16 body that takes the other head dims."""
     if not tensor_cores(elem_bytes):
         return "float32"
-    if d in FLASH_WGMMA_D and \
-            flash_walk(s, causal, window, rows) > FLASH_WGMMA_MIN_KEYS:
-        return "wgmma"
-    return "mma"
+    return "wgmma" if d in FLASH_WGMMA_D else "mma"
 
 
 def dec_units(d: int, elem_bytes: int) -> int:
@@ -690,10 +675,15 @@ def dec_packed_smem(d: int, tile_keys: int, m_tiles: int,
 def decode_body(hq: int, hkv: int, d: int, elem_bytes: int) -> str:
     """The decode body a call runs, from static shapes only: "packed"
     (the KV group's heads as tensor-core rows, K and V read once a KV
-    head) for bf16 with a group of 2 to 16 x DEC_PACKED_TILES[-1] heads at
-    a head dim of DEC_PACKED_D; "chunked" (head chunks of at most
-    DEC_MAX_HEADS on the CUDA cores) otherwise: float32, MHA, other head
-    dims."""
+    head) for bf16 with a group of 2 to 16 x DEC_PACKED_TILES[-1] heads
+    at a head dim of DEC_PACKED_D; "chunked" (head chunks of at most
+    DEC_MAX_HEADS on the CUDA cores) otherwise: float32, other head
+    dims, larger groups, and MHA.  At a group of one the packed body has
+    nothing to share: a 16-row tile holds one real row, and a block
+    walks its split's tiles in series with a cluster's combine after
+    them, where the chunked body spreads the keys over ~4x the blocks of
+    one tile each; it lost at phi3-mini's decodes (32 heads of 96, 1-4
+    rows) on an H100 (PERF.md, ``launch/decode_timeline.py``)."""
     group = hq // hkv if hkv >= 1 and hq % hkv == 0 else 1
     if (elem_bytes == 2 and d in DEC_PACKED_D
             and 1 < group <= 16 * DEC_PACKED_TILES[-1]):
@@ -722,7 +712,7 @@ class DecodePlan:
     split_keys: int
     splits: int
     smem: int
-    body: str = "chunked"   # decode_body's choice, or the caller's
+    body: str = "chunked"   # decode_body's choice
 
     @property
     def cluster(self) -> int:
@@ -796,14 +786,6 @@ class DecodePlan:
             return (f"HQ={self.hq} is not a multiple of HKV={self.hkv}")
         if self.elem_bytes not in (2, 4):
             return f"element size {self.elem_bytes} is not bf16 or float32"
-        if self.body not in ("packed", "chunked"):
-            return f"decode body {self.body!r} is not packed or chunked"
-        if self.body == "packed" and (
-                self.elem_bytes != 2 or self.d not in DEC_PACKED_D
-                or self.head_chunk > 16 * DEC_PACKED_TILES[-1]):
-            return (f"the packed body takes bf16 at head_dim in "
-                    f"{DEC_PACKED_D} and groups up to "
-                    f"{16 * DEC_PACKED_TILES[-1]}")
         if self.limit < 1 or self.b < 1:
             return "no keys or no rows"
         gran = self.block_size if self.block_size > 0 else 16
@@ -821,16 +803,15 @@ class DecodePlan:
 
 def decode_plan(b: int, hq: int, hkv: int, d: int, limit: int,
                 block_size: int, elem_bytes: int,
-                split_keys: Optional[int] = None,
-                body: Optional[str] = None) -> DecodePlan:
-    """The split plan of a decode call from static shapes: ``limit`` is
-    the cache's S (contiguous, ``block_size`` 0) or MB x bs (paged).
-    ``split_keys`` (a :class:`DecodeAttentionSchedule`'s ``block_kv``)
-    replaces the split below and keeps the head chunk and the tile;
-    ``body`` (None: :func:`decode_body`'s choice) names the body.  The
-    plan's ``error`` says when the kernel refuses it (not a multiple of
-    16 keys, or of the pool block; more than DEC_MAX_SPLITS splits;
-    shared memory over SMEM_BYTES; a body that does not take the shape).
+                split_keys: Optional[int] = None) -> DecodePlan:
+    """The split plan of a decode call from static shapes, on the body
+    :func:`decode_body` gives it: ``limit`` is the cache's S
+    (contiguous, ``block_size`` 0) or MB x bs (paged).  ``split_keys``
+    (a :class:`DecodeAttentionSchedule`'s ``block_kv``) replaces the
+    split below and keeps the head chunk and the tile.  The plan's
+    ``error`` says when the kernel refuses it (not a multiple of 16
+    keys, or of the pool block; more than DEC_MAX_SPLITS splits; shared
+    memory over SMEM_BYTES).
 
     Chunked (``decode_split_kernel``):
 
@@ -852,8 +833,8 @@ def decode_plan(b: int, hq: int, hkv: int, d: int, limit: int,
 
     Either way the split is a multiple of 16 keys (contiguous) or of the
     pool block (paged, so split boundaries fall on pool blocks)."""
+    body = decode_body(hq, hkv, d, elem_bytes)
     group = hq // hkv if hkv >= 1 and hq % hkv == 0 else 1
-    body = decode_body(hq, hkv, d, elem_bytes) if body is None else body
     limit = max(limit, 1)
     gran = block_size if block_size > 0 else 16
     if body == "packed":
@@ -1135,9 +1116,10 @@ def scan_layout(block_d: int, n: int, elem_bytes: int) -> ScanLayout:
 
 __all__ = ["ScanLayout", "scan_layout", "ConvTile", "MatmulTile",
            "ConvMmaTile", "MatmulMmaTile", "FlashMmaTile", "FlashWgmmaTile",
-           "DecodePlan", "decode_plan", "decode_body", "dec_packed_smem",
+           "DecodePlan", "decode_plan", "decode_body",
+           "dec_packed_smem",
            "dec_packed_stages",
-           "flash_wgmma_tile", "flash_walk", "flash_body", "conv_tile", "matmul_tile", "conv_mma_tile",
+           "flash_wgmma_tile", "flash_body", "conv_tile", "matmul_tile", "conv_mma_tile",
            "matmul_mma_tile", "MatmulPlan", "matmul_plan",
            "matmul_blocks_per_sm",
            "flash_mma_tile", "flash_tile_error",

@@ -582,12 +582,19 @@ decode_packed_kernel(const DecArgs a, const KV kv) {
     }
   };
 
-  // a contiguous cache's rows need no table: the split's first tile is
-  // fetched before pos and starts arrive, and kept when the split's
-  // first valid key is its first key (a row without left padding); its
-  // rows past the split's last valid key are zeroed before P V
+  // a contiguous cache's rows need no table: without left padding
+  // (starts) the split's first tile is fetched before pos arrives, and
+  // kept when the split holds a valid key (its first valid key is then
+  // its first key); its rows past the split's last valid key are zeroed
+  // before P V.  With starts a split's first valid key is rarely its
+  // first, and the block would wait for a tile it does not use
+  // (launch/decode_timeline.py's "loaded" stamp at generate's [4, 32,
+  // 544, 96]: median 4.61 us with that wait, 1.28 without; NVIDIA H100
+  // 80GB HBM3, 700 W).
   const int t_spec = split * a.SK;
-  const int nk_spec = KV::kDirectRows ? min(PK_KEYS, kv.limit() - t_spec) : 0;
+  const int nk_spec = KV::kDirectRows && a.starts == nullptr
+                          ? min(PK_KEYS, kv.limit() - t_spec)
+                          : 0;
   if (nk_spec > 0) {
     stage(0, t_spec, nk_spec, t_spec);
     hw::cp_async_commit();

@@ -51,16 +51,12 @@
 //     ~2^-17, for twice the P V MMAs (small beside the staging here).
 //   - Epilogue: scaled by 1/l, rounded to bf16, stored through shared
 //     memory as 16-byte rows.
-//   Why mma.sync here and wgmma beside it: the engine's prefills are
-//   <= 512 tokens, so a block sees at most 8 KV tiles and its time is
-//   latency and staging, not the MMA rate; this body keeps them (the
-//   static rule, kernels/_geometry.py flash_body).  Past 512 keys a
-//   query tile (whisper's 1500-frame encoder, recurrentgemma's
-//   4096-token bucket, paligemma's 768-token prefill) the wgmma/TMA body
-//   of flash_wgmma.cu runs instead: one warpgroup's 64-row tile per
-//   instruction, K and V by TMA into swizzled stages, a producer warp,
-//   the softmax overlapped with the previous tile's P V, as
-//   FlashAttention-3 does.
+//   Where it runs: at head dims outside 64, 96, 128 and 256, which the
+//   wgmma/TMA body of flash_wgmma.cu does not take (kernels/_geometry.py
+//   flash_body); every model of the repository runs that body instead,
+//   at every length (one warpgroup's 64-row tile per instruction, K and
+//   V by TMA into swizzled stages, a producer warp), which is faster at
+//   the engine's prefills of 8-512 tokens too.
 //
 // float32: flash_fwd_kernel, on the CUDA cores in IEEE fp32 (the tensor
 //   cores do only TF32 on float32): 256 threads, four threads per query

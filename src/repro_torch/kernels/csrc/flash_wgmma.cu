@@ -1,17 +1,22 @@
-// bf16 flash attention for long sequences on wgmma + TMA: the second
-// bf16 body beside flash_mma_kernel (flash_attention.cu), with the same
-// function, masks and arithmetic contract.
+// bf16 flash attention on wgmma + TMA: the bf16 body at the models' head
+// dims, at every length; flash_mma_kernel (flash_attention.cu) keeps the
+// other head dims, with the same function, masks and arithmetic
+// contract.
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py,
 //   flash_attention_pallas (bodies _flash_kernel, _flash_kernel_starts),
 //   at the shapes kernels/_geometry.py (flash_body) gives it: bf16, head
-//   dim 64, 96, 128 or 256, 16-byte aligned rows, and a query tile that
-//   walks more keys than FLASH_WGMMA_MIN_KEYS.
-// Bound on an H100: operations.  Whisper's encoder ([4, 20, 1500, 64],
-//   no mask) does 4 S^2 D operations a head against 8 S D bytes, ~750
-//   operations a byte, past the card's ~295: the tensor cores' rate is
-//   the floor.  mma.sync from 4 warps a 64-row block, with the softmax
-//   between the MMAs, reached about a ninth of it there.
+//   dim 64, 96, 128 or 256, 16-byte aligned rows.
+// Bound on an H100: bytes at the engine's prefills (phi3-mini's S <= 512,
+//   causal, far below the card's ~295 operations a byte); operations
+//   where a row walks more than ~600 keys.  Whisper's encoder ([4, 20,
+//   1500, 64], no mask) does 4 S^2 D operations a head against 8 S D
+//   bytes, ~750 operations a byte: the tensor cores' rate is the floor.
+//   mma.sync from 4 warps a 64-row block, with the softmax between the
+//   MMAs, reached about a ninth of it there.  At the short prefills a
+//   block's time is its latency: Q, the first K/V tiles and the
+//   epilogue; one TMA copy a tile and a producer warp that keeps the
+//   next in flight beat mma.sync's cp.async staging there too.
 //
 // Design (FlashAttention-3's shape, without its ping-pong scheduling):
 // - Block: ROWS = 64 or 128 query rows (one or two consumer warpgroups,
@@ -393,10 +398,10 @@ cudaError_t launch_rows(const void* q, const void* k, const void* v,
 }  // namespace fw
 }  // namespace
 
-// The long-sequence bf16 body (kernels/_geometry.py, flash_body): D in
-// {64, 96, 128, 256}, every base 16-byte aligned (TMA), `rows` 64 or 128
-// and `keys` 64 (the FlashAttentionSchedule's tile); anything else is
-// refused, never run on another body.
+// The bf16 body at the models' head dims (kernels/_geometry.py,
+// flash_body): D in {64, 96, 128, 256}, every base 16-byte aligned
+// (TMA), `rows` 64 or 128 and `keys` 64 (the FlashAttentionSchedule's
+// tile); anything else is refused, never run on another body.
 extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k,
                                          const void* v, void* o,
                                          const void* starts, int B, int HQ,

@@ -22,12 +22,12 @@ hold (NaN included): the paged kernel never reads logical blocks past
 ``pos``, and the contiguous kernel reads none of them but, in the packed
 body, a split's first tile, fetched before ``pos`` arrives, whose rows
 past ``pos`` are zeroed before they meet p.  The plan also names the body
-(``_geometry.decode_body``, static shapes only): a bf16 GQA or MQA
-group at head_dim 64, 96, 128 or 256 runs the packed body (one block a
-(row, KV head, split) for the whole group, its heads the rows of
-mma.sync tiles, so K and V are read once a KV head), everything else the
-chunked one.  ``*.launches`` counts every launch, ``*.packed_launches``
-those of the packed body.
+(``_geometry.decode_body``, static shapes only): bf16 at head_dim 64,
+96, 128 or 256 with a KV group of 2 to 64 heads runs the packed body
+(one block a (row, KV head, split) for the whole group, its heads the
+rows of mma.sync tiles, so K and V are read once a KV head); MHA,
+float32, other head dims and larger groups the chunked one.
+``*.launches`` counts every launch.
 
 The merge finds the last block through a ticket counter per grid row.
 The counters are zeroed once and kept per (device, stream) here, since
@@ -84,13 +84,12 @@ def _check_q(name: str, q: torch.Tensor, hkv: int) -> None:
 
 
 def _plan(name: str, q: torch.Tensor, hkv: int, limit: int,
-          block_size: int, split_keys: Optional[int],
-          body: Optional[str] = None) -> DecodePlan:
-    """The call's split plan from its static shapes (and the split and
-    the body, when given); raises on one the kernel cannot run."""
+          block_size: int, split_keys: Optional[int]) -> DecodePlan:
+    """The call's split plan from its static shapes (and the split, when
+    given); raises on one the kernel cannot run."""
     b, hq, _, d = q.shape
     plan = decode_plan(b, hq, hkv, d, limit, block_size, q.element_size(),
-                       split_keys, body)
+                       split_keys)
     require(plan.error is None, f"{name}: {plan.error}")
     return plan
 
@@ -125,13 +124,10 @@ def _scratch(plan: DecodePlan, device: torch.device):
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      pos, *, starts: Optional[torch.Tensor] = None,
-                     block_kv: Optional[int] = None,
-                     body: Optional[str] = None) -> torch.Tensor:
+                     block_kv: Optional[int] = None) -> torch.Tensor:
     """q [B,HQ,1,D]; k/v [B,HKV,S,D]; ``pos`` scalar or [B]; ``starts``
     optional [B].  Valid keys: ``starts[b] <= kp <= pos[b]``.
-    ``block_kv`` (None: the plan's own) is the keys a split takes;
-    ``body`` ("packed" or "chunked"; None: the plan's rule) names the
-    body, for the card's sweep of both."""
+    ``block_kv`` (None: the plan's own) is the keys a split takes."""
     if on_cpu(q):
         return decode_attention_ref(q, k, v, pos, starts=starts)
     name = "decode_attention"
@@ -142,7 +138,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     require(k.shape == (b, hkv, s, d) and v.shape == k.shape,
             f"{name}: cache shape {tuple(k.shape)} does not match q")
     check_same(name, [q, k, v], q.dtype)
-    plan = _plan(name, q, hkv, s, 0, block_kv, body)
+    plan = _plan(name, q, hkv, s, 0, block_kv)
     pos_t = int_vector(pos, b, q.device, "pos")
     # int64, the model's own dtype: its starts pass without a conversion
     st = (None if starts is None
@@ -159,7 +155,6 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         int(q.dtype == torch.bfloat16), _build.stream_handle(q.device))
     _build.check(rc, "decode_attention_fwd")
     decode_attention.launches += 1
-    decode_attention.packed_launches += plan.body == "packed"
     _launches.note(name, block_kv=block_kv, split_keys=plan.split_keys,
                    splits=plan.splits)
     return out
@@ -168,16 +163,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, tables: torch.Tensor,
                            pos: torch.Tensor, *,
-                           block_kv: Optional[int] = None,
-                           body: Optional[str] = None) -> torch.Tensor:
+                           block_kv: Optional[int] = None) -> torch.Tensor:
     """q [B,HQ,1,D]; pools [NB,HKV,bs,D]; tables [B,MB] int; pos [B].
 
     Row ``b`` attends to its logical keys ``0..pos[b]``; logical key
     ``p`` lives in pool block ``tables[b, p // bs]`` at slot ``p % bs``.
     Table entries past ``pos[b] // bs`` are never read.  ``block_kv``
     (None: the plan's own) is the keys a split takes, rounded up to the
-    pool block (:func:`paged_split_keys`); ``body`` as
-    :func:`decode_attention`'s."""
+    pool block (:func:`paged_split_keys`)."""
     if on_cpu(q):
         return paged_decode_attention_ref(q, k_pool, v_pool, tables, pos)
     name = "paged_decode_attention"
@@ -194,7 +187,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     mb = tables.shape[1]
     plan = _plan(name, q, hkv, mb * bs, bs,
                  None if block_kv is None
-                 else paged_split_keys(block_kv, bs), body)
+                 else paged_split_keys(block_kv, bs))
     tb = tables.to(device=q.device, dtype=torch.int32).contiguous()
     pos_t = int_vector(pos, b, q.device, "pos")
     out = torch.empty_like(q)
@@ -208,7 +201,6 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         int(q.dtype == torch.bfloat16), _build.stream_handle(q.device))
     _build.check(rc, "paged_decode_attention_fwd")
     paged_decode_attention.launches += 1
-    paged_decode_attention.packed_launches += plan.body == "packed"
     _launches.note(name, block_kv=block_kv, split_keys=plan.split_keys,
                    splits=plan.splits)
     return out
@@ -216,8 +208,6 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 decode_attention.launches = 0
 paged_decode_attention.launches = 0
-decode_attention.packed_launches = 0
-paged_decode_attention.packed_launches = 0
 
 
 def decode_attention_scheduled(q: torch.Tensor, k: torch.Tensor,

@@ -6,21 +6,20 @@ at the engine's prefill lengths (S <= 512): it reads Q, K and V once and
 writes O once, and its causal operation count stays far below the
 card's ridge; a row that walks more than ~600 keys (S / 2 operations a
 byte without the mask: whisper's 1500-frame encoder; recurrentgemma's
-4096-token bucket) is bound by operations.  Its
-design (``csrc/flash_attention.cu``): one block per (batch x query
-head, 64-row query tile), K/V tiles staged in shared memory, f32 online
-softmax in registers, only the KV tiles the mask can reach are visited,
-GQA by indexing the KV head.  The body follows the dtype
-(``_geometry.tensor_cores``) and, in bf16, the static shapes
-(``_geometry.flash_body``): FlashAttention-2 on mma.sync with K/V
-double-buffered by cp.async (``"mma"``, layout
-``_geometry.flash_mma_tile``), or, where a query tile walks more than
-``FLASH_WGMMA_MIN_KEYS`` keys at D 64, 96, 128 or 256, wgmma with K/V by
+4096-token bucket) is bound by operations.  Its design
+(``csrc/flash_wgmma.cu``, ``csrc/flash_attention.cu``): one block per
+(batch x query head, 64- or 128-row query tile), K/V tiles staged in
+shared memory, f32 online softmax in registers, only the KV tiles the
+mask can reach are visited, GQA by indexing the KV head.  The body follows the dtype
+(``_geometry.tensor_cores``) and, in bf16, the head dim
+(``_geometry.flash_body``): at D 64, 96, 128 or 256 wgmma with K/V by
 TMA into a ring of stages and a producer warp (``"wgmma"``,
-``csrc/flash_wgmma.cu``, layout ``_geometry.flash_wgmma_tile``); both
-multiply P V in f32 from a bf16 hi + lo split of p.  float32 runs the
-CUDA-core body in IEEE fp32.  They take any GQA group and 1 <= D <= 256
-(``MAX_HEAD_DIM``).
+``csrc/flash_wgmma.cu``, layout ``_geometry.flash_wgmma_tile``), at
+every length; at other head dims FlashAttention-2 on mma.sync with K/V
+double-buffered by cp.async (``"mma"``, layout
+``_geometry.flash_mma_tile``); both multiply P V in f32 from a bf16 hi
++ lo split of p.  float32 runs the CUDA-core body in IEEE fp32.  They
+take any GQA group and 1 <= D <= 256 (``MAX_HEAD_DIM``).
 
 The bf16 body's block of query rows is a launch parameter: 64 rows (4
 warps, the default) or 128 (8 warps), at 64-key tiles; the float32 body
@@ -31,9 +30,8 @@ has one 64 x 32 tile (``_geometry.flash_tile_error``).
 
 For a CPU tensor the wrapper runs :func:`flash_attention_ref` (which has
 no blocks); for a CUDA tensor it launches the kernel or raises, also on
-a tile the body refuses: neither bf16 body stands in for the other.
-``flash_attention.launches`` counts every launch,
-``flash_attention.wgmma_launches`` those of the wgmma body.
+a tile the body refuses: no body stands in for another.
+``flash_attention.launches`` counts every launch.
 """
 from __future__ import annotations
 
@@ -47,8 +45,7 @@ from repro_torch.kernels._checks import (KERNEL_DTYPES, check_same,
                                          require)
 from repro_torch.kernels._geometry import (FLASH_MAX_D, flash_body,
                                            flash_default_tile,
-                                           flash_tile_error,
-                                           flash_wgmma_tile, tensor_cores)
+                                           flash_tile_error, tensor_cores)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 MAX_HEAD_DIM = FLASH_MAX_D
@@ -58,17 +55,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     starts: Optional[torch.Tensor] = None,
                     block_q: Optional[int] = None,
-                    block_kv: Optional[int] = None,
-                    body: Optional[str] = None) -> torch.Tensor:
+                    block_kv: Optional[int] = None) -> torch.Tensor:
     """q [B,HQ,S,D]; k/v [B,HKV,S,D] -> [B,HQ,S,D] (see
     :func:`flash_attention_ref` for the exact function).
 
     ``starts`` ([B] int, optional) masks keys below each row's first
     real token; ``window`` keeps keys with ``kp > qp - window``.
     ``block_q`` / ``block_kv`` (None: the body's default tile) are the
-    query rows and keys of a block's tile.  ``body`` ("mma" or "wgmma",
-    bf16 only; None: ``_geometry.flash_body``'s rule) names the bf16 body,
-    for the card's sweep of both; a body that cannot take the call
+    query rows and keys of a block's tile; a tile the body refuses
     raises."""
     if on_cpu(q):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -90,14 +84,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     err = flash_tile_error(d, eb, rows, keys)
     require(err is None, f"flash_attention: {err}")
     require(window is None or window > 0, "flash_attention: window <= 0")
-    rule = flash_body(d, s, eb, rows, bool(causal), window)
-    body = rule if body is None else body
-    require(body == rule or (rule != "float32" and body in ("mma", "wgmma")),
-            f"flash_attention: body {body!r} does not take "
-            f"{'bf16' if tensor_cores(eb) else 'float32'}")
-    if body == "wgmma":
-        err = flash_wgmma_tile(d, rows).error
-        require(err is None, f"flash_attention: {err}")
+    body = flash_body(d, eb)
     check_same("flash_attention", [q, k, v], q.dtype)
     st = (None if starts is None
           else int_vector(starts, b, q.device, "starts"))
@@ -110,7 +97,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         rc = lib.flash_attention_wgmma_fwd(*args, rows, keys,
                                            _build.stream_handle(q.device))
         _build.check(rc, "flash_attention_wgmma_fwd")
-        flash_attention.wgmma_launches += 1
     else:
         rc = lib.flash_attention_fwd(*args, int(tensor_cores(eb)), rows,
                                      keys, _build.stream_handle(q.device))
@@ -121,7 +107,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
-flash_attention.wgmma_launches = 0
 
 
 def flash_attention_scheduled(q: torch.Tensor, k: torch.Tensor,

@@ -20,9 +20,9 @@ block-sparse conv, an even spread of the tuner's skip blocks on the
 thesis' Fig 6.2 layer and the 3x3 Table 4.1 layers at block densities
 0-1, batch 1 and 32.  For the serving kernels (bf16): flash at phi3's
 prefill buckets, ``generate``'s [4, 512], head_dim 256 and three
-longer prefills that run the wgmma body; the contiguous decode at 1 and
-4 rows over caches of 544-2080 keys and at three grouped shapes that run
-the packed body; the
+longer prefills; the contiguous decode at 1 and 4 rows over caches of
+544-2080 keys (MHA: the chunked body) and at three grouped shapes that
+run the packed body; the
 scan at the prefill, ``generate`` and decode shapes of falcon-mamba.
 It times each with CUDA events (median of 15 launches, the 50 MB L2
 flushed before each) and writes one JSON line per (schedule, batch):
@@ -40,7 +40,8 @@ the sparse lines also the least-squares ``SPARSE_CALL_S`` (bf16: the
 tensor-core body's model has no other sparse constant) or, for lines of
 the float32 body (``"dtype": "float32"``), ``SPARSE_CALL_S`` and
 ``SPARSE_CHANNEL_S``; for the serving kernels the least-squares fit of
-each family's three constants (``FLASH_*``, ``DEC_*``, ``SCAN_*``) to
+each family's constants (``FLASH_*``, ``DEC_*``, ``SCAN_*``; only those
+of a body its lines ran) to
 its lines' times less the launch.
 """
 import argparse
@@ -72,9 +73,9 @@ KINDS = ("conv2d", "matmul", "sparse_conv", "flash_attention",
          "decode_attention", "ssm_scan")
 # the serving kernels' shapes (bf16): flash (b, hq, hkv, s, d), the
 # contiguous decode (b, hq, hkv, s, d), the scan (bt, seq, di, n)
-FLASH_SHAPES = [(1, 32, 32, s, 96) for s in (64, 128, 256, 512)] + [
+FLASH_SHAPES = [(1, 32, 32, s, 96) for s in (16, 32, 64, 128, 256, 512)] + [
     (4, 32, 32, 512, 96), (1, 16, 1, 512, 256),
-    # past 512 keys a query tile: the wgmma body
+    # longer prefills, where the tiles' work holds the time
     (1, 16, 1, 1024, 256), (1, 16, 1, 2048, 256), (2, 20, 20, 1024, 64)]
 DECODE_SHAPES = [(b, 32, 32, s, 96) for b in (1, 4)
                  for s in (544, 1056, 2080)] + [
@@ -85,7 +86,8 @@ SCAN_SHAPES = [(1, 64, 8192, 16), (1, 512, 8192, 16), (4, 512, 8192, 16),
 # each serving family's fitted constants and the features they multiply
 SERVING = {
     "flash_attention": (("FLASH_BLOCK_S", "FLASH_TILE_S", "FLASH_WORK_EFF",
-                         "FLASH_WGMMA_WORK_EFF"),
+                         "FLASH_WGMMA_WORK_EFF", "FLASH_WGMMA_BLOCK_S",
+                         "FLASH_WGMMA_TILE_S"),
                         lambda r: cm.flash_attention_features(
                             *_dims(r), [tuple(r["block"])],
                             elem_bytes=_elem_bytes(r))[0][0]),
@@ -238,19 +240,54 @@ def matmul_fit(recs, rounds: int = 3):
 
 
 def serving_fit(kind, recs):
-    """A serving family's three constants by least squares: each line's
-    time less the launch against its features (the model's compute term,
-    which bounds these kernels at the calibrated shapes)."""
+    """A serving family's constants by least squares: each line's time
+    less the launch against its features (the model's compute term,
+    which bounds these kernels at the calibrated shapes).  Only the
+    constants of a body the lines ran are fitted (flash's mma.sync
+    constants need lines at a head dim the wgmma body does not take)."""
     names, features = SERVING[kind]
     x = np.stack([features(r) for r in recs])
+    used = np.any(x != 0, axis=0)
     meas = np.array([r["ms"] for r in recs]) * 1e-3 - cm.H100Spec().launch_s
-    consts, *_ = np.linalg.lstsq(x, meas, rcond=None)
-    return dict(zip(names, (float(c) for c in consts)))
+    consts, *_ = np.linalg.lstsq(x[:, used], meas, rcond=None)
+    return dict(zip([n for n, u in zip(names, used) if u],
+                    (float(c) for c in consts)))
+
+
+def serving_log_fit(kind, recs, rounds: int = 3):
+    """The constants :func:`serving_fit` fits, chosen instead to minimise
+    the mean squared log error on ``recs`` (the error ``--score``
+    reports): a coordinate search as ``conv_fit``'s from the module's
+    values (one at 0 from its least-squares value, if positive, else
+    1e-7), each trial set on ``core/cost_model.py`` and the module's
+    values set back.  Returns (constants, error)."""
+    meas = np.log(np.array([r["ms"] for r in recs]))
+    lsq = serving_fit(kind, recs)
+    saved = {n: getattr(cm, n) for n in lsq}
+    best = {n: saved[n] or (lsq[n] if lsq[n] > 0 else 1e-7) for n in lsq}
+
+    def mse(vals) -> float:
+        for n, v in vals.items():
+            setattr(cm, n, v)
+        pred = np.log(np.array([_predict_ms(r) for r in recs]))
+        return float(np.mean((pred - meas) ** 2))
+
+    try:
+        for _ in range(rounds):
+            for n in best:
+                trials = {f: mse({**best, n: best[n] * f})
+                          for f in CONV_FACTORS}
+                best[n] *= min(trials, key=trials.get)
+        return best, mse(best)
+    finally:
+        for n, v in saved.items():
+            setattr(cm, n, v)
 
 
 def fit_stats(recs):
-    """(mean squared log error, mean log bias, mean rank correlation and
-    geometric-mean pick regret over the shapes) of the model on
+    """(mean squared log error, mean log bias, mean rank correlation over
+    the shapes with three timed schedules or more, and geometric-mean
+    pick regret over the shapes with two or more) of the model on
     ``recs``."""
     pred = np.array([_predict_ms(r) for r in recs])
     meas = np.array([r["ms"] for r in recs])
@@ -262,22 +299,22 @@ def fit_stats(recs):
         groups.setdefault(key, []).append(i)
     rho, regret = [], []
     for idx in groups.values():
-        if len(idx) < 3:
+        if len(idx) < 2:
             continue
         p, m = pred[idx], meas[idx]
-        rho.append(np.corrcoef(np.argsort(np.argsort(p)),
-                               np.argsort(np.argsort(m)))[0, 1])
         regret.append(m[np.argmin(p)] / m.min())
-    if not rho:           # no shape with three timed schedules
-        return float(np.mean(err ** 2)), float(np.mean(err)), np.nan, np.nan
+        if len(idx) >= 3:
+            rho.append(np.corrcoef(np.argsort(np.argsort(p)),
+                                   np.argsort(np.argsort(m)))[0, 1])
     return (float(np.mean(err ** 2)), float(np.mean(err)),
-            float(np.mean(rho)), float(np.exp(np.mean(np.log(regret)))))
+            float(np.mean(rho)) if rho else np.nan,
+            float(np.exp(np.mean(np.log(regret)))) if regret else np.nan)
 
 
 def _flash_body(rec) -> str:
     """The body a flash line's schedule ran (``_geometry.flash_body``)."""
     p = rec["problem"]
-    return geo.flash_body(p["d"], p["s"], _elem_bytes(rec), rec["block"][0])
+    return geo.flash_body(p["d"], _elem_bytes(rec))
 
 
 def body_stats(recs) -> str:
@@ -334,6 +371,9 @@ def score(paths) -> None:
         if kind in SERVING:
             print(f"[score] kind={kind} least_squares " + " ".join(
                 f"{k}={v:.4g}" for k, v in serving_fit(kind, rs).items()))
+            consts, err = serving_log_fit(kind, rs)
+            print(f"[score] kind={kind} coordinate_fit mse {err:.4f} "
+                  + " ".join(f"{k}={v:.4g}" for k, v in consts.items()))
 
 
 def _median_ms(fn, flush, iters=15):

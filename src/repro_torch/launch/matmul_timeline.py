@@ -15,11 +15,12 @@ Needs a CUDA card and ``nvcc``.  Prints JSON lines:
   kernel's ms (two runs), ``torch.matmul`` (cuBLAS) ms and the bound
   (A, B and C once at 3.35 TB/s, or the FLOPs at the 989 TFLOP/s bf16
   peak), with the launch plan (grid, tail split).  With ``--parent
-  DIR`` (a ``git archive`` of a commit before the persistent body,
-  unpacked: its bf16 entry point takes the one-block-a-tile body's
-  arguments) the same shapes also run that checkout's bf16 body at
-  that checkout's rank-0 schedule, in the order parent, this tree, this
-  tree, parent, in this one process;
+  DIR`` (a checkout of another commit, unpacked inside this
+  repository's ``build/``, imported beside this tree by
+  ``parent_tree.load_parent``) the same shapes also run that checkout's
+  ``matmul`` wrapper at its own tuner's rank-0 schedule, its library
+  built from its sources, in the order parent, this tree, this tree,
+  parent, in this one process;
 - ``blocks``: QKV at a spread of blocks in the order (m, n, k), each
   with the bytes its tiles pull from L2 into shared memory (every tile
   reads its [bm, k] rows of A and its [k, bn] panel of B) over the
@@ -49,11 +50,7 @@ inputs, as ``chip_smoke.py`` times them).  Builds go to
 """
 import argparse
 import ctypes
-import importlib.util
-import json
-import os
 import subprocess
-import sys
 from pathlib import Path
 
 import numpy as np
@@ -62,6 +59,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.launch.conv_timeline import (STAMP_WORDS, MAX_STAMPS, Timer,
                                               emit, summarize)
+from repro_torch.launch.parent_tree import build_all, load_parent
 
 OUT = _build.BUILD_DIR.parent / "matmul_timeline"
 QKV = (512, 9216, 3072)
@@ -108,9 +106,6 @@ __device__ __forceinline__ long long mm_ns() {
 
 # The phases the consumers mark (MM_T_MARK(k) ends phase k).
 PHASES = ("prologue", "wait", "mma", "epilogue", "fixup")
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# the bf16 entry point of the body before the persistent redesign
-PARENT_SIGNATURE = [_P, _P, _P] + [_I] * 15 + [_P]
 
 
 def _nvcc(srcs, out_dir, flags, so_name):
@@ -190,62 +185,21 @@ def build_instrumented():
 
 
 class Parent:
-    """Another checkout's bf16 matmul: its source built into a scratch
-    library, its layout rule and its tuner's rank-0 schedules (asked in
-    a child process with that checkout's ``src`` on the path)."""
+    """Another checkout's bf16 matmul (:func:`parent_tree.load_parent`):
+    its own wrapper at its own tuner's rank-0 schedule of each shape."""
 
     def __init__(self, root):
-        self.root = Path(root).resolve()
-        csrc = self.root / "src" / "repro_torch" / "kernels" / "csrc"
-        out = OUT / "parent"
-        out.mkdir(parents=True, exist_ok=True)
-        self.lib = _nvcc([csrc / "matmul.cu", csrc / "errors.cu"], out,
-                         ["-I", str(csrc)], "libmatmul_parent.so")
-        self.lib.matmul_mma_fwd.argtypes = PARENT_SIGNATURE
-        self.lib.matmul_mma_fwd.restype = ctypes.c_int
-        spec = importlib.util.spec_from_file_location(
-            "parent_geometry",
-            self.root / "src" / "repro_torch" / "kernels" / "_geometry.py")
-        self.geo = importlib.util.module_from_spec(spec)
-        sys.modules[spec.name] = self.geo     # dataclasses look it up
-        spec.loader.exec_module(self.geo)
-        code = ("import json, sys\n"
-                "from repro_torch.core import tuner\n"
-                "out = {}\n"
-                "for label, (m, n, k) in json.loads(sys.argv[1]):\n"
-                "    s = tuner.tune_matmul(m, n, k, elem_bytes=2, "
-                "top_k=1)[0][0]\n"
-                "    out[label] = [s.block_dict(), list(s.grid_order), "
-                "s.resident_rhs]\n"
-                "print(json.dumps(out))\n")
-        env = dict(os.environ, PYTHONPATH=str(self.root / "src"))
-        res = subprocess.run([sys.executable, "-c", code,
-                              json.dumps(SHAPES)], env=env,
-                             capture_output=True, text=True, check=True)
-        self.rank0 = json.loads(res.stdout.strip().splitlines()[-1])
+        self.tree = load_parent(root)
+        self.rank0 = {}
+        for label, (m, n, k) in SHAPES:
+            s = self.tree.tuner.tune_matmul(m, n, k, elem_bytes=2,
+                                            top_k=1)[0][0]
+            self.rank0[label] = (s.block_dict(), tuple(s.grid_order),
+                                 s.resident_rhs)
 
-    def call(self, a, b, out, block, order, resident):
-        """The parent's wrapper loop: one launch per pass."""
-        m, k = a.shape
-        n = b.shape[1]
-        bm, bn, bk = block["m"], block["n"], block["k"]
-        tile = self.geo.matmul_mma_tile(bm, bn, bk, k, resident)
-        if resident or order[-1] == "k":
-            passes = [(0, k, 0)]
-        else:
-            passes = [(k0, bk, int(k0 > 0)) for k0 in range(0, k, bk)]
-        m_outer = int(resident or order.index("m") < order.index("n"))
-        a_ok, b_ok = self.geo.matmul_mma_route(k, n)
-        stream = _build.stream_handle(a.device)
-        for k0, count, acc in passes:
-            rc = self.lib.matmul_mma_fwd(
-                a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, bm, bn,
-                bk, tile.bn_pad, tile.stages, m_outer, k0, count, acc,
-                int(resident), int(a_ok), int(b_ok), stream)
-            if rc != 0:
-                raise SystemExit("matmul_timeline: parent launch: "
-                                 + self.lib.kernels_error_string(rc).decode())
-        return out
+    def call(self, a, b, block, order, resident):
+        return self.tree.kernels.matmul(a, b, block=block, grid_order=order,
+                                        resident_rhs=resident)
 
 
 def make_data(dev):
@@ -293,8 +247,7 @@ def gemm_times(timer, data, parent, sink, parent_only=False):
         runs = []
         if parent is not None:
             pb, po, pr = parent.rank0[label]
-            out = torch.empty(m, n, dtype=a.dtype, device=a.device)
-            p_fn = lambda: parent.call(a, b, out, pb, po, pr)  # noqa: E731
+            p_fn = lambda: parent.call(a, b, pb, po, pr)  # noqa: E731
             line["parent_schedule"] = f"{''.join(po)} {pb} resident={pr}"
             runs.append(("parent_ms", p_fn))
         if not parent_only:
@@ -323,7 +276,6 @@ def block_times(timer, data, parent, sink, parent_only=False):
     from repro_torch.kernels.matmul import matmul
     m, n, k = QKV
     a, b = data["phi3-qkv"]
-    out = torch.empty(m, n, dtype=a.dtype, device=a.device)
     order = ("m", "n", "k")
     sms = torch.cuda.get_device_properties(a.device).multi_processor_count
     for bm, bn, bk in BLOCK_SWEEP:
@@ -332,8 +284,8 @@ def block_times(timer, data, parent, sink, parent_only=False):
         l2_bytes = tiles * (bm * k + k * bn) * 2
         bodies = []
         if parent is not None:
-            bodies.append(("parent", lambda: parent.call(a, b, out, blk,
-                                                         order, False)))
+            bodies.append(("parent", lambda: parent.call(a, b, blk, order,
+                                                         False)))
         if not parent_only:
             bodies.append(("tree", lambda: matmul(a, b, block=blk,
                                                   grid_order=order)))
@@ -423,9 +375,8 @@ def precision_lines(parent, data, sink):
             geo.MMA_PART_K, geo.MMA_MAX_SPLITS = keep
         if parent is not None:
             pb, po, pr = parent.rank0[label]
-            out = torch.empty(m, n, dtype=a.dtype, device=a.device)
             line["parent"] = _share_of_tol(
-                parent.call(a, b, out, pb, po, pr),
+                parent.call(a, b, pb, po, pr),
                 matmul_plain(a, b, block=pb, grid_order=po,
                              resident_rhs=pr))
         emit({k2: round(v, 4) if isinstance(v, float) else v
@@ -453,15 +404,14 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
+    parent = Parent(args.parent) if args.parent else None
+    build_all(([] if args.parent_only else [_build.load])
+              + ([parent.tree.build.load] if parent else []))
     if args.precision:
-        precision_lines(Parent(args.parent) if args.parent else None, data,
-                        args.out)
+        precision_lines(parent, data, args.out)
         emit({"device": smi}, args.out)
         return
     timer = Timer(dev)
-    parent = Parent(args.parent) if args.parent else None
-    if not args.parent_only:
-        _build.load()
     gemm_times(timer, data, parent, args.out, args.parent_only)
     block_times(timer, data, parent, args.out, args.parent_only)
     if not args.parent_only:

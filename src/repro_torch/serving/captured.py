@@ -19,13 +19,22 @@ On a card the build is:
    warm-up (the warm-up is part of the build, not a step);
 3. the capture, into the graph's own private memory pool;
 4. the wrappers' launch counts that the captured call added are kept
-   (``launch_delta``, and their second bodies' in ``body_delta``) and
+   (``launch_delta``) and
    the counts are set back to their values before the build: each
    replay adds the deltas, so the counters stay exact (one per kernel a
    step launches, none for the build);
 5. the launch parameters the wrappers noted during the capture (kind,
    block sizes, the decode split: ``kernels/_launches.py``) are kept as
    ``launch_params``, so the card can show which schedule a graph runs.
+
+A step whose ``timed`` is set records a CUDA event on the stream just
+before each replay of its graph and one just after, and
+:meth:`CapturedStep.device_seconds` reads the time between them once
+the step's outputs have reached the host: the graph's time on the
+card, which the host's scheduling cannot stretch but for the
+microseconds between the events and the launch (the session's
+watchdog judges it; host step times jitter by more than a small
+model's step).
 
 The step builders take the :class:`~repro_torch.core.schedule.
 ScheduleBundle` their key carries and pass it to the model.  A rebuild
@@ -66,14 +75,6 @@ def _set_counts(counts: Dict[str, int]) -> None:
         kernels.WRAPPERS[name].launches = n
 
 
-def _add_body_counts(counts: Dict[str, int], base: bool = False) -> None:
-    """Add ``counts`` to the second bodies' launch counts (``base``: set
-    them to ``counts``)."""
-    for name, n in counts.items():
-        fn, attr = kernels.BODIES[name]
-        setattr(fn, attr, n if base else getattr(fn, attr) + n)
-
-
 class CapturedStep:
     """A step function bound to static buffers, captured on a card.
 
@@ -98,10 +99,12 @@ class CapturedStep:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: Any = None
         self.launch_delta: Dict[str, int] = {}
-        self.body_delta: Dict[str, int] = {}
         self.launch_params: List[Dict[str, Any]] = []
         self.pool_bytes = 0             # the graph's private pool
         self.replays = 0
+        self.timed = False
+        self._events: Optional[tuple] = None
+        self._timed_last = False
         self._staging: Dict[str, torch.Tensor] = {}
         self._fed: Optional[torch.cuda.Event] = None
         t0 = time.perf_counter()
@@ -117,7 +120,6 @@ class CapturedStep:
         invalidated, so the next build (the session's retry) captures
         into a new graph on a new stream."""
         before = kernels.launch_counts()
-        before_bodies = kernels.body_launch_counts()
         # no automatic collection while the step is built: a collection
         # that frees another step's graph (dead cyclic garbage) during the
         # capture invalidates the capture
@@ -132,7 +134,6 @@ class CapturedStep:
             if collecting:
                 gc.enable()
             _set_counts(before)
-            _add_body_counts(before_bodies, base=True)
 
     def _warm_up_and_capture(self) -> None:
         """The build's steps 1-5 (module docstring)."""
@@ -150,7 +151,6 @@ class CapturedStep:
             t.copy_(s)
         del saved
         warm = kernels.launch_counts()
-        warm_bodies = kernels.body_launch_counts()
         # ``torch.cuda.graph`` empties the allocator's cache on entry;
         # doing it first makes the reserved bytes' growth the pool's
         torch.cuda.synchronize(dev)
@@ -164,9 +164,6 @@ class CapturedStep:
         after = kernels.launch_counts()
         self.launch_delta = {k: after[k] - warm[k] for k in after
                              if after[k] != warm[k]}
-        after = kernels.body_launch_counts()
-        self.body_delta = {k: after[k] - warm_bodies[k] for k in after
-                           if after[k] != warm_bodies[k]}
         self.graph = graph
         self.outputs = outputs
 
@@ -199,16 +196,34 @@ class CapturedStep:
 
     def replay(self) -> Any:
         """Run the step once (the graph on a card, else ``fn``) and
-        return its outputs."""
+        return its outputs; with ``timed``, the graph between two CUDA
+        events (:meth:`device_seconds`)."""
+        self._timed_last = self.timed and self.graph is not None
         if self.graph is None:
             self.outputs = self.fn()
         else:
+            if self._timed_last:
+                if self._events is None:
+                    self._events = tuple(torch.cuda.Event(enable_timing=True)
+                                         for _ in range(2))
+                self._events[0].record()
             self.graph.replay()
+            if self._timed_last:
+                self._events[1].record()
             for name, n in self.launch_delta.items():
                 kernels.WRAPPERS[name].launches += n
-            _add_body_counts(self.body_delta)
         self.replays += 1
         return self.outputs
+
+    def device_seconds(self) -> Optional[float]:
+        """Seconds on the card of the last replay's graph, from its
+        events (None unless that replay ran a graph with ``timed``).
+        Call it once the outputs have reached the host, which waits for
+        the card: the end event is done by then."""
+        if not self._timed_last:
+            return None
+        start, end = self._events
+        return start.elapsed_time(end) / 1e3
 
 
 # The ExecKey detail of a sampled step: it samples inside the step,

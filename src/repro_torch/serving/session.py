@@ -736,13 +736,15 @@ class ServeSession:
                 if self._faults is not None else 0.0)
 
     def _record_step(self, dt: float, extra: float, tokens: int,
-                     slot=None) -> None:
+                     slot=None, device_dt: Optional[float] = None) -> None:
         """Report one decode step's time plus ``extra`` to the straggler
         monitor, then (``slot``: ``(key, kind)``, the bucketed path) to
-        the watchdog's drift watch, then its tokens and time to the
-        watchdog's SLOs and the step's span to the flight recorder, and
-        advance the session's step count.  A straggler is recorded and
-        admission held for the boundaries ``on_straggler`` returns."""
+        the watchdog's drift watch (the step's ``device_dt`` on the card
+        where its graph was timed, plus ``extra``), then its tokens and
+        time to the watchdog's SLOs and the step's span to the flight
+        recorder, and advance the session's step count.  A straggler is
+        recorded and admission held for the boundaries ``on_straggler``
+        returns."""
         step, late = self._step_count, dt + extra
         event = self._straggler.record(step, late)
         if event is not None:
@@ -755,7 +757,9 @@ class ServeSession:
         wd = self._watchdog
         if wd is not None:
             if slot is not None:
-                self._record_events(wd.observe_slot(*slot, late, step=step))
+                watched = late if device_dt is None else device_dt + extra
+                self._record_events(wd.observe_slot(*slot, watched,
+                                                    step=step))
             wd.note_step(tokens=tokens, dt=late)
             self._record_events(wd.tick(step))
         if self._recorder is not None:
@@ -1456,6 +1460,8 @@ class ServeSession:
                 t_dec0 = tel.clock() if tel.enabled else 0.0
                 t_step = time.perf_counter()
                 step.feed(**feed)
+                # the watchdog judges the graph's time on the card
+                step.timed = dec is not None and self._watchdog is not None
                 try:
                     # one copy to the host a step: it waits for the card;
                     # every tap below runs after it, on the host
@@ -1490,9 +1496,13 @@ class ServeSession:
                     dispatch.observe(*dec, dt, eb)
                     if self._watchdog is not None:
                         # the watchdog judges what the step cost with the
-                        # injected slowdown; the service's medians keep dt
+                        # injected slowdown (on the card its graph's time,
+                        # which host jitter does not stretch); the
+                        # service's medians keep dt
+                        dev_dt = step.device_seconds()
                         self._record_events(self._watchdog.observe_slot(
-                            dispatch.resolve(*dec, eb), dec[0], dt + extra,
+                            dispatch.resolve(*dec, eb), dec[0],
+                            (dt if dev_dt is None else dev_dt) + extra,
                             step=self._step_count))
                 if scheduled:
                     step, cur_bundle = switch_on_commit(
@@ -1779,13 +1789,15 @@ class ServeSession:
                 kind, problem = problems["decode"]
                 dispatch.propose(kind, problem, eb)
             draw(dec)
+            dec.timed = watched
             out[:, i].copy_(dec.replay()[0])
             _sync(dev)
             dt = time.perf_counter() - t_step
             self._record_step(
                 dt, self._slow_extra(), bsz,
                 slot=((dispatch.resolve(kind, problem, eb), kind)
-                      if watched else None))
+                      if watched else None),
+                device_dt=dec.device_seconds() if watched else None)
             if dispatch is not None:
                 dispatch.observe(kind, problem, dt, eb)
                 if scheduled:

@@ -107,9 +107,13 @@ def test_the_plan_depends_on_no_runtime_value():
     launch is fixed."""
     params = list(inspect.signature(geo.decode_plan).parameters)
     assert params == ["b", "hq", "hkv", "d", "limit", "block_size",
-                      "elem_bytes", "split_keys", "body"]
+                      "elem_bytes", "split_keys"]
+    assert not hasattr(geo, "body_plan")
     assert list(inspect.signature(dec_ops._plan).parameters) == [
-        "name", "q", "hkv", "limit", "block_size", "split_keys", "body"]
+        "name", "q", "hkv", "limit", "block_size", "split_keys"]
+    for fn in (dec_ops.decode_attention, dec_ops.paged_decode_attention):
+        assert "body" not in inspect.signature(fn).parameters
+        assert not hasattr(fn, "packed_launches")
     assert list(inspect.signature(geo.decode_body).parameters) == [
         "hq", "hkv", "d", "elem_bytes"]
     a = geo.decode_plan(4, 32, 32, 96, 544, 0, 2)
@@ -134,16 +138,14 @@ def test_head_dim_256_with_group_16_is_accepted():
     plan = geo.decode_plan(2, 16, 1, 256, 544, 16, 2)
     assert plan.error is None
     # bf16: the packed body takes the 16 heads of 256 in one block, one
-    # 16-row tile; the chunked body (float32, or asked for) in chunks of
-    # 2 heads (512 outputs a block)
+    # 16-row tile; the chunked body (float32) in chunks of 2 heads (512
+    # outputs a block)
     assert (plan.body, plan.chunks, plan.head_chunk, plan.m_tiles) == (
         "packed", 1, 16, 1)
-    for chunked in (geo.decode_plan(2, 16, 1, 256, 544, 16, 4),
-                    geo.decode_plan(2, 16, 1, 256, 544, 16, 2,
-                                    body="chunked")):
-        assert chunked.error is None
-        assert (chunked.body, chunked.chunks, chunked.head_chunk) == (
-            "chunked", 8, 2)
+    chunked = geo.decode_plan(2, 16, 1, 256, 544, 16, 4)
+    assert chunked.error is None
+    assert (chunked.body, chunked.chunks, chunked.head_chunk) == (
+        "chunked", 8, 2)
     dec_ops._check_q("decode_attention", torch.zeros(2, 16, 1, 256), 1)
     with pytest.raises(ValueError, match="dtype"):
         dec_ops._check_q("decode_attention",
@@ -243,15 +245,44 @@ def test_packed_splits_of_one_tile_take_one_stage(split):
     assert (16 * 256 + 2 * 16) * 4 <= 2 * stages * 64 * (256 + 8) * 2
 
 
-@pytest.mark.parametrize("d,hq,hkv,eb,msg", [
-    (80, 8, 1, 2, "packed"), (128, 8, 1, 4, "packed"),
-    (128, 128, 1, 2, "packed"),
+@pytest.mark.parametrize("d,hq,hkv,eb", [
+    (80, 8, 1, 2), (128, 8, 1, 4), (128, 128, 1, 2),
 ])
-def test_the_packed_body_is_refused_where_it_does_not_apply(d, hq, hkv, eb,
-                                                            msg):
+def test_the_packed_body_is_refused_where_it_does_not_apply(d, hq, hkv, eb):
+    """A head dim outside DEC_PACKED_D, float32 and a group past 64 run
+    the chunked body: the plan is the chunked one and runs."""
     assert geo.decode_body(hq, hkv, d, eb) == "chunked"
-    plan = geo.decode_plan(2, hq, hkv, d, 512, 0, eb, body="packed")
-    assert msg in plan.error
+    plan = geo.decode_plan(2, hq, hkv, d, 512, 0, eb)
+    assert plan.error is None and plan.body == "chunked"
+    assert plan.m_tiles == 0 and plan.cluster == 1
+
+
+# phi3-mini's decodes: 32 heads of 96 (MHA) over the engine's pool of
+# 16-key blocks (34 a row) at 1, 2 and 4 rows, and generate's contiguous
+# [4, 32, 544, 96] cache
+PHI3_DECODES = [(rows, 34 * 16, 16) for rows in (1, 2, 4)] + [(4, 544, 0)]
+
+
+@pytest.mark.parametrize("rows,limit,bs", PHI3_DECODES,
+                         ids=[f"r{c[0]}-{'paged' if c[2] else 'contig'}"
+                              for c in PHI3_DECODES])
+def test_phi3_decode_runs_the_chunked_body_at_group_one(rows, limit, bs):
+    """At a group of one the rule keeps the chunked body (the packed one
+    lost at phi3's shapes on the card: PERF.md): one head a chunk, a
+    tile of 64 keys (48 in float32, whose K and V rows are twice as
+    wide), splits for about DEC_TARGET_BLOCKS blocks, no cluster, within
+    shared memory."""
+    assert geo.decode_body(32, 32, 96, 2) == "chunked"
+    for eb in (2, 4):
+        plan = geo.decode_plan(rows, 32, 32, 96, limit, bs, eb)
+        assert plan.error is None and plan.body == "chunked"
+        assert (plan.head_chunk, plan.chunks, plan.m_tiles,
+                plan.cluster) == (1, 1, 0, 1)
+        assert plan.tile_keys == (64 if eb == 2 else 48)
+        assert plan.split_keys % max(bs, 16) == 0
+        assert plan.smem <= geo.SMEM_BYTES
+        assert plan.blocks == rows * 32 * plan.splits
+        assert plan.blocks <= geo.DEC_TARGET_BLOCKS + rows * 32
 
 
 # ---------------------------------------------------------------- emulation
@@ -548,6 +579,89 @@ def test_decode_timeline_finds_every_anchor():
     packed = src[src.index("decode_packed_kernel(const DecArgs"):]
     for k in range(len(PACKED_STAMPS)):
         assert f"* 8 + {k}] = stamp_ns();" in packed, PACKED_STAMPS[k]
+
+
+def test_decode_timeline_cases_are_phi3s_inputs():
+    """The timeline's ``time`` cases are phi3-mini's main-path calls:
+    flash at every engine bucket 8-512 without and with left-pad starts
+    at both row counts and generate's [4, 32, 512, 96]; the paged decode
+    at 1, 2 and 4 rows over the engine's pool; generate's contiguous
+    decode at three positions.  On the CPU each wrapper runs its plain
+    version; the rule gives flash the wgmma body and the decodes the
+    chunked one; the bounds count what the inputs need."""
+    from repro_torch.launch import decode_timeline as tl
+    cases = tl.phi3_cases(torch.device("cpu"))
+    kinds = [c[0] for c in cases]
+    assert kinds.count("flash_attention") == 7 * 2 * 2 + 1
+    assert kinds.count("paged_decode_attention") == 3
+    assert kinds.count("decode_attention") == len(tl.CONTIG_POS) == 3
+    wrappers = {"flash_attention": tl.flash_attention,
+                "decode_attention": tl.decode_attention,
+                "paged_decode_attention": tl.paged_decode_attention}
+    for kernel, label, args, kw, (b_ms, b_by), _ in cases:
+        assert b_ms > 0 and b_by == "bytes", label
+        plain = {k: v for k, v in kw.items() if k != "block_q"}
+        assert torch.equal(wrappers[kernel](*args, **kw),
+                           tl.REFS[kernel](*args, **plain))
+        assert tl.rule_body(kernel, args[0], args[1]) == (
+            "wgmma" if kernel == "flash_attention" else "chunked")
+
+
+def test_decode_timeline_imports_a_parent_beside_this_tree():
+    """``--parent DIR`` imports another checkout's package beside this
+    tree's (``launch/parent_tree.py``; here the tree itself): other
+    module objects, its own build directory, this tree's modules set
+    back, its wrappers running its plain versions on the CPU."""
+    import sys
+    from pathlib import Path
+    from repro_torch import kernels
+    from repro_torch.core import tuner
+    from repro_torch.launch import decode_timeline as tl
+    root = Path(tl.__file__).resolve().parents[3]
+    before = {k: v for k, v in sys.modules.items()
+              if k.startswith("repro_torch")}
+    parent = tl.load_parent(root)
+    assert {k: v for k, v in sys.modules.items()
+            if k.startswith("repro_torch")} == before
+    fa = parent.wrappers["flash_attention"]
+    assert fa is not kernels.flash_attention and fa.launches == 0
+    assert parent.build is not kernels._build
+    assert parent.build.BUILD_DIR == kernels._build.BUILD_DIR
+    assert parent.geo is not geo and parent.tuner is not tuner
+    assert parent.tuner.geo is parent.geo
+    q = torch.randn(1, 2, 9, 96)
+    assert torch.equal(fa(q, q, q), tl.REFS["flash_attention"](q, q, q))
+
+
+# (S, starts): phi3's short buckets, without and with left padding
+EXACT_CASES = [(8, None), (8, 3), (16, None), (16, 4), (64, None), (64, 19)]
+
+
+@pytest.mark.parametrize("s,start", EXACT_CASES)
+def test_decode_timeline_exact_reference_rounds_to_the_plain_version(s,
+                                                                     start):
+    """The timeline's float64 attention (``err64``'s reference) is the
+    function the plain version computes: at phi3's heads the plain bf16
+    output is within one bf16 ulp of it, its rows before ``starts`` are
+    zeros in both, and ``err64`` reads zero for the exact value rounded
+    to bf16."""
+    from repro_torch.launch import decode_timeline as tl
+    g = torch.Generator().manual_seed(s)
+    q, k, v = (torch.randn(1, 32, s, 96, generator=g).to(torch.bfloat16)
+               for _ in range(3))
+    kw = {} if start is None else {"starts": torch.tensor([start])}
+    keep = torch.ones(s, s, dtype=torch.bool).tril()
+    keep = keep & (torch.arange(s)[None, :] >= (start or 0))
+    exact = tl.exact_attention(q, k, v, keep)
+    plain = tl.flash_attention_ref(q, k, v, **kw)
+    ulp = torch.exp2(torch.floor(torch.log2(
+        exact.abs().clamp_min(2.0 ** -126))) - 7)
+    assert ((plain.double() - exact).abs() <= ulp + 1e-6).all()
+    if start:
+        assert not exact[:, :, :start].any() and not plain[:, :, :start].any()
+    e = tl.err64(plain, exact)
+    assert e["max"] < 2 ** -7 and e["off"] < 0.05
+    assert tl.err64(exact.to(torch.bfloat16), exact)["off"] == 0.0
 
 
 def test_grown_ticket_counters_keep_the_old_ones(monkeypatch):

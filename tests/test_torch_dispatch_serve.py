@@ -225,7 +225,8 @@ def _offered(arch, eb):
                                   MAMBA])
 def test_every_offered_candidate_fits_its_body(arch, eb):
     """What the tuner offers at these shapes, the kernel takes
-    (``_geometry``'s error is None), in the dtype's body; the paged
+    (``_geometry``'s error is None), in the body the rule runs (flash's
+    wgmma body in bf16 at the full configs' head dims); the paged
     decode's rounding to its pool block fits too."""
     for kind, p, offered in _offered(arch, eb):
         assert offered, (kind, p)
@@ -233,6 +234,12 @@ def test_every_offered_candidate_fits_its_body(arch, eb):
             if kind == "flash_attention":
                 assert geo.flash_tile_error(p["d"], eb, s.block_q,
                                             s.block_kv) is None
+                body = geo.flash_body(p["d"], eb)
+                assert body == ("float32" if eb == 4 else "wgmma"
+                                if p["d"] in geo.FLASH_WGMMA_D else "mma")
+                if body == "wgmma":
+                    assert geo.flash_wgmma_tile(p["d"],
+                                                s.block_q).error is None
                 want = ({(64, 64), (128, 64)} if eb == 2 else {(64, 32)})
                 assert {(x.block_q, x.block_kv) for x in offered} == want
             elif kind == "decode_attention":
@@ -247,6 +254,45 @@ def test_every_offered_candidate_fits_its_body(arch, eb):
                     assert paged.error is None, (p, s, bs, paged.error)
             else:
                 assert geo.scan_layout(s.block_d, p["n"], eb).error is None
+
+
+# phi3-mini's prefill buckets and decode caches: flash [1, 32, S, 96] at
+# every engine bucket and generate's [4, 32, 512, 96]; the decodes at the
+# engine's rows over its pool and generate's [4, 32, 544, 96]
+PHI3_FLASH = [(1, s) for s in (8, 16, 32, 64, 128, 256, 512)] + [(4, 512)]
+PHI3_DECODE = [(1, 544, 16), (2, 544, 16), (4, 544, 16), (4, 544, 0)]
+
+
+@pytest.mark.parametrize("b,s", PHI3_FLASH,
+                         ids=[f"b{b}-s{s}" for b, s in PHI3_FLASH])
+def test_every_offered_phi3_flash_schedule_fits_the_body_that_runs_it(b, s):
+    """Each tile the tuner offers for phi3's prefills is one the wgmma
+    body (the body that runs them) takes, and the model ranks both."""
+    ranked = tuner.tune_flash_attention(b, 32, 32, s, 96, elem_bytes=2)
+    assert {(x.block_q, x.block_kv) for x, _ in ranked} == {(64, 64),
+                                                            (128, 64)}
+    assert geo.flash_body(96, 2) == "wgmma"
+    for x, cost in ranked:
+        t = geo.flash_wgmma_tile(96, x.block_q)
+        assert t.error is None and t.smem <= geo.SMEM_BYTES
+        assert x.block_kv == geo.FLASH_KEYS and cost.time_s < 1.0
+
+
+@pytest.mark.parametrize("b,s,bs", PHI3_DECODE,
+                         ids=[f"b{c[0]}-{'paged' if c[2] else 'contig'}"
+                              for c in PHI3_DECODE])
+def test_every_offered_phi3_decode_schedule_fits_the_body_that_runs_it(b, s,
+                                                                       bs):
+    """Each split the tuner offers for phi3's decodes is one the chunked
+    body (the rule's at MHA) takes, over the pool rounded to its block."""
+    offered = [x.block_kv for x, _ in tuner.tune_decode_attention(
+        b, 32, 32, s, 96, elem_bytes=2, top_k=99)]
+    assert offered
+    for k in offered:
+        split = paged_split_keys(k, bs) if bs else k
+        plan = geo.decode_plan(b, 32, 32, 96, s, bs, 2, split)
+        assert plan.error is None, (k, plan.error)
+        assert plan.body == geo.decode_body(32, 32, 96, 2) == "chunked"
 
 
 def test_the_decode_candidates_hold_the_plan_s_own_split():
@@ -296,8 +342,10 @@ def test_decode_plan_with_a_split_keeps_the_chunk_and_tile():
     assert paged.body == "packed"
     assert paged.smem == geo.dec_packed_smem(128, paged.tile_keys,
                                              paged.m_tiles, 64 // 16, 1)
-    paged = geo.decode_plan(4, 32, 8, 128, 544, 16, 2, 64, body="chunked")
-    assert paged.smem == geo.dec_smem(128, 2, paged.tile_keys,
+    # and float32 the chunked body, whose layout holds them too
+    paged = geo.decode_plan(4, 32, 8, 128, 544, 16, 4, 64)
+    assert paged.body == "chunked"
+    assert paged.smem == geo.dec_smem(128, 4, paged.tile_keys,
                                       paged.head_chunk, 64 // 16)
 
 

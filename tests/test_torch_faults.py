@@ -10,9 +10,10 @@ their wall-clock seconds masked), the session counters, the session's
 events (without their timestamps) and the injector's fired log must be
 equal.  The JAX session runs ``backend="reference"``, the port
 ``"cuda"`` (the kernels' plain versions on CPU tensors).  Both run with
-``straggler_threshold=20``: the injected 10 s spike is hundreds of
-times a smoke step on any CPU, while the host's own jitter stays under
-it.
+``straggler_threshold=20`` and time their steps on a clock that
+advances a fixed tick a read (:func:`step_clock`), so the straggler
+monitor sees the same durations on every run: the injected 10 s spike
+is a straggler, the host's scheduling never is.
 
 Where the two packages differ by design, the port's behaviour is
 asserted instead: with the port's default ``fallback_backend="none"`` a
@@ -27,8 +28,11 @@ prefill or decode step that raises (the step callable wrapped in the
 test, on both packages) are replayed the same way.
 """
 import dataclasses
+import itertools
 import json
 import re
+import time
+import types
 
 import numpy as np
 import pytest
@@ -53,9 +57,34 @@ from repro_torch.serving import (FaultInjector, FaultSpec,  # noqa: E402
                                  InjectedFault, RequestState, ServeSession,
                                  parse_fault)
 from repro_torch.serving import faults as tfaults  # noqa: E402
+from repro_torch.serving import session as tsession  # noqa: E402
+from repro.serving import session as jsession  # noqa: E402
 
 PHI3, MAMBA = "phi3-mini-3.8b-smoke", "falcon-mamba-7b-smoke"
 THRESHOLD = 20.0
+STEP_TICK = 1e-3
+
+
+@pytest.fixture(scope="module", autouse=True)
+def step_clock():
+    """``time`` as both session modules see it, with ``perf_counter`` a
+    clock that advances STEP_TICK seconds a read: a step's duration is
+    the reads inside it, the same on every run, so the straggler monitor
+    (``StragglerMonitor``, 20x its average) judges the injected ``slow``
+    spikes and never the host.  On the host's clock the port's smoke
+    steps take ~1.5 ms on the CPU, so a stall of 30 ms anywhere in a
+    drain (parallel test workers) made a straggler, while the JAX
+    session's first step holds its ~0.2 s compile, which keeps its
+    average above 80 ms for a drain."""
+    ticks = itertools.count()
+    clock = types.SimpleNamespace(
+        perf_counter=lambda: STEP_TICK * next(ticks), time=time.time,
+        sleep=time.sleep, monotonic=time.monotonic)
+    mp = pytest.MonkeyPatch()
+    for mod in (tsession, jsession):
+        mp.setattr(mod, "time", clock)
+    yield clock
+    mp.undo()
 
 
 def _models(arch):

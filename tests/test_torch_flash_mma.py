@@ -11,13 +11,16 @@ two bf16 ulps of the plain value + 1e-5), and the plain version to
 ``flash_attention_pallas`` in interpret mode at the same contract, so
 the kernel's arithmetic is tied to the JAX kernel through the plain
 version.  The layout rule (``_geometry.flash_mma_tile``) is the wrapper's.
-The long-sequence body (``csrc/flash_wgmma.cu``) runs the same
-arithmetic over another tiling (64-key stages, a block's tiles skipped
-per 64-row warpgroup, rows past S zero-filled by TMA and not stored),
-emulated here over the tiles it visits; its layout
+The wgmma body (``csrc/flash_wgmma.cu``), the one bf16 body at the
+models' head dims, runs the same arithmetic over another tiling (64-key
+stages, a block's tiles skipped per 64-row warpgroup, rows past S
+zero-filled by TMA and not stored), emulated here over the tiles it
+visits, phi3-mini's short prefills among them; its layout
 (``_geometry.flash_wgmma_tile``) and the rule that picks it
 (``_geometry.flash_body``) are checked too.
 """
+import inspect
+
 import numpy as np
 import pytest
 
@@ -335,6 +338,12 @@ WGMMA_CASES = [
     (2, 5, 1, 200, 128, {"starts": [0, 77]}),
     (2, 4, 4, 150, 96, {"window": 40, "starts": [3, 149]}),
     (1, 2, 2, 65, 64, {}),
+    # phi3-mini's heads below one key tile: a query tile past S, starts
+    # at and near S
+    (1, 32, 32, 8, 96, {"starts": [3]}),
+    (2, 32, 32, 16, 96, {"starts": [15, 16]}),
+    (1, 32, 32, 40, 96, {}),
+    (2, 32, 32, 100, 96, {"starts": [0, 99]}),
 ]
 
 
@@ -367,6 +376,7 @@ def test_wgmma_tiling_emulation_holds_to_the_plain_version(b, hq, hkv, s, d,
     (2, 2, 1, 150, 64, 40, [0, 70], True),
     (1, 4, 4, 130, 96, None, None, False),
     (1, 2, 1, 100, 256, None, [30], True),
+    (1, 32, 32, 40, 96, None, [7], True),
 ])
 def test_wgmma_emulation_holds_to_the_pallas_kernel(b, hq, hkv, s, d, window,
                                                     starts, causal):
@@ -440,7 +450,7 @@ def test_wgmma_register_budget_and_the_model_charge_spills(d, rows):
 @pytest.mark.parametrize("d", [16, 80, 200, 255])
 def test_wgmma_layout_refuses_other_head_dims(d):
     assert "head_dim" in geo.flash_wgmma_tile(d).error
-    assert geo.flash_body(d, 4096, 2, causal=False) == "mma"
+    assert geo.flash_body(d, 2) == "mma"
 
 
 # phi3-mini's engine prompts and generate's batch, and the three family
@@ -453,32 +463,46 @@ FAMILY_SHAPES = [(256, 4096, True, 2048), (64, 1500, False, None),
 
 
 @pytest.mark.parametrize("rows", geo.FLASH_ROW_CHOICES)
-def test_flash_body_rule_keeps_phi3_on_mma_and_families_on_wgmma(rows):
-    """Static shapes decide the body: every phi3 prefill (buckets <= 512,
-    causal) stays on the mma.sync body at both row counts, the three
-    family prefills walk more than FLASH_WGMMA_MIN_KEYS keys a tile and
-    take the wgmma body, float32 keeps its CUDA-core body."""
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
+def test_flash_body_rule_runs_wgmma_at_every_length(d, rows):
+    """The head dim and the dtype decide the body, never the length, the
+    mask or the rows: every phi3 prefill (buckets 8-512, causal, D 96)
+    and the three family prefills take the wgmma body in bf16, with a
+    tile it takes at both row counts; float32 keeps its CUDA-core
+    body."""
+    assert list(inspect.signature(geo.flash_body).parameters) == [
+        "d", "elem_bytes"]
+    assert geo.flash_body(d, 2) == "wgmma"
+    assert geo.flash_body(d, 4) == "float32"
+    assert geo.flash_tile_error(d, 2, rows, KEYS) is None
+    assert geo.flash_wgmma_tile(d, rows).error is None
     for p in PHI3_PROMPTS:
-        s = bucket_length(p)
-        assert s <= 512
-        assert geo.flash_body(96, s, 2, rows) == "mma", s
-    for d, s, causal, window in FAMILY_SHAPES:
-        assert geo.flash_walk(s, causal, window, rows) > \
-            geo.FLASH_WGMMA_MIN_KEYS
-        assert geo.flash_body(d, s, 2, rows, causal, window) == "wgmma"
-        assert geo.flash_body(d, s, 4, rows, causal, window) == "float32"
-    assert geo.flash_walk(4096, True, 2048, rows) == 2048 + rows - 1
-    assert geo.flash_walk(4096, True, 64, rows) == 64 + rows - 1
+        assert bucket_length(p) <= 512
+    assert {fd for fd, *_ in FAMILY_SHAPES} <= set(geo.FLASH_WGMMA_D)
 
 
-def test_flash_wrapper_takes_an_explicit_body_on_the_cpu():
-    """``body=`` names a bf16 body for the card's sweep; on the CPU the
-    plain version runs whichever body is named, and nothing is counted
-    as a launch (the card test refuses a body that cannot take a call)."""
+@pytest.mark.parametrize("d", [16, 80, 200, 224])
+def test_flash_body_rule_keeps_mma_for_other_head_dims(d):
+    """Head dims outside FLASH_WGMMA_D keep the mma.sync body, whose
+    tiles ``flash_tile_error`` then checks."""
+    assert geo.flash_body(d, 2) == "mma"
+    assert geo.flash_tile_error(d, 2, 128, KEYS) == \
+        geo.flash_mma_tile(d, 128).error
+
+
+def test_flash_wrapper_has_no_body_knob():
+    """The wrappers take no body: the rule picks it, and a tile the
+    running body refuses is refused by ``flash_tile_error``; on the CPU
+    the plain version runs and nothing is counted."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_dispatched, flash_attention_scheduled)
+    for fn in (flash_attention, flash_attention_scheduled,
+               flash_attention_dispatched):
+        assert "body" not in inspect.signature(fn).parameters
+    assert not hasattr(flash_attention, "wgmma_launches")
     q, k, v = _inputs(1, 2, 2, 70, 64, seed=4)
-    before = (flash_attention.launches, flash_attention.wgmma_launches)
-    for body in ("mma", "wgmma", None):
-        assert torch.equal(flash_attention(q, k, v, body=body),
-                           flash_attention_ref(q, k, v))
-    assert (flash_attention.launches,
-            flash_attention.wgmma_launches) == before
+    before = flash_attention.launches
+    assert torch.equal(flash_attention(q, k, v, block_q=128),
+                       flash_attention_ref(q, k, v))
+    assert flash_attention.launches == before
+    assert "block_kv" in geo.flash_tile_error(96, 2, 64, 32)

@@ -1,12 +1,13 @@
-"""The two long-sequence / grouped attention bodies against their plain
-versions, on the card: flash attention's wgmma + TMA body
-(``csrc/flash_wgmma.cu``) and the packed split decode
-(``csrc/decode_common.cuh``, decode_packed_kernel), at the edge shapes
-their tiling has to get right (S not a multiple of the tile, a GQA
-group of 5, window edges, left-padded ``starts``, a paged pool, groups
-past one 16-row tile).  Each call names its body explicitly and must
-launch it; the rule's own choice is held too.  The file imports no JAX
-and skips without a card:
+"""The Hopper attention bodies against their plain versions, on the
+card: flash attention's wgmma + TMA body (``csrc/flash_wgmma.cu``, the
+one bf16 body at the models' head dims) and the packed split decode
+(``csrc/decode_common.cuh``, decode_packed_kernel, for KV groups of 2
+and more), at the edge shapes their tiling has to get right (S not a
+multiple of the tile and below one tile, a GQA group of 5, window
+edges, left-padded ``starts`` at and near S, a paged pool, groups past
+one 16-row tile).  The rule (``_geometry.flash_body`` /
+``decode_body``) picks each call's body.  The file imports no JAX and
+skips without a card:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu_attention_bodies.py -q
 
@@ -19,7 +20,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import (decode_attention, flash_attention,  # noqa: E402
                                  paged_decode_attention)
 from repro_torch.kernels._geometry import (decode_body,  # noqa: E402
-                                           flash_body)
+                                           decode_plan, flash_body)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_ref, paged_decode_attention_ref)
 from repro_torch.kernels.flash_attention import flash_attention_ref  # noqa: E402
@@ -56,6 +57,11 @@ FLASH_CASES = [
     (2, 8, 8, 600, 96, 64, {"starts": [37, 599]}),    # D 96, one real row
     (1, 4, 4, 130, 64, 128, {}),                      # S below two tiles
     (2, 4, 2, 700, 128, 64, {"window": 64, "starts": [5, 650]}),
+    # phi3-mini's 32 heads of 96 at its shortest buckets
+    (1, 32, 32, 8, 96, 64, {"starts": [3]}),
+    (2, 32, 32, 16, 96, 128, {"starts": [15, 16]}),
+    (1, 32, 32, 40, 96, 128, {}),
+    (1, 32, 32, 512, 96, 64, {"starts": [212]}),
 ]
 
 
@@ -70,31 +76,35 @@ def test_wgmma_flash_body_matches_plain(cuda_device, b, hq, hkv, s, d, rows,
     k, v = _rn(dev, s + 1, b, hkv, s, d), _rn(dev, s + 2, b, hkv, s, d)
     kw = {n: torch.tensor(x, device=dev) if n == "starts" else x
           for n, x in kw.items()}
-    before = flash_attention.wgmma_launches
-    got = flash_attention(q, k, v, block_q=rows, body="wgmma", **kw)
+    assert flash_body(d, 2) == "wgmma"
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, block_q=rows, **kw)
     torch.cuda.synchronize()
-    assert flash_attention.wgmma_launches == before + 1
+    assert flash_attention.launches == before + 1
     want = flash_attention_ref(q, k, v, **kw)
     assert _share_of_tol(got, want) <= 1.0
-    # the mma.sync body agrees on the same inputs
-    old = flash_attention(q, k, v, block_q=rows, body="mma", **kw)
-    assert _share_of_tol(old, want) <= 1.0
 
 
 @pytest.mark.gpu
 def test_flash_rule_picks_wgmma_for_the_family_shapes(cuda_device):
-    """The rule's choice launches the body it names (whisper's encoder on
-    wgmma, a 512-token prefill on mma.sync)."""
-    assert flash_body(64, 1500, 2, causal=False) == "wgmma"
-    assert flash_body(96, 512, 2) == "mma"
+    """The rule gives every model's head dim the wgmma body at every
+    length (whisper's encoder, a 512-token prefill) and another head dim
+    the mma.sync body; each call launches once and holds to plain."""
+    assert flash_body(64, 2) == flash_body(96, 2) == "wgmma"
+    assert flash_body(80, 2) == "mma"
     q = _rn(cuda_device, 3, 1, 4, 1500, 64)
-    before = (flash_attention.launches, flash_attention.wgmma_launches)
-    flash_attention(q, q, q, causal=False)
-    flash_attention(q[:, :, :512].contiguous(), q[:, :, :512].contiguous(),
-                    q[:, :, :512].contiguous())
+    q80 = _rn(cuda_device, 4, 1, 4, 300, 80)
+    before = flash_attention.launches
+    got = [flash_attention(q, q, q, causal=False),
+           flash_attention(q[:, :, :512].contiguous(),
+                           q[:, :, :512].contiguous(),
+                           q[:, :, :512].contiguous()),
+           flash_attention(q80, q80, q80)]
     torch.cuda.synchronize()
-    assert (flash_attention.launches, flash_attention.wgmma_launches) == (
-        before[0] + 2, before[1] + 1)
+    assert flash_attention.launches == before + 3
+    assert _share_of_tol(got[0], flash_attention_ref(
+        q, q, q, causal=False)) <= 1.0
+    assert _share_of_tol(got[2], flash_attention_ref(q80, q80, q80)) <= 1.0
 
 
 # (B, HQ, HKV, S, D, pos, starts)
@@ -120,16 +130,14 @@ def test_packed_decode_body_matches_plain(cuda_device, b, hq, hkv, s, d, pos,
     k, v = _rn(dev, s, b, hkv, s, d), _rn(dev, s + 1, b, hkv, s, d)
     p = torch.tensor(pos, device=dev)
     st = None if starts is None else torch.tensor(starts, device=dev)
-    before = decode_attention.packed_launches
-    got = decode_attention(q, k, v, p, starts=st, body="packed")
+    assert decode_body(hq, hkv, d, 2) == "packed"
+    got = decode_attention(q, k, v, p, starts=st)
     torch.cuda.synchronize()
-    assert decode_attention.packed_launches == before + 1
     want = decode_attention_ref(q, k, v, p, starts=st)
     assert _share_of_tol(got, want) <= 1.0
     # a schedule's split replaces the plan's and keeps the body
-    got = decode_attention(q, k, v, p, starts=st, block_kv=64, body="packed")
+    got = decode_attention(q, k, v, p, starts=st, block_kv=64)
     assert _share_of_tol(got, want) <= 1.0
-    assert decode_body(hq, hkv, d, 2) == "packed"
 
 
 @pytest.mark.gpu
@@ -137,10 +145,13 @@ def test_packed_decode_body_matches_plain(cuda_device, b, hq, hkv, s, d, pos,
 def test_decode_ignores_nan_outside_the_window(cuda_device, body):
     """NaN in the cache before ``starts`` and past ``pos`` (where the
     packed body's first tile of a split is fetched before ``pos`` is
-    known) leaves the output finite and equal to the plain value over a
-    cache with zeros there."""
+    known, without starts) leaves the output finite and equal to the
+    plain value over a cache with zeros there: MQA on the packed body,
+    phi3's MHA on the chunked one."""
     dev = cuda_device
-    b, hq, hkv, s, d = 4, 16, 1, 544, 256
+    b, s = 4, 544
+    hq, hkv, d = (16, 1, 256) if body == "packed" else (32, 32, 96)
+    assert decode_body(hq, hkv, d, 2) == body
     q = _rn(dev, 11, b, hq, 1, d)
     k, v = _rn(dev, 12, b, hkv, s, d), _rn(dev, 13, b, hkv, s, d)
     pos, starts = [3, 70, 300, 543], [0, 0, 9, 200]
@@ -150,7 +161,7 @@ def test_decode_ignores_nan_outside_the_window(cuda_device, body):
                | (keys[None, :] < st[:, None]))[:, None, :, None]
     nan = torch.tensor(float("nan"), device=dev, dtype=torch.bfloat16)
     got = decode_attention(q, k.where(~outside, nan), v.where(~outside, nan),
-                           p, starts=st, body=body)
+                           p, starts=st)
     want = decode_attention_ref(q, k.where(~outside, 0), v.where(~outside, 0),
                                 p, starts=st)
     assert torch.isfinite(got.float()).all()
@@ -170,24 +181,27 @@ def test_packed_paged_decode_matches_plain(cuda_device, hq, hkv, d):
     perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(7))
     tables = (perm + 1).reshape(rows, mb).to(torch.int32).to(dev)
     p = torch.tensor(pos, dtype=torch.int32, device=dev)
-    before = paged_decode_attention.packed_launches
+    assert decode_body(hq, hkv, d, 2) == "packed"
     got = paged_decode_attention(q, kp, vp, tables, p)
     torch.cuda.synchronize()
-    assert paged_decode_attention.packed_launches == before + 1
     assert _share_of_tol(got, paged_decode_attention_ref(
         q, kp, vp, tables, p)) <= 1.0
 
 
 @pytest.mark.gpu
 def test_packed_body_is_refused_where_it_does_not_apply(cuda_device):
-    """float32 and head dims outside the packed set raise; nothing falls
-    back to the chunked body."""
+    """float32 and head dims outside the packed set run the chunked body
+    (the rule), whose plan the wrapper launches."""
     dev = cuda_device
-    q = torch.zeros(1, 4, 1, 64, device=dev)
-    k = torch.zeros(1, 1, 64, 64, device=dev)
-    with pytest.raises(ValueError, match="packed"):
-        decode_attention(q, k, k, 10, body="packed")
-    qb = torch.zeros(1, 4, 1, 80, device=dev, dtype=torch.bfloat16)
-    kb = torch.zeros(1, 1, 64, 80, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="packed"):
-        decode_attention(qb, kb, kb, 10, body="packed")
+    q = _rn(dev, 21, 1, 4, 1, 64).float()
+    k = _rn(dev, 22, 1, 1, 64, 64).float()
+    assert decode_body(4, 1, 64, 4) == "chunked"
+    assert decode_plan(1, 4, 1, 64, 64, 0, 4).body == "chunked"
+    assert _share_of_tol(decode_attention(q, k, k, 10).to(torch.bfloat16),
+                         decode_attention_ref(q, k, k, 10).to(
+                             torch.bfloat16)) <= 1.0
+    assert decode_body(4, 1, 80, 2) == "chunked"
+    assert decode_plan(1, 4, 1, 80, 64, 0, 2).body == "chunked"
+    q, k = _rn(dev, 23, 1, 4, 1, 80), _rn(dev, 24, 1, 1, 64, 80)
+    assert _share_of_tol(decode_attention(q, k, k, 10),
+                         decode_attention_ref(q, k, k, 10)) <= 1.0

@@ -359,6 +359,31 @@ def test_matmul_timeline_marks_every_phase():
         assert f"MM_T_MARK({k})" in body, PHASES[k]
 
 
+def test_matmul_timeline_parent_runs_its_own_wrapper_at_its_rank0():
+    """``matmul_timeline --parent DIR`` (here the tree itself, imported
+    beside it by ``launch/parent_tree.py``) ranks each shape with the
+    parent's own tuner and calls the parent's own wrapper, which on the
+    CPU runs its plain version."""
+    from pathlib import Path
+    from repro_torch.launch import matmul_timeline as mt
+    root = Path(mt.__file__).resolve().parents[3]
+    parent = mt.Parent(root)
+    assert parent.tree.tuner is not tuner
+    assert parent.tree.kernels.matmul is not matmul
+    assert [label for label, _ in mt.SHAPES] == list(parent.rank0)
+    for label, (m, n, k) in mt.SHAPES:
+        s = tuner.tune_matmul(m, n, k, elem_bytes=2, top_k=1)[0][0]
+        assert parent.rank0[label] == (s.block_dict(), tuple(s.grid_order),
+                                       s.resident_rhs), label
+    block, order, res = parent.rank0["fire9-conv1x1-1"]
+    g = torch.Generator().manual_seed(0)
+    a, b = torch.randn(64, 512, generator=g), torch.randn(512, 169,
+                                                         generator=g)
+    assert torch.equal(parent.call(a, b, block, order, res),
+                       matmul_plain(a, b, block=block, grid_order=order,
+                                    resident_rhs=res))
+
+
 def test_layouts_follow_the_dtype():
     assert geo.tensor_cores(2) and not geo.tensor_cores(4)
     assert isinstance(geo.conv_layout(16, 16, 4, 4, 3, 3, 2),
@@ -435,12 +460,13 @@ def test_registry_record_of_h100_1_is_not_returned_under_h100_2(
         tmp_path, monkeypatch):
     """Rankings cached by the CUDA-core-only model (``h100-1``) miss
     under the current model (``h100-6`` since the bf16 conv body was
-    redesigned, ``h100-7`` since the bf16 matmul body was redesigned;
+    redesigned, ``h100-7`` since the bf16 matmul body was redesigned,
+    ``h100-8`` since flash has one bf16 body at the models' head dims;
     ``h100-5`` when flash attention and the decode gained
     their second bodies; ``h100-4`` when the serving kernels joined it;
     ``h100-3`` when the bf16 sparse conv moved to the tensor cores): the
     tuner ranks anew."""
-    assert cm.COST_MODEL_VERSION == "h100-7"
+    assert cm.COST_MODEL_VERSION == "h100-8"
     path = str(tmp_path / "t.jsonl")
     layer = TABLE_4_1["fire9-conv3x3-2"]
     monkeypatch.setattr(cm, "COST_MODEL_VERSION", "h100-1")
@@ -450,7 +476,7 @@ def test_registry_record_of_h100_1_is_not_returned_under_h100_2(
     fresh = reg.TuningRegistry(path)
     assert fresh.get(old_key) is not None
     new_key = reg.conv_schedule_key(layer, cm.H100Spec())
-    assert new_key.cost_model == "h100-7" and fresh.get(new_key) is None
+    assert new_key.cost_model == "h100-8" and fresh.get(new_key) is None
     before = cm.total_evals()
     tuner.cached_tune_conv(layer, registry=fresh)
     assert cm.total_evals() > before
@@ -506,8 +532,9 @@ def test_registry_record_of_h100_5_is_not_returned_under_h100_6(
 def test_matmul_record_of_h100_6_is_not_returned_under_h100_7(tmp_path,
                                                                monkeypatch):
     """A matmul ranking cached before the persistent bf16 body (``h100-6``:
-    one block a tile, no tail split) misses under ``h100-7``: the tuner
-    ranks anew, and both records stay in the registry."""
+    one block a tile, no tail split) misses under ``h100-7`` and the
+    versions after it: the tuner ranks anew, and both records stay in
+    the registry."""
     path = str(tmp_path / "t.jsonl")
     m, n, k = QKV
     monkeypatch.setattr(cm, "COST_MODEL_VERSION", "h100-6")
@@ -517,8 +544,8 @@ def test_matmul_record_of_h100_6_is_not_returned_under_h100_7(tmp_path,
     before = cm.total_evals()
     tuner.cached_tune_matmul(m, n, k, registry=fresh)
     assert cm.total_evals() > before
-    assert {r.key.cost_model for r in fresh.records()} == {"h100-6",
-                                                           "h100-7"}
+    assert {r.key.cost_model for r in fresh.records()} == {
+        "h100-6", cm.COST_MODEL_VERSION}
 
 
 def test_qkv_rank0_takes_m_fastest():
