@@ -17,7 +17,7 @@ one line each (any failure exits non-zero and prints no ``ok`` line):
    others) and of the packed decode (none may be 0) and of the
    float32 bodies (which stay on the CUDA cores: none may hold one);
    ``[serialized_wgmma]``: ptxas may serialize no wgmma of the bf16
-   matmul body;
+   matmul body or of the bf16 conv body;
 3. kernels: each kernel against its plain PyTorch version at every
    shape the main paths give it in bf16 (per element, two bf16 ulps of
    the plain value plus 1e-5), at the main geometry in float32 (1e-5)
@@ -346,9 +346,9 @@ PEAK_EXP_PER_S = 132 * 16 * 1.98e9
 # Kernel-vs-plain tolerance per element.  bf16: both sides accumulate in
 # float32 and round once to bf16, so they may differ by the rounding of
 # that last step; two bf16 ulps of |plain| (2**(floor(log2|x|) - 7))
-# plus a float32-level floor for outputs near zero.  float32: absolute.
+# plus a float32-level floor for outputs near zero (the port's
+# ``_checks.bf16_tolerance``).  float32: absolute.
 TOL = {"bfloat16": "2 ulp(|plain|) + 1e-5", "float32": 1e-5}
-BF16_ULPS, BF16_FLOOR = 2, 1e-5
 PHI3 = "phi3-mini-3.8b"
 MAMBA = "falcon-mamba-7b"
 NEW_TOKENS = 32
@@ -462,14 +462,21 @@ MAIN_PATH_INSTANCES = {
         r"decode_split_kernelI13__nv_bfloat16NS_8ContigKV",
     "ssm_scan": r"ssm_scan_kernelI13__nv_bfloat16Li16E",
     # the thesis kernels' bf16 bodies: the conv's implicit GEMM (dense,
-    # and over the nonzero blocks) at 32- and 48-pixel warp tiles, the
-    # matmul's persistent wgmma body at QKV's tile (two warpgroups, 192
-    # wide, the full flavour: its tail is split) and at O's (one
-    # warpgroup, the lean flavour)
-    "conv2d": r"conv2d_cu[^']*conv_mma_kernelILb0ELi2E",
-    "conv2d_mt3": r"conv2d_cu[^']*conv_mma_kernelILb0ELi3E",
-    "sparse_conv2d": r"sparse_conv_cu[^']*conv_mma_kernelILb1ELi2E",
-    "sparse_conv2d_mt3": r"sparse_conv_cu[^']*conv_mma_kernelILb1ELi3E",
+    # and over the nonzero blocks) at wgmma widths 64, 32 and 16 and one
+    # to three 64-row tiles a warpgroup (the most accumulators: 64 x 2,
+    # 32 x 3), the matmul's persistent wgmma body at QKV's tile (two
+    # warpgroups, 192 wide, the full flavour: its tail is split) and at
+    # O's (one warpgroup, the lean flavour)
+    "conv2d": r"conv2d_cu[^']*conv_mma_kernelILb0ELi64ELi1E",
+    "conv2d_n64_m2": r"conv2d_cu[^']*conv_mma_kernelILb0ELi64ELi2E",
+    "conv2d_n32_m3": r"conv2d_cu[^']*conv_mma_kernelILb0ELi32ELi3E",
+    "conv2d_n16": r"conv2d_cu[^']*conv_mma_kernelILb0ELi16ELi1E",
+    "sparse_conv2d": r"sparse_conv_cu[^']*conv_mma_kernelILb1ELi64ELi1E",
+    "sparse_conv2d_n64_m2":
+        r"sparse_conv_cu[^']*conv_mma_kernelILb1ELi64ELi2E",
+    "sparse_conv2d_n32_m3":
+        r"sparse_conv_cu[^']*conv_mma_kernelILb1ELi32ELi3E",
+    "sparse_conv2d_n16": r"sparse_conv_cu[^']*conv_mma_kernelILb1ELi16ELi1E",
     "matmul": r"matmul_mma_kernelILi2ELi192ELb1E",
     "matmul_lean": r"matmul_mma_kernelILi1ELi192ELb0E",
 }
@@ -497,8 +504,8 @@ WIDE_INSTANCES = {
 # tensor-core instructions, by name pattern.
 SASS_CHECKS = {
     "matmul_bf16": (r"matmul_mma_kernel", "HGMMA"),
-    "conv2d_bf16": (r"conv2d_cu.*conv_mma_kernel", "HMMA"),
-    "sparse_conv2d_bf16": (r"sparse_conv_cu.*conv_mma_kernel", "HMMA"),
+    "conv2d_bf16": (r"conv2d_cu.*conv_mma_kernel", "HGMMA"),
+    "sparse_conv2d_bf16": (r"sparse_conv_cu.*conv_mma_kernel", "HGMMA"),
     "flash_attention_bf16": (r"flash_mma_kernel", "HMMA"),
     "flash_attention_wgmma_bf16": (r"flash_wgmma_kernel", "HGMMA"),
     "decode_packed_bf16": (r"decode_packed_kernel", "HMMA"),
@@ -563,12 +570,10 @@ def tolerance_share(torch, got, want, peak=None):
     ulps are those of the largest magnitude the element takes at any
     rounding point: a float32 sum in another order may round the other
     way at an intermediate point, and that step stays in the result."""
+    from repro_torch.kernels._checks import bf16_tolerance
     diff = (got.float() - want.float()).abs()
     if want.dtype == torch.bfloat16:
-        mag = (want.float().abs() if peak is None else peak
-               ).clamp_min(2.0 ** -126)
-        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-        allowed = BF16_ULPS * ulp + BF16_FLOOR
+        allowed = bf16_tolerance(want.float() if peak is None else peak)
     else:
         allowed = torch.full_like(diff, TOL["float32"])
     return diff.max().item(), (diff / allowed).max().item()
@@ -1534,7 +1539,8 @@ def thesis_checks(torch, dev, timer, data):
                                       grid_order=order, with_peak=True)
             check("conv2d", got, want,
                   f"edge {name} N={n} {''.join(a[0] for a in order)} {block}"
-                  f" padded to {tile.p16} pixels x {tile.boc16} oc x "
+                  f" {tile.rows} rows padded to {tile.m_pad} x "
+                  f"{tile.boc_pad} oc (wgmma N {tile.nt}) x "
                   f"{tile.bic_pad} ic, {tile.warps} warps x {tile.rounds} "
                   f"rounds, walk {tile.walk}, {tile.stages} stages"
                   f"{', late' if tile.late else ''}", peak, k,
@@ -1548,8 +1554,8 @@ def thesis_checks(torch, dev, timer, data):
                 wgt = data["sw"][(name, d)].to(dt)
                 for n in THESIS_BATCHES:
                     block = tuner.tune_sparse_conv(
-                        l, d, elem_bytes=eb, top_k=1,
-                        batch=n)[0][0].block_dict()
+                        l, d, elem_bytes=eb, top_k=1, batch=n,
+                        weights=wgt)[0][0].block_dict()
                     sp = analyze_weights(wgt, block)
                     img = data["simg"][name][:n].to(dt)
                     got, k = counted(lambda: sparse_conv2d(
@@ -1624,10 +1630,10 @@ def thesis_checks(torch, dev, timer, data):
     for name, l in data["sparse"].items():
         for d in SPARSE_DENSITIES:
             img = data["simg"][name].to(torch.bfloat16)
-            s = tuner.tune_sparse_conv(l, d, elem_bytes=2, top_k=1,
-                                       batch=img.shape[0])[0][0]
-            block = s.block_dict()
             wgt = data["sw"][(name, d)].to(torch.bfloat16)
+            s = tuner.tune_sparse_conv(l, d, elem_bytes=2, top_k=1,
+                                       batch=img.shape[0], weights=wgt)[0][0]
+            block = s.block_dict()
             sp = analyze_weights(wgt, block)
             # the work the function needs: the weights' nonzero blocks at
             # the granularity they were zeroed at, not the skip block's
@@ -1659,7 +1665,8 @@ def thesis_checks(torch, dev, timer, data):
                 # the rank-0 skip block beside every other the tuner
                 # offers: the fastest measured one, and where rank-0 is
                 cands = [c.block_dict() for c, _ in tuner.tune_sparse_conv(
-                    l, d, elem_bytes=2, top_k=10 ** 6, batch=img.shape[0])]
+                    l, d, elem_bytes=2, top_k=10 ** 6, batch=img.shape[0],
+                    weights=wgt)]
                 cms = {}
                 for blk in cands:
                     csp = analyze_weights(wgt, blk)
@@ -2313,12 +2320,12 @@ def main():
         phase("ptxas", kernel=kernel, **ptxas_stats(_build.build_log,
                                                      pattern))
     # ptxas serializes a body's wgmmas where it cannot keep them in
-    # flight (flash's D 256 at two warpgroups): the matmul body's
-    # must all stay asynchronous
+    # flight (flash's D 256 at two warpgroups): the matmul body's and
+    # the conv body's must all stay asynchronous
     serialized = re.findall(r"wgmma\.mma_async instructions are serialized"
-                            r"[^\n]*'([^']*matmul_mma_kernel[^']*)'",
+                            r"[^\n]*'([^']*(?:matmul|conv)_mma_kernel[^']*)'",
                             _build.build_log)
-    phase("serialized_wgmma", body="matmul_mma_kernel",
+    phase("serialized_wgmma", body="matmul_mma_kernel conv_mma_kernel",
           instances=len(serialized))
     if serialized:
         fail(f"ptxas serialized the wgmmas of {serialized[0]}")

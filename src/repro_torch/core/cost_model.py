@@ -45,10 +45,11 @@ is the port's own:
     and ticket (``MatmulBodyConsts``).  The constants are fitted to
     ``launch/calibrate_thesis.py``'s timings.
     The block-sparse conv runs the dense conv's body over the expected
-    nonzero channel blocks of each oc block (block density x ic blocks),
-    at the dense model's pixel tile for its skip block
-    (``sparsity.sparse_pixel_tile``), after one round trip for its index
-    row; a tile with none writes zeros.  A call costs ``SPARSE_CALL_S``
+    nonzero channel blocks of each oc block (block density x ic blocks;
+    given the weights, each skip block's own density, and its busiest
+    oc block's excess over the mean on one SM), at the dense model's
+    pixel tile for its skip block (``sparsity.sparse_pixel_tile``), after
+    one round trip for its index row; a tile with none writes zeros.  A call costs ``SPARSE_CALL_S``
     more than its launch, fitted to its calibration lines.
   - float32 runs on the CUDA cores: an issue-rate model.  An SM issues
     4 warp FMAs and 1 shared-memory wavefront a clock, so a conv tap
@@ -117,7 +118,9 @@ family's constants on timed candidates, by least squares and by a
 coordinate search of the mean squared log error (the fit flash's wgmma
 terms and the decode's constants keep).
 
-Its version string is its own (``h100-8`` scores flash's one bf16 body
+Its version string is its own (``h100-9`` times the bf16 conv body on
+wgmma: 64-row tiles of the halo's rows, the products overlapping the
+next step's pass, refitted constants; ``h100-8`` scores flash's one bf16 body
 at the models' head dims with its own block and tile terms, and refits
 the decode; ``h100-7`` times the persistent bf16 matmul body: its walk,
 tail split and epilogue; ``h100-6`` the
@@ -147,7 +150,7 @@ from repro_torch.kernels import _geometry as geo
 
 # Bump whenever a change below alters predicted costs: the registry keys
 # cached rankings on it, so stale predictions self-invalidate.
-COST_MODEL_VERSION = "h100-8"
+COST_MODEL_VERSION = "h100-9"
 
 # Cost-model queries in this process, one per candidate scored: a warm
 # registry hit performs zero (asserted in tests/test_torch_thesis.py).
@@ -165,24 +168,30 @@ INFEASIBLE_S = 1e3
 
 # Constants of the bodies' timing, fitted to ``launch/calibrate_thesis.py``
 # timings on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md; ``--score``
-# reports the fit).  The bf16 conv body's five: the coordinate search of
-# ``--score`` on its 376 conv and sparse conv lines (a step's fixed cost
-# takes most of the time the channels-last units once charged):
-UNIT_CYCLES = 0.686       # SM cycles to write one channels-last unit (8
+# reports the fit).  The bf16 conv body's six: the coordinate search of
+# ``--score`` on the wgmma body's 376 conv and sparse conv lines (the
+# search kept the mma.sync body's fixed cost of a step; it takes most of
+# the time the channels-last units once charged; it drove LATE_SHARE to
+# its floor, the single-slot layouts' lines being timed faster than a
+# step's wgmmas and pass in turn):
+UNIT_CYCLES = 2.258       # SM cycles to write one channels-last unit (8
 #                           channels of a pixel or an oc row: eight
 #                           2-byte shared-memory reads, one 16-byte store)
-CHUNK_CYCLES = 2.139      # SM cycles to issue one 16-byte cp.async unit
+CHUNK_CYCLES = 1.314      # SM cycles to issue one 16-byte cp.async unit
 STEP_CYCLES = 4754.0      # a conv step's fixed cycles (its wait and
 #                           barrier, the MMA pipeline's refill)
-EPI_CYCLES = 15.4         # SM cycles an output sector of the epilogue
+EPI_CYCLES = 18.48        # SM cycles an output sector of the epilogue
 #                           (32 bytes of a channel's run)
-LOAD_LATENCY_S = 3.466e-6  # round trip of a conv ring step's loads (hidden
+LOAD_LATENCY_S = 2.554e-6  # round trip of a conv ring step's loads (hidden
 #                           over stages - 1 steps of work)
+LATE_SHARE = 0.01562      # share of the shorter of a step's wgmmas and its
+#                           pass that a single-slot (late) layout runs in
+#                           turn with the longer
 
 
 @dataclasses.dataclass(frozen=True)
 class ConvBodyConsts:
-    """The bf16 conv body's five constants as one value.  A spec whose
+    """The bf16 conv body's six constants as one value.  A spec whose
     ``conv_body`` is None times the body with the module's constants
     above (:meth:`fitted`, read at each call); ``calibrate_thesis``'s fit
     passes its trial values in a spec of its own."""
@@ -191,12 +200,13 @@ class ConvBodyConsts:
     step_cycles: float
     epi_cycles: float
     load_latency_s: float
+    late_share: float
 
     @classmethod
     def fitted(cls) -> "ConvBodyConsts":
         """The module's constants."""
         return cls(UNIT_CYCLES, CHUNK_CYCLES, STEP_CYCLES, EPI_CYCLES,
-                   LOAD_LATENCY_S)
+                   LOAD_LATENCY_S, LATE_SHARE)
 
 
 # The persistent bf16 matmul body's seven (``MatmulBodyConsts``), from the
@@ -519,20 +529,24 @@ def _resident_blocks(threads, smem, regs, spec: H100Spec) -> np.ndarray:
 def _conv_mma_launch_s(layer: ConvLayer, boc: int, bic: int, by: int,
                        bx: int, batch: int, order: Tuple[str, ...],
                        n_fixed: int, extra: int, nb: float, rmw: bool,
-                       spec: H100Spec) -> Tuple[float, int, bool]:
+                       spec: H100Spec, one_block: bool = False
+                       ) -> Tuple[float, int, bool]:
     """(seconds, smem bytes, feasible) of one launch of the bf16 implicit
     GEMM (``_geometry.conv_mma_tile``) whose tiles sum ``nb`` channel
     blocks (the block-sparse body's expected nonzero count may be
     fractional), with the output axes in ``order``, under the spec's
-    conv body constants; memoised together with them."""
+    conv body constants; memoised together with them.  ``one_block``:
+    the seconds of one block of the launch instead (on an SM shared as
+    the launch's first wave shares it)."""
     return _conv_mma_launch_cached(
         layer, boc, bic, by, bx, batch, order, n_fixed, extra, nb, rmw, spec,
-        spec.conv_body or ConvBodyConsts.fitted())
+        spec.conv_body or ConvBodyConsts.fitted(), one_block)
 
 
 @functools.lru_cache(maxsize=1 << 16)
 def _conv_mma_launch_cached(layer, boc, bic, by, bx, batch, order, n_fixed,
-                            extra, nb, rmw, spec, consts: ConvBodyConsts):
+                            extra, nb, rmw, spec, consts: ConvBodyConsts,
+                            one_block=False):
     """:func:`_conv_mma_launch_s` for one value of the constants."""
     unit_c, chunk_c, step_c = (consts.unit_cycles, consts.chunk_cycles,
                                consts.step_cycles)
@@ -544,16 +558,15 @@ def _conv_mma_launch_cached(layer, boc, bic, by, bx, batch, order, n_fixed,
         return 0.0, t.smem, False
     clk = _clock_hz(spec)
     taps = layer.kh * layer.kw
-    # one tile's channel block over all its rounds: the padded MMAs at
-    # the tensor-core peak or at the rate their ldmatrix reads need (each
-    # 16 m_tiles x 32 warp tile loads its 16-row A and 16-channel B
-    # fragments, 512 bytes each, a tap and 16 channels)
-    flop = t.p16 * t.boc16 * t.bic_pad * taps * 2
-    wt_m, wt_n = -(-t.p16 // (16 * t.m_tiles)), -(-t.boc16 // 32)
-    frag = 512 * (t.p16 / 16 * wt_n + t.boc16 / 16 * wt_m) * taps \
-        * t.bic_pad / 16
+    # one tile's channel block over all its rounds: the padded wgmmas at
+    # the tensor-core peak or at the rate their shared-memory reads need
+    # (each 64 x nt wgmma reads its 64-row A, 2 KB, and nt rows of B, 32
+    # bytes each, a tap and 16 channels)
+    flop = t.m_pad * t.boc_pad * t.bic_pad * taps * 2
+    reads = (t.m_pad / 64 * t.boc_pad / t.nt * (2048 + 32 * t.nt) * taps
+             * t.bic_pad / 16)
     mma_cyc = max(flop / (spec.tc_peak_flops / spec.sms / clk),
-                  frag / spec.smem_read_bytes)
+                  reads / spec.smem_read_bytes)
     # a step's staging: cp.async units issued, channels-last units
     # written, for each operand it streams
     halo_cyc = t.halo_chunks * chunk_c + t.halo_units * unit_c
@@ -572,11 +585,25 @@ def _conv_mma_launch_cached(layer, boc, bic, by, bx, batch, order, n_fixed,
     runs, run = boc * (1 if span else by), by * bx if span else bx
     epi_cyc = runs * (2 * run + 31) / 32 * epi_c * (2 if rmw else 1)
     walk = t.tiles / t.blocks        # tiles a block walks, on average
-    steps = pre + walk * t.rounds * nb
-    # a block zeroes its padding once: 16-byte stores, 128 bytes a clock
-    busy = (t.zero_units / 8 + pre * (fixed_cyc + step_c)
-            + walk * (nb * (mma_cyc + t.rounds * (stream_cyc + step_c))
-                      + epi_cyc))
+    # a tile of one channel block runs its rounds in one step (its
+    # operands stream once); otherwise each round re-streams them
+    inner = nb <= 1
+    reps = 1 if inner else t.rounds
+    steps = pre + walk * reps * nb
+    # the wgmmas of a step's (last) round run while the warps write the
+    # next step's operands, unless those take the single slot the wgmmas
+    # read (late)
+    per_round = mma_cyc / t.rounds
+    step_cyc = max(per_round, stream_cyc) + step_c
+    if t.late:
+        step_cyc += consts.late_share * min(per_round, stream_cyc)
+    if inner:
+        step_cyc += mma_cyc - per_round
+    # a block zeroes its padding once: 16-byte stores at the rate shared
+    # memory serves an SM
+    busy = (t.zero_units * 16 / spec.smem_read_bytes
+            + pre * (fixed_cyc + step_c)
+            + walk * (nb * reps * step_cyc + epi_cyc))
     thr_s = busy / clk
     # latency: the first stage's round trip, then each step waits for its
     # loads unless stages - 1 steps of work hid them; the sparse body's
@@ -592,6 +619,9 @@ def _conv_mma_launch_cached(layer, boc, bic, by, bx, batch, order, n_fixed,
                      spec.regs_per_sm // (t.threads * 128)))
     if nb <= 0:                  # the sparse body's zero tiles
         thr_s, lat_s = epi_cyc * walk / clk, load_s
+    if one_block:
+        share = min(occ, -(-t.blocks // spec.sms))
+        return max(share * thr_s, lat_s), t.smem, True
     full, tail = divmod(t.blocks, spec.sms * occ)
     per_tail = max(-(-tail // spec.sms) * thr_s, lat_s) if tail else 0.0
     return full * max(occ * thr_s, lat_s) + per_tail, t.smem, True
@@ -599,7 +629,8 @@ def _conv_mma_launch_cached(layer, boc, bic, by, bx, batch, order, n_fixed,
 
 def _conv_mma_seconds(layer: ConvLayer, by, bx, boc, bic, spec: H100Spec,
                       batch: int = 1, steps=None,
-                      order: Tuple[str, ...] = ("oc", "y", "x")):
+                      order: Tuple[str, ...] = ("oc", "y", "x"),
+                      busiest=None):
     """Per block: (seconds of the scratch launch, seconds of all the
     read-modify-write launches, smem bytes, feasible) of the bf16
     implicit GEMM (``_geometry.conv_mma_tile``) over ``batch`` images
@@ -608,7 +639,9 @@ def _conv_mma_seconds(layer: ConvLayer, by, bx, boc, bic, spec: H100Spec,
     its layout keeps every ic block's weights resident and the index row
     (``_geometry.sparse_layout`` before the structure is known), it has
     no read-modify-write launch, and its index row is one more round
-    trip."""
+    trip.  ``busiest`` (per block, where the structure is known): the
+    busiest oc block's nonzero count, which sizes the layout (the
+    kernel's max_nnz) and adds its excess over the mean to the launch."""
     n = len(boc)
     scr, rmw = np.zeros(n), np.zeros(n)
     smem, ok = np.zeros(n, dtype=np.int64), np.zeros(n, dtype=bool)
@@ -625,9 +658,18 @@ def _conv_mma_seconds(layer: ConvLayer, by, bx, boc, bic, spec: H100Spec,
             rmw[j] = n_ic * t1
             ok[j] = ok[j] and ok1
         else:
+            n_fix = n_ic if busiest is None else max(1, int(busiest[j]))
+            args = (layer, o, i, y, x, batch, ("oc", "y", "x"), n_fix,
+                    _round_up(4 * n_fix, 16))
             scr[j], smem[j], ok[j] = _conv_mma_launch_s(
-                layer, o, i, y, x, batch, ("oc", "y", "x"), n_ic,
-                _round_up(4 * n_ic, 16), float(steps[j]), False, spec)
+                *args, float(steps[j]), False, spec)
+            if busiest is not None:
+                # the busiest block's excess over a block of the mean
+                # count lands on one SM (a greedy schedule's makespan is
+                # at most the mean load plus one block)
+                one = [_conv_mma_launch_s(*args, nb, False, spec, True)[0]
+                       for nb in (float(busiest[j]), float(steps[j]))]
+                scr[j] += max(0.0, one[0] - one[1])
     return scr, rmw, smem, ok
 
 
@@ -905,17 +947,21 @@ def matmul_schedule_cost_batch(m: int, n: int, k: int,
 
 
 def sparse_channel_waves(layer: ConvLayer,
-                         blocks: Sequence[Dict[str, int]], density: float,
+                         blocks: Sequence[Dict[str, int]], density,
                          batch: int = 1, spec: H100Spec = H100Spec(),
                          elem_bytes: int = 4) -> np.ndarray:
     """Per skip block: the float32 sparse body's sequential work, the
     input channels of each block's expected nonzero steps times the waves
     its (image, oc block, spatial tile) blocks run in (SMs x resident
-    blocks): the CUDA-core body's time tracks these, not its FLOPs."""
+    blocks): the CUDA-core body's time tracks these, not its FLOPs
+    (``density``: a scalar or one per block)."""
     by, bx = geo.sparse_tile(layer.h, layer.w)
     n_sp = -(-layer.h // by) * -(-layer.w // bx)
+    dens = np.broadcast_to(np.asarray(density, dtype=np.float64),
+                           (len(blocks),))
     out = np.empty(len(blocks))
     for j, blk in enumerate(blocks):
+        density = dens[j]
         t = geo.conv_tile(blk["oc"], blk["ic"], by, bx, layer.kh, layer.kw,
                           elem_bytes)
         occ = _resident_blocks(np.array([t.threads]), np.array([t.smem]),
@@ -926,11 +972,12 @@ def sparse_channel_waves(layer: ConvLayer,
     return out
 
 
-def _sparse_mma_terms(layer: ConvLayer, blocks, density: float,
-                      batch: int, spec: H100Spec):
+def _sparse_mma_terms(layer: ConvLayer, blocks, density,
+                      batch: int, spec: H100Spec, busiest=None):
     """Per skip block of the bf16 sparse body: (seconds, smem bytes,
     feasible, by, bx) -- the dense implicit GEMM's scratch launch at the
-    skip block's pixel tile over density x ic blocks a tile."""
+    skip block's pixel tile over density x ic blocks a tile (``density``
+    a scalar or one per block; ``busiest``: :func:`_conv_mma_seconds`)."""
     from repro_torch.core.sparsity import sparse_pixel_tile
     n_b = len(blocks)
     boc = np.array([b["oc"] for b in blocks], dtype=np.int64)
@@ -944,15 +991,16 @@ def _sparse_mma_terms(layer: ConvLayer, blocks, density: float,
             (by[j], bx[j]), ok[j] = pix, True
     n_ic = -(-layer.ic // bic)
     t_scr, _, smem, ok_mma = _conv_mma_seconds(
-        layer, by, bx, boc, bic, spec, batch, steps=density * n_ic)
+        layer, by, bx, boc, bic, spec, batch, steps=density * n_ic,
+        busiest=busiest)
     return t_scr, smem, ok & ok_mma, by, bx
 
 
 def sparse_conv_schedule_cost_batch(
         layer: ConvLayer, blocks: Sequence[Dict[str, int]],
-        density: float = 1.0, batch: int = 1,
+        density=1.0, batch: int = 1,
         spec: H100Spec = H100Spec(),
-        elem_bytes: int = 2) -> BatchKernelCost:
+        elem_bytes: int = 2, busiest=None) -> BatchKernelCost:
     """Score (oc, ic) skip blocks for the block-sparse conv kernel at a
     block ``density`` for ``batch`` images ([n_blocks] arrays).  Steps
     and bytes are the JAX package's counts (expected nonzero steps scale
@@ -961,8 +1009,13 @@ def sparse_conv_schedule_cost_batch(
     nonzero blocks at the dense model's pixel tile; float32 the issue-rate
     model at the spatial tile, or the blocks' sequential work
     (``sparse_channel_waves`` x ``SPARSE_CHANNEL_S``), whichever is
-    longer.  A call costs ``SPARSE_CALL_S`` more than its launch."""
+    longer.  A call costs ``SPARSE_CALL_S`` more than its launch.
+    Where the weights are known, ``density`` may give each block its own
+    block density and ``busiest`` each block's busiest oc block's
+    nonzero count (bf16: its excess over the mean count lands on one
+    SM)."""
     EVAL_COUNTS["sparse_conv_schedule_cost_batch"] += len(blocks)
+    density = np.asarray(density, dtype=np.float64)
     boc = np.array([blk["oc"] for blk in blocks], dtype=np.int64)
     bic = np.array([blk["ic"] for blk in blocks], dtype=np.int64)
     n_oc = -(-layer.oc // boc)
@@ -975,8 +1028,8 @@ def sparse_conv_schedule_cost_batch(
            + steps * boc * bic * layer.kh * layer.kw * elem_bytes
            + batch * layer.oc * layer.h * layer.w * elem_bytes)
     if geo.tensor_cores(elem_bytes):
-        compute_s, smem, ok, by, bx = _sparse_mma_terms(layer, blocks,
-                                                        density, batch, spec)
+        compute_s, smem, ok, by, bx = _sparse_mma_terms(
+            layer, blocks, density, batch, spec, busiest)
         n_sp = -(-layer.h // by) * -(-layer.w // bx)
     else:
         by, bx = geo.sparse_tile(layer.h, layer.w)

@@ -18,7 +18,9 @@ the sparse kernel never wins, 1 when it always does).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
 
 from repro_torch.core import cost_model as cm
 from repro_torch.core.loopnest import ConvLayer
@@ -83,6 +85,26 @@ def sparse_pixel_tile(layer: ConvLayer, boc: int, bic: int, batch: int = 1,
     return (blk["y"], blk["x"]) if tile.error is None else None
 
 
+def block_structure(weights, blocks: Sequence[Dict[str, int]]
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """Per skip block of ``blocks``, the known structure of ``weights``
+    [OC, IC, KH, KW] (an array, or a tensor on any device): its block
+    density and its busiest oc block's nonzero count (a block counts
+    where any weight in it is nonzero, as the kernel's index counts
+    it)."""
+    if hasattr(weights, "detach"):
+        weights = weights.detach().float().cpu().numpy()
+    w = np.abs(np.asarray(weights, dtype=np.float32))
+    oc, ic = w.shape[:2]
+    w = w.reshape(oc, ic, -1).max(axis=2)
+    dens, busiest = np.empty(len(blocks)), np.empty(len(blocks))
+    for j, b in enumerate(blocks):
+        nz = w.reshape(oc // b["oc"], b["oc"], ic // b["ic"],
+                       b["ic"]).max(axis=(1, 3)) > 0
+        dens[j], busiest[j] = nz.mean(), nz.sum(axis=1).max()
+    return dens, busiest
+
+
 def choose_algorithm(layer: ConvLayer, block: Dict[str, int],
                      density: float, imbalance: float = 1.0,
                      spec: cm.H100Spec = cm.H100Spec(),
@@ -132,5 +154,5 @@ def crossover_density(layer: ConvLayer, block: Dict[str, int],
     return (lo + hi) / 2
 
 
-__all__ = ["SparsityDecision", "choose_algorithm", "crossover_density",
+__all__ = ["SparsityDecision", "block_structure", "choose_algorithm", "crossover_density",
            "sparse_pixel_tile", "sparse_time_estimate"]

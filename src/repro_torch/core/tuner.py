@@ -445,13 +445,23 @@ def sparse_blocks(layer: ConvLayer, elem_bytes: int) -> List[Dict[str, int]]:
 def tune_sparse_conv(layer: ConvLayer, density: float = 1.0,
                      spec: cm.H100Spec = cm.H100Spec(),
                      elem_bytes: int = 2, top_k: int = 5, batch: int = 1,
+                     weights=None,
                      ) -> List[Tuple[SparseConvSchedule, cm.KernelCost]]:
     """Rank (oc, ic) skip blocks for the block-sparse conv kernel at a
     given block density for ``batch`` images (the bf16 body's pixel tile,
-    and so its best skip block, depends on the batch)."""
+    and so its best skip block, depends on the batch).  Given the
+    ``weights``, each block is scored at its own structure instead
+    (``sparsity.block_structure``: a coarser block holds more nonzero
+    channels than ``density`` says, and the busiest oc block sets a
+    one-wave launch's time)."""
     blocks = sparse_blocks(layer, elem_bytes)
+    busiest = None
+    if weights is not None:
+        from repro_torch.core.sparsity import block_structure
+        density, busiest = block_structure(weights, blocks)
     scored = cm.sparse_conv_schedule_cost_batch(layer, blocks, density,
-                                                batch, spec, elem_bytes)
+                                                batch, spec, elem_bytes,
+                                                busiest)
     return [(SparseConvSchedule.make(blocks[i]), scored.cost(i))
             for i in _top(scored.time_s, scored.feasible, top_k)]
 

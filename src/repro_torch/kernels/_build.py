@@ -66,13 +66,13 @@ SIGNATURES = {
     # (float32)
     "conv2d_fwd": [_P, _P, _P] + [_I] * 19 + [_P],
     # img, wgt, out, N, IC, H2, W2, OC, KH, KW, boc, bic, by, bx, warps,
-    # walk, stages, late, staged, ord0, ord1, ord2, ic_begin, ic_count,
+    # walk, stages, late, ord0, ord1, ord2, ic_begin, ic_count,
     # accumulate, stream (bf16)
-    "conv2d_mma_fwd": [_P, _P, _P] + [_I] * 22 + [_P],
+    "conv2d_mma_fwd": [_P, _P, _P] + [_I] * 21 + [_P],
     # img, wgt, idx, counts, out, N, IC, H2, W2, OC, KH, KW, boc, bic,
     # max_nnz, by, bx, groups, per_thread, warps, walk, stages, late,
-    # staged, is_bf16, stream
-    "sparse_conv2d_fwd": [_P, _P, _P, _P, _P] + [_I] * 20 + [_P],
+    # is_bf16, stream
+    "sparse_conv2d_fwd": [_P, _P, _P, _P, _P] + [_I] * 19 + [_P],
     # a, b, c, M, N, K, bm, bn, bk, mi, mj, m_outer, k_begin, k_count,
     # accumulate, resident, stream (float32)
     "matmul_fwd": [_P, _P, _P] + [_I] * 13 + [_P],

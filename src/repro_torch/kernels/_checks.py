@@ -1,4 +1,5 @@
-"""Argument checks shared by the kernel wrappers."""
+"""Argument checks shared by the kernel wrappers, and the bf16 contract
+that the card checks hold a kernel's result to."""
 from __future__ import annotations
 
 import numbers
@@ -7,6 +8,18 @@ from typing import Optional, Sequence
 import torch
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+# a bf16 result may be this many ulps of the plain version's magnitude,
+# plus the floor, off the plain version
+BF16_ULPS, BF16_FLOOR = 2, 1e-5
+
+
+def bf16_tolerance(mag: torch.Tensor) -> torch.Tensor:
+    """Each element's bf16 tolerance at magnitude ``mag`` (the plain
+    version's value, or the largest it takes at any rounding point of a
+    read-modify-write schedule): BF16_ULPS ulps of it plus BF16_FLOOR."""
+    mag = mag.abs().clamp_min(2.0 ** -126)
+    return BF16_ULPS * torch.exp2(torch.floor(torch.log2(mag)) - 7) \
+        + BF16_FLOOR
 
 
 def on_cpu(t: torch.Tensor) -> bool:

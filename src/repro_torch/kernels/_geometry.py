@@ -46,27 +46,33 @@ MM_THREADS_X = 16
 MM_THREADS_Y = 16
 MM_MICRO = (2, 4, 8)
 
-# bf16 conv2d (implicit GEMM, mma.sync.m16n8k16): pixels pad to 16, oc
-# to 16 (ldmatrix.x4 loads two n8 fragments), ic to 16; a warp owns a
-# 32 x 32 (pixel x oc) tile, a block has at most 16 warps and covers a
-# larger tile in rounds.  Shared memory: the channels-last halo
-# [by+kh-1][bx+kw-1][ic_pad+8] and weights [kh kw][oc_pad][ic_pad+8]
-# (bf16), two slots of the streamed operand and one a channel block of
-# the resident one, and a ring of 2-3 slots of raw runs (cp.async lands
-# 16-byte units of each run's aligned cover).  A block walks up to
+# bf16 conv2d (implicit GEMM, wgmma.m64nNk16, both operands from shared
+# memory): the M rows are the halo's pixels, (by - 1) (bx + kw - 1) + bx
+# of them (the columns past bx are junk rows, computed and never stored,
+# so that every tap reads the halo at a constant shift), padded to 64 mt
+# (a warpgroup tile: mt 64-row tiles); oc pads to the wgmma's N (16, 32
+# or 64: the one whose wgmmas read the fewest bytes, conv_mma_nt), ic to
+# 16.  A block has 2 to 4 warpgroups and covers a larger tile in rounds.
+# Shared memory: the halo [ic / 8][halo pixels][8] (plus the rows the
+# last M tile's junk rows read at the largest shift) and the weights [kh
+# kw][ic / 8][oc_pad][8] (wgmma's K-major layout without swizzle), two
+# slots of the streamed operand and one a channel block of the resident
+# one, a ring of 2-3 slots of raw runs (cp.async lands 16-byte units of
+# each run's aligned cover), each warpgroup's epilogue staging and,
+# where a launch can sum more than one accumulator part, each thread's
+# f32 part slots.  A block walks up to
 # CONV_MMA_MAX_WALK tiles sharing one operand: the walk whose launch
 # takes the fewest tile times on an SM (its waves of CONV_MMA_SMS SMs x
 # the blocks an SM holds, times the walk), the longest among equals (its
 # tiles after the first load while the one before multiplies).
 CONV_MMA_MAX_WARPS = 16
-CONV_MMA_WARP_TILE = 32
-# each warp's epilogue staging: f32 values of 8 channels x its 16 m_tiles
-# pixels, rows of 16 m_tiles + 4 floats (conv_mma.cuh epi_bytes)
-def conv_mma_epi_bytes(m_tiles: int) -> int:
-    return 8 * (16 * m_tiles + 4) * 4
-
-# a block has at least this many warps: those past its warp tiles only
-# load and write the channels-last pass
+CONV_MMA_ROWS = 64            # a warpgroup's M rows
+CONV_MMA_NT = (16, 32, 64)    # the wgmma's N
+# each warpgroup's epilogue staging: per warp, f32 values of 8 channels
+# x its 16 rows, rows of 20 floats (conv_mma.cuh kEpiBytes)
+CONV_MMA_EPI_BYTES = 4 * 8 * (16 + 4) * 4
+# a block has at least this many warps (two warpgroups): those past its
+# tiles only load and write the channels-last pass
 CONV_MMA_MIN_WARPS = 8
 CONV_MMA_MAX_WALK = 8
 CONV_MMA_SMS = 132
@@ -91,7 +97,10 @@ MMA_MAX_SPLITS = 4
 # accumulation over 8192 (512 wgmma k-steps into one accumulator) drifts
 # past 2 bf16 ulps of values near zero at phi3's down projection, as
 # cuBLAS's does (launch/matmul_timeline.py --precision), so a longer k
-# is split and its parts added in IEEE f32
+# is split and its parts added in IEEE f32.  The bf16 conv holds its
+# sums (channels x taps) to the same part length (conv_mma.cuh
+# kMmaPartK): 10,890 terms in one accumulator missed the contract at
+# 1.53 of the tolerance against float64.
 MMA_PART_K = 4096
 # an H100 SXM's SMs: the cost model's assumption (the wrapper asks the
 # card how many blocks it holds)
@@ -277,12 +286,19 @@ def _round_up(x: int, m: int) -> int:
 class ConvMmaTile:
     """How the bf16 tensor-core conv lays out one (boc, bic, by, bx)
     tile of a problem (``csrc/conv_mma.cuh``, conv_mma_layout)."""
-    p16: int             # pixels padded to the MMA's M (16)
-    boc16: int           # output channels padded to 16
+    rows: int            # M rows: the halo's pixels up to the last stored
+    #                      one, (by - 1) (bx + kw - 1) + bx
+    m_pad: int           # rows padded to a warpgroup tile's 64 mt
+    nt: int              # the wgmma's N (16, 32 or 64)
+    mt: int              # 64-row tiles a warpgroup tile holds (1-3; 2 at
+    #                      nt 64): the fewest that take one round where
+    #                      tiles sum several channel blocks, else 1
+    boc_pad: int         # output channels padded to nt
     bic_pad: int         # input channels padded to the MMA's K (16)
-    warps: int           # warps of the block (each a 16 m_tiles x 32
-    #                      tile; past the tiles, warps that only load)
-    rounds: int          # passes over the tile's warp tiles
+    warps: int           # warps of the block: 2 to 4 warpgroups, each a
+    #                      64 mt x nt tile (past the tiles, ones that
+    #                      multiply the last tile again and store nothing)
+    rounds: int          # passes over the tile's warpgroup tiles
     walk: int            # tiles a block walks (> 1: one operand resident)
     stages: int          # ring slots of raw runs
     late: bool           # streamed operands in one slot, written after
@@ -297,11 +313,10 @@ class ConvMmaTile:
     wgt_chunks: int      # ... of a weight block's runs
     zero_units: int      # 16-byte units a block zeroes once (padding)
     smem: int            # bytes: transposed slots, the ring, the
-    #                      epilogue staging where it fits, `extra`
-    m_tiles: int = 2     # m16 tiles a warp: 3 where that takes fewer
-    #                      rounds of CONV_MMA_MAX_WARPS warps
-    epi_staged: bool = True   # the epilogue's staging fits (else the
-    #                           fragments store their own pairs)
+    #                      epilogue staging, the part buffer, `extra`
+    block_ksteps: int = 1  # k16 steps a channel block: taps x bic_pad / 16
+    part_k: int = MMA_PART_K // 16   # k16 steps an accumulator part sums
+    #                                  at most (whole channel blocks)
 
     @property
     def threads(self) -> int:
@@ -312,8 +327,26 @@ class ConvMmaTile:
         return self.walk > 1
 
     @property
+    def wg_tiles(self) -> Tuple[int, int]:
+        """Warpgroup tiles along the rows and along oc."""
+        return (self.m_pad // (CONV_MMA_ROWS * self.mt),
+                self.boc_pad // self.nt)
+
+    def parts(self, blocks: int) -> Tuple[int, ...]:
+        """The k16 steps each accumulator part of a tile sums when the
+        launch sums ``blocks`` channel blocks: whole blocks in order, as
+        many as fit in ``part_k`` k16 steps."""
+        per = self.part_k // self.block_ksteps
+        whole, rest = divmod(blocks, per)
+        return ((per * self.block_ksteps,) * whole
+                + ((rest * self.block_ksteps,) if rest else ()))
+
+    @property
     def error(self) -> Optional[str]:
         """Why the kernel refuses this tile, or None when it fits."""
+        if self.block_ksteps > self.part_k:
+            return (f"{self.block_ksteps} k16 steps a channel block > "
+                    f"{self.part_k} (an accumulator part)")
         if self.smem > SMEM_BYTES:
             return f"{self.smem} bytes of shared memory > {SMEM_BYTES}"
         return None
@@ -322,6 +355,16 @@ class ConvMmaTile:
 def _blocks_an_sm(smem: int) -> int:
     """Blocks of ``smem`` bytes that fit an SM's shared memory."""
     return SM_SMEM_BYTES // (smem + SMEM_RESERVED)
+
+
+def conv_mma_nt(boc: int) -> Tuple[int, int]:
+    """(the wgmma's N, oc padded to it): of CONV_MMA_NT, the one whose
+    wgmmas read the fewest shared-memory bytes a k step -- oc_pad / N
+    tiles, each reading A's 64 rows (2 KB) and B's N rows (32 bytes
+    each), so oc_pad (2048 / N + 32) -- the widest among equals."""
+    _, neg, pad = min((_round_up(boc, n) * (2048 // n + 32), -n,
+                       _round_up(boc, n)) for n in CONV_MMA_NT)
+    return -neg, pad
 
 
 @functools.lru_cache(maxsize=1 << 16)
@@ -334,19 +377,16 @@ def conv_mma_tile(boc: int, bic: int, by: int, bx: int, kh: int, kw: int,
     """Layout of a bf16 conv tile on the tensor cores for the problem
     (``batch`` images of ``ic`` x ``h`` x ``w``, ``oc`` outputs; each
     defaults to the tile's own, a problem of one tile) and the output
-    axes' ``order`` (outer first; "ic" is ignored): pixels, oc and ic
-    padded to 16; ceil(p16 / 32) x ceil(boc16 / 32) warp tiles run by up
-    to 16 warps (in rounds past that; at least 8 warps, those past the
-    warp tiles only load and write the channels-last pass).
-    ``n_fixed``: the slots a resident operand takes, ic / bic (every
-    launch of a read-modify-write schedule takes the scratch launch's
-    layout), or the sparse conv's max_nnz; ``extra``: bytes after the
-    ring (the sparse index row).  The warp tile, the walk, the ring's
-    depth, the slots and the epilogue's staging are this function's
-    rule, which the kernel checks: 48-pixel warp tiles where they take
-    fewer rounds than 32-pixel ones; the epilogue's staging, with one
-    slot of each streamed operand (written after a step's MMAs) where
-    two do not fit beside it, else without the staging; the walk up to
+    axes' ``order`` (outer first; "ic" is ignored): the halo's rows up to
+    the last stored pixel padded to 64 mt, oc to the wgmma's N, ic to 16;
+    warpgroup tiles of mt x 64 rows x N channels run by 2 to 4
+    warpgroups (in rounds past 4).  ``n_fixed``: the slots a resident
+    operand takes, ic / bic (every launch of a read-modify-write schedule
+    takes the scratch launch's layout), or the sparse conv's max_nnz;
+    ``extra``: bytes after the epilogue staging (the sparse index row).
+    The walk, the ring's depth and the slots are this function's rule,
+    which the kernel checks: one slot of each streamed operand (written
+    after a step's MMAs) where two do not fit; the walk up to
     CONV_MMA_MAX_WALK (and the group) whose waves, at the blocks an SM
     holds by shared memory and registers, times the walk are fewest, the
     longest among equals; three ring slots where they cost no block an
@@ -356,20 +396,28 @@ def conv_mma_tile(boc: int, bic: int, by: int, bx: int, kh: int, kw: int,
     h = by if h is None else h
     w = bx if w is None else w
     n_fixed = ic // bic if n_fixed is None else n_fixed
-    p16 = _round_up(by * bx, 16)
-    boc16 = _round_up(boc, 16)
-    bic_pad = _round_up(bic, 16)
-    cstr = bic_pad + 8
-    wt_n = -(-boc16 // CONV_MMA_WARP_TILE)
-
-    def rounds_at(m_tiles: int) -> int:
-        return -(-(-(-p16 // (16 * m_tiles)) * wt_n) // CONV_MMA_MAX_WARPS)
-
-    m_tiles = 3 if rounds_at(3) < rounds_at(2) else 2
-    wt = -(-p16 // (16 * m_tiles)) * wt_n
-    warps = min(CONV_MMA_MAX_WARPS, max(wt, CONV_MMA_MIN_WARPS))
-    taps = kh * kw
     hh, ww = by + kh - 1, bx + kw - 1
+    rows = (by - 1) * ww + bx
+    nt, boc_pad = conv_mma_nt(boc)
+    wg_n = boc_pad // nt
+    # 64-row tiles a warpgroup holds (its accumulators, mt nt / 2 floats
+    # a thread, at most 64): where the tiles sum more than one channel
+    # block, the fewest that cover the tile in one round of
+    # CONV_MMA_MAX_WARPS / 4 warpgroups, else the most (each further round
+    # re-streams the blocks); one where they sum one block (a step then
+    # runs every round)
+    m_tiles = -(-rows // CONV_MMA_ROWS)
+    mt_max = 1 if n_fixed == 1 else 2 if nt == 64 else 3
+    mt = 1
+    while mt < mt_max and -(-m_tiles // mt) * wg_n > CONV_MMA_MAX_WARPS // 4:
+        mt += 1
+    m_pad = -(-m_tiles // mt) * mt * CONV_MMA_ROWS
+    bic_pad = _round_up(bic, 16)
+    nkc = bic_pad // 8
+    wt = -(-m_tiles // mt) * wg_n
+    wgs = min(CONV_MMA_MAX_WARPS // 4, max(wt, CONV_MMA_MIN_WARPS // 4))
+    warps = 4 * wgs
+    taps = kh * kw
     noct = -(-bic // 8)
     trips = {"oc": -(-oc // boc), "y": -(-h // by), "x": -(-w // bx)}
     out = [a for a in order if a != "ic"]
@@ -388,7 +436,18 @@ def conv_mma_tile(boc: int, bic: int, by: int, bx: int, kh: int, kw: int,
     h_slot = ((ww if row_runs else hh * (w + kw - 1)) + 14) // 8
     w_slot = ((bic * taps + 14) // 8) | 1
     raw_h, raw_w = h_runs * h_slot * 16, boc * w_slot * 16
-    th, tw = hh * ww * cstr * 2, taps * boc16 * cstr * 2
+    # a halo slot: its planes and the rows past the last one that the
+    # last M tile's junk rows read at the largest shift
+    reach = m_pad + (kh - 1) * ww + kw - 1
+    th = (nkc * hh * ww + max(0, reach - hh * ww)) * 16
+    tw = taps * nkc * boc_pad * 16
+    epi = wgs * CONV_MMA_EPI_BYTES
+    # the part buffer (each thread's own f32 slots), where a launch can
+    # sum more than one accumulator part
+    part_k = MMA_PART_K // 16
+    block_ksteps = taps * bic_pad // 16
+    parts = n_fixed * block_ksteps > part_k
+    part_bytes = 4 * warps * WARP * mt * (nt // 2) if parts else 0
 
     def slots(walk: int, late: bool) -> Tuple[int, int]:
         """Transposed halo and weight slots: the resident operand's
@@ -397,30 +456,18 @@ def conv_mma_tile(boc: int, bic: int, by: int, bx: int, kh: int, kw: int,
         return (n_fixed if res and fixed_halo else 2 - late,
                 n_fixed if res and not fixed_halo else 2 - late)
 
-    def unstaged(walk: int, stages: int, late: bool) -> int:
-        """Bytes of the layout without the epilogue's staging."""
+    def smem(walk: int, stages: int, late: bool) -> int:
+        """Bytes of the layout."""
         raw = max(raw_h, raw_w) if walk > 1 else raw_h + raw_w
         h_slots, w_slots = slots(walk, late)
-        return h_slots * th + w_slots * tw + stages * raw + extra
-
-    def fits_staged(walk: int, stages: int, late: bool) -> bool:
-        return (unstaged(walk, stages, late)
-                + warps * conv_mma_epi_bytes(m_tiles) <= SMEM_BYTES)
+        return (h_slots * th + w_slots * tw + stages * raw + epi
+                + part_bytes + extra)
 
     def blocks(walk: int) -> int:
         return tiles // group * -(-group // walk)
 
-    # two slots of each streamed operand and the epilogue's staging, else
-    # one slot and the staging, else two slots without it, else one
-    staged = fits_staged(1, 2, False) or fits_staged(1, 2, True)
-    late = not fits_staged(1, 2, False) and (
-        staged or unstaged(1, 2, False) > SMEM_BYTES)
-
-    def smem(walk: int, stages: int, late: bool) -> int:
-        """Bytes of the layout, with the epilogue's staging if it has
-        one."""
-        return unstaged(walk, stages, late) + (
-            warps * conv_mma_epi_bytes(m_tiles) if staged else 0)
+    # two slots of each streamed operand, else one
+    late = smem(1, 2, False) > SMEM_BYTES
 
     def held(walk: int, stages: int) -> int:
         """Blocks an SM holds: its shared memory and its registers."""
@@ -441,14 +488,13 @@ def conv_mma_tile(boc: int, bic: int, by: int, bx: int, kh: int, kw: int,
     _, neg_walk, stages = min(options)
     walk = -neg_walk
     h_slots, w_slots = slots(walk, late)
-    zero = w_slots * taps * (boc16 - boc) * bic_pad // 8
-    if 8 * noct < bic_pad:
-        zero += h_slots * hh * ww + w_slots * taps * boc16
-    return ConvMmaTile(p16, boc16, bic_pad, warps, -(-wt // warps), walk,
-                       stages, late, fixed_halo, group, tiles, blocks(walk),
-                       hh * ww * noct, taps * boc * noct, h_runs * h_slot,
-                       boc * w_slot, zero, smem(walk, stages, late),
-                       m_tiles, staged)
+    zero = (h_slots * hh * ww + w_slots * taps * boc_pad
+            if noct < nkc else 0)
+    return ConvMmaTile(rows, m_pad, nt, mt, boc_pad, bic_pad, warps,
+                       -(-wt // wgs), walk, stages, late, fixed_halo, group,
+                       tiles, blocks(walk), hh * ww * noct, taps * boc * noct,
+                       h_runs * h_slot, boc * w_slot, zero,
+                       smem(walk, stages, late), block_ksteps, part_k)
 
 
 def tensor_cores(elem_bytes: int) -> bool:

@@ -107,7 +107,7 @@ def conv2d(img: torch.Tensor, wgt: torch.Tensor, *,
             rc = lib.conv2d_mma_fwd(
                 img.data_ptr(), wgt.data_ptr(), out.data_ptr(), n, ic, h2, w2,
                 oc, kh, kw, boc, bic, by, bx, tile.warps, tile.walk,
-                tile.stages, int(tile.late), int(tile.epi_staged), *ords, c0,
+                tile.stages, int(tile.late), *ords, c0,
                 count, accumulate, stream)
         else:
             rc = lib.conv2d_fwd(

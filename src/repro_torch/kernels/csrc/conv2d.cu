@@ -13,14 +13,19 @@
 //   TFLOP/s) the same layers need at least 0.23 ms.  At batch 1 the
 //   whole layer is < 0.5 us of work and a launch costs more.
 //
-// bfloat16: conv_mma_kernel<false> of conv_mma.cuh, an implicit GEMM on
-//   the tensor cores (mma.sync.m16n8k16): the image halo and the weights
-//   come in by cp.async on the aligned cover of their contiguous runs,
-//   through a ring of 2-3 steps, and are rewritten channels-last in
-//   shared memory, where ldmatrix reads the halo at each tap's shift; a
-//   block walks several output tiles that share one operand (the oc
-//   block's weights, or a pixel tile's halo when oc is the schedule's
-//   last axis), which stays resident (the header holds its design notes).
+// bfloat16: conv_mma_kernel<false, NT> of conv_mma.cuh, an implicit GEMM
+//   on the tensor cores (wgmma.m64nNTk16, both operands from shared
+//   memory): the image halo and the weights come in by cp.async on the
+//   aligned cover of their contiguous runs, through a ring of 2-3 steps,
+//   and are rewritten into wgmma's K-major layout in shared memory; the
+//   M rows are the halo's pixels (the columns past the tile are junk
+//   rows, never stored), so each tap's operand is the halo at a shift,
+//   one descriptor a tap and 16 channels, and a step's wgmmas run while
+//   the warps write the next step's operands; a block walks several
+//   output tiles that share one operand (the oc block's weights, or a
+//   pixel tile's halo when oc is the schedule's last axis), which stays
+//   resident; no accumulator sums more than MMA_PART_K terms before its
+//   part joins an f32 sum (the header holds its design notes).
 //   Block order and variant as the JAX kernel's: the output tiles are
 //   linearised into blockIdx in the schedule's order; with no output
 //   axis after ic one launch sums every channel block and rounds once
@@ -74,14 +79,14 @@ extern "C" int conv2d_fwd(const void* img, const void* wgt, void* out,
       rt::conv_launch(a, smem, static_cast<cudaStream_t>(stream)));
 }
 
-// bfloat16: the implicit GEMM.  `warps`, `walk`, `stages`, `late` and
-// `staged` are the wrapper's layout (kernels/_geometry.py,
-// conv_mma_tile); the rest is derived and checked here.
+// bfloat16: the implicit GEMM.  `warps`, `walk`, `stages` and `late` are
+// the wrapper's layout (kernels/_geometry.py, conv_mma_tile); the rest is
+// derived and checked here.
 extern "C" int conv2d_mma_fwd(const void* img, const void* wgt, void* out,
                               int N, int IC, int H2, int W2, int OC, int KH,
                               int KW, int boc, int bic, int by, int bx,
                               int warps, int walk, int stages, int late,
-                              int staged, int ord0, int ord1, int ord2,
+                              int ord0, int ord1, int ord2,
                               int ic_begin,
                               int ic_count, int accumulate, void* stream) {
   using namespace rt::cm;
@@ -105,7 +110,7 @@ extern "C" int conv2d_mma_fwd(const void* img, const void* wgt, void* out,
   a.ic_count = ic_count;
   a.accumulate = accumulate;
   const long long smem =
-      conv_mma_layout(a, warps, walk, stages, late, staged, 0);
+      conv_mma_layout(a, warps, walk, stages, late, 0);
   if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
       conv_mma_launch<false>(a, smem, static_cast<cudaStream_t>(stream)));

@@ -6,47 +6,56 @@
 // img [N, IC, H + KH - 1, W + KW - 1] (pre-padded), wgt [OC, IC, KH, KW],
 // out [N, OC, H, W], all bf16.
 //
-// conv_mma_kernel<Sparse, MT>: the output tiles (n, oc block, y block, x
-//   block) are linearised in the schedule's order (batch outermost, the
+// conv_mma_kernel<Sparse, NT, MT>: the output tiles (n, oc block, y block,
+//   x block) are linearised in the schedule's order (batch outermost, the
 //   last axis fastest), and a block walks `walk` consecutive tiles of
 //   one group: the tiles that share one operand (the fixed one) --
 //   - the last output axis y or x: the group is the tiles after oc in
 //     the order, which share the oc block's weights;
 //   - the last output axis oc: the group is the oc blocks of one pixel
 //     tile, which share its image halo.
-//   Each tile is D[pixels, oc] = sum over taps and channel blocks of
-//   A_tap[pixels, ic] . B_tap[ic, oc] -- the JAX kernel's per-tap
-//   [BOC, BIC] x [BIC, BY*BX] contraction -- with mma.sync.m16n8k16
-//   (bf16 in, f32 accumulate), summed over every channel block of the
-//   launch and rounded once.  The channel blocks are the dense range
-//   [ic_begin, ic_begin + ic_count) in blocks of bic, or (Sparse) the
-//   oc block's nonzero list idx[o, :counts[o]], which the block loads
+//   Each tile is D[rows, oc] = sum over taps and channel blocks of
+//   A_tap[rows, ic] . B_tap[ic, oc] -- the JAX kernel's per-tap
+//   [BOC, BIC] x [BIC, BY*BX] contraction -- with wgmma.m64nNTk16 (bf16
+//   in, f32 accumulate), both operands read from shared memory through
+//   descriptors, and rounded once.  The channel blocks are the dense
+//   range [ic_begin, ic_begin + ic_count) in blocks of bic, or (Sparse)
+//   the oc block's nonzero list idx[o, :counts[o]], which the block loads
 //   into shared memory before its first stage (the Pallas kernel's
 //   scalar prefetch); an oc block with count 0 writes zeros.
+//   - Rows: the M rows are the halo's pixels, row r = py ww + px of the
+//     halo (ww = bx + KW - 1 columns), for r < (by - 1) ww + bx.  A row
+//     with px >= bx is a junk row: it is computed and never stored.  In
+//     return every tap reads the same halo at a constant shift, ky ww +
+//     kx rows, so the tap's A operand is the halo itself, a descriptor
+//     that starts that many 16-byte rows later.  A 1 x 1 kernel has no
+//     junk row; a k x k kernel (KW - 1) / ww of them.
+//   - Layouts: the halo is [ic / 8][hh ww rows][8 channels] and the
+//     weights [taps][ic / 8][boc_pad][8]: wgmma's K-major canonical
+//     layout without swizzle, whose 8 x 16-byte core matrices are 8
+//     consecutive rows (SBO 128 bytes) and whose next 8 channels lie one
+//     plane further (LBO = the plane).  A descriptor may start at any
+//     16-byte row, which is what makes the tap's shift free.  Rows past
+//     a plane's end (the last M tile's junk rows at a shift) read the
+//     next plane or the slot's tail: junk in, junk out.
 //   - Loads: every operand arrives by cp.async, 16 bytes at a time, on
 //     the aligned cover of its contiguous runs: a channel's halo rows
 //     (one run when the tile spans the image width, else a run a row),
 //     and an oc row's weights of the channel block (bic KH KW elements).
 //     Neither needs 16-byte aligned rows (TMA would: the thesis' rows are
-//     60, 114, 110, 54, 26, 30 and 54 bytes), and a cover never crosses
-//     a page, so the bytes it reads past a run are harmless and unused.
+//     60, 114, 110, 54, 26, 30 and 54 bytes, and every 1 x 1 layer has an
+//     odd pixel count), and a cover never crosses a page, so the bytes it
+//     reads past a run are harmless and unused.
 //   - Ring: the raw runs land in a ring of `stages` (2 or 3) slots, one
 //     cp.async group a step, so the next stages - 1 steps' loads are in
 //     flight while a step multiplies.  A step: wait for step s + 1's
-//     loads, one __syncthreads, issue step s + stages's loads, transpose
-//     step s + 1 into its operand slots, multiply step s.
-//   - Channels-last pass: the raw runs are rewritten in shared memory as
-//     the halo [by+KH-1][bx+KW-1][bic_pad + 8] and the weights [taps]
-//     [boc_pad][bic_pad + 8], ic contiguous, eight channels of a pixel or
-//     an oc row packed into one 16-byte store (lanes along the pixels,
-//     resp. the oc rows; a weight run's slot is an odd number of 16-byte
-//     units, so those reads spread over the banks), so both operands'
-//     fragments load by ldmatrix without .trans.  Rows are 16-byte
-//     aligned and their stride is an odd number of 16-byte units (no
-//     bank conflicts across ldmatrix's eight rows).  Every tap reads the
-//     same halo at a shift: lane l gives ldmatrix the address of its
-//     pixel's row plus the tap's offset ky (bx+KW-1) + kx, so any tap and
-//     any tile shape work without a copy per tap.
+//     loads, one __syncthreads, issue step s + stages's loads, issue step
+//     s's wgmmas (asynchronous), transpose step s + 1 into its operand
+//     slots while the tensor cores run, then wait for the wgmmas.
+//   - Channels-last pass: the raw runs are rewritten in shared memory
+//     into those layouts, eight channels of a pixel or an oc row packed
+//     into one 16-byte store, lanes along the pixels (resp. the oc rows),
+//     so a store instruction writes 512 consecutive bytes.
 //   - Residency: when a block walks more than one tile, the fixed
 //     operand of every channel block is loaded and transposed once, in
 //     the walk's first steps (through the same ring), and stays in its
@@ -54,41 +63,51 @@
 //     transposed slots deep.  A walk of one tile streams both.  Where two
 //     slots of each streamed operand do not fit (kernels of up to 11 x 11
 //     taps, large pixel tiles), they take one, and step s + 1 is
-//     transposed after step s's MMAs and a second barrier (`late`).
-//   - Padding: pixels pad to 16 (the MMA's M), oc to 16 (ldmatrix.x4
-//     loads two n8 fragments), ic to 16 (its K); the pass writes zeros
-//     past bic within a unit of eight channels, the units past those and
-//     the padded oc rows are zeroed once a block; padded pixels read
-//     pixel 0 and are never stored, so every block that divides its
-//     dimension is taken.
-//   - Warps: each warp owns a 32-pixel x 32-channel tile (2 x 4 MMAs,
-//     32 f32 accumulators a thread), or a 48-pixel one (3 x 4) where that
-//     takes fewer rounds (the body's template argument MT, 2 or 3 m16
-//     tiles); a block has up to 16 warps, and a larger output tile is
-//     covered in rounds, each re-streaming the channel blocks.  A block
-//     has at least 8 warps: those past its warp tiles only load and
-//     write the pass, which small tiles would otherwise leave to a few
-//     warps.
-//   - Epilogue: each warp passes its accumulators through its own f32
-//     staging tile, 8 channels at a time, so that lanes run along the
-//     pixels: lane l stores pixels 2 (l % 16), + 1 of channel l / 16 (of
-//     a pair), one 4-byte bf16 pair along x where both share a row and
-//     the address is aligned (two 2-byte stores otherwise), and a store
-//     instruction writes two channels' 32 neighbouring pixels.  Where the
-//     staging does not fit beside the rest (large kernels near 227 KB),
-//     lanes g and g ^ 1 of a fragment swap one value and store the pairs
-//     straight from it, lanes across 8 channels, which spreads a store's
-//     bytes over 8 rows (the slower epilogue where the output is large).
+//     transposed after step s's wgmmas completed and a second barrier
+//     (`late`).
+//   - Padding: M pads to 64 MT (a warpgroup tile's rows), oc to NT (the
+//     wgmma's N, 16, 32 or 64: the one whose wgmmas read the fewest
+//     bytes), ic to 16 (its K); the pass writes zeros past bic within a
+//     unit of eight channels, and the planes past those are zeroed once a
+//     block (both operands, so a padded channel adds 0 x 0).  Padded oc
+//     rows of the weights are never written: they only feed output
+//     columns that are not stored.
+//   - Warpgroups: each owns MT 64-row x NT-channel tiles (MT NT / 2 f32
+//     accumulators a thread; where tiles sum several channel blocks, MT
+//     the fewest, up to 3, that cover the tile in one round); a block has
+//     2 to 4 warpgroups and covers a larger output tile in rounds.  Where
+//     a tile sums one channel block (a read-modify-write launch, or bic =
+//     the launch's channels), a step runs every round on the operands it
+//     holds; otherwise each round re-streams the channel blocks.
+//     Warpgroups past the round's tiles multiply its last tile again and
+//     store nothing.
+//   - Long sums: no accumulator sums more than part_k k16 steps
+//     (MMA_PART_K = 4096 terms, kernels/_geometry.py) before it joins an
+//     f32 sum on the CUDA cores (each thread's own slots of a buffer in
+//     shared memory, present where a launch can need it).  A part is
+//     whole channel blocks (a block of more than part_k k16 steps, bic
+//     KH KW > 4096, is refused), the most that fit, in the layout's
+//     order, so two calls are bit-identical.  Table 4.1's sums (576
+//     terms at most) are one part.
+//   - Epilogue: each warp passes its sums through its own f32 staging
+//     tile, 8 channels x its 16 rows at a time, so that lanes run along
+//     the rows: lane l stores rows 2 (l % 8), + 1 of channels l / 8 and
+//     l / 8 + 4, one 4-byte bf16 pair where both are stored neighbours
+//     in memory and the address is aligned (two 2-byte stores
+//     otherwise); each lane's output offsets are computed once a tile.
 //     A read-modify-write pass reads the output the same way, adds in
 //     f32 and rounds once.
-//   Why mma.sync and not wgmma: wgmma's A operand from shared memory must
-//   sit in its canonical (swizzled, 8-row-core-matrix) layout, which a
-//   tap's shifted pixel rows do not; from registers it would take the
-//   same ldmatrix loads.  wgmma would add its asynchronous issue (MMAs
-//   overlapping the next tap's fragment loads) and a 64 x N tile per
-//   instruction, halving the shared-memory reads per FLOP of the
-//   weights; the 32 x 32 warp tile here reads 16 bytes of shared memory
-//   per 16 FLOP, which bounds it near half the bf16 peak.
+//   Why wgmma and not mma.sync (this body's design before): a 32 x 32
+//   mma.sync warp tile read its A and B fragments from shared memory by
+//   ldmatrix, 16 bytes per 16 FLOP, and the warps issued every product
+//   in turn with their pass.  Here a warpgroup's 64 x NT product reads 2
+//   KB + NT x 32 bytes per k step (32 FLOP a byte at NT 64, the peak
+//   rate in this layout; 2/3 of it at NT 32, 2/5 at NT 16) with no
+//   instruction of the warps, and runs while they write the next step's
+//   operands.  What bounds a block now is not its products: its steps'
+//   loads, pass and epilogue stores run in turn.  ptxas serializes every
+//   wgmma of the body if an instruction on a conditional path defines
+//   their accumulators, hence the unconditional wait and scale_d.
 //   CM_T_BEGIN / CM_T_MARK(k) / CM_T_END mark the body's phases for
 //   launch/conv_timeline.py (which defines them and builds a scratch
 //   copy); here they compile to nothing.
@@ -113,12 +132,15 @@ namespace cm {
 
 using bf16 = __nv_bfloat16;
 constexpr int kMaxWarps = 16;
-// the epilogue's staging: a warp's f32 values of 8 channels x its 16 MT
-// pixels, rows 16 MT + 4 floats apart (the fragment writes hit 32 banks)
-__host__ __device__ constexpr int epi_stride(int mt) { return 16 * mt + 4; }
-__host__ __device__ constexpr int epi_bytes(int mt) {
-  return 8 * epi_stride(mt) * 4;
-}
+constexpr int kRows = 64;            // a warpgroup's M rows
+// terms an accumulator part sums at most: MMA_PART_K (kernels/
+// _geometry.py), 16 channels a k16 step
+constexpr int kMmaPartK = 4096;
+// the epilogue's staging: a warp's f32 values of 8 channels x its 16
+// rows, rows 16 + 4 floats apart (the fragment writes hit 32 banks);
+// a warpgroup's four
+constexpr int kEpiStride = 16 + 4;
+constexpr int kEpiBytes = 4 * 8 * kEpiStride * 4;
 
 struct ConvMmaArgs {
   const bf16* img;
@@ -134,11 +156,14 @@ struct ConvMmaArgs {
   const int* counts;           // sparse: [n_oc]
   int max_nnz;
   // ---- the layout (conv_mma_layout; kernels/_geometry.py conv_mma_tile)
-  int warps, wt_m, wt_n, rounds;
-  int mt;                          // m16 tiles a warp (2 or 3)
-  int epi_staged;                  // 1: the epilogue's staging fits
-  int p16, boc16, bic_pad, cstr;   // padded pixels, oc, ic; row stride
+  int warps, nt, mt;               // warps; wgmma N; 64-row tiles a
+                                   // warpgroup tile holds
+  int wg_m, wg_n, rounds;          // warpgroup tiles; rounds of them
+  int rows;                        // M rows: (by - 1) ww + bx
+  int boc_pad, bic_pad, nkc;       // padded oc, ic; 8-channel planes
   int hh, ww, taps, noct;          // halo rows, columns; taps; 8-ch units
+  int hpl;                         // rows of a halo plane (hh ww)
+  int part_k;                      // k16 steps an accumulator part sums
   int walk, stages;                // tiles a block walks; ring slots
   int late;                        // 1: streamed operands take one slot,
                                    //    transposed after the step's MMAs
@@ -153,7 +178,8 @@ struct ConvMmaArgs {
   int th_bytes, tw_bytes;          // one transposed halo / weight slot
   int h_slots, w_slots;            // transposed slots of each operand
   int off_tw, off_raw, off_epi;    // shared-memory offsets (halo at 0)
-  int off_idx;
+  int off_part, off_idx;           // the part buffer (0 bytes where no
+                                   // launch of the layout has two parts)
   long long blocks;
 };
 
@@ -283,14 +309,15 @@ __device__ __forceinline__ void store_unit(unsigned char* dst,
       pack2(v[6], v[7]));
 }
 
-// Raw halo runs (landed from `src`) -> the channels-last halo at `dst`:
-// unit (column x, row y, eight channels z), lanes along the pixels.
-// Channel c's run (of row r) starts in the slot at c run_c (+ r h_slot 8
-// for row runs) and its first element sits at the run's phase, (src +
-// the run's start) mod 16 bytes, which repeats every 8 channels: a
-// unit's eight loads sit at eight offsets fixed a call (a row run's
-// phase also moves with its row), and none sits behind a branch, so
-// their latencies overlap.
+
+// Raw halo runs (landed from `src`) -> the halo planes at `dst`: unit
+// (column x, row y, eight channels z) is row y ww + x of plane z, lanes
+// along the pixels.  Channel c's run (of row r) starts in the slot at c
+// run_c (+ r h_slot 8 for row runs) and its first element sits at the
+// run's phase, (src + the run's start) mod 16 bytes, which repeats every
+// 8 channels: a unit's eight loads sit at eight offsets fixed a call (a
+// row run's phase also moves with its row), and none sits behind a
+// branch, so their latencies overlap.
 __device__ __forceinline__ void transpose_halo(const ConvMmaArgs& a,
                                                const unsigned short* src,
                                                const unsigned short* raw,
@@ -318,7 +345,7 @@ __device__ __forceinline__ void transpose_halo(const ConvMmaArgs& a,
         const unsigned short x = base[i < valid ? off[i] : off[0]];
         v[i] = i < valid ? x : static_cast<unsigned short>(0);
       }
-      store_unit(dst + (q * a.cstr + 8 * oct) * 2, v);
+      store_unit(dst + (oct * a.hpl + q) * 16, v);
     }
     return;
   }
@@ -339,13 +366,13 @@ __device__ __forceinline__ void transpose_halo(const ConvMmaArgs& a,
           base[k * run_c + (((i < valid ? off[i] : off[0]) + rw) & 7)];
       v[i] = i < valid ? x : static_cast<unsigned short>(0);
     }
-    store_unit(dst + ((r * a.ww + col) * a.cstr + 8 * oct) * 2, v);
+    store_unit(dst + (oct * a.hpl + r * a.ww + col) * 16, v);
   }
 }
 
-// Raw weight runs -> [taps][boc16][cstr]: unit (oc row x, tap y, eight
-// channels z), lanes along the oc rows; the eight loads of a unit sit at
-// offsets fixed a call.
+// Raw weight runs -> [taps][nkc][boc_pad][8]: unit (oc row x, tap y,
+// eight channels z), lanes along the oc rows; the eight loads of a unit
+// sit at offsets fixed a call.
 __device__ __forceinline__ void transpose_wgt(const ConvMmaArgs& a,
                                               const unsigned short* src,
                                               const unsigned short* raw,
@@ -370,52 +397,68 @@ __device__ __forceinline__ void transpose_wgt(const ConvMmaArgs& a,
       const unsigned short x = run[i < valid ? off[i] : 0];
       v[i] = i < valid ? x : static_cast<unsigned short>(0);
     }
-    store_unit(dst + ((t * a.boc16 + o) * a.cstr + 8 * oct) * 2, v);
+    store_unit(dst + ((t * a.nkc + oct) * a.boc_pad + o) * 16, v);
   }
 }
 
-// One output value pair (pixels p, p + 1 of the tile at (py, px) and
-// after it, one channel) to `out`: a 4-byte store where both share a row
-// and the address is aligned, else one 2-byte store each; `accumulate`
-// adds the output's value in f32 first.
-__device__ __forceinline__ void store_pair(const ConvMmaArgs& a, const Tile& t,
-                                           int oc, int p, int py, int px,
-                                           float v0, float v1) {
-  const int pixels = a.by * a.bx;
-  if (p >= pixels) return;
-  unsigned short* o = reinterpret_cast<unsigned short*>(a.out) +
-      ((static_cast<size_t>(t.n) * a.OC + t.oc0 + oc) * a.H + t.y0 + py) *
-          a.W + t.x0 + px;
-  if (p + 1 < pixels && px + 1 < a.bx &&
-      (reinterpret_cast<uintptr_t>(o) & 3) == 0) {
+// A lane's rows r, r + 1 of a warpgroup tile as element offsets in a
+// channel's output plane from the tile's origin (-1: a junk row or past
+// the tile, not stored), and whether the two are neighbours in memory
+// (a row's pixels, or a full-width tile's row end and next row start).
+// Computed once a tile; the channels then differ only by their plane.
+struct RowPair {
+  int o0, o1;
+  bool adjacent;
+};
+
+__device__ __forceinline__ RowPair row_pair(const ConvMmaArgs& a, int r) {
+  const int py = r / a.ww, px = r - py * a.ww;
+  int py1 = py, px1 = px + 1;
+  if (px1 == a.ww) { px1 = 0; ++py1; }
+  RowPair p;
+  p.o0 = py < a.by && px < a.bx ? py * a.W + px : -1;
+  p.o1 = py1 < a.by && px1 < a.bx ? py1 * a.W + px1 : -1;
+  p.adjacent = p.o0 >= 0 && p.o1 == p.o0 + 1;
+  return p;
+}
+
+__device__ __forceinline__ void store_one(const ConvMmaArgs& a,
+                                          unsigned short* o, float v) {
+  if (a.accumulate) v += __bfloat162float(__ushort_as_bfloat16(o[0]));
+  o[0] = __bfloat16_as_ushort(__float2bfloat16(v));
+}
+
+// The values of a lane's row pair in the output plane `plane`: a 4-byte
+// store where the two are neighbours and the address is aligned, else a
+// 2-byte store each (junk rows store nothing); `accumulate` adds the
+// output's value in f32 first.
+__device__ __forceinline__ void store_rows(const ConvMmaArgs& a,
+                                           unsigned short* plane,
+                                           const RowPair& p, float v0,
+                                           float v1) {
+  if (p.adjacent && (reinterpret_cast<uintptr_t>(plane + p.o0) & 3) == 0) {
+    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(plane + p.o0);
     if (a.accumulate) {
-      const float2 old = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(o));
+      const float2 old = __bfloat1622float2(*o);
       v0 += old.x;
       v1 += old.y;
     }
-    *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
+    *o = __floats2bfloat162_rn(v0, v1);
     return;
   }
-  if (a.accumulate) v0 += __bfloat162float(__ushort_as_bfloat16(o[0]));
-  o[0] = __bfloat16_as_ushort(__float2bfloat16(v0));
-  if (p + 1 >= pixels) return;
-  if (px + 1 >= a.bx)                  // pixel p + 1 opens the next row
-    o += a.W - a.bx + 1;
-  else
-    o += 1;
-  if (a.accumulate) v1 += __bfloat162float(__ushort_as_bfloat16(o[0]));
-  o[0] = __bfloat16_as_ushort(__float2bfloat16(v1));
+  if (p.o0 >= 0) store_one(a, plane + p.o0, v0);
+  if (p.o1 >= 0) store_one(a, plane + p.o1, v1);
 }
 
-template <bool Sparse, int MT>
+template <bool Sparse, int NT, int MT>
 __global__ void __launch_bounds__(32 * kMaxWarps)
 conv_mma_kernel(const ConvMmaArgs a) {
-  constexpr int kEpiStride = epi_stride(MT);
-  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kAcc = NT / 2;     // a 64-row tile's accumulators
+  extern __shared__ __align__(128) unsigned char smem[];
   CM_T_BEGIN()
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int warp = tid / 32, lane = tid % 32;
+  const int wg = warp / 4, wgs = a.warps / 4;
   // the block's walk: tiles g0 .. g0 + nt - 1 of its group
   const int grp = static_cast<int>(blockIdx.x / a.per_group);
   const int part = static_cast<int>(blockIdx.x % a.per_group);
@@ -423,7 +466,6 @@ conv_mma_kernel(const ConvMmaArgs a) {
   const int g0 = part * a.walk;             // the walk's first in the group
   const int nt = min(a.walk, a.group - g0);
   const Tile first = tile_in_group(a, base, g0);
-  const int pixels = a.by * a.bx;
 
   // channel blocks each tile sums: the dense range, or the oc block's
   // nonzero count (every tile of a walk has the walk's oc block, or, with
@@ -447,25 +489,21 @@ conv_mma_kernel(const ConvMmaArgs a) {
     for (int j = tid; j < nblocks; j += nthr)
       idx_s[j] = a.idx[first.ob * a.max_nnz + j];
   }
-  // zero, once, what the pass never writes: the unit of channels
-  // 8 noct .. bic_pad - 1 of every row, and the padded oc rows
-  {
+  // zero, once, what the pass never writes: the plane of channels
+  // 8 noct .. bic_pad - 1 of every slot, in both operands
+  if (a.noct < a.nkc) {
     const uint4 z = make_uint4(0, 0, 0, 0);
-    const int hrows = a.h_slots * a.hh * a.ww;
-    const int wrows = a.w_slots * a.taps * a.boc16;
-    if (8 * a.noct < a.bic_pad) {
-      for (int i = tid; i < hrows; i += nthr)
-        *reinterpret_cast<uint4*>(smem + (i * a.cstr + 8 * a.noct) * 2) = z;
-      for (int i = tid; i < wrows; i += nthr)
-        *reinterpret_cast<uint4*>(smem + a.off_tw +
-                                  (i * a.cstr + 8 * a.noct) * 2) = z;
+    for (int i = tid; i < a.h_slots * a.hpl; i += nthr) {
+      const int sl = i / a.hpl, q = i - sl * a.hpl;
+      *reinterpret_cast<uint4*>(smem + sl * a.th_bytes +
+                                (a.noct * a.hpl + q) * 16) = z;
     }
-    const int pad_oc = a.boc16 - a.boc, per = a.bic_pad / 8;
-    for (int i = tid; i < a.w_slots * a.taps * pad_oc * per; i += nthr) {
-      const int k = i % per, r = i / per;
-      const int row = (r / pad_oc) * a.boc16 + a.boc + r % pad_oc;
-      *reinterpret_cast<uint4*>(smem + a.off_tw +
-                                (row * a.cstr + 8 * k) * 2) = z;
+    for (int i = tid; i < a.w_slots * a.taps * a.boc_pad; i += nthr) {
+      const int o = i % a.boc_pad, r = i / a.boc_pad;   // r: slot, tap
+      const int sl = r / a.taps, t = r - sl * a.taps;
+      *reinterpret_cast<uint4*>(smem + a.off_tw + sl * a.tw_bytes +
+                                ((t * a.nkc + a.noct) * a.boc_pad + o) *
+                                    16) = z;
     }
   }
   __syncthreads();
@@ -474,10 +512,13 @@ conv_mma_kernel(const ConvMmaArgs a) {
     if constexpr (Sparse) return idx_s[b] * a.bic;
     else return a.ic_begin + b * a.bic;
   };
+  // rounds a step runs: every round of the tile where it sums one
+  // channel block (its operands then stream once a tile), else one
+  const int rps = nblocks == 1 ? a.rounds : 1;
   // steps: with a resident operand, its nblocks loads first (no MMA),
-  // then nt x rounds x nblocks multiply steps
+  // then nt x rounds / rps x nblocks multiply steps
   const int pre = a.resident ? nblocks : 0;
-  const int per_tile = a.rounds * nblocks;
+  const int per_tile = a.rounds / rps * nblocks;
   const int steps = pre + nt * per_tile;
   const uint32_t raw0 = hw::smem_u32(smem + a.off_raw);
 
@@ -517,7 +558,7 @@ conv_mma_kernel(const ConvMmaArgs a) {
   auto w_slot_of = [&](const Step& st) {
     return a.resident && !a.fixed_halo ? st.b : a.late ? 0 : st.c & 1;
   };
-  // step s's operands into their slots
+  // step s's operands into their slots, then visible to the wgmmas
   auto transpose = [&](int s) {
     const Step st = step_of(s);
     const int ic0 = ic_of(st.b);
@@ -529,6 +570,7 @@ conv_mma_kernel(const ConvMmaArgs a) {
     if (st.wgt)
       transpose_wgt(a, wgt_src(a, st.t, ic0), raw + a.raw_w_off / 2,
                     smem + a.off_tw + w_slot_of(st) * a.tw_bytes, tid, nthr);
+    hw::fence_proxy_async();
   };
 
   // prologue: the first `stages` steps' loads, one group each
@@ -540,180 +582,154 @@ conv_mma_kernel(const ConvMmaArgs a) {
   __syncthreads();
   transpose(0);
 
-  float acc[MT][4][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  const int ww = a.ww;
+  // acc[m]: the tensor cores' running part of the warpgroup tile's m-th
+  // 64 rows.  Only wgmmas write acc (a part's first one with scale_d 0,
+  // which drops acc's old values, so acc needs no initial value), and
+  // every step waits for its wgmmas at one unconditional point: ptxas
+  // keeps the wgmmas in flight only if no instruction on a conditional
+  // path defines their accumulators.  A part that closes before a tile's
+  // last channel block is added in f32 into the thread's own slots of
+  // the part buffer ([MT kAcc][threads] floats); the epilogue adds the
+  // last part to it.
+  float acc[MT][kAcc];
+  float* pbuf = reinterpret_cast<float*>(smem + a.off_part);
+  int kdone = 0;                  // k16 steps in acc's part
+  int scale = 0;                  // 0: the next wgmma opens a part
+  bool parted = false;            // the part buffer holds earlier parts
+  const int ksteps = a.taps * (a.nkc / 2);   // k16 steps a channel block
   CM_T_MARK(0)
 
   for (int s = 0; s < steps; ++s) {
     // step s + 1's loads landed (this thread's, then everyone's); after
-    // the barrier step s's transposed operands are complete and step
-    // s - 1's MMAs are done, so step s's ring slot is free
+    // the barrier step s's operands are complete and visible, step s's
+    // ring slot is free, and step s - 1's operand slots (whose wgmmas
+    // every warpgroup waited for) may be rewritten
     if (a.stages == 3) hw::cp_async_wait<1>(); else hw::cp_async_wait<0>();
     __syncthreads();
     CM_T_MARK(1)
     if (s + a.stages < steps) issue(s + a.stages);
     hw::cp_async_commit();
     CM_T_MARK(2)
-    // single slots are still read by this step's MMAs: step s + 1 writes
-    // them after those
     const bool mma_now = s >= pre;
-    if (s + 1 < steps && !(a.late && mma_now)) transpose(s + 1);
-    CM_T_MARK(3)
-    if (!mma_now) continue;
-
-    // ---- this warp's MMAs on step s's operands
     const Step st = step_of(s);
-    const int rd = (st.c / nblocks) % a.rounds;
-    const int wt = rd * a.warps + warp;
-    const bool has_tile = wt < a.wt_m * a.wt_n;
-    const int pm0 = (wt % a.wt_m) * 16 * MT, pn0 = (wt / a.wt_m) * 32;
-    if (has_tile) {
-      const uint32_t halo = hw::smem_u32(smem + h_slot_of(st) * a.th_bytes);
-      const uint32_t wts =
-          hw::smem_u32(smem + a.off_tw + w_slot_of(st) * a.tw_bytes);
-      bool m_on[MT], n_on[2];
-      uint32_t a_row[MT], b_row[2];
+    // the step's first round
+    const int rd0 = mma_now ? (st.c / nblocks) % (a.rounds / rps) * rps : 0;
+    for (int r = 0; r < rps; ++r) {
+      // this warpgroup's tile of the round; a warpgroup past the round's
+      // tiles multiplies the last one again (its products are not
+      // stored), so that no branch on the warpgroup surrounds a wgmma
+      const int wt_all = (rd0 + r) * wgs + wg, tiles_wg = a.wg_m * a.wg_n;
+      const bool has_tile = wt_all < tiles_wg;
+      const int wt = has_tile ? wt_all : tiles_wg - 1;
+      const int m0 = (wt % a.wg_m) * (kRows * MT), n0 = (wt / a.wg_m) * NT;
+      if (mma_now) {
+        // ---- this warpgroup's wgmmas on step s's operands, issued
+        const uint32_t hb =
+            hw::smem_u32(smem + h_slot_of(st) * a.th_bytes) + m0 * 16;
+        const uint32_t wb = hw::smem_u32(smem + a.off_tw +
+                                         w_slot_of(st) * a.tw_bytes) +
+                            n0 * 16;
+        hw::wgmma_fence();
+        for (int t = 0, ky = 0, kx = 0; t < a.taps; ++t) {
+          const uint32_t ha = hb + (ky * a.ww + kx) * 16;
+          const uint32_t wa = wb + t * a.nkc * a.boc_pad * 16;
+          for (int kc = 0; kc < a.nkc; kc += 2) {
+            const uint64_t db =
+                hw::make_desc(wa + kc * a.boc_pad * 16, a.boc_pad, 8, 0);
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        m_on[mt] = pm0 + 16 * mt < a.p16;
-        int p = pm0 + 16 * mt + (lane & 15);
-        if (p >= pixels) p = 0;                  // padded rows read pixel 0
-        a_row[mt] = halo + (((p / a.bx) * ww + p % a.bx) * a.cstr +
-                            (lane >> 4) * 8) * 2;
-      }
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        n_on[np] = pn0 + 16 * np < a.boc16;
-        b_row[np] = wts + ((pn0 + 16 * np + (lane >> 4) * 8 + (lane & 7)) *
-                               a.cstr + ((lane >> 3) & 1) * 8) * 2;
-      }
-      // the k steps (tap, 16 channels) in order, the fragments of step
-      // j + 1 loaded while step j multiplies (two fragment sets)
-      const uint32_t tap_rows = a.boc16 * a.cstr * 2;   // bytes a tap
-      const int kc_end = a.bic_pad * 2, row_skip = (ww - a.KW) * a.cstr * 2;
-      const int steps_k = a.taps * (a.bic_pad / 16);
-      uint32_t a_off = 0, b_off = 0;    // the next k step's byte offsets
-      int kc = 0, kx = 0;
-      auto next_k = [&]() {
-        kc += 32;
-        if (kc == kc_end) {
-          kc = 0;
-          a_off += a.cstr * 2 - kc_end + 32;
-          b_off += tap_rows - kc_end + 32;
-          if (++kx == a.KW) { kx = 0; a_off += row_skip; }
-        } else {
-          a_off += 32;
-          b_off += 32;
-        }
-      };
-      uint32_t fa0[MT][4], fb0[2][4], fa1[MT][4], fb1[2][4];
-      auto load = [&](uint32_t (&fa)[MT][4], uint32_t (&fb)[2][4]) {
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-          if (m_on[mt]) hw::ldmatrix_x4(fa[mt], a_row[mt] + a_off);
-#pragma unroll
-        for (int np = 0; np < 2; ++np)
-          if (n_on[np]) hw::ldmatrix_x4(fb[np], b_row[np] + b_off);
-        next_k();
-      };
-      auto mma = [&](const uint32_t (&fa)[MT][4],
-                     const uint32_t (&fb)[2][4]) {
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int nb = 0; nb < 4; ++nb)
-            if (m_on[mt] && n_on[nb / 2])
-              hw::mma_16816(acc[mt][nb], fa[mt], fb[nb / 2][2 * (nb % 2)],
-                            fb[nb / 2][2 * (nb % 2) + 1]);
-      };
-      load(fa0, fb0);
-      for (int j = 0; j < steps_k; j += 2) {
-        if (j + 1 < steps_k) load(fa1, fb1);
-        mma(fa0, fb0);
-        if (j + 1 < steps_k) {
-          if (j + 2 < steps_k) load(fa0, fb0);
-          mma(fa1, fb1);
-        }
-      }
-    }
-    CM_T_MARK(4)
-
-    if (st.b == nblocks - 1 && has_tile && !a.epi_staged) {
-      // no room for the staging: lanes g and g ^ 1 of an accumulator
-      // fragment (pixels g, g + 8 of each m16, channels 2q, 2q + 1 of
-      // each n8) swap one value, so each holds the pixel pair (g & ~1,
-      // g | 1) of one channel (2q + (g & 1))
-      const int g = lane >> 2, q = lane & 3, odd = g & 1;
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int p = pm0 + 16 * mt + 8 * h + (g & ~1);
-          const int py = p / a.bx, px = p - py * a.bx;
-#pragma unroll
-          for (int nb = 0; nb < 4; ++nb) {
-            const float x0 = acc[mt][nb][2 * h], x1 = acc[mt][nb][2 * h + 1];
-            const float got = __shfl_xor_sync(0xffffffffu, odd ? x0 : x1, 4);
-            const int oc = pn0 + 8 * nb + 2 * q + odd;
-            if (oc < a.boc)
-              store_pair(a, st.t, oc, p, py, px, odd ? got : x0,
-                         odd ? x1 : got);
+            for (int m = 0; m < MT; ++m) {
+              const uint64_t da = hw::make_desc(
+                  ha + (m * kRows + kc * a.hpl) * 16, a.hpl, 8, 0);
+              hw::WgmmaKMajor<NT>::run(acc[m], da, db, scale);
+            }
+            scale = 1;
           }
+          if (++kx == a.KW) { kx = 0; ++ky; }
         }
-    }
-    if (st.b == nblocks - 1 && has_tile && a.epi_staged) {
-      // accumulator fragment: lane (g, q) holds pixels g, g + 8 of each
-      // m16 and channels 2q, 2q + 1 of each n8; through the staging tile
-      // [8 channels][16 mt pixels], lane l then holds pixels pj, pj + 1
-      // (pj = 2 (l % 16) + 32 r) of channel l / 16 + 2k, k = 0..3
-      float* epi = reinterpret_cast<float*>(smem + a.off_epi) +
-                   warp * (8 * kEpiStride);
-      const int g = lane >> 2, q = lane & 3, half = lane >> 4;
+        hw::wgmma_commit();
+      }
+      CM_T_MARK(4)
+      // single slots are still read by this step's wgmmas: step s + 1
+      // writes them after those
+      if (r == rps - 1 && s + 1 < steps && !(a.late && mma_now)) {
+        transpose(s + 1);
+        CM_T_MARK(3)
+      }
+      hw::wgmma_wait<0>();
 #pragma unroll
-      for (int nb = 0; nb < 4; ++nb) {
-        if (pn0 + 8 * nb < a.boc) {            // the same for every lane
+      for (int m = 0; m < MT; ++m) hw::fence_regs(acc[m], kAcc);
+      CM_T_MARK(4)
+      if (!mma_now) continue;
+
+      // a part closes where the next channel block would take it past
+      // part_k k16 steps, before the tile's last block
+      kdone += ksteps;
+      const bool last = st.b == nblocks - 1;
+      if (!last && kdone + ksteps > a.part_k) {
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
+        for (int m = 0; m < MT; ++m)
 #pragma unroll
-            for (int e = 0; e < 4; ++e)
-              epi[(2 * q + (e & 1)) * kEpiStride + 16 * mt + g +
-                  8 * (e >> 1)] = acc[mt][nb][e];
-          __syncwarp();
+          for (int i = 0; i < kAcc; ++i) {
+            float& p = pbuf[(m * kAcc + i) * nthr + tid];
+            p = parted ? p + acc[m][i] : acc[m][i];
+          }
+        parted = true;
+        kdone = 0;
+        scale = 0;
+      }
+      if (last) {
+        if (has_tile) {
+          // accumulator fragment: lane (g, q) of warp w holds rows 16 (w
+          // % 4) + g, + 8 of each 64 and channels 2q, 2q + 1 of each n8;
+          // through the warp's staging tile [8 channels][16 rows], lane l
+          // then holds rows 2 (l % 8), + 1 of the warp's 16 and channels
+          // l / 8 and l / 8 + 4: a store instruction writes four
+          // channels' 16 neighbouring rows, and no barrier but the
+          // warp's is needed
+          float* epi = reinterpret_cast<float*>(smem + a.off_epi) +
+                       warp * (8 * kEpiStride);
+          const int g = lane >> 2, q = lane & 3, wr = warp & 3;
+          const int pr = lane & 7, ch0 = lane >> 3;
+          const size_t plane = static_cast<size_t>(a.H) * a.W;
+          unsigned short* tb = reinterpret_cast<unsigned short*>(a.out) +
+              ((static_cast<size_t>(st.t.n) * a.OC + st.t.oc0 + n0) * a.H +
+               st.t.y0) * a.W + st.t.x0;
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int pj = 2 * (lane & 15) + 32 * r;
-            if (pj < 16 * MT) {
-              const int p = pm0 + pj;
-              const int py = p / a.bx, px = p - py * a.bx;
+          for (int m = 0; m < MT; ++m) {
+            const RowPair rows =
+                row_pair(a, m0 + m * kRows + 16 * wr + 2 * pr);
 #pragma unroll
-              for (int k = 0; k < 4; ++k) {
-                const int o = 2 * k + half, oc = pn0 + 8 * nb + o;
-                const float2 v = *reinterpret_cast<const float2*>(
-                    epi + o * kEpiStride + pj);
-                if (oc < a.boc) store_pair(a, st.t, oc, p, py, px, v.x, v.y);
+            for (int j = 0; j < NT / 8; ++j) {
+              if (n0 + 8 * j < a.boc) {        // the same for the warpgroup
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const int i = 4 * j + e;
+                  epi[(2 * q + (e & 1)) * kEpiStride + g + 8 * (e >> 1)] =
+                      parted ? pbuf[(m * kAcc + i) * nthr + tid] + acc[m][i]
+                             : acc[m][i];
+                }
+                __syncwarp();
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  const int ch = ch0 + 4 * h, oc = n0 + 8 * j + ch;
+                  const float2 v = *reinterpret_cast<const float2*>(
+                      epi + ch * kEpiStride + 2 * pr);
+                  if (oc < a.boc)
+                    store_rows(a, tb + (8 * j + ch) * plane, rows, v.x,
+                               v.y);
+                }
+                __syncwarp();
               }
             }
           }
-          __syncwarp();
         }
+        parted = false;
+        kdone = 0;
+        scale = 0;
       }
+      CM_T_MARK(5)
     }
-    if (st.b == nblocks - 1 && has_tile) {
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-    }
-    CM_T_MARK(5)
-    if (a.late && s + 1 < steps) {
+    if (a.late && mma_now && s + 1 < steps) {
       __syncthreads();
       transpose(s + 1);
       CM_T_MARK(3)
@@ -723,44 +739,61 @@ conv_mma_kernel(const ConvMmaArgs a) {
 }
 
 // Fills the tile layout of `a` from its shapes, blocks, `warps`, `walk`,
-// `stages`, `late` and `staged` (the wrapper's layout,
-// kernels/_geometry.py conv_mma_tile, which must agree byte for byte)
-// and returns the dynamic shared memory a block needs, `extra` bytes
-// for the sparse index row included; -1
-// when the tile or the launch does not fit.  The resident operand's
-// slots are the sparse conv's max_nnz (> 0), or the dense conv's IC /
-// bic, so every launch of a read-modify-write schedule (each sums one
-// channel block) has the scratch launch's layout.
+// `stages` and `late` (the wrapper's layout, kernels/_geometry.py
+// conv_mma_tile, which must agree byte for byte) and returns the dynamic
+// shared memory a block needs, `extra` bytes for the sparse index row
+// included; -1 when the tile or the launch does not fit.  The resident
+// operand's slots are the sparse conv's max_nnz (> 0), or the dense
+// conv's IC / bic, so every launch of a read-modify-write schedule (each
+// sums one channel block) has the scratch launch's layout.
 inline long long conv_mma_layout(ConvMmaArgs& a, int warps, int walk,
-                                 int stages, int late, int staged,
-                                 int extra) {
+                                 int stages, int late, int extra) {
   if (a.N < 1 || a.IC < 1 || a.OC < 1 || a.KH < 1 || a.KW < 1 ||
       a.H < 1 || a.W < 1 || a.boc < 1 || a.bic < 1 || a.by < 1 ||
       a.bx < 1 || a.OC % a.boc || a.IC % a.bic || a.H % a.by ||
-      a.W % a.bx || warps < 1 || warps > kMaxWarps || walk < 1 ||
-      stages < 2 || stages > 3 || late < 0 || late > 1 || staged < 0 ||
-      staged > 1)
+      a.W % a.bx || warps < 8 || warps > kMaxWarps || warps % 4 ||
+      walk < 1 || stages < 2 || stages > 3 || late < 0 || late > 1)
     return -1;
   a.trips[0] = a.OC / a.boc;
   a.trips[1] = a.H / a.by;
   a.trips[2] = a.W / a.bx;
-  a.p16 = (a.by * a.bx + 15) / 16 * 16;
-  a.boc16 = (a.boc + 15) / 16 * 16;
-  a.bic_pad = (a.bic + 15) / 16 * 16;
-  a.cstr = a.bic_pad + 8;
-  // a warp's tile: 2 m16 tiles (32 pixels), or 3 where that takes fewer
-  // rounds of kMaxWarps warps
-  a.wt_n = (a.boc16 + 31) / 32;
-  const int r2 = ((a.p16 + 31) / 32 * a.wt_n + kMaxWarps - 1) / kMaxWarps;
-  const int r3 = ((a.p16 + 47) / 48 * a.wt_n + kMaxWarps - 1) / kMaxWarps;
-  a.mt = r3 < r2 ? 3 : 2;
-  a.wt_m = (a.p16 + 16 * a.mt - 1) / (16 * a.mt);
-  a.warps = warps;
-  a.rounds = (a.wt_m * a.wt_n + warps - 1) / warps;
   a.hh = a.by + a.KH - 1;
   a.ww = a.bx + a.KW - 1;
   a.taps = a.KH * a.KW;
   a.noct = (a.bic + 7) / 8;
+  a.bic_pad = (a.bic + 15) / 16 * 16;
+  a.nkc = a.bic_pad / 8;
+  a.hpl = a.hh * a.ww;
+  a.part_k = kMmaPartK / 16;
+  // an accumulator part is whole channel blocks
+  if (a.taps * (a.nkc / 2) > a.part_k) return -1;
+  // the wgmma's N: of 64, 32 and 16 the one whose wgmmas read the
+  // fewest shared-memory bytes a k step, oc_pad (2048 / N + 32), the
+  // widest among equals
+  a.nt = 64;
+  a.boc_pad = (a.boc + 63) / 64 * 64;
+  for (int n = 32; n >= 16; n /= 2) {
+    const int pad = (a.boc + n - 1) / n * n;
+    if (pad * (2048 / n + 32) < a.boc_pad * (2048 / a.nt + 32)) {
+      a.nt = n;
+      a.boc_pad = pad;
+    }
+  }
+  a.wg_n = a.boc_pad / a.nt;
+  a.rows = (a.by - 1) * a.ww + a.bx;
+  // 64-row tiles a warpgroup holds (its accumulators: mt nt / 2 floats,
+  // at most 64): where the tiles sum more than one channel block, the
+  // fewest that cover the tile in one round of kMaxWarps / 4 warpgroups,
+  // else the most (each further round re-streams the blocks); one where
+  // they sum one block (a step then runs every round)
+  const int fixed_slots = a.max_nnz > 0 ? a.max_nnz : a.IC / a.bic;
+  const int m_tiles = (a.rows + kRows - 1) / kRows;
+  const int mt_max = fixed_slots == 1 ? 1 : a.nt == 64 ? 2 : 3;
+  for (a.mt = 1; a.mt < mt_max; ++a.mt)
+    if ((m_tiles + a.mt - 1) / a.mt * a.wg_n <= kMaxWarps / 4) break;
+  a.wg_m = (m_tiles + a.mt - 1) / a.mt;
+  a.warps = warps;
+  a.rounds = (a.wg_m * a.wg_n + warps / 4 - 1) / (warps / 4);
   // the group: the tiles after oc in the order (they share the weights),
   // or, with oc last, the oc blocks of a pixel tile (they share the halo)
   a.fixed_halo = a.order[2] == 0;
@@ -795,9 +828,12 @@ inline long long conv_mma_layout(ConvMmaArgs& a, int warps, int walk,
   const int raw_w = a.boc * a.w_slot * 16;
   a.raw_w_off = a.resident ? 0 : raw_h;
   a.raw_bytes = a.resident ? (raw_h > raw_w ? raw_h : raw_w) : raw_h + raw_w;
-  a.th_bytes = a.hh * a.ww * a.cstr * 2;
-  a.tw_bytes = a.taps * a.boc16 * a.cstr * 2;
-  const int fixed_slots = a.max_nnz > 0 ? a.max_nnz : a.IC / a.bic;
+  // a halo slot: its planes, and past the last one the rows that the
+  // last M tile's junk rows read at the largest shift
+  const int reach = a.wg_m * a.mt * kRows + (a.KH - 1) * a.ww + a.KW - 1;
+  const int tail = reach > a.hpl ? reach - a.hpl : 0;
+  a.th_bytes = (a.nkc * a.hpl + tail) * 16;
+  a.tw_bytes = a.taps * a.nkc * a.boc_pad * 16;
   a.h_slots = a.resident && a.fixed_halo ? fixed_slots : 2 - late;
   a.w_slots = a.resident && !a.fixed_halo ? fixed_slots : 2 - late;
   const long long off_tw = static_cast<long long>(a.h_slots) * a.th_bytes;
@@ -805,39 +841,57 @@ inline long long conv_mma_layout(ConvMmaArgs& a, int warps, int walk,
                                          a.tw_bytes;
   const long long off_epi = off_raw + static_cast<long long>(stages) *
                                           a.raw_bytes;
-  // the epilogue's staging, or the fragments' own pairs
-  a.epi_staged = staged;
+  const long long off_part = off_epi + static_cast<long long>(warps / 4) *
+                                           kEpiBytes;
+  // the part buffer, where a launch can sum more than part_k k16 steps
+  const bool parts = static_cast<long long>(fixed_slots) * a.taps *
+                         (a.nkc / 2) > a.part_k;
   const long long off_idx =
-      off_epi + (staged ? static_cast<long long>(warps) * epi_bytes(a.mt)
-                        : 0);
+      off_part + (parts ? 32LL * warps * a.mt * (a.nt / 2) * 4 : 0);
   const long long smem = off_idx + extra;
   if (smem > 232448 || a.blocks > 2147483647LL)
     return -1;
   a.off_tw = static_cast<int>(off_tw);
   a.off_raw = static_cast<int>(off_raw);
   a.off_epi = static_cast<int>(off_epi);
+  a.off_part = static_cast<int>(off_part);
   a.off_idx = static_cast<int>(off_idx);
   return smem;
 }
 
-template <bool Sparse, int MT>
-cudaError_t conv_mma_launch_mt(const ConvMmaArgs& a, long long smem,
-                               cudaStream_t stream) {
+template <bool Sparse, int NT, int MT>
+cudaError_t conv_mma_launch_t(const ConvMmaArgs& a, long long smem,
+                              cudaStream_t stream) {
   const cudaError_t attr = hw::smem_opt_in(
-      reinterpret_cast<const void*>(conv_mma_kernel<Sparse, MT>), 232448);
+      reinterpret_cast<const void*>(conv_mma_kernel<Sparse, NT, MT>),
+      232448);
   if (attr != cudaSuccess) return attr;
-  conv_mma_kernel<Sparse, MT><<<static_cast<unsigned>(a.blocks),
-                                32 * a.warps, static_cast<int>(smem),
-                                stream>>>(a);
+  conv_mma_kernel<Sparse, NT, MT><<<static_cast<unsigned>(a.blocks),
+                                    32 * a.warps, static_cast<int>(smem),
+                                    stream>>>(a);
   return cudaGetLastError();
 }
 
-// The body at the layout's warp tile (2 or 3 m16 tiles a warp).
+template <bool Sparse, int NT>
+cudaError_t conv_mma_launch_nt(const ConvMmaArgs& a, long long smem,
+                               cudaStream_t stream) {
+  if constexpr (NT == 64)
+    return a.mt == 2 ? conv_mma_launch_t<Sparse, NT, 2>(a, smem, stream)
+                     : conv_mma_launch_t<Sparse, NT, 1>(a, smem, stream);
+  else
+    return a.mt == 3   ? conv_mma_launch_t<Sparse, NT, 3>(a, smem, stream)
+           : a.mt == 2 ? conv_mma_launch_t<Sparse, NT, 2>(a, smem, stream)
+                       : conv_mma_launch_t<Sparse, NT, 1>(a, smem, stream);
+}
+
+// The body at the layout's wgmma width (NT 16, 32 or 64 channels) and
+// 64-row tiles a warpgroup (MT 1 to 3; 2 at NT 64).
 template <bool Sparse>
 cudaError_t conv_mma_launch(const ConvMmaArgs& a, long long smem,
                             cudaStream_t stream) {
-  return a.mt == 3 ? conv_mma_launch_mt<Sparse, 3>(a, smem, stream)
-                   : conv_mma_launch_mt<Sparse, 2>(a, smem, stream);
+  return a.nt == 64   ? conv_mma_launch_nt<Sparse, 64>(a, smem, stream)
+         : a.nt == 32 ? conv_mma_launch_nt<Sparse, 32>(a, smem, stream)
+                      : conv_mma_launch_nt<Sparse, 16>(a, smem, stream);
 }
 
 }  // namespace cm

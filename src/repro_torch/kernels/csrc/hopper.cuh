@@ -3,8 +3,8 @@
 // tensor maps they read (matmul.cu, flash_wgmma.cu), cluster barriers
 // and distributed shared memory (decode_common.cuh), wgmma descriptors
 // and instructions with A from shared memory or registers and B N-major
-// or K-major, setmaxnreg (matmul.cu), ldmatrix + mma.sync (conv_mma.cuh,
-// flash_attention.cu, decode_common.cuh) and cp.async.  Plain C
+// or K-major, setmaxnreg (matmul.cu), ldmatrix + mma.sync
+// (flash_attention.cu, decode_common.cuh) and cp.async.  Plain C
 // interface only, like common.cuh.
 #pragma once
 #include <cuda.h>   // CUtensorMap (types only: nothing links against libcuda)
@@ -459,8 +459,9 @@ template <> struct Wgmma<256> {
 
 // D[64, N] += A[64, 16] . B[16, N] with A from shared memory (K-major)
 // and B K-major (not transposed: B's N rows each hold 16 consecutive k),
-// as S = Q K^T reads K's [key][d] rows (flash_wgmma.cu).  Accumulators
-// as Wgmma<N>.
+// as S = Q K^T reads K's [key][d] rows (flash_wgmma.cu) and the conv's
+// implicit GEMM reads its halo and weights (conv_mma.cuh).  Accumulators
+// and scale_d as Wgmma<N>.
 template <int N> struct WgmmaKMajor;
 
 // D[64, N] += A[64, 16] . B[16, N] with A in registers and B N-major in
@@ -473,7 +474,7 @@ template <int N> struct WgmmaRegA;
 
 template <> struct WgmmaKMajor<64> {
   static __device__ __forceinline__ void run(float* d, uint64_t da,
-                                             uint64_t db) {
+                                             uint64_t db, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -487,7 +488,38 @@ template <> struct WgmmaKMajor<64> {
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaKMajor<16> {
+  static __device__ __forceinline__ void run(float* d, uint64_t da,
+                                             uint64_t db, int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaKMajor<32> {
+  static __device__ __forceinline__ void run(float* d, uint64_t da,
+                                             uint64_t db, int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
   }
 };
 
@@ -616,7 +648,7 @@ __device__ __forceinline__ void fence_regs(uint32_t* r, int n) {
   for (int i = 0; i < n; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
 }
 
-// ---- mma.sync (conv_mma.cuh, flash_attention.cu, decode_common.cuh)
+// ---- mma.sync (flash_attention.cu, decode_common.cuh)
 
 // Four 8 x 8 bf16 matrices from shared memory; lane l gives the address
 // of row l % 8 of matrix l / 8.

@@ -13,21 +13,23 @@
 //   chip_smoke.py's [time] lines).
 // Two bodies, chosen by dtype (kernels/_geometry.py, tensor_cores):
 // - bfloat16: the dense conv's implicit GEMM on the tensor cores
-//   (conv_mma_kernel<true> of conv_mma.cuh) with each step's channel
-//   block taken from the oc block's own index row: each block loads its
-//   count and index row into shared memory (the Pallas kernel prefetched
-//   them as scalars), so a skipped block costs neither a load nor an MMA,
-//   and the next nonzero blocks' loads are in flight (cp.async, the same
-//   ring as the dense conv's) during this one's MMAs.  A block walks
-//   several pixel tiles of one oc block, its nonzero weight blocks
-//   loaded once and resident, so the index row, the padding's zeros and
-//   the weights are paid once a walk, not once a tile.  The Pallas kernel kept the whole image of a block in VMEM; a
-//   Hopper block has 227 KB, so the output is tiled spatially, with the
+//   (conv_mma_kernel<true, NT> of conv_mma.cuh, wgmma with both operands
+//   from shared memory) with each step's channel block taken from the oc
+//   block's own index row: each block loads its count and index row into
+//   shared memory (the Pallas kernel prefetched them as scalars), so a
+//   skipped block costs neither a load nor an MMA, and the next nonzero
+//   blocks' loads are in flight (cp.async, the same ring as the dense
+//   conv's) during this one's MMAs.  A block walks several pixel tiles of
+//   one oc block, its nonzero weight blocks loaded once and resident, so
+//   the index row, the padding's zeros and the weights are paid once a
+//   walk, not once a tile.  The Pallas kernel kept the whole image of a
+//   block in VMEM; a Hopper block has 227 KB, so the output is tiled spatially, with the
 //   dense conv model's cheapest pixel tile for the skip block's (oc, ic)
 //   at the caller's batch (core/sparsity.py, sparse_pixel_tile), which
-//   divides H and W.  Skip blocks pad to the MMA shape (oc and ic to 16)
-//   with zero channels.  One launch sums every nonzero block in f32 and
-//   rounds once.
+//   divides H and W.  Skip blocks pad to the MMA shape (oc to the
+//   wgmma's N, ic to 16) with zero channels.  One launch sums every
+//   nonzero block, in accumulator parts of at most MMA_PART_K terms
+//   added in f32, and rounds once.
 // - float32: the CUDA-core tile kernel of conv_common.cuh with the
 //   channel-block loop over idx[o, :counts[o]], spatial tiles of up to
 //   8 x 16 pixels with the ragged edge masked, in IEEE fp32 (the tensor
@@ -36,16 +38,16 @@
 #include "conv_mma.cuh"
 
 // `groups` and `per_thread` are the float32 tile's layout, `warps`,
-// `walk`, `stages` and `late` the bf16 one's (kernels/_geometry.py: conv_tile,
-// conv_mma_tile); the other is ignored.
+// `walk`, `stages` and `late` the bf16 one's (kernels/_geometry.py:
+// conv_tile, conv_mma_tile); the other is ignored.
 extern "C" int sparse_conv2d_fwd(const void* img, const void* wgt,
                                  const void* idx, const void* counts,
                                  void* out, int N, int IC, int H2, int W2,
                                  int OC, int KH, int KW, int boc, int bic,
                                  int max_nnz, int by, int bx, int groups,
                                  int per_thread, int warps, int walk,
-                                 int stages, int late, int staged,
-                                 int is_bf16, void* stream) {
+                                 int stages, int late, int is_bf16,
+                                 void* stream) {
   if (max_nnz < 1 || idx == nullptr || counts == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -71,7 +73,6 @@ extern "C" int sparse_conv2d_fwd(const void* img, const void* wgt,
       return static_cast<int>(cudaErrorInvalidValue);
     // the index row sits after the ring
     const long long smem = conv_mma_layout(a, warps, walk, stages, late,
-                                           staged,
                                            (max_nnz * 4 + 15) / 16 * 16);
     if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(conv_mma_launch<true>(a, smem, st));

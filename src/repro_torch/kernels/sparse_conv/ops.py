@@ -170,8 +170,7 @@ def sparse_conv2d(img: torch.Tensor, wgt: torch.Tensor, *,
         out.data_ptr(), n, ic, h2, w2, oc, kh, kw, boc, bic, idx.shape[1],
         by, bx, 0 if mma else tile.groups, 0 if mma else tile.per_thread,
         tile.warps if mma else 0, tile.walk if mma else 0,
-        tile.stages if mma else 0, int(mma and tile.late),
-        int(mma and tile.epi_staged), int(mma),
+        tile.stages if mma else 0, int(mma and tile.late), int(mma),
         _build.stream_handle(img.device))
     _build.check(rc, "sparse_conv2d_fwd")
     sparse_conv2d.launches += 1

@@ -34,7 +34,7 @@ line, the current constants' mean squared log error, mean log bias,
 mean rank correlation within each shape and the geometric-mean ratio
 of the model's pick to the fastest timed schedule of each shape; for
 the bf16 conv and sparse conv lines together a coordinate search of the
-conv body's five constants (``CONV_CONSTS``) and its error, for the
+conv body's six constants (``CONV_CONSTS``) and its error, for the
 bf16 matmul lines one of the matmul body's seven (``MM_CONSTS``); for
 the sparse lines also the least-squares ``SPARSE_CALL_S`` (bf16: the
 tensor-core body's model has no other sparse constant) or, for lines of
@@ -181,7 +181,7 @@ def sparse_fit(recs):
 # to the conv and sparse conv lines: the module's names, in the order of
 # ``cm.ConvBodyConsts``'s fields
 CONV_CONSTS = ("UNIT_CYCLES", "CHUNK_CYCLES", "STEP_CYCLES", "EPI_CYCLES",
-               "LOAD_LATENCY_S")
+               "LOAD_LATENCY_S", "LATE_SHARE")
 CONV_FACTORS = (0.25, 0.5, 0.7, 0.85, 1.0, 1.2, 1.4, 2.0, 4.0)
 # the matmul body's constants, in MatmulBodyConsts' order
 MM_CONSTS = ("MM_MMA_EFF", "MM_CHUNK_S", "MM_SM_IN_BW", "MM_RING_LATENCY_S",

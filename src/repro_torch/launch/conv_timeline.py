@@ -4,18 +4,33 @@ GEMM (``conv_mma.cuh``) stamps each block's phases, and CUDA-event times
 of the real library.
 
     PYTHONPATH=src python -m repro_torch.launch.conv_timeline [--out F]
-        [--without pass|loads|mma|epilogue]
+        [--parent DIR] [--precision] [--without pass|loads|mma|epilogue]
 
 Needs a CUDA card and ``nvcc``.  Prints JSON lines:
 
 - ``layer``: each Table 4.1 layer at batch 1 and 32 at the tuner's
   rank-0 bf16 schedule: kernel ms, ``F.conv2d`` (cuDNN) ms and the bound
   (image, weights and output once at 3.35 TB/s, or the MACs at the 989
-  TFLOP/s bf16 peak), then their sums at batch 32;
+  TFLOP/s bf16 peak), then their sums at batch 32.  With ``--parent
+  DIR`` (another checkout, imported beside this tree by
+  ``parent_tree.load_parent``) the parent's own wrapper also runs at
+  its own tuner's rank-0 schedule, built from its sources, in the order
+  parent, this tree, this tree, parent, in this one process: ``ms`` and
+  ``parent_ms`` are each body's faster run, ``runs`` holds both;
 - ``sparse``: the block-sparse conv on the thesis' Fig 6.2 layer (128 x
   128, 25 x 25, 3 x 3) at batch 32 and block density 0.25: the rank-0
-  skip block and every other candidate the tuner offers, each timed,
-  beside ``F.conv2d`` on the zeroed weights and the bound;
+  skip block (ranked at the weights' own structure) and every other
+  candidate the tuner offers, each timed,
+  beside ``F.conv2d`` on the zeroed weights and the bound (with
+  ``--parent``, the parent's body at the blocks its tuner offers, and a
+  line of its own rank-0 block);
+- ``precision``: Table 4.2's long sums, 90 and 210 channels at 11 x 11
+  (10,890 and 25,410 terms a launch, batch 2, 10 x 10, scratch order,
+  block oc 15 ic 15 y 2 x 2): the worst error of this tree's body (and
+  the parent's) as a share of the bf16 tolerance against the plain
+  version and against a float64 reference, the plain version's against
+  float64, and whether two calls are bit-identical (``--precision``
+  prints only these);
 - ``phases``: one call of ``initial-conf`` (3 x 3), ``conv-final``
   (1 x 1) and the Fig 6.2 sparse layer at density 0.25, batch 32, after
   an L2 flush, from the instrumented build: the blocks, the span from
@@ -25,7 +40,8 @@ Needs a CUDA card and ``nvcc``.  Prints JSON lines:
   with its share of the block's time.  The phases are the body's marks
   (``CM_T_MARK`` in ``conv_mma.cuh``: the prologue up to the first
   multiply, the waits on loads and barriers, the issue of the next
-  loads, the channels-last pass, the MMAs, the epilogue).
+  loads, the channels-last pass, the wgmmas' issue and the waits for
+  them, the epilogue).
 
 ``--without PHASE`` builds the instrumented copy with one phase of the
 body removed (its results are wrong; only the ``phases`` lines are
@@ -45,6 +61,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.launch.parent_tree import build_all, load_parent
 
 OUT = _build.BUILD_DIR.parent / "conv_timeline"
 STAMP_WORDS = 12                 # entry ns, end ns, cycles, 8 phases, spare
@@ -81,10 +98,10 @@ ABLATIONS = {
              "  auto transpose = [&](int s) {\n    return;\n"),
     "loads": ("  auto issue = [&](int s) {\n",
               "  auto issue = [&](int s) {\n    return;\n"),
-    "mma": ("      load(fa0, fb0);\n      for (int j = 0; j < steps_k;",
-            "      for (int j = 0; j < 0;"),
-    "epilogue": ("                if (oc < a.boc) store_pair(",
-                 "                if (oc < 0) store_pair("),
+    "mma": ("              hw::WgmmaKMajor<NT>::run(acc[m], da, db, scale);\n",
+            ""),
+    "epilogue": ("store_rows(a, tb + (8 * j + ch) * plane, rows, v.x,\n"
+                 "                               v.y);", "(void)v;"),
 }
 
 
@@ -215,6 +232,42 @@ class Timer:
         return ms[len(ms) // 2]
 
 
+class Parent:
+    """Another checkout's bf16 conv and block-sparse conv
+    (:func:`parent_tree.load_parent`), each at its own tuner's rank-0
+    schedule, its sparse pixel tile from its own model."""
+
+    def __init__(self, root):
+        self.tree = load_parent(root)
+
+    def rank0(self, layer, n):
+        s = self.tree.tuner.tune_conv(layer, elem_bytes=2, top_k=1,
+                                      batch=n)[0][0]
+        return s.block_dict(), tuple(s.grid_order)
+
+    def conv(self, img, wgt, blk, order):
+        return self.tree.kernels.conv2d(img, wgt, block=blk,
+                                        grid_order=order)
+
+    def sparse_blocks(self, layer, density, n):
+        return [s.block_dict() for s, _ in self.tree.tuner.tune_sparse_conv(
+            layer, density, elem_bytes=2, top_k=1000, batch=n)]
+
+    def sparse_fn(self, img, wgt, blk):
+        sp = self.tree.sparse.analyze_weights(wgt, blk)
+        return lambda: self.tree.kernels.sparse_conv2d(img, wgt, block=blk,
+                                                       sparsity=sp)
+
+
+def _timed(timer, runs):
+    """Each (key, fn) of ``runs`` timed in the order given and then in
+    reverse (parent, tree, tree, parent): {key: [ms, ms]}."""
+    got = {}
+    for key, fn in runs + runs[::-1]:
+        got.setdefault(key, []).append(timer(fn))
+    return got
+
+
 def make_data(dev):
     """Table 4.1 images (batch 32) and weights, the Fig 6.2 layer's image
     and its weights zeroed at 16 x 16 blocks to density 0.25 (numpy seed
@@ -253,50 +306,145 @@ def emit(line, sink):
             f.write(text + "\n")
 
 
-def layer_times(timer, conv, sparse, sink):
+def layer_times(timer, conv, sparse, sink, parent=None):
     """The ``layer`` and ``sparse`` lines."""
     import torch.nn.functional as F
     from repro_torch.core import tuner
     from repro_torch.kernels import conv2d, sparse_conv2d
     from repro_torch.kernels.sparse_conv import analyze_weights
-    tot = {"ms": 0.0, "cudnn_ms": 0.0, "bound_ms": 0.0}
+    keys = ("ms", "cudnn_ms", "bound_ms") + (("parent_ms",) if parent
+                                             else ())
+    tot = {k: 0.0 for k in keys}
     for n in (1, 32):
         for name, (l, img32, wgt) in conv.items():
             img = img32[:n].contiguous()
             s = tuner.tune_conv(l, elem_bytes=2, top_k=1, batch=n)[0][0]
             blk, order = s.block_dict(), s.grid_order
             b_ms, by = bound_ms(l, n)
-            t = {"ms": timer(lambda: conv2d(img, wgt, block=blk,
-                                            grid_order=order)),
-                 "cudnn_ms": timer(lambda: F.conv2d(img, wgt)),
-                 "bound_ms": b_ms}
+            runs = [("ms", lambda: conv2d(img, wgt, block=blk,
+                                          grid_order=order))]
+            line = {"layer": name, "batch": n,
+                    "schedule": f"{''.join(a[0] for a in order)} {blk}"}
+            if parent is not None:
+                pb, po = parent.rank0(l, n)
+                runs.insert(0, ("parent_ms", lambda: parent.conv(
+                    img, wgt, pb, po)))
+                line["parent_schedule"] = f"{''.join(a[0] for a in po)} {pb}"
+            got = _timed(timer, runs)
+            t = {k: min(v) for k, v in got.items()}
+            t["cudnn_ms"] = timer(lambda: F.conv2d(img, wgt))
+            t["bound_ms"] = b_ms
             if n == 32:
                 for k in tot:
                     tot[k] += t[k]
-            emit({"layer": name, "batch": n,
-                          "schedule": f"{''.join(a[0] for a in order)} {blk}",
-                          **{k: round(v, 4) for k, v in t.items()},
-                          "bound_by": by,
-                  "ratio_to_cudnn": round(t["ms"] / t["cudnn_ms"], 3)},
-                 sink)
-    emit({"layer": "sum of the 8 at batch 32",
-                  **{k: round(v, 4) for k, v in tot.items()},
-          "ratio_to_cudnn": round(tot["ms"] / tot["cudnn_ms"], 3)}, sink)
+            line.update({k: round(t[k], 4) for k in keys})
+            line.update({"bound_by": by,
+                         "ratio_to_cudnn": round(t["ms"] / t["cudnn_ms"], 3),
+                         "runs": {k: [round(x, 4) for x in v]
+                                  for k, v in got.items()}})
+            emit(line, sink)
+    line = {"layer": "sum of the 8 at batch 32",
+            **{k: round(v, 4) for k, v in tot.items()},
+            "ratio_to_cudnn": round(tot["ms"] / tot["cudnn_ms"], 3)}
+    if parent is not None:
+        line["ratio_to_parent"] = round(tot["ms"] / tot["parent_ms"], 3)
+    emit(line, sink)
     l, img, wgt = sparse
     cands = [s.block_dict() for s, _ in tuner.tune_sparse_conv(
-        l, 0.25, elem_bytes=2, top_k=1000, batch=32)]
+        l, 0.25, elem_bytes=2, top_k=1000, batch=32, weights=wgt)]
+    theirs = parent.sparse_blocks(l, 0.25, 32) if parent else []
     lib_ms = timer(lambda: F.conv2d(img, wgt))
     b_ms, by = bound_ms(l, 32, analyze_weights(wgt, {"oc": 16, "ic": 16})
                         .density)
     for rank, blk in enumerate(cands):
         sp = analyze_weights(wgt, blk)
-        ms = timer(lambda: sparse_conv2d(img, wgt, block=blk, sparsity=sp))
+        runs = [("ms", lambda: sparse_conv2d(img, wgt, block=blk,
+                                             sparsity=sp))]
+        if blk in theirs:
+            runs.insert(0, ("parent_ms", parent.sparse_fn(img, wgt, blk)))
+        got = _timed(timer, runs)
+        ms = min(got["ms"])
+        line = {"sparse": "fig6.2 128x128 25x25 3x3 batch 32",
+                "rank": rank, "block": blk,
+                "block_density": round(sp.density, 4),
+                "ms": round(ms, 4), "cudnn_ms": round(lib_ms, 4),
+                "bound_ms": round(b_ms, 4), "bound_by": by,
+                "ratio_to_cudnn": round(ms / lib_ms, 3)}
+        if "parent_ms" in got:
+            line["parent_ms"] = round(min(got["parent_ms"]), 4)
+            line["parent_rank"] = theirs.index(blk)
+        line["runs"] = {k: [round(x, 4) for x in v] for k, v in got.items()}
+        emit(line, sink)
+    if theirs and theirs[0] not in cands:
+        got = _timed(timer, [("parent_ms",
+                              parent.sparse_fn(img, wgt, theirs[0]))])
         emit({"sparse": "fig6.2 128x128 25x25 3x3 batch 32",
-                      "rank": rank, "block": blk,
-                      "block_density": round(sp.density, 4),
-                      "ms": round(ms, 4), "cudnn_ms": round(lib_ms, 4),
-                      "bound_ms": round(b_ms, 4), "bound_by": by,
-                      "ratio_to_cudnn": round(ms / lib_ms, 3)}, sink)
+              "parent_rank": 0, "block": theirs[0],
+              "parent_ms": round(min(got["parent_ms"]), 4),
+              "cudnn_ms": round(lib_ms, 4), "bound_ms": round(b_ms, 4)},
+             sink)
+
+
+# Table 4.2's longest sums: (n, ic, h, w, oc, k) at block (oc 15, ic 15, y
+# 2, x 2), scratch order: 90 x 121 and 210 x 121 terms a launch
+LONG_SUMS = ((2, 90, 10, 10, 90, 11), (2, 210, 10, 10, 210, 11))
+LONG_BLOCK = {"oc": 15, "ic": 15, "y": 2, "x": 2}
+
+
+def _share_of_tol(got, want, peak=None):
+    """Worst |got - want| as a share of the bf16 tolerance at the
+    magnitude (``peak``, else ``want``), in float64."""
+    from repro_torch.kernels._checks import bf16_tolerance
+    diff = (got.double() - want.double()).abs()
+    mag = want.double() if peak is None else peak.double()
+    return round(float((diff / bf16_tolerance(mag)).max()), 4)
+
+
+def _exact(img, wgt):
+    """The conv in float64 (the reference the long sums are held to)."""
+    n, _, h2, w2 = img.shape
+    oc, _, kh, kw = wgt.shape
+    h, w = h2 - kh + 1, w2 - kw + 1
+    out = torch.zeros((n, oc, h, w), dtype=torch.float64, device=img.device)
+    for ky in range(kh):
+        for kx in range(kw):
+            out += torch.einsum("nihw,oi->nohw",
+                                img[:, :, ky:ky + h, kx:kx + w].double(),
+                                wgt[:, :, ky, kx].double())
+    return out
+
+
+def precision_lines(dev, sink, parent=None):
+    """The ``precision`` lines (numpy seed 0, weights scaled by 1/sqrt(ic
+    kh kw))."""
+    from repro_torch.kernels.conv2d import conv2d, conv2d_plain
+    order = ("oc", "y", "x", "ic")
+    rng = np.random.default_rng(0)
+    for n, ic, h, w, oc, k in LONG_SUMS:
+        img = torch.from_numpy(rng.standard_normal(
+            (n, ic, h + k - 1, w + k - 1), dtype=np.float32)).to(dev)
+        wgt = torch.from_numpy(rng.standard_normal(
+            (oc, ic, k, k), dtype=np.float32)
+            / np.float32((ic * k * k) ** 0.5)).to(dev)
+        img, wgt = img.to(torch.bfloat16), wgt.to(torch.bfloat16)
+        want, peak = conv2d_plain(img, wgt, block=LONG_BLOCK,
+                                  grid_order=order, with_peak=True)
+        exact = _exact(img, wgt)
+        bodies = [("tree", lambda: conv2d(img, wgt, block=LONG_BLOCK,
+                                          grid_order=order))]
+        if parent is not None:
+            bodies.append(("parent", lambda: parent.conv(img, wgt,
+                                                         LONG_BLOCK, order)))
+        line = {"precision": f"n{n} ic{ic} {h}x{w} oc{oc} k{k}",
+                "terms": ic * k * k, "block": LONG_BLOCK,
+                "plain_vs_float64": _share_of_tol(want, exact)}
+        for who, fn in bodies:
+            got = fn()
+            again = fn()
+            line[who] = _share_of_tol(got, want, peak)
+            line[f"{who}_vs_float64"] = _share_of_tol(got, exact)
+            line[f"{who}_bit_identical"] = bool(torch.equal(got, again))
+        emit(line, sink)
 
 
 def phase_lines(lib, phases, conv, sparse, dev, sink, without=None):
@@ -329,8 +477,8 @@ def phase_lines(lib, phases, conv, sparse, dev, sink, without=None):
             lib.read_cm_stamps, lib.reset_cm_stamps,
             f"{name} batch 32 {''.join(a[0] for a in order)} {blk}")
     l, img, wgt = sparse
-    blk = tuner.tune_sparse_conv(l, 0.25, elem_bytes=2, top_k=1,
-                                 batch=32)[0][0].block_dict()
+    blk = tuner.tune_sparse_conv(l, 0.25, elem_bytes=2, top_k=1, batch=32,
+                                 weights=wgt)[0][0].block_dict()
     sp = analyze_weights(wgt, blk)
     run(lambda: sparse_conv2d(img, wgt, block=blk, sparsity=sp),
         lib.read_cm_stamps_sparse, lib.reset_cm_stamps_sparse,
@@ -340,21 +488,32 @@ def phase_lines(lib, phases, conv, sparse, dev, sink, without=None):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the lines to this file")
+    ap.add_argument("--parent", help="a checkout of another commit whose "
+                    "bf16 bodies to time beside this tree's")
+    ap.add_argument("--precision", action="store_true",
+                    help="only print the precision lines")
     ap.add_argument("--without", choices=sorted(ABLATIONS),
                     help="remove this phase of the body (phases only)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("conv_timeline: needs a CUDA card")
     dev = torch.device("cuda")
-    conv, sparse = make_data(dev)
     if args.out:
         open(args.out, "w").close()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
+    parent = Parent(args.parent) if args.parent else None
     if args.without is None:
-        _build.load()
-        layer_times(Timer(dev), conv, sparse, args.out)
+        build_all([_build.load] + ([parent.tree.build.load] if parent
+                                   else []))
+        precision_lines(dev, args.out, parent)
+        if args.precision:
+            emit({"device": smi}, args.out)
+            return
+    conv, sparse = make_data(dev)
+    if args.without is None:
+        layer_times(Timer(dev), conv, sparse, args.out, parent)
     lib, phases = build(args.without)
     _build._lib = lib                 # the wrappers launch the copy
     phase_lines(lib, phases, conv, sparse, dev, args.out, args.without)

@@ -30,6 +30,7 @@ from repro_torch.kernels import (decode_attention, flash_attention,  # noqa: E40
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_ref, paged_decode_attention_ref)
 from repro_torch.kernels.flash_attention import flash_attention_ref  # noqa: E402
+from repro_torch.kernels._checks import bf16_tolerance  # noqa: E402
 from repro_torch.kernels._geometry import decode_plan  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan_ref  # noqa: E402
 from repro_torch.kernels import conv2d, matmul, sparse_conv2d  # noqa: E402
@@ -62,9 +63,7 @@ def _share_of_tol(got, want, peak=None):
     """Worst |got - want| as a share of each element's tolerance."""
     diff = (got.float() - want.float()).abs()
     if want.dtype == torch.bfloat16:
-        mag = (want.float().abs() if peak is None else peak
-               ).clamp_min(2.0 ** -126)
-        allowed = 2 * torch.exp2(torch.floor(torch.log2(mag)) - 7) + 1e-5
+        allowed = bf16_tolerance(want.float() if peak is None else peak)
     else:
         allowed = torch.full_like(diff, 1e-5)
     return (diff / allowed).max().item()
@@ -390,44 +389,57 @@ def test_cuda_bf16_conv2d_mma_edges(cuda_device, case):
 
 # The conv body's edges: rows that are not 16-byte aligned (W + KW - 1
 # odd: the cp.async covers of unaligned runs), 1 x 1, 3 x 3, 5 x 5 and
-# 11 x 11 kernels, oc and ic that are not multiples of 16, ragged pixel
-# tiles (17 and 25 pixels pad to 32), batch 1 and 32, and each layout
+# 11 x 11 kernels, oc and ic that are not multiples of 16, ragged row
+# tiles (33 rows pad to 64, 190 to 192), batch 1 and 32, and each layout
 # the rule picks: a walk with the weights resident or with the halo
 # resident, a tile narrower than the image (a halo run a row), the single
-# slot of large kernels (late), the epilogue with and without its
-# staging, 32- and 48-pixel warp tiles, scratch and read-modify-write
-# orders.
+# slot of large kernels (late), wgmma widths of 16, 32 and 64, one to
+# three 64-row tiles a warpgroup, rounds of warpgroup tiles (one-block
+# tiles run them in one step, others re-stream their channel blocks),
+# scratch and read-modify-write orders, and the long
+# sums of Table 4.2's 11 x 11 layers (10,890 and 25,410 terms a launch,
+# in accumulator parts of at most MMA_PART_K terms).
 CONV_BODY_CASES = [
     # (n, ic, h, w, oc, k), block, grid order, (walk > 1, fixed halo,
-    # late, epilogue staged, m16 tiles a warp)
+    # late, wgmma N, 64-row tiles a warpgroup tile, rows padded, rounds)
     ((32, 24, 25, 25, 40, 3), {"oc": 40, "ic": 8, "y": 5, "x": 5},
-     ("oc", "y", "x", "ic"), (True, False, False, True, 2)),
+     ("oc", "y", "x", "ic"), (True, False, False, 64, 1, 64, 1)),
     ((1, 24, 25, 25, 40, 3), {"oc": 40, "ic": 8, "y": 5, "x": 25},
-     ("oc", "y", "x", "ic"), (False, False, False, True, 2)),
+     ("oc", "y", "x", "ic"), (False, False, False, 64, 1, 192, 1)),
     ((32, 36, 13, 13, 320, 1), {"oc": 10, "ic": 12, "y": 13, "x": 13},
-     ("y", "x", "oc", "ic"), (True, True, False, True, 2)),
+     ("y", "x", "oc", "ic"), (True, True, False, 16, 1, 192, 1)),
     ((2, 20, 17, 19, 24, 5), {"oc": 24, "ic": 20, "y": 17, "x": 1},
-     ("oc", "x", "y", "ic"), (False, False, False, True, 2)),
+     ("oc", "x", "y", "ic"), (False, False, False, 32, 1, 128, 1)),
     ((2, 10, 10, 10, 10, 11), {"oc": 10, "ic": 10, "y": 10, "x": 10},
-     ("oc", "y", "x", "ic"), (False, False, True, True, 2)),
+     ("oc", "y", "x", "ic"), (False, False, False, 16, 1, 192, 1)),
     ((32, 16, 14, 14, 48, 11), {"oc": 16, "ic": 8, "y": 7, "x": 7},
-     ("oc", "y", "x", "ic"), (False, False, True, True, 2)),
+     ("oc", "y", "x", "ic"), (False, False, False, 16, 1, 128, 1)),
     ((32, 48, 13, 13, 64, 3), {"oc": 64, "ic": 16, "y": 13, "x": 13},
-     ("ic", "oc", "y", "x"), (False, False, False, True, 2)),
+     ("ic", "oc", "y", "x"), (False, False, False, 64, 1, 256, 1)),
     ((32, 32, 28, 28, 64, 3), {"oc": 16, "ic": 16, "y": 7, "x": 14},
-     ("ic", "oc", "y", "x"), (True, False, False, True, 2)),
+     ("ic", "oc", "y", "x"), (True, False, False, 16, 1, 128, 1)),
     ((3, 40, 15, 15, 48, 3), {"oc": 16, "ic": 8, "y": 5, "x": 15},
-     ("ic", "y", "x", "oc"), (False, True, False, True, 2)),
-    # no room for the epilogue's staging: the fragments' own pairs (a
-    # walk with the weights resident, one slot)
-    ((2, 15, 10, 10, 90, 11), {"oc": 15, "ic": 15, "y": 2, "x": 2},
-     ("oc", "y", "x", "ic"), (True, False, True, False, 2)),
-    # 48-pixel warp tiles (625 pixels in one round of 14 warps, or two
-    # of 16), read-modify-write and with the halo fixed
+     ("ic", "y", "x", "oc"), (False, True, False, 16, 1, 128, 1)),
+    # Table 4.2's long sums, one launch each: 90 and 210 channels at 11 x
+    # 11 (10,890 and 25,410 terms), the single slot
+    ((2, 90, 10, 10, 90, 11), {"oc": 15, "ic": 15, "y": 2, "x": 2},
+     ("oc", "y", "x", "ic"), (False, False, True, 16, 1, 64, 1)),
+    ((2, 210, 10, 10, 210, 11), {"oc": 15, "ic": 15, "y": 2, "x": 2},
+     ("oc", "y", "x", "ic"), (False, False, True, 16, 1, 64, 1)),
+    # 25 x 25 tiles: three 64-row tiles a warpgroup in one round
+    # (read-modify-write), or two in two rounds that re-stream the two
+    # channel blocks (the halo fixed)
     ((4, 48, 25, 25, 64, 3), {"oc": 32, "ic": 16, "y": 25, "x": 25},
-     ("ic", "oc", "y", "x"), (False, False, False, True, 3)),
+     ("ic", "oc", "y", "x"), (False, False, False, 32, 3, 768, 1)),
     ((2, 32, 25, 25, 40, 3), {"oc": 40, "ic": 16, "y": 25, "x": 25},
-     ("y", "x", "oc", "ic"), (False, True, False, True, 3)),
+     ("y", "x", "oc", "ic"), (False, True, False, 64, 2, 768, 2)),
+    # 1 x 1: a wide oc block in two rounds that re-stream two channel
+    # blocks, and rows of the whole width with the weights resident (one
+    # channel block: both rounds in one step)
+    ((32, 128, 13, 13, 1000, 1), {"oc": 200, "ic": 64, "y": 13, "x": 13},
+     ("oc", "y", "x", "ic"), (False, False, False, 64, 2, 256, 2)),
+    ((32, 32, 55, 55, 128, 1), {"oc": 128, "ic": 32, "y": 5, "x": 55},
+     ("oc", "y", "x", "ic"), (True, False, False, 64, 1, 320, 3)),
 ]
 
 
@@ -439,7 +451,9 @@ CONV_BODY_CASES = [
                               for c in CONV_BODY_CASES])
 def test_cuda_bf16_conv_body_edges(cuda_device, case):
     """The bf16 body against its plain version, with the layout the rule
-    picks for the case and the launch count of its order."""
+    picks for the case and the launch count of its order; a second call
+    is bit-identical (the accumulator parts follow the layout, not the
+    launch)."""
     from repro_torch.kernels._geometry import conv_mma_tile
     from repro_torch.kernels.conv2d import uses_scratch
     (n, ic, h, w, oc, k), block, order, layout = case
@@ -447,8 +461,8 @@ def test_cuda_bf16_conv_body_edges(cuda_device, case):
     tile = conv_mma_tile(block["oc"], block["ic"], block["y"], block["x"],
                          k, k, oc=oc, ic=ic, h=h, w=w, batch=n, order=order)
     assert tile.error is None
-    assert (tile.walk > 1, tile.fixed_halo, tile.late, tile.epi_staged,
-            tile.m_tiles) == layout
+    assert (tile.walk > 1, tile.fixed_halo, tile.late, tile.nt, tile.mt,
+            tile.m_pad, tile.rounds) == layout
     g = torch.Generator(device=cuda_device).manual_seed(ic + oc + k + n)
     img = torch.randn(n, ic, h + k - 1, w + k - 1, generator=g,
                       device=cuda_device).to(torch.bfloat16)
@@ -457,9 +471,10 @@ def test_cuda_bf16_conv_body_edges(cuda_device, case):
     before = conv2d.launches
     got = conv2d(img, wgt, block=block, grid_order=order)
     torch.cuda.synchronize()
+    assert conv2d.launches - before == (1 if scratch else ic // block["ic"])
+    assert torch.equal(conv2d(img, wgt, block=block, grid_order=order), got)
     want, peak = conv2d_plain(img, wgt, block=block, grid_order=order,
                               with_peak=True)
-    assert conv2d.launches - before == (1 if scratch else ic // block["ic"])
     assert _share_of_tol(got, want, peak) <= 1.0
 
 

@@ -29,7 +29,8 @@ from repro_torch.core import sparsity, tuner  # noqa: E402
 from repro_torch.core.loopnest import ConvLayer  # noqa: E402
 from repro_torch.kernels import _geometry as geo  # noqa: E402
 from repro_torch.kernels import conv2d, matmul  # noqa: E402
-from repro_torch.kernels.conv2d import conv2d_plain  # noqa: E402
+from repro_torch.kernels.conv2d import (conv2d_plain,  # noqa: E402
+                                        uses_scratch)
 from repro_torch.kernels.matmul import matmul_plain  # noqa: E402
 
 QKV = (512, 9216, 3072)
@@ -66,49 +67,59 @@ def _assert_close(got, want, peak=None):
 
 @pytest.mark.parametrize("block,kernel,problem,order,want", [
     # (boc, bic, by, bx), (kh, kw), (oc, ic, h, w) at batch 32, output
-    # order -> (p16, boc16, bic_pad, warps, rounds, m16 tiles a warp),
-    # (walk, stages, late, fixed halo)
+    # order -> (rows, rows padded to 64 mt, wgmma N, mt, oc_pad, bic_pad,
+    # warps, rounds), (walk, stages, late, fixed halo)
     ((40, 64, 13, 13), (1, 1), (1000, 512, 13, 13), "oyx",
-     ((176, 48, 64, 12, 1, 2), (1, 3, False, False))),
+     ((169, 192, 64, 1, 64, 64, 12, 1), (1, 3, False, False))),
     ((125, 16, 1, 13), (1, 1), (1000, 512, 13, 13), "oyx",
-     ((16, 128, 16, 8, 1, 2), (1, 3, False, False))),
+     ((13, 64, 64, 1, 128, 16, 8, 1), (1, 3, False, False))),
     ((125, 16, 1, 13), (1, 1), (1000, 512, 13, 13), "yxo",
-     ((16, 128, 16, 8, 1, 2), (1, 3, False, True))),
+     ((13, 64, 64, 1, 128, 16, 8, 1), (1, 3, False, True))),
     ((200, 16, 1, 13), (1, 1), (1000, 512, 13, 13), "yxo",
-     ((16, 208, 16, 8, 1, 2), (1, 3, False, True))),
+     ((13, 64, 64, 1, 256, 16, 16, 1), (1, 3, False, True))),
     ((32, 32, 14, 28), (3, 3), (256, 32, 28, 28), "yxo",
-     ((400, 32, 32, 13, 1, 2), (4, 3, True, True))),
+     ((418, 448, 32, 1, 32, 32, 16, 2), (4, 3, False, True))),
     ((64, 8, 5, 11), (3, 3), (64, 16, 55, 55), "oyx",
-     ((64, 64, 16, 8, 1, 2), (7, 3, False, False))),
+     ((63, 64, 64, 1, 64, 16, 8, 1), (7, 3, False, False))),
     ((128, 32, 11, 11), (1, 1), (128, 32, 55, 55), "oyx",
-     ((128, 128, 32, 16, 1, 2), (7, 3, False, False))),
+     ((121, 128, 64, 1, 128, 32, 16, 1), (7, 3, False, False))),
     ((128, 16, 13, 13), (3, 3), (256, 64, 13, 13), "oyx",
-     ((176, 128, 16, 16, 1, 3), (1, 3, True, False))),
+     ((193, 256, 64, 2, 128, 16, 16, 1), (1, 2, False, False))),
     ((32, 16, 25, 25), (3, 3), (128, 128, 25, 25), "oyx",
-     ((640, 32, 16, 14, 1, 3), (1, 3, False, False))),
+     ((673, 768, 32, 3, 32, 16, 16, 1), (1, 3, False, False))),
     ((64, 16, 25, 25), (3, 3), (128, 128, 25, 25), "oyx",
-     ((640, 64, 16, 16, 2, 3), (1, 3, True, False))),
+     ((673, 768, 64, 2, 64, 16, 16, 2), (1, 3, False, False))),
     ((13, 1, 1, 1), (1, 1), (13, 1, 1, 1), "oyx",
-     ((16, 16, 16, 8, 1, 2), (1, 3, False, False))),
+     ((1, 64, 16, 1, 16, 16, 8, 1), (1, 3, False, False))),
     ((10, 10, 10, 10), (11, 11), (10, 10, 10, 10), "oyx",
-     ((112, 16, 16, 8, 1, 2), (1, 3, True, False))),
+     ((190, 192, 16, 1, 16, 16, 12, 1), (1, 2, False, False))),
+    ((15, 15, 2, 2), (11, 11), (90, 90, 10, 10), "oyx",
+     ((14, 64, 16, 1, 16, 16, 8, 1), (1, 2, True, False))),
 ], ids=str)
 def test_conv_mma_layout_pads_to_the_mma_shape(block, kernel, problem, order,
                                                want):
-    """Pixels, oc and ic pad to 16; 32 x 32 warp tiles, or 48 x 32 where
-    that takes fewer rounds, 8 to 16 warps, rounds past 16; a walk keeps
-    the weights resident (oc before the pixel axes) or the halo (oc
-    last) where it takes fewer waves times tiles; an 11 x 11 kernel takes
-    the single-slot layout; every such tile fits, and the layout covers
-    the launch's tiles."""
+    """The rows are the halo's pixels up to the last stored one ((by - 1)
+    (bx + kw - 1) + bx: a 1 x 1 kernel's are its pixels, a k x k kernel's
+    carry kw - 1 junk columns a row) padded to 64 mt, mt the fewest 64-row
+    tiles a warpgroup holds (up to 3, 2 at N 64) that take one round where
+    a tile sums several channel blocks, else 1; oc pads to the wgmma width
+    that reads the fewest bytes (16, 32 or 64), ic to 16; 2 to 4
+    warpgroups, rounds past 4; a walk keeps the weights resident (oc
+    before the pixel axes) or the halo (oc last) where it takes fewer
+    waves times tiles; an 11 x 11 kernel of 16 oc fits two slots of each
+    operand at 10 x 10 pixels, and takes the single slot at 2 x 2 pixels
+    of 90 channels; every such tile fits, and the layout covers the
+    launch's tiles."""
     oc, ic, h, w = problem
     axes = {"o": "oc", "y": "y", "x": "x"}
     t = geo.conv_mma_tile(*block, *kernel, oc=oc, ic=ic, h=h, w=w, batch=32,
                           order=tuple(axes[a] for a in order))
-    assert (t.p16, t.boc16, t.bic_pad, t.warps, t.rounds,
-            t.m_tiles) == want[0]
+    assert (t.rows, t.m_pad, t.nt, t.mt, t.boc_pad, t.bic_pad, t.warps,
+            t.rounds) == want[0]
     assert (t.walk, t.stages, t.late, t.fixed_halo) == want[1]
     assert t.error is None and t.threads == 32 * t.warps
+    wg_m, wg_n = t.wg_tiles
+    assert t.rounds == -(-wg_m * wg_n // (t.warps // 4))
     # each group's tiles in walks of `walk`, the last one ragged
     assert t.blocks == t.tiles // t.group * -(-t.group // t.walk)
 
@@ -116,6 +127,8 @@ def test_conv_mma_layout_pads_to_the_mma_shape(block, kernel, problem, order,
 @pytest.mark.parametrize("block,kernel,problem", [
     ((256, 64, 13, 13), (3, 3), (256, 64, 13, 13)),
     ((40, 512, 13, 13), (1, 1), (1000, 512, 13, 13)),
+    # 11 x 11 weights of 64 oc x 32 channels: 248 KB a slot
+    ((64, 32, 2, 2), (11, 11), (210, 210, 10, 10)),
 ], ids=str)
 def test_conv_mma_layout_refuses_what_does_not_fit(block, kernel, problem):
     oc, ic, h, w = problem
@@ -123,6 +136,48 @@ def test_conv_mma_layout_refuses_what_does_not_fit(block, kernel, problem):
         t = geo.conv_mma_tile(*block, *kernel, oc=oc, ic=ic, h=h, w=w,
                               batch=batch)
         assert "shared memory" in t.error
+
+
+@pytest.mark.parametrize("ic,blocks", [(90, 6), (210, 14)])
+@pytest.mark.parametrize("order", [("oc", "y", "x", "ic"),
+                                   ("ic", "oc", "y", "x")])
+def test_conv_mma_accumulator_parts_hold_mma_part_k(ic, blocks, order):
+    """Table 4.2's long sums at 11 x 11 (10,890 and 25,410 terms in the
+    scratch order's one launch; 1,815 in each launch of a
+    read-modify-write order): no accumulator part sums more than
+    MMA_PART_K terms; the parts are whole channel blocks in order, all
+    but the last as many as fit; a channel block of more than MMA_PART_K
+    terms is refused."""
+    oc, h, w, k = ic, 10, 10, 11
+    blk = {"oc": 15, "ic": 15, "y": 2, "x": 2}
+    t = geo.conv_mma_tile(blk["oc"], blk["ic"], blk["y"], blk["x"], k, k,
+                          oc=oc, ic=ic, h=h, w=w, batch=2,
+                          order=tuple(a for a in order if a != "ic"))
+    assert t.error is None
+    assert blk in tuner.conv_blocks(ConvLayer(oc, ic, h, w, k, k), 2)
+    summed = blocks if uses_scratch(order) else 1
+    parts = t.parts(summed)
+    assert t.block_ksteps == k * k * t.bic_pad // 16
+    assert sum(parts) == summed * t.block_ksteps
+    # terms: the block's 15 channels of each 16-channel k step
+    assert max(parts) * 16 <= geo.MMA_PART_K
+    assert max(parts) * blk["ic"] * t.bic_pad // 16 <= geo.MMA_PART_K
+    assert all(p % t.block_ksteps == 0 for p in parts)
+    assert all(p == parts[0] for p in parts[:-1])
+    assert parts[0] + t.block_ksteps > t.part_k or len(parts) == 1
+    if summed * k * k * blk["ic"] > geo.MMA_PART_K:
+        assert len(parts) > 1
+    # 42 channels at 11 x 11 pad to 48: 363 k16 steps a block
+    wide = geo.conv_mma_tile(15, 42, 2, 2, k, k, oc=oc, ic=ic, h=h, w=w,
+                             batch=2)
+    assert "k16 steps" in wide.error
+    assert {"oc": 15, "ic": 42, "y": 2, "x": 2} not in tuner.conv_blocks(
+        ConvLayer(oc, ic, h, w, k, k), 2)
+    # Table 4.1's longest sum (fire9-conv3x3-2, 64 x 9 = 576) is one part
+    layer = TABLE_4_1["fire9-conv3x3-2"]
+    t41 = geo.conv_mma_tile(64, 64, 13, 13, 3, 3, oc=layer.oc, ic=layer.ic,
+                            h=layer.h, w=layer.w)
+    assert t41.parts(1) == (36,)
 
 
 OFFERED_LAYERS = [(n, b) for n in TABLE_4_1 for b in (1, 32)]
@@ -384,6 +439,56 @@ def test_matmul_timeline_parent_runs_its_own_wrapper_at_its_rank0():
                                     resident_rhs=res))
 
 
+def test_conv_timeline_parent_runs_its_own_wrappers_at_its_rank0():
+    """``conv_timeline --parent DIR`` (here the tree itself, imported
+    beside it by ``launch/parent_tree.py``) ranks each layer with the
+    parent's own tuner and calls the parent's own conv and block-sparse
+    conv wrappers, the latter at the parent's own pixel rule (a function
+    of the parent that imports a module of the package at call time gets
+    the parent's module); on the CPU they run their plain versions."""
+    from pathlib import Path
+    from repro_torch.kernels import sparse_conv2d
+    from repro_torch.kernels.sparse_conv import (analyze_weights,
+                                                 sparse_conv_plain)
+    from repro_torch.launch import conv_timeline as ct
+    root = Path(ct.__file__).resolve().parents[3]
+    parent = ct.Parent(root)
+    assert parent.tree.tuner is not tuner
+    assert parent.tree.kernels.conv2d is not conv2d
+    assert parent.tree.kernels.sparse_conv2d is not sparse_conv2d
+    layer = TABLE_4_1["fire9-conv3x3-2"]
+    for n in (1, 32):
+        s = tuner.tune_conv(layer, elem_bytes=2, top_k=1, batch=n)[0][0]
+        assert parent.rank0(layer, n) == (s.block_dict(),
+                                          tuple(s.grid_order))
+    g = torch.Generator().manual_seed(0)
+    img = torch.randn(1, 8, 7, 7, generator=g)
+    wgt = torch.randn(16, 8, 3, 3, generator=g)
+    wgt[8:, :4] = 0.0
+    blk, order = {"oc": 8, "ic": 4, "y": 5, "x": 5}, ("oc", "y", "x", "ic")
+    assert torch.equal(parent.conv(img, wgt, blk, order),
+                       conv2d_plain(img, wgt, block=blk, grid_order=order))
+    skip = {"oc": 8, "ic": 4}
+    sp = analyze_weights(wgt, skip)
+    assert torch.equal(parent.sparse_fn(img, wgt, skip)(),
+                       sparse_conv_plain(img, wgt, sp.idx, sp.counts, skip))
+    import repro_torch.core.sparsity as mine
+
+    def refuse(*args):
+        raise AssertionError("the parent called this tree's pixel rule")
+
+    pick = parent.tree.sparse.ops._pixel_tile.__wrapped__
+    want = parent.tree.sparsity.sparse_pixel_tile(layer, 32, 16, 32)
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(mine, "sparse_pixel_tile", refuse)
+        assert pick(layer, 32, 16, 32) == want
+    assert parent.sparse_blocks(ConvLayer(128, 128, 25, 25, 3, 3), 0.25,
+                                32) == [
+        b.block_dict() for b, _ in tuner.tune_sparse_conv(
+            ConvLayer(128, 128, 25, 25, 3, 3), 0.25, elem_bytes=2,
+            top_k=1000, batch=32)]
+
+
 def test_layouts_follow_the_dtype():
     assert geo.tensor_cores(2) and not geo.tensor_cores(4)
     assert isinstance(geo.conv_layout(16, 16, 4, 4, 3, 3, 2),
@@ -430,27 +535,30 @@ def test_every_bf16_conv_candidate_is_timed(name):
 
 
 @pytest.mark.parametrize("more,less,pad", [
-    # a 1 x 13 pixel tile pads 13 rows to 16, a 13 x 13 one 169 to 176
+    # a 1 x 13 pixel tile pads 13 rows to 64, a 13 x 13 one 169 to 192
     ({"oc": 50, "ic": 32, "y": 1, "x": 13},
-     {"oc": 50, "ic": 32, "y": 13, "x": 13}, (16 / 13) / (176 / 169)),
-    # 100 output channels pad to 112, 125 to 128
+     {"oc": 50, "ic": 32, "y": 13, "x": 13}, (64 / 13) / (192 / 169)),
+    # 100 output channels pad to 128, 125 to 128
     ({"oc": 100, "ic": 32, "y": 13, "x": 13},
-     {"oc": 125, "ic": 32, "y": 13, "x": 13}, (112 / 100) / (128 / 125)),
+     {"oc": 125, "ic": 32, "y": 13, "x": 13}, (128 / 100) / (128 / 125)),
 ], ids=["pixels", "channels"])
 def test_bf16_conv_charges_the_mma_padding(more, less, pad,
                                           monkeypatch):
     """With load latency, staging (cp.async and channels-last units,
-    steps, the epilogue), memory and shared-memory reads made free,
+    steps, the epilogue), memory and shared-memory traffic made free,
     conv-final's time is its padded MMA work: the tile that pads more
     costs at least the padding's ratio more, and at most 10% past it."""
     layer = TABLE_4_1["conv-final"]
-    monkeypatch.setattr(cm, "LOAD_LATENCY_S", 1e-15)
+    monkeypatch.setattr(cm, "LOAD_LATENCY_S", 0.0)
     monkeypatch.setattr(cm, "UNIT_CYCLES", 0.0)
     monkeypatch.setattr(cm, "CHUNK_CYCLES", 0.0)
     monkeypatch.setattr(cm, "STEP_CYCLES", 0.0)
     monkeypatch.setattr(cm, "EPI_CYCLES", 0.0)
-    free = dataclasses.replace(cm.H100Spec(), launch_s=0.0, l2_bw=1e30,
-                               hbm_bw=1e30, smem_read_bytes=10 ** 9)
+    # one SM: its blocks run in turn, so no partly filled last wave of
+    # either tile stands between the times and the padding
+    free = dataclasses.replace(cm.H100Spec(), sms=1, launch_s=0.0,
+                               l2_bw=1e30, hbm_bw=1e30,
+                               smem_read_bytes=10 ** 9)
     t = cm.conv_schedule_cost_batch(layer, [("oc", "y", "x", "ic")],
                                     [more, less], free, batch=4096).time_s[0]
     assert pad * (1 - 1e-9) <= t[0] / t[1] <= pad * 1.1
@@ -461,12 +569,13 @@ def test_registry_record_of_h100_1_is_not_returned_under_h100_2(
     """Rankings cached by the CUDA-core-only model (``h100-1``) miss
     under the current model (``h100-6`` since the bf16 conv body was
     redesigned, ``h100-7`` since the bf16 matmul body was redesigned,
-    ``h100-8`` since flash has one bf16 body at the models' head dims;
+    ``h100-8`` since flash has one bf16 body at the models' head dims,
+    ``h100-9`` since the bf16 conv body runs on wgmma;
     ``h100-5`` when flash attention and the decode gained
     their second bodies; ``h100-4`` when the serving kernels joined it;
     ``h100-3`` when the bf16 sparse conv moved to the tensor cores): the
     tuner ranks anew."""
-    assert cm.COST_MODEL_VERSION == "h100-8"
+    assert cm.COST_MODEL_VERSION == "h100-9"
     path = str(tmp_path / "t.jsonl")
     layer = TABLE_4_1["fire9-conv3x3-2"]
     monkeypatch.setattr(cm, "COST_MODEL_VERSION", "h100-1")
@@ -476,7 +585,7 @@ def test_registry_record_of_h100_1_is_not_returned_under_h100_2(
     fresh = reg.TuningRegistry(path)
     assert fresh.get(old_key) is not None
     new_key = reg.conv_schedule_key(layer, cm.H100Spec())
-    assert new_key.cost_model == "h100-8" and fresh.get(new_key) is None
+    assert new_key.cost_model == "h100-9" and fresh.get(new_key) is None
     before = cm.total_evals()
     tuner.cached_tune_conv(layer, registry=fresh)
     assert cm.total_evals() > before
@@ -646,6 +755,66 @@ def test_sparse_pixel_tile_divides_the_image(name, batch):
             blk["oc"], blk["ic"], by, bx, layer.kh, layer.kw, **problem,
             order=("oc", "y", "x"), n_fixed=n_ic,
             extra=-(-4 * n_ic // 16) * 16)
+
+
+def _fig62_weights(density=0.25, seed=0):
+    """Fig 6.2's layer's weights zeroed at 16 x 16 blocks where a uniform
+    draw is >= ``density``."""
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((128, 128, 3, 3)).astype(np.float32)
+    drop = rng.random((8, 8)) >= density
+    for o, i in zip(*np.nonzero(drop)):
+        w[o * 16:(o + 1) * 16, i * 16:(i + 1) * 16] = 0.0
+    return torch.from_numpy(w)
+
+
+def test_sparse_tuner_scores_each_block_at_the_weights_structure():
+    """Given the weights, the sparse tuner scores each skip block at the
+    block density and busiest oc block that ``analyze_weights`` finds at
+    that block, not at one density for every granularity: a structure
+    zeroed at 16 x 16 leaves at least as large a share of every coarser
+    block nonzero."""
+    from repro_torch.kernels.sparse_conv import analyze_weights
+    layer = ConvLayer(128, 128, 25, 25, 3, 3)
+    w = _fig62_weights()
+    blocks = tuner.sparse_blocks(layer, 2)
+    dens, busiest = sparsity.block_structure(w, blocks)
+    fine = analyze_weights(w, {"oc": 16, "ic": 16}).density
+    for j, blk in enumerate(blocks):
+        sp = analyze_weights(w, blk)
+        assert dens[j] == pytest.approx(sp.density)
+        assert busiest[j] == sp.counts.max()
+        assert dens[j] >= fine - 1e-12
+    assert max(dens) > fine
+    want = cm.sparse_conv_schedule_cost_batch(layer, blocks, dens, 32,
+                                              busiest=busiest).time_s
+    ranked = tuner.tune_sparse_conv(layer, 0.25, batch=32,
+                                    top_k=len(blocks), weights=w)
+    assert len(ranked) == len(blocks)
+    for s, c in ranked:
+        j = blocks.index(s.block_dict())
+        assert c.time_s == pytest.approx(want[j], rel=1e-12)
+    assert [c.time_s for _, c in ranked] == sorted(c.time_s
+                                                   for _, c in ranked)
+
+
+@pytest.mark.parametrize("batch", [1, 32])
+def test_sparse_cost_charges_the_busiest_oc_block(batch):
+    """At the same block density, an oc block with more nonzero channel
+    blocks than the mean lengthens the bf16 sparse launch by its excess
+    (it runs on one SM), and one at the mean costs what the density
+    alone says."""
+    layer = ConvLayer(128, 128, 25, 25, 3, 3)
+    blk = {"oc": 32, "ic": 16}
+    even = cm.sparse_conv_schedule_cost_batch(layer, [blk], 0.5, batch)
+    # 0.5 of 8 channel blocks: 4 a block on average
+    at_mean = cm.sparse_conv_schedule_cost_batch(layer, [blk], 0.5, batch,
+                                                 busiest=[4])
+    busy = cm.sparse_conv_schedule_cost_batch(layer, [blk], 0.5, batch,
+                                              busiest=[8])
+    assert at_mean.time_s[0] == pytest.approx(even.time_s[0], rel=0.05)
+    assert busy.time_s[0] > at_mean.time_s[0]
+    assert (busy.hbm_bytes == even.hbm_bytes).all()
 
 
 def test_sparse_structure_keeps_its_device_index():
